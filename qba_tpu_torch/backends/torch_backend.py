@@ -1,0 +1,79 @@
+"""Batched Monte-Carlo runner on PyTorch — counterpart of
+:mod:`qba_tpu.backends.jax_backend`.
+
+A trial is a pure function of its key, so a batch is one call of
+:func:`qba_tpu_torch.rounds.engine.run_trial` on ``[trials, 2]`` keys.
+``device=None`` means CUDA: with no CUDA device :func:`run_trials`
+raises rather than quietly running on the CPU; pass ``device="cpu"`` to
+run the plain PyTorch path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from qba_tpu_torch import random as jr
+from qba_tpu_torch.config import QBAConfig
+from qba_tpu_torch.rounds.engine import TrialResult, run_trial
+
+
+@dataclasses.dataclass
+class MonteCarloResult:
+    """Aggregate over a trial batch."""
+
+    trials: TrialResult  # all per-trial fields, leading axis = trials
+    success_rate: torch.Tensor  # float32 scalar
+
+    @property
+    def n_trials(self) -> int:
+        return self.trials.decisions.shape[0]
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> the current CUDA device; raises when CUDA is absent."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "run_trials: no CUDA device (device=None means CUDA); "
+                "pass device='cpu' to run the plain PyTorch path"
+            )
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(device)
+
+
+def trial_keys(cfg: QBAConfig, device=None) -> torch.Tensor:
+    """The batch's key tree root: one key ``[2]`` per trial from the
+    config seed (``split(key(seed), trials)``)."""
+    return jr.split(jr.key(cfg.seed, device=device), cfg.trials)
+
+
+def batched_trials(cfg: QBAConfig, keys: torch.Tensor) -> TrialResult:
+    return run_trial(cfg, keys)
+
+
+def aggregate(trials: TrialResult) -> MonteCarloResult:
+    """Fold a trial batch into the Monte-Carlo summary."""
+    return MonteCarloResult(
+        trials=trials,
+        success_rate=trials.success.to(torch.float32).mean(),
+    )
+
+
+def run_trials(cfg: QBAConfig, keys: torch.Tensor | None = None, *,
+               device=None) -> MonteCarloResult:
+    """Run ``cfg.trials`` protocol executions (or one per given key) on
+    ``device`` (default: CUDA)."""
+    dev = resolve_device(device)
+    if keys is None:
+        keys = trial_keys(cfg, dev)
+    return aggregate(batched_trials(cfg, keys.to(dev)))
+
+
+def fence(res):
+    """Synchronization fence for wall-clock timing: waits for the CUDA
+    work queued so far (a no-op on the CPU).  Returns ``res``."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return res

@@ -1,0 +1,61 @@
+"""Carry state across from the JAX package (the system has no weights).
+
+Everything here takes plain Python or numpy values — what
+``dataclasses.asdict``, ``jax.random.key_data`` and ``np.asarray`` give
+on the JAX side — so a test hands both packages the same per-trial state
+(config, keys, pool, draws) without this package importing JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from qba_tpu_torch.config import QBAConfig
+
+
+def config_from_jax_fields(d: dict) -> QBAConfig:
+    """The port's config from ``dataclasses.asdict`` of a JAX
+    ``QBAConfig`` (the fields are the same)."""
+    return QBAConfig(**d)
+
+
+def key_from_jax(key_data: np.ndarray, device=None) -> torch.Tensor:
+    """Trial keys ``[..., 2]`` from ``jax.random.key_data`` (uint32 words
+    held in int64)."""
+    data = np.asarray(key_data)
+    if data.shape[-1:] != (2,):
+        raise ValueError(f"key data must end in 2 words; got {data.shape}")
+    return torch.from_numpy(data.astype(np.int64)).to(device)
+
+
+def pool_from_numpy(vals, lens, p, meta, device=None):
+    """The port's pool from the JAX pool's arrays with a leading trial
+    axis: ``vals`` ``[T, max_l, n_pool, S]`` and ``p`` ``[T, n_pool, S]``
+    (any integer or float dtype holding integers — the TPU stores bf16),
+    ``lens`` ``[T, n_pool, max_l]``, ``meta`` ``[T, n_pool, 4]``."""
+    vals, p = np.asarray(vals).astype(np.int32), np.asarray(p).astype(np.int32)
+    if vals.min(initial=0) < -1 or vals.max(initial=0) > 127:
+        raise ValueError("pool values outside the int8 range [-1, 127]")
+
+    def t(x, dt):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device, dt)
+
+    return (
+        t(vals, torch.int8),
+        t(np.asarray(lens).astype(np.int32), torch.int32),
+        t(p, torch.int8),
+        t(np.asarray(meta).astype(np.int32), torch.int32),
+    )
+
+
+def draws_from_numpy(attack, rand_v, late, device=None):
+    """One round's draw tables ``[T, n_cells, n_rv]`` as the kernel's
+    uint8 tensors (attack bits < 32, forged values < w <= 64, late 0/1)."""
+    out = []
+    for x in (attack, rand_v, late):
+        x = np.asarray(x).astype(np.int64)
+        if x.min(initial=0) < 0 or x.max(initial=0) > 255:
+            raise ValueError("draw values outside uint8")
+        out.append(torch.from_numpy(x.astype(np.uint8)).to(device))
+    return tuple(out)

@@ -1,0 +1,135 @@
+"""threefry2x32 key tree, bit-identical to ``jax.random``.
+
+A trial is a pure function of its key, so the port reproduces the exact
+derivations :mod:`qba_tpu` calls: ``key``, ``split``, ``fold_in``,
+``bits``, ``randint``, ``bernoulli`` and ``permutation``, in JAX's default
+``jax_threefry_partitionable=True`` mode (every output element hashes its
+own 64-bit flat index as the counter pair ``(hi, lo)``).  The legacy
+non-partitionable mode is not implemented.
+
+Representation: a key is an int64 tensor ``[..., 2]`` holding two uint32
+words; leading axes are a batch of independent keys (the trial axis), so
+one call draws for every trial at once.  All arithmetic is int64 with
+32-bit masks: PyTorch has no uint32 add or shift on every device.  Keys
+are explicit tensors passed in, never global state.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+_M32 = 0xFFFFFFFF
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+
+
+def key(seed: int, device=None) -> torch.Tensor:
+    """``jax.random.key(seed)``'s key data: ``[seed >> 32, seed & M32]``
+    for a seed in int32 range (JAX truncates Python ints to int32 in its
+    default 32-bit mode)."""
+    s = int(seed)
+    if not -(2**31) <= s < 2**31:
+        raise ValueError(f"seed {s} outside int32 range")
+    hi = _M32 if s < 0 else 0
+    return torch.tensor([hi, s & _M32], dtype=torch.int64, device=device)
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """The threefry2x32 block function on broadcastable int64 operands
+    holding uint32 values: returns the two output words."""
+    ks = (k0, k1, (k0 ^ k1) ^ _PARITY)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x0, x1
+
+
+def _hash_counts(keys: torch.Tensor, shape: tuple[int, ...]):
+    """threefry over the flat-index counters of ``shape`` for every key:
+    two int64 tensors ``[*batch, *shape]``."""
+    shape = tuple(int(d) for d in shape)
+    n = math.prod(shape)
+    idx = torch.arange(n, dtype=torch.int64, device=keys.device)
+    hi, lo = (idx >> 32).reshape(shape), (idx & _M32).reshape(shape)
+    expand = (...,) + (None,) * len(shape)
+    return threefry2x32(keys[..., 0][expand], keys[..., 1][expand], hi, lo)
+
+
+def split(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split``: ``[..., 2] -> [..., num, 2]``."""
+    y0, y1 = _hash_counts(keys, (num,))
+    return torch.stack([y0, y1], dim=-1)
+
+
+def fold_in(keys: torch.Tensor, data: int) -> torch.Tensor:
+    """``jax.random.fold_in`` with a Python integer (cast to uint32)."""
+    d = torch.tensor(int(data) & _M32, dtype=torch.int64, device=keys.device)
+    y0, y1 = threefry2x32(keys[..., 0], keys[..., 1], torch.zeros_like(d), d)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def bits(keys: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)``: int64 ``[..., *shape]``
+    holding uint32 values."""
+    y0, y1 = _hash_counts(keys, shape)
+    return y0 ^ y1
+
+
+def randint(keys: torch.Tensor, shape: tuple[int, ...], minval: int,
+            maxval: int) -> torch.Tensor:
+    """``jax.random.randint(..., dtype=int32)``: two draws per value, the
+    high one scaled by ``2**32 mod span`` (JAX's bias-reducing span
+    construction), int32 ``[..., *shape]``."""
+    if maxval <= minval:
+        span = 1
+    else:
+        span = (maxval - minval) & _M32
+    k = split(keys, 2)
+    higher = bits(k[..., 0, :], shape)
+    lower = bits(k[..., 1, :], shape)
+    mult = (2**16) % span
+    mult = (mult * mult) % span
+    off = (((higher % span) * mult) & _M32) + (lower % span)
+    off = (off & _M32) % span
+    return (off + minval).to(torch.int32)
+
+
+def uniform(keys: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+    """``jax.random.uniform`` in float32 on [0, 1): the top 23 bits as
+    the mantissa of a float in [1, 2), minus one."""
+    b = bits(keys, shape)
+    f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    return f - 1.0
+
+
+def bernoulli(keys: torch.Tensor, p: float,
+              shape: tuple[int, ...]) -> torch.Tensor:
+    """``jax.random.bernoulli``: ``uniform < float32(p)``, bool."""
+    u = uniform(keys, shape)
+    return u < torch.tensor(p, dtype=torch.float32, device=u.device)
+
+
+def permutation(keys: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``jax.random.permutation`` of a 1-D tensor ``x``: JAX's sort-based
+    shuffle (``ceil(3 ln n / ln(2**32 - 1))`` rounds of a stable sort by
+    fresh uint32 keys).  Returns ``[..., n]``."""
+    n = x.shape[0]
+    rounds = math.ceil(3 * math.log(max(1, n)) / math.log(2**32 - 1))
+    out = x.expand(keys.shape[:-1] + (n,))
+    for _ in range(rounds):
+        k = split(keys, 2)
+        keys, sub = k[..., 0, :], k[..., 1, :]
+        order = torch.argsort(bits(sub, (n,)), dim=-1, stable=True)
+        out = torch.gather(out, -1, order)
+    return out

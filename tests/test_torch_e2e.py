@@ -1,0 +1,130 @@
+"""The port's trial batches equal the JAX package's, trial for trial.
+
+``qba_tpu_torch.run_trials(cfg, device="cpu")`` against
+``qba_tpu.backends.jax_backend.run_trials`` on the same config (same
+seed, hence the same keys): per-trial decisions, success, accepted sets,
+overflow, honesty and commander order must be equal, for the four
+strategies at 5p/L16/d2 and 11p/L64/d3, both attack scopes, noise, racy
+delivery and an overflowing slot bound.  Both port engines (``xla`` and
+``pallas_fused``, the latter on its plain version here) are checked.
+Plus: ``device=None`` means CUDA and raises without it, and the port
+imports and runs with ``jax``, ``flax`` and ``qba_tpu`` blocked.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import qba_tpu_torch
+from qba_tpu.backends.jax_backend import run_trials as j_run_trials
+from qba_tpu.config import QBAConfig as JConfig
+from qba_tpu_torch.convert import config_from_jax_fields
+
+FIELDS = ("decisions", "success", "vi", "overflow", "honest", "v_comm")
+P5 = dict(n_parties=5, size_l=16, n_dishonest=2, trials=16)
+P11 = dict(n_parties=11, size_l=64, n_dishonest=3, trials=3)
+CASES = {
+    **{f"5p-{s}": dict(P5, strategy=s, seed=3)
+       for s in ("reference", "collude", "adaptive", "split")},
+    **{f"11p-{s}": dict(P11, strategy=s, seed=1)
+       for s in ("reference", "collude", "adaptive", "split")},
+    "5p-broadcast": dict(P5, attack_scope="broadcast", seed=4),
+    "5p-racy-noise": dict(P5, delivery="racy", p_late=0.2,
+                          p_depolarize=0.05, p_measure_flip=0.02, seed=5),
+    "5p-overflow": dict(P5, max_accepts_per_round=1, seed=2),
+}
+
+
+def jax_trials(jcfg):
+    with jax.threefry_partitionable(True):
+        res = j_run_trials(jcfg)
+        return {f: np.asarray(getattr(res.trials, f)) for f in FIELDS}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_run_trials_match_jax(case):
+    jcfg = JConfig(**CASES[case])
+    want = jax_trials(jcfg)
+    cfg = config_from_jax_fields(dataclasses.asdict(jcfg))
+    for engine in ("xla", "pallas_fused"):
+        res = qba_tpu_torch.run_trials(
+            dataclasses.replace(cfg, round_engine=engine), device="cpu"
+        )
+        for f in FIELDS:
+            assert np.array_equal(want[f], getattr(res.trials, f).numpy()), (
+                engine, f)
+        assert res.success_rate.item() == pytest.approx(
+            want["success"].mean())
+    if case == "5p-overflow":
+        assert want["overflow"].any()
+    assert not want["honest"].all()  # Byzantine parties took part
+
+
+def test_engines_agree_in_port():
+    cfg = qba_tpu_torch.QBAConfig(n_parties=7, size_l=32, n_dishonest=3,
+                                  trials=12, seed=8, strategy="adaptive")
+    a, b = (qba_tpu_torch.run_trials(
+        dataclasses.replace(cfg, round_engine=e), device="cpu").trials
+        for e in ("xla", "pallas_fused"))
+    for f in FIELDS:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def test_auto_engine_on_cpu_is_xla():
+    from qba_tpu_torch.rounds.engine import resolve_round_engine
+
+    cfg = qba_tpu_torch.QBAConfig(n_parties=5, size_l=16)
+    assert resolve_round_engine(cfg, torch.device("cpu")) == "xla"
+    assert resolve_round_engine(
+        cfg, torch.device("cuda")) == "pallas_fused"
+
+
+def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = qba_tpu_torch.QBAConfig(n_parties=3, size_l=4, n_dishonest=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        qba_tpu_torch.run_trials(cfg)
+
+
+BLOCKED_RUN = r"""
+import importlib, importlib.abc, pkgutil, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "qba_tpu"):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+import qba_tpu_torch
+for mod in pkgutil.walk_packages(qba_tpu_torch.__path__, "qba_tpu_torch."):
+    importlib.import_module(mod.name)
+import chip_smoke
+cfg = qba_tpu_torch.QBAConfig(n_parties=5, size_l=16, n_dishonest=2,
+                              trials=8, seed=1)
+res = qba_tpu_torch.run_trials(cfg, device="cpu")
+assert res.trials.decisions.shape == (8, 5)
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "flax", "qba_tpu")]
+assert not bad, bad
+print("ok", float(res.success_rate))
+"""
+
+
+def test_port_runs_with_jax_blocked():
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = repo
+    proc = subprocess.run(
+        [sys.executable, "-c", BLOCKED_RUN], cwd=repo, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("ok")
