@@ -2,7 +2,10 @@
 :mod:`qba_tpu.backends.jax_backend`.
 
 A trial is a pure function of its key, so a batch is one call of
-:func:`qba_tpu_torch.rounds.engine.run_trial` on ``[trials, 2]`` keys.
+:func:`qba_tpu_torch.rounds.engine.run_trial` on ``[trials, 2]`` keys,
+which runs the round engine ``run_trial`` picks (``auto``: the trial
+megakernel on CUDA, ``xla`` on the CPU).  ``trial_pack`` changes nothing
+here: the CUDA kernels already run one block per trial.
 ``device=None`` means CUDA: with no CUDA device :func:`run_trials`
 raises rather than quietly running on the CPU; pass ``device="cpu"`` to
 run the plain PyTorch path.

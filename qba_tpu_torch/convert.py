@@ -59,3 +59,15 @@ def draws_from_numpy(attack, rand_v, late, device=None):
             raise ValueError("draw values outside uint8")
         out.append(torch.from_numpy(x.astype(np.uint8)).to(device))
     return tuple(out)
+
+
+def stacked_draws_from_numpy(attack, rand_v, late, device=None):
+    """Every round's draw tables as the megakernel's uint8 stacks ``[T,
+    n_rounds, n_cells, n_rv]``, from JAX's round-major per-trial stacks
+    (``_stacked_draws``, ``[n_rounds, n_cells, n_rv]`` each) with a
+    leading trial axis, as ``jax.vmap`` returns them."""
+    out = draws_from_numpy(attack, rand_v, late, device)
+    if out[0].dim() != 4:
+        raise ValueError("stacked draws must be [T, n_rounds, n_cells, "
+                         f"n_rv]; got {tuple(out[0].shape)}")
+    return tuple(x.contiguous() for x in out)

@@ -3,10 +3,14 @@ them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into
-``build/qba_tpu_torch/<name>-<hash>.so`` at the repository root (the
-directory ``.gitignore`` lists), at first use, keyed by the source's
-content hash.  There is no fallback: a
-missing ``nvcc`` or a failed build raises.
+``<build_dir()>/<name>-<key>.so`` at first use.  The build key hashes
+the ``.cu`` source, every ``csrc`` header it includes (directly or
+through another header) and the ``nvcc`` flags, so an edit to a shared
+header rebuilds every kernel that includes it.  :func:`build_dir` is
+``build/qba_tpu_torch`` at the root of a checkout (the directory
+``.gitignore`` lists) and a per-user cache directory for an installed
+package.  There is no fallback: a missing ``nvcc`` or a failed build
+raises.
 """
 
 from __future__ import annotations
@@ -14,22 +18,33 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("fused_round",)
+KERNELS = ("fused_round", "trial_megakernel", "tiled_round")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
 def build_dir() -> Path:
-    return CSRC.parents[2] / "build" / "qba_tpu_torch"
+    """Where built libraries go: ``build/qba_tpu_torch`` at the root of
+    the checkout the package sits in (a directory holding
+    ``pyproject.toml`` beside the package), else
+    ``$XDG_CACHE_HOME/qba_tpu_torch`` (default ``~/.cache``)."""
+    package = CSRC.parents[1]
+    root = package.parent
+    if (root / "pyproject.toml").is_file():
+        return root / "build" / package.name
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / package.name
 
 
 def nvcc() -> str:
@@ -44,10 +59,27 @@ def nvcc() -> str:
     return found
 
 
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every ``csrc`` file it includes, in first-
+    include order."""
+    todo, seen = [CSRC / f"{name}.cu"], []
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_text()):
+            if (CSRC / inc).is_file():
+                todo.append(CSRC / inc)
+    return seen
+
+
 def _target(name: str) -> tuple[Path, Path]:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return src, build_dir() / f"{name}-{digest}.so"
+    """``(source, library)``: the library's name carries the build key."""
+    h = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(b"\0" + path.name.encode() + b"\0" + path.read_bytes())
+    return CSRC / f"{name}.cu", build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

@@ -1,0 +1,97 @@
+"""Launch plumbing shared by the port's kernel wrappers.
+
+Every wrapper (:func:`~qba_tpu_torch.ops.round_kernel_tiled.fused_round`,
+``tiled_verdict``, ``tiled_rebuild`` and
+:func:`~qba_tpu_torch.ops.trial_megakernel.trial_megakernel`) follows one
+contract: CPU tensors take the plain version, CUDA tensors launch the
+hand-written kernel or raise; inputs are checked for exact dtype, shape,
+contiguity and device before a launch; each launch adds one to the
+wrapper's ``launches`` count and, when its ``events`` attribute is a
+list, appends its ``(start, end)`` CUDA events.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from qba_tpu_torch.config import QBAConfig
+
+# The kernels keep a receiver's accepted set and a packet's per-receiver
+# verdicts as 64-bit masks.
+KERNEL_MAX_W = 64
+
+
+def check(name, x, dtype, shape, device):
+    """Raise unless ``x`` has exactly this dtype and shape, is contiguous
+    and lies on ``device``."""
+    if x.device != device:
+        raise ValueError(f"{name} on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def check_kernel_shapes(cfg: QBAConfig, kernel: str) -> None:
+    """Raise ``NotImplementedError`` where the 64-bit masks cannot hold
+    ``cfg``'s values or receivers."""
+    if cfg.w > KERNEL_MAX_W or cfg.n_lieutenants > KERNEL_MAX_W:
+        raise NotImplementedError(
+            f"the {kernel} kernel keeps values and receivers as 64-bit "
+            f"masks (w <= {KERNEL_MAX_W}, n_lieutenants <= {KERNEL_MAX_W}); "
+            f"w={cfg.w}, n_lieutenants={cfg.n_lieutenants} is not supported "
+            "on CUDA"
+        )
+
+
+def dispatch(name: str, tensors) -> bool:
+    """True to launch a kernel (the first of ``tensors`` is a CUDA
+    tensor), False for the plain version (a CPU tensor); raises on any
+    other device."""
+    dev = tensors[0].device
+    if dev.type == "cuda":
+        return True
+    if dev.type != "cpu":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return False
+
+
+def timed_launch(wrapper, fn, args, stream):
+    """Launch ``fn(*args, stream)`` on ``stream``, count it on
+    ``wrapper.launches`` and, when ``wrapper.events`` is a list, record
+    its ``(start, end)`` CUDA events."""
+    events = wrapper.events
+    if events is not None:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        start.record(stream)
+    rc = fn(*args, stream.cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{wrapper.__name__} kernel launch failed: "
+                           f"CUDA error {rc}")
+    wrapper.launches += 1
+    if events is not None:
+        end.record(stream)
+        events.append((start, end))
+
+
+def kernel_fn(library: str, symbol: str, n_ptrs: int, n_ints: int):
+    """The C entry point ``symbol`` of ``library`` with its ``ctypes``
+    signature: ``n_ptrs`` pointers, ``n_ints`` ints, then the stream."""
+    from qba_tpu_torch.ops._build import load_library
+
+    fn = getattr(load_library(library), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def ptrs(*tensors):
+    """The tensors' device addresses, in order."""
+    return [x.data_ptr() for x in tensors]

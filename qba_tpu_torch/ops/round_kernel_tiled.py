@@ -1,6 +1,8 @@
-"""The fused voting round over a compacted packet pool — counterpart of
-:func:`qba_tpu.ops.round_kernel_tiled.build_fused_round_kernel` and its
-pool helpers.
+"""The voting round over a compacted packet pool — counterpart of
+:mod:`qba_tpu.ops.round_kernel_tiled`: the fused round kernel
+(``build_fused_round_kernel``), the two-kernel tiled round
+(``build_verdict_kernel`` + ``build_rebuild_kernel``) and their pool
+helpers.
 
 Pool layout (one per trial, leading trial axis ``T``; the JAX package's
 layout with the trial axis in front): ``vals`` ``[T, max_l, n_pool,
@@ -12,20 +14,34 @@ cell id ``sender * slots + slot`` so the per-cell draws keep their
 identity.  ``vals`` and ``p`` are int8: every stored value lies in
 ``[-1, w]`` with ``w <= 64``, so int8 is exact (the TPU stores bf16).
 
-:func:`fused_round` launches the hand-written CUDA kernel
-(``csrc/fused_round.cu``) for CUDA tensors and runs
-:func:`fused_round_reference`, the plain PyTorch version, for CPU
-tensors.  A CUDA tensor never reaches the plain version.
+Three wrappers, each with its plain PyTorch version beside it:
+:func:`fused_round` (:func:`fused_round_reference`, ``csrc/fused_round.cu``),
+:func:`tiled_verdict` (:func:`verdict_reference`) and
+:func:`tiled_rebuild` (:func:`rebuild_reference`, both in
+``csrc/tiled_round.cu``).  The fused round's plain version is the
+composition of the two tiled ones; the seam between them is the accepted
+matrix ``acc`` int32 0/1 ``[T, n_pool, n_rv]``.  A wrapper launches its
+hand-written CUDA kernel for CUDA tensors and runs the plain version for
+CPU tensors; a CUDA tensor never reaches the plain version.  The
+party-sharded ``n_recv`` variants of the JAX kernels wait for the mesh
+slice (ROADMAP A12).
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
 from qba_tpu_torch.config import QBAConfig
 from qba_tpu_torch.core.types import SENTINEL
+from qba_tpu_torch.ops._launch import (
+    KERNEL_MAX_W,
+    check,
+    check_kernel_shapes,
+    dispatch,
+    kernel_fn,
+    ptrs,
+    timed_launch,
+)
 from qba_tpu_torch.ops.verdict_algebra import (
     accept_first_per_value,
     corruption_flags,
@@ -33,10 +49,6 @@ from qba_tpu_torch.ops.verdict_algebra import (
 )
 
 META_COUNT, META_V, META_SENT, META_CELL = 0, 1, 2, 3
-
-# The kernel keeps a receiver's accepted set and a packet's per-receiver
-# verdicts as 64-bit masks.
-KERNEL_MAX_W = 64
 
 
 def pool_vals_dtype(cfg: QBAConfig) -> torch.dtype:
@@ -109,49 +121,71 @@ def _by_cell(table: torch.Tensor, cell: torch.Tensor) -> torch.Tensor:
     return torch.gather(table, 1, idx.expand(idx.shape[:2] + table.shape[2:]))
 
 
-def fused_round_reference(cfg: QBAConfig, round_idx: int, pool, li, vi,
-                          honest_c, attack, rand_v, late):
-    """One voting round in plain PyTorch: the verdict of every pool packet
-    against every receiver, first-accept dedup into ``vi``, slot
-    allocation with overflow, and the successor pool.
+def verdict_reference(cfg: QBAConfig, round_idx: int, pool, li, vi,
+                      honest_c, attack, rand_v, late):
+    """Phase 1 of a round in plain PyTorch: the verdict of every pool
+    packet against every receiver and the first accept per value into
+    ``vi``.
 
     ``li`` int32 ``[T, n_rv, size_l]``, ``vi`` int32 0/1 ``[T, n_rv, w]``,
     ``honest_c`` ``[T, n_cells]``, draws ``[T, n_cells, n_rv]``.  Returns
-    ``(pool', vi' int32, overflow bool [T])``.
+    ``(acc int32 0/1 [T, n_pool, n_rv], vi' int32)``: ``acc`` is the
+    accepted matrix after first-accept dedup, as the JAX verdict kernel
+    returns it.
     """
     vals, lens, p, meta = pool
     n_trials, max_l, n_pool, s = vals.shape
     n_rv, slots, w = cfg.n_lieutenants, cfg.slots, cfg.w
     dev = vals.device
-    out = empty_pool(cfg, n_trials, dev)
+    acc = torch.zeros((n_trials, n_pool, n_rv), dtype=torch.int32,
+                      device=dev)
     sent_any = (meta[..., META_SENT] != 0).any(0).nonzero()
     if sent_any.numel() == 0:
-        no = torch.zeros(n_trials, dtype=torch.bool, device=dev)
-        return out, vi.clone(), no
+        return acc, vi.clone()
     # Packets past the last sent entry of every trial can be accepted by
     # no receiver: the verdict scans only up to it.
     n_scan = int(sent_any.max()) + 1
     vals_s = vals[:, :, :n_scan].to(torch.int32).transpose(1, 2)
     lens_s, meta_s = lens[:, :n_scan], meta[:, :n_scan]
-    p_s = p[:, :n_scan] != 0
     count, v = meta_s[..., META_COUNT], meta_s[..., META_V]
     cell = meta_s[..., META_CELL]
     honest_s = torch.gather(honest_c, 1,
                             cell.clamp(0, honest_c.shape[1] - 1).long())
-    att_s, rv_s = _by_cell(attack, cell), _by_cell(rand_v, cell)
-    use_fp = cfg.strategy == "split"
     ok, v2 = verdict(
-        vals=vals_s, lens=lens_s, count=count, p=p_s, v=v,
+        vals=vals_s, lens=lens_s, count=count, p=p[:, :n_scan] != 0, v=v,
         sent=meta_s[..., META_SENT] != 0, sender=cell // slots,
-        honest_c=honest_s, attack=att_s, rand_v=rv_s,
-        late=_by_cell(late, cell), li=li, round_idx=round_idx, w=w,
-        use_fp=use_fp,
+        honest_c=honest_s, attack=_by_cell(attack, cell),
+        rand_v=_by_cell(rand_v, cell), late=_by_cell(late, cell), li=li,
+        round_idx=round_idx, w=w, use_fp=cfg.strategy == "split",
     )
-    acc, vi_new = accept_first_per_value(ok, v2, vi != 0, w)
+    acc_s, vi_new = accept_first_per_value(ok, v2, vi != 0, w)
+    acc[:, :n_scan] = acc_s.to(torch.int32)
+    return acc, vi_new.to(torch.int32)
+
+
+def rebuild_reference(cfg: QBAConfig, round_idx: int, pool, li, acc,
+                      honest_c, attack, rand_v):
+    """Phase 2 of a round in plain PyTorch: slot allocation from the
+    accepted matrix ``acc`` ``[T, n_pool, n_rv]``, with overflow, and the
+    successor pool.  Returns ``(pool', overflow bool [T])``."""
+    vals, lens, p, meta = pool
+    n_trials, max_l, n_pool, s = vals.shape
+    n_rv, slots = cfg.n_lieutenants, cfg.slots
+    dev = vals.device
+    out = empty_pool(cfg, n_trials, dev)
+    acc_rows = (acc != 0).any(-1).any(0).nonzero()
+    if acc_rows.numel() == 0 or round_idx > cfg.n_dishonest:
+        return out, torch.zeros(n_trials, dtype=torch.bool, device=dev)
+    # Rows past the last accepted packet of every trial write nothing.
+    n_scan = int(acc_rows.max()) + 1
+    vals_s = vals[:, :, :n_scan].to(torch.int32).transpose(1, 2)
+    lens_s, meta_s = lens[:, :n_scan], meta[:, :n_scan]
+    count, v = meta_s[..., META_COUNT], meta_s[..., META_V]
+    cell = meta_s[..., META_CELL]
 
     # Slot allocation: per receiver, an exclusive prefix count of its
     # rebroadcasts in packet order; past `slots` is overflow.
-    rebroadcast = acc & (round_idx <= cfg.n_dishonest)
+    rebroadcast = acc[:, :n_scan] != 0
     rb = rebroadcast.to(torch.int64)
     slot_r = torch.cumsum(rb, 1) - rb  # [T, P, R]
     write = rebroadcast & (slot_r < slots)
@@ -181,12 +215,13 @@ def fused_round_reference(cfg: QBAConfig, round_idx: int, pool, li, vi,
     rvv_g = torch.gather(_by_cell(rand_v, cell_g), 2, r_d[..., None])[..., 0]
     hon_g = torch.gather(honest_c, 1, cell_g.long())
     _, v2_g, clear_p, clear_l, forge_p = corruption_flags(
-        hon_g, att_g[..., None], rvv_g[..., None], v_g, use_fp
+        hon_g, att_g[..., None], rvv_g[..., None], v_g,
+        cfg.strategy == "split",
     )
     v2_g, clear_p, clear_l, forge_p = (
         x[..., 0] for x in (v2_g, clear_p, clear_l, forge_p)
     )
-    p2 = (gat(p_s) & ~clear_p[..., None]) | forge_p[..., None]
+    p2 = (gat(p[:, :n_scan] != 0) & ~clear_p[..., None]) | forge_p[..., None]
     li_d = torch.gather(li, 1, r_d[..., None].expand(r_d.shape + (s,)))
     own = torch.where(p2, li_d.to(torch.int32), SENTINEL)
     own_len = p2.sum(-1).to(torch.int32)
@@ -222,19 +257,71 @@ def fused_round_reference(cfg: QBAConfig, round_idx: int, pool, li, vi,
         (hm & p2).to(vdt),
         o_meta,
     )
-    return out, vi_new.to(torch.int32), overflow
+    return out, overflow
 
 
-def _check(name, x, dtype, shape, device):
-    if x.device != device:
-        raise ValueError(f"{name} on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+def fused_round_reference(cfg: QBAConfig, round_idx: int, pool, li, vi,
+                          honest_c, attack, rand_v, late):
+    """One voting round in plain PyTorch: :func:`verdict_reference` then
+    :func:`rebuild_reference` — the verdict of every pool packet against
+    every receiver, first-accept dedup into ``vi``, slot allocation with
+    overflow, and the successor pool.
+
+    ``li`` int32 ``[T, n_rv, size_l]``, ``vi`` int32 0/1 ``[T, n_rv, w]``,
+    ``honest_c`` ``[T, n_cells]``, draws ``[T, n_cells, n_rv]``.  Returns
+    ``(pool', vi' int32, overflow bool [T])``.
+    """
+    acc, vi_new = verdict_reference(cfg, round_idx, pool, li, vi, honest_c,
+                                    attack, rand_v, late)
+    out, overflow = rebuild_reference(cfg, round_idx, pool, li, acc,
+                                      honest_c, attack, rand_v)
+    return out, vi_new, overflow
+
+
+def _check_round_inputs(cfg: QBAConfig, pool, li, honest_c, draws,
+                        vi=None, acc=None):
+    """Raise unless the round's inputs are what the kernels take: exact
+    dtypes, shapes, contiguous, on one CUDA device.  Returns the trial
+    count."""
+    vals, lens, p, meta = pool
+    n_trials = vals.shape[0]
+    n_rv, max_l, s, w = cfg.n_lieutenants, cfg.max_l, cfg.size_l, cfg.w
+    n_pool = n_rv * cfg.slots
+    dev = vals.device
+    shapes = {
+        "vals": (vals, torch.int8, (n_trials, max_l, n_pool, s)),
+        "lens": (lens, torch.int32, (n_trials, n_pool, max_l)),
+        "p": (p, torch.int8, (n_trials, n_pool, s)),
+        "meta": (meta, torch.int32, (n_trials, n_pool, 4)),
+        "li": (li, torch.int32, (n_trials, n_rv, s)),
+        "honest_c": (honest_c, torch.int32, (n_trials, n_pool)),
+    }
+    if vi is not None:
+        shapes["vi"] = (vi, torch.int32, (n_trials, n_rv, w))
+    if acc is not None:
+        shapes["acc"] = (acc, torch.int32, (n_trials, n_pool, n_rv))
+    for name, x in draws.items():
+        shapes[name] = (x, torch.uint8, (n_trials, n_pool, n_rv))
+    for name, (x, dt, shp) in shapes.items():
+        check(name, x, dt, shp, dev)
+    return n_trials
+
+
+def _check_out_pool(cfg: QBAConfig, pool, out):
+    """A successor pool of ``pool``'s shapes that aliases none of it (a
+    new one when ``out`` is None)."""
+    if out is None:
+        return empty_pool(cfg, pool[0].shape[0], pool[0].device)
+    for name, x, ref in zip(("o_vals", "o_lens", "o_p", "o_meta"), out, pool):
+        check(name, x, ref.dtype, ref.shape, ref.device)
+        if x.data_ptr() == ref.data_ptr():
+            raise ValueError(f"{name} aliases its input; pass the other "
+                             "buffer of the ping-pong pair")
+    return out
+
+
+def _dims(cfg: QBAConfig):
+    return [cfg.n_lieutenants, cfg.slots, cfg.max_l, cfg.size_l, cfg.w]
 
 
 def fused_round(cfg: QBAConfig, round_idx: int, pool, li, vi, honest_c,
@@ -248,14 +335,23 @@ def fused_round(cfg: QBAConfig, round_idx: int, pool, li, vi, honest_c,
     and writes into ``out`` (a pool of the same shapes, e.g. the previous
     round's buffers) or a new pool.  Any other input raises.
     """
-    dev = pool[0].device
-    if dev.type == "cpu":
+    if not dispatch("fused_round", pool):
         return fused_round_reference(cfg, round_idx, pool, li, vi,
                                      honest_c, attack, rand_v, late)
-    if dev.type != "cuda":
-        raise ValueError(f"fused_round: unsupported device {dev}")
-    return _launch(cfg, round_idx, pool, li, vi, honest_c, attack, rand_v,
-                   late, out)
+    check_kernel_shapes(cfg, "fused round")
+    n_trials = _check_round_inputs(
+        cfg, pool, li, honest_c,
+        dict(attack=attack, rand_v=rand_v, late=late), vi=vi)
+    out = _check_out_pool(cfg, pool, out)
+    vi_out = torch.empty_like(vi)
+    ovf = torch.empty(n_trials, dtype=torch.int32, device=vi.device)
+    fn = kernel_fn("fused_round", "qba_fused_round", 16, 9)
+    args = ptrs(*pool, li, vi, honest_c, attack, rand_v, late, *out,
+                 vi_out, ovf)
+    args += [n_trials, *_dims(cfg), cfg.n_dishonest, int(round_idx),
+             int(cfg.strategy == "split")]
+    timed_launch(fused_round, fn, args, torch.cuda.current_stream(vi.device))
+    return out, vi_out, ovf != 0
 
 
 fused_round.launches = 0
@@ -263,65 +359,66 @@ fused_round.launches = 0
 fused_round.events = None
 
 
-def _launch(cfg, round_idx, pool, li, vi, honest_c, attack, rand_v, late,
-            out):
-    if cfg.w > KERNEL_MAX_W:
-        raise NotImplementedError(
-            f"the fused round kernel keeps w <= {KERNEL_MAX_W} values as "
-            f"64-bit masks; w={cfg.w} is not supported on CUDA"
-        )
-    vals, lens, p, meta = pool
-    n_trials = vals.shape[0]
-    n_rv, slots, max_l, s, w = (cfg.n_lieutenants, cfg.slots, cfg.max_l,
-                                cfg.size_l, cfg.w)
-    n_pool = n_rv * slots
-    dev = vals.device
-    shapes = {
-        "vals": (vals, torch.int8, (n_trials, max_l, n_pool, s)),
-        "lens": (lens, torch.int32, (n_trials, n_pool, max_l)),
-        "p": (p, torch.int8, (n_trials, n_pool, s)),
-        "meta": (meta, torch.int32, (n_trials, n_pool, 4)),
-        "li": (li, torch.int32, (n_trials, n_rv, s)),
-        "vi": (vi, torch.int32, (n_trials, n_rv, w)),
-        "honest_c": (honest_c, torch.int32, (n_trials, n_pool)),
-        "attack": (attack, torch.uint8, (n_trials, n_pool, n_rv)),
-        "rand_v": (rand_v, torch.uint8, (n_trials, n_pool, n_rv)),
-        "late": (late, torch.uint8, (n_trials, n_pool, n_rv)),
-    }
-    for name, (x, dt, shp) in shapes.items():
-        _check(name, x, dt, shp, dev)
-    if out is None:
-        out = empty_pool(cfg, n_trials, dev)
-    for name, x, ref in zip(("o_vals", "o_lens", "o_p", "o_meta"), out, pool):
-        _check(name, x, ref.dtype, ref.shape, dev)
-        if x.data_ptr() == ref.data_ptr():
-            raise ValueError(f"{name} aliases its input; pass the other "
-                             "buffer of the ping-pong pair")
+def tiled_verdict(cfg: QBAConfig, round_idx: int, pool, li, vi, honest_c,
+                  attack, rand_v, late):
+    """Phase 1 of the two-launch round: ``(acc int32 [T, n_pool, n_rv],
+    vi')``.
+
+    CPU tensors run :func:`verdict_reference`; CUDA tensors launch the
+    verdict kernel (``csrc/tiled_round.cu``) with the input rules of
+    :func:`fused_round`.  Any other input raises.
+    """
+    if not dispatch("tiled_verdict", pool):
+        return verdict_reference(cfg, round_idx, pool, li, vi, honest_c,
+                                 attack, rand_v, late)
+    check_kernel_shapes(cfg, "tiled verdict")
+    n_trials = _check_round_inputs(
+        cfg, pool, li, honest_c,
+        dict(attack=attack, rand_v=rand_v, late=late), vi=vi)
+    n_pool = cfg.n_lieutenants * cfg.slots
+    acc = torch.empty((n_trials, n_pool, cfg.n_lieutenants),
+                      dtype=torch.int32, device=vi.device)
     vi_out = torch.empty_like(vi)
-    ovf = torch.empty(n_trials, dtype=torch.int32, device=dev)
+    fn = kernel_fn("tiled_round", "qba_tiled_verdict", 12, 8)
+    args = ptrs(*pool, li, vi, honest_c, attack, rand_v, late, acc, vi_out)
+    args += [n_trials, *_dims(cfg), int(round_idx),
+             int(cfg.strategy == "split")]
+    timed_launch(tiled_verdict, fn, args,
+                  torch.cuda.current_stream(vi.device))
+    return acc, vi_out
 
-    from qba_tpu_torch.ops._build import load_library
 
-    lib = load_library("fused_round")
-    fn = lib.qba_fused_round
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 9 + [
-            ctypes.c_void_p
-        ]
-        fn.restype = ctypes.c_int
-    ptrs = [x.data_ptr() for x in (vals, lens, p, meta, li, vi, honest_c,
-                                   attack, rand_v, late, *out, vi_out, ovf)]
-    stream = torch.cuda.current_stream(dev)
-    events = fused_round.events
-    if events is not None:
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
-        start.record(stream)
-    rc = fn(*ptrs, n_trials, n_rv, slots, max_l, s, w, cfg.n_dishonest,
-            int(round_idx), int(cfg.strategy == "split"), stream.cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_round kernel launch failed: CUDA error {rc}")
-    fused_round.launches += 1
-    if events is not None:
-        end.record(stream)
-        events.append((start, end))
-    return out, vi_out, ovf != 0
+tiled_verdict.launches = 0
+tiled_verdict.events = None
+
+
+def tiled_rebuild(cfg: QBAConfig, round_idx: int, pool, li, acc, honest_c,
+                  attack, rand_v, out=None):
+    """Phase 2 of the two-launch round: ``(pool', overflow bool [T])``
+    from the accepted matrix ``acc``.
+
+    CPU tensors run :func:`rebuild_reference`; CUDA tensors launch the
+    rebuild kernel (``csrc/tiled_round.cu``), writing into ``out`` (a
+    pool of the same shapes) or a new pool, with the input rules of
+    :func:`fused_round`.  Any other input raises.
+    """
+    if not dispatch("tiled_rebuild", pool):
+        return rebuild_reference(cfg, round_idx, pool, li, acc, honest_c,
+                                 attack, rand_v)
+    check_kernel_shapes(cfg, "tiled rebuild")
+    n_trials = _check_round_inputs(
+        cfg, pool, li, honest_c, dict(attack=attack, rand_v=rand_v),
+        acc=acc)
+    out = _check_out_pool(cfg, pool, out)
+    ovf = torch.empty(n_trials, dtype=torch.int32, device=acc.device)
+    fn = kernel_fn("tiled_round", "qba_tiled_rebuild", 14, 9)
+    args = ptrs(*pool, li, acc, honest_c, attack, rand_v, *out, ovf)
+    args += [n_trials, *_dims(cfg), cfg.n_dishonest, int(round_idx),
+             int(cfg.strategy == "split")]
+    timed_launch(tiled_rebuild, fn, args,
+                  torch.cuda.current_stream(acc.device))
+    return out, ovf != 0
+
+
+tiled_rebuild.launches = 0
+tiled_rebuild.events = None

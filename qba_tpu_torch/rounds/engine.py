@@ -7,17 +7,29 @@ generation, step 1b/2 orders and P-sets, step 3a, the synchronous voting
 rounds ``1..n_dishonest+1`` and the decision + success oracle.  Packet
 processing order within a round is (sender, slot) lexicographic.
 
-Two round engines: ``xla`` (:func:`run_rounds_xla`, the port's eager
-oracle on the dense mailbox, built on the executable specification
-``consistent_after_append``) and ``pallas_fused``
-(:func:`run_rounds_fused`, one launch of the fused round kernel per
-round over the compacted pool).  ``auto`` picks ``pallas_fused`` for CUDA
-tensors and ``xla`` for CPU tensors.
+Four round engines, trial-for-trial identical:
+
+* ``xla`` (:func:`run_rounds_xla`): the port's eager oracle on the dense
+  mailbox, built on the executable specification
+  ``consistent_after_append``;
+* ``pallas_fused`` (:func:`run_rounds_fused`): one launch of the fused
+  round kernel per round over the compacted pool;
+* ``pallas_tiled`` (:func:`run_rounds_tiled`): two launches per round,
+  the verdict kernel and the rebuild kernel, meeting at the accepted
+  matrix;
+* ``pallas_mega`` (:func:`run_trial_mega`): the trial megakernel, one
+  launch per batch for step 3a, every round and the decisions, on draws
+  stacked for all rounds beforehand (:func:`_stacked_draws`).
+
+``auto`` picks ``pallas_mega`` for CUDA tensors and ``xla`` for CPU
+tensors.  On CPU tensors the kernel engines run their kernels' plain
+versions.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -44,7 +56,7 @@ from qba_tpu_torch.core.types import SENTINEL
 from qba_tpu_torch.qsim import generate_lists_for
 from qba_tpu_torch.rounds.mailbox import Mailbox, mailbox_from_step3a
 
-ENGINES = ("xla", "pallas_fused")
+ENGINES = ("xla", "pallas_fused", "pallas_tiled", "pallas_mega")
 
 
 @dataclasses.dataclass
@@ -66,8 +78,8 @@ def check_supported(cfg: QBAConfig) -> None:
     if cfg.round_engine not in ("auto",) + ENGINES:
         raise NotImplementedError(
             f"round_engine={cfg.round_engine!r} is not ported yet "
-            "(ROADMAP A5/A6: the trial megakernel and the other round "
-            "engines); use 'auto', 'xla' or 'pallas_fused'"
+            "(ROADMAP A6 and queue B row 1: the dense-mailbox round "
+            "kernel); use 'auto', " + ", ".join(repr(e) for e in ENGINES)
         )
     if cfg.qsim_path != "factorized":
         raise NotImplementedError(
@@ -82,12 +94,12 @@ def check_supported(cfg: QBAConfig) -> None:
 
 
 def resolve_round_engine(cfg: QBAConfig, device: torch.device) -> str:
-    """``auto`` -> ``pallas_fused`` on CUDA, ``xla`` on the CPU; an
+    """``auto`` -> ``pallas_mega`` on CUDA, ``xla`` on the CPU; an
     explicit engine is kept."""
     check_supported(cfg)
     if cfg.round_engine != "auto":
         return cfg.round_engine
-    return "pallas_fused" if torch.device(device).type == "cuda" else "xla"
+    return "pallas_mega" if torch.device(device).type == "cuda" else "xla"
 
 
 def setup_trial(cfg: QBAConfig, keys: torch.Tensor):
@@ -227,15 +239,14 @@ def run_rounds_xla(cfg: QBAConfig, vi, mb: Mailbox, lieu_lists, honest,
     return vi, overflow
 
 
-def run_rounds_fused(cfg: QBAConfig, vi, out_cells, lieu_lists, honest,
-                     k_rounds, ctx=None):
-    """Step 3b on the fused round kernel: one
-    :func:`~qba_tpu_torch.ops.round_kernel_tiled.fused_round` per round
-    over the compacted pool, the pool ping-ponging between two buffers
-    allocated once per batch.  Returns ``(vi, overflow [T])``."""
+def _run_rounds_pool(cfg: QBAConfig, round_step, vi, out_cells, lieu_lists,
+                     honest, k_rounds, ctx):
+    """Step 3b over the compacted pool: ``round_step(r, pool, li, vi,
+    honest_c, attack, rand_v, late, out) -> (pool', vi', overflow)`` per
+    round, the pool ping-ponging between two buffers allocated once per
+    batch.  Returns ``(vi, overflow [T])``."""
     from qba_tpu_torch.ops.round_kernel_tiled import (
         empty_pool,
-        fused_round,
         honest_cells,
         pool_from_step3a,
     )
@@ -247,16 +258,105 @@ def run_rounds_fused(cfg: QBAConfig, vi, out_cells, lieu_lists, honest,
     vi_i = vi.to(torch.int32)
     overflow = torch.zeros(vi.shape[0], dtype=torch.bool, device=vi.device)
     for r in range(1, cfg.n_rounds + 1):
-        attack, rand_v, late = sample_attacks_round(
-            cfg, jr.fold_in(k_rounds, r), r, ctx
-        )
-        new, vi_i, ovf = fused_round(
-            cfg, r, pool, li, vi_i, hc, attack.to(torch.uint8),
-            rand_v.to(torch.uint8), late.to(torch.uint8), out=spare,
+        draws = sample_attacks_round(cfg, jr.fold_in(k_rounds, r), r, ctx)
+        new, vi_i, ovf = round_step(
+            r, pool, li, vi_i, hc, *(x.to(torch.uint8) for x in draws),
+            out=spare,
         )
         pool, spare = new, pool
         overflow |= ovf
     return vi_i != 0, overflow
+
+
+def run_rounds_fused(cfg: QBAConfig, vi, out_cells, lieu_lists, honest,
+                     k_rounds, ctx=None):
+    """Step 3b on the fused round kernel: one
+    :func:`~qba_tpu_torch.ops.round_kernel_tiled.fused_round` per round
+    over the compacted pool.  Returns ``(vi, overflow [T])``."""
+    from qba_tpu_torch.ops.round_kernel_tiled import fused_round
+
+    return _run_rounds_pool(
+        cfg, functools.partial(fused_round, cfg), vi, out_cells, lieu_lists,
+        honest, k_rounds, ctx,
+    )
+
+
+def run_rounds_tiled(cfg: QBAConfig, vi, out_cells, lieu_lists, honest,
+                     k_rounds, ctx=None):
+    """Step 3b on the two-kernel tiled round: per round one
+    :func:`~qba_tpu_torch.ops.round_kernel_tiled.tiled_verdict` (the
+    accepted matrix and ``vi'``) and one
+    :func:`~qba_tpu_torch.ops.round_kernel_tiled.tiled_rebuild` (the
+    successor pool).  Returns ``(vi, overflow [T])``."""
+    from qba_tpu_torch.ops.round_kernel_tiled import (
+        tiled_rebuild,
+        tiled_verdict,
+    )
+
+    def round_step(r, pool, li, vi, hc, attack, rand_v, late, out):
+        acc, vi = tiled_verdict(cfg, r, pool, li, vi, hc, attack, rand_v,
+                                late)
+        new, ovf = tiled_rebuild(cfg, r, pool, li, acc, hc, attack, rand_v,
+                                 out=out)
+        return new, vi, ovf
+
+    return _run_rounds_pool(cfg, round_step, vi, out_cells, lieu_lists,
+                            honest, k_rounds, ctx)
+
+
+def _stacked_draws(cfg: QBAConfig, k_rounds, ctx):
+    """Every round's draws ``(attack, rand_v, late)``, each uint8
+    ``[T, n_rounds, n_pool, n_rv]`` trial-major, for the megakernel.
+
+    Round ``r``'s slab is ``sample_attacks_round(cfg, fold_in(k_rounds,
+    r), r, ctx)``, the per-round draws of the other engines, written
+    into one preallocated tensor a round at a time (at 33 parties x 1000
+    trials the three uint8 stacks are already 2.16 GB).  Every value fits
+    uint8: attack bits < 32, forged values < w <= 64, late 0/1."""
+    n_trials = k_rounds.shape[0]
+    n_pool = cfg.n_lieutenants * cfg.slots
+    shape = (n_trials, cfg.n_rounds, n_pool, cfg.n_lieutenants)
+    out = tuple(torch.empty(shape, dtype=torch.uint8, device=k_rounds.device)
+                for _ in range(3))
+    for r in range(1, cfg.n_rounds + 1):
+        draws = sample_attacks_round(cfg, jr.fold_in(k_rounds, r), r, ctx)
+        for dst, x in zip(out, draws):
+            dst[:, r - 1] = x
+    return out
+
+
+def run_trial_mega(cfg: QBAConfig, keys: torch.Tensor) -> TrialResult:
+    """Full protocol executions on the trial megakernel
+    (:func:`qba_tpu_torch.ops.trial_megakernel.trial_megakernel`): the
+    same key tree as :func:`setup_trial`, every round's draws stacked
+    beforehand, then step 3a, the rounds and the decisions in one launch
+    for the batch.
+
+    ``trial_pack`` (folding ``k`` trials into one TPU launch) has no
+    effect here: the CUDA grid already runs one block per trial, so a
+    packed config gives results identical to an unpacked one."""
+    from qba_tpu_torch.ops.round_kernel_tiled import honest_cells
+    from qba_tpu_torch.ops.trial_megakernel import trial_megakernel
+
+    honest, lieu_lists, p_rows, v_sent, v_comm, k_rounds = setup_trial(
+        cfg, keys
+    )
+    ctx = adversary_ctx(cfg, k_rounds, v_sent)
+    attack, rand_v, late = _stacked_draws(cfg, k_rounds, ctx)
+    vi, dec, overflow = trial_megakernel(
+        cfg, p_rows.contiguous(), lieu_lists.to(torch.int32).contiguous(),
+        v_sent.to(torch.int32).contiguous(), honest_cells(honest, cfg),
+        attack, rand_v, late,
+    )
+    decisions = torch.cat([v_comm[..., None].to(torch.int32), dec], dim=-1)
+    return TrialResult(
+        success=success_oracle(decisions, honest[..., 1:]),
+        decisions=decisions,
+        honest=honest[..., 1:],
+        v_comm=v_comm,
+        vi=vi != 0,
+        overflow=overflow,
+    )
 
 
 def finish_trial(cfg: QBAConfig, vi, v_comm, honest, overflow) -> TrialResult:
@@ -280,13 +380,18 @@ def run_trial(cfg: QBAConfig, keys: torch.Tensor) -> TrialResult:
     """Full protocol executions for a batch of trial keys ``[T, 2]`` on
     their device, with the engine :func:`resolve_round_engine` picks."""
     engine = resolve_round_engine(cfg, keys.device)
+    if engine == "pallas_mega":
+        # The megakernel absorbs step 3a and the decisions too.
+        return run_trial_mega(cfg, keys)
     honest, lieu_lists, p_rows, v_sent, v_comm, k_rounds = setup_trial(
         cfg, keys
     )
     vi, out_cells = step3a_one(cfg, p_rows, v_sent, lieu_lists)
     ctx = adversary_ctx(cfg, k_rounds, v_sent)
-    if engine == "pallas_fused":
-        vi, overflow = run_rounds_fused(
+    if engine in ("pallas_fused", "pallas_tiled"):
+        rounds = (run_rounds_fused if engine == "pallas_fused"
+                  else run_rounds_tiled)
+        vi, overflow = rounds(
             cfg, vi, out_cells, lieu_lists, honest, k_rounds, ctx
         )
     else:

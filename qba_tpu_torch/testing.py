@@ -1,0 +1,149 @@
+"""Seeded random inputs for holding the port's kernels against their
+plain versions.
+
+The protocol hands a kernel only protocol-shaped state: counts that match
+the round, lens that agree, rows that never collide, lieutenants whose
+own rows are consistent.  These inputs also reach the branches that guard
+against the rest: the verdict's rejections of out-of-range values,
+colliding rows, disagreeing lens and rows equal to the receiver's own,
+accepted matrices denser than the protocol makes, and step 3a's rejection
+of inconsistent lieutenants.  The tests compare the plain versions with
+the JAX package on :func:`random_state`; ``tests/test_torch_cuda.py`` and
+``chip_smoke.py`` compare each kernel with its plain version on
+:func:`random_round_inputs`, :func:`dense_acc` and
+:func:`random_trial_inputs`.  Everything is made with numpy from a seed.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from qba_tpu_torch.config import QBAConfig
+from qba_tpu_torch.convert import draws_from_numpy, pool_from_numpy
+
+
+def random_draws(rng, cfg: QBAConfig, shape):
+    """Attack bits, forged values and late flags of ``shape`` (numpy
+    int32): half the attacks empty, the forge-P bit only under the
+    ``split`` strategy, one delivery in ten late."""
+    top = 32 if cfg.strategy == "split" else 16
+    att = rng.integers(0, top, shape).astype(np.int32)
+    att[rng.random(shape) < 0.5] = 0
+    rv = rng.integers(0, cfg.n_parties + 1, shape).astype(np.int32)
+    late = (rng.random(shape) < 0.1).astype(np.int32)
+    return att, rv, late
+
+
+def random_state(rng, cfg: QBAConfig, round_idx: int):
+    """One trial's numpy round inputs in the JAX kernel's layout: a
+    compacted pool of protocol-shaped packets (rows over one P, values
+    mostly distinct per position, counts around the round's evidence
+    length, some rows equal to a receiver's own row), random li/vi,
+    honesty and draws."""
+    n_rv, slots, max_l, s, w = (cfg.n_lieutenants, cfg.slots, cfg.max_l,
+                                cfg.size_l, cfg.w)
+    n_pool = n_rv * slots
+    vals = np.full((max_l, n_pool, s), -1, np.int32)
+    lens = np.zeros((n_pool, max_l), np.int32)
+    p = np.zeros((n_pool, s), np.int32)
+    meta = np.zeros((n_pool, 4), np.int32)
+    li = rng.integers(0, w, (n_rv, s)).astype(np.int32)
+    n_live = int(rng.integers(1, n_pool + 1))
+    cells = np.sort(rng.choice(n_pool, n_live, replace=False))
+    for i, cell in enumerate(cells):
+        pm = rng.random(s) < 0.4
+        count = int(rng.choice([round_idx, round_idx + 1,
+                                rng.integers(0, max_l + 1)]))
+        for r in range(count):
+            vals[r, i, pm] = rng.integers(0, w, pm.sum())
+        if rng.random() < 0.7:
+            for j in np.flatnonzero(pm):
+                vals[:count, i, j] = rng.permutation(w)[:count]
+        if count and rng.random() < 0.2:  # a receiver's own row already in L
+            vals[count - 1, i] = np.where(pm, li[rng.integers(n_rv)], -1)
+        lens[i, :count] = pm.sum() if rng.random() < 0.9 else rng.integers(s)
+        p[i] = pm
+        meta[i] = (count, rng.integers(w), 1, cell)
+    vi = (rng.random((n_rv, w)) < 0.05).astype(np.int32)
+    sender_honest = rng.random(n_rv) < 0.6
+    hc = np.repeat(sender_honest, slots).astype(np.int32)[:, None]
+    att, rv, late = random_draws(rng, cfg, (n_pool, n_rv))
+    return (vals, lens, p, meta), li, vi, hc, att, rv, late
+
+
+def random_round_inputs(cfg: QBAConfig, round_idx: int, n_trials: int,
+                        seed: int, device=None):
+    """``n_trials`` trials of :func:`random_state` as one round's inputs to
+    the round wrappers: ``(pool, li, vi, honest_c, attack, rand_v,
+    late)`` in the kernels' dtypes."""
+    rng = np.random.default_rng(seed)
+    states = [random_state(rng, cfg, round_idx) for _ in range(n_trials)]
+    pools, lis, vis, hcs, atts, rvs, lates = zip(*states)
+    pool = pool_from_numpy(*(np.stack([p[i] for p in pools])
+                             for i in range(4)), device=device)
+
+    def i32(xs):
+        return torch.from_numpy(np.ascontiguousarray(np.stack(xs))).to(
+            device, torch.int32)
+
+    return (pool, i32(lis), i32(vis), i32([h[:, 0] for h in hcs]),
+            *draws_from_numpy(np.stack(atts), np.stack(rvs), np.stack(lates),
+                              device=device))
+
+
+def dense_acc(cfg: QBAConfig, pool, seed: int, rate: float = 0.5):
+    """An accepted matrix int32 0/1 ``[T, n_pool, n_rv]`` for ``pool``, far
+    denser than the protocol makes: each sent (packet, receiver) pair
+    with probability ``rate`` (many slots per receiver, overflow wherever
+    the slot bound is small)."""
+    rng = np.random.default_rng(seed)
+    meta = pool[3].cpu().numpy()
+    acc = ((rng.random(meta.shape[:2] + (cfg.n_lieutenants,)) < rate)
+           & (meta[..., 2:3] != 0)).astype(np.int32)
+    return torch.from_numpy(acc).to(pool[3].device)
+
+
+def random_trial_inputs(cfg: QBAConfig, n_trials: int, seed: int,
+                        device=None):
+    """Whole trials' inputs to the megakernel wrapper: ``(p_rows bool,
+    li int32, v_sent int32, honest_c int32, attack, rand_v, late)``, the
+    draws stacked ``[T, n_rounds, n_pool, n_rv]`` uint8.
+
+    Each lieutenant's P avoids its order ``v`` (a consistent packet);
+    then in some rows a P position is set to ``v``, to a value above
+    ``w``, to a negative value or to the SENTINEL -1 (which the rule
+    ignores), so step 3a rejects some lieutenants and keeps others.
+    """
+    rng = np.random.default_rng(seed)
+    n_rv, s, w, slots = cfg.n_lieutenants, cfg.size_l, cfg.w, cfg.slots
+    n_pool = n_rv * slots
+    li = rng.integers(0, w, (n_trials, n_rv, s)).astype(np.int32)
+    v_sent = rng.integers(0, w, (n_trials, n_rv)).astype(np.int32)
+    p_rows = (rng.random((n_trials, n_rv, s)) < 0.4) & (li != v_sent[..., None])
+    for t in range(n_trials):
+        for r in range(n_rv):
+            j = int(rng.integers(s))
+            u = rng.random()
+            if u < 0.15:
+                li[t, r, j] = v_sent[t, r]
+            elif u < 0.2:
+                li[t, r, j] = w + 1
+            elif u < 0.25:
+                li[t, r, j] = -2
+            elif u < 0.35:
+                li[t, r, j] = -1
+            else:
+                continue
+            p_rows[t, r, j] = True
+    honest = rng.random((n_trials, n_rv)) < 0.6
+    hc = np.repeat(honest, slots, axis=1).astype(np.int32)
+    draws = random_draws(rng, cfg, (n_trials, cfg.n_rounds, n_pool, n_rv))
+
+    def t_(x, dt):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device, dt)
+
+    return (t_(p_rows, torch.bool), t_(li, torch.int32),
+            t_(v_sent, torch.int32), t_(hc, torch.int32),
+            *(x.contiguous() for x in draws_from_numpy(*draws,
+                                                       device=device)))

@@ -1,0 +1,178 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Each kernel wrapper launches its hand-written kernel for CUDA tensors.
+Here the fused round, the tiled verdict and rebuild, and the trial
+megakernel are each held bit-exact against their plain PyTorch versions
+on the round state of real trials and on seeded random inputs
+(:mod:`qba_tpu_torch.testing`: out-of-range values, colliding rows,
+disagreeing lens, own rows already in L, dense accepted matrices,
+inconsistent lieutenants), and the four engines must agree trial for
+trial.  Every test is marked ``cuda`` and skips without a card
+(the kernels have no CPU mode; the CPU tests hold the plain versions
+against ``qba_tpu``).  The file imports no JAX, so on a machine with the
+card it runs without the JAX test harness:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+"""
+
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import qba_tpu_torch
+from qba_tpu_torch import random as jr
+from qba_tpu_torch.adversary import adversary_ctx, sample_attacks_round
+from qba_tpu_torch.backends.torch_backend import trial_keys
+from qba_tpu_torch.ops import round_kernel_tiled as rk
+from qba_tpu_torch.ops.trial_megakernel import (
+    trial_megakernel,
+    trial_megakernel_reference,
+)
+from qba_tpu_torch.rounds.engine import _stacked_draws, setup_trial, step3a_one
+from qba_tpu_torch.testing import (
+    dense_acc,
+    random_round_inputs,
+    random_trial_inputs,
+)
+
+CONFIGS = {
+    "5p-split": dict(n_parties=5, size_l=16, n_dishonest=2, trials=32,
+                     seed=5, strategy="split"),
+    "5p-overflow": dict(n_parties=5, size_l=16, n_dishonest=2, trials=32,
+                        seed=2, max_accepts_per_round=1),
+    "5p-racy": dict(n_parties=5, size_l=16, n_dishonest=1, trials=32, seed=5,
+                    delivery="racy", p_late=0.25),
+    "11p": dict(n_parties=11, size_l=64, n_dishonest=3, trials=16, seed=1),
+}
+
+# Random round inputs: (config, round).
+RANDOM = {
+    "5p-r1": (dict(n_parties=5, size_l=16, n_dishonest=2), 1),
+    "5p-r2": (dict(n_parties=5, size_l=16, n_dishonest=2), 2),
+    "5p-split-r1": (dict(n_parties=5, size_l=16, n_dishonest=2,
+                         strategy="split"), 1),
+    "5p-slots1-r1": (dict(n_parties=5, size_l=16, n_dishonest=2,
+                          max_accepts_per_round=1), 1),
+    "7p-L8-r3": (dict(n_parties=7, size_l=8, n_dishonest=3), 3),
+    "7p-L8-r4": (dict(n_parties=7, size_l=8, n_dishonest=3), 4),
+    "11p-L16-r1": (dict(n_parties=11, size_l=16, n_dishonest=3), 1),
+    "11p-L64-r1": (dict(n_parties=11, size_l=64, n_dishonest=3), 1),
+}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def trial_inputs(cfg, dev):
+    keys = trial_keys(cfg, dev)
+    honest, li, p_rows, v_sent, _v_comm, k_rounds = setup_trial(cfg, keys)
+    ctx = adversary_ctx(cfg, k_rounds, v_sent)
+    return honest, li.to(torch.int32).contiguous(), p_rows, v_sent, k_rounds, ctx
+
+
+def round_states(cfg, dev):
+    """Each round's inputs ``(r, pool, li, vi, hc, attack, rand_v,
+    late)`` of real trials, advanced by the plain fused round."""
+    honest, li, p_rows, v_sent, k_rounds, ctx = trial_inputs(cfg, dev)
+    vi, out_cells = step3a_one(cfg, p_rows, v_sent, li)
+    pool = rk.pool_from_step3a(cfg, out_cells)
+    hc = rk.honest_cells(honest, cfg)
+    vi = vi.to(torch.int32)
+    for r in range(1, cfg.n_rounds + 1):
+        draws = tuple(x.to(torch.uint8) for x in sample_attacks_round(
+            cfg, jr.fold_in(k_rounds, r), r, ctx))
+        yield (r, pool, li, vi, hc, *draws)
+        pool, vi, _ovf = rk.fused_round_reference(cfg, r, pool, li, vi, hc,
+                                                  *draws)
+
+
+def assert_equal(got, want):
+    if isinstance(got, tuple):
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            assert_equal(a, b)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CONFIGS))
+def test_fused_round_kernel(cuda, case):
+    cfg = qba_tpu_torch.QBAConfig(**CONFIGS[case])
+    for r, *args in round_states(cfg, cuda):
+        assert_equal(rk.fused_round(cfg, r, *args),
+                     rk.fused_round_reference(cfg, r, *args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CONFIGS))
+def test_tiled_kernels(cuda, case):
+    cfg = qba_tpu_torch.QBAConfig(**CONFIGS[case])
+    for r, pool, li, vi, hc, att, rv, late in round_states(cfg, cuda):
+        acc, vi2 = rk.tiled_verdict(cfg, r, pool, li, vi, hc, att, rv, late)
+        assert_equal((acc, vi2), rk.verdict_reference(
+            cfg, r, pool, li, vi, hc, att, rv, late))
+        assert_equal(rk.tiled_rebuild(cfg, r, pool, li, acc, hc, att, rv),
+                     rk.rebuild_reference(cfg, r, pool, li, acc, hc, att, rv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CONFIGS))
+def test_trial_megakernel(cuda, case):
+    cfg = qba_tpu_torch.QBAConfig(**CONFIGS[case])
+    honest, li, p_rows, v_sent, k_rounds, ctx = trial_inputs(cfg, cuda)
+    args = (cfg, p_rows.contiguous(), li, v_sent.to(torch.int32).contiguous(),
+            rk.honest_cells(honest, cfg), *_stacked_draws(cfg, k_rounds, ctx))
+    before = trial_megakernel.launches
+    got = trial_megakernel(*args)
+    assert trial_megakernel.launches == before + 1
+    assert_equal(got, trial_megakernel_reference(*args))
+
+
+@pytest.mark.cuda
+def test_engines_agree(cuda):
+    cfg = qba_tpu_torch.QBAConfig(n_parties=7, size_l=32, n_dishonest=2,
+                                  trials=64, seed=8, strategy="adaptive")
+    first, *rest = (
+        qba_tpu_torch.run_trials(dataclasses.replace(cfg, round_engine=e),
+                                 device=cuda).trials
+        for e in ("xla", "pallas_fused", "pallas_tiled", "pallas_mega"))
+    for other in rest:
+        for f in ("decisions", "success", "vi", "overflow"):
+            assert torch.equal(getattr(first, f), getattr(other, f)), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(RANDOM))
+def test_round_kernels_on_random_inputs(cuda, case):
+    kw, r = RANDOM[case]
+    cfg = qba_tpu_torch.QBAConfig(**kw)
+    pool, li, vi, hc, att, rv, late = random_round_inputs(
+        cfg, r, 32, seed=len(case) + r, device=cuda)
+    assert_equal(rk.fused_round(cfg, r, pool, li, vi, hc, att, rv, late),
+                 rk.fused_round_reference(cfg, r, pool, li, vi, hc, att, rv,
+                                          late))
+    acc, vi2 = rk.tiled_verdict(cfg, r, pool, li, vi, hc, att, rv, late)
+    assert_equal((acc, vi2), rk.verdict_reference(cfg, r, pool, li, vi, hc,
+                                                  att, rv, late))
+    assert int(acc.sum()) > 0
+    for a in (acc, dense_acc(cfg, pool, seed=r)):
+        assert_equal(rk.tiled_rebuild(cfg, r, pool, li, a, hc, att, rv),
+                     rk.rebuild_reference(cfg, r, pool, li, a, hc, att, rv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["5p-split", "5p-overflow", "5p-racy", "11p"])
+def test_trial_megakernel_on_random_inputs(cuda, case):
+    cfg = qba_tpu_torch.QBAConfig(**CONFIGS[case])
+    args = random_trial_inputs(cfg, 32, seed=3, device=cuda)
+    got = trial_megakernel(cfg, *args)
+    assert_equal(got, trial_megakernel_reference(cfg, *args))
+    ok = step3a_one(cfg, args[0], args[2], args[1])[0].any(-1)
+    assert ok.any() and not ok.all()  # step 3a kept some, rejected some

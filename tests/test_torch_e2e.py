@@ -5,8 +5,9 @@
 seed, hence the same keys): per-trial decisions, success, accepted sets,
 overflow, honesty and commander order must be equal, for the four
 strategies at 5p/L16/d2 and 11p/L64/d3, both attack scopes, noise, racy
-delivery and an overflowing slot bound.  Both port engines (``xla`` and
-``pallas_fused``, the latter on its plain version here) are checked.
+delivery and an overflowing slot bound.  Every port engine (``xla``,
+and ``pallas_fused``, ``pallas_tiled`` and ``pallas_mega`` on their
+kernels' plain versions here) is checked.
 Plus: ``device=None`` means CUDA and raises without it, and the port
 imports and runs with ``jax``, ``flax`` and ``qba_tpu`` blocked.
 """
@@ -28,6 +29,7 @@ from qba_tpu.config import QBAConfig as JConfig
 from qba_tpu_torch.convert import config_from_jax_fields
 
 FIELDS = ("decisions", "success", "vi", "overflow", "honest", "v_comm")
+ENGINES = ("xla", "pallas_fused", "pallas_tiled", "pallas_mega")
 P5 = dict(n_parties=5, size_l=16, n_dishonest=2, trials=16)
 P11 = dict(n_parties=11, size_l=64, n_dishonest=3, trials=3)
 CASES = {
@@ -53,7 +55,7 @@ def test_run_trials_match_jax(case):
     jcfg = JConfig(**CASES[case])
     want = jax_trials(jcfg)
     cfg = config_from_jax_fields(dataclasses.asdict(jcfg))
-    for engine in ("xla", "pallas_fused"):
+    for engine in ENGINES:
         res = qba_tpu_torch.run_trials(
             dataclasses.replace(cfg, round_engine=engine), device="cpu"
         )
@@ -70,11 +72,12 @@ def test_run_trials_match_jax(case):
 def test_engines_agree_in_port():
     cfg = qba_tpu_torch.QBAConfig(n_parties=7, size_l=32, n_dishonest=3,
                                   trials=12, seed=8, strategy="adaptive")
-    a, b = (qba_tpu_torch.run_trials(
+    a, *rest = (qba_tpu_torch.run_trials(
         dataclasses.replace(cfg, round_engine=e), device="cpu").trials
-        for e in ("xla", "pallas_fused"))
-    for f in FIELDS:
-        assert torch.equal(getattr(a, f), getattr(b, f)), f
+        for e in ENGINES)
+    for b in rest:
+        for f in FIELDS:
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
 
 
 def test_auto_engine_on_cpu_is_xla():
@@ -83,7 +86,7 @@ def test_auto_engine_on_cpu_is_xla():
     cfg = qba_tpu_torch.QBAConfig(n_parties=5, size_l=16)
     assert resolve_round_engine(cfg, torch.device("cpu")) == "xla"
     assert resolve_round_engine(
-        cfg, torch.device("cuda")) == "pallas_fused"
+        cfg, torch.device("cuda")) == "pallas_mega"
 
 
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
@@ -94,7 +97,7 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
 
 
 BLOCKED_RUN = r"""
-import importlib, importlib.abc, pkgutil, sys
+import dataclasses, importlib, importlib.abc, pkgutil, sys
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
@@ -111,6 +114,10 @@ cfg = qba_tpu_torch.QBAConfig(n_parties=5, size_l=16, n_dishonest=2,
                               trials=8, seed=1)
 res = qba_tpu_torch.run_trials(cfg, device="cpu")
 assert res.trials.decisions.shape == (8, 5)
+for engine in ("pallas_fused", "pallas_tiled", "pallas_mega"):
+    other = qba_tpu_torch.run_trials(
+        dataclasses.replace(cfg, round_engine=engine), device="cpu")
+    assert (other.trials.decisions == res.trials.decisions).all(), engine
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "flax", "qba_tpu")]
 assert not bad, bad

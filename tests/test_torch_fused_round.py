@@ -7,7 +7,9 @@ runs it on the CPU.  Round by round the successor pool, ``vi`` and the
 overflow flag must be equal, with inputs made (a) from numpy with a seed
 and (b) from the protocol state of real trials, carried across with
 :mod:`qba_tpu_torch.convert`.  The CUDA kernel itself runs only on the
-card (``chip_smoke.py`` holds it against this same plain version).
+card: ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold it
+against this same plain version, on protocol state and on the random
+inputs of :mod:`qba_tpu_torch.testing`.
 """
 
 import dataclasses
@@ -39,6 +41,7 @@ from qba_tpu_torch.ops.round_kernel_tiled import (
     fused_round_reference,
     pool_from_step3a,
 )
+from qba_tpu_torch.testing import random_state
 
 
 @functools.lru_cache(maxsize=None)
@@ -87,47 +90,6 @@ def assert_round_equal(jcfg, cfg, round_idx, states):
         assert np.array_equal(vi_j, got[1][t]), ("vi", round_idx, t)
         assert ovf_j == bool(got[2][t]), ("overflow", round_idx, t)
     return want
-
-
-def random_state(rng, cfg, round_idx):
-    """One trial's numpy round inputs in the JAX kernel's layout: a
-    compacted pool of protocol-shaped packets (rows over one P, values
-    mostly distinct per position, counts around the round's evidence
-    length, some rows equal to a receiver's own row), random li/vi,
-    honesty and draws."""
-    n_rv, slots, max_l, s, w = (cfg.n_lieutenants, cfg.slots, cfg.max_l,
-                                cfg.size_l, cfg.w)
-    n_pool = n_rv * slots
-    vals = np.full((max_l, n_pool, s), -1, np.int32)
-    lens = np.zeros((n_pool, max_l), np.int32)
-    p = np.zeros((n_pool, s), np.int32)
-    meta = np.zeros((n_pool, 4), np.int32)
-    li = rng.integers(0, w, (n_rv, s)).astype(np.int32)
-    n_live = int(rng.integers(1, n_pool + 1))
-    cells = np.sort(rng.choice(n_pool, n_live, replace=False))
-    for i, cell in enumerate(cells):
-        pm = rng.random(s) < 0.4
-        count = int(rng.choice([round_idx, round_idx + 1,
-                                rng.integers(0, max_l + 1)]))
-        for r in range(count):
-            vals[r, i, pm] = rng.integers(0, w, pm.sum())
-        if rng.random() < 0.7:
-            for j in np.flatnonzero(pm):
-                vals[:count, i, j] = rng.permutation(w)[:count]
-        if count and rng.random() < 0.2:  # a receiver's own row already in L
-            vals[count - 1, i] = np.where(pm, li[rng.integers(n_rv)], -1)
-        lens[i, :count] = pm.sum() if rng.random() < 0.9 else rng.integers(s)
-        p[i] = pm
-        meta[i] = (count, rng.integers(w), 1, cell)
-    vi = (rng.random((n_rv, w)) < 0.05).astype(np.int32)
-    sender_honest = rng.random(n_rv) < 0.6
-    hc = np.repeat(sender_honest, slots).astype(np.int32)[:, None]
-    top = 32 if cfg.strategy == "split" else 16
-    att = rng.integers(0, top, (n_pool, n_rv)).astype(np.int32)
-    att[rng.random((n_pool, n_rv)) < 0.5] = 0
-    rv = rng.integers(0, cfg.n_parties + 1, (n_pool, n_rv)).astype(np.int32)
-    late = (rng.random((n_pool, n_rv)) < 0.1).astype(np.int32)
-    return (vals, lens, p, meta), li, vi, hc, att, rv, late
 
 
 @pytest.mark.parametrize(
@@ -234,28 +196,3 @@ def test_wrapper_uses_plain_version_on_cpu():
         assert torch.equal(a, b)
     assert torch.equal(out[1], ref[1]) and torch.equal(out[2], ref[2])
 
-
-def test_kernel_matches_plain_on_card():
-    # The CUDA kernel against its plain version on random round inputs;
-    # runs only where a CUDA card is present (chip_smoke.py covers the
-    # protocol-state cases at full width).
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    jcfg = JConfig(n_parties=5, size_l=16, n_dishonest=2, strategy="split")
-    cfg = config_from_jax_fields(dataclasses.asdict(jcfg))
-    rng = np.random.default_rng(5)
-    states = [random_state(rng, cfg, 1) for _ in range(8)]
-    pools, lis, vis, hcs, atts, rvs, lates = zip(*states)
-    dev = torch.device("cuda")
-    pool = pool_from_numpy(*(np.stack([p[i] for p in pools])
-                             for i in range(4)), device=dev)
-    args = (cfg, 1, pool, torch.from_numpy(np.stack(lis)).to(dev),
-            torch.from_numpy(np.stack(vis)).to(dev),
-            torch.from_numpy(np.stack(hcs)[..., 0]).contiguous().to(dev),
-            *draws_from_numpy(np.stack(atts), np.stack(rvs), np.stack(lates),
-                              device=dev))
-    out = fused_round(*args)
-    ref = fused_round_reference(*args)
-    for a, b in zip(out[0], ref[0]):
-        assert torch.equal(a, b)
-    assert torch.equal(out[1], ref[1]) and torch.equal(out[2], ref[2])

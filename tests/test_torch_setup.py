@@ -129,7 +129,7 @@ def test_config_mirror_validates_like_jax():
 def test_unported_options_raise():
     from qba_tpu_torch import QBAConfig, run_trials
 
-    for kw in [dict(round_engine="pallas_mega"),
+    for kw in [dict(round_engine="pallas"),
                dict(qsim_path="stabilizer"), dict(collect_counters=True)]:
         cfg = QBAConfig(n_parties=3, size_l=4, n_dishonest=1, **kw)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
