@@ -9,33 +9,47 @@ Phases, each reported on its own line:
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``qba_tpu_torch/ops/csrc``, one ``nvcc``
    per source, all started together (build time, registers, spills);
-3. ``kernel_vs_plain``: the fused round kernel and the tiled verdict and
-   rebuild kernels against their plain PyTorch versions, bit-exact on
-   every output, round by round, on protocol state of real trials at
-   5p/L16/d2, 11p/L64/d3 (strategy "split"), an overflowing
-   ``max_accepts_per_round=1`` case, 5p/L16/d1 racy delivery and
-   33p/L64/d10;
+3. ``kernel_vs_plain``: the fused round kernel, the tiled verdict and
+   rebuild kernels and the dense-mailbox round kernel against their
+   plain PyTorch versions, bit-exact on every output, round by round, on
+   protocol state of real trials at 5p/L16/d2, 11p/L64/d3 (strategy
+   "split"), an overflowing ``max_accepts_per_round=1`` case, 5p/L16/d1
+   racy delivery and 33p/L64/d10;
 4. ``mega_vs_plain``: the trial megakernel against its plain version on
    the same configs, bit-exact on vi, decisions and overflow;
-   ``random_vs_plain``: all four kernels against their plain versions on
-   seeded random inputs (``qba_tpu_torch.testing``) that reach the
-   guards the protocol's own state never trips;
-5. ``engines_agree``: ``run_trials`` with the ``xla``, ``pallas_fused``,
-   ``pallas_tiled`` and ``pallas_mega`` engines trial for trial at
-   5p/L16/d2 x 64;
+   ``random_vs_plain``: the five round kernels against their plain
+   versions on seeded random inputs (``qba_tpu_torch.testing``) that
+   reach the guards the protocol's own state never trips;
+   ``circuit_vs_plain``: the fused circuit kernel against its plain
+   version at ``atol=1e-6`` on amplitudes (same float32 arithmetic, but
+   the compiler may fuse a multiply and an add): both protocol circuits
+   at 3, 4 and 5 parties (8, 15, 18 qubits) with random params, and
+   seeded random circuits at 10 and 16 qubits with complex gates,
+   multi-control ops and ``XPOW``;
+5. ``engines_agree``: ``run_trials`` with the ``xla``, ``pallas``,
+   ``pallas_fused``, ``pallas_tiled`` and ``pallas_mega`` engines trial
+   for trial at 5p/L16/d2 x 64, and the protocol counters of the four
+   per-round engines field by field;
 6. ``main_path``, at full width, 11p/L64/d3 and 33p/L64/d10 x 1000 trials
    each: ``run_trials(QBAConfig(...))`` with ``auto`` (asserted to
    resolve to the megakernel, one launch per batch), then the
-   ``pallas_fused`` (one launch per round) and ``pallas_tiled`` (two per
-   round) engines, each with its launch counts reset just before and
-   asserted just after; wall time after a warm-up, rounds/s (trials x
-   n_rounds / s), kernel time per launch from CUDA events, set-up and
-   draw times, success rate and peak memory.  The three engines must
-   agree trial for trial.  Then ``full_width_vs_plain``: the same
-   batches replayed round by round with the fused, verdict and rebuild
-   kernels held against their plain versions (bit-exact, with times and
-   bounds), and the megakernel held against its plain version on the
-   batch's own inputs.
+   ``pallas_fused`` (one launch per round), ``pallas_tiled`` (two per
+   round) and ``pallas`` (one per round) engines, each with its launch
+   counts reset just before and asserted just after; wall time after a
+   warm-up, rounds/s (trials x n_rounds / s), kernel time per launch
+   from CUDA events, set-up and draw times, success rate and peak
+   memory.  The four engines must agree trial for trial.  Then
+   ``full_width_vs_plain``: the same batches replayed round by round
+   with the fused, verdict, rebuild and dense-mailbox kernels held
+   against their plain versions (bit-exact, with times and bounds), and
+   the megakernel held against its plain version on the batch's own
+   inputs.  Then ``collect_counters=True`` on ``auto`` at 11p/L64/d3 x
+   1000 (asserted to run the fused per-round engine), and the dense
+   circuit path at the widest circuit it admits,
+   ``qsim_path="dense_pallas"`` at 5p/L64/d2 x 64 (18 qubits), with the
+   circuit kernel's launches asserted and its lists and results equal to
+   the same run on ``qsim_path="dense"`` (the plain per-gate engine on
+   the card).
 
 Any failure exits non-zero.  The line before the last is the kernel
 table as JSON, the one before it the card; the last line is
@@ -65,6 +79,10 @@ SOURCES = {
                       "qba_tpu/ops/round_kernel_tiled.py:357"),
     "tiled_rebuild": ("qba_tpu_torch/ops/csrc/tiled_round.cu",
                       "qba_tpu/ops/round_kernel_tiled.py:874"),
+    "round_step": ("qba_tpu_torch/ops/csrc/round_step.cu",
+                   "qba_tpu/ops/round_kernel.py:162"),
+    "fused_circuit": ("qba_tpu_torch/ops/csrc/fused_circuit.cu",
+                      "qba_tpu/ops/fused_circuit.py:93"),
 }
 
 
@@ -159,6 +177,25 @@ def fused_cost(cfg, live, rows, dst, dst_rows, n_trials):
     return vb + rb - 2 * acc, vo + ro
 
 
+def circuit_cost(tables, params):
+    """Bytes and float operations of one fused-circuit launch: the op
+    table and the params in, the final state out (4 B per amplitude and
+    plane); per op the pairs its controls select, at 4 operations for H,
+    none for a swap (``X``, and ``XPOW`` only in the runs whose bit is
+    set), 6 for a real coefficient form and 28 for a complex one."""
+    n_runs, size = params.shape[0], 1 << tables.n_qubits
+    planes = 1 if tables.is_real else 2
+    b = (tables.ops_i.numel() * 4 + tables.ops_f.numel() * 4
+         + params.numel() * 4 + n_runs * planes * size * 4)
+    ops = 0
+    for kind, _bit, ctrl, _pi in tables.ops_i.tolist():
+        pairs = (size // 2) >> bin(ctrl).count("1")
+        per_pair = {0: 4 * planes, 1: 0, 2: 0}.get(kind,
+                                                  6 if planes == 1 else 28)
+        ops += n_runs * pairs * per_pair
+    return b, ops
+
+
 def mega_cost(cfg, rounds, n_trials):
     """Bytes and compares of a whole trial batch in one launch: li, P,
     the orders and honesty once in; vi, the decisions and overflow out;
@@ -195,8 +232,8 @@ def event_ms(events):
 
 def replay(cfg, keys, *, chunk, reps=0):
     """Run ``cfg``'s round loop on ``keys`` step by step with the fused,
-    verdict and rebuild kernels, holding every round's outputs against
-    the plain versions on the same inputs (bit-exact).  With ``reps`` > 0
+    verdict, rebuild and dense-mailbox kernels, holding every round's
+    outputs against the plain versions on the same inputs (bit-exact).  With ``reps`` > 0
     also times each kernel (CUDA events over ``reps`` launches) and each
     plain version (host clock, in chunks of ``chunk`` trials).  Returns
     the set-up time and final accepted sets, then per-round stats with
@@ -206,6 +243,7 @@ def replay(cfg, keys, *, chunk, reps=0):
 
     from qba_tpu_torch import random as jr
     from qba_tpu_torch.adversary import adversary_ctx, sample_attacks_round
+    from qba_tpu_torch.ops import round_kernel as rs
     from qba_tpu_torch.ops import round_kernel_tiled as rk
     from qba_tpu_torch.rounds.engine import setup_trial, step3a_one
 
@@ -222,6 +260,8 @@ def replay(cfg, keys, *, chunk, reps=0):
     vi_i = vi.to(torch.int32)
     torch.cuda.synchronize()
     stats = [dict(setup_ms=(time.perf_counter() - t0) * 1e3)]
+    mbox = rs.mailbox_from_step3a(cfg, out_cells)
+    mbox_spare = rs.empty_mailbox(cfg, n, keys.device)
 
     def timed(fn, *args, **kw):
         if not reps:
@@ -265,6 +305,8 @@ def replay(cfg, keys, *, chunk, reps=0):
                                        late)
         tiled_pool, ovf_t = rk.tiled_rebuild(cfg, r, pool, li, acc_k, hc,
                                              att, rv)
+        new_mbox, vi_m, ovf_m = rs.round_step(cfg, r, mbox, li, vi_i, hc, att,
+                                              rv, late, out=mbox_spare)
         torch.cuda.synchronize()
         fused_ms = timed(rk.fused_round, cfg, r, pool, li, vi_i, hc, att, rv,
                          late, out=spare)
@@ -272,6 +314,8 @@ def replay(cfg, keys, *, chunk, reps=0):
                            rv, late)
         rebuild_ms = timed(rk.tiled_rebuild, cfg, r, pool, li, acc_k, hc,
                            att, rv, out=tiled_pool)
+        step_ms = timed(rs.round_step, cfg, r, mbox, li, vi_i, hc, att, rv,
+                        late, out=mbox_spare)
         sub = lambda f: (lambda *a: f(cfg, r, *a))  # noqa: E731
         (ref_pool, ref_vi, ref_ovf), fused_plain_ms = plain(
             sub(rk.fused_round_reference), pool, li, vi_i, hc, att, rv, late)
@@ -279,7 +323,12 @@ def replay(cfg, keys, *, chunk, reps=0):
             sub(rk.verdict_reference), pool, li, vi_i, hc, att, rv, late)
         (ref_tpool, ref_ovf_t), rebuild_plain_ms = plain(
             sub(rk.rebuild_reference), pool, li, acc_k, hc, att, rv)
+        (ref_mbox, ref_vi_m, ref_ovf_m), step_plain_ms = plain(
+            sub(rs.round_step_reference), mbox, li, vi_i, hc, att, rv, late)
         errs = {
+            "round_step": max(
+                [max_err(a, b) for a, b in zip(new_mbox, ref_mbox)]
+                + [max_err(vi_m, ref_vi_m), max_err(ovf_m, ref_ovf_m)]),
             "fused_round": max(
                 [max_err(a, b) for a, b in zip(new, ref_pool)]
                 + [max_err(vi_k, ref_vi), max_err(ovf_k, ref_ovf)]),
@@ -304,11 +353,16 @@ def replay(cfg, keys, *, chunk, reps=0):
             round=r, live=live, rows=rows, dst=dst, max_abs_err=errs,
             overflow=int(ovf_k.sum()), draws_ms=draws_ms,
             ms=dict(fused_round=fused_ms, tiled_verdict=verdict_ms,
-                    tiled_rebuild=rebuild_ms),
-            plain_ms=dict(fused_round=fused_plain_ms if reps else None,
+                    tiled_rebuild=rebuild_ms, round_step=step_ms),
+            plain_ms=dict(round_step=step_plain_ms if reps else None,
+                          fused_round=fused_plain_ms if reps else None,
                           tiled_verdict=verdict_plain_ms if reps else None,
                           tiled_rebuild=rebuild_plain_ms if reps else None),
             bound=dict(
+                # The dense mailbox holds the pool's packets at their own
+                # cells and is as large as the pool: the same bytes.
+                round_step=bound(*fused_cost(cfg, live, rows, dst,
+                                             dst_rows, n)),
                 fused_round=bound(*fused_cost(cfg, live, rows, dst,
                                               dst_rows, n)),
                 tiled_verdict=bound(*verdict_cost(cfg, live, rows, n)),
@@ -317,7 +371,11 @@ def replay(cfg, keys, *, chunk, reps=0):
         if not (torch.equal(vi_k, vi_t) and torch.equal(ovf_k, ovf_t)
                 and all(torch.equal(a, b) for a, b in zip(new, tiled_pool))):
             raise AssertionError(f"fused != tiled at {cfg} round {r}")
+        if not (torch.equal(vi_k, vi_m) and torch.equal(ovf_k, ovf_m)
+                and int(new_mbox[3][..., 2].sum()) == dst):
+            raise AssertionError(f"fused != dense mailbox at {cfg} round {r}")
         pool, spare, vi_i = new, pool, vi_k
+        mbox, mbox_spare = new_mbox, mbox
     stats[0]["vi"] = vi_i != 0
     return stats
 
@@ -381,8 +439,12 @@ def mega_vs_plain(cfg, keys, *, chunk, reps=0):
                 overflow=int(got[2].sum()), vi=got[0] != 0)
 
 
+ENGINE_OF = {"fused_round": "pallas_fused", "tiled_verdict": "pallas_tiled",
+             "tiled_rebuild": "pallas_tiled", "trial_megakernel": "auto",
+             "round_step": "pallas"}
 COUNTED = ("fused_round", "tiled_verdict", "tiled_rebuild",
-           "trial_megakernel")
+           "trial_megakernel", "round_step", "fused_circuit")
+ROUND_KERNELS = COUNTED[:5]
 
 # Seeded random inputs (qba_tpu_torch.testing): round inputs as
 # (config, round) and whole-trial inputs as configs.
@@ -414,16 +476,18 @@ def random_vs_plain(dev, n_trials=64):
     inconsistent lieutenants.  Returns the per-kernel max abs error and
     the cases' facts."""
     from qba_tpu_torch import QBAConfig
+    from qba_tpu_torch.ops import round_kernel as rs
     from qba_tpu_torch.ops import round_kernel_tiled as rk
     from qba_tpu_torch.ops import trial_megakernel as tm
     from qba_tpu_torch.rounds.engine import step3a_one
     from qba_tpu_torch.testing import (
         dense_acc,
+        random_mailbox_inputs,
         random_round_inputs,
         random_trial_inputs,
     )
 
-    errs = dict.fromkeys(COUNTED, 0)
+    errs = dict.fromkeys(ROUND_KERNELS, 0)
     facts = []
     for i, (name, kw, r) in enumerate(RANDOM_ROUNDS):
         cfg = QBAConfig(**kw)
@@ -440,8 +504,14 @@ def random_vs_plain(dev, n_trials=64):
             errs["tiled_rebuild"] = max(errs["tiled_rebuild"], tree_err(
                 rk.tiled_rebuild(cfg, r, pool, li, a, hc, att, rv),
                 rk.rebuild_reference(cfg, r, pool, li, a, hc, att, rv)))
+        margs = random_mailbox_inputs(cfg, r, n_trials, seed=100 + i,
+                                      device=dev)
+        mgot = rs.round_step(cfg, r, *margs)
+        errs["round_step"] = max(errs["round_step"], tree_err(
+            mgot, rs.round_step_reference(cfg, r, *margs)))
         facts.append(dict(case=name, accepted=int(acc.sum()),
-                          dense_accepted=int(dense.sum())))
+                          dense_accepted=int(dense.sum()),
+                          mailbox_accepted=int(mgot[1].sum() - margs[2].sum())))
     for i, (name, kw) in enumerate(RANDOM_TRIALS):
         cfg = QBAConfig(**kw)
         args = random_trial_inputs(cfg, n_trials, seed=200 + i, device=dev)
@@ -455,18 +525,93 @@ def random_vs_plain(dev, n_trials=64):
         raise AssertionError(f"kernel != plain version on random inputs: "
                              f"{errs}")
     if not all(f.get("accepted", 1) and f.get("step3a_rejected", 1)
-               and f.get("step3a_ok", 1) for f in facts):
+               and f.get("step3a_ok", 1) and f.get("mailbox_accepted", 1)
+               for f in facts):
         raise AssertionError(f"a random case reached no branch: {facts}")
     return errs, facts
 
 
+CIRCUIT_ATOL = 1e-6
+
+
+def circuit_vs_plain(dev, reps=5):
+    """The fused circuit kernel against its plain version, amplitudes at
+    ``atol=1e-6``: both protocol circuits at 3, 4 and 5 parties with
+    seeded random params, and seeded random complex circuits at 10 and 16
+    qubits.  The 5-party Q-correlated circuit, at the 64 runs per launch
+    the dense path gives it, is also timed against its plain version and
+    its bound.  Returns the cases' facts and that timing."""
+    import torch
+
+    from qba_tpu_torch import QBAConfig
+    from qba_tpu_torch.convert import circuit_ops_from_tuples
+    from qba_tpu_torch.ops import fused_circuit as fc
+    from qba_tpu_torch.qsim import protocol_circuits as pc
+    from qba_tpu_torch.qsim.statevector import SAMPLE_CHUNK_ELEMS
+    from qba_tpu_torch.testing import random_circuit
+
+    cases = []
+    for n in (3, 4, 5):
+        nq = QBAConfig(n_parties=n, size_l=1).n_qubits
+        q_circ = pc.gen_q_corr_circuit(n, nq)
+        nq_circ = pc.gen_nq_corr_circuit(n, nq)
+        cases.append((f"q-corr {n}p", q_circ.n_qubits, q_circ.ops,
+                      q_circ.n_params, 8))
+        cases.append((f"nq-corr {n}p", nq_circ.n_qubits, nq_circ.ops, 0, 1))
+    for n, seed in ((10, 1), (16, 2)):
+        ops = circuit_ops_from_tuples(random_circuit(n, 40, seed))
+        cases.append((f"random {n}q", n, ops, 3, 4))
+    # The main path's launch shape: 5p Q-correlated, one chunk of runs.
+    big = pc.gen_q_corr_circuit(5, 3)
+    runs = max(1, SAMPLE_CHUNK_ELEMS >> big.n_qubits)
+    cases.append(("q-corr 5p, main-path chunk", big.n_qubits, big.ops,
+                  big.n_params, runs))
+    facts, timing = [], None
+    for i, (name, n, ops, n_params, n_runs) in enumerate(cases):
+        tables = fc.circuit_tables(n, ops, n_params).to(dev)
+        gen = torch.Generator().manual_seed(i)
+        params = torch.randint(0, 2, (n_runs, tables.n_params), generator=gen,
+                               dtype=torch.int32).to(dev)
+        got = fc.fused_circuit(tables, params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = fc.fused_circuit_reference(tables, params)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError(f"fused_circuit {name}: {got.dtype} "
+                                 f"{tuple(got.shape)} != plain version's")
+        err = float((got - want).abs().max())
+        norm = float(((got.abs() ** 2).sum(-1) - 1).abs().max())
+        if not (err <= CIRCUIT_ATOL and norm <= 1e-4):
+            raise AssertionError(f"fused_circuit != plain version at {name}: "
+                                 f"max abs err {err}, norm off by {norm}")
+        facts.append(dict(case=name, qubits=n, ops=len(ops), runs=n_runs,
+                          real=tables.is_real, max_abs_err=err))
+        if name.endswith("main-path chunk"):
+            fc.fused_circuit.events = []
+            for _ in range(reps):
+                fc.fused_circuit(tables, params)
+            torch.cuda.synchronize()
+            ms, fc.fused_circuit.events = event_ms(
+                fc.fused_circuit.events), None
+            b_ms, b_by = bound(*circuit_cost(tables, params))
+            timing = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by, runs=n_runs,
+                          qubits=n, ops=len(ops))
+    return facts, timing
+
+
 def wrappers():
+    from qba_tpu_torch.ops import fused_circuit as fc
+    from qba_tpu_torch.ops import round_kernel as rs
     from qba_tpu_torch.ops import round_kernel_tiled as rk
     from qba_tpu_torch.ops import trial_megakernel as tm
 
     return {"fused_round": rk.fused_round, "tiled_verdict": rk.tiled_verdict,
             "tiled_rebuild": rk.tiled_rebuild,
-            "trial_megakernel": tm.trial_megakernel}
+            "trial_megakernel": tm.trial_megakernel,
+            "round_step": rs.round_step, "fused_circuit": fc.fused_circuit}
 
 
 def drive(cfg, engine):
@@ -569,6 +714,11 @@ def main(argv):
     random_errs, facts = random_vs_plain(dev)
     report["random_vs_plain"] = dict(max_abs_err=random_errs, cases=facts)
     log("random_vs_plain", tolerance=0, max_abs_err=random_errs, cases=facts)
+    circuit_cases, circuit_timing = circuit_vs_plain(dev)
+    report["circuit_vs_plain"] = dict(cases=circuit_cases,
+                                      timing=circuit_timing)
+    log("circuit_vs_plain", tolerance=CIRCUIT_ATOL, cases=circuit_cases,
+        **circuit_timing)
     if quick:
         print(card)
         print(json.dumps({"ok": True, "device": {
@@ -577,7 +727,7 @@ def main(argv):
         return 0
 
     fields = ("decisions", "success", "vi", "overflow")
-    engines = ("xla", "pallas_fused", "pallas_tiled", "pallas_mega")
+    engines = ("xla", "pallas", "pallas_fused", "pallas_tiled", "pallas_mega")
     cfg = QBAConfig(n_parties=5, size_l=16, n_dishonest=2, trials=64, seed=5)
     res = {e: qba_tpu_torch.run_trials(
         dataclasses.replace(cfg, round_engine=e)).trials for e in engines}
@@ -585,7 +735,22 @@ def main(argv):
         for f in fields:
             if not torch.equal(getattr(res["xla"], f), getattr(res[e], f)):
                 raise AssertionError(f"engines xla and {e} disagree on {f}")
+    # The counters ride the per-round loop: the four per-round engines.
+    counted = {e: qba_tpu_torch.run_trials(dataclasses.replace(
+        cfg, round_engine=e, collect_counters=True)).trials
+        for e in engines[:4]}
+    for e, r in counted.items():
+        for f in dataclasses.fields(r.counters):
+            if not torch.equal(getattr(counted["xla"].counters, f.name),
+                               getattr(r.counters, f.name)):
+                raise AssertionError(
+                    f"counters of xla and {e} disagree on {f.name}")
+        if not torch.equal(r.vi, res["xla"].vi):
+            raise AssertionError(f"{e}: counters changed the accepted sets")
     log("engines_agree", config="5p/L16/d2", trials=64, engines=engines,
+        counters=engines[:4],
+        accepts_per_round=counted["xla"].counters.accepts_per_round.sum(0)
+        .tolist(),
         success_rate=float(res["xla"].success.float().mean()))
 
     main_cfgs = [
@@ -596,7 +761,8 @@ def main(argv):
     ]
     expect = {"auto": {"trial_megakernel": 1},
               "pallas_fused": {"fused_round": 1},
-              "pallas_tiled": {"tiled_verdict": 1, "tiled_rebuild": 1}}
+              "pallas_tiled": {"tiled_verdict": 1, "tiled_rebuild": 1},
+              "pallas": {"round_step": 1}}
     launches = dict.fromkeys(COUNTED, 0)
     runs = []
     for name, cfg in main_cfgs:
@@ -624,14 +790,14 @@ def main(argv):
                 kernel_ms_per_launch={k: event_ms(ev)
                                       for k, ev in events.items() if ev},
                 success_rate=rate, peak_mem_bytes=peak)
-        for e in ("pallas_fused", "pallas_tiled"):
+        for e in ("pallas_fused", "pallas_tiled", "pallas"):
             for f in fields:
                 if not torch.equal(getattr(results["auto"], f),
                                    getattr(results[e], f)):
                     raise AssertionError(
                         f"{name}: pallas_mega and {e} disagree on {f}")
         log("engines_agree", config=name, trials=cfg.trials,
-            engines=["pallas_mega", "pallas_fused", "pallas_tiled"])
+            engines=["pallas_mega", "pallas_fused", "pallas_tiled", "pallas"])
 
         keys = trial_keys(cfg, dev)
         setup, *stats = replay(cfg, keys, chunk=32, reps=5)
@@ -651,7 +817,8 @@ def main(argv):
             bound_by={"trial_megakernel": mega_bound[1]})
         for engine, ks in (("pallas_fused", ("fused_round",)),
                            ("pallas_tiled", ("tiled_verdict",
-                                             "tiled_rebuild"))):
+                                             "tiled_rebuild")),
+                           ("pallas", ("round_step",))):
             per_engine[engine].update(
                 engine=engine, setup_ms=setup["setup_ms"],
                 draws_ms=draws_ms,
@@ -660,17 +827,18 @@ def main(argv):
                 bound_by={k: max(stats, key=lambda s: s["bound"][k][0])
                           ["bound"][k][1] for k in ks})
         kern = {}
-        for k in ("fused_round", "tiled_verdict", "tiled_rebuild"):
+        for k in ("fused_round", "tiled_verdict", "tiled_rebuild",
+                  "round_step"):
             kern[k] = dict(
                 max_abs_err=max(s["max_abs_err"][k] for s in stats),
                 ms=sum(s["ms"][k] for s in stats) / len(stats),
                 plain_ms=sum(s["plain_ms"][k] for s in stats) / len(stats),
-                bound_ms=per_engine["pallas_fused" if k == "fused_round"
-                                    else "pallas_tiled"]["bound_ms"][k])
+                bound_ms=per_engine[ENGINE_OF[k]]["bound_ms"][k])
         kern["trial_megakernel"] = dict(
             max_abs_err=mega["max_abs_err"], ms=mega["ms"],
             plain_ms=mega["plain_ms"], bound_ms=mega_bound[0])
         run = dict(config=name, trials=cfg.trials, rounds=cfg.n_rounds,
+                   vi=results["auto"].vi,
                    engines=per_engine, full_width_vs_plain=kern,
                    pool_bytes_per_trial=pool_bytes(cfg, 1),
                    replay=stats)
@@ -681,13 +849,90 @@ def main(argv):
         runs.append(run)
     report["main_path"] = runs
 
+    # The protocol counters on the default engine: they need the
+    # per-round loop, so `auto` runs the fused per-round engine.
+    name, cfg = main_cfgs[0]
+    ccfg = dataclasses.replace(cfg, collect_counters=True)
+    if resolve_round_engine(ccfg, dev) != "pallas_fused":
+        raise AssertionError("auto with counters is not pallas_fused")
+    out, wall, counts, _events, peak = drive(ccfg, "auto")
+    want = {k: cfg.n_rounds if k == "fused_round" else 0 for k in COUNTED}
+    if counts != want:
+        raise AssertionError(
+            f"{name} counters: launches {counts}, expected {want}")
+    launches["fused_round"] += counts["fused_round"]
+    c = out.trials.counters
+    base = runs[0]["engines"]["pallas_fused"]
+    if not (torch.equal(out.trials.vi, runs[0]["vi"])
+            and c.accepts_per_round.shape == (cfg.trials, cfg.n_rounds)
+            and torch.equal(c.accept_counts,
+                            out.trials.vi.sum(-2, dtype=torch.int32))
+            and torch.equal(c.overflow_rounds.any(-1), out.trials.overflow)):
+        raise AssertionError(f"{name}: counters disagree with the results")
+    counters_run = dict(
+        config=name, trials=cfg.trials, engine="pallas_fused",
+        launches={"fused_round": counts["fused_round"]}, wall_s=wall,
+        rounds_per_s=cfg.trials * cfg.n_rounds / wall,
+        rounds_per_s_without=base["rounds_per_s"], peak_mem_bytes=peak,
+        accepts_per_round=c.accepts_per_round.sum(0).tolist(),
+        slot_high_water=int(c.slot_high_water.max()),
+        overflow_rounds=c.overflow_rounds.sum(0).tolist())
+    report["counters"] = counters_run
+    log("main_path", collect_counters=True, **counters_run)
+    for r in runs:
+        del r["vi"]
+
+    # The dense circuit path at the widest circuit it admits: 5 parties,
+    # 18 qubits, every list position a joint statevector.
+    from qba_tpu_torch.rounds.engine import setup_trial
+
+    dcfg = QBAConfig(n_parties=5, size_l=64, n_dishonest=2,
+                     qsim_path="dense_pallas", trials=64)
+    out, wall, counts, events, peak = drive(dcfg, "auto")
+    want = {k: int(k == "trial_megakernel") for k in ROUND_KERNELS}
+    if ({k: counts[k] for k in ROUND_KERNELS} != want
+            or counts["fused_circuit"] < 1):
+        raise AssertionError(f"dense_pallas: launches {counts}")
+    for k, n in counts.items():
+        launches[k] += n
+    pcfg = dataclasses.replace(dcfg, qsim_path="dense")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain_out = qba_tpu_torch.run_trials(pcfg)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    for f in fields + ("honest", "v_comm"):
+        if not torch.equal(getattr(out.trials, f),
+                           getattr(plain_out.trials, f)):
+            raise AssertionError(f"dense_pallas and dense disagree on {f}")
+    keys = trial_keys(dcfg, dev)
+    t0 = time.perf_counter()
+    fast_setup = setup_trial(dcfg, keys)
+    torch.cuda.synchronize()
+    lists_s = time.perf_counter() - t0
+    for a, b in zip(fast_setup, setup_trial(pcfg, keys)):
+        if not torch.equal(a, b):
+            raise AssertionError("dense_pallas and dense lists disagree")
+    li = fast_setup[1]
+    if not (li.shape == (dcfg.trials, dcfg.n_lieutenants, dcfg.size_l)
+            and int(li.min()) >= 0 and int(li.max()) < dcfg.w):
+        raise AssertionError("dense_pallas: malformed lists")
+    dense_run = dict(
+        config="5p/L64/d2 dense_pallas", trials=dcfg.trials,
+        qubits=dcfg.total_qubits, engine="pallas_mega",
+        launches={k: n for k, n in counts.items() if n}, wall_s=wall,
+        rounds_per_s=dcfg.trials * dcfg.n_rounds / wall,
+        plain_engine_wall_s=plain_wall, setup_with_lists_s=lists_s,
+        circuit_ms_per_launch=event_ms(events["fused_circuit"]),
+        success_rate=float(out.success_rate), peak_mem_bytes=peak)
+    report["dense_path"] = dense_run
+    log("main_path", qsim_path="dense_pallas", **dense_run)
+
     big = runs[-1]
-    eng_of = {"fused_round": "pallas_fused", "tiled_verdict": "pallas_tiled",
-              "tiled_rebuild": "pallas_tiled", "trial_megakernel": "auto"}
     kernels = []
     for k in ("fused_round", "trial_megakernel", "tiled_verdict",
-              "tiled_rebuild"):
-        e = big["engines"][eng_of[k]]
+              "tiled_rebuild", "round_step"):
+        e = big["engines"][ENGINE_OF[k]]
         source, replaces = SOURCES[k]
         kernels.append({
             "name": k,
@@ -704,6 +949,17 @@ def main(argv):
             "library_ms": None,
             "config": f"{big['config']} x{big['trials']} trials",
         })
+    source, replaces = SOURCES["fused_circuit"]
+    kernels.append({
+        "name": "fused_circuit", "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches["fused_circuit"],
+        "max_abs_err": max(c["max_abs_err"] for c in circuit_cases),
+        "ms": circuit_timing["ms"], "plain_ms": circuit_timing["plain_ms"],
+        "bound_ms": circuit_timing["bound_ms"],
+        "bound_by": circuit_timing["bound_by"], "library_ms": None,
+        "config": (f"5p Q-correlated circuit, {circuit_timing['qubits']} "
+                   f"qubits x{circuit_timing['runs']} runs per launch"),
+    })
     report["kernels"] = kernels
     report["device"] = card
     os.makedirs(os.path.dirname(REPORT), exist_ok=True)

@@ -5,10 +5,9 @@ Field for field the same dataclass, with the same defaults, validation
 messages and derived properties, so a config built for one package means
 the same experiment in the other (``convert.config_from_jax_fields``
 carries one across).  Every value the JAX package validates is accepted
-here too; the values the port does not run yet (round engines other than
-``auto``, ``xla`` and ``pallas_fused``, ``qsim_path`` other than
-``factorized``, ``collect_counters``) raise ``NotImplementedError`` at run
-time (:func:`qba_tpu_torch.rounds.engine.check_supported`), never a silent
+here too; the one value the port does not run yet
+(``qsim_path="stabilizer"``) raises ``NotImplementedError`` at run time
+(:func:`qba_tpu_torch.rounds.engine.check_supported`), never a silent
 demotion.  See the JAX class for the meaning of each field.
 """
 

@@ -3,7 +3,7 @@
 Everything here takes plain Python or numpy values — what
 ``dataclasses.asdict``, ``jax.random.key_data`` and ``np.asarray`` give
 on the JAX side — so a test hands both packages the same per-trial state
-(config, keys, pool, draws) without this package importing JAX.
+(config, keys, pool, mailbox, draws, circuits) without this package importing JAX.
 """
 
 from __future__ import annotations
@@ -71,3 +71,40 @@ def stacked_draws_from_numpy(attack, rand_v, late, device=None):
         raise ValueError("stacked draws must be [T, n_rounds, n_cells, "
                          f"n_rv]; got {tuple(out[0].shape)}")
     return tuple(x.contiguous() for x in out)
+
+
+def mailbox_from_numpy(vals, lens, count, p, v, sent, device=None):
+    """The port's packed mailbox (see
+    :mod:`qba_tpu_torch.ops.round_kernel`) from the JAX round kernel's
+    packed operands with a leading trial axis: ``vals`` ``[T, max_l, n_pk,
+    S]``, ``lens`` ``[T, n_pk, max_l]``, ``count``/``v``/``sent`` ``[T,
+    n_pk, 1]``, ``p`` ``[T, n_pk, S]``."""
+    vals = np.asarray(vals).astype(np.int32).transpose(0, 2, 1, 3)
+    p = np.asarray(p).astype(np.int32)
+    if vals.min(initial=0) < -1 or vals.max(initial=0) > 127:
+        raise ValueError("mailbox values outside the int8 range [-1, 127]")
+    n_trials, n_pk = vals.shape[:2]
+    cells = np.broadcast_to(np.arange(n_pk, dtype=np.int32), (n_trials, n_pk))
+    meta = np.stack(
+        [np.asarray(x).astype(np.int32).reshape(n_trials, n_pk)
+         for x in (count, v, sent)] + [cells], axis=-1)
+
+    def t(x, dt):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device, dt)
+
+    return (t(vals, torch.int8),
+            t(np.asarray(lens).astype(np.int32), torch.int32),
+            t(p, torch.int8), t(meta, torch.int32))
+
+
+def circuit_ops_from_tuples(ops):
+    """The port's :class:`~qba_tpu_torch.qsim.circuit.Op` list from a JAX
+    circuit's ops given as plain tuples ``(kind, target, controls, param,
+    angle)`` (``dataclasses.astuple`` of each), so both packages run the
+    same circuit."""
+    from qba_tpu_torch.qsim.circuit import Op
+
+    return [Op(str(kind), int(target), tuple(int(c) for c in controls),
+               None if param is None else int(param),
+               None if angle is None else float(angle))
+            for kind, target, controls, param, angle in ops]

@@ -1,8 +1,10 @@
 """Launch plumbing shared by the port's kernel wrappers.
 
 Every wrapper (:func:`~qba_tpu_torch.ops.round_kernel_tiled.fused_round`,
-``tiled_verdict``, ``tiled_rebuild`` and
-:func:`~qba_tpu_torch.ops.trial_megakernel.trial_megakernel`) follows one
+``tiled_verdict``, ``tiled_rebuild``,
+:func:`~qba_tpu_torch.ops.trial_megakernel.trial_megakernel`,
+:func:`~qba_tpu_torch.ops.round_kernel.round_step` and
+:func:`~qba_tpu_torch.ops.fused_circuit.fused_circuit`) follows one
 contract: CPU tensors take the plain version, CUDA tensors launch the
 hand-written kernel or raise; inputs are checked for exact dtype, shape,
 contiguity and device before a launch; each launch adds one to the

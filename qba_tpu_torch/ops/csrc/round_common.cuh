@@ -1,7 +1,9 @@
 // Device code shared by the port's round kernels: fused_round.cu (one
 // round per launch), tiled_round.cu (the round split at the accepted
-// matrix into a verdict and a rebuild launch) and trial_megakernel.cu
-// (every round of a trial in one launch).
+// matrix into a verdict and a rebuild launch), trial_megakernel.cu
+// (every round of a trial in one launch) and round_step.cu (one round
+// over the dense mailbox, which shares the setup and phases A and B and
+// rebuilds with rebuild_entry at fixed cells).
 //
 // A round over a compacted packet pool, as phases of one thread block
 // per trial separated by __syncthreads() by the caller:
@@ -39,19 +41,37 @@ struct Dims {
   __host__ __device__ int n_pool() const { return n_rv * slots; }
 };
 
-// One trial's pool, as read and as written.
-struct PoolIn {
+// One trial's pool, as read and as written.  The layout of vals is a
+// compile-time choice, so that each kernel indexes as if it knew no
+// other: the compacted pools are row-major ([max_l, n_pool, S]), the
+// dense mailbox of round_step.cu packet-major ([n_pk, max_l, S]).
+template <bool kPacketMajor>
+struct PoolInT {
   const int8_t* vals;
   const int32_t* lens;
   const int8_t* p;
   const int32_t* meta;
+  // Evidence row r of packet pk.
+  __device__ const int8_t* row(int r, int pk, const Dims& d) const {
+    return kPacketMajor
+        ? vals + (size_t(pk) * d.max_l + r) * d.size_l
+        : vals + (size_t(r) * d.n_pool() + pk) * d.size_l;
+  }
 };
-struct PoolOut {
+template <bool kPacketMajor>
+struct PoolOutT {
   int8_t* vals;
   int32_t* lens;
   int8_t* p;
   int32_t* meta;
+  __device__ int8_t* row(int r, int pk, const Dims& d) const {
+    return kPacketMajor
+        ? vals + (size_t(pk) * d.max_l + r) * d.size_l
+        : vals + (size_t(r) * d.n_pool() + pk) * d.size_l;
+  }
 };
+using PoolIn = PoolInT<false>;
+using PoolOut = PoolOutT<false>;
 
 // One trial's draws of one round, each [n_pool, n_rv] by mailbox cell.
 struct Draws {
@@ -172,7 +192,8 @@ __device__ inline void scan_extent(const Shared& sh, const int32_t* meta,
 
 // ---- Phase A: verdict, a warp per live packet. ----
 // Writes ok_mask[pk] for every sent packet pk < n_scan.
-__device__ inline void verdict_phase(const Shared& sh, const PoolIn& in,
+template <class In>
+__device__ inline void verdict_phase(const Shared& sh, const In& in,
                                      const int32_t* li,
                                      const int32_t* honest, const Draws& dr,
                                      const Dims& d, int n_scan,
@@ -198,7 +219,7 @@ __device__ inline void verdict_phase(const Shared& sh, const PoolIn& in,
     for (int j = lane; j < S; j += 32) {
       unsigned long long pmj = 0ull;
       for (int r = 0; r < cnt_v; ++r) {
-        int x = in.vals[(size_t(r) * n_pool + pk) * S + j];
+        int x = in.row(r, pk, d)[j];
         rows[r * S + j] = int8_t(x);
         if (x != -1) {
           if (x > w || x < 0) oob = true;
@@ -364,15 +385,81 @@ __device__ inline void offsets_phase(const Shared& sh, int n_rv) {
   }
 }
 
-// ---- Phase D: rebuild the live destinations dst < total, a warp each.
-// Writes every field of every live entry: rows r < max_l of vals, all
+// ---- Phase D, one destination (warp): successor entry `dst` is source
+// packet `src` as receiver `rr` accepted it, rebroadcast in its slot
+// `slot`.  Writes every field of the entry: rows r < max_l of vals, all
 // of lens, P and meta. ----
+template <class In, class Out>
+__device__ inline void rebuild_entry(const In& in, const Out& out,
+                                     const int32_t* li,
+                                     const int32_t* honest, const Draws& dr,
+                                     const Dims& d, int dst, int rr, int slot,
+                                     int src, int use_fp) {
+  const int n_rv = d.n_rv, slots = d.slots, max_l = d.max_l;
+  const int S = d.size_l;
+  const int lane = threadIdx.x & 31;
+  const int32_t* m = in.meta + size_t(src) * 4;
+  const int count = m[0], cell = m[3];
+  const size_t di = size_t(cell) * n_rv + rr;
+  const int att = honest[cell] == 0 ? dr.attack[di] : 0;
+  const int v2 = (att & kForge) ? int(dr.rand_v[di]) : m[1];
+  const bool clear_p = att & kClearP, clear_l = att & kClearL;
+  const bool forge_p = use_fp && (att & kForgeP);
+  const int cnt_v = count < 0 ? 0 : (count > max_l ? max_l : count);
+  const int cnt_eff = clear_l ? 0 : count;
+  const int32_t* lir = li + size_t(rr) * S;
+  const int8_t* psrc = in.p + size_t(src) * S;
+  int plen = 0;
+  unsigned long long mis = 0ull;
+  for (int j = lane; j < S; j += 32) {
+    const bool pj = forge_p || (psrc[j] != 0 && !clear_p);
+    const int own = pj ? lir[j] : -1;
+    plen += pj;
+    for (int r = 0; r < cnt_v; ++r)
+      if (in.row(r, src, d)[j] != own) mis |= 1ull << r;
+  }
+  plen = __reduce_add_sync(kFull, plen);
+  mis = warp_or64(mis);
+  const bool dup = !clear_l && ((~mis & low_bits(cnt_v)) != 0ull);
+  const int new_cnt = dup ? cnt_eff : (cnt_eff + 1 < max_l ? cnt_eff + 1 : max_l);
+  for (int r = 0; r < max_l; ++r) {
+    const bool is_new = !dup && r == cnt_eff;
+    const bool keep = r < cnt_eff;
+    int8_t* orow = out.row(r, dst, d);
+    const int8_t* irow = in.row(r, src, d);
+    for (int j = lane; j < S; j += 32) {
+      int8_t x = -1;
+      if (is_new) {
+        const bool pj = forge_p || (psrc[j] != 0 && !clear_p);
+        x = pj ? int8_t(lir[j]) : int8_t(-1);
+      } else if (keep) {
+        x = irow[j];
+      }
+      orow[j] = x;
+    }
+  }
+  for (int r = lane; r < max_l; r += 32) {
+    int32_t x = 0;
+    if (!dup && r == cnt_eff) x = plen;
+    else if (r < cnt_eff) x = in.lens[size_t(src) * max_l + r];
+    out.lens[size_t(dst) * max_l + r] = x;
+  }
+  for (int j = lane; j < S; j += 32)
+    out.p[size_t(dst) * S + j] =
+        int8_t(forge_p || (psrc[j] != 0 && !clear_p));
+  if (lane < 4) {
+    const int32_t f[4] = {new_cnt, v2, 1, rr * slots + slot};
+    out.meta[size_t(dst) * 4 + lane] = f[lane];
+  }
+}
+
+// ---- Phase D: rebuild the live destinations dst < total of the
+// compacted successor pool, a warp each. ----
 __device__ inline void rebuild_phase(const Shared& sh, const PoolIn& in,
                                      const PoolOut& out, const int32_t* li,
                                      const int32_t* honest, const Draws& dr,
                                      const Dims& d, int total, int use_fp) {
-  const int n_rv = d.n_rv, slots = d.slots, max_l = d.max_l;
-  const int S = d.size_l, n_pool = d.n_pool();
+  const int n_rv = d.n_rv, slots = d.slots;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int dst = warp; dst < total; dst += kWarps) {
     int rr = 0;
@@ -383,61 +470,8 @@ __device__ inline void rebuild_phase(const Shared& sh, const PoolIn& in,
       if (hit) { rr = r0 + __ffs(hit) - 1; break; }
     }
     const int slot = dst - sh.offs[rr];
-    const int src = sh.src_list[rr * slots + slot];
-    const int32_t* m = in.meta + size_t(src) * 4;
-    const int count = m[0], cell = m[3];
-    const size_t di = size_t(cell) * n_rv + rr;
-    const int att = honest[cell] == 0 ? dr.attack[di] : 0;
-    const int v2 = (att & kForge) ? int(dr.rand_v[di]) : m[1];
-    const bool clear_p = att & kClearP, clear_l = att & kClearL;
-    const bool forge_p = use_fp && (att & kForgeP);
-    const int cnt_v = count < 0 ? 0 : (count > max_l ? max_l : count);
-    const int cnt_eff = clear_l ? 0 : count;
-    const int32_t* lir = li + size_t(rr) * S;
-    const int8_t* psrc = in.p + size_t(src) * S;
-    int plen = 0;
-    unsigned long long mis = 0ull;
-    for (int j = lane; j < S; j += 32) {
-      const bool pj = forge_p || (psrc[j] != 0 && !clear_p);
-      const int own = pj ? lir[j] : -1;
-      plen += pj;
-      for (int r = 0; r < cnt_v; ++r)
-        if (in.vals[(size_t(r) * n_pool + src) * S + j] != own)
-          mis |= 1ull << r;
-    }
-    plen = __reduce_add_sync(kFull, plen);
-    mis = warp_or64(mis);
-    const bool dup = !clear_l && ((~mis & low_bits(cnt_v)) != 0ull);
-    const int new_cnt = dup ? cnt_eff : (cnt_eff + 1 < max_l ? cnt_eff + 1 : max_l);
-    for (int r = 0; r < max_l; ++r) {
-      const bool is_new = !dup && r == cnt_eff;
-      const bool keep = r < cnt_eff;
-      int8_t* orow = out.vals + (size_t(r) * n_pool + dst) * S;
-      const int8_t* irow = in.vals + (size_t(r) * n_pool + src) * S;
-      for (int j = lane; j < S; j += 32) {
-        int8_t x = -1;
-        if (is_new) {
-          const bool pj = forge_p || (psrc[j] != 0 && !clear_p);
-          x = pj ? int8_t(lir[j]) : int8_t(-1);
-        } else if (keep) {
-          x = irow[j];
-        }
-        orow[j] = x;
-      }
-    }
-    for (int r = lane; r < max_l; r += 32) {
-      int32_t x = 0;
-      if (!dup && r == cnt_eff) x = plen;
-      else if (r < cnt_eff) x = in.lens[size_t(src) * max_l + r];
-      out.lens[size_t(dst) * max_l + r] = x;
-    }
-    for (int j = lane; j < S; j += 32)
-      out.p[size_t(dst) * S + j] =
-          int8_t(forge_p || (psrc[j] != 0 && !clear_p));
-    if (lane < 4) {
-      const int32_t f[4] = {new_cnt, v2, 1, rr * slots + slot};
-      out.meta[size_t(dst) * 4 + lane] = f[lane];
-    }
+    rebuild_entry(in, out, li, honest, dr, d, dst, rr, slot,
+                  sh.src_list[rr * slots + slot], use_fp);
   }
 }
 

@@ -163,6 +163,61 @@ def verdict_reference(cfg: QBAConfig, round_idx: int, pool, li, vi,
     return acc, vi_new.to(torch.int32)
 
 
+def rebuilt_entries(cfg: QBAConfig, vals_s, lens_s, p_s, count, v,
+                    honest_s, att_s, rv_s, li, src, r_d, has):
+    """The rebroadcast packets of one round, shared by the pool rebuild
+    and the dense-mailbox round: destination ``d`` of trial ``t`` is
+    source packet ``src[t, d]`` as receiver ``r_d[t, d]`` accepted it
+    (where ``has``; empty elsewhere).
+
+    Per source packet: ``vals_s`` int32 ``[T, P, max_l, S]``, ``lens_s``
+    ``[T, P, max_l]``, ``p_s`` bool ``[T, P, S]``, ``count``/``v``/
+    ``honest_s`` ``[T, P]`` and its draws ``att_s``/``rv_s`` ``[T, P,
+    R]``.  Returns ``(vals int32 [T, D, max_l, S], lens int32 [T, D,
+    max_l], p bool [T, D, S], count int32 [T, D], v int32 [T, D])``; the
+    first three are empty where ``~has``, the last two unmasked."""
+    max_l, s = cfg.max_l, cfg.size_l
+    dev = vals_s.device
+
+    def gat(x):  # packet-indexed [T, P, ...] -> destinations
+        idx = src.view(src.shape + (1,) * (x.dim() - 2))
+        return torch.gather(x, 1, idx.expand(src.shape + x.shape[2:]))
+
+    vals_g, lens_g = gat(vals_s), gat(lens_s)
+    cnt_g, v_g = gat(count), gat(v)
+    att_g = torch.gather(gat(att_s), 2, r_d[..., None])[..., 0]
+    rvv_g = torch.gather(gat(rv_s), 2, r_d[..., None])[..., 0]
+    _, v2_g, clear_p, clear_l, forge_p = corruption_flags(
+        gat(honest_s), att_g[..., None], rvv_g[..., None], v_g,
+        cfg.strategy == "split",
+    )
+    v2_g, clear_p, clear_l, forge_p = (
+        x[..., 0] for x in (v2_g, clear_p, clear_l, forge_p)
+    )
+    p2 = (gat(p_s) & ~clear_p[..., None]) | forge_p[..., None]
+    li_d = torch.gather(li, 1, r_d[..., None].expand(r_d.shape + (s,)))
+    own = torch.where(p2, li_d.to(torch.int32), SENTINEL)
+    own_len = p2.sum(-1).to(torch.int32)
+    cnt_eff = torch.where(clear_l, 0, cnt_g)
+    rows = torch.arange(max_l, device=dev)
+    valid = rows < cnt_g[..., None]
+    dup = (valid & (vals_g == own[..., None, :]).all(-1)).any(-1) & ~clear_l
+    new_cnt = torch.where(dup, cnt_eff, torch.clamp(cnt_eff + 1, max=max_l))
+    keep = rows < cnt_eff[..., None]
+    new_row = ~dup[..., None] & (rows == cnt_eff[..., None])
+    hm = has[..., None]
+    o_lens = torch.where(
+        hm & new_row, own_len[..., None],
+        torch.where(hm & keep, lens_g, 0),
+    )
+    o_vals = torch.where(
+        (hm & new_row)[..., None], own[..., None, :],
+        torch.where((hm & keep)[..., None], vals_g, SENTINEL),
+    )
+    return (o_vals, o_lens.to(torch.int32), hm & p2,
+            new_cnt.to(torch.int32), v2_g.to(torch.int32))
+
+
 def rebuild_reference(cfg: QBAConfig, round_idx: int, pool, li, acc,
                       honest_c, attack, rand_v):
     """Phase 2 of a round in plain PyTorch: slot allocation from the
@@ -204,45 +259,12 @@ def rebuild_reference(cfg: QBAConfig, round_idx: int, pool, li, acc,
 
     src, r_d, sl_d = to_dst(pidx), to_dst(ridx), to_dst(slot_r)
     has = torch.arange(n_out, device=dev) < k_r.sum(-1, keepdim=True)
-
-    def gat(x):  # packet-indexed [T, n_scan, ...] -> destinations
-        idx = src.view(src.shape + (1,) * (x.dim() - 2))
-        return torch.gather(x, 1, idx.expand(src.shape + x.shape[2:]))
-
-    vals_g, lens_g = gat(vals_s), gat(lens_s)
-    cnt_g, v_g, cell_g = gat(count), gat(v), gat(cell)
-    att_g = torch.gather(_by_cell(attack, cell_g), 2, r_d[..., None])[..., 0]
-    rvv_g = torch.gather(_by_cell(rand_v, cell_g), 2, r_d[..., None])[..., 0]
-    hon_g = torch.gather(honest_c, 1, cell_g.long())
-    _, v2_g, clear_p, clear_l, forge_p = corruption_flags(
-        hon_g, att_g[..., None], rvv_g[..., None], v_g,
-        cfg.strategy == "split",
-    )
-    v2_g, clear_p, clear_l, forge_p = (
-        x[..., 0] for x in (v2_g, clear_p, clear_l, forge_p)
-    )
-    p2 = (gat(p[:, :n_scan] != 0) & ~clear_p[..., None]) | forge_p[..., None]
-    li_d = torch.gather(li, 1, r_d[..., None].expand(r_d.shape + (s,)))
-    own = torch.where(p2, li_d.to(torch.int32), SENTINEL)
-    own_len = p2.sum(-1).to(torch.int32)
-    cnt_eff = torch.where(clear_l, 0, cnt_g)
-    rows = torch.arange(max_l, device=dev)
-    valid = rows < cnt_g[..., None]
-    dup = (valid & (vals_g == own[..., None, :]).all(-1)).any(-1) & ~clear_l
-    new_cnt = torch.where(dup, cnt_eff, torch.clamp(cnt_eff + 1, max=max_l))
-    keep = rows < cnt_eff[..., None]
-    new_row = ~dup[..., None] & (rows == cnt_eff[..., None])
-    hm = has[..., None]
-    o_lens = torch.where(
-        hm & new_row, own_len[..., None],
-        torch.where(hm & keep, lens_g, 0),
-    )
-    o_vals = torch.where(
-        (hm & new_row)[..., None], own[..., None, :],
-        torch.where((hm & keep)[..., None], vals_g, SENTINEL),
-    )
+    o_vals, o_lens, o_p, new_cnt, v2_g = rebuilt_entries(
+        cfg, vals_s, lens_s, p[:, :n_scan] != 0, count, v,
+        torch.gather(honest_c, 1, cell.clamp(0, honest_c.shape[1] - 1).long()),
+        _by_cell(attack, cell), _by_cell(rand_v, cell), li, src, r_d, has)
     o_meta = torch.where(
-        hm,
+        has[..., None],
         torch.stack(
             [new_cnt, v2_g, torch.ones_like(new_cnt),
              r_d.to(torch.int32) * slots + sl_d.to(torch.int32)],
@@ -253,8 +275,8 @@ def rebuild_reference(cfg: QBAConfig, round_idx: int, pool, li, acc,
     vdt = pool_vals_dtype(cfg)
     out = (
         o_vals.transpose(1, 2).to(vdt).contiguous(),
-        o_lens.to(torch.int32),
-        (hm & p2).to(vdt),
+        o_lens,
+        o_p.to(vdt),
         o_meta,
     )
     return out, overflow

@@ -2,7 +2,8 @@
 
 A trial is a pure function of its key, so the port reproduces the exact
 derivations :mod:`qba_tpu` calls: ``key``, ``split``, ``fold_in``,
-``bits``, ``randint``, ``bernoulli`` and ``permutation``, in JAX's default
+``bits``, ``randint``, ``bernoulli``, ``permutation``, ``gumbel`` and
+``categorical``, in JAX's default
 ``jax_threefry_partitionable=True`` mode (every output element hashes its
 own 64-bit flat index as the counter pair ``(hi, lo)``).  The legacy
 non-partitionable mode is not implemented.
@@ -111,6 +112,30 @@ def uniform(keys: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
     b = bits(keys, shape)
     f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
     return f - 1.0
+
+
+_TINY = torch.finfo(torch.float32).tiny
+
+
+def gumbel(keys: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+    """``jax.random.gumbel`` in float32 (JAX's default "low" mode):
+    ``-log(-log(u))`` with ``u = uniform(minval=tiny, maxval=1)``, which
+    JAX computes as ``max(tiny, f * (1 - tiny) + tiny)`` on the [0, 1)
+    uniform ``f``.  The uniforms equal JAX's bit for bit; the two ``log``
+    calls may differ from XLA's in the last place."""
+    f = uniform(keys, shape)
+    tiny = torch.tensor(_TINY, dtype=torch.float32, device=f.device)
+    u = torch.maximum(tiny, f * (1.0 - tiny) + tiny)
+    return -torch.log(-torch.log(u))
+
+
+def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` over the last axis:
+    ``argmax(gumbel + logits)``, the first index on a tie.  ``logits`` is
+    ``[..., n]`` with leading axes matching (or broadcasting against) the
+    keys' batch axes; returns int64 ``[...]``."""
+    g = gumbel(keys, (logits.shape[-1],))
+    return torch.argmax(g + logits, dim=-1)
 
 
 def bernoulli(keys: torch.Tensor, p: float,

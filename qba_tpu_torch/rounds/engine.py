@@ -7,11 +7,13 @@ generation, step 1b/2 orders and P-sets, step 3a, the synchronous voting
 rounds ``1..n_dishonest+1`` and the decision + success oracle.  Packet
 processing order within a round is (sender, slot) lexicographic.
 
-Four round engines, trial-for-trial identical:
+Five round engines, trial-for-trial identical:
 
 * ``xla`` (:func:`run_rounds_xla`): the port's eager oracle on the dense
   mailbox, built on the executable specification
   ``consistent_after_append``;
+* ``pallas`` (:func:`run_rounds_pallas`): one launch of the dense-mailbox
+  round kernel per round;
 * ``pallas_fused`` (:func:`run_rounds_fused`): one launch of the fused
   round kernel per round over the compacted pool;
 * ``pallas_tiled`` (:func:`run_rounds_tiled`): two launches per round,
@@ -24,12 +26,20 @@ Four round engines, trial-for-trial identical:
 ``auto`` picks ``pallas_mega`` for CUDA tensors and ``xla`` for CPU
 tensors.  On CPU tensors the kernel engines run their kernels' plain
 versions.
+
+The per-round engines share one loop, :func:`scan_rounds`, which with
+``cfg.collect_counters`` also folds each round's ``vi`` delta and
+overflow flag into :class:`ProtocolCounters`.  The megakernel has no
+per-round loop on the host: with counters on, ``auto`` on CUDA picks
+``pallas_fused`` and an explicit ``pallas_mega`` demotes to it with a
+:class:`QBADemotionWarning`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import warnings
 
 import torch
 
@@ -56,7 +66,29 @@ from qba_tpu_torch.core.types import SENTINEL
 from qba_tpu_torch.qsim import generate_lists_for
 from qba_tpu_torch.rounds.mailbox import Mailbox, mailbox_from_step3a
 
-ENGINES = ("xla", "pallas_fused", "pallas_tiled", "pallas_mega")
+ENGINES = ("xla", "pallas", "pallas_fused", "pallas_tiled", "pallas_mega")
+
+
+class QBADemotionWarning(UserWarning):
+    """A requested engine gave way to another that computes the same
+    results (the megakernel to the fused per-round engine when counters
+    are collected)."""
+
+
+@dataclasses.dataclass
+class ProtocolCounters:
+    """Per-trial protocol counters (``cfg.collect_counters``), leading
+    axis = trials.  Every field comes from the accepted-set (``vi``)
+    deltas and overflow flags the round loop already carries, so
+    collecting them cannot change the primary outputs.  Rounds are
+    1-based; 0 means accepted at step 3a, -1 never accepted."""
+
+    first_accept_round: torch.Tensor  # int32[T, n_lieutenants, w]
+    accept_counts: torch.Tensor  # int32[T, w]: receivers that accepted v
+    accepts_per_round: torch.Tensor  # int32[T, n_rounds]
+    slot_high_water: torch.Tensor  # int32[T]: most rebroadcasts queued by
+    # one receiver in one round (against the cfg.slots bound)
+    overflow_rounds: torch.Tensor  # bool[T, n_rounds]
 
 
 @dataclasses.dataclass
@@ -69,37 +101,42 @@ class TrialResult:
     v_comm: torch.Tensor  # int32[T]
     vi: torch.Tensor  # bool[T, n_lieutenants, w]
     overflow: torch.Tensor  # bool[T]
+    counters: ProtocolCounters | None = None  # with cfg.collect_counters
 
 
 def check_supported(cfg: QBAConfig) -> None:
     """Raise ``NotImplementedError`` for config values the port accepts
     but does not run yet, naming the ROADMAP item — never a silent
     demotion."""
-    if cfg.round_engine not in ("auto",) + ENGINES:
+    if cfg.qsim_path == "stabilizer":
         raise NotImplementedError(
-            f"round_engine={cfg.round_engine!r} is not ported yet "
-            "(ROADMAP A6 and queue B row 1: the dense-mailbox round "
-            "kernel); use 'auto', " + ", ".join(repr(e) for e in ENGINES)
-        )
-    if cfg.qsim_path != "factorized":
-        raise NotImplementedError(
-            f"qsim_path={cfg.qsim_path!r} is not ported yet (ROADMAP "
-            "A7/A8); use qsim_path='factorized'"
-        )
-    if cfg.collect_counters:
-        raise NotImplementedError(
-            "collect_counters is not ported yet (ROADMAP A4: protocol "
-            "counters)"
+            "qsim_path='stabilizer' is not ported yet (ROADMAP A7: the "
+            "GF(2) stabilizer path); use 'factorized', 'dense' or "
+            "'dense_pallas'"
         )
 
 
 def resolve_round_engine(cfg: QBAConfig, device: torch.device) -> str:
-    """``auto`` -> ``pallas_mega`` on CUDA, ``xla`` on the CPU; an
-    explicit engine is kept."""
+    """``auto`` -> ``pallas_mega`` on CUDA (``pallas_fused`` when
+    counters are collected: they need the per-round loop), ``xla`` on
+    the CPU.  An explicit engine is kept, except ``pallas_mega`` with
+    counters, which demotes to ``pallas_fused`` with a
+    :class:`QBADemotionWarning` (the counters are identical: every
+    engine's per-round ``vi`` sequence is)."""
     check_supported(cfg)
-    if cfg.round_engine != "auto":
-        return cfg.round_engine
-    return "pallas_mega" if torch.device(device).type == "cuda" else "xla"
+    if cfg.round_engine == "auto":
+        if torch.device(device).type != "cuda":
+            return "xla"
+        return "pallas_fused" if cfg.collect_counters else "pallas_mega"
+    if cfg.round_engine == "pallas_mega" and cfg.collect_counters:
+        warnings.warn(
+            "the trial megakernel has no per-round loop on the host for "
+            "the counters to ride; collect_counters demotes pallas_mega "
+            "to the fused per-round engine (identical counters)",
+            QBADemotionWarning, stacklevel=3,
+        )
+        return "pallas_fused"
+    return cfg.round_engine
 
 
 def setup_trial(cfg: QBAConfig, keys: torch.Tensor):
@@ -226,53 +263,153 @@ def receiver_round(cfg: QBAConfig, round_idx: int, draws, vi, li,
     return vi, out, overflow
 
 
+def _vi_bool(vi):
+    """Engines carry vi as bool (``xla``) or int32 (the kernel engines)."""
+    return vi if vi.dtype == torch.bool else vi != 0
+
+
+def counters_init(cfg: QBAConfig, vi0):
+    """Counter state from step 3a's accepted sets bool ``[T, n_rv, w]``:
+    first-accept rounds (0 = step 3a, -1 = pending) and the slot
+    high-water mark."""
+    first_accept = torch.where(vi0, 0, -1).to(torch.int32)
+    high_water = torch.zeros(vi0.shape[:-2], dtype=torch.int32,
+                             device=vi0.device)
+    return first_accept, high_water
+
+
+def counters_step(cfg: QBAConfig, state, vi_old, vi_new, round_idx: int):
+    """Fold one round's acceptance delta into the counter state.  While
+    ``round <= n_dishonest`` each acceptance queues a rebroadcast, so a
+    receiver's newly accepted count is the number of outgoing slots it
+    claimed.  Returns ``(state', accepts int32 [T])``."""
+    first_accept, high_water = state
+    newly = vi_new & ~vi_old
+    first_accept = torch.where(newly, round_idx, first_accept).to(torch.int32)
+    per_receiver = newly.sum(-1, dtype=torch.int32)
+    if round_idx <= cfg.n_dishonest:
+        high_water = torch.maximum(high_water, per_receiver.amax(-1))
+    return (first_accept, high_water), per_receiver.sum(-1, dtype=torch.int32)
+
+
+def counters_finish(cfg: QBAConfig, state, vi_final, accepts_per_round,
+                    overflow_rounds) -> ProtocolCounters:
+    first_accept, high_water = state
+    return ProtocolCounters(
+        first_accept_round=first_accept,
+        accept_counts=vi_final.sum(-2, dtype=torch.int32),
+        accepts_per_round=accepts_per_round,
+        slot_high_water=high_water,
+        overflow_rounds=overflow_rounds,
+    )
+
+
+def scan_rounds(cfg: QBAConfig, round_body, vi, state):
+    """The round loop every per-round engine shares: ``round_body(r, vi,
+    state) -> (vi', state', overflow bool [T])`` for rounds
+    ``1..n_rounds``.  With ``cfg.collect_counters`` each round's ``vi``
+    delta and overflow flag are folded into :class:`ProtocolCounters`;
+    otherwise nothing more is computed.  Returns ``(vi, overflow [T],
+    counters or None)``."""
+    overflow = torch.zeros(vi.shape[0], dtype=torch.bool, device=vi.device)
+    collect = cfg.collect_counters
+    if collect:
+        cstate = counters_init(cfg, _vi_bool(vi))
+        accepts, overflows = [], []
+    for r in range(1, cfg.n_rounds + 1):
+        vi_new, state, ovf = round_body(r, vi, state)
+        overflow |= ovf
+        if collect:
+            cstate, acc = counters_step(cfg, cstate, _vi_bool(vi),
+                                        _vi_bool(vi_new), r)
+            accepts.append(acc)
+            overflows.append(ovf)
+        vi = vi_new
+    counters = None
+    if collect:
+        counters = counters_finish(cfg, cstate, _vi_bool(vi),
+                                   torch.stack(accepts, -1),
+                                   torch.stack(overflows, -1))
+    return vi, overflow, counters
+
+
 def run_rounds_xla(cfg: QBAConfig, vi, mb: Mailbox, lieu_lists, honest,
                    k_rounds, ctx=None):
     """Step 3b on the dense mailbox, one :func:`receiver_round` per
-    round.  Returns ``(vi, overflow [T])``."""
-    overflow = torch.zeros(vi.shape[0], dtype=torch.bool, device=vi.device)
-    for r in range(1, cfg.n_rounds + 1):
+    round.  Returns ``(vi, overflow [T], counters)``."""
+
+    def round_body(r, vi, mb):
         draws = sample_attacks_round(cfg, jr.fold_in(k_rounds, r), r, ctx)
-        vi, mb, ovf = receiver_round(cfg, r, draws, vi, lieu_lists, mb,
-                                     honest)
-        overflow |= ovf
-    return vi, overflow
+        return receiver_round(cfg, r, draws, vi, lieu_lists, mb, honest)
+
+    return scan_rounds(cfg, round_body, vi, mb)
+
+
+def _run_rounds_kernel(cfg: QBAConfig, round_step, vi, state, spare,
+                       lieu_lists, honest, k_rounds, ctx):
+    """Step 3b on a per-round kernel: ``round_step(r, state, li, vi,
+    honest_c, attack, rand_v, late, out) -> (state', vi', overflow)`` per
+    round, the packet state (a pool or a packed mailbox) ping-ponging
+    between two buffers allocated once per batch.  Returns ``(vi,
+    overflow [T], counters)``."""
+    from qba_tpu_torch.ops.round_kernel_tiled import honest_cells
+
+    hc = honest_cells(honest, cfg)
+    li = lieu_lists.to(torch.int32).contiguous()
+
+    def round_body(r, vi, bufs):
+        cur, spare = bufs
+        draws = sample_attacks_round(cfg, jr.fold_in(k_rounds, r), r, ctx)
+        new, vi, ovf = round_step(
+            r, cur, li, vi, hc, *(x.to(torch.uint8) for x in draws),
+            out=spare,
+        )
+        return vi, (new, cur), ovf
+
+    vi, overflow, counters = scan_rounds(
+        cfg, round_body, vi.to(torch.int32), (state, spare))
+    return vi != 0, overflow, counters
+
+
+def run_rounds_pallas(cfg: QBAConfig, vi, out_cells, lieu_lists, honest,
+                      k_rounds, ctx=None):
+    """Step 3b on the dense-mailbox round kernel: one
+    :func:`~qba_tpu_torch.ops.round_kernel.round_step` per round over
+    the packed mailbox.  Returns ``(vi, overflow [T], counters)``."""
+    from qba_tpu_torch.ops.round_kernel import (
+        empty_mailbox,
+        mailbox_from_step3a as packed_from_step3a,
+        round_step,
+    )
+
+    return _run_rounds_kernel(
+        cfg, functools.partial(round_step, cfg), vi,
+        packed_from_step3a(cfg, out_cells),
+        empty_mailbox(cfg, vi.shape[0], vi.device), lieu_lists, honest,
+        k_rounds, ctx,
+    )
 
 
 def _run_rounds_pool(cfg: QBAConfig, round_step, vi, out_cells, lieu_lists,
                      honest, k_rounds, ctx):
-    """Step 3b over the compacted pool: ``round_step(r, pool, li, vi,
-    honest_c, attack, rand_v, late, out) -> (pool', vi', overflow)`` per
-    round, the pool ping-ponging between two buffers allocated once per
-    batch.  Returns ``(vi, overflow [T])``."""
+    """Step 3b over the compacted pool (see :func:`_run_rounds_kernel`)."""
     from qba_tpu_torch.ops.round_kernel_tiled import (
         empty_pool,
-        honest_cells,
         pool_from_step3a,
     )
 
-    pool = pool_from_step3a(cfg, out_cells)
-    spare = empty_pool(cfg, vi.shape[0], vi.device)
-    hc = honest_cells(honest, cfg)
-    li = lieu_lists.to(torch.int32).contiguous()
-    vi_i = vi.to(torch.int32)
-    overflow = torch.zeros(vi.shape[0], dtype=torch.bool, device=vi.device)
-    for r in range(1, cfg.n_rounds + 1):
-        draws = sample_attacks_round(cfg, jr.fold_in(k_rounds, r), r, ctx)
-        new, vi_i, ovf = round_step(
-            r, pool, li, vi_i, hc, *(x.to(torch.uint8) for x in draws),
-            out=spare,
-        )
-        pool, spare = new, pool
-        overflow |= ovf
-    return vi_i != 0, overflow
+    return _run_rounds_kernel(
+        cfg, round_step, vi, pool_from_step3a(cfg, out_cells),
+        empty_pool(cfg, vi.shape[0], vi.device), lieu_lists, honest,
+        k_rounds, ctx,
+    )
 
 
 def run_rounds_fused(cfg: QBAConfig, vi, out_cells, lieu_lists, honest,
                      k_rounds, ctx=None):
     """Step 3b on the fused round kernel: one
     :func:`~qba_tpu_torch.ops.round_kernel_tiled.fused_round` per round
-    over the compacted pool.  Returns ``(vi, overflow [T])``."""
+    over the compacted pool.  Returns ``(vi, overflow [T], counters)``."""
     from qba_tpu_torch.ops.round_kernel_tiled import fused_round
 
     return _run_rounds_pool(
@@ -287,7 +424,7 @@ def run_rounds_tiled(cfg: QBAConfig, vi, out_cells, lieu_lists, honest,
     :func:`~qba_tpu_torch.ops.round_kernel_tiled.tiled_verdict` (the
     accepted matrix and ``vi'``) and one
     :func:`~qba_tpu_torch.ops.round_kernel_tiled.tiled_rebuild` (the
-    successor pool).  Returns ``(vi, overflow [T])``."""
+    successor pool).  Returns ``(vi, overflow [T], counters)``."""
     from qba_tpu_torch.ops.round_kernel_tiled import (
         tiled_rebuild,
         tiled_verdict,
@@ -359,7 +496,8 @@ def run_trial_mega(cfg: QBAConfig, keys: torch.Tensor) -> TrialResult:
     )
 
 
-def finish_trial(cfg: QBAConfig, vi, v_comm, honest, overflow) -> TrialResult:
+def finish_trial(cfg: QBAConfig, vi, v_comm, honest, overflow,
+                 counters=None) -> TrialResult:
     """Decisions (``min(Vi)``, the commander its own ``v``) and the
     success oracle."""
     is_comm = torch.zeros(vi.shape[:-1], dtype=torch.bool, device=vi.device)
@@ -373,6 +511,7 @@ def finish_trial(cfg: QBAConfig, vi, v_comm, honest, overflow) -> TrialResult:
         v_comm=v_comm,
         vi=vi,
         overflow=overflow,
+        counters=counters,
     )
 
 
@@ -388,15 +527,16 @@ def run_trial(cfg: QBAConfig, keys: torch.Tensor) -> TrialResult:
     )
     vi, out_cells = step3a_one(cfg, p_rows, v_sent, lieu_lists)
     ctx = adversary_ctx(cfg, k_rounds, v_sent)
-    if engine in ("pallas_fused", "pallas_tiled"):
-        rounds = (run_rounds_fused if engine == "pallas_fused"
-                  else run_rounds_tiled)
-        vi, overflow = rounds(
-            cfg, vi, out_cells, lieu_lists, honest, k_rounds, ctx
-        )
-    else:
-        vi, overflow = run_rounds_xla(
+    if engine == "xla":
+        vi, overflow, counters = run_rounds_xla(
             cfg, vi, mailbox_from_step3a(cfg, out_cells), lieu_lists,
             honest, k_rounds, ctx,
         )
-    return finish_trial(cfg, vi, v_comm, honest, overflow)
+    else:
+        rounds = {"pallas": run_rounds_pallas,
+                  "pallas_fused": run_rounds_fused,
+                  "pallas_tiled": run_rounds_tiled}[engine]
+        vi, overflow, counters = rounds(
+            cfg, vi, out_cells, lieu_lists, honest, k_rounds, ctx
+        )
+    return finish_trial(cfg, vi, v_comm, honest, overflow, counters)

@@ -10,8 +10,11 @@ accepted matrices denser than the protocol makes, and step 3a's rejection
 of inconsistent lieutenants.  The tests compare the plain versions with
 the JAX package on :func:`random_state`; ``tests/test_torch_cuda.py`` and
 ``chip_smoke.py`` compare each kernel with its plain version on
-:func:`random_round_inputs`, :func:`dense_acc` and
-:func:`random_trial_inputs`.  Everything is made with numpy from a seed.
+:func:`random_round_inputs`, :func:`dense_acc`,
+:func:`random_trial_inputs`, :func:`random_mailbox_inputs` (the same
+packets at their own cells of a dense mailbox) and
+:func:`random_circuit` (complex gates, multi-control ops and ``XPOW``).
+Everything is made with numpy from a seed.
 """
 
 from __future__ import annotations
@@ -20,7 +23,11 @@ import numpy as np
 import torch
 
 from qba_tpu_torch.config import QBAConfig
-from qba_tpu_torch.convert import draws_from_numpy, pool_from_numpy
+from qba_tpu_torch.convert import (
+    draws_from_numpy,
+    mailbox_from_numpy,
+    pool_from_numpy,
+)
 
 
 def random_draws(rng, cfg: QBAConfig, shape):
@@ -70,6 +77,46 @@ def random_state(rng, cfg: QBAConfig, round_idx: int):
     hc = np.repeat(sender_honest, slots).astype(np.int32)[:, None]
     att, rv, late = random_draws(rng, cfg, (n_pool, n_rv))
     return (vals, lens, p, meta), li, vi, hc, att, rv, late
+
+
+def random_mailbox_state(rng, cfg: QBAConfig, round_idx: int):
+    """:func:`random_state` with its pool's packets at their own cells of
+    a dense mailbox, in the JAX round kernel's packed layout: ``(vals
+    [max_l, n_pk, S], lens, count [n_pk, 1], p, v [n_pk, 1], sent [n_pk,
+    1])``, then li, vi, honesty and draws as :func:`random_state`."""
+    (vals, lens, p, meta), *rest = random_state(rng, cfg, round_idx)
+    live = meta[:, 2] != 0
+    cells = meta[live, 3]
+    d_vals, d_lens, d_p = np.full_like(vals, -1), np.zeros_like(lens), \
+        np.zeros_like(p)
+    d_meta = np.zeros((meta.shape[0], 3), np.int32)
+    d_vals[:, cells] = vals[:, live]
+    d_lens[cells], d_p[cells] = lens[live], p[live]
+    d_meta[cells] = meta[live, :3]
+    packed = (d_vals, d_lens, d_meta[:, 0:1], d_p, d_meta[:, 1:2],
+              d_meta[:, 2:3])
+    return (packed, *rest)
+
+
+def random_mailbox_inputs(cfg: QBAConfig, round_idx: int, n_trials: int,
+                          seed: int, device=None):
+    """``n_trials`` trials of :func:`random_mailbox_state` as one round's
+    inputs to ``round_step``: ``(mailbox, li, vi, honest_pk, attack,
+    rand_v, late)`` in the kernel's dtypes."""
+    rng = np.random.default_rng(seed)
+    states = [random_mailbox_state(rng, cfg, round_idx)
+              for _ in range(n_trials)]
+    packed, lis, vis, hcs, atts, rvs, lates = zip(*states)
+    mailbox = mailbox_from_numpy(*(np.stack([m[i] for m in packed])
+                                   for i in range(6)), device=device)
+
+    def i32(xs):
+        return torch.from_numpy(np.ascontiguousarray(np.stack(xs))).to(
+            device, torch.int32)
+
+    return (mailbox, i32(lis), i32(vis), i32([h[:, 0] for h in hcs]),
+            *draws_from_numpy(np.stack(atts), np.stack(rvs), np.stack(lates),
+                              device=device))
 
 
 def random_round_inputs(cfg: QBAConfig, round_idx: int, n_trials: int,
@@ -147,3 +194,27 @@ def random_trial_inputs(cfg: QBAConfig, n_trials: int, seed: int,
             t_(v_sent, torch.int32), t_(hc, torch.int32),
             *(x.contiguous() for x in draws_from_numpy(*draws,
                                                        device=device)))
+
+
+def random_circuit(n_qubits: int, n_ops: int, seed: int, n_params: int = 3):
+    """A seeded random op list for the circuit engines, as plain tuples
+    ``(kind, target, controls, param, angle)``
+    (:func:`qba_tpu_torch.convert.circuit_ops_from_tuples`): the fixed
+    gates, the rotation families with random angles, ``XPOW`` on
+    ``n_params`` runtime bits, and up to three controls per op.  Starts
+    with an H on every qubit so that every amplitude is live."""
+    rng = np.random.default_rng(seed)
+    kinds = ("H", "X", "Y", "Z", "S", "T", "RX", "RY", "RZ", "P", "XPOW")
+    ops = [("H", q, (), None, None) for q in range(n_qubits)]
+    for _ in range(n_ops):
+        kind = kinds[int(rng.integers(len(kinds)))]
+        target = int(rng.integers(n_qubits))
+        others = [q for q in range(n_qubits) if q != target]
+        n_ctrl = int(rng.choice([0, 0, 1, 2, 3]))
+        controls = tuple(int(c) for c in rng.choice(
+            others, size=min(n_ctrl, len(others)), replace=False))
+        param = int(rng.integers(n_params)) if kind == "XPOW" else None
+        angle = (float(rng.uniform(-np.pi, np.pi))
+                 if kind in ("RX", "RY", "RZ", "P") else None)
+        ops.append((kind, target, controls, param, angle))
+    return ops

@@ -66,12 +66,31 @@ def test_build_dir_outside_a_checkout(csrc, tmp_path, monkeypatch):
 
 
 def test_repo_kernels_and_their_sources():
-    # Every kernel source exists, and the three share the round header.
+    # Every kernel source exists; the four round kernels share the round
+    # header (so its edits rebuild them), the circuit kernel stands alone.
+    assert set(_build.KERNELS) == {"fused_round", "trial_megakernel",
+                                   "tiled_round", "round_step",
+                                   "fused_circuit"}
     for name in _build.KERNELS:
         files = [p.name for p in _build.sources(name)]
         assert files[0] == f"{name}.cu"
-        assert "round_common.cuh" in files
+        assert ("round_common.cuh" in files) == (name != "fused_circuit")
     assert _build.build_dir().parts[-2:] == ("build", "qba_tpu_torch")
+
+
+@pytest.mark.parametrize("name", ["round_step", "fused_circuit"])
+def test_new_sources_are_in_their_build_key(name, tmp_path, monkeypatch):
+    # A copy of csrc with one byte appended to the source changes the key.
+    import shutil
+
+    lib = _build._target(name)[1]
+    copy = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, copy)
+    monkeypatch.setattr(_build, "CSRC", copy)
+    assert _build._target(name)[1].name == lib.name
+    with open(copy / f"{name}.cu", "a") as f:
+        f.write("// edit\n")
+    assert _build._target(name)[1].name != lib.name
 
 
 def test_package_data_ships_every_kernel_source():
@@ -87,6 +106,7 @@ def test_package_data_ships_every_kernel_source():
     pkg = root / "qba_tpu_torch"
     files = [p.relative_to(pkg).as_posix()
              for p in (pkg / "ops" / "csrc").iterdir() if p.is_file()]
-    assert {"ops/csrc/round_common.cuh", "ops/csrc/fused_round.cu"} <= set(files)
+    assert {"ops/csrc/round_common.cuh", "ops/csrc/fused_round.cu",
+            "ops/csrc/round_step.cu", "ops/csrc/fused_circuit.cu"} <= set(files)
     for f in files:
         assert any(fnmatch.fnmatch(f, g) for g in globs), f

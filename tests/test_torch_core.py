@@ -14,6 +14,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# Tiny tensors: PyTorch's intra-op thread pool would only spin on them
+# and starve the other test workers.
+torch.set_num_threads(1)
 
 from qba_tpu.core import append_own as j_append_own
 from qba_tpu.core import consistent as j_consistent

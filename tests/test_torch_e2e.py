@@ -7,7 +7,8 @@ overflow, honesty and commander order must be equal, for the four
 strategies at 5p/L16/d2 and 11p/L64/d3, both attack scopes, noise, racy
 delivery and an overflowing slot bound.  Every port engine (``xla``,
 and ``pallas_fused``, ``pallas_tiled`` and ``pallas_mega`` on their
-kernels' plain versions here) is checked.
+kernels' plain versions here) is checked; ``pallas`` has its own file,
+tests/test_torch_round_step.py.
 Plus: ``device=None`` means CUDA and raises without it, and the port
 imports and runs with ``jax``, ``flax`` and ``qba_tpu`` blocked.
 """
@@ -22,6 +23,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# Tiny tensors: PyTorch's intra-op thread pool would only spin on them
+# and starve the other test workers.
+torch.set_num_threads(1)
 
 import qba_tpu_torch
 from qba_tpu.backends.jax_backend import run_trials as j_run_trials
@@ -114,10 +118,18 @@ cfg = qba_tpu_torch.QBAConfig(n_parties=5, size_l=16, n_dishonest=2,
                               trials=8, seed=1)
 res = qba_tpu_torch.run_trials(cfg, device="cpu")
 assert res.trials.decisions.shape == (8, 5)
-for engine in ("pallas_fused", "pallas_tiled", "pallas_mega"):
+for engine in ("pallas", "pallas_fused", "pallas_tiled", "pallas_mega"):
     other = qba_tpu_torch.run_trials(
         dataclasses.replace(cfg, round_engine=engine), device="cpu")
     assert (other.trials.decisions == res.trials.decisions).all(), engine
+counted = qba_tpu_torch.run_trials(
+    dataclasses.replace(cfg, collect_counters=True), device="cpu")
+assert (counted.trials.decisions == res.trials.decisions).all()
+assert counted.trials.counters.accepts_per_round.shape == (8, 3)
+dense = qba_tpu_torch.run_trials(
+    qba_tpu_torch.QBAConfig(n_parties=3, size_l=8, n_dishonest=1, trials=4,
+                            seed=1, qsim_path="dense"), device="cpu")
+assert dense.trials.decisions.shape == (4, 3)
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "flax", "qba_tpu")]
 assert not bad, bad
@@ -129,6 +141,7 @@ def test_port_runs_with_jax_blocked():
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = repo
+    env["OMP_NUM_THREADS"] = "1"  # tiny tensors, as in this process
     proc = subprocess.run(
         [sys.executable, "-c", BLOCKED_RUN], cwd=repo, env=env,
         capture_output=True, text=True, timeout=300,

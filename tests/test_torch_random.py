@@ -12,6 +12,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# Tiny tensors: PyTorch's intra-op thread pool would only spin on them
+# and starve the other test workers.
+torch.set_num_threads(1)
 
 from qba_tpu_torch import random as jr
 from qba_tpu_torch.adversary.model import (

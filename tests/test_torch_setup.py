@@ -14,6 +14,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# Tiny tensors: PyTorch's intra-op thread pool would only spin on them
+# and starve the other test workers.
+torch.set_num_threads(1)
 
 from qba_tpu.adversary import adversary_ctx as j_ctx
 from qba_tpu.adversary import sample_attacks_round as j_draws
@@ -129,8 +132,13 @@ def test_config_mirror_validates_like_jax():
 def test_unported_options_raise():
     from qba_tpu_torch import QBAConfig, run_trials
 
-    for kw in [dict(round_engine="pallas"),
-               dict(qsim_path="stabilizer"), dict(collect_counters=True)]:
-        cfg = QBAConfig(n_parties=3, size_l=4, n_dishonest=1, **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run_trials(cfg, device="cpu")
+    # The one config value the port accepts but does not run yet.
+    cfg = QBAConfig(n_parties=3, size_l=4, n_dishonest=1,
+                    qsim_path="stabilizer")
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        run_trials(cfg, device="cpu")
+    # Every other engine, the counters and the dense paths run.
+    for kw in [dict(round_engine="pallas"), dict(collect_counters=True),
+               dict(qsim_path="dense"), dict(qsim_path="dense_pallas")]:
+        cfg = QBAConfig(n_parties=3, size_l=4, n_dishonest=1, trials=2, **kw)
+        assert run_trials(cfg, device="cpu").trials.decisions.shape == (2, 3)

@@ -19,6 +19,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# Tiny tensors: PyTorch's intra-op thread pool would only spin on them
+# and starve the other test workers.
+torch.set_num_threads(1)
 
 import qba_tpu_torch
 from qba_tpu.adversary import adversary_ctx as j_ctx
