@@ -26,6 +26,17 @@ Phases, each reported on its own line:
    at 3, 4 and 5 parties (8, 15, 18 qubits) with random params, and
    seeded random circuits at 10 and 16 qubits with complex gates,
    multi-control ops and ``XPOW``;
+   ``sweep_vs_plain``: the GF(2) sweep kernel against its plain version,
+   bit-exact, on the protocol's stabilizer tableaux at 5, 11, 33 and 65
+   parties (some with noise; the kernel keeps the tableaux in shared
+   memory up to 11 parties and in global scratch past that) and on
+   seeded random Clifford tableaux of 13 to 150 qubits, on both sides
+   of that rule, whose steps take both branches and pivots past the
+   first stabilizer row; ``sweep_65p``: the sweep kernel over a
+   1000-trial batch at 65 parties (462 qubits), timed;
+   ``gen_vs_plain``: the trial megakernel's gen entry against its plain
+   version at 11p/L64/d3 (strategy "split", noise) and 33p/L64/d10 on
+   32 trials, and against the host-gen megakernel on the same lists;
 5. ``engines_agree``: ``run_trials`` with the ``xla``, ``pallas``,
    ``pallas_fused``, ``pallas_tiled`` and ``pallas_mega`` engines trial
    for trial at 5p/L16/d2 x 64, and the protocol counters of the four
@@ -46,10 +57,21 @@ Phases, each reported on its own line:
    inputs.  Then ``collect_counters=True`` on ``auto`` at 11p/L64/d3 x
    1000 (asserted to run the fused per-round engine), and the dense
    circuit path at the widest circuit it admits,
-   ``qsim_path="dense_pallas"`` at 5p/L64/d2 x 64 (18 qubits), with the
+   ``qsim_path="dense_pallas"`` at 5p/L64/d2 x 32 (18 qubits), with the
    circuit kernel's launches asserted and its lists and results equal to
    the same run on ``qsim_path="dense"`` (the plain per-gate engine on
-   the card).
+   the card);
+7. the stabilizer path at full width, ``qsim_path="stabilizer"`` at
+   11p/L64/d3 and 33p/L64/d10 x 1000: ``auto`` (asserted to be one launch
+   of the megakernel's gen entry and none of the sweep kernel),
+   ``mega_gen="host"`` (one sweep launch, one host-gen megakernel launch)
+   and ``pallas_fused`` (one sweep launch, one fused round per round),
+   equal trial for trial, each with rounds/s, kernel ms per launch,
+   set-up, draws and peak memory; then the gen entry timed (with its
+   shared memory and resident blocks per SM) against the host-gen
+   megakernel on the same lists (the sweep's share), the sweep kernel
+   over the batch against its plain version, and the bounds of both
+   from the run's own pivots.
 
 Any failure exits non-zero.  The line before the last is the kernel
 table as JSON, the one before it the card; the last line is
@@ -83,6 +105,11 @@ SOURCES = {
                    "qba_tpu/ops/round_kernel.py:162"),
     "fused_circuit": ("qba_tpu_torch/ops/csrc/fused_circuit.cu",
                       "qba_tpu/ops/fused_circuit.py:93"),
+    # The counterpart of the JAX host sweep, not of a pallas_call site.
+    "gf2_sweep": ("qba_tpu_torch/ops/csrc/gf2_sweep.cu",
+                  "qba_tpu/gf2/symplectic.py:121"),
+    "trial_megakernel_gen": ("qba_tpu_torch/ops/csrc/trial_megakernel.cu",
+                             "qba_tpu/ops/trial_megakernel.py:102"),
 }
 
 
@@ -443,7 +470,8 @@ ENGINE_OF = {"fused_round": "pallas_fused", "tiled_verdict": "pallas_tiled",
              "tiled_rebuild": "pallas_tiled", "trial_megakernel": "auto",
              "round_step": "pallas"}
 COUNTED = ("fused_round", "tiled_verdict", "tiled_rebuild",
-           "trial_megakernel", "round_step", "fused_circuit")
+           "trial_megakernel", "round_step", "fused_circuit", "gf2_sweep",
+           "trial_megakernel_gen")
 ROUND_KERNELS = COUNTED[:5]
 
 # Seeded random inputs (qba_tpu_torch.testing): round inputs as
@@ -602,8 +630,346 @@ def circuit_vs_plain(dev, reps=5):
     return facts, timing
 
 
+def sweep_cost(total, work, n_shots, n_fam=2):
+    """Bytes and word operations of one sweep over ``n_shots`` shots of
+    ``total`` qubits: in, the static tableaux (once), each shot's phases,
+    coins, readout flips and family; out, the bits (int32).  Operations
+    from the run's own steps (``work`` of the plain sweep on the same
+    inputs): a random step tests the ``2 total`` rows' ``x_a`` (the
+    pivot is the first stabilizer among them) and the surgery writes
+    ``4 W`` words; each row that absorbs the pivot costs ``5 W`` (cross
+    AND and fold, x and z XOR); a deterministic step tests ``2 total``
+    rows and each selected stabilizer costs ``3 W`` (AND, fold, prefix
+    XOR)."""
+    w = -(-total // 32)
+    b = (n_fam * 2 * 2 * total * w * 4
+         + n_shots * (2 * total + total + total + 1 + 4 * total))
+    ops = (work["random_steps"] * (2 * total + 4 * w)
+           + work["rows_updated"] * 5 * w
+           + work["det_steps"] * 2 * total + work["rows_selected"] * 3 * w)
+    return b, ops
+
+
+def gen_cost(cfg, rounds, n_trials, sweep_ops):
+    """Bytes and operations of the megakernel's gen entry: the host-gen
+    megakernel's (``mega_cost``) less its li and P inputs, plus the
+    generation operands in (per shot qcorr, the coins, the readout flips
+    and the phases of the one family ``qcorr`` picks, ``r_q`` or
+    ``r_nq``; the four static tableaux once) and the sweep's
+    operations."""
+    n_rv, s, total = cfg.n_lieutenants, cfg.size_l, cfg.total_qubits
+    w = -(-total // 32)
+    b, ops = mega_cost(cfg, rounds, n_trials)
+    b -= n_trials * (n_rv * s * 4 + n_rv * s)
+    b += 4 * 2 * total * w * 4 + n_trials * s * (1 + 4 * total)
+    return b, ops + sweep_ops
+
+
+# The GF(2) sweep on the protocol's tableaux: (name, parties, trials,
+# noise); 65 parties (462 qubits) only generate on the card.  The kernel
+# keeps 5p and 11p tableaux in shared memory, 33p and 65p ones in global
+# scratch, and the random ones up to 71 qubits in shared memory.
+SWEEP_CASES = [
+    ("5p noisy", 5, 8, True),
+    ("11p", 11, 8, False),
+    ("11p noisy", 11, 8, True),
+    ("33p noisy", 33, 4, True),
+    ("33p", 33, 4, False),
+    ("65p noisy", 65, 2, True),
+]
+RANDOM_SWEEPS = [13, 40, 70, 100, 150]
+
+
+def sweep_vs_plain(dev):
+    """``gf2_sweep`` against its plain version, bit-exact: the protocol's
+    tableaux at 5, 11, 33 and 65 parties (some with noise; the tableaux
+    in shared memory and in global scratch), and seeded random Clifford
+    tableaux
+    (``qba_tpu_torch.testing.random_sweep_inputs``) whose steps take both
+    branches and pivots past the first stabilizer row."""
+    import torch
+
+    from qba_tpu_torch import QBAConfig
+    from qba_tpu_torch import random as jr
+    from qba_tpu_torch.ops import gf2_sweep as gs
+    from qba_tpu_torch.qsim import protocol_circuits as pc
+    from qba_tpu_torch.testing import random_sweep_inputs
+
+    err, facts = 0, []
+    for name, n, trials, noisy in SWEEP_CASES:
+        cfg = QBAConfig(n_parties=n, size_l=64, p_depolarize=0.05 * noisy,
+                        p_measure_flip=0.02 * noisy)
+        ops = pc.stabilizer_gen_operands(
+            cfg, jr.split(jr.key(n, device=dev), trials))
+        tables = pc.stabilizer_gen_tables(cfg, dev)
+        got = pc.stabilizer_bits(cfg, tables, ops, sweep=gs.gf2_sweep)
+        work = {}
+        want = pc.stabilizer_bits(cfg, tables, ops, sweep=lambda *a: (
+            gs.gf2_sweep_reference(*a, work=work)))
+        err = max(err, max_err(got, want))
+        facts.append(dict(case=name, qubits=cfg.total_qubits,
+                          shots=trials * 64, tableau=placement(
+                              cfg.total_qubits), **work))
+    for n in RANDOM_SWEEPS:
+        args = random_sweep_inputs(n, 128, seed=n, device=dev)
+        work = {}
+        want = gs.gf2_sweep_reference(n, *args, work=work)
+        err = max(err, max_err(gs.gf2_sweep(n, *args), want))
+        if not (work["random_steps"] and work["det_steps"]
+                and work["late_pivots"]):
+            raise AssertionError(f"random sweep at {n} qubits reached "
+                                 f"too little: {work}")
+        facts.append(dict(case=f"random {n}q", qubits=n, shots=128,
+                          tableau=placement(n), **work))
+    torch.cuda.synchronize()
+    if err:
+        raise AssertionError(f"gf2_sweep != plain version: max abs err {err}")
+    if {f["tableau"] for f in facts} != {"shared", "global"}:
+        raise AssertionError("sweep_vs_plain missed a tableau placement")
+    return err, facts
+
+
+def placement(n):
+    """Where the sweep kernel keeps an ``n``-qubit tableau."""
+    from qba_tpu_torch.ops.gf2_sweep import tableau_in_shared
+
+    return "shared" if tableau_in_shared(n) else "global"
+
+
+GEN_CASES = [
+    ("11p/L64/d3 split noisy", dict(n_parties=11, size_l=64, n_dishonest=3,
+                                    strategy="split", p_depolarize=0.02,
+                                    p_measure_flip=0.01)),
+    ("33p/L64/d10", dict(n_parties=33, size_l=64, n_dishonest=10)),
+]
+
+
+def gen_inputs(cfg, keys):
+    """The gen entry's inputs for ``keys``, staged as ``run_trial_mega``
+    builds them, with the set-up (generation operands) and draw times."""
+    import torch
+
+    from qba_tpu_torch.adversary import adversary_ctx
+    from qba_tpu_torch.ops.round_kernel_tiled import honest_cells
+    from qba_tpu_torch.qsim.protocol_circuits import stabilizer_gen_tables
+    from qba_tpu_torch.rounds.engine import _mega_gen_setup, _stacked_draws
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    honest, gen_ops, v_sent, _v_comm, k_rounds = _mega_gen_setup(cfg, keys)
+    ctx = adversary_ctx(cfg, k_rounds, v_sent)
+    args = [stabilizer_gen_tables(cfg, keys.device), gen_ops,
+            v_sent.to(torch.int32).contiguous(), honest_cells(honest, cfg)]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    args += list(_stacked_draws(cfg, k_rounds, ctx))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return args, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+
+def chunked(fn, args, n, chunk):
+    """``fn`` over chunks of ``chunk`` trials of ``args`` (the first, the
+    tables, shared whole) -> (outputs concatenated, host ms)."""
+    import torch
+
+    def part(x, sl):
+        if isinstance(x, (tuple, list)):
+            return type(x)(part(y, sl) for y in x)
+        return x[sl]
+
+    t0 = time.perf_counter()
+    parts = [fn(args[0], *(part(x, slice(a, a + chunk)) for x in args[1:]))
+             for a in range(0, n, chunk)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return tuple(torch.cat([p[i] for p in parts]) for i in range(3)), ms
+
+
+def gen_vs_plain(cfg, keys, *, chunk=32, reps=0, plain_sweep=None):
+    """The gen entry against its plain version on ``keys``' trials,
+    bit-exact, and against the host-gen megakernel on the same lists.
+    The plain version is the plain sweep, then the decode and
+    ``trial_megakernel_reference`` on its bits, in chunks of ``chunk``
+    trials.  ``plain_sweep``, the plain sweep's bits of these trials and
+    its ms (``sweep_batch``), stands in for the sweep, which then does not
+    run again.  With ``reps`` > 0 also times the gen entry and the
+    host-gen megakernel (CUDA events) and the plain version (host
+    clock).  Returns the facts and the final accepted sets."""
+    import torch
+
+    from qba_tpu_torch.ops import _build
+    from qba_tpu_torch.ops import gf2_sweep as gs
+    from qba_tpu_torch.ops import trial_megakernel as tm
+    from qba_tpu_torch.qsim.protocol_circuits import (
+        lists_from_bits,
+        stabilizer_bits,
+    )
+    from qba_tpu_torch.rounds.engine import p_sets
+
+    args, setup_ms, draws_ms = gen_inputs(cfg, keys)
+    n = keys.shape[0]
+    if plain_sweep is None:
+        t0 = time.perf_counter()
+        bits = stabilizer_bits(cfg, args[0], args[1],
+                               sweep=gs.gf2_sweep_reference)
+        torch.cuda.synchronize()
+        plain_sweep = bits, (time.perf_counter() - t0) * 1e3
+    bits, sweep_ms = plain_sweep
+
+    def host_lists(bits, v_sent):
+        lists = lists_from_bits(cfg, bits)
+        return (p_sets(lists, v_sent).contiguous(),
+                lists[:, 2:].to(torch.int32).contiguous())
+
+    def rest(_tables, bits, _ops, v_sent, *a):
+        return tm.trial_megakernel_reference(
+            cfg, *host_lists(bits, v_sent), v_sent, *a)
+
+    want, rest_ms = chunked(rest, [args[0], bits, *args[1:]], n, chunk)
+    got = tm.trial_megakernel_gen(cfg, *args)
+    err = tree_err(got, want)
+    if err:
+        raise AssertionError(f"trial_megakernel_gen != plain version at "
+                             f"{cfg}: max abs err {err}")
+    # The host-gen megakernel on the lists the gen entry decodes.
+    host_args = (cfg, *host_lists(bits, args[2]), *args[2:])
+    if tree_err(tm.trial_megakernel(*host_args), want):
+        raise AssertionError(f"host-gen megakernel != gen entry at {cfg}")
+    occupancy = _build.load_library("trial_megakernel") \
+        .qba_trial_megakernel_occupancy
+    out = dict(setup_ms=setup_ms, draws_ms=draws_ms,
+               plain_ms=sweep_ms + rest_ms if reps else None)
+    for key, fn, gen in (("gen", tm.trial_megakernel_gen, 1),
+                         ("host_gen", tm.trial_megakernel, 0)):
+        smem, blocks = ctypes_ints(occupancy, gen, cfg.n_lieutenants,
+                                   cfg.slots, cfg.max_l, cfg.size_l, cfg.w)
+        out[key] = dict(smem=smem, blocks_per_sm=blocks)
+        if reps:
+            fn.events = []
+            for _ in range(reps):
+                fn(*((cfg, *args) if gen else host_args))
+            torch.cuda.synchronize()
+            out[key]["ms"] = event_ms(fn.events)
+            fn.events = None
+    out["max_abs_err"] = err
+    out["overflow"] = int(want[2].sum())
+    return out, want[0] != 0
+
+
+def pool_rounds(cfg, keys):
+    """Each round's ``(live, rows, dst)`` of ``keys``' trials, advanced by
+    the fused round kernel (which ``replay`` holds against its plain
+    version): what ``mega_cost`` counts.  Returns them and the final
+    accepted sets."""
+    import torch
+
+    from qba_tpu_torch import random as jr
+    from qba_tpu_torch.adversary import adversary_ctx, sample_attacks_round
+    from qba_tpu_torch.ops import round_kernel_tiled as rk
+    from qba_tpu_torch.rounds.engine import setup_trial, step3a_one
+
+    honest, li, p_rows, v_sent, _v_comm, k_rounds = setup_trial(cfg, keys)
+    vi, out_cells = step3a_one(cfg, p_rows, v_sent, li)
+    ctx = adversary_ctx(cfg, k_rounds, v_sent)
+    pool = rk.pool_from_step3a(cfg, out_cells)
+    hc = rk.honest_cells(honest, cfg)
+    li, vi = li.to(torch.int32).contiguous(), vi.to(torch.int32)
+    rounds = []
+    for r in range(1, cfg.n_rounds + 1):
+        att, rv, late = (x.to(torch.uint8) for x in sample_attacks_round(
+            cfg, jr.fold_in(k_rounds, r), r, ctx))
+        live, rows = pool_stats(cfg, pool)
+        pool, vi, _ovf = rk.fused_round(cfg, r, pool, li, vi, hc, att, rv,
+                                        late)
+        rounds.append((live, rows, pool_stats(cfg, pool)[0]))
+    return rounds, vi != 0
+
+def ctypes_ints(fn, *ints):
+    """Call a C query taking ints and two int out-pointers."""
+    import ctypes
+
+    a, b = ctypes.c_int(), ctypes.c_int()
+    rc = fn(*[ctypes.c_int(i) for i in ints], ctypes.byref(a),
+            ctypes.byref(b))
+    if rc != 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {rc}")
+    return a.value, b.value
+
+
+def sweep_ms(cfg, tables, ops, reps=3):
+    """The sweep kernel's ms per launch (CUDA events) over ``ops``' whole
+    batch, and its bits."""
+    import torch
+
+    from qba_tpu_torch.ops import gf2_sweep as gs
+    from qba_tpu_torch.qsim import protocol_circuits as pc
+
+    got = pc.stabilizer_bits(cfg, tables, ops, sweep=gs.gf2_sweep)
+    gs.gf2_sweep.events = []
+    for _ in range(reps):
+        pc.stabilizer_bits(cfg, tables, ops, sweep=gs.gf2_sweep)
+    torch.cuda.synchronize()
+    ms, gs.gf2_sweep.events = event_ms(gs.gf2_sweep.events), None
+    return got, ms
+
+
+def sweep_batch(cfg, keys, *, chunk=32):
+    """The host path's sweep over ``keys``' whole batch (the shots
+    ``setup_trial`` sweeps): the kernel against its plain version
+    (bit-exact; plain in chunks of ``chunk`` trials, with its work
+    counted), kernel ms, and the bound."""
+    import torch
+
+    from qba_tpu_torch import random as jr
+    from qba_tpu_torch.ops import gf2_sweep as gs
+    from qba_tpu_torch.qsim import protocol_circuits as pc
+
+    k_lists = jr.split(keys, 4)[..., 1, :]
+    ops = pc.stabilizer_gen_operands(cfg, k_lists)
+    tables = pc.stabilizer_gen_tables(cfg, keys.device)
+    got, ms = sweep_ms(cfg, tables, ops)
+    work = {}
+    n = keys.shape[0]
+    t0 = time.perf_counter()
+    want = torch.cat([pc.stabilizer_bits(
+        cfg, tables, tuple(x[a:a + chunk] for x in ops),
+        sweep=lambda *a: gs.gf2_sweep_reference(*a, work=work))
+        for a in range(0, n, chunk)])
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max_err(got, want)
+    if err:
+        raise AssertionError(f"gf2_sweep != plain version on the batch at "
+                             f"{cfg}: max abs err {err}")
+    shots = n * cfg.size_l
+    b_ms, b_by = bound(*sweep_cost(cfg.total_qubits, work, shots))
+    return dict(max_abs_err=err, ms=ms, tableau=placement(cfg.total_qubits),
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, shots=shots,
+                work=work), want
+
+
+def sweep_65p(dev, trials=1000):
+    """The sweep kernel over a whole 1000-trial batch at 65 parties (462
+    qubits; only generation runs there on the card): ms per launch.
+    ``sweep_vs_plain`` holds it against the plain version at this width
+    on a few trials."""
+    from qba_tpu_torch import QBAConfig
+    from qba_tpu_torch import random as jr
+    from qba_tpu_torch.qsim import protocol_circuits as pc
+
+    cfg = QBAConfig(n_parties=65, size_l=64, trials=trials)
+    ops = pc.stabilizer_gen_operands(
+        cfg, jr.split(jr.key(65, device=dev), trials))
+    _bits, ms = sweep_ms(cfg, pc.stabilizer_gen_tables(cfg, dev), ops)
+    return dict(config="65p/L64", trials=trials, shots=trials * 64,
+                qubits=cfg.total_qubits, tableau=placement(cfg.total_qubits),
+                ms=ms)
+
+
 def wrappers():
     from qba_tpu_torch.ops import fused_circuit as fc
+    from qba_tpu_torch.ops import gf2_sweep as gs
     from qba_tpu_torch.ops import round_kernel as rs
     from qba_tpu_torch.ops import round_kernel_tiled as rk
     from qba_tpu_torch.ops import trial_megakernel as tm
@@ -611,7 +977,9 @@ def wrappers():
     return {"fused_round": rk.fused_round, "tiled_verdict": rk.tiled_verdict,
             "tiled_rebuild": rk.tiled_rebuild,
             "trial_megakernel": tm.trial_megakernel,
-            "round_step": rs.round_step, "fused_circuit": fc.fused_circuit}
+            "round_step": rs.round_step, "fused_circuit": fc.fused_circuit,
+            "gf2_sweep": gs.gf2_sweep,
+            "trial_megakernel_gen": tm.trial_megakernel_gen}
 
 
 def drive(cfg, engine):
@@ -719,6 +1087,22 @@ def main(argv):
                                       timing=circuit_timing)
     log("circuit_vs_plain", tolerance=CIRCUIT_ATOL, cases=circuit_cases,
         **circuit_timing)
+    sweep_err, sweep_facts = sweep_vs_plain(dev)
+    report["sweep_vs_plain"] = dict(max_abs_err=sweep_err, cases=sweep_facts)
+    log("sweep_vs_plain", tolerance=0, max_abs_err=sweep_err,
+        cases=sweep_facts)
+    if not quick:
+        report["sweep_65p"] = sweep_65p(dev)
+        log("sweep_65p", **report["sweep_65p"])
+    gen_checks = []
+    for name, kw in GEN_CASES:
+        cfg = QBAConfig(**kw, trials=32, seed=21, qsim_path="stabilizer")
+        gen, _vi = gen_vs_plain(cfg, trial_keys(cfg, dev))
+        gen_checks.append(dict(config=name, **gen))
+        log("gen_vs_plain", config=name, tolerance=0,
+            max_abs_err=gen["max_abs_err"], overflow=gen["overflow"],
+            gen=gen["gen"])
+    report["gen_vs_plain"] = gen_checks
     if quick:
         print(card)
         print(json.dumps({"ok": True, "device": {
@@ -800,7 +1184,7 @@ def main(argv):
             engines=["pallas_mega", "pallas_fused", "pallas_tiled", "pallas"])
 
         keys = trial_keys(cfg, dev)
-        setup, *stats = replay(cfg, keys, chunk=32, reps=5)
+        setup, *stats = replay(cfg, keys, chunk=32, reps=3)
         if not torch.equal(setup.pop("vi"), results["auto"].vi):
             raise AssertionError(f"{name}: main path != round-by-round replay")
         mega = mega_vs_plain(cfg, keys, chunk=32, reps=3)
@@ -887,7 +1271,7 @@ def main(argv):
     from qba_tpu_torch.rounds.engine import setup_trial
 
     dcfg = QBAConfig(n_parties=5, size_l=64, n_dishonest=2,
-                     qsim_path="dense_pallas", trials=64)
+                     qsim_path="dense_pallas", trials=32)
     out, wall, counts, events, peak = drive(dcfg, "auto")
     want = {k: int(k == "trial_megakernel") for k in ROUND_KERNELS}
     if ({k: counts[k] for k in ROUND_KERNELS} != want
@@ -928,6 +1312,102 @@ def main(argv):
     report["dense_path"] = dense_run
     log("main_path", qsim_path="dense_pallas", **dense_run)
 
+    # The stabilizer resource path at full width: `auto` is the
+    # megakernel's gen entry (one launch, no sweep kernel), mega_gen="host"
+    # the sweep kernel and the host-gen megakernel, pallas_fused the sweep
+    # kernel and the fused round per round.
+    from qba_tpu_torch.rounds.engine import resolve_mega_gen
+
+    stab_expect = {
+        "auto": ({}, {"trial_megakernel_gen": 1}),
+        "host": (dict(mega_gen="host"),
+                 {"trial_megakernel": 1, "gf2_sweep": 1}),
+        "pallas_fused": (dict(round_engine="pallas_fused"),
+                         {"fused_round": None, "gf2_sweep": 1}),
+    }
+    stab_runs = []
+    for name, base in main_cfgs:
+        cfg = dataclasses.replace(base, qsim_path="stabilizer")
+        if (resolve_round_engine(cfg, dev) != "pallas_mega"
+                or resolve_mega_gen(cfg, dev) != "gf2"):
+            raise AssertionError("auto on the stabilizer path is not the "
+                                 "megakernel's gen entry")
+        per_engine, results = {}, {}
+        for label, (kw, per_batch) in stab_expect.items():
+            out, wall, counts, events, peak = drive(
+                dataclasses.replace(cfg, **kw), "auto")
+            want = {k: cfg.n_rounds if per_batch.get(k, 0) is None
+                    else per_batch.get(k, 0) for k in COUNTED}
+            if counts != want:
+                raise AssertionError(f"{name} stabilizer {label}: launches "
+                                     f"{counts}, expected {want}")
+            for k, n in counts.items():
+                launches[k] += n
+            rate = float(out.success_rate)
+            if not (out.trials.decisions.shape == (cfg.trials, cfg.n_parties)
+                    and 0.0 <= rate <= 1.0):
+                raise AssertionError(f"{name} stabilizer {label}: malformed")
+            results[label] = out.trials
+            per_engine[label] = dict(
+                launches={k: n for k, n in counts.items() if n},
+                wall_s=wall, rounds_per_s=cfg.trials * cfg.n_rounds / wall,
+                kernel_ms_per_launch={k: event_ms(ev)
+                                      for k, ev in events.items() if ev},
+                success_rate=rate, peak_mem_bytes=peak)
+        for label in ("host", "pallas_fused"):
+            for f in fields:
+                if not torch.equal(getattr(results["auto"], f),
+                                   getattr(results[label], f)):
+                    raise AssertionError(f"{name} stabilizer: gen entry and "
+                                         f"{label} disagree on {f}")
+        log("engines_agree", config=name, qsim_path="stabilizer",
+            trials=cfg.trials, engines=list(stab_expect))
+        keys = trial_keys(cfg, dev)
+        sweep, plain_bits = sweep_batch(cfg, keys)
+        gen, gen_vi = gen_vs_plain(cfg, keys, reps=3,
+                                   plain_sweep=(plain_bits, sweep["plain_ms"]))
+        rounds, round_vi = pool_rounds(cfg, keys)
+        for vi in (gen_vi, round_vi):
+            if not torch.equal(vi, results["auto"].vi):
+                raise AssertionError(f"{name} stabilizer: main path != "
+                                     "staged replay")
+        sweep_ops = sweep_cost(cfg.total_qubits, sweep["work"],
+                               sweep["shots"])[1]
+        gen_bound = bound(*gen_cost(cfg, rounds, cfg.trials, sweep_ops))
+        host_bound = bound(*mega_cost(cfg, rounds, cfg.trials))
+        gen_ms = per_engine["auto"]["kernel_ms_per_launch"][
+            "trial_megakernel_gen"]
+        per_engine["auto"].update(
+            engine="pallas_mega, gen entry", setup_ms=gen["setup_ms"],
+            draws_ms=gen["draws_ms"],
+            bound_ms={"trial_megakernel_gen": gen_bound[0]},
+            bound_by={"trial_megakernel_gen": gen_bound[1]},
+            gen_replay=gen["gen"],
+            sweep_share=(gen["gen"]["ms"] - gen["host_gen"]["ms"])
+            / gen["gen"]["ms"])
+        per_engine["host"].update(
+            engine="gf2_sweep + pallas_mega",
+            bound_ms={"gf2_sweep": sweep["bound_ms"],
+                      "trial_megakernel": host_bound[0]},
+            host_gen_replay=gen["host_gen"])
+        per_engine["pallas_fused"].update(engine="gf2_sweep + pallas_fused")
+        stab_runs.append(dict(
+            config=name, qsim_path="stabilizer", trials=cfg.trials,
+            rounds=cfg.n_rounds, qubits=cfg.total_qubits,
+            engines=per_engine, gen_ms_per_launch=gen_ms,
+            gen=dict(max_abs_err=gen["max_abs_err"],
+                     plain_ms=gen["plain_ms"], bound_ms=gen_bound[0],
+                     bound_by=gen_bound[1]),
+            sweep=sweep, pool_rounds=rounds))
+        for label, e in per_engine.items():
+            log("main_path", config=name, qsim_path="stabilizer",
+                trials=cfg.trials, rounds=cfg.n_rounds, run=label, **e)
+        log("full_width_vs_plain", config=name, qsim_path="stabilizer",
+            tolerance=0, trial_megakernel_gen=stab_runs[-1]["gen"],
+            gf2_sweep={k: v for k, v in sweep.items() if k != "work"},
+            sweep_work=sweep["work"])
+    report["stabilizer_path"] = stab_runs
+
     big = runs[-1]
     kernels = []
     for k in ("fused_round", "trial_megakernel", "tiled_verdict",
@@ -960,6 +1440,25 @@ def main(argv):
         "config": (f"5p Q-correlated circuit, {circuit_timing['qubits']} "
                    f"qubits x{circuit_timing['runs']} runs per launch"),
     })
+    sbig = stab_runs[-1]
+    for k, e in (("gf2_sweep", sbig["sweep"]),
+                 ("trial_megakernel_gen", sbig["gen"])):
+        source, replaces = SOURCES[k]
+        errs = [e["max_abs_err"], sweep_err if k == "gf2_sweep"
+                else max(g["max_abs_err"] for g in gen_checks)]
+        errs += [r["sweep" if k == "gf2_sweep" else "gen"]["max_abs_err"]
+                 for r in stab_runs]
+        ms = (sbig["engines"]["host"]["kernel_ms_per_launch"]["gf2_sweep"]
+              if k == "gf2_sweep" else sbig["gen_ms_per_launch"])
+        kernels.append({
+            "name": k, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[k],
+            "max_abs_err": max(errs), "ms": ms, "plain_ms": e["plain_ms"],
+            "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
+            "library_ms": None,
+            "config": (f"{sbig['config']} qsim_path=stabilizer "
+                       f"x{sbig['trials']} trials"),
+        })
     report["kernels"] = kernels
     report["device"] = card
     os.makedirs(os.path.dirname(REPORT), exist_ok=True)

@@ -3,7 +3,8 @@
 Everything here takes plain Python or numpy values — what
 ``dataclasses.asdict``, ``jax.random.key_data`` and ``np.asarray`` give
 on the JAX side — so a test hands both packages the same per-trial state
-(config, keys, pool, mailbox, draws, circuits) without this package importing JAX.
+(config, keys, pool, mailbox, draws, circuits, stabilizer tableaux and
+their generation operands) without this package importing JAX.
 """
 
 from __future__ import annotations
@@ -108,3 +109,27 @@ def circuit_ops_from_tuples(ops):
                None if param is None else int(param),
                None if angle is None else float(angle))
             for kind, target, controls, param, angle in ops]
+
+
+def gen_tables_from_numpy(tables, device=None):
+    """The port's static tableaux from the JAX package's
+    ``stabilizer_gen_tables(cfg)``: four uint32 ``[2 * total, W]`` word
+    arrays as int32 tensors with the same bits."""
+    return tuple(
+        torch.from_numpy(np.ascontiguousarray(
+            np.asarray(t).astype(np.uint32).view(np.int32))).to(device)
+        for t in tables)
+
+
+def gen_operands_from_numpy(qcorr, coins, r_q, r_nq, mflip, device=None):
+    """The megakernel's generation operands from the JAX package's
+    ``stabilizer_gen_operands(cfg, key)`` with a leading trial axis (as
+    ``jax.vmap`` returns them): ``qcorr`` as bool ``[T, S]``, the 0/1
+    ``coins``, ``r_q``, ``r_nq`` and ``mflip`` as uint8."""
+    out = [torch.from_numpy(np.asarray(qcorr).astype(bool)).to(device)]
+    for x in (coins, r_q, r_nq, mflip):
+        x = np.asarray(x).astype(np.int64)
+        if x.min(initial=0) < 0 or x.max(initial=0) > 1:
+            raise ValueError("generation operands must be 0/1")
+        out.append(torch.from_numpy(x.astype(np.uint8)).to(device))
+    return tuple(out)

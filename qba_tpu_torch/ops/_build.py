@@ -25,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("fused_round", "trial_megakernel", "tiled_round", "round_step",
-           "fused_circuit")
+           "fused_circuit", "gf2_sweep")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

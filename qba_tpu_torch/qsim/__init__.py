@@ -1,10 +1,12 @@
 """Quantum resource generation — counterpart of :mod:`qba_tpu.qsim`: the
-factorized sampler (the production path) and the dense circuit path
-(circuits, statevectors and the protocol's two circuit families)."""
+factorized sampler (the production path), the dense circuit path
+(circuits, statevectors and the protocol's two circuit families) and the
+stabilizer path (the batched GF(2) engine at any party count)."""
 
 from qba_tpu_torch.qsim.circuit import Circuit, Gate
 from qba_tpu_torch.qsim.protocol_circuits import (
     generate_lists_dense,
+    generate_lists_stabilizer,
     not_q_correlated,
     q_correlated,
 )
@@ -16,15 +18,12 @@ def generate_lists_for(cfg, keys):
     the closed-form sampler, ``dense`` the joint circuits on the plain
     per-gate engine, ``dense_pallas`` the same on the fused circuit
     kernel (``impl="auto"``: the kernel for CUDA keys, the plain engine
-    for CPU keys).  ``stabilizer`` is not ported yet."""
+    for CPU keys), ``stabilizer`` the batched GF(2) engine (its sweep a
+    kernel for CUDA keys)."""
     if cfg.qsim_path == "factorized":
         return generate_lists(cfg, keys)
     if cfg.qsim_path == "stabilizer":
-        raise NotImplementedError(
-            "qsim_path='stabilizer' is not ported yet (ROADMAP A7: the "
-            "GF(2) stabilizer path); use 'factorized', 'dense' or "
-            "'dense_pallas'"
-        )
+        return generate_lists_stabilizer(cfg, keys)
     impl = "auto" if cfg.qsim_path == "dense_pallas" else "xla"
     return generate_lists_dense(cfg, keys, impl)
 
@@ -40,6 +39,7 @@ __all__ = [
     "generate_lists",
     "generate_lists_dense",
     "generate_lists_for",
+    "generate_lists_stabilizer",
     "not_q_correlated",
     "q_correlated",
 ]

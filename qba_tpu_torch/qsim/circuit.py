@@ -1,5 +1,4 @@
-"""Circuits and composite gates over the dense statevector engines —
-counterpart of :mod:`qba_tpu.qsim.circuit`.
+"""Circuits and composite gates — counterpart of :mod:`qba_tpu.qsim.circuit`.
 
 A :class:`Circuit` is a static op list.  Its compiled functions are
 batched: one circuit run per key (and per row of runtime params), where
@@ -11,14 +10,19 @@ serves every list position and trial.
 engine (complex64, :mod:`qba_tpu_torch.qsim.statevector`); ``"pallas"``
 is the fused circuit kernel (:mod:`qba_tpu_torch.ops.fused_circuit`;
 float32 for all-real circuits; CPU tensors run its plain version);
-``"auto"`` is ``"pallas"`` on CUDA and ``"xla"`` on the CPU.  The
-stabilizer tableau engine, and with it every circuit past the dense cap,
-is not ported yet (ROADMAP A7).
+``"stabilizer"`` is the Clifford tableau: :meth:`Circuit.compile` runs
+the per-shot engine (:mod:`qba_tpu_torch.qsim.stabilizer`),
+:meth:`Circuit.compile_shots` the batched GF(2) engine
+(:mod:`qba_tpu_torch.gf2.symplectic`, whose sweep is a kernel on CUDA).
+``"auto"`` is ``"pallas"`` on CUDA and ``"xla"`` on the CPU up to
+:data:`~qba_tpu_torch.config.DENSE_QUBIT_CAP` qubits, and
+``"stabilizer"`` past it for a Clifford op list.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import torch
 
@@ -27,12 +31,6 @@ from qba_tpu_torch.qsim import statevector as sv
 
 FIXED_GATES = ("H", "X", "Y", "Z", "S", "T")
 ROTATION_GATES = ("RX", "RY", "RZ", "P")
-
-
-def _stabilizer_not_ported(what: str):
-    return NotImplementedError(
-        f"{what}: the stabilizer tableau engine is not ported yet "
-        "(ROADMAP A7)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,26 +107,48 @@ class Circuit:
         return max((op.param + 1 for op in self.ops if op.param is not None),
                    default=0)
 
-    def resolve_auto_impl(self, device) -> str:
+    def resolve_auto_impl(self, device=None) -> str:
         """``impl="auto"`` at or under :data:`DENSE_QUBIT_CAP` qubits:
         the fused circuit kernel for a CUDA device, the plain engine for
-        the CPU.  Past the cap no statevector can exist and the JAX
-        package hands Clifford circuits to its stabilizer engine, which
-        is not ported yet."""
-        if self.n_qubits > DENSE_QUBIT_CAP:
-            raise _stabilizer_not_ported(
+        the CPU (``device=None`` means CUDA).  Past the cap no statevector can exist, so a Clifford op
+        list goes to the stabilizer tableau engine with a
+        :class:`~qba_tpu_torch.diagnostics.QBADemotionWarning`, whatever
+        the device; any other op list raises ``ValueError``."""
+        if self.n_qubits <= DENSE_QUBIT_CAP:
+            dev = torch.device("cuda" if device is None else device)
+            return "pallas" if dev.type == "cuda" else "xla"
+        from qba_tpu_torch.qsim.stabilizer import is_clifford_ops
+
+        if is_clifford_ops(self.ops):
+            from qba_tpu_torch.diagnostics import QBADemotionWarning
+
+            warnings.warn(
                 f"{self.n_qubits}-qubit circuit exceeds the dense cap "
-                f"({DENSE_QUBIT_CAP})")
-        return "pallas" if torch.device(device).type == "cuda" else "xla"
+                f"({DENSE_QUBIT_CAP}); op list is Clifford — routing "
+                "impl='auto' to the stabilizer tableau engine",
+                QBADemotionWarning, stacklevel=3,
+            )
+            return "stabilizer"
+        raise ValueError(
+            f"{self.n_qubits}-qubit circuit exceeds the dense cap "
+            f"({DENSE_QUBIT_CAP} qubits) and is outside the stabilizer "
+            "engine's Clifford gate set — no executor can run it"
+        )
 
     def _resolve(self, impl: str, device) -> str:
         if impl == "auto":
             impl = self.resolve_auto_impl(device)
-        if impl == "stabilizer":
-            raise _stabilizer_not_ported("impl='stabilizer'")
-        if impl not in ("xla", "pallas"):
+        if impl not in ("xla", "pallas", "stabilizer"):
             raise ValueError(f"unknown circuit impl {impl!r}")
         return impl
+
+    def _stabilizer(self, impl: str) -> bool:
+        """Whether ``impl`` runs on the tableau engines: ``"stabilizer"``,
+        or ``"auto"`` past the dense cap (which resolves the same on
+        every device)."""
+        if impl == "auto" and self.n_qubits > DENSE_QUBIT_CAP:
+            impl = self.resolve_auto_impl()
+        return impl == "stabilizer"
 
     def compile_state(self, impl: str = "xla", device=None):
         """Build ``state(params=None) -> flat statevectors``.
@@ -142,6 +162,12 @@ class Circuit:
         dev = torch.device("cuda" if device is None else device)
         impl = self._resolve(impl, dev)
         ops, n, n_params = tuple(self.ops), self.n_qubits, self.n_params
+        if impl == "stabilizer":
+            raise ValueError(
+                "the stabilizer engine has no statevector (that is the "
+                "point: it runs circuits whose 2**n amplitudes cannot "
+                "exist); use compile()/compile_shots(impl='stabilizer')"
+            )
         if impl == "pallas":
             from qba_tpu_torch.ops.fused_circuit import build_fused_circuit_run
 
@@ -174,8 +200,17 @@ class Circuit:
         ``params=None`` prepares the all-zero-params state once for all
         keys.  Runs on the keys' device.  Nonzero noise applies the exact
         classical reduction of :mod:`qba_tpu_torch.qsim.noise` to the
-        measured bits, off each key's noise fork."""
+        measured bits, off each key's noise fork.
+
+        ``impl="stabilizer"`` (and ``"auto"`` past the dense cap) runs the
+        per-shot tableau engine instead, same contract, any width, noise
+        as a tableau phase edit."""
         n = self.n_qubits
+        if self._stabilizer(impl):
+            from qba_tpu_torch.qsim.stabilizer import build_tableau_run
+
+            return build_tableau_run(n, tuple(self.ops), self.n_params,
+                                     p_depolarize, p_measure_flip)
         noisy = p_depolarize > 0.0 or p_measure_flip > 0.0
         state_fns: dict = {}
 
@@ -209,8 +244,17 @@ class Circuit:
         """Build ``run(key, shots, params=None) -> int32 bits [shots,
         n_qubits]`` for one key ``[2]``: the state is prepared once
         (``params`` int ``[n_params]``) and only the Born sampling
-        batches over shots."""
+        batches over shots.  ``impl="stabilizer"`` (and ``"auto"`` past
+        the dense cap) runs the whole shot batch on the batched GF(2)
+        engine, bit-identical to the per-shot engine under the same
+        keys."""
         n = self.n_qubits
+        if self._stabilizer(impl):
+            from qba_tpu_torch.gf2 import build_gf2_tableau_run_shots
+
+            return build_gf2_tableau_run_shots(
+                n, tuple(self.ops), self.n_params, p_depolarize,
+                p_measure_flip)
         noisy = p_depolarize > 0.0 or p_measure_flip > 0.0
 
         def run(key: torch.Tensor, shots: int,

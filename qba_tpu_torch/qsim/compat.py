@@ -9,8 +9,8 @@ with the same call shapes on the port's :class:`Circuit`.
 
 Randomness is explicit: ``Drewom(seed=...)`` owns a threefry key and
 advances it per ``execute`` call, drawing what the JAX package's
-``Drewom`` draws for the same seed.  Circuits past the dense cap need the
-stabilizer engine, which is not ported yet (ROADMAP A7).
+``Drewom`` draws for the same seed.  Circuits past the dense cap run on
+the stabilizer tableau engine.
 """
 
 from __future__ import annotations
@@ -105,9 +105,10 @@ class Drewom:
     """qsimov-shaped executor: ``Drewom().execute(circuit)`` returns a
     list of shot results, each the measured bits in output-slot order.
 
-    ``engine`` is ``"auto"`` or ``"dense"`` (the plain statevector
-    engine, up to 20 qubits); ``"stabilizer"``, and ``"auto"`` past 20
-    qubits, raise ``NotImplementedError``.  ``device=None`` means CUDA.
+    ``engine`` is ``"auto"`` (the plain statevector engine up to 20
+    qubits, the stabilizer tableau beyond), ``"dense"`` or
+    ``"stabilizer"`` (the batched GF(2) engine; non-Clifford gates raise
+    ``ValueError``).  ``device=None`` means CUDA.
     """
 
     def __init__(self, seed: int = 0, engine: str = "auto", device=None):
@@ -118,16 +119,22 @@ class Drewom:
         self._engine = engine
 
     def _impl_for(self, circuit: QCircuit) -> str:
-        if self._engine == "stabilizer" or (
-                self._engine == "auto"
-                and circuit.n_qubits > DENSE_QUBIT_CAP):
-            raise NotImplementedError(
-                f"a {circuit.n_qubits}-qubit circuit on engine "
-                f"{self._engine!r} needs the stabilizer tableau engine, "
-                "which is not ported yet (ROADMAP A7); the dense engine "
-                f"caps at {DENSE_QUBIT_CAP} qubits"
-            )
-        return "xla"
+        if self._engine == "dense":
+            return "xla"
+        if self._engine == "stabilizer":
+            return "stabilizer"
+        if circuit.n_qubits <= DENSE_QUBIT_CAP:
+            return "xla"
+        from qba_tpu_torch.qsim.stabilizer import is_clifford_ops
+
+        if is_clifford_ops(circuit._circ.ops):
+            return "stabilizer"
+        raise ValueError(
+            f"{circuit.n_qubits}-qubit circuit outside the stabilizer "
+            "engine's gate set (S/T/rotations/multi-control change the "
+            f"XZ normal form), and the dense engine caps at "
+            f"{DENSE_QUBIT_CAP} qubits"
+        )
 
     def execute(self, circuit: QCircuit, shots: int = 1) -> list[list[int]]:
         if not isinstance(circuit, QCircuit):

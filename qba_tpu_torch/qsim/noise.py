@@ -1,11 +1,12 @@
-"""Imperfect quantum resources — counterpart of :mod:`qba_tpu.qsim.noise`
-for the factorized sampler and the dense circuit path.
+"""Imperfect quantum resources — counterpart of :mod:`qba_tpu.qsim.noise`.
 
-Per-qubit depolarizing (an X or Y error flips the outcome bit, with
-probability ``2p/3``) and readout flips reduce exactly to classical XOR
-masks on the decoded values.  The noise stream forks off the measurement
-key with ``fold_in(key, NOISE_TAG)``, so zero-noise runs draw exactly the
-noiseless key tree.
+Per-qubit depolarizing (a uniformly random Pauli with probability ``p``)
+and readout flips.  On the factorized and dense paths they reduce
+exactly to classical XOR masks on the measured bits (an X or Y error
+flips the outcome, a Z error is invisible); the stabilizer paths take the
+drawn Pauli itself (:func:`noise_draws`) as a phase edit of the tableau.
+The noise stream forks off the measurement key with ``fold_in(key,
+NOISE_TAG)``, so zero-noise runs draw exactly the noiseless key tree.
 """
 
 from __future__ import annotations
@@ -18,17 +19,31 @@ from qba_tpu_torch import random as jr
 NOISE_TAG = 0x401E
 
 
-def _flips(keys: torch.Tensor, full: tuple[int, ...], p_depolarize: float,
-           p_measure_flip: float) -> torch.Tensor:
-    """int32 0/1 ``[..., *full]`` outcome-bit flips off each key's noise
-    fork: X and Y errors flip the readout (``bx``), Z errors are
-    invisible, readout flips XOR in."""
+def _draws(keys: torch.Tensor, full: tuple[int, ...], p_depolarize: float,
+           p_measure_flip: float):
+    """``(bx, bz, mflip)`` int32 0/1 ``[..., *full]`` off each key's
+    noise fork: the X and Z components of the drawn Pauli (X -> (1, 0),
+    Y -> (1, 1), Z -> (0, 1)) and the readout flips."""
     k_noise = jr.split(jr.fold_in(keys, NOISE_TAG), 3)
     pauli = jr.bernoulli(k_noise[..., 0, :], p_depolarize, full)
     kind = jr.randint(k_noise[..., 1, :], full, 0, 3)
-    bx = pauli & (kind != 2)
     mflip = jr.bernoulli(k_noise[..., 2, :], p_measure_flip, full)
-    return (bx ^ mflip).to(torch.int32)
+    return tuple(x.to(torch.int32) for x in
+                 (pauli & (kind != 2), pauli & (kind != 0), mflip))
+
+
+def noise_draws(keys: torch.Tensor, n: int, p_depolarize: float,
+                p_measure_flip: float):
+    """One shot's channel draws per key: ``(bx, bz, mflip)`` int32
+    ``[..., n]``, as the JAX package's ``noise_draws`` for each key."""
+    return _draws(keys, (n,), p_depolarize, p_measure_flip)
+
+
+def _flips(keys: torch.Tensor, full: tuple[int, ...], p_depolarize: float,
+           p_measure_flip: float) -> torch.Tensor:
+    """int32 0/1 ``[..., *full]`` outcome-bit flips: ``bx ^ mflip``."""
+    bx, _bz, mflip = _draws(keys, full, p_depolarize, p_measure_flip)
+    return bx ^ mflip
 
 
 def classical_flips(keys: torch.Tensor, n: int, p_depolarize: float,

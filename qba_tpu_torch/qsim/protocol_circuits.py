@@ -1,7 +1,14 @@
-"""The protocol's two circuit families on the dense engines —
-counterpart of :mod:`qba_tpu.qsim.protocol_circuits` (the dense half;
-``generate_lists_stabilizer`` and the ``stabilizer_gen_*`` functions
-belong to the GF(2) path, ROADMAP A7).
+"""The protocol's two circuit families and the list generation on them —
+counterpart of :mod:`qba_tpu.qsim.protocol_circuits`.
+
+:func:`generate_lists_dense` runs the joint circuits per list position
+on a circuit executor; :func:`generate_lists_stabilizer` runs every
+position of a batch on the batched GF(2) engine: the parity products of
+:func:`stabilizer_gen_operands`, then the measurement sweep
+(:func:`qba_tpu_torch.ops.gf2_sweep.gf2_sweep`, a kernel on CUDA) from
+the static tableaux of :func:`stabilizer_gen_tables`.  The trial
+megakernel's gen entry takes the same tables and operands and sweeps
+inside the launch.
 
 Qubit layout: ``(n_parties + 1)`` groups of ``n_qubits``; group 0 is the
 QSD's extra copy, group 1 the commander's particles.
@@ -9,6 +16,9 @@ QSD's extra copy, group 1 the commander's particles.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from qba_tpu_torch import random as jr
@@ -87,24 +97,39 @@ def dense_draws(cfg: QBAConfig, keys: torch.Tensor):
     return qcorr, perms, _perm_bits(perms, cfg.n_qubits), meas_keys
 
 
+def lists_from_bits(cfg: QBAConfig, bits: torch.Tensor) -> torch.Tensor:
+    """Measured bits ``[T, size_l, total_qubits]`` -> order values int32
+    ``[T, n_parties + 1, size_l]``: party ``i``'s bits across positions,
+    big-endian per group."""
+    n, nq, s = cfg.n_parties, cfg.n_qubits, cfg.size_l
+    per_party = bits.reshape(-1, s, n + 1, nq).transpose(1, 2)
+    return measure_to_ints(per_party.reshape(-1, n + 1, s * nq), s, nq)
+
+
 def generate_lists_dense(cfg: QBAConfig, keys: torch.Tensor,
                          impl: str = "xla"):
-    """Dense-path list generation for trial keys ``[T, 2]``: one Born
-    sample of the joint circuit per list position, every trial and
-    position in one batch.
+    """Dense-path list generation for trial keys ``[T, 2]``: one sample
+    of the joint circuit per list position, every trial and position in
+    one batch.
 
     ``impl`` selects the circuit executor (:meth:`Circuit.compile`):
-    ``"xla"``, ``"pallas"`` or ``"auto"``.  Each position runs only the
-    circuit family its ``qcorr`` bit selects, on that position's
+    ``"xla"``, ``"pallas"``, ``"stabilizer"`` (the per-shot tableau
+    engine, any width) or ``"auto"``, which past the dense cap hands the
+    whole batch to :func:`generate_lists_stabilizer`.  Each position runs
+    only the circuit family its ``qcorr`` bit selects, on that position's
     measurement key (the JAX package runs both on the same key and
     selects: the result is the same).
 
     Returns ``(lists int32 [T, n_parties + 1, size_l], qcorr bool [T,
     size_l])``: row 0 is the QSD's extra copy, row 1 the commander.
     """
-    n, nq, s = cfg.n_parties, cfg.n_qubits, cfg.size_l
+    n, nq = cfg.n_parties, cfg.n_qubits
     if keys.dim() != 2:
         raise ValueError(f"keys must be [T, 2]; got {tuple(keys.shape)}")
+    if impl == "auto":
+        impl = gen_q_corr_circuit(n, nq).resolve_auto_impl(keys.device)
+        if impl == "stabilizer":
+            return generate_lists_stabilizer(cfg, keys)
     noise = (cfg.p_depolarize, cfg.p_measure_flip)
     run_q = gen_q_corr_circuit(n, nq).compile(impl, *noise)
     run_nq = gen_nq_corr_circuit(n, nq).compile(impl, *noise)
@@ -114,8 +139,114 @@ def generate_lists_dense(cfg: QBAConfig, keys: torch.Tensor,
                        device=keys.device)
     bits[qcorr] = run_q(meas_keys[qcorr], params[qcorr])
     bits[~qcorr] = run_nq(meas_keys[~qcorr])
+    return lists_from_bits(cfg, bits), qcorr
 
-    # Party i's bits across positions, then decode.
-    per_party = bits.reshape(-1, s, n + 1, nq).transpose(1, 2)
-    lists = measure_to_ints(per_party.reshape(-1, n + 1, s * nq), s, nq)
-    return lists, qcorr
+
+@functools.lru_cache(maxsize=None)
+def _programs(n_parties: int, n_qubits: int):
+    """Both families' symplectic programs (Q-correlated, then not)."""
+    from qba_tpu_torch.gf2.symplectic import compile_symplectic
+
+    total = (n_parties + 1) * n_qubits
+    circ_q = gen_q_corr_circuit(n_parties, n_qubits)
+    circ_nq = gen_nq_corr_circuit(n_parties, n_qubits)
+    return (compile_symplectic(total, tuple(circ_q.ops), circ_q.n_params),
+            compile_symplectic(total, tuple(circ_nq.ops), 0))
+
+
+def stabilizer_gen_tables(cfg: QBAConfig, device=None):
+    """Static packed tableaux of both circuit families: ``(x0w_q, z0w_q,
+    x0w_nq, z0w_nq)``, each int32 ``[2 * total_qubits, W]`` holding the
+    JAX package's uint32 words (:mod:`qba_tpu_torch.gf2.bitops`), on
+    ``device`` (default: the CPU)."""
+    from qba_tpu_torch.gf2.bitops import pack_bits
+
+    prog_q, prog_nq = _programs(cfg.n_parties, cfg.n_qubits)
+    return tuple(pack_bits(torch.from_numpy(m)).to(device)
+                 for m in (prog_q.x, prog_q.z, prog_nq.x, prog_nq.z))
+
+
+def stabilizer_gen_operands(cfg: QBAConfig, keys: torch.Tensor):
+    """Per-trial operands of the stabilizer list generation for trial
+    keys ``[T, 2]`` (each trial's ``k_lists`` subkey): everything of
+    :func:`generate_lists_stabilizer` except the sweep and the decode,
+    under the JAX package's key tree (``k_qcorr, k_perm, k_meas``;
+    per-position permutation and measurement keys).  Returns ``(qcorr
+    bool [T, S], coins, r_q, r_nq, mflip)``, the rest uint8 0/1:
+
+    * ``coins`` ``[T, S, total]``: ``bits(meas_key, (total,)) & 1``,
+      shared by both families;
+    * ``r_q`` ``[T, S, 2 * total]``: Q-correlated phases, ``r0 ^ params
+      @ L^T`` (the permutation's bits), with any depolarizing phase
+      parity folded in;
+    * ``r_nq`` ``[T, S, 2 * total]``: not-Q-correlated phases, noise
+      likewise;
+    * ``mflip`` ``[T, S, total]``: readout flips (zeros when noiseless).
+    """
+    from qba_tpu_torch.gf2.linalg import gf2_matmul
+    from qba_tpu_torch.gf2.symplectic import _draw_coins
+
+    dev = keys.device
+    total, s = cfg.total_qubits, cfg.size_l
+    prog_q, prog_nq = _programs(cfg.n_parties, cfg.n_qubits)
+
+    def t(m):
+        return torch.from_numpy(np.ascontiguousarray(m)).to(dev, torch.int32)
+
+    qcorr, _perms, params, meas_keys = dense_draws(cfg, keys)
+    coins = _draw_coins(meas_keys, total)                # [T, S, total]
+    r_q = t(prog_q.r) ^ gf2_matmul(params & 1, t(prog_q.l.T))
+    r_nq = t(prog_nq.r).expand(keys.shape[0], s, 2 * total)
+    noisy = cfg.p_depolarize > 0.0 or cfg.p_measure_flip > 0.0
+    if noisy:
+        from qba_tpu_torch.qsim.noise import noise_draws
+
+        bx, bz, mflip = noise_draws(meas_keys, total, cfg.p_depolarize,
+                                    cfg.p_measure_flip)
+        r_q = r_q ^ gf2_matmul(bx, t(prog_q.z.T)) ^ gf2_matmul(
+            bz, t(prog_q.x.T))
+        r_nq = r_nq ^ gf2_matmul(bx, t(prog_nq.z.T)) ^ gf2_matmul(
+            bz, t(prog_nq.x.T))
+    else:
+        mflip = torch.zeros_like(coins)
+
+    def u8(x):
+        return x.to(torch.uint8).contiguous()
+
+    return qcorr, u8(coins), u8(r_q), u8(r_nq), u8(mflip)
+
+
+def stabilizer_bits(cfg: QBAConfig, tables, operands, *,
+                    sweep=None) -> torch.Tensor:
+    """Every position's measured bits ``[T, S, total]`` (readout flips
+    included) from :func:`stabilizer_gen_tables` and
+    :func:`stabilizer_gen_operands`: one sweep over all shots, each from
+    its own family's tableau.  ``sweep`` defaults to
+    :func:`~qba_tpu_torch.ops.gf2_sweep.gf2_sweep`."""
+    from qba_tpu_torch.ops.gf2_sweep import gf2_sweep
+
+    sweep = gf2_sweep if sweep is None else sweep
+    x_q, z_q, x_nq, z_nq = tables
+    qcorr, coins, r_q, r_nq, mflip = operands
+    total = cfg.total_qubits
+    b = qcorr.numel()
+    r = torch.where(qcorr[..., None], r_q, r_nq)
+    # Family 1 is the Q-correlated tableau: the family index is qcorr.
+    bits = sweep(total, torch.stack([x_nq, x_q]), torch.stack([z_nq, z_q]),
+                 r.reshape(b, 2 * total), coins.reshape(b, total),
+                 qcorr.reshape(b).to(torch.uint8), mflip.reshape(b, total))
+    return bits.reshape(qcorr.shape + (total,))
+
+
+def generate_lists_stabilizer(cfg: QBAConfig, keys: torch.Tensor):
+    """List generation on the batched GF(2) engine for trial keys ``[T,
+    2]`` — the primary resource path at the reference's own scale (the
+    48-qubit 11-party and 204-qubit 33-party joint circuits).  Same key
+    tree, coins and layout as :func:`generate_lists_dense`, so the lists
+    are bit-identical to ``generate_lists_dense(cfg, keys,
+    impl="stabilizer")`` and to the JAX package's.  Returns ``(lists,
+    qcorr)`` as :func:`generate_lists_dense`."""
+    operands = stabilizer_gen_operands(cfg, keys)
+    tables = stabilizer_gen_tables(cfg, keys.device)
+    return lists_from_bits(cfg, stabilizer_bits(cfg, tables, operands)), \
+        operands[0]

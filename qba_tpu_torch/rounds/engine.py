@@ -21,7 +21,9 @@ Five round engines, trial-for-trial identical:
   matrix;
 * ``pallas_mega`` (:func:`run_trial_mega`): the trial megakernel, one
   launch per batch for step 3a, every round and the decisions, on draws
-  stacked for all rounds beforehand (:func:`_stacked_draws`).
+  stacked for all rounds beforehand (:func:`_stacked_draws`).  With
+  ``qsim_path="stabilizer"`` the launch also generates the lists from
+  the GF(2) operands (:func:`resolve_mega_gen`).
 
 ``auto`` picks ``pallas_mega`` for CUDA tensors and ``xla`` for CPU
 tensors.  On CPU tensors the kernel engines run their kernels' plain
@@ -63,16 +65,11 @@ from qba_tpu_torch.core import (
     success_oracle,
 )
 from qba_tpu_torch.core.types import SENTINEL
+from qba_tpu_torch.diagnostics import QBADemotionWarning
 from qba_tpu_torch.qsim import generate_lists_for
 from qba_tpu_torch.rounds.mailbox import Mailbox, mailbox_from_step3a
 
 ENGINES = ("xla", "pallas", "pallas_fused", "pallas_tiled", "pallas_mega")
-
-
-class QBADemotionWarning(UserWarning):
-    """A requested engine gave way to another that computes the same
-    results (the megakernel to the fused per-round engine when counters
-    are collected)."""
 
 
 @dataclasses.dataclass
@@ -104,18 +101,6 @@ class TrialResult:
     counters: ProtocolCounters | None = None  # with cfg.collect_counters
 
 
-def check_supported(cfg: QBAConfig) -> None:
-    """Raise ``NotImplementedError`` for config values the port accepts
-    but does not run yet, naming the ROADMAP item — never a silent
-    demotion."""
-    if cfg.qsim_path == "stabilizer":
-        raise NotImplementedError(
-            "qsim_path='stabilizer' is not ported yet (ROADMAP A7: the "
-            "GF(2) stabilizer path); use 'factorized', 'dense' or "
-            "'dense_pallas'"
-        )
-
-
 def resolve_round_engine(cfg: QBAConfig, device: torch.device) -> str:
     """``auto`` -> ``pallas_mega`` on CUDA (``pallas_fused`` when
     counters are collected: they need the per-round loop), ``xla`` on
@@ -123,7 +108,6 @@ def resolve_round_engine(cfg: QBAConfig, device: torch.device) -> str:
     counters, which demotes to ``pallas_fused`` with a
     :class:`QBADemotionWarning` (the counters are identical: every
     engine's per-round ``vi`` sequence is)."""
-    check_supported(cfg)
     if cfg.round_engine == "auto":
         if torch.device(device).type != "cuda":
             return "xla"
@@ -139,6 +123,32 @@ def resolve_round_engine(cfg: QBAConfig, device: torch.device) -> str:
     return cfg.round_engine
 
 
+def resolve_mega_gen(cfg: QBAConfig, device: torch.device) -> str:
+    """Where the trial megakernel generates the lists: ``"gf2"`` (inside
+    the launch, from :func:`~qba_tpu_torch.qsim.protocol_circuits.stabilizer_gen_operands`)
+    when ``qsim_path="stabilizer"``, the engine is ``pallas_mega`` after
+    :func:`resolve_round_engine` and ``mega_gen`` is not ``"host"``;
+    else ``"host"`` (the lists arrive as inputs).  The JAX package's
+    resolver can demote a forced ``"gf2"`` when the TPU's VMEM plan
+    refuses it; Hopper has no such plan here, so a forced ``"gf2"``
+    never demotes.  A config whose engine is not the megakernel (the
+    counters demote it) generates on the host."""
+    if cfg.qsim_path != "stabilizer" or cfg.mega_gen == "host":
+        return "host"
+    mega = cfg.round_engine == "pallas_mega" or (
+        cfg.round_engine == "auto" and torch.device(device).type == "cuda")
+    return "gf2" if mega and not cfg.collect_counters else "host"
+
+
+def p_sets(lists: torch.Tensor, v_sent: torch.Tensor) -> torch.Tensor:
+    """Each lieutenant's P-set bool ``[..., n_lieu, S]`` from the lists
+    ``[..., n_parties + 1, S]`` and the orders ``[..., n_lieu]``: the
+    Q-correlated positions (the QSD's copy differs from the commander's
+    value) where the commander's value is the order sent."""
+    is_qcorr = lists[..., 0, :] != lists[..., 1, :]
+    return is_qcorr[..., None, :] & (lists[..., 1:2, :] == v_sent[..., None])
+
+
 def setup_trial(cfg: QBAConfig, keys: torch.Tensor):
     """Protocol phases before the round loop, for trial keys ``[T, 2]``:
     dishonesty assignment, particle lists, commander orders and each
@@ -150,10 +160,25 @@ def setup_trial(cfg: QBAConfig, keys: torch.Tensor):
     k = jr.split(keys, 4)
     honest = assign_dishonest(cfg, k[..., 0, :])
     lists, _qcorr = generate_lists_for(cfg, k[..., 1, :])
-    is_qcorr = lists[..., 0, :] != lists[..., 1, :]
     v_sent, v_comm = commander_orders(cfg, k[..., 2, :], honest[..., 1])
-    p_rows = is_qcorr[..., None, :] & (lists[..., 1:2, :] == v_sent[..., None])
-    return honest, lists[..., 2:, :], p_rows, v_sent, v_comm, k[..., 3, :]
+    return (honest, lists[..., 2:, :], p_sets(lists, v_sent), v_sent, v_comm,
+            k[..., 3, :])
+
+
+def _mega_gen_setup(cfg: QBAConfig, keys: torch.Tensor):
+    """:func:`setup_trial`'s phases for the megakernel's gen entry: the
+    same key split (``k_dis, k_lists, k_comm, k_rounds``), with
+    ``k_lists`` feeding
+    :func:`~qba_tpu_torch.qsim.protocol_circuits.stabilizer_gen_operands`
+    instead of generating the lists.  Returns ``(honest, gen_ops,
+    v_sent, v_comm, k_rounds)``."""
+    from qba_tpu_torch.qsim.protocol_circuits import stabilizer_gen_operands
+
+    k = jr.split(keys, 4)
+    honest = assign_dishonest(cfg, k[..., 0, :])
+    gen_ops = stabilizer_gen_operands(cfg, k[..., 1, :])
+    v_sent, v_comm = commander_orders(cfg, k[..., 2, :], honest[..., 1])
+    return honest, gen_ops, v_sent, v_comm, k[..., 3, :]
 
 
 def step3a_one(cfg: QBAConfig, p_rows, v, li):
@@ -467,24 +492,40 @@ def run_trial_mega(cfg: QBAConfig, keys: torch.Tensor) -> TrialResult:
     (:func:`qba_tpu_torch.ops.trial_megakernel.trial_megakernel`): the
     same key tree as :func:`setup_trial`, every round's draws stacked
     beforehand, then step 3a, the rounds and the decisions in one launch
-    for the batch.
+    for the batch.  Where :func:`resolve_mega_gen` says ``"gf2"``, the
+    launch is the gen entry
+    (:func:`~qba_tpu_torch.ops.trial_megakernel.trial_megakernel_gen`),
+    which also sweeps the tableaux and decodes the lists.
 
     ``trial_pack`` (folding ``k`` trials into one TPU launch) has no
     effect here: the CUDA grid already runs one block per trial, so a
     packed config gives results identical to an unpacked one."""
     from qba_tpu_torch.ops.round_kernel_tiled import honest_cells
-    from qba_tpu_torch.ops.trial_megakernel import trial_megakernel
+    from qba_tpu_torch.ops.trial_megakernel import (
+        trial_megakernel,
+        trial_megakernel_gen,
+    )
 
-    honest, lieu_lists, p_rows, v_sent, v_comm, k_rounds = setup_trial(
-        cfg, keys
-    )
+    gen = resolve_mega_gen(cfg, keys.device) == "gf2"
+    if gen:
+        honest, gen_ops, v_sent, v_comm, k_rounds = _mega_gen_setup(cfg,
+                                                                    keys)
+    else:
+        honest, lieu_lists, p_rows, v_sent, v_comm, k_rounds = setup_trial(
+            cfg, keys)
     ctx = adversary_ctx(cfg, k_rounds, v_sent)
-    attack, rand_v, late = _stacked_draws(cfg, k_rounds, ctx)
-    vi, dec, overflow = trial_megakernel(
-        cfg, p_rows.contiguous(), lieu_lists.to(torch.int32).contiguous(),
-        v_sent.to(torch.int32).contiguous(), honest_cells(honest, cfg),
-        attack, rand_v, late,
-    )
+    draws = _stacked_draws(cfg, k_rounds, ctx)
+    v32, hc = v_sent.to(torch.int32).contiguous(), honest_cells(honest, cfg)
+    if gen:
+        from qba_tpu_torch.qsim.protocol_circuits import stabilizer_gen_tables
+
+        vi, dec, overflow = trial_megakernel_gen(
+            cfg, stabilizer_gen_tables(cfg, keys.device), gen_ops, v32, hc,
+            *draws)
+    else:
+        vi, dec, overflow = trial_megakernel(
+            cfg, p_rows.contiguous(), lieu_lists.to(torch.int32).contiguous(),
+            v32, hc, *draws)
     decisions = torch.cat([v_comm[..., None].to(torch.int32), dec], dim=-1)
     return TrialResult(
         success=success_oracle(decisions, honest[..., 1:]),

@@ -13,8 +13,10 @@ the JAX package on :func:`random_state`; ``tests/test_torch_cuda.py`` and
 :func:`random_round_inputs`, :func:`dense_acc`,
 :func:`random_trial_inputs`, :func:`random_mailbox_inputs` (the same
 packets at their own cells of a dense mailbox) and
-:func:`random_circuit` (complex gates, multi-control ops and ``XPOW``).
-Everything is made with numpy from a seed.
+:func:`random_circuit` (complex gates, multi-control ops and ``XPOW``);
+and the GF(2) sweep with its plain version on :func:`random_sweep_inputs`
+(the tableaux of :func:`random_clifford` circuits, random phases, coins
+and readout flips).  Everything is made with numpy from a seed.
 """
 
 from __future__ import annotations
@@ -218,3 +220,57 @@ def random_circuit(n_qubits: int, n_ops: int, seed: int, n_params: int = 3):
                  if kind in ("RX", "RY", "RZ", "P") else None)
         ops.append((kind, target, controls, param, angle))
     return ops
+
+
+def random_clifford(n_qubits: int, n_ops: int, seed: int, n_params: int = 3):
+    """A seeded random Clifford op list for the stabilizer engines, as
+    plain tuples ``(kind, target, controls, param, angle)``: H, X, Y, Z,
+    CNOT, CZ and ``XPOW`` on ``n_params`` runtime bits.  Half the qubits
+    start with an H, so that measurements are random and deterministic,
+    and the CNOTs and CZs entangle them, so that pivots fall past the
+    first stabilizer row."""
+    rng = np.random.default_rng(seed)
+    ops = [("H", q, (), None, None) for q in range(0, n_qubits, 2)]
+    for _ in range(n_ops):
+        kind = ("H", "X", "Y", "Z", "CNOT", "CNOT", "CZ", "XPOW")[
+            int(rng.integers(8))]
+        target = int(rng.integers(n_qubits))
+        if kind in ("CNOT", "CZ"):
+            c = int(rng.choice([q for q in range(n_qubits) if q != target]))
+            ops.append(("X" if kind == "CNOT" else "Z", target, (c,), None,
+                        None))
+        elif kind == "XPOW":
+            ops.append(("XPOW", target, (), int(rng.integers(n_params)),
+                        None))
+        else:
+            ops.append((kind, target, (), None, None))
+    return ops
+
+
+def random_sweep_inputs(n_qubits: int, n_shots: int, seed: int,
+                        device=None):
+    """Inputs to :func:`~qba_tpu_torch.ops.gf2_sweep.gf2_sweep`: the
+    tableaux of two :func:`random_clifford` circuits as families
+    (``xw``, ``zw`` int32 ``[2, 2n, W]``), then per shot uint8 random
+    phases ``[B, 2n]``, coins ``[B, n]``, a family ``[B]`` and readout
+    flips ``[B, n]`` (one bit in ten)."""
+    from qba_tpu_torch.convert import circuit_ops_from_tuples
+    from qba_tpu_torch.gf2 import compile_symplectic, pack_bits
+
+    rng = np.random.default_rng(seed)
+    progs = [compile_symplectic(
+        n_qubits, circuit_ops_from_tuples(random_clifford(
+            n_qubits, 4 * n_qubits, seed + i)), 3) for i in range(2)]
+    xw = torch.stack([pack_bits(torch.from_numpy(p.x)) for p in progs])
+    zw = torch.stack([pack_bits(torch.from_numpy(p.z)) for p in progs])
+
+    def u8(x):
+        return torch.from_numpy(np.ascontiguousarray(x).astype(np.uint8)).to(
+            device)
+
+    r = rng.integers(0, 2, (n_shots, 2 * n_qubits))
+    coins = rng.integers(0, 2, (n_shots, n_qubits))
+    family = rng.integers(0, 2, n_shots)
+    mflip = rng.random((n_shots, n_qubits)) < 0.1
+    return (xw.to(device), zw.to(device), u8(r), u8(coins), u8(family),
+            u8(mflip))

@@ -67,18 +67,22 @@ def test_build_dir_outside_a_checkout(csrc, tmp_path, monkeypatch):
 
 def test_repo_kernels_and_their_sources():
     # Every kernel source exists; the four round kernels share the round
-    # header (so its edits rebuild them), the circuit kernel stands alone.
+    # header (so its edits rebuild them), the circuit kernel stands alone,
+    # and the sweep's header is in the sweep kernel and the megakernel.
     assert set(_build.KERNELS) == {"fused_round", "trial_megakernel",
                                    "tiled_round", "round_step",
-                                   "fused_circuit"}
+                                   "fused_circuit", "gf2_sweep"}
     for name in _build.KERNELS:
         files = [p.name for p in _build.sources(name)]
         assert files[0] == f"{name}.cu"
-        assert ("round_common.cuh" in files) == (name != "fused_circuit")
+        assert ("round_common.cuh" in files) == (
+            name not in ("fused_circuit", "gf2_sweep"))
+        assert ("gf2_sweep.cuh" in files) == (
+            name in ("gf2_sweep", "trial_megakernel"))
     assert _build.build_dir().parts[-2:] == ("build", "qba_tpu_torch")
 
 
-@pytest.mark.parametrize("name", ["round_step", "fused_circuit"])
+@pytest.mark.parametrize("name", ["round_step", "fused_circuit", "gf2_sweep"])
 def test_new_sources_are_in_their_build_key(name, tmp_path, monkeypatch):
     # A copy of csrc with one byte appended to the source changes the key.
     import shutil

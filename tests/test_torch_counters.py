@@ -150,8 +150,20 @@ def test_counter_folds_by_hand():
     assert c.overflow_rounds.tolist() == [[False, True]]
 
 
-def test_stabilizer_path_still_raises_naming_the_roadmap():
-    cfg = qba_tpu_torch.QBAConfig(n_parties=3, size_l=4,
-                                  qsim_path="stabilizer")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        qba_tpu_torch.run_trials(cfg, device="cpu")
+def test_stabilizer_path_counters_on_host_lists():
+    # Counters need the per-round loop: pallas_mega demotes to the fused
+    # engine, which takes host-generated lists (no gen entry).
+    from qba_tpu_torch.rounds.engine import resolve_mega_gen
+
+    cfg = qba_tpu_torch.QBAConfig(n_parties=5, size_l=16, n_dishonest=2,
+                                  trials=6, seed=4, qsim_path="stabilizer",
+                                  collect_counters=True)
+    mega = dataclasses.replace(cfg, round_engine="pallas_mega")
+    assert resolve_mega_gen(mega, torch.device("cuda")) == "host"
+    with pytest.warns(QBADemotionWarning, match="pallas_mega"):
+        got = qba_tpu_torch.run_trials(mega, device="cpu").trials
+    want = qba_tpu_torch.run_trials(cfg, device="cpu").trials
+    for f in dataclasses.fields(want.counters):
+        assert torch.equal(getattr(got.counters, f.name),
+                           getattr(want.counters, f.name)), f.name
+    assert torch.equal(got.vi, want.vi)

@@ -8,8 +8,10 @@ seeded random inputs (:mod:`qba_tpu_torch.testing`: out-of-range values,
 colliding rows, disagreeing lens, own rows already in L, dense accepted
 matrices, inconsistent lieutenants), the fused circuit kernel is held
 against its plain version at ``atol=1e-6`` on amplitudes (the compiler
-may fuse a multiply and an add), and the five engines must agree trial
-for trial.  Every test is marked ``cuda`` and skips without a card
+may fuse a multiply and an add), the GF(2) sweep kernel and the trial
+megakernel's gen entry are held bit-exact against their plain versions
+on the protocol's tableaux and on seeded random Clifford tableaux, and
+the engines must agree trial for trial.  Every test is marked ``cuda`` and skips without a card
 (the kernels have no CPU mode; the CPU tests hold the plain versions
 against ``qba_tpu``).  The file imports no JAX, so on a machine with the
 card it runs without the JAX test harness:
@@ -31,17 +33,26 @@ from qba_tpu_torch.convert import circuit_ops_from_tuples
 from qba_tpu_torch.ops import fused_circuit as fc
 from qba_tpu_torch.ops import round_kernel as rs
 from qba_tpu_torch.ops import round_kernel_tiled as rk
+from qba_tpu_torch.ops import gf2_sweep as gs
 from qba_tpu_torch.ops.trial_megakernel import (
     trial_megakernel,
+    trial_megakernel_gen,
+    trial_megakernel_gen_reference,
     trial_megakernel_reference,
 )
-from qba_tpu_torch.rounds.engine import _stacked_draws, setup_trial, step3a_one
+from qba_tpu_torch.rounds.engine import (
+    _mega_gen_setup,
+    _stacked_draws,
+    setup_trial,
+    step3a_one,
+)
 from qba_tpu_torch.qsim import protocol_circuits as pc
 from qba_tpu_torch.testing import (
     dense_acc,
     random_circuit,
     random_mailbox_inputs,
     random_round_inputs,
+    random_sweep_inputs,
     random_trial_inputs,
 )
 
@@ -290,3 +301,99 @@ def test_counters_agree_across_engines(cuda):
     for other in rest:
         for f in dataclasses.fields(first):
             assert torch.equal(getattr(first, f.name), getattr(other, f.name))
+
+
+# The stabilizer resource path: (parties, trials, noise).  The sweep
+# kernel keeps 11p tableaux in shared memory and 33p ones in global
+# scratch.
+SWEEPS = {
+    "11p": (11, 8, False),
+    "11p-noisy": (11, 8, True),
+    "33p": (33, 4, False),
+    "33p-noisy": (33, 4, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SWEEPS))
+def test_gf2_sweep_kernel_on_protocol_tableaux(cuda, case):
+    n, trials, noisy = SWEEPS[case]
+    cfg = qba_tpu_torch.QBAConfig(
+        n_parties=n, size_l=64, p_depolarize=0.05 * noisy,
+        p_measure_flip=0.02 * noisy)
+    assert gs.tableau_in_shared(cfg.total_qubits) == (n == 11)
+    keys = jr.split(jr.key(n, device=cuda), trials)
+    ops = pc.stabilizer_gen_operands(cfg, keys)
+    tables = pc.stabilizer_gen_tables(cfg, cuda)
+    before = gs.gf2_sweep.launches
+    got = pc.stabilizer_bits(cfg, tables, ops, sweep=gs.gf2_sweep)
+    assert gs.gf2_sweep.launches == before + 1
+    assert_equal(got, pc.stabilizer_bits(cfg, tables, ops,
+                                         sweep=gs.gf2_sweep_reference))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_qubits,in_shared", [(13, True), (40, True),
+                                                (70, True), (100, False)])
+def test_gf2_sweep_kernel_on_random_tableaux(cuda, n_qubits, in_shared):
+    assert gs.tableau_in_shared(n_qubits) == in_shared
+    args = random_sweep_inputs(n_qubits, 96, seed=n_qubits, device=cuda)
+    xw, zw, r, coins, family, mflip = args
+    work = {}
+    want = gs.gf2_sweep_reference(n_qubits, *args, work=work)
+    assert work["random_steps"] and work["det_steps"] and work["late_pivots"]
+    assert_equal(gs.gf2_sweep(n_qubits, *args), want)
+    # One family, no readout flips; a family past the tableaux raises.
+    assert_equal(gs.gf2_sweep(n_qubits, xw[:1], zw[:1], r, coins),
+                 gs.gf2_sweep_reference(n_qubits, xw[:1], zw[:1], r, coins))
+    with pytest.raises(ValueError, match="family index"):
+        gs.gf2_sweep(n_qubits, xw[:1], zw[:1], r, coins, family)
+
+
+def gen_inputs(cfg, dev):
+    keys = trial_keys(cfg, dev)
+    honest, gen_ops, v_sent, _v_comm, k_rounds = _mega_gen_setup(cfg, keys)
+    ctx = adversary_ctx(cfg, k_rounds, v_sent)
+    return (cfg, pc.stabilizer_gen_tables(cfg, dev), gen_ops,
+            v_sent.to(torch.int32).contiguous(), rk.honest_cells(honest, cfg),
+            *_stacked_draws(cfg, k_rounds, ctx))
+
+
+GEN_CASES = {
+    "11p-split-noisy": dict(n_parties=11, n_dishonest=3, strategy="split",
+                            p_depolarize=0.02, p_measure_flip=0.01),
+    "33p": dict(n_parties=33, n_dishonest=10),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GEN_CASES))
+def test_gen_megakernel(cuda, case):
+    cfg = qba_tpu_torch.QBAConfig(size_l=64, trials=32, seed=2,
+                                  qsim_path="stabilizer", **GEN_CASES[case])
+    args = gen_inputs(cfg, cuda)
+    before = trial_megakernel_gen.launches
+    got = trial_megakernel_gen(*args)
+    assert trial_megakernel_gen.launches == before + 1
+    assert_equal(got, trial_megakernel_gen_reference(*args))
+
+
+@pytest.mark.cuda
+def test_gen_and_host_engines_agree(cuda):
+    cfg = qba_tpu_torch.QBAConfig(n_parties=11, size_l=64, n_dishonest=3,
+                                  trials=64, seed=6, qsim_path="stabilizer")
+    counts = (trial_megakernel_gen, trial_megakernel, gs.gf2_sweep)
+    runs = {}
+    for name, kw, launches in [
+            ("gen", {}, (1, 0, 0)),
+            ("host", dict(mega_gen="host"), (0, 1, 1)),
+            ("fused", dict(round_engine="pallas_fused"), (0, 0, 1))]:
+        before = [fn.launches for fn in counts]
+        runs[name] = qba_tpu_torch.run_trials(
+            dataclasses.replace(cfg, **kw), device=cuda).trials
+        assert tuple(fn.launches - b for fn, b in zip(counts, before)) == \
+            launches, name
+    for other in ("host", "fused"):
+        for f in ("decisions", "success", "vi", "overflow"):
+            assert torch.equal(getattr(runs["gen"], f),
+                               getattr(runs[other], f)), (other, f)

@@ -30,6 +30,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import qba_tpu_torch
+from qba_tpu_torch.diagnostics import QBADemotionWarning
 from qba_tpu.backends.jax_backend import run_trials as j_run_trials
 from qba_tpu.config import QBAConfig as JConfig
 from qba_tpu.qsim import noise as j_noise
@@ -336,10 +337,12 @@ def test_compat_shim_matches_jax():
     assert [d.execute(circ, shots=5) for _ in range(2)] == want
     with pytest.raises(ValueError, match="after MEASURE"):
         circ.add_operation("H", targets=0)
+    # Past the dense cap "auto" runs the stabilizer tableau (its results
+    # against JAX's are in test_torch_stabilizer.py); a non-Clifford
+    # circuit raises on the stabilizer engine.
     big = compat.QCircuit(24, 24)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        d.execute(big)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    assert d.execute(big, shots=2) == [[0] * 24] * 2
+    with pytest.raises(ValueError, match="Clifford set"):
         compat.Drewom(engine="stabilizer", device="cpu").execute(circ)
 
 
@@ -347,16 +350,18 @@ def test_impl_resolution_and_unported_engines():
     circ = Circuit(2).add_operation(Gate(2).add_operation("H", targets=0))
     assert circ.resolve_auto_impl("cpu") == "xla"
     assert circ.resolve_auto_impl(torch.device("cuda")) == "pallas"
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    with pytest.raises(ValueError, match="no statevector"):
         circ.compile_state("stabilizer", "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        Circuit(21).resolve_auto_impl("cpu")
+    with pytest.warns(QBADemotionWarning, match="dense cap"):
+        assert Circuit(21).resolve_auto_impl("cpu") == "stabilizer"
     with pytest.raises(ValueError, match="unknown circuit impl"):
         circ.compile_state("mosaic", "cpu")
     with pytest.raises(ValueError, match="XPOW requires"):
         Gate(2).add_operation("XPOW", targets=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        qba_tpu_torch.qsim.generate_lists_for(
-            qba_tpu_torch.QBAConfig(n_parties=3, size_l=4,
-                                    qsim_path="stabilizer"),
-            jr.split(jr.key(0), 1))
+    cfg = qba_tpu_torch.QBAConfig(n_parties=3, size_l=4,
+                                  qsim_path="stabilizer")
+    keys = jr.split(jr.key(0), 1)
+    lists, qcorr = qba_tpu_torch.qsim.generate_lists_for(cfg, keys)
+    assert lists.shape == (1, 4, 4) and qcorr.shape == (1, 4)
+    assert torch.equal(lists, qba_tpu_torch.qsim.generate_lists_dense(
+        cfg, keys, impl="stabilizer")[0])

@@ -10,7 +10,8 @@ and ``pallas_fused``, ``pallas_tiled`` and ``pallas_mega`` on their
 kernels' plain versions here) is checked; ``pallas`` has its own file,
 tests/test_torch_round_step.py.
 Plus: ``device=None`` means CUDA and raises without it, and the port
-imports and runs with ``jax``, ``flax`` and ``qba_tpu`` blocked.
+imports and runs with ``jax``, ``flax`` and ``qba_tpu`` blocked, the
+stabilizer path and the megakernel's gen entry (plain version) included.
 """
 
 import dataclasses
@@ -130,6 +131,14 @@ dense = qba_tpu_torch.run_trials(
     qba_tpu_torch.QBAConfig(n_parties=3, size_l=8, n_dishonest=1, trials=4,
                             seed=1, qsim_path="dense"), device="cpu")
 assert dense.trials.decisions.shape == (4, 3)
+stab = qba_tpu_torch.QBAConfig(n_parties=5, size_l=16, n_dishonest=2,
+                               trials=4, seed=2, qsim_path="stabilizer")
+host = qba_tpu_torch.run_trials(stab, device="cpu")
+gen = qba_tpu_torch.run_trials(
+    dataclasses.replace(stab, round_engine="pallas_mega", mega_gen="gf2"),
+    device="cpu")
+assert (gen.trials.vi == host.trials.vi).all()
+assert (gen.trials.decisions == host.trials.decisions).all()
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "flax", "qba_tpu")]
 assert not bad, bad

@@ -131,14 +131,18 @@ def test_config_mirror_validates_like_jax():
 
 def test_unported_options_raise():
     from qba_tpu_torch import QBAConfig, run_trials
+    from qba_tpu_torch.ops._launch import check_kernel_shapes
 
-    # The one config value the port accepts but does not run yet.
-    cfg = QBAConfig(n_parties=3, size_l=4, n_dishonest=1,
-                    qsim_path="stabilizer")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        run_trials(cfg, device="cpu")
-    # Every other engine, the counters and the dense paths run.
+    # Every engine, the counters and every resource path run on the CPU.
     for kw in [dict(round_engine="pallas"), dict(collect_counters=True),
-               dict(qsim_path="dense"), dict(qsim_path="dense_pallas")]:
+               dict(qsim_path="dense"), dict(qsim_path="dense_pallas"),
+               dict(qsim_path="stabilizer"),
+               dict(qsim_path="stabilizer", round_engine="pallas_mega",
+                    mega_gen="gf2")]:
         cfg = QBAConfig(n_parties=3, size_l=4, n_dishonest=1, trials=2, **kw)
         assert run_trials(cfg, device="cpu").trials.decisions.shape == (2, 3)
+    # What the CUDA kernels do not take raises, naming the limit: 65
+    # parties have 128 order values, past the kernels' 64-bit masks.
+    with pytest.raises(NotImplementedError, match="64-bit"):
+        check_kernel_shapes(QBAConfig(n_parties=65, size_l=4),
+                            "trial megakernel")
