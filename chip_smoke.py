@@ -37,6 +37,16 @@ Phases, each reported on its own line:
    ``gen_vs_plain``: the trial megakernel's gen entry against its plain
    version at 11p/L64/d3 (strategy "split", noise) and 33p/L64/d10 on
    32 trials, and against the host-gen megakernel on the same lists;
+   the party-sharded kernels: the fused round's ``n_recv`` variant in
+   ``kernel_vs_plain`` (each shard against the round's pool, its
+   accepted sets the single-device round's) and ``random_vs_plain``
+   (assembled pools with empty and full segments and stale entries
+   between them); ``ring_vs_plain``, the ring gather at ``tp`` 2, 4 and
+   8 on int8, int32, bool, uint8 and int64 segments of ragged tile counts
+   (bit-exact); ``sharded_mega_vs_plain``, the party-sharded trial
+   megakernel on the ``small`` list at every ``tp <= 8`` dividing the
+   lieutenants, against its plain version and the single-device
+   megakernel trial for trial (some trial overflows);
 5. ``engines_agree``: ``run_trials`` with the ``xla``, ``pallas``,
    ``pallas_fused``, ``pallas_tiled`` and ``pallas_mega`` engines trial
    for trial at 5p/L16/d2 x 64, and the protocol counters of the four
@@ -71,7 +81,20 @@ Phases, each reported on its own line:
    shared memory and resident blocks per SM) against the host-gen
    megakernel on the same lists (the sweep's share), the sweep kernel
    over the batch against its plain version, and the bounds of both
-   from the run's own pivots.
+   from the run's own pivots;
+8. ``mesh_path``, the party-sharded (``tp``) path on one card:
+   ``run_trials_spmd`` on ``make_mesh({"dp": 1, "tp": tp},
+   devices=[cuda:0] * tp)`` at 33p/L64/d10 x 1000 (``tp = 4``) and
+   11p/L64/d3 x 1000 (``tp = 2``): ``auto`` (asserted the sharded
+   megakernel, one launch), ``pallas_fused`` with the ring (per round 4
+   ring launches, one per pool leaf, and one fused round) and with
+   ``all_gather``, each equal trial for trial to the single-device
+   ``run_trials`` of phase 6, with rounds/s, kernel ms per launch and
+   peak memory; then the ring timed on the batch's step-3a segments
+   against its plain version and one PyTorch broadcast copy, the sharded
+   megakernel against its plain version at full width, and 33p x 64
+   trials on the sharded megakernel (``tp = 4``) beside the
+   single-device one.
 
 Any failure exits non-zero.  The line before the last is the kernel
 table as JSON, the one before it the card; the last line is
@@ -110,6 +133,10 @@ SOURCES = {
                   "qba_tpu/gf2/symplectic.py:121"),
     "trial_megakernel_gen": ("qba_tpu_torch/ops/csrc/trial_megakernel.cu",
                              "qba_tpu/ops/trial_megakernel.py:102"),
+    "sharded_trial_megakernel": ("qba_tpu_torch/ops/csrc/trial_megakernel.cu",
+                                 "qba_tpu/ops/trial_megakernel.py:983"),
+    "ring_gather": ("qba_tpu_torch/ops/csrc/ring_shuffle.cu",
+                    "qba_tpu/ops/ring_shuffle.py:97"),
 }
 
 
@@ -202,6 +229,30 @@ def fused_cost(cfg, live, rows, dst, dst_rows, n_trials):
     vb, vo = verdict_cost(cfg, live, rows, n_trials)
     rb, ro = rebuild_cost(cfg, dst, dst_rows, n_trials)
     return vb + rb - 2 * acc, vo + ro
+
+
+def n_recv_cost(cfg, live, rows, dst, dst_rows, n_trials, n_tp):
+    """Bytes and compares of one party-sharded fused round over ``n_tp``
+    shards: every shard reads the live packets and scans the meta of its
+    own copy of the assembled pool; the draws, li, vi and the rebuilt
+    sources are read once over all shards, and the segments written are
+    one pool."""
+    n_pool = cfg.n_lieutenants * cfg.slots
+    b, ops = fused_cost(cfg, live, rows, dst, dst_rows, n_trials)
+    b += (n_tp - 1) * (rows * (cfg.size_l + 4) + live * (cfg.size_l + 4)
+                       + n_trials * n_pool * 16)
+    return b, ops
+
+
+def ring_cost(x):
+    """Bytes and operations of one ring gather of ``x`` ``[n_tp, ...]``:
+    ``x`` read once and ``n_tp`` copies of it written."""
+    return x.numel() * x.element_size() * (1 + x.shape[0]), 0
+
+
+def shard_tps(n_rv):
+    """Every ``tp`` of 2..8 that divides ``n_rv`` lieutenants."""
+    return [t for t in range(2, 9) if n_rv % t == 0]
 
 
 def circuit_cost(tables, params):
@@ -352,6 +403,22 @@ def replay(cfg, keys, *, chunk, reps=0):
             sub(rk.rebuild_reference), pool, li, acc_k, hc, att, rv)
         (ref_mbox, ref_vi_m, ref_ovf_m), step_plain_ms = plain(
             sub(rs.round_step_reference), mbox, li, vi_i, hc, att, rv, late)
+        if not reps:
+            # The n_recv variant: each shard of the round's pool drains its
+            # receivers; their accepted sets are the single-device round's.
+            nr_err = 0
+            for tp in shard_tps(cfg.n_lieutenants):
+                sh = (tuple(x.expand((tp,) + x.shape).contiguous()
+                            for x in pool), rk.shard_receivers(li, tp),
+                      rk.shard_receivers(vi_i, tp), hc, att, rv, late)
+                n_local = cfg.n_lieutenants // tp
+                got = rk.fused_round(cfg, r, *sh, n_recv=n_local)
+                nr_err = max(nr_err, tree_err(got, rk.fused_round_reference(
+                    cfg, r, *sh, n_recv=n_local)))
+                if not (torch.equal(rk.unshard_receivers(got[1]), vi_k)
+                        and torch.equal(got[2].any(0), ovf_k)):
+                    raise AssertionError(f"n_recv fused != fused at {cfg} "
+                                         f"round {r}, tp {tp}")
         errs = {
             "round_step": max(
                 [max_err(a, b) for a, b in zip(new_mbox, ref_mbox)]
@@ -365,6 +432,8 @@ def replay(cfg, keys, *, chunk, reps=0):
                 [max_err(a, b) for a, b in zip(tiled_pool, ref_tpool)]
                 + [max_err(ovf_t, ref_ovf_t)]),
         }
+        if not reps:
+            errs["fused_round_n_recv"] = nr_err
         if any(errs.values()):
             raise AssertionError(
                 f"kernel != plain version at {cfg} round {r}: {errs}")
@@ -377,7 +446,8 @@ def replay(cfg, keys, *, chunk, reps=0):
         dst = int(write.sum())
         dst_rows = int((write.long() * src_cnt[..., None].long()).sum())
         stats.append(dict(
-            round=r, live=live, rows=rows, dst=dst, max_abs_err=errs,
+            round=r, live=live, rows=rows, dst=dst, dst_rows=dst_rows,
+            max_abs_err=errs,
             overflow=int(ovf_k.sum()), draws_ms=draws_ms,
             ms=dict(fused_round=fused_ms, tiled_verdict=verdict_ms,
                     tiled_rebuild=rebuild_ms, round_step=step_ms),
@@ -466,12 +536,50 @@ def mega_vs_plain(cfg, keys, *, chunk, reps=0):
                 overflow=int(got[2].sum()), vi=got[0] != 0)
 
 
+def sharded_mega_vs_plain(cfg, keys, tp, *, chunk, reps=0):
+    """The party-sharded megakernel at ``tp`` against its plain version
+    and the single-device megakernel on ``keys``' inputs (bit-exact,
+    trial for trial).  With ``reps`` > 0 also times the kernel (CUDA
+    events) and the plain version (host clock, ``chunk`` trials at a
+    time)."""
+    import torch
+
+    from qba_tpu_torch.ops import trial_megakernel as tm
+
+    args, _setup_ms, _draws_ms = mega_inputs(cfg, keys)
+    got = tm.sharded_trial_megakernel(cfg, tp, *args)
+    single = tm.trial_megakernel(cfg, *args)
+    torch.cuda.synchronize()
+    ms = None
+    if reps:
+        tm.sharded_trial_megakernel.events = []
+        for _ in range(reps):
+            tm.sharded_trial_megakernel(cfg, tp, *args)
+        torch.cuda.synchronize()
+        ms = event_ms(tm.sharded_trial_megakernel.events)
+        tm.sharded_trial_megakernel.events = None
+    n = keys.shape[0]
+    t0 = time.perf_counter()
+    parts = [tm.sharded_trial_megakernel_reference(
+        cfg, tp, *(x[a:a + chunk] for x in args)) for a in range(0, n, chunk)]
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    want = [torch.cat([q[i] for q in parts]) for i in range(3)]
+    err = max(max_err(a, b) for a, b in zip(got, want))
+    if err or any(not torch.equal(a, b) for a, b in zip(got, single)):
+        raise AssertionError(f"sharded megakernel at tp={tp} != plain "
+                             f"version or single-device megakernel at {cfg}")
+    return dict(tp=tp, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms if reps else None,
+                overflow=int(got[2].sum()))
+
+
 ENGINE_OF = {"fused_round": "pallas_fused", "tiled_verdict": "pallas_tiled",
              "tiled_rebuild": "pallas_tiled", "trial_megakernel": "auto",
              "round_step": "pallas"}
 COUNTED = ("fused_round", "tiled_verdict", "tiled_rebuild",
            "trial_megakernel", "round_step", "fused_circuit", "gf2_sweep",
-           "trial_megakernel_gen")
+           "trial_megakernel_gen", "sharded_trial_megakernel", "ring_gather")
 ROUND_KERNELS = COUNTED[:5]
 
 # Seeded random inputs (qba_tpu_torch.testing): round inputs as
@@ -512,13 +620,27 @@ def random_vs_plain(dev, n_trials=64):
         dense_acc,
         random_mailbox_inputs,
         random_round_inputs,
+        random_shard_inputs,
         random_trial_inputs,
     )
 
-    errs = dict.fromkeys(ROUND_KERNELS, 0)
+    errs = dict.fromkeys(ROUND_KERNELS + ("fused_round_n_recv",
+                                          "sharded_trial_megakernel"), 0)
     facts = []
     for i, (name, kw, r) in enumerate(RANDOM_ROUNDS):
         cfg = QBAConfig(**kw)
+        for tp in shard_tps(cfg.n_lieutenants):
+            sargs = random_shard_inputs(cfg, tp, r, n_trials, seed=311 + i,
+                                        device=dev)
+            n_local = cfg.n_lieutenants // tp
+            got = rk.fused_round(cfg, r, *sargs, n_recv=n_local)
+            errs["fused_round_n_recv"] = max(
+                errs["fused_round_n_recv"], tree_err(
+                    got, rk.fused_round_reference(cfg, r, *sargs,
+                                                  n_recv=n_local)))
+            facts.append(dict(case=f"{name} tp={tp}", n_recv=True,
+                              n_recv_accepted=int((got[1] - sargs[2]).sum()),
+                              overflow=int(got[2].sum())))
         args = random_round_inputs(cfg, r, n_trials, seed=100 + i, device=dev)
         pool, li, vi, hc, att, rv, late = args
         errs["fused_round"] = max(errs["fused_round"], tree_err(
@@ -543,9 +665,16 @@ def random_vs_plain(dev, n_trials=64):
     for i, (name, kw) in enumerate(RANDOM_TRIALS):
         cfg = QBAConfig(**kw)
         args = random_trial_inputs(cfg, n_trials, seed=200 + i, device=dev)
+        single = tm.trial_megakernel(cfg, *args)
         errs["trial_megakernel"] = max(errs["trial_megakernel"], tree_err(
-            tm.trial_megakernel(cfg, *args),
-            tm.trial_megakernel_reference(cfg, *args)))
+            single, tm.trial_megakernel_reference(cfg, *args)))
+        for tp in shard_tps(cfg.n_lieutenants):
+            got = tm.sharded_trial_megakernel(cfg, tp, *args)
+            errs["sharded_trial_megakernel"] = max(
+                errs["sharded_trial_megakernel"], tree_err(
+                    got, tm.sharded_trial_megakernel_reference(cfg, tp,
+                                                               *args)),
+                tree_err(got, single))
         ok = step3a_one(cfg, args[0], args[2], args[1])[0].any(-1)
         facts.append(dict(case=name, step3a_ok=int(ok.sum()),
                           step3a_rejected=int((~ok).sum())))
@@ -556,6 +685,11 @@ def random_vs_plain(dev, n_trials=64):
                and f.get("step3a_ok", 1) and f.get("mailbox_accepted", 1)
                for f in facts):
         raise AssertionError(f"a random case reached no branch: {facts}")
+    shard_facts = [f for f in facts if f.get("n_recv")]
+    if not (any(f["overflow"] for f in shard_facts)
+            and any(f["n_recv_accepted"] for f in shard_facts)):
+        raise AssertionError(f"the n_recv random cases accepted or "
+                             f"overflowed nowhere: {shard_facts}")
     return errs, facts
 
 
@@ -967,9 +1101,107 @@ def sweep_65p(dev, trials=1000):
                 ms=ms)
 
 
+RING_CASES = [((3, 5, 7), 1), ((2, 9000), 1), ((3, 4100, 5), 1),
+              ((2, 3, 16, 64), 2), ((6,), 0)]
+
+
+def ring_vs_plain(dev):
+    """The ring gather against its plain version, bit-exact, at ``tp`` 2,
+    4 and 8 on int8, int32, bool, uint8 and int64 shards: segments of 35 B (byte
+    moves), of 20,500 B (4-byte moves, two 16 KB tiles, the second
+    ragged), of 36,000 B (16-byte moves, three tiles), of one tile, and
+    a gather along the leading axis.  Returns the max abs error and the
+    number of cases."""
+    import torch
+
+    from qba_tpu_torch.ops.ring_shuffle import (
+        ring_gather,
+        ring_gather_reference,
+    )
+
+    gen = torch.Generator().manual_seed(7)
+    err, n = 0, 0
+    for tp in (2, 4, 8):
+        for dtype in (torch.int8, torch.int32, torch.bool, torch.uint8,
+                      torch.int64):
+            for shard, axis in RING_CASES:
+                x = torch.randint(-100, 100, (tp,) + shard, generator=gen)
+                x = ((x > 0) if dtype == torch.bool else x.to(dtype)).to(dev)
+                err = max(err, max_err(ring_gather(x, axis),
+                                       ring_gather_reference(x, axis)))
+                n += 1
+    if err:
+        raise AssertionError(f"ring_gather != plain version: {err}")
+    return err, n
+
+
+def ring_timing(leaves, reps=5):
+    """The ring kernel on each shard-stacked pool leaf (``[tp, T, ...]``,
+    gathered along its capacity axis, as the party-sharded fused engine
+    gathers it), against its plain version and one PyTorch broadcast copy
+    of the concatenated shards (the yardstick): each checked equal, and
+    timed per launch (CUDA events over ``reps``; the plain version by
+    host clock), averaged over the leaves, with the bound per launch."""
+    import torch
+
+    from qba_tpu_torch.ops.ring_shuffle import (
+        ring_gather,
+        ring_gather_reference,
+    )
+    from qba_tpu_torch.ops.round_kernel_tiled import POOL_AXES
+
+    def events_ms(fn):
+        fn()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    out = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+               max_abs_err=0)
+    for x, ax in zip(leaves, POOL_AXES):
+        axis = ax + 1
+        tp = x.shape[0]
+        got = ring_gather(x, axis)
+        lib = torch.empty_like(got)
+        # lib [tp, *pre, tp * chunk, *post] as [tp, *pre, tp, chunk, *post]
+        view = lib.view(tp, *x.shape[1:axis + 1], tp, *x.shape[axis + 1:])
+        src = x.movedim(0, axis)
+        src = src.unsqueeze(0).expand(tp, *src.shape)
+
+        def library():
+            view.copy_(src)
+
+        library()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = ring_gather_reference(x, axis)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max(max_err(got, want), max_err(lib, want))
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        ring_gather.events = []
+        for _ in range(reps):
+            ring_gather(x, axis)
+        torch.cuda.synchronize()
+        out["ms"] += event_ms(ring_gather.events) / len(leaves)
+        ring_gather.events = None
+        out["library_ms"] += events_ms(library) / len(leaves)
+        out["plain_ms"] += plain_ms / len(leaves)
+        out["bound_ms"] += bound(*ring_cost(x))[0] / len(leaves)
+    if out["max_abs_err"]:
+        raise AssertionError(f"ring_gather != plain version on the pool "
+                             f"leaves: {out['max_abs_err']}")
+    return out
+
+
 def wrappers():
     from qba_tpu_torch.ops import fused_circuit as fc
     from qba_tpu_torch.ops import gf2_sweep as gs
+    from qba_tpu_torch.ops import ring_shuffle as rg
     from qba_tpu_torch.ops import round_kernel as rs
     from qba_tpu_torch.ops import round_kernel_tiled as rk
     from qba_tpu_torch.ops import trial_megakernel as tm
@@ -979,29 +1211,35 @@ def wrappers():
             "trial_megakernel": tm.trial_megakernel,
             "round_step": rs.round_step, "fused_circuit": fc.fused_circuit,
             "gf2_sweep": gs.gf2_sweep,
-            "trial_megakernel_gen": tm.trial_megakernel_gen}
+            "trial_megakernel_gen": tm.trial_megakernel_gen,
+            "sharded_trial_megakernel": tm.sharded_trial_megakernel,
+            "ring_gather": rg.ring_gather}
 
 
-def drive(cfg, engine):
-    """One main-path batch, ``run_trials(cfg)``, after a warm-up, with
-    every kernel's launch count set to 0 just before and read just
-    after, and each launch's CUDA events kept."""
+def drive(cfg, engine, mesh=None):
+    """One main-path batch, ``run_trials(cfg)`` (``run_trials_spmd(cfg,
+    mesh)`` with a mesh), after a warm-up, with every kernel's launch
+    count set to 0 just before and read just after, and each launch's
+    CUDA events kept."""
     import dataclasses
 
     import torch
 
     import qba_tpu_torch
     from qba_tpu_torch.backends.torch_backend import fence
+    from qba_tpu_torch.parallel import run_trials_spmd
 
     if engine != "auto":
         cfg = dataclasses.replace(cfg, round_engine=engine)
-    fence(qba_tpu_torch.run_trials(cfg))  # warm-up
+    run = (qba_tpu_torch.run_trials if mesh is None
+           else lambda c: run_trials_spmd(c, mesh))
+    fence(run(cfg))  # warm-up
     fns = wrappers()
     torch.cuda.reset_peak_memory_stats()
     for fn in fns.values():
         fn.launches, fn.events = 0, []
     t0 = time.perf_counter()
-    out = fence(qba_tpu_torch.run_trials(cfg))
+    out = fence(run(cfg))
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in fns.items()}
     events = {k: fn.events for k, fn in fns.items()}
@@ -1079,9 +1317,25 @@ def main(argv):
         raise AssertionError("no overflowing trial among the mega checks")
     report["kernel_vs_plain"] = checks
     report["mega_vs_plain"] = mega_checks
+    sharded_checks = []
+    for name, cfg in small:
+        keys = trial_keys(cfg, dev)
+        for tp in shard_tps(cfg.n_lieutenants):
+            sharded_checks.append(dict(config=name, **sharded_mega_vs_plain(
+                cfg, keys, tp, chunk=cfg.trials)))
+    if not any(c["overflow"] for c in sharded_checks):
+        raise AssertionError("no overflowing trial among the sharded checks")
+    report["sharded_mega_vs_plain"] = sharded_checks
+    log("sharded_mega_vs_plain", tolerance=0,
+        max_abs_err=max(c["max_abs_err"] for c in sharded_checks),
+        cases=[(c["config"], c["tp"], c["overflow"]) for c in sharded_checks])
     random_errs, facts = random_vs_plain(dev)
     report["random_vs_plain"] = dict(max_abs_err=random_errs, cases=facts)
     log("random_vs_plain", tolerance=0, max_abs_err=random_errs, cases=facts)
+    ring_err, ring_cases = ring_vs_plain(dev)
+    report["ring_vs_plain"] = dict(max_abs_err=ring_err, cases=ring_cases)
+    log("ring_vs_plain", tolerance=0, max_abs_err=ring_err, cases=ring_cases,
+        tp=[2, 4, 8], dtypes=["int8", "int32", "bool", "uint8", "int64"])
     circuit_cases, circuit_timing = circuit_vs_plain(dev)
     report["circuit_vs_plain"] = dict(cases=circuit_cases,
                                       timing=circuit_timing)
@@ -1148,7 +1402,7 @@ def main(argv):
               "pallas_tiled": {"tiled_verdict": 1, "tiled_rebuild": 1},
               "pallas": {"round_step": 1}}
     launches = dict.fromkeys(COUNTED, 0)
-    runs = []
+    runs, single = [], {}
     for name, cfg in main_cfgs:
         if resolve_round_engine(cfg, dev) != "pallas_mega":
             raise AssertionError("auto does not resolve to pallas_mega")
@@ -1231,6 +1485,7 @@ def main(argv):
                 rounds=cfg.n_rounds, **e)
         log("full_width_vs_plain", config=name, tolerance=0, **kern)
         runs.append(run)
+        single[name] = (results["auto"], stats)
     report["main_path"] = runs
 
     # The protocol counters on the default engine: they need the
@@ -1408,6 +1663,104 @@ def main(argv):
             sweep_work=sweep["work"])
     report["stabilizer_path"] = stab_runs
 
+    # The party-sharded path on one card: each trial's tp shards as one
+    # thread-block cluster (auto), or per round the ring gather and the
+    # fused round's n_recv variant; results as the single-device batch.
+    from qba_tpu_torch.ops import round_kernel_tiled as rk
+    from qba_tpu_torch.ops import trial_megakernel as tm
+    from qba_tpu_torch.parallel import make_mesh
+    from qba_tpu_torch.parallel.spmd import _resolve_spmd_engine
+    from qba_tpu_torch.rounds.engine import setup_trial, step3a_one
+
+    mesh_runs = []
+    for name, tp in (("33p/L64/d10", 4), ("11p/L64/d3", 2)):
+        cfg = dict(main_cfgs)[name]
+        ref, stats = single[name]
+        mesh = make_mesh({"dp": 1, "tp": tp}, devices=[dev] * tp)
+        n_local = cfg.n_lieutenants // tp
+        plan = rk.sharded_mega_plan(cfg, tp, dev)
+        if _resolve_spmd_engine(cfg, n_local, dev) != "pallas_mega":
+            raise AssertionError(f"{name}: auto under tp={tp} is not the "
+                                 "sharded megakernel")
+        per_run = {}
+        for label, kw, per_batch in (
+                ("auto", {}, {"sharded_trial_megakernel": 1}),
+                ("pallas_fused ring", dict(round_engine="pallas_fused",
+                                           tp_comms="ring"),
+                 {"ring_gather": 4 * cfg.n_rounds,
+                  "fused_round": cfg.n_rounds}),
+                ("pallas_fused all_gather", dict(round_engine="pallas_fused",
+                                                 tp_comms="all_gather"),
+                 {"fused_round": cfg.n_rounds})):
+            out, wall, counts, events, peak = drive(
+                dataclasses.replace(cfg, **kw), "auto", mesh)
+            want = {k: per_batch.get(k, 0) for k in COUNTED}
+            if counts != want:
+                raise AssertionError(f"{name} tp={tp} {label}: launches "
+                                     f"{counts}, expected {want}")
+            for k, n in counts.items():
+                launches[k] += n
+            for f in fields:
+                if not torch.equal(getattr(out.trials, f), getattr(ref, f)):
+                    raise AssertionError(f"{name} tp={tp} {label} != "
+                                         f"single-device run_trials on {f}")
+            per_run[label] = dict(
+                launches={k: n for k, n in counts.items() if n},
+                wall_s=wall, rounds_per_s=cfg.trials * cfg.n_rounds / wall,
+                kernel_ms_per_launch={k: event_ms(ev)
+                                      for k, ev in events.items() if ev},
+                success_rate=float(out.success_rate), peak_mem_bytes=peak)
+            log("mesh_path", config=name, trials=cfg.trials, tp=tp,
+                run=label, **per_run[label])
+        # The ring on the batch's step-3a segments; the sharded megakernel
+        # against its plain version; bounds from the single-device replay.
+        keys = trial_keys(cfg, dev)
+        _h, li, p_rows, v_sent, _vc, _kr = setup_trial(cfg, keys)
+        cells = [rk.shard_receivers(x, tp)
+                 for x in step3a_one(cfg, p_rows, v_sent, li)[1]]
+        segs = [rk.pool_from_step3a(cfg, tuple(c[s] for c in cells),
+                                    start=s * n_local) for s in range(tp)]
+        ring = ring_timing([torch.stack(x) for x in zip(*segs)])
+        del cells, segs
+        sharded = sharded_mega_vs_plain(cfg, keys, tp, chunk=64, reps=3)
+        rounds = [(st["live"], st["rows"], st["dst"]) for st in stats]
+        mb = bound(*mega_cost(cfg, rounds, cfg.trials))
+        nb = [bound(*n_recv_cost(cfg, st["live"], st["rows"], st["dst"],
+                                 st["dst_rows"], cfg.trials, tp))
+              for st in stats]
+        run = dict(
+            config=name, trials=cfg.trials, rounds=cfg.n_rounds, tp=tp,
+            plan=plan._asdict(), runs=per_run, ring_leaves=ring,
+            sharded_trial_megakernel=dict(sharded, bound_ms=mb[0],
+                                          bound_by=mb[1]),
+            fused_round_n_recv=dict(
+                ms=per_run["pallas_fused ring"]["kernel_ms_per_launch"]
+                ["fused_round"],
+                bound_ms=sum(b[0] for b in nb) / len(nb),
+                bound_by=max(nb)[1]))
+        log("mesh_vs_plain", config=name, tp=tp, tolerance=0, ring=ring,
+            sharded_trial_megakernel=run["sharded_trial_megakernel"],
+            fused_round_n_recv=run["fused_round_n_recv"], plan=run["plan"])
+        mesh_runs.append(run)
+
+    # A small batch, where one block a trial leaves most SMs idle: the
+    # sharded megakernel at tp=4 beside the single-device one.
+    cfg = dataclasses.replace(dict(main_cfgs)["33p/L64/d10"], trials=64)
+    args, _s, _d = mega_inputs(cfg, trial_keys(cfg, dev))
+    small_batch = {}
+    for label, fn, pre in (("single-device", tm.trial_megakernel, ()),
+                           ("sharded tp=4", tm.sharded_trial_megakernel,
+                            (4,))):
+        fn(cfg, *pre, *args)
+        fn.events = []
+        for _ in range(5):
+            fn(cfg, *pre, *args)
+        torch.cuda.synchronize()
+        small_batch[label] = event_ms(fn.events)
+        fn.events = None
+    report["mesh_path"] = dict(runs=mesh_runs, small_batch_33p_x64_ms=small_batch)
+    log("mesh_path", config="33p/L64/d10 x64", kernel_ms=small_batch)
+
     big = runs[-1]
     kernels = []
     for k in ("fused_round", "trial_megakernel", "tiled_verdict",
@@ -1420,8 +1773,11 @@ def main(argv):
             "source": source,
             "replaces": replaces,
             "launches": launches[k],
+            # fused_round also runs the n_recv variant (the mesh path).
             "max_abs_err": max([r["full_width_vs_plain"][k]["max_abs_err"]
-                                for r in runs] + [random_errs[k]]),
+                                for r in runs] + [random_errs[k]]
+                               + ([random_errs["fused_round_n_recv"]]
+                                  if k == "fused_round" else [])),
             "ms": e["kernel_ms_per_launch"][k],
             "plain_ms": big["full_width_vs_plain"][k]["plain_ms"],
             "bound_ms": e["bound_ms"][k],
@@ -1458,6 +1814,35 @@ def main(argv):
             "library_ms": None,
             "config": (f"{sbig['config']} qsim_path=stabilizer "
                        f"x{sbig['trials']} trials"),
+        })
+    mbig = mesh_runs[0]
+    ring_errs = [ring_err] + [r["ring_leaves"]["max_abs_err"]
+                              for r in mesh_runs]
+    shard_errs = ([c["max_abs_err"] for c in sharded_checks]
+                  + [random_errs["sharded_trial_megakernel"]]
+                  + [r["sharded_trial_megakernel"]["max_abs_err"]
+                     for r in mesh_runs])
+    sm = mbig["sharded_trial_megakernel"]
+    for k, row in (("sharded_trial_megakernel",
+                    dict(max_abs_err=max(shard_errs),
+                         ms=mbig["runs"]["auto"]["kernel_ms_per_launch"]
+                         ["sharded_trial_megakernel"],
+                         plain_ms=sm["plain_ms"], bound_ms=sm["bound_ms"],
+                         bound_by=sm["bound_by"], library_ms=None)),
+                   ("ring_gather",
+                    dict(max_abs_err=max(ring_errs),
+                         ms=mbig["runs"]["pallas_fused ring"]
+                         ["kernel_ms_per_launch"]["ring_gather"],
+                         plain_ms=mbig["ring_leaves"]["plain_ms"],
+                         bound_ms=mbig["ring_leaves"]["bound_ms"],
+                         bound_by="bytes",
+                         library_ms=mbig["ring_leaves"]["library_ms"]))):
+        source, replaces = SOURCES[k]
+        kernels.append({
+            "name": k, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[k], **row,
+            "config": (f"{mbig['config']} x{mbig['trials']} trials, "
+                       f"tp={mbig['tp']} on one card"),
         })
     report["kernels"] = kernels
     report["device"] = card

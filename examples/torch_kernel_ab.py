@@ -1,0 +1,110 @@
+#!/usr/bin/env python3
+"""Time the port's single-device round kernels of one checkout on a CUDA
+card, to compare two checkouts (a parent and a change) on one card.
+
+    python3 examples/torch_kernel_ab.py ROOT [--config 33p|11p] [--reps N]
+
+imports ``qba_tpu_torch`` from the checkout at ``ROOT`` (built there on
+first use), replays every round of a 1000-trial batch of the config with
+the fused round kernel, and times on each round's inputs the fused round,
+the tiled verdict and the dense-mailbox round kernel (CUDA events over
+``--reps`` launches), then the trial megakernel on the whole batch.
+Prints one JSON line: the card, the checkout and each kernel's mean ms
+per launch over the rounds.  Run it for the two checkouts in turns
+(parent, change, change, parent, ...) back to back: a card's clocks
+drift, so only times taken side by side compare.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+
+CONFIGS = {"33p": dict(n_parties=33, size_l=64, n_dishonest=10),
+           "11p": dict(n_parties=11, size_l=64, n_dishonest=3)}
+
+
+def main(argv):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("root")
+    ap.add_argument("--config", default="33p", choices=sorted(CONFIGS))
+    ap.add_argument("--reps", type=int, default=10)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, args.root)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    from qba_tpu_torch import QBAConfig
+    from qba_tpu_torch import random as jr
+    from qba_tpu_torch.adversary import adversary_ctx, sample_attacks_round
+    from qba_tpu_torch.backends.torch_backend import trial_keys
+    from qba_tpu_torch.ops import round_kernel as rs
+    from qba_tpu_torch.ops import round_kernel_tiled as rk
+    from qba_tpu_torch.ops import trial_megakernel as tm
+    from qba_tpu_torch.rounds.engine import (
+        _stacked_draws,
+        setup_trial,
+        step3a_one,
+    )
+
+    dev = torch.device("cuda", 0)
+    cfg = QBAConfig(trials=1000, **CONFIGS[args.config])
+
+    def ms(fn, *a, **kw):
+        fn(*a, **kw)
+        fn.events = []
+        for _ in range(args.reps):
+            fn(*a, **kw)
+        torch.cuda.synchronize()
+        out = sum(s.elapsed_time(e) for s, e in fn.events) / len(fn.events)
+        fn.events = None
+        return out
+
+    keys = trial_keys(cfg, dev)
+    honest, li, p_rows, v_sent, _vc, k_rounds = setup_trial(cfg, keys)
+    vi, cells = step3a_one(cfg, p_rows, v_sent, li)
+    ctx = adversary_ctx(cfg, k_rounds, v_sent)
+    hc = rk.honest_cells(honest, cfg)
+    li = li.to(torch.int32).contiguous()
+    vi = vi.to(torch.int32)
+    pool = rk.pool_from_step3a(cfg, cells)
+    spare = rk.empty_pool(cfg, cfg.trials, dev)
+    mbox = rs.mailbox_from_step3a(cfg, cells)
+    mbox_spare = rs.empty_mailbox(cfg, cfg.trials, dev)
+    times = {"fused_round": [], "tiled_verdict": [], "round_step": []}
+    for r in range(1, cfg.n_rounds + 1):
+        draws = tuple(x.to(torch.uint8) for x in sample_attacks_round(
+            cfg, jr.fold_in(k_rounds, r), r, ctx))
+        times["fused_round"].append(ms(rk.fused_round, cfg, r, pool, li, vi,
+                                       hc, *draws, out=spare))
+        times["tiled_verdict"].append(ms(rk.tiled_verdict, cfg, r, pool, li,
+                                         vi, hc, *draws))
+        times["round_step"].append(ms(rs.round_step, cfg, r, mbox, li, vi,
+                                      hc, *draws, out=mbox_spare))
+        # The next round's inputs: both engines advance from the same vi.
+        new_mbox = rs.round_step(cfg, r, mbox, li, vi, hc, *draws,
+                                 out=mbox_spare)[0]
+        new, vi, _ovf = rk.fused_round(cfg, r, pool, li, vi, hc, *draws,
+                                       out=spare)
+        pool, spare = new, pool
+        mbox, mbox_spare = new_mbox, mbox
+    stacks = _stacked_draws(cfg, k_rounds, ctx)
+    mega = ms(tm.trial_megakernel, cfg, p_rows.contiguous(), li,
+              v_sent.to(torch.int32).contiguous(), hc, *stacks)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    print(json.dumps({"card": card, "root": args.root, "config": args.config,
+                      "trials": cfg.trials, "reps": args.reps,
+                      **{k: sum(v) / len(v) for k, v in times.items()},
+                      "trial_megakernel": mega}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

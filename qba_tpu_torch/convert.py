@@ -4,7 +4,8 @@ Everything here takes plain Python or numpy values — what
 ``dataclasses.asdict``, ``jax.random.key_data`` and ``np.asarray`` give
 on the JAX side — so a test hands both packages the same per-trial state
 (config, keys, pool, mailbox, draws, circuits, stabilizer tableaux and
-their generation operands) without this package importing JAX.
+their generation operands, and the party-sharded shards' pools and
+mailboxes) without this package importing JAX.
 """
 
 from __future__ import annotations
@@ -133,3 +134,13 @@ def gen_operands_from_numpy(qcorr, coins, r_q, r_nq, mflip, device=None):
             raise ValueError("generation operands must be 0/1")
         out.append(torch.from_numpy(x.astype(np.uint8)).to(device))
     return tuple(out)
+
+
+def shards_from_numpy(shards, kind: str = "pool", device=None):
+    """Per-shard state of a party-sharded run (one entry per ``tp``
+    shard, in tp order, each the numpy arrays that :func:`pool_from_numpy`
+    or :func:`mailbox_from_numpy` take, with a leading trial axis) as the
+    port's stacked layout: each tensor ``[n_tp, T, ...]``."""
+    convert = {"pool": pool_from_numpy, "mailbox": mailbox_from_numpy}[kind]
+    parts = [convert(*s, device=device) for s in shards]
+    return tuple(torch.stack(x) for x in zip(*parts))

@@ -43,11 +43,24 @@
 // each live input byte once into shared memory or L1, skips dead packets
 // entirely, and writes the dead tail with 16-byte stores.
 //
-// Layouts (trial-major, contiguous): vals int8 [T, max_l, n_pool, S],
-// lens int32 [T, n_pool, max_l], p int8 [T, n_pool, S], meta int32
-// [T, n_pool, 4] = (count, v, sent, cell), li int32 [T, n_rv, S], vi
-// int32 [T, n_rv, w], honest int32 [T, n_pool], draws uint8
-// [T, n_pool, n_rv]; n_pool = n_rv * slots.
+// The party-sharded variant (the TPU kernel's n_recv build).  A shard
+// drains its receivers [start, start + n_local) of the n_glob lieutenants
+// against the whole assembled pool and writes its LOCAL successor
+// segment (capacity n_local * slots, compacted, global cell ids); the
+// verdict compares the sender with the receiver's global id and reads
+// the receiver's column of the global draw tables.  The launch takes
+// n_shards shards of a batch at once: block b is shard b / T of trial
+// b % T, whose receivers start at start + (b / T) * n_local.  The
+// single-device kernel is the case n_shards = 1, start = 0, n_local =
+// n_glob, so both are one source.  Only sent packets are read, so the
+// assembled pool may hold empty entries between the segments.
+//
+// Layouts (shard- and trial-major, contiguous; B = n_shards * T): vals
+// int8 [B, max_l, n_pool, S], lens int32 [B, n_pool, max_l], p int8
+// [B, n_pool, S], meta int32 [B, n_pool, 4] = (count, v, sent, cell), li
+// int32 [B, n_local, S], vi int32 [B, n_local, w], honest int32
+// [T, n_pool], draws uint8 [T, n_pool, n_glob]; the successor pools as
+// the pools with n_local * slots entries; n_pool = n_glob * slots.
 
 #include "round_common.cuh"
 
@@ -73,25 +86,31 @@ struct Params {
   int32_t* o_vi;
   int32_t* o_ovf;
   Dims d;
-  int n_dis, round_idx, use_fp;
+  int n_trials, start, n_dis, round_idx, use_fp;
 };
 
-__global__ void __launch_bounds__(kThreads)
+// Three blocks per SM (at most 85 registers a thread), as the
+// megakernel over the same phases.
+__global__ void __launch_bounds__(kThreads, 3)
 fused_round_kernel(Params P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Dims d = P.d;
+  const int shard = int(blockIdx.x) / P.n_trials;
+  const size_t b = blockIdx.x;
+  const size_t t = size_t(int(blockIdx.x) - shard * P.n_trials);
+  Dims d = P.d;
+  d.r_off = P.start + shard * d.n_rv;
   const int n_pool = d.n_pool();
   const Shared sh(smem_raw, d);
-  const size_t t = blockIdx.x;
-  const PoolIn in = pool_at(P.vals, P.lens, P.p, P.meta, t, d);
-  const PoolOut out = pool_at(P.o_vals, P.o_lens, P.o_p, P.o_meta, t, d);
-  const int32_t* li = P.li + t * size_t(d.n_rv) * d.size_l;
+  const PoolIn in = pool_at(P.vals, P.lens, P.p, P.meta, b, n_pool, d);
+  const PoolOut out =
+      pool_at(P.o_vals, P.o_lens, P.o_p, P.o_meta, b, d.n_out(), d);
+  const int32_t* li = P.li + b * size_t(d.n_rv) * d.size_l;
   const int32_t* honest = P.honest + t * size_t(n_pool);
   const Draws dr = draws_at(P.attack, P.rand_v, P.late, t, d);
 
   // Setup: zeroed verdicts, vi as masks, the last live packet.
   clear_round(sh, n_pool);
-  load_vi_mask(sh, P.vi + t * size_t(d.n_rv) * d.w, d);
+  load_vi_mask(sh, P.vi + b * size_t(d.n_rv) * d.w, d);
   __syncthreads();
   scan_extent(sh, in.meta, n_pool);
   __syncthreads();
@@ -102,9 +121,9 @@ fused_round_kernel(Params P) {
   dedup_phase(sh, in.meta, honest, dr, d, n_scan, P.round_idx <= P.n_dis,
               nullptr);
   __syncthreads();
-  store_vi(sh, P.o_vi + t * size_t(d.n_rv) * d.w, d);
+  store_vi(sh, P.o_vi + b * size_t(d.n_rv) * d.w, d);
   offsets_phase(sh, d.n_rv);
-  if (threadIdx.x == 0) P.o_ovf[t] = sh.misc[1];
+  if (threadIdx.x == 0) P.o_ovf[b] = sh.misc[1];
   __syncthreads();
   const int total = sh.offs[d.n_rv];
   rebuild_phase(sh, in, out, li, honest, dr, d, total, P.use_fp);
@@ -113,17 +132,19 @@ fused_round_kernel(Params P) {
 
 }  // namespace
 
-// Returns a cudaError_t: 0 on a launch that was accepted.
+// Returns a cudaError_t: 0 on a launch that was accepted.  n_local
+// receivers a shard, n_shards shards from receiver `start` on, of n_glob.
 extern "C" int qba_fused_round(
     const void* vals, const void* lens, const void* p, const void* meta,
     const void* li, const void* vi, const void* honest, const void* attack,
     const void* rand_v, const void* late, void* o_vals, void* o_lens,
     void* o_p, void* o_meta, void* o_vi, void* o_ovf, int n_trials,
-    int n_rv, int slots, int max_l, int size_l, int w, int n_dis,
-    int round_idx, int use_fp, void* stream) {
-  if (n_trials <= 0) return 0;
-  const Dims d{n_rv, slots, max_l, size_l, w};
-  if (!dims_ok(d)) return int(cudaErrorInvalidValue);
+    int n_shards, int n_local, int n_glob, int start, int slots, int max_l,
+    int size_l, int w, int n_dis, int round_idx, int use_fp, void* stream) {
+  if (n_trials <= 0 || n_shards <= 0) return 0;
+  const Dims d{n_local, slots, max_l, size_l, w, start, n_glob};
+  if (!dims_ok(d) || start + n_shards * n_local > n_glob)
+    return int(cudaErrorInvalidValue);
   Params prm;
   prm.vals = static_cast<const int8_t*>(vals);
   prm.lens = static_cast<const int32_t*>(lens);
@@ -142,12 +163,14 @@ extern "C" int qba_fused_round(
   prm.o_vi = static_cast<int32_t*>(o_vi);
   prm.o_ovf = static_cast<int32_t*>(o_ovf);
   prm.d = d;
+  prm.n_trials = n_trials;
+  prm.start = start;
   prm.n_dis = n_dis;
   prm.round_idx = round_idx;
   prm.use_fp = use_fp;
   size_t smem = 0;
   if (int e = prepare_smem(fused_round_kernel, d, &smem)) return e;
-  fused_round_kernel<<<n_trials, kThreads, smem,
+  fused_round_kernel<<<n_trials * n_shards, kThreads, smem,
                        static_cast<cudaStream_t>(stream)>>>(prm);
   return int(cudaGetLastError());
 }

@@ -18,10 +18,14 @@
 // so that every kernel composes the phases it needs.  The phases are
 // described in fused_round.cu.
 //
-// Layouts (one trial, contiguous): vals int8 [max_l, n_pool, S], lens
-// int32 [n_pool, max_l], p int8 [n_pool, S], meta int32 [n_pool, 4] =
-// (count, v, sent, cell), li int32 [n_rv, S], vi int32 [n_rv, w], honest
-// int32 [n_pool], draws uint8 [n_pool, n_rv]; n_pool = n_rv * slots.
+// Layouts (one trial, contiguous): vals int8 [max_l, cap, S], lens
+// int32 [cap, max_l], p int8 [cap, S], meta int32 [cap, 4] = (count, v,
+// sent, cell), li int32 [n_rv, S], vi int32 [n_rv, w], honest int32
+// [n_pool], draws uint8 [n_pool, n_glob]; n_pool = n_glob * slots.  A
+// pool's capacity `cap` is its own: n_pool for a whole pool, n_rv * slots
+// for the successor segment of a block that drains n_rv < n_glob
+// receivers (the party-sharded kernels, where the block's receivers are
+// the global receivers [r_off, r_off + n_rv)).  Cell ids are global.
 
 #pragma once
 
@@ -35,27 +39,47 @@ constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kDrop = 1, kForge = 2, kClearP = 4, kClearL = 8, kForgeP = 16;
 
-// The round's static sizes.
+// The round's static sizes.  The block drains the n_rv receivers
+// [r_off, r_off + n_rv) of n_glob; the single-device kernels have
+// r_off = 0 and n_glob = n_rv (make_dims).
 struct Dims {
   int n_rv, slots, max_l, size_l, w;
-  __host__ __device__ int n_pool() const { return n_rv * slots; }
+  int r_off, n_glob;
+  // Capacity of a whole pool (global cells), and of the block's own
+  // successor segment.
+  __host__ __device__ int n_pool() const { return n_glob * slots; }
+  __host__ __device__ int n_out() const { return n_rv * slots; }
 };
+
+__host__ __device__ inline Dims make_dims(int n_rv, int slots, int max_l,
+                                          int size_l, int w) {
+  return Dims{n_rv, slots, max_l, size_l, w, 0, n_rv};
+}
+
+// Index of the block's receiver rv's draw of cell `cell` in a
+// [n_pool, n_glob] table whose pointer draws_at already moved to the
+// block's first receiver's column.
+__device__ inline size_t draw_index(const Dims& d, int cell, int rv) {
+  return size_t(cell) * d.n_glob + rv;
+}
 
 // One trial's pool, as read and as written.  The layout of vals is a
 // compile-time choice, so that each kernel indexes as if it knew no
-// other: the compacted pools are row-major ([max_l, n_pool, S]), the
-// dense mailbox of round_step.cu packet-major ([n_pk, max_l, S]).
+// other: the compacted pools are row-major ([max_l, cap, S], `cap` the
+// pool's capacity), the dense mailbox of round_step.cu packet-major
+// ([n_pk, max_l, S], where cap is not read).
 template <bool kPacketMajor>
 struct PoolInT {
   const int8_t* vals;
   const int32_t* lens;
   const int8_t* p;
   const int32_t* meta;
+  int cap;
   // Evidence row r of packet pk.
   __device__ const int8_t* row(int r, int pk, const Dims& d) const {
     return kPacketMajor
         ? vals + (size_t(pk) * d.max_l + r) * d.size_l
-        : vals + (size_t(r) * d.n_pool() + pk) * d.size_l;
+        : vals + (size_t(r) * cap + pk) * d.size_l;
   }
 };
 template <bool kPacketMajor>
@@ -64,16 +88,25 @@ struct PoolOutT {
   int32_t* lens;
   int8_t* p;
   int32_t* meta;
+  int cap;
   __device__ int8_t* row(int r, int pk, const Dims& d) const {
     return kPacketMajor
         ? vals + (size_t(pk) * d.max_l + r) * d.size_l
-        : vals + (size_t(r) * d.n_pool() + pk) * d.size_l;
+        : vals + (size_t(r) * cap + pk) * d.size_l;
+  }
+  // The view of entries [first, cap): entry i of the result is entry
+  // first + i of this pool, with the same row stride.
+  __device__ PoolOutT from(int first, const Dims& d) const {
+    return PoolOutT{vals + size_t(first) * d.size_l,
+                    lens + size_t(first) * d.max_l,
+                    p + size_t(first) * d.size_l, meta + size_t(first) * 4,
+                    cap};
   }
 };
 using PoolIn = PoolInT<false>;
 using PoolOut = PoolOutT<false>;
 
-// One trial's draws of one round, each [n_pool, n_rv] by mailbox cell.
+// One trial's draws of one round, each [n_pool, n_glob] by mailbox cell.
 struct Draws {
   const uint8_t* attack;
   const uint8_t* rand_v;
@@ -86,15 +119,15 @@ __host__ __device__ inline size_t align8(size_t x) { return (x + 7) & ~size_t(7)
 struct Smem {
   size_t ok, vi, pm, src, cnt, offs, misc, rows, prow, stage, total;
   __host__ __device__ Smem(const Dims& d) {
-    size_t n_pool = size_t(d.n_rv) * d.slots;
+    size_t n_pool = size_t(d.n_pool());
     ok = 0;                                      // uint64 [n_pool]
     vi = ok + 8 * n_pool;                        // uint64 [n_rv]
     pm = vi + 8 * size_t(d.n_rv);                // uint64 [kWarps][size_l]
     src = pm + 8 * size_t(kWarps) * d.size_l;    // int32 [n_rv * slots]
-    cnt = src + 4 * n_pool;                      // int32 [n_rv]
+    cnt = src + 4 * size_t(d.n_out());           // int32 [n_rv]
     offs = align8(cnt + 4 * size_t(d.n_rv));     // int32 [n_rv + 1]
-    misc = align8(offs + 4 * size_t(d.n_rv + 1));  // int32 [4]
-    rows = misc + 16;                            // int8 [kWarps][max_l*size_l]
+    misc = align8(offs + 4 * size_t(d.n_rv + 1));  // int32 [8]
+    rows = misc + 32;                            // int8 [kWarps][max_l*size_l]
     prow = rows + size_t(kWarps) * align8(size_t(d.max_l) * d.size_l);
     stage = align8(size_t(d.size_l));            // per-warp P row stride
     total = prow + size_t(kWarps) * stage;       // int8 [kWarps][size_l]
@@ -108,7 +141,8 @@ struct Shared {
   int* src_list;                // per (receiver, slot): source packet
   int* k_cnt;                   // per receiver: its successor entries
   int* offs;                    // per receiver: first successor entry
-  int* misc;                    // [0] n_scan, [1] overflow
+  int* misc;                    // [0] n_scan, [1] overflow, [2..4] the
+                                // party-sharded exchange (trial_megakernel.cu)
   unsigned char* raw;
   Smem L;
   __device__ Shared(unsigned char* smem_raw, const Dims& d)
@@ -242,11 +276,11 @@ __device__ inline void verdict_phase(const Shared& sh, const In& in,
     __syncwarp();
 
     const bool biz = honest[cell] == 0;
-    const int sender = cell / slots;
+    const int sender = cell / slots - d.r_off;  // as a block receiver
     const unsigned long long valid_rows = low_bits(cnt_v);
     unsigned long long okbits = 0ull;
     for (int rv = 0; rv < n_rv; ++rv) {
-      const size_t di = size_t(cell) * n_rv + rv;
+      const size_t di = draw_index(d, cell, rv);
       const int att = biz ? dr.attack[di] : 0;
       if ((att & kDrop) || dr.late[di] != 0 || sender == rv) continue;
       const int v2 = (att & kForge) ? int(dr.rand_v[di]) : v;
@@ -336,7 +370,7 @@ __device__ inline void dedup_phase(const Shared& sh, const int32_t* meta,
       if (pk < n_scan && ((sh.ok_mask[pk] >> rv) & 1ull)) {
         const int32_t* m = meta + size_t(pk) * 4;
         const int cell = m[3];
-        const size_t di = size_t(cell) * n_rv + rv;
+        const size_t di = draw_index(d, cell, rv);
         const bool forged = honest[cell] == 0 && (dr.attack[di] & kForge);
         v2 = forged ? int(dr.rand_v[di]) : m[1];
         cand = v2 >= 0 && v2 < w && !((vim >> v2) & 1ull);
@@ -395,12 +429,12 @@ __device__ inline void rebuild_entry(const In& in, const Out& out,
                                      const int32_t* honest, const Draws& dr,
                                      const Dims& d, int dst, int rr, int slot,
                                      int src, int use_fp) {
-  const int n_rv = d.n_rv, slots = d.slots, max_l = d.max_l;
+  const int slots = d.slots, max_l = d.max_l;
   const int S = d.size_l;
   const int lane = threadIdx.x & 31;
   const int32_t* m = in.meta + size_t(src) * 4;
   const int count = m[0], cell = m[3];
-  const size_t di = size_t(cell) * n_rv + rr;
+  const size_t di = draw_index(d, cell, rr);
   const int att = honest[cell] == 0 ? dr.attack[di] : 0;
   const int v2 = (att & kForge) ? int(dr.rand_v[di]) : m[1];
   const bool clear_p = att & kClearP, clear_l = att & kClearL;
@@ -448,7 +482,7 @@ __device__ inline void rebuild_entry(const In& in, const Out& out,
     out.p[size_t(dst) * S + j] =
         int8_t(forge_p || (psrc[j] != 0 && !clear_p));
   if (lane < 4) {
-    const int32_t f[4] = {new_cnt, v2, 1, rr * slots + slot};
+    const int32_t f[4] = {new_cnt, v2, 1, (d.r_off + rr) * slots + slot};
     out.meta[size_t(dst) * 4 + lane] = f[lane];
   }
 }
@@ -479,11 +513,11 @@ __device__ inline void rebuild_phase(const Shared& sh, const PoolIn& in,
 // as an empty pool holds it. ----
 __device__ inline void fill_dead_tail(const PoolOut& out, const Dims& d,
                                       int total) {
-  const int n_pool = d.n_pool(), max_l = d.max_l, S = d.size_l;
-  const size_t dead = size_t(n_pool - total);
+  const int cap = out.cap, max_l = d.max_l, S = d.size_l;
+  const size_t dead = size_t(cap - total);
   if (!dead) return;
   for (int r = 0; r < max_l; ++r)
-    block_fill(out.vals + (size_t(r) * n_pool + total) * S, dead * S, -1);
+    block_fill(out.vals + (size_t(r) * cap + total) * S, dead * S, -1);
   block_fill(reinterpret_cast<int8_t*>(out.lens + size_t(total) * max_l),
              dead * max_l * 4, 0);
   block_fill(out.p + size_t(total) * S, dead * S, 0);
@@ -491,29 +525,32 @@ __device__ inline void fill_dead_tail(const PoolOut& out, const Dims& d,
              dead * 16, 0);
 }
 
-// Per-trial views of batched [T, ...] pool and draw tensors.
+// Per-trial views of batched [T, ...] pool tensors of capacity `cap`,
+// and of draw tensors.
 __device__ inline PoolIn pool_at(const int8_t* vals, const int32_t* lens,
                                  const int8_t* p, const int32_t* meta,
-                                 size_t t, const Dims& d) {
-  const size_t n_pool = d.n_pool(), S = d.size_l, max_l = d.max_l;
-  return PoolIn{vals + t * max_l * n_pool * S, lens + t * n_pool * max_l,
-                p + t * n_pool * S, meta + t * n_pool * 4};
+                                 size_t t, int cap, const Dims& d) {
+  const size_t c = cap, S = d.size_l, max_l = d.max_l;
+  return PoolIn{vals + t * max_l * c * S, lens + t * c * max_l,
+                p + t * c * S, meta + t * c * 4, cap};
 }
 __device__ inline PoolOut pool_at(int8_t* vals, int32_t* lens, int8_t* p,
-                                  int32_t* meta, size_t t, const Dims& d) {
-  const size_t n_pool = d.n_pool(), S = d.size_l, max_l = d.max_l;
-  return PoolOut{vals + t * max_l * n_pool * S, lens + t * n_pool * max_l,
-                 p + t * n_pool * S, meta + t * n_pool * 4};
+                                  int32_t* meta, size_t t, int cap,
+                                  const Dims& d) {
+  const size_t c = cap, S = d.size_l, max_l = d.max_l;
+  return PoolOut{vals + t * max_l * c * S, lens + t * c * max_l,
+                 p + t * c * S, meta + t * c * 4, cap};
 }
 __device__ inline PoolIn as_in(const PoolOut& o) {
-  return PoolIn{o.vals, o.lens, o.p, o.meta};
+  return PoolIn{o.vals, o.lens, o.p, o.meta, o.cap};
 }
-// Slab `slab` of [.., n_pool, n_rv] draw tables (a trial, or a trial's
-// round in the stacked layout).
+// Slab `slab` of [.., n_pool, n_glob] draw tables (a trial, or a trial's
+// round in the stacked layout), from the block's first receiver's column
+// on (draw_index), so the receiver loops add no offset.
 __device__ inline Draws draws_at(const uint8_t* attack, const uint8_t* rand_v,
                                  const uint8_t* late, size_t slab,
                                  const Dims& d) {
-  const size_t base = slab * size_t(d.n_pool()) * d.n_rv;
+  const size_t base = slab * size_t(d.n_pool()) * d.n_glob + d.r_off;
   return Draws{attack + base, rand_v + base, late + base};
 }
 
@@ -531,10 +568,11 @@ inline int prepare_smem(Kernel kernel, const Dims& d, size_t* smem) {
 }
 
 // The kernels' shape limits: 64-bit masks over receivers, values and
-// evidence rows.
+// evidence rows; the block's receivers inside the global ones.
 inline bool dims_ok(const Dims& d) {
-  return d.n_rv >= 1 && d.n_rv <= 64 && d.w >= 1 && d.w <= 64 &&
-         d.max_l >= 1 && d.max_l <= 64 && d.slots >= 1 && d.size_l >= 1;
+  return d.n_rv >= 1 && d.n_glob <= 64 && d.w >= 1 && d.w <= 64 &&
+         d.max_l >= 1 && d.max_l <= 64 && d.slots >= 1 && d.size_l >= 1 &&
+         d.r_off >= 0 && d.r_off + d.n_rv <= d.n_glob;
 }
 
 }  // namespace qba

@@ -83,13 +83,13 @@ __device__ inline MailIn mailbox_at(const int8_t* vals, const int32_t* lens,
                                     size_t t, const Dims& d) {
   const size_t n_pk = d.n_pool(), S = d.size_l, max_l = d.max_l;
   return MailIn{vals + t * n_pk * max_l * S, lens + t * n_pk * max_l,
-                p + t * n_pk * S, meta + t * n_pk * 4};
+                p + t * n_pk * S, meta + t * n_pk * 4, 0};
 }
 __device__ inline MailOut mailbox_at(int8_t* vals, int32_t* lens, int8_t* p,
                                      int32_t* meta, size_t t, const Dims& d) {
   const size_t n_pk = d.n_pool(), S = d.size_l, max_l = d.max_l;
   return MailOut{vals + t * n_pk * max_l * S, lens + t * n_pk * max_l,
-                 p + t * n_pk * S, meta + t * n_pk * 4};
+                 p + t * n_pk * S, meta + t * n_pk * 4, 0};
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -161,7 +161,7 @@ extern "C" int qba_round_step(
     int n_rv, int slots, int max_l, int size_l, int w, int n_dis,
     int round_idx, int use_fp, void* stream) {
   if (n_trials <= 0) return 0;
-  const Dims d{n_rv, slots, max_l, size_l, w};
+  const Dims d = make_dims(n_rv, slots, max_l, size_l, w);
   if (!dims_ok(d)) return int(cudaErrorInvalidValue);
   Params prm;
   prm.vals = static_cast<const int8_t*>(vals);

@@ -78,7 +78,7 @@ tiled_verdict_kernel(VerdictParams P) {
   const int n_pool = d.n_pool();
   const Shared sh(smem_raw, d);
   const size_t t = blockIdx.x;
-  const PoolIn in = pool_at(P.vals, P.lens, P.p, P.meta, t, d);
+  const PoolIn in = pool_at(P.vals, P.lens, P.p, P.meta, t, n_pool, d);
   const int32_t* li = P.li + t * size_t(d.n_rv) * d.size_l;
   const int32_t* honest = P.honest + t * size_t(n_pool);
   const Draws dr = draws_at(P.attack, P.rand_v, P.late, t, d);
@@ -107,8 +107,9 @@ tiled_rebuild_kernel(RebuildParams P) {
   const int n_pool = d.n_pool();
   const Shared sh(smem_raw, d);
   const size_t t = blockIdx.x;
-  const PoolIn in = pool_at(P.vals, P.lens, P.p, P.meta, t, d);
-  const PoolOut out = pool_at(P.o_vals, P.o_lens, P.o_p, P.o_meta, t, d);
+  const PoolIn in = pool_at(P.vals, P.lens, P.p, P.meta, t, n_pool, d);
+  const PoolOut out =
+      pool_at(P.o_vals, P.o_lens, P.o_p, P.o_meta, t, n_pool, d);
   const int32_t* li = P.li + t * size_t(d.n_rv) * d.size_l;
   const int32_t* honest = P.honest + t * size_t(n_pool);
   const int32_t* acc = P.acc + t * size_t(n_pool) * d.n_rv;
@@ -138,7 +139,7 @@ extern "C" int qba_tiled_verdict(
     int n_trials, int n_rv, int slots, int max_l, int size_l, int w,
     int round_idx, int use_fp, void* stream) {
   if (n_trials <= 0) return 0;
-  const Dims d{n_rv, slots, max_l, size_l, w};
+  const Dims d = make_dims(n_rv, slots, max_l, size_l, w);
   if (!dims_ok(d)) return int(cudaErrorInvalidValue);
   VerdictParams prm;
   prm.vals = static_cast<const int8_t*>(vals);
@@ -171,7 +172,7 @@ extern "C" int qba_tiled_rebuild(
     void* o_ovf, int n_trials, int n_rv, int slots, int max_l, int size_l,
     int w, int n_dis, int round_idx, int use_fp, void* stream) {
   if (n_trials <= 0) return 0;
-  const Dims d{n_rv, slots, max_l, size_l, w};
+  const Dims d = make_dims(n_rv, slots, max_l, size_l, w);
   if (!dims_ok(d)) return int(cudaErrorInvalidValue);
   RebuildParams prm;
   prm.vals = static_cast<const int8_t*>(vals);

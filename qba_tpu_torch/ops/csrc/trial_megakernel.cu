@@ -75,6 +75,44 @@
 //             (PERF.md).
 // Bound of the prologue: operations, as the sweep (gf2_sweep.cuh); its
 // bytes are the operands, read once, and the static tables, from L2.
+//
+// The party-sharded entry (qba_sharded_trial_megakernel) replaces the TPU
+// kernel qba_tpu/ops/trial_megakernel.py :: build_sharded_trial_megakernel
+// (pallas_call at line 1526).  Its plain PyTorch version is
+// qba_tpu_torch/ops/trial_megakernel.py ::
+// sharded_trial_megakernel_reference.
+//   Grid   one thread-block cluster of n_tp blocks per trial; block rank
+//          s drains the trial's receivers [s * n_local, (s + 1) *
+//          n_local) (n_local = n_rv / n_tp), so a trial's receivers
+//          spread over n_tp SMs that the hardware schedules together.
+//          Each block runs the body above at n_rv = n_local with global
+//          cell ids ((s * n_local + r) * slots + slot), so the draws and
+//          the sender algebra are the single-device kernel's.
+//   Pools  ONE assembled pool pair per trial, as the single-device
+//          kernel, not n_tp copies.  The TPU kernel keeps a local
+//          segment and an assembled copy on every chip and moves the
+//          segments by remote DMA in the round loop (trial_megakernel.py
+//          :1191-1247), because chips do not share memory.  The blocks of
+//          a cluster share the card's memory, so the exchange is a
+//          barrier: each block publishes its live count in shared memory,
+//          meets the others at a cluster barrier, reads their counts
+//          through distributed shared memory, and writes its rebuilt
+//          entries straight into the next pool at the exclusive prefix of
+//          the lower ranks' counts; a fence and a second cluster barrier
+//          (release and acquire at cluster scope) make those global
+//          writes visible to the whole cluster before the next round.
+//   Order  the next pool is therefore the single-device kernel's
+//          globally compacted pool, entry for entry: every block scans the
+//          live rows [0, sum of the counts) in (sender, slot) order, never
+//          a stale row of an earlier round (the dead tail is still not
+//          filled), and the dedup's first-accept order is the single-device
+//          one.  Step 3a's broadcasts are compacted the same way.
+//   Launch cudaLaunchKernelEx with a cluster dimension of n_tp (at most
+//          8, the portable size); a refused launch returns its error.
+// Bound: bytes, as the single-device kernel (one assembled pool per trial;
+// each block reads its receivers' columns of the draws).
+
+#include <cooperative_groups.h>
 
 #include "gf2_sweep.cuh"
 #include "round_common.cuh"
@@ -83,6 +121,7 @@ namespace {
 
 using namespace qba;
 using qba_gf2::ShotTab;
+namespace cg = cooperative_groups;
 
 // The gen entry's operands and scratch.
 struct GenParams {
@@ -122,8 +161,43 @@ struct Params {
   int32_t* o_ovf;
   Dims d;
   int n_rounds, n_dis, use_fp;
+  int n_tp;  // blocks a trial: 1, or the cluster of the sharded entry
   GenParams g;
 };
+
+// The party-sharded exchange.  Every block of the trial's cluster
+// publishes `mine` (its live count), meets the others at a cluster
+// barrier and reads their counts through distributed shared memory:
+// misc[3] is the sum of the lower ranks' counts, misc[4] of all.  The
+// caller reads both after this returns.
+__device__ void cluster_counts(const Shared& sh, int mine, int n_tp) {
+  cg::cluster_group cl = cg::this_cluster();
+  if (threadIdx.x == 0) sh.misc[2] = mine;
+  cl.sync();
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x, rank = int(cl.block_rank());
+    const int c = lane < n_tp ? *cl.map_shared_rank(&sh.misc[2], lane) : 0;
+    const int below = __reduce_add_sync(kFull, lane < rank ? c : 0);
+    const int all = __reduce_add_sync(kFull, c);
+    if (lane == 0) {
+      sh.misc[3] = below;
+      sh.misc[4] = all;
+    }
+  }
+  __syncthreads();
+}
+
+// The end of a pool write: the block's global writes become visible to
+// the trial's other blocks (kSharded) or to its own threads.
+template <bool kSharded>
+__device__ inline void pool_written() {
+  if constexpr (kSharded) {
+    __threadfence();
+    cg::this_cluster().sync();
+  } else {
+    __syncthreads();
+  }
+}
 
 // The gen prologue: trial t's lists from its GF(2) operands, into the
 // scratch P and li the body reads.
@@ -168,32 +242,42 @@ __device__ void gen_prologue(const Params& P, size_t t) {
 // Three blocks per SM (at most 85 registers a thread): left to itself the
 // compiler has taken from 80 to 128 registers for this kernel as the shared
 // header changed, and past 85 only two blocks fit an SM.  kGen selects the
-// gen entry; the host-gen instantiation has no prologue.
-template <bool kGen>
+// gen entry; the host-gen instantiation has no prologue.  kSharded
+// selects the party-sharded entry: a cluster of P.n_tp blocks a trial.
+template <bool kGen, bool kSharded>
 __global__ void __launch_bounds__(kThreads, 3)
 trial_megakernel(Params P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Dims d = P.d;
+  Dims d = P.d;
   const int n_rv = d.n_rv, slots = d.slots, S = d.size_l, w = d.w;
-  const int max_l = d.max_l;
+  const int max_l = d.max_l, n_glob = d.n_glob;
   const Shared sh(smem_raw, d);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const size_t t = blockIdx.x;
+  size_t t = blockIdx.x;
+  int rank = 0;
+  if constexpr (kSharded) {
+    rank = int(cg::this_cluster().block_rank());
+    t = blockIdx.x / P.n_tp;
+    d.r_off = rank * n_rv;
+  }
+  // The block's receivers' rows of the trial's [n_glob, ...] inputs.
+  const size_t row0 = t * size_t(n_glob) + d.r_off;
   const uint8_t* p_rows;
   const int32_t* li;
   if constexpr (kGen) {
     gen_prologue(P, t);
     __syncthreads();
-    p_rows = P.g.p_scr + t * size_t(n_rv) * S;
-    li = P.g.li_scr + t * size_t(n_rv) * S;
+    p_rows = P.g.p_scr + row0 * S;
+    li = P.g.li_scr + row0 * S;
   } else {
-    p_rows = P.p_rows + t * size_t(n_rv) * S;
-    li = P.li + t * size_t(n_rv) * S;
+    p_rows = P.p_rows + row0 * S;
+    li = P.li + row0 * S;
   }
-  const int32_t* v_sent = P.v_sent + t * size_t(n_rv);
-  const int32_t* honest = P.honest + t * size_t(d.n_pool());
-  PoolOut pa = pool_at(P.a_vals, P.a_lens, P.a_p, P.a_meta, t, d);
-  PoolOut pb = pool_at(P.b_vals, P.b_lens, P.b_p, P.b_meta, t, d);
+  const int32_t* v_sent = P.v_sent + row0;
+  const int n_pool = d.n_pool();
+  const int32_t* honest = P.honest + t * size_t(n_pool);
+  PoolOut pa = pool_at(P.a_vals, P.a_lens, P.a_p, P.a_meta, t, n_pool, d);
+  PoolOut pb = pool_at(P.b_vals, P.b_lens, P.b_p, P.b_meta, t, n_pool, d);
 
   // ---- Entry: step 3a's verdict per lieutenant, a warp each. ----
   for (int rv = warp; rv < n_rv; rv += kWarps) {
@@ -214,10 +298,16 @@ trial_megakernel(Params P) {
   __syncthreads();
   offsets_phase(sh, n_rv);  // pool position = exclusive prefix of ok
   __syncthreads();
+  int base = 0, n_scan = sh.offs[n_rv];
+  if constexpr (kSharded) {
+    cluster_counts(sh, n_scan, P.n_tp);
+    base = sh.misc[3];
+    n_scan = sh.misc[4];
+  }
   // Compaction into pool A, a warp per accepting lieutenant.
   for (int rv = warp; rv < n_rv; rv += kWarps) {
     if (!sh.k_cnt[rv]) continue;
-    const int dst = sh.offs[rv];
+    const int dst = base + sh.offs[rv];
     const int32_t* lir = li + size_t(rv) * S;
     int plen = 0;
     for (int j = lane; j < S; j += 32) {
@@ -229,13 +319,12 @@ trial_megakernel(Params P) {
     plen = __reduce_add_sync(kFull, plen);
     if (lane == 0) pa.lens[size_t(dst) * max_l] = plen;
     if (lane < 4) {
-      const int32_t f[4] = {1, v_sent[rv], 1, rv * slots};
+      const int32_t f[4] = {1, v_sent[rv], 1, (d.r_off + rv) * slots};
       pa.meta[size_t(dst) * 4 + lane] = f[lane];
     }
   }
-  int n_scan = sh.offs[n_rv];
   int overflow = 0;
-  __syncthreads();
+  pool_written<kSharded>();
 
   // ---- Rounds 1..n_dis+1, pool A -> pool B. ----
   for (int r = 1; r <= P.n_rounds; ++r) {
@@ -254,22 +343,28 @@ trial_megakernel(Params P) {
     __syncthreads();
     overflow |= sh.misc[1];
     const int total = sh.offs[n_rv];
-    rebuild_phase(sh, in, pb, li, honest, dr, d, total, P.use_fp);
-    __syncthreads();
+    int first = 0, next_scan = total;
+    if constexpr (kSharded) {
+      cluster_counts(sh, total, P.n_tp);
+      first = sh.misc[3];
+      next_scan = sh.misc[4];
+    }
+    rebuild_phase(sh, in, pb.from(first, d), li, honest, dr, d, total,
+                  P.use_fp);
+    pool_written<kSharded>();
     const PoolOut next = pb;
     pb = pa;
     pa = next;
-    n_scan = total;
+    n_scan = next_scan;
   }
 
   // ---- Exit: vi, min(vi) per lieutenant, overflow. ----
-  store_vi(sh, P.o_vi + t * size_t(n_rv) * w, d);
+  store_vi(sh, P.o_vi + row0 * w, d);
   for (int rv = threadIdx.x; rv < n_rv; rv += kThreads) {
     const unsigned long long m = sh.vi_mask[rv];
-    P.o_dec[t * size_t(n_rv) + rv] =
-        m ? __ffsll(static_cast<long long>(m)) - 1 : w;
+    P.o_dec[row0 + rv] = m ? __ffsll(static_cast<long long>(m)) - 1 : w;
   }
-  if (threadIdx.x == 0) P.o_ovf[t] = overflow;
+  if (threadIdx.x == 0) P.o_ovf[t * P.n_tp + rank] = overflow;
 }
 
 }  // namespace
@@ -285,7 +380,7 @@ extern "C" int qba_trial_megakernel(
     void* o_dec, void* o_ovf, int n_trials, int n_rv, int slots, int max_l,
     int size_l, int w, int n_dis, int use_fp, void* stream) {
   if (n_trials <= 0) return 0;
-  const Dims d{n_rv, slots, max_l, size_l, w};
+  const Dims d = make_dims(n_rv, slots, max_l, size_l, w);
   if (!dims_ok(d) || n_dis < 0) return int(cudaErrorInvalidValue);
   Params prm;
   prm.p_rows = static_cast<const uint8_t*>(p_rows);
@@ -310,11 +405,13 @@ extern "C" int qba_trial_megakernel(
   prm.n_rounds = n_dis + 1;
   prm.n_dis = n_dis;
   prm.use_fp = use_fp;
+  prm.n_tp = 1;
   prm.g = GenParams{};
   size_t smem = 0;
-  if (int e = prepare_smem(trial_megakernel<false>, d, &smem)) return e;
-  trial_megakernel<false><<<n_trials, kThreads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(prm);
+  if (int e = prepare_smem(trial_megakernel<false, false>, d, &smem))
+    return e;
+  trial_megakernel<false, false><<<n_trials, kThreads, smem,
+                                   static_cast<cudaStream_t>(stream)>>>(prm);
   return int(cudaGetLastError());
 }
 
@@ -334,7 +431,7 @@ extern "C" int qba_trial_megakernel_gen(
     int use_fp, int total, int w_words, int n_qubits, int slot_bytes,
     void* stream) {
   if (n_trials <= 0) return 0;
-  const Dims d{n_rv, slots, max_l, size_l, w};
+  const Dims d = make_dims(n_rv, slots, max_l, size_l, w);
   if (!dims_ok(d) || n_dis < 0 || total != (n_rv + 2) * n_qubits ||
       w_words != (total + 31) / 32 || w_words > qba_gf2::kMaxWords ||
       !tab_scratch || size_t(slot_bytes) != qba_gf2::shot_bytes(total, w_words))
@@ -362,6 +459,7 @@ extern "C" int qba_trial_megakernel_gen(
   prm.n_rounds = n_dis + 1;
   prm.n_dis = n_dis;
   prm.use_fp = use_fp;
+  prm.n_tp = 1;
   prm.g = GenParams{static_cast<const uint32_t*>(xq),
                     static_cast<const uint32_t*>(zq),
                     static_cast<const uint32_t*>(xn),
@@ -376,9 +474,10 @@ extern "C" int qba_trial_megakernel_gen(
                     static_cast<unsigned char*>(tab_scratch),
                     total, w_words, n_qubits};
   size_t smem = 0;
-  if (int e = prepare_smem(trial_megakernel<true>, d, &smem)) return e;
-  trial_megakernel<true><<<n_trials, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(prm);
+  if (int e = prepare_smem(trial_megakernel<true, false>, d, &smem))
+    return e;
+  trial_megakernel<true, false><<<n_trials, kThreads, smem,
+                                  static_cast<cudaStream_t>(stream)>>>(prm);
   return int(cudaGetLastError());
 }
 
@@ -389,10 +488,11 @@ extern "C" int qba_trial_megakernel_occupancy(int gen, int n_rv, int slots,
                                               int max_l, int size_l, int w,
                                               int* smem_out,
                                               int* blocks_out) {
-  const Dims d{n_rv, slots, max_l, size_l, w};
+  const Dims d = make_dims(n_rv, slots, max_l, size_l, w);
   const size_t smem = Smem(d).total;
-  const void* fn = gen ? reinterpret_cast<const void*>(trial_megakernel<true>)
-                       : reinterpret_cast<const void*>(trial_megakernel<false>);
+  const void* fn =
+      gen ? reinterpret_cast<const void*>(trial_megakernel<true, false>)
+          : reinterpret_cast<const void*>(trial_megakernel<false, false>);
   // Raise the kernel's limit as a launch does, never lower it: the
   // launches set it only past 48 KB.
   if (smem > 48 * 1024) {
@@ -403,4 +503,104 @@ extern "C" int qba_trial_megakernel_occupancy(int gen, int n_rv, int slots,
   *smem_out = int(smem);
   return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks_out, fn, kThreads, smem));
+}
+
+namespace {
+
+// The sharded entry's launch: n_trials clusters of n_tp blocks.
+cudaLaunchConfig_t sharded_config(int n_trials, int n_tp, size_t smem,
+                                  cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(unsigned(n_trials) * unsigned(n_tp));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = unsigned(n_tp);
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// The sharded entry's sizes, or false when they are not its shapes: a
+// cluster of 1 to 8 blocks (the portable size) that splits n_rv evenly.
+bool sharded_dims(int n_tp, int n_rv, int slots, int max_l, int size_l,
+                  int w, Dims* d) {
+  if (n_tp < 1 || n_tp > 8 || n_rv % n_tp != 0) return false;
+  *d = Dims{n_rv / n_tp, slots, max_l, size_l, w, 0, n_rv};
+  return dims_ok(*d);
+}
+
+}  // namespace
+
+// The party-sharded entry: the host-gen entry's operands and outputs,
+// with the pools one pair per trial and o_ovf int32 [T, n_tp] (each
+// shard's own overflow flag).  n_rv is the trial's lieutenants; a
+// cluster of n_tp blocks drains them, n_rv / n_tp each.  Returns a
+// cudaError_t: 0 on a launch that was accepted.
+extern "C" int qba_sharded_trial_megakernel(
+    const void* p_rows, const void* li, const void* v_sent,
+    const void* honest, const void* attack, const void* rand_v,
+    const void* late, void* a_vals, void* a_lens, void* a_p, void* a_meta,
+    void* b_vals, void* b_lens, void* b_p, void* b_meta, void* o_vi,
+    void* o_dec, void* o_ovf, int n_trials, int n_tp, int n_rv, int slots,
+    int max_l, int size_l, int w, int n_dis, int use_fp, void* stream) {
+  if (n_trials <= 0) return 0;
+  Dims d;
+  if (!sharded_dims(n_tp, n_rv, slots, max_l, size_l, w, &d) || n_dis < 0)
+    return int(cudaErrorInvalidValue);
+  Params prm = {};
+  prm.p_rows = static_cast<const uint8_t*>(p_rows);
+  prm.li = static_cast<const int32_t*>(li);
+  prm.v_sent = static_cast<const int32_t*>(v_sent);
+  prm.honest = static_cast<const int32_t*>(honest);
+  prm.attack = static_cast<const uint8_t*>(attack);
+  prm.rand_v = static_cast<const uint8_t*>(rand_v);
+  prm.late = static_cast<const uint8_t*>(late);
+  prm.a_vals = static_cast<int8_t*>(a_vals);
+  prm.a_lens = static_cast<int32_t*>(a_lens);
+  prm.a_p = static_cast<int8_t*>(a_p);
+  prm.a_meta = static_cast<int32_t*>(a_meta);
+  prm.b_vals = static_cast<int8_t*>(b_vals);
+  prm.b_lens = static_cast<int32_t*>(b_lens);
+  prm.b_p = static_cast<int8_t*>(b_p);
+  prm.b_meta = static_cast<int32_t*>(b_meta);
+  prm.o_vi = static_cast<int32_t*>(o_vi);
+  prm.o_dec = static_cast<int32_t*>(o_dec);
+  prm.o_ovf = static_cast<int32_t*>(o_ovf);
+  prm.d = d;
+  prm.n_rounds = n_dis + 1;
+  prm.n_dis = n_dis;
+  prm.use_fp = use_fp;
+  prm.n_tp = n_tp;
+  size_t smem = 0;
+  if (int e = prepare_smem(trial_megakernel<false, true>, d, &smem)) return e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = sharded_config(
+      n_trials, n_tp, smem, static_cast<cudaStream_t>(stream), &attr);
+  cudaError_t e = cudaLaunchKernelEx(&cfg, trial_megakernel<false, true>, prm);
+  if (e != cudaSuccess) return int(e);
+  return int(cudaGetLastError());
+}
+
+// Shared memory of the sharded entry and how many of its clusters the
+// card holds at once (cudaOccupancyMaxActiveClusters; 0 when a cluster
+// does not fit).  Returns a cudaError_t.
+extern "C" int qba_sharded_megakernel_clusters(int n_tp, int n_rv, int slots,
+                                               int max_l, int size_l, int w,
+                                               int* smem_out,
+                                               int* clusters_out) {
+  Dims d;
+  if (!sharded_dims(n_tp, n_rv, slots, max_l, size_l, w, &d))
+    return int(cudaErrorInvalidValue);
+  size_t smem = 0;
+  if (int e = prepare_smem(trial_megakernel<false, true>, d, &smem)) return e;
+  *smem_out = int(smem);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = sharded_config(1, n_tp, smem, nullptr, &attr);
+  return int(cudaOccupancyMaxActiveClusters(
+      clusters_out, trial_megakernel<false, true>, &cfg));
 }

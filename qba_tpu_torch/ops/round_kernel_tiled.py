@@ -22,12 +22,23 @@ Three wrappers, each with its plain PyTorch version beside it:
 composition of the two tiled ones; the seam between them is the accepted
 matrix ``acc`` int32 0/1 ``[T, n_pool, n_rv]``.  A wrapper launches its
 hand-written CUDA kernel for CUDA tensors and runs the plain version for
-CPU tensors; a CUDA tensor never reaches the plain version.  The
-party-sharded ``n_recv`` variants of the JAX kernels wait for the mesh
-slice (ROADMAP A12).
+CPU tensors; a CUDA tensor never reaches the plain version.
+
+The party-sharded ``n_recv`` variant of the fused round (the TPU
+kernel's ``build_fused_round_kernel(n_recv=...)``) is
+:func:`fused_round` with ``n_recv``: each shard drains its receivers
+``[start, start + n_recv)`` against the whole assembled pool and writes
+its LOCAL successor segment (capacity ``n_recv * slots``, locally
+compacted, global cell ids).  Shard tensors carry a leading shard axis
+``[n_shards, T, ...]``; the round's honesty and draws stay global.  The
+``n_recv`` variants of the verdict and rebuild kernels (and of
+:mod:`~qba_tpu_torch.ops.round_kernel`) wait for the next slice.
+:func:`sharded_mega_plan` admits the party-sharded trial megakernel.
 """
 
 from __future__ import annotations
+
+import typing
 
 import torch
 
@@ -57,9 +68,13 @@ def pool_vals_dtype(cfg: QBAConfig) -> torch.dtype:
     return torch.int8 if cfg.w <= KERNEL_MAX_W else torch.int32
 
 
-def empty_pool(cfg: QBAConfig, n_trials: int, device=None):
-    """An empty pool ``(vals, lens, p, meta)`` for ``n_trials`` trials."""
-    n_pool, max_l, s = cfg.n_lieutenants * cfg.slots, cfg.max_l, cfg.size_l
+def empty_pool(cfg: QBAConfig, n_trials: int, device=None,
+               n_recv: int | None = None):
+    """An empty pool ``(vals, lens, p, meta)`` for ``n_trials`` trials;
+    ``n_recv`` sizes a shard's local segment (capacity ``n_recv *
+    slots``)."""
+    n_rv = cfg.n_lieutenants if n_recv is None else n_recv
+    n_pool, max_l, s = n_rv * cfg.slots, cfg.max_l, cfg.size_l
     vdt = pool_vals_dtype(cfg)
     return (
         torch.full((n_trials, max_l, n_pool, s), SENTINEL, dtype=vdt,
@@ -71,18 +86,26 @@ def empty_pool(cfg: QBAConfig, n_trials: int, device=None):
     )
 
 
-def pool_from_step3a(cfg: QBAConfig, out_cells):
+def pool_from_step3a(cfg: QBAConfig, out_cells, *, start: int = 0,
+                     n_recv: int | None = None):
     """Compact step 3a's broadcasts (each lieutenant's slot 0, as returned
-    by :func:`qba_tpu_torch.rounds.engine.step3a_one`) into the pool."""
+    by :func:`qba_tpu_torch.rounds.engine.step3a_one`) into the pool.
+
+    A shard passes its receivers' rows, ``start`` (its first global
+    receiver) and ``n_recv``: the result is its LOCAL segment, locally
+    compacted, with global cell ids."""
     o_vals, o_lens, o_count, o_p, o_v, o_sent = out_cells
     n_trials, n_rv = o_sent.shape
+    if n_recv is not None and n_recv != n_rv:
+        raise ValueError(f"n_recv={n_recv} but the cells hold {n_rv} "
+                         "receivers")
     slots = cfg.slots
     cap = n_rv * slots
     dev = o_sent.device
     sent = o_sent.to(torch.int64)
     dst = torch.where(o_sent, torch.cumsum(sent, -1) - sent, cap)
     vdt = pool_vals_dtype(cfg)
-    cells = torch.arange(n_rv, dtype=torch.int32, device=dev) * slots
+    cells = (start + torch.arange(n_rv, dtype=torch.int32, device=dev)) * slots
     meta_rows = torch.stack(
         [o_count.to(torch.int32), o_v.to(torch.int32),
          torch.ones_like(o_count, dtype=torch.int32),
@@ -105,6 +128,33 @@ def pool_from_step3a(cfg: QBAConfig, out_cells):
     )
 
 
+def shard_receivers(x: torch.Tensor, n_tp: int) -> torch.Tensor:
+    """Receiver-indexed ``[T, n_rv, ...]`` -> ``[n_tp, T, n_rv / n_tp,
+    ...]``: shard ``s`` holds the receivers ``[s * n_local, (s + 1) *
+    n_local)``, contiguous."""
+    t, n_rv = x.shape[:2]
+    return (x.reshape((t, n_tp, n_rv // n_tp) + x.shape[2:])
+            .movedim(1, 0).contiguous())
+
+
+def unshard_receivers(x: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`shard_receivers`."""
+    n_tp, t, n_local = x.shape[:3]
+    return x.movedim(0, 1).reshape((t, n_tp * n_local) + x.shape[3:])
+
+
+# The capacity axis of each pool leaf, counted after the trial axis.
+POOL_AXES = (1, 0, 0, 0)
+
+
+def assemble_pool(segments):
+    """The whole pool ``[T, ...]`` from the shards' local segments
+    ``[n_tp, T, ...]``: the segments concatenated in tp order, each with
+    its empty tail, as the tiled all-gather assembles them."""
+    return tuple(torch.cat(list(x), dim=ax + 1)
+                 for x, ax in zip(segments, POOL_AXES))
+
+
 def honest_cells(honest: torch.Tensor, cfg: QBAConfig) -> torch.Tensor:
     """Per-cell sender honesty int32 ``[T, n_cells]`` from the rank-indexed
     mask (the cell's sender lieutenant is ``cell // slots``, rank + 2)."""
@@ -121,21 +171,30 @@ def _by_cell(table: torch.Tensor, cell: torch.Tensor) -> torch.Tensor:
     return torch.gather(table, 1, idx.expand(idx.shape[:2] + table.shape[2:]))
 
 
+def _receiver_draws(draws, start: int, n_rv: int):
+    """The columns of receivers ``[start, start + n_rv)`` of global draw
+    tables ``[T, n_cells, n_glob]``."""
+    return tuple(x[..., start:start + n_rv] for x in draws)
+
+
 def verdict_reference(cfg: QBAConfig, round_idx: int, pool, li, vi,
-                      honest_c, attack, rand_v, late):
+                      honest_c, attack, rand_v, late, *, start: int = 0):
     """Phase 1 of a round in plain PyTorch: the verdict of every pool
     packet against every receiver and the first accept per value into
     ``vi``.
 
     ``li`` int32 ``[T, n_rv, size_l]``, ``vi`` int32 0/1 ``[T, n_rv, w]``,
-    ``honest_c`` ``[T, n_cells]``, draws ``[T, n_cells, n_rv]``.  Returns
-    ``(acc int32 0/1 [T, n_pool, n_rv], vi' int32)``: ``acc`` is the
-    accepted matrix after first-accept dedup, as the JAX verdict kernel
-    returns it.
+    ``honest_c`` ``[T, n_cells]``, draws ``[T, n_cells, n_glob]``; the
+    receivers are the global ``[start, start + n_rv)``.  Returns ``(acc
+    int32 0/1 [T, n_pool, n_rv], vi' int32)``: ``acc`` is the accepted
+    matrix after first-accept dedup, as the JAX verdict kernel returns
+    it.
     """
     vals, lens, p, meta = pool
     n_trials, max_l, n_pool, s = vals.shape
-    n_rv, slots, w = cfg.n_lieutenants, cfg.slots, cfg.w
+    n_rv, slots, w = li.shape[1], cfg.slots, cfg.w
+    attack, rand_v, late = _receiver_draws((attack, rand_v, late), start,
+                                           n_rv)
     dev = vals.device
     acc = torch.zeros((n_trials, n_pool, n_rv), dtype=torch.int32,
                       device=dev)
@@ -157,6 +216,7 @@ def verdict_reference(cfg: QBAConfig, round_idx: int, pool, li, vi,
         honest_c=honest_s, attack=_by_cell(attack, cell),
         rand_v=_by_cell(rand_v, cell), late=_by_cell(late, cell), li=li,
         round_idx=round_idx, w=w, use_fp=cfg.strategy == "split",
+        recv_off=start,
     )
     acc_s, vi_new = accept_first_per_value(ok, v2, vi != 0, w)
     acc[:, :n_scan] = acc_s.to(torch.int32)
@@ -219,15 +279,18 @@ def rebuilt_entries(cfg: QBAConfig, vals_s, lens_s, p_s, count, v,
 
 
 def rebuild_reference(cfg: QBAConfig, round_idx: int, pool, li, acc,
-                      honest_c, attack, rand_v):
+                      honest_c, attack, rand_v, *, start: int = 0):
     """Phase 2 of a round in plain PyTorch: slot allocation from the
     accepted matrix ``acc`` ``[T, n_pool, n_rv]``, with overflow, and the
-    successor pool.  Returns ``(pool', overflow bool [T])``."""
+    successor pool of the receivers ``[start, start + n_rv)`` (capacity
+    ``n_rv * slots``, global cell ids).  Returns ``(pool', overflow bool
+    [T])``."""
     vals, lens, p, meta = pool
     n_trials, max_l, n_pool, s = vals.shape
-    n_rv, slots = cfg.n_lieutenants, cfg.slots
+    n_rv, slots = li.shape[1], cfg.slots
+    attack, rand_v = _receiver_draws((attack, rand_v), start, n_rv)
     dev = vals.device
-    out = empty_pool(cfg, n_trials, dev)
+    out = empty_pool(cfg, n_trials, dev, n_recv=n_rv)
     acc_rows = (acc != 0).any(-1).any(0).nonzero()
     if acc_rows.numel() == 0 or round_idx > cfg.n_dishonest:
         return out, torch.zeros(n_trials, dtype=torch.bool, device=dev)
@@ -267,7 +330,7 @@ def rebuild_reference(cfg: QBAConfig, round_idx: int, pool, li, acc,
         has[..., None],
         torch.stack(
             [new_cnt, v2_g, torch.ones_like(new_cnt),
-             r_d.to(torch.int32) * slots + sl_d.to(torch.int32)],
+             (start + r_d.to(torch.int32)) * slots + sl_d.to(torch.int32)],
             dim=-1,
         ).to(torch.int32),
         0,
@@ -283,7 +346,8 @@ def rebuild_reference(cfg: QBAConfig, round_idx: int, pool, li, acc,
 
 
 def fused_round_reference(cfg: QBAConfig, round_idx: int, pool, li, vi,
-                          honest_c, attack, rand_v, late):
+                          honest_c, attack, rand_v, late, *, start: int = 0,
+                          n_recv: int | None = None):
     """One voting round in plain PyTorch: :func:`verdict_reference` then
     :func:`rebuild_reference` — the verdict of every pool packet against
     every receiver, first-accept dedup into ``vi``, slot allocation with
@@ -292,34 +356,61 @@ def fused_round_reference(cfg: QBAConfig, round_idx: int, pool, li, vi,
     ``li`` int32 ``[T, n_rv, size_l]``, ``vi`` int32 0/1 ``[T, n_rv, w]``,
     ``honest_c`` ``[T, n_cells]``, draws ``[T, n_cells, n_rv]``.  Returns
     ``(pool', vi' int32, overflow bool [T])``.
+
+    With ``n_recv`` (the party-sharded variant) the pool, ``li`` and
+    ``vi`` carry a leading shard axis: ``pool`` ``[n_sh, T, ...]`` is each
+    shard's assembled pool, ``li``/``vi`` ``[n_sh, T, n_recv, ...]`` its
+    receivers, the global ``[start + s * n_recv, start + (s + 1) *
+    n_recv)`` for shard ``s``; ``honest_c`` and the draws (``[T, n_cells,
+    n_lieutenants]``) are global.  Returns each shard's local successor
+    segment ``[n_sh, T, ...]`` (capacity ``n_recv * slots``), ``vi'`` and
+    overflow ``[n_sh, T]``.
     """
-    acc, vi_new = verdict_reference(cfg, round_idx, pool, li, vi, honest_c,
-                                    attack, rand_v, late)
-    out, overflow = rebuild_reference(cfg, round_idx, pool, li, acc,
-                                      honest_c, attack, rand_v)
-    return out, vi_new, overflow
+    if n_recv is None:
+        acc, vi_new = verdict_reference(cfg, round_idx, pool, li, vi,
+                                        honest_c, attack, rand_v, late)
+        out, overflow = rebuild_reference(cfg, round_idx, pool, li, acc,
+                                          honest_c, attack, rand_v)
+        return out, vi_new, overflow
+    parts = []
+    for sh in range(li.shape[0]):
+        first = start + sh * n_recv
+        pool_s = tuple(x[sh] for x in pool)
+        acc, vi_new = verdict_reference(cfg, round_idx, pool_s, li[sh],
+                                        vi[sh], honest_c, attack, rand_v,
+                                        late, start=first)
+        out, overflow = rebuild_reference(cfg, round_idx, pool_s, li[sh],
+                                          acc, honest_c, attack, rand_v,
+                                          start=first)
+        parts.append((out, vi_new, overflow))
+    outs, vis, ovfs = zip(*parts)
+    return (tuple(torch.stack(x) for x in zip(*outs)), torch.stack(vis),
+            torch.stack(ovfs))
 
 
 def _check_round_inputs(cfg: QBAConfig, pool, li, honest_c, draws,
-                        vi=None, acc=None):
+                        vi=None, acc=None, lead=(), n_local=None):
     """Raise unless the round's inputs are what the kernels take: exact
-    dtypes, shapes, contiguous, on one CUDA device.  Returns the trial
-    count."""
+    dtypes, shapes, contiguous, on one CUDA device.  ``lead`` is the
+    leading shard axis of the pool, ``li`` and ``vi`` (of ``n_local``
+    receivers) in the party-sharded variant.  Returns the trial count."""
     vals, lens, p, meta = pool
-    n_trials = vals.shape[0]
+    n_trials = vals.shape[len(lead)]
     n_rv, max_l, s, w = cfg.n_lieutenants, cfg.max_l, cfg.size_l, cfg.w
+    n_loc = n_rv if n_local is None else n_local
     n_pool = n_rv * cfg.slots
     dev = vals.device
+    lt = tuple(lead) + (n_trials,)
     shapes = {
-        "vals": (vals, torch.int8, (n_trials, max_l, n_pool, s)),
-        "lens": (lens, torch.int32, (n_trials, n_pool, max_l)),
-        "p": (p, torch.int8, (n_trials, n_pool, s)),
-        "meta": (meta, torch.int32, (n_trials, n_pool, 4)),
-        "li": (li, torch.int32, (n_trials, n_rv, s)),
+        "vals": (vals, torch.int8, lt + (max_l, n_pool, s)),
+        "lens": (lens, torch.int32, lt + (n_pool, max_l)),
+        "p": (p, torch.int8, lt + (n_pool, s)),
+        "meta": (meta, torch.int32, lt + (n_pool, 4)),
+        "li": (li, torch.int32, lt + (n_loc, s)),
         "honest_c": (honest_c, torch.int32, (n_trials, n_pool)),
     }
     if vi is not None:
-        shapes["vi"] = (vi, torch.int32, (n_trials, n_rv, w))
+        shapes["vi"] = (vi, torch.int32, lt + (n_loc, w))
     if acc is not None:
         shapes["acc"] = (acc, torch.int32, (n_trials, n_pool, n_rv))
     for name, x in draws.items():
@@ -329,13 +420,19 @@ def _check_round_inputs(cfg: QBAConfig, pool, li, honest_c, draws,
     return n_trials
 
 
-def _check_out_pool(cfg: QBAConfig, pool, out):
-    """A successor pool of ``pool``'s shapes that aliases none of it (a
+def _check_out_pool(cfg: QBAConfig, pool, out, lead=(), n_local=None):
+    """A successor pool for ``pool`` (``n_local`` receivers' segments
+    under the leading shard axis ``lead``) that aliases none of it (a
     new one when ``out`` is None)."""
+    n_trials = pool[0].shape[len(lead)]
+    layout = empty_pool(cfg, n_trials, "meta", n_recv=n_local)
     if out is None:
-        return empty_pool(cfg, pool[0].shape[0], pool[0].device)
-    for name, x, ref in zip(("o_vals", "o_lens", "o_p", "o_meta"), out, pool):
-        check(name, x, ref.dtype, ref.shape, ref.device)
+        return tuple(torch.empty(tuple(lead) + tuple(x.shape), dtype=x.dtype,
+                                 device=pool[0].device) for x in layout)
+    for name, x, ref, want in zip(("o_vals", "o_lens", "o_p", "o_meta"),
+                                  out, pool, layout):
+        check(name, x, ref.dtype, tuple(lead) + tuple(want.shape),
+              ref.device)
         if x.data_ptr() == ref.data_ptr():
             raise ValueError(f"{name} aliases its input; pass the other "
                              "buffer of the ping-pong pair")
@@ -347,7 +444,8 @@ def _dims(cfg: QBAConfig):
 
 
 def fused_round(cfg: QBAConfig, round_idx: int, pool, li, vi, honest_c,
-                attack, rand_v, late, out=None):
+                attack, rand_v, late, out=None, *, start: int = 0,
+                n_recv: int | None = None):
     """One voting round: ``(pool', vi', overflow bool [T])``.
 
     CPU tensors run :func:`fused_round_reference`.  CUDA tensors launch
@@ -356,23 +454,43 @@ def fused_round(cfg: QBAConfig, round_idx: int, pool, li, vi, honest_c,
     and ``uint8`` (the three draw tables), contiguous, on one device,
     and writes into ``out`` (a pool of the same shapes, e.g. the previous
     round's buffers) or a new pool.  Any other input raises.
+
+    With ``n_recv``, the party-sharded variant (see
+    :func:`fused_round_reference`): one launch for every shard of the
+    leading shard axis, each writing its local segment ``[n_sh, T, ...]``
+    of ``n_recv * slots`` entries into ``out`` or a new one; overflow is
+    ``[n_sh, T]``.
     """
     if not dispatch("fused_round", pool):
         return fused_round_reference(cfg, round_idx, pool, li, vi,
-                                     honest_c, attack, rand_v, late)
+                                     honest_c, attack, rand_v, late,
+                                     start=start, n_recv=n_recv)
     check_kernel_shapes(cfg, "fused round")
+    if n_recv is None:
+        n_sh, n_local, lead = 1, cfg.n_lieutenants, ()
+    else:
+        n_sh, n_local = li.shape[0], n_recv
+        lead = (n_sh,)
+        if not (n_recv >= 1 and 0 <= start
+                and start + n_sh * n_recv <= cfg.n_lieutenants):
+            raise ValueError(
+                f"shards of {n_recv} receivers from {start} x {n_sh} do not "
+                f"fit {cfg.n_lieutenants} lieutenants")
     n_trials = _check_round_inputs(
         cfg, pool, li, honest_c,
-        dict(attack=attack, rand_v=rand_v, late=late), vi=vi)
-    out = _check_out_pool(cfg, pool, out)
+        dict(attack=attack, rand_v=rand_v, late=late), vi=vi, lead=lead,
+        n_local=n_local)
+    dev = vi.device
+    out = _check_out_pool(cfg, pool, out, lead, n_local)
     vi_out = torch.empty_like(vi)
-    ovf = torch.empty(n_trials, dtype=torch.int32, device=vi.device)
-    fn = kernel_fn("fused_round", "qba_fused_round", 16, 9)
+    ovf = torch.empty(lead + (n_trials,), dtype=torch.int32, device=dev)
+    fn = kernel_fn("fused_round", "qba_fused_round", 16, 12)
     args = ptrs(*pool, li, vi, honest_c, attack, rand_v, late, *out,
                  vi_out, ovf)
-    args += [n_trials, *_dims(cfg), cfg.n_dishonest, int(round_idx),
-             int(cfg.strategy == "split")]
-    timed_launch(fused_round, fn, args, torch.cuda.current_stream(vi.device))
+    args += [n_trials, n_sh, n_local, cfg.n_lieutenants, int(start),
+             cfg.slots, cfg.max_l, cfg.size_l, cfg.w, cfg.n_dishonest,
+             int(round_idx), int(cfg.strategy == "split")]
+    timed_launch(fused_round, fn, args, torch.cuda.current_stream(dev))
     return out, vi_out, ovf != 0
 
 
@@ -444,3 +562,47 @@ def tiled_rebuild(cfg: QBAConfig, round_idx: int, pool, li, acc, honest_c,
 
 tiled_rebuild.launches = 0
 tiled_rebuild.events = None
+
+
+class ShardedMegaPlan(typing.NamedTuple):
+    """An admitted launch shape of the party-sharded trial megakernel: a
+    cluster of ``n_tp`` blocks a trial, ``n_local`` receivers a block,
+    and on CUDA its shared memory and how many clusters the card holds
+    at once (None off CUDA)."""
+
+    n_tp: int
+    n_local: int
+    smem_bytes: int | None
+    clusters: int | None
+
+
+# Clusters of more blocks need the non-portable cluster-size opt-in.
+MAX_PORTABLE_CLUSTER = 8
+
+
+def sharded_mega_plan(cfg: QBAConfig, n_tp: int,
+                      device=None) -> ShardedMegaPlan | None:
+    """The party-sharded trial megakernel's plan at ``n_tp`` shards, or
+    None to demote to the fused per-round engine — the Hopper
+    counterpart of :func:`qba_tpu.ops.round_kernel_tiled.sharded_mega_plan`.
+
+    Admitted: ``n_tp`` divides the lieutenants, a cluster of ``n_tp <=
+    8`` blocks (the portable maximum), the kernels' 64-bit masks hold the
+    values and receivers, and on a CUDA ``device`` the card holds at
+    least one such cluster (``cudaOccupancyMaxActiveClusters``, which
+    builds the kernel).  The TPU's block sizes have no counterpart."""
+    n_rv = cfg.n_lieutenants
+    if not 1 <= n_tp <= MAX_PORTABLE_CLUSTER or n_rv % n_tp:
+        return None
+    if cfg.w > KERNEL_MAX_W or n_rv > KERNEL_MAX_W:
+        return None
+    smem = clusters = None
+    if device is not None and torch.device(device).type == "cuda":
+        from qba_tpu_torch.ops.trial_megakernel import (
+            sharded_megakernel_clusters,
+        )
+
+        smem, clusters = sharded_megakernel_clusters(cfg, n_tp, device)
+        if clusters < 1:
+            return None
+    return ShardedMegaPlan(n_tp, n_rv // n_tp, smem, clusters)

@@ -25,9 +25,20 @@ applies the readout flips, decodes the order values and writes P and
 ``li`` to scratch, which the body of the host-gen kernel then reads.
 Its plain version, :func:`trial_megakernel_gen_reference`, is the plain
 sweep, the same decode and :func:`trial_megakernel_reference`.
+
+:func:`sharded_trial_megakernel` is the party-sharded form
+(:func:`qba_tpu.ops.trial_megakernel.build_sharded_trial_megakernel`):
+the same inputs, and each trial's ``n_tp`` shards run as one
+thread-block cluster, block ``s`` draining the receivers ``[s *
+n_local, (s + 1) * n_local)``.  Its plain version,
+:func:`sharded_trial_megakernel_reference`, is the per-round schedule of
+the party-sharded fused engine: each shard's local segment, the
+segments assembled every round, and the ``n_recv`` plain fused round.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -42,9 +53,12 @@ from qba_tpu_torch.ops._launch import (
     timed_launch,
 )
 from qba_tpu_torch.ops.round_kernel_tiled import (
+    assemble_pool,
     empty_pool,
     fused_round_reference,
     pool_from_step3a,
+    shard_receivers,
+    unshard_receivers,
 )
 
 # The kernel's warps: the gen prologue sweeps one shot per warp at a
@@ -95,20 +109,9 @@ def trial_megakernel(cfg: QBAConfig, p_rows, li, v_sent, honest_c, attack,
                                           honest_c, attack, rand_v, late)
     dev = li.device
     check_kernel_shapes(cfg, "trial megakernel")
-    n_trials = li.shape[0]
+    n_trials = _check_trial_inputs(cfg, p_rows, li, v_sent, honest_c,
+                                   attack, rand_v, late)
     n_rv, s, w = cfg.n_lieutenants, cfg.size_l, cfg.w
-    n_pool = n_rv * cfg.slots
-    stack = (n_trials, cfg.n_rounds, n_pool, n_rv)
-    for name, x, dt, shp in [
-        ("p_rows", p_rows, torch.bool, (n_trials, n_rv, s)),
-        ("li", li, torch.int32, (n_trials, n_rv, s)),
-        ("v_sent", v_sent, torch.int32, (n_trials, n_rv)),
-        ("honest_c", honest_c, torch.int32, (n_trials, n_pool)),
-        ("attack", attack, torch.uint8, stack),
-        ("rand_v", rand_v, torch.uint8, stack),
-        ("late", late, torch.uint8, stack),
-    ]:
-        check(name, x, dt, shp, dev)
     # The pools are private to the launch and never read before the
     # kernel writes them, so they need no fill.
     layout = [(x.shape, x.dtype) for x in empty_pool(cfg, n_trials, "meta")]
@@ -129,6 +132,131 @@ def trial_megakernel(cfg: QBAConfig, p_rows, li, v_sent, honest_c, attack,
 trial_megakernel.launches = 0
 # When set to a list, each launch appends its (start, end) CUDA events.
 trial_megakernel.events = None
+
+
+def sharded_trial_megakernel_reference(cfg: QBAConfig, n_tp: int, p_rows,
+                                       li, v_sent, honest_c, attack, rand_v,
+                                       late):
+    """Whole trials with their receivers in ``n_tp`` shards, in plain
+    PyTorch: step 3a, each shard's local segment
+    (:func:`~qba_tpu_torch.ops.round_kernel_tiled.pool_from_step3a` with
+    its ``start``), then per round the segments assembled in tp order and
+    :func:`~qba_tpu_torch.ops.round_kernel_tiled.fused_round_reference`
+    with ``n_recv``.  Arguments and results as
+    :func:`trial_megakernel_reference`, with every lieutenant's rows."""
+    from qba_tpu_torch.rounds.engine import step3a_one
+
+    n_local = cfg.n_lieutenants // n_tp
+    vi, out_cells = step3a_one(cfg, p_rows, v_sent, li)
+    cells = [shard_receivers(x, n_tp) for x in out_cells]
+    segs = [pool_from_step3a(cfg, tuple(c[s] for c in cells),
+                             start=s * n_local) for s in range(n_tp)]
+    pool = tuple(torch.stack(x) for x in zip(*segs))
+    li_s = shard_receivers(li, n_tp)
+    vi_s = shard_receivers(vi.to(torch.int32), n_tp)
+    overflow = torch.zeros(li.shape[0], dtype=torch.bool, device=li.device)
+    for r in range(1, cfg.n_rounds + 1):
+        whole = assemble_pool(pool)
+        pool, vi_s, ovf = fused_round_reference(
+            cfg, r, tuple(x.expand((n_tp,) + x.shape) for x in whole),
+            li_s, vi_s, honest_c, attack[:, r - 1], rand_v[:, r - 1],
+            late[:, r - 1], n_recv=n_local)
+        overflow |= ovf.any(0)
+    vi = unshard_receivers(vi_s)
+    is_comm = torch.zeros(vi.shape[:-1], dtype=torch.bool, device=vi.device)
+    decisions = decide_order(vi != 0, v_sent, is_comm, cfg.w)
+    return vi, decisions, overflow
+
+
+def _check_trial_inputs(cfg: QBAConfig, p_rows, li, v_sent, honest_c,
+                        attack, rand_v, late):
+    """Raise unless the host-gen megakernel inputs have exactly the
+    kernel's dtypes and shapes, contiguous, on ``li``'s device.  Returns
+    the trial count."""
+    dev, n_trials = li.device, li.shape[0]
+    n_rv, s = cfg.n_lieutenants, cfg.size_l
+    n_pool = n_rv * cfg.slots
+    stack = (n_trials, cfg.n_rounds, n_pool, n_rv)
+    for name, x, dt, shp in [
+        ("p_rows", p_rows, torch.bool, (n_trials, n_rv, s)),
+        ("li", li, torch.int32, (n_trials, n_rv, s)),
+        ("v_sent", v_sent, torch.int32, (n_trials, n_rv)),
+        ("honest_c", honest_c, torch.int32, (n_trials, n_pool)),
+        ("attack", attack, torch.uint8, stack),
+        ("rand_v", rand_v, torch.uint8, stack),
+        ("late", late, torch.uint8, stack),
+    ]:
+        check(name, x, dt, shp, dev)
+    return n_trials
+
+
+def sharded_trial_megakernel(cfg: QBAConfig, n_tp: int, p_rows, li, v_sent,
+                             honest_c, attack, rand_v, late):
+    """Whole trials, each trial's receivers in ``n_tp`` shards: ``(vi
+    int32 [T, n_rv, w], decisions int32 [T, n_rv], overflow bool [T])``,
+    the results of :func:`trial_megakernel` on the same inputs.
+
+    CPU tensors run :func:`sharded_trial_megakernel_reference`.  CUDA
+    tensors launch the kernel's sharded entry once for the batch, one
+    cluster of ``n_tp`` blocks a trial, with the input rules of
+    :func:`trial_megakernel`; ``n_tp`` must be admitted by
+    :func:`~qba_tpu_torch.ops.round_kernel_tiled.sharded_mega_plan`
+    (a refused cluster launch raises).  The pools, one assembled pair a
+    trial, are scratch.
+    """
+    if not dispatch("sharded_trial_megakernel", (li,)):
+        return sharded_trial_megakernel_reference(
+            cfg, n_tp, p_rows, li, v_sent, honest_c, attack, rand_v, late)
+    from qba_tpu_torch.ops.round_kernel_tiled import sharded_mega_plan
+
+    check_kernel_shapes(cfg, "sharded trial megakernel")
+    if sharded_mega_plan(cfg, n_tp) is None:
+        raise ValueError(f"the sharded trial megakernel takes 1 <= n_tp <= 8 "
+                         f"dividing the lieutenants; got n_tp={n_tp} at "
+                         f"{cfg.n_lieutenants} lieutenants")
+    n_trials = _check_trial_inputs(cfg, p_rows, li, v_sent, honest_c,
+                                   attack, rand_v, late)
+    dev = li.device
+    layout = [(x.shape, x.dtype) for x in empty_pool(cfg, n_trials, "meta")]
+    pools = [[torch.empty(shape, dtype=dt, device=dev) for shape, dt in layout]
+             for _ in "ab"]
+    vi = torch.empty((n_trials, cfg.n_lieutenants, cfg.w), dtype=torch.int32,
+                     device=dev)
+    dec = torch.empty((n_trials, cfg.n_lieutenants), dtype=torch.int32,
+                      device=dev)
+    ovf = torch.empty((n_trials, n_tp), dtype=torch.int32, device=dev)
+    fn = kernel_fn("trial_megakernel", "qba_sharded_trial_megakernel", 18, 9)
+    args = ptrs(p_rows, li, v_sent, honest_c, attack, rand_v, late,
+                 *pools[0], *pools[1], vi, dec, ovf)
+    args += [n_trials, n_tp, cfg.n_lieutenants, cfg.slots, cfg.max_l,
+             cfg.size_l, cfg.w, cfg.n_dishonest, int(cfg.strategy == "split")]
+    timed_launch(sharded_trial_megakernel, fn, args,
+                 torch.cuda.current_stream(dev))
+    return vi, dec, (ovf != 0).any(-1)
+
+
+sharded_trial_megakernel.launches = 0
+sharded_trial_megakernel.events = None
+
+
+def sharded_megakernel_clusters(cfg: QBAConfig, n_tp: int, device=None):
+    """``(shared memory bytes, clusters the card holds at once)`` of the
+    sharded entry at ``n_tp`` (``cudaOccupancyMaxActiveClusters``);
+    builds the kernel.  Raises on a CUDA error."""
+    from qba_tpu_torch.ops._build import load_library
+
+    fn = load_library("trial_megakernel").qba_sharded_megakernel_clusters
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] * 2
+        fn.restype = ctypes.c_int
+    smem, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = fn(n_tp, cfg.n_lieutenants, cfg.slots, cfg.max_l, cfg.size_l,
+                cfg.w, ctypes.byref(smem), ctypes.byref(clusters))
+    if rc != 0:
+        raise RuntimeError(f"sharded megakernel occupancy query failed: "
+                           f"CUDA error {rc}")
+    return smem.value, clusters.value
 
 
 def gen_lists_reference(cfg: QBAConfig, gen_tables, gen_ops, v_sent):

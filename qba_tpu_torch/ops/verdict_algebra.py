@@ -90,13 +90,15 @@ def effective_p(p: torch.Tensor, clear_p, forge_p) -> torch.Tensor:
 
 
 def verdict(*, vals, lens, count, p, v, sent, sender, honest_c, attack,
-            rand_v, late, li, round_idx: int, w: int, use_fp: bool):
+            rand_v, late, li, round_idx: int, w: int, use_fp: bool,
+            recv_off: int = 0):
     """Every (packet, receiver) acceptance flag of one round.
 
     Pool fields per trial: ``vals`` int ``[T, P, max_l, S]``, ``lens``
     ``[T, P, max_l]``, ``count``/``v``/``sender``/``honest_c`` ``[T, P]``,
     ``p``/``sent`` bool ``[T, P, S]``/``[T, P]``; draws ``[T, P, R]``
-    (already selected by each packet's cell); ``li`` ``[T, R, S]``.
+    (already selected by each packet's cell); ``li`` ``[T, R, S]``, the
+    receivers being the lieutenants ``recv_off + r``.
     Returns ``(ok bool [T, P, R], v2 int32 [T, P, R])``.
     """
     max_l = vals.shape[-2]
@@ -105,7 +107,7 @@ def verdict(*, vals, lens, count, p, v, sent, sender, honest_c, attack,
         honest_c, attack, rand_v, v, use_fp
     )
     n_rv = li.shape[-2]
-    recv = torch.arange(n_rv, device=vals.device)
+    recv = recv_off + torch.arange(n_rv, device=vals.device)
     delivered = (
         ~dropped & (late == 0) & sent[..., None]
         & (sender[..., None] != recv)

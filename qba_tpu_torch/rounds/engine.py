@@ -41,7 +41,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import warnings
 
 import torch
 
@@ -65,7 +64,7 @@ from qba_tpu_torch.core import (
     success_oracle,
 )
 from qba_tpu_torch.core.types import SENTINEL
-from qba_tpu_torch.diagnostics import QBADemotionWarning
+from qba_tpu_torch.diagnostics import QBADemotionWarning, warn_demotion  # noqa: F401
 from qba_tpu_torch.qsim import generate_lists_for
 from qba_tpu_torch.rounds.mailbox import Mailbox, mailbox_from_step3a
 
@@ -113,11 +112,11 @@ def resolve_round_engine(cfg: QBAConfig, device: torch.device) -> str:
             return "xla"
         return "pallas_fused" if cfg.collect_counters else "pallas_mega"
     if cfg.round_engine == "pallas_mega" and cfg.collect_counters:
-        warnings.warn(
+        warn_demotion(
             "the trial megakernel has no per-round loop on the host for "
             "the counters to ride; collect_counters demotes pallas_mega "
             "to the fused per-round engine (identical counters)",
-            QBADemotionWarning, stacklevel=3,
+            "counters_need_host_scan", stacklevel=3,
         )
         return "pallas_fused"
     return cfg.round_engine
@@ -207,7 +206,7 @@ def step3a_one(cfg: QBAConfig, p_rows, v, li):
 
 
 def receiver_round(cfg: QBAConfig, round_idx: int, draws, vi, li,
-                   mb: Mailbox, honest):
+                   mb: Mailbox, honest, start: int = 0):
     """Every lieutenant's inbox drain for one voting round, every trial.
 
     Each (receiver, packet) delivery is corrupted by its draws and judged
@@ -217,10 +216,14 @@ def receiver_round(cfg: QBAConfig, round_idx: int, draws, vi, li,
     rebroadcast into the receiver's row of the next mailbox.
 
     ``draws`` are ``[T, n_pk, n_rv]``; ``vi`` bool ``[T, n_rv, w]``; ``li``
-    ``[T, n_rv, S]``.  Returns ``(vi', next mailbox, overflow [T])``.
+    ``[T, n_rv, S]``.  The receivers are the lieutenants ``[start, start
+    + n_rv)`` (a party-sharded block drains its own against the whole
+    mailbox; the draws are its columns).  Returns ``(vi', the receivers'
+    rows of the next mailbox, overflow [T])``.
     """
     n_s, slots, w = cfg.n_lieutenants, cfg.slots, cfg.w
     n_pk = n_s * slots
+    n_rv = li.shape[1]
     dev = li.device
 
     def flat(x):  # [T, n_s, slots, ...] -> [T, 1, n_pk, ...]
@@ -229,7 +232,7 @@ def receiver_round(cfg: QBAConfig, round_idx: int, draws, vi, li,
     attack, rand_v, late = (d.transpose(1, 2) for d in draws)  # [T, R, P]
     idx = torch.arange(n_pk, device=dev)
     senders = idx // slots
-    recv = torch.arange(n_s, device=dev)[:, None]
+    recv = start + torch.arange(n_rv, device=dev)[:, None]
     packet = Packet(
         p_mask=flat(mb.p_mask),
         v=flat(mb.v),
@@ -273,7 +276,7 @@ def receiver_round(cfg: QBAConfig, round_idx: int, draws, vi, li,
     ev = append_own(pk.evidence, pk.p_mask, li_b)
 
     def pick(x):  # [T, R, P, ...] -> [T, R, slots, ...]
-        x = x.expand((x.shape[0], n_s) + x.shape[2:])
+        x = x.expand((x.shape[0], n_rv) + x.shape[2:])
         i = src.view(src.shape + (1,) * (x.dim() - 3))
         return torch.gather(x, 2, i.expand(src.shape + x.shape[3:]))
 
@@ -335,8 +338,10 @@ def scan_rounds(cfg: QBAConfig, round_body, vi, state):
     ``1..n_rounds``.  With ``cfg.collect_counters`` each round's ``vi``
     delta and overflow flag are folded into :class:`ProtocolCounters`;
     otherwise nothing more is computed.  Returns ``(vi, overflow [T],
-    counters or None)``."""
-    overflow = torch.zeros(vi.shape[0], dtype=torch.bool, device=vi.device)
+    counters or None)``.  ``vi`` may carry leading axes before the
+    trials' (the party-sharded engine's shards): the overflow flags and
+    the counters then carry them too."""
+    overflow = torch.zeros(vi.shape[:-2], dtype=torch.bool, device=vi.device)
     collect = cfg.collect_counters
     if collect:
         cstate = counters_init(cfg, _vi_bool(vi))
@@ -526,6 +531,12 @@ def run_trial_mega(cfg: QBAConfig, keys: torch.Tensor) -> TrialResult:
         vi, dec, overflow = trial_megakernel(
             cfg, p_rows.contiguous(), lieu_lists.to(torch.int32).contiguous(),
             v32, hc, *draws)
+    return mega_result(honest, v_comm, vi, dec, overflow)
+
+
+def mega_result(honest, v_comm, vi, dec, overflow) -> TrialResult:
+    """A megakernel's outputs (``vi`` int32, the lieutenants' decisions
+    and overflow) as the batch's :class:`TrialResult`."""
     decisions = torch.cat([v_comm[..., None].to(torch.int32), dec], dim=-1)
     return TrialResult(
         success=success_oracle(decisions, honest[..., 1:]),

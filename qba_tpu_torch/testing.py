@@ -13,7 +13,10 @@ the JAX package on :func:`random_state`; ``tests/test_torch_cuda.py`` and
 :func:`random_round_inputs`, :func:`dense_acc`,
 :func:`random_trial_inputs`, :func:`random_mailbox_inputs` (the same
 packets at their own cells of a dense mailbox) and
-:func:`random_circuit` (complex gates, multi-control ops and ``XPOW``);
+:func:`random_circuit` (complex gates, multi-control ops and ``XPOW``),
+and the party-sharded fused round with its plain version on
+:func:`random_shard_inputs` (assembled pools with an empty segment, a
+full one and stale entries between the segments);
 and the GF(2) sweep with its plain version on :func:`random_sweep_inputs`
 (the tableaux of :func:`random_clifford` circuits, random phases, coins
 and readout flips).  Everything is made with numpy from a seed.
@@ -50,16 +53,29 @@ def random_state(rng, cfg: QBAConfig, round_idx: int):
     mostly distinct per position, counts around the round's evidence
     length, some rows equal to a receiver's own row), random li/vi,
     honesty and draws."""
-    n_rv, slots, max_l, s, w = (cfg.n_lieutenants, cfg.slots, cfg.max_l,
-                                cfg.size_l, cfg.w)
+    n_rv, slots, s, w = cfg.n_lieutenants, cfg.slots, cfg.size_l, cfg.w
     n_pool = n_rv * slots
-    vals = np.full((max_l, n_pool, s), -1, np.int32)
-    lens = np.zeros((n_pool, max_l), np.int32)
-    p = np.zeros((n_pool, s), np.int32)
-    meta = np.zeros((n_pool, 4), np.int32)
     li = rng.integers(0, w, (n_rv, s)).astype(np.int32)
     n_live = int(rng.integers(1, n_pool + 1))
     cells = np.sort(rng.choice(n_pool, n_live, replace=False))
+    vals, lens, p, meta = random_packets(rng, cfg, round_idx, cells, li,
+                                         n_pool)
+    vi = (rng.random((n_rv, w)) < 0.05).astype(np.int32)
+    sender_honest = rng.random(n_rv) < 0.6
+    hc = np.repeat(sender_honest, slots).astype(np.int32)[:, None]
+    att, rv, late = random_draws(rng, cfg, (n_pool, n_rv))
+    return (vals, lens, p, meta), li, vi, hc, att, rv, late
+
+
+def random_packets(rng, cfg: QBAConfig, round_idx: int, cells, li, cap):
+    """A compacted pool of capacity ``cap`` (numpy, the JAX layout)
+    holding one protocol-shaped packet per cell of ``cells``, in order,
+    and empty entries after them (see :func:`random_state`)."""
+    n_rv, max_l, s, w = cfg.n_lieutenants, cfg.max_l, cfg.size_l, cfg.w
+    vals = np.full((max_l, cap, s), -1, np.int32)
+    lens = np.zeros((cap, max_l), np.int32)
+    p = np.zeros((cap, s), np.int32)
+    meta = np.zeros((cap, 4), np.int32)
     for i, cell in enumerate(cells):
         pm = rng.random(s) < 0.4
         count = int(rng.choice([round_idx, round_idx + 1,
@@ -74,11 +90,70 @@ def random_state(rng, cfg: QBAConfig, round_idx: int):
         lens[i, :count] = pm.sum() if rng.random() < 0.9 else rng.integers(s)
         p[i] = pm
         meta[i] = (count, rng.integers(w), 1, cell)
-    vi = (rng.random((n_rv, w)) < 0.05).astype(np.int32)
-    sender_honest = rng.random(n_rv) < 0.6
-    hc = np.repeat(sender_honest, slots).astype(np.int32)[:, None]
-    att, rv, late = random_draws(rng, cfg, (n_pool, n_rv))
-    return (vals, lens, p, meta), li, vi, hc, att, rv, late
+    return vals, lens, p, meta
+
+
+def random_shard_inputs(cfg: QBAConfig, n_tp: int, round_idx: int,
+                        n_trials: int, seed: int, device=None):
+    """One round's inputs to the party-sharded fused round
+    (``fused_round(..., n_recv=n_lieutenants // n_tp)``): ``(pool, li,
+    vi, honest_c, attack, rand_v, late)`` with ``pool`` ``[n_tp, T, ...]``
+    (every shard's copy of the assembled pool), ``li``/``vi`` ``[n_tp, T,
+    n_local, ...]`` and the honesty and draws global.
+
+    Each assembled pool is the shards' segments in tp order, each
+    segment its shard's senders' packets (:func:`random_packets`)
+    compacted at its front.  Shard 0's segment is empty in trial 0 and
+    the last shard's full (every cell of its senders) in trial 1; the
+    entries past a segment's packets are unsent but hold stale packets
+    (random rows, counts, values and cells), which no kernel may read.
+    A small ``slots`` makes receivers overflow."""
+    rng = np.random.default_rng(seed)
+    n_rv, slots, w = cfg.n_lieutenants, cfg.slots, cfg.w
+    n_local, n_pool = n_rv // n_tp, n_rv * slots
+    seg = n_local * slots
+    pools, lis, vis, hcs, draws = [], [], [], [], []
+    for t in range(n_trials):
+        li = rng.integers(0, w, (n_rv, cfg.size_l)).astype(np.int32)
+        parts = []
+        for sh in range(n_tp):
+            own = np.arange(sh * seg, (sh + 1) * seg)
+            if t == 0 and sh == 0:
+                cells = own[:0]
+            elif t == 1 and sh == n_tp - 1:
+                cells = own
+            else:
+                cells = np.sort(rng.choice(own, int(rng.integers(seg + 1)),
+                                           replace=False))
+            part = random_packets(rng, cfg, round_idx, cells, li, seg)
+            stale = random_packets(rng, cfg, round_idx,
+                                   rng.integers(0, n_pool, seg), li, seg)
+            dead = slice(len(cells), seg)
+            part[0][:, dead] = stale[0][:, dead]
+            for a, b in zip(part[1:], stale[1:]):
+                a[dead] = b[dead]
+            part[3][dead, 2] = 0  # unsent
+            parts.append(part)
+        pools.append([np.concatenate([q[i] for q in parts], axis=1 if i == 0
+                                     else 0) for i in range(4)])
+        lis.append(li)
+        vis.append((rng.random((n_rv, w)) < 0.05).astype(np.int32))
+        hcs.append(np.repeat(rng.random(n_rv) < 0.6, slots).astype(np.int32))
+        draws.append(random_draws(rng, cfg, (n_pool, n_rv)))
+    pool = pool_from_numpy(*(np.stack([q[i] for q in pools])
+                             for i in range(4)), device=device)
+    pool = tuple(x.expand((n_tp,) + x.shape).contiguous() for x in pool)
+
+    def shards(xs):
+        x = torch.from_numpy(np.ascontiguousarray(np.stack(xs))).to(
+            device, torch.int32)
+        return x.reshape((n_trials, n_tp, n_local) + x.shape[2:]) \
+            .movedim(1, 0).contiguous()
+
+    hc = torch.from_numpy(np.stack(hcs)).to(device, torch.int32)
+    return (pool, shards(lis), shards(vis), hc,
+            *draws_from_numpy(*(np.stack(d) for d in zip(*draws)),
+                              device=device))
 
 
 def random_mailbox_state(rng, cfg: QBAConfig, round_idx: int):

@@ -67,22 +67,25 @@ def test_build_dir_outside_a_checkout(csrc, tmp_path, monkeypatch):
 
 def test_repo_kernels_and_their_sources():
     # Every kernel source exists; the four round kernels share the round
-    # header (so its edits rebuild them), the circuit kernel stands alone,
-    # and the sweep's header is in the sweep kernel and the megakernel.
+    # header (so its edits rebuild them), the circuit and ring kernels
+    # stand alone, and the sweep's header is in the sweep kernel and the
+    # megakernel.
     assert set(_build.KERNELS) == {"fused_round", "trial_megakernel",
                                    "tiled_round", "round_step",
-                                   "fused_circuit", "gf2_sweep"}
+                                   "fused_circuit", "gf2_sweep",
+                                   "ring_shuffle"}
     for name in _build.KERNELS:
         files = [p.name for p in _build.sources(name)]
         assert files[0] == f"{name}.cu"
         assert ("round_common.cuh" in files) == (
-            name not in ("fused_circuit", "gf2_sweep"))
+            name not in ("fused_circuit", "gf2_sweep", "ring_shuffle"))
         assert ("gf2_sweep.cuh" in files) == (
             name in ("gf2_sweep", "trial_megakernel"))
     assert _build.build_dir().parts[-2:] == ("build", "qba_tpu_torch")
 
 
-@pytest.mark.parametrize("name", ["round_step", "fused_circuit", "gf2_sweep"])
+@pytest.mark.parametrize("name", ["round_step", "fused_circuit", "gf2_sweep",
+                                  "ring_shuffle", "trial_megakernel"])
 def test_new_sources_are_in_their_build_key(name, tmp_path, monkeypatch):
     # A copy of csrc with one byte appended to the source changes the key.
     import shutil
@@ -111,6 +114,7 @@ def test_package_data_ships_every_kernel_source():
     files = [p.relative_to(pkg).as_posix()
              for p in (pkg / "ops" / "csrc").iterdir() if p.is_file()]
     assert {"ops/csrc/round_common.cuh", "ops/csrc/fused_round.cu",
-            "ops/csrc/round_step.cu", "ops/csrc/fused_circuit.cu"} <= set(files)
+            "ops/csrc/round_step.cu", "ops/csrc/fused_circuit.cu",
+            "ops/csrc/ring_shuffle.cu"} <= set(files)
     for f in files:
         assert any(fnmatch.fnmatch(f, g) for g in globs), f

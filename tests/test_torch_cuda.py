@@ -10,8 +10,10 @@ matrices, inconsistent lieutenants), the fused circuit kernel is held
 against its plain version at ``atol=1e-6`` on amplitudes (the compiler
 may fuse a multiply and an add), the GF(2) sweep kernel and the trial
 megakernel's gen entry are held bit-exact against their plain versions
-on the protocol's tableaux and on seeded random Clifford tableaux, and
-the engines must agree trial for trial.  Every test is marked ``cuda`` and skips without a card
+on the protocol's tableaux and on seeded random Clifford tableaux, the
+party-sharded kernels (the ring gather, the fused round's ``n_recv``
+variant and the sharded trial megakernel) are held bit-exact against
+theirs, and the engines, sharded or not, must agree trial for trial.  Every test is marked ``cuda`` and skips without a card
 (the kernels have no CPU mode; the CPU tests hold the plain versions
 against ``qba_tpu``).  The file imports no JAX, so on a machine with the
 card it runs without the JAX test harness:
@@ -34,7 +36,10 @@ from qba_tpu_torch.ops import fused_circuit as fc
 from qba_tpu_torch.ops import round_kernel as rs
 from qba_tpu_torch.ops import round_kernel_tiled as rk
 from qba_tpu_torch.ops import gf2_sweep as gs
+from qba_tpu_torch.ops.ring_shuffle import ring_gather, ring_gather_reference
 from qba_tpu_torch.ops.trial_megakernel import (
+    sharded_trial_megakernel,
+    sharded_trial_megakernel_reference,
     trial_megakernel,
     trial_megakernel_gen,
     trial_megakernel_gen_reference,
@@ -52,6 +57,7 @@ from qba_tpu_torch.testing import (
     random_circuit,
     random_mailbox_inputs,
     random_round_inputs,
+    random_shard_inputs,
     random_sweep_inputs,
     random_trial_inputs,
 )
@@ -397,3 +403,121 @@ def test_gen_and_host_engines_agree(cuda):
         for f in ("decisions", "success", "vi", "overflow"):
             assert torch.equal(getattr(runs["gen"], f),
                                getattr(runs[other], f)), (other, f)
+
+
+# Party-sharded cases: (config, tp).
+SHARDED = {
+    "5p-split-tp2": ("5p-split", 2),
+    "5p-overflow-tp4": ("5p-overflow", 4),
+    "5p-racy-tp2": ("5p-racy", 2),
+    "11p-tp2": ("11p", 2),
+    "11p-tp5": ("11p", 5),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32, torch.bool,
+                                   torch.uint8, torch.int64])
+def test_ring_gather_kernel(cuda, tp, dtype):
+    from qba_tpu_torch.parallel.ring import all_gather
+
+    gen = torch.Generator().manual_seed(tp)
+    # Ragged tiles: segments of 1 B, of 4 B and across several 16 KB tiles.
+    for shard, axis in [((3, 5, 7), 1), ((2, 9000), 1), ((12, 40, 64), 1),
+                        ((4, 2, 3, 8), 2), ((6,), 0)]:
+        x = torch.randint(-100, 100, (tp,) + shard, generator=gen)
+        x = (x > 0) if dtype == torch.bool else x.to(dtype)
+        x = x.to(cuda)
+        before = ring_gather.launches
+        got = ring_gather(x, axis)
+        assert ring_gather.launches == before + 1
+        assert_equal(got, ring_gather_reference(x, axis))
+        assert_equal(got, all_gather(x, axis))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["5p-r1", "5p-split-r1", "5p-slots1-r1",
+                                  "7p-L8-r3", "11p-L16-r1"])
+def test_fused_round_n_recv_on_random_shards(cuda, case):
+    kw, r = RANDOM[case]
+    cfg = qba_tpu_torch.QBAConfig(**kw)
+    for tp in (t for t in (2, 3, 5) if cfg.n_lieutenants % t == 0):
+        args = random_shard_inputs(cfg, tp, r, 16, seed=tp + r, device=cuda)
+        n_local = cfg.n_lieutenants // tp
+        got = rk.fused_round(cfg, r, *args, n_recv=n_local)
+        assert_equal(got, rk.fused_round_reference(cfg, r, *args,
+                                                   n_recv=n_local))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SHARDED))
+def test_fused_round_n_recv_kernel(cuda, case):
+    # On protocol state: each shard against the whole pool, whose accepted
+    # sets must be the single-device round's.
+    name, tp = SHARDED[case]
+    cfg = qba_tpu_torch.QBAConfig(**CONFIGS[name])
+    n_local = cfg.n_lieutenants // tp
+    for r, pool, li, vi, hc, *draws in round_states(cfg, cuda):
+        shards = (tuple(x.expand((tp,) + x.shape).contiguous() for x in pool),
+                  rk.shard_receivers(li, tp), rk.shard_receivers(vi, tp), hc,
+                  *draws)
+        got = rk.fused_round(cfg, r, *shards, n_recv=n_local)
+        assert_equal(got, rk.fused_round_reference(cfg, r, *shards,
+                                                   n_recv=n_local))
+        _pool, vi_one, ovf_one = rk.fused_round(cfg, r, pool, li, vi, hc,
+                                                *draws)
+        assert torch.equal(rk.unshard_receivers(got[1]), vi_one)
+        assert torch.equal(got[2].any(0), ovf_one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SHARDED))
+def test_sharded_trial_megakernel(cuda, case):
+    name, tp = SHARDED[case]
+    cfg = qba_tpu_torch.QBAConfig(**CONFIGS[name])
+    honest, li, p_rows, v_sent, k_rounds, ctx = trial_inputs(cfg, cuda)
+    args = (p_rows.contiguous(), li, v_sent.to(torch.int32).contiguous(),
+            rk.honest_cells(honest, cfg), *_stacked_draws(cfg, k_rounds, ctx))
+    before = sharded_trial_megakernel.launches
+    got = sharded_trial_megakernel(cfg, tp, *args)
+    assert sharded_trial_megakernel.launches == before + 1
+    assert_equal(got, sharded_trial_megakernel_reference(cfg, tp, *args))
+    assert_equal(got, trial_megakernel(cfg, *args))
+    if name == "5p-overflow":
+        assert got[2].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", [2, 4])
+def test_sharded_trial_megakernel_on_random_inputs(cuda, tp):
+    cfg = qba_tpu_torch.QBAConfig(**CONFIGS["5p-split"])
+    args = random_trial_inputs(cfg, 32, seed=tp, device=cuda)
+    got = sharded_trial_megakernel(cfg, tp, *args)
+    assert_equal(got, sharded_trial_megakernel_reference(cfg, tp, *args))
+    assert_equal(got, trial_megakernel(cfg, *args))
+
+
+@pytest.mark.cuda
+def test_spmd_engines_on_one_card(cuda):
+    from qba_tpu_torch.parallel import make_mesh, run_trials_spmd
+
+    cfg = qba_tpu_torch.QBAConfig(n_parties=9, size_l=16, n_dishonest=3,
+                                  trials=32, seed=9)
+    ref = qba_tpu_torch.run_trials(cfg, device=cuda).trials
+    mesh = make_mesh({"dp": 2, "tp": 4}, devices=[cuda] * 8)
+    for kw, counts in [({}, (1, 0, 0)),
+                       (dict(round_engine="pallas_fused"), (0, 4, 1)),
+                       (dict(round_engine="pallas_fused",
+                             tp_comms="all_gather"), (0, 0, 1)),
+                       (dict(round_engine="xla"), (0, 6, 0))]:
+        fns = (sharded_trial_megakernel, ring_gather, rk.fused_round)
+        before = [fn.launches for fn in fns]
+        out = run_trials_spmd(dataclasses.replace(cfg, **kw), mesh).trials
+        # Per dp row: one megakernel launch, or per round one ring launch
+        # per pool leaf (or mailbox field) and one fused round.
+        want = tuple(2 * (c if i == 0 else c * cfg.n_rounds)
+                     for i, c in enumerate(counts))
+        assert tuple(fn.launches - b for fn, b in zip(fns, before)) == want
+        for f in ("decisions", "success", "vi", "overflow"):
+            assert torch.equal(getattr(ref, f), getattr(out, f)), (kw, f)

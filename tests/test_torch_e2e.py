@@ -11,7 +11,8 @@ kernels' plain versions here) is checked; ``pallas`` has its own file,
 tests/test_torch_round_step.py.
 Plus: ``device=None`` means CUDA and raises without it, and the port
 imports and runs with ``jax``, ``flax`` and ``qba_tpu`` blocked, the
-stabilizer path and the megakernel's gen entry (plain version) included.
+stabilizer path, the megakernel's gen entry (plain version) and the
+party-sharded ``run_trials_spmd`` on a CPU mesh included.
 """
 
 import dataclasses
@@ -139,6 +140,15 @@ gen = qba_tpu_torch.run_trials(
     device="cpu")
 assert (gen.trials.vi == host.trials.vi).all()
 assert (gen.trials.decisions == host.trials.decisions).all()
+from qba_tpu_torch.parallel import make_mesh, run_trials_spmd
+mesh = make_mesh({"dp": 2, "tp": 2}, devices=["cpu"] * 4)
+for engine in ("auto", "xla", "pallas_fused", "pallas_mega"):
+    for comms in ("ring", "all_gather"):
+        sharded = run_trials_spmd(
+            dataclasses.replace(cfg, round_engine=engine, tp_comms=comms),
+            mesh)
+        assert (sharded.trials.vi == res.trials.vi).all(), (engine, comms)
+        assert (sharded.trials.decisions == res.trials.decisions).all()
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "flax", "qba_tpu")]
 assert not bad, bad
