@@ -37,13 +37,18 @@ Phases, each reported on its own line:
    ``gen_vs_plain``: the trial megakernel's gen entry against its plain
    version at 11p/L64/d3 (strategy "split", noise) and 33p/L64/d10 on
    32 trials, and against the host-gen megakernel on the same lists;
-   the party-sharded kernels: the fused round's ``n_recv`` variant in
-   ``kernel_vs_plain`` (each shard against the round's pool, its
-   accepted sets the single-device round's) and ``random_vs_plain``
+   the party-sharded kernels: the ``n_recv`` variants of the fused
+   round, the tiled verdict and rebuild and the dense-mailbox round in
+   ``kernel_vs_plain`` (each shard against the round's pool or mailbox,
+   its accepted sets, verdicts and overflow the single-device round's,
+   the tiled pair's segments the fused round's, the local mailboxes in
+   shard order the single-device successor) and ``random_vs_plain``
    (assembled pools with empty and full segments and stale entries
-   between them); ``ring_vs_plain``, the ring gather at ``tp`` 2, 4 and
-   8 on int8, int32, bool, uint8 and int64 segments of ragged tile counts
-   (bit-exact); ``sharded_mega_vs_plain``, the party-sharded trial
+   between them, a far denser accepted matrix for the rebuild, gathered
+   mailboxes whose unsent cells hold stale packets; each variant accepts
+   and overflows somewhere); ``ring_vs_plain``, the ring gather at
+   ``tp`` 2, 4 and 8 on int8, int32, bool, uint8 and int64 segments of
+   ragged tile counts (bit-exact); ``sharded_mega_vs_plain``, the party-sharded trial
    megakernel on the ``small`` list at every ``tp <= 8`` dividing the
    lieutenants, against its plain version and the single-device
    megakernel trial for trial (some trial overflows);
@@ -86,15 +91,19 @@ Phases, each reported on its own line:
    ``run_trials_spmd`` on ``make_mesh({"dp": 1, "tp": tp},
    devices=[cuda:0] * tp)`` at 33p/L64/d10 x 1000 (``tp = 4``) and
    11p/L64/d3 x 1000 (``tp = 2``): ``auto`` (asserted the sharded
-   megakernel, one launch), ``pallas_fused`` with the ring (per round 4
-   ring launches, one per pool leaf, and one fused round) and with
-   ``all_gather``, each equal trial for trial to the single-device
-   ``run_trials`` of phase 6, with rounds/s, kernel ms per launch and
-   peak memory; then the ring timed on the batch's step-3a segments
-   against its plain version and one PyTorch broadcast copy, the sharded
-   megakernel against its plain version at full width, and 33p x 64
-   trials on the sharded megakernel (``tp = 4``) beside the
-   single-device one.
+   megakernel, one launch), then ``pallas_fused``, ``pallas_tiled`` and
+   ``pallas``, each with the ring (per round 4 ring launches, one per
+   pool or mailbox leaf, and the engine's ``n_recv`` kernels: one fused
+   round, a verdict and a rebuild, or one dense-mailbox round) and with
+   ``all_gather`` (no ring launch), each equal trial for trial to the
+   single-device ``run_trials`` of phase 6, with rounds/s, kernel ms per
+   launch and peak memory; then the ring timed on the batch's step-3a
+   segments against its plain version and one PyTorch broadcast copy,
+   the sharded megakernel against its plain version at full width, the
+   ``n_recv`` verdict, rebuild and dense-mailbox round replayed round by
+   round on the batch against their plain versions and the
+   single-device round (timed, with bounds), and 33p x 64 trials on the
+   sharded megakernel (``tp = 4``) beside the single-device one.
 
 Any failure exits non-zero.  The line before the last is the kernel
 table as JSON, the one before it the card; the last line is
@@ -237,11 +246,34 @@ def n_recv_cost(cfg, live, rows, dst, dst_rows, n_trials, n_tp):
     own copy of the assembled pool; the draws, li, vi and the rebuilt
     sources are read once over all shards, and the segments written are
     one pool."""
-    n_pool = cfg.n_lieutenants * cfg.slots
     b, ops = fused_cost(cfg, live, rows, dst, dst_rows, n_trials)
-    b += (n_tp - 1) * (rows * (cfg.size_l + 4) + live * (cfg.size_l + 4)
-                       + n_trials * n_pool * 16)
-    return b, ops
+    return b + n_recv_extra(cfg, live, rows, n_trials, n_tp), ops
+
+
+def n_recv_extra(cfg, live, rows, n_trials, n_tp):
+    """Bytes the ``n_tp - 1`` shards past the first add to a round
+    kernel's: each scans the meta of its own copy of the assembled pool
+    (or mailbox) and reads its live packets' valid rows, lens, P and
+    meta."""
+    n_pool = cfg.n_lieutenants * cfg.slots
+    return (n_tp - 1) * (rows * (cfg.size_l + 4) + live * (cfg.size_l + 4)
+                         + n_trials * n_pool * 16)
+
+
+def n_recv_costs(cfg, live, rows, dst, dst_rows, n_trials, n_tp):
+    """Bytes and compares of one round's ``n_recv`` verdict, rebuild and
+    dense-mailbox round over ``n_tp`` shards: the verdict's and the
+    dense-mailbox round's as the single-device kernels' plus
+    ``n_recv_extra``; the rebuild reads each shard's columns of acc and
+    the rebuilt sources once over all shards and writes the segments, one
+    pool: the single-device rebuild's."""
+    extra = n_recv_extra(cfg, live, rows, n_trials, n_tp)
+    vb, vo = verdict_cost(cfg, live, rows, n_trials)
+    return dict(
+        tiled_verdict=(vb + extra, vo),
+        tiled_rebuild=rebuild_cost(cfg, dst, dst_rows, n_trials),
+        round_step=n_recv_cost(cfg, live, rows, dst, dst_rows, n_trials,
+                               n_tp))
 
 
 def ring_cost(x):
@@ -404,21 +436,17 @@ def replay(cfg, keys, *, chunk, reps=0):
         (ref_mbox, ref_vi_m, ref_ovf_m), step_plain_ms = plain(
             sub(rs.round_step_reference), mbox, li, vi_i, hc, att, rv, late)
         if not reps:
-            # The n_recv variant: each shard of the round's pool drains its
-            # receivers; their accepted sets are the single-device round's.
-            nr_err = 0
+            # The n_recv variants: each shard of the round's pool (or
+            # mailbox) drains its receivers; their accepted sets are the
+            # single-device round's.
+            nr_errs = dict.fromkeys(N_RECV_KERNELS, 0)
             for tp in shard_tps(cfg.n_lieutenants):
-                sh = (tuple(x.expand((tp,) + x.shape).contiguous()
-                            for x in pool), rk.shard_receivers(li, tp),
-                      rk.shard_receivers(vi_i, tp), hc, att, rv, late)
-                n_local = cfg.n_lieutenants // tp
-                got = rk.fused_round(cfg, r, *sh, n_recv=n_local)
-                nr_err = max(nr_err, tree_err(got, rk.fused_round_reference(
-                    cfg, r, *sh, n_recv=n_local)))
-                if not (torch.equal(rk.unshard_receivers(got[1]), vi_k)
-                        and torch.equal(got[2].any(0), ovf_k)):
-                    raise AssertionError(f"n_recv fused != fused at {cfg} "
-                                         f"round {r}, tp {tp}")
+                got = n_recv_round(cfg, r, tp, pool, mbox, li, vi_i, hc,
+                                   (att, rv, late), nr_errs)
+                single = dict(fused_round=(new, vi_k, ovf_k),
+                              tiled_verdict=(acc_k, vi_t),
+                              round_step=(new_mbox, vi_m, ovf_m))
+                n_recv_agrees(cfg, r, tp, got, single)
         errs = {
             "round_step": max(
                 [max_err(a, b) for a, b in zip(new_mbox, ref_mbox)]
@@ -433,7 +461,7 @@ def replay(cfg, keys, *, chunk, reps=0):
                 + [max_err(ovf_t, ref_ovf_t)]),
         }
         if not reps:
-            errs["fused_round_n_recv"] = nr_err
+            errs.update(nr_errs)
         if any(errs.values()):
             raise AssertionError(
                 f"kernel != plain version at {cfg} round {r}: {errs}")
@@ -474,6 +502,201 @@ def replay(cfg, keys, *, chunk, reps=0):
         pool, spare, vi_i = new, pool, vi_k
         mbox, mbox_spare = new_mbox, mbox
     stats[0]["vi"] = vi_i != 0
+    return stats
+
+
+N_RECV_KERNELS = ("fused_round_n_recv", "tiled_verdict_n_recv",
+                  "tiled_rebuild_n_recv", "round_step_n_recv")
+
+
+def shard_args(tp, whole, li, vi):
+    """Each of ``tp`` shards' copy of a pool or mailbox ``whole``, and
+    their receivers' rows of ``li`` and ``vi``."""
+    from qba_tpu_torch.ops.round_kernel_tiled import shard_receivers
+
+    return (tuple(x.expand((tp,) + x.shape).contiguous() for x in whole),
+            shard_receivers(li, tp), shard_receivers(vi, tp))
+
+
+def n_recv_round(cfg, r, tp, pool, mbox, li, vi, hc, draws, errs):
+    """One round's four ``n_recv`` kernels at ``tp`` shards, each shard on
+    its copy of the round's pool (or mailbox), held against their plain
+    versions (the largest error per kernel into ``errs``).  Returns each
+    kernel's outputs."""
+    from qba_tpu_torch.ops import round_kernel as rs
+    from qba_tpu_torch.ops import round_kernel_tiled as rk
+
+    n_local = cfg.n_lieutenants // tp
+    kw = dict(n_recv=n_local)
+    spool, sli, svi = shard_args(tp, pool, li, vi)
+    smbox = shard_args(tp, mbox, li, vi)[0]
+    got = dict(
+        fused_round=rk.fused_round(cfg, r, spool, sli, svi, hc, *draws, **kw),
+        tiled_verdict=rk.tiled_verdict(cfg, r, spool, sli, svi, hc, *draws,
+                                       **kw),
+        round_step=rs.round_step(cfg, r, smbox, sli, svi, hc, *draws, **kw))
+    acc = got["tiled_verdict"][0]
+    got["tiled_rebuild"] = rk.tiled_rebuild(cfg, r, spool, sli, acc, hc,
+                                            *draws[:2], **kw)
+    want = dict(
+        fused_round=rk.fused_round_reference(cfg, r, spool, sli, svi, hc,
+                                             *draws, **kw),
+        tiled_verdict=rk.verdict_reference(cfg, r, spool, sli, svi, hc,
+                                           *draws, **kw),
+        tiled_rebuild=rk.rebuild_reference(cfg, r, spool, sli, acc, hc,
+                                           *draws[:2], **kw),
+        round_step=rs.round_step_reference(cfg, r, smbox, sli, svi, hc,
+                                           *draws, **kw))
+    for k, g in got.items():
+        errs[k + "_n_recv"] = max(errs[k + "_n_recv"], tree_err(g, want[k]))
+    return got
+
+
+def n_recv_agrees(cfg, r, tp, got, single):
+    """Raise unless the ``n_recv`` kernels' outputs at ``tp`` shards
+    (``n_recv_round``) are the single-device round's: each shard's
+    accepted sets, verdicts and overflow its receivers' part, the tiled
+    pair's segments the fused round's, and the local mailboxes in shard
+    order the single-device successor mailbox."""
+    import torch
+
+    from qba_tpu_torch.ops.round_kernel_tiled import unshard_receivers
+
+    new, vi, ovf = single["fused_round"]
+    acc, _vi = single["tiled_verdict"]
+    mbox = single["round_step"][0]
+    fused, (s_acc, s_vi), tiled = (got["fused_round"], got["tiled_verdict"],
+                                   got["tiled_rebuild"])
+    step = got["round_step"]
+    ok = (all(torch.equal(unshard_receivers(x), vi)
+              for x in (fused[1], s_vi, step[1]))
+          and all(torch.equal(x.any(0), ovf)
+                  for x in (fused[2], tiled[1], step[2]))
+          and torch.equal(s_acc.permute(1, 2, 0, 3).reshape(acc.shape), acc)
+          and all(torch.equal(a, b) for a, b in zip(tiled[0], fused[0]))
+          and all(torch.equal(torch.cat(list(a), dim=1), b)
+                  for a, b in zip(step[0], mbox)))
+    if not ok:
+        raise AssertionError(f"n_recv kernels != single-device round at "
+                             f"{cfg} round {r}, tp {tp}")
+
+
+def n_recv_replay(cfg, keys, tp, *, chunk, reps=3):
+    """The ``n_recv`` verdict, rebuild and dense-mailbox round at full
+    width: every round of ``keys``' trials, advanced by the single-device
+    fused round and dense-mailbox round kernels (which ``replay`` holds
+    against their plain versions), runs the three variants at ``tp``
+    shards, each shard on its copy of the round's pool or mailbox; each
+    is held against its plain version (bit-exact) and, with the fused
+    round's ``n_recv`` variant, against the single-device round
+    (``n_recv_agrees``), timed (CUDA events over ``reps`` launches; the
+    plain versions by host clock in chunks of ``chunk`` trials), and
+    bounded from the round's own inputs (``n_recv_costs``).  Returns the
+    per-round stats."""
+    import torch
+
+    from qba_tpu_torch import random as jr
+    from qba_tpu_torch.adversary import adversary_ctx, sample_attacks_round
+    from qba_tpu_torch.ops import round_kernel as rs
+    from qba_tpu_torch.ops import round_kernel_tiled as rk
+    from qba_tpu_torch.rounds.engine import setup_trial, step3a_one
+
+    n = keys.shape[0]
+    honest, li, p_rows, v_sent, _v_comm, k_rounds = setup_trial(cfg, keys)
+    vi, out_cells = step3a_one(cfg, p_rows, v_sent, li)
+    ctx = adversary_ctx(cfg, k_rounds, v_sent)
+    pool = rk.pool_from_step3a(cfg, out_cells)
+    mbox = rs.mailbox_from_step3a(cfg, out_cells)
+    hc = rk.honest_cells(honest, cfg)
+    li, vi = li.to(torch.int32).contiguous(), vi.to(torch.int32)
+    kw = dict(n_recv=cfg.n_lieutenants // tp)
+
+    def timed(fn, *args):
+        fn.events = []
+        for _ in range(reps):
+            fn(cfg, *args, **kw)
+        torch.cuda.synchronize()
+        ms, fn.events = event_ms(fn.events), None
+        return ms
+
+    def plain(fn, n_sharded, *args):
+        """``fn`` over chunks of trials: the first ``n_sharded`` args are
+        shard tensors (trial axis 1), the rest per trial (axis 0)."""
+        def part(x, ax, sl):
+            if isinstance(x, tuple):
+                return tuple(part(y, ax, sl) for y in x)
+            return x[:, sl] if ax else x[sl]
+
+        def cat(items):
+            if isinstance(items[0], tuple):
+                return tuple(cat([it[i] for it in items])
+                             for i in range(len(items[0])))
+            return torch.cat(items, dim=1)
+
+        t0 = time.perf_counter()
+        parts = [fn(cfg, r, *(part(x, i < n_sharded, slice(a, a + chunk))
+                              for i, x in enumerate(args)), **kw)
+                 for a in range(0, n, chunk)]
+        torch.cuda.synchronize()
+        return cat(parts), (time.perf_counter() - t0) * 1e3
+
+    stats = []
+    for r in range(1, cfg.n_rounds + 1):
+        draws = tuple(x.to(torch.uint8) for x in sample_attacks_round(
+            cfg, jr.fold_in(k_rounds, r), r, ctx))
+        live, rows = pool_stats(cfg, pool)
+        spool, sli, svi = shard_args(tp, pool, li, vi)
+        smbox = shard_args(tp, mbox, li, vi)[0]
+        got = dict(
+            fused_round=rk.fused_round(cfg, r, spool, sli, svi, hc, *draws,
+                                       **kw),
+            tiled_verdict=rk.tiled_verdict(cfg, r, spool, sli, svi, hc,
+                                           *draws, **kw),
+            round_step=rs.round_step(cfg, r, smbox, sli, svi, hc, *draws,
+                                     **kw))
+        acc = got["tiled_verdict"][0]
+        got["tiled_rebuild"] = rk.tiled_rebuild(cfg, r, spool, sli, acc, hc,
+                                                *draws[:2], **kw)
+        new, vi_k, ovf_k = rk.fused_round(cfg, r, pool, li, vi, hc, *draws)
+        new_mbox, vi_m, ovf_m = rs.round_step(cfg, r, mbox, li, vi, hc,
+                                              *draws)
+        single_acc = acc.permute(1, 2, 0, 3).reshape(n, -1,
+                                                     cfg.n_lieutenants)
+        n_recv_agrees(cfg, r, tp, got, dict(
+            fused_round=(new, vi_k, ovf_k), tiled_verdict=(single_acc, vi_k),
+            round_step=(new_mbox, vi_m, ovf_m)))
+        ms = dict(tiled_verdict=timed(rk.tiled_verdict, r, spool, sli, svi,
+                                      hc, *draws),
+                  tiled_rebuild=timed(rk.tiled_rebuild, r, spool, sli, acc,
+                                      hc, *draws[:2]),
+                  round_step=timed(rs.round_step, r, smbox, sli, svi, hc,
+                                   *draws))
+        want, plain_ms = {}, {}
+        want["tiled_verdict"], plain_ms["tiled_verdict"] = plain(
+            rk.verdict_reference, 3, spool, sli, svi, hc, *draws)
+        want["tiled_rebuild"], plain_ms["tiled_rebuild"] = plain(
+            rk.rebuild_reference, 3, spool, sli, acc, hc, *draws[:2])
+        want["round_step"], plain_ms["round_step"] = plain(
+            rs.round_step_reference, 3, smbox, sli, svi, hc, *draws)
+        errs = {k: tree_err(got[k], w) for k, w in want.items()}
+        if any(errs.values()):
+            raise AssertionError(f"n_recv kernel != plain version at {cfg} "
+                                 f"round {r}, tp {tp}: {errs}")
+        # What the rebuild must read: each destination's source packet.
+        rb = (single_acc != 0) & (r <= cfg.n_dishonest)
+        slot = torch.cumsum(rb.long(), 1) - rb.long()
+        write = rb & (slot < cfg.slots)
+        src_cnt = torch.where(pool[3][..., 2] != 0,
+                              pool[3][..., 0].clamp(0, cfg.max_l), 0)
+        dst = int(write.sum())
+        dst_rows = int((write.long() * src_cnt[..., None].long()).sum())
+        stats.append(dict(
+            round=r, live=live, rows=rows, dst=dst, max_abs_err=errs, ms=ms,
+            plain_ms=plain_ms,
+            bound={k: bound(*c) for k, c in n_recv_costs(
+                cfg, live, rows, dst, dst_rows, n, tp).items()}))
+        del spool, smbox, got, acc
+        pool, vi, mbox = new, vi_k, new_mbox
     return stats
 
 
@@ -624,23 +847,15 @@ def random_vs_plain(dev, n_trials=64):
         random_trial_inputs,
     )
 
-    errs = dict.fromkeys(ROUND_KERNELS + ("fused_round_n_recv",
-                                          "sharded_trial_megakernel"), 0)
+    errs = dict.fromkeys(ROUND_KERNELS + N_RECV_KERNELS
+                         + ("sharded_trial_megakernel",), 0)
     facts = []
     for i, (name, kw, r) in enumerate(RANDOM_ROUNDS):
         cfg = QBAConfig(**kw)
         for tp in shard_tps(cfg.n_lieutenants):
-            sargs = random_shard_inputs(cfg, tp, r, n_trials, seed=311 + i,
-                                        device=dev)
-            n_local = cfg.n_lieutenants // tp
-            got = rk.fused_round(cfg, r, *sargs, n_recv=n_local)
-            errs["fused_round_n_recv"] = max(
-                errs["fused_round_n_recv"], tree_err(
-                    got, rk.fused_round_reference(cfg, r, *sargs,
-                                                  n_recv=n_local)))
             facts.append(dict(case=f"{name} tp={tp}", n_recv=True,
-                              n_recv_accepted=int((got[1] - sargs[2]).sum()),
-                              overflow=int(got[2].sum())))
+                              **random_n_recv(cfg, r, tp, n_trials, 311 + i,
+                                              dev, errs)))
         args = random_round_inputs(cfg, r, n_trials, seed=100 + i, device=dev)
         pool, li, vi, hc, att, rv, late = args
         errs["fused_round"] = max(errs["fused_round"], tree_err(
@@ -686,11 +901,73 @@ def random_vs_plain(dev, n_trials=64):
                for f in facts):
         raise AssertionError(f"a random case reached no branch: {facts}")
     shard_facts = [f for f in facts if f.get("n_recv")]
-    if not (any(f["overflow"] for f in shard_facts)
-            and any(f["n_recv_accepted"] for f in shard_facts)):
-        raise AssertionError(f"the n_recv random cases accepted or "
-                             f"overflowed nowhere: {shard_facts}")
+    for k in ("fused", "tiled", "dense_acc", "mailbox"):
+        if not any(f[k + "_overflow"] for f in shard_facts):
+            raise AssertionError(f"the n_recv random cases ({k}) overflowed "
+                                 f"nowhere: {shard_facts}")
+    for k in ("fused", "tiled", "mailbox"):
+        if not any(f[k + "_accepted"] for f in shard_facts):
+            raise AssertionError(f"the n_recv random cases ({k}) accepted "
+                                 f"nothing: {shard_facts}")
     return errs, facts
+
+
+def random_n_recv(cfg, r, tp, n_trials, seed, dev, errs):
+    """The four ``n_recv`` kernels at ``tp`` shards against their plain
+    versions on seeded random shard inputs: assembled pools with an empty
+    segment, a full one and stale unsent entries between the segments
+    (the fused round, the verdict, the rebuild on the verdict's accepted
+    matrix and on a far denser one), and gathered mailboxes whose unsent
+    cells hold stale packets (the dense-mailbox round).  The largest
+    error per kernel goes into ``errs``; returns what each accepted and
+    how many shard-trials overflowed."""
+    import torch
+
+    from qba_tpu_torch.ops import round_kernel as rs
+    from qba_tpu_torch.ops import round_kernel_tiled as rk
+    from qba_tpu_torch.testing import (
+        dense_acc,
+        random_shard_inputs,
+        random_shard_mailbox_inputs,
+    )
+
+    kw = dict(n_recv=cfg.n_lieutenants // tp)
+    args = random_shard_inputs(cfg, tp, r, n_trials, seed=seed, device=dev)
+    pool, li, vi, hc, att, rv, late = args
+    # The plain fused round is the plain verdict, then the plain rebuild
+    # on its accepted matrix: each plain version runs once.
+    want_acc, want_vi = rk.verdict_reference(cfg, r, *args, **kw)
+    want_pool, want_ovf = rk.rebuild_reference(cfg, r, pool, li, want_acc,
+                                               hc, att, rv, **kw)
+    fused = rk.fused_round(cfg, r, *args, **kw)
+    errs["fused_round_n_recv"] = max(errs["fused_round_n_recv"], tree_err(
+        fused, (want_pool, want_vi, want_ovf)))
+    acc, vi2 = rk.tiled_verdict(cfg, r, *args, **kw)
+    errs["tiled_verdict_n_recv"] = max(errs["tiled_verdict_n_recv"],
+                                       tree_err((acc, vi2), (want_acc,
+                                                             want_vi)))
+    dense = torch.stack([dense_acc(cfg, tuple(x[s] for x in pool), seed=s)
+                         [..., :kw["n_recv"]] for s in range(tp)])
+    ovf = {}
+    for key, a, want in (
+            ("tiled", acc, (want_pool, want_ovf)),
+            ("dense_acc", dense, rk.rebuild_reference(
+                cfg, r, pool, li, dense, hc, att, rv, **kw))):
+        got = rk.tiled_rebuild(cfg, r, pool, li, a, hc, att, rv, **kw)
+        errs["tiled_rebuild_n_recv"] = max(errs["tiled_rebuild_n_recv"],
+                                           tree_err(got, want))
+        ovf[key] = int(got[1].sum())
+    margs = random_shard_mailbox_inputs(cfg, tp, r, n_trials, seed=seed,
+                                        device=dev)
+    step = rs.round_step(cfg, r, *margs, **kw)
+    errs["round_step_n_recv"] = max(errs["round_step_n_recv"], tree_err(
+        step, rs.round_step_reference(cfg, r, *margs, **kw)))
+    return dict(fused_accepted=int((fused[1] - vi).sum()),
+                fused_overflow=int(fused[2].sum()),
+                tiled_accepted=int(acc.sum()), tiled_overflow=ovf["tiled"],
+                dense_acc_overflow=ovf["dense_acc"],
+                mailbox_accepted=int((step[1] - margs[2]).sum()),
+                mailbox_overflow=int(step[2].sum()))
 
 
 CIRCUIT_ATOL = 1e-6
@@ -1233,7 +1510,9 @@ def drive(cfg, engine, mesh=None):
         cfg = dataclasses.replace(cfg, round_engine=engine)
     run = (qba_tpu_torch.run_trials if mesh is None
            else lambda c: run_trials_spmd(c, mesh))
+    t0 = time.perf_counter()
     fence(run(cfg))  # warm-up
+    warmup = time.perf_counter() - t0
     fns = wrappers()
     torch.cuda.reset_peak_memory_stats()
     for fn in fns.values():
@@ -1245,6 +1524,7 @@ def drive(cfg, engine, mesh=None):
     events = {k: fn.events for k, fn in fns.items()}
     for fn in fns.values():
         fn.events = None
+    drive.warmup_s = warmup
     return out, wall, launches, events, torch.cuda.max_memory_allocated()
 
 
@@ -1273,7 +1553,8 @@ def main(argv):
     logs = _build.build()
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for text in logs.values()
-             for ln in text.splitlines() if "registers" in ln or "spill" in ln]
+             for ln in text.splitlines()
+             if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
     log("build", seconds=build_s, kernels=list(logs), ptxas=ptxas)
 
     small = [
@@ -1665,7 +1946,7 @@ def main(argv):
 
     # The party-sharded path on one card: each trial's tp shards as one
     # thread-block cluster (auto), or per round the ring gather and the
-    # fused round's n_recv variant; results as the single-device batch.
+    # round's n_recv kernels; results as the single-device batch.
     from qba_tpu_torch.ops import round_kernel_tiled as rk
     from qba_tpu_torch.ops import trial_megakernel as tm
     from qba_tpu_torch.parallel import make_mesh
@@ -1683,15 +1964,21 @@ def main(argv):
             raise AssertionError(f"{name}: auto under tp={tp} is not the "
                                  "sharded megakernel")
         per_run = {}
-        for label, kw, per_batch in (
-                ("auto", {}, {"sharded_trial_megakernel": 1}),
-                ("pallas_fused ring", dict(round_engine="pallas_fused",
-                                           tp_comms="ring"),
-                 {"ring_gather": 4 * cfg.n_rounds,
-                  "fused_round": cfg.n_rounds}),
-                ("pallas_fused all_gather", dict(round_engine="pallas_fused",
-                                                 tp_comms="all_gather"),
-                 {"fused_round": cfg.n_rounds})):
+        n_r = cfg.n_rounds
+        # Per round: the ring once a leaf of the pool or mailbox (none
+        # with all_gather), then the round's n_recv kernels.
+        round_kernels = {"pallas_fused": {"fused_round": n_r},
+                         "pallas_tiled": {"tiled_verdict": n_r,
+                                          "tiled_rebuild": n_r},
+                         "pallas": {"round_step": n_r}}
+        mesh_runs_of = [("auto", {}, {"sharded_trial_megakernel": 1})]
+        for engine, ks in round_kernels.items():
+            for comms in ("ring", "all_gather"):
+                ring = {"ring_gather": 4 * n_r} if comms == "ring" else {}
+                mesh_runs_of.append((f"{engine} {comms}",
+                                     dict(round_engine=engine,
+                                          tp_comms=comms), {**ring, **ks}))
+        for label, kw, per_batch in mesh_runs_of:
             out, wall, counts, events, peak = drive(
                 dataclasses.replace(cfg, **kw), "auto", mesh)
             want = {k: per_batch.get(k, 0) for k in COUNTED}
@@ -1706,7 +1993,8 @@ def main(argv):
                                          f"single-device run_trials on {f}")
             per_run[label] = dict(
                 launches={k: n for k, n in counts.items() if n},
-                wall_s=wall, rounds_per_s=cfg.trials * cfg.n_rounds / wall,
+                wall_s=wall, warmup_s=drive.warmup_s,
+                rounds_per_s=cfg.trials * cfg.n_rounds / wall,
                 kernel_ms_per_launch={k: event_ms(ev)
                                       for k, ev in events.items() if ev},
                 success_rate=float(out.success_rate), peak_mem_bytes=peak)
@@ -1723,6 +2011,7 @@ def main(argv):
         ring = ring_timing([torch.stack(x) for x in zip(*segs)])
         del cells, segs
         sharded = sharded_mega_vs_plain(cfg, keys, tp, chunk=64, reps=3)
+        nstats = n_recv_replay(cfg, keys, tp, chunk=125)
         rounds = [(st["live"], st["rows"], st["dst"]) for st in stats]
         mb = bound(*mega_cost(cfg, rounds, cfg.trials))
         nb = [bound(*n_recv_cost(cfg, st["live"], st["rows"], st["dst"],
@@ -1737,10 +2026,25 @@ def main(argv):
                 ms=per_run["pallas_fused ring"]["kernel_ms_per_launch"]
                 ["fused_round"],
                 bound_ms=sum(b[0] for b in nb) / len(nb),
-                bound_by=max(nb)[1]))
+                bound_by=max(nb)[1]),
+            n_recv_replay=nstats)
+        for k, engine in (("tiled_verdict", "pallas_tiled"),
+                          ("tiled_rebuild", "pallas_tiled"),
+                          ("round_step", "pallas")):
+            run[k + "_n_recv"] = dict(
+                max_abs_err=max(st["max_abs_err"][k] for st in nstats),
+                ms=per_run[f"{engine} ring"]["kernel_ms_per_launch"][k],
+                replay_ms=sum(st["ms"][k] for st in nstats) / len(nstats),
+                plain_ms=sum(st["plain_ms"][k] for st in nstats)
+                / len(nstats),
+                bound_ms=sum(st["bound"][k][0] for st in nstats)
+                / len(nstats),
+                bound_by=max(st["bound"][k] for st in nstats)[1])
         log("mesh_vs_plain", config=name, tp=tp, tolerance=0, ring=ring,
             sharded_trial_megakernel=run["sharded_trial_megakernel"],
-            fused_round_n_recv=run["fused_round_n_recv"], plan=run["plan"])
+            **{k + "_n_recv": run[k + "_n_recv"]
+               for k in ("fused_round", "tiled_verdict", "tiled_rebuild",
+                         "round_step")}, plan=run["plan"])
         mesh_runs.append(run)
 
     # A small batch, where one block a trial leaves most SMs idle: the
@@ -1773,11 +2077,15 @@ def main(argv):
             "source": source,
             "replaces": replaces,
             "launches": launches[k],
-            # fused_round also runs the n_recv variant (the mesh path).
-            "max_abs_err": max([r["full_width_vs_plain"][k]["max_abs_err"]
-                                for r in runs] + [random_errs[k]]
-                               + ([random_errs["fused_round_n_recv"]]
-                                  if k == "fused_round" else [])),
+            # The round kernels also run their n_recv variants (the mesh
+            # path).
+            "max_abs_err": max(
+                [r["full_width_vs_plain"][k]["max_abs_err"] for r in runs]
+                + [random_errs[k]]
+                + ([random_errs[k + "_n_recv"]]
+                   + [r[k + "_n_recv"].get("max_abs_err", 0)
+                      for r in mesh_runs]
+                   if k + "_n_recv" in N_RECV_KERNELS else [])),
             "ms": e["kernel_ms_per_launch"][k],
             "plain_ms": big["full_width_vs_plain"][k]["plain_ms"],
             "bound_ms": e["bound_ms"][k],

@@ -1,29 +1,36 @@
 #!/usr/bin/env python3
-"""Time the port's single-device round kernels of one checkout on a CUDA
-card, to compare two checkouts (a parent and a change) on one card.
+"""Time the port's round kernels of one checkout on a CUDA card, to
+compare two checkouts (a parent and a change) on one card.
 
     python3 examples/torch_kernel_ab.py ROOT [--config 33p|11p] [--reps N]
 
 imports ``qba_tpu_torch`` from the checkout at ``ROOT`` (built there on
 first use), replays every round of a 1000-trial batch of the config with
-the fused round kernel, and times on each round's inputs the fused round,
-the tiled verdict and the dense-mailbox round kernel (CUDA events over
-``--reps`` launches), then the trial megakernel on the whole batch.
-Prints one JSON line: the card, the checkout and each kernel's mean ms
-per launch over the rounds.  Run it for the two checkouts in turns
-(parent, change, change, parent, ...) back to back: a card's clocks
-drift, so only times taken side by side compare.
+the fused round kernel, and times on each round's inputs the
+single-device fused round, tiled verdict, tiled rebuild and dense-mailbox
+round kernels, and the ``n_recv`` variant of each at the config's ``tp``
+(4 at 33p, 2 at 11p; each shard on its copy of the round's pool or
+mailbox), where the checkout has it (CUDA events over ``--reps``
+launches queued behind a sleep kernel, so that the host's launch rate
+does not enter the times); then the trial megakernel on the whole
+batch.  Prints one JSON line: the card, the checkout and each kernel's
+mean ms per launch over the rounds (null for a variant the checkout
+lacks).  Run it for the two checkouts in turns (parent, change, change,
+parent, ...) back to back: a card's clocks drift, so only times taken
+side by side compare.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import subprocess
 import sys
 
 CONFIGS = {"33p": dict(n_parties=33, size_l=64, n_dishonest=10),
            "11p": dict(n_parties=11, size_l=64, n_dishonest=3)}
+TP = {"33p": 4, "11p": 2}
 
 
 def main(argv):
@@ -57,6 +64,9 @@ def main(argv):
     def ms(fn, *a, **kw):
         fn(*a, **kw)
         fn.events = []
+        # A head start on the card: the launches queue behind the sleep,
+        # so their events time the kernels, not the host's launch rate.
+        torch.cuda._sleep(20_000_000)
         for _ in range(args.reps):
             fn(*a, **kw)
         torch.cuda.synchronize()
@@ -75,7 +85,20 @@ def main(argv):
     spare = rk.empty_pool(cfg, cfg.trials, dev)
     mbox = rs.mailbox_from_step3a(cfg, cells)
     mbox_spare = rs.empty_mailbox(cfg, cfg.trials, dev)
-    times = {"fused_round": [], "tiled_verdict": [], "round_step": []}
+    tp = TP[args.config]
+    n_local = cfg.n_lieutenants // tp
+    kernels = ("fused_round", "tiled_verdict", "tiled_rebuild", "round_step")
+    times = {k + sfx: [] for k in kernels for sfx in ("", "_n_recv")}
+    sharded = {k: "n_recv" in inspect.signature(fn).parameters
+               for k, fn in (("fused_round", rk.fused_round),
+                             ("tiled_verdict", rk.tiled_verdict),
+                             ("tiled_rebuild", rk.tiled_rebuild),
+                             ("round_step", rs.round_step))}
+    tiled_spare = rk.empty_pool(cfg, cfg.trials, dev)
+
+    def shards(x):
+        return x.expand((tp,) + x.shape).contiguous()
+
     for r in range(1, cfg.n_rounds + 1):
         draws = tuple(x.to(torch.uint8) for x in sample_attacks_round(
             cfg, jr.fold_in(k_rounds, r), r, ctx))
@@ -83,8 +106,36 @@ def main(argv):
                                        hc, *draws, out=spare))
         times["tiled_verdict"].append(ms(rk.tiled_verdict, cfg, r, pool, li,
                                          vi, hc, *draws))
+        acc = rk.tiled_verdict(cfg, r, pool, li, vi, hc, *draws)[0]
+        times["tiled_rebuild"].append(ms(rk.tiled_rebuild, cfg, r, pool, li,
+                                         acc, hc, *draws[:2],
+                                         out=tiled_spare))
         times["round_step"].append(ms(rs.round_step, cfg, r, mbox, li, vi,
                                       hc, *draws, out=mbox_spare))
+        # The n_recv variants, each shard on its copy of the round's pool
+        # (or mailbox).
+        if any(sharded.values()):
+            spool, smbox = tuple(map(shards, pool)), tuple(map(shards, mbox))
+            sli = rk.shard_receivers(li, tp)
+            svi = rk.shard_receivers(vi, tp)
+        kw = dict(n_recv=n_local)
+        if sharded["fused_round"]:
+            times["fused_round_n_recv"].append(ms(
+                rk.fused_round, cfg, r, spool, sli, svi, hc, *draws, **kw))
+        if sharded["tiled_verdict"]:
+            times["tiled_verdict_n_recv"].append(ms(
+                rk.tiled_verdict, cfg, r, spool, sli, svi, hc, *draws, **kw))
+            sacc = rk.tiled_verdict(cfg, r, spool, sli, svi, hc, *draws,
+                                    **kw)[0]
+            times["tiled_rebuild_n_recv"].append(ms(
+                rk.tiled_rebuild, cfg, r, spool, sli, sacc, hc, *draws[:2],
+                **kw))
+            del sacc
+        if sharded["round_step"]:
+            times["round_step_n_recv"].append(ms(
+                rs.round_step, cfg, r, smbox, sli, svi, hc, *draws, **kw))
+        if any(sharded.values()):
+            del spool, smbox
         # The next round's inputs: both engines advance from the same vi.
         new_mbox = rs.round_step(cfg, r, mbox, li, vi, hc, *draws,
                                  out=mbox_spare)[0]
@@ -100,8 +151,9 @@ def main(argv):
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(json.dumps({"card": card, "root": args.root, "config": args.config,
-                      "trials": cfg.trials, "reps": args.reps,
-                      **{k: sum(v) / len(v) for k, v in times.items()},
+                      "trials": cfg.trials, "reps": args.reps, "tp": tp,
+                      **{k: sum(v) / len(v) if v else None
+                         for k, v in times.items()},
                       "trial_megakernel": mega}))
     return 0
 

@@ -75,18 +75,26 @@ def stacked_draws_from_numpy(attack, rand_v, late, device=None):
     return tuple(x.contiguous() for x in out)
 
 
-def mailbox_from_numpy(vals, lens, count, p, v, sent, device=None):
+def mailbox_from_numpy(vals, lens, count, p, v, sent, device=None, *,
+                       start: int = 0, slots: int | None = None):
     """The port's packed mailbox (see
     :mod:`qba_tpu_torch.ops.round_kernel`) from the JAX round kernel's
     packed operands with a leading trial axis: ``vals`` ``[T, max_l, n_pk,
     S]``, ``lens`` ``[T, n_pk, max_l]``, ``count``/``v``/``sent`` ``[T,
-    n_pk, 1]``, ``p`` ``[T, n_pk, S]``."""
+    n_pk, 1]``, ``p`` ``[T, n_pk, S]``.  A cell's ``cell`` lane is its
+    index; for the local mailbox of a shard whose first receiver is
+    ``start`` (the JAX kernel's ``n_recv`` output), its global index
+    ``start * slots + i``."""
     vals = np.asarray(vals).astype(np.int32).transpose(0, 2, 1, 3)
     p = np.asarray(p).astype(np.int32)
     if vals.min(initial=0) < -1 or vals.max(initial=0) > 127:
         raise ValueError("mailbox values outside the int8 range [-1, 127]")
+    if start and slots is None:
+        raise ValueError("a shard's mailbox (start > 0) needs slots")
     n_trials, n_pk = vals.shape[:2]
-    cells = np.broadcast_to(np.arange(n_pk, dtype=np.int32), (n_trials, n_pk))
+    first = start * slots if start else 0
+    cells = np.broadcast_to(first + np.arange(n_pk, dtype=np.int32),
+                            (n_trials, n_pk))
     meta = np.stack(
         [np.asarray(x).astype(np.int32).reshape(n_trials, n_pk)
          for x in (count, v, sent)] + [cells], axis=-1)
@@ -136,11 +144,10 @@ def gen_operands_from_numpy(qcorr, coins, r_q, r_nq, mflip, device=None):
     return tuple(out)
 
 
-def shards_from_numpy(shards, kind: str = "pool", device=None):
-    """Per-shard state of a party-sharded run (one entry per ``tp``
+def shards_from_numpy(shards, device=None):
+    """Per-shard pools of a party-sharded run (one entry per ``tp``
     shard, in tp order, each the numpy arrays that :func:`pool_from_numpy`
-    or :func:`mailbox_from_numpy` take, with a leading trial axis) as the
-    port's stacked layout: each tensor ``[n_tp, T, ...]``."""
-    convert = {"pool": pool_from_numpy, "mailbox": mailbox_from_numpy}[kind]
-    parts = [convert(*s, device=device) for s in shards]
+    takes, with a leading trial axis) as the port's stacked layout: each
+    tensor ``[n_tp, T, ...]``."""
+    parts = [pool_from_numpy(*s, device=device) for s in shards]
     return tuple(torch.stack(x) for x in zip(*parts))

@@ -52,8 +52,10 @@
 // n_shards shards of a batch at once: block b is shard b / T of trial
 // b % T, whose receivers start at start + (b / T) * n_local.  The
 // single-device kernel is the case n_shards = 1, start = 0, n_local =
-// n_glob, so both are one source.  Only sent packets are read, so the
-// assembled pool may hold empty entries between the segments.
+// n_glob, so both are one source, instantiated twice: the single-device
+// instantiation fixes the shard terms at compile time (BlockAt in
+// round_common.cuh).  Only sent packets are read, so the assembled pool
+// may hold empty entries between the segments.
 //
 // Layouts (shard- and trial-major, contiguous; B = n_shards * T): vals
 // int8 [B, max_l, n_pool, S], lens int32 [B, n_pool, max_l], p int8
@@ -89,16 +91,13 @@ struct Params {
   int n_trials, start, n_dis, round_idx, use_fp;
 };
 
-// Three blocks per SM (at most 85 registers a thread), as the
-// megakernel over the same phases.
-__global__ void __launch_bounds__(kThreads, 3)
-fused_round_kernel(Params P) {
+// One block's round; kSharded: see BlockAt.
+template <bool kSharded>
+__device__ __forceinline__ void fused_round_body(const Params& P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int shard = int(blockIdx.x) / P.n_trials;
-  const size_t b = blockIdx.x;
-  const size_t t = size_t(int(blockIdx.x) - shard * P.n_trials);
-  Dims d = P.d;
-  d.r_off = P.start + shard * d.n_rv;
+  const BlockAt<kSharded> at(P.n_trials);
+  const size_t b = blockIdx.x, t = at.t;
+  const Dims d = at.dims(P.d, P.start);
   const int n_pool = d.n_pool();
   const Shared sh(smem_raw, d);
   const PoolIn in = pool_at(P.vals, P.lens, P.p, P.meta, b, n_pool, d);
@@ -130,6 +129,18 @@ fused_round_kernel(Params P) {
   fill_dead_tail(out, d, total);
 }
 
+// The two instantiations differ in their launch bounds.  The party-
+// sharded kernel asks for three blocks per SM (at most 85 registers a
+// thread), as the megakernel over the same phases: left to itself the
+// compiler took it to 128 registers with a spill.  The single-device
+// kernel is left to the compiler: it keeps 80 registers either way, but
+// the bound cost it 7% at 33 parties.
+__global__ void __launch_bounds__(kThreads)
+fused_round_single(Params P) { fused_round_body<false>(P); }
+
+__global__ void __launch_bounds__(kThreads, 3)
+fused_round_sharded(Params P) { fused_round_body<true>(P); }
+
 }  // namespace
 
 // Returns a cudaError_t: 0 on a launch that was accepted.  n_local
@@ -142,8 +153,9 @@ extern "C" int qba_fused_round(
     int n_shards, int n_local, int n_glob, int start, int slots, int max_l,
     int size_l, int w, int n_dis, int round_idx, int use_fp, void* stream) {
   if (n_trials <= 0 || n_shards <= 0) return 0;
-  const Dims d{n_local, slots, max_l, size_l, w, start, n_glob};
-  if (!dims_ok(d) || start + n_shards * n_local > n_glob)
+  Dims d;
+  if (!launch_dims(n_shards, n_local, n_glob, start, slots, max_l, size_l, w,
+                   &d))
     return int(cudaErrorInvalidValue);
   Params prm;
   prm.vals = static_cast<const int8_t*>(vals);
@@ -168,9 +180,12 @@ extern "C" int qba_fused_round(
   prm.n_dis = n_dis;
   prm.round_idx = round_idx;
   prm.use_fp = use_fp;
+  const auto kernel = sharded_launch(n_shards, n_local, n_glob)
+                          ? fused_round_sharded
+                          : fused_round_single;
   size_t smem = 0;
-  if (int e = prepare_smem(fused_round_kernel, d, &smem)) return e;
-  fused_round_kernel<<<n_trials * n_shards, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(prm);
+  if (int e = prepare_smem(kernel, d, &smem)) return e;
+  kernel<<<n_trials * n_shards, kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(prm);
   return int(cudaGetLastError());
 }

@@ -56,6 +56,44 @@ __host__ __device__ inline Dims make_dims(int n_rv, int slots, int max_l,
   return Dims{n_rv, slots, max_l, size_l, w, 0, n_rv};
 }
 
+// The per-round kernels launch one block per (shard, trial), shard-major:
+// block b is shard b / n_trials of trial b % n_trials, whose receivers
+// are the global [start + shard * n_rv, ...).  The shard switch is a
+// compile-time choice: the single-device instantiation (kSharded false)
+// has one shard, r_off = 0 and n_glob = n_rv as constants, so its index
+// arithmetic carries nothing of the shards.
+template <bool kSharded>
+struct BlockAt {
+  int shard;
+  size_t t;
+  __device__ explicit BlockAt(int n_trials) {
+    if constexpr (kSharded) {
+      shard = int(blockIdx.x) / n_trials;
+      t = size_t(int(blockIdx.x) - shard * n_trials);
+    } else {
+      shard = 0;
+      t = blockIdx.x;
+    }
+  }
+  // The block's round dims, from the launch's (n_rv the block's).
+  __device__ Dims dims(const Dims& d, int start) const {
+    Dims b = d;
+    if constexpr (kSharded) {
+      b.r_off = start + shard * d.n_rv;
+    } else {
+      b.r_off = 0;
+      b.n_glob = d.n_rv;
+    }
+    return b;
+  }
+};
+
+// Whether a launch needs the party-sharded instantiation: any that does
+// not drain every receiver in one shard.
+inline bool sharded_launch(int n_shards, int n_local, int n_glob) {
+  return n_shards > 1 || n_local != n_glob;
+}
+
 // Index of the block's receiver rv's draw of cell `cell` in a
 // [n_pool, n_glob] table whose pointer draws_at already moved to the
 // block's first receiver's column.
@@ -573,6 +611,15 @@ inline bool dims_ok(const Dims& d) {
   return d.n_rv >= 1 && d.n_glob <= 64 && d.w >= 1 && d.w <= 64 &&
          d.max_l >= 1 && d.max_l <= 64 && d.slots >= 1 && d.size_l >= 1 &&
          d.r_off >= 0 && d.r_off + d.n_rv <= d.n_glob;
+}
+
+// The launch dims of n_shards shards of n_local receivers from receiver
+// `start` of n_glob (r_off holds `start`), or false where they do not fit.
+inline bool launch_dims(int n_shards, int n_local, int n_glob, int start,
+                        int slots, int max_l, int size_l, int w, Dims* d) {
+  *d = Dims{n_local, slots, max_l, size_l, w, start, n_glob};
+  return n_shards >= 1 && dims_ok(*d) &&
+         start + n_shards * n_local <= n_glob;
 }
 
 }  // namespace qba

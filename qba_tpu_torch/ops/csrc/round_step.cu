@@ -30,9 +30,19 @@
 // groups, tail-overlap group and `done` set fill 128 TPU lanes and have
 // no counterpart.
 //
-// Not ported: the party-sharded variant (n_recv receivers from a runtime
-// offset), which belongs to the mesh paths, and the compile probes and
-// VMEM pre-filter, which are TPU machinery.
+// The party-sharded variant (the TPU kernel's n_recv build), as in
+// fused_round.cu: a launch takes n_shards shards of a batch, a block per
+// (shard, trial), shard-major, whose receivers are the global [start +
+// shard * n_local, ...) of n_glob.  A shard drains them against its copy
+// of the gathered GLOBAL mailbox (n_pk = n_glob * slots cells; unsent
+// cells are skipped, whatever stale rows they hold) and writes its LOCAL
+// mailbox of n_local * slots cells: local receiver r's rebroadcast in
+// slot s at local cell r * slots + s, every cell's lane 3 its GLOBAL id,
+// so that the segments concatenated in shard order are again a mailbox
+// whose cells carry their own index.  The kernel is instantiated for one
+// shard too, with the shard terms fixed at compile time (BlockAt in
+// round_common.cuh): the single-device kernel.  Not ported: the compile
+// probes and VMEM pre-filter, which are TPU machinery.
 //
 // Bound on this card: bytes.  Per trial and round: every cell's meta
 // (16 B, the scan), the sent cells' valid rows, lens and P, their three
@@ -41,11 +51,12 @@
 // parties / sizeL 64 / 10 dishonest the successor is 1,835,008 B per
 // trial, and most rounds write nothing else.
 //
-// Layouts (trial-major, contiguous): vals int8 [T, n_pk, max_l, S], lens
-// int32 [T, n_pk, max_l], p int8 [T, n_pk, S], meta int32 [T, n_pk, 4] =
-// (count, v, sent, cell = pk), li int32 [T, n_rv, S], vi int32
-// [T, n_rv, w], honest int32 [T, n_pk], draws uint8 [T, n_pk, n_rv];
-// n_pk = n_rv * slots.
+// Layouts (shard- and trial-major, contiguous; B = n_shards * T): vals
+// int8 [B, n_pk, max_l, S], lens int32 [B, n_pk, max_l], p int8 [B, n_pk,
+// S], meta int32 [B, n_pk, 4] = (count, v, sent, cell = pk), li int32
+// [B, n_local, S], vi int32 [B, n_local, w], honest int32 [T, n_pk],
+// draws uint8 [T, n_pk, n_glob]; the successor mailboxes as the mailboxes
+// with n_local * slots cells; n_pk = n_glob * slots.
 
 #include "round_common.cuh"
 
@@ -71,45 +82,54 @@ struct Params {
   int32_t* o_vi;
   int32_t* o_ovf;
   Dims d;
-  int n_dis, round_idx, use_fp;
+  int n_trials, start, n_dis, round_idx, use_fp;
 };
 
 // One trial's mailbox: a pool in packet-major layout.
 using MailIn = PoolInT<true>;
 using MailOut = PoolOutT<true>;
 
+// Block b's mailbox of n_cells cells.
 __device__ inline MailIn mailbox_at(const int8_t* vals, const int32_t* lens,
                                     const int8_t* p, const int32_t* meta,
-                                    size_t t, const Dims& d) {
-  const size_t n_pk = d.n_pool(), S = d.size_l, max_l = d.max_l;
-  return MailIn{vals + t * n_pk * max_l * S, lens + t * n_pk * max_l,
-                p + t * n_pk * S, meta + t * n_pk * 4, 0};
+                                    size_t b, int n_cells, const Dims& d) {
+  const size_t n = n_cells, S = d.size_l, max_l = d.max_l;
+  return MailIn{vals + b * n * max_l * S, lens + b * n * max_l,
+                p + b * n * S, meta + b * n * 4, 0};
 }
 __device__ inline MailOut mailbox_at(int8_t* vals, int32_t* lens, int8_t* p,
-                                     int32_t* meta, size_t t, const Dims& d) {
-  const size_t n_pk = d.n_pool(), S = d.size_l, max_l = d.max_l;
-  return MailOut{vals + t * n_pk * max_l * S, lens + t * n_pk * max_l,
-                 p + t * n_pk * S, meta + t * n_pk * 4, 0};
+                                     int32_t* meta, size_t b, int n_cells,
+                                     const Dims& d) {
+  const size_t n = n_cells, S = d.size_l, max_l = d.max_l;
+  return MailOut{vals + b * n * max_l * S, lens + b * n * max_l,
+                 p + b * n * S, meta + b * n * 4, 0};
 }
 
+// The single-device instantiation takes the host's dims (r_off = 0 and
+// n_glob = n_rv at run time, n_pk successor cells from cell 0): with the
+// constants of BlockAt::dims folded in, the compiler spilled 28 bytes.
+template <bool kSharded>
 __global__ void __launch_bounds__(kThreads)
 round_step_kernel(Params P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Dims d = P.d;
-  const int n_pk = d.n_pool(), slots = d.slots, max_l = d.max_l;
-  const int S = d.size_l;
+  const BlockAt<kSharded> at(P.n_trials);
+  const size_t b = blockIdx.x, t = at.t;
+  const Dims d = kSharded ? at.dims(P.d, P.start) : P.d;
+  const int n_pk = d.n_pool(), slots = d.slots;
+  const int n_out = kSharded ? d.n_out() : n_pk;
+  const int max_l = d.max_l, S = d.size_l;
   const Shared sh(smem_raw, d);
-  const size_t t = blockIdx.x;
-  const MailIn in = mailbox_at(P.vals, P.lens, P.p, P.meta, t, d);
-  const MailOut out = mailbox_at(P.o_vals, P.o_lens, P.o_p, P.o_meta, t, d);
-  const int32_t* li = P.li + t * size_t(d.n_rv) * S;
+  const MailIn in = mailbox_at(P.vals, P.lens, P.p, P.meta, b, n_pk, d);
+  const MailOut out =
+      mailbox_at(P.o_vals, P.o_lens, P.o_p, P.o_meta, b, n_out, d);
+  const int32_t* li = P.li + b * size_t(d.n_rv) * S;
   const int32_t* honest = P.honest + t * size_t(n_pk);
   const Draws dr = draws_at(P.attack, P.rand_v, P.late, t, d);
   const int warp = threadIdx.x >> 5;
 
   // Setup: zeroed verdicts, vi as masks, one past the last sent cell.
   clear_round(sh, n_pk);
-  load_vi_mask(sh, P.vi + t * size_t(d.n_rv) * d.w, d);
+  load_vi_mask(sh, P.vi + b * size_t(d.n_rv) * d.w, d);
   __syncthreads();
   scan_extent(sh, in.meta, n_pk);
   __syncthreads();
@@ -122,13 +142,13 @@ round_step_kernel(Params P) {
   dedup_phase(sh, in.meta, honest, dr, d, n_scan, P.round_idx <= P.n_dis,
               nullptr);
   __syncthreads();
-  store_vi(sh, P.o_vi + t * size_t(d.n_rv) * d.w, d);
-  if (threadIdx.x == 0) P.o_ovf[t] = sh.misc[1];
+  store_vi(sh, P.o_vi + b * size_t(d.n_rv) * d.w, d);
+  if (threadIdx.x == 0) P.o_ovf[b] = sh.misc[1];
 
   // Rebuild: a warp per live destination cell c = receiver * slots +
-  // slot; then each receiver's unsent slots, which are contiguous in
-  // every array, filled by the whole block.
-  for (int c = warp; c < n_pk; c += kWarps) {
+  // slot of the block's receivers; then each receiver's unsent slots,
+  // which are contiguous in every array, filled by the whole block.
+  for (int c = warp; c < n_out; c += kWarps) {
     const int rr = c / slots, slot = c - rr * slots;
     if (slot < sh.k_cnt[rr])
       rebuild_entry(in, out, li, honest, dr, d, c, rr, slot, sh.src_list[c],
@@ -143,26 +163,30 @@ round_step_kernel(Params P) {
                dead * max_l * 4, 0);
     block_fill(out.p + size_t(first) * S, dead * S, 0);
   }
-  for (int c = threadIdx.x; c < n_pk; c += kThreads) {
+  const int cell0 = kSharded ? d.r_off * slots : 0;  // first global cell
+  for (int c = threadIdx.x; c < n_out; c += kThreads) {
     const int rr = c / slots;
     if (c - rr * slots >= sh.k_cnt[rr])
-      reinterpret_cast<int4*>(out.meta)[c] = make_int4(0, 0, 0, c);
+      reinterpret_cast<int4*>(out.meta)[c] = make_int4(0, 0, 0, cell0 + c);
   }
 }
 
 }  // namespace
 
-// Returns a cudaError_t: 0 on a launch that was accepted.
+// Returns a cudaError_t: 0 on a launch that was accepted.  n_local
+// receivers a shard, n_shards shards from receiver `start` on, of n_glob.
 extern "C" int qba_round_step(
     const void* vals, const void* lens, const void* p, const void* meta,
     const void* li, const void* vi, const void* honest, const void* attack,
     const void* rand_v, const void* late, void* o_vals, void* o_lens,
     void* o_p, void* o_meta, void* o_vi, void* o_ovf, int n_trials,
-    int n_rv, int slots, int max_l, int size_l, int w, int n_dis,
-    int round_idx, int use_fp, void* stream) {
-  if (n_trials <= 0) return 0;
-  const Dims d = make_dims(n_rv, slots, max_l, size_l, w);
-  if (!dims_ok(d)) return int(cudaErrorInvalidValue);
+    int n_shards, int n_local, int n_glob, int start, int slots, int max_l,
+    int size_l, int w, int n_dis, int round_idx, int use_fp, void* stream) {
+  if (n_trials <= 0 || n_shards <= 0) return 0;
+  Dims d;
+  if (!launch_dims(n_shards, n_local, n_glob, start, slots, max_l, size_l, w,
+                   &d))
+    return int(cudaErrorInvalidValue);
   Params prm;
   prm.vals = static_cast<const int8_t*>(vals);
   prm.lens = static_cast<const int32_t*>(lens);
@@ -181,12 +205,17 @@ extern "C" int qba_round_step(
   prm.o_vi = static_cast<int32_t*>(o_vi);
   prm.o_ovf = static_cast<int32_t*>(o_ovf);
   prm.d = d;
+  prm.n_trials = n_trials;
+  prm.start = start;
   prm.n_dis = n_dis;
   prm.round_idx = round_idx;
   prm.use_fp = use_fp;
+  const auto kernel = sharded_launch(n_shards, n_local, n_glob)
+                          ? round_step_kernel<true>
+                          : round_step_kernel<false>;
   size_t smem = 0;
-  if (int e = prepare_smem(round_step_kernel, d, &smem)) return e;
-  round_step_kernel<<<n_trials, kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(prm);
+  if (int e = prepare_smem(kernel, d, &smem)) return e;
+  kernel<<<n_trials * n_shards, kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(prm);
   return int(cudaGetLastError());
 }

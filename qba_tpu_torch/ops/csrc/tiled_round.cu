@@ -6,9 +6,10 @@
 // Replaces the TPU kernels qba_tpu/ops/round_kernel_tiled.py ::
 // build_verdict_kernel (pallas_call at line 563) and ::
 // build_rebuild_kernel (pallas_call at line 1200), the `pallas_tiled`
-// engine.  The plain PyTorch versions they are held against are
+// engine, and their party-sharded n_recv builds.  The plain PyTorch
+// versions they are held against are
 // qba_tpu_torch/ops/round_kernel_tiled.py :: verdict_reference and
-// :: rebuild_reference.
+// :: rebuild_reference (per shard in the n_recv variant).
 //
 // Design.  The fused round kernel's phases (round_common.cuh), one block
 // per trial, cut after phase B:
@@ -21,13 +22,28 @@
 // across the steps; here a block holds a whole trial, so no carry
 // crosses blocks.
 //
+// The party-sharded variant, as in fused_round.cu: a launch takes
+// n_shards shards of a batch, a block per (shard, trial), shard-major;
+// a shard's receivers are the global [start + shard * n_local, ...) of
+// n_glob.  Its verdict drains them against its copy of the assembled
+// pool, whose entries between the segments are unsent: phase A skips
+// them and their rows of acc stay zero, so the rebuild's slot walk sees
+// the accepted packets in the global (sender, slot) order the dedup
+// gave them.  Its rebuild writes the shard's LOCAL successor segment
+// (capacity n_local * slots, compacted, global cell ids) and reads its
+// receivers' columns of the global draw tables.  Each kernel is
+// instantiated for one shard too, with the shard terms fixed at compile
+// time (BlockAt in round_common.cuh): the single-device kernels.
+//
 // Bound on this card: bytes.  The verdict reads the live packets' valid
 // rows, lens, P, meta and draws, li and vi, and writes acc (4 B per
 // packet and receiver) and vi.  The rebuild reads acc, the accepted
 // packets' rows, li and draws, and writes the whole successor pool.
 // Compared with the fused kernel the pair moves acc through HBM twice.
 //
-// Layouts as fused_round.cu; acc int32 [T, n_pool, n_rv].
+// Layouts as fused_round.cu (B = n_shards * T blocks; pool, li, vi and
+// acc per block, honesty and draws per trial); acc int32 [B, n_pool,
+// n_local].
 
 #include "round_common.cuh"
 
@@ -49,7 +65,7 @@ struct VerdictParams {
   int32_t* o_acc;
   int32_t* o_vi;
   Dims d;
-  int round_idx, use_fp;
+  int n_trials, start, round_idx, use_fp;
 };
 
 struct RebuildParams {
@@ -68,24 +84,26 @@ struct RebuildParams {
   int32_t* o_meta;
   int32_t* o_ovf;
   Dims d;
-  int n_dis, round_idx, use_fp;
+  int n_trials, start, n_dis, round_idx, use_fp;
 };
 
+template <bool kSharded>
 __global__ void __launch_bounds__(kThreads)
 tiled_verdict_kernel(VerdictParams P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Dims d = P.d;
+  const BlockAt<kSharded> at(P.n_trials);
+  const size_t b = blockIdx.x, t = at.t;
+  const Dims d = at.dims(P.d, P.start);
   const int n_pool = d.n_pool();
   const Shared sh(smem_raw, d);
-  const size_t t = blockIdx.x;
-  const PoolIn in = pool_at(P.vals, P.lens, P.p, P.meta, t, n_pool, d);
-  const int32_t* li = P.li + t * size_t(d.n_rv) * d.size_l;
+  const PoolIn in = pool_at(P.vals, P.lens, P.p, P.meta, b, n_pool, d);
+  const int32_t* li = P.li + b * size_t(d.n_rv) * d.size_l;
   const int32_t* honest = P.honest + t * size_t(n_pool);
   const Draws dr = draws_at(P.attack, P.rand_v, P.late, t, d);
-  int32_t* acc = P.o_acc + t * size_t(n_pool) * d.n_rv;
+  int32_t* acc = P.o_acc + b * size_t(n_pool) * d.n_rv;
 
   clear_round(sh, n_pool);
-  load_vi_mask(sh, P.vi + t * size_t(d.n_rv) * d.w, d);
+  load_vi_mask(sh, P.vi + b * size_t(d.n_rv) * d.w, d);
   __syncthreads();
   scan_extent(sh, in.meta, n_pool);
   __syncthreads();
@@ -97,32 +115,38 @@ tiled_verdict_kernel(VerdictParams P) {
   block_fill(reinterpret_cast<int8_t*>(acc + size_t(n_scan) * d.n_rv),
              size_t(n_pool - n_scan) * d.n_rv * 4, 0);
   __syncthreads();
-  store_vi(sh, P.o_vi + t * size_t(d.n_rv) * d.w, d);
+  store_vi(sh, P.o_vi + b * size_t(d.n_rv) * d.w, d);
 }
 
+// The single-device instantiation takes the host's dims (r_off = 0 and
+// n_glob = n_rv at run time, the successor pool's capacity n_pool): with
+// the constants of BlockAt::dims folded in, the compiler took it from 64
+// registers to 80 with a spill, and 12% more time at 33 parties.
+template <bool kSharded>
 __global__ void __launch_bounds__(kThreads)
 tiled_rebuild_kernel(RebuildParams P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Dims d = P.d;
+  const BlockAt<kSharded> at(P.n_trials);
+  const size_t b = blockIdx.x, t = at.t;
+  const Dims d = kSharded ? at.dims(P.d, P.start) : P.d;
   const int n_pool = d.n_pool();
   const Shared sh(smem_raw, d);
-  const size_t t = blockIdx.x;
-  const PoolIn in = pool_at(P.vals, P.lens, P.p, P.meta, t, n_pool, d);
-  const PoolOut out =
-      pool_at(P.o_vals, P.o_lens, P.o_p, P.o_meta, t, n_pool, d);
-  const int32_t* li = P.li + t * size_t(d.n_rv) * d.size_l;
+  const PoolIn in = pool_at(P.vals, P.lens, P.p, P.meta, b, n_pool, d);
+  const PoolOut out = pool_at(P.o_vals, P.o_lens, P.o_p, P.o_meta, b,
+                              kSharded ? d.n_out() : n_pool, d);
+  const int32_t* li = P.li + b * size_t(d.n_rv) * d.size_l;
   const int32_t* honest = P.honest + t * size_t(n_pool);
-  const int32_t* acc = P.acc + t * size_t(n_pool) * d.n_rv;
+  const int32_t* acc = P.acc + b * size_t(n_pool) * d.n_rv;
   // Phase D reads no late draw.
-  const Draws dr{P.attack + t * size_t(n_pool) * d.n_rv,
-                 P.rand_v + t * size_t(n_pool) * d.n_rv, nullptr};
+  Draws dr = draws_at(P.attack, P.rand_v, P.attack, t, d);
+  dr.late = nullptr;
 
   if (threadIdx.x == 0) sh.misc[1] = 0;
   __syncthreads();
   slots_from_acc(sh, acc, d, n_pool, P.round_idx <= P.n_dis);
   __syncthreads();
   offsets_phase(sh, d.n_rv);
-  if (threadIdx.x == 0) P.o_ovf[t] = sh.misc[1];
+  if (threadIdx.x == 0) P.o_ovf[b] = sh.misc[1];
   __syncthreads();
   const int total = sh.offs[d.n_rv];
   rebuild_phase(sh, in, out, li, honest, dr, d, total, P.use_fp);
@@ -131,16 +155,20 @@ tiled_rebuild_kernel(RebuildParams P) {
 
 }  // namespace
 
-// Returns a cudaError_t: 0 on a launch that was accepted.
+// Returns a cudaError_t: 0 on a launch that was accepted.  n_local
+// receivers a shard, n_shards shards from receiver `start` on, of n_glob.
 extern "C" int qba_tiled_verdict(
     const void* vals, const void* lens, const void* p, const void* meta,
     const void* li, const void* vi, const void* honest, const void* attack,
     const void* rand_v, const void* late, void* o_acc, void* o_vi,
-    int n_trials, int n_rv, int slots, int max_l, int size_l, int w,
-    int round_idx, int use_fp, void* stream) {
-  if (n_trials <= 0) return 0;
-  const Dims d = make_dims(n_rv, slots, max_l, size_l, w);
-  if (!dims_ok(d)) return int(cudaErrorInvalidValue);
+    int n_trials, int n_shards, int n_local, int n_glob, int start,
+    int slots, int max_l, int size_l, int w, int round_idx, int use_fp,
+    void* stream) {
+  if (n_trials <= 0 || n_shards <= 0) return 0;
+  Dims d;
+  if (!launch_dims(n_shards, n_local, n_glob, start, slots, max_l, size_l, w,
+                   &d))
+    return int(cudaErrorInvalidValue);
   VerdictParams prm;
   prm.vals = static_cast<const int8_t*>(vals);
   prm.lens = static_cast<const int32_t*>(lens);
@@ -155,25 +183,34 @@ extern "C" int qba_tiled_verdict(
   prm.o_acc = static_cast<int32_t*>(o_acc);
   prm.o_vi = static_cast<int32_t*>(o_vi);
   prm.d = d;
+  prm.n_trials = n_trials;
+  prm.start = start;
   prm.round_idx = round_idx;
   prm.use_fp = use_fp;
+  const auto kernel = sharded_launch(n_shards, n_local, n_glob)
+                          ? tiled_verdict_kernel<true>
+                          : tiled_verdict_kernel<false>;
   size_t smem = 0;
-  if (int e = prepare_smem(tiled_verdict_kernel, d, &smem)) return e;
-  tiled_verdict_kernel<<<n_trials, kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(prm);
+  if (int e = prepare_smem(kernel, d, &smem)) return e;
+  kernel<<<n_trials * n_shards, kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(prm);
   return int(cudaGetLastError());
 }
 
-// Returns a cudaError_t: 0 on a launch that was accepted.
+// Returns a cudaError_t: 0 on a launch that was accepted.  Shards as
+// qba_tiled_verdict.
 extern "C" int qba_tiled_rebuild(
     const void* vals, const void* lens, const void* p, const void* meta,
     const void* li, const void* acc, const void* honest, const void* attack,
     const void* rand_v, void* o_vals, void* o_lens, void* o_p, void* o_meta,
-    void* o_ovf, int n_trials, int n_rv, int slots, int max_l, int size_l,
-    int w, int n_dis, int round_idx, int use_fp, void* stream) {
-  if (n_trials <= 0) return 0;
-  const Dims d = make_dims(n_rv, slots, max_l, size_l, w);
-  if (!dims_ok(d)) return int(cudaErrorInvalidValue);
+    void* o_ovf, int n_trials, int n_shards, int n_local, int n_glob,
+    int start, int slots, int max_l, int size_l, int w, int n_dis,
+    int round_idx, int use_fp, void* stream) {
+  if (n_trials <= 0 || n_shards <= 0) return 0;
+  Dims d;
+  if (!launch_dims(n_shards, n_local, n_glob, start, slots, max_l, size_l, w,
+                   &d))
+    return int(cudaErrorInvalidValue);
   RebuildParams prm;
   prm.vals = static_cast<const int8_t*>(vals);
   prm.lens = static_cast<const int32_t*>(lens);
@@ -190,12 +227,17 @@ extern "C" int qba_tiled_rebuild(
   prm.o_meta = static_cast<int32_t*>(o_meta);
   prm.o_ovf = static_cast<int32_t*>(o_ovf);
   prm.d = d;
+  prm.n_trials = n_trials;
+  prm.start = start;
   prm.n_dis = n_dis;
   prm.round_idx = round_idx;
   prm.use_fp = use_fp;
+  const auto kernel = sharded_launch(n_shards, n_local, n_glob)
+                          ? tiled_rebuild_kernel<true>
+                          : tiled_rebuild_kernel<false>;
   size_t smem = 0;
-  if (int e = prepare_smem(tiled_rebuild_kernel, d, &smem)) return e;
-  tiled_rebuild_kernel<<<n_trials, kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(prm);
+  if (int e = prepare_smem(kernel, d, &smem)) return e;
+  kernel<<<n_trials * n_shards, kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(prm);
   return int(cudaGetLastError());
 }

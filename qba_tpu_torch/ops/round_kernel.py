@@ -19,9 +19,13 @@ packets in TPU sublanes; here a cell's rows are contiguous.
 
 :func:`round_step` launches ``csrc/round_step.cu`` for CUDA tensors and
 runs :func:`round_step_reference` for CPU tensors; a CUDA tensor never
-reaches the plain version.  The party-sharded ``n_recv`` variant of the
-JAX kernel waits for the mesh paths, and its compile probes and VMEM
-pre-filter have no analog on this card.
+reaches the plain version.  With ``n_recv``, the party-sharded variant
+(the JAX kernel's ``build_round_step(n_recv=...)``): each shard drains
+its receivers against its copy of the gathered GLOBAL mailbox and writes
+its LOCAL mailbox of ``n_recv * slots`` cells, whose ``cell`` lanes are
+global, so the local mailboxes concatenated in shard order are again a
+mailbox whose cells carry their own index.  The JAX kernel's compile
+probes and VMEM pre-filter have no analog on this card.
 """
 
 from __future__ import annotations
@@ -43,8 +47,12 @@ from qba_tpu_torch.ops.round_kernel_tiled import (
     META_SENT,
     META_V,
     honest_cells,
+    launch_ints,
     pool_vals_dtype,
     rebuilt_entries,
+    shard_plan,
+    shard_starts,
+    stack_shards,
 )
 from qba_tpu_torch.ops.verdict_algebra import accept_first_per_value, verdict
 from qba_tpu_torch.rounds.mailbox import Mailbox
@@ -53,12 +61,18 @@ from qba_tpu_torch.rounds.mailbox import Mailbox
 honest_packets = honest_cells
 
 
-def empty_mailbox(cfg: QBAConfig, n_trials: int, device=None):
-    """An all-unsent packed mailbox ``(vals, lens, p, meta)``."""
-    n_pk, max_l, s = cfg.n_lieutenants * cfg.slots, cfg.max_l, cfg.size_l
+def empty_mailbox(cfg: QBAConfig, n_trials: int, device=None, *,
+                  n_recv: int | None = None, start: int = 0):
+    """An all-unsent packed mailbox ``(vals, lens, p, meta)``; with
+    ``n_recv`` a shard's local mailbox of ``n_recv * slots`` cells, the
+    receivers ``[start, start + n_recv)``'s, whose ``cell`` lanes are
+    global."""
+    n_rv = cfg.n_lieutenants if n_recv is None else n_recv
+    n_pk, max_l, s = n_rv * cfg.slots, cfg.max_l, cfg.size_l
     vdt = pool_vals_dtype(cfg)
     meta = torch.zeros((n_trials, n_pk, 4), dtype=torch.int32, device=device)
-    meta[..., 3] = torch.arange(n_pk, dtype=torch.int32, device=device)
+    meta[..., 3] = start * cfg.slots + torch.arange(n_pk, dtype=torch.int32,
+                                                    device=device)
     return (
         torch.full((n_trials, n_pk, max_l, s), SENTINEL, dtype=vdt,
                    device=device),
@@ -87,15 +101,18 @@ def pack_mailbox(cfg: QBAConfig, mb: Mailbox):
             flat(mb.p_mask, vdt), meta.contiguous())
 
 
-def mailbox_from_step3a(cfg: QBAConfig, out_cells):
+def mailbox_from_step3a(cfg: QBAConfig, out_cells, *, start: int = 0):
     """Step 3a's broadcasts (each lieutenant's slot 0, as
     :func:`qba_tpu_torch.rounds.engine.step3a_one` returns them) as a
     packed mailbox, the other slots unsent; built in place, without the
-    int32 dense :class:`Mailbox` in between."""
+    int32 dense :class:`Mailbox` in between.  A shard passes its
+    receivers' rows and ``start``, its first global receiver: the result
+    is its local mailbox (global ``cell`` lanes)."""
     o_vals, o_lens, o_count, o_p, o_v, o_sent = out_cells
     n_trials, n_s = o_sent.shape
     slots = cfg.slots
-    vals, lens, p, meta = empty_mailbox(cfg, n_trials, o_sent.device)
+    vals, lens, p, meta = empty_mailbox(cfg, n_trials, o_sent.device,
+                                        n_recv=n_s, start=start)
 
     def slot0(x):  # [T, n_pk, ...] -> the view of every sender's slot 0
         return x.view((n_trials, n_s, slots) + x.shape[2:])[:, :, 0]
@@ -111,20 +128,40 @@ def mailbox_from_step3a(cfg: QBAConfig, out_cells):
 
 
 def round_step_reference(cfg: QBAConfig, round_idx: int, mailbox, li, vi,
-                         honest_pk, attack, rand_v, late):
+                         honest_pk, attack, rand_v, late, *, start: int = 0,
+                         n_recv: int | None = None):
     """One voting round over the dense mailbox in plain PyTorch.
 
     ``mailbox`` is the packed ``(vals, lens, p, meta)``; ``li`` int32
     ``[T, n_rv, size_l]``, ``vi`` int32 0/1 ``[T, n_rv, w]``,
-    ``honest_pk`` ``[T, n_pk]``, draws ``[T, n_pk, n_rv]``.  Returns
-    ``(mailbox', vi' int32, overflow bool [T])``.  Cells no trial sent
-    take no part in the verdict, but every successor cell is written.
+    ``honest_pk`` ``[T, n_pk]``, draws ``[T, n_pk, n_glob]``; the
+    receivers are the global ``[start, start + n_rv)``.  Returns
+    ``(mailbox', vi' int32, overflow bool [T])``, ``mailbox'`` their
+    ``n_rv * slots`` cells.  Cells no trial sent take no part in the
+    verdict, but every successor cell is written.
+
+    With ``n_recv`` (the party-sharded variant) the mailbox, ``li``,
+    ``vi`` and the results carry a leading shard axis: ``mailbox`` ``[n_sh,
+    T, n_pk, ...]`` is each shard's gathered global mailbox, shard ``s``'s
+    receivers the global ``[start + s * n_recv, start + (s + 1) *
+    n_recv)``; honesty and draws are global.  Each shard's result is its
+    local mailbox ``[n_sh, T, n_recv * slots, ...]``.
     """
+    if n_recv is not None:
+        return stack_shards([
+            round_step_reference(cfg, round_idx,
+                                 tuple(x[sh] for x in mailbox), li[sh],
+                                 vi[sh], honest_pk, attack, rand_v, late,
+                                 start=first)
+            for sh, first in enumerate(shard_starts(li, start, n_recv))])
     vals, lens, p, meta = mailbox
     n_trials, n_pk, max_l, s = vals.shape
-    n_rv, slots, w = cfg.n_lieutenants, cfg.slots, cfg.w
+    n_rv, slots, w = li.shape[1], cfg.slots, cfg.w
+    n_out = n_rv * slots
+    attack, rand_v, late = (x[..., start:start + n_rv]
+                            for x in (attack, rand_v, late))
     dev = vals.device
-    out = empty_mailbox(cfg, n_trials, dev)
+    out = empty_mailbox(cfg, n_trials, dev, n_recv=n_rv, start=start)
     no_overflow = torch.zeros(n_trials, dtype=torch.bool, device=dev)
     cols = (meta[..., META_SENT] != 0).any(0).nonzero()[:, 0]
     if cols.numel() == 0:
@@ -140,6 +177,7 @@ def round_step_reference(cfg: QBAConfig, round_idx: int, mailbox, li, vi,
         sent=meta_s[..., META_SENT] != 0, sender=cell // slots,
         honest_c=honest_s, attack=att_s, rand_v=rv_s, late=late[:, cols],
         li=li, round_idx=round_idx, w=w, use_fp=cfg.strategy == "split",
+        recv_off=start,
     )
     acc, vi_new = accept_first_per_value(ok, v2, vi != 0, w)
     vi_new = vi_new.to(torch.int32)
@@ -148,7 +186,7 @@ def round_step_reference(cfg: QBAConfig, round_idx: int, mailbox, li, vi,
 
     # Slot allocation: per receiver, an exclusive prefix count of its
     # rebroadcasts in cell order; past `slots` is overflow.  Receiver r's
-    # slot goes to cell r * slots + slot.
+    # slot goes to (local) cell r * slots + slot.
     rb = acc.to(torch.int64)
     slot_r = torch.cumsum(rb, 1) - rb  # [T, P, R]
     write = acc & (slot_r < slots)
@@ -156,16 +194,16 @@ def round_step_reference(cfg: QBAConfig, round_idx: int, mailbox, li, vi,
     ridx = torch.arange(n_rv, device=dev)[None, None, :].expand_as(slot_r)
     pidx = torch.arange(cols.numel(), device=dev)[None, :, None].expand_as(
         slot_r)
-    dst = torch.where(write, ridx * slots + slot_r, n_pk)
+    dst = torch.where(write, ridx * slots + slot_r, n_out)
 
-    def to_dst(src_idx, fill=0):  # [T, P, R] -> per destination [T, n_pk]
-        buf = torch.full((n_trials, n_pk + 1), fill, dtype=torch.int64,
+    def to_dst(src_idx, fill=0):  # [T, P, R] -> per destination [T, n_out]
+        buf = torch.full((n_trials, n_out + 1), fill, dtype=torch.int64,
                          device=dev)
-        return buf.scatter_(1, dst.flatten(1), src_idx.flatten(1))[:, :n_pk]
+        return buf.scatter_(1, dst.flatten(1), src_idx.flatten(1))[:, :n_out]
 
     src = to_dst(pidx)
     has = to_dst(torch.ones_like(pidx)) != 0
-    r_d = (torch.arange(n_pk, device=dev) // slots).expand(n_trials, n_pk)
+    r_d = (torch.arange(n_out, device=dev) // slots).expand(n_trials, n_out)
     o_vals, o_lens, o_p, new_cnt, v2_g = rebuilt_entries(
         cfg, vals_s, lens_s, p_s, count, v, honest_s, att_s, rv_s, li, src,
         r_d, has)
@@ -178,22 +216,26 @@ def round_step_reference(cfg: QBAConfig, round_idx: int, mailbox, li, vi,
     return out, vi_new, overflow
 
 
-def _check_inputs(cfg: QBAConfig, mailbox, li, vi, honest_pk, draws):
+def _check_inputs(cfg: QBAConfig, mailbox, li, vi, honest_pk, draws,
+                  lead=(), n_local=None):
     """Raise unless the round's inputs are what the kernel takes: exact
-    dtypes, shapes, contiguous, on one CUDA device.  Returns the trial
-    count."""
+    dtypes, shapes, contiguous, on one CUDA device.  ``lead`` is the
+    leading shard axis of the mailbox, ``li`` and ``vi`` (of ``n_local``
+    receivers) in the party-sharded variant.  Returns the trial count."""
     vals, lens, p, meta = mailbox
-    n_trials = vals.shape[0]
+    n_trials = vals.shape[len(lead)]
     n_rv, max_l, s, w = cfg.n_lieutenants, cfg.max_l, cfg.size_l, cfg.w
+    n_loc = n_rv if n_local is None else n_local
     n_pk = n_rv * cfg.slots
     dev = vals.device
+    lt = tuple(lead) + (n_trials,)
     shapes = {
-        "vals": (vals, torch.int8, (n_trials, n_pk, max_l, s)),
-        "lens": (lens, torch.int32, (n_trials, n_pk, max_l)),
-        "p": (p, torch.int8, (n_trials, n_pk, s)),
-        "meta": (meta, torch.int32, (n_trials, n_pk, 4)),
-        "li": (li, torch.int32, (n_trials, n_rv, s)),
-        "vi": (vi, torch.int32, (n_trials, n_rv, w)),
+        "vals": (vals, torch.int8, lt + (n_pk, max_l, s)),
+        "lens": (lens, torch.int32, lt + (n_pk, max_l)),
+        "p": (p, torch.int8, lt + (n_pk, s)),
+        "meta": (meta, torch.int32, lt + (n_pk, 4)),
+        "li": (li, torch.int32, lt + (n_loc, s)),
+        "vi": (vi, torch.int32, lt + (n_loc, w)),
         "honest_pk": (honest_pk, torch.int32, (n_trials, n_pk)),
     }
     for name, x in draws.items():
@@ -204,7 +246,8 @@ def _check_inputs(cfg: QBAConfig, mailbox, li, vi, honest_pk, draws):
 
 
 def round_step(cfg: QBAConfig, round_idx: int, mailbox, li, vi, honest_pk,
-               attack, rand_v, late, out=None):
+               attack, rand_v, late, out=None, *, start: int = 0,
+               n_recv: int | None = None):
     """One voting round over the dense mailbox: ``(mailbox', vi',
     overflow bool [T])``.
 
@@ -212,32 +255,44 @@ def round_step(cfg: QBAConfig, round_idx: int, mailbox, li, vi, honest_pk,
     CUDA kernel, which takes exactly the dtypes ``int8`` (``vals``,
     ``p``), ``int32`` (``lens``, ``meta``, ``li``, ``vi``, ``honest_pk``)
     and ``uint8`` (the three draw tables), contiguous, on one device, and
-    writes into ``out`` (a mailbox of the same shapes that aliases none
-    of the input: the other buffer of a ping-pong pair) or a new mailbox.
-    Any other input raises.
+    writes into ``out`` (a mailbox of the result's shapes that aliases
+    none of the input: the other buffer of a ping-pong pair) or a new
+    mailbox.  Any other input raises.
+
+    With ``n_recv``, the party-sharded variant (see
+    :func:`round_step_reference`): one launch for every shard of the
+    leading shard axis, each writing its local mailbox ``[n_sh, T,
+    n_recv * slots, ...]``; overflow is ``[n_sh, T]``.
     """
     if not dispatch("round_step", mailbox):
         return round_step_reference(cfg, round_idx, mailbox, li, vi,
-                                    honest_pk, attack, rand_v, late)
+                                    honest_pk, attack, rand_v, late,
+                                    start=start, n_recv=n_recv)
     check_kernel_shapes(cfg, "dense-mailbox round")
+    n_sh, n_local, lead = shard_plan(cfg, li, start, n_recv)
     n_trials = _check_inputs(cfg, mailbox, li, vi, honest_pk,
-                             dict(attack=attack, rand_v=rand_v, late=late))
+                             dict(attack=attack, rand_v=rand_v, late=late),
+                             lead, n_local)
+    n_out, max_l, s = n_local * cfg.slots, cfg.max_l, cfg.size_l
+    lt = lead + (n_trials, n_out)
+    layout = (lt + (max_l, s), lt + (max_l,), lt + (s,), lt + (4,))
     if out is None:
-        out = tuple(torch.empty_like(x) for x in mailbox)
-    for name, x, ref in zip(("o_vals", "o_lens", "o_p", "o_meta"), out,
-                            mailbox):
-        check(name, x, ref.dtype, ref.shape, ref.device)
+        out = tuple(torch.empty(shp, dtype=x.dtype, device=x.device)
+                    for shp, x in zip(layout, mailbox))
+    for name, x, ref, shp in zip(("o_vals", "o_lens", "o_p", "o_meta"), out,
+                                 mailbox, layout):
+        check(name, x, ref.dtype, shp, ref.device)
         if x.data_ptr() == ref.data_ptr():
             raise ValueError(f"{name} aliases its input; pass the other "
                              "buffer of the ping-pong pair")
     vi_out = torch.empty_like(vi)
-    ovf = torch.empty(n_trials, dtype=torch.int32, device=vi.device)
-    fn = kernel_fn("round_step", "qba_round_step", 16, 9)
+    ovf = torch.empty(lead + (n_trials,), dtype=torch.int32,
+                      device=vi.device)
+    fn = kernel_fn("round_step", "qba_round_step", 16, 12)
     args = ptrs(*mailbox, li, vi, honest_pk, attack, rand_v, late, *out,
                 vi_out, ovf)
-    args += [n_trials, cfg.n_lieutenants, cfg.slots, cfg.max_l, cfg.size_l,
-             cfg.w, cfg.n_dishonest, int(round_idx),
-             int(cfg.strategy == "split")]
+    args += launch_ints(cfg, n_trials, n_sh, n_local, start)
+    args += [cfg.n_dishonest, int(round_idx), int(cfg.strategy == "split")]
     timed_launch(round_step, fn, args, torch.cuda.current_stream(vi.device))
     return out, vi_out, ovf != 0
 

@@ -24,15 +24,16 @@ matrix ``acc`` int32 0/1 ``[T, n_pool, n_rv]``.  A wrapper launches its
 hand-written CUDA kernel for CUDA tensors and runs the plain version for
 CPU tensors; a CUDA tensor never reaches the plain version.
 
-The party-sharded ``n_recv`` variant of the fused round (the TPU
-kernel's ``build_fused_round_kernel(n_recv=...)``) is
-:func:`fused_round` with ``n_recv``: each shard drains its receivers
-``[start, start + n_recv)`` against the whole assembled pool and writes
-its LOCAL successor segment (capacity ``n_recv * slots``, locally
-compacted, global cell ids).  Shard tensors carry a leading shard axis
-``[n_shards, T, ...]``; the round's honesty and draws stay global.  The
-``n_recv`` variants of the verdict and rebuild kernels (and of
-:mod:`~qba_tpu_torch.ops.round_kernel`) wait for the next slice.
+The party-sharded ``n_recv`` variants of the three kernels (the TPU
+kernels' ``n_recv`` builds) are the same wrappers with ``n_recv``: each
+shard drains its receivers ``[start, start + n_recv)`` against the whole
+assembled pool and the rebuilding kernels write its LOCAL successor
+segment (capacity ``n_recv * slots``, locally compacted, global cell
+ids).  Shard tensors carry a leading shard axis ``[n_shards, T, ...]``;
+the round's honesty and draws stay global.  The verdict's ``acc`` is
+then ``[n_shards, T, n_pool, n_recv]``: the entries between the segments
+of an assembled pool are unsent and their rows stay zero, so the
+rebuild reads the accepted packets in the global (sender, slot) order.
 :func:`sharded_mega_plan` admits the party-sharded trial megakernel.
 """
 
@@ -177,8 +178,27 @@ def _receiver_draws(draws, start: int, n_rv: int):
     return tuple(x[..., start:start + n_rv] for x in draws)
 
 
+def stack_shards(parts):
+    """Per-shard outputs (tensors, or tuples of them) stacked on a leading
+    shard axis."""
+    if isinstance(parts[0], tuple):
+        return tuple(stack_shards([p[i] for p in parts])
+                     for i in range(len(parts[0])))
+    return torch.stack(parts)
+
+
+def shard_starts(li, start: int, n_recv: int):
+    """Each shard's first global receiver, for shard tensors ``li``
+    ``[n_sh, T, n_recv, ...]``."""
+    if li.shape[2] != n_recv:
+        raise ValueError(f"n_recv={n_recv} but li holds {li.shape[2]} "
+                         "receivers a shard")
+    return [start + s * n_recv for s in range(li.shape[0])]
+
+
 def verdict_reference(cfg: QBAConfig, round_idx: int, pool, li, vi,
-                      honest_c, attack, rand_v, late, *, start: int = 0):
+                      honest_c, attack, rand_v, late, *, start: int = 0,
+                      n_recv: int | None = None):
     """Phase 1 of a round in plain PyTorch: the verdict of every pool
     packet against every receiver and the first accept per value into
     ``vi``.
@@ -189,7 +209,18 @@ def verdict_reference(cfg: QBAConfig, round_idx: int, pool, li, vi,
     int32 0/1 [T, n_pool, n_rv], vi' int32)``: ``acc`` is the accepted
     matrix after first-accept dedup, as the JAX verdict kernel returns
     it.
+
+    With ``n_recv`` (the party-sharded variant) the pool, ``li`` and
+    ``vi`` carry a leading shard axis, as in
+    :func:`fused_round_reference`, and so do both results: ``acc``
+    ``[n_sh, T, n_pool, n_recv]``.
     """
+    if n_recv is not None:
+        return stack_shards([
+            verdict_reference(cfg, round_idx, tuple(x[sh] for x in pool),
+                              li[sh], vi[sh], honest_c, attack, rand_v,
+                              late, start=first)
+            for sh, first in enumerate(shard_starts(li, start, n_recv))])
     vals, lens, p, meta = pool
     n_trials, max_l, n_pool, s = vals.shape
     n_rv, slots, w = li.shape[1], cfg.slots, cfg.w
@@ -279,12 +310,23 @@ def rebuilt_entries(cfg: QBAConfig, vals_s, lens_s, p_s, count, v,
 
 
 def rebuild_reference(cfg: QBAConfig, round_idx: int, pool, li, acc,
-                      honest_c, attack, rand_v, *, start: int = 0):
+                      honest_c, attack, rand_v, *, start: int = 0,
+                      n_recv: int | None = None):
     """Phase 2 of a round in plain PyTorch: slot allocation from the
     accepted matrix ``acc`` ``[T, n_pool, n_rv]``, with overflow, and the
     successor pool of the receivers ``[start, start + n_rv)`` (capacity
     ``n_rv * slots``, global cell ids).  Returns ``(pool', overflow bool
-    [T])``."""
+    [T])``.
+
+    With ``n_recv`` the pool, ``li``, ``acc`` and the results carry a
+    leading shard axis, as in :func:`fused_round_reference`: each
+    shard's local successor segment ``[n_sh, T, ...]``."""
+    if n_recv is not None:
+        return stack_shards([
+            rebuild_reference(cfg, round_idx, tuple(x[sh] for x in pool),
+                              li[sh], acc[sh], honest_c, attack, rand_v,
+                              start=first)
+            for sh, first in enumerate(shard_starts(li, start, n_recv))])
     vals, lens, p, meta = pool
     n_trials, max_l, n_pool, s = vals.shape
     n_rv, slots = li.shape[1], cfg.slots
@@ -366,34 +408,22 @@ def fused_round_reference(cfg: QBAConfig, round_idx: int, pool, li, vi,
     segment ``[n_sh, T, ...]`` (capacity ``n_recv * slots``), ``vi'`` and
     overflow ``[n_sh, T]``.
     """
-    if n_recv is None:
-        acc, vi_new = verdict_reference(cfg, round_idx, pool, li, vi,
-                                        honest_c, attack, rand_v, late)
-        out, overflow = rebuild_reference(cfg, round_idx, pool, li, acc,
-                                          honest_c, attack, rand_v)
-        return out, vi_new, overflow
-    parts = []
-    for sh in range(li.shape[0]):
-        first = start + sh * n_recv
-        pool_s = tuple(x[sh] for x in pool)
-        acc, vi_new = verdict_reference(cfg, round_idx, pool_s, li[sh],
-                                        vi[sh], honest_c, attack, rand_v,
-                                        late, start=first)
-        out, overflow = rebuild_reference(cfg, round_idx, pool_s, li[sh],
-                                          acc, honest_c, attack, rand_v,
-                                          start=first)
-        parts.append((out, vi_new, overflow))
-    outs, vis, ovfs = zip(*parts)
-    return (tuple(torch.stack(x) for x in zip(*outs)), torch.stack(vis),
-            torch.stack(ovfs))
+    acc, vi_new = verdict_reference(cfg, round_idx, pool, li, vi, honest_c,
+                                    attack, rand_v, late, start=start,
+                                    n_recv=n_recv)
+    out, overflow = rebuild_reference(cfg, round_idx, pool, li, acc,
+                                      honest_c, attack, rand_v, start=start,
+                                      n_recv=n_recv)
+    return out, vi_new, overflow
 
 
 def _check_round_inputs(cfg: QBAConfig, pool, li, honest_c, draws,
                         vi=None, acc=None, lead=(), n_local=None):
     """Raise unless the round's inputs are what the kernels take: exact
     dtypes, shapes, contiguous, on one CUDA device.  ``lead`` is the
-    leading shard axis of the pool, ``li`` and ``vi`` (of ``n_local``
-    receivers) in the party-sharded variant.  Returns the trial count."""
+    leading shard axis of the pool, ``li``, ``vi`` and ``acc`` (of
+    ``n_local`` receivers) in the party-sharded variant.  Returns the
+    trial count."""
     vals, lens, p, meta = pool
     n_trials = vals.shape[len(lead)]
     n_rv, max_l, s, w = cfg.n_lieutenants, cfg.max_l, cfg.size_l, cfg.w
@@ -412,7 +442,7 @@ def _check_round_inputs(cfg: QBAConfig, pool, li, honest_c, draws,
     if vi is not None:
         shapes["vi"] = (vi, torch.int32, lt + (n_loc, w))
     if acc is not None:
-        shapes["acc"] = (acc, torch.int32, (n_trials, n_pool, n_rv))
+        shapes["acc"] = (acc, torch.int32, lt + (n_pool, n_loc))
     for name, x in draws.items():
         shapes[name] = (x, torch.uint8, (n_trials, n_pool, n_rv))
     for name, (x, dt, shp) in shapes.items():
@@ -439,8 +469,28 @@ def _check_out_pool(cfg: QBAConfig, pool, out, lead=(), n_local=None):
     return out
 
 
-def _dims(cfg: QBAConfig):
-    return [cfg.n_lieutenants, cfg.slots, cfg.max_l, cfg.size_l, cfg.w]
+def shard_plan(cfg: QBAConfig, li, start: int, n_recv: int | None):
+    """``(n_shards, n_local, lead)`` of a round launch: one shard of every
+    receiver, or with ``n_recv`` the shards of ``li``'s leading axis
+    (``lead`` that axis), which must fit the lieutenants from ``start``
+    on."""
+    if n_recv is None:
+        return 1, cfg.n_lieutenants, ()
+    n_sh = li.shape[0]
+    if not (n_recv >= 1 and 0 <= start
+            and start + n_sh * n_recv <= cfg.n_lieutenants):
+        raise ValueError(
+            f"shards of {n_recv} receivers from {start} x {n_sh} do not "
+            f"fit {cfg.n_lieutenants} lieutenants")
+    return n_sh, n_recv, (n_sh,)
+
+
+def launch_ints(cfg: QBAConfig, n_trials: int, n_sh: int, n_local: int,
+                start: int):
+    """The round kernels' leading int arguments: the launch's trials and
+    shards, then the round's dims."""
+    return [n_trials, n_sh, n_local, cfg.n_lieutenants, int(start),
+            cfg.slots, cfg.max_l, cfg.size_l, cfg.w]
 
 
 def fused_round(cfg: QBAConfig, round_idx: int, pool, li, vi, honest_c,
@@ -466,16 +516,7 @@ def fused_round(cfg: QBAConfig, round_idx: int, pool, li, vi, honest_c,
                                      honest_c, attack, rand_v, late,
                                      start=start, n_recv=n_recv)
     check_kernel_shapes(cfg, "fused round")
-    if n_recv is None:
-        n_sh, n_local, lead = 1, cfg.n_lieutenants, ()
-    else:
-        n_sh, n_local = li.shape[0], n_recv
-        lead = (n_sh,)
-        if not (n_recv >= 1 and 0 <= start
-                and start + n_sh * n_recv <= cfg.n_lieutenants):
-            raise ValueError(
-                f"shards of {n_recv} receivers from {start} x {n_sh} do not "
-                f"fit {cfg.n_lieutenants} lieutenants")
+    n_sh, n_local, lead = shard_plan(cfg, li, start, n_recv)
     n_trials = _check_round_inputs(
         cfg, pool, li, honest_c,
         dict(attack=attack, rand_v=rand_v, late=late), vi=vi, lead=lead,
@@ -487,9 +528,8 @@ def fused_round(cfg: QBAConfig, round_idx: int, pool, li, vi, honest_c,
     fn = kernel_fn("fused_round", "qba_fused_round", 16, 12)
     args = ptrs(*pool, li, vi, honest_c, attack, rand_v, late, *out,
                  vi_out, ovf)
-    args += [n_trials, n_sh, n_local, cfg.n_lieutenants, int(start),
-             cfg.slots, cfg.max_l, cfg.size_l, cfg.w, cfg.n_dishonest,
-             int(round_idx), int(cfg.strategy == "split")]
+    args += launch_ints(cfg, n_trials, n_sh, n_local, start)
+    args += [cfg.n_dishonest, int(round_idx), int(cfg.strategy == "split")]
     timed_launch(fused_round, fn, args, torch.cuda.current_stream(dev))
     return out, vi_out, ovf != 0
 
@@ -500,29 +540,36 @@ fused_round.events = None
 
 
 def tiled_verdict(cfg: QBAConfig, round_idx: int, pool, li, vi, honest_c,
-                  attack, rand_v, late):
+                  attack, rand_v, late, *, start: int = 0,
+                  n_recv: int | None = None):
     """Phase 1 of the two-launch round: ``(acc int32 [T, n_pool, n_rv],
     vi')``.
 
     CPU tensors run :func:`verdict_reference`; CUDA tensors launch the
     verdict kernel (``csrc/tiled_round.cu``) with the input rules of
-    :func:`fused_round`.  Any other input raises.
+    :func:`fused_round`.  Any other input raises.  With ``n_recv``, the
+    party-sharded variant (see :func:`verdict_reference`): one launch for
+    every shard of the leading shard axis; ``acc`` is ``[n_sh, T, n_pool,
+    n_recv]``.
     """
     if not dispatch("tiled_verdict", pool):
         return verdict_reference(cfg, round_idx, pool, li, vi, honest_c,
-                                 attack, rand_v, late)
+                                 attack, rand_v, late, start=start,
+                                 n_recv=n_recv)
     check_kernel_shapes(cfg, "tiled verdict")
+    n_sh, n_local, lead = shard_plan(cfg, li, start, n_recv)
     n_trials = _check_round_inputs(
         cfg, pool, li, honest_c,
-        dict(attack=attack, rand_v=rand_v, late=late), vi=vi)
+        dict(attack=attack, rand_v=rand_v, late=late), vi=vi, lead=lead,
+        n_local=n_local)
     n_pool = cfg.n_lieutenants * cfg.slots
-    acc = torch.empty((n_trials, n_pool, cfg.n_lieutenants),
-                      dtype=torch.int32, device=vi.device)
+    acc = torch.empty(lead + (n_trials, n_pool, n_local), dtype=torch.int32,
+                      device=vi.device)
     vi_out = torch.empty_like(vi)
-    fn = kernel_fn("tiled_round", "qba_tiled_verdict", 12, 8)
+    fn = kernel_fn("tiled_round", "qba_tiled_verdict", 12, 11)
     args = ptrs(*pool, li, vi, honest_c, attack, rand_v, late, acc, vi_out)
-    args += [n_trials, *_dims(cfg), int(round_idx),
-             int(cfg.strategy == "split")]
+    args += launch_ints(cfg, n_trials, n_sh, n_local, start)
+    args += [int(round_idx), int(cfg.strategy == "split")]
     timed_launch(tiled_verdict, fn, args,
                   torch.cuda.current_stream(vi.device))
     return acc, vi_out
@@ -533,28 +580,34 @@ tiled_verdict.events = None
 
 
 def tiled_rebuild(cfg: QBAConfig, round_idx: int, pool, li, acc, honest_c,
-                  attack, rand_v, out=None):
+                  attack, rand_v, out=None, *, start: int = 0,
+                  n_recv: int | None = None):
     """Phase 2 of the two-launch round: ``(pool', overflow bool [T])``
     from the accepted matrix ``acc``.
 
     CPU tensors run :func:`rebuild_reference`; CUDA tensors launch the
     rebuild kernel (``csrc/tiled_round.cu``), writing into ``out`` (a
     pool of the same shapes) or a new pool, with the input rules of
-    :func:`fused_round`.  Any other input raises.
+    :func:`fused_round`.  Any other input raises.  With ``n_recv``, the
+    party-sharded variant (see :func:`rebuild_reference`): one launch for
+    every shard, each writing its local segment ``[n_sh, T, ...]`` of
+    ``n_recv * slots`` entries; overflow is ``[n_sh, T]``.
     """
     if not dispatch("tiled_rebuild", pool):
         return rebuild_reference(cfg, round_idx, pool, li, acc, honest_c,
-                                 attack, rand_v)
+                                 attack, rand_v, start=start, n_recv=n_recv)
     check_kernel_shapes(cfg, "tiled rebuild")
+    n_sh, n_local, lead = shard_plan(cfg, li, start, n_recv)
     n_trials = _check_round_inputs(
         cfg, pool, li, honest_c, dict(attack=attack, rand_v=rand_v),
-        acc=acc)
-    out = _check_out_pool(cfg, pool, out)
-    ovf = torch.empty(n_trials, dtype=torch.int32, device=acc.device)
-    fn = kernel_fn("tiled_round", "qba_tiled_rebuild", 14, 9)
+        acc=acc, lead=lead, n_local=n_local)
+    out = _check_out_pool(cfg, pool, out, lead, n_local)
+    ovf = torch.empty(lead + (n_trials,), dtype=torch.int32,
+                      device=acc.device)
+    fn = kernel_fn("tiled_round", "qba_tiled_rebuild", 14, 12)
     args = ptrs(*pool, li, acc, honest_c, attack, rand_v, *out, ovf)
-    args += [n_trials, *_dims(cfg), cfg.n_dishonest, int(round_idx),
-             int(cfg.strategy == "split")]
+    args += launch_ints(cfg, n_trials, n_sh, n_local, start)
+    args += [cfg.n_dishonest, int(round_idx), int(cfg.strategy == "split")]
     timed_launch(tiled_rebuild, fn, args,
                   torch.cuda.current_stream(acc.device))
     return out, ovf != 0

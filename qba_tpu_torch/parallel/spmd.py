@@ -9,14 +9,16 @@ receivers against it.  Trials shard over ``dp``.
 
 One process drives every shard, as ``shard_map`` does.  Where a ``tp``
 row is one card, the shards of a tensor are one tensor with a leading
-``[n_tp, ...]`` axis and each kernel runs once over all of them: the
-ring kernel (:mod:`qba_tpu_torch.parallel.ring`) and the fused round's
-``n_recv`` variant a round (``pallas_fused``), or the party-sharded
-trial megakernel once a batch, a thread-block cluster a trial
-(``pallas_mega``).  A ``tp`` row across cards raises: that transport is
-ROADMAP A12b.  Set-up is replicated per shard in JAX (same key, same
-values); here it is computed once and sliced, which gives the same
-values.
+``[n_tp, ...]`` axis and each kernel runs once over all of them: every
+round the ring kernel (:mod:`qba_tpu_torch.parallel.ring`) once a leaf
+of the pool or mailbox, then the ``n_recv`` variant of the round's
+kernels — the fused round (``pallas_fused``), the verdict and the
+rebuild (``pallas_tiled``) or the dense-mailbox round (``pallas``) — or
+the party-sharded trial megakernel once a batch, a thread-block cluster
+a trial (``pallas_mega``).  A ``tp`` row across cards raises: that
+transport is ROADMAP A12b.  Set-up is replicated per shard in JAX (same
+key, same values); here it is computed once and sliced, which gives the
+same values.
 
 Results equal the single-device engine's for the same keys, trial for
 trial: the round draws are the same global tables every engine reads,
@@ -42,6 +44,7 @@ from qba_tpu_torch.backends.torch_backend import (
 )
 from qba_tpu_torch.config import QBAConfig
 from qba_tpu_torch.diagnostics import warn_demotion
+from qba_tpu_torch.ops import round_kernel as rs
 from qba_tpu_torch.ops.round_kernel_tiled import (
     POOL_AXES,
     empty_pool,
@@ -50,6 +53,8 @@ from qba_tpu_torch.ops.round_kernel_tiled import (
     pool_from_step3a,
     shard_receivers,
     sharded_mega_plan,
+    tiled_rebuild,
+    tiled_verdict,
     unshard_receivers,
 )
 from qba_tpu_torch.parallel.mesh import (
@@ -73,10 +78,6 @@ from qba_tpu_torch.rounds.engine import (
 )
 from qba_tpu_torch.rounds.mailbox import Mailbox, mailbox_from_step3a
 
-NEXT_SLICE = ("the next slice of the port (the n_recv variants of TPU "
-              "kernel rows 1-3, ROADMAP B)")
-
-
 def _make_gather_tp(n_tp: int, comms: str):
     """The per-round tp assembly: ``gather_tp(x, axis)`` gives every
     shard of ``x`` ``[n_tp, *shard]`` the tiled all-gather along shard
@@ -89,13 +90,26 @@ def _fields(mb: Mailbox):
     return [getattr(mb, f.name) for f in dataclasses.fields(mb)]
 
 
+def _stacked(segs, layout, device):
+    """The shards' step-3a segments (one tuple of leaves each, tp order)
+    as stacked leaves ``[n_tp, ...]``, and a spare buffer of the same
+    shapes for the other half of the ping-pong pair (``layout``: the
+    leaves of one shard's empty segment)."""
+    cur = tuple(torch.stack(x) for x in zip(*segs))
+    spare = tuple(torch.empty((len(segs),) + x.shape, dtype=x.dtype,
+                              device=device) for x in layout)
+    return cur, spare
+
+
 def _trial_party_sharded(cfg: QBAConfig, n_tp: int, keys: torch.Tensor,
                          engine: str, comms: str) -> TrialResult:
     """Trials ``keys`` ``[T, 2]`` with the lieutenants in ``n_tp`` shards,
-    on the engine ``xla``, ``pallas_fused`` or ``pallas_mega``."""
+    on the engine ``xla``, ``pallas``, ``pallas_fused``, ``pallas_tiled``
+    or ``pallas_mega``."""
     if engine == "pallas_mega":
         return _trial_sharded_mega(cfg, n_tp, keys)
     n_local = cfg.n_lieutenants // n_tp
+    n_trials = keys.shape[0]
     honest, lieu_lists, p_rows, v_sent, v_comm, k_rounds = setup_trial(
         cfg, keys)
     ctx = adversary_ctx(cfg, k_rounds, v_sent)
@@ -109,33 +123,56 @@ def _trial_party_sharded(cfg: QBAConfig, n_tp: int, keys: torch.Tensor,
     def draws_of(r):
         return sample_attacks_round(cfg, jr.fold_in(k_rounds, r), r, ctx)
 
-    if engine == "pallas_fused":
+    def shard_cells(s):
+        return tuple(c[s] for c in cells_l)
+
+    if engine in ("pallas", "pallas_fused", "pallas_tiled"):
+        # Each shard keeps its local segment of the pool (or its local
+        # mailbox), global cell ids; every round gathers the segments
+        # into each shard's copy of the whole, and one launch of the
+        # round's n_recv kernels drains every shard's receivers into the
+        # other buffer of a ping-pong pair.
         li_l = shard_receivers(lieu_lists.to(torch.int32), n_tp)
         hc = honest_cells(honest, cfg)
-        segs = [pool_from_step3a(cfg, tuple(c[s] for c in cells_l),
-                                 start=s * n_local) for s in range(n_tp)]
-        pool_l = tuple(torch.stack(x) for x in zip(*segs))
-        spare = tuple(torch.empty((n_tp,) + x.shape, dtype=x.dtype,
-                                  device=keys.device)
-                      for x in empty_pool(cfg, keys.shape[0], "meta",
-                                          n_recv=n_local))
+        if engine == "pallas":
+            # Every mailbox leaf is cell-major: gathered on the cell axis.
+            axes = (1, 1, 1, 1)
+            bufs = _stacked(
+                [rs.mailbox_from_step3a(cfg, shard_cells(s),
+                                        start=s * n_local)
+                 for s in range(n_tp)],
+                rs.empty_mailbox(cfg, n_trials, "meta", n_recv=n_local),
+                keys.device)
+        else:
+            axes = tuple(ax + 1 for ax in POOL_AXES)
+            bufs = _stacked(
+                [pool_from_step3a(cfg, shard_cells(s), start=s * n_local)
+                 for s in range(n_tp)],
+                empty_pool(cfg, n_trials, "meta", n_recv=n_local),
+                keys.device)
 
         def round_body(r, vi, bufs):
             cur, spare = bufs
-            pool_g = tuple(gather_tp(x, axis=ax + 1)
-                           for x, ax in zip(cur, POOL_AXES))
-            new, vi, ovf = fused_round(
-                cfg, r, pool_g, li_l, vi, hc,
-                *(x.to(torch.uint8) for x in draws_of(r)), out=spare,
-                n_recv=n_local)
+            whole = tuple(gather_tp(x, axis=ax) for x, ax in zip(cur, axes))
+            draws = tuple(x.to(torch.uint8) for x in draws_of(r))
+            if engine == "pallas_tiled":
+                acc, vi = tiled_verdict(cfg, r, whole, li_l, vi, hc, *draws,
+                                        n_recv=n_local)
+                new, ovf = tiled_rebuild(cfg, r, whole, li_l, acc, hc,
+                                         *draws[:2], out=spare,
+                                         n_recv=n_local)
+            else:
+                step = rs.round_step if engine == "pallas" else fused_round
+                new, vi, ovf = step(cfg, r, whole, li_l, vi, hc, *draws,
+                                    out=spare, n_recv=n_local)
             return vi, (new, cur), ovf
 
-        vi_l, overflows, cst = scan_rounds(
-            cfg, round_body, vi_l.to(torch.int32), (pool_l, spare))
+        vi_l, overflows, cst = scan_rounds(cfg, round_body,
+                                           vi_l.to(torch.int32), bufs)
         vi_l = vi_l != 0
     elif engine == "xla":
         li_l = shard_receivers(lieu_lists, n_tp)
-        segs = [_fields(mailbox_from_step3a(cfg, tuple(c[s] for c in cells_l)))
+        segs = [_fields(mailbox_from_step3a(cfg, shard_cells(s)))
                 for s in range(n_tp)]
         mb_l = Mailbox(*(torch.stack(x) for x in zip(*segs)))
 
@@ -203,9 +240,8 @@ def _merge_counters_tp(cfg: QBAConfig, n_tp: int, cst: ProtocolCounters,
 def _resolve_spmd_engine(cfg: QBAConfig, n_local: int, device) -> str:
     """Engine for the party-sharded round loop on ``device``.
 
-    ``xla`` and ``pallas_fused`` pass through; ``pallas`` and
-    ``pallas_tiled`` raise (their ``n_recv`` kernels are the next
-    slice's).  ``auto`` is ``xla`` on the CPU; on CUDA it is
+    ``xla``, ``pallas``, ``pallas_fused`` and ``pallas_tiled`` pass
+    through, as in JAX.  ``auto`` is ``xla`` on the CPU; on CUDA it is
     ``pallas_mega`` where :func:`~qba_tpu_torch.ops.round_kernel_tiled
     .sharded_mega_plan` admits it and counters are off, else
     ``pallas_fused``.  A forced ``pallas_mega`` demotes to
@@ -216,12 +252,7 @@ def _resolve_spmd_engine(cfg: QBAConfig, n_local: int, device) -> str:
     """
     n_tp = cfg.n_lieutenants // n_local
     engine = cfg.round_engine
-    if engine in ("pallas", "pallas_tiled"):
-        raise NotImplementedError(
-            f"round_engine={engine!r} under a tp mesh needs the n_recv "
-            f"variant of its kernels, which {NEXT_SLICE} brings; use "
-            "'auto', 'xla', 'pallas_fused' or 'pallas_mega'")
-    if engine in ("xla", "pallas_fused"):
+    if engine in ("xla", "pallas", "pallas_fused", "pallas_tiled"):
         return engine
     if engine == "auto":
         if torch.device(device).type != "cuda":

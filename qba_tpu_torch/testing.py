@@ -14,9 +14,11 @@ the JAX package on :func:`random_state`; ``tests/test_torch_cuda.py`` and
 :func:`random_trial_inputs`, :func:`random_mailbox_inputs` (the same
 packets at their own cells of a dense mailbox) and
 :func:`random_circuit` (complex gates, multi-control ops and ``XPOW``),
-and the party-sharded fused round with its plain version on
+and the party-sharded round kernels with their plain versions on
 :func:`random_shard_inputs` (assembled pools with an empty segment, a
-full one and stale entries between the segments);
+full one and stale entries between the segments) and
+:func:`random_shard_mailbox_inputs` (gathered mailboxes whose unsent
+cells hold stale packets);
 and the GF(2) sweep with its plain version on :func:`random_sweep_inputs`
 (the tableaux of :func:`random_clifford` circuits, random phases, coins
 and readout flips).  Everything is made with numpy from a seed.
@@ -95,8 +97,9 @@ def random_packets(rng, cfg: QBAConfig, round_idx: int, cells, li, cap):
 
 def random_shard_inputs(cfg: QBAConfig, n_tp: int, round_idx: int,
                         n_trials: int, seed: int, device=None):
-    """One round's inputs to the party-sharded fused round
-    (``fused_round(..., n_recv=n_lieutenants // n_tp)``): ``(pool, li,
+    """One round's inputs to the party-sharded pool rounds
+    (``fused_round``, ``tiled_verdict`` and ``tiled_rebuild`` with
+    ``n_recv=n_lieutenants // n_tp``): ``(pool, li,
     vi, honest_c, attack, rand_v, late)`` with ``pool`` ``[n_tp, T, ...]``
     (every shard's copy of the assembled pool), ``li``/``vi`` ``[n_tp, T,
     n_local, ...]`` and the honesty and draws global.
@@ -153,6 +156,73 @@ def random_shard_inputs(cfg: QBAConfig, n_tp: int, round_idx: int,
     hc = torch.from_numpy(np.stack(hcs)).to(device, torch.int32)
     return (pool, shards(lis), shards(vis), hc,
             *draws_from_numpy(*(np.stack(d) for d in zip(*draws)),
+                              device=device))
+
+
+def random_shard_mailbox_state(rng, cfg: QBAConfig, n_tp: int,
+                               round_idx: int, trial: int):
+    """One trial's inputs to the party-sharded dense-mailbox round, in
+    the JAX round kernel's packed layout (see
+    :func:`random_mailbox_state`): the gathered GLOBAL mailbox, then li,
+    vi, honesty and draws for every receiver.
+
+    Each shard's senders send a random subset of their cells (none of
+    shard 0's in trial 0, all of the last shard's in trial 1), each a
+    protocol-shaped packet (:func:`random_packets`) at its own cell; every
+    unsent cell holds a stale packet (random rows, lens, count and
+    value), which no kernel may read."""
+    n_rv, slots, w = cfg.n_lieutenants, cfg.slots, cfg.w
+    n_pk, seg = n_rv * slots, n_rv // n_tp * slots
+    li = rng.integers(0, w, (n_rv, cfg.size_l)).astype(np.int32)
+    sent = np.zeros(n_pk, bool)
+    for sh in range(n_tp):
+        own = np.arange(sh * seg, (sh + 1) * seg)
+        k = (0 if (trial, sh) == (0, 0) else seg if (trial, sh) == (1, n_tp - 1)
+             else int(rng.integers(seg + 1)))
+        sent[rng.choice(own, k, replace=False)] = True
+    cells = np.flatnonzero(sent)
+    vals, lens, p, meta = random_packets(rng, cfg, round_idx, cells, li, n_pk)
+    s_vals, s_lens, s_p, s_meta = random_packets(
+        rng, cfg, round_idx, np.arange(n_pk), li, n_pk)
+    live = slice(0, len(cells))
+    s_vals[:, cells], s_lens[cells], s_p[cells] = (
+        vals[:, live], lens[live], p[live])
+    s_meta[cells] = meta[live]
+    s_meta[~sent, 2] = 0
+    packed = (s_vals, s_lens, s_meta[:, 0:1], s_p, s_meta[:, 1:2],
+              s_meta[:, 2:3])
+    vi = (rng.random((n_rv, w)) < 0.05).astype(np.int32)
+    hc = np.repeat(rng.random(n_rv) < 0.6, slots).astype(np.int32)
+    return (packed, li, vi, hc, *random_draws(rng, cfg, (n_pk, n_rv)))
+
+
+def random_shard_mailbox_inputs(cfg: QBAConfig, n_tp: int, round_idx: int,
+                                n_trials: int, seed: int, device=None):
+    """``n_trials`` trials of :func:`random_shard_mailbox_state` as one
+    round's inputs to ``round_step(..., n_recv=n_lieutenants // n_tp)``:
+    ``(mailbox, li, vi, honest_pk, attack, rand_v, late)`` with the
+    mailbox ``[n_tp, T, ...]`` (every shard's copy of the gathered one),
+    ``li``/``vi`` ``[n_tp, T, n_local, ...]`` and honesty and draws
+    global."""
+    rng = np.random.default_rng(seed)
+    states = [random_shard_mailbox_state(rng, cfg, n_tp, round_idx, t)
+              for t in range(n_trials)]
+    packed, lis, vis, hcs, atts, rvs, lates = zip(*states)
+    mailbox = mailbox_from_numpy(*(np.stack([m[i] for m in packed])
+                                   for i in range(6)), device=device)
+    mailbox = tuple(x.expand((n_tp,) + x.shape).contiguous()
+                    for x in mailbox)
+    n_local = cfg.n_lieutenants // n_tp
+
+    def shards(xs):
+        x = torch.from_numpy(np.ascontiguousarray(np.stack(xs))).to(
+            device, torch.int32)
+        return x.reshape((n_trials, n_tp, n_local) + x.shape[2:]) \
+            .movedim(1, 0).contiguous()
+
+    hc = torch.from_numpy(np.stack(hcs)).to(device, torch.int32)
+    return (mailbox, shards(lis), shards(vis), hc,
+            *draws_from_numpy(np.stack(atts), np.stack(rvs), np.stack(lates),
                               device=device))
 
 

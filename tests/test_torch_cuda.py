@@ -11,9 +11,10 @@ against its plain version at ``atol=1e-6`` on amplitudes (the compiler
 may fuse a multiply and an add), the GF(2) sweep kernel and the trial
 megakernel's gen entry are held bit-exact against their plain versions
 on the protocol's tableaux and on seeded random Clifford tableaux, the
-party-sharded kernels (the ring gather, the fused round's ``n_recv``
-variant and the sharded trial megakernel) are held bit-exact against
-theirs, and the engines, sharded or not, must agree trial for trial.  Every test is marked ``cuda`` and skips without a card
+party-sharded kernels (the ring gather, the ``n_recv`` variants of the
+fused round, the tiled verdict and rebuild and the dense-mailbox round,
+and the sharded trial megakernel) are held bit-exact against theirs,
+and the engines, sharded or not, must agree trial for trial.  Every test is marked ``cuda`` and skips without a card
 (the kernels have no CPU mode; the CPU tests hold the plain versions
 against ``qba_tpu``).  The file imports no JAX, so on a machine with the
 card it runs without the JAX test harness:
@@ -58,6 +59,7 @@ from qba_tpu_torch.testing import (
     random_mailbox_inputs,
     random_round_inputs,
     random_shard_inputs,
+    random_shard_mailbox_inputs,
     random_sweep_inputs,
     random_trial_inputs,
 )
@@ -472,6 +474,101 @@ def test_fused_round_n_recv_kernel(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["5p-r1", "5p-split-r1", "5p-slots1-r1",
+                                  "7p-L8-r3", "11p-L16-r1"])
+def test_tiled_and_round_step_n_recv_on_random_shards(cuda, case):
+    kw, r = RANDOM[case]
+    cfg = qba_tpu_torch.QBAConfig(**kw)
+    for tp in (t for t in (2, 3, 5) if cfg.n_lieutenants % t == 0):
+        n_local = cfg.n_lieutenants // tp
+        pool, li, vi, hc, att, rv, late = random_shard_inputs(
+            cfg, tp, r, 16, seed=tp + r, device=cuda)
+        acc, vi2 = rk.tiled_verdict(cfg, r, pool, li, vi, hc, att, rv, late,
+                                    n_recv=n_local)
+        assert_equal((acc, vi2), rk.verdict_reference(
+            cfg, r, pool, li, vi, hc, att, rv, late, n_recv=n_local))
+        dense = torch.stack([dense_acc(cfg, tuple(x[s] for x in pool),
+                                       seed=s)[..., :n_local]
+                             for s in range(tp)])
+        for a in (acc, dense):
+            assert_equal(
+                rk.tiled_rebuild(cfg, r, pool, li, a, hc, att, rv,
+                                 n_recv=n_local),
+                rk.rebuild_reference(cfg, r, pool, li, a, hc, att, rv,
+                                     n_recv=n_local))
+        args = random_shard_mailbox_inputs(cfg, tp, r, 16, seed=tp + r,
+                                           device=cuda)
+        assert_equal(launched_round_step(cfg, r, args, n_local),
+                     rs.round_step_reference(cfg, r, *args, n_recv=n_local))
+
+
+def launched_round_step(cfg, r, args, n_local):
+    """``round_step``'s n_recv variant, asserted to launch its kernel
+    once."""
+    before = rs.round_step.launches
+    got = rs.round_step(cfg, r, *args, n_recv=n_local)
+    assert rs.round_step.launches == before + 1
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SHARDED))
+def test_tiled_n_recv_kernels(cuda, case):
+    # On protocol state: each shard against the whole pool; its accepted
+    # matrix is its receivers' columns of the single-device one, and its
+    # segments are the fused n_recv round's.
+    name, tp = SHARDED[case]
+    cfg = qba_tpu_torch.QBAConfig(**CONFIGS[name])
+    n_local = cfg.n_lieutenants // tp
+    for r, pool, li, vi, hc, *draws in round_states(cfg, cuda):
+        shards = (tuple(x.expand((tp,) + x.shape).contiguous() for x in pool),
+                  rk.shard_receivers(li, tp), rk.shard_receivers(vi, tp), hc)
+        acc, vi2 = rk.tiled_verdict(cfg, r, *shards, *draws, n_recv=n_local)
+        assert_equal((acc, vi2), rk.verdict_reference(
+            cfg, r, *shards, *draws, n_recv=n_local))
+        acc_one, vi_one = rk.tiled_verdict(cfg, r, pool, li, vi, hc, *draws)
+        assert torch.equal(acc.permute(1, 2, 0, 3).reshape(acc_one.shape),
+                           acc_one)
+        assert torch.equal(rk.unshard_receivers(vi2), vi_one)
+        got = rk.tiled_rebuild(cfg, r, shards[0], shards[1], acc, hc,
+                               *draws[:2], n_recv=n_local)
+        assert_equal(got, rk.rebuild_reference(
+            cfg, r, shards[0], shards[1], acc, hc, *draws[:2],
+            n_recv=n_local))
+        fused = rk.fused_round(cfg, r, *shards, *draws, n_recv=n_local)
+        assert_equal(got, (fused[0], fused[2]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SHARDED))
+def test_round_step_n_recv_kernel(cuda, case):
+    # On protocol state: each shard against the whole mailbox; the local
+    # mailboxes in shard order are the single-device round's mailbox.
+    name, tp = SHARDED[case]
+    cfg = qba_tpu_torch.QBAConfig(**CONFIGS[name])
+    n_local = cfg.n_lieutenants // tp
+    honest, li, p_rows, v_sent, k_rounds, ctx = trial_inputs(cfg, cuda)
+    vi, out_cells = step3a_one(cfg, p_rows, v_sent, li)
+    mb = rs.mailbox_from_step3a(cfg, out_cells)
+    hpk = rs.honest_packets(honest, cfg)
+    vi = vi.to(torch.int32)
+    for r in range(1, cfg.n_rounds + 1):
+        draws = tuple(x.to(torch.uint8) for x in sample_attacks_round(
+            cfg, jr.fold_in(k_rounds, r), r, ctx))
+        args = (tuple(x.expand((tp,) + x.shape).contiguous() for x in mb),
+                rk.shard_receivers(li, tp), rk.shard_receivers(vi, tp), hpk,
+                *draws)
+        got = launched_round_step(cfg, r, args, n_local)
+        assert_equal(got, rs.round_step_reference(cfg, r, *args,
+                                                  n_recv=n_local))
+        mb, vi, ovf = rs.round_step(cfg, r, mb, li, vi, hpk, *draws)
+        for a, b in zip(got[0], mb):
+            assert torch.equal(torch.cat(list(a), dim=1), b)
+        assert torch.equal(rk.unshard_receivers(got[1]), vi)
+        assert torch.equal(got[2].any(0), ovf)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", list(SHARDED))
 def test_sharded_trial_megakernel(cuda, case):
     name, tp = SHARDED[case]
@@ -506,16 +603,23 @@ def test_spmd_engines_on_one_card(cuda):
                                   trials=32, seed=9)
     ref = qba_tpu_torch.run_trials(cfg, device=cuda).trials
     mesh = make_mesh({"dp": 2, "tp": 4}, devices=[cuda] * 8)
-    for kw, counts in [({}, (1, 0, 0)),
-                       (dict(round_engine="pallas_fused"), (0, 4, 1)),
+    fns = (sharded_trial_megakernel, ring_gather, rk.fused_round,
+           rk.tiled_verdict, rk.tiled_rebuild, rs.round_step)
+    for kw, counts in [({}, (1, 0, 0, 0, 0, 0)),
+                       (dict(round_engine="pallas_fused"), (0, 4, 1, 0, 0, 0)),
                        (dict(round_engine="pallas_fused",
-                             tp_comms="all_gather"), (0, 0, 1)),
-                       (dict(round_engine="xla"), (0, 6, 0))]:
-        fns = (sharded_trial_megakernel, ring_gather, rk.fused_round)
+                             tp_comms="all_gather"), (0, 0, 1, 0, 0, 0)),
+                       (dict(round_engine="pallas_tiled"), (0, 4, 0, 1, 1, 0)),
+                       (dict(round_engine="pallas_tiled",
+                             tp_comms="all_gather"), (0, 0, 0, 1, 1, 0)),
+                       (dict(round_engine="pallas"), (0, 4, 0, 0, 0, 1)),
+                       (dict(round_engine="pallas", tp_comms="all_gather"),
+                        (0, 0, 0, 0, 0, 1)),
+                       (dict(round_engine="xla"), (0, 6, 0, 0, 0, 0))]:
         before = [fn.launches for fn in fns]
         out = run_trials_spmd(dataclasses.replace(cfg, **kw), mesh).trials
         # Per dp row: one megakernel launch, or per round one ring launch
-        # per pool leaf (or mailbox field) and one fused round.
+        # per pool leaf (or mailbox field) and the round's kernels.
         want = tuple(2 * (c if i == 0 else c * cfg.n_rounds)
                      for i, c in enumerate(counts))
         assert tuple(fn.launches - b for fn, b in zip(fns, before)) == want

@@ -142,7 +142,8 @@ assert (gen.trials.vi == host.trials.vi).all()
 assert (gen.trials.decisions == host.trials.decisions).all()
 from qba_tpu_torch.parallel import make_mesh, run_trials_spmd
 mesh = make_mesh({"dp": 2, "tp": 2}, devices=["cpu"] * 4)
-for engine in ("auto", "xla", "pallas_fused", "pallas_mega"):
+for engine in ("auto", "xla", "pallas", "pallas_fused", "pallas_tiled",
+               "pallas_mega"):
     for comms in ("ring", "all_gather"):
         sharded = run_trials_spmd(
             dataclasses.replace(cfg, round_engine=engine, tp_comms=comms),

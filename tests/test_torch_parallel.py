@@ -4,17 +4,19 @@
 single-device engines, on the CPU: the mesh helpers and their errors;
 ``ring_gather_reference`` (the plain version of the ring kernel) against
 JAX's ``ring_gather`` and the tiled ``all_gather`` under ``shard_map``
-on the virtual CPU mesh; the fused round's plain ``n_recv`` variant
-against JAX's ``build_fused_round_kernel(n_recv=...)`` in interpret
-mode, round by round; and ``run_trials_spmd`` on the ``xla``,
-``pallas_fused`` and ``pallas_mega`` engines (the kernels' plain
-versions here) against JAX's single-device ``run_trials`` and the
-port's own, with JAX's ``TestShardedMega`` and ``TestRingComms`` cases,
-an overflowing one and 65 parties (``w = 128``); one case against JAX's
-``run_trials_spmd`` itself, counters included; the recorded demotions
-with JAX's reasons; and the engines whose ``n_recv`` kernels are not
-ported yet.  The kernels themselves run on the card:
-``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+on the virtual CPU mesh; the plain ``n_recv`` variants of the fused
+round, the tiled verdict and rebuild and the dense-mailbox round against
+JAX's ``n_recv`` kernels in interpret mode, round by round on protocol
+state and on seeded random shard inputs (stale entries between the
+segments, stale unsent cells); and ``run_trials_spmd`` on the ``xla``,
+``pallas``, ``pallas_fused``, ``pallas_tiled`` and ``pallas_mega``
+engines (the kernels' plain versions here) against JAX's single-device
+``run_trials`` and the port's own, with JAX's ``TestShardedMega`` and
+``TestRingComms`` cases, an overflowing one and 65 parties (``w =
+128``); one case against JAX's ``run_trials_spmd`` itself, counters
+included; and the recorded demotions with JAX's reasons.  Every output
+is an integer: the tolerance is 0.  The kernels themselves run on the
+card: ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 
 import dataclasses
@@ -36,7 +38,12 @@ import qba_tpu_torch
 from qba_tpu.backends.jax_backend import run_trials as j_run_trials
 from qba_tpu.config import QBAConfig as JConfig
 from qba_tpu.diagnostics import record_decisions
-from qba_tpu.ops.round_kernel_tiled import build_fused_round_kernel
+from qba_tpu.ops.round_kernel import build_round_step
+from qba_tpu.ops.round_kernel_tiled import (
+    build_fused_round_kernel,
+    build_rebuild_kernel,
+    build_verdict_kernel,
+)
 from qba_tpu.ops.round_kernel_tiled import pool_from_step3a as j_pool_3a
 from qba_tpu.ops.round_kernel_tiled import pool_vals_dtype
 from qba_tpu.parallel import default_mesh_shape as j_default_mesh_shape
@@ -47,8 +54,13 @@ from qba_tpu.parallel.mesh import require_divisible as j_require_divisible
 from qba_tpu.parallel.ring import ring_gather as j_ring_gather
 from qba_tpu_torch import random as jr
 from qba_tpu_torch.adversary import adversary_ctx, sample_attacks_round
-from qba_tpu_torch.convert import config_from_jax_fields, shards_from_numpy
+from qba_tpu_torch.convert import (
+    config_from_jax_fields,
+    mailbox_from_numpy,
+    shards_from_numpy,
+)
 from qba_tpu_torch.diagnostics import QBADemotionWarning
+from qba_tpu_torch.ops import round_kernel as rs
 from qba_tpu_torch.ops import round_kernel_tiled as rk
 from qba_tpu_torch.parallel import (
     default_mesh_shape,
@@ -59,9 +71,13 @@ from qba_tpu_torch.parallel import (
 from qba_tpu_torch.parallel.mesh import axis_sizes, require_divisible
 from qba_tpu_torch.parallel.ring import all_gather, ring_gather_reference
 from qba_tpu_torch.rounds.engine import setup_trial, step3a_one
+from qba_tpu_torch.testing import (
+    random_shard_inputs,
+    random_shard_mailbox_inputs,
+)
 
 FIELDS = ("decisions", "success", "vi", "overflow", "honest", "v_comm")
-ENGINES = ("xla", "pallas_fused", "pallas_mega")
+ENGINES = ("xla", "pallas", "pallas_fused", "pallas_tiled", "pallas_mega")
 CPU = torch.device("cpu")
 
 
@@ -141,14 +157,6 @@ def test_tp_row_across_devices_raises():
                      devices=[CPU, torch.device("meta")])
     with pytest.raises(NotImplementedError, match="A12b"):
         run_trials_spmd(cfg, mesh)
-
-
-@pytest.mark.parametrize("engine", ["pallas", "pallas_tiled"])
-def test_unported_n_recv_engines_raise(engine):
-    cfg = qba_tpu_torch.QBAConfig(n_parties=5, size_l=8, n_dishonest=1,
-                                  trials=2, round_engine=engine)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        run_trials_spmd(cfg, cpu_mesh({"dp": 1, "tp": 2}))
 
 
 def test_run_trials_sharded_matches_single_device():
@@ -272,6 +280,212 @@ def test_n_recv_fused_round_matches_jax_round_by_round():
     assert accepted > 0 and overflowed
 
 
+# ------------------------------ the n_recv tiled and dense-mailbox rounds --
+
+# Protocol state of the round-by-round tests: a slot a receiver, so that
+# some rounds overflow.
+N_RECV_CASE = dict(n_parties=9, size_l=8, n_dishonest=2, trials=2, seed=5,
+                   max_accepts_per_round=1)
+
+
+def shard_state(jcfg, n_tp):
+    """Step 3a's state of ``jcfg``'s trials, its receivers in ``n_tp``
+    shards: ``(cfg, out_cells, li_l, vi_l, honest_c, draws_of)``, where
+    ``draws_of(r)`` gives round ``r``'s uint8 draw tables."""
+    cfg = config_from_jax_fields(dataclasses.asdict(jcfg))
+    keys = qba_tpu_torch.backends.trial_keys(cfg, CPU)
+    honest, li, p_rows, v_sent, _vc, k_rounds = setup_trial(cfg, keys)
+    vi, out_cells = step3a_one(cfg, p_rows, v_sent, li)
+    ctx = adversary_ctx(cfg, k_rounds, v_sent)
+
+    def draws_of(r):
+        return tuple(x.to(torch.uint8) for x in sample_attacks_round(
+            cfg, jr.fold_in(k_rounds, r), r, ctx))
+
+    return (cfg, out_cells, rk.shard_receivers(li.to(torch.int32), n_tp),
+            rk.shard_receivers(vi.to(torch.int32), n_tp),
+            rk.honest_cells(honest, cfg), draws_of)
+
+
+def jnp_of(x):
+    return jnp.asarray(x.numpy())
+
+
+def jax_draws(draws, t, lo, n_local):
+    """Trial ``t``'s draw columns of the receivers ``[lo, lo +
+    n_local)``, as JAX's ``n_recv`` kernels take them."""
+    return tuple(jnp.asarray(d[t, :, lo:lo + n_local].numpy().astype(np.int32))
+                 for d in draws)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_n_recv_tiled(jcfg, n_local):
+    seg = n_local * jcfg.slots
+    return (jax.jit(build_verdict_kernel(jcfg, seg, interpret=True,
+                                         n_recv=n_local)),
+            jax.jit(build_rebuild_kernel(jcfg, seg, interpret=True,
+                                         n_recv=n_local)))
+
+
+def check_tiled_n_recv(jcfg, cfg, r, pool, li_l, vi_l, hc, draws, n_local):
+    """JAX's ``n_recv`` verdict then rebuild kernel, shard by shard and
+    trial by trial, against the plain ``n_recv`` verdict and rebuild on
+    the shards' assembled pools ``pool`` ``[n_sh, T, ...]``: ``acc``,
+    ``vi``, the local successor segment and overflow must be equal.
+    Returns the plain ``(pool', vi', overflow, acc)``."""
+    verdict, rebuild = jax_n_recv_tiled(jcfg, n_local)
+    acc, vi_new = rk.verdict_reference(cfg, r, pool, li_l, vi_l, hc, *draws,
+                                       n_recv=n_local)
+    new, ovf = rk.rebuild_reference(cfg, r, pool, li_l, acc, hc, *draws[:2],
+                                    n_recv=n_local)
+    vdt = pool_vals_dtype(jcfg)
+    dts = (vdt, jnp.int32, vdt, jnp.int32)
+    for s in range(li_l.shape[0]):
+        lo = s * n_local
+        for t in range(li_l.shape[1]):
+            jpool = tuple(jnp.asarray(x[s, t].numpy(), dt)
+                          for x, dt in zip(pool, dts))
+            att, rv, late = jax_draws(draws, t, lo, n_local)
+            hc_t = jnp.asarray(hc[t, :, None].numpy())
+            with jax.threefry_partitionable(True):
+                acc_j, vi_j = verdict(r, lo, *jpool, jnp_of(li_l[s, t]),
+                                      jnp_of(vi_l[s, t]), hc_t, att, rv,
+                                      late)
+                out_j, ovf_j = rebuild(r, lo, *jpool, jnp_of(li_l[s, t]),
+                                       acc_j, att, rv, hc_t)
+            where = (r, s, t)
+            assert np.array_equal(np.asarray(acc_j), acc[s, t].numpy()), where
+            assert np.array_equal(np.asarray(vi_j), vi_new[s, t].numpy()), \
+                where
+            for name, a, b in zip(("vals", "lens", "p", "meta"), out_j, new):
+                assert np.array_equal(np.asarray(a).astype(np.int32),
+                                      b[s, t].numpy().astype(np.int32)), \
+                    (name,) + where
+            assert bool(ovf_j) == bool(ovf[s, t]), where
+    return new, vi_new, ovf, acc
+
+
+@functools.lru_cache(maxsize=None)
+def jax_n_recv_step(jcfg, n_local):
+    return jax.jit(build_round_step(jcfg, interpret=True, n_recv=n_local))
+
+
+def jax_mailbox(mailbox, t):
+    """Trial ``t`` of the port's packed mailbox ``[T, ...]`` as the JAX
+    round kernel's packed operands."""
+    vals, lens, p, meta = (x[t].numpy().astype(np.int32) for x in mailbox)
+    return tuple(map(jnp.asarray, (vals.transpose(1, 0, 2), lens,
+                                   meta[:, 0:1], p, meta[:, 1:2],
+                                   meta[:, 2:3])))
+
+
+def check_round_step_n_recv(jcfg, cfg, r, mailbox, li_l, vi_l, hpk, draws,
+                            n_local):
+    """JAX's ``build_round_step(n_recv=...)``, shard by shard and trial by
+    trial, against the plain ``n_recv`` dense-mailbox round on the
+    shards' gathered mailboxes ``mailbox`` ``[n_sh, T, ...]``: the local
+    mailbox (global ``cell`` lanes), ``vi`` and overflow must be equal.
+    Returns the plain ``(mailbox', vi', overflow)``."""
+    step = jax_n_recv_step(jcfg, n_local)
+    new, vi_new, ovf = rs.round_step_reference(
+        cfg, r, mailbox, li_l, vi_l, hpk, *draws, n_recv=n_local)
+    for s in range(li_l.shape[0]):
+        lo = s * n_local
+        for t in range(li_l.shape[1]):
+            with jax.threefry_partitionable(True):
+                out = step(r, lo, *jax_mailbox(tuple(x[s] for x in mailbox),
+                                               t),
+                           jnp_of(li_l[s, t]), jnp_of(vi_l[s, t]),
+                           jnp.asarray(hpk[t, :, None].numpy()),
+                           *jax_draws(draws, t, lo, n_local))
+            want = mailbox_from_numpy(*(np.asarray(x)[None] for x in out[:6]),
+                                      start=lo, slots=cfg.slots)
+            where = (r, s, t)
+            for name, a, b in zip(("vals", "lens", "p", "meta"), want, new):
+                assert torch.equal(a[0], b[s, t]), (name,) + where
+            assert np.array_equal(np.asarray(out[6]), vi_new[s, t].numpy()), \
+                where
+            assert bool(np.asarray(out[7])[0, 0] > 0) == bool(ovf[s, t]), \
+                where
+    return new, vi_new, ovf
+
+
+def test_n_recv_tiled_round_matches_jax_round_by_round():
+    jcfg = JConfig(**N_RECV_CASE)
+    n_tp = 2
+    cfg, cells, li_l, vi_l, hc, draws_of = shard_state(jcfg, n_tp)
+    n_local = cfg.n_lieutenants // n_tp
+    pool = tuple(torch.stack(x) for x in zip(*[
+        rk.pool_from_step3a(cfg, tuple(c[:, lo:lo + n_local] for c in cells),
+                            start=lo, n_recv=n_local)
+        for lo in range(0, cfg.n_lieutenants, n_local)]))
+    accepted, overflowed = 0, False
+    for r in range(1, cfg.n_rounds + 1):
+        whole = rk.assemble_pool(pool)
+        assembled = tuple(x.expand((n_tp,) + x.shape) for x in whole)
+        new, vi_new, ovf, _acc = check_tiled_n_recv(
+            jcfg, cfg, r, assembled, li_l, vi_l, hc, draws_of(r), n_local)
+        accepted += int(vi_new.sum() - vi_l.sum())
+        overflowed |= bool(ovf.any())
+        pool, vi_l = new, vi_new
+    assert accepted > 0 and overflowed
+
+
+def test_n_recv_round_step_matches_jax_round_by_round():
+    jcfg = JConfig(**N_RECV_CASE)
+    n_tp = 2
+    cfg, cells, li_l, vi_l, hc, draws_of = shard_state(jcfg, n_tp)
+    n_local = cfg.n_lieutenants // n_tp
+    mb = tuple(torch.stack(x) for x in zip(*[
+        rs.mailbox_from_step3a(cfg, tuple(c[:, lo:lo + n_local]
+                                          for c in cells), start=lo)
+        for lo in range(0, cfg.n_lieutenants, n_local)]))
+    # The local mailboxes in shard order are the whole step-3a mailbox,
+    # cell lanes included.
+    for a, b in zip(mb, rs.mailbox_from_step3a(cfg, cells)):
+        assert torch.equal(torch.cat(list(a), dim=1), b)
+    accepted, overflowed = 0, False
+    for r in range(1, cfg.n_rounds + 1):
+        gathered = tuple(all_gather(x, 1) for x in mb)
+        new, vi_new, ovf = check_round_step_n_recv(
+            jcfg, cfg, r, gathered, li_l, vi_l, hc, draws_of(r), n_local)
+        accepted += int(vi_new.sum() - vi_l.sum())
+        overflowed |= bool(ovf.any())
+        mb, vi_l = new, vi_new
+    assert accepted > 0 and overflowed
+
+
+# Seeded random shard inputs: (config, tp, round, trials).  Random
+# packets rarely pass the verdict: the trial counts are what it takes for
+# each case to accept something.
+N_RECV_RANDOM = {
+    "5p-slots1-tp2-r1": (dict(n_parties=5, size_l=16, n_dishonest=2,
+                              max_accepts_per_round=1), 2, 1, 8),
+    "7p-split-tp3-r3": (dict(n_parties=7, size_l=8, n_dishonest=3,
+                             strategy="split"), 3, 3, 4),
+}
+
+
+@pytest.mark.parametrize("case", list(N_RECV_RANDOM))
+def test_n_recv_tiled_and_round_step_match_jax_on_random_shards(case):
+    # Assembled pools with an empty segment, a full one and stale unsent
+    # entries between the segments; gathered mailboxes whose unsent cells
+    # hold stale packets.
+    kw, tp, r, trials = N_RECV_RANDOM[case]
+    jcfg = JConfig(**kw)
+    cfg = config_from_jax_fields(dataclasses.asdict(jcfg))
+    n_local = cfg.n_lieutenants // tp
+    pool, li, vi, hc, *draws = random_shard_inputs(cfg, tp, r, trials,
+                                                   seed=tp + r)
+    _new, _vi, _ovf, acc = check_tiled_n_recv(jcfg, cfg, r, pool, li, vi,
+                                              hc, draws, n_local)
+    mb, li, vi, hpk, *draws = random_shard_mailbox_inputs(
+        cfg, tp, r, trials, seed=tp + r)
+    _mb, vi_m, _ovf = check_round_step_n_recv(jcfg, cfg, r, mb, li, vi, hpk,
+                                              draws, n_local)
+    assert int(acc.sum()) > 0 and int(vi_m.sum() - vi.sum()) > 0
+
+
 # ---------------------------------------------------------- run_trials --
 
 
@@ -361,7 +575,7 @@ def test_direct_comparison_with_jax_spmd_and_counters():
         theirs = j_run_trials_spmd(jcfg, j_make_mesh(
             {"dp": 2, "tp": 2}, devices=jax.devices()[:4])).trials
     ref = port_trials(cfg)
-    for engine in ("xla", "pallas_fused"):
+    for engine in ("xla", "pallas", "pallas_fused", "pallas_tiled"):
         mine = run_trials_spmd(dataclasses.replace(cfg, round_engine=engine),
                                cpu_mesh({"dp": 2, "tp": 2})).trials
         assert_matches(mine, {f: np.asarray(getattr(theirs, f))
@@ -421,11 +635,12 @@ def test_wrappers_use_plain_versions_on_cpu():
         sharded_trial_megakernel_reference,
         trial_megakernel_reference,
     )
-    from qba_tpu_torch.testing import random_shard_inputs, random_trial_inputs
+    from qba_tpu_torch.testing import random_trial_inputs
 
     cfg = qba_tpu_torch.QBAConfig(n_parties=5, size_l=16, n_dishonest=2,
                                   max_accepts_per_round=1)
-    fns = (ring_gather, rk.fused_round, sharded_trial_megakernel)
+    fns = (ring_gather, rk.fused_round, rk.tiled_verdict, rk.tiled_rebuild,
+           rs.round_step, sharded_trial_megakernel)
     before = [fn.launches for fn in fns]
     x = torch.arange(24, dtype=torch.int32).reshape(2, 3, 4)
     assert torch.equal(ring_gather(x, 1), ring_gather_reference(x, 1))
@@ -434,9 +649,46 @@ def test_wrappers_use_plain_versions_on_cpu():
     want = rk.fused_round_reference(cfg, 1, *args, n_recv=2)
     for a, b in zip(got[0] + got[1:], want[0] + want[1:]):
         assert torch.equal(a, b)
+    pool, li, vi, hc, att, rv, late = args
+    acc, vi2 = rk.tiled_verdict(cfg, 1, *args, n_recv=2)
+    ref_acc, ref_vi = rk.verdict_reference(cfg, 1, *args, n_recv=2)
+    assert torch.equal(acc, ref_acc) and torch.equal(vi2, ref_vi)
+    assert acc.shape == (2, 4, cfg.n_lieutenants * cfg.slots, 2)
+    out, ovf = rk.tiled_rebuild(cfg, 1, pool, li, acc, hc, att, rv, n_recv=2)
+    # The pair is the fused round.
+    for a, b in zip(out + (vi2, ovf), got[0] + got[1:]):
+        assert torch.equal(a, b)
+    margs = random_shard_mailbox_inputs(cfg, 2, 1, 4, seed=0)
+    got = rs.round_step(cfg, 1, *margs, n_recv=2)
+    want = rs.round_step_reference(cfg, 1, *margs, n_recv=2)
+    for a, b in zip(got[0] + got[1:], want[0] + want[1:]):
+        assert torch.equal(a, b)
+    assert got[0][0].shape == (2, 4, 2 * cfg.slots, cfg.max_l, cfg.size_l)
     targs = random_trial_inputs(cfg, 8, seed=1)
     got = sharded_trial_megakernel(cfg, 2, *targs)
     for a, b, c in zip(got, sharded_trial_megakernel_reference(cfg, 2, *targs),
                        trial_megakernel_reference(cfg, *targs)):
         assert torch.equal(a, b) and torch.equal(a, c)
     assert [fn.launches for fn in fns] == before
+
+
+def test_shard_mailbox_layout():
+    # A shard's local mailbox numbers its cells globally, whether made
+    # empty or from the JAX kernel's operands; the shards' mailboxes in
+    # shard order number every cell once.
+    cfg = qba_tpu_torch.QBAConfig(n_parties=7, size_l=8, n_dishonest=2)
+    slots, n_local = cfg.slots, 2
+    empty = rs.empty_mailbox(cfg, 3, n_recv=n_local, start=4)
+    want = 4 * slots + torch.arange(n_local * slots, dtype=torch.int32)
+    assert torch.equal(empty[3][..., 3], want.expand(3, -1))
+    assert int(empty[3][..., :3].abs().sum()) == 0
+    assert empty[0].shape == (3, n_local * slots, cfg.max_l, cfg.size_l)
+    jmb = [np.asarray(x)[None] for x in jax_mailbox(empty, 0)]
+    for a, b in zip(mailbox_from_numpy(*jmb, start=4, slots=slots), empty):
+        assert torch.equal(a[0], b[0])
+    with pytest.raises(ValueError, match="slots"):
+        mailbox_from_numpy(*jmb, start=4)
+    segs = [rs.empty_mailbox(cfg, 1, n_recv=n_local, start=s)[3]
+            for s in (0, 2, 4)]
+    assert torch.equal(torch.cat(segs, dim=1)[..., 3],
+                       torch.arange(6 * slots, dtype=torch.int32)[None])
