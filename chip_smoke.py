@@ -52,24 +52,42 @@ Phases, each reported on its own line:
    megakernel on the ``small`` list at every ``tp <= 8`` dividing the
    lieutenants, against its plain version and the single-device
    megakernel trial for trial (some trial overflows);
+   ``draws_vs_plain``: the draws kernel against its plain version,
+   bit-exact, on every round of 32 trials at 11p/L64/d3 and 33p/L64/d10
+   in every strategy (``reference``, ``collude``, ``adaptive``,
+   ``split``) under the delivery scope and ``reference`` under the
+   broadcast scope, each under ``sync`` and ``racy`` delivery;
+   ``keyed_vs_plain``: the megakernels' keyed entries (which hash their
+   own draws, the ones the engines launch) in the same combinations, at
+   11p (32 trials) and 33p (16), and at 11p with one slot a round (some
+   trial overflows): single-device, party-sharded at ``tp`` 2 and 4 and
+   the gen entry on ``qsim_path="stabilizer"``, each against its plain
+   version and its stacked form, trial for trial;
 5. ``engines_agree``: ``run_trials`` with the ``xla``, ``pallas``,
    ``pallas_fused``, ``pallas_tiled`` and ``pallas_mega`` engines trial
    for trial at 5p/L16/d2 x 64, and the protocol counters of the four
    per-round engines field by field;
 6. ``main_path``, at full width, 11p/L64/d3 and 33p/L64/d10 x 1000 trials
    each: ``run_trials(QBAConfig(...))`` with ``auto`` (asserted to
-   resolve to the megakernel, one launch per batch), then the
-   ``pallas_fused`` (one launch per round), ``pallas_tiled`` (two per
-   round) and ``pallas`` (one per round) engines, each with its launch
+   resolve to the keyed megakernel, one launch per batch and no draws
+   launch), then the ``pallas_fused`` (one launch per round),
+   ``pallas_tiled`` (two per round) and ``pallas`` (one per round)
+   engines, each also one draws launch per round, each with its launch
    counts reset just before and asserted just after; wall time after a
    warm-up, rounds/s (trials x n_rounds / s), kernel time per launch
    from CUDA events, set-up and draw times, success rate and peak
    memory.  The four engines must agree trial for trial.  Then
    ``full_width_vs_plain``: the same batches replayed round by round
    with the fused, verdict, rebuild and dense-mailbox kernels held
-   against their plain versions (bit-exact, with times and bounds), and
-   the megakernel held against its plain version on the batch's own
-   inputs.  Then ``collect_counters=True`` on ``auto`` at 11p/L64/d3 x
+   against their plain versions (bit-exact, with times and bounds), each
+   round's draws (the draws kernel a round a launch, as the per-round
+   engines launch it) held against the plain draws, and
+   the keyed megakernel held against its plain version and its stacked
+   form on the batch's own inputs; ``draws_timing``, the draws kernel
+   over all the batch's rounds in one launch, held bit for bit against
+   its plain version on the whole batch, with its bound; ``keyed_timing``, the keyed megakernel beside the
+   stacked one under the broadcast scope, racy delivery and the
+   adaptive strategy.  Then ``collect_counters=True`` on ``auto`` at 11p/L64/d3 x
    1000 (asserted to run the fused per-round engine), and the dense
    circuit path at the widest circuit it admits,
    ``qsim_path="dense_pallas"`` at 5p/L64/d2 x 32 (18 qubits), with the
@@ -146,7 +164,14 @@ SOURCES = {
                                  "qba_tpu/ops/trial_megakernel.py:983"),
     "ring_gather": ("qba_tpu_torch/ops/csrc/ring_shuffle.cu",
                     "qba_tpu/ops/ring_shuffle.py:97"),
+    # The counterpart of the XLA-compiled threefry and adversary draws,
+    # not of a pallas_call site.
+    "attack_draws": ("qba_tpu_torch/ops/csrc/attack_draws.cu",
+                     "qba_tpu/adversary/model.py:250"),
 }
+# 32-bit operations of one threefry2x32 (csrc/draws.cuh): 20 rounds of an
+# add, a rotate and a xor, and the key injections.
+HASH_OPS = 80
 
 
 T0 = time.perf_counter()
@@ -306,25 +331,104 @@ def circuit_cost(tables, params):
     return b, ops
 
 
-def mega_cost(cfg, rounds, n_trials):
+def streams(cfg):
+    """The draw streams a round hashes: attack, late under racy delivery,
+    adapt under the adaptive strategy."""
+    return 1 + (cfg.delivery == "racy") + (cfg.strategy == "adaptive")
+
+
+def mega_cost(cfg, rounds, n_trials, keyed=False):
     """Bytes and compares of a whole trial batch in one launch: li, P,
     the orders and honesty once in; vi, the decisions and overflow out;
     per round its live pool entries (valid rows of vals and lens, P,
-    meta) written once and read back once, the three draws of each live
-    packet per receiver (the verdict) and the two of each rebuilt entry
-    (the rebuild).  A round reads no draw of a cell without a live
-    packet, so the draw stacks are not counted whole.  ``rounds`` holds
-    each round's ``(live, rows, dst)``."""
+    meta) written once and read back once, and for the stacked entries
+    the three draws of each live packet per receiver (the verdict) and
+    the two of each rebuilt entry (the rebuild): a round reads no draw of
+    a cell without a live packet, so the stacks are not counted whole.
+    The keyed entries read the rounds keys instead and hash what a
+    trial's rounds read, once each: per trial and round the round's keys
+    (the round key and one a stream), the attack word of each receiver of
+    a live packet of a dishonest sender, under the adaptive strategy the
+    adapt word of each such entry that forges, and under racy delivery
+    every live packet's late word per receiver.  The kernel's dedup and
+    rebuild hash some of those entries again (``rehashes``): that is the
+    design's own work, not the function's, and the bound leaves it out.
+    ``rounds`` holds each round's ``round_facts``."""
     n_rv, s, w = cfg.n_lieutenants, cfg.size_l, cfg.w
     n_pool = n_rv * cfg.slots
     b = n_trials * (n_rv * s * 4 + n_rv * s + n_rv * 4 + n_pool * 4
-                    + n_rv * w * 4 + n_rv * 4 + 4)
-    ops = 0
-    for live, rows, dst in rounds:
-        b += (2 * (rows * (s + 4) + live * (s + 16)) + live * 3 * n_rv
-              + dst * 2)
+                    + n_rv * w * 4 + n_rv * 4 + 4 + (16 if keyed else 0))
+    ops = hashes = 0
+    racy = cfg.delivery == "racy"
+    for f in rounds:
+        live, rows, dst = f["live"], f["rows"], f["dst"]
+        b += 2 * (rows * (s + 4) + live * (s + 16))
         ops += (rows + 3 * live) * s * n_rv
-    return b, ops
+        if keyed:
+            hashes += (n_trials * (1 + streams(cfg)) + f["live_biz"] * n_rv
+                       + (f["forge_biz"] if cfg.strategy == "adaptive"
+                          else 0)
+                       + (live * n_rv if racy else 0))
+        else:
+            b += live * 3 * n_rv + dst * 2
+    return b, ops + HASH_OPS * hashes
+
+
+def rehashes(rounds):
+    """The keyed megakernels' reads of a dishonest sender's draw beyond
+    the verdict's row, over ``rounds``' ``round_facts``: one for each
+    accepted pair (the dedup) and one for each rebuilt entry (the
+    rebuild), each a hash of an entry the verdict hashed already (a walk
+    of up to ``n_rv`` hashes under the broadcast scope)."""
+    return sum(f["acc_biz"] + f["dst_biz"] for f in rounds)
+
+
+def draws_cost(cfg, n_trials, n_r):
+    """Bytes and operations of one draws launch over ``n_r`` rounds: the
+    rounds keys (and the collude targets or adaptive's orders) in, the
+    three uint8 tables out; per trial and round the round key and one a
+    stream, per entry one hash a stream (a broadcast cell's walk hashes
+    each of its entries once)."""
+    n_rv = cfg.n_lieutenants
+    entries = n_trials * n_r * n_rv * cfg.slots * n_rv
+    ctx = {"collude": 4, "adaptive": 4 * n_rv}.get(cfg.strategy, 0)
+    b = n_trials * (16 + ctx) + 3 * entries
+    k = streams(cfg)
+    return b, HASH_OPS * (entries * k + n_trials * n_r * (1 + k))
+
+
+def round_facts(cfg, r, pool, hc, acc, att):
+    """One round's work on ``pool``: its live packets and their valid
+    rows, the rebuilt entries and the rows they copy, and the live
+    packets, accepted pairs and rebuilt entries whose sender is dishonest
+    (the keyed megakernels hash only those) and the entries of such
+    packets that forge, from the round's accepted matrix ``acc`` and
+    attack table ``att``."""
+    import torch
+
+    live, rows = pool_stats(cfg, pool)
+    meta = pool[3]
+    sent = meta[..., 2] != 0
+    cell = meta[..., 3].clamp(0, hc.shape[1] - 1).long()
+    biz = sent & (torch.gather(hc, 1, cell) == 0)
+    accepted = acc != 0
+    rb = accepted & (r <= cfg.n_dishonest)
+    slot = torch.cumsum(rb.long(), 1) - rb.long()
+    write = rb & (slot < cfg.slots)
+    src_cnt = torch.where(sent, meta[..., 0].clamp(0, cfg.max_l), 0)
+    return dict(live=live, rows=rows, dst=int(write.sum()),
+                dst_rows=int((write.long() * src_cnt[..., None].long())
+                             .sum()),
+                live_biz=int(biz.sum()),
+                forge_biz=int(((att.long() & 2) != 0)
+                              .logical_and(biz[..., None]).sum()),
+                acc_biz=int((accepted & biz[..., None]).sum()),
+                dst_biz=int((write & biz[..., None]).sum()))
+
+
+def ctx_part(ctx, sl):
+    """Trials ``sl`` of an adversary context (None stays None)."""
+    return None if ctx is None else type(ctx)(*(x[sl] for x in ctx))
 
 
 def tree_err(got, want):
@@ -334,6 +438,29 @@ def tree_err(got, want):
             raise AssertionError("outputs differ in length")
         return max(tree_err(a, b) for a, b in zip(got, want))
     return max_err(got, want)
+
+
+def checked_draws(cfg, k_rounds, ctx, r):
+    """Round ``r``'s draw tables as the per-round engines launch the draws
+    kernel (``round_draws``: one round a launch, ``r0 = r``), held bit
+    for bit against the plain version on the same trials.  Returns the
+    tables and the kernel's host ms (fenced)."""
+    import torch
+
+    from qba_tpu_torch.ops.attack_draws import attack_draws_reference
+    from qba_tpu_torch.rounds.engine import round_draws
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    draws = round_draws(cfg, k_rounds, ctx, r)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    want = attack_draws_reference(cfg, k_rounds, ctx, r, 1)
+    err = tree_err(draws, tuple(x[:, 0] for x in want))
+    if err:
+        raise AssertionError(f"attack_draws != plain version at {cfg} round "
+                             f"{r} (r0={r}, n_r=1): max abs err {err}")
+    return draws, ms
 
 
 def event_ms(events):
@@ -351,8 +478,7 @@ def replay(cfg, keys, *, chunk, reps=0):
     ``torch.cuda.synchronize()``."""
     import torch
 
-    from qba_tpu_torch import random as jr
-    from qba_tpu_torch.adversary import adversary_ctx, sample_attacks_round
+    from qba_tpu_torch.adversary import adversary_ctx
     from qba_tpu_torch.ops import round_kernel as rs
     from qba_tpu_torch.ops import round_kernel_tiled as rk
     from qba_tpu_torch.rounds.engine import setup_trial, step3a_one
@@ -361,6 +487,7 @@ def replay(cfg, keys, *, chunk, reps=0):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     honest, li, p_rows, v_sent, _v_comm, k_rounds = setup_trial(cfg, keys)
+    k_rounds = k_rounds.contiguous()
     vi, out_cells = step3a_one(cfg, p_rows, v_sent, li)
     ctx = adversary_ctx(cfg, k_rounds, v_sent)
     pool = rk.pool_from_step3a(cfg, out_cells)
@@ -403,12 +530,7 @@ def replay(cfg, keys, *, chunk, reps=0):
         return cat(parts), ms
 
     for r in range(1, cfg.n_rounds + 1):
-        t0 = time.perf_counter()
-        att, rv, late = (x.to(torch.uint8) for x in sample_attacks_round(
-            cfg, jr.fold_in(k_rounds, r), r, ctx))
-        torch.cuda.synchronize()
-        draws_ms = (time.perf_counter() - t0) * 1e3
-        live, rows = pool_stats(cfg, pool)
+        (att, rv, late), draws_ms = checked_draws(cfg, k_rounds, ctx, r)
         new, vi_k, ovf_k = rk.fused_round(cfg, r, pool, li, vi_i, hc, att,
                                           rv, late, out=spare)
         acc_k, vi_t = rk.tiled_verdict(cfg, r, pool, li, vi_i, hc, att, rv,
@@ -465,16 +587,11 @@ def replay(cfg, keys, *, chunk, reps=0):
         if any(errs.values()):
             raise AssertionError(
                 f"kernel != plain version at {cfg} round {r}: {errs}")
-        # What the rebuild must read: each destination's source packet.
-        rb = (acc_k != 0) & (r <= cfg.n_dishonest)
-        slot = torch.cumsum(rb.long(), 1) - rb.long()
-        write = rb & (slot < cfg.slots)
-        src_cnt = torch.where(pool[3][..., 2] != 0,
-                              pool[3][..., 0].clamp(0, cfg.max_l), 0)
-        dst = int(write.sum())
-        dst_rows = int((write.long() * src_cnt[..., None].long()).sum())
+        facts = round_facts(cfg, r, pool, hc, acc_k, att)
+        live, rows = facts["live"], facts["rows"]
+        dst, dst_rows = facts["dst"], facts["dst_rows"]
         stats.append(dict(
-            round=r, live=live, rows=rows, dst=dst, dst_rows=dst_rows,
+            round=r, **facts,
             max_abs_err=errs,
             overflow=int(ovf_k.sum()), draws_ms=draws_ms,
             ms=dict(fused_round=fused_ms, tiled_verdict=verdict_ms,
@@ -595,14 +712,14 @@ def n_recv_replay(cfg, keys, tp, *, chunk, reps=3):
     per-round stats."""
     import torch
 
-    from qba_tpu_torch import random as jr
-    from qba_tpu_torch.adversary import adversary_ctx, sample_attacks_round
+    from qba_tpu_torch.adversary import adversary_ctx
     from qba_tpu_torch.ops import round_kernel as rs
     from qba_tpu_torch.ops import round_kernel_tiled as rk
     from qba_tpu_torch.rounds.engine import setup_trial, step3a_one
 
     n = keys.shape[0]
     honest, li, p_rows, v_sent, _v_comm, k_rounds = setup_trial(cfg, keys)
+    k_rounds = k_rounds.contiguous()
     vi, out_cells = step3a_one(cfg, p_rows, v_sent, li)
     ctx = adversary_ctx(cfg, k_rounds, v_sent)
     pool = rk.pool_from_step3a(cfg, out_cells)
@@ -642,8 +759,7 @@ def n_recv_replay(cfg, keys, tp, *, chunk, reps=3):
 
     stats = []
     for r in range(1, cfg.n_rounds + 1):
-        draws = tuple(x.to(torch.uint8) for x in sample_attacks_round(
-            cfg, jr.fold_in(k_rounds, r), r, ctx))
+        draws = checked_draws(cfg, k_rounds, ctx, r)[0]
         live, rows = pool_stats(cfg, pool)
         spool, sli, svi = shard_args(tp, pool, li, vi)
         smbox = shard_args(tp, mbox, li, vi)[0]
@@ -700,101 +816,141 @@ def n_recv_replay(cfg, keys, tp, *, chunk, reps=3):
     return stats
 
 
+def kernel_ms(fn, reps, *args):
+    """``fn(*args)``'s kernel ms per launch: CUDA events over ``reps``
+    launches."""
+    import torch
+
+    fn.events = []
+    for _ in range(reps):
+        fn(*args)
+    torch.cuda.synchronize()
+    ms, fn.events = event_ms(fn.events), None
+    return ms
+
+
 def mega_inputs(cfg, keys):
     """The megakernel's inputs for ``keys``, staged as ``run_trial_mega``
-    builds them, with the set-up and draw times (host clock, fenced)."""
+    builds them: the body's inputs, the rounds keys and the adversary
+    context (the keyed entries'), and the draws kernel's stacks (the
+    stacked entries'), with the set-up and stack times (host clock,
+    fenced)."""
     import torch
 
     from qba_tpu_torch.adversary import adversary_ctx
+    from qba_tpu_torch.ops.attack_draws import attack_draws
     from qba_tpu_torch.ops.round_kernel_tiled import honest_cells
-    from qba_tpu_torch.rounds.engine import _stacked_draws, setup_trial
+    from qba_tpu_torch.rounds.engine import setup_trial
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     honest, li, p_rows, v_sent, _v_comm, k_rounds = setup_trial(cfg, keys)
+    k_rounds = k_rounds.contiguous()
     ctx = adversary_ctx(cfg, k_rounds, v_sent)
-    args = [p_rows.contiguous(), li.to(torch.int32).contiguous(),
+    body = [p_rows.contiguous(), li.to(torch.int32).contiguous(),
             v_sent.to(torch.int32).contiguous(), honest_cells(honest, cfg)]
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    args += list(_stacked_draws(cfg, k_rounds, ctx))
+    stacks = attack_draws(cfg, k_rounds, ctx)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    return args, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+    return body, k_rounds, ctx, stacks, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+
+def keyed_plain(fn, cfg, pre, body, k_rounds, ctx, chunk):
+    """A keyed entry's plain version ``fn(cfg, *pre, *body, k_rounds,
+    ctx)`` over chunks of ``chunk`` trials -> (outputs, host ms)."""
+    import torch
+
+    n = k_rounds.shape[0]
+    t0 = time.perf_counter()
+    parts = []
+    for a in range(0, n, chunk):
+        sl = slice(a, a + chunk)
+        parts.append(fn(cfg, *pre, *(x[sl] for x in body), k_rounds[sl],
+                        ctx_part(ctx, sl)))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return tuple(torch.cat([p[i] for p in parts]) for i in range(3)), ms
 
 
 def mega_vs_plain(cfg, keys, *, chunk, reps=0):
-    """The megakernel against its plain version on ``keys``' inputs
-    (bit-exact).  With ``reps`` > 0 also times both."""
-    import torch
+    """The keyed megakernel (the main path's) against its plain version
+    (the draws' plain version, then the megakernel's, in chunks of
+    ``chunk`` trials) and against the stacked entry on the draws kernel's
+    stacks, bit-exact.  With ``reps`` > 0 also times both entries (CUDA
+    events) and the plain version (host clock)."""
+    from qba_tpu_torch.ops import trial_megakernel as tm
 
-    from qba_tpu_torch.ops.trial_megakernel import (
-        trial_megakernel,
-        trial_megakernel_reference,
-    )
-
-    args, setup_ms, draws_ms = mega_inputs(cfg, keys)
-    got = trial_megakernel(cfg, *args)
-    torch.cuda.synchronize()
-    ms = None
+    body, k_rounds, ctx, stacks, setup_ms, draws_ms = mega_inputs(cfg, keys)
+    got = tm.trial_megakernel_keyed(cfg, *body, k_rounds, ctx)
+    stacked = tm.trial_megakernel(cfg, *body, *stacks)
+    want, plain_ms = keyed_plain(tm.trial_megakernel_keyed_reference, cfg,
+                                 (), body, k_rounds, ctx, chunk)
+    err = tree_err(got, want)
+    if err or tree_err(stacked, got):
+        raise AssertionError(f"keyed megakernel != plain version or stacked "
+                             f"entry at {cfg}: max abs err {err}")
+    out = dict(max_abs_err=err, ms=None, stacked_ms=None, plain_ms=None,
+               setup_ms=setup_ms, draws_ms=draws_ms,
+               overflow=int(got[2].sum()), vi=got[0] != 0)
     if reps:
-        trial_megakernel.events = []
-        for _ in range(reps):
-            trial_megakernel(cfg, *args)
-        torch.cuda.synchronize()
-        ms, trial_megakernel.events = event_ms(trial_megakernel.events), None
-    n = keys.shape[0]
-    t0 = time.perf_counter()
-    parts = [trial_megakernel_reference(cfg, *(x[a:a + chunk] for x in args))
-             for a in range(0, n, chunk)]
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    want = [torch.cat([p[i] for p in parts]) for i in range(3)]
-    err = max(max_err(a, b) for a, b in zip(got, want))
-    if err:
-        raise AssertionError(f"trial_megakernel != plain version at {cfg}: "
-                             f"max abs err {err}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms if reps else None,
-                setup_ms=setup_ms, draws_ms=draws_ms,
-                overflow=int(got[2].sum()), vi=got[0] != 0)
+        out.update(
+            ms=kernel_ms(tm.trial_megakernel_keyed, reps, cfg, *body,
+                         k_rounds, ctx),
+            stacked_ms=kernel_ms(tm.trial_megakernel, reps, cfg, *body,
+                                 *stacks),
+            plain_ms=plain_ms)
+    return out
+
+
+def keyed_timing(cfg, keys, reps=3):
+    """The keyed megakernel beside the stacked entry on the draws kernel's
+    stacks, on ``keys``' whole batch: equal trial for trial, each timed
+    (CUDA events over ``reps`` launches)."""
+    from qba_tpu_torch.ops import trial_megakernel as tm
+
+    body, k_rounds, ctx, stacks, _setup_ms, draws_ms = mega_inputs(cfg, keys)
+    if tree_err(tm.trial_megakernel_keyed(cfg, *body, k_rounds, ctx),
+                tm.trial_megakernel(cfg, *body, *stacks)):
+        raise AssertionError(f"keyed != stacked megakernel at {cfg}")
+    return dict(ms=kernel_ms(tm.trial_megakernel_keyed, reps, cfg, *body,
+                             k_rounds, ctx),
+                stacked_ms=kernel_ms(tm.trial_megakernel, reps, cfg, *body,
+                                     *stacks),
+                stacked_draws_ms=draws_ms)
 
 
 def sharded_mega_vs_plain(cfg, keys, tp, *, chunk, reps=0):
-    """The party-sharded megakernel at ``tp`` against its plain version
-    and the single-device megakernel on ``keys``' inputs (bit-exact,
-    trial for trial).  With ``reps`` > 0 also times the kernel (CUDA
-    events) and the plain version (host clock, ``chunk`` trials at a
-    time)."""
-    import torch
-
+    """The party-sharded keyed megakernel at ``tp`` against its plain
+    version, the single-device keyed megakernel and the sharded stacked
+    entry on ``keys``' inputs (bit-exact, trial for trial).  With ``reps``
+    > 0 also times the keyed and stacked entries (CUDA events) and the
+    plain version (host clock, ``chunk`` trials at a time)."""
     from qba_tpu_torch.ops import trial_megakernel as tm
 
-    args, _setup_ms, _draws_ms = mega_inputs(cfg, keys)
-    got = tm.sharded_trial_megakernel(cfg, tp, *args)
-    single = tm.trial_megakernel(cfg, *args)
-    torch.cuda.synchronize()
-    ms = None
+    body, k_rounds, ctx, stacks, _setup_ms, _draws_ms = mega_inputs(cfg,
+                                                                    keys)
+    got = tm.sharded_trial_megakernel_keyed(cfg, tp, *body, k_rounds, ctx)
+    single = tm.trial_megakernel_keyed(cfg, *body, k_rounds, ctx)
+    stacked = tm.sharded_trial_megakernel(cfg, tp, *body, *stacks)
+    want, plain_ms = keyed_plain(tm.sharded_trial_megakernel_keyed_reference,
+                                 cfg, (tp,), body, k_rounds, ctx, chunk)
+    err = tree_err(got, want)
+    if err or tree_err(got, single) or tree_err(got, stacked):
+        raise AssertionError(f"sharded keyed megakernel at tp={tp} != plain "
+                             f"version, single-device or stacked entry at "
+                             f"{cfg}")
+    out = dict(tp=tp, max_abs_err=err, ms=None, stacked_ms=None,
+               plain_ms=None, overflow=int(got[2].sum()))
     if reps:
-        tm.sharded_trial_megakernel.events = []
-        for _ in range(reps):
-            tm.sharded_trial_megakernel(cfg, tp, *args)
-        torch.cuda.synchronize()
-        ms = event_ms(tm.sharded_trial_megakernel.events)
-        tm.sharded_trial_megakernel.events = None
-    n = keys.shape[0]
-    t0 = time.perf_counter()
-    parts = [tm.sharded_trial_megakernel_reference(
-        cfg, tp, *(x[a:a + chunk] for x in args)) for a in range(0, n, chunk)]
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    want = [torch.cat([q[i] for q in parts]) for i in range(3)]
-    err = max(max_err(a, b) for a, b in zip(got, want))
-    if err or any(not torch.equal(a, b) for a, b in zip(got, single)):
-        raise AssertionError(f"sharded megakernel at tp={tp} != plain "
-                             f"version or single-device megakernel at {cfg}")
-    return dict(tp=tp, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms if reps else None,
-                overflow=int(got[2].sum()))
+        out.update(
+            ms=kernel_ms(tm.sharded_trial_megakernel_keyed, reps, cfg, tp,
+                         *body, k_rounds, ctx),
+            stacked_ms=kernel_ms(tm.sharded_trial_megakernel, reps, cfg, tp,
+                                 *body, *stacks),
+            plain_ms=plain_ms)
+    return out
 
 
 ENGINE_OF = {"fused_round": "pallas_fused", "tiled_verdict": "pallas_tiled",
@@ -802,8 +958,149 @@ ENGINE_OF = {"fused_round": "pallas_fused", "tiled_verdict": "pallas_tiled",
              "round_step": "pallas"}
 COUNTED = ("fused_round", "tiled_verdict", "tiled_rebuild",
            "trial_megakernel", "round_step", "fused_circuit", "gf2_sweep",
-           "trial_megakernel_gen", "sharded_trial_megakernel", "ring_gather")
+           "trial_megakernel_gen", "sharded_trial_megakernel", "ring_gather",
+           "attack_draws", "trial_megakernel_keyed",
+           "trial_megakernel_gen_keyed", "sharded_trial_megakernel_keyed")
 ROUND_KERNELS = COUNTED[:5]
+# The megakernel rows of the kernel table time the keyed entries, the ones
+# the engines launch.
+KEYED = {"trial_megakernel": "trial_megakernel_keyed",
+         "trial_megakernel_gen": "trial_megakernel_gen_keyed",
+         "sharded_trial_megakernel": "sharded_trial_megakernel_keyed"}
+
+# The draws' every strategy, attack scope and delivery, at both widths.
+RACY = dict(delivery="racy", p_late=0.25)
+DRAW_COMBOS = [(f"{law}-{delivery}", dict(kw, **(RACY if delivery == "racy"
+                                                  else {})))
+               for law, kw in (("reference", {}),
+                               ("collude", dict(strategy="collude")),
+                               ("adaptive", dict(strategy="adaptive")),
+                               ("split", dict(strategy="split")),
+                               ("broadcast", dict(attack_scope="broadcast")))
+               for delivery in ("sync", "racy")]
+DRAW_SIZES = [("11p/L64/d3", dict(n_parties=11, size_l=64, n_dishonest=3)),
+              ("33p/L64/d10", dict(n_parties=33, size_l=64, n_dishonest=10))]
+# Past 32 receivers the broadcast scan carries from one warp-wide step to
+# the next: 41p (40 lieutenants) and 65p (64; draws only, past the round
+# kernels' 64-bit masks).
+WIDE_SIZES = [("41p/L64/d13", dict(n_parties=41, size_l=64, n_dishonest=13)),
+              ("65p/L64/d21", dict(n_parties=65, size_l=64, n_dishonest=21))]
+WIDE_COMBOS = [(c, kw) for c, kw in DRAW_COMBOS if c.startswith("broadcast")]
+
+
+def keyed_ctx(cfg, keys):
+    """The rounds keys (contiguous) and adversary context of ``keys``."""
+    from qba_tpu_torch.adversary import adversary_ctx
+    from qba_tpu_torch.rounds.engine import setup_trial
+
+    _h, _li, _p, v_sent, _vc, k_rounds = setup_trial(cfg, keys)
+    k_rounds = k_rounds.contiguous()
+    return k_rounds, adversary_ctx(cfg, k_rounds, v_sent)
+
+
+def draws_vs_plain(dev, trials=32):
+    """The draws kernel against its plain version, bit-exact, on every
+    round of ``trials`` trials in every combination of ``DRAW_COMBOS`` at
+    both ``DRAW_SIZES``, and under the broadcast scope at ``WIDE_SIZES``.
+    Returns the largest error and per case the share of entries with an
+    edit and of late ones."""
+    from qba_tpu_torch import QBAConfig
+    from qba_tpu_torch.backends.torch_backend import trial_keys
+    from qba_tpu_torch.ops.attack_draws import (
+        attack_draws,
+        attack_draws_reference,
+    )
+
+    err, facts = 0, []
+    cases = [(size, base, combo, kw) for size, base in DRAW_SIZES
+             for combo, kw in DRAW_COMBOS]
+    cases += [(size, base, combo, kw) for size, base in WIDE_SIZES
+              for combo, kw in WIDE_COMBOS]
+    for size, base, combo, kw in cases:
+        cfg = QBAConfig(**base, **kw, trials=trials, seed=17)
+        k_rounds, ctx = keyed_ctx(cfg, trial_keys(cfg, dev))
+        got = attack_draws(cfg, k_rounds, ctx)
+        e = tree_err(got, attack_draws_reference(cfg, k_rounds, ctx))
+        err = max(err, e)
+        facts.append(dict(case=f"{size} {combo}", max_abs_err=e,
+                          edited=float((got[0] != 0).float().mean()),
+                          late=float(got[2].float().mean())))
+    if err:
+        raise AssertionError(f"attack_draws != plain version: {facts}")
+    return err, facts
+
+
+def draws_timing(cfg, keys, reps=3):
+    """The draws kernel over every round of ``keys``' batch in one launch,
+    held bit for bit against its plain version on the whole batch: ms
+    (CUDA events over ``reps`` launches), the plain version's ms (host
+    clock, once), the error and the bound."""
+    import torch
+
+    from qba_tpu_torch.ops.attack_draws import (
+        attack_draws,
+        attack_draws_reference,
+    )
+
+    k_rounds, ctx = keyed_ctx(cfg, keys)
+    got = attack_draws(cfg, k_rounds, ctx)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = attack_draws_reference(cfg, k_rounds, ctx)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = tree_err(got, want)
+    if err:
+        raise AssertionError(f"attack_draws != plain version over every "
+                             f"round at {cfg}: max abs err {err}")
+    del got, want
+    ms = kernel_ms(attack_draws, reps, cfg, k_rounds, ctx)
+    b_ms, b_by = bound(*draws_cost(cfg, keys.shape[0], cfg.n_rounds))
+    return dict(rounds=cfg.n_rounds, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def keyed_vs_plain(dev):
+    """The keyed megakernels in every combination of ``DRAW_COMBOS``, at
+    11p (32 trials) and 33p (16), at 11p with one slot a round (whose
+    trials overflow) and under the broadcast scope at 41p: single-device (``mega_vs_plain``), party-sharded at
+    ``tp`` 2 and, at 33p and 41p, 4 (``sharded_mega_vs_plain``), and the gen entry
+    on ``qsim_path="stabilizer"`` (``gen_vs_plain``), each against its
+    plain version and its stacked form, trial for trial.  Returns the
+    largest error per entry and per case the overflowing trials."""
+    import dataclasses
+
+    from qba_tpu_torch import QBAConfig
+    from qba_tpu_torch.backends.torch_backend import trial_keys
+
+    errs = dict.fromkeys(KEYED, 0)
+    facts = []
+    cases = [(size, base, combo, kw) for size, base in DRAW_SIZES
+             for combo, kw in DRAW_COMBOS]
+    cases.append((*DRAW_SIZES[0], "reference-sync slots=1",
+                  dict(max_accepts_per_round=1)))
+    cases += [(*WIDE_SIZES[0], c, kw) for c, kw in WIDE_COMBOS]
+    for size, base, combo, kw in cases:
+        trials = 32 if size.startswith("11p") else 16
+        cfg = QBAConfig(**base, **kw, trials=trials, seed=19)
+        keys = trial_keys(cfg, dev)
+        mega = mega_vs_plain(cfg, keys, chunk=trials)
+        errs["trial_megakernel"] = max(errs["trial_megakernel"],
+                                       mega["max_abs_err"])
+        tps = [t for t in (2, 4) if cfg.n_lieutenants % t == 0]
+        for tp in tps:
+            sh = sharded_mega_vs_plain(cfg, keys, tp, chunk=trials)
+            errs["sharded_trial_megakernel"] = max(
+                errs["sharded_trial_megakernel"], sh["max_abs_err"])
+        scfg = dataclasses.replace(cfg, qsim_path="stabilizer")
+        gen, _vi = gen_vs_plain(scfg, trial_keys(scfg, dev), chunk=trials)
+        errs["trial_megakernel_gen"] = max(errs["trial_megakernel_gen"],
+                                           gen["max_abs_err"])
+        facts.append(dict(case=f"{size} {combo}", trials=trials, tp=tps,
+                          overflow=mega["overflow"],
+                          gen_overflow=gen["overflow"]))
+    return errs, facts
 
 # Seeded random inputs (qba_tpu_torch.testing): round inputs as
 # (config, round) and whole-trial inputs as configs.
@@ -1061,7 +1358,7 @@ def sweep_cost(total, work, n_shots, n_fam=2):
     return b, ops
 
 
-def gen_cost(cfg, rounds, n_trials, sweep_ops):
+def gen_cost(cfg, rounds, n_trials, sweep_ops, keyed=False):
     """Bytes and operations of the megakernel's gen entry: the host-gen
     megakernel's (``mega_cost``) less its li and P inputs, plus the
     generation operands in (per shot qcorr, the coins, the readout flips
@@ -1070,7 +1367,7 @@ def gen_cost(cfg, rounds, n_trials, sweep_ops):
     operations."""
     n_rv, s, total = cfg.n_lieutenants, cfg.size_l, cfg.total_qubits
     w = -(-total // 32)
-    b, ops = mega_cost(cfg, rounds, n_trials)
+    b, ops = mega_cost(cfg, rounds, n_trials, keyed)
     b -= n_trials * (n_rv * s * 4 + n_rv * s)
     b += 4 * 2 * total * w * 4 + n_trials * s * (1 + 4 * total)
     return b, ops + sweep_ops
@@ -1157,26 +1454,30 @@ GEN_CASES = [
 
 def gen_inputs(cfg, keys):
     """The gen entry's inputs for ``keys``, staged as ``run_trial_mega``
-    builds them, with the set-up (generation operands) and draw times."""
+    builds them: the tables, operands, orders and cell honesty, the
+    rounds keys and adversary context, and the draws kernel's stacks,
+    with the set-up (generation operands) and stack times."""
     import torch
 
     from qba_tpu_torch.adversary import adversary_ctx
+    from qba_tpu_torch.ops.attack_draws import attack_draws
     from qba_tpu_torch.ops.round_kernel_tiled import honest_cells
     from qba_tpu_torch.qsim.protocol_circuits import stabilizer_gen_tables
-    from qba_tpu_torch.rounds.engine import _mega_gen_setup, _stacked_draws
+    from qba_tpu_torch.rounds.engine import _mega_gen_setup
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     honest, gen_ops, v_sent, _v_comm, k_rounds = _mega_gen_setup(cfg, keys)
+    k_rounds = k_rounds.contiguous()
     ctx = adversary_ctx(cfg, k_rounds, v_sent)
     args = [stabilizer_gen_tables(cfg, keys.device), gen_ops,
             v_sent.to(torch.int32).contiguous(), honest_cells(honest, cfg)]
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    args += list(_stacked_draws(cfg, k_rounds, ctx))
+    stacks = attack_draws(cfg, k_rounds, ctx)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    return args, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+    return args, k_rounds, ctx, stacks, (t1 - t0) * 1e3, (t2 - t1) * 1e3
 
 
 def chunked(fn, args, n, chunk):
@@ -1198,27 +1499,29 @@ def chunked(fn, args, n, chunk):
 
 
 def gen_vs_plain(cfg, keys, *, chunk=32, reps=0, plain_sweep=None):
-    """The gen entry against its plain version on ``keys``' trials,
-    bit-exact, and against the host-gen megakernel on the same lists.
-    The plain version is the plain sweep, then the decode and
-    ``trial_megakernel_reference`` on its bits, in chunks of ``chunk``
-    trials.  ``plain_sweep``, the plain sweep's bits of these trials and
-    its ms (``sweep_batch``), stands in for the sweep, which then does not
-    run again.  With ``reps`` > 0 also times the gen entry and the
-    host-gen megakernel (CUDA events) and the plain version (host
-    clock).  Returns the facts and the final accepted sets."""
+    """The keyed gen entry (the main path's) against its plain version,
+    bit-exact, and against the stacked gen entry and the keyed host-gen
+    megakernel on the same lists.  The plain version is the plain draws,
+    the plain sweep, then the decode and ``trial_megakernel_reference`` on
+    its bits, in chunks of ``chunk`` trials.  ``plain_sweep``, the plain
+    sweep's bits of these trials and its ms (``sweep_batch``), stands in
+    for the sweep, which then does not run again.  With ``reps`` > 0 also
+    times the keyed and stacked gen entries and the keyed host-gen
+    megakernel (CUDA events) and the plain version (host clock).  Returns
+    the facts and the final accepted sets."""
     import torch
 
     from qba_tpu_torch.ops import _build
     from qba_tpu_torch.ops import gf2_sweep as gs
     from qba_tpu_torch.ops import trial_megakernel as tm
+    from qba_tpu_torch.ops.attack_draws import attack_draws_reference
     from qba_tpu_torch.qsim.protocol_circuits import (
         lists_from_bits,
         stabilizer_bits,
     )
     from qba_tpu_torch.rounds.engine import p_sets
 
-    args, setup_ms, draws_ms = gen_inputs(cfg, keys)
+    args, k_rounds, ctx, stacks, setup_ms, draws_ms = gen_inputs(cfg, keys)
     n = keys.shape[0]
     if plain_sweep is None:
         t0 = time.perf_counter()
@@ -1237,50 +1540,54 @@ def gen_vs_plain(cfg, keys, *, chunk=32, reps=0, plain_sweep=None):
         return tm.trial_megakernel_reference(
             cfg, *host_lists(bits, v_sent), v_sent, *a)
 
-    want, rest_ms = chunked(rest, [args[0], bits, *args[1:]], n, chunk)
-    got = tm.trial_megakernel_gen(cfg, *args)
+    t0 = time.perf_counter()
+    plain_stacks = attack_draws_reference(cfg, k_rounds, ctx)
+    torch.cuda.synchronize()
+    draws_plain_ms = (time.perf_counter() - t0) * 1e3
+    want, rest_ms = chunked(rest, [args[0], bits, *args[1:], *plain_stacks],
+                            n, chunk)
+    gen_args = (cfg, *args, k_rounds, ctx)
+    got = tm.trial_megakernel_gen_keyed(*gen_args)
     err = tree_err(got, want)
-    if err:
-        raise AssertionError(f"trial_megakernel_gen != plain version at "
-                             f"{cfg}: max abs err {err}")
-    # The host-gen megakernel on the lists the gen entry decodes.
-    host_args = (cfg, *host_lists(bits, args[2]), *args[2:])
-    if tree_err(tm.trial_megakernel(*host_args), want):
+    if err or tree_err(tm.trial_megakernel_gen(cfg, *args, *stacks), want):
+        raise AssertionError(f"keyed or stacked gen entry != plain version "
+                             f"at {cfg}: max abs err {err}")
+    # The keyed host-gen megakernel on the lists the gen entry decodes.
+    host_args = (cfg, *host_lists(bits, args[2]), *args[2:], k_rounds, ctx)
+    if tree_err(tm.trial_megakernel_keyed(*host_args), want):
         raise AssertionError(f"host-gen megakernel != gen entry at {cfg}")
     occupancy = _build.load_library("trial_megakernel") \
         .qba_trial_megakernel_occupancy
     out = dict(setup_ms=setup_ms, draws_ms=draws_ms,
-               plain_ms=sweep_ms + rest_ms if reps else None)
-    for key, fn, gen in (("gen", tm.trial_megakernel_gen, 1),
-                         ("host_gen", tm.trial_megakernel, 0)):
-        smem, blocks = ctypes_ints(occupancy, gen, cfg.n_lieutenants,
+               plain_ms=sweep_ms + draws_plain_ms + rest_ms if reps else None)
+    for key, fn, mode, fargs in (
+            ("gen", tm.trial_megakernel_gen_keyed, 3, gen_args),
+            ("host_gen", tm.trial_megakernel_keyed, 2, host_args),
+            ("gen_stacked", tm.trial_megakernel_gen, 1,
+             (cfg, *args, *stacks))):
+        smem, blocks = ctypes_ints(occupancy, mode, cfg.n_lieutenants,
                                    cfg.slots, cfg.max_l, cfg.size_l, cfg.w)
         out[key] = dict(smem=smem, blocks_per_sm=blocks)
         if reps:
-            fn.events = []
-            for _ in range(reps):
-                fn(*((cfg, *args) if gen else host_args))
-            torch.cuda.synchronize()
-            out[key]["ms"] = event_ms(fn.events)
-            fn.events = None
+            out[key]["ms"] = kernel_ms(fn, reps, *fargs)
     out["max_abs_err"] = err
     out["overflow"] = int(want[2].sum())
     return out, want[0] != 0
 
 
 def pool_rounds(cfg, keys):
-    """Each round's ``(live, rows, dst)`` of ``keys``' trials, advanced by
-    the fused round kernel (which ``replay`` holds against its plain
-    version): what ``mega_cost`` counts.  Returns them and the final
-    accepted sets."""
+    """Each round's ``round_facts`` of ``keys``' trials, advanced by the
+    fused round kernel (which ``replay`` holds against its plain
+    version), with the tiled verdict's accepted matrix: what ``mega_cost``
+    counts.  Returns them and the final accepted sets."""
     import torch
 
-    from qba_tpu_torch import random as jr
-    from qba_tpu_torch.adversary import adversary_ctx, sample_attacks_round
+    from qba_tpu_torch.adversary import adversary_ctx
     from qba_tpu_torch.ops import round_kernel_tiled as rk
     from qba_tpu_torch.rounds.engine import setup_trial, step3a_one
 
     honest, li, p_rows, v_sent, _v_comm, k_rounds = setup_trial(cfg, keys)
+    k_rounds = k_rounds.contiguous()
     vi, out_cells = step3a_one(cfg, p_rows, v_sent, li)
     ctx = adversary_ctx(cfg, k_rounds, v_sent)
     pool = rk.pool_from_step3a(cfg, out_cells)
@@ -1288,12 +1595,10 @@ def pool_rounds(cfg, keys):
     li, vi = li.to(torch.int32).contiguous(), vi.to(torch.int32)
     rounds = []
     for r in range(1, cfg.n_rounds + 1):
-        att, rv, late = (x.to(torch.uint8) for x in sample_attacks_round(
-            cfg, jr.fold_in(k_rounds, r), r, ctx))
-        live, rows = pool_stats(cfg, pool)
-        pool, vi, _ovf = rk.fused_round(cfg, r, pool, li, vi, hc, att, rv,
-                                        late)
-        rounds.append((live, rows, pool_stats(cfg, pool)[0]))
+        draws = checked_draws(cfg, k_rounds, ctx, r)[0]
+        acc = rk.tiled_verdict(cfg, r, pool, li, vi, hc, *draws)[0]
+        rounds.append(round_facts(cfg, r, pool, hc, acc, draws[0]))
+        pool, vi, _ovf = rk.fused_round(cfg, r, pool, li, vi, hc, *draws)
     return rounds, vi != 0
 
 def ctypes_ints(fn, *ints):
@@ -1476,6 +1781,7 @@ def ring_timing(leaves, reps=5):
 
 
 def wrappers():
+    from qba_tpu_torch.ops import attack_draws as ad
     from qba_tpu_torch.ops import fused_circuit as fc
     from qba_tpu_torch.ops import gf2_sweep as gs
     from qba_tpu_torch.ops import ring_shuffle as rg
@@ -1490,7 +1796,12 @@ def wrappers():
             "gf2_sweep": gs.gf2_sweep,
             "trial_megakernel_gen": tm.trial_megakernel_gen,
             "sharded_trial_megakernel": tm.sharded_trial_megakernel,
-            "ring_gather": rg.ring_gather}
+            "ring_gather": rg.ring_gather,
+            "attack_draws": ad.attack_draws,
+            "trial_megakernel_keyed": tm.trial_megakernel_keyed,
+            "trial_megakernel_gen_keyed": tm.trial_megakernel_gen_keyed,
+            "sharded_trial_megakernel_keyed":
+                tm.sharded_trial_megakernel_keyed}
 
 
 def drive(cfg, engine, mesh=None):
@@ -1638,6 +1949,17 @@ def main(argv):
             max_abs_err=gen["max_abs_err"], overflow=gen["overflow"],
             gen=gen["gen"])
     report["gen_vs_plain"] = gen_checks
+    draws_err, draws_facts = draws_vs_plain(dev)
+    report["draws_vs_plain"] = dict(max_abs_err=draws_err, cases=draws_facts)
+    log("draws_vs_plain", tolerance=0, max_abs_err=draws_err,
+        cases=draws_facts)
+    keyed_errs, keyed_facts = keyed_vs_plain(dev)
+    if not any(f["overflow"] for f in keyed_facts):
+        raise AssertionError("no overflowing trial among the keyed checks")
+    report["keyed_vs_plain"] = dict(max_abs_err=keyed_errs,
+                                    cases=keyed_facts)
+    log("keyed_vs_plain", tolerance=0, max_abs_err=keyed_errs,
+        cases=keyed_facts)
     if quick:
         print(card)
         print(json.dumps({"ok": True, "device": {
@@ -1678,10 +2000,12 @@ def main(argv):
         ("33p/L64/d10", QBAConfig(n_parties=33, size_l=64, n_dishonest=10,
                                   trials=1000)),
     ]
-    expect = {"auto": {"trial_megakernel": 1},
-              "pallas_fused": {"fused_round": 1},
-              "pallas_tiled": {"tiled_verdict": 1, "tiled_rebuild": 1},
-              "pallas": {"round_step": 1}}
+    # Launches a batch: None is one a round.
+    expect = {"auto": {"trial_megakernel_keyed": 1},
+              "pallas_fused": {"fused_round": None, "attack_draws": None},
+              "pallas_tiled": {"tiled_verdict": None, "tiled_rebuild": None,
+                               "attack_draws": None},
+              "pallas": {"round_step": None, "attack_draws": None}}
     launches = dict.fromkeys(COUNTED, 0)
     runs, single = [], {}
     for name, cfg in main_cfgs:
@@ -1690,9 +2014,8 @@ def main(argv):
         per_engine, results = {}, {}
         for engine, per_batch in expect.items():
             out, wall, counts, events, peak = drive(cfg, engine)
-            want = {k: per_batch.get(k, 0)
-                    * (1 if k == "trial_megakernel" else cfg.n_rounds)
-                    for k in COUNTED}
+            want = {k: cfg.n_rounds if per_batch.get(k, 0) is None
+                    else per_batch.get(k, 0) for k in COUNTED}
             if counts != want:
                 raise AssertionError(
                     f"{name} {engine}: launches {counts}, expected {want}")
@@ -1708,6 +2031,10 @@ def main(argv):
                 wall_s=wall, rounds_per_s=cfg.trials * cfg.n_rounds / wall,
                 kernel_ms_per_launch={k: event_ms(ev)
                                       for k, ev in events.items() if ev},
+                # The batch's draws on the card (none outside the keyed
+                # megakernel, which hashes them).
+                draws_ms=sum(a.elapsed_time(b)
+                             for a, b in events["attack_draws"]),
                 success_rate=rate, peak_mem_bytes=peak)
         for e in ("pallas_fused", "pallas_tiled", "pallas"):
             for f in fields:
@@ -1725,13 +2052,21 @@ def main(argv):
         mega = mega_vs_plain(cfg, keys, chunk=32, reps=3)
         if not torch.equal(mega.pop("vi"), results["auto"].vi):
             raise AssertionError(f"{name}: main path != staged megakernel")
-        mega_bound = bound(*mega_cost(
-            cfg, [(s["live"], s["rows"], s["dst"]) for s in stats],
-            cfg.trials))
-        draws_ms = sum(s["draws_ms"] for s in stats)
+        mega_bound = bound(*mega_cost(cfg, stats, cfg.trials, keyed=True))
+        stacked_bound = bound(*mega_cost(cfg, stats, cfg.trials))
+        draws = draws_timing(cfg, keys)
+        log("draws_timing", config=name, trials=cfg.trials, **draws)
+        # The broadcast scope's walk over a cell's receivers, and racy
+        # delivery's late words, against the stacked entry.
+        laws = {}
+        for law, kw in (("broadcast", dict(attack_scope="broadcast")),
+                        ("racy", RACY), ("adaptive", dict(strategy="adaptive"))):
+            lcfg = dataclasses.replace(cfg, **kw)
+            laws[law] = keyed_timing(lcfg, trial_keys(lcfg, dev))
+        log("keyed_timing", config=name, trials=cfg.trials, **laws)
         per_engine["auto"].update(
-            engine="pallas_mega", setup_ms=mega["setup_ms"],
-            draws_ms=mega["draws_ms"],
+            engine="pallas_mega, keyed", setup_ms=mega["setup_ms"],
+            stacked_draws_ms=mega["draws_ms"],
             bound_ms={"trial_megakernel": mega_bound[0]},
             bound_by={"trial_megakernel": mega_bound[1]})
         for engine, ks in (("pallas_fused", ("fused_round",)),
@@ -1740,7 +2075,6 @@ def main(argv):
                            ("pallas", ("round_step",))):
             per_engine[engine].update(
                 engine=engine, setup_ms=setup["setup_ms"],
-                draws_ms=draws_ms,
                 bound_ms={k: sum(s["bound"][k][0] for s in stats)
                           / len(stats) for k in ks},
                 bound_by={k: max(stats, key=lambda s: s["bound"][k][0])
@@ -1755,9 +2089,12 @@ def main(argv):
                 bound_ms=per_engine[ENGINE_OF[k]]["bound_ms"][k])
         kern["trial_megakernel"] = dict(
             max_abs_err=mega["max_abs_err"], ms=mega["ms"],
-            plain_ms=mega["plain_ms"], bound_ms=mega_bound[0])
+            stacked_ms=mega["stacked_ms"], plain_ms=mega["plain_ms"],
+            bound_ms=mega_bound[0], bound_by=mega_bound[1],
+            stacked_bound_ms=stacked_bound[0], rehashes=rehashes(stats))
         run = dict(config=name, trials=cfg.trials, rounds=cfg.n_rounds,
-                   vi=results["auto"].vi,
+                   vi=results["auto"].vi, attack_draws=draws,
+                   keyed_timing=laws,
                    engines=per_engine, full_width_vs_plain=kern,
                    pool_bytes_per_trial=pool_bytes(cfg, 1),
                    replay=stats)
@@ -1776,11 +2113,13 @@ def main(argv):
     if resolve_round_engine(ccfg, dev) != "pallas_fused":
         raise AssertionError("auto with counters is not pallas_fused")
     out, wall, counts, _events, peak = drive(ccfg, "auto")
-    want = {k: cfg.n_rounds if k == "fused_round" else 0 for k in COUNTED}
+    want = {k: cfg.n_rounds if k in ("fused_round", "attack_draws") else 0
+            for k in COUNTED}
     if counts != want:
         raise AssertionError(
             f"{name} counters: launches {counts}, expected {want}")
-    launches["fused_round"] += counts["fused_round"]
+    for k in ("fused_round", "attack_draws"):
+        launches[k] += counts[k]
     c = out.trials.counters
     base = runs[0]["engines"]["pallas_fused"]
     if not (torch.equal(out.trials.vi, runs[0]["vi"])
@@ -1809,8 +2148,9 @@ def main(argv):
     dcfg = QBAConfig(n_parties=5, size_l=64, n_dishonest=2,
                      qsim_path="dense_pallas", trials=32)
     out, wall, counts, events, peak = drive(dcfg, "auto")
-    want = {k: int(k == "trial_megakernel") for k in ROUND_KERNELS}
-    if ({k: counts[k] for k in ROUND_KERNELS} != want
+    want = {k: int(k == "trial_megakernel_keyed") for k in COUNTED
+            if k != "fused_circuit"}
+    if ({k: counts[k] for k in want} != want
             or counts["fused_circuit"] < 1):
         raise AssertionError(f"dense_pallas: launches {counts}")
     for k, n in counts.items():
@@ -1855,11 +2195,12 @@ def main(argv):
     from qba_tpu_torch.rounds.engine import resolve_mega_gen
 
     stab_expect = {
-        "auto": ({}, {"trial_megakernel_gen": 1}),
+        "auto": ({}, {"trial_megakernel_gen_keyed": 1}),
         "host": (dict(mega_gen="host"),
-                 {"trial_megakernel": 1, "gf2_sweep": 1}),
+                 {"trial_megakernel_keyed": 1, "gf2_sweep": 1}),
         "pallas_fused": (dict(round_engine="pallas_fused"),
-                         {"fused_round": None, "gf2_sweep": 1}),
+                         {"fused_round": None, "attack_draws": None,
+                          "gf2_sweep": 1}),
     }
     stab_runs = []
     for name, base in main_cfgs:
@@ -1889,6 +2230,8 @@ def main(argv):
                 wall_s=wall, rounds_per_s=cfg.trials * cfg.n_rounds / wall,
                 kernel_ms_per_launch={k: event_ms(ev)
                                       for k, ev in events.items() if ev},
+                draws_ms=sum(a.elapsed_time(b)
+                             for a, b in events["attack_draws"]),
                 success_rate=rate, peak_mem_bytes=peak)
         for label in ("host", "pallas_fused"):
             for f in fields:
@@ -1909,13 +2252,14 @@ def main(argv):
                                      "staged replay")
         sweep_ops = sweep_cost(cfg.total_qubits, sweep["work"],
                                sweep["shots"])[1]
-        gen_bound = bound(*gen_cost(cfg, rounds, cfg.trials, sweep_ops))
-        host_bound = bound(*mega_cost(cfg, rounds, cfg.trials))
+        gen_bound = bound(*gen_cost(cfg, rounds, cfg.trials, sweep_ops,
+                                    keyed=True))
+        host_bound = bound(*mega_cost(cfg, rounds, cfg.trials, keyed=True))
         gen_ms = per_engine["auto"]["kernel_ms_per_launch"][
-            "trial_megakernel_gen"]
+            "trial_megakernel_gen_keyed"]
         per_engine["auto"].update(
-            engine="pallas_mega, gen entry", setup_ms=gen["setup_ms"],
-            draws_ms=gen["draws_ms"],
+            engine="pallas_mega, keyed gen entry", setup_ms=gen["setup_ms"],
+            stacked_draws_ms=gen["draws_ms"],
             bound_ms={"trial_megakernel_gen": gen_bound[0]},
             bound_by={"trial_megakernel_gen": gen_bound[1]},
             gen_replay=gen["gen"],
@@ -1933,7 +2277,9 @@ def main(argv):
             engines=per_engine, gen_ms_per_launch=gen_ms,
             gen=dict(max_abs_err=gen["max_abs_err"],
                      plain_ms=gen["plain_ms"], bound_ms=gen_bound[0],
-                     bound_by=gen_bound[1]),
+                     bound_by=gen_bound[1],
+                     stacked_ms=gen["gen_stacked"]["ms"],
+                     rehashes=rehashes(rounds)),
             sweep=sweep, pool_rounds=rounds))
         for label, e in per_engine.items():
             log("main_path", config=name, qsim_path="stabilizer",
@@ -1971,8 +2317,9 @@ def main(argv):
                          "pallas_tiled": {"tiled_verdict": n_r,
                                           "tiled_rebuild": n_r},
                          "pallas": {"round_step": n_r}}
-        mesh_runs_of = [("auto", {}, {"sharded_trial_megakernel": 1})]
+        mesh_runs_of = [("auto", {}, {"sharded_trial_megakernel_keyed": 1})]
         for engine, ks in round_kernels.items():
+            ks = {**ks, "attack_draws": n_r}
             for comms in ("ring", "all_gather"):
                 ring = {"ring_gather": 4 * n_r} if comms == "ring" else {}
                 mesh_runs_of.append((f"{engine} {comms}",
@@ -2012,8 +2359,7 @@ def main(argv):
         del cells, segs
         sharded = sharded_mega_vs_plain(cfg, keys, tp, chunk=64, reps=3)
         nstats = n_recv_replay(cfg, keys, tp, chunk=125)
-        rounds = [(st["live"], st["rows"], st["dst"]) for st in stats]
-        mb = bound(*mega_cost(cfg, rounds, cfg.trials))
+        mb = bound(*mega_cost(cfg, stats, cfg.trials, keyed=True))
         nb = [bound(*n_recv_cost(cfg, st["live"], st["rows"], st["dst"],
                                  st["dst_rows"], cfg.trials, tp))
               for st in stats]
@@ -2021,7 +2367,8 @@ def main(argv):
             config=name, trials=cfg.trials, rounds=cfg.n_rounds, tp=tp,
             plan=plan._asdict(), runs=per_run, ring_leaves=ring,
             sharded_trial_megakernel=dict(sharded, bound_ms=mb[0],
-                                          bound_by=mb[1]),
+                                          bound_by=mb[1],
+                                          rehashes=rehashes(stats)),
             fused_round_n_recv=dict(
                 ms=per_run["pallas_fused ring"]["kernel_ms_per_launch"]
                 ["fused_round"],
@@ -2050,18 +2397,14 @@ def main(argv):
     # A small batch, where one block a trial leaves most SMs idle: the
     # sharded megakernel at tp=4 beside the single-device one.
     cfg = dataclasses.replace(dict(main_cfgs)["33p/L64/d10"], trials=64)
-    args, _s, _d = mega_inputs(cfg, trial_keys(cfg, dev))
+    body, k_rounds, ctx, _st, _s, _d = mega_inputs(cfg, trial_keys(cfg, dev))
     small_batch = {}
-    for label, fn, pre in (("single-device", tm.trial_megakernel, ()),
-                           ("sharded tp=4", tm.sharded_trial_megakernel,
+    for label, fn, pre in (("single-device", tm.trial_megakernel_keyed, ()),
+                           ("sharded tp=4", tm.sharded_trial_megakernel_keyed,
                             (4,))):
-        fn(cfg, *pre, *args)
-        fn.events = []
-        for _ in range(5):
-            fn(cfg, *pre, *args)
-        torch.cuda.synchronize()
-        small_batch[label] = event_ms(fn.events)
-        fn.events = None
+        fn(cfg, *pre, *body, k_rounds, ctx)
+        small_batch[label] = kernel_ms(fn, 5, cfg, *pre, *body, k_rounds,
+                                       ctx)
     report["mesh_path"] = dict(runs=mesh_runs, small_batch_33p_x64_ms=small_batch)
     log("mesh_path", config="33p/L64/d10 x64", kernel_ms=small_batch)
 
@@ -2071,28 +2414,35 @@ def main(argv):
               "tiled_rebuild", "round_step"):
         e = big["engines"][ENGINE_OF[k]]
         source, replaces = SOURCES[k]
+        # The megakernel's row is its keyed entry, the main path's.
+        main = KEYED.get(k, k)
         kernels.append({
             "name": k,
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": launches[k],
+            "launches": launches[main],
             # The round kernels also run their n_recv variants (the mesh
-            # path).
+            # path); the megakernel its stacked entry.
             "max_abs_err": max(
                 [r["full_width_vs_plain"][k]["max_abs_err"] for r in runs]
-                + [random_errs[k]]
+                + [random_errs[k], keyed_errs.get(k, 0)]
                 + ([random_errs[k + "_n_recv"]]
                    + [r[k + "_n_recv"].get("max_abs_err", 0)
                       for r in mesh_runs]
                    if k + "_n_recv" in N_RECV_KERNELS else [])),
-            "ms": e["kernel_ms_per_launch"][k],
+            "ms": e["kernel_ms_per_launch"][main],
             "plain_ms": big["full_width_vs_plain"][k]["plain_ms"],
             "bound_ms": e["bound_ms"][k],
             "bound_by": e["bound_by"][k],
             "library_ms": None,
             "config": f"{big['config']} x{big['trials']} trials",
         })
+        if k in KEYED:
+            kernels[-1]["stacked_ms"] = big["full_width_vs_plain"][k][
+                "stacked_ms"]
+            kernels[-1]["rehashes"] = big["full_width_vs_plain"][k][
+                "rehashes"]
     source, replaces = SOURCES["fused_circuit"]
     kernels.append({
         "name": "fused_circuit", "route": "cuda", "source": source,
@@ -2109,32 +2459,39 @@ def main(argv):
                  ("trial_megakernel_gen", sbig["gen"])):
         source, replaces = SOURCES[k]
         errs = [e["max_abs_err"], sweep_err if k == "gf2_sweep"
-                else max(g["max_abs_err"] for g in gen_checks)]
+                else max([g["max_abs_err"] for g in gen_checks]
+                         + [keyed_errs[k]])]
         errs += [r["sweep" if k == "gf2_sweep" else "gen"]["max_abs_err"]
                  for r in stab_runs]
         ms = (sbig["engines"]["host"]["kernel_ms_per_launch"]["gf2_sweep"]
               if k == "gf2_sweep" else sbig["gen_ms_per_launch"])
         kernels.append({
             "name": k, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[k],
+            "replaces": replaces, "launches": launches[KEYED.get(k, k)],
             "max_abs_err": max(errs), "ms": ms, "plain_ms": e["plain_ms"],
             "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
             "library_ms": None,
             "config": (f"{sbig['config']} qsim_path=stabilizer "
                        f"x{sbig['trials']} trials"),
         })
+        if k in KEYED:
+            kernels[-1]["stacked_ms"] = e["stacked_ms"]
+            kernels[-1]["rehashes"] = e["rehashes"]
     mbig = mesh_runs[0]
     ring_errs = [ring_err] + [r["ring_leaves"]["max_abs_err"]
                               for r in mesh_runs]
     shard_errs = ([c["max_abs_err"] for c in sharded_checks]
-                  + [random_errs["sharded_trial_megakernel"]]
+                  + [random_errs["sharded_trial_megakernel"],
+                     keyed_errs["sharded_trial_megakernel"]]
                   + [r["sharded_trial_megakernel"]["max_abs_err"]
                      for r in mesh_runs])
     sm = mbig["sharded_trial_megakernel"]
     for k, row in (("sharded_trial_megakernel",
                     dict(max_abs_err=max(shard_errs),
                          ms=mbig["runs"]["auto"]["kernel_ms_per_launch"]
-                         ["sharded_trial_megakernel"],
+                         ["sharded_trial_megakernel_keyed"],
+                         stacked_ms=sm["stacked_ms"],
+                         rehashes=sm["rehashes"],
                          plain_ms=sm["plain_ms"], bound_ms=sm["bound_ms"],
                          bound_by=sm["bound_by"], library_ms=None)),
                    ("ring_gather",
@@ -2148,10 +2505,28 @@ def main(argv):
         source, replaces = SOURCES[k]
         kernels.append({
             "name": k, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[k], **row,
+            "replaces": replaces, "launches": launches[KEYED.get(k, k)],
+            **row,
             "config": (f"{mbig['config']} x{mbig['trials']} trials, "
                        f"tp={mbig['tp']} on one card"),
         })
+    # The draws kernel: every round of the 33p batch in one launch; the
+    # main path's per-round engines launch it once a round.
+    source, replaces = SOURCES["attack_draws"]
+    kernels.append({
+        "name": "attack_draws", "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches["attack_draws"],
+        # 32 trials in every law; each main batch whole and a round a
+        # launch (``checked_draws`` raises on a mismatch).
+        "max_abs_err": max([draws_err] + [r["attack_draws"]["max_abs_err"]
+                                          for r in runs]),
+        **{k: big["attack_draws"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms")},
+        "ms_per_round_launch": big["engines"]["pallas_fused"]
+        ["kernel_ms_per_launch"]["attack_draws"],
+        "config": (f"{big['config']} x{big['trials']} trials, "
+                   f"{big['rounds']} rounds a launch"),
+    })
     report["kernels"] = kernels
     report["device"] = card
     os.makedirs(os.path.dirname(REPORT), exist_ok=True)

@@ -12,12 +12,14 @@ round kernels, and the ``n_recv`` variant of each at the config's ``tp``
 (4 at 33p, 2 at 11p; each shard on its copy of the round's pool or
 mailbox), where the checkout has it (CUDA events over ``--reps``
 launches queued behind a sleep kernel, so that the host's launch rate
-does not enter the times); then the trial megakernel on the whole
-batch.  Prints one JSON line: the card, the checkout and each kernel's
-mean ms per launch over the rounds (null for a variant the checkout
-lacks).  Run it for the two checkouts in turns (parent, change, change,
-parent, ...) back to back: a card's clocks drift, so only times taken
-side by side compare.
+does not enter the times); then on the whole batch the trial megakernel
+on the draws kernel's stacks, its keyed entry (which hashes its own
+draws) and the draws kernel over every round (a checkout needs
+``qba_tpu_torch.ops.attack_draws``).  Prints one JSON line: the card,
+the checkout and each kernel's mean ms per launch over the rounds (null
+for an ``n_recv`` variant the checkout lacks).  Run it for the two
+checkouts in turns (parent, change, change, parent, ...) back to back: a
+card's clocks drift, so only times taken side by side compare.
 """
 
 from __future__ import annotations
@@ -52,11 +54,8 @@ def main(argv):
     from qba_tpu_torch.ops import round_kernel as rs
     from qba_tpu_torch.ops import round_kernel_tiled as rk
     from qba_tpu_torch.ops import trial_megakernel as tm
-    from qba_tpu_torch.rounds.engine import (
-        _stacked_draws,
-        setup_trial,
-        step3a_one,
-    )
+    from qba_tpu_torch.ops.attack_draws import attack_draws
+    from qba_tpu_torch.rounds.engine import setup_trial, step3a_one
 
     dev = torch.device("cuda", 0)
     cfg = QBAConfig(trials=1000, **CONFIGS[args.config])
@@ -143,9 +142,13 @@ def main(argv):
                                        out=spare)
         pool, spare = new, pool
         mbox, mbox_spare = new_mbox, mbox
-    stacks = _stacked_draws(cfg, k_rounds, ctx)
-    mega = ms(tm.trial_megakernel, cfg, p_rows.contiguous(), li,
-              v_sent.to(torch.int32).contiguous(), hc, *stacks)
+    body = (p_rows.contiguous(), li, v_sent.to(torch.int32).contiguous(), hc)
+    k_rounds = k_rounds.contiguous()
+    stacks = attack_draws(cfg, k_rounds, ctx)
+    mega = ms(tm.trial_megakernel, cfg, *body, *stacks)
+    del stacks
+    keyed = ms(tm.trial_megakernel_keyed, cfg, *body, k_rounds, ctx)
+    draws = ms(attack_draws, cfg, k_rounds, ctx)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -154,7 +157,9 @@ def main(argv):
                       "trials": cfg.trials, "reps": args.reps, "tp": tp,
                       **{k: sum(v) / len(v) if v else None
                          for k, v in times.items()},
-                      "trial_megakernel": mega}))
+                      "trial_megakernel": mega,
+                      "trial_megakernel_keyed": keyed,
+                      "attack_draws": draws}))
     return 0
 
 

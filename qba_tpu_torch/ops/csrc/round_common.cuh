@@ -144,11 +144,44 @@ struct PoolOutT {
 using PoolIn = PoolInT<false>;
 using PoolOut = PoolOutT<false>;
 
-// One trial's draws of one round, each [n_pool, n_glob] by mailbox cell.
+// A draw source: what the phases read of a round's draws, entry (cell,
+// rv) by entry, rv the block's receiver.  draw(d, cell, rv, biz) gives
+// the attack bits (0 for an honest sender, biz false) and, through
+// rand_v(), the forged order, read only where the forge bit is set;
+// is_late(d, cell, rv) the racy delivery's lateness.  The verdict, which
+// reads a packet's draws for every receiver, first takes the cell's row
+// (row(d, cell, biz), by the whole warp) and reads through it.  Draws is
+// the stacked source: one trial's tables of one round, each [n_pool,
+// n_glob] by mailbox cell, loaded where read, so its row is empty.  The
+// trial megakernel's keyed entries hash their draws instead
+// (HashedDraws, trial_megakernel.cu).
+struct StackedDraw {
+  int attack;
+  const uint8_t* rv;
+  __device__ int rand_v() const { return *rv; }
+};
+
 struct Draws {
   const uint8_t* attack;
   const uint8_t* rand_v;
   const uint8_t* late;
+  __device__ StackedDraw draw(const Dims& d, int cell, int rv,
+                              bool biz) const {
+    const size_t di = draw_index(d, cell, rv);
+    return StackedDraw{biz ? int(attack[di]) : 0, rand_v + di};
+  }
+  __device__ bool is_late(const Dims& d, int cell, int rv) const {
+    return late[draw_index(d, cell, rv)] != 0;
+  }
+  struct Row {};
+  __device__ Row row(const Dims&, int, bool) const { return Row{}; }
+  __device__ StackedDraw draw(Row, const Dims& d, int cell, int rv,
+                              bool biz) const {
+    return draw(d, cell, rv, biz);
+  }
+  __device__ bool is_late(Row, const Dims& d, int cell, int rv) const {
+    return is_late(d, cell, rv);
+  }
 };
 
 __host__ __device__ inline size_t align8(size_t x) { return (x + 7) & ~size_t(7); }
@@ -264,10 +297,10 @@ __device__ inline void scan_extent(const Shared& sh, const int32_t* meta,
 
 // ---- Phase A: verdict, a warp per live packet. ----
 // Writes ok_mask[pk] for every sent packet pk < n_scan.
-template <class In>
+template <class In, class Src>
 __device__ inline void verdict_phase(const Shared& sh, const In& in,
                                      const int32_t* li,
-                                     const int32_t* honest, const Draws& dr,
+                                     const int32_t* honest, const Src& dr,
                                      const Dims& d, int n_scan,
                                      int round_idx, int use_fp) {
   const int n_rv = d.n_rv, slots = d.slots, max_l = d.max_l;
@@ -317,11 +350,13 @@ __device__ inline void verdict_phase(const Shared& sh, const In& in,
     const int sender = cell / slots - d.r_off;  // as a block receiver
     const unsigned long long valid_rows = low_bits(cnt_v);
     unsigned long long okbits = 0ull;
+    const auto row = dr.row(d, cell, biz);
     for (int rv = 0; rv < n_rv; ++rv) {
-      const size_t di = draw_index(d, cell, rv);
-      const int att = biz ? dr.attack[di] : 0;
-      if ((att & kDrop) || dr.late[di] != 0 || sender == rv) continue;
-      const int v2 = (att & kForge) ? int(dr.rand_v[di]) : v;
+      const auto dw = dr.draw(row, d, cell, rv, biz);
+      const int att = dw.attack;
+      if ((att & kDrop) || dr.is_late(row, d, cell, rv) || sender == rv)
+        continue;
+      const int v2 = (att & kForge) ? dw.rand_v() : v;
       const bool clear_p = att & kClearP, clear_l = att & kClearL;
       const bool forge_p = use_fp && (att & kForgeP);
       const int count_eff = clear_l ? 0 : count;
@@ -392,8 +427,9 @@ __device__ inline void close_slots(const Shared& sh, int rv, int cnt,
 // Updates vi_mask; with `rebroadcast`, fills src_list/k_cnt and raises
 // misc[1] on overflow.  With `acc` non-null, writes the accepted matrix
 // int32 0/1 [n_pool, n_rv] for its rows pk < n_scan.
+template <class Src>
 __device__ inline void dedup_phase(const Shared& sh, const int32_t* meta,
-                                   const int32_t* honest, const Draws& dr,
+                                   const int32_t* honest, const Src& dr,
                                    const Dims& d, int n_scan,
                                    bool rebroadcast, int32_t* acc) {
   const int n_rv = d.n_rv, slots = d.slots, w = d.w;
@@ -408,9 +444,8 @@ __device__ inline void dedup_phase(const Shared& sh, const int32_t* meta,
       if (pk < n_scan && ((sh.ok_mask[pk] >> rv) & 1ull)) {
         const int32_t* m = meta + size_t(pk) * 4;
         const int cell = m[3];
-        const size_t di = draw_index(d, cell, rv);
-        const bool forged = honest[cell] == 0 && (dr.attack[di] & kForge);
-        v2 = forged ? int(dr.rand_v[di]) : m[1];
+        const auto dw = dr.draw(d, cell, rv, honest[cell] == 0);
+        v2 = (dw.attack & kForge) ? dw.rand_v() : m[1];
         cand = v2 >= 0 && v2 < w && !((vim >> v2) & 1ull);
       }
       const unsigned peers = __match_any_sync(kFull, cand ? v2 : 64 + lane);
@@ -461,10 +496,10 @@ __device__ inline void offsets_phase(const Shared& sh, int n_rv) {
 // packet `src` as receiver `rr` accepted it, rebroadcast in its slot
 // `slot`.  Writes every field of the entry: rows r < max_l of vals, all
 // of lens, P and meta. ----
-template <class In, class Out>
+template <class In, class Out, class Src>
 __device__ inline void rebuild_entry(const In& in, const Out& out,
                                      const int32_t* li,
-                                     const int32_t* honest, const Draws& dr,
+                                     const int32_t* honest, const Src& dr,
                                      const Dims& d, int dst, int rr, int slot,
                                      int src, int use_fp) {
   const int slots = d.slots, max_l = d.max_l;
@@ -472,9 +507,9 @@ __device__ inline void rebuild_entry(const In& in, const Out& out,
   const int lane = threadIdx.x & 31;
   const int32_t* m = in.meta + size_t(src) * 4;
   const int count = m[0], cell = m[3];
-  const size_t di = draw_index(d, cell, rr);
-  const int att = honest[cell] == 0 ? dr.attack[di] : 0;
-  const int v2 = (att & kForge) ? int(dr.rand_v[di]) : m[1];
+  const auto dw = dr.draw(d, cell, rr, honest[cell] == 0);
+  const int att = dw.attack;
+  const int v2 = (att & kForge) ? dw.rand_v() : m[1];
   const bool clear_p = att & kClearP, clear_l = att & kClearL;
   const bool forge_p = use_fp && (att & kForgeP);
   const int cnt_v = count < 0 ? 0 : (count > max_l ? max_l : count);
@@ -527,9 +562,10 @@ __device__ inline void rebuild_entry(const In& in, const Out& out,
 
 // ---- Phase D: rebuild the live destinations dst < total of the
 // compacted successor pool, a warp each. ----
+template <class Src>
 __device__ inline void rebuild_phase(const Shared& sh, const PoolIn& in,
                                      const PoolOut& out, const int32_t* li,
-                                     const int32_t* honest, const Draws& dr,
+                                     const int32_t* honest, const Src& dr,
                                      const Dims& d, int total, int use_fp) {
   const int n_rv = d.n_rv, slots = d.slots;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;

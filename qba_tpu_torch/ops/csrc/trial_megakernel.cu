@@ -111,9 +111,46 @@
 //          8, the portable size); a refused launch returns its error.
 // Bound: bytes, as the single-device kernel (one assembled pool per trial;
 // each block reads its receivers' columns of the draws).
+//
+// The keyed entries (qba_trial_megakernel_keyed, qba_trial_megakernel_gen_
+// keyed, qba_sharded_trial_megakernel_keyed; template flag kKeyed) take
+// no draw stacks.  They take each trial's rounds key (k_rounds int64 [T,
+// 2]), the collude target (int32 [T], strategy collude) and the round law
+// (strategy, scope, delivery, float32 p_late), and hash each draw where a
+// phase reads it (draws.cuh), the counterpart of the TPU kernel reading
+// its round's slab of the XLA-drawn stack.  The phases read their draws
+// through a source (round_common.cuh): the stacked source loads a table
+// entry, the hashed one (HashedDraws below) runs threefry2x32 on the
+// entry's flat index.  Once a round, lanes 0-2 of the block derive the
+// round's attack, late and adapt keys into shared memory, beside the
+// trial's collude target and orders (adaptive forges from the sender's
+// order, any sender of the trial, so a sharded block keeps all of them).
+// The verdict, a warp per live packet reading the packet's draws for
+// every receiver in turn, first fills the warp's row in shared memory: a
+// lane a receiver (two past 32) hashes the cell's attack word, and under
+// racy delivery its late word, so the warp's serial receiver loop reads
+// bytes, not hash chains.  Under attack_scope="broadcast" the row's scan
+// over the receivers rv' <= rv (skipping the sender) is three ballots a
+// slot of 32 receivers and a shuffle for the last forge's order
+// (draws.cuh :: broadcast_step, which the draws kernel runs too).  The
+// dedup's and the rebuild's single reads hash their entry alone, walking
+// the cell's receivers downwards under the broadcast scope until the
+// last forge and both clears are found (scanned_attack).  Only a
+// dishonest sender's entry hashes its attack word; under sync delivery
+// no late word is hashed.  On the H100 the row took the 33p keyed
+// megakernel from 11.27 ms (each read hashing alone) to 9.99-10.11,
+// level with the stacked entry's 9.87-10.20, and the broadcast scope
+// from 8.70 to 5.17-5.43 (PERF.md).
+// Bound of the keyed entries: the larger of the bytes above without the
+// draws and the operations of the hashes the trial reads, each entry once
+// (about 80 a hash); the dedup's and rebuild's hashes of entries the
+// verdict's row hashed already are this design's own work.
 
 #include <cooperative_groups.h>
 
+#include <cstring>
+
+#include "draws.cuh"
 #include "gf2_sweep.cuh"
 #include "round_common.cuh"
 
@@ -163,7 +200,158 @@ struct Params {
   int n_rounds, n_dis, use_fp;
   int n_tp;  // blocks a trial: 1, or the cluster of the sharded entry
   GenParams g;
+  // The keyed entries: the trials' rounds keys, the strategy's context
+  // (collude targets [T], adaptive's orders [T, n_glob]) and the round law.
+  const int64_t* k_rounds;
+  const int32_t* collude;
+  const int32_t* orders;
+  int strategy, broadcast, racy, n_mod;
+  float p32;
 };
+
+// The keyed entries' shared words, past the body's shared memory: the
+// round's attack, late and adapt keys, the trial's collude target, then
+// its orders [n_glob] (adaptive).  After them each warp's draw row: the
+// attack bits, forged orders and late flags of one cell by global
+// receiver, uint8 [3][64].
+constexpr int kDrawWords = 8 + 64;
+constexpr int kWordCollude = 6, kWordOrders = 8;
+constexpr int kRowBytes = 3 * 64;
+
+// One hashed draw: the attack bits and the forged order (0 without the
+// forge bit).
+struct HashedDraw {
+  int attack, v;
+  __device__ int rand_v() const { return v; }
+};
+
+// A warp's draw row in shared memory (kRowBytes).
+struct HashedRow {
+  const uint8_t* p;
+};
+
+// The keyed entries' draw source (the phases' other source is the stacked
+// Draws of round_common.cuh): entry (cell, rv) of the block hashes the
+// global flat index cell * n_glob + r_off + rv on the round's streams.
+// The verdict's row hashes a cell's receivers a lane each, and under the
+// broadcast scope scans them with ballots; the dedup's and rebuild's
+// single reads hash (and walk) the entry alone.
+struct HashedDraws {
+  const uint32_t* s;  // the shared words above
+  uint8_t* rows;      // the warps' draw rows
+  int strategy, n_mod, w, slots;
+  bool late_phase, broadcast, racy;
+  float p32;
+  // Cell `cell`'s row, by the whole warp: lane j takes the global
+  // receivers j and j + 32.
+  __device__ HashedRow row(const Dims& d, int cell, bool biz) const {
+    using namespace qba_draws;
+    const int lane = threadIdx.x & 31, n = d.n_glob;
+    uint8_t* p = rows + (threadIdx.x >> 5) * kRowBytes;
+    const uint32_t base = uint32_t(cell) * uint32_t(n);
+    const Key attack{s[0], s[1]}, late{s[2], s[3]};
+    uint32_t b[2] = {0u, 0u};
+    for (int k = 0; k < 2; ++k) {
+      const int q = lane + 32 * k;
+      if (q >= n) continue;
+      if (biz) b[k] = bits_at(attack, base + uint32_t(q));
+      p[128 + q] = uint8_t(racy && late_at(late, base + uint32_t(q), p32));
+    }
+    if (biz && broadcast) {
+      // Receiver q's scan covers receivers 0..q other than the sender.
+      BroadcastScan sc;
+      for (int k = 0; k < 2; ++k) {
+        const int q = lane + 32 * k;
+        int v;
+        const int att =
+            broadcast_step(b[k], q, n, cell / slots, n_mod, k == 0, sc, &v);
+        if (q >= n) continue;
+        p[q] = uint8_t(att);
+        p[64 + q] = uint8_t(att & kForgeBit ? v : 0);
+      }
+    } else {
+      for (int k = 0; k < 2; ++k) {
+        const int q = lane + 32 * k;
+        if (q >= n) continue;
+        int att = 0, v = 0;
+        if (biz) {
+          att = attack_bits(b[k], strategy, late_phase);
+          if (att & kForgeBit) v = forged(b[k], base + uint32_t(q), cell);
+        }
+        p[q] = uint8_t(att);
+        p[64 + q] = uint8_t(v);
+      }
+    }
+    __syncwarp();
+    return HashedRow{p};
+  }
+  __device__ HashedDraw draw(HashedRow r, const Dims& d, int, int rv,
+                             bool) const {
+    const int g = d.r_off + rv;
+    return HashedDraw{r.p[g], r.p[64 + g]};
+  }
+  __device__ bool is_late(HashedRow r, const Dims& d, int, int rv) const {
+    return r.p[128 + d.r_off + rv] != 0;
+  }
+  // The forged order of attack word b at flat index i (delivery scope).
+  __device__ int forged(uint32_t b, uint32_t i, int cell) const {
+    using namespace qba_draws;
+    if (strategy == kCollude) return int(s[kWordCollude]);
+    if (strategy == kAdaptive)
+      return adaptive_rand_v(Key{s[4], s[5]}, i,
+                             int(s[kWordOrders + cell / slots]), w);
+    return raw_rand_v(b, n_mod);
+  }
+  __device__ HashedDraw draw(const Dims& d, int cell, int rv,
+                             bool biz) const {
+    using namespace qba_draws;
+    if (!biz) return HashedDraw{0, 0};
+    const Key attack{s[0], s[1]};
+    const int g = d.r_off + rv;
+    const uint32_t base = uint32_t(cell) * uint32_t(d.n_glob);
+    const uint32_t b = bits_at(attack, base + uint32_t(g));
+    int v = 0;
+    if (broadcast)
+      return HashedDraw{scanned_attack(attack, base, g, cell / slots, b,
+                                       n_mod, &v), v};
+    const int att = attack_bits(b, strategy, late_phase);
+    if (att & kForgeBit) v = forged(b, base + uint32_t(g), cell);
+    return HashedDraw{att, v};
+  }
+  __device__ bool is_late(const Dims& d, int cell, int rv) const {
+    return racy && qba_draws::late_at(
+        qba_draws::Key{s[2], s[3]},
+        uint32_t(cell) * uint32_t(d.n_glob) + uint32_t(d.r_off + rv), p32);
+  }
+};
+
+// Lanes 0-2: round r's attack, late and adapt keys of trial t,
+// fold_in(fold_in(k_rounds[t], r), tag), into the shared words.
+__device__ inline void round_keys(const Params& P, size_t t, int r,
+                                  uint32_t* s) {
+  using namespace qba_draws;
+  const int i = threadIdx.x;
+  const uint32_t tag = i == 0 ? kAttackTag : i == 1 ? kLateTag : kAdaptTag;
+  const Key trial{uint32_t(P.k_rounds[2 * t]), uint32_t(P.k_rounds[2 * t + 1])};
+  const Key k = fold_in(fold_in(trial, uint32_t(r)), tag);
+  s[2 * i] = k.k0;
+  s[2 * i + 1] = k.k1;
+}
+
+// Round r's draw source: hashed (kKeyed) or the stacked slab.
+template <bool kKeyed>
+__device__ inline auto round_draws(const Params& P, size_t t, int r,
+                                   const Dims& d, uint32_t* s) {
+  if constexpr (kKeyed) {
+    return HashedDraws{s, reinterpret_cast<uint8_t*>(s + kDrawWords),
+                       P.strategy, P.n_mod, d.w, d.slots,
+                       2 * r > P.n_rounds, P.broadcast != 0, P.racy != 0,
+                       P.p32};
+  } else {
+    return draws_at(P.attack, P.rand_v, P.late,
+                    t * size_t(P.n_rounds) + (r - 1), d);
+  }
+}
 
 // The party-sharded exchange.  Every block of the trial's cluster
 // publishes `mine` (its live count), meets the others at a cluster
@@ -244,7 +432,8 @@ __device__ void gen_prologue(const Params& P, size_t t) {
 // header changed, and past 85 only two blocks fit an SM.  kGen selects the
 // gen entry; the host-gen instantiation has no prologue.  kSharded
 // selects the party-sharded entry: a cluster of P.n_tp blocks a trial.
-template <bool kGen, bool kSharded>
+// kKeyed selects the keyed entries, which hash their draws.
+template <bool kGen, bool kSharded, bool kKeyed>
 __global__ void __launch_bounds__(kThreads, 3)
 trial_megakernel(Params P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -278,6 +467,15 @@ trial_megakernel(Params P) {
   const int32_t* honest = P.honest + t * size_t(n_pool);
   PoolOut pa = pool_at(P.a_vals, P.a_lens, P.a_p, P.a_meta, t, n_pool, d);
   PoolOut pb = pool_at(P.b_vals, P.b_lens, P.b_p, P.b_meta, t, n_pool, d);
+  uint32_t* s_draw = nullptr;
+  if constexpr (kKeyed) {
+    s_draw = reinterpret_cast<uint32_t*>(smem_raw + sh.L.total);
+    if (P.orders)
+      for (int i = threadIdx.x; i < n_glob; i += kThreads)
+        s_draw[kWordOrders + i] = uint32_t(P.orders[t * size_t(n_glob) + i]);
+    if (threadIdx.x == 0)
+      s_draw[kWordCollude] = P.collude ? uint32_t(P.collude[t]) : 0u;
+  }
 
   // ---- Entry: step 3a's verdict per lieutenant, a warp each. ----
   for (int rv = warp; rv < n_rv; rv += kWarps) {
@@ -328,8 +526,11 @@ trial_megakernel(Params P) {
 
   // ---- Rounds 1..n_dis+1, pool A -> pool B. ----
   for (int r = 1; r <= P.n_rounds; ++r) {
-    const Draws dr = draws_at(P.attack, P.rand_v, P.late,
-                              t * size_t(P.n_rounds) + (r - 1), d);
+    if constexpr (kKeyed) {
+      // The previous round's readers are past its last barrier.
+      if (threadIdx.x < 3) round_keys(P, t, r, s_draw);
+    }
+    const auto dr = round_draws<kKeyed>(P, t, r, d, s_draw);
     const bool rebroadcast = r <= P.n_dis;
     const PoolIn in = as_in(pa);
     clear_round(sh, n_scan);
@@ -369,143 +570,118 @@ trial_megakernel(Params P) {
 
 }  // namespace
 
-// Returns a cudaError_t: 0 on a launch that was accepted.  Pools A and B
-// are scratch of the fused round kernel's pool shapes; their contents on
-// entry are ignored.
-extern "C" int qba_trial_megakernel(
-    const void* p_rows, const void* li, const void* v_sent,
-    const void* honest, const void* attack, const void* rand_v,
-    const void* late, void* a_vals, void* a_lens, void* a_p, void* a_meta,
-    void* b_vals, void* b_lens, void* b_p, void* b_meta, void* o_vi,
-    void* o_dec, void* o_ovf, int n_trials, int n_rv, int slots, int max_l,
-    int size_l, int w, int n_dis, int use_fp, void* stream) {
-  if (n_trials <= 0) return 0;
-  const Dims d = make_dims(n_rv, slots, max_l, size_l, w);
-  if (!dims_ok(d) || n_dis < 0) return int(cudaErrorInvalidValue);
-  Params prm;
-  prm.p_rows = static_cast<const uint8_t*>(p_rows);
-  prm.li = static_cast<const int32_t*>(li);
-  prm.v_sent = static_cast<const int32_t*>(v_sent);
-  prm.honest = static_cast<const int32_t*>(honest);
-  prm.attack = static_cast<const uint8_t*>(attack);
-  prm.rand_v = static_cast<const uint8_t*>(rand_v);
-  prm.late = static_cast<const uint8_t*>(late);
-  prm.a_vals = static_cast<int8_t*>(a_vals);
-  prm.a_lens = static_cast<int32_t*>(a_lens);
-  prm.a_p = static_cast<int8_t*>(a_p);
-  prm.a_meta = static_cast<int32_t*>(a_meta);
-  prm.b_vals = static_cast<int8_t*>(b_vals);
-  prm.b_lens = static_cast<int32_t*>(b_lens);
-  prm.b_p = static_cast<int8_t*>(b_p);
-  prm.b_meta = static_cast<int32_t*>(b_meta);
-  prm.o_vi = static_cast<int32_t*>(o_vi);
-  prm.o_dec = static_cast<int32_t*>(o_dec);
-  prm.o_ovf = static_cast<int32_t*>(o_ovf);
-  prm.d = d;
-  prm.n_rounds = n_dis + 1;
-  prm.n_dis = n_dis;
-  prm.use_fp = use_fp;
-  prm.n_tp = 1;
-  prm.g = GenParams{};
-  size_t smem = 0;
-  if (int e = prepare_smem(trial_megakernel<false, false>, d, &smem))
-    return e;
-  trial_megakernel<false, false><<<n_trials, kThreads, smem,
-                                   static_cast<cudaStream_t>(stream)>>>(prm);
-  return int(cudaGetLastError());
-}
-
-// The gen entry: the GF(2) operands in place of p_rows and li, which the
-// prologue writes to p_scr and li_scr, and tab_scratch, which holds
-// kWarps tableau slots per trial.  slot_bytes is the caller's slot size, which must be shot_bytes(total,
-// w_words).  Returns a cudaError_t: 0 on a launch that was accepted.
-extern "C" int qba_trial_megakernel_gen(
-    const void* xq, const void* zq, const void* xn, const void* zn,
-    const void* qcorr, const void* coins, const void* r_q, const void* r_nq,
-    const void* mflip, void* p_scr, void* li_scr, void* tab_scratch,
-    const void* v_sent, const void* honest, const void* attack,
-    const void* rand_v, const void* late, void* a_vals, void* a_lens,
-    void* a_p, void* a_meta, void* b_vals, void* b_lens, void* b_p,
-    void* b_meta, void* o_vi, void* o_dec, void* o_ovf, int n_trials,
-    int n_rv, int slots, int max_l, int size_l, int w, int n_dis,
-    int use_fp, int total, int w_words, int n_qubits, int slot_bytes,
-    void* stream) {
-  if (n_trials <= 0) return 0;
-  const Dims d = make_dims(n_rv, slots, max_l, size_l, w);
-  if (!dims_ok(d) || n_dis < 0 || total != (n_rv + 2) * n_qubits ||
-      w_words != (total + 31) / 32 || w_words > qba_gf2::kMaxWords ||
-      !tab_scratch || size_t(slot_bytes) != qba_gf2::shot_bytes(total, w_words))
-    return int(cudaErrorInvalidValue);
-  Params prm;
-  prm.p_rows = nullptr;
-  prm.li = nullptr;
-  prm.v_sent = static_cast<const int32_t*>(v_sent);
-  prm.honest = static_cast<const int32_t*>(honest);
-  prm.attack = static_cast<const uint8_t*>(attack);
-  prm.rand_v = static_cast<const uint8_t*>(rand_v);
-  prm.late = static_cast<const uint8_t*>(late);
-  prm.a_vals = static_cast<int8_t*>(a_vals);
-  prm.a_lens = static_cast<int32_t*>(a_lens);
-  prm.a_p = static_cast<int8_t*>(a_p);
-  prm.a_meta = static_cast<int32_t*>(a_meta);
-  prm.b_vals = static_cast<int8_t*>(b_vals);
-  prm.b_lens = static_cast<int32_t*>(b_lens);
-  prm.b_p = static_cast<int8_t*>(b_p);
-  prm.b_meta = static_cast<int32_t*>(b_meta);
-  prm.o_vi = static_cast<int32_t*>(o_vi);
-  prm.o_dec = static_cast<int32_t*>(o_dec);
-  prm.o_ovf = static_cast<int32_t*>(o_ovf);
-  prm.d = d;
-  prm.n_rounds = n_dis + 1;
-  prm.n_dis = n_dis;
-  prm.use_fp = use_fp;
-  prm.n_tp = 1;
-  prm.g = GenParams{static_cast<const uint32_t*>(xq),
-                    static_cast<const uint32_t*>(zq),
-                    static_cast<const uint32_t*>(xn),
-                    static_cast<const uint32_t*>(zn),
-                    static_cast<const uint8_t*>(qcorr),
-                    static_cast<const uint8_t*>(coins),
-                    static_cast<const uint8_t*>(r_q),
-                    static_cast<const uint8_t*>(r_nq),
-                    static_cast<const uint8_t*>(mflip),
-                    static_cast<uint8_t*>(p_scr),
-                    static_cast<int32_t*>(li_scr),
-                    static_cast<unsigned char*>(tab_scratch),
-                    total, w_words, n_qubits};
-  size_t smem = 0;
-  if (int e = prepare_smem(trial_megakernel<true, false>, d, &smem))
-    return e;
-  trial_megakernel<true, false><<<n_trials, kThreads, smem,
-                                  static_cast<cudaStream_t>(stream)>>>(prm);
-  return int(cudaGetLastError());
-}
-
-// Shared memory and resident blocks per SM of one launch configuration
-// of the host-gen kernel (gen 0) or the gen entry (gen 1).  Returns a
-// cudaError_t.
-extern "C" int qba_trial_megakernel_occupancy(int gen, int n_rv, int slots,
-                                              int max_l, int size_l, int w,
-                                              int* smem_out,
-                                              int* blocks_out) {
-  const Dims d = make_dims(n_rv, slots, max_l, size_l, w);
-  const size_t smem = Smem(d).total;
-  const void* fn =
-      gen ? reinterpret_cast<const void*>(trial_megakernel<true, false>)
-          : reinterpret_cast<const void*>(trial_megakernel<false, false>);
-  // Raise the kernel's limit as a launch does, never lower it: the
-  // launches set it only past 48 KB.
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (e != cudaSuccess) return int(e);
-  }
-  *smem_out = int(smem);
-  return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_out, fn, kThreads, smem));
-}
+// ---- Host side. ----
 
 namespace {
+
+// The body's pools (scratch of the fused round kernel's pool shapes; their
+// contents on entry are ignored), outputs and sizes.
+void set_body(Params* p, void* a_vals, void* a_lens, void* a_p, void* a_meta,
+              void* b_vals, void* b_lens, void* b_p, void* b_meta, void* o_vi,
+              void* o_dec, void* o_ovf, const Dims& d, int n_dis, int use_fp,
+              int n_tp) {
+  p->a_vals = static_cast<int8_t*>(a_vals);
+  p->a_lens = static_cast<int32_t*>(a_lens);
+  p->a_p = static_cast<int8_t*>(a_p);
+  p->a_meta = static_cast<int32_t*>(a_meta);
+  p->b_vals = static_cast<int8_t*>(b_vals);
+  p->b_lens = static_cast<int32_t*>(b_lens);
+  p->b_p = static_cast<int8_t*>(b_p);
+  p->b_meta = static_cast<int32_t*>(b_meta);
+  p->o_vi = static_cast<int32_t*>(o_vi);
+  p->o_dec = static_cast<int32_t*>(o_dec);
+  p->o_ovf = static_cast<int32_t*>(o_ovf);
+  p->d = d;
+  p->n_rounds = n_dis + 1;
+  p->n_dis = n_dis;
+  p->use_fp = use_fp;
+  p->n_tp = n_tp;
+}
+
+// The stacked entries' draw tables.
+void set_stacks(Params* p, const void* attack, const void* rand_v,
+                const void* late) {
+  p->attack = static_cast<const uint8_t*>(attack);
+  p->rand_v = static_cast<const uint8_t*>(rand_v);
+  p->late = static_cast<const uint8_t*>(late);
+}
+
+// The keyed entries' keys, context and round law, or false where the
+// kernels do not take it (draws.cuh's strategy codes; broadcast only for
+// the reference strategy; collude needs its targets, adaptive its orders).
+bool set_law(Params* p, const void* k_rounds, const void* collude,
+             const void* orders, int strategy, int broadcast, int racy,
+             int p32_bits, int n_mod) {
+  using namespace qba_draws;
+  if (!k_rounds || strategy < kReference || strategy > kSplit ||
+      (broadcast && strategy != kReference) ||
+      (strategy == kCollude && !collude) ||
+      (strategy == kAdaptive && !orders) || n_mod < 1 || n_mod > 256)
+    return false;
+  p->k_rounds = static_cast<const int64_t*>(k_rounds);
+  p->collude = static_cast<const int32_t*>(collude);
+  p->orders = static_cast<const int32_t*>(orders);
+  p->strategy = strategy;
+  p->broadcast = broadcast;
+  p->racy = racy;
+  p->n_mod = n_mod;
+  std::memcpy(&p->p32, &p32_bits, sizeof(float));
+  return true;
+}
+
+// The gen entry's operands and scratch, or false where the sizes are not
+// its own.
+bool set_gen(Params* p, const void* xq, const void* zq, const void* xn,
+             const void* zn, const void* qcorr, const void* coins,
+             const void* r_q, const void* r_nq, const void* mflip,
+             void* p_scr, void* li_scr, void* tab_scratch, int n_rv,
+             int total, int w_words, int n_qubits, int slot_bytes) {
+  if (total != (n_rv + 2) * n_qubits || w_words != (total + 31) / 32 ||
+      w_words > qba_gf2::kMaxWords || !tab_scratch ||
+      size_t(slot_bytes) != qba_gf2::shot_bytes(total, w_words))
+    return false;
+  p->g = GenParams{static_cast<const uint32_t*>(xq),
+                   static_cast<const uint32_t*>(zq),
+                   static_cast<const uint32_t*>(xn),
+                   static_cast<const uint32_t*>(zn),
+                   static_cast<const uint8_t*>(qcorr),
+                   static_cast<const uint8_t*>(coins),
+                   static_cast<const uint8_t*>(r_q),
+                   static_cast<const uint8_t*>(r_nq),
+                   static_cast<const uint8_t*>(mflip),
+                   static_cast<uint8_t*>(p_scr),
+                   static_cast<int32_t*>(li_scr),
+                   static_cast<unsigned char*>(tab_scratch),
+                   total, w_words, n_qubits};
+  return true;
+}
+
+// Dynamic shared memory of an instantiation: the body's, and the keyed
+// entries' words.
+template <bool kKeyed>
+size_t smem_bytes(const Dims& d) {
+  return Smem(d).total +
+         (kKeyed ? sizeof(uint32_t) * kDrawWords + kWarps * kRowBytes : 0);
+}
+
+// Raise a kernel's dynamic shared-memory limit past 48 KB where needed.
+int raise_smem(const void* kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return int(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem)));
+}
+
+// One block a trial.
+template <bool kGen, bool kKeyed>
+int launch_single(const Params& prm, int n_trials, void* stream) {
+  const size_t smem = smem_bytes<kKeyed>(prm.d);
+  auto kernel = trial_megakernel<kGen, false, kKeyed>;
+  if (int e = raise_smem(reinterpret_cast<const void*>(kernel), smem))
+    return e;
+  kernel<<<n_trials, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      prm);
+  return int(cudaGetLastError());
+}
 
 // The sharded entry's launch: n_trials clusters of n_tp blocks.
 cudaLaunchConfig_t sharded_config(int n_trials, int n_tp, size_t smem,
@@ -525,6 +701,21 @@ cudaLaunchConfig_t sharded_config(int n_trials, int n_tp, size_t smem,
   return cfg;
 }
 
+// A cluster of n_tp blocks a trial; a refused launch returns its error.
+template <bool kKeyed>
+int launch_sharded(const Params& prm, int n_trials, void* stream) {
+  const size_t smem = smem_bytes<kKeyed>(prm.d);
+  auto kernel = trial_megakernel<false, true, kKeyed>;
+  if (int e = raise_smem(reinterpret_cast<const void*>(kernel), smem))
+    return e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = sharded_config(
+      n_trials, prm.n_tp, smem, static_cast<cudaStream_t>(stream), &attr);
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, prm);
+  if (e != cudaSuccess) return int(e);
+  return int(cudaGetLastError());
+}
+
 // The sharded entry's sizes, or false when they are not its shapes: a
 // cluster of 1 to 8 blocks (the portable size) that splits n_rv evenly.
 bool sharded_dims(int n_tp, int n_rv, int slots, int max_l, int size_l,
@@ -536,11 +727,146 @@ bool sharded_dims(int n_tp, int n_rv, int slots, int max_l, int size_l,
 
 }  // namespace
 
+// Each entry returns a cudaError_t: 0 on a launch that was accepted.
+// Pools A and B are scratch of the fused round kernel's pool shapes.
+
+// The host-gen entry on stacked draws.
+extern "C" int qba_trial_megakernel(
+    const void* p_rows, const void* li, const void* v_sent,
+    const void* honest, const void* attack, const void* rand_v,
+    const void* late, void* a_vals, void* a_lens, void* a_p, void* a_meta,
+    void* b_vals, void* b_lens, void* b_p, void* b_meta, void* o_vi,
+    void* o_dec, void* o_ovf, int n_trials, int n_rv, int slots, int max_l,
+    int size_l, int w, int n_dis, int use_fp, void* stream) {
+  if (n_trials <= 0) return 0;
+  const Dims d = make_dims(n_rv, slots, max_l, size_l, w);
+  if (!dims_ok(d) || n_dis < 0) return int(cudaErrorInvalidValue);
+  Params prm = {};
+  prm.p_rows = static_cast<const uint8_t*>(p_rows);
+  prm.li = static_cast<const int32_t*>(li);
+  prm.v_sent = static_cast<const int32_t*>(v_sent);
+  prm.honest = static_cast<const int32_t*>(honest);
+  set_stacks(&prm, attack, rand_v, late);
+  set_body(&prm, a_vals, a_lens, a_p, a_meta, b_vals, b_lens, b_p, b_meta,
+           o_vi, o_dec, o_ovf, d, n_dis, use_fp, 1);
+  return launch_single<false, false>(prm, n_trials, stream);
+}
+
+// The host-gen entry, keyed: k_rounds int64 [T, 2], collude int32 [T]
+// (strategy collude, else null) and orders int32 [T, n_rv] (strategy
+// adaptive, else null) in place of the stacks.
+extern "C" int qba_trial_megakernel_keyed(
+    const void* p_rows, const void* li, const void* v_sent,
+    const void* honest, const void* k_rounds, const void* collude,
+    const void* orders, void* a_vals, void* a_lens, void* a_p, void* a_meta, void* b_vals,
+    void* b_lens, void* b_p, void* b_meta, void* o_vi, void* o_dec,
+    void* o_ovf, int n_trials, int n_rv, int slots, int max_l, int size_l,
+    int w, int n_dis, int use_fp, int strategy, int broadcast, int racy,
+    int p32_bits, int n_mod, void* stream) {
+  if (n_trials <= 0) return 0;
+  const Dims d = make_dims(n_rv, slots, max_l, size_l, w);
+  Params prm = {};
+  if (!dims_ok(d) || n_dis < 0 ||
+      !set_law(&prm, k_rounds, collude, orders, strategy, broadcast, racy,
+               p32_bits, n_mod))
+    return int(cudaErrorInvalidValue);
+  prm.p_rows = static_cast<const uint8_t*>(p_rows);
+  prm.li = static_cast<const int32_t*>(li);
+  prm.v_sent = static_cast<const int32_t*>(v_sent);
+  prm.honest = static_cast<const int32_t*>(honest);
+  set_body(&prm, a_vals, a_lens, a_p, a_meta, b_vals, b_lens, b_p, b_meta,
+           o_vi, o_dec, o_ovf, d, n_dis, use_fp, 1);
+  return launch_single<false, true>(prm, n_trials, stream);
+}
+
+// The gen entry: the GF(2) operands in place of p_rows and li, which the
+// prologue writes to p_scr and li_scr, and tab_scratch, which holds
+// kWarps tableau slots per trial.  slot_bytes is the caller's slot size,
+// which must be shot_bytes(total, w_words).
+extern "C" int qba_trial_megakernel_gen(
+    const void* xq, const void* zq, const void* xn, const void* zn,
+    const void* qcorr, const void* coins, const void* r_q, const void* r_nq,
+    const void* mflip, void* p_scr, void* li_scr, void* tab_scratch,
+    const void* v_sent, const void* honest, const void* attack,
+    const void* rand_v, const void* late, void* a_vals, void* a_lens,
+    void* a_p, void* a_meta, void* b_vals, void* b_lens, void* b_p,
+    void* b_meta, void* o_vi, void* o_dec, void* o_ovf, int n_trials,
+    int n_rv, int slots, int max_l, int size_l, int w, int n_dis,
+    int use_fp, int total, int w_words, int n_qubits, int slot_bytes,
+    void* stream) {
+  if (n_trials <= 0) return 0;
+  const Dims d = make_dims(n_rv, slots, max_l, size_l, w);
+  Params prm = {};
+  if (!dims_ok(d) || n_dis < 0 ||
+      !set_gen(&prm, xq, zq, xn, zn, qcorr, coins, r_q, r_nq, mflip, p_scr,
+               li_scr, tab_scratch, n_rv, total, w_words, n_qubits,
+               slot_bytes))
+    return int(cudaErrorInvalidValue);
+  prm.v_sent = static_cast<const int32_t*>(v_sent);
+  prm.honest = static_cast<const int32_t*>(honest);
+  set_stacks(&prm, attack, rand_v, late);
+  set_body(&prm, a_vals, a_lens, a_p, a_meta, b_vals, b_lens, b_p, b_meta,
+           o_vi, o_dec, o_ovf, d, n_dis, use_fp, 1);
+  return launch_single<true, false>(prm, n_trials, stream);
+}
+
+// The gen entry, keyed (k_rounds, collude and orders as the keyed host-gen
+// entry).
+extern "C" int qba_trial_megakernel_gen_keyed(
+    const void* xq, const void* zq, const void* xn, const void* zn,
+    const void* qcorr, const void* coins, const void* r_q, const void* r_nq,
+    const void* mflip, void* p_scr, void* li_scr, void* tab_scratch,
+    const void* v_sent, const void* honest, const void* k_rounds,
+    const void* collude, const void* orders, void* a_vals, void* a_lens,
+    void* a_p, void* a_meta, void* b_vals, void* b_lens, void* b_p,
+    void* b_meta, void* o_vi, void* o_dec, void* o_ovf, int n_trials,
+    int n_rv, int slots,
+    int max_l, int size_l, int w, int n_dis, int use_fp, int total,
+    int w_words, int n_qubits, int slot_bytes, int strategy, int broadcast,
+    int racy, int p32_bits, int n_mod, void* stream) {
+  if (n_trials <= 0) return 0;
+  const Dims d = make_dims(n_rv, slots, max_l, size_l, w);
+  Params prm = {};
+  if (!dims_ok(d) || n_dis < 0 ||
+      !set_gen(&prm, xq, zq, xn, zn, qcorr, coins, r_q, r_nq, mflip, p_scr,
+               li_scr, tab_scratch, n_rv, total, w_words, n_qubits,
+               slot_bytes) ||
+      !set_law(&prm, k_rounds, collude, orders, strategy, broadcast, racy,
+               p32_bits, n_mod))
+    return int(cudaErrorInvalidValue);
+  prm.v_sent = static_cast<const int32_t*>(v_sent);
+  prm.honest = static_cast<const int32_t*>(honest);
+  set_body(&prm, a_vals, a_lens, a_p, a_meta, b_vals, b_lens, b_p, b_meta,
+           o_vi, o_dec, o_ovf, d, n_dis, use_fp, 1);
+  return launch_single<true, true>(prm, n_trials, stream);
+}
+
+// Shared memory and resident blocks per SM of one launch configuration:
+// `mode` 0 the host-gen kernel, 1 the gen entry, 2 and 3 their keyed
+// forms.  Returns a cudaError_t.
+extern "C" int qba_trial_megakernel_occupancy(int mode, int n_rv, int slots,
+                                              int max_l, int size_l, int w,
+                                              int* smem_out,
+                                              int* blocks_out) {
+  const Dims d = make_dims(n_rv, slots, max_l, size_l, w);
+  const void* fns[4] = {
+      reinterpret_cast<const void*>(trial_megakernel<false, false, false>),
+      reinterpret_cast<const void*>(trial_megakernel<true, false, false>),
+      reinterpret_cast<const void*>(trial_megakernel<false, false, true>),
+      reinterpret_cast<const void*>(trial_megakernel<true, false, true>)};
+  if (mode < 0 || mode > 3) return int(cudaErrorInvalidValue);
+  const size_t smem = mode < 2 ? smem_bytes<false>(d) : smem_bytes<true>(d);
+  // Raise the kernel's limit as a launch does, never lower it.
+  if (int e = raise_smem(fns[mode], smem)) return e;
+  *smem_out = int(smem);
+  return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_out, fns[mode], kThreads, smem));
+}
+
 // The party-sharded entry: the host-gen entry's operands and outputs,
 // with the pools one pair per trial and o_ovf int32 [T, n_tp] (each
 // shard's own overflow flag).  n_rv is the trial's lieutenants; a
-// cluster of n_tp blocks drains them, n_rv / n_tp each.  Returns a
-// cudaError_t: 0 on a launch that was accepted.
+// cluster of n_tp blocks drains them, n_rv / n_tp each.
 extern "C" int qba_sharded_trial_megakernel(
     const void* p_rows, const void* li, const void* v_sent,
     const void* honest, const void* attack, const void* rand_v,
@@ -557,38 +883,42 @@ extern "C" int qba_sharded_trial_megakernel(
   prm.li = static_cast<const int32_t*>(li);
   prm.v_sent = static_cast<const int32_t*>(v_sent);
   prm.honest = static_cast<const int32_t*>(honest);
-  prm.attack = static_cast<const uint8_t*>(attack);
-  prm.rand_v = static_cast<const uint8_t*>(rand_v);
-  prm.late = static_cast<const uint8_t*>(late);
-  prm.a_vals = static_cast<int8_t*>(a_vals);
-  prm.a_lens = static_cast<int32_t*>(a_lens);
-  prm.a_p = static_cast<int8_t*>(a_p);
-  prm.a_meta = static_cast<int32_t*>(a_meta);
-  prm.b_vals = static_cast<int8_t*>(b_vals);
-  prm.b_lens = static_cast<int32_t*>(b_lens);
-  prm.b_p = static_cast<int8_t*>(b_p);
-  prm.b_meta = static_cast<int32_t*>(b_meta);
-  prm.o_vi = static_cast<int32_t*>(o_vi);
-  prm.o_dec = static_cast<int32_t*>(o_dec);
-  prm.o_ovf = static_cast<int32_t*>(o_ovf);
-  prm.d = d;
-  prm.n_rounds = n_dis + 1;
-  prm.n_dis = n_dis;
-  prm.use_fp = use_fp;
-  prm.n_tp = n_tp;
-  size_t smem = 0;
-  if (int e = prepare_smem(trial_megakernel<false, true>, d, &smem)) return e;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = sharded_config(
-      n_trials, n_tp, smem, static_cast<cudaStream_t>(stream), &attr);
-  cudaError_t e = cudaLaunchKernelEx(&cfg, trial_megakernel<false, true>, prm);
-  if (e != cudaSuccess) return int(e);
-  return int(cudaGetLastError());
+  set_stacks(&prm, attack, rand_v, late);
+  set_body(&prm, a_vals, a_lens, a_p, a_meta, b_vals, b_lens, b_p, b_meta,
+           o_vi, o_dec, o_ovf, d, n_dis, use_fp, n_tp);
+  return launch_sharded<false>(prm, n_trials, stream);
+}
+
+// The party-sharded entry, keyed (k_rounds, collude and orders as the
+// keyed host-gen entry).
+extern "C" int qba_sharded_trial_megakernel_keyed(
+    const void* p_rows, const void* li, const void* v_sent,
+    const void* honest, const void* k_rounds, const void* collude,
+    const void* orders, void* a_vals, void* a_lens, void* a_p, void* a_meta, void* b_vals,
+    void* b_lens, void* b_p, void* b_meta, void* o_vi, void* o_dec,
+    void* o_ovf, int n_trials, int n_tp, int n_rv, int slots, int max_l,
+    int size_l, int w, int n_dis, int use_fp, int strategy, int broadcast,
+    int racy, int p32_bits, int n_mod, void* stream) {
+  if (n_trials <= 0) return 0;
+  Dims d;
+  Params prm = {};
+  if (!sharded_dims(n_tp, n_rv, slots, max_l, size_l, w, &d) || n_dis < 0 ||
+      !set_law(&prm, k_rounds, collude, orders, strategy, broadcast, racy,
+               p32_bits, n_mod))
+    return int(cudaErrorInvalidValue);
+  prm.p_rows = static_cast<const uint8_t*>(p_rows);
+  prm.li = static_cast<const int32_t*>(li);
+  prm.v_sent = static_cast<const int32_t*>(v_sent);
+  prm.honest = static_cast<const int32_t*>(honest);
+  set_body(&prm, a_vals, a_lens, a_p, a_meta, b_vals, b_lens, b_p, b_meta,
+           o_vi, o_dec, o_ovf, d, n_dis, use_fp, n_tp);
+  return launch_sharded<true>(prm, n_trials, stream);
 }
 
 // Shared memory of the sharded entry and how many of its clusters the
 // card holds at once (cudaOccupancyMaxActiveClusters; 0 when a cluster
-// does not fit).  Returns a cudaError_t.
+// does not fit), for its keyed form, the one the engines launch (the
+// stacked form takes kDrawWords fewer words).  Returns a cudaError_t.
 extern "C" int qba_sharded_megakernel_clusters(int n_tp, int n_rv, int slots,
                                                int max_l, int size_l, int w,
                                                int* smem_out,
@@ -596,11 +926,12 @@ extern "C" int qba_sharded_megakernel_clusters(int n_tp, int n_rv, int slots,
   Dims d;
   if (!sharded_dims(n_tp, n_rv, slots, max_l, size_l, w, &d))
     return int(cudaErrorInvalidValue);
-  size_t smem = 0;
-  if (int e = prepare_smem(trial_megakernel<false, true>, d, &smem)) return e;
+  const size_t smem = smem_bytes<true>(d);
+  auto kernel = trial_megakernel<false, true, true>;
+  if (int e = raise_smem(reinterpret_cast<const void*>(kernel), smem))
+    return e;
   *smem_out = int(smem);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = sharded_config(1, n_tp, smem, nullptr, &attr);
-  return int(cudaOccupancyMaxActiveClusters(
-      clusters_out, trial_megakernel<false, true>, &cfg));
+  return int(cudaOccupancyMaxActiveClusters(clusters_out, kernel, &cfg));
 }

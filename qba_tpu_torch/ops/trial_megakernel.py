@@ -10,10 +10,10 @@ plain PyTorch version, which composes the port's own step 3a, pool
 compaction and :func:`~qba_tpu_torch.ops.round_kernel_tiled.fused_round_reference`
 per round.  A CUDA tensor never reaches the plain version.
 
-The draws of every round arrive pre-sampled and stacked trial-major,
-uint8 ``[T, n_rounds, n_pool, n_rv]`` by mailbox cell
-(:func:`qba_tpu_torch.rounds.engine._stacked_draws`); round ``r`` reads
-slab ``[:, r - 1]``.  The TPU kernel's ``variant``, ``blk_d``/``blk_v``
+The stacked entries take every round's draws pre-sampled and stacked
+trial-major, uint8 ``[T, n_rounds, n_pool, n_rv]`` by mailbox cell
+(:func:`qba_tpu_torch.ops.attack_draws.attack_draws` over every round);
+round ``r`` reads slab ``[:, r - 1]``.  The TPU kernel's ``variant``, ``blk_d``/``blk_v``
 and ``trial_pack`` are layout choices of the TPU and have no
 counterpart here.
 
@@ -34,6 +34,15 @@ n_local, (s + 1) * n_local)``.  Its plain version,
 :func:`sharded_trial_megakernel_reference`, is the per-round schedule of
 the party-sharded fused engine: each shard's local segment, the
 segments assembled every round, and the ``n_recv`` plain fused round.
+
+Each entry has a keyed form (:func:`trial_megakernel_keyed`,
+:func:`trial_megakernel_gen_keyed`, :func:`sharded_trial_megakernel_keyed`),
+the one the engines launch: it takes each trial's rounds key
+``k_rounds`` int64 ``[T, 2]`` and the strategy's context in place of the
+draw stacks, and the kernel hashes each draw where it reads it
+(``csrc/draws.cuh``), so no stack exists.  Its plain version is
+:func:`~qba_tpu_torch.ops.attack_draws.attack_draws_reference` followed by
+the stacked entry's plain version.
 """
 
 from __future__ import annotations
@@ -51,6 +60,11 @@ from qba_tpu_torch.ops._launch import (
     kernel_fn,
     ptrs,
     timed_launch,
+)
+from qba_tpu_torch.ops.attack_draws import (
+    attack_draws_reference,
+    keyed_inputs,
+    law_ints,
 )
 from qba_tpu_torch.ops.round_kernel_tiled import (
     assemble_pool,
@@ -109,29 +123,96 @@ def trial_megakernel(cfg: QBAConfig, p_rows, li, v_sent, honest_c, attack,
                                           honest_c, attack, rand_v, late)
     dev = li.device
     check_kernel_shapes(cfg, "trial megakernel")
-    n_trials = _check_trial_inputs(cfg, p_rows, li, v_sent, honest_c,
-                                   attack, rand_v, late)
-    n_rv, s, w = cfg.n_lieutenants, cfg.size_l, cfg.w
-    # The pools are private to the launch and never read before the
-    # kernel writes them, so they need no fill.
-    layout = [(x.shape, x.dtype) for x in empty_pool(cfg, n_trials, "meta")]
-    pools = [[torch.empty(shape, dtype=dt, device=dev) for shape, dt in layout]
-             for _ in "ab"]
-    vi = torch.empty((n_trials, n_rv, w), dtype=torch.int32, device=dev)
-    dec = torch.empty((n_trials, n_rv), dtype=torch.int32, device=dev)
-    ovf = torch.empty(n_trials, dtype=torch.int32, device=dev)
+    n_trials = _check_trial_inputs(cfg, p_rows, li, v_sent, honest_c)
+    _check_stacks(cfg, n_trials, dev, attack, rand_v, late)
+    out = _outputs(cfg, n_trials, dev)
     fn = kernel_fn("trial_megakernel", "qba_trial_megakernel", 18, 8)
-    args = ptrs(p_rows, li, v_sent, honest_c, attack, rand_v, late,
-                 *pools[0], *pools[1], vi, dec, ovf)
-    args += [n_trials, n_rv, cfg.slots, cfg.max_l, s, w, cfg.n_dishonest,
-             int(cfg.strategy == "split")]
+    args = ptrs(p_rows, li, v_sent, honest_c, attack, rand_v, late, *out)
+    args += _body_ints(cfg, n_trials)
     timed_launch(trial_megakernel, fn, args, torch.cuda.current_stream(dev))
-    return vi, dec, ovf != 0
+    return out[-3], out[-2], out[-1] != 0
 
 
 trial_megakernel.launches = 0
 # When set to a list, each launch appends its (start, end) CUDA events.
 trial_megakernel.events = None
+
+
+def trial_megakernel_keyed_reference(cfg: QBAConfig, p_rows, li, v_sent,
+                                     honest_c, k_rounds, ctx):
+    """:func:`trial_megakernel_keyed` in plain PyTorch: every round's
+    draws (:func:`~qba_tpu_torch.ops.attack_draws.attack_draws_reference`),
+    then :func:`trial_megakernel_reference`."""
+    return trial_megakernel_reference(
+        cfg, p_rows, li, v_sent, honest_c,
+        *attack_draws_reference(cfg, k_rounds, ctx))
+
+
+def trial_megakernel_keyed(cfg: QBAConfig, p_rows, li, v_sent, honest_c,
+                           k_rounds, ctx):
+    """Whole trials that hash their own draws: the results of
+    :func:`trial_megakernel` on the draws of ``k_rounds`` (int64 ``[T,
+    2]``, each trial's rounds key) and ``ctx``
+    (:func:`~qba_tpu_torch.adversary.model.adversary_ctx`).
+
+    CPU tensors run :func:`trial_megakernel_keyed_reference`.  CUDA
+    tensors launch the kernel's keyed entry once for the batch, with the
+    input rules of :func:`trial_megakernel` for the body's inputs and of
+    :func:`~qba_tpu_torch.ops.attack_draws.keyed_inputs` for the keys and
+    context; no draw stack is allocated.
+    """
+    if not dispatch("trial_megakernel_keyed", (li,)):
+        return trial_megakernel_keyed_reference(cfg, p_rows, li, v_sent,
+                                                honest_c, k_rounds, ctx)
+    dev = li.device
+    check_kernel_shapes(cfg, "trial megakernel")
+    n_trials = _check_trial_inputs(cfg, p_rows, li, v_sent, honest_c)
+    keys, law = _keyed(cfg, n_trials, dev, k_rounds, ctx)
+    out = _outputs(cfg, n_trials, dev)
+    fn = kernel_fn("trial_megakernel", "qba_trial_megakernel_keyed", 18, 13)
+    args = ptrs(p_rows, li, v_sent, honest_c) + keys + ptrs(*out)
+    args += _body_ints(cfg, n_trials) + law
+    timed_launch(trial_megakernel_keyed, fn, args,
+                 torch.cuda.current_stream(dev))
+    return out[-3], out[-2], out[-1] != 0
+
+
+trial_megakernel_keyed.launches = 0
+trial_megakernel_keyed.events = None
+
+
+def _outputs(cfg: QBAConfig, n_trials: int, device, n_ovf: int | None = None):
+    """A launch's scratch and outputs, in the kernels' argument order: the
+    two ping-pong pools (private to the launch and never read before the
+    kernel writes them, so they need no fill), then vi, the decisions and
+    the overflow flags (``[T]``, or ``[T, n_ovf]`` a shard each)."""
+    layout = [(x.shape, x.dtype) for x in empty_pool(cfg, n_trials, "meta")]
+    pools = [torch.empty(shape, dtype=dt, device=device)
+             for _ in "ab" for shape, dt in layout]
+    n_rv = cfg.n_lieutenants
+    return pools + [
+        torch.empty((n_trials, n_rv, cfg.w), dtype=torch.int32, device=device),
+        torch.empty((n_trials, n_rv), dtype=torch.int32, device=device),
+        torch.empty((n_trials,) if n_ovf is None else (n_trials, n_ovf),
+                    dtype=torch.int32, device=device)]
+
+
+def _body_ints(cfg: QBAConfig, n_trials: int, n_tp: int | None = None):
+    """The body's int arguments: the trials (and the shards), the sizes,
+    the traitors and the split strategy's forged-presence flag."""
+    lead = [n_trials] if n_tp is None else [n_trials, n_tp]
+    return lead + [cfg.n_lieutenants, cfg.slots, cfg.max_l, cfg.size_l, cfg.w,
+                   cfg.n_dishonest, int(cfg.strategy == "split")]
+
+
+def _keyed(cfg: QBAConfig, n_trials: int, device, k_rounds, ctx):
+    """The keyed entries' pointer arguments ``(k_rounds, collude targets
+    or null, adaptive's orders or null)`` and round-law ints, from inputs
+    :func:`~qba_tpu_torch.ops.attack_draws.keyed_inputs` admits, on
+    ``device``, for ``n_trials`` trials."""
+    check("k_rounds", k_rounds, torch.int64, (n_trials, 2), device)
+    keys = keyed_inputs(cfg, k_rounds, ctx)
+    return [None if x is None else x.data_ptr() for x in keys], law_ints(cfg)
 
 
 def sharded_trial_megakernel_reference(cfg: QBAConfig, n_tp: int, p_rows,
@@ -168,26 +249,30 @@ def sharded_trial_megakernel_reference(cfg: QBAConfig, n_tp: int, p_rows,
     return vi, decisions, overflow
 
 
-def _check_trial_inputs(cfg: QBAConfig, p_rows, li, v_sent, honest_c,
-                        attack, rand_v, late):
-    """Raise unless the host-gen megakernel inputs have exactly the
+def _check_trial_inputs(cfg: QBAConfig, p_rows, li, v_sent, honest_c):
+    """Raise unless the host-gen megakernel's body inputs have exactly the
     kernel's dtypes and shapes, contiguous, on ``li``'s device.  Returns
     the trial count."""
     dev, n_trials = li.device, li.shape[0]
     n_rv, s = cfg.n_lieutenants, cfg.size_l
-    n_pool = n_rv * cfg.slots
-    stack = (n_trials, cfg.n_rounds, n_pool, n_rv)
     for name, x, dt, shp in [
         ("p_rows", p_rows, torch.bool, (n_trials, n_rv, s)),
         ("li", li, torch.int32, (n_trials, n_rv, s)),
         ("v_sent", v_sent, torch.int32, (n_trials, n_rv)),
-        ("honest_c", honest_c, torch.int32, (n_trials, n_pool)),
-        ("attack", attack, torch.uint8, stack),
-        ("rand_v", rand_v, torch.uint8, stack),
-        ("late", late, torch.uint8, stack),
+        ("honest_c", honest_c, torch.int32, (n_trials, n_rv * cfg.slots)),
     ]:
         check(name, x, dt, shp, dev)
     return n_trials
+
+
+def _check_stacks(cfg: QBAConfig, n_trials: int, device, attack, rand_v,
+                  late):
+    """Raise unless the draw stacks are uint8 ``[T, n_rounds, n_pool,
+    n_rv]``, contiguous, on ``device``."""
+    n_rv = cfg.n_lieutenants
+    stack = (n_trials, cfg.n_rounds, n_rv * cfg.slots, n_rv)
+    for name, x in (("attack", attack), ("rand_v", rand_v), ("late", late)):
+        check(name, x, torch.uint8, stack, device)
 
 
 def sharded_trial_megakernel(cfg: QBAConfig, n_tp: int, p_rows, li, v_sent,
@@ -207,6 +292,65 @@ def sharded_trial_megakernel(cfg: QBAConfig, n_tp: int, p_rows, li, v_sent,
     if not dispatch("sharded_trial_megakernel", (li,)):
         return sharded_trial_megakernel_reference(
             cfg, n_tp, p_rows, li, v_sent, honest_c, attack, rand_v, late)
+    _check_shards(cfg, n_tp)
+    n_trials = _check_trial_inputs(cfg, p_rows, li, v_sent, honest_c)
+    dev = li.device
+    _check_stacks(cfg, n_trials, dev, attack, rand_v, late)
+    out = _outputs(cfg, n_trials, dev, n_tp)
+    fn = kernel_fn("trial_megakernel", "qba_sharded_trial_megakernel", 18, 9)
+    args = ptrs(p_rows, li, v_sent, honest_c, attack, rand_v, late, *out)
+    args += _body_ints(cfg, n_trials, n_tp)
+    timed_launch(sharded_trial_megakernel, fn, args,
+                 torch.cuda.current_stream(dev))
+    return out[-3], out[-2], (out[-1] != 0).any(-1)
+
+
+sharded_trial_megakernel.launches = 0
+sharded_trial_megakernel.events = None
+
+
+def sharded_trial_megakernel_keyed_reference(cfg: QBAConfig, n_tp: int,
+                                             p_rows, li, v_sent, honest_c,
+                                             k_rounds, ctx):
+    """:func:`sharded_trial_megakernel_keyed` in plain PyTorch: every
+    round's draws, then :func:`sharded_trial_megakernel_reference`."""
+    return sharded_trial_megakernel_reference(
+        cfg, n_tp, p_rows, li, v_sent, honest_c,
+        *attack_draws_reference(cfg, k_rounds, ctx))
+
+
+def sharded_trial_megakernel_keyed(cfg: QBAConfig, n_tp: int, p_rows, li,
+                                   v_sent, honest_c, k_rounds, ctx):
+    """Whole trials in ``n_tp`` shards that hash their own draws: the
+    results of :func:`sharded_trial_megakernel` on the draws of
+    ``k_rounds`` and ``ctx``.  CPU tensors run
+    :func:`sharded_trial_megakernel_keyed_reference`; CUDA tensors launch
+    the sharded entry's keyed form once for the batch, with the input
+    rules of :func:`trial_megakernel_keyed` and ``n_tp`` as
+    :func:`sharded_trial_megakernel`."""
+    if not dispatch("sharded_trial_megakernel_keyed", (li,)):
+        return sharded_trial_megakernel_keyed_reference(
+            cfg, n_tp, p_rows, li, v_sent, honest_c, k_rounds, ctx)
+    _check_shards(cfg, n_tp)
+    n_trials = _check_trial_inputs(cfg, p_rows, li, v_sent, honest_c)
+    dev = li.device
+    keys, law = _keyed(cfg, n_trials, dev, k_rounds, ctx)
+    out = _outputs(cfg, n_trials, dev, n_tp)
+    fn = kernel_fn("trial_megakernel", "qba_sharded_trial_megakernel_keyed",
+                   18, 14)
+    args = ptrs(p_rows, li, v_sent, honest_c) + keys + ptrs(*out)
+    args += _body_ints(cfg, n_trials, n_tp) + law
+    timed_launch(sharded_trial_megakernel_keyed, fn, args,
+                 torch.cuda.current_stream(dev))
+    return out[-3], out[-2], (out[-1] != 0).any(-1)
+
+
+sharded_trial_megakernel_keyed.launches = 0
+sharded_trial_megakernel_keyed.events = None
+
+
+def _check_shards(cfg: QBAConfig, n_tp: int) -> None:
+    """Raise unless the sharded entry takes ``n_tp`` shards of ``cfg``."""
     from qba_tpu_torch.ops.round_kernel_tiled import sharded_mega_plan
 
     check_kernel_shapes(cfg, "sharded trial megakernel")
@@ -214,29 +358,6 @@ def sharded_trial_megakernel(cfg: QBAConfig, n_tp: int, p_rows, li, v_sent,
         raise ValueError(f"the sharded trial megakernel takes 1 <= n_tp <= 8 "
                          f"dividing the lieutenants; got n_tp={n_tp} at "
                          f"{cfg.n_lieutenants} lieutenants")
-    n_trials = _check_trial_inputs(cfg, p_rows, li, v_sent, honest_c,
-                                   attack, rand_v, late)
-    dev = li.device
-    layout = [(x.shape, x.dtype) for x in empty_pool(cfg, n_trials, "meta")]
-    pools = [[torch.empty(shape, dtype=dt, device=dev) for shape, dt in layout]
-             for _ in "ab"]
-    vi = torch.empty((n_trials, cfg.n_lieutenants, cfg.w), dtype=torch.int32,
-                     device=dev)
-    dec = torch.empty((n_trials, cfg.n_lieutenants), dtype=torch.int32,
-                      device=dev)
-    ovf = torch.empty((n_trials, n_tp), dtype=torch.int32, device=dev)
-    fn = kernel_fn("trial_megakernel", "qba_sharded_trial_megakernel", 18, 9)
-    args = ptrs(p_rows, li, v_sent, honest_c, attack, rand_v, late,
-                 *pools[0], *pools[1], vi, dec, ovf)
-    args += [n_trials, n_tp, cfg.n_lieutenants, cfg.slots, cfg.max_l,
-             cfg.size_l, cfg.w, cfg.n_dishonest, int(cfg.strategy == "split")]
-    timed_launch(sharded_trial_megakernel, fn, args,
-                 torch.cuda.current_stream(dev))
-    return vi, dec, (ovf != 0).any(-1)
-
-
-sharded_trial_megakernel.launches = 0
-sharded_trial_megakernel.events = None
 
 
 def sharded_megakernel_clusters(cfg: QBAConfig, n_tp: int, device=None):
@@ -310,24 +431,84 @@ def trial_megakernel_gen(cfg: QBAConfig, gen_tables, gen_ops, v_sent,
     against 1.407 ms a 1000-trial batch) and at 33 parties left one
     block per SM, 39.1 ms against 24.3 (``chip_smoke.py``, PERF.md).
     """
-    from qba_tpu_torch.ops.gf2_sweep import MAX_WORDS, shot_bytes
-
     if not dispatch("trial_megakernel_gen", (v_sent,)):
         return trial_megakernel_gen_reference(cfg, gen_tables, gen_ops,
                                               v_sent, honest_c, attack,
                                               rand_v, late)
     dev = v_sent.device
+    n_trials, gen_ptrs, gen_ints, _keep = _gen_inputs(cfg, gen_tables,
+                                                     gen_ops, v_sent, honest_c)
+    _check_stacks(cfg, n_trials, dev, attack, rand_v, late)
+    out = _outputs(cfg, n_trials, dev)
+    fn = kernel_fn("trial_megakernel", "qba_trial_megakernel_gen", 28, 12)
+    args = gen_ptrs + ptrs(v_sent, honest_c, attack, rand_v, late, *out)
+    args += _body_ints(cfg, n_trials) + gen_ints
+    timed_launch(trial_megakernel_gen, fn, args,
+                 torch.cuda.current_stream(dev))
+    return out[-3], out[-2], out[-1] != 0
+
+
+trial_megakernel_gen.launches = 0
+trial_megakernel_gen.events = None
+
+
+def trial_megakernel_gen_keyed_reference(cfg: QBAConfig, gen_tables,
+                                         gen_ops, v_sent, honest_c, k_rounds,
+                                         ctx):
+    """:func:`trial_megakernel_gen_keyed` in plain PyTorch: every round's
+    draws, then :func:`trial_megakernel_gen_reference`."""
+    return trial_megakernel_gen_reference(
+        cfg, gen_tables, gen_ops, v_sent, honest_c,
+        *attack_draws_reference(cfg, k_rounds, ctx))
+
+
+def trial_megakernel_gen_keyed(cfg: QBAConfig, gen_tables, gen_ops, v_sent,
+                               honest_c, k_rounds, ctx):
+    """Whole trials from the GF(2) generation operands that hash their own
+    draws: the results of :func:`trial_megakernel_gen` on the draws of
+    ``k_rounds`` and ``ctx``.  CPU tensors run
+    :func:`trial_megakernel_gen_keyed_reference`; CUDA tensors launch the
+    gen entry's keyed form once for the batch, with the input rules of
+    :func:`trial_megakernel_gen` and :func:`trial_megakernel_keyed`."""
+    if not dispatch("trial_megakernel_gen_keyed", (v_sent,)):
+        return trial_megakernel_gen_keyed_reference(
+            cfg, gen_tables, gen_ops, v_sent, honest_c, k_rounds, ctx)
+    dev = v_sent.device
+    n_trials, gen_ptrs, gen_ints, _keep = _gen_inputs(cfg, gen_tables,
+                                                     gen_ops, v_sent, honest_c)
+    keys, law = _keyed(cfg, n_trials, dev, k_rounds, ctx)
+    out = _outputs(cfg, n_trials, dev)
+    fn = kernel_fn("trial_megakernel", "qba_trial_megakernel_gen_keyed",
+                   28, 17)
+    args = gen_ptrs + ptrs(v_sent, honest_c) + keys + ptrs(*out)
+    args += _body_ints(cfg, n_trials) + gen_ints + law
+    timed_launch(trial_megakernel_gen_keyed, fn, args,
+                 torch.cuda.current_stream(dev))
+    return out[-3], out[-2], out[-1] != 0
+
+
+trial_megakernel_gen_keyed.launches = 0
+trial_megakernel_gen_keyed.events = None
+
+
+def _gen_inputs(cfg: QBAConfig, gen_tables, gen_ops, v_sent, honest_c):
+    """Check the gen entry's operands (exactly the dtypes and shapes of
+    :func:`trial_megakernel_gen`, contiguous, on ``v_sent``'s device) and
+    allocate its scratch.  Returns ``(n_trials, the operand and scratch
+    pointers, the gen ints (total, words, n_qubits, slot bytes), the
+    tensors the pointers address)``."""
+    from qba_tpu_torch.ops.gf2_sweep import MAX_WORDS, shot_bytes
+
+    dev = v_sent.device
     check_kernel_shapes(cfg, "trial megakernel")
     n_trials = v_sent.shape[0]
-    n_rv, s, w = cfg.n_lieutenants, cfg.size_l, cfg.w
+    n_rv, s = cfg.n_lieutenants, cfg.size_l
     total = cfg.total_qubits
     words = -(-total // 32)
     if words > MAX_WORDS:
         raise NotImplementedError(
             f"the gen entry takes at most {32 * MAX_WORDS} qubits; got "
             f"{total}")
-    n_pool = n_rv * cfg.slots
-    stack = (n_trials, cfg.n_rounds, n_pool, n_rv)
     qcorr, coins, r_q, r_nq, mflip = gen_ops
     inputs = [(f"table {i}", x, torch.int32, (2 * total, words))
               for i, x in enumerate(gen_tables)]
@@ -338,10 +519,7 @@ def trial_megakernel_gen(cfg: QBAConfig, gen_tables, gen_ops, v_sent,
         ("r_nq", r_nq, torch.uint8, (n_trials, s, 2 * total)),
         ("mflip", mflip, torch.uint8, (n_trials, s, total)),
         ("v_sent", v_sent, torch.int32, (n_trials, n_rv)),
-        ("honest_c", honest_c, torch.int32, (n_trials, n_pool)),
-        ("attack", attack, torch.uint8, stack),
-        ("rand_v", rand_v, torch.uint8, stack),
-        ("late", late, torch.uint8, stack),
+        ("honest_c", honest_c, torch.int32, (n_trials, n_rv * cfg.slots)),
     ]
     for name, x, dt, shp in inputs:
         check(name, x, dt, shp, dev)
@@ -351,24 +529,7 @@ def trial_megakernel_gen(cfg: QBAConfig, gen_tables, gen_ops, v_sent,
     # The prologue writes P and li here; the body reads them.
     p_scr = torch.empty((n_trials, n_rv, s), dtype=torch.uint8, device=dev)
     li_scr = torch.empty((n_trials, n_rv, s), dtype=torch.int32, device=dev)
-    layout = [(x.shape, x.dtype) for x in empty_pool(cfg, n_trials, "meta")]
-    pools = [[torch.empty(shape, dtype=dt, device=dev) for shape, dt in layout]
-             for _ in "ab"]
-    vi = torch.empty((n_trials, n_rv, w), dtype=torch.int32, device=dev)
-    dec = torch.empty((n_trials, n_rv), dtype=torch.int32, device=dev)
-    ovf = torch.empty(n_trials, dtype=torch.int32, device=dev)
-    fn = kernel_fn("trial_megakernel", "qba_trial_megakernel_gen", 28, 12)
     # The kernel keeps each tableau word-major, [W, 2 * total].
     tables_t = [t.t().contiguous() for t in gen_tables]
-    args = ptrs(*tables_t, qcorr, coins, r_q, r_nq, mflip, p_scr, li_scr,
-                scratch, v_sent, honest_c, attack, rand_v, late, *pools[0],
-                *pools[1], vi, dec, ovf)
-    args += [n_trials, n_rv, cfg.slots, cfg.max_l, s, w, cfg.n_dishonest,
-             int(cfg.strategy == "split"), total, words, cfg.n_qubits, slot]
-    timed_launch(trial_megakernel_gen, fn, args,
-                 torch.cuda.current_stream(dev))
-    return vi, dec, ovf != 0
-
-
-trial_megakernel_gen.launches = 0
-trial_megakernel_gen.events = None
+    keep = [*tables_t, qcorr, coins, r_q, r_nq, mflip, p_scr, li_scr, scratch]
+    return n_trials, ptrs(*keep), [total, words, cfg.n_qubits, slot], keep

@@ -22,7 +22,10 @@ same values.
 
 Results equal the single-device engine's for the same keys, trial for
 trial: the round draws are the same global tables every engine reads,
-each shard reading its receivers' columns.  Unlike JAX's
+each shard reading its receivers' columns (the per-round kernel engines
+draw them with the draws kernel a round at a time, the ``xla`` engine
+with the plain ``sample_attacks_round``; the sharded megakernel hashes
+them where it reads them).  Unlike JAX's
 ``run_trials_spmd``, nothing falls back: a kernel that fails to build or
 launch raises.  The recorded demotions are JAX's
 (:func:`_resolve_spmd_engine`).
@@ -68,10 +71,10 @@ from qba_tpu_torch.parallel.ring import all_gather, resolve_tp_comms, ring_gathe
 from qba_tpu_torch.rounds.engine import (
     ProtocolCounters,
     TrialResult,
-    _stacked_draws,
     finish_trial,
     mega_result,
     receiver_round,
+    round_draws,
     scan_rounds,
     setup_trial,
     step3a_one,
@@ -154,7 +157,7 @@ def _trial_party_sharded(cfg: QBAConfig, n_tp: int, keys: torch.Tensor,
         def round_body(r, vi, bufs):
             cur, spare = bufs
             whole = tuple(gather_tp(x, axis=ax) for x, ax in zip(cur, axes))
-            draws = tuple(x.to(torch.uint8) for x in draws_of(r))
+            draws = round_draws(cfg, k_rounds, ctx, r)
             if engine == "pallas_tiled":
                 acc, vi = tiled_verdict(cfg, r, whole, li_l, vi, hc, *draws,
                                         n_recv=n_local)
@@ -202,21 +205,23 @@ def _trial_party_sharded(cfg: QBAConfig, n_tp: int, keys: torch.Tensor,
 
 def _trial_sharded_mega(cfg: QBAConfig, n_tp: int,
                         keys: torch.Tensor) -> TrialResult:
-    """The party-sharded trial megakernel: set-up and every round's draws
-    stacked as for the single-device megakernel, then one launch for the
-    batch (:func:`~qba_tpu_torch.ops.trial_megakernel.sharded_trial_megakernel`).
+    """The party-sharded trial megakernel: set-up as for the single-device
+    megakernel, then one launch for the batch, which hashes every round's
+    draws where it reads them
+    (:func:`~qba_tpu_torch.ops.trial_megakernel.sharded_trial_megakernel_keyed`).
     The lists are generated on the host whatever ``mega_gen`` says."""
-    from qba_tpu_torch.ops.trial_megakernel import sharded_trial_megakernel
+    from qba_tpu_torch.ops.trial_megakernel import (
+        sharded_trial_megakernel_keyed,
+    )
 
     honest, lieu_lists, p_rows, v_sent, v_comm, k_rounds = setup_trial(
         cfg, keys)
-    draws = _stacked_draws(cfg, k_rounds, adversary_ctx(cfg, k_rounds,
-                                                        v_sent))
-    vi, dec, overflow = sharded_trial_megakernel(
+    k_rounds = k_rounds.contiguous()
+    vi, dec, overflow = sharded_trial_megakernel_keyed(
         cfg, n_tp, p_rows.contiguous(),
         lieu_lists.to(torch.int32).contiguous(),
         v_sent.to(torch.int32).contiguous(), honest_cells(honest, cfg),
-        *draws)
+        k_rounds, adversary_ctx(cfg, k_rounds, v_sent))
     return mega_result(honest, v_comm, vi, dec, overflow)
 
 

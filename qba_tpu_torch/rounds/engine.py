@@ -20,14 +20,17 @@ Five round engines, trial-for-trial identical:
   the verdict kernel and the rebuild kernel, meeting at the accepted
   matrix;
 * ``pallas_mega`` (:func:`run_trial_mega`): the trial megakernel, one
-  launch per batch for step 3a, every round and the decisions, on draws
-  stacked for all rounds beforehand (:func:`_stacked_draws`).  With
-  ``qsim_path="stabilizer"`` the launch also generates the lists from
-  the GF(2) operands (:func:`resolve_mega_gen`).
+  launch per batch for step 3a, every round and the decisions, which
+  hashes each round's draws where it reads them (its keyed entries): no
+  draw stack exists.  With ``qsim_path="stabilizer"`` the launch also
+  generates the lists from the GF(2) operands (:func:`resolve_mega_gen`).
 
 ``auto`` picks ``pallas_mega`` for CUDA tensors and ``xla`` for CPU
 tensors.  On CPU tensors the kernel engines run their kernels' plain
-versions.
+versions.  The per-round kernel engines draw each round's attacks with
+the draws kernel (:func:`~qba_tpu_torch.ops.attack_draws.attack_draws`,
+one launch a round); the ``xla`` oracle keeps the plain
+:func:`~qba_tpu_torch.adversary.model.sample_attacks_round`.
 
 The per-round engines share one loop, :func:`scan_rounds`, which with
 ``cfg.collect_counters`` also folds each round's ``vi`` delta and
@@ -65,6 +68,7 @@ from qba_tpu_torch.core import (
 )
 from qba_tpu_torch.core.types import SENTINEL
 from qba_tpu_torch.diagnostics import QBADemotionWarning, warn_demotion  # noqa: F401
+from qba_tpu_torch.ops.attack_draws import attack_draws
 from qba_tpu_torch.qsim import generate_lists_for
 from qba_tpu_torch.rounds.mailbox import Mailbox, mailbox_from_step3a
 
@@ -389,11 +393,9 @@ def _run_rounds_kernel(cfg: QBAConfig, round_step, vi, state, spare,
 
     def round_body(r, vi, bufs):
         cur, spare = bufs
-        draws = sample_attacks_round(cfg, jr.fold_in(k_rounds, r), r, ctx)
-        new, vi, ovf = round_step(
-            r, cur, li, vi, hc, *(x.to(torch.uint8) for x in draws),
-            out=spare,
-        )
+        new, vi, ovf = round_step(r, cur, li, vi, hc,
+                                  *round_draws(cfg, k_rounds, ctx, r),
+                                  out=spare)
         return vi, (new, cur), ovf
 
     vi, overflow, counters = scan_rounds(
@@ -471,35 +473,25 @@ def run_rounds_tiled(cfg: QBAConfig, vi, out_cells, lieu_lists, honest,
                             honest, k_rounds, ctx)
 
 
-def _stacked_draws(cfg: QBAConfig, k_rounds, ctx):
-    """Every round's draws ``(attack, rand_v, late)``, each uint8
-    ``[T, n_rounds, n_pool, n_rv]`` trial-major, for the megakernel.
-
-    Round ``r``'s slab is ``sample_attacks_round(cfg, fold_in(k_rounds,
-    r), r, ctx)``, the per-round draws of the other engines, written
-    into one preallocated tensor a round at a time (at 33 parties x 1000
-    trials the three uint8 stacks are already 2.16 GB).  Every value fits
-    uint8: attack bits < 32, forged values < w <= 64, late 0/1."""
-    n_trials = k_rounds.shape[0]
-    n_pool = cfg.n_lieutenants * cfg.slots
-    shape = (n_trials, cfg.n_rounds, n_pool, cfg.n_lieutenants)
-    out = tuple(torch.empty(shape, dtype=torch.uint8, device=k_rounds.device)
-                for _ in range(3))
-    for r in range(1, cfg.n_rounds + 1):
-        draws = sample_attacks_round(cfg, jr.fold_in(k_rounds, r), r, ctx)
-        for dst, x in zip(out, draws):
-            dst[:, r - 1] = x
-    return out
+def round_draws(cfg: QBAConfig, k_rounds, ctx, r: int):
+    """Round ``r``'s draw tables ``(attack, rand_v, late)``, each uint8
+    ``[T, n_pool, n_rv]``: one launch of the draws kernel on CUDA
+    (:func:`~qba_tpu_torch.ops.attack_draws.attack_draws`), its plain
+    version on the CPU.  The per-round kernel engines draw a round at a
+    time, so their peak memory holds one round's tables."""
+    return tuple(x[:, 0] for x in attack_draws(cfg, k_rounds.contiguous(),
+                                                ctx, r, 1))
 
 
 def run_trial_mega(cfg: QBAConfig, keys: torch.Tensor) -> TrialResult:
     """Full protocol executions on the trial megakernel
-    (:func:`qba_tpu_torch.ops.trial_megakernel.trial_megakernel`): the
-    same key tree as :func:`setup_trial`, every round's draws stacked
-    beforehand, then step 3a, the rounds and the decisions in one launch
-    for the batch.  Where :func:`resolve_mega_gen` says ``"gf2"``, the
-    launch is the gen entry
-    (:func:`~qba_tpu_torch.ops.trial_megakernel.trial_megakernel_gen`),
+    (:func:`qba_tpu_torch.ops.trial_megakernel.trial_megakernel_keyed`):
+    the same key tree as :func:`setup_trial`, then step 3a, the rounds
+    and the decisions in one launch for the batch, which hashes every
+    round's draws from the trials' rounds keys where it reads them.
+    Where :func:`resolve_mega_gen` says ``"gf2"``, the launch is the gen
+    entry
+    (:func:`~qba_tpu_torch.ops.trial_megakernel.trial_megakernel_gen_keyed`),
     which also sweeps the tableaux and decodes the lists.
 
     ``trial_pack`` (folding ``k`` trials into one TPU launch) has no
@@ -507,8 +499,8 @@ def run_trial_mega(cfg: QBAConfig, keys: torch.Tensor) -> TrialResult:
     packed config gives results identical to an unpacked one."""
     from qba_tpu_torch.ops.round_kernel_tiled import honest_cells
     from qba_tpu_torch.ops.trial_megakernel import (
-        trial_megakernel,
-        trial_megakernel_gen,
+        trial_megakernel_gen_keyed,
+        trial_megakernel_keyed,
     )
 
     gen = resolve_mega_gen(cfg, keys.device) == "gf2"
@@ -519,18 +511,18 @@ def run_trial_mega(cfg: QBAConfig, keys: torch.Tensor) -> TrialResult:
         honest, lieu_lists, p_rows, v_sent, v_comm, k_rounds = setup_trial(
             cfg, keys)
     ctx = adversary_ctx(cfg, k_rounds, v_sent)
-    draws = _stacked_draws(cfg, k_rounds, ctx)
     v32, hc = v_sent.to(torch.int32).contiguous(), honest_cells(honest, cfg)
+    k_rounds = k_rounds.contiguous()
     if gen:
         from qba_tpu_torch.qsim.protocol_circuits import stabilizer_gen_tables
 
-        vi, dec, overflow = trial_megakernel_gen(
+        vi, dec, overflow = trial_megakernel_gen_keyed(
             cfg, stabilizer_gen_tables(cfg, keys.device), gen_ops, v32, hc,
-            *draws)
+            k_rounds, ctx)
     else:
-        vi, dec, overflow = trial_megakernel(
+        vi, dec, overflow = trial_megakernel_keyed(
             cfg, p_rows.contiguous(), lieu_lists.to(torch.int32).contiguous(),
-            v32, hc, *draws)
+            v32, hc, k_rounds, ctx)
     return mega_result(honest, v_comm, vi, dec, overflow)
 
 

@@ -14,7 +14,11 @@ on the protocol's tableaux and on seeded random Clifford tableaux, the
 party-sharded kernels (the ring gather, the ``n_recv`` variants of the
 fused round, the tiled verdict and rebuild and the dense-mailbox round,
 and the sharded trial megakernel) are held bit-exact against theirs,
-and the engines, sharded or not, must agree trial for trial.  Every test is marked ``cuda`` and skips without a card
+and the engines, sharded or not, must agree trial for trial.  The draws
+kernel and the megakernels' keyed entries (which hash their own draws)
+are held bit-exact against their plain versions, and the keyed entries
+against the stacked ones, in every strategy, attack scope and delivery.
+Every test is marked ``cuda`` and skips without a card
 (the kernels have no CPU mode; the CPU tests hold the plain versions
 against ``qba_tpu``).  The file imports no JAX, so on a machine with the
 card it runs without the JAX test harness:
@@ -37,6 +41,11 @@ from qba_tpu_torch.ops import fused_circuit as fc
 from qba_tpu_torch.ops import round_kernel as rs
 from qba_tpu_torch.ops import round_kernel_tiled as rk
 from qba_tpu_torch.ops import gf2_sweep as gs
+from qba_tpu_torch.ops import trial_megakernel as tm
+from qba_tpu_torch.ops.attack_draws import (
+    attack_draws,
+    attack_draws_reference,
+)
 from qba_tpu_torch.ops.ring_shuffle import ring_gather, ring_gather_reference
 from qba_tpu_torch.ops.trial_megakernel import (
     sharded_trial_megakernel,
@@ -48,7 +57,6 @@ from qba_tpu_torch.ops.trial_megakernel import (
 )
 from qba_tpu_torch.rounds.engine import (
     _mega_gen_setup,
-    _stacked_draws,
     setup_trial,
     step3a_one,
 )
@@ -155,7 +163,8 @@ def test_trial_megakernel(cuda, case):
     cfg = qba_tpu_torch.QBAConfig(**CONFIGS[case])
     honest, li, p_rows, v_sent, k_rounds, ctx = trial_inputs(cfg, cuda)
     args = (cfg, p_rows.contiguous(), li, v_sent.to(torch.int32).contiguous(),
-            rk.honest_cells(honest, cfg), *_stacked_draws(cfg, k_rounds, ctx))
+            rk.honest_cells(honest, cfg),
+            *attack_draws(cfg, k_rounds.contiguous(), ctx))
     before = trial_megakernel.launches
     got = trial_megakernel(*args)
     assert trial_megakernel.launches == before + 1
@@ -364,7 +373,7 @@ def gen_inputs(cfg, dev):
     ctx = adversary_ctx(cfg, k_rounds, v_sent)
     return (cfg, pc.stabilizer_gen_tables(cfg, dev), gen_ops,
             v_sent.to(torch.int32).contiguous(), rk.honest_cells(honest, cfg),
-            *_stacked_draws(cfg, k_rounds, ctx))
+            *attack_draws(cfg, k_rounds.contiguous(), ctx))
 
 
 GEN_CASES = {
@@ -390,12 +399,16 @@ def test_gen_megakernel(cuda, case):
 def test_gen_and_host_engines_agree(cuda):
     cfg = qba_tpu_torch.QBAConfig(n_parties=11, size_l=64, n_dishonest=3,
                                   trials=64, seed=6, qsim_path="stabilizer")
-    counts = (trial_megakernel_gen, trial_megakernel, gs.gf2_sweep)
+    # The engines launch the keyed megakernels, which hash their draws;
+    # the fused engine draws with the draws kernel, a launch a round.
+    counts = (tm.trial_megakernel_gen_keyed, tm.trial_megakernel_keyed,
+              gs.gf2_sweep, attack_draws)
     runs = {}
     for name, kw, launches in [
-            ("gen", {}, (1, 0, 0)),
-            ("host", dict(mega_gen="host"), (0, 1, 1)),
-            ("fused", dict(round_engine="pallas_fused"), (0, 0, 1))]:
+            ("gen", {}, (1, 0, 0, 0)),
+            ("host", dict(mega_gen="host"), (0, 1, 1, 0)),
+            ("fused", dict(round_engine="pallas_fused"),
+             (0, 0, 1, cfg.n_rounds))]:
         before = [fn.launches for fn in counts]
         runs[name] = qba_tpu_torch.run_trials(
             dataclasses.replace(cfg, **kw), device=cuda).trials
@@ -575,7 +588,8 @@ def test_sharded_trial_megakernel(cuda, case):
     cfg = qba_tpu_torch.QBAConfig(**CONFIGS[name])
     honest, li, p_rows, v_sent, k_rounds, ctx = trial_inputs(cfg, cuda)
     args = (p_rows.contiguous(), li, v_sent.to(torch.int32).contiguous(),
-            rk.honest_cells(honest, cfg), *_stacked_draws(cfg, k_rounds, ctx))
+            rk.honest_cells(honest, cfg),
+            *attack_draws(cfg, k_rounds.contiguous(), ctx))
     before = sharded_trial_megakernel.launches
     got = sharded_trial_megakernel(cfg, tp, *args)
     assert sharded_trial_megakernel.launches == before + 1
@@ -603,25 +617,156 @@ def test_spmd_engines_on_one_card(cuda):
                                   trials=32, seed=9)
     ref = qba_tpu_torch.run_trials(cfg, device=cuda).trials
     mesh = make_mesh({"dp": 2, "tp": 4}, devices=[cuda] * 8)
-    fns = (sharded_trial_megakernel, ring_gather, rk.fused_round,
-           rk.tiled_verdict, rk.tiled_rebuild, rs.round_step)
-    for kw, counts in [({}, (1, 0, 0, 0, 0, 0)),
-                       (dict(round_engine="pallas_fused"), (0, 4, 1, 0, 0, 0)),
+    fns = (tm.sharded_trial_megakernel_keyed, ring_gather, rk.fused_round,
+           rk.tiled_verdict, rk.tiled_rebuild, rs.round_step, attack_draws)
+    for kw, counts in [({}, (1, 0, 0, 0, 0, 0, 0)),
+                       (dict(round_engine="pallas_fused"),
+                        (0, 4, 1, 0, 0, 0, 1)),
                        (dict(round_engine="pallas_fused",
-                             tp_comms="all_gather"), (0, 0, 1, 0, 0, 0)),
-                       (dict(round_engine="pallas_tiled"), (0, 4, 0, 1, 1, 0)),
+                             tp_comms="all_gather"), (0, 0, 1, 0, 0, 0, 1)),
+                       (dict(round_engine="pallas_tiled"),
+                        (0, 4, 0, 1, 1, 0, 1)),
                        (dict(round_engine="pallas_tiled",
-                             tp_comms="all_gather"), (0, 0, 0, 1, 1, 0)),
-                       (dict(round_engine="pallas"), (0, 4, 0, 0, 0, 1)),
+                             tp_comms="all_gather"), (0, 0, 0, 1, 1, 0, 1)),
+                       (dict(round_engine="pallas"), (0, 4, 0, 0, 0, 1, 1)),
                        (dict(round_engine="pallas", tp_comms="all_gather"),
-                        (0, 0, 0, 0, 0, 1)),
-                       (dict(round_engine="xla"), (0, 6, 0, 0, 0, 0))]:
+                        (0, 0, 0, 0, 0, 1, 1)),
+                       (dict(round_engine="xla"), (0, 6, 0, 0, 0, 0, 0))]:
         before = [fn.launches for fn in fns]
         out = run_trials_spmd(dataclasses.replace(cfg, **kw), mesh).trials
-        # Per dp row: one megakernel launch, or per round one ring launch
-        # per pool leaf (or mailbox field) and the round's kernels.
+        # Per dp row: one keyed megakernel launch, or per round one ring
+        # launch per pool leaf (or mailbox field), the round's kernels and
+        # one draws launch (the xla engine draws in plain PyTorch).
         want = tuple(2 * (c if i == 0 else c * cfg.n_rounds)
                      for i, c in enumerate(counts))
         assert tuple(fn.launches - b for fn, b in zip(fns, before)) == want
         for f in ("decisions", "success", "vi", "overflow"):
             assert torch.equal(getattr(ref, f), getattr(out, f)), (kw, f)
+
+
+# Every strategy, attack scope and delivery of the draws.
+DRAW_COMBOS = {
+    f"{law}-{delivery}": dict(kw, **(dict(delivery="racy", p_late=0.25)
+                                     if delivery == "racy" else {}))
+    for law, kw in (("reference", {}), ("collude", dict(strategy="collude")),
+                    ("adaptive", dict(strategy="adaptive")),
+                    ("split", dict(strategy="split")),
+                    ("broadcast", dict(attack_scope="broadcast")))
+    for delivery in ("sync", "racy")}
+
+
+def keyed_inputs_of(cfg, dev):
+    """The keyed megakernels' body inputs, rounds keys and context."""
+    honest, li, p_rows, v_sent, k_rounds, ctx = trial_inputs(cfg, dev)
+    body = (p_rows.contiguous(), li, v_sent.to(torch.int32).contiguous(),
+            rk.honest_cells(honest, cfg))
+    return body, k_rounds.contiguous(), ctx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combo", list(DRAW_COMBOS))
+def test_attack_draws_kernel(cuda, combo):
+    cfg = qba_tpu_torch.QBAConfig(n_parties=11, size_l=16, n_dishonest=3,
+                                  trials=16, seed=8, **DRAW_COMBOS[combo])
+    _body, k_rounds, ctx = keyed_inputs_of(cfg, cuda)
+    before = attack_draws.launches
+    got = attack_draws(cfg, k_rounds, ctx)
+    assert attack_draws.launches == before + 1
+    assert_equal(got, attack_draws_reference(cfg, k_rounds, ctx))
+    assert_equal(attack_draws(cfg, k_rounds, ctx, 3, 1),
+                 attack_draws_reference(cfg, k_rounds, ctx, 3, 1))
+    with pytest.raises(ValueError, match="contiguous"):
+        attack_draws(cfg, k_rounds.t().contiguous().t(), ctx)
+
+
+# Past 32 receivers the broadcast scan carries from one warp-wide step of
+# 32 receivers to the next (41p: 40 lieutenants; 65p: 64).
+WIDE = {f"{n}p-{d}": (n, DRAW_COMBOS[f"broadcast-{d}"])
+        for n in (41, 65) for d in ("sync", "racy")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(WIDE))
+def test_attack_draws_kernel_wide(cuda, case):
+    n, kw = WIDE[case]
+    cfg = qba_tpu_torch.QBAConfig(n_parties=n, size_l=16, n_dishonest=n // 3,
+                                  trials=8, seed=10, **kw)
+    _body, k_rounds, ctx = keyed_inputs_of(cfg, cuda)
+    assert_equal(attack_draws(cfg, k_rounds, ctx),
+                 attack_draws_reference(cfg, k_rounds, ctx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["41p-sync", "41p-racy"])
+def test_keyed_megakernel_wide(cuda, case):
+    n, kw = WIDE[case]
+    cfg = qba_tpu_torch.QBAConfig(n_parties=n, size_l=16, n_dishonest=n // 3,
+                                  trials=8, seed=10, **kw)
+    body, k_rounds, ctx = keyed_inputs_of(cfg, cuda)
+    got = tm.trial_megakernel_keyed(cfg, *body, k_rounds, ctx)
+    assert_equal(got, tm.trial_megakernel_keyed_reference(cfg, *body,
+                                                          k_rounds, ctx))
+    assert_equal(got, tm.trial_megakernel(cfg, *body,
+                                          *attack_draws(cfg, k_rounds, ctx)))
+    for tp in (2, 4):
+        assert_equal(got, tm.sharded_trial_megakernel_keyed(
+            cfg, tp, *body, k_rounds, ctx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combo", list(DRAW_COMBOS))
+def test_keyed_megakernels(cuda, combo):
+    cfg = qba_tpu_torch.QBAConfig(n_parties=9, size_l=16, n_dishonest=3,
+                                  trials=32, seed=9, **DRAW_COMBOS[combo])
+    body, k_rounds, ctx = keyed_inputs_of(cfg, cuda)
+    stacks = attack_draws(cfg, k_rounds, ctx)
+    want = tm.trial_megakernel_keyed_reference(cfg, *body, k_rounds, ctx)
+    before = tm.trial_megakernel_keyed.launches
+    got = tm.trial_megakernel_keyed(cfg, *body, k_rounds, ctx)
+    assert tm.trial_megakernel_keyed.launches == before + 1
+    assert_equal(got, want)
+    assert_equal(got, tm.trial_megakernel(cfg, *body, *stacks))
+    for tp in (2, 4):
+        sharded = tm.sharded_trial_megakernel_keyed(cfg, tp, *body, k_rounds,
+                                                    ctx)
+        assert_equal(sharded, want)
+        assert_equal(sharded, tm.sharded_trial_megakernel_keyed_reference(
+            cfg, tp, *body, k_rounds, ctx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combo", ["reference-sync", "adaptive-racy",
+                                   "broadcast-racy", "split-sync"])
+def test_keyed_gen_megakernel(cuda, combo):
+    cfg = qba_tpu_torch.QBAConfig(n_parties=11, size_l=64, n_dishonest=3,
+                                  trials=16, seed=10,
+                                  qsim_path="stabilizer",
+                                  **DRAW_COMBOS[combo])
+    keys = trial_keys(cfg, cuda)
+    honest, gen_ops, v_sent, _vc, k_rounds = _mega_gen_setup(cfg, keys)
+    k_rounds = k_rounds.contiguous()
+    ctx = adversary_ctx(cfg, k_rounds, v_sent)
+    args = (cfg, pc.stabilizer_gen_tables(cfg, cuda), gen_ops,
+            v_sent.to(torch.int32).contiguous(), rk.honest_cells(honest, cfg))
+    got = tm.trial_megakernel_gen_keyed(*args, k_rounds, ctx)
+    assert_equal(got, tm.trial_megakernel_gen_keyed_reference(
+        *args, k_rounds, ctx))
+    assert_equal(got, tm.trial_megakernel_gen(
+        *args, *attack_draws(cfg, k_rounds, ctx)))
+
+
+@pytest.mark.cuda
+def test_auto_draws_in_the_megakernel(cuda):
+    # auto launches the keyed megakernel and no draws kernel; the fused
+    # engine one draws launch a round; the results agree.
+    cfg = qba_tpu_torch.QBAConfig(n_parties=33, size_l=64, n_dishonest=10,
+                                  trials=200, seed=3)
+    before = (tm.trial_megakernel_keyed.launches, attack_draws.launches)
+    res = qba_tpu_torch.run_trials(cfg).trials
+    assert (tm.trial_megakernel_keyed.launches, attack_draws.launches) == (
+        before[0] + 1, before[1])
+    fused = qba_tpu_torch.run_trials(
+        dataclasses.replace(cfg, round_engine="pallas_fused")).trials
+    assert attack_draws.launches == before[1] + cfg.n_rounds
+    for f in ("decisions", "vi", "overflow"):
+        assert torch.equal(getattr(res, f), getattr(fused, f))

@@ -6,7 +6,8 @@ megakernel is held against on the card) against
 the CPU as the JAX package's own megakernel tests run it, on the same
 P-sets, lists, orders, cell honesty and stacked draws of real trials.
 ``vi``, the decisions and the overflow flag must be equal.  Also: the
-port's stacked draws equal JAX's ``_stacked_draws``, and the
+port's stacked draws (``attack_draws`` over every round) equal JAX's
+``_stacked_draws``, and the
 ``pallas_mega`` engine equals JAX's and the port's ``xla`` engine trial
 for trial.  Every output is an integer: the tolerance is 0.
 """
@@ -42,7 +43,8 @@ from qba_tpu_torch.ops.trial_megakernel import (
     trial_megakernel,
     trial_megakernel_reference,
 )
-from qba_tpu_torch.rounds.engine import _stacked_draws, setup_trial, step3a_one
+from qba_tpu_torch.ops.attack_draws import attack_draws
+from qba_tpu_torch.rounds.engine import setup_trial, step3a_one
 from qba_tpu_torch.testing import random_trial_inputs
 
 FIELDS = ("decisions", "success", "vi", "overflow", "honest", "v_comm")
@@ -114,7 +116,8 @@ def test_stacked_draws_match_jax(case):
             *(np.array(x) for x in jax_inputs(jcfg, keys)[4:]))
     kt = key_from_jax(jax.random.key_data(keys))
     _h, _li, _p, v_sent, _vc, k_rounds = setup_trial(cfg, kt)
-    got = _stacked_draws(cfg, k_rounds, adversary_ctx(cfg, k_rounds, v_sent))
+    k_rounds = k_rounds.contiguous()
+    got = attack_draws(cfg, k_rounds, adversary_ctx(cfg, k_rounds, v_sent))
     n_pool = cfg.n_lieutenants * cfg.slots
     for a, b in zip(want, got):
         assert b.dtype == torch.uint8
@@ -166,10 +169,11 @@ def mega_args(cfg, device):
     from qba_tpu_torch.ops.round_kernel_tiled import honest_cells
 
     honest, li, p_rows, v_sent, _vc, k_rounds = setup_trial(cfg, keys)
+    k_rounds = k_rounds.contiguous()
     ctx = adversary_ctx(cfg, k_rounds, v_sent)
     return (cfg, p_rows.contiguous(), li.to(torch.int32).contiguous(),
             v_sent.to(torch.int32).contiguous(), honest_cells(honest, cfg),
-            *_stacked_draws(cfg, k_rounds, ctx))
+            *attack_draws(cfg, k_rounds, ctx))
 
 
 def test_wrapper_uses_plain_version_on_cpu():
