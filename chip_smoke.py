@@ -121,7 +121,12 @@ Phases, each reported on its own line:
    ``n_recv`` verdict, rebuild and dense-mailbox round replayed round by
    round on the batch against their plain versions and the
    single-device round (timed, with bounds), and 33p x 64 trials on the
-   sharded megakernel (``tp = 4``) beside the single-device one.
+   sharded megakernel (``tp = 4``) beside the single-device one;
+9. ``mega_phases``: the keyed megakernel's phase clock (its ``kClock``
+   instantiation, launched here and by ``examples/torch_kernel_ab.py``
+   only) on the 11p and 33p batches, 33p x 64 and the sharded entry at
+   ``tp = 4``: per phase, warp 0's SM cycles per block and its share,
+   and the blocks' mean and largest sums, on a line of its own.
 
 Any failure exits non-zero.  The line before the last is the kernel
 table as JSON, the one before it the card; the last line is
@@ -951,6 +956,27 @@ def sharded_mega_vs_plain(cfg, keys, tp, *, chunk, reps=0):
                                  *body, *stacks),
             plain_ms=plain_ms)
     return out
+
+
+def mega_phases(cfg, keys, tp=None):
+    """The keyed megakernel's phase clock (``phase_clock``; the sharded
+    entry at ``tp``) on ``keys``' staged inputs: per phase, warp 0's mean
+    cycles per block and its share, and the blocks' mean and largest
+    sums.  The clocked launch is its own instantiation, off the main
+    path."""
+    import torch
+
+    from qba_tpu_torch.ops import trial_megakernel as tm
+
+    body, k_rounds, ctx, _st, _s, _d = mega_inputs(cfg, keys)
+    clock = tm.phase_clock(cfg.trials, tp or 1, keys.device)
+    if tp is None:
+        tm.trial_megakernel_keyed(cfg, *body, k_rounds, ctx, clock=clock)
+    else:
+        tm.sharded_trial_megakernel_keyed(cfg, tp, *body, k_rounds, ctx,
+                                          clock=clock)
+    torch.cuda.synchronize()
+    return tm.phase_breakdown(clock)
 
 
 ENGINE_OF = {"fused_round": "pallas_fused", "tiled_verdict": "pallas_tiled",
@@ -2407,6 +2433,18 @@ def main(argv):
                                        ctx)
     report["mesh_path"] = dict(runs=mesh_runs, small_batch_33p_x64_ms=small_batch)
     log("mesh_path", config="33p/L64/d10 x64", kernel_ms=small_batch)
+
+    # Where a megakernel block's time goes: the phase clock's breakdown on
+    # the main path's batches, the small batch and the sharded entry.
+    phases = {}
+    for label, pcfg, tp in (
+            ("11p/L64/d3 x1000", dict(main_cfgs)["11p/L64/d3"], None),
+            ("33p/L64/d10 x1000", dict(main_cfgs)["33p/L64/d10"], None),
+            ("33p/L64/d10 x64", cfg, None),
+            ("33p/L64/d10 x1000 tp=4", dict(main_cfgs)["33p/L64/d10"], 4)):
+        phases[label] = mega_phases(pcfg, trial_keys(pcfg, dev), tp)
+    report["mega_phases"] = phases
+    log("mega_phases", unit="SM cycles of warp 0 per block", **phases)
 
     big = runs[-1]
     kernels = []

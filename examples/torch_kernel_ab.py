@@ -3,6 +3,7 @@
 compare two checkouts (a parent and a change) on one card.
 
     python3 examples/torch_kernel_ab.py ROOT [--config 33p|11p] [--reps N]
+        [--kernels all|mega] [--phases]
 
 imports ``qba_tpu_torch`` from the checkout at ``ROOT`` (built there on
 first use), replays every round of a 1000-trial batch of the config with
@@ -14,12 +15,19 @@ mailbox), where the checkout has it (CUDA events over ``--reps``
 launches queued behind a sleep kernel, so that the host's launch rate
 does not enter the times); then on the whole batch the trial megakernel
 on the draws kernel's stacks, its keyed entry (which hashes its own
-draws) and the draws kernel over every round (a checkout needs
-``qba_tpu_torch.ops.attack_draws``).  Prints one JSON line: the card,
-the checkout and each kernel's mean ms per launch over the rounds (null
-for an ``n_recv`` variant the checkout lacks).  Run it for the two
-checkouts in turns (parent, change, change, parent, ...) back to back: a
-card's clocks drift, so only times taken side by side compare.
+draws), the party-sharded keyed entry at the config's ``tp``, the keyed
+gen entry on ``qsim_path="stabilizer"``, both keyed entries on the
+first 64 trials (``*_x64``), and the draws kernel over every round (a
+checkout needs ``qba_tpu_torch.ops.attack_draws``).  ``--kernels
+mega`` skips the round kernels.  ``--phases``, where the checkout has
+the megakernel's phase clock (``trial_megakernel.phase_clock``), also
+runs each keyed entry once with it and adds each one's breakdown (warp
+0's mean cycles per block and share, per phase) under ``phases``.
+Prints one JSON line: the card, the checkout and each kernel's mean ms
+per launch over the rounds (null for an ``n_recv`` variant the checkout
+lacks).  Run it for the two checkouts in turns (parent, change, change,
+parent, ...) back to back: a card's clocks drift, so only times taken
+side by side compare.
 """
 
 from __future__ import annotations
@@ -40,6 +48,8 @@ def main(argv):
     ap.add_argument("root")
     ap.add_argument("--config", default="33p", choices=sorted(CONFIGS))
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--kernels", default="all", choices=("all", "mega"))
+    ap.add_argument("--phases", action="store_true")
     args = ap.parse_args(argv)
     sys.path.insert(0, args.root)
     import torch
@@ -53,7 +63,6 @@ def main(argv):
     from qba_tpu_torch.backends.torch_backend import trial_keys
     from qba_tpu_torch.ops import round_kernel as rs
     from qba_tpu_torch.ops import round_kernel_tiled as rk
-    from qba_tpu_torch.ops import trial_megakernel as tm
     from qba_tpu_torch.ops.attack_draws import attack_draws
     from qba_tpu_torch.rounds.engine import setup_trial, step3a_one
 
@@ -98,7 +107,8 @@ def main(argv):
     def shards(x):
         return x.expand((tp,) + x.shape).contiguous()
 
-    for r in range(1, cfg.n_rounds + 1):
+    rounds = cfg.n_rounds if args.kernels == "all" else 0
+    for r in range(1, rounds + 1):
         draws = tuple(x.to(torch.uint8) for x in sample_attacks_round(
             cfg, jr.fold_in(k_rounds, r), r, ctx))
         times["fused_round"].append(ms(rk.fused_round, cfg, r, pool, li, vi,
@@ -144,11 +154,8 @@ def main(argv):
         mbox, mbox_spare = new_mbox, mbox
     body = (p_rows.contiguous(), li, v_sent.to(torch.int32).contiguous(), hc)
     k_rounds = k_rounds.contiguous()
-    stacks = attack_draws(cfg, k_rounds, ctx)
-    mega = ms(tm.trial_megakernel, cfg, *body, *stacks)
-    del stacks
-    keyed = ms(tm.trial_megakernel_keyed, cfg, *body, k_rounds, ctx)
-    draws = ms(attack_draws, cfg, k_rounds, ctx)
+    mega = megakernels(cfg, tp, body, k_rounds, ctx, ms, args.phases)
+    mega["attack_draws"] = ms(attack_draws, cfg, k_rounds, ctx)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -157,10 +164,69 @@ def main(argv):
                       "trials": cfg.trials, "reps": args.reps, "tp": tp,
                       **{k: sum(v) / len(v) if v else None
                          for k, v in times.items()},
-                      "trial_megakernel": mega,
-                      "trial_megakernel_keyed": keyed,
-                      "attack_draws": draws}))
+                      **mega}))
     return 0
+
+
+def megakernels(cfg, tp, body, k_rounds, ctx, ms, phases):
+    """The megakernels' ms per launch on the batch: the stacked and keyed
+    single-device entries, the keyed sharded entry at ``tp``, the keyed
+    gen entry, and both keyed entries on the first 64 trials; with
+    ``phases`` each keyed entry's phase breakdown too."""
+    import dataclasses
+
+    import torch
+
+    from qba_tpu_torch.adversary import adversary_ctx
+    from qba_tpu_torch.backends.torch_backend import trial_keys
+    from qba_tpu_torch.ops import round_kernel_tiled as rk
+    from qba_tpu_torch.ops import trial_megakernel as tm
+    from qba_tpu_torch.ops.attack_draws import attack_draws
+    from qba_tpu_torch.qsim.protocol_circuits import stabilizer_gen_tables
+    from qba_tpu_torch.rounds.engine import _mega_gen_setup
+
+    stacks = attack_draws(cfg, k_rounds, ctx)
+    out = {"trial_megakernel": ms(tm.trial_megakernel, cfg, *body, *stacks)}
+    del stacks
+    scfg = dataclasses.replace(cfg, qsim_path="stabilizer")
+    keys = trial_keys(scfg, body[0].device)
+    honest, gen_ops, v_sent, _vc, gk_rounds = _mega_gen_setup(scfg, keys)
+    gk_rounds = gk_rounds.contiguous()
+    gctx = adversary_ctx(scfg, gk_rounds, v_sent)
+    gen = [stabilizer_gen_tables(scfg, keys.device), gen_ops,
+           v_sent.to(torch.int32).contiguous(), rk.honest_cells(honest, scfg)]
+    small = 64
+    scfg64 = dataclasses.replace(cfg, trials=small)
+    sl = slice(0, small)
+    sbody = [x[sl].contiguous() for x in body]
+    sctx = None if ctx is None else type(ctx)(*(x[sl] for x in ctx))
+    runs = {
+        "trial_megakernel_keyed": (tm.trial_megakernel_keyed, (cfg,),
+                                   (*body, k_rounds, ctx), cfg.trials, 1),
+        "sharded_trial_megakernel_keyed": (
+            tm.sharded_trial_megakernel_keyed, (cfg, tp),
+            (*body, k_rounds, ctx), cfg.trials, tp),
+        "trial_megakernel_gen_keyed": (tm.trial_megakernel_gen_keyed,
+                                       (scfg,), (*gen, gk_rounds, gctx),
+                                       cfg.trials, 1),
+        "trial_megakernel_keyed_x64": (
+            tm.trial_megakernel_keyed, (scfg64,),
+            (*sbody, k_rounds[sl].contiguous(), sctx), small, 1),
+        "sharded_trial_megakernel_keyed_x64": (
+            tm.sharded_trial_megakernel_keyed, (scfg64, tp),
+            (*sbody, k_rounds[sl].contiguous(), sctx), small, tp),
+    }
+    breakdown = {}
+    for name, (fn, pre, a, n, n_tp) in runs.items():
+        out[name] = ms(fn, *pre, *a)
+        if phases and hasattr(tm, "phase_clock"):
+            clock = tm.phase_clock(n, n_tp, body[0].device)
+            fn(*pre, *a, clock=clock)
+            torch.cuda.synchronize()
+            breakdown[name] = tm.phase_breakdown(clock)
+    if breakdown:
+        out["phases"] = breakdown
+    return out
 
 
 if __name__ == "__main__":

@@ -5,8 +5,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into
 ``<build_dir()>/<name>-<key>.so`` at first use.  The build key hashes
 the ``.cu`` source, every ``csrc`` header it includes (directly or
-through another header) and the ``nvcc`` flags, so an edit to a shared
-header rebuilds every kernel that includes it.  :func:`build_dir` is
+through another header) and the kernel's ``nvcc`` flags (``flags``), so
+an edit to a shared header rebuilds every kernel that includes it.  :func:`build_dir` is
 ``build/qba_tpu_torch`` at the root of a checkout (the directory
 ``.gitignore`` lists) and a per-user cache directory for an installed
 package.  There is no fallback: a missing ``nvcc`` or a failed build
@@ -30,6 +30,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# Flags of one kernel, in its build key: the trial megakernel's fifteen
+# instantiations are optimised in parallel (nvcc's split compilation)
+# rather than one after another.
+KERNEL_FLAGS = {"trial_megakernel": ("-split-compile=0",)}
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -75,9 +79,14 @@ def sources(name: str) -> list[Path]:
     return seen
 
 
+def flags(name: str) -> tuple[str, ...]:
+    """The ``nvcc`` flags of kernel ``name``."""
+    return NVCC_FLAGS + KERNEL_FLAGS.get(name, ())
+
+
 def _target(name: str) -> tuple[Path, Path]:
     """``(source, library)``: the library's name carries the build key."""
-    h = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256("\0".join(flags(name)).encode())
     for path in sources(name):
         h.update(b"\0" + path.name.encode() + b"\0" + path.read_bytes())
     return CSRC / f"{name}.cu", build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
@@ -91,7 +100,7 @@ def _start(name: str):
         return None, lib, None
     lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [nvcc(), *flags(name), "-o", str(tmp), str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, lib, tmp

@@ -8,26 +8,48 @@
 // qba_tpu_torch/ops/trial_megakernel.py :: trial_megakernel_reference.
 //
 // Design.  One thread block per trial, looping over the rounds inside
-// the block; trials are independent, so no grid-wide sync exists.  Each
-// round runs the fused round kernel's phases A-D (round_common.cuh) on
-// pool A into pool B, then the pointers swap; __syncthreads() between
-// phases makes one round's global writes visible to the next round.
-//   Entry  (trial_megakernel.py:328-433) a warp per lieutenant decides
-//          step 3a's verdict: consistent unless a P position whose list
-//          value is not SENTINEL holds v, a value > w or < 0.  vi starts
-//          as {v} for the lieutenants that accept; their broadcasts are
-//          compacted into pool A at the exclusive prefix count of the
-//          accepting lieutenants (row 0 = own row, lens[0] = |P|, meta =
-//          (1, v, 1, lieutenant * slots)).
+// the block; trials are independent, so no grid-wide sync exists.  The
+// block's layout and phases are the megakernel's own (mega_phases.cuh),
+// not the per-round kernels' (round_common.cuh): its pools are private to
+// the launch, so they are entry-major (a packet's meta, lens, P and rows
+// one span of MegaEntry bytes), and each round runs on pool A into pool
+// B, then the pointers swap; barriers between phases make one round's
+// global writes visible to the next.
+//   Entry  the trial's lists go to shared memory once, as int8 words of
+//          four positions, position-major [sw][n_glob + 1], with the words
+//          of their out-of-range positions; a warp per lieutenant decides
+//          step 3a's verdict (trial_megakernel.py:328-433): consistent
+//          unless a P position whose list value is not SENTINEL holds v, a
+//          value > w or < 0.  vi starts as {v} for the lieutenants that
+//          accept; their broadcasts are compacted into pool A at the
+//          exclusive prefix count of the accepting lieutenants (a warp
+//          scan; row 0 = own row, lens[0] = |P|, meta = (1, v, 1,
+//          lieutenant * slots)).
 //   Rounds the previous round's live total is this round's scan extent.
-//          The vi masks stay in shared memory across rounds.  The last
-//          round rebroadcasts nothing, so it runs the verdict and dedup
-//          only.
+//          Verdict (mega_verdict): a warp a live packet, whose entry it
+//          copies into shared memory with cp.async while the previous one
+//          is checked; the packet's facts once, then the receivers across
+//          lanes, four positions a word.  Dedup: a warp a receiver over
+//          the verdict masks and each packet's cell and order, in shared
+//          memory.  Offsets: a warp scan.  Rebuild (mega_rebuild): a warp
+//          a successor entry, its source copied in ahead the same way,
+//          turned into the successor in shared memory and written out in
+//          16-byte stores.  The vi masks stay in shared memory across
+//          rounds.  The last round rebroadcasts nothing, so it runs the
+//          verdict and dedup only.
+//   Layout entries too large for the warps' buffers (past about 400
+//          positions at 33 parties on the H100) are read where they lie,
+//          and each successor is written straight into the next pool
+//          (choose_smem, kStaged).
 //   Exit   decisions = lowest set bit of each vi mask, or w when empty.
-// The pools are private to the launch: phase E (the dead-tail fill) is
-// not run, because nothing past a round's live total is ever read and
-// phase D writes every field of every live entry.  Entry writes only the
-// fields a one-row packet is read at (row 0, lens[0], P, meta).
+// Nothing past a round's live total is read, and a reader reads only the
+// fields the writer wrote (meta, lens, P and the rows below count).
+// The block is kMegaWarps = 16 warps, two blocks an SM (64 registers a
+// thread).  On an NVIDIA H100 80GB HBM3 at 700 W the parent body's
+// phase clock put 71% of a 33p block in the verdict's serial receiver
+// loop, 14.5% in the rebuild and 9.5% in staging (PERF.md); block shapes
+// of 8 warps (three and four blocks an SM) and 12 were timed against 16
+// side by side (PERF.md).
 //
 // Bound on this card: bytes.  The kernel must read li, P, the orders and
 // the cells' honesty once, write vi, the decisions and the overflow
@@ -37,15 +59,15 @@
 // none of its draw slab: at 33 parties / sizeL 64 / 10 dishonest the
 // stacks hold 1000 x 11 x 2048 x 32 x 3 B = 2.16 GB per 1000-trial
 // batch, most of which no round reads.  The pools live in per-trial
-// global scratch (at 33p one pool is 1,835,008 B, far above a block's
-// 227 KB of shared memory), so live entries make an L2/HBM round trip
-// per round.
+// global scratch (at 33p one pool is 2048 entries of 896 B, far above a
+// block's shared memory), so live entries make an L2/HBM round trip per
+// round, one copy a packet.
 //
 // Layouts (trial-major, contiguous): p_rows bool [T, n_rv, S], li int32
 // [T, n_rv, S], v_sent int32 [T, n_rv], honest int32 [T, n_pool], draws
-// uint8 [T, n_rounds, n_pool, n_rv]; pools A and B as fused_round.cu;
-// out vi int32 [T, n_rv, w], decisions int32 [T, n_rv], overflow int32
-// [T].
+// uint8 [T, n_rounds, n_pool, n_rv]; pools A and B uint8 [T, n_pool,
+// MegaEntry bytes]; out vi int32 [T, n_rv, w], decisions int32 [T,
+// n_rv], overflow int32 [T].
 //
 // The gen entry (qba_trial_megakernel_gen) is the TPU kernel's gen=True
 // form (mega_gen="gf2", the prologue at trial_megakernel.py:232-324):
@@ -67,11 +89,11 @@
 //             order sent) to per-trial global scratch.  __syncthreads(),
 //             then the body above runs unchanged on that scratch.
 //   Slots     each warp's tableau lives in per-trial global scratch
-//             (kWarps slots a trial), so the prologue takes no shared
-//             memory and the block keeps the body's footprint and its
-//             three blocks per SM.  Shared-memory slots were tried on
-//             the H100: level at 11 parties, and at 33 parties (187.8 KB
-//             for eight) one block per SM and 39 ms a batch against 24
+//             (kMegaWarps slots a trial), so the prologue takes no shared
+//             memory and the block keeps the body's footprint.
+//             Shared-memory slots were tried on the H100 with the old
+//             body: level at 11 parties, and at 33 parties (187.8 KB for
+//             eight) one block per SM and 39 ms a batch against 24
 //             (PERF.md).
 // Bound of the prologue: operations, as the sweep (gf2_sweep.cuh); its
 // bytes are the operands, read once, and the static tables, from L2.
@@ -88,6 +110,17 @@
 //          Each block runs the body above at n_rv = n_local with global
 //          cell ids ((s * n_local + r) * slots + slot), so the draws and
 //          the sender algebra are the single-device kernel's.
+//   Verdict the blocks split the round's packets, not its receivers:
+//          block s checks the packets pk with pk % n_tp == s against every
+//          receiver of the trial (each block holds every receiver's
+//          lists), then after a cluster barrier copies the others' verdict
+//          masks and packet infos through distributed shared memory
+//          (gather_verdicts), and its dedup and rebuild serve its own
+//          receivers.  Each block so stages and checks 1 / n_tp of the
+//          packets where it used to stage all of them for n_local
+//          receivers: on an NVIDIA H100 80GB HBM3 at 700 W, 4.45 -> 3.03
+//          ms at 33p, tp = 4, and faster than the receiver split at 11p,
+//          tp = 2 (PERF.md).
 //   Pools  ONE assembled pool pair per trial, as the single-device
 //          kernel, not n_tp copies.  The TPU kernel keeps a local
 //          segment and an assembled copy on every chip and moves the
@@ -121,15 +154,16 @@
 // its round's slab of the XLA-drawn stack.  The phases read their draws
 // through a source (round_common.cuh): the stacked source loads a table
 // entry, the hashed one (HashedDraws below) runs threefry2x32 on the
-// entry's flat index.  Once a round, lanes 0-2 of the block derive the
-// round's attack, late and adapt keys into shared memory, beside the
+// entry's flat index.  Three lanes of warp 1 derive a round's attack,
+// late and adapt keys into shared memory during the round before (while
+// warp 0 scans the offsets; two sets of words alternate), beside the
 // trial's collude target and orders (adaptive forges from the sender's
 // order, any sender of the trial, so a sharded block keeps all of them).
 // The verdict, a warp per live packet reading the packet's draws for
-// every receiver in turn, first fills the warp's row in shared memory: a
-// lane a receiver (two past 32) hashes the cell's attack word, and under
-// racy delivery its late word, so the warp's serial receiver loop reads
-// bytes, not hash chains.  Under attack_scope="broadcast" the row's scan
+// every receiver, first fills the warp's row in shared memory: a lane a
+// receiver (two past 32) hashes the cell's attack word, and under racy
+// delivery its late word, so the receivers' checks read bytes, not hash
+// chains.  Under attack_scope="broadcast" the row's scan
 // over the receivers rv' <= rv (skipping the sender) is three ballots a
 // slot of 32 receivers and a shuffle for the last forge's order
 // (draws.cuh :: broadcast_step, which the draws kernel runs too).  The
@@ -152,6 +186,7 @@
 
 #include "draws.cuh"
 #include "gf2_sweep.cuh"
+#include "mega_phases.cuh"
 #include "round_common.cuh"
 
 namespace {
@@ -173,7 +208,7 @@ struct GenParams {
   const uint8_t* mflip;
   uint8_t* p_scr;
   int32_t* li_scr;
-  unsigned char* tab_scratch;  // kWarps slots per trial
+  unsigned char* tab_scratch;  // kMegaWarps slots per trial
   int total, w, nq;
 };
 
@@ -185,14 +220,8 @@ struct Params {
   const uint8_t* attack;
   const uint8_t* rand_v;
   const uint8_t* late;
-  int8_t* a_vals;
-  int32_t* a_lens;
-  int8_t* a_p;
-  int32_t* a_meta;
-  int8_t* b_vals;
-  int32_t* b_lens;
-  int8_t* b_p;
-  int32_t* b_meta;
+  unsigned char* pool_a;  // the ping-pong pools, MegaEntry-major
+  unsigned char* pool_b;
   int32_t* o_vi;
   int32_t* o_dec;
   int32_t* o_ovf;
@@ -207,15 +236,18 @@ struct Params {
   const int32_t* orders;
   int strategy, broadcast, racy, n_mod;
   float p32;
+  // The phase clock's int64 [T * n_tp, kPhases] (kClock instantiations).
+  long long* clock;
 };
 
-// The keyed entries' shared words, past the body's shared memory: the
-// round's attack, late and adapt keys, the trial's collude target, then
-// its orders [n_glob] (adaptive).  After them each warp's draw row: the
-// attack bits, forged orders and late flags of one cell by global
-// receiver, uint8 [3][64].
-constexpr int kDrawWords = 8 + 64;
-constexpr int kWordCollude = 6, kWordOrders = 8;
+// The keyed entries' shared words, past the body's shared memory: an odd
+// round's attack, late and adapt keys, the trial's collude target, its
+// orders [n_glob] (adaptive), then an even round's keys (a round's keys
+// are derived during the round before, keys_of).  After them each warp's
+// draw row: the attack bits, forged orders and late flags of one cell by
+// global receiver, uint8 [3][64].
+constexpr int kDrawWords = 8 + 64 + 8;
+constexpr int kWordCollude = 6, kWordOrders = 8, kWordEvenKeys = 72;
 constexpr int kRowBytes = 3 * 64;
 
 // One hashed draw: the attack bits and the forged order (0 without the
@@ -238,6 +270,7 @@ struct HashedRow {
 // single reads hash (and walk) the entry alone.
 struct HashedDraws {
   const uint32_t* s;  // the shared words above
+  const uint32_t* k;  // the round's keys among them (keys_of)
   uint8_t* rows;      // the warps' draw rows
   int strategy, n_mod, w, slots;
   bool late_phase, broadcast, racy;
@@ -249,7 +282,7 @@ struct HashedDraws {
     const int lane = threadIdx.x & 31, n = d.n_glob;
     uint8_t* p = rows + (threadIdx.x >> 5) * kRowBytes;
     const uint32_t base = uint32_t(cell) * uint32_t(n);
-    const Key attack{s[0], s[1]}, late{s[2], s[3]};
+    const Key attack{k[0], k[1]}, late{k[2], k[3]};
     uint32_t b[2] = {0u, 0u};
     for (int k = 0; k < 2; ++k) {
       const int q = lane + 32 * k;
@@ -298,7 +331,7 @@ struct HashedDraws {
     using namespace qba_draws;
     if (strategy == kCollude) return int(s[kWordCollude]);
     if (strategy == kAdaptive)
-      return adaptive_rand_v(Key{s[4], s[5]}, i,
+      return adaptive_rand_v(Key{k[4], k[5]}, i,
                              int(s[kWordOrders + cell / slots]), w);
     return raw_rand_v(b, n_mod);
   }
@@ -306,7 +339,7 @@ struct HashedDraws {
                              bool biz) const {
     using namespace qba_draws;
     if (!biz) return HashedDraw{0, 0};
-    const Key attack{s[0], s[1]};
+    const Key attack{k[0], k[1]};
     const int g = d.r_off + rv;
     const uint32_t base = uint32_t(cell) * uint32_t(d.n_glob);
     const uint32_t b = bits_at(attack, base + uint32_t(g));
@@ -320,22 +353,28 @@ struct HashedDraws {
   }
   __device__ bool is_late(const Dims& d, int cell, int rv) const {
     return racy && qba_draws::late_at(
-        qba_draws::Key{s[2], s[3]},
+        qba_draws::Key{k[2], k[3]},
         uint32_t(cell) * uint32_t(d.n_glob) + uint32_t(d.r_off + rv), p32);
   }
 };
 
-// Lanes 0-2: round r's attack, late and adapt keys of trial t,
-// fold_in(fold_in(k_rounds[t], r), tag), into the shared words.
+// Round r's keys among the shared words: odd rounds' first, even rounds'
+// past the orders, so that round r + 1's are derived during round r.
+__device__ inline uint32_t* keys_of(uint32_t* s, int r) {
+  return s + (r & 1 ? 0 : kWordEvenKeys);
+}
+
+// Key i (0 attack, 1 late, 2 adapt) of round r of trial t,
+// fold_in(fold_in(k_rounds[t], r), tag), into keys_of(s, r).  Three lanes
+// derive a round's keys; the caller synchronises before they are read.
 __device__ inline void round_keys(const Params& P, size_t t, int r,
-                                  uint32_t* s) {
+                                  uint32_t* s, int i) {
   using namespace qba_draws;
-  const int i = threadIdx.x;
   const uint32_t tag = i == 0 ? kAttackTag : i == 1 ? kLateTag : kAdaptTag;
   const Key trial{uint32_t(P.k_rounds[2 * t]), uint32_t(P.k_rounds[2 * t + 1])};
   const Key k = fold_in(fold_in(trial, uint32_t(r)), tag);
-  s[2 * i] = k.k0;
-  s[2 * i + 1] = k.k1;
+  keys_of(s, r)[2 * i] = k.k0;
+  keys_of(s, r)[2 * i + 1] = k.k1;
 }
 
 // Round r's draw source: hashed (kKeyed) or the stacked slab.
@@ -343,7 +382,8 @@ template <bool kKeyed>
 __device__ inline auto round_draws(const Params& P, size_t t, int r,
                                    const Dims& d, uint32_t* s) {
   if constexpr (kKeyed) {
-    return HashedDraws{s, reinterpret_cast<uint8_t*>(s + kDrawWords),
+    return HashedDraws{s, keys_of(s, r),
+                       reinterpret_cast<uint8_t*>(s + kDrawWords),
                        P.strategy, P.n_mod, d.w, d.slots,
                        2 * r > P.n_rounds, P.broadcast != 0, P.racy != 0,
                        P.p32};
@@ -358,19 +398,38 @@ __device__ inline auto round_draws(const Params& P, size_t t, int r,
 // barrier and reads their counts through distributed shared memory:
 // misc[3] is the sum of the lower ranks' counts, misc[4] of all.  The
 // caller reads both after this returns.
-__device__ void cluster_counts(const Shared& sh, int mine, int n_tp) {
+__device__ void cluster_counts(int* misc, int mine, int n_tp) {
   cg::cluster_group cl = cg::this_cluster();
-  if (threadIdx.x == 0) sh.misc[2] = mine;
+  if (threadIdx.x == 0) misc[2] = mine;
   cl.sync();
   if (threadIdx.x < 32) {
     const int lane = threadIdx.x, rank = int(cl.block_rank());
-    const int c = lane < n_tp ? *cl.map_shared_rank(&sh.misc[2], lane) : 0;
+    const int c = lane < n_tp ? *cl.map_shared_rank(&misc[2], lane) : 0;
     const int below = __reduce_add_sync(kFull, lane < rank ? c : 0);
     const int all = __reduce_add_sync(kFull, c);
     if (lane == 0) {
-      sh.misc[3] = below;
-      sh.misc[4] = all;
+      misc[3] = below;
+      misc[4] = all;
     }
+  }
+  __syncthreads();
+}
+
+// The sharded verdict's exchange: each block of the cluster checked the
+// packets pk with pk % n_tp == its rank against every receiver; after a
+// cluster barrier every block copies the other blocks' verdict masks and
+// packet infos through distributed shared memory, so that its dedup reads
+// every packet's locally.  The owners do not write these words again
+// before the round's later cluster barriers.
+__device__ void gather_verdicts(const MegaShared& sh, int n_scan, int rank,
+                                int n_tp) {
+  cg::cluster_group cl = cg::this_cluster();
+  cl.sync();
+  for (int pk = threadIdx.x; pk < n_scan; pk += kMegaThreads) {
+    const int owner = pk % n_tp;
+    if (owner == rank) continue;
+    sh.ok_mask[pk] = *cl.map_shared_rank(sh.ok_mask + pk, owner);
+    sh.info[pk] = *cl.map_shared_rank(sh.info + pk, owner);
   }
   __syncthreads();
 }
@@ -396,11 +455,11 @@ __device__ void gen_prologue(const Params& P, size_t t) {
   const int nq = g.nq, n_groups = n_rv + 2;
   const size_t slot = qba_gf2::shot_bytes(T, W);
   const ShotTab tab =
-      qba_gf2::shot_tab(g.tab_scratch + (t * kWarps + warp) * slot, T, W);
+      qba_gf2::shot_tab(g.tab_scratch + (t * kMegaWarps + warp) * slot, T, W);
   int32_t* li = g.li_scr + t * size_t(n_rv) * S;
   uint8_t* pr = g.p_scr + t * size_t(n_rv) * S;
   const int32_t* v_sent = P.v_sent + t * size_t(n_rv);
-  for (int s = warp; s < S; s += kWarps) {
+  for (int s = warp; s < S; s += kMegaWarps) {
     const size_t shot = t * S + s;
     const bool q = g.qcorr[shot] != 0;
     qba_gf2::load_shot(tab, T, W, q ? g.xq : g.xn, q ? g.zq : g.zn,
@@ -427,21 +486,23 @@ __device__ void gen_prologue(const Params& P, size_t t) {
   }
 }
 
-// Three blocks per SM (at most 85 registers a thread): left to itself the
-// compiler has taken from 80 to 128 registers for this kernel as the shared
-// header changed, and past 85 only two blocks fit an SM.  kGen selects the
-// gen entry; the host-gen instantiation has no prologue.  kSharded
+// kMegaBlocks blocks of kMegaWarps warps an SM (mega_phases.cuh): left to
+// itself the compiler takes more registers than that allows.  kGen selects
+// the gen entry; the host-gen instantiation has no prologue.  kSharded
 // selects the party-sharded entry: a cluster of P.n_tp blocks a trial.
-// kKeyed selects the keyed entries, which hash their draws.
-template <bool kGen, bool kSharded, bool kKeyed>
-__global__ void __launch_bounds__(kThreads, 3)
+// kKeyed selects the keyed entries, which hash their draws; kStaged the
+// layout (choose_smem: entries staged through the warps' buffers, or read
+// where they lie); kClock the phase clock (mega_phases.cuh).
+template <bool kGen, bool kSharded, bool kKeyed, bool kStaged,
+          bool kClock = false>
+__global__ void __launch_bounds__(kMegaThreads, kMegaBlocks)
 trial_megakernel(Params P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  PhaseClock<kClock> clk;
+  clk.start();
   Dims d = P.d;
-  const int n_rv = d.n_rv, slots = d.slots, S = d.size_l, w = d.w;
-  const int max_l = d.max_l, n_glob = d.n_glob;
-  const Shared sh(smem_raw, d);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_rv = d.n_rv, S = d.size_l, w = d.w, n_glob = d.n_glob;
+  const int n_pool = d.n_pool();
   size_t t = blockIdx.x;
   int rank = 0;
   if constexpr (kSharded) {
@@ -449,123 +510,122 @@ trial_megakernel(Params P) {
     t = blockIdx.x / P.n_tp;
     d.r_off = rank * n_rv;
   }
+  const MegaShared sh(smem_raw, d, kStaged);
   // The block's receivers' rows of the trial's [n_glob, ...] inputs.
   const size_t row0 = t * size_t(n_glob) + d.r_off;
   const uint8_t* p_rows;
-  const int32_t* li;
+  const int32_t* li_all;  // the trial's lists, every receiver's
   if constexpr (kGen) {
     gen_prologue(P, t);
     __syncthreads();
+    clk.mark(kPhGen);
     p_rows = P.g.p_scr + row0 * S;
-    li = P.g.li_scr + row0 * S;
+    li_all = P.g.li_scr + t * size_t(n_glob) * S;
   } else {
     p_rows = P.p_rows + row0 * S;
-    li = P.li + row0 * S;
+    li_all = P.li + t * size_t(n_glob) * S;
   }
+  // The verdict's receivers: a cluster's blocks split the packets, each
+  // checking them against every receiver of the trial.
+  Dims dx = d;
+  dx.r_off = 0;
+  dx.n_rv = n_glob;
   const int32_t* v_sent = P.v_sent + row0;
-  const int n_pool = d.n_pool();
-  const int32_t* honest = P.honest + t * size_t(n_pool);
-  PoolOut pa = pool_at(P.a_vals, P.a_lens, P.a_p, P.a_meta, t, n_pool, d);
-  PoolOut pb = pool_at(P.b_vals, P.b_lens, P.b_p, P.b_meta, t, n_pool, d);
+  const size_t pool_bytes = size_t(n_pool) * sh.E.bytes;
+  unsigned char* pa = P.pool_a + t * pool_bytes;
+  unsigned char* pb = P.pool_b + t * pool_bytes;
   uint32_t* s_draw = nullptr;
   if constexpr (kKeyed) {
     s_draw = reinterpret_cast<uint32_t*>(smem_raw + sh.L.total);
     if (P.orders)
-      for (int i = threadIdx.x; i < n_glob; i += kThreads)
+      for (int i = threadIdx.x; i < n_glob; i += kMegaThreads)
         s_draw[kWordOrders + i] = uint32_t(P.orders[t * size_t(n_glob) + i]);
     if (threadIdx.x == 0)
       s_draw[kWordCollude] = P.collude ? uint32_t(P.collude[t]) : 0u;
+    // Round 1's keys (the entry's barriers order them before the verdict).
+    if (threadIdx.x >= 32 && threadIdx.x < 35)
+      round_keys(P, t, 1, s_draw, threadIdx.x - 32);
   }
+  if (threadIdx.x == 0) sh.misc[1] = 0;
 
-  // ---- Entry: step 3a's verdict per lieutenant, a warp each. ----
-  for (int rv = warp; rv < n_rv; rv += kWarps) {
-    const int v = v_sent[rv];
-    const int32_t* lir = li + size_t(rv) * S;
-    bool bad = false;
-    for (int j = lane; j < S; j += 32) {
-      const int x = lir[j];
-      if (p_rows[size_t(rv) * S + j] && x != -1 && (x == v || x > w || x < 0))
-        bad = true;
-    }
-    bad = __any_sync(kFull, bad);
-    if (lane == 0) {
-      sh.k_cnt[rv] = !bad;
-      sh.vi_mask[rv] = (!bad && v >= 0 && v < w) ? (1ull << v) : 0ull;
-    }
-  }
+  // ---- Entry: the lists into shared memory, step 3a's verdict per
+  // lieutenant, its broadcasts compacted into pool A at the exclusive
+  // prefix count of the accepting lieutenants. ----
+  mega_entry(sh, p_rows, li_all, v_sent, P.honest + t * size_t(n_pool), d);
   __syncthreads();
-  offsets_phase(sh, n_rv);  // pool position = exclusive prefix of ok
+  mega_offsets(sh, n_rv);
   __syncthreads();
   int base = 0, n_scan = sh.offs[n_rv];
   if constexpr (kSharded) {
-    cluster_counts(sh, n_scan, P.n_tp);
+    cluster_counts(sh.misc, n_scan, P.n_tp);
     base = sh.misc[3];
     n_scan = sh.misc[4];
   }
-  // Compaction into pool A, a warp per accepting lieutenant.
-  for (int rv = warp; rv < n_rv; rv += kWarps) {
-    if (!sh.k_cnt[rv]) continue;
-    const int dst = base + sh.offs[rv];
-    const int32_t* lir = li + size_t(rv) * S;
-    int plen = 0;
-    for (int j = lane; j < S; j += 32) {
-      const bool pj = p_rows[size_t(rv) * S + j] != 0;
-      pa.vals[size_t(dst) * S + j] = pj ? int8_t(lir[j]) : int8_t(-1);
-      pa.p[size_t(dst) * S + j] = int8_t(pj);
-      plen += pj;
-    }
-    plen = __reduce_add_sync(kFull, plen);
-    if (lane == 0) pa.lens[size_t(dst) * max_l] = plen;
-    if (lane < 4) {
-      const int32_t f[4] = {1, v_sent[rv], 1, (d.r_off + rv) * slots};
-      pa.meta[size_t(dst) * 4 + lane] = f[lane];
-    }
-  }
-  int overflow = 0;
+  mega_compact(sh, pa, p_rows, v_sent, d, base);
   pool_written<kSharded>();
+  clk.mark(kPhEntry);
 
   // ---- Rounds 1..n_dis+1, pool A -> pool B. ----
   for (int r = 1; r <= P.n_rounds; ++r) {
-    if constexpr (kKeyed) {
-      // The previous round's readers are past its last barrier.
-      if (threadIdx.x < 3) round_keys(P, t, r, s_draw);
-    }
+    clk.mark(kPhClear);
     const auto dr = round_draws<kKeyed>(P, t, r, d, s_draw);
     const bool rebroadcast = r <= P.n_dis;
-    const PoolIn in = as_in(pa);
-    clear_round(sh, n_scan);
+    mega_verdict<kStaged>(sh, pa, li_all,
+                          round_draws<kKeyed>(P, t, r, dx, s_draw), dx,
+                          n_scan, r, P.use_fp, clk, rank, P.n_tp);
+    if constexpr (kSharded) {
+      gather_verdicts(sh, n_scan, rank, P.n_tp);
+    } else {
+      __syncthreads();
+    }
+    clk.mark(kPhVerdictWait);
+    mega_dedup(sh, dr, d, n_scan, rebroadcast);
     __syncthreads();
-    verdict_phase(sh, in, li, honest, dr, d, n_scan, r, P.use_fp);
-    __syncthreads();
-    dedup_phase(sh, in.meta, honest, dr, d, n_scan, rebroadcast, nullptr);
-    __syncthreads();
+    clk.mark(kPhDedup);
     if (!rebroadcast) break;  // the last round builds no successor
-    offsets_phase(sh, n_rv);
+    mega_offsets(sh, n_rv);
+    if constexpr (kKeyed) {
+      // Warp 1 derives the next round's keys while warp 0 scans; round
+      // r - 1, the last reader of their words, is past its barriers.
+      if (threadIdx.x >= 32 && threadIdx.x < 35)
+        round_keys(P, t, r + 1, s_draw, threadIdx.x - 32);
+    }
     __syncthreads();
-    overflow |= sh.misc[1];
+    clk.mark(kPhOffsets);
     const int total = sh.offs[n_rv];
     int first = 0, next_scan = total;
     if constexpr (kSharded) {
-      cluster_counts(sh, total, P.n_tp);
+      cluster_counts(sh.misc, total, P.n_tp);
       first = sh.misc[3];
       next_scan = sh.misc[4];
+      clk.mark(kPhExchange);
     }
-    rebuild_phase(sh, in, pb.from(first, d), li, honest, dr, d, total,
-                  P.use_fp);
+    unsigned char* out = pb + size_t(first) * sh.E.bytes;
+    mega_rebuild<kStaged>(sh, pa, out, dr, d, total, P.use_fp, clk);
+    clk.mark(kPhRebuild);
     pool_written<kSharded>();
-    const PoolOut next = pb;
+    clk.mark(kPhWritten);
+    unsigned char* next = pb;
     pb = pa;
     pa = next;
     n_scan = next_scan;
   }
 
   // ---- Exit: vi, min(vi) per lieutenant, overflow. ----
-  store_vi(sh, P.o_vi + row0 * w, d);
-  for (int rv = threadIdx.x; rv < n_rv; rv += kThreads) {
+  int32_t* o_vi = P.o_vi + row0 * w;
+  for (int i = threadIdx.x; i < n_rv * w; i += kMegaThreads) {
+    const int rv = i / w, x = i - rv * w;
+    o_vi[i] = int32_t((sh.vi_mask[rv] >> x) & 1ull);
+  }
+  for (int rv = threadIdx.x; rv < n_rv; rv += kMegaThreads) {
     const unsigned long long m = sh.vi_mask[rv];
     P.o_dec[row0 + rv] = m ? __ffsll(static_cast<long long>(m)) - 1 : w;
   }
-  if (threadIdx.x == 0) P.o_ovf[t * P.n_tp + rank] = overflow;
+  if (threadIdx.x == 0) P.o_ovf[t * P.n_tp + rank] = sh.misc[1];
+  // No block leaves while another may still read its shared memory.
+  if constexpr (kSharded) cg::this_cluster().sync();
+  clk.mark(kPhExit);
+  if constexpr (kClock) clk.store(P.clock + (t * P.n_tp + rank) * kPhases);
 }
 
 }  // namespace
@@ -574,20 +634,12 @@ trial_megakernel(Params P) {
 
 namespace {
 
-// The body's pools (scratch of the fused round kernel's pool shapes; their
+// The body's pools (uint8 [T, n_pool, MegaEntry bytes] each, scratch whose
 // contents on entry are ignored), outputs and sizes.
-void set_body(Params* p, void* a_vals, void* a_lens, void* a_p, void* a_meta,
-              void* b_vals, void* b_lens, void* b_p, void* b_meta, void* o_vi,
-              void* o_dec, void* o_ovf, const Dims& d, int n_dis, int use_fp,
-              int n_tp) {
-  p->a_vals = static_cast<int8_t*>(a_vals);
-  p->a_lens = static_cast<int32_t*>(a_lens);
-  p->a_p = static_cast<int8_t*>(a_p);
-  p->a_meta = static_cast<int32_t*>(a_meta);
-  p->b_vals = static_cast<int8_t*>(b_vals);
-  p->b_lens = static_cast<int32_t*>(b_lens);
-  p->b_p = static_cast<int8_t*>(b_p);
-  p->b_meta = static_cast<int32_t*>(b_meta);
+void set_body(Params* p, void* pool_a, void* pool_b, void* o_vi, void* o_dec,
+              void* o_ovf, const Dims& d, int n_dis, int use_fp, int n_tp) {
+  p->pool_a = static_cast<unsigned char*>(pool_a);
+  p->pool_b = static_cast<unsigned char*>(pool_b);
   p->o_vi = static_cast<int32_t*>(o_vi);
   p->o_dec = static_cast<int32_t*>(o_dec);
   p->o_ovf = static_cast<int32_t*>(o_ovf);
@@ -659,9 +711,34 @@ bool set_gen(Params* p, const void* xq, const void* zq, const void* xn,
 // Dynamic shared memory of an instantiation: the body's, and the keyed
 // entries' words.
 template <bool kKeyed>
-size_t smem_bytes(const Dims& d) {
-  return Smem(d).total +
-         (kKeyed ? sizeof(uint32_t) * kDrawWords + kWarps * kRowBytes : 0);
+size_t smem_bytes(const Dims& d, bool staged) {
+  return MegaSmem(d, staged).total +
+         (kKeyed ? sizeof(uint32_t) * kDrawWords + kMegaWarps * kRowBytes : 0);
+}
+
+// A launch's layout: the entries staged through the warps' buffers where
+// that fits the card's limit for one block (on the H100 up to about 400
+// positions at 33 parties), else read where they lie; its shared memory.
+template <bool kKeyed>
+size_t choose_smem(const Dims& d, bool* staged) {
+  int dev = 0, limit = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  *staged = smem_bytes<kKeyed>(d, true) <= size_t(limit);
+  return smem_bytes<kKeyed>(d, *staged);
+}
+
+// The instantiation of a launch: its layout, and the phase clock's form
+// where a clock buffer is given (staged layouts only).
+template <bool kGen, bool kSharded, bool kKeyed>
+auto megakernel_for(bool staged, bool clock) {
+  auto kernel = staged ? trial_megakernel<kGen, kSharded, kKeyed, true>
+                       : trial_megakernel<kGen, kSharded, kKeyed, false>;
+  if constexpr (kKeyed)
+    if (clock && staged)
+      kernel = trial_megakernel<kGen, kSharded, true, true, true>;
+  return kernel;
 }
 
 // Raise a kernel's dynamic shared-memory limit past 48 KB where needed.
@@ -671,14 +748,16 @@ int raise_smem(const void* kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem)));
 }
 
-// One block a trial.
+// One block a trial; with a clock buffer, the kClock instantiation.
 template <bool kGen, bool kKeyed>
 int launch_single(const Params& prm, int n_trials, void* stream) {
-  const size_t smem = smem_bytes<kKeyed>(prm.d);
-  auto kernel = trial_megakernel<kGen, false, kKeyed>;
+  bool staged;
+  const size_t smem = choose_smem<kKeyed>(prm.d, &staged);
+  if (prm.clock && !staged) return int(cudaErrorInvalidValue);
+  auto kernel = megakernel_for<kGen, false, kKeyed>(staged, prm.clock);
   if (int e = raise_smem(reinterpret_cast<const void*>(kernel), smem))
     return e;
-  kernel<<<n_trials, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<n_trials, kMegaThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       prm);
   return int(cudaGetLastError());
 }
@@ -689,7 +768,7 @@ cudaLaunchConfig_t sharded_config(int n_trials, int n_tp, size_t smem,
                                   cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(unsigned(n_trials) * unsigned(n_tp));
-  cfg.blockDim = dim3(kThreads);
+  cfg.blockDim = dim3(kMegaThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -704,8 +783,10 @@ cudaLaunchConfig_t sharded_config(int n_trials, int n_tp, size_t smem,
 // A cluster of n_tp blocks a trial; a refused launch returns its error.
 template <bool kKeyed>
 int launch_sharded(const Params& prm, int n_trials, void* stream) {
-  const size_t smem = smem_bytes<kKeyed>(prm.d);
-  auto kernel = trial_megakernel<false, true, kKeyed>;
+  bool staged;
+  const size_t smem = choose_smem<kKeyed>(prm.d, &staged);
+  if (prm.clock && !staged) return int(cudaErrorInvalidValue);
+  auto kernel = megakernel_for<false, true, kKeyed>(staged, prm.clock);
   if (int e = raise_smem(reinterpret_cast<const void*>(kernel), smem))
     return e;
   cudaLaunchAttribute attr;
@@ -728,14 +809,15 @@ bool sharded_dims(int n_tp, int n_rv, int slots, int max_l, int size_l,
 }  // namespace
 
 // Each entry returns a cudaError_t: 0 on a launch that was accepted.
-// Pools A and B are scratch of the fused round kernel's pool shapes.
+// Pools A and B are scratch, uint8 [T, n_pool, MegaEntry bytes] each
+// (mega_phases.cuh).  The keyed entries' `clock`, when not null, is the
+// phase clock's int64 [T * n_tp, kPhases] and launches its instantiation.
 
 // The host-gen entry on stacked draws.
 extern "C" int qba_trial_megakernel(
     const void* p_rows, const void* li, const void* v_sent,
     const void* honest, const void* attack, const void* rand_v,
-    const void* late, void* a_vals, void* a_lens, void* a_p, void* a_meta,
-    void* b_vals, void* b_lens, void* b_p, void* b_meta, void* o_vi,
+    const void* late, void* pool_a, void* pool_b, void* o_vi,
     void* o_dec, void* o_ovf, int n_trials, int n_rv, int slots, int max_l,
     int size_l, int w, int n_dis, int use_fp, void* stream) {
   if (n_trials <= 0) return 0;
@@ -747,8 +829,7 @@ extern "C" int qba_trial_megakernel(
   prm.v_sent = static_cast<const int32_t*>(v_sent);
   prm.honest = static_cast<const int32_t*>(honest);
   set_stacks(&prm, attack, rand_v, late);
-  set_body(&prm, a_vals, a_lens, a_p, a_meta, b_vals, b_lens, b_p, b_meta,
-           o_vi, o_dec, o_ovf, d, n_dis, use_fp, 1);
+  set_body(&prm, pool_a, pool_b, o_vi, o_dec, o_ovf, d, n_dis, use_fp, 1);
   return launch_single<false, false>(prm, n_trials, stream);
 }
 
@@ -758,9 +839,9 @@ extern "C" int qba_trial_megakernel(
 extern "C" int qba_trial_megakernel_keyed(
     const void* p_rows, const void* li, const void* v_sent,
     const void* honest, const void* k_rounds, const void* collude,
-    const void* orders, void* a_vals, void* a_lens, void* a_p, void* a_meta, void* b_vals,
-    void* b_lens, void* b_p, void* b_meta, void* o_vi, void* o_dec,
-    void* o_ovf, int n_trials, int n_rv, int slots, int max_l, int size_l,
+    const void* orders, void* pool_a, void* pool_b, void* o_vi,
+    void* o_dec, void* o_ovf, void* clock, int n_trials, int n_rv, int slots,
+    int max_l, int size_l,
     int w, int n_dis, int use_fp, int strategy, int broadcast, int racy,
     int p32_bits, int n_mod, void* stream) {
   if (n_trials <= 0) return 0;
@@ -774,23 +855,22 @@ extern "C" int qba_trial_megakernel_keyed(
   prm.li = static_cast<const int32_t*>(li);
   prm.v_sent = static_cast<const int32_t*>(v_sent);
   prm.honest = static_cast<const int32_t*>(honest);
-  set_body(&prm, a_vals, a_lens, a_p, a_meta, b_vals, b_lens, b_p, b_meta,
-           o_vi, o_dec, o_ovf, d, n_dis, use_fp, 1);
+  set_body(&prm, pool_a, pool_b, o_vi, o_dec, o_ovf, d, n_dis, use_fp, 1);
+  prm.clock = static_cast<long long*>(clock);
   return launch_single<false, true>(prm, n_trials, stream);
 }
 
 // The gen entry: the GF(2) operands in place of p_rows and li, which the
 // prologue writes to p_scr and li_scr, and tab_scratch, which holds
-// kWarps tableau slots per trial.  slot_bytes is the caller's slot size,
+// kMegaWarps tableau slots per trial.  slot_bytes is the caller's slot size,
 // which must be shot_bytes(total, w_words).
 extern "C" int qba_trial_megakernel_gen(
     const void* xq, const void* zq, const void* xn, const void* zn,
     const void* qcorr, const void* coins, const void* r_q, const void* r_nq,
     const void* mflip, void* p_scr, void* li_scr, void* tab_scratch,
     const void* v_sent, const void* honest, const void* attack,
-    const void* rand_v, const void* late, void* a_vals, void* a_lens,
-    void* a_p, void* a_meta, void* b_vals, void* b_lens, void* b_p,
-    void* b_meta, void* o_vi, void* o_dec, void* o_ovf, int n_trials,
+    const void* rand_v, const void* late, void* pool_a, void* pool_b,
+    void* o_vi, void* o_dec, void* o_ovf, int n_trials,
     int n_rv, int slots, int max_l, int size_l, int w, int n_dis,
     int use_fp, int total, int w_words, int n_qubits, int slot_bytes,
     void* stream) {
@@ -805,8 +885,7 @@ extern "C" int qba_trial_megakernel_gen(
   prm.v_sent = static_cast<const int32_t*>(v_sent);
   prm.honest = static_cast<const int32_t*>(honest);
   set_stacks(&prm, attack, rand_v, late);
-  set_body(&prm, a_vals, a_lens, a_p, a_meta, b_vals, b_lens, b_p, b_meta,
-           o_vi, o_dec, o_ovf, d, n_dis, use_fp, 1);
+  set_body(&prm, pool_a, pool_b, o_vi, o_dec, o_ovf, d, n_dis, use_fp, 1);
   return launch_single<true, false>(prm, n_trials, stream);
 }
 
@@ -817,10 +896,9 @@ extern "C" int qba_trial_megakernel_gen_keyed(
     const void* qcorr, const void* coins, const void* r_q, const void* r_nq,
     const void* mflip, void* p_scr, void* li_scr, void* tab_scratch,
     const void* v_sent, const void* honest, const void* k_rounds,
-    const void* collude, const void* orders, void* a_vals, void* a_lens,
-    void* a_p, void* a_meta, void* b_vals, void* b_lens, void* b_p,
-    void* b_meta, void* o_vi, void* o_dec, void* o_ovf, int n_trials,
-    int n_rv, int slots,
+    const void* collude, const void* orders, void* pool_a, void* pool_b,
+    void* o_vi, void* o_dec, void* o_ovf, void* clock,
+    int n_trials, int n_rv, int slots,
     int max_l, int size_l, int w, int n_dis, int use_fp, int total,
     int w_words, int n_qubits, int slot_bytes, int strategy, int broadcast,
     int racy, int p32_bits, int n_mod, void* stream) {
@@ -836,8 +914,8 @@ extern "C" int qba_trial_megakernel_gen_keyed(
     return int(cudaErrorInvalidValue);
   prm.v_sent = static_cast<const int32_t*>(v_sent);
   prm.honest = static_cast<const int32_t*>(honest);
-  set_body(&prm, a_vals, a_lens, a_p, a_meta, b_vals, b_lens, b_p, b_meta,
-           o_vi, o_dec, o_ovf, d, n_dis, use_fp, 1);
+  set_body(&prm, pool_a, pool_b, o_vi, o_dec, o_ovf, d, n_dis, use_fp, 1);
+  prm.clock = static_cast<long long*>(clock);
   return launch_single<true, true>(prm, n_trials, stream);
 }
 
@@ -849,18 +927,24 @@ extern "C" int qba_trial_megakernel_occupancy(int mode, int n_rv, int slots,
                                               int* smem_out,
                                               int* blocks_out) {
   const Dims d = make_dims(n_rv, slots, max_l, size_l, w);
-  const void* fns[4] = {
-      reinterpret_cast<const void*>(trial_megakernel<false, false, false>),
-      reinterpret_cast<const void*>(trial_megakernel<true, false, false>),
-      reinterpret_cast<const void*>(trial_megakernel<false, false, true>),
-      reinterpret_cast<const void*>(trial_megakernel<true, false, true>)};
   if (mode < 0 || mode > 3) return int(cudaErrorInvalidValue);
-  const size_t smem = mode < 2 ? smem_bytes<false>(d) : smem_bytes<true>(d);
+  bool staged;
+  const size_t smem = mode < 2 ? choose_smem<false>(d, &staged)
+                               : choose_smem<true>(d, &staged);
+  const void* fns[4] = {
+      reinterpret_cast<const void*>(
+          megakernel_for<false, false, false>(staged, false)),
+      reinterpret_cast<const void*>(
+          megakernel_for<true, false, false>(staged, false)),
+      reinterpret_cast<const void*>(
+          megakernel_for<false, false, true>(staged, false)),
+      reinterpret_cast<const void*>(
+          megakernel_for<true, false, true>(staged, false))};
   // Raise the kernel's limit as a launch does, never lower it.
   if (int e = raise_smem(fns[mode], smem)) return e;
   *smem_out = int(smem);
   return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_out, fns[mode], kThreads, smem));
+      blocks_out, fns[mode], kMegaThreads, smem));
 }
 
 // The party-sharded entry: the host-gen entry's operands and outputs,
@@ -870,8 +954,7 @@ extern "C" int qba_trial_megakernel_occupancy(int mode, int n_rv, int slots,
 extern "C" int qba_sharded_trial_megakernel(
     const void* p_rows, const void* li, const void* v_sent,
     const void* honest, const void* attack, const void* rand_v,
-    const void* late, void* a_vals, void* a_lens, void* a_p, void* a_meta,
-    void* b_vals, void* b_lens, void* b_p, void* b_meta, void* o_vi,
+    const void* late, void* pool_a, void* pool_b, void* o_vi,
     void* o_dec, void* o_ovf, int n_trials, int n_tp, int n_rv, int slots,
     int max_l, int size_l, int w, int n_dis, int use_fp, void* stream) {
   if (n_trials <= 0) return 0;
@@ -884,8 +967,7 @@ extern "C" int qba_sharded_trial_megakernel(
   prm.v_sent = static_cast<const int32_t*>(v_sent);
   prm.honest = static_cast<const int32_t*>(honest);
   set_stacks(&prm, attack, rand_v, late);
-  set_body(&prm, a_vals, a_lens, a_p, a_meta, b_vals, b_lens, b_p, b_meta,
-           o_vi, o_dec, o_ovf, d, n_dis, use_fp, n_tp);
+  set_body(&prm, pool_a, pool_b, o_vi, o_dec, o_ovf, d, n_dis, use_fp, n_tp);
   return launch_sharded<false>(prm, n_trials, stream);
 }
 
@@ -894,9 +976,9 @@ extern "C" int qba_sharded_trial_megakernel(
 extern "C" int qba_sharded_trial_megakernel_keyed(
     const void* p_rows, const void* li, const void* v_sent,
     const void* honest, const void* k_rounds, const void* collude,
-    const void* orders, void* a_vals, void* a_lens, void* a_p, void* a_meta, void* b_vals,
-    void* b_lens, void* b_p, void* b_meta, void* o_vi, void* o_dec,
-    void* o_ovf, int n_trials, int n_tp, int n_rv, int slots, int max_l,
+    const void* orders, void* pool_a, void* pool_b, void* o_vi,
+    void* o_dec, void* o_ovf, void* clock, int n_trials, int n_tp, int n_rv,
+    int slots, int max_l,
     int size_l, int w, int n_dis, int use_fp, int strategy, int broadcast,
     int racy, int p32_bits, int n_mod, void* stream) {
   if (n_trials <= 0) return 0;
@@ -910,8 +992,8 @@ extern "C" int qba_sharded_trial_megakernel_keyed(
   prm.li = static_cast<const int32_t*>(li);
   prm.v_sent = static_cast<const int32_t*>(v_sent);
   prm.honest = static_cast<const int32_t*>(honest);
-  set_body(&prm, a_vals, a_lens, a_p, a_meta, b_vals, b_lens, b_p, b_meta,
-           o_vi, o_dec, o_ovf, d, n_dis, use_fp, n_tp);
+  set_body(&prm, pool_a, pool_b, o_vi, o_dec, o_ovf, d, n_dis, use_fp, n_tp);
+  prm.clock = static_cast<long long*>(clock);
   return launch_sharded<true>(prm, n_trials, stream);
 }
 
@@ -926,8 +1008,9 @@ extern "C" int qba_sharded_megakernel_clusters(int n_tp, int n_rv, int slots,
   Dims d;
   if (!sharded_dims(n_tp, n_rv, slots, max_l, size_l, w, &d))
     return int(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes<true>(d);
-  auto kernel = trial_megakernel<false, true, true>;
+  bool staged;
+  const size_t smem = choose_smem<true>(d, &staged);
+  auto kernel = megakernel_for<false, true, true>(staged, false);
   if (int e = raise_smem(reinterpret_cast<const void*>(kernel), smem))
     return e;
   *smem_out = int(smem);

@@ -68,16 +68,22 @@ from qba_tpu_torch.ops.attack_draws import (
 )
 from qba_tpu_torch.ops.round_kernel_tiled import (
     assemble_pool,
-    empty_pool,
     fused_round_reference,
     pool_from_step3a,
     shard_receivers,
     unshard_receivers,
 )
 
-# The kernel's warps: the gen prologue sweeps one shot per warp at a
-# time, each in its own slot of per-trial global scratch.
-MEGA_WARPS = 8
+# The kernel's warps (``kMegaWarps``, ``csrc/mega_phases.cuh``): the gen
+# prologue sweeps one shot per warp at a time, each in its own slot of
+# per-trial global scratch.
+MEGA_WARPS = 16
+# Entry buffers a warp (``kStages``): the copy pipeline's depth.
+MEGA_STAGES = 2
+# The phase clock's phases (``csrc/mega_phases.cuh``, ``MegaPhase``), in
+# the order of its int64 ``[T, n_tp, len(MEGA_PHASES)]`` buffer.
+MEGA_PHASES = ("gen", "entry", "clear", "stage", "verdict", "verdict_wait",
+               "dedup", "offsets", "exchange", "rebuild", "written", "exit")
 
 
 def trial_megakernel_reference(cfg: QBAConfig, p_rows, li, v_sent,
@@ -126,7 +132,7 @@ def trial_megakernel(cfg: QBAConfig, p_rows, li, v_sent, honest_c, attack,
     n_trials = _check_trial_inputs(cfg, p_rows, li, v_sent, honest_c)
     _check_stacks(cfg, n_trials, dev, attack, rand_v, late)
     out = _outputs(cfg, n_trials, dev)
-    fn = kernel_fn("trial_megakernel", "qba_trial_megakernel", 18, 8)
+    fn = kernel_fn("trial_megakernel", "qba_trial_megakernel", 12, 8)
     args = ptrs(p_rows, li, v_sent, honest_c, attack, rand_v, late, *out)
     args += _body_ints(cfg, n_trials)
     timed_launch(trial_megakernel, fn, args, torch.cuda.current_stream(dev))
@@ -149,7 +155,7 @@ def trial_megakernel_keyed_reference(cfg: QBAConfig, p_rows, li, v_sent,
 
 
 def trial_megakernel_keyed(cfg: QBAConfig, p_rows, li, v_sent, honest_c,
-                           k_rounds, ctx):
+                           k_rounds, ctx, clock=None):
     """Whole trials that hash their own draws: the results of
     :func:`trial_megakernel` on the draws of ``k_rounds`` (int64 ``[T,
     2]``, each trial's rounds key) and ``ctx``
@@ -159,9 +165,13 @@ def trial_megakernel_keyed(cfg: QBAConfig, p_rows, li, v_sent, honest_c,
     tensors launch the kernel's keyed entry once for the batch, with the
     input rules of :func:`trial_megakernel` for the body's inputs and of
     :func:`~qba_tpu_torch.ops.attack_draws.keyed_inputs` for the keys and
-    context; no draw stack is allocated.
+    context; no draw stack is allocated.  ``clock``
+    (:func:`phase_clock`) launches the phase clock's instantiation, which
+    adds each phase's cycles into it (staged layouts only,
+    :func:`mega_staged`; else the launch raises).
     """
     if not dispatch("trial_megakernel_keyed", (li,)):
+        _no_clock(clock)
         return trial_megakernel_keyed_reference(cfg, p_rows, li, v_sent,
                                                 honest_c, k_rounds, ctx)
     dev = li.device
@@ -169,8 +179,9 @@ def trial_megakernel_keyed(cfg: QBAConfig, p_rows, li, v_sent, honest_c,
     n_trials = _check_trial_inputs(cfg, p_rows, li, v_sent, honest_c)
     keys, law = _keyed(cfg, n_trials, dev, k_rounds, ctx)
     out = _outputs(cfg, n_trials, dev)
-    fn = kernel_fn("trial_megakernel", "qba_trial_megakernel_keyed", 18, 13)
+    fn = kernel_fn("trial_megakernel", "qba_trial_megakernel_keyed", 13, 13)
     args = ptrs(p_rows, li, v_sent, honest_c) + keys + ptrs(*out)
+    args += [_clock_ptr(clock, n_trials, 1, dev)]
     args += _body_ints(cfg, n_trials) + law
     timed_launch(trial_megakernel_keyed, fn, args,
                  torch.cuda.current_stream(dev))
@@ -181,20 +192,108 @@ trial_megakernel_keyed.launches = 0
 trial_megakernel_keyed.events = None
 
 
+def mega_entry_bytes(cfg: QBAConfig) -> int:
+    """Bytes of one entry of the megakernel's pools (``MegaEntry``,
+    ``csrc/mega_phases.cuh``): meta int32 ``[4]``, lens int32
+    ``[max_l]``, P over ``4 * sw`` positions and ``max_l`` rows of ``4 *
+    sw`` bytes (``sw = ceil(size_l / 4)``), each part padded to 16
+    bytes."""
+    sw = -(-cfg.size_l // 4)
+    return 16 + _align16(4 * cfg.max_l) + _align16(4 * sw) + _align16(
+        4 * sw * cfg.max_l)
+
+
+def mega_lane_group(n_rv: int) -> int:
+    """Lanes a receiver in the megakernel's verdict (``lane_group``): 32
+    / G receivers run across a warp's lanes at once, each over G lanes
+    that split the packet's words."""
+    return 4 if n_rv <= 8 else (2 if n_rv <= 16 else 1)
+
+
+def mega_smem_bytes(cfg: QBAConfig, n_tp: int = 1, keyed: bool = True,
+                    staged: bool = True) -> int:
+    """Dynamic shared memory of a megakernel block (``MegaSmem`` and the
+    keyed entries' draw words and rows, ``csrc/trial_megakernel.cu``),
+    with or without the warps' entry buffers, for a block of
+    ``n_lieutenants / n_tp`` receivers (its lists hold every receiver's:
+    a cluster's blocks split the verdict by packets)."""
+    n_rv = cfg.n_lieutenants // n_tp
+    n_pool = cfg.n_lieutenants * cfg.slots
+    sw = -(-cfg.size_l // 4)
+    offs = 8 * n_pool + 8 * n_rv + 4 * n_pool + 4 * (-(-n_pool // 32))
+    offs += 4 * n_rv * cfg.slots + 4 * n_rv
+    misc = _align16(offs + 4 * (n_rv + 1))
+    stage = _align16(misc + 32 + 2 * 4 * sw * (cfg.n_lieutenants + 1))
+    total = stage + (MEGA_WARPS * MEGA_STAGES * mega_entry_bytes(cfg)
+                     if staged else 0)
+    return total + ((4 * (8 + 64 + 8) + MEGA_WARPS * 3 * 64) if keyed else 0)
+
+
+def mega_staged(cfg: QBAConfig, n_tp: int = 1,
+                limit: int = 232448) -> bool:
+    """Whether a launch stages its entries through the warps' buffers
+    (``choose_smem``): where the staged layout fits ``limit``, the card's
+    shared memory for one block (the H100's 227 KB by default); else the
+    kernel reads the entries where they lie."""
+    return mega_smem_bytes(cfg, n_tp) <= limit
+
+
+def _align16(x: int) -> int:
+    return (x + 15) & ~15
+
+
 def _outputs(cfg: QBAConfig, n_trials: int, device, n_ovf: int | None = None):
     """A launch's scratch and outputs, in the kernels' argument order: the
-    two ping-pong pools (private to the launch and never read before the
-    kernel writes them, so they need no fill), then vi, the decisions and
-    the overflow flags (``[T]``, or ``[T, n_ovf]`` a shard each)."""
-    layout = [(x.shape, x.dtype) for x in empty_pool(cfg, n_trials, "meta")]
-    pools = [torch.empty(shape, dtype=dt, device=device)
-             for _ in "ab" for shape, dt in layout]
+    two ping-pong pools, uint8 ``[T, n_pool, mega_entry_bytes(cfg)]``
+    each (private to the launch and never read before the kernel writes
+    them, so they need no fill), then vi, the decisions and the overflow
+    flags (``[T]``, or ``[T, n_ovf]`` a shard each)."""
+    n_pool = cfg.n_lieutenants * cfg.slots
+    pools = [torch.empty((n_trials, n_pool, mega_entry_bytes(cfg)),
+                         dtype=torch.uint8, device=device) for _ in "ab"]
     n_rv = cfg.n_lieutenants
     return pools + [
         torch.empty((n_trials, n_rv, cfg.w), dtype=torch.int32, device=device),
         torch.empty((n_trials, n_rv), dtype=torch.int32, device=device),
         torch.empty((n_trials,) if n_ovf is None else (n_trials, n_ovf),
                     dtype=torch.int32, device=device)]
+
+
+def phase_clock(n_trials: int, n_tp: int = 1, device=None):
+    """A zeroed phase-clock buffer, int64 ``[n_trials, n_tp,
+    len(MEGA_PHASES)]``, for a keyed entry's ``clock`` argument."""
+    return torch.zeros((n_trials, n_tp, len(MEGA_PHASES)), dtype=torch.int64,
+                       device=device)
+
+
+def phase_breakdown(clock) -> dict:
+    """A filled phase clock's breakdown: per phase, warp 0's mean cycles
+    per block and its share of the phases' sum; under ``"block"`` the
+    mean and the largest of the blocks' sums (the slowest block bounds a
+    one-wave launch)."""
+    per_block = clock.reshape(-1, len(MEGA_PHASES)).double()
+    cycles = per_block.mean(0).tolist()
+    total = sum(cycles) or 1.0
+    out = {name: dict(cycles=c, share=c / total)
+           for name, c in zip(MEGA_PHASES, cycles)}
+    sums = per_block.sum(1)
+    out["block"] = dict(mean=float(sums.mean()), max=float(sums.max()))
+    return out
+
+
+def _no_clock(clock) -> None:
+    """Raise where the plain version is asked for a phase clock."""
+    if clock is not None:
+        raise ValueError("the phase clock runs only in the CUDA kernel")
+
+
+def _clock_ptr(clock, n_trials: int, n_tp: int, device):
+    """The clock buffer's address after checking it, or None."""
+    if clock is None:
+        return None
+    check("clock", clock, torch.int64, (n_trials, n_tp, len(MEGA_PHASES)),
+          device)
+    return clock.data_ptr()
 
 
 def _body_ints(cfg: QBAConfig, n_trials: int, n_tp: int | None = None):
@@ -297,7 +396,7 @@ def sharded_trial_megakernel(cfg: QBAConfig, n_tp: int, p_rows, li, v_sent,
     dev = li.device
     _check_stacks(cfg, n_trials, dev, attack, rand_v, late)
     out = _outputs(cfg, n_trials, dev, n_tp)
-    fn = kernel_fn("trial_megakernel", "qba_sharded_trial_megakernel", 18, 9)
+    fn = kernel_fn("trial_megakernel", "qba_sharded_trial_megakernel", 12, 9)
     args = ptrs(p_rows, li, v_sent, honest_c, attack, rand_v, late, *out)
     args += _body_ints(cfg, n_trials, n_tp)
     timed_launch(sharded_trial_megakernel, fn, args,
@@ -320,15 +419,18 @@ def sharded_trial_megakernel_keyed_reference(cfg: QBAConfig, n_tp: int,
 
 
 def sharded_trial_megakernel_keyed(cfg: QBAConfig, n_tp: int, p_rows, li,
-                                   v_sent, honest_c, k_rounds, ctx):
+                                   v_sent, honest_c, k_rounds, ctx,
+                                   clock=None):
     """Whole trials in ``n_tp`` shards that hash their own draws: the
     results of :func:`sharded_trial_megakernel` on the draws of
     ``k_rounds`` and ``ctx``.  CPU tensors run
     :func:`sharded_trial_megakernel_keyed_reference`; CUDA tensors launch
     the sharded entry's keyed form once for the batch, with the input
     rules of :func:`trial_megakernel_keyed` and ``n_tp`` as
-    :func:`sharded_trial_megakernel`."""
+    :func:`sharded_trial_megakernel`; ``clock`` as
+    :func:`trial_megakernel_keyed`, a row a block."""
     if not dispatch("sharded_trial_megakernel_keyed", (li,)):
+        _no_clock(clock)
         return sharded_trial_megakernel_keyed_reference(
             cfg, n_tp, p_rows, li, v_sent, honest_c, k_rounds, ctx)
     _check_shards(cfg, n_tp)
@@ -337,8 +439,9 @@ def sharded_trial_megakernel_keyed(cfg: QBAConfig, n_tp: int, p_rows, li,
     keys, law = _keyed(cfg, n_trials, dev, k_rounds, ctx)
     out = _outputs(cfg, n_trials, dev, n_tp)
     fn = kernel_fn("trial_megakernel", "qba_sharded_trial_megakernel_keyed",
-                   18, 14)
+                   13, 14)
     args = ptrs(p_rows, li, v_sent, honest_c) + keys + ptrs(*out)
+    args += [_clock_ptr(clock, n_trials, n_tp, dev)]
     args += _body_ints(cfg, n_trials, n_tp) + law
     timed_launch(sharded_trial_megakernel_keyed, fn, args,
                  torch.cuda.current_stream(dev))
@@ -440,7 +543,7 @@ def trial_megakernel_gen(cfg: QBAConfig, gen_tables, gen_ops, v_sent,
                                                      gen_ops, v_sent, honest_c)
     _check_stacks(cfg, n_trials, dev, attack, rand_v, late)
     out = _outputs(cfg, n_trials, dev)
-    fn = kernel_fn("trial_megakernel", "qba_trial_megakernel_gen", 28, 12)
+    fn = kernel_fn("trial_megakernel", "qba_trial_megakernel_gen", 22, 12)
     args = gen_ptrs + ptrs(v_sent, honest_c, attack, rand_v, late, *out)
     args += _body_ints(cfg, n_trials) + gen_ints
     timed_launch(trial_megakernel_gen, fn, args,
@@ -463,14 +566,16 @@ def trial_megakernel_gen_keyed_reference(cfg: QBAConfig, gen_tables,
 
 
 def trial_megakernel_gen_keyed(cfg: QBAConfig, gen_tables, gen_ops, v_sent,
-                               honest_c, k_rounds, ctx):
+                               honest_c, k_rounds, ctx, clock=None):
     """Whole trials from the GF(2) generation operands that hash their own
     draws: the results of :func:`trial_megakernel_gen` on the draws of
     ``k_rounds`` and ``ctx``.  CPU tensors run
     :func:`trial_megakernel_gen_keyed_reference`; CUDA tensors launch the
     gen entry's keyed form once for the batch, with the input rules of
-    :func:`trial_megakernel_gen` and :func:`trial_megakernel_keyed`."""
+    :func:`trial_megakernel_gen` and :func:`trial_megakernel_keyed`
+    (``clock`` too)."""
     if not dispatch("trial_megakernel_gen_keyed", (v_sent,)):
+        _no_clock(clock)
         return trial_megakernel_gen_keyed_reference(
             cfg, gen_tables, gen_ops, v_sent, honest_c, k_rounds, ctx)
     dev = v_sent.device
@@ -479,8 +584,9 @@ def trial_megakernel_gen_keyed(cfg: QBAConfig, gen_tables, gen_ops, v_sent,
     keys, law = _keyed(cfg, n_trials, dev, k_rounds, ctx)
     out = _outputs(cfg, n_trials, dev)
     fn = kernel_fn("trial_megakernel", "qba_trial_megakernel_gen_keyed",
-                   28, 17)
+                   23, 17)
     args = gen_ptrs + ptrs(v_sent, honest_c) + keys + ptrs(*out)
+    args += [_clock_ptr(clock, n_trials, 1, dev)]
     args += _body_ints(cfg, n_trials) + gen_ints + law
     timed_launch(trial_megakernel_gen_keyed, fn, args,
                  torch.cuda.current_stream(dev))

@@ -1,7 +1,8 @@
 """The port's kernel build: its key, its directory and its sources.
 
 The key of a built library hashes the ``.cu`` source, every ``csrc``
-header it includes and the ``nvcc`` flags, so a header edit rebuilds.
+header it includes and the kernel's ``nvcc`` flags, so a header edit
+rebuilds.
 The build directory is the checkout's ``build/`` only inside a checkout.
 None of this needs ``nvcc``: the build itself runs only on the card.
 """
@@ -43,6 +44,24 @@ def test_flags_are_in_the_key(csrc, monkeypatch):
     lib = _build._target("kern")[1]
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
     assert _build._target("kern")[1] != lib
+
+
+def test_kernel_flags_are_in_that_kernels_key_only(csrc, monkeypatch):
+    # A kernel's own flags (the megakernel's split compilation) enter its
+    # build key and command line, and no other kernel's.
+    (csrc / "other.cu").write_text("int k();\n")
+    before = {k: _build._target(k)[1] for k in ("kern", "other")}
+    monkeypatch.setattr(_build, "KERNEL_FLAGS", {"kern": ("-G",)})
+    assert _build.flags("kern") == _build.NVCC_FLAGS + ("-G",)
+    assert _build.flags("other") == _build.NVCC_FLAGS
+    assert _build._target("kern")[1] != before["kern"]
+    assert _build._target("other")[1] == before["other"]
+
+
+def test_megakernel_compiles_split():
+    assert "-split-compile=0" in _build.flags("trial_megakernel")
+    assert all("-split-compile=0" not in _build.flags(k)
+               for k in _build.KERNELS if k != "trial_megakernel")
 
 
 def test_unrelated_header_leaves_the_key(csrc):

@@ -216,6 +216,34 @@ def test_trial_megakernel_on_random_inputs(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tp", [1, 2])
+def test_trial_megakernel_lists_past_int8(cuda, tp):
+    # The megakernel keeps the lists as bytes in shared memory.  A value
+    # past int8 (here x + 256, whose low byte is x) must match no row and
+    # count as out of range, as in the plain version: such receivers take
+    # the kernel's check in global memory.  The values sit off the
+    # lieutenant's own P, so step 3a still accepts it.
+    cfg = qba_tpu_torch.QBAConfig(**CONFIGS["5p-split"])
+    p_rows, li, v_sent, hc, *draws = random_trial_inputs(cfg, 32, seed=9,
+                                                         device=cuda)
+    li = li.clone()
+    off_p = ~p_rows
+    off_p[:, 1::2] = False
+    off_p[:, :, ::2] = False
+    li[off_p] += 256
+    args = (p_rows, li, v_sent, hc, *draws)
+    want = trial_megakernel_reference(cfg, *args)
+    got = (trial_megakernel(cfg, *args) if tp == 1
+           else sharded_trial_megakernel(cfg, tp, *args))
+    assert_equal(got, want)
+    # The lists changed the trials: the plain version on the low bytes
+    # differs.
+    low = li.to(torch.int8).to(torch.int32)
+    assert not torch.equal(trial_megakernel_reference(
+        cfg, p_rows, low, v_sent, hc, *draws)[0], want[0])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", list(CONFIGS))
 def test_round_step_kernel(cuda, case):
     cfg = qba_tpu_torch.QBAConfig(**CONFIGS[case])
@@ -770,3 +798,82 @@ def test_auto_draws_in_the_megakernel(cuda):
     assert attack_draws.launches == before[1] + cfg.n_rounds
     for f in ("decisions", "vi", "overflow"):
         assert torch.equal(getattr(res, f), getattr(fused, f))
+
+
+# Edges of the keyed megakernels' layout and lane mapping: rows of 8 and
+# 10 positions (10 leaves a partial last word of four), an evidence
+# bound past the rounds' (entries whose rows the trial never fills; the
+# protocol's own rounds stage at most max_l - 1 rows, and their appended
+# verdicts fill L to max_l), 41 parties (a second pass of receivers past
+# 32), one slot a round (overflow) and 512 positions at 33 parties (the
+# unstaged layout).
+EDGES = {
+    "9p-L8": dict(n_parties=9, size_l=8, n_dishonest=3),
+    "9p-L10": dict(n_parties=9, size_l=10, n_dishonest=3),
+    "9p-L10-rows": dict(n_parties=9, size_l=10, n_dishonest=3,
+                        max_evidence_rows=8),
+    "41p-L64": dict(n_parties=41, size_l=64, n_dishonest=13),
+    "11p-slots1": dict(n_parties=11, size_l=64, n_dishonest=3,
+                       max_accepts_per_round=1),
+    # Entries too large for the warps' buffers: read where they lie.
+    "33p-L512": dict(n_parties=33, size_l=512, n_dishonest=10),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(EDGES))
+def test_keyed_megakernel_edges(cuda, case):
+    cfg = qba_tpu_torch.QBAConfig(**EDGES[case], trials=32, seed=12)
+    body, k_rounds, ctx = keyed_inputs_of(cfg, cuda)
+    want = tm.trial_megakernel_keyed_reference(cfg, *body, k_rounds, ctx)
+    assert_equal(tm.trial_megakernel_keyed(cfg, *body, k_rounds, ctx), want)
+    for tp in (2, 4):
+        if cfg.n_lieutenants % tp == 0:
+            assert_equal(tm.sharded_trial_megakernel_keyed(
+                cfg, tp, *body, k_rounds, ctx), want)
+    if case == "11p-slots1":
+        assert want[2].any()
+    assert tm.mega_staged(cfg) == (case != "33p-L512")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", [1, 2, 4])
+def test_keyed_megakernel_without_live_packets(cuda, tp):
+    # In the odd trials every lieutenant's P holds its own order at
+    # position 0, so step 3a rejects them all and no round has a live
+    # packet; the even trials run as usual.
+    cfg = qba_tpu_torch.QBAConfig(n_parties=9, size_l=16, n_dishonest=3,
+                                  trials=32, seed=4)
+    (p_rows, li, v_sent, hc), k_rounds, ctx = keyed_inputs_of(cfg, cuda)
+    p_rows, li = p_rows.clone(), li.clone()
+    li[1::2, :, 0] = v_sent[1::2]
+    p_rows[1::2, :, 0] = True
+    body = (p_rows, li, v_sent, hc)
+    want = tm.trial_megakernel_keyed_reference(cfg, *body, k_rounds, ctx)
+    assert not want[0][1::2].any() and want[0][0::2].any()
+    got = (tm.trial_megakernel_keyed(cfg, *body, k_rounds, ctx) if tp == 1
+           else tm.sharded_trial_megakernel_keyed(cfg, tp, *body, k_rounds,
+                                                  ctx))
+    assert_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_phase_clock(cuda):
+    # The clocked instantiation gives the same trials and fills the clock:
+    # every block spends cycles on entry, the verdicts some, the gen
+    # prologue (a host-gen entry) none.
+    cfg = qba_tpu_torch.QBAConfig(n_parties=9, size_l=16, n_dishonest=3,
+                                  trials=16, seed=6)
+    body, k_rounds, ctx = keyed_inputs_of(cfg, cuda)
+    want = tm.trial_megakernel_keyed(cfg, *body, k_rounds, ctx)
+    for tp in (1, 2):
+        clock = tm.phase_clock(cfg.trials, tp, cuda)
+        got = (tm.trial_megakernel_keyed(cfg, *body, k_rounds, ctx,
+                                         clock=clock) if tp == 1 else
+               tm.sharded_trial_megakernel_keyed(cfg, tp, *body, k_rounds,
+                                                 ctx, clock=clock))
+        assert_equal(got, want)
+        phases = dict(zip(tm.MEGA_PHASES, clock.unbind(-1)))
+        assert (phases["entry"] > 0).all() and phases["verdict"].any()
+        assert not phases["gen"].any()
+        assert phases["exchange"].any() == (tp > 1)
