@@ -126,7 +126,11 @@ Phases, each reported on its own line:
    instantiation, launched here and by ``examples/torch_kernel_ab.py``
    only) on the 11p and 33p batches, 33p x 64 and the sharded entry at
    ``tp = 4``: per phase, warp 0's SM cycles per block and its share,
-   and the blocks' mean and largest sums, on a line of its own.
+   and the blocks' mean and largest sums, on a line of its own;
+   ``round_phases``: the same for the fused round and the dense-mailbox
+   round (their clocked instantiations, each round's result equal to the
+   unclocked launch's) over every round of the 11p and 33p batches and,
+   as ``n_recv`` variants, of the 33p batch at ``tp = 4``.
 
 Any failure exits non-zero.  The line before the last is the kernel
 table as JSON, the one before it the card; the last line is
@@ -977,6 +981,60 @@ def mega_phases(cfg, keys, tp=None):
                                           clock=clock)
     torch.cuda.synchronize()
     return tm.phase_breakdown(clock)
+
+
+def round_phases(cfg, keys, tp=None):
+    """The per-round kernels' phase clocks (``round_phase_clock``) over
+    every round of ``keys``' batch: the fused round on its pool and the
+    dense-mailbox round on its mailbox, single-device or, at ``tp``, their
+    ``n_recv`` variants on ``tp`` copies; each clocked round is held equal
+    to the unclocked launch.  Per kernel, the breakdown of one clock
+    summing the rounds.  The clocked launches are their own
+    instantiations, off the main path."""
+    import torch
+
+    from qba_tpu_torch.adversary import adversary_ctx
+    from qba_tpu_torch.ops import round_kernel as rs
+    from qba_tpu_torch.ops import round_kernel_tiled as rk
+    from qba_tpu_torch.rounds.engine import (
+        round_draws,
+        setup_trial,
+        step3a_one,
+    )
+
+    honest, li, p_rows, v_sent, _vc, k_rounds = setup_trial(cfg, keys)
+    k_rounds = k_rounds.contiguous()
+    vi, cells = step3a_one(cfg, p_rows, v_sent, li)
+    ctx = adversary_ctx(cfg, k_rounds, v_sent)
+    hc = rk.honest_cells(honest, cfg)
+    li = li.to(torch.int32).contiguous()
+    vi = vi.to(torch.int32)
+    pool = rk.pool_from_step3a(cfg, cells)
+    mbox = rs.mailbox_from_step3a(cfg, cells)
+    kw = {} if tp is None else dict(n_recv=cfg.n_lieutenants // tp)
+    clocks = {k: rk.round_phase_clock(keys.shape[0], tp, keys.device)
+              for k in ("fused_round", "round_step")}
+    for r in range(1, cfg.n_rounds + 1):
+        draws = round_draws(cfg, k_rounds, ctx, r)
+        if tp is None:
+            args = dict(fused_round=(pool, li, vi, hc),
+                        round_step=(mbox, li, vi, hc))
+        else:
+            spool, sli, svi = shard_args(tp, pool, li, vi)
+            smbox = shard_args(tp, mbox, li, vi)[0]
+            args = dict(fused_round=(spool, sli, svi, hc),
+                        round_step=(smbox, sli, svi, hc))
+        for name, fn in (("fused_round", rk.fused_round),
+                         ("round_step", rs.round_step)):
+            got = fn(cfg, r, *args[name], *draws, **kw, clock=clocks[name])
+            if tree_err(got, fn(cfg, r, *args[name], *draws, **kw)):
+                raise AssertionError(f"{name} with its phase clock != "
+                                     f"without at {cfg} round {r}")
+        del args
+        mbox = rs.round_step(cfg, r, mbox, li, vi, hc, *draws)[0]
+        pool, vi, _ovf = rk.fused_round(cfg, r, pool, li, vi, hc, *draws)
+    torch.cuda.synchronize()
+    return {k: rk.round_phase_breakdown(c) for k, c in clocks.items()}
 
 
 ENGINE_OF = {"fused_round": "pallas_fused", "tiled_verdict": "pallas_tiled",
@@ -2445,6 +2503,17 @@ def main(argv):
         phases[label] = mega_phases(pcfg, trial_keys(pcfg, dev), tp)
     report["mega_phases"] = phases
     log("mega_phases", unit="SM cycles of warp 0 per block", **phases)
+    # The same for the fused and the dense-mailbox rounds, over the main
+    # batches' rounds and the 33p batch's n_recv rounds at tp = 4.
+    rphases = {}
+    for label, pcfg, tp in (
+            ("11p/L64/d3 x1000", dict(main_cfgs)["11p/L64/d3"], None),
+            ("33p/L64/d10 x1000", dict(main_cfgs)["33p/L64/d10"], None),
+            ("33p/L64/d10 x1000 tp=4", dict(main_cfgs)["33p/L64/d10"], 4)):
+        rphases[label] = round_phases(pcfg, trial_keys(pcfg, dev), tp)
+    report["round_phases"] = rphases
+    log("round_phases", unit="SM cycles of warp 0 per block, summed over "
+        "the batch's rounds", **rphases)
 
     big = runs[-1]
     kernels = []

@@ -3,7 +3,7 @@
 compare two checkouts (a parent and a change) on one card.
 
     python3 examples/torch_kernel_ab.py ROOT [--config 33p|11p] [--reps N]
-        [--kernels all|mega] [--phases]
+        [--kernels all|mega|round] [--phases]
 
 imports ``qba_tpu_torch`` from the checkout at ``ROOT`` (built there on
 first use), replays every round of a 1000-trial batch of the config with
@@ -19,10 +19,15 @@ draws), the party-sharded keyed entry at the config's ``tp``, the keyed
 gen entry on ``qsim_path="stabilizer"``, both keyed entries on the
 first 64 trials (``*_x64``), and the draws kernel over every round (a
 checkout needs ``qba_tpu_torch.ops.attack_draws``).  ``--kernels
-mega`` skips the round kernels.  ``--phases``, where the checkout has
+mega`` skips the round kernels, ``--kernels round`` the megakernels and
+the draws kernel.  ``--phases``, where the checkout has
 the megakernel's phase clock (``trial_megakernel.phase_clock``), also
 runs each keyed entry once with it and adds each one's breakdown (warp
-0's mean cycles per block and share, per phase) under ``phases``.
+0's mean cycles per block and share, per phase) under ``phases``; where
+it has the per-round kernels' clock (``round_kernel_tiled.
+round_phase_clock``), it also runs the fused round and the dense-mailbox
+round, single-device and ``n_recv``, once a round with it (one buffer
+summing the batch's rounds) and adds their breakdowns there too.
 Prints one JSON line: the card, the checkout and each kernel's mean ms
 per launch over the rounds (null for an ``n_recv`` variant the checkout
 lacks).  Run it for the two checkouts in turns (parent, change, change,
@@ -48,7 +53,8 @@ def main(argv):
     ap.add_argument("root")
     ap.add_argument("--config", default="33p", choices=sorted(CONFIGS))
     ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--kernels", default="all", choices=("all", "mega"))
+    ap.add_argument("--kernels", default="all",
+                    choices=("all", "mega", "round"))
     ap.add_argument("--phases", action="store_true")
     args = ap.parse_args(argv)
     sys.path.insert(0, args.root)
@@ -103,11 +109,20 @@ def main(argv):
                              ("tiled_rebuild", rk.tiled_rebuild),
                              ("round_step", rs.round_step))}
     tiled_spare = rk.empty_pool(cfg, cfg.trials, dev)
+    # The per-round kernels' phase clocks, one buffer a kernel summing
+    # the rounds (where the checkout has the clock).
+    clocks = {}
+    if args.phases and args.kernels != "mega" and hasattr(
+            rk, "round_phase_clock"):
+        clocks = {k + sfx: rk.round_phase_clock(
+                      cfg.trials, tp if sfx else None, dev)
+                  for k in ("fused_round", "round_step")
+                  for sfx in ("", "_n_recv")}
 
     def shards(x):
         return x.expand((tp,) + x.shape).contiguous()
 
-    rounds = cfg.n_rounds if args.kernels == "all" else 0
+    rounds = cfg.n_rounds if args.kernels != "mega" else 0
     for r in range(1, rounds + 1):
         draws = tuple(x.to(torch.uint8) for x in sample_attacks_round(
             cfg, jr.fold_in(k_rounds, r), r, ctx))
@@ -143,6 +158,15 @@ def main(argv):
         if sharded["round_step"]:
             times["round_step_n_recv"].append(ms(
                 rs.round_step, cfg, r, smbox, sli, svi, hc, *draws, **kw))
+        if clocks:
+            rk.fused_round(cfg, r, pool, li, vi, hc, *draws, out=spare,
+                           clock=clocks["fused_round"])
+            rk.fused_round(cfg, r, spool, sli, svi, hc, *draws, **kw,
+                           clock=clocks["fused_round_n_recv"])
+            rs.round_step(cfg, r, mbox, li, vi, hc, *draws, out=mbox_spare,
+                          clock=clocks["round_step"])
+            rs.round_step(cfg, r, smbox, sli, svi, hc, *draws, **kw,
+                          clock=clocks["round_step_n_recv"])
         if any(sharded.values()):
             del spool, smbox
         # The next round's inputs: both engines advance from the same vi.
@@ -154,8 +178,14 @@ def main(argv):
         mbox, mbox_spare = new_mbox, mbox
     body = (p_rows.contiguous(), li, v_sent.to(torch.int32).contiguous(), hc)
     k_rounds = k_rounds.contiguous()
-    mega = megakernels(cfg, tp, body, k_rounds, ctx, ms, args.phases)
-    mega["attack_draws"] = ms(attack_draws, cfg, k_rounds, ctx)
+    mega = {}
+    if args.kernels != "round":
+        mega = megakernels(cfg, tp, body, k_rounds, ctx, ms, args.phases)
+        mega["attack_draws"] = ms(attack_draws, cfg, k_rounds, ctx)
+    if clocks:
+        torch.cuda.synchronize()
+        mega.setdefault("phases", {}).update(
+            {k: rk.round_phase_breakdown(c) for k, c in clocks.items()})
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

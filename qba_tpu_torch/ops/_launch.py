@@ -81,6 +81,37 @@ def timed_launch(wrapper, fn, args, stream):
         events.append((start, end))
 
 
+def no_clock(clock) -> None:
+    """Raise where a plain version is asked for a phase clock."""
+    if clock is not None:
+        raise ValueError("the phase clock runs only in the CUDA kernel")
+
+
+def clock_ptr(clock, shape, device):
+    """A phase-clock buffer's address after checking that it is int64
+    ``shape`` on ``device``, or None without a clock."""
+    if clock is None:
+        return None
+    check("clock", clock, torch.int64, shape, device)
+    return clock.data_ptr()
+
+
+def clock_breakdown(clock, names) -> dict:
+    """A filled phase clock's breakdown (its last axis the phases
+    ``names``, one row a block): per phase, warp 0's mean cycles per
+    block and its share of the phases' sum; under ``"block"`` the mean
+    and the largest of the blocks' sums (the slowest block bounds a
+    one-wave launch)."""
+    per_block = clock.reshape(-1, len(names)).double()
+    cycles = per_block.mean(0).tolist()
+    total = sum(cycles) or 1.0
+    out = {name: dict(cycles=c, share=c / total)
+           for name, c in zip(names, cycles)}
+    sums = per_block.sum(1)
+    out["block"] = dict(mean=float(sums.mean()), max=float(sums.max()))
+    return out
+
+
 def kernel_fn(library: str, symbol: str, n_ptrs: int, n_ints: int):
     """The C entry point ``symbol`` of ``library`` with its ``ctypes``
     signature: ``n_ptrs`` pointers, ``n_ints`` ints, then the stream."""

@@ -13,27 +13,42 @@
 // runs the verdict, later steps read its scratch) becomes phases of one
 // block separated by __syncthreads(), since CUDA blocks run in no order.
 // The phases are device functions in round_common.cuh, shared with the
-// tiled and megakernel sources.
-//   A. verdict: a warp per live pool packet stages the packet's valid
-//      evidence rows, its P row and a per-position 64-bit value-presence
-//      mask (w <= 64) in shared memory, computes the receiver-independent
-//      facts (out-of-range entries, row-length mismatch, colliding row
-//      pairs), then walks the receivers: the corruption flags come from
-//      the cell's draws, cheap rejections exit early, and the own-row
-//      terms (dup row, own length, bad own value, own-row collision by one
-//      bit test per P-position) are lane-parallel over list positions.
-//      The result is a 64-bit mask of accepting receivers per packet.
-//   B. dedup: a warp per receiver walks the packets in order, 32 at a
-//      time; __match_any_sync finds the first candidate per order value
-//      and the receiver's accepted set is a 64-bit mask, so the walk is
-//      exactly the sequential first-accept of v not in Vi.  Winners get
+// tiled and dense-mailbox sources.
+//   Setup  vi as 64-bit masks, the cells' sent and honesty bits (a ballot
+//      a word of 32 cells) and the block's lists li as int8 words in
+//      shared memory, each part's loads in flight together; then the sent
+//      packets as a list in pool order.
+//   A. verdict: a warp per listed packet.  The warp copies the packet's
+//      valid rows, P and lens into one of its two shared buffers with
+//      cp.async while it checks the packet before, and holds the next
+//      packets' meta and draws in registers, so no global load waits in
+//      the loop.  The packet's facts (out-of-range entries, colliding rows,
+//      disagreeing lens, the values present) are computed once over its
+//      words of four positions; then the receivers run across lanes (a
+//      lane group a receiver, 4 lanes up to 8 receivers, 2 up to 16, else
+//      1, two passes past 32): the corruption flags from the lane's draws,
+//      cheap rejections first, then the own-row terms (duplicate row, own
+//      length, bad own value, own-row collision) four positions a word
+//      with __vcmpeq4 and zero-byte tests.  One ballot a pass gives the
+//      packet's mask of accepting receivers.  A receiver whose list holds
+//      a value past int8 checks it in global memory (lossy_hit).
+//   B. dedup: a warp per receiver walks the listed packets in order, 32
+//      at a time; __match_any_sync finds the first candidate per order
+//      value and the receiver's accepted set is a 64-bit mask, so the walk
+//      is exactly the sequential first-accept of v not in Vi.  Winners get
 //      their outgoing slot in the same walk.
-//   C. per-receiver offsets of the compacted successor pool.
+//   C. per-receiver offsets of the compacted successor pool (a warp scan).
 //   D. rebuild: a warp per destination copies its source packet's rows
-//      and appends the receiver's own row with the keep/dup algebra, while
-//      the rest of the block fills the dead tail of the successor pool.
+//      and appends the receiver's own row with the keep/dup algebra;
+//   E. then the block fills the dead tail of the successor pool with
+//      16-byte stores.
 // Only integer compares and direct indexed loads: no matrix unit, so the
 // TPU's one-hot bf16 gathers and their exactness bound have no analog.
+// The phase clock's instantiation (kClock) adds warp 0's cycles per phase
+// (RoundPhase) into a buffer; only the timing scripts launch it.  On an
+// NVIDIA H100 80GB HBM3 at 700 W the first body's clock put 57% of a
+// 33-party block in the verdict (49% its serial receiver loop); the
+// redesign took the kernel from 1.65 to 0.94 ms (PERF.md).
 //
 // Bound on this card: bytes.  Per trial and round the kernel must read
 // the live packets' valid rows, lens, P and meta, their cells' draws
@@ -87,14 +102,17 @@ struct Params {
   int32_t* o_meta;
   int32_t* o_vi;
   int32_t* o_ovf;
+  long long* clock;  // the clock's instantiations only: int64 [B, kRoundPhases]
   Dims d;
   int n_trials, start, n_dis, round_idx, use_fp;
 };
 
-// One block's round; kSharded: see BlockAt.
-template <bool kSharded>
+// One block's round; kSharded: see BlockAt; kClock the phase clock.
+template <bool kSharded, bool kClock>
 __device__ __forceinline__ void fused_round_body(const Params& P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  PhaseClock<kClock, kRoundPhases> clk;
+  clk.start();
   const BlockAt<kSharded> at(P.n_trials);
   const size_t b = blockIdx.x, t = at.t;
   const Dims d = at.dims(P.d, P.start);
@@ -107,49 +125,61 @@ __device__ __forceinline__ void fused_round_body(const Params& P) {
   const int32_t* honest = P.honest + t * size_t(n_pool);
   const Draws dr = draws_at(P.attack, P.rand_v, P.late, t, d);
 
-  // Setup: zeroed verdicts, vi as masks, the last live packet.
-  clear_round(sh, n_pool);
-  load_vi_mask(sh, P.vi + b * size_t(d.n_rv) * d.w, d);
+  // Setup: vi as masks, the cells' sent and honesty bits; then the sent
+  // cells' list and the block's lists in shared memory.
+  round_setup(sh, in.meta, honest, P.vi + b * size_t(d.n_rv) * d.w, li, d,
+              false);
   __syncthreads();
-  scan_extent(sh, in.meta, n_pool);
+  list_sent(sh, d);
   __syncthreads();
-  const int n_scan = sh.misc[0];
+  const int n_sent = sh.misc[0];
+  clk.mark(kRpSetup);
 
-  verdict_phase(sh, in, li, honest, dr, d, n_scan, P.round_idx, P.use_fp);
+  verdict_phase(sh, in, li, dr, d, n_sent, P.round_idx, P.use_fp, clk);
   __syncthreads();
-  dedup_phase(sh, in.meta, honest, dr, d, n_scan, P.round_idx <= P.n_dis,
-              nullptr);
+  clk.mark(kRpVerdictWait);
+  dedup_phase(sh, dr, d, n_sent, sh.list, P.round_idx <= P.n_dis, nullptr);
   __syncthreads();
+  clk.mark(kRpDedup);
   store_vi(sh, P.o_vi + b * size_t(d.n_rv) * d.w, d);
-  offsets_phase(sh, d.n_rv);
+  offsets_phase(sh.offs, sh.k_cnt, d.n_rv);
   if (threadIdx.x == 0) P.o_ovf[b] = sh.misc[1];
   __syncthreads();
+  clk.mark(kRpOffsets);
   const int total = sh.offs[d.n_rv];
   rebuild_phase(sh, in, out, li, honest, dr, d, total, P.use_fp);
+  clk.mark(kRpRebuild);
   fill_dead_tail(out, d, total);
+  clk.mark(kRpFill);
+  clk.store(P.clock + b * kRoundPhases);
 }
 
-// The two instantiations differ in their launch bounds.  The party-
-// sharded kernel asks for three blocks per SM (at most 85 registers a
-// thread), as the megakernel over the same phases: left to itself the
-// compiler took it to 128 registers with a spill.  The single-device
-// kernel is left to the compiler: it keeps 80 registers either way, but
-// the bound cost it 7% at 33 parties.
+// The two instantiations differ in their launch bounds, chosen by timing
+// 8 and 16 warps and the bounds side by side on the H100 (PERF.md):
+// the party-sharded kernel asks for three blocks an SM (at most 85
+// registers a thread); the single-device kernel is left to the compiler
+// (128 registers, two blocks an SM), which three blocks an SM cost 5% at
+// 33 parties.
+template <bool kClock>
 __global__ void __launch_bounds__(kThreads)
-fused_round_single(Params P) { fused_round_body<false>(P); }
+fused_round_single(Params P) { fused_round_body<false, kClock>(P); }
 
+template <bool kClock>
 __global__ void __launch_bounds__(kThreads, 3)
-fused_round_sharded(Params P) { fused_round_body<true>(P); }
+fused_round_sharded(Params P) { fused_round_body<true, kClock>(P); }
 
 }  // namespace
 
 // Returns a cudaError_t: 0 on a launch that was accepted.  n_local
 // receivers a shard, n_shards shards from receiver `start` on, of n_glob.
+// A non-null `clock` launches the phase clock's instantiation, which adds
+// each block's cycles into it (int64 [n_shards * n_trials, kRoundPhases]).
 extern "C" int qba_fused_round(
     const void* vals, const void* lens, const void* p, const void* meta,
     const void* li, const void* vi, const void* honest, const void* attack,
     const void* rand_v, const void* late, void* o_vals, void* o_lens,
-    void* o_p, void* o_meta, void* o_vi, void* o_ovf, int n_trials,
+    void* o_p, void* o_meta, void* o_vi, void* o_ovf, void* clock,
+    int n_trials,
     int n_shards, int n_local, int n_glob, int start, int slots, int max_l,
     int size_l, int w, int n_dis, int round_idx, int use_fp, void* stream) {
   if (n_trials <= 0 || n_shards <= 0) return 0;
@@ -174,15 +204,18 @@ extern "C" int qba_fused_round(
   prm.o_meta = static_cast<int32_t*>(o_meta);
   prm.o_vi = static_cast<int32_t*>(o_vi);
   prm.o_ovf = static_cast<int32_t*>(o_ovf);
+  prm.clock = static_cast<long long*>(clock);
   prm.d = d;
   prm.n_trials = n_trials;
   prm.start = start;
   prm.n_dis = n_dis;
   prm.round_idx = round_idx;
   prm.use_fp = use_fp;
-  const auto kernel = sharded_launch(n_shards, n_local, n_glob)
-                          ? fused_round_sharded
-                          : fused_round_single;
+  const bool sharded = sharded_launch(n_shards, n_local, n_glob);
+  const auto kernel =
+      clock ? (sharded ? fused_round_sharded<true> : fused_round_single<true>)
+            : (sharded ? fused_round_sharded<false>
+                       : fused_round_single<false>);
   size_t smem = 0;
   if (int e = prepare_smem(kernel, d, &smem)) return e;
   kernel<<<n_trials * n_shards, kThreads, smem,

@@ -31,8 +31,9 @@
 // (two passes past 32 receivers), its G lanes split the packet's words,
 // and each compares four positions a word (__vcmpeq4) against the staged
 // rows.  One ballot a pass gives the packet's verdict bits.  G is 4 up to
-// 8 receivers, 2 up to 16, else 1 (lane_group; trial_megakernel.py keeps
-// its mirror).
+// 8 receivers, 2 up to 16, else 1 (lane_group in round_common.cuh, which
+// the per-round kernels' verdict shares with its other helpers;
+// round_kernel_tiled.py keeps its mirror).
 //
 // Lists past int8.  A value of li outside [-128, 127] is stored truncated,
 // the byte the rebuild writes into a row, as the plain version does; its
@@ -40,15 +41,11 @@
 // through lossy_hit, which reads the list from global memory: a P
 // position holding such a value matches no row and is out of range.
 //
-// PhaseClock is the megakernel's phase clock: a compile-time switch
-// (kClock) whose instantiations only the timing scripts launch.  Thread 0
-// of the block reads clock64() at each mark and adds the cycles since the
-// previous mark to the phase named, so each phase holds warp 0's cycles
-// between the block's barriers (its own work, then its wait at the
-// barrier), summed over the trial's rounds.  The verdict's marks split
-// warp 0's staging and receiver loops from its wait for the other warps.
-// Off (kClock false) the clock is an empty struct whose calls compile to
-// nothing.
+// MegaClock is the megakernel's phase clock (round_common.cuh's
+// PhaseClock over the phases below; kClock switches it on): each phase
+// holds warp 0's cycles between the block's barriers, summed over the
+// trial's rounds.  The verdict's marks split warp 0's staging and receiver
+// loops from its wait for the other warps.
 
 #pragma once
 
@@ -86,33 +83,7 @@ enum MegaPhase {
 };
 
 template <bool kOn>
-struct PhaseClock {
-  __device__ void start() {}
-  __device__ void mark(int) {}
-  __device__ void store(long long*) const {}
-};
-
-template <>
-struct PhaseClock<true> {
-  long long last, acc[kPhases];
-  __device__ void start() {
-    for (int i = 0; i < kPhases; ++i) acc[i] = 0;
-    last = clock64();
-  }
-  __device__ void mark(int phase) {
-    if (threadIdx.x == 0) {
-      const long long now = clock64();
-      acc[phase] += now - last;
-      last = now;
-    }
-  }
-  __device__ void store(long long* out) const {
-    if (threadIdx.x == 0)
-      for (int i = 0; i < kPhases; ++i) out[i] = acc[i];
-  }
-};
-
-__host__ __device__ inline int align16(int x) { return (x + 15) & ~15; }
+using MegaClock = PhaseClock<kOn, kPhases>;
 
 // One pool entry's byte offsets.
 struct MegaEntry {
@@ -125,11 +96,6 @@ struct MegaEntry {
     bytes = rows + align16(4 * sw * d.max_l);
   }
 };
-
-// Lanes a receiver in the verdict: 32 / G receivers a pass.
-__host__ __device__ inline int lane_group(int n_rv) {
-  return n_rv <= 8 ? 4 : (n_rv <= 16 ? 2 : 1);
-}
 
 // Shared-memory layout, computed identically on host and device.  With
 // `staged` false (entries too large for the warps' buffers) the verdict
@@ -209,22 +175,6 @@ struct MegaShared {
   }
 };
 
-// ---- Asynchronous copies. ----
-__device__ inline void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-__device__ inline void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Wait until at most kStages - 1 of this thread's copy groups are in
-// flight: the oldest, the entry about to be read, has landed.
-__device__ inline void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1) : "memory");
-}
-
 // The warp copies entry `src` of `pool` into buffer `dst` (16 bytes a lane
 // at a time); the caller commits the group.
 __device__ inline void stage_entry(unsigned char* dst,
@@ -259,7 +209,7 @@ struct Pipeline {
       stage_entry(sh.buf(warp, ahead % kStages), pool, src(ahead),
                   sh.E.bytes);
     cp_async_commit();
-    cp_async_wait();
+    cp_async_wait<kStages - 1>();
     __syncwarp();
   }
 };
@@ -268,32 +218,6 @@ __device__ Pipeline<kStaged, SrcOf> pipeline(const MegaShared& sh,
                                              const unsigned char* pool,
                                              int warp, int n, SrcOf src) {
   return Pipeline<kStaged, SrcOf>{sh, pool, warp, n, src};
-}
-
-// The last word's valid positions as a byte mask (words before it: all).
-__device__ inline unsigned valid_word(int q, int sw, int size_l) {
-  const int tail = size_l - 4 * (sw - 1);  // 1..4 positions
-  return q < sw - 1 || tail == 4 ? 0xffffffffu : (1u << (8 * tail)) - 1u;
-}
-
-__device__ inline unsigned long long low_bits64(int n) {
-  return n >= 64 ? ~0ull : ((1ull << n) - 1ull);
-}
-
-// Whether a P position of receiver rv whose list value does not fit int8
-// is set in this packet (P bytes p, or every position under forge_p, none
-// under clear_p): such a position matches no row.  Reads li from global
-// memory; only a receiver in the lossy mask calls it.
-__device__ inline bool lossy_hit(const int32_t* li, int rv, const Dims& d,
-                                 const unsigned char* p, bool forge_p,
-                                 bool clear_p, int j0, int step) {
-  bool hit = false;
-  for (int j = j0; j < d.size_l; j += step) {
-    const int x = li[size_t(rv) * d.size_l + j];
-    const bool pj = forge_p || (p[j] != 0 && !clear_p);
-    if (pj && x != int(int8_t(x))) hit = true;
-  }
-  return hit;
 }
 
 // ---- Entry: the trial's lists into shared memory (li words of every
@@ -383,31 +307,6 @@ __device__ inline void mega_compact(const MegaShared& sh, unsigned char* pool,
   }
 }
 
-// ---- Phase C (warp 0): offs = the exclusive prefix of k_cnt over the
-// block's receivers, offs[n_rv] the total.  The caller synchronises. ----
-__device__ inline void mega_offsets(const MegaShared& sh, int n_rv) {
-  if (threadIdx.x >= 32) return;
-  const int lane = threadIdx.x;
-  int a = lane < n_rv ? sh.k_cnt[lane] : 0;
-  int b = lane + 32 < n_rv ? sh.k_cnt[lane + 32] : 0;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int x = __shfl_up_sync(kFull, a, o), y = __shfl_up_sync(kFull, b, o);
-    if (lane >= o) { a += x; b += y; }
-  }
-  b += __shfl_sync(kFull, a, 31);
-  if (lane == 0) sh.offs[0] = 0;
-  if (lane < n_rv) sh.offs[lane + 1] = a;
-  if (lane + 32 < n_rv) sh.offs[lane + 33] = b;
-}
-
-// Gather the ballot bits of lanes 0, G, 2G, ... into bits 0, 1, 2, ...
-__device__ inline unsigned compress_lanes(unsigned bits, int G) {
-  if (G == 1) return bits;
-  unsigned out = 0;
-  for (int i = 0; i * G < 32; ++i) out |= ((bits >> (i * G)) & 1u) << i;
-  return out;
-}
-
 // ---- Phase A: verdict, a warp per live packet, receivers across lanes.
 // The block takes packets first, first + step, ... (a cluster's blocks:
 // their rank and the cluster's size) and checks each against the
@@ -478,7 +377,7 @@ __device__ inline void mega_verdict(const MegaShared& sh,
 
       const bool biz = !sh.honest(cell);
       const int sender = cell / slots - d.r_off;
-      const unsigned long long valid_rows = low_bits64(cnt_v);
+      const unsigned long long valid_rows = low_bits(cnt_v);
       const auto row = dr.row(d, cell, biz);
       for (int k0 = 0; k0 < n_rv; k0 += RP) {
         const int rv = k0 + lane / G;
@@ -561,8 +460,7 @@ __device__ inline void mega_verdict(const MegaShared& sh,
           bool hit = false;
           if (act && ((lossy >> (d.r_off + rv)) & 1ull))
             hit = lossy_hit(li_all, d.r_off + rv, d, e + sh.E.p, forge_p,
-                            clear_p, 0,
-                            1);
+                            clear_p);
           if (hit) {
             mis = valid_rows;
             bad_own = true;

@@ -1,22 +1,28 @@
-// Device code shared by the port's round kernels: fused_round.cu (one
-// round per launch), tiled_round.cu (the round split at the accepted
-// matrix into a verdict and a rebuild launch), trial_megakernel.cu
-// (every round of a trial in one launch) and round_step.cu (one round
-// over the dense mailbox, which shares the setup and phases A and B and
-// rebuilds with rebuild_entry at fixed cells).
+// Device code of the port's per-round kernels: fused_round.cu (one round
+// per launch), tiled_round.cu (the round split at the accepted matrix into
+// a verdict and a rebuild launch) and round_step.cu (one round over the
+// dense mailbox, which rebuilds with rebuild_entry at fixed cells).  The
+// trial megakernel keeps its own layout and phases (mega_phases.cuh); it
+// takes from here the round's sizes, the stacked draw source and the
+// helpers both verdicts share (lane groups, word tests, cp.async, the
+// phase clock, the offsets scan).
 //
-// A round over a compacted packet pool, as phases of one thread block
-// per trial separated by __syncthreads() by the caller:
-//   setup  zeroed verdicts, vi as 64-bit masks, the last live packet;
-//   A      verdict of every live packet against every receiver
-//          (the TPU's _verdict_block_accepts, round_kernel_tiled.py:119);
+// A round over a packet pool, as phases of one thread block per (shard,
+// trial) separated by __syncthreads() by the caller:
+//   setup  vi as 64-bit masks, the cells' sent and honesty bits, the
+//          block's lists as int8 words in shared memory; then the sent
+//          cells as a list in cell order;
+//   A      verdict of every listed packet against every receiver (the
+//          TPU's _verdict_block_accepts, round_kernel_tiled.py:119): a
+//          warp a packet, staged with cp.async one packet ahead, its facts
+//          once, the receivers across lanes (verdict_phase);
 //   B      first accept per value into vi, and the winners' slots;
 //   C      per-receiver offsets of the compacted successor pool;
 //   D      rebuild of the live successor entries;
 //   E      fill of the successor pool's dead tail.
 // Each function takes the trial's pool pointers and the round's scalars,
-// so that every kernel composes the phases it needs.  The phases are
-// described in fused_round.cu.
+// so that every kernel composes the phases it needs.  The kernels'
+// sources describe the rest.
 //
 // Layouts (one trial, contiguous): vals int8 [max_l, cap, S], lens
 // int32 [cap, max_l], p int8 [cap, S], meta int32 [cap, 4] = (count, v,
@@ -34,6 +40,11 @@
 
 namespace qba {
 
+// The per-round kernels' block: 8 warps (ROUND_WARPS in
+// round_kernel_tiled.py).  16 were timed beside them on the H100: faster
+// for the 33-party fused round alone, slower for the party-sharded and
+// 11-party kernels, and their packet buffers leave no room past about 700
+// positions (PERF.md).
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
@@ -55,6 +66,55 @@ __host__ __device__ inline Dims make_dims(int n_rv, int slots, int max_l,
                                           int size_l, int w) {
   return Dims{n_rv, slots, max_l, size_l, w, 0, n_rv};
 }
+
+// A phase clock of N phases: a compile-time switch (kOn) whose
+// instantiations only the timing scripts launch.  Thread 0 of the block
+// reads clock64() at each mark and adds the cycles since the previous
+// mark to the phase named, so each phase holds warp 0's cycles between
+// the block's barriers (its own work, then its wait at the barrier).
+// store() adds them into the block's int64 [N] slot of the clock buffer.
+// Off (kOn false) the clock is an empty struct whose calls compile to
+// nothing.
+template <bool kOn, int N>
+struct PhaseClock {
+  __device__ void start() {}
+  __device__ void mark(int) {}
+  __device__ void store(long long*) const {}
+};
+
+template <int N>
+struct PhaseClock<true, N> {
+  long long last, acc[N];
+  __device__ void start() {
+    for (int i = 0; i < N; ++i) acc[i] = 0;
+    last = clock64();
+  }
+  __device__ void mark(int phase) {
+    if (threadIdx.x == 0) {
+      const long long now = clock64();
+      acc[phase] += now - last;
+      last = now;
+    }
+  }
+  __device__ void store(long long* out) const {
+    if (threadIdx.x == 0)
+      for (int i = 0; i < N; ++i) out[i] += acc[i];
+  }
+};
+
+// The per-round kernels' clock phases, in the order of the int64 [..,
+// kRoundPhases] buffer (ROUND_PHASES in round_kernel_tiled.py).
+enum RoundPhase {
+  kRpSetup,        // verdicts cleared, vi masks, the scan of the sent cells
+  kRpStage,        // verdict: warp 0 staging its packets, packet facts
+  kRpReceivers,    // verdict: warp 0's receiver passes
+  kRpVerdictWait,  // verdict: warp 0 at the barrier
+  kRpDedup,        // first accept per value, slots
+  kRpOffsets,      // vi out, successor offsets, overflow flag
+  kRpRebuild,      // warp 0 rebuilding its successor entries
+  kRpFill,         // warp 0's share of the unsent or dead entries' fill
+  kRoundPhases
+};
 
 // The per-round kernels launch one block per (shard, trial), shard-major:
 // block b is shard b / n_trials of trial b % n_trials, whose receivers
@@ -148,12 +208,12 @@ using PoolOut = PoolOutT<false>;
 // rv) by entry, rv the block's receiver.  draw(d, cell, rv, biz) gives
 // the attack bits (0 for an honest sender, biz false) and, through
 // rand_v(), the forged order, read only where the forge bit is set;
-// is_late(d, cell, rv) the racy delivery's lateness.  The verdict, which
-// reads a packet's draws for every receiver, first takes the cell's row
-// (row(d, cell, biz), by the whole warp) and reads through it.  Draws is
-// the stacked source: one trial's tables of one round, each [n_pool,
-// n_glob] by mailbox cell, loaded where read, so its row is empty.  The
-// trial megakernel's keyed entries hash their draws instead
+// is_late(d, cell, rv) the racy delivery's lateness.  The megakernel's
+// verdict, which reads a packet's draws for every receiver, first takes
+// the cell's row (row(d, cell, biz), by the whole warp) and reads through
+// it.  Draws is the stacked source: one trial's tables of one round, each
+// [n_pool, n_glob] by mailbox cell, loaded where read, so its row is
+// empty.  The trial megakernel's keyed entries hash their draws instead
 // (HashedDraws, trial_megakernel.cu).
 struct StackedDraw {
   int attack;
@@ -184,48 +244,29 @@ struct Draws {
   }
 };
 
-__host__ __device__ inline size_t align8(size_t x) { return (x + 7) & ~size_t(7); }
+__host__ __device__ inline int align16(int x) { return (x + 15) & ~15; }
 
-// Shared-memory layout, computed identically on host and device.
-struct Smem {
-  size_t ok, vi, pm, src, cnt, offs, misc, rows, prow, stage, total;
-  __host__ __device__ Smem(const Dims& d) {
-    size_t n_pool = size_t(d.n_pool());
-    ok = 0;                                      // uint64 [n_pool]
-    vi = ok + 8 * n_pool;                        // uint64 [n_rv]
-    pm = vi + 8 * size_t(d.n_rv);                // uint64 [kWarps][size_l]
-    src = pm + 8 * size_t(kWarps) * d.size_l;    // int32 [n_rv * slots]
-    cnt = src + 4 * size_t(d.n_out());           // int32 [n_rv]
-    offs = align8(cnt + 4 * size_t(d.n_rv));     // int32 [n_rv + 1]
-    misc = align8(offs + 4 * size_t(d.n_rv + 1));  // int32 [8]
-    rows = misc + 32;                            // int8 [kWarps][max_l*size_l]
-    prow = rows + size_t(kWarps) * align8(size_t(d.max_l) * d.size_l);
-    stage = align8(size_t(d.size_l));            // per-warp P row stride
-    total = prow + size_t(kWarps) * stage;       // int8 [kWarps][size_l]
-  }
-};
+// ---- Helpers of the verdicts (this one and mega_phases.cuh's). ----
 
-// Typed views of the block's shared memory.
-struct Shared {
-  unsigned long long* ok_mask;  // per packet: mask of accepting receivers
-  unsigned long long* vi_mask;  // per receiver: its accepted values
-  int* src_list;                // per (receiver, slot): source packet
-  int* k_cnt;                   // per receiver: its successor entries
-  int* offs;                    // per receiver: first successor entry
-  int* misc;                    // [0] n_scan, [1] overflow, [2..4] the
-                                // party-sharded exchange (trial_megakernel.cu)
-  unsigned char* raw;
-  Smem L;
-  __device__ Shared(unsigned char* smem_raw, const Dims& d)
-      : raw(smem_raw), L(d) {
-    ok_mask = reinterpret_cast<unsigned long long*>(raw + L.ok);
-    vi_mask = reinterpret_cast<unsigned long long*>(raw + L.vi);
-    src_list = reinterpret_cast<int*>(raw + L.src);
-    k_cnt = reinterpret_cast<int*>(raw + L.cnt);
-    offs = reinterpret_cast<int*>(raw + L.offs);
-    misc = reinterpret_cast<int*>(raw + L.misc);
-  }
-};
+// Lanes a receiver in a verdict: 32 / G receivers a pass.  Mirrored by
+// lane_group in round_kernel_tiled.py.
+__host__ __device__ inline int lane_group(int n_rv) {
+  return n_rv <= 8 ? 4 : (n_rv <= 16 ? 2 : 1);
+}
+
+// Gather the ballot bits of lanes 0, G, 2G, ... into bits 0, 1, 2, ...
+__device__ inline unsigned compress_lanes(unsigned bits, int G) {
+  if (G == 1) return bits;
+  unsigned out = 0;
+  for (int i = 0; i * G < 32; ++i) out |= ((bits >> (i * G)) & 1u) << i;
+  return out;
+}
+
+// The last word's valid positions as a byte mask (words before it: all).
+__device__ inline unsigned valid_word(int q, int sw, int size_l) {
+  const int tail = size_l - 4 * (sw - 1);  // 1..4 positions
+  return q < sw - 1 || tail == 4 ? 0xffffffffu : (1u << (8 * tail)) - 1u;
+}
 
 __device__ inline unsigned long long warp_or64(unsigned long long x) {
   unsigned lo = __reduce_or_sync(kFull, unsigned(x));
@@ -236,6 +277,158 @@ __device__ inline unsigned long long warp_or64(unsigned long long x) {
 __device__ inline unsigned long long low_bits(int n) {
   return n >= 64 ? ~0ull : ((1ull << n) - 1ull);
 }
+
+// Whether a P position of receiver rv whose list value does not fit int8
+// is set in this packet (P bytes p, or every position under forge_p, none
+// under clear_p): such a position matches no row.  Reads li (int32
+// [.., S], row rv) from global memory; only a receiver in the lossy mask
+// calls it.
+__device__ inline bool lossy_hit(const int32_t* li, int rv, const Dims& d,
+                                 const unsigned char* p, bool forge_p,
+                                 bool clear_p) {
+  bool hit = false;
+  for (int j = 0; j < d.size_l; ++j) {
+    const int x = li[size_t(rv) * d.size_l + j];
+    const bool pj = forge_p || (p[j] != 0 && !clear_p);
+    if (pj && x != int(int8_t(x))) hit = true;
+  }
+  return hit;
+}
+
+// ---- Asynchronous copies (cp.async), a thread's own groups. ----
+__device__ inline void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ inline void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ inline void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's copy groups are in flight.
+template <int N>
+__device__ inline void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- Phase C (warp 0): offs = the exclusive prefix of k_cnt over the
+// block's n_rv <= 64 receivers, offs[n_rv] the total.  The caller
+// synchronises. ----
+__device__ inline void offsets_phase(int* offs, const int* k_cnt, int n_rv) {
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  int a = lane < n_rv ? k_cnt[lane] : 0;
+  int b = lane + 32 < n_rv ? k_cnt[lane + 32] : 0;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int x = __shfl_up_sync(kFull, a, o), y = __shfl_up_sync(kFull, b, o);
+    if (lane >= o) { a += x; b += y; }
+  }
+  b += __shfl_sync(kFull, a, 31);
+  if (lane == 0) offs[0] = 0;
+  if (lane < n_rv) offs[lane + 1] = a;
+  if (lane + 32 < n_rv) offs[lane + 33] = b;
+}
+
+// The largest dynamic shared memory of a block on this card (the H100's
+// 227 KB).
+constexpr int kSmemLimit = 232448;
+
+// Shared-memory layout, computed identically on host and device (and by
+// round_smem_bytes in round_kernel_tiled.py).  The accepted sets, slots,
+// counts, offsets and flags first; with `verdict` (every kernel but the
+// tiled rebuild) the verdict's parts: each warp's lossy receivers, the
+// verdict and order of each cell, the cells' sent and honesty bits (a
+// word per 32 cells), the sent cells' list, the block's lists li as int8
+// words [sw][n_rv + 1] (position-major: lanes over receivers read
+// consecutive words; the pad word keeps a warp over one receiver's words
+// off a single bank) and their out-of-range words, and per warp `stages`
+// packet buffers of `buf` bytes: lens int32 [max_l], then P and the rows
+// [max_l] as sw words of four positions, each part 16-aligned.  Two
+// buffers a warp where they fit, else one.
+struct Smem {
+  size_t vi, src, cnt, offs, misc, lossy, ok, info, hon, sent, list, li, oor;
+  size_t stage;
+  size_t total;
+  int sw, ld, bp, br, buf, stages;
+  __host__ __device__ Smem(const Dims& d, bool verdict = true) {
+    const size_t n_pool = size_t(d.n_pool()), chunks = (n_pool + 31) / 32;
+    sw = (d.size_l + 3) / 4;
+    ld = d.n_rv + 1;
+    bp = align16(4 * d.max_l);
+    br = bp + align16(4 * sw);
+    buf = br + align16(4 * sw * d.max_l);
+    vi = 0;                                           // uint64 [n_rv]
+    src = vi + 8 * size_t(d.n_rv);                    // int32 [n_rv*slots]
+    cnt = src + 4 * size_t(d.n_out());                // int32 [n_rv]
+    offs = cnt + 4 * size_t(d.n_rv);                  // int32 [n_rv + 1]
+    misc = size_t(align16(int(offs + 4 * size_t(d.n_rv + 1))));  // int32 [8]
+    lossy = misc + 32;                                // uint64 [kWarps]
+    ok = lossy + 8 * size_t(kWarps);                  // uint64 [n_pool]
+    info = ok + 8 * n_pool;                           // int32 [n_pool]
+    hon = info + 4 * n_pool;                          // uint32 [chunks]
+    sent = hon + 4 * chunks;                          // uint32 [chunks]
+    list = sent + 4 * chunks;                         // int32 [n_pool]
+    li = list + 4 * n_pool;                           // uint32 [sw][ld]
+    oor = li + 4 * size_t(sw) * ld;                   // uint32 [sw][ld]
+    stage = size_t(align16(int(oor + 4 * size_t(sw) * ld)));
+    stages = stage + size_t(kWarps) * 2 * buf <= size_t(kSmemLimit) ? 2 : 1;
+    total = verdict ? stage + size_t(kWarps) * stages * buf : lossy;
+  }
+};
+
+// Typed views of the block's shared memory.  misc: [0] the sent cells,
+// [1] overflow, [6..7] the lossy mask.
+struct Shared {
+  unsigned long long* vi_mask;  // per receiver: its accepted values
+  int* src_list;                // per (receiver, slot): source packet
+  int* k_cnt;                   // per receiver: its successor entries
+  int* offs;                    // per receiver: first successor entry
+  int* misc;
+  unsigned long long* lossy_w;  // per warp: receivers whose lists it read
+                                // past int8
+  unsigned long long* ok_mask;  // per cell: mask of accepting receivers
+  int* info;                    // per cell: cell << 8 | order (0xFF: none)
+  unsigned* hon;                // per cell: honest sender bit
+  unsigned* sent;               // per cell: sent bit
+  int* list;                    // the sent cells, in cell order
+  unsigned* li;                 // [sw][ld] list bytes
+  unsigned* oor;                // [sw][ld] 0xFF where li is not in [0, w]
+  unsigned char* raw;
+  Smem L;
+  __device__ Shared(unsigned char* smem_raw, const Dims& d,
+                    bool verdict = true)
+      : raw(smem_raw), L(d, verdict) {
+    vi_mask = reinterpret_cast<unsigned long long*>(raw + L.vi);
+    src_list = reinterpret_cast<int*>(raw + L.src);
+    k_cnt = reinterpret_cast<int*>(raw + L.cnt);
+    offs = reinterpret_cast<int*>(raw + L.offs);
+    misc = reinterpret_cast<int*>(raw + L.misc);
+    lossy_w = reinterpret_cast<unsigned long long*>(raw + L.lossy);
+    ok_mask = reinterpret_cast<unsigned long long*>(raw + L.ok);
+    info = reinterpret_cast<int*>(raw + L.info);
+    hon = reinterpret_cast<unsigned*>(raw + L.hon);
+    sent = reinterpret_cast<unsigned*>(raw + L.sent);
+    list = reinterpret_cast<int*>(raw + L.list);
+    li = reinterpret_cast<unsigned*>(raw + L.li);
+    oor = reinterpret_cast<unsigned*>(raw + L.oor);
+  }
+  // Warp `warp`'s packet buffer b.
+  __device__ unsigned char* buf(int warp, int b) const {
+    return raw + L.stage + size_t(L.stages * warp + b) * L.buf;
+  }
+  __device__ bool honest(int cell) const {
+    return (hon[cell >> 5] >> (cell & 31)) & 1u;
+  }
+  __device__ unsigned long long lossy() const {
+    return *reinterpret_cast<const unsigned long long*>(misc + 6);
+  }
+};
 
 // Fill n bytes with `byte`, cooperatively over the block: bytes up to a
 // 16-byte boundary, 16-byte stores, then the tail.
@@ -254,25 +447,30 @@ __device__ inline void block_fill(int8_t* dst, size_t n, int8_t byte) {
     dst[i] = byte;
 }
 
-// ---- Setup (block): zero the verdicts of n_pool packets and the
-// round's flags.  The caller synchronises before phase A. ----
-__device__ inline void clear_round(const Shared& sh, int n_pool) {
-  if (threadIdx.x == 0) { sh.misc[0] = 0; sh.misc[1] = 0; }
-  for (int i = threadIdx.x; i < n_pool; i += kThreads) sh.ok_mask[i] = 0ull;
-}
-
-// vi int32 0/1 [n_rv, w] -> per-receiver masks, a warp per receiver.
+// vi int32 0/1 [n_rv, w] -> per-receiver masks, a warp per receiver:
+// each warp loads all its receivers' words before it ballots, so their
+// loads are in flight together.
 __device__ inline void load_vi_mask(const Shared& sh, const int32_t* vi,
                                     const Dims& d) {
+  constexpr int kR = (64 + kWarps - 1) / kWarps;  // receivers a warp
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = warp; r < d.n_rv; r += kWarps) {
-    unsigned long long m = 0ull;
-    for (int x0 = 0; x0 < d.w; x0 += 32) {
-      int x = x0 + lane;
-      unsigned b = __ballot_sync(kFull, x < d.w && vi[size_t(r) * d.w + x] != 0);
-      m |= static_cast<unsigned long long>(b) << x0;
+  int x[kR][2];
+#pragma unroll
+  for (int k = 0; k < kR; ++k) {
+    const int r = warp + k * kWarps;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = 32 * h + lane;
+      x[k][h] = r < d.n_rv && c < d.w ? vi[size_t(r) * d.w + c] : 0;
     }
-    if (lane == 0) sh.vi_mask[r] = m;
+  }
+#pragma unroll
+  for (int k = 0; k < kR; ++k) {
+    const int r = warp + k * kWarps;
+    const unsigned lo = __ballot_sync(kFull, x[k][0] != 0);
+    const unsigned hi = __ballot_sync(kFull, x[k][1] != 0);
+    if (lane == 0 && r < d.n_rv)
+      sh.vi_mask[r] = (static_cast<unsigned long long>(hi) << 32) | lo;
   }
 }
 
@@ -285,118 +483,371 @@ __device__ inline void store_vi(const Shared& sh, int32_t* o_vi,
   }
 }
 
-// misc[0] = one past the last sent packet (the caller has zeroed it and
-// synchronised; it synchronises again before reading).
-__device__ inline void scan_extent(const Shared& sh, const int32_t* meta,
-                                   int n_pool) {
-  int last = 0;
-  for (int i = threadIdx.x; i < n_pool; i += kThreads)
-    if (meta[size_t(i) * 4 + 2] != 0) last = i + 1;
-  if (last) atomicMax(&sh.misc[0], last);
+// ---- Setup (block), step 1: the round's flags, vi as masks, the cells'
+// sent and honesty bits (a ballot a word of 32 cells, four words a warp
+// at a time), and the block's lists li as int8 words with their
+// out-of-range words (0xFF where li is not in [0, w]), a thread a
+// position, each warp noting the receivers whose lists hold a value past
+// int8; with clear_ok the verdicts of every cell zeroed (for a dedup that
+// walks cells, not the list).  The loads of each part are in flight
+// together.  The caller synchronises. ----
+__device__ inline void round_setup(const Shared& sh, const int32_t* meta,
+                                   const int32_t* honest, const int32_t* vi,
+                                   const int32_t* li, const Dims& d,
+                                   bool clear_ok) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_pool = d.n_pool();
+  if (threadIdx.x < 8) sh.misc[threadIdx.x] = 0;
+  load_vi_mask(sh, vi, d);
+  for (int c0 = warp * 32; c0 < n_pool; c0 += 4 * kThreads) {
+    bool s[4], h[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int c = c0 + k * kThreads + lane;
+      s[k] = c < n_pool && meta[size_t(c) * 4 + 2] != 0;
+      h[k] = c < n_pool && honest[c] != 0;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const unsigned sb = __ballot_sync(kFull, s[k]);
+      const unsigned hb = __ballot_sync(kFull, h[k]);
+      const int c = c0 + k * kThreads;
+      if (lane == 0 && c < n_pool) {
+        sh.sent[c >> 5] = sb;
+        sh.hon[c >> 5] = hb;
+      }
+    }
+  }
+  // Position j of receiver rv is element rv * 4 sw + j, j < 4 sw.
+  const int S = d.size_l, ld = sh.L.ld, row = 4 * sh.L.sw;
+  const int n = d.n_rv * row;
+  unsigned char* lib = reinterpret_cast<unsigned char*>(sh.li);
+  unsigned char* oob = reinterpret_cast<unsigned char*>(sh.oor);
+  unsigned long long lossy = 0ull;
+  for (int e0 = threadIdx.x; e0 < n; e0 += 4 * kThreads) {
+    int x[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int e = e0 + k * kThreads, rv = e / row, j = e - rv * row;
+      x[k] = e < n && j < S ? li[size_t(rv) * S + j] : -1;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int e = e0 + k * kThreads, rv = e / row, j = e - rv * row;
+      if (e >= n) continue;
+      const size_t at = (size_t(j >> 2) * ld + rv) * 4 + (j & 3);
+      lib[at] = uint8_t(x[k]);
+      oob[at] = (j < S && (x[k] < 0 || x[k] > d.w)) ? 0xff : 0;
+      if (x[k] != int(int8_t(x[k]))) lossy |= 1ull << rv;
+    }
+  }
+  lossy = warp_or64(lossy);
+  if (lane == 0) sh.lossy_w[warp] = lossy;
+  if (clear_ok)
+    for (int i = threadIdx.x; i < n_pool; i += kThreads) sh.ok_mask[i] = 0ull;
 }
 
-// ---- Phase A: verdict, a warp per live packet. ----
-// Writes ok_mask[pk] for every sent packet pk < n_scan.
-template <class In, class Src>
+// ---- Setup, step 2: the sent cells as a list in cell order (list[0,
+// misc[0])), a warp a word of cells, each counting the words before its
+// own; the block's lossy mask (misc[6..7]) from the warps'.  The caller
+// synchronises. ----
+__device__ inline void list_sent(const Shared& sh, const Dims& d) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_words = (d.n_pool() + 31) / 32;
+  for (int c = warp; c < n_words; c += kWarps) {
+    int before = 0;
+    for (int c2 = lane; c2 < c; c2 += 32) before += __popc(sh.sent[c2]);
+    before = __reduce_add_sync(kFull, before);
+    const unsigned bits = sh.sent[c];
+    if ((bits >> lane) & 1u)
+      sh.list[before + __popc(bits & ((1u << lane) - 1u))] = 32 * c + lane;
+    if (c == n_words - 1 && lane == 0) sh.misc[0] = before + __popc(bits);
+  }
+  if (threadIdx.x == 0) {
+    unsigned long long m = 0ull;
+    for (int k = 0; k < kWarps; ++k) m |= sh.lossy_w[k];
+    *reinterpret_cast<unsigned long long*>(sh.misc + 6) = m;
+  }
+}
+
+// The warp copies packet pk's lens [0, max(cnt_v, 1)), P and its rows r <
+// cnt_v (never a row past count) into buffer `buf` (Smem's packet
+// layout): with cp.async where P and each row are whole 16-byte chunks
+// (vec: S a multiple of 16 and the pool 16-aligned), else with plain loads
+// that pad the positions past S (P 0, rows 0xFF = -1), so that word
+// compares need no tail mask.  P is copied as the pool holds it (bytes
+// 0/1); the caller commits the group.
+template <class In>
+__device__ inline void stage_packet(unsigned char* buf, const Smem& L,
+                                    const In& in, int pk, int cnt_v,
+                                    const Dims& d, bool vec) {
+  const int lane = threadIdx.x & 31, S = d.size_l, sw = L.sw;
+  const int32_t* lens = in.lens + size_t(pk) * d.max_l;
+  for (int r = lane; r < (cnt_v > 0 ? cnt_v : 1); r += 32)
+    cp_async4(buf + 4 * r, lens + r);
+  const int8_t* p = in.p + size_t(pk) * S;
+  if (vec) {
+    const int n16 = S >> 4;
+    for (int c = lane; c < n16; c += 32)
+      cp_async16(buf + L.bp + 16 * c, p + 16 * c);
+    for (int i = lane; i < cnt_v * n16; i += 32) {
+      const int r = i / n16, c = i - r * n16;
+      cp_async16(buf + L.br + r * S + 16 * c, in.row(r, pk, d) + 16 * c);
+    }
+    return;
+  }
+  unsigned* P4 = reinterpret_cast<unsigned*>(buf + L.bp);
+  unsigned* R4 = reinterpret_cast<unsigned*>(buf + L.br);
+  for (int i = lane; i < (cnt_v + 1) * sw; i += 32) {
+    const int r = i / sw - 1, q = i - (r + 1) * sw;  // r = -1: P
+    const int8_t* src = r < 0 ? p : in.row(r, pk, d);
+    unsigned x = 0u;
+    for (int k = 0; k < 4; ++k) {
+      const int j = 4 * q + k;
+      const unsigned b = j < S ? uint8_t(src[j]) : (r < 0 ? 0u : 0xffu);
+      x |= b << (8 * k);
+    }
+    if (r < 0) P4[q] = x;
+    else R4[r * sw + q] = x;
+  }
+}
+
+// A packet's draws for the lanes' receivers: per pass p (receivers p * 32
+// / G + lane / G), attack | late << 8 | rand_v << 16, each byte of the
+// cell's row of the [n_pool, n_glob] tables (lanes over receivers read
+// consecutive bytes); 0 past the block's receivers or for a cell outside
+// the pool, and an honest sender's attack and order 0.
+__device__ inline void packet_draws(unsigned (&out)[2], const Draws& dr,
+                                    const Shared& sh, const Dims& d,
+                                    int cell, int G) {
+  const int lane = threadIdx.x & 31;
+  const bool in = cell >= 0 && cell < d.n_pool();
+  const bool biz = in && !sh.honest(cell);
+  for (int p = 0; p < 2; ++p) {
+    const int rv = p * (32 / G) + lane / G;
+    unsigned x = 0u;
+    if (in && rv < d.n_rv) {
+      const size_t di = draw_index(d, cell, rv);
+      x = unsigned(dr.late[di]) << 8;
+      if (biz) x |= unsigned(dr.attack[di]) | unsigned(dr.rand_v[di]) << 16;
+    }
+    out[p] = x;
+  }
+}
+
+// ---- Phase A: verdict, a warp per sent cell of the list (list[warp],
+// list[warp + kWarps], ...), receivers across lanes.  Writes ok_mask[pk]
+// (a bit per block receiver) and info[pk] for every listed cell pk.
+//
+// Each warp stages its next packet into its other buffer with cp.async
+// while it checks the current one, its meta two packets ahead and its
+// draws one ahead in registers, so that no global load waits in the loop.
+// The packet's facts (out-of-range values, colliding rows, disagreeing
+// lens, the values present) are computed once, lanes over the staged
+// words.  The receivers then run across lanes: lane group (lane / G)
+// takes a receiver (two passes past 32 receivers), its G lanes split the
+// packet's words, and each compares four positions a word (__vcmpeq4)
+// against the staged rows.  One ballot a pass gives the packet's verdict
+// bits.  A receiver in the lossy mask (a list value past int8) also checks
+// its list in global memory (lossy_hit). ----
+template <class In, class Clock>
 __device__ inline void verdict_phase(const Shared& sh, const In& in,
-                                     const int32_t* li,
-                                     const int32_t* honest, const Src& dr,
-                                     const Dims& d, int n_scan,
-                                     int round_idx, int use_fp) {
+                                     const int32_t* li, const Draws& dr,
+                                     const Dims& d, int n_sent,
+                                     int round_idx, int use_fp, Clock& clk) {
   const int n_rv = d.n_rv, slots = d.slots, max_l = d.max_l;
   const int S = d.size_l, w = d.w, n_pool = d.n_pool();
+  const int sw = sh.L.sw, ld = sh.L.ld;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int8_t* rows = reinterpret_cast<int8_t*>(sh.raw + sh.L.rows) +
-                 size_t(warp) * align8(size_t(max_l) * S);
-  int8_t* prow = reinterpret_cast<int8_t*>(sh.raw + sh.L.prow) +
-                 size_t(warp) * sh.L.stage;
-  unsigned long long* pm =
-      reinterpret_cast<unsigned long long*>(sh.raw + sh.L.pm) +
-      size_t(warp) * S;
-  for (int pk = warp; pk < n_scan; pk += kWarps) {
-    const int32_t* m = in.meta + size_t(pk) * 4;
-    const int count = m[0], v = m[1], sent = m[2], cell = m[3];
-    if (!sent || cell < 0 || cell >= n_pool) continue;
-    const int cnt_v = count < 0 ? 0 : (count > max_l ? max_l : count);
-    // Stage valid rows and P; presence masks and the row facts.
-    bool oob = false, coll = false, lens_bad = false;
-    unsigned long long pm_any = 0ull;
-    for (int j = lane; j < S; j += 32) {
-      unsigned long long pmj = 0ull;
-      for (int r = 0; r < cnt_v; ++r) {
-        int x = in.row(r, pk, d)[j];
-        rows[r * S + j] = int8_t(x);
-        if (x != -1) {
-          if (x > w || x < 0) oob = true;
-          if (x >= 0 && x < 64) pmj |= 1ull << x;
-          for (int q = 0; q < r; ++q)
-            if (rows[q * S + j] == x) coll = true;
-        }
-      }
-      pm[j] = pmj;
-      pm_any |= pmj;
-      prow[j] = in.p[size_t(pk) * S + j] != 0;
+  const int G = lane_group(n_rv), RP = 32 / G, g = lane % G;
+  const bool vec4 = (sw & 3) == 0;  // rows of whole 16-byte chunks
+  const bool vec = (S & 15) == 0 &&
+                   ((reinterpret_cast<uintptr_t>(in.vals) |
+                     reinterpret_cast<uintptr_t>(in.p)) & 15) == 0;
+  const bool two = sh.L.stages == 2;
+  const unsigned long long lossy = sh.lossy();
+  const int n_mine =
+      warp < n_sent ? (n_sent - warp + kWarps - 1) / kWarps : 0;
+  const auto pk_of = [&](int i) { return sh.list[warp + i * kWarps]; };
+  const auto meta_of = [&](int i) {
+    return i < n_mine
+               ? *reinterpret_cast<const int4*>(in.meta + size_t(pk_of(i)) * 4)
+               : make_int4(0, 0, 0, -1);
+  };
+  const auto rows_of = [&](int count) {
+    return count < 0 ? 0 : (count > max_l ? max_l : count);
+  };
+  int4 m0 = meta_of(0), m1 = meta_of(1);
+  unsigned dc[2], dn[2];
+  packet_draws(dc, dr, sh, d, m0.w, G);
+  if (two && n_mine > 0)
+    stage_packet(sh.buf(warp, 0), sh.L, in, pk_of(0), rows_of(m0.x), d, vec);
+  cp_async_commit();
+  for (int i = 0; i < n_mine; ++i) {
+    const int pk = pk_of(i), b = two ? (i & 1) : 0;
+    if (two) {
+      if (i + 1 < n_mine)
+        stage_packet(sh.buf(warp, b ^ 1), sh.L, in, pk_of(i + 1),
+                     rows_of(m1.x), d, vec);
+    } else {
+      stage_packet(sh.buf(warp, 0), sh.L, in, pk, rows_of(m0.x), d, vec);
     }
-    const int len0 = in.lens[size_t(pk) * max_l];
-    for (int r = lane; r < cnt_v; r += 32)
-      if (in.lens[size_t(pk) * max_l + r] != len0) lens_bad = true;
-    oob = __any_sync(kFull, oob);
-    coll = __any_sync(kFull, coll);
-    lens_bad = __any_sync(kFull, lens_bad);
-    pm_any = warp_or64(pm_any);
+    cp_async_commit();
+    const int4 m2 = meta_of(i + 2);
+    packet_draws(dn, dr, sh, d, m1.w, G);
+    if (two) cp_async_wait<1>();
+    else cp_async_wait<0>();
     __syncwarp();
-
-    const bool biz = honest[cell] == 0;
-    const int sender = cell / slots - d.r_off;  // as a block receiver
-    const unsigned long long valid_rows = low_bits(cnt_v);
+    const int count = m0.x, v = m0.y, cell = m0.w;
     unsigned long long okbits = 0ull;
-    const auto row = dr.row(d, cell, biz);
-    for (int rv = 0; rv < n_rv; ++rv) {
-      const auto dw = dr.draw(row, d, cell, rv, biz);
-      const int att = dw.attack;
-      if ((att & kDrop) || dr.is_late(row, d, cell, rv) || sender == rv)
-        continue;
-      const int v2 = (att & kForge) ? dw.rand_v() : v;
-      const bool clear_p = att & kClearP, clear_l = att & kClearL;
-      const bool forge_p = use_fp && (att & kForgeP);
-      const int count_eff = clear_l ? 0 : count;
-      // |L'| == round + 1 needs count_eff in {round, round + 1}.
-      if (count_eff != round_idx && count_eff != round_idx + 1) continue;
-      if (!clear_l) {
-        const bool cont = v2 >= 0 && v2 < 64 && ((pm_any >> v2) & 1ull);
-        if (cont || oob || coll || lens_bad) continue;
-      }
-      const int32_t* lir = li + size_t(rv) * S;
-      int plen = 0;
-      bool bad_own = false, own_coll = false;
-      unsigned long long mis = 0ull;
-      for (int j = lane; j < S; j += 32) {
-        const bool pj = forge_p || (prow[j] && !clear_p);
-        const int lij = lir[j];
-        const int own = pj ? lij : -1;
-        plen += pj;
-        if (pj) {
-          if (lij == v2 || lij > w || lij < 0) bad_own = true;
-          if (lij >= 0 && lij < 64 && ((pm[j] >> lij) & 1ull)) own_coll = true;
+    if (cell >= 0 && cell < n_pool) {
+      unsigned char* e = sh.buf(warp, b);
+      const int32_t* lens = reinterpret_cast<const int32_t*>(e);
+      unsigned* P4 = reinterpret_cast<unsigned*>(e + sh.L.bp);
+      const unsigned* R4 = reinterpret_cast<const unsigned*>(e + sh.L.br);
+      const int cnt_v = rows_of(count);
+      // The packet's facts, lanes over its (row, word) pairs; P to bytes
+      // 0x00/0xFF in place.
+      bool oob = false, coll = false, lens_bad = false;
+      unsigned long long pm_any = 0ull;
+      for (int k = lane; k < cnt_v * sw; k += 32) {
+        const int r = k / sw, q = k - r * sw;
+        const unsigned x4 = R4[k];
+        for (int c = 0; c < 4; ++c) {
+          const int x = int(int8_t(x4 >> (8 * c)));
+          if (x == -1) continue;
+          if (x > w || x < 0) oob = true;
+          if (x >= 0 && x < 64) pm_any |= 1ull << x;
         }
-        for (int r = 0; r < cnt_v; ++r)
-          if (rows[r * S + j] != own) mis |= 1ull << r;
+        const unsigned set = ~__vcmpeq4(x4, 0xffffffffu);
+        for (int r2 = 0; r2 < r; ++r2)
+          if (__vcmpeq4(x4, R4[r2 * sw + q]) & set) coll = true;
       }
-      plen = __reduce_add_sync(kFull, plen);
-      bad_own = __any_sync(kFull, bad_own);
-      own_coll = __any_sync(kFull, own_coll);
-      mis = warp_or64(mis);
-      const bool dup = !clear_l && ((~mis & valid_rows) != 0ull);
-      const bool appended = !dup && count_eff < max_l;
-      const int new_count = appended ? count_eff + 1 : count_eff;
-      const bool cond1 = !appended || count_eff == 0 || plen == len0;
-      const bool cond2 = !(appended && bad_own);
-      const bool cond3 = !appended || clear_l || !own_coll;
-      if (cond1 && cond2 && cond3 && new_count == round_idx + 1)
-        okbits |= 1ull << rv;
+      const int len0 = lens[0];
+      for (int r = lane; r < cnt_v; r += 32)
+        if (lens[r] != len0) lens_bad = true;
+      int plen_p = 0;
+      for (int q = lane; q < sw; q += 32) {
+        const unsigned p4 = __vcmpne4(P4[q], 0u);
+        P4[q] = p4;
+        plen_p += __popc(p4) >> 3;
+      }
+      oob = __any_sync(kFull, oob);
+      coll = __any_sync(kFull, coll);
+      lens_bad = __any_sync(kFull, lens_bad);
+      pm_any = warp_or64(pm_any);
+      plen_p = __reduce_add_sync(kFull, plen_p);
+      __syncwarp();
+      clk.mark(kRpStage);
+
+      const int sender = cell / slots - d.r_off;  // as a block receiver
+      const unsigned long long valid_rows = low_bits(cnt_v);
+      for (int k0 = 0; k0 < n_rv; k0 += RP) {
+        const int rv = k0 + lane / G;
+        const unsigned dw = k0 == 0 ? dc[0] : dc[1];
+        const int att = int(dw & 0xffu);
+        bool act = rv < n_rv;
+        int v2 = v, count_eff = count;
+        bool clear_p = false, clear_l = false, forge_p = false;
+        if (act) {
+          if ((att & kDrop) || ((dw >> 8) & 0xffu) || sender == rv) {
+            act = false;
+          } else {
+            v2 = (att & kForge) ? int(dw >> 16) : v;
+            clear_p = att & kClearP;
+            clear_l = att & kClearL;
+            forge_p = use_fp && (att & kForgeP);
+            count_eff = clear_l ? 0 : count;
+            // |L'| == round + 1 needs count_eff in {round, round + 1}.
+            if (count_eff != round_idx && count_eff != round_idx + 1) {
+              act = false;
+            } else if (!clear_l) {
+              const bool cont = v2 >= 0 && v2 < 64 && ((pm_any >> v2) & 1ull);
+              if (cont || oob || coll || lens_bad) act = false;
+            }
+          }
+        }
+        if (!__any_sync(kFull, act)) continue;
+        // The receiver's words against the packet's rows: its G lanes take
+        // chunks of four words in turn.  Per row, x = row ^ own is zero
+        // where they agree; a row is a duplicate where x is zero at every
+        // word, and a position collides (own value present in a row)
+        // where x has a zero byte at an eligible position.
+        const int rc = act ? rv : 0;  // its list's column
+        const bool v2_in = v2 >= 0 && v2 <= w;
+        const unsigned v2w = uint8_t(v2) * 0x01010101u;
+        unsigned long long mis = 0ull;
+        bool bad_own = false;
+        unsigned coll_w = 0u;
+        for (int q0 = 4 * g; q0 < sw; q0 += 4 * G) {
+          unsigned own[4], nel[4];
+          for (int k = 0; k < 4; ++k) {
+            const int q = q0 + k;
+            own[k] = nel[k] = 0xffffffffu;
+            if (q >= sw) continue;
+            const unsigned li4 = sh.li[q * ld + rc];
+            const unsigned oor4 = sh.oor[q * ld + rc];
+            const unsigned p4 = forge_p ? valid_word(q, sw, S)
+                                        : (clear_p ? 0u : P4[q]);
+            own[k] = li4 | ~p4;
+            const unsigned eqv = v2_in ? __vcmpeq4(li4, v2w) : 0u;
+            if ((oor4 | eqv) & p4) bad_own = true;
+            // Eligible: set in P, in [0, w] and below 64.
+            nel[k] = ~(p4 & ~oor4 & ~__vcmpeq4(li4, 0x40404040u));
+          }
+          for (int r = 0; r < cnt_v; ++r) {
+            unsigned row[4];
+            if (vec4) {
+              const uint4 x = *reinterpret_cast<const uint4*>(R4 + r * sw + q0);
+              row[0] = x.x; row[1] = x.y; row[2] = x.z; row[3] = x.w;
+            } else {
+              for (int k = 0; k < 4; ++k)
+                row[k] = q0 + k < sw ? R4[r * sw + q0 + k] : own[k];
+            }
+            unsigned any = 0u;
+            for (int k = 0; k < 4; ++k) {
+              const unsigned x = row[k] ^ own[k], y = x | nel[k];
+              any |= x;
+              coll_w |= (y - 0x01010101u) & ~y & 0x80808080u;
+            }
+            if (any) mis |= 1ull << r;
+          }
+        }
+        bool own_coll = coll_w != 0u;
+        for (int o = G >> 1; o; o >>= 1) {
+          mis |= __shfl_xor_sync(kFull, mis, o);
+          bad_own |= __shfl_xor_sync(kFull, int(bad_own), o);
+          own_coll |= __shfl_xor_sync(kFull, int(own_coll), o);
+        }
+        if (lossy && act && ((lossy >> rv) & 1ull) &&
+            lossy_hit(li, rv, d, e + sh.L.bp, forge_p, clear_p)) {
+          mis = valid_rows;
+          bad_own = true;
+        }
+        const int plen = forge_p ? S : (clear_p ? 0 : plen_p);
+        const bool dup = !clear_l && ((~mis & valid_rows) != 0ull);
+        const bool appended = !dup && count_eff < max_l;
+        const int new_count = appended ? count_eff + 1 : count_eff;
+        const bool cond1 = !appended || count_eff == 0 || plen == len0;
+        const bool cond2 = !(appended && bad_own);
+        const bool cond3 = !appended || clear_l || !own_coll;
+        const bool ok = act && cond1 && cond2 && cond3 &&
+                        new_count == round_idx + 1;
+        const unsigned bits =
+            compress_lanes(__ballot_sync(kFull, ok && g == 0), G);
+        okbits |= static_cast<unsigned long long>(bits) << k0;
+      }
+      clk.mark(kRpReceivers);
     }
-    if (lane == 0) sh.ok_mask[pk] = okbits;
-    __syncwarp();
+    if (lane == 0) {
+      sh.ok_mask[pk] = okbits;
+      sh.info[pk] = (cell << 8) | (v >= 0 && v < w ? v : 0xff);
+    }
+    __syncwarp();  // the buffer is refilled two packets on
+    m0 = m1;
+    m1 = m2;
+    dc[0] = dn[0];
+    dc[1] = dn[1];
   }
 }
 
@@ -423,38 +874,41 @@ __device__ inline void close_slots(const Shared& sh, int rv, int cnt,
   }
 }
 
-// ---- Phase B: first accept per value, a warp per receiver. ----
-// Updates vi_mask; with `rebroadcast`, fills src_list/k_cnt and raises
-// misc[1] on overflow.  With `acc` non-null, writes the accepted matrix
-// int32 0/1 [n_pool, n_rv] for its rows pk < n_scan.
-template <class Src>
-__device__ inline void dedup_phase(const Shared& sh, const int32_t* meta,
-                                   const int32_t* honest, const Src& dr,
-                                   const Dims& d, int n_scan,
+// ---- Phase B: first accept per value, a warp per receiver, over the
+// cells list[0, n) (or, with list null, the cells [0, n)), each one's
+// verdict, cell and order read from shared memory.  Updates vi_mask; with
+// `rebroadcast`, fills src_list/k_cnt and raises misc[1] on overflow.
+// With `acc` non-null, writes the accepted matrix int32 0/1 [n_pool, n_rv]
+// for its rows pk < n (list null). ----
+__device__ inline void dedup_phase(const Shared& sh, const Draws& dr,
+                                   const Dims& d, int n, const int* list,
                                    bool rebroadcast, int32_t* acc) {
   const int n_rv = d.n_rv, slots = d.slots, w = d.w;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int rv = warp; rv < n_rv; rv += kWarps) {
     unsigned long long vim = sh.vi_mask[rv];
     int cnt = 0;
-    for (int base = 0; base < n_scan; base += 32) {
-      const int pk = base + lane;
+    for (int base = 0; base < n; base += 32) {
+      const int i = base + lane;
+      const int pk = i < n ? (list ? list[i] : i) : 0;
+      const bool hit = i < n && ((sh.ok_mask[pk] >> rv) & 1ull);
+      if (!__any_sync(kFull, hit)) {
+        if (acc != nullptr && i < n) acc[size_t(pk) * n_rv + rv] = 0;
+        continue;
+      }
       bool cand = false;
       int v2 = -1;
-      if (pk < n_scan && ((sh.ok_mask[pk] >> rv) & 1ull)) {
-        const int32_t* m = meta + size_t(pk) * 4;
-        const int cell = m[3];
-        const auto dw = dr.draw(d, cell, rv, honest[cell] == 0);
-        v2 = (dw.attack & kForge) ? dw.rand_v() : m[1];
+      if (hit) {
+        const int inf = sh.info[pk], cell = inf >> 8, v = inf & 0xff;
+        const auto dw = dr.draw(d, cell, rv, !sh.honest(cell));
+        v2 = (dw.attack & kForge) ? dw.rand_v() : (v == 0xff ? -1 : v);
         cand = v2 >= 0 && v2 < w && !((vim >> v2) & 1ull);
       }
       const unsigned peers = __match_any_sync(kFull, cand ? v2 : 64 + lane);
       const bool win = cand && lane == __ffs(peers) - 1;
       const unsigned winners = __ballot_sync(kFull, win);
-      unsigned long long bit = win ? (1ull << v2) : 0ull;
-      vim |= warp_or64(bit);
-      if (acc != nullptr && pk < n_scan)
-        acc[size_t(pk) * n_rv + rv] = int32_t(win);
+      vim |= warp_or64(win ? (1ull << v2) : 0ull);
+      if (acc != nullptr && i < n) acc[size_t(pk) * n_rv + rv] = int32_t(win);
       if (rebroadcast) assign_slots(sh, rv, pk, win, winners, cnt, slots);
     }
     if (lane == 0) sh.vi_mask[rv] = vim;
@@ -480,15 +934,6 @@ __device__ inline void slots_from_acc(const Shared& sh, const int32_t* acc,
       }
     }
     close_slots(sh, rv, cnt, slots);
-  }
-}
-
-// ---- Phase C: compacted destinations, receiver-major (thread 0; the
-// caller synchronises and reads the total from offs[n_rv]). ----
-__device__ inline void offsets_phase(const Shared& sh, int n_rv) {
-  if (threadIdx.x == 0) {
-    sh.offs[0] = 0;
-    for (int r = 0; r < n_rv; ++r) sh.offs[r + 1] = sh.offs[r] + sh.k_cnt[r];
   }
 }
 
@@ -628,11 +1073,13 @@ __device__ inline Draws draws_at(const uint8_t* attack, const uint8_t* rand_v,
   return Draws{attack + base, rand_v + base, late + base};
 }
 
-// Shared memory the kernels need, or a CUDA error: raises the kernel's
-// dynamic limit past 48 KB where needed.
+// Shared memory the kernels need (Smem, with or without the verdict's
+// parts), or a CUDA error: raises the kernel's dynamic limit past 48 KB
+// where needed.
 template <typename Kernel>
-inline int prepare_smem(Kernel kernel, const Dims& d, size_t* smem) {
-  *smem = Smem(d).total;
+inline int prepare_smem(Kernel kernel, const Dims& d, size_t* smem,
+                        bool verdict = true) {
+  *smem = Smem(d, verdict).total;
   if (*smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(*smem));

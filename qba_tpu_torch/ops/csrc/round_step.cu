@@ -14,10 +14,12 @@
 // Design.  One thread block per trial; the phases of round_common.cuh
 // separated by __syncthreads().  The mailbox is a pool whose packet pk
 // sits at its own cell (meta lane 3 holds pk), so the setup, the verdict
-// (phase A, a warp per sent cell; unsent cells are skipped on `sent`
-// after one meta read) and the first-accept dedup with slot allocation
-// (phase B, a warp per receiver, ballots and popcounts) are the device
-// functions the pool kernels run.  What differs is the rebuild: the
+// (phase A) and the first-accept dedup with slot allocation (phase B) are
+// the device functions the pool kernels run.  The setup compacts the sent
+// cells into a list in shared memory, in cell order, so the verdict's
+// warps take sent cells evenly (a warp a cell, staged with cp.async one
+// cell ahead) and never touch an unsent one, and the dedup walks the list
+// in the same first-accept order.  What differs is the rebuild: the
 // rebroadcast of receiver r in slot s goes to cell r * slots + s with no
 // compaction, so a warp per live destination cell rebuilds it from its
 // source packet (rebuild_entry) and the block fills each receiver's unsent
@@ -28,7 +30,8 @@
 // into its outputs; here warps read cells that others rewrite, so the
 // caller passes two mailboxes and ping-pongs (never in place).  Its lane
 // groups, tail-overlap group and `done` set fill 128 TPU lanes and have
-// no counterpart.
+// no counterpart.  On an NVIDIA H100 80GB HBM3 at 700 W the list and the
+// shared verdict took the 33-party kernel from 1.99 to 1.07 ms (PERF.md).
 //
 // The party-sharded variant (the TPU kernel's n_recv build), as in
 // fused_round.cu: a launch takes n_shards shards of a batch, a block per
@@ -81,6 +84,7 @@ struct Params {
   int32_t* o_meta;
   int32_t* o_vi;
   int32_t* o_ovf;
+  long long* clock;  // the clock's instantiations only: int64 [B, kRoundPhases]
   Dims d;
   int n_trials, start, n_dis, round_idx, use_fp;
 };
@@ -108,10 +112,15 @@ __device__ inline MailOut mailbox_at(int8_t* vals, int32_t* lens, int8_t* p,
 // The single-device instantiation takes the host's dims (r_off = 0 and
 // n_glob = n_rv at run time, n_pk successor cells from cell 0): with the
 // constants of BlockAt::dims folded in, the compiler spilled 28 bytes.
-template <bool kSharded>
-__global__ void __launch_bounds__(kThreads)
+// Both ask for three blocks an SM (at most 85 registers a thread): left to
+// the compiler they took 128 registers and 16% more time at 11 parties
+// (PERF.md).
+template <bool kSharded, bool kClock>
+__global__ void __launch_bounds__(kThreads, 3)
 round_step_kernel(Params P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  PhaseClock<kClock, kRoundPhases> clk;
+  clk.start();
   const BlockAt<kSharded> at(P.n_trials);
   const size_t b = blockIdx.x, t = at.t;
   const Dims d = kSharded ? at.dims(P.d, P.start) : P.d;
@@ -127,23 +136,27 @@ round_step_kernel(Params P) {
   const Draws dr = draws_at(P.attack, P.rand_v, P.late, t, d);
   const int warp = threadIdx.x >> 5;
 
-  // Setup: zeroed verdicts, vi as masks, one past the last sent cell.
-  clear_round(sh, n_pk);
-  load_vi_mask(sh, P.vi + b * size_t(d.n_rv) * d.w, d);
+  // Setup: vi as masks, the cells' sent and honesty bits; then the sent
+  // cells' list (cell order) and the block's lists in shared memory.
+  round_setup(sh, in.meta, honest, P.vi + b * size_t(d.n_rv) * d.w, li, d,
+              false);
   __syncthreads();
-  scan_extent(sh, in.meta, n_pk);
+  list_sent(sh, d);
   __syncthreads();
-  const int n_scan = sh.misc[0];
+  const int n_sent = sh.misc[0];
+  clk.mark(kRpSetup);
 
-  verdict_phase(sh, in, li, honest, dr, d, n_scan, P.round_idx, P.use_fp);
+  verdict_phase(sh, in, li, dr, d, n_sent, P.round_idx, P.use_fp, clk);
   __syncthreads();
+  clk.mark(kRpVerdictWait);
   // Rebroadcast only while round <= n_dishonest; else every receiver's
   // slot count stays 0 and the successor is empty.
-  dedup_phase(sh, in.meta, honest, dr, d, n_scan, P.round_idx <= P.n_dis,
-              nullptr);
+  dedup_phase(sh, dr, d, n_sent, sh.list, P.round_idx <= P.n_dis, nullptr);
   __syncthreads();
+  clk.mark(kRpDedup);
   store_vi(sh, P.o_vi + b * size_t(d.n_rv) * d.w, d);
   if (threadIdx.x == 0) P.o_ovf[b] = sh.misc[1];
+  clk.mark(kRpOffsets);
 
   // Rebuild: a warp per live destination cell c = receiver * slots +
   // slot of the block's receivers; then each receiver's unsent slots,
@@ -154,6 +167,7 @@ round_step_kernel(Params P) {
       rebuild_entry(in, out, li, honest, dr, d, c, rr, slot, sh.src_list[c],
                     P.use_fp);
   }
+  clk.mark(kRpRebuild);
   for (int rr = 0; rr < d.n_rv; ++rr) {
     const int first = rr * slots + sh.k_cnt[rr];
     const size_t dead = size_t(slots - sh.k_cnt[rr]);
@@ -169,17 +183,22 @@ round_step_kernel(Params P) {
     if (c - rr * slots >= sh.k_cnt[rr])
       reinterpret_cast<int4*>(out.meta)[c] = make_int4(0, 0, 0, cell0 + c);
   }
+  clk.mark(kRpFill);
+  clk.store(P.clock + b * kRoundPhases);
 }
 
 }  // namespace
 
 // Returns a cudaError_t: 0 on a launch that was accepted.  n_local
 // receivers a shard, n_shards shards from receiver `start` on, of n_glob.
+// A non-null `clock` launches the phase clock's instantiation, which adds
+// each block's cycles into it (int64 [n_shards * n_trials, kRoundPhases]).
 extern "C" int qba_round_step(
     const void* vals, const void* lens, const void* p, const void* meta,
     const void* li, const void* vi, const void* honest, const void* attack,
     const void* rand_v, const void* late, void* o_vals, void* o_lens,
-    void* o_p, void* o_meta, void* o_vi, void* o_ovf, int n_trials,
+    void* o_p, void* o_meta, void* o_vi, void* o_ovf, void* clock,
+    int n_trials,
     int n_shards, int n_local, int n_glob, int start, int slots, int max_l,
     int size_l, int w, int n_dis, int round_idx, int use_fp, void* stream) {
   if (n_trials <= 0 || n_shards <= 0) return 0;
@@ -204,15 +223,19 @@ extern "C" int qba_round_step(
   prm.o_meta = static_cast<int32_t*>(o_meta);
   prm.o_vi = static_cast<int32_t*>(o_vi);
   prm.o_ovf = static_cast<int32_t*>(o_ovf);
+  prm.clock = static_cast<long long*>(clock);
   prm.d = d;
   prm.n_trials = n_trials;
   prm.start = start;
   prm.n_dis = n_dis;
   prm.round_idx = round_idx;
   prm.use_fp = use_fp;
-  const auto kernel = sharded_launch(n_shards, n_local, n_glob)
-                          ? round_step_kernel<true>
-                          : round_step_kernel<false>;
+  const bool sharded = sharded_launch(n_shards, n_local, n_glob);
+  const auto kernel =
+      clock ? (sharded ? round_step_kernel<true, true>
+                       : round_step_kernel<false, true>)
+            : (sharded ? round_step_kernel<true, false>
+                       : round_step_kernel<false, false>);
   size_t smem = 0;
   if (int e = prepare_smem(kernel, d, &smem)) return e;
   kernel<<<n_trials * n_shards, kThreads, smem,

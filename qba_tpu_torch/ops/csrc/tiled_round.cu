@@ -13,8 +13,10 @@
 //
 // Design.  The fused round kernel's phases (round_common.cuh), one block
 // per trial, cut after phase B:
-//   verdict  setup, A, B; B writes acc for packets below the scan
-//            extent and the rest of acc is zeroed.  No slots are taken.
+//   verdict  setup, A, B; A is the fused round's verdict over the list of
+//            sent packets; B walks the packets below the scan extent (one
+//            past the last sent one), writes their rows of acc, and the
+//            rest of acc is zeroed.  No slots are taken.
 //   rebuild  each receiver's slots come from its column of acc in
 //            packet order (a warp per receiver, ballots), with the
 //            overflow flag; then C, D and E as in the fused kernel.
@@ -87,8 +89,10 @@ struct RebuildParams {
   int n_trials, start, n_dis, round_idx, use_fp;
 };
 
+// Three blocks an SM (at most 85 registers a thread), four for the rebuild
+// (64), as timed side by side on the H100 (PERF.md).
 template <bool kSharded>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 3)
 tiled_verdict_kernel(VerdictParams P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const BlockAt<kSharded> at(P.n_trials);
@@ -102,16 +106,19 @@ tiled_verdict_kernel(VerdictParams P) {
   const Draws dr = draws_at(P.attack, P.rand_v, P.late, t, d);
   int32_t* acc = P.o_acc + b * size_t(n_pool) * d.n_rv;
 
-  clear_round(sh, n_pool);
-  load_vi_mask(sh, P.vi + b * size_t(d.n_rv) * d.w, d);
+  // The dedup walks cells [0, n_scan), so every cell's verdict starts 0.
+  round_setup(sh, in.meta, honest, P.vi + b * size_t(d.n_rv) * d.w, li, d,
+              true);
   __syncthreads();
-  scan_extent(sh, in.meta, n_pool);
+  list_sent(sh, d);
   __syncthreads();
-  const int n_scan = sh.misc[0];
+  const int n_sent = sh.misc[0];
+  const int n_scan = n_sent ? sh.list[n_sent - 1] + 1 : 0;
 
-  verdict_phase(sh, in, li, honest, dr, d, n_scan, P.round_idx, P.use_fp);
+  PhaseClock<false, kRoundPhases> clk;
+  verdict_phase(sh, in, li, dr, d, n_sent, P.round_idx, P.use_fp, clk);
   __syncthreads();
-  dedup_phase(sh, in.meta, honest, dr, d, n_scan, false, acc);
+  dedup_phase(sh, dr, d, n_scan, nullptr, false, acc);
   block_fill(reinterpret_cast<int8_t*>(acc + size_t(n_scan) * d.n_rv),
              size_t(n_pool - n_scan) * d.n_rv * 4, 0);
   __syncthreads();
@@ -123,14 +130,14 @@ tiled_verdict_kernel(VerdictParams P) {
 // the constants of BlockAt::dims folded in, the compiler took it from 64
 // registers to 80 with a spill, and 12% more time at 33 parties.
 template <bool kSharded>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 4)
 tiled_rebuild_kernel(RebuildParams P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const BlockAt<kSharded> at(P.n_trials);
   const size_t b = blockIdx.x, t = at.t;
   const Dims d = kSharded ? at.dims(P.d, P.start) : P.d;
   const int n_pool = d.n_pool();
-  const Shared sh(smem_raw, d);
+  const Shared sh(smem_raw, d, false);
   const PoolIn in = pool_at(P.vals, P.lens, P.p, P.meta, b, n_pool, d);
   const PoolOut out = pool_at(P.o_vals, P.o_lens, P.o_p, P.o_meta, b,
                               kSharded ? d.n_out() : n_pool, d);
@@ -145,7 +152,7 @@ tiled_rebuild_kernel(RebuildParams P) {
   __syncthreads();
   slots_from_acc(sh, acc, d, n_pool, P.round_idx <= P.n_dis);
   __syncthreads();
-  offsets_phase(sh, d.n_rv);
+  offsets_phase(sh.offs, sh.k_cnt, d.n_rv);
   if (threadIdx.x == 0) P.o_ovf[b] = sh.misc[1];
   __syncthreads();
   const int total = sh.offs[d.n_rv];
@@ -236,7 +243,7 @@ extern "C" int qba_tiled_rebuild(
                           ? tiled_rebuild_kernel<true>
                           : tiled_rebuild_kernel<false>;
   size_t smem = 0;
-  if (int e = prepare_smem(kernel, d, &smem)) return e;
+  if (int e = prepare_smem(kernel, d, &smem, false)) return e;
   kernel<<<n_trials * n_shards, kThreads, smem,
            static_cast<cudaStream_t>(stream)>>>(prm);
   return int(cudaGetLastError());

@@ -498,7 +498,7 @@ template <bool kGen, bool kSharded, bool kKeyed, bool kStaged,
 __global__ void __launch_bounds__(kMegaThreads, kMegaBlocks)
 trial_megakernel(Params P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  PhaseClock<kClock> clk;
+  MegaClock<kClock> clk;
   clk.start();
   Dims d = P.d;
   const int n_rv = d.n_rv, S = d.size_l, w = d.w, n_glob = d.n_glob;
@@ -553,7 +553,7 @@ trial_megakernel(Params P) {
   // prefix count of the accepting lieutenants. ----
   mega_entry(sh, p_rows, li_all, v_sent, P.honest + t * size_t(n_pool), d);
   __syncthreads();
-  mega_offsets(sh, n_rv);
+  offsets_phase(sh.offs, sh.k_cnt, n_rv);
   __syncthreads();
   int base = 0, n_scan = sh.offs[n_rv];
   if constexpr (kSharded) {
@@ -583,7 +583,7 @@ trial_megakernel(Params P) {
     __syncthreads();
     clk.mark(kPhDedup);
     if (!rebroadcast) break;  // the last round builds no successor
-    mega_offsets(sh, n_rv);
+    offsets_phase(sh.offs, sh.k_cnt, n_rv);
     if constexpr (kKeyed) {
       // Warp 1 derives the next round's keys while warp 0 scans; round
       // r - 1, the last reader of their words, is past its barriers.

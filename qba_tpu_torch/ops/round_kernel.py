@@ -39,6 +39,7 @@ from qba_tpu_torch.ops._launch import (
     check_kernel_shapes,
     dispatch,
     kernel_fn,
+    no_clock,
     ptrs,
     timed_launch,
 )
@@ -46,10 +47,12 @@ from qba_tpu_torch.ops.round_kernel_tiled import (
     META_COUNT,
     META_SENT,
     META_V,
+    check_round_smem,
     honest_cells,
     launch_ints,
     pool_vals_dtype,
     rebuilt_entries,
+    round_clock_ptr,
     shard_plan,
     shard_starts,
     stack_shards,
@@ -247,7 +250,7 @@ def _check_inputs(cfg: QBAConfig, mailbox, li, vi, honest_pk, draws,
 
 def round_step(cfg: QBAConfig, round_idx: int, mailbox, li, vi, honest_pk,
                attack, rand_v, late, out=None, *, start: int = 0,
-               n_recv: int | None = None):
+               n_recv: int | None = None, clock=None):
     """One voting round over the dense mailbox: ``(mailbox', vi',
     overflow bool [T])``.
 
@@ -263,13 +266,18 @@ def round_step(cfg: QBAConfig, round_idx: int, mailbox, li, vi, honest_pk,
     :func:`round_step_reference`): one launch for every shard of the
     leading shard axis, each writing its local mailbox ``[n_sh, T,
     n_recv * slots, ...]``; overflow is ``[n_sh, T]``.
+
+    ``clock`` as in :func:`~qba_tpu_torch.ops.round_kernel_tiled.
+    fused_round`.
     """
     if not dispatch("round_step", mailbox):
+        no_clock(clock)
         return round_step_reference(cfg, round_idx, mailbox, li, vi,
                                     honest_pk, attack, rand_v, late,
                                     start=start, n_recv=n_recv)
     check_kernel_shapes(cfg, "dense-mailbox round")
     n_sh, n_local, lead = shard_plan(cfg, li, start, n_recv)
+    check_round_smem(cfg, n_local, "dense-mailbox round")
     n_trials = _check_inputs(cfg, mailbox, li, vi, honest_pk,
                              dict(attack=attack, rand_v=rand_v, late=late),
                              lead, n_local)
@@ -288,9 +296,10 @@ def round_step(cfg: QBAConfig, round_idx: int, mailbox, li, vi, honest_pk,
     vi_out = torch.empty_like(vi)
     ovf = torch.empty(lead + (n_trials,), dtype=torch.int32,
                       device=vi.device)
-    fn = kernel_fn("round_step", "qba_round_step", 16, 12)
+    fn = kernel_fn("round_step", "qba_round_step", 17, 12)
     args = ptrs(*mailbox, li, vi, honest_pk, attack, rand_v, late, *out,
                 vi_out, ovf)
+    args += [round_clock_ptr(clock, lead, n_trials, vi.device)]
     args += launch_ints(cfg, n_trials, n_sh, n_local, start)
     args += [cfg.n_dishonest, int(round_idx), int(cfg.strategy == "split")]
     timed_launch(round_step, fn, args, torch.cuda.current_stream(vi.device))

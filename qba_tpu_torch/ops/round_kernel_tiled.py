@@ -49,8 +49,11 @@ from qba_tpu_torch.ops._launch import (
     KERNEL_MAX_W,
     check,
     check_kernel_shapes,
+    clock_breakdown,
+    clock_ptr,
     dispatch,
     kernel_fn,
+    no_clock,
     ptrs,
     timed_launch,
 )
@@ -61,6 +64,66 @@ from qba_tpu_torch.ops.verdict_algebra import (
 )
 
 META_COUNT, META_V, META_SENT, META_CELL = 0, 1, 2, 3
+# The per-round kernels' phase clock (``csrc/round_common.cuh``,
+# ``RoundPhase``): the phases of the fused round's and the dense-mailbox
+# round's blocks, in the order of the clock's int64 ``[..., T,
+# len(ROUND_PHASES)]`` buffer.
+ROUND_PHASES = ("setup", "stage", "receivers", "verdict_wait", "dedup",
+                "offsets", "rebuild", "fill")
+# The per-round kernels' block: ROUND_WARPS warps (``kWarps``,
+# ``csrc/round_common.cuh``).
+ROUND_WARPS = 8
+# The largest dynamic shared memory of a block on the H100 (``kSmemLimit``).
+SMEM_LIMIT = 232448
+
+
+def lane_group(n_rv: int) -> int:
+    """Lanes a receiver in the kernels' verdicts (``lane_group``,
+    ``csrc/round_common.cuh``): 32 / G receivers run across a warp's
+    lanes at once, each over G lanes that split the packet's words."""
+    return 4 if n_rv <= 8 else (2 if n_rv <= 16 else 1)
+
+
+def _align16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def round_smem_bytes(cfg: QBAConfig, n_local: int | None = None,
+                     verdict: bool = True) -> int:
+    """Dynamic shared memory of a per-round kernel's block (``Smem``,
+    ``csrc/round_common.cuh``) draining ``n_local`` receivers (default
+    every lieutenant): the accepted sets, slots, counts, offsets and
+    flags; with ``verdict`` (every kernel but the tiled rebuild) also each
+    warp's lossy receivers, each cell's verdict and order, the cells' sent
+    and honesty bits, the sent cells' list, the block's lists as int8
+    words ``[sw][n_local + 1]`` with their out-of-range words, and
+    ``ROUND_WARPS`` warps' packet buffers (lens, P and the rows as words;
+    two a warp where they fit :data:`SMEM_LIMIT`, else one)."""
+    n_rv = cfg.n_lieutenants if n_local is None else n_local
+    n_pool = cfg.n_lieutenants * cfg.slots
+    sw = -(-cfg.size_l // 4)
+    lossy = _align16(8 * n_rv + 4 * n_rv * cfg.slots + 4 * n_rv
+                     + 4 * (n_rv + 1)) + 32
+    if not verdict:
+        return lossy
+    ok = lossy + 8 * ROUND_WARPS
+    cells = ok + 8 * n_pool + 4 * n_pool + 8 * -(-n_pool // 32) + 4 * n_pool
+    stage = _align16(cells + 2 * 4 * sw * (n_rv + 1))
+    buf = (_align16(4 * cfg.max_l) + _align16(4 * sw)
+           + _align16(4 * sw * cfg.max_l))
+    stages = 2 if stage + ROUND_WARPS * 2 * buf <= SMEM_LIMIT else 1
+    return stage + ROUND_WARPS * stages * buf
+
+
+def check_round_smem(cfg: QBAConfig, n_local: int, kernel: str) -> None:
+    """Raise ``NotImplementedError`` where a per-round kernel's block
+    would need more shared memory than the card gives one block."""
+    need = round_smem_bytes(cfg, n_local)
+    if need > SMEM_LIMIT:
+        raise NotImplementedError(
+            f"the {kernel} kernel needs {need} B of shared memory a block "
+            f"at size_l={cfg.size_l}, more than the {SMEM_LIMIT} B the card "
+            "gives one block")
 
 
 def pool_vals_dtype(cfg: QBAConfig) -> torch.dtype:
@@ -493,9 +556,34 @@ def launch_ints(cfg: QBAConfig, n_trials: int, n_sh: int, n_local: int,
             cfg.slots, cfg.max_l, cfg.size_l, cfg.w]
 
 
+def round_phase_clock(n_trials: int, n_shards: int | None = None,
+                      device=None):
+    """A zeroed phase-clock buffer for a per-round kernel's ``clock``
+    argument: int64 ``[n_trials, len(ROUND_PHASES)]``, with a leading
+    shard axis for an ``n_recv`` launch of ``n_shards`` shards.  Each
+    launch adds its blocks' cycles into it, so one buffer sums a batch's
+    rounds."""
+    lead = () if n_shards is None else (n_shards,)
+    return torch.zeros(lead + (n_trials, len(ROUND_PHASES)),
+                       dtype=torch.int64, device=device)
+
+
+def round_phase_breakdown(clock) -> dict:
+    """A filled per-round phase clock's breakdown
+    (:func:`~qba_tpu_torch.ops._launch.clock_breakdown` over
+    :data:`ROUND_PHASES`)."""
+    return clock_breakdown(clock, ROUND_PHASES)
+
+
+def round_clock_ptr(clock, lead, n_trials: int, device):
+    """A per-round launch's clock address (None without a clock)."""
+    return clock_ptr(clock, tuple(lead) + (n_trials, len(ROUND_PHASES)),
+                     device)
+
+
 def fused_round(cfg: QBAConfig, round_idx: int, pool, li, vi, honest_c,
                 attack, rand_v, late, out=None, *, start: int = 0,
-                n_recv: int | None = None):
+                n_recv: int | None = None, clock=None):
     """One voting round: ``(pool', vi', overflow bool [T])``.
 
     CPU tensors run :func:`fused_round_reference`.  CUDA tensors launch
@@ -510,13 +598,19 @@ def fused_round(cfg: QBAConfig, round_idx: int, pool, li, vi, honest_c,
     leading shard axis, each writing its local segment ``[n_sh, T, ...]``
     of ``n_recv * slots`` entries into ``out`` or a new one; overflow is
     ``[n_sh, T]``.
+
+    ``clock`` (:func:`round_phase_clock`) launches the phase clock's
+    instantiation, which adds each block's cycles per phase into it; the
+    plain version refuses it.
     """
     if not dispatch("fused_round", pool):
+        no_clock(clock)
         return fused_round_reference(cfg, round_idx, pool, li, vi,
                                      honest_c, attack, rand_v, late,
                                      start=start, n_recv=n_recv)
     check_kernel_shapes(cfg, "fused round")
     n_sh, n_local, lead = shard_plan(cfg, li, start, n_recv)
+    check_round_smem(cfg, n_local, "fused round")
     n_trials = _check_round_inputs(
         cfg, pool, li, honest_c,
         dict(attack=attack, rand_v=rand_v, late=late), vi=vi, lead=lead,
@@ -525,9 +619,10 @@ def fused_round(cfg: QBAConfig, round_idx: int, pool, li, vi, honest_c,
     out = _check_out_pool(cfg, pool, out, lead, n_local)
     vi_out = torch.empty_like(vi)
     ovf = torch.empty(lead + (n_trials,), dtype=torch.int32, device=dev)
-    fn = kernel_fn("fused_round", "qba_fused_round", 16, 12)
+    fn = kernel_fn("fused_round", "qba_fused_round", 17, 12)
     args = ptrs(*pool, li, vi, honest_c, attack, rand_v, late, *out,
-                 vi_out, ovf)
+                vi_out, ovf)
+    args += [round_clock_ptr(clock, lead, n_trials, dev)]
     args += launch_ints(cfg, n_trials, n_sh, n_local, start)
     args += [cfg.n_dishonest, int(round_idx), int(cfg.strategy == "split")]
     timed_launch(fused_round, fn, args, torch.cuda.current_stream(dev))
@@ -558,6 +653,7 @@ def tiled_verdict(cfg: QBAConfig, round_idx: int, pool, li, vi, honest_c,
                                  n_recv=n_recv)
     check_kernel_shapes(cfg, "tiled verdict")
     n_sh, n_local, lead = shard_plan(cfg, li, start, n_recv)
+    check_round_smem(cfg, n_local, "tiled verdict")
     n_trials = _check_round_inputs(
         cfg, pool, li, honest_c,
         dict(attack=attack, rand_v=rand_v, late=late), vi=vi, lead=lead,

@@ -56,8 +56,11 @@ from qba_tpu_torch.core import decide_order
 from qba_tpu_torch.ops._launch import (
     check,
     check_kernel_shapes,
+    clock_breakdown,
+    clock_ptr,
     dispatch,
     kernel_fn,
+    no_clock,
     ptrs,
     timed_launch,
 )
@@ -68,6 +71,7 @@ from qba_tpu_torch.ops.attack_draws import (
 )
 from qba_tpu_torch.ops.round_kernel_tiled import (
     assemble_pool,
+    _align16,
     fused_round_reference,
     pool_from_step3a,
     shard_receivers,
@@ -171,7 +175,7 @@ def trial_megakernel_keyed(cfg: QBAConfig, p_rows, li, v_sent, honest_c,
     :func:`mega_staged`; else the launch raises).
     """
     if not dispatch("trial_megakernel_keyed", (li,)):
-        _no_clock(clock)
+        no_clock(clock)
         return trial_megakernel_keyed_reference(cfg, p_rows, li, v_sent,
                                                 honest_c, k_rounds, ctx)
     dev = li.device
@@ -203,13 +207,6 @@ def mega_entry_bytes(cfg: QBAConfig) -> int:
         4 * sw * cfg.max_l)
 
 
-def mega_lane_group(n_rv: int) -> int:
-    """Lanes a receiver in the megakernel's verdict (``lane_group``): 32
-    / G receivers run across a warp's lanes at once, each over G lanes
-    that split the packet's words."""
-    return 4 if n_rv <= 8 else (2 if n_rv <= 16 else 1)
-
-
 def mega_smem_bytes(cfg: QBAConfig, n_tp: int = 1, keyed: bool = True,
                     staged: bool = True) -> int:
     """Dynamic shared memory of a megakernel block (``MegaSmem`` and the
@@ -238,10 +235,6 @@ def mega_staged(cfg: QBAConfig, n_tp: int = 1,
     return mega_smem_bytes(cfg, n_tp) <= limit
 
 
-def _align16(x: int) -> int:
-    return (x + 15) & ~15
-
-
 def _outputs(cfg: QBAConfig, n_trials: int, device, n_ovf: int | None = None):
     """A launch's scratch and outputs, in the kernels' argument order: the
     two ping-pong pools, uint8 ``[T, n_pool, mega_entry_bytes(cfg)]``
@@ -267,33 +260,14 @@ def phase_clock(n_trials: int, n_tp: int = 1, device=None):
 
 
 def phase_breakdown(clock) -> dict:
-    """A filled phase clock's breakdown: per phase, warp 0's mean cycles
-    per block and its share of the phases' sum; under ``"block"`` the
-    mean and the largest of the blocks' sums (the slowest block bounds a
-    one-wave launch)."""
-    per_block = clock.reshape(-1, len(MEGA_PHASES)).double()
-    cycles = per_block.mean(0).tolist()
-    total = sum(cycles) or 1.0
-    out = {name: dict(cycles=c, share=c / total)
-           for name, c in zip(MEGA_PHASES, cycles)}
-    sums = per_block.sum(1)
-    out["block"] = dict(mean=float(sums.mean()), max=float(sums.max()))
-    return out
-
-
-def _no_clock(clock) -> None:
-    """Raise where the plain version is asked for a phase clock."""
-    if clock is not None:
-        raise ValueError("the phase clock runs only in the CUDA kernel")
+    """A filled phase clock's breakdown (:func:`~qba_tpu_torch.ops._launch.
+    clock_breakdown` over :data:`MEGA_PHASES`)."""
+    return clock_breakdown(clock, MEGA_PHASES)
 
 
 def _clock_ptr(clock, n_trials: int, n_tp: int, device):
     """The clock buffer's address after checking it, or None."""
-    if clock is None:
-        return None
-    check("clock", clock, torch.int64, (n_trials, n_tp, len(MEGA_PHASES)),
-          device)
-    return clock.data_ptr()
+    return clock_ptr(clock, (n_trials, n_tp, len(MEGA_PHASES)), device)
 
 
 def _body_ints(cfg: QBAConfig, n_trials: int, n_tp: int | None = None):
@@ -430,7 +404,7 @@ def sharded_trial_megakernel_keyed(cfg: QBAConfig, n_tp: int, p_rows, li,
     :func:`sharded_trial_megakernel`; ``clock`` as
     :func:`trial_megakernel_keyed`, a row a block."""
     if not dispatch("sharded_trial_megakernel_keyed", (li,)):
-        _no_clock(clock)
+        no_clock(clock)
         return sharded_trial_megakernel_keyed_reference(
             cfg, n_tp, p_rows, li, v_sent, honest_c, k_rounds, ctx)
     _check_shards(cfg, n_tp)
@@ -575,7 +549,7 @@ def trial_megakernel_gen_keyed(cfg: QBAConfig, gen_tables, gen_ops, v_sent,
     :func:`trial_megakernel_gen` and :func:`trial_megakernel_keyed`
     (``clock`` too)."""
     if not dispatch("trial_megakernel_gen_keyed", (v_sent,)):
-        _no_clock(clock)
+        no_clock(clock)
         return trial_megakernel_gen_keyed_reference(
             cfg, gen_tables, gen_ops, v_sent, honest_c, k_rounds, ctx)
     dev = v_sent.device

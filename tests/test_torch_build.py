@@ -158,3 +158,22 @@ def test_draws_header_edit_rebuilds_its_kernels(tmp_path, monkeypatch):
     changed = {name for name in _build.KERNELS
                if _build._target(name)[1].name != before[name]}
     assert changed == {"attack_draws", "trial_megakernel"}
+
+
+def test_round_header_edit_rebuilds_its_kernels(tmp_path, monkeypatch):
+    # round_common.cuh holds the per-round kernels' phases and the helpers
+    # the megakernel's header shares (lane groups, cp.async, the phase
+    # clock): an edit there changes the build keys of the three per-round
+    # sources and the megakernel, and no other kernel's.
+    import shutil
+
+    before = {name: _build._target(name)[1].name for name in _build.KERNELS}
+    copy = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, copy)
+    monkeypatch.setattr(_build, "CSRC", copy)
+    with open(copy / "round_common.cuh", "a") as f:
+        f.write("// edit\n")
+    changed = {name for name in _build.KERNELS
+               if _build._target(name)[1].name != before[name]}
+    assert changed == {"fused_round", "tiled_round", "round_step",
+                       "trial_megakernel"}

@@ -877,3 +877,124 @@ def test_phase_clock(cuda):
         assert (phases["entry"] > 0).all() and phases["verdict"].any()
         assert not phases["gen"].any()
         assert phases["exchange"].any() == (tp > 1)
+
+
+# Edges of the per-round kernels' verdict (rows 1, 2 and 4, which share
+# it): rows of 8 and 10 positions (10 leaves a partial last word, and
+# neither is staged with 16-byte copies), 41 parties (a second pass of
+# receivers past 32), 33 parties (w = 64, the masks' edge), one slot a
+# round (overflow), lists holding values past int8 (x + 256 at the odd
+# receivers' even positions: they match no row and are out of range, as in
+# the plain version), rounds without a live packet (the odd trials'
+# pools and mailboxes emptied) and 1024 positions at 33 parties (one
+# packet buffer a warp).
+VERDICT_EDGES = {
+    "9p-L8": (dict(n_parties=9, size_l=8, n_dishonest=3), None),
+    "9p-L10": (dict(n_parties=9, size_l=10, n_dishonest=3), None),
+    "41p-L64": (dict(n_parties=41, size_l=64, n_dishonest=13), None),
+    "33p-L64": (dict(n_parties=33, size_l=64, n_dishonest=10), None),
+    "11p-slots1": (dict(n_parties=11, size_l=64, n_dishonest=3,
+                        max_accepts_per_round=1), None),
+    "9p-int8": (dict(n_parties=9, size_l=16, n_dishonest=3), "int8"),
+    "9p-empty": (dict(n_parties=9, size_l=16, n_dishonest=3), "empty"),
+    # One packet buffer a warp: two do not fit the block's shared memory.
+    "33p-L1024": (dict(n_parties=33, size_l=1024, n_dishonest=10), None),
+}
+VERDICT_CASES = [(c, tp) for c, (kw, _m) in VERDICT_EDGES.items()
+                 for tp in (1, 2, 4) if (kw["n_parties"] - 1) % tp == 0]
+
+
+def protocol_rounds(cfg, dev, mutate=None):
+    """Each round's ``(r, pool, mailbox, li, vi, hc, draws)`` of real
+    trials, the pool advanced by the plain fused round and the mailbox by
+    the plain dense-mailbox round; ``mutate`` as in VERDICT_EDGES."""
+    honest, li, p_rows, v_sent, k_rounds, ctx = trial_inputs(cfg, dev)
+    vi, out_cells = step3a_one(cfg, p_rows, v_sent, li)
+    pool = rk.pool_from_step3a(cfg, out_cells)
+    mbox = rs.mailbox_from_step3a(cfg, out_cells)
+    hc = rk.honest_cells(honest, cfg)
+    vi = vi.to(torch.int32)
+    if mutate == "int8":
+        li = li.clone()
+        li[:, 1::2, ::2] += 256
+    for r in range(1, cfg.n_rounds + 1):
+        draws = tuple(x.to(torch.uint8) for x in sample_attacks_round(
+            cfg, jr.fold_in(k_rounds, r), r, ctx))
+        if mutate == "empty":
+            for x in (pool[3], mbox[3]):
+                x[1::2, :, rk.META_SENT] = 0
+        yield r, pool, mbox, li, vi, hc, draws
+        pool, vi, _ovf = rk.fused_round_reference(cfg, r, pool, li, vi, hc,
+                                                  *draws)
+        mbox = rs.round_step_reference(cfg, r, mbox, li, vi, hc, *draws)[0]
+
+
+def copies(x, tp):
+    return tuple(a.expand((tp,) + a.shape).contiguous() for a in x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,tp", VERDICT_CASES)
+def test_round_verdict_edges(cuda, case, tp):
+    kw, mutate = VERDICT_EDGES[case]
+    cfg = qba_tpu_torch.QBAConfig(**kw, trials=16, seed=7)
+    accepted = overflowed = False
+    for r, pool, mbox, li, vi, hc, draws in protocol_rounds(cfg, cuda,
+                                                            mutate):
+        if tp == 1:
+            args, margs, kw_sh = (pool, li, vi, hc), (mbox, li, vi, hc), {}
+        else:
+            n_local = cfg.n_lieutenants // tp
+            sli, svi = rk.shard_receivers(li, tp), rk.shard_receivers(vi, tp)
+            args = (copies(pool, tp), sli, svi, hc)
+            margs = (copies(mbox, tp), sli, svi, hc)
+            kw_sh = dict(n_recv=n_local)
+        fused = rk.fused_round(cfg, r, *args, *draws, **kw_sh)
+        assert_equal(fused, rk.fused_round_reference(cfg, r, *args, *draws,
+                                                     **kw_sh))
+        acc, vi2 = rk.tiled_verdict(cfg, r, *args, *draws, **kw_sh)
+        assert_equal((acc, vi2), rk.verdict_reference(cfg, r, *args, *draws,
+                                                      **kw_sh))
+        assert_equal(rk.tiled_rebuild(cfg, r, *args[:2], acc, hc, *draws[:2],
+                                      **kw_sh),
+                     (fused[0], fused[2]))
+        assert_equal(rs.round_step(cfg, r, *margs, *draws, **kw_sh),
+                     rs.round_step_reference(cfg, r, *margs, *draws,
+                                             **kw_sh))
+        accepted |= bool(acc.any())
+        overflowed |= bool(fused[2].any())
+        if mutate == "empty":
+            assert not acc[..., 1::2, :, :].any()
+    assert accepted
+    if case == "11p-slots1":
+        assert overflowed
+
+
+@pytest.mark.cuda
+def test_round_phase_clock(cuda):
+    # The clocked instantiations of the fused round and the dense-mailbox
+    # round, single-device and n_recv, give the plain launch's round and
+    # fill the clock: every block spends cycles in set-up, some in the
+    # receiver passes.
+    cfg = qba_tpu_torch.QBAConfig(n_parties=9, size_l=16, n_dishonest=3,
+                                  trials=16, seed=6)
+    for r, pool, mbox, li, vi, hc, draws in protocol_rounds(cfg, cuda):
+        for tp in (1, 2):
+            if tp == 1:
+                args, margs, kw_sh = (pool, li, vi, hc), (mbox, li, vi, hc), {}
+                lead = None
+            else:
+                sli, svi = rk.shard_receivers(li, tp), rk.shard_receivers(vi, tp)
+                args = (copies(pool, tp), sli, svi, hc)
+                margs = (copies(mbox, tp), sli, svi, hc)
+                kw_sh, lead = dict(n_recv=cfg.n_lieutenants // tp), tp
+            for fn, a in ((rk.fused_round, args), (rs.round_step, margs)):
+                clock = rk.round_phase_clock(cfg.trials, lead, cuda)
+                assert_equal(fn(cfg, r, *a, *draws, **kw_sh, clock=clock),
+                             fn(cfg, r, *a, *draws, **kw_sh))
+                phases = dict(zip(rk.ROUND_PHASES, clock.unbind(-1)))
+                assert (phases["setup"] > 0).all()
+                if r == 1:
+                    assert phases["receivers"].any()
+        if r == 2:
+            break

@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 
 from qba_tpu_torch import QBAConfig
 from qba_tpu_torch.ops import _build
+from qba_tpu_torch.ops import round_kernel_tiled as rk
 from qba_tpu_torch.ops import trial_megakernel as tm
 
 torch.set_num_threads(1)
@@ -103,8 +104,10 @@ def test_staged_layout(shape):
                                     (16, 2), (17, 1), (32, 1), (40, 1),
                                     (64, 1)])
 def test_lane_group(n_rv, g):
-    # G lanes a receiver: one pass holds every receiver up to 32.
-    assert tm.mega_lane_group(n_rv) == g
+    # G lanes a receiver: one pass holds every receiver up to 32.  The
+    # megakernel's verdict and the per-round kernels' share the helper
+    # (round_common.cuh) and its mirror.
+    assert rk.lane_group(n_rv) == g
     assert 32 // g >= min(n_rv, 32)
 
 
