@@ -22,18 +22,21 @@ Phases, each reported on its own line:
    reach the guards the protocol's own state never trips;
    ``circuit_vs_plain``: the fused circuit kernel against its plain
    version at ``atol=1e-6`` on amplitudes (same float32 arithmetic, but
-   the compiler may fuse a multiply and an add): both protocol circuits
-   at 3, 4 and 5 parties (8, 15, 18 qubits) with random params, and
-   seeded random circuits at 10 and 16 qubits with complex gates,
-   multi-control ops and ``XPOW``;
-   ``sweep_vs_plain``: the GF(2) sweep kernel against its plain version,
-   bit-exact, on the protocol's stabilizer tableaux at 5, 11, 33 and 65
-   parties (some with noise; the kernel keeps the tableaux in shared
-   memory up to 11 parties and in global scratch past that) and on
-   seeded random Clifford tableaux of 13 to 150 qubits, on both sides
-   of that rule, whose steps take both branches and pivots past the
-   first stabilizer row; ``sweep_65p``: the sweep kernel over a
-   1000-trial batch at 65 parties (462 qubits), timed;
+   the compiler may fuse a multiply and an add) on each of its routes
+   (one block's shared memory, a cluster's, global memory): both
+   protocol circuits at 3, 4 and 5 parties (8, 15, 18 qubits) with
+   random params, seeded random circuits at 10, 16 and 17 qubits with
+   complex gates, multi-control ops and ``XPOW``, and real ones at 19
+   and 20 qubits;
+   ``sweep_vs_plain``: the GF(2) sweep kernel (each family's affine map)
+   against its plain version (the serial sweep), bit-exact, on the
+   protocol's stabilizer tableaux at 5, 11, 33 and 65 parties (some with
+   noise; the kernel keeps the maps in shared memory up to 33 parties
+   and reads them where they lie at 65) and on seeded random Clifford
+   tableaux of 13 to 400 qubits, on both sides of that rule, whose steps
+   take both branches and pivots past the first stabilizer row;
+   ``sweep_65p``: the sweep kernel over a 1000-trial batch at 65 parties
+   (462 qubits), timed, with its bound;
    ``gen_vs_plain``: the trial megakernel's gen entry against its plain
    version at 11p/L64/d3 (strategy "split", noise) and 33p/L64/d10 on
    32 trials, and against the host-gen megakernel on the same lists;
@@ -103,8 +106,9 @@ Phases, each reported on its own line:
    set-up, draws and peak memory; then the gen entry timed (with its
    shared memory and resident blocks per SM) against the host-gen
    megakernel on the same lists (the sweep's share), the sweep kernel
-   over the batch against its plain version, and the bounds of both
-   from the run's own pivots;
+   over the batch against its plain version (timed behind a sleep), and
+   the bounds of both (the sweep as its affine map, the serial sweep's
+   operation count from the run's own pivots beside it);
 8. ``mesh_path``, the party-sharded (``tp``) path on one card:
    ``run_trials_spmd`` on ``make_mesh({"dp": 1, "tp": tp},
    devices=[cuda:0] * tp)`` at 33p/L64/d10 x 1000 (``tp = 4``) and
@@ -140,6 +144,7 @@ table as JSON, the one before it the card; the last line is
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -147,9 +152,14 @@ import sys
 import time
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and the non-tensor
-# float32 rate, the closest listed rate for the kernels' integer compares.
+# float32 rate (an FMA counted as two operations), which bounds the
+# circuit kernel's float arithmetic.  The other kernels' work is 32-bit
+# integer adds, shifts, compares and bitwise operations, which issue at
+# 64 a clock an SM on compute capability 9.0 against 128 float32 FMAs
+# (CUDA C++ Programming Guide, the throughput table of arithmetic
+# instructions): their rate is int_ops_per_s().
 HBM_BYTES_PER_S = 3.35e12
-CORE_OPS_PER_S = 67e12
+FLOAT_OPS_PER_S = 67e12
 REPORT = os.path.join("build", "chip_smoke_report.json")
 SOURCES = {
     "fused_round": ("qba_tpu_torch/ops/csrc/fused_round.cu",
@@ -221,11 +231,29 @@ def pool_stats(cfg, pool):
     return int(sent.sum()), int(cnt.sum())
 
 
-def bound(bytes_moved, ops):
-    """Least time in ms for this many bytes and compares: ``(ms, "bytes"
-    | "operations")``."""
+@functools.cache
+def int_ops_per_s():
+    """The card's 32-bit integer rate: 64 operations a clock on each SM
+    at the largest SM clock ``nvidia-smi --query-gpu=clocks.max.sm``
+    prints (132 SMs at 1980 MHz on the H100 SXM: 16.7e12)."""
+    import torch
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 64 * sms * mhz * 1e6
+
+
+def bound(bytes_moved, ops, float_ops=False):
+    """Least time in ms for this many bytes and operations, 32-bit
+    integer ones or (``float_ops``) float32 ones: ``(ms, "bytes" |
+    "operations")``."""
+    rate = FLOAT_OPS_PER_S if float_ops else int_ops_per_s()
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / CORE_OPS_PER_S * 1e3
+    t_ops = ops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1354,13 +1382,14 @@ def random_n_recv(cfg, r, tp, n_trials, seed, dev, errs):
 CIRCUIT_ATOL = 1e-6
 
 
-def circuit_vs_plain(dev, reps=5):
+def circuit_vs_plain(dev, reps=10):
     """The fused circuit kernel against its plain version, amplitudes at
-    ``atol=1e-6``: both protocol circuits at 3, 4 and 5 parties with
-    seeded random params, and seeded random complex circuits at 10 and 16
-    qubits.  The 5-party Q-correlated circuit, at the 64 runs per launch
-    the dense path gives it, is also timed against its plain version and
-    its bound.  Returns the cases' facts and that timing."""
+    ``atol=1e-6``, on every route (``fused_circuit.circuit_route``): both
+    protocol circuits at 3, 4 and 5 parties with seeded random params,
+    seeded random complex circuits at 10, 16 and 17 qubits and real ones
+    at 19 and 20.  The 5-party Q-correlated circuit, at the 64 runs per
+    launch the dense path gives it, is also timed against its plain
+    version and its bound.  Returns the cases' facts and that timing."""
     import torch
 
     from qba_tpu_torch import QBAConfig
@@ -1378,9 +1407,12 @@ def circuit_vs_plain(dev, reps=5):
         cases.append((f"q-corr {n}p", q_circ.n_qubits, q_circ.ops,
                       q_circ.n_params, 8))
         cases.append((f"nq-corr {n}p", nq_circ.n_qubits, nq_circ.ops, 0, 1))
-    for n, seed in ((10, 1), (16, 2)):
-        ops = circuit_ops_from_tuples(random_circuit(n, 40, seed))
-        cases.append((f"random {n}q", n, ops, 3, 4))
+    for n, seed, real, runs in ((10, 1, False, 4), (16, 2, False, 4),
+                                (17, 3, False, 3), (19, 4, True, 2),
+                                (20, 5, True, 2)):
+        ops = circuit_ops_from_tuples(random_circuit(n, 40, seed, real=real))
+        cases.append((f"random {n}q {'real' if real else 'complex'}", n, ops,
+                      3, runs))
     # The main path's launch shape: 5p Q-correlated, one chunk of runs.
     big = pc.gen_q_corr_circuit(5, 3)
     runs = max(1, SAMPLE_CHUNK_ELEMS >> big.n_qubits)
@@ -1407,39 +1439,53 @@ def circuit_vs_plain(dev, reps=5):
             raise AssertionError(f"fused_circuit != plain version at {name}: "
                                  f"max abs err {err}, norm off by {norm}")
         facts.append(dict(case=name, qubits=n, ops=len(ops), runs=n_runs,
-                          real=tables.is_real, max_abs_err=err))
+                          real=tables.is_real, route=list(tables.route),
+                          max_abs_err=err))
         if name.endswith("main-path chunk"):
             fc.fused_circuit.events = []
+            # Queued behind a sleep: the host's pace stays out of the times.
+            torch.cuda._sleep(20_000_000)
             for _ in range(reps):
                 fc.fused_circuit(tables, params)
             torch.cuda.synchronize()
             ms, fc.fused_circuit.events = event_ms(
                 fc.fused_circuit.events), None
-            b_ms, b_by = bound(*circuit_cost(tables, params))
+            b_ms, b_by = bound(*circuit_cost(tables, params), float_ops=True)
             timing = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=b_ms, bound_by=b_by, runs=n_runs,
-                          qubits=n, ops=len(ops))
+                          qubits=n, ops=len(ops), route=list(tables.route))
+    routes = {f["route"][0] for f in facts}
+    if routes != {"block", "cluster", "global"}:
+        raise AssertionError(f"circuit_vs_plain reached the routes {routes}")
     return facts, timing
 
 
-def sweep_cost(total, work, n_shots, n_fam=2):
+def sweep_cost(total, n_shots, n_fam=2):
     """Bytes and word operations of one sweep over ``n_shots`` shots of
-    ``total`` qubits: in, the static tableaux (once), each shot's phases,
-    coins, readout flips and family; out, the bits (int32).  Operations
-    from the run's own steps (``work`` of the plain sweep on the same
-    inputs): a random step tests the ``2 total`` rows' ``x_a`` (the
-    pivot is the first stabilizer among them) and the surgery writes
-    ``4 W`` words; each row that absorbs the pivot costs ``5 W`` (cross
-    AND and fold, x and z XOR); a deterministic step tests ``2 total``
-    rows and each selected stabilizer costs ``3 W`` (AND, fold, prefix
-    XOR)."""
+    ``total`` qubits, as the affine map it computes: in, the families'
+    maps (once), each shot's phases, coins, readout flips and family;
+    out, the bits (int32).  Per shot and qubit an AND and an XOR a word
+    of its row (``wt`` words: the phases', the coins' and the
+    constant's) and a parity."""
+    wt = -(-2 * total // 32) + -(-total // 32) + 1
+    n_pad = 32 * -(-total // 32)
+    b = n_fam * wt * n_pad * 4 + n_shots * (2 * total + total + total + 1
+                                            + 4 * total)
+    return b, n_shots * total * (2 * wt + 1)
+
+
+def sweep_step_ops(total, work):
+    """The serial sweep's word operations on the run's own steps (``work``
+    of the plain sweep on the same inputs), the count the bound took
+    before the sweep became a map: a random step tests the ``2 total``
+    rows' ``x_a`` and the surgery writes ``4 W`` words; each row that
+    absorbs the pivot costs ``5 W`` (cross AND and fold, x and z XOR); a
+    deterministic step tests ``2 total`` rows and each selected
+    stabilizer costs ``3 W`` (AND, fold, prefix XOR)."""
     w = -(-total // 32)
-    b = (n_fam * 2 * 2 * total * w * 4
-         + n_shots * (2 * total + total + total + 1 + 4 * total))
-    ops = (work["random_steps"] * (2 * total + 4 * w)
-           + work["rows_updated"] * 5 * w
-           + work["det_steps"] * 2 * total + work["rows_selected"] * 3 * w)
-    return b, ops
+    return (work["random_steps"] * (2 * total + 4 * w)
+            + work["rows_updated"] * 5 * w
+            + work["det_steps"] * 2 * total + work["rows_selected"] * 3 * w)
 
 
 def gen_cost(cfg, rounds, n_trials, sweep_ops, keyed=False):
@@ -1447,20 +1493,21 @@ def gen_cost(cfg, rounds, n_trials, sweep_ops, keyed=False):
     megakernel's (``mega_cost``) less its li and P inputs, plus the
     generation operands in (per shot qcorr, the coins, the readout flips
     and the phases of the one family ``qcorr`` picks, ``r_q`` or
-    ``r_nq``; the four static tableaux once) and the sweep's
+    ``r_nq``; the two families' maps once) and the sweep's
     operations."""
     n_rv, s, total = cfg.n_lieutenants, cfg.size_l, cfg.total_qubits
-    w = -(-total // 32)
     b, ops = mega_cost(cfg, rounds, n_trials, keyed)
     b -= n_trials * (n_rv * s * 4 + n_rv * s)
-    b += 4 * 2 * total * w * 4 + n_trials * s * (1 + 4 * total)
+    b += sweep_cost(total, 0)[0] + n_trials * s * (1 + 4 * total)
     return b, ops + sweep_ops
 
 
 # The GF(2) sweep on the protocol's tableaux: (name, parties, trials,
 # noise); 65 parties (462 qubits) only generate on the card.  The kernel
-# keeps 5p and 11p tableaux in shared memory, 33p and 65p ones in global
-# scratch, and the random ones up to 71 qubits in shared memory.
+# keeps the families' maps in shared memory up to 33 parties and reads
+# them where they lie at 65 (``gf2_sweep.tables_in_shared``); the random
+# tableaux reach both placements, and 400 qubits and 65 parties take two
+# passes of the kernel's 256 outputs a lane.
 SWEEP_CASES = [
     ("5p noisy", 5, 8, True),
     ("11p", 11, 8, False),
@@ -1469,16 +1516,15 @@ SWEEP_CASES = [
     ("33p", 33, 4, False),
     ("65p noisy", 65, 2, True),
 ]
-RANDOM_SWEEPS = [13, 40, 70, 100, 150]
+RANDOM_SWEEPS = [13, 40, 70, 100, 150, 400]
 
 
 def sweep_vs_plain(dev):
     """``gf2_sweep`` against its plain version, bit-exact: the protocol's
-    tableaux at 5, 11, 33 and 65 parties (some with noise; the tableaux
-    in shared memory and in global scratch), and seeded random Clifford
-    tableaux
-    (``qba_tpu_torch.testing.random_sweep_inputs``) whose steps take both
-    branches and pivots past the first stabilizer row."""
+    tableaux at 5, 11, 33 and 65 parties (some with noise; the maps in
+    shared memory and where they lie), and seeded random Clifford
+    tableaux (``qba_tpu_torch.testing.random_sweep_inputs``) whose steps
+    take both branches and pivots past the first stabilizer row."""
     import torch
 
     from qba_tpu_torch import QBAConfig
@@ -1494,14 +1540,21 @@ def sweep_vs_plain(dev):
         ops = pc.stabilizer_gen_operands(
             cfg, jr.split(jr.key(n, device=dev), trials))
         tables = pc.stabilizer_gen_tables(cfg, dev)
-        got = pc.stabilizer_bits(cfg, tables, ops, sweep=gs.gf2_sweep)
+        # The host's symbolic sweeps of both families, once per config.
+        t0 = time.perf_counter()
+        maps = gs.sweep_tables(cfg.total_qubits, *(
+            torch.stack([tables[i + 2], tables[i]]) for i in (0, 1)))
+        map_ms = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(maps, pc.stabilizer_sweep_tables(cfg)):
+            raise AssertionError(f"{name}: the cached maps differ")
+        got = pc.stabilizer_bits(cfg, tables, ops)
         work = {}
         want = pc.stabilizer_bits(cfg, tables, ops, sweep=lambda *a: (
             gs.gf2_sweep_reference(*a, work=work)))
         err = max(err, max_err(got, want))
         facts.append(dict(case=name, qubits=cfg.total_qubits,
-                          shots=trials * 64, tableau=placement(
-                              cfg.total_qubits), **work))
+                          shots=trials * 64, tables=placement(maps),
+                          map_host_ms=map_ms, **work))
     for n in RANDOM_SWEEPS:
         args = random_sweep_inputs(n, 128, seed=n, device=dev)
         work = {}
@@ -1512,20 +1565,21 @@ def sweep_vs_plain(dev):
             raise AssertionError(f"random sweep at {n} qubits reached "
                                  f"too little: {work}")
         facts.append(dict(case=f"random {n}q", qubits=n, shots=128,
-                          tableau=placement(n), **work))
+                          tables=placement(gs.sweep_tables(n, *args[:2])),
+                          **work))
     torch.cuda.synchronize()
     if err:
         raise AssertionError(f"gf2_sweep != plain version: max abs err {err}")
-    if {f["tableau"] for f in facts} != {"shared", "global"}:
-        raise AssertionError("sweep_vs_plain missed a tableau placement")
+    if {f["tables"] for f in facts} != {"shared", "global"}:
+        raise AssertionError("sweep_vs_plain missed a table placement")
     return err, facts
 
 
-def placement(n):
-    """Where the sweep kernel keeps an ``n``-qubit tableau."""
-    from qba_tpu_torch.ops.gf2_sweep import tableau_in_shared
+def placement(tables):
+    """Where the sweep kernel keeps ``tables``."""
+    from qba_tpu_torch.ops.gf2_sweep import tables_in_shared
 
-    return "shared" if tableau_in_shared(n) else "global"
+    return "shared" if tables_in_shared(tables) else "global"
 
 
 GEN_CASES = [
@@ -1697,18 +1751,20 @@ def ctypes_ints(fn, *ints):
     return a.value, b.value
 
 
-def sweep_ms(cfg, tables, ops, reps=3):
-    """The sweep kernel's ms per launch (CUDA events) over ``ops``' whole
-    batch, and its bits."""
+def sweep_ms(cfg, tables, ops, reps=10):
+    """The sweep kernel's ms per launch (CUDA events, the launches queued
+    behind a sleep so that the host's pace stays out of them) over
+    ``ops``' whole batch, and its bits."""
     import torch
 
     from qba_tpu_torch.ops import gf2_sweep as gs
     from qba_tpu_torch.qsim import protocol_circuits as pc
 
-    got = pc.stabilizer_bits(cfg, tables, ops, sweep=gs.gf2_sweep)
+    got = pc.stabilizer_bits(cfg, tables, ops)
     gs.gf2_sweep.events = []
+    torch.cuda._sleep(20_000_000)
     for _ in range(reps):
-        pc.stabilizer_bits(cfg, tables, ops, sweep=gs.gf2_sweep)
+        pc.stabilizer_bits(cfg, tables, ops)
     torch.cuda.synchronize()
     ms, gs.gf2_sweep.events = event_ms(gs.gf2_sweep.events), None
     return got, ms
@@ -1718,7 +1774,8 @@ def sweep_batch(cfg, keys, *, chunk=32):
     """The host path's sweep over ``keys``' whole batch (the shots
     ``setup_trial`` sweeps): the kernel against its plain version
     (bit-exact; plain in chunks of ``chunk`` trials, with its work
-    counted), kernel ms, and the bound."""
+    counted), kernel ms, the bound and the serial sweep's operation
+    count beside it."""
     import torch
 
     from qba_tpu_torch import random as jr
@@ -1743,17 +1800,19 @@ def sweep_batch(cfg, keys, *, chunk=32):
         raise AssertionError(f"gf2_sweep != plain version on the batch at "
                              f"{cfg}: max abs err {err}")
     shots = n * cfg.size_l
-    b_ms, b_by = bound(*sweep_cost(cfg.total_qubits, work, shots))
-    return dict(max_abs_err=err, ms=ms, tableau=placement(cfg.total_qubits),
+    b_ms, b_by = bound(*sweep_cost(cfg.total_qubits, shots))
+    return dict(max_abs_err=err, ms=ms,
+                tables=placement(pc.stabilizer_sweep_tables(cfg)),
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, shots=shots,
+                step_ops=sweep_step_ops(cfg.total_qubits, work),
                 work=work), want
 
 
 def sweep_65p(dev, trials=1000):
     """The sweep kernel over a whole 1000-trial batch at 65 parties (462
-    qubits; only generation runs there on the card): ms per launch.
-    ``sweep_vs_plain`` holds it against the plain version at this width
-    on a few trials."""
+    qubits; only generation runs there on the card): ms per launch and
+    the bound.  ``sweep_vs_plain`` holds it against the plain version at
+    this width on a few trials."""
     from qba_tpu_torch import QBAConfig
     from qba_tpu_torch import random as jr
     from qba_tpu_torch.qsim import protocol_circuits as pc
@@ -1762,9 +1821,11 @@ def sweep_65p(dev, trials=1000):
     ops = pc.stabilizer_gen_operands(
         cfg, jr.split(jr.key(65, device=dev), trials))
     _bits, ms = sweep_ms(cfg, pc.stabilizer_gen_tables(cfg, dev), ops)
+    b_ms, b_by = bound(*sweep_cost(cfg.total_qubits, trials * 64))
     return dict(config="65p/L64", trials=trials, shots=trials * 64,
-                qubits=cfg.total_qubits, tableau=placement(cfg.total_qubits),
-                ms=ms)
+                qubits=cfg.total_qubits,
+                tables=placement(pc.stabilizer_sweep_tables(cfg)), ms=ms,
+                bound_ms=b_ms, bound_by=b_by)
 
 
 RING_CASES = [((3, 5, 7), 1), ((2, 9000), 1), ((3, 4100, 5), 1),
@@ -2334,8 +2395,7 @@ def main(argv):
             if not torch.equal(vi, results["auto"].vi):
                 raise AssertionError(f"{name} stabilizer: main path != "
                                      "staged replay")
-        sweep_ops = sweep_cost(cfg.total_qubits, sweep["work"],
-                               sweep["shots"])[1]
+        sweep_ops = sweep_cost(cfg.total_qubits, sweep["shots"])[1]
         gen_bound = bound(*gen_cost(cfg, rounds, cfg.trials, sweep_ops,
                                     keyed=True))
         host_bound = bound(*mega_cost(cfg, rounds, cfg.trials, keyed=True))
@@ -2570,8 +2630,7 @@ def main(argv):
                          + [keyed_errs[k]])]
         errs += [r["sweep" if k == "gf2_sweep" else "gen"]["max_abs_err"]
                  for r in stab_runs]
-        ms = (sbig["engines"]["host"]["kernel_ms_per_launch"]["gf2_sweep"]
-              if k == "gf2_sweep" else sbig["gen_ms_per_launch"])
+        ms = e["ms"] if k == "gf2_sweep" else sbig["gen_ms_per_launch"]
         kernels.append({
             "name": k, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[KEYED.get(k, k)],

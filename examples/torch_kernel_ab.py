@@ -3,7 +3,8 @@
 compare two checkouts (a parent and a change) on one card.
 
     python3 examples/torch_kernel_ab.py ROOT [--config 33p|11p] [--reps N]
-        [--kernels all|mega|round] [--phases]
+        [--kernels all|mega|round|gen] [--phases]
+        [--circuit-cluster BYTES:MAX] [--circuit-pass-bits K]
 
 imports ``qba_tpu_torch`` from the checkout at ``ROOT`` (built there on
 first use), replays every round of a 1000-trial batch of the config with
@@ -20,7 +21,18 @@ gen entry on ``qsim_path="stabilizer"``, both keyed entries on the
 first 64 trials (``*_x64``), and the draws kernel over every round (a
 checkout needs ``qba_tpu_torch.ops.attack_draws``).  ``--kernels
 mega`` skips the round kernels, ``--kernels round`` the megakernels and
-the draws kernel.  ``--phases``, where the checkout has
+the draws kernel.  ``--kernels gen`` times the list-generation kernels
+instead (``gen_kernels``): the fused circuit kernel on the 5-party
+Q-correlated circuit (18 qubits, real) at 64 runs (the dense path's
+launch) and 132, the not-Q-correlated one at one run, and seeded
+circuits of 17 qubits (complex) and 19 and 20 (real); the sweep kernel
+over a 1000-trial batch of list positions at 11, 33 and 65 parties (as
+``qsim_path="stabilizer"`` sweeps them); the keyed gen entry of the
+megakernel at 11 and 33 parties.  ``--circuit-cluster`` sets the
+circuit kernel's cluster route (``fused_circuit.CLUSTER_BLOCK_BYTES``
+and ``CLUSTER_MAX``) and ``--circuit-pass-bits`` its passes' bits
+(``fused_circuit.PASS_BITS``) for the run, where the checkout has them:
+options to time side by side.  ``--phases``, where the checkout has
 the megakernel's phase clock (``trial_megakernel.phase_clock``), also
 runs each keyed entry once with it and adds each one's breakdown (warp
 0's mean cycles per block and share, per phase) under ``phases``; where
@@ -54,11 +66,23 @@ def main(argv):
     ap.add_argument("--config", default="33p", choices=sorted(CONFIGS))
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--kernels", default="all",
-                    choices=("all", "mega", "round"))
+                    choices=("all", "mega", "round", "gen"))
     ap.add_argument("--phases", action="store_true")
+    ap.add_argument("--circuit-cluster")
+    ap.add_argument("--circuit-pass-bits", type=int)
     args = ap.parse_args(argv)
     sys.path.insert(0, args.root)
     import torch
+
+    if args.circuit_cluster:
+        from qba_tpu_torch.ops import fused_circuit as fc
+
+        size, most = args.circuit_cluster.split(":")
+        fc.CLUSTER_BLOCK_BYTES, fc.CLUSTER_MAX = int(size), int(most)
+    if args.circuit_pass_bits:
+        from qba_tpu_torch.ops import fused_circuit as fc
+
+        fc.PASS_BITS = args.circuit_pass_bits
 
     if not torch.cuda.is_available():
         print("torch_kernel_ab: no CUDA device", file=sys.stderr)
@@ -75,18 +99,25 @@ def main(argv):
     dev = torch.device("cuda", 0)
     cfg = QBAConfig(trials=1000, **CONFIGS[args.config])
 
-    def ms(fn, *a, **kw):
+    def ms(fn, *a, timed=None, **kw):
+        """``fn``'s ms per launch; ``timed`` is the wrapper whose
+        launches are timed where ``fn`` calls it (default ``fn``)."""
+        timed = fn if timed is None else timed
         fn(*a, **kw)
-        fn.events = []
+        timed.events = []
         # A head start on the card: the launches queue behind the sleep,
         # so their events time the kernels, not the host's launch rate.
         torch.cuda._sleep(20_000_000)
         for _ in range(args.reps):
             fn(*a, **kw)
         torch.cuda.synchronize()
-        out = sum(s.elapsed_time(e) for s, e in fn.events) / len(fn.events)
-        fn.events = None
+        out = sum(s.elapsed_time(e) for s, e in timed.events) / len(
+            timed.events)
+        timed.events = None
         return out
+
+    if args.kernels == "gen":
+        return report(args, None, gen_kernels(dev, ms))
 
     keys = trial_keys(cfg, dev)
     honest, li, p_rows, v_sent, _vc, k_rounds = setup_trial(cfg, keys)
@@ -186,16 +217,115 @@ def main(argv):
         torch.cuda.synchronize()
         mega.setdefault("phases", {}).update(
             {k: rk.round_phase_breakdown(c) for k, c in clocks.items()})
+    return report(args, tp, {k: sum(v) / len(v) if v else None
+                             for k, v in times.items()} | mega)
+
+
+def report(args, tp, times):
+    """Print the JSON line: the card, the checkout and ``times``."""
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(json.dumps({"card": card, "root": args.root, "config": args.config,
-                      "trials": cfg.trials, "reps": args.reps, "tp": tp,
-                      **{k: sum(v) / len(v) if v else None
-                         for k, v in times.items()},
-                      **mega}))
+                      "trials": 1000, "reps": args.reps, "tp": tp, **times}))
     return 0
+
+
+def circuit_ops(n, seed, real, n_ops=40):
+    """A seeded circuit of ``n`` qubits as op tuples: H on every qubit,
+    then ``n_ops`` random gates with up to two controls, real ones only
+    (H, X, Z, RY, ``XPOW``) where ``real``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    kinds = ("H", "X", "Z", "RY", "XPOW") + (() if real else ("S", "T", "RX"))
+    ops = [("H", q, (), None, None) for q in range(n)]
+    for _ in range(n_ops):
+        kind = kinds[int(rng.integers(len(kinds)))]
+        target = int(rng.integers(n))
+        others = [q for q in range(n) if q != target]
+        controls = tuple(int(c) for c in rng.choice(
+            others, size=int(rng.integers(3)), replace=False))
+        ops.append((kind, target, controls,
+                    int(rng.integers(3)) if kind == "XPOW" else None,
+                    float(rng.uniform(-3, 3)) if kind in ("RX", "RY")
+                    else None))
+    return ops
+
+
+def cluster_occupancy():
+    """How many circuit clusters the card runs at once, per (blocks, KB
+    of state a block), where the checkout's kernel has the query."""
+    import ctypes
+
+    from qba_tpu_torch.ops._build import load_library
+
+    lib = load_library("fused_circuit")
+    if not hasattr(lib, "qba_fused_circuit_clusters"):
+        return None
+    out = {}
+    for blocks, kb in ((8, 128), (16, 64), (16, 128)):
+        n = ctypes.c_int(0)
+        rc = lib.qba_fused_circuit_clusters(blocks, kb * 1024,
+                                            ctypes.byref(n))
+        out[f"{blocks}x{kb}KB"] = n.value if rc == 0 else f"error {rc}"
+    return out
+
+
+def gen_kernels(dev, ms):
+    """The list-generation kernels' ms per launch (``--kernels gen``)."""
+    import torch
+
+    from qba_tpu_torch import QBAConfig
+    from qba_tpu_torch import random as jr
+    from qba_tpu_torch.adversary import adversary_ctx
+    from qba_tpu_torch.backends.torch_backend import trial_keys
+    from qba_tpu_torch.convert import circuit_ops_from_tuples
+    from qba_tpu_torch.ops import fused_circuit as fc
+    from qba_tpu_torch.ops import gf2_sweep as gs
+    from qba_tpu_torch.ops import round_kernel_tiled as rk
+    from qba_tpu_torch.ops import trial_megakernel as tm
+    from qba_tpu_torch.qsim import protocol_circuits as pc
+    from qba_tpu_torch.rounds.engine import _mega_gen_setup
+
+    out = {}
+    q5, nq5 = pc.gen_q_corr_circuit(5, 3), pc.gen_nq_corr_circuit(5, 3)
+    circuits = {"circuit_q5_x64": (18, q5.ops, q5.n_params, 64),
+                "circuit_q5_x132": (18, q5.ops, q5.n_params, 132),
+                "circuit_nq5_x1": (18, nq5.ops, 0, 1)}
+    for n, real, runs in ((17, False, 8), (19, True, 4), (20, True, 2)):
+        circuits[f"circuit_{'r' if real else 'c'}{n}_x{runs}"] = (
+            n, circuit_ops_from_tuples(circuit_ops(n, n, real)), 3, runs)
+    for name, (n, ops, n_params, runs) in circuits.items():
+        tables = fc.circuit_tables(n, ops, n_params).to(dev)
+        if hasattr(tables, "route"):
+            out[name + "_route"] = list(tables.route)
+        gen = torch.Generator().manual_seed(runs)
+        params = torch.randint(0, 2, (runs, tables.n_params), generator=gen,
+                               dtype=torch.int32).to(dev)
+        out[name] = ms(fc.fused_circuit, tables, params)
+    out["circuit_clusters"] = cluster_occupancy()
+    for n in (11, 33, 65):
+        cfg = QBAConfig(n_parties=n, size_l=64, trials=1000)
+        ops = pc.stabilizer_gen_operands(
+            cfg, jr.split(jr.key(n, device=dev), cfg.trials))
+        tables = pc.stabilizer_gen_tables(cfg, dev)
+        out[f"gf2_sweep_{n}p"] = ms(pc.stabilizer_bits, cfg, tables, ops,
+                                    timed=gs.gf2_sweep)
+        del ops
+    for name, kw in CONFIGS.items():
+        cfg = QBAConfig(trials=1000, qsim_path="stabilizer", **kw)
+        keys = trial_keys(cfg, dev)
+        honest, gen_ops, v_sent, _vc, k_rounds = _mega_gen_setup(cfg, keys)
+        k_rounds = k_rounds.contiguous()
+        ctx = adversary_ctx(cfg, k_rounds, v_sent)
+        out[f"trial_megakernel_gen_keyed_{name}"] = ms(
+            tm.trial_megakernel_gen_keyed, cfg,
+            pc.stabilizer_gen_tables(cfg, dev), gen_ops,
+            v_sent.to(torch.int32).contiguous(), rk.honest_cells(honest, cfg),
+            k_rounds, ctx)
+    return out
 
 
 def megakernels(cfg, tp, body, k_rounds, ctx, ms, phases):

@@ -9,7 +9,8 @@ numpy).  A batch of shots is then one parity product for the phases and
 one measurement sweep over the packed tableaux.
 
 The sweep is :func:`qba_tpu_torch.ops.gf2_sweep.gf2_sweep`: on CUDA a
-hand-written kernel (``ops/csrc/gf2_sweep.cu``), on the CPU
+hand-written kernel (``ops/csrc/gf2_sweep.cu``, which evaluates the
+sweep's affine map, :mod:`qba_tpu_torch.gf2.affine`), on the CPU
 :func:`gf2_measure_sweep` below, which is also the plain version the
 kernel is held against.  The key tree (``split(key, shots)``), the coins
 (``bits(key, (n,)) & 1``), the pivot (the first anticommuting
@@ -169,14 +170,15 @@ def build_gf2_sample_core(n: int, ops, n_params: int):
     random draws inside.  The phases are ``r0 ^ params @ L^T`` (one
     parity product for the batch), then the sweep
     (:func:`qba_tpu_torch.ops.gf2_sweep.gf2_sweep`) on the shared
-    initial rows."""
-    from qba_tpu_torch.ops.gf2_sweep import gf2_sweep
+    initial rows, whose kernel tables are built once a device."""
+    from qba_tpu_torch.ops.gf2_sweep import gf2_sweep, sweep_tables
 
     prog = compile_symplectic(n, ops, n_params)
     x0w = pack_bits(torch.from_numpy(prog.x))[None]     # [1, 2n, W]
     z0w = pack_bits(torch.from_numpy(prog.z))[None]
     r0 = torch.from_numpy(prog.r)                       # [2n]
     lt = torch.from_numpy(np.ascontiguousarray(prog.l.T))  # [P, 2n]
+    on_device: dict[torch.device, torch.Tensor] = {}
 
     def sample(rnds: torch.Tensor, params: torch.Tensor | None = None,
                phase_noise: torch.Tensor | None = None) -> torch.Tensor:
@@ -186,9 +188,12 @@ def build_gf2_sample_core(n: int, ops, n_params: int):
             r = r ^ gf2_matmul(params.to(torch.int32) & 1, lt.to(dev))
         if phase_noise is not None:
             r = r ^ phase_noise
+        if dev.type == "cuda" and dev not in on_device:
+            on_device[dev] = sweep_tables(n, x0w, z0w).to(dev)
         return gf2_sweep(n, x0w.to(dev), z0w.to(dev),
                          r.to(torch.uint8).contiguous(),
-                         (rnds & 1).to(torch.uint8).contiguous())
+                         (rnds & 1).to(torch.uint8).contiguous(),
+                         tables=on_device.get(dev))
 
     sample.program = prog
     return sample

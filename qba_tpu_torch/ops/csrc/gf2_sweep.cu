@@ -1,23 +1,26 @@
-// The GF(2) measurement sweep over a batch of shots: one warp per shot,
-// each shot starting from its family's static tableau.
+// The GF(2) measurement sweep over a batch of shots, as each shot's
+// family's affine map: one warp per shot at a time.
 //
 // This kernel is the counterpart of the JAX package's XLA host sweep
 // (qba_tpu/gf2/symplectic.py :: gf2_measure_sweep, line 121), not of a
 // pallas_call: the TPU's in-kernel sweep is the gen entry of
-// trial_megakernel.cu, and both run sweep_shot (gf2_sweep.cuh), where the
-// algebra, the bound and the design are described.  The plain PyTorch
-// version it is held against is qba_tpu_torch/ops/gf2_sweep.py ::
-// gf2_sweep_reference.
+// trial_megakernel.cu, and both run shot_bits (gf2_sweep.cuh), where the
+// function, the table layout, the bound and the design are described.
+// The plain PyTorch version it is held against, bit for bit, is
+// qba_tpu_torch/ops/gf2_sweep.py :: gf2_sweep_reference (the serial
+// sweep).
 //
-// Each shot's tableau is built in the warp's own storage from the
-// family's tableau (x0 and z0, word-major [F, W, 2n], read by every shot
-// and so held in L2); nothing of size [B, 2n, W] exists in device memory.  The storage
-// is shared memory (one slot per warp) or per-warp global scratch, as the
-// wrapper (qba_tpu_torch/ops/gf2_sweep.py) picks by the slot's size.
+// Grid: persistent blocks, as many as the card holds at once (or fewer
+// where the batch is small); each warp takes shots b, b + (the grid's
+// warps), ....  The families' tables
+// are copied into the block's shared memory where they fit (in_smem),
+// else read where they lie (L1 and L2 hold them: every shot reads them).
 //
-// Layouts: x0, z0 int32 [F, W, 2n]; family uint8 [B] (null: family 0);
-// r uint8 [B, 2n]; coins uint8 [B, n]; mflip uint8 [B, n] (null: none);
-// out bits int32 [B, n] = outcome ^ mflip.
+// Layouts: tables int32 [F, wt, n_pad] (gf2_sweep.cuh); family uint8 [B]
+// (null: family 0); r uint8 [B, 2n]; coins uint8 [B, n]; mflip uint8
+// [B, n] (null: none); out bits int32 [B, n] = outcome ^ mflip.
+
+#include <cassert>
 
 #include "gf2_sweep.cuh"
 
@@ -25,78 +28,99 @@ namespace {
 
 using namespace qba_gf2;
 
+constexpr int kThreads = 512;
+// Three blocks an SM, 48 warps to overlap the shots' loads: at 46
+// registers (two blocks) the 33-party sweep took a third longer on the
+// H100 (PERF.md).
+constexpr int kMinBlocks = 3;
+// Output chunks a lane holds at once: 256 qubits a pass.
+constexpr int kChunks = 8;
+
 struct Params {
-  const uint32_t* x0;
-  const uint32_t* z0;
+  const uint32_t* tables;
   const uint8_t* family;
   const uint8_t* r;
   const uint8_t* coins;
   const uint8_t* mflip;
   int32_t* bits;
-  unsigned char* scratch;  // null: the tableaux live in shared memory
-  int n_shots, n, w;
+  int n_shots, n_fam, in_smem;
+  AffineDims d;
 };
 
-// Each warp takes shots b, b + (all warps of the grid), ... in its slot.
-__global__ void gf2_sweep_kernel(Params P) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
-  const int first = blockIdx.x * warps + warp;
-  const int n = P.n, w = P.w;
-  const size_t slot = shot_bytes(n, w);
-  unsigned char* base = P.scratch ? P.scratch + size_t(first) * slot
-                                  : smem_raw + size_t(warp) * slot;
-  const ShotTab t = shot_tab(base, n, w);
-  const size_t words = size_t(2) * n * w;
-  for (int b = first; b < P.n_shots; b += gridDim.x * warps) {
-    const int f = P.family ? P.family[b] : 0;
-    load_shot(t, n, w, P.x0 + f * words, P.z0 + f * words,
-              P.r + size_t(b) * 2 * n);
-    sweep_shot(t, n, w, P.coins + size_t(b) * n);
-    for (int a = lane; a < n; a += 32) {
-      const int flip = P.mflip ? (P.mflip[size_t(b) * n + a] & 1) : 0;
-      P.bits[size_t(b) * n + a] = t.bits[a] ^ flip;
-    }
-    __syncwarp();
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+gf2_sweep_kernel(Params P) {
+  extern __shared__ __align__(16) uint32_t smem_tab[];
+  const AffineDims d = P.d;
+  const size_t tab_words = size_t(d.wt) * d.n_pad;
+  const uint32_t* tabs = P.tables;
+  if (P.in_smem) {
+    for (size_t i = threadIdx.x; i < tab_words * P.n_fam; i += kThreads)
+      smem_tab[i] = P.tables[i];
+    __syncthreads();
+    tabs = smem_tab;
   }
+  const int lane = threadIdx.x & 31, warps = kThreads / 32;
+  const int first = blockIdx.x * warps + (threadIdx.x >> 5);
+  const int chunks = d.n_pad / 32;
+  for (int b0 = first; b0 < P.n_shots; b0 += gridDim.x * warps) {
+    for (int c0 = 0; c0 < chunks; c0 += kChunks) {
+      const size_t b = b0;
+      const int f = P.family ? P.family[b] : 0;
+      assert(f < P.n_fam);
+      unsigned bit[kChunks];
+      shot_bits<kChunks>(tabs + f * tab_words, d, P.r + b * 2 * d.n,
+                         P.coins + b * d.n,
+                         P.mflip ? P.mflip + b * d.n : nullptr, c0, bit);
+      int32_t* out = P.bits + b * d.n;
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        const int q = 32 * (c0 + c) + lane;
+        if (q < d.n) out[q] = int32_t(bit[c]);
+      }
+    }
+  }
+}
+
+int launch(const Params& prm, size_t smem, void* stream) {
+  auto kernel = gf2_sweep_kernel;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (e != cudaSuccess) return int(e);
+  }
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, kThreads, smem);
+  if (e != cudaSuccess) return int(e);
+  if (per_sm < 1) return int(cudaErrorInvalidConfiguration);
+  const long shots_a_block = kThreads / 32;
+  const long needed = (prm.n_shots + shots_a_block - 1) / shots_a_block;
+  const int grid = int(needed < long(sms) * per_sm ? needed
+                                                   : long(sms) * per_sm);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(prm);
+  return int(cudaGetLastError());
 }
 
 }  // namespace
 
-// Returns a cudaError_t: 0 on a launch that was accepted.  The launch is
-// grid blocks of warps_per_block warps.  scratch null keeps each warp's
-// tableau in shared memory (warps_per_block slots a block); else it holds
-// grid * warps_per_block slots.  slot_bytes is the caller's size of a
-// slot, which must be shot_bytes(n, w).
-extern "C" int qba_gf2_sweep(const void* x0, const void* z0,
-                             const void* family, const void* r,
-                             const void* coins, const void* mflip,
-                             void* bits, void* scratch, int n_shots, int n,
-                             int w, int warps_per_block, int grid,
-                             int slot_bytes, void* stream) {
+// Returns a cudaError_t: 0 on a launch that was accepted.  n_fam tables
+// of n qubits; in_smem copies them into each block's shared memory.
+extern "C" int qba_gf2_sweep(const void* tables, const void* family,
+                             const void* r, const void* coins,
+                             const void* mflip, void* bits, int n_shots,
+                             int n, int n_fam, int in_smem, void* stream) {
   if (n_shots <= 0) return 0;
-  if (n < 1 || w != (n + 31) / 32 || w > kMaxWords || warps_per_block < 1 ||
-      warps_per_block > 32 || grid < 1 ||
-      size_t(slot_bytes) != shot_bytes(n, w))
-    return int(cudaErrorInvalidValue);
-  Params prm{static_cast<const uint32_t*>(x0),
-             static_cast<const uint32_t*>(z0),
+  if (n < 1 || n_fam < 1) return int(cudaErrorInvalidValue);
+  Params prm{static_cast<const uint32_t*>(tables),
              static_cast<const uint8_t*>(family),
              static_cast<const uint8_t*>(r),
              static_cast<const uint8_t*>(coins),
              static_cast<const uint8_t*>(mflip),
              static_cast<int32_t*>(bits),
-             static_cast<unsigned char*>(scratch),
-             n_shots, n, w};
-  const size_t smem = scratch ? 0 : shot_bytes(n, w) * warps_per_block;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        gf2_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        int(smem));
-    if (e != cudaSuccess) return int(e);
-  }
-  gf2_sweep_kernel<<<grid, 32 * warps_per_block, smem,
-                     static_cast<cudaStream_t>(stream)>>>(prm);
-  return int(cudaGetLastError());
+             n_shots, n_fam, in_smem != 0, affine_dims(n)};
+  const size_t smem =
+      in_smem ? size_t(4) * prm.d.wt * prm.d.n_pad * n_fam : 0;
+  return launch(prm, smem, stream);
 }

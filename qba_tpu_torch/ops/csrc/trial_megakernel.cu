@@ -72,31 +72,28 @@
 // The gen entry (qba_trial_megakernel_gen) is the TPU kernel's gen=True
 // form (mega_gen="gf2", the prologue at trial_megakernel.py:232-324):
 // the launch also generates the step-1 lists.  Its inputs replace P and
-// li with the GF(2) operands: the four static tableaux (x and z of the
-// Q-correlated and the not-Q-correlated circuit, int32 word-major [W,
-// 2T]), qcorr
-// bool [T, S], coins and mflip uint8 [T, S, total], r_q and r_nq uint8
-// [T, S, 2 total].  Its plain version is
-// qba_tpu_torch/ops/trial_megakernel.py :: trial_megakernel_gen_reference.
+// li with the GF(2) operands: the two circuit families' affine maps
+// (int32 [2, wt, n_pad], family 0 not Q-correlated, 1 Q-correlated, as
+// gf2_sweep.cuh lays them out), qcorr bool [T, S], coins and mflip uint8
+// [T, S, total], r_q and r_nq uint8 [T, S, 2 total].  Its plain version
+// is qba_tpu_torch/ops/trial_megakernel.py ::
+// trial_megakernel_gen_reference.
 //   Prologue  the block's warps take the trial's size_l shots in turn.
-//             A warp copies the shot's family's tableau (by qcorr) and
-//             phases into its slot, runs sweep_shot (gf2_sweep.cuh, the
-//             function the standalone sweep kernel runs), XORs the
-//             readout flips, decodes each party's n_qubits bits
-//             big-endian into its order value (lanes over the parties)
-//             and writes the lieutenants' li and P (the QSD's value
-//             differs from the commander's, and the commander's is the
-//             order sent) to per-trial global scratch.  __syncthreads(),
-//             then the body above runs unchanged on that scratch.
-//   Slots     each warp's tableau lives in per-trial global scratch
-//             (kMegaWarps slots a trial), so the prologue takes no shared
-//             memory and the block keeps the body's footprint.
-//             Shared-memory slots were tried on the H100 with the old
-//             body: level at 11 parties, and at 33 parties (187.8 KB for
-//             eight) one block per SM and 39 ms a batch against 24
-//             (PERF.md).
-// Bound of the prologue: operations, as the sweep (gf2_sweep.cuh); its
-// bytes are the operands, read once, and the static tables, from L2.
+//             A warp evaluates the shot's outcomes with shot_bits
+//             (gf2_sweep.cuh, the function the standalone sweep kernel
+//             runs) on its family's map (by qcorr) and phases, the
+//             readout flips XORed, packs them into words held a word a
+//             lane, decodes each party's n_qubits bits big-endian into
+//             its order value (lanes over the parties, the words by
+//             shuffles) and writes the lieutenants' li and P (the QSD's
+//             value differs from the commander's, and the commander's is
+//             the order sent) to per-trial global scratch.
+//             __syncthreads(), then the body above runs unchanged on that
+//             scratch.  The maps are read where they lie (L1 and L2 hold
+//             them), so the prologue takes no shared memory and the block
+//             keeps the body's footprint.
+// Bound of the prologue: as the sweep (gf2_sweep.cuh); its bytes are the
+// operands, read once, and the maps.
 //
 // The party-sharded entry (qba_sharded_trial_megakernel) replaces the TPU
 // kernel qba_tpu/ops/trial_megakernel.py :: build_sharded_trial_megakernel
@@ -192,15 +189,11 @@
 namespace {
 
 using namespace qba;
-using qba_gf2::ShotTab;
 namespace cg = cooperative_groups;
 
 // The gen entry's operands and scratch.
 struct GenParams {
-  const uint32_t* xq;
-  const uint32_t* zq;
-  const uint32_t* xn;
-  const uint32_t* zn;
+  const uint32_t* tables;  // the families' maps, [2, wt, n_pad]
   const uint8_t* qcorr;
   const uint8_t* coins;
   const uint8_t* r_q;
@@ -208,8 +201,7 @@ struct GenParams {
   const uint8_t* mflip;
   uint8_t* p_scr;
   int32_t* li_scr;
-  unsigned char* tab_scratch;  // kMegaWarps slots per trial
-  int total, w, nq;
+  int total, nq;
 };
 
 struct Params {
@@ -446,33 +438,53 @@ __device__ inline void pool_written() {
   }
 }
 
+// Output chunks a lane evaluates at once in the gen prologue: 256 qubits
+// a pass (65 parties take two).
+constexpr int kGenChunks = 8;
+
 // The gen prologue: trial t's lists from its GF(2) operands, into the
 // scratch P and li the body reads.
 __device__ void gen_prologue(const Params& P, size_t t) {
   const GenParams& g = P.g;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int S = P.d.size_l, n_rv = P.d.n_rv, T = g.total, W = g.w;
+  const int S = P.d.size_l, n_rv = P.d.n_rv, T = g.total;
   const int nq = g.nq, n_groups = n_rv + 2;
-  const size_t slot = qba_gf2::shot_bytes(T, W);
-  const ShotTab tab =
-      qba_gf2::shot_tab(g.tab_scratch + (t * kMegaWarps + warp) * slot, T, W);
+  const qba_gf2::AffineDims ad = qba_gf2::affine_dims(T);
+  const size_t tab_words = size_t(ad.wt) * ad.n_pad;
+  const int chunks = ad.n_pad / 32;
   int32_t* li = g.li_scr + t * size_t(n_rv) * S;
   uint8_t* pr = g.p_scr + t * size_t(n_rv) * S;
   const int32_t* v_sent = P.v_sent + t * size_t(n_rv);
   for (int s = warp; s < S; s += kMegaWarps) {
     const size_t shot = t * S + s;
     const bool q = g.qcorr[shot] != 0;
-    qba_gf2::load_shot(tab, T, W, q ? g.xq : g.xn, q ? g.zq : g.zn,
-                       (q ? g.r_q : g.r_nq) + shot * 2 * T);
-    qba_gf2::sweep_shot(tab, T, W, g.coins + shot * T);
-    const uint8_t* mf = g.mflip + shot * T;
+    // The shot's outcome bits 32c..32c+31 in lane c's word.
+    uint32_t word = 0;
+    for (int c0 = 0; c0 < chunks; c0 += kGenChunks) {
+      unsigned bit[kGenChunks];
+      qba_gf2::shot_bits<kGenChunks>(
+          g.tables + (q ? tab_words : 0), ad,
+          (q ? g.r_q : g.r_nq) + shot * 2 * T, g.coins + shot * T,
+          g.mflip + shot * T, c0, bit);
+#pragma unroll
+      for (int c = 0; c < kGenChunks; ++c) {
+        const uint32_t w = __ballot_sync(kFull, bit[c]);
+        if (lane == c0 + c) word = w;
+      }
+    }
     int l0 = 0, l1 = 0;
     for (int g0 = 0; g0 < n_groups; g0 += 32) {
       const int grp = g0 + lane;
+      // A party's n_qubits bits span at most two words.
+      const int first = (grp < n_groups ? grp : 0) * nq;
+      const uint32_t w0 = __shfl_sync(kFull, word, first >> 5);
+      const uint32_t w1 = __shfl_sync(kFull, word, (first + nq - 1) >> 5);
       int v = 0;
-      if (grp < n_groups)
-        for (int j = 0; j < nq; ++j)
-          v = (v << 1) | ((tab.bits[grp * nq + j] ^ mf[grp * nq + j]) & 1);
+      for (int j = 0; j < nq; ++j) {
+        const int i = first + j;
+        const uint32_t w = (i >> 5) == (first >> 5) ? w0 : w1;
+        v = (v << 1) | int((w >> (i & 31)) & 1u);
+      }
       if (g0 == 0) {
         l0 = __shfl_sync(kFull, v, 0);
         l1 = __shfl_sync(kFull, v, 1);
@@ -682,20 +694,15 @@ bool set_law(Params* p, const void* k_rounds, const void* collude,
 }
 
 // The gen entry's operands and scratch, or false where the sizes are not
-// its own.
-bool set_gen(Params* p, const void* xq, const void* zq, const void* xn,
-             const void* zn, const void* qcorr, const void* coins,
-             const void* r_q, const void* r_nq, const void* mflip,
-             void* p_scr, void* li_scr, void* tab_scratch, int n_rv,
-             int total, int w_words, int n_qubits, int slot_bytes) {
-  if (total != (n_rv + 2) * n_qubits || w_words != (total + 31) / 32 ||
-      w_words > qba_gf2::kMaxWords || !tab_scratch ||
-      size_t(slot_bytes) != qba_gf2::shot_bytes(total, w_words))
+// its own (a shot's outcome words are held a word a lane: at most 1024
+// qubits).
+bool set_gen(Params* p, const void* tables, const void* qcorr,
+             const void* coins, const void* r_q, const void* r_nq,
+             const void* mflip, void* p_scr, void* li_scr, int n_rv,
+             int total, int n_qubits) {
+  if (total != (n_rv + 2) * n_qubits || total > 32 * 32 || n_qubits > 32)
     return false;
-  p->g = GenParams{static_cast<const uint32_t*>(xq),
-                   static_cast<const uint32_t*>(zq),
-                   static_cast<const uint32_t*>(xn),
-                   static_cast<const uint32_t*>(zn),
+  p->g = GenParams{static_cast<const uint32_t*>(tables),
                    static_cast<const uint8_t*>(qcorr),
                    static_cast<const uint8_t*>(coins),
                    static_cast<const uint8_t*>(r_q),
@@ -703,8 +710,7 @@ bool set_gen(Params* p, const void* xq, const void* zq, const void* xn,
                    static_cast<const uint8_t*>(mflip),
                    static_cast<uint8_t*>(p_scr),
                    static_cast<int32_t*>(li_scr),
-                   static_cast<unsigned char*>(tab_scratch),
-                   total, w_words, n_qubits};
+                   total, n_qubits};
   return true;
 }
 
@@ -861,26 +867,21 @@ extern "C" int qba_trial_megakernel_keyed(
 }
 
 // The gen entry: the GF(2) operands in place of p_rows and li, which the
-// prologue writes to p_scr and li_scr, and tab_scratch, which holds
-// kMegaWarps tableau slots per trial.  slot_bytes is the caller's slot size,
-// which must be shot_bytes(total, w_words).
+// prologue writes to p_scr and li_scr.
 extern "C" int qba_trial_megakernel_gen(
-    const void* xq, const void* zq, const void* xn, const void* zn,
-    const void* qcorr, const void* coins, const void* r_q, const void* r_nq,
-    const void* mflip, void* p_scr, void* li_scr, void* tab_scratch,
-    const void* v_sent, const void* honest, const void* attack,
-    const void* rand_v, const void* late, void* pool_a, void* pool_b,
-    void* o_vi, void* o_dec, void* o_ovf, int n_trials,
+    const void* tables, const void* qcorr, const void* coins,
+    const void* r_q, const void* r_nq, const void* mflip, void* p_scr,
+    void* li_scr, const void* v_sent, const void* honest,
+    const void* attack, const void* rand_v, const void* late, void* pool_a,
+    void* pool_b, void* o_vi, void* o_dec, void* o_ovf, int n_trials,
     int n_rv, int slots, int max_l, int size_l, int w, int n_dis,
-    int use_fp, int total, int w_words, int n_qubits, int slot_bytes,
-    void* stream) {
+    int use_fp, int total, int n_qubits, void* stream) {
   if (n_trials <= 0) return 0;
   const Dims d = make_dims(n_rv, slots, max_l, size_l, w);
   Params prm = {};
   if (!dims_ok(d) || n_dis < 0 ||
-      !set_gen(&prm, xq, zq, xn, zn, qcorr, coins, r_q, r_nq, mflip, p_scr,
-               li_scr, tab_scratch, n_rv, total, w_words, n_qubits,
-               slot_bytes))
+      !set_gen(&prm, tables, qcorr, coins, r_q, r_nq, mflip, p_scr, li_scr,
+               n_rv, total, n_qubits))
     return int(cudaErrorInvalidValue);
   prm.v_sent = static_cast<const int32_t*>(v_sent);
   prm.honest = static_cast<const int32_t*>(honest);
@@ -892,23 +893,20 @@ extern "C" int qba_trial_megakernel_gen(
 // The gen entry, keyed (k_rounds, collude and orders as the keyed host-gen
 // entry).
 extern "C" int qba_trial_megakernel_gen_keyed(
-    const void* xq, const void* zq, const void* xn, const void* zn,
-    const void* qcorr, const void* coins, const void* r_q, const void* r_nq,
-    const void* mflip, void* p_scr, void* li_scr, void* tab_scratch,
-    const void* v_sent, const void* honest, const void* k_rounds,
-    const void* collude, const void* orders, void* pool_a, void* pool_b,
-    void* o_vi, void* o_dec, void* o_ovf, void* clock,
-    int n_trials, int n_rv, int slots,
-    int max_l, int size_l, int w, int n_dis, int use_fp, int total,
-    int w_words, int n_qubits, int slot_bytes, int strategy, int broadcast,
-    int racy, int p32_bits, int n_mod, void* stream) {
+    const void* tables, const void* qcorr, const void* coins,
+    const void* r_q, const void* r_nq, const void* mflip, void* p_scr,
+    void* li_scr, const void* v_sent, const void* honest,
+    const void* k_rounds, const void* collude, const void* orders,
+    void* pool_a, void* pool_b, void* o_vi, void* o_dec, void* o_ovf,
+    void* clock, int n_trials, int n_rv, int slots, int max_l, int size_l,
+    int w, int n_dis, int use_fp, int total, int n_qubits, int strategy,
+    int broadcast, int racy, int p32_bits, int n_mod, void* stream) {
   if (n_trials <= 0) return 0;
   const Dims d = make_dims(n_rv, slots, max_l, size_l, w);
   Params prm = {};
   if (!dims_ok(d) || n_dis < 0 ||
-      !set_gen(&prm, xq, zq, xn, zn, qcorr, coins, r_q, r_nq, mflip, p_scr,
-               li_scr, tab_scratch, n_rv, total, w_words, n_qubits,
-               slot_bytes) ||
+      !set_gen(&prm, tables, qcorr, coins, r_q, r_nq, mflip, p_scr, li_scr,
+               n_rv, total, n_qubits) ||
       !set_law(&prm, k_rounds, collude, orders, strategy, broadcast, racy,
                p32_bits, n_mod))
     return int(cudaErrorInvalidValue);

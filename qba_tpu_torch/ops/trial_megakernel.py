@@ -19,8 +19,9 @@ counterpart here.
 
 :func:`trial_megakernel_gen` is the TPU kernel's ``gen=True`` form
 (``mega_gen="gf2"``): the launch also generates the lists.  Its prologue
-sweeps each trial's ``size_l`` stabilizer tableaux with the device
-function the standalone sweep kernel runs (``csrc/gf2_sweep.cuh``),
+measures each trial's ``size_l`` shots with the device function the
+standalone sweep kernel runs (``csrc/gf2_sweep.cuh``: each circuit
+family's affine map, :func:`~qba_tpu_torch.qsim.protocol_circuits.stabilizer_sweep_tables`),
 applies the readout flips, decodes the order values and writes P and
 ``li`` to scratch, which the body of the host-gen kernel then reads.
 Its plain version, :func:`trial_megakernel_gen_reference`, is the plain
@@ -78,9 +79,7 @@ from qba_tpu_torch.ops.round_kernel_tiled import (
     unshard_receivers,
 )
 
-# The kernel's warps (``kMegaWarps``, ``csrc/mega_phases.cuh``): the gen
-# prologue sweeps one shot per warp at a time, each in its own slot of
-# per-trial global scratch.
+# The kernel's warps (``kMegaWarps``, ``csrc/mega_phases.cuh``).
 MEGA_WARPS = 16
 # Entry buffers a warp (``kStages``): the copy pipeline's depth.
 MEGA_STAGES = 2
@@ -502,11 +501,9 @@ def trial_megakernel_gen(cfg: QBAConfig, gen_tables, gen_ops, v_sent,
     CPU tensors run :func:`trial_megakernel_gen_reference`.  CUDA tensors
     launch the kernel's gen entry once for the batch, with exactly these
     dtypes, contiguous, on one device; any other input raises.  The
-    prologue's tableaux live in per-warp global scratch, so the block
-    keeps the round body's shared memory and its three blocks per SM.
-    Shared-memory slots were level on the H100 at 11 parties (1.403
-    against 1.407 ms a 1000-trial batch) and at 33 parties left one
-    block per SM, 39.1 ms against 24.3 (``chip_smoke.py``, PERF.md).
+    prologue evaluates ``cfg``'s affine maps
+    (:func:`~qba_tpu_torch.qsim.protocol_circuits.stabilizer_sweep_tables`)
+    in place of ``gen_tables``, which must be ``cfg``'s.
     """
     if not dispatch("trial_megakernel_gen", (v_sent,)):
         return trial_megakernel_gen_reference(cfg, gen_tables, gen_ops,
@@ -517,7 +514,7 @@ def trial_megakernel_gen(cfg: QBAConfig, gen_tables, gen_ops, v_sent,
                                                      gen_ops, v_sent, honest_c)
     _check_stacks(cfg, n_trials, dev, attack, rand_v, late)
     out = _outputs(cfg, n_trials, dev)
-    fn = kernel_fn("trial_megakernel", "qba_trial_megakernel_gen", 22, 12)
+    fn = kernel_fn("trial_megakernel", "qba_trial_megakernel_gen", 18, 10)
     args = gen_ptrs + ptrs(v_sent, honest_c, attack, rand_v, late, *out)
     args += _body_ints(cfg, n_trials) + gen_ints
     timed_launch(trial_megakernel_gen, fn, args,
@@ -558,7 +555,7 @@ def trial_megakernel_gen_keyed(cfg: QBAConfig, gen_tables, gen_ops, v_sent,
     keys, law = _keyed(cfg, n_trials, dev, k_rounds, ctx)
     out = _outputs(cfg, n_trials, dev)
     fn = kernel_fn("trial_megakernel", "qba_trial_megakernel_gen_keyed",
-                   23, 17)
+                   19, 15)
     args = gen_ptrs + ptrs(v_sent, honest_c) + keys + ptrs(*out)
     args += [_clock_ptr(clock, n_trials, 1, dev)]
     args += _body_ints(cfg, n_trials) + gen_ints + law
@@ -574,10 +571,10 @@ trial_megakernel_gen_keyed.events = None
 def _gen_inputs(cfg: QBAConfig, gen_tables, gen_ops, v_sent, honest_c):
     """Check the gen entry's operands (exactly the dtypes and shapes of
     :func:`trial_megakernel_gen`, contiguous, on ``v_sent``'s device) and
-    allocate its scratch.  Returns ``(n_trials, the operand and scratch
-    pointers, the gen ints (total, words, n_qubits, slot bytes), the
-    tensors the pointers address)``."""
-    from qba_tpu_torch.ops.gf2_sweep import MAX_WORDS, shot_bytes
+    allocate its scratch.  Returns ``(n_trials, the maps', operands' and
+    scratch pointers, the gen ints (total, n_qubits), the tensors the
+    pointers address)``."""
+    from qba_tpu_torch.qsim.protocol_circuits import stabilizer_sweep_tables
 
     dev = v_sent.device
     check_kernel_shapes(cfg, "trial megakernel")
@@ -585,10 +582,6 @@ def _gen_inputs(cfg: QBAConfig, gen_tables, gen_ops, v_sent, honest_c):
     n_rv, s = cfg.n_lieutenants, cfg.size_l
     total = cfg.total_qubits
     words = -(-total // 32)
-    if words > MAX_WORDS:
-        raise NotImplementedError(
-            f"the gen entry takes at most {32 * MAX_WORDS} qubits; got "
-            f"{total}")
     qcorr, coins, r_q, r_nq, mflip = gen_ops
     inputs = [(f"table {i}", x, torch.int32, (2 * total, words))
               for i, x in enumerate(gen_tables)]
@@ -603,13 +596,9 @@ def _gen_inputs(cfg: QBAConfig, gen_tables, gen_ops, v_sent, honest_c):
     ]
     for name, x, dt, shp in inputs:
         check(name, x, dt, shp, dev)
-    slot = shot_bytes(total, words)
-    scratch = torch.empty(n_trials * MEGA_WARPS * slot, dtype=torch.uint8,
-                          device=dev)
     # The prologue writes P and li here; the body reads them.
     p_scr = torch.empty((n_trials, n_rv, s), dtype=torch.uint8, device=dev)
     li_scr = torch.empty((n_trials, n_rv, s), dtype=torch.int32, device=dev)
-    # The kernel keeps each tableau word-major, [W, 2 * total].
-    tables_t = [t.t().contiguous() for t in gen_tables]
-    keep = [*tables_t, qcorr, coins, r_q, r_nq, mflip, p_scr, li_scr, scratch]
-    return n_trials, ptrs(*keep), [total, words, cfg.n_qubits, slot], keep
+    keep = [stabilizer_sweep_tables(cfg, dev), qcorr, coins, r_q, r_nq, mflip,
+            p_scr, li_scr]
+    return n_trials, ptrs(*keep), [total, cfg.n_qubits], keep

@@ -6,9 +6,10 @@ on a circuit executor; :func:`generate_lists_stabilizer` runs every
 position of a batch on the batched GF(2) engine: the parity products of
 :func:`stabilizer_gen_operands`, then the measurement sweep
 (:func:`qba_tpu_torch.ops.gf2_sweep.gf2_sweep`, a kernel on CUDA) from
-the static tableaux of :func:`stabilizer_gen_tables`.  The trial
-megakernel's gen entry takes the same tables and operands and sweeps
-inside the launch.
+the static tableaux of :func:`stabilizer_gen_tables`; on CUDA the sweep
+kernel evaluates each family's affine map, :func:`stabilizer_sweep_tables`.
+The trial megakernel's gen entry takes the same tables and operands and
+sweeps inside the launch.
 
 Qubit layout: ``(n_parties + 1)`` groups of ``n_qubits``; group 0 is the
 QSD's extra copy, group 1 the commander's particles.
@@ -166,6 +167,32 @@ def stabilizer_gen_tables(cfg: QBAConfig, device=None):
                  for m in (prog_q.x, prog_q.z, prog_nq.x, prog_nq.z))
 
 
+@functools.lru_cache(maxsize=None)
+def _sweep_tables(n_parties: int, n_qubits: int, device: torch.device):
+    from qba_tpu_torch.gf2.bitops import pack_bits
+    from qba_tpu_torch.ops.gf2_sweep import sweep_tables
+
+    progs = _programs(n_parties, n_qubits)[::-1]
+
+    def packed(field):
+        return torch.stack([pack_bits(torch.from_numpy(getattr(p, field)))
+                            for p in progs])
+
+    return sweep_tables((n_parties + 1) * n_qubits, packed("x"),
+                        packed("z")).to(device)
+
+
+def stabilizer_sweep_tables(cfg: QBAConfig, device=None) -> torch.Tensor:
+    """The sweep kernel's tables of both circuit families
+    (:func:`~qba_tpu_torch.ops.gf2_sweep.sweep_tables` of
+    :func:`stabilizer_gen_tables`, family 0 not Q-correlated, family 1
+    Q-correlated): int32 ``[2, wt, n_pad]`` on ``device`` (default: the
+    CPU), built once per config and device (the host's symbolic sweeps,
+    PERF.md)."""
+    return _sweep_tables(cfg.n_parties, cfg.n_qubits,
+                         torch.device("cpu" if device is None else device))
+
+
 def stabilizer_gen_operands(cfg: QBAConfig, keys: torch.Tensor):
     """Per-trial operands of the stabilizer list generation for trial
     keys ``[T, 2]`` (each trial's ``k_lists`` subkey): everything of
@@ -222,12 +249,16 @@ def stabilizer_bits(cfg: QBAConfig, tables, operands, *,
     included) from :func:`stabilizer_gen_tables` and
     :func:`stabilizer_gen_operands`: one sweep over all shots, each from
     its own family's tableau.  ``sweep`` defaults to
-    :func:`~qba_tpu_torch.ops.gf2_sweep.gf2_sweep`."""
+    :func:`~qba_tpu_torch.ops.gf2_sweep.gf2_sweep` with ``cfg``'s
+    :func:`stabilizer_sweep_tables`, which on CUDA the kernel reads in
+    place of ``tables``: they must be ``cfg``'s."""
     from qba_tpu_torch.ops.gf2_sweep import gf2_sweep
 
-    sweep = gf2_sweep if sweep is None else sweep
     x_q, z_q, x_nq, z_nq = tables
     qcorr, coins, r_q, r_nq, mflip = operands
+    if sweep is None:
+        sweep = functools.partial(
+            gf2_sweep, tables=stabilizer_sweep_tables(cfg, qcorr.device))
     total = cfg.total_qubits
     b = qcorr.numel()
     r = torch.where(qcorr[..., None], r_q, r_nq)

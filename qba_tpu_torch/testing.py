@@ -343,15 +343,18 @@ def random_trial_inputs(cfg: QBAConfig, n_trials: int, seed: int,
                                                        device=device)))
 
 
-def random_circuit(n_qubits: int, n_ops: int, seed: int, n_params: int = 3):
+def random_circuit(n_qubits: int, n_ops: int, seed: int, n_params: int = 3,
+                   real: bool = False):
     """A seeded random op list for the circuit engines, as plain tuples
     ``(kind, target, controls, param, angle)``
     (:func:`qba_tpu_torch.convert.circuit_ops_from_tuples`): the fixed
     gates, the rotation families with random angles, ``XPOW`` on
-    ``n_params`` runtime bits, and up to three controls per op.  Starts
-    with an H on every qubit so that every amplitude is live."""
+    ``n_params`` runtime bits, and up to three controls per op; with
+    ``real`` only the real gates (H, X, Z, RY, ``XPOW``).  Starts with an
+    H on every qubit so that every amplitude is live."""
     rng = np.random.default_rng(seed)
-    kinds = ("H", "X", "Y", "Z", "S", "T", "RX", "RY", "RZ", "P", "XPOW")
+    kinds = (("H", "X", "Z", "RY", "XPOW") if real else
+             ("H", "X", "Y", "Z", "S", "T", "RX", "RY", "RZ", "P", "XPOW"))
     ops = [("H", q, (), None, None) for q in range(n_qubits)]
     for _ in range(n_ops):
         kind = kinds[int(rng.integers(len(kinds)))]

@@ -27,6 +27,9 @@ card it runs without the JAX test harness:
 """
 
 import dataclasses
+import os
+import subprocess
+import sys
 
 import pytest
 
@@ -314,11 +317,24 @@ def test_fused_circuit_kernel_on_protocol_circuits(cuda, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_qubits,seed", [(6, 0), (10, 1), (16, 2)])
+@pytest.mark.parametrize("n_qubits,seed", [(6, 0), (10, 1), (16, 2), (17, 3)])
 def test_fused_circuit_kernel_on_random_circuits(cuda, n_qubits, seed):
     ops = circuit_ops_from_tuples(random_circuit(n_qubits, 40, seed))
     err, got = circuit_errs(n_qubits, ops, 3, cuda, n_runs=4, seed=seed)
     assert got.dtype == torch.complex64
+    assert err <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_qubits,route", [(15, "block"), (16, "cluster"),
+                                            (18, "cluster"), (19, "cluster"),
+                                            (20, "global")])
+def test_fused_circuit_kernel_on_each_route(cuda, n_qubits, route):
+    ops = circuit_ops_from_tuples(random_circuit(n_qubits, 40, n_qubits,
+                                                 real=True))
+    assert fc.circuit_tables(n_qubits, ops, 3).route[0] == route
+    err, got = circuit_errs(n_qubits, ops, 3, cuda, n_runs=3, seed=n_qubits)
+    assert got.dtype == torch.float32
     assert err <= 1e-6
 
 
@@ -349,8 +365,7 @@ def test_counters_agree_across_engines(cuda):
 
 
 # The stabilizer resource path: (parties, trials, noise).  The sweep
-# kernel keeps 11p tableaux in shared memory and 33p ones in global
-# scratch.
+# kernel keeps the families' maps in shared memory at 11p and 33p.
 SWEEPS = {
     "11p": (11, 8, False),
     "11p-noisy": (11, 8, True),
@@ -366,12 +381,12 @@ def test_gf2_sweep_kernel_on_protocol_tableaux(cuda, case):
     cfg = qba_tpu_torch.QBAConfig(
         n_parties=n, size_l=64, p_depolarize=0.05 * noisy,
         p_measure_flip=0.02 * noisy)
-    assert gs.tableau_in_shared(cfg.total_qubits) == (n == 11)
+    assert gs.tables_in_shared(pc.stabilizer_sweep_tables(cfg))
     keys = jr.split(jr.key(n, device=cuda), trials)
     ops = pc.stabilizer_gen_operands(cfg, keys)
     tables = pc.stabilizer_gen_tables(cfg, cuda)
     before = gs.gf2_sweep.launches
-    got = pc.stabilizer_bits(cfg, tables, ops, sweep=gs.gf2_sweep)
+    got = pc.stabilizer_bits(cfg, tables, ops)
     assert gs.gf2_sweep.launches == before + 1
     assert_equal(got, pc.stabilizer_bits(cfg, tables, ops,
                                          sweep=gs.gf2_sweep_reference))
@@ -379,20 +394,34 @@ def test_gf2_sweep_kernel_on_protocol_tableaux(cuda, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_qubits,in_shared", [(13, True), (40, True),
-                                                (70, True), (100, False)])
+                                                (70, True), (100, True),
+                                                (400, False)])
 def test_gf2_sweep_kernel_on_random_tableaux(cuda, n_qubits, in_shared):
-    assert gs.tableau_in_shared(n_qubits) == in_shared
     args = random_sweep_inputs(n_qubits, 96, seed=n_qubits, device=cuda)
     xw, zw, r, coins, family, mflip = args
+    tables = gs.sweep_tables(n_qubits, xw, zw).to(cuda)
+    assert gs.tables_in_shared(tables) == in_shared
     work = {}
     want = gs.gf2_sweep_reference(n_qubits, *args, work=work)
     assert work["random_steps"] and work["det_steps"] and work["late_pivots"]
     assert_equal(gs.gf2_sweep(n_qubits, *args), want)
-    # One family, no readout flips; a family past the tableaux raises.
+    assert_equal(gs.gf2_sweep(n_qubits, *args, tables=tables), want)
+    # One family, no readout flips.
     assert_equal(gs.gf2_sweep(n_qubits, xw[:1], zw[:1], r, coins),
                  gs.gf2_sweep_reference(n_qubits, xw[:1], zw[:1], r, coins))
-    with pytest.raises(ValueError, match="family index"):
-        gs.gf2_sweep(n_qubits, xw[:1], zw[:1], r, coins, family)
+    # A family past the tableaux stops the kernel at its device-side
+    # assert (in a process of its own: the assert ends the CUDA context).
+    code = (
+        "import torch; from qba_tpu_torch.ops import gf2_sweep as gs; "
+        "from qba_tpu_torch.testing import random_sweep_inputs; "
+        f"xw, zw, r, c, f, m = random_sweep_inputs({n_qubits}, 96, "
+        f"seed={n_qubits}, device='cuda'); "
+        "gs.gf2_sweep(xw.shape[1] // 2, xw[:1], zw[:1], r, c, f); "
+        "torch.cuda.synchronize()")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=root, timeout=300)
+    assert run.returncode != 0 and "assert" in run.stderr.lower()
 
 
 def gen_inputs(cfg, dev):

@@ -160,6 +160,100 @@ def test_fused_circuit_wrapper_uses_plain_version_on_cpu():
         fc.circuit_tables(21, (), 0)
 
 
+@pytest.mark.parametrize("n_qubits,planes,route", [
+    (1, 1, ("block", 1, 1)), (15, 1, ("block", 1, 15)),
+    (14, 2, ("block", 1, 14)), (16, 1, ("cluster", 4, 14)),
+    (15, 2, ("cluster", 4, 13)), (17, 1, ("cluster", 8, 14)),
+    (18, 1, ("cluster", 16, 14)), (17, 2, ("cluster", 16, 13)),
+    (19, 1, ("cluster", 16, 15)), (18, 2, ("cluster", 16, 14)),
+    (20, 1, ("global", 0, 20)), (19, 2, ("global", 0, 19)),
+    (20, 2, ("global", 0, 20))])
+def test_circuit_route_by_width(n_qubits, planes, route):
+    assert fc.circuit_route(n_qubits, planes) == route
+
+
+def test_circuit_tables_classify_ops_for_the_route():
+    # 5p Q-correlated, 18 qubits real: a cluster of 16, qubits 0-3 (flat
+    # bits 17-14) the rank bits.  The H on qubits 0-2 and the XPOW and
+    # CNOT on qubit 3 exchange; every other op stays in the block.
+    circ = pc.gen_q_corr_circuit(5, 3)
+    tables = fc.circuit_tables(circ.n_qubits, circ.ops, circ.n_params)
+    assert tables.route == ("cluster", 16, 14)
+    kinds, bits = (tables.ops_i[:, i].tolist() for i in (0, 1))
+    exchanges = [k for k, _n, mask in tables.passes.tolist() if not mask]
+    assert exchanges == [k for k, b in enumerate(bits) if b >= 14]
+    assert [kinds[k] for k in exchanges] == [
+        fc.KIND_H] * 3 + [fc.KIND_XPOW, fc.KIND_X]
+    small = fc.circuit_tables(8, pc.gen_q_corr_circuit(3, 2).ops, 6)
+    assert small.route[0] == "block" and small.passes[:, 2].all()
+
+
+@pytest.mark.parametrize("pass_bits", [1, 3])
+def test_circuit_tables_group_passes(pass_bits, monkeypatch):
+    # Consecutive in-block ops share a pass while their targets fit
+    # PASS_BITS bits; an exchange (a target past the route's local bits)
+    # is a pass of its own, mask 0.
+    monkeypatch.setattr(fc, "PASS_BITS", pass_bits)
+    for circ in (pc.gen_q_corr_circuit(5, 3), pc.gen_nq_corr_circuit(5, 3),
+                 both_circuits(random_circuit(12, 30, 9), 12)[1]):
+        tables = fc.circuit_tables(circ.n_qubits, circ.ops, circ.n_params)
+        ops, local = tables.ops_i.tolist(), tables.route[2]
+        first = 0
+        for start, count, mask in tables.passes.tolist():
+            assert start == first and count >= 1
+            group = ops[start:start + count]
+            if mask == 0:
+                assert count == 1 and group[0][1] >= local
+            else:
+                assert all(o[1] < local for o in group)
+                assert mask == sum({1 << o[1] for o in group})
+                assert bin(mask).count("1") <= pass_bits
+            first += count
+        assert first == len(ops)
+    q5 = pc.gen_q_corr_circuit(5, 3)
+    passes = fc.circuit_tables(18, q5.ops, q5.n_params).passes
+    # H x3 and the XPOW on qubit 3 exchange, then XPOWs in threes.
+    assert passes.shape[0] == (15 if pass_bits == 3 else 33)
+
+
+# The cluster route's split, emulated in plain PyTorch at small widths:
+# (circuit, blocks).  Protocol-shaped circuits at 12 qubits (two qubits a
+# party) put every H of the Q-correlated family on rank bits and the
+# not-Q-correlated family's CNOTs on them with local controls; the random
+# circuits put controls on rank bits too.
+SPLITS = {
+    "q-5p-12q-x4": (lambda: pc.gen_q_corr_circuit(5, 2), 4),
+    "nq-5p-12q-x8": (lambda: pc.gen_nq_corr_circuit(5, 2), 8),
+    "random-10q-x2": (lambda: both_circuits(random_circuit(10, 30, 7),
+                                            10)[1], 2),
+    "random-14q-real-x8": (lambda: both_circuits(
+        random_circuit(14, 30, 8, real=True), 14)[1], 8),
+}
+
+
+@pytest.mark.parametrize("case", list(SPLITS))
+def test_cluster_split_matches_the_plain_version_and_jax(case):
+    build, blocks = SPLITS[case]
+    circ = build()
+    n = circ.n_qubits
+    tables = fc.circuit_tables(n, circ.ops, circ.n_params)
+    rng = np.random.default_rng(blocks)
+    params = rng.integers(0, 2, (3, tables.n_params)).astype(np.int32)
+    got = fc.cluster_split_reference(tables, torch.from_numpy(params), blocks)
+    want = fc.fused_circuit_reference(tables, torch.from_numpy(params))
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    jcirc = JCircuit(n, ops=[JOp(*dataclasses.astuple(o)) for o in circ.ops])
+    kernel = jax_states(jcirc, "pallas_interpret",
+                        params[:, :max(circ.n_params, 1)]
+                        if circ.n_params else None)
+    if not circ.n_params:
+        got = got[:1]
+    np.testing.assert_allclose(got.numpy(), kernel.reshape(got.shape),
+                               atol=ATOL, rtol=0)
+    with pytest.raises(ValueError, match="cannot split"):
+        fc.cluster_split_reference(tables, torch.from_numpy(params), 3)
+
+
 def test_gumbel_and_categorical_match_jax():
     keys, tkeys = jkeys(11, 6)
     rng = np.random.default_rng(0)
