@@ -131,10 +131,11 @@ Phases, each reported on its own line:
    only) on the 11p and 33p batches, 33p x 64 and the sharded entry at
    ``tp = 4``: per phase, warp 0's SM cycles per block and its share,
    and the blocks' mean and largest sums, on a line of its own;
-   ``round_phases``: the same for the fused round and the dense-mailbox
-   round (their clocked instantiations, each round's result equal to the
-   unclocked launch's) over every round of the 11p and 33p batches and,
-   as ``n_recv`` variants, of the 33p batch at ``tp = 4``.
+   ``round_phases``: the same for the fused round, the dense-mailbox
+   round and the tiled verdict and rebuild (their clocked
+   instantiations, each round's result equal to the unclocked launch's)
+   over every round of the 11p and 33p batches and, as ``n_recv``
+   variants, of the 33p batch at ``tp = 4``.
 
 Any failure exits non-zero.  The line before the last is the kernel
 table as JSON, the one before it the card; the last line is
@@ -257,16 +258,27 @@ def bound(bytes_moved, ops, float_ops=False):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def acc_bytes(cfg, n_trials, n_tp=1):
+    """Bytes of one round's accepted matrix over ``n_tp`` shards: one bit
+    a (packet, receiver), each shard's ``n_local`` receivers' bits of a
+    packet in whole bytes (``ceil(n_local / 8)``), whatever layout a
+    kernel writes or reads them in (the kernels hold a 64-bit word a
+    packet a shard)."""
+    n_local = cfg.n_lieutenants // n_tp
+    return (n_tp * n_trials * cfg.n_lieutenants * cfg.slots
+            * -(-n_local // 8))
+
+
 def verdict_cost(cfg, live, rows, n_trials):
     """Bytes and compares of one round's verdict: in, the live packets'
     valid rows (vals and lens), P, meta and their cells' three draws per
-    receiver, every packet's meta (the scan), li and vi; out, acc and
-    vi."""
+    receiver, every packet's meta (the scan), li and vi; out, acc (one
+    bit a packet and receiver, ``acc_bytes``) and vi."""
     n_rv, s, w = cfg.n_lieutenants, cfg.size_l, cfg.w
     n_pool = n_rv * cfg.slots
     b_in = (rows * (s + 4) + live * (s + 3 * n_rv + 4)
             + n_trials * (n_pool * 16 + n_rv * s * 4 + n_rv * w * 4))
-    b_out = n_trials * (n_pool * n_rv * 4 + n_rv * w * 4)
+    b_out = acc_bytes(cfg, n_trials) + n_trials * n_rv * w * 4
     return b_in + b_out, (rows + 3 * live) * s * n_rv
 
 
@@ -278,13 +290,12 @@ def pool_bytes(cfg, n_trials):
 
 
 def rebuild_cost(cfg, dst, dst_rows, n_trials):
-    """Bytes and compares of one round's rebuild: in, acc, each
-    destination's source rows (vals and lens), P and meta, its two draws,
-    honesty and the receiver's li row; out, the whole successor pool and
-    the overflow flag."""
-    n_rv, s = cfg.n_lieutenants, cfg.size_l
-    n_pool = n_rv * cfg.slots
-    b_in = (n_trials * n_pool * n_rv * 4 + dst_rows * (s + 4)
+    """Bytes and compares of one round's rebuild: in, acc (``acc_bytes``),
+    each destination's source rows (vals and lens), P and meta, its two
+    draws, honesty and the receiver's li row; out, the whole successor
+    pool and the overflow flag."""
+    s = cfg.size_l
+    b_in = (acc_bytes(cfg, n_trials) + dst_rows * (s + 4)
             + dst * (s + 16 + 2 + 4 + s * 4))
     b_out = pool_bytes(cfg, n_trials) + n_trials * 4
     return b_in + b_out, (dst_rows + dst) * s
@@ -294,12 +305,9 @@ def fused_cost(cfg, live, rows, dst, dst_rows, n_trials):
     """Bytes and compares of one fused round: the verdict's inputs and vi
     out, the rebuild's source reads and the whole successor pool out
     (acc stays on chip)."""
-    n_rv = cfg.n_lieutenants
-    n_pool = n_rv * cfg.slots
-    acc = n_trials * n_pool * n_rv * 4
     vb, vo = verdict_cost(cfg, live, rows, n_trials)
     rb, ro = rebuild_cost(cfg, dst, dst_rows, n_trials)
-    return vb + rb - 2 * acc, vo + ro
+    return vb + rb - 2 * acc_bytes(cfg, n_trials), vo + ro
 
 
 def n_recv_cost(cfg, live, rows, dst, dst_rows, n_trials, n_tp):
@@ -326,14 +334,17 @@ def n_recv_costs(cfg, live, rows, dst, dst_rows, n_trials, n_tp):
     """Bytes and compares of one round's ``n_recv`` verdict, rebuild and
     dense-mailbox round over ``n_tp`` shards: the verdict's and the
     dense-mailbox round's as the single-device kernels' plus
-    ``n_recv_extra``; the rebuild reads each shard's columns of acc and
-    the rebuilt sources once over all shards and writes the segments, one
-    pool: the single-device rebuild's."""
+    ``n_recv_extra``, and the shards' masks in place of the single
+    device's (``acc_bytes`` over ``n_tp`` shards) written by the verdict
+    and read by the rebuild; the rebuild reads the rebuilt sources once
+    over all shards and writes the segments, one pool."""
     extra = n_recv_extra(cfg, live, rows, n_trials, n_tp)
+    masks = acc_bytes(cfg, n_trials, n_tp) - acc_bytes(cfg, n_trials)
     vb, vo = verdict_cost(cfg, live, rows, n_trials)
+    rb, ro = rebuild_cost(cfg, dst, dst_rows, n_trials)
     return dict(
-        tiled_verdict=(vb + extra, vo),
-        tiled_rebuild=rebuild_cost(cfg, dst, dst_rows, n_trials),
+        tiled_verdict=(vb + extra + masks, vo),
+        tiled_rebuild=(rb + masks, ro),
         round_step=n_recv_cost(cfg, live, rows, dst, dst_rows, n_trials,
                                n_tp))
 
@@ -443,12 +454,14 @@ def round_facts(cfg, r, pool, hc, acc, att):
     attack table ``att``."""
     import torch
 
+    from qba_tpu_torch.ops.round_kernel_tiled import unpack_acc
+
     live, rows = pool_stats(cfg, pool)
     meta = pool[3]
     sent = meta[..., 2] != 0
     cell = meta[..., 3].clamp(0, hc.shape[1] - 1).long()
     biz = sent & (torch.gather(hc, 1, cell) == 0)
-    accepted = acc != 0
+    accepted = unpack_acc(acc, cfg.n_lieutenants) != 0
     rb = accepted & (r <= cfg.n_dishonest)
     slot = torch.cumsum(rb.long(), 1) - rb.long()
     write = rb & (slot < cfg.slots)
@@ -714,7 +727,10 @@ def n_recv_agrees(cfg, r, tp, got, single):
     order the single-device successor mailbox."""
     import torch
 
-    from qba_tpu_torch.ops.round_kernel_tiled import unshard_receivers
+    from qba_tpu_torch.ops.round_kernel_tiled import (
+        join_acc_shards,
+        unshard_receivers,
+    )
 
     new, vi, ovf = single["fused_round"]
     acc, _vi = single["tiled_verdict"]
@@ -726,7 +742,8 @@ def n_recv_agrees(cfg, r, tp, got, single):
               for x in (fused[1], s_vi, step[1]))
           and all(torch.equal(x.any(0), ovf)
                   for x in (fused[2], tiled[1], step[2]))
-          and torch.equal(s_acc.permute(1, 2, 0, 3).reshape(acc.shape), acc)
+          and torch.equal(join_acc_shards(s_acc, cfg.n_lieutenants // tp),
+                          acc)
           and all(torch.equal(a, b) for a, b in zip(tiled[0], fused[0]))
           and all(torch.equal(torch.cat(list(a), dim=1), b)
                   for a, b in zip(step[0], mbox)))
@@ -813,8 +830,7 @@ def n_recv_replay(cfg, keys, tp, *, chunk, reps=3):
         new, vi_k, ovf_k = rk.fused_round(cfg, r, pool, li, vi, hc, *draws)
         new_mbox, vi_m, ovf_m = rs.round_step(cfg, r, mbox, li, vi, hc,
                                               *draws)
-        single_acc = acc.permute(1, 2, 0, 3).reshape(n, -1,
-                                                     cfg.n_lieutenants)
+        single_acc = rk.join_acc_shards(acc, kw["n_recv"])
         n_recv_agrees(cfg, r, tp, got, dict(
             fused_round=(new, vi_k, ovf_k), tiled_verdict=(single_acc, vi_k),
             round_step=(new_mbox, vi_m, ovf_m)))
@@ -836,7 +852,8 @@ def n_recv_replay(cfg, keys, tp, *, chunk, reps=3):
             raise AssertionError(f"n_recv kernel != plain version at {cfg} "
                                  f"round {r}, tp {tp}: {errs}")
         # What the rebuild must read: each destination's source packet.
-        rb = (single_acc != 0) & (r <= cfg.n_dishonest)
+        rb = ((rk.unpack_acc(single_acc, cfg.n_lieutenants) != 0)
+              & (r <= cfg.n_dishonest))
         slot = torch.cumsum(rb.long(), 1) - rb.long()
         write = rb & (slot < cfg.slots)
         src_cnt = torch.where(pool[3][..., 2] != 0,
@@ -1013,10 +1030,11 @@ def mega_phases(cfg, keys, tp=None):
 
 def round_phases(cfg, keys, tp=None):
     """The per-round kernels' phase clocks (``round_phase_clock``) over
-    every round of ``keys``' batch: the fused round on its pool and the
-    dense-mailbox round on its mailbox, single-device or, at ``tp``, their
-    ``n_recv`` variants on ``tp`` copies; each clocked round is held equal
-    to the unclocked launch.  Per kernel, the breakdown of one clock
+    every round of ``keys``' batch: the fused round and the tiled verdict
+    and rebuild on the round's pool and the dense-mailbox round on its
+    mailbox, single-device or, at ``tp``, their ``n_recv`` variants on
+    ``tp`` copies; each clocked round is held equal to the unclocked
+    launch.  Per kernel, the breakdown of one clock
     summing the rounds.  The clocked launches are their own
     instantiations, off the main path."""
     import torch
@@ -1041,7 +1059,8 @@ def round_phases(cfg, keys, tp=None):
     mbox = rs.mailbox_from_step3a(cfg, cells)
     kw = {} if tp is None else dict(n_recv=cfg.n_lieutenants // tp)
     clocks = {k: rk.round_phase_clock(keys.shape[0], tp, keys.device)
-              for k in ("fused_round", "round_step")}
+              for k in ("fused_round", "round_step", "tiled_verdict",
+                        "tiled_rebuild")}
     for r in range(1, cfg.n_rounds + 1):
         draws = round_draws(cfg, k_rounds, ctx, r)
         if tp is None:
@@ -1058,7 +1077,17 @@ def round_phases(cfg, keys, tp=None):
             if tree_err(got, fn(cfg, r, *args[name], *draws, **kw)):
                 raise AssertionError(f"{name} with its phase clock != "
                                      f"without at {cfg} round {r}")
-        del args
+        a = args["fused_round"]
+        acc = rk.tiled_verdict(cfg, r, *a, *draws, **kw,
+                               clock=clocks["tiled_verdict"])
+        got = rk.tiled_rebuild(cfg, r, *a[:2], acc[0], hc, *draws[:2], **kw,
+                               clock=clocks["tiled_rebuild"])
+        if tree_err((acc, got), (rk.tiled_verdict(cfg, r, *a, *draws, **kw),
+                                 rk.tiled_rebuild(cfg, r, *a[:2], acc[0], hc,
+                                                  *draws[:2], **kw))):
+            raise AssertionError(f"the tiled pair with its phase clocks != "
+                                 f"without at {cfg} round {r}")
+        del args, a, acc, got
         mbox = rs.round_step(cfg, r, mbox, li, vi, hc, *draws)[0]
         pool, vi, _ovf = rk.fused_round(cfg, r, pool, li, vi, hc, *draws)
     torch.cuda.synchronize()
@@ -1226,6 +1255,9 @@ RANDOM_ROUNDS = [
     ("7p/L8/d3 r3", dict(n_parties=7, size_l=8, n_dishonest=3), 3),
     ("7p/L8/d3 r4", dict(n_parties=7, size_l=8, n_dishonest=3), 4),
     ("11p/L64/d3 r1", dict(n_parties=11, size_l=64, n_dishonest=3), 1),
+    # 33 receivers: the tiled verdict's cluster of two blocks, and mask
+    # bit 32 in the word's high half (tp = 3: 11 receivers a shard).
+    ("34p/L16/d11 r1", dict(n_parties=34, size_l=16, n_dishonest=11), 1),
 ]
 RANDOM_TRIALS = [
     ("5p/L16/d2 split", dict(n_parties=5, size_l=16, n_dishonest=2,
@@ -1234,6 +1266,14 @@ RANDOM_TRIALS = [
                                max_accepts_per_round=1)),
     ("11p/L64/d3", dict(n_parties=11, size_l=64, n_dishonest=3)),
 ]
+
+
+def accepted_pairs(acc, n_local):
+    """The (packet, receiver) pairs an accepted matrix (one mask of
+    ``n_local`` receivers a packet) holds."""
+    from qba_tpu_torch.ops.round_kernel_tiled import unpack_acc
+
+    return int(unpack_acc(acc, n_local).sum())
 
 
 def random_vs_plain(dev, n_trials=64):
@@ -1283,8 +1323,12 @@ def random_vs_plain(dev, n_trials=64):
         mgot = rs.round_step(cfg, r, *margs)
         errs["round_step"] = max(errs["round_step"], tree_err(
             mgot, rs.round_step_reference(cfg, r, *margs)))
-        facts.append(dict(case=name, accepted=int(acc.sum()),
-                          dense_accepted=int(dense.sum()),
+        if cfg.n_lieutenants > 32 and not bool((acc >> 32).any()):
+            raise AssertionError(f"{name}: no mask bit past 31 accepted")
+        facts.append(dict(case=name,
+                          accepted=accepted_pairs(acc, cfg.n_lieutenants),
+                          dense_accepted=accepted_pairs(dense,
+                                                        cfg.n_lieutenants),
                           mailbox_accepted=int(mgot[1].sum() - margs[2].sum())))
     for i, (name, kw) in enumerate(RANDOM_TRIALS):
         cfg = QBAConfig(**kw)
@@ -1355,8 +1399,8 @@ def random_n_recv(cfg, r, tp, n_trials, seed, dev, errs):
     errs["tiled_verdict_n_recv"] = max(errs["tiled_verdict_n_recv"],
                                        tree_err((acc, vi2), (want_acc,
                                                              want_vi)))
-    dense = torch.stack([dense_acc(cfg, tuple(x[s] for x in pool), seed=s)
-                         [..., :kw["n_recv"]] for s in range(tp)])
+    dense = torch.stack([dense_acc(cfg, tuple(x[s] for x in pool), seed=s,
+                                   n_local=kw["n_recv"]) for s in range(tp)])
     ovf = {}
     for key, a, want in (
             ("tiled", acc, (want_pool, want_ovf)),
@@ -1373,7 +1417,8 @@ def random_n_recv(cfg, r, tp, n_trials, seed, dev, errs):
         step, rs.round_step_reference(cfg, r, *margs, **kw)))
     return dict(fused_accepted=int((fused[1] - vi).sum()),
                 fused_overflow=int(fused[2].sum()),
-                tiled_accepted=int(acc.sum()), tiled_overflow=ovf["tiled"],
+                tiled_accepted=accepted_pairs(acc, kw["n_recv"]),
+                tiled_overflow=ovf["tiled"],
                 dense_acc_overflow=ovf["dense_acc"],
                 mailbox_accepted=int((step[1] - margs[2]).sum()),
                 mailbox_overflow=int(step[2].sum()))

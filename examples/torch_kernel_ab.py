@@ -39,7 +39,9 @@ runs each keyed entry once with it and adds each one's breakdown (warp
 it has the per-round kernels' clock (``round_kernel_tiled.
 round_phase_clock``), it also runs the fused round and the dense-mailbox
 round, single-device and ``n_recv``, once a round with it (one buffer
-summing the batch's rounds) and adds their breakdowns there too.
+summing the batch's rounds) and adds their breakdowns there too, and
+the tiled verdict and rebuild likewise where their wrappers take a
+``clock``.
 Prints one JSON line: the card, the checkout and each kernel's mean ms
 per launch over the rounds (null for an ``n_recv`` variant the checkout
 lacks).  Run it for the two checkouts in turns (parent, change, change,
@@ -143,12 +145,16 @@ def main(argv):
     # The per-round kernels' phase clocks, one buffer a kernel summing
     # the rounds (where the checkout has the clock).
     clocks = {}
+    clocked = [k for k, fn in (("fused_round", rk.fused_round),
+                               ("round_step", rs.round_step),
+                               ("tiled_verdict", rk.tiled_verdict),
+                               ("tiled_rebuild", rk.tiled_rebuild))
+               if "clock" in inspect.signature(fn).parameters]
     if args.phases and args.kernels != "mega" and hasattr(
             rk, "round_phase_clock"):
         clocks = {k + sfx: rk.round_phase_clock(
                       cfg.trials, tp if sfx else None, dev)
-                  for k in ("fused_round", "round_step")
-                  for sfx in ("", "_n_recv")}
+                  for k in clocked for sfx in ("", "_n_recv")}
 
     def shards(x):
         return x.expand((tp,) + x.shape).contiguous()
@@ -198,6 +204,16 @@ def main(argv):
                           clock=clocks["round_step"])
             rs.round_step(cfg, r, smbox, sli, svi, hc, *draws, **kw,
                           clock=clocks["round_step_n_recv"])
+            if "tiled_verdict" in clocked:
+                for sfx, a, skw in (("", (pool, li, vi, hc), {}),
+                                    ("_n_recv", (spool, sli, svi, hc), kw)):
+                    cacc = rk.tiled_verdict(
+                        cfg, r, *a, *draws, **skw,
+                        clock=clocks["tiled_verdict" + sfx])[0]
+                    rk.tiled_rebuild(cfg, r, *a[:2], cacc, hc, *draws[:2],
+                                     **skw,
+                                     clock=clocks["tiled_rebuild" + sfx])
+                del cacc
         if any(sharded.values()):
             del spool, smbox
         # The next round's inputs: both engines advance from the same vi.

@@ -39,10 +39,17 @@ def check(name, x, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def masks_fit(cfg: QBAConfig) -> bool:
+    """Whether the kernels' 64-bit masks hold ``cfg``'s values and
+    receivers (``w`` and ``n_lieutenants`` at most :data:`KERNEL_MAX_W`:
+    up to 64 parties)."""
+    return cfg.w <= KERNEL_MAX_W and cfg.n_lieutenants <= KERNEL_MAX_W
+
+
 def check_kernel_shapes(cfg: QBAConfig, kernel: str) -> None:
     """Raise ``NotImplementedError`` where the 64-bit masks cannot hold
     ``cfg``'s values or receivers."""
-    if cfg.w > KERNEL_MAX_W or cfg.n_lieutenants > KERNEL_MAX_W:
+    if not masks_fit(cfg):
         raise NotImplementedError(
             f"the {kernel} kernel keeps values and receivers as 64-bit "
             f"masks (w <= {KERNEL_MAX_W}, n_lieutenants <= {KERNEL_MAX_W}); "

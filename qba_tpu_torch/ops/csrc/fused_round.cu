@@ -127,18 +127,18 @@ __device__ __forceinline__ void fused_round_body(const Params& P) {
 
   // Setup: vi as masks, the cells' sent and honesty bits; then the sent
   // cells' list and the block's lists in shared memory.
-  round_setup(sh, in.meta, honest, P.vi + b * size_t(d.n_rv) * d.w, li, d,
-              false);
+  round_setup(sh, in.meta, honest, P.vi + b * size_t(d.n_rv) * d.w, li, d);
   __syncthreads();
+  clk.mark(kRpSetup);
   list_sent(sh, d);
   __syncthreads();
   const int n_sent = sh.misc[0];
-  clk.mark(kRpSetup);
+  clk.mark(kRpList);
 
   verdict_phase(sh, in, li, dr, d, n_sent, P.round_idx, P.use_fp, clk);
   __syncthreads();
   clk.mark(kRpVerdictWait);
-  dedup_phase(sh, dr, d, n_sent, sh.list, P.round_idx <= P.n_dis, nullptr);
+  dedup_phase(sh, dr, d, n_sent, P.round_idx <= P.n_dis);
   __syncthreads();
   clk.mark(kRpDedup);
   store_vi(sh, P.o_vi + b * size_t(d.n_rv) * d.w, d);

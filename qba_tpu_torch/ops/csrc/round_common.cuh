@@ -16,7 +16,9 @@
 //          TPU's _verdict_block_accepts, round_kernel_tiled.py:119): a
 //          warp a packet, staged with cp.async one packet ahead, its facts
 //          once, the receivers across lanes (verdict_phase);
-//   B      first accept per value into vi, and the winners' slots;
+//   B      first accept per value into vi, and the winners' slots (or,
+//          for the tiled verdict, each packet's accepted receivers as
+//          one mask, tiled_round.cu's store_acc);
 //   C      per-receiver offsets of the compacted successor pool;
 //   D      rebuild of the live successor entries;
 //   E      fill of the successor pool's dead tail.
@@ -105,7 +107,9 @@ struct PhaseClock<true, N> {
 // The per-round kernels' clock phases, in the order of the int64 [..,
 // kRoundPhases] buffer (ROUND_PHASES in round_kernel_tiled.py).
 enum RoundPhase {
-  kRpSetup,        // verdicts cleared, vi masks, the scan of the sent cells
+  kRpSetup,        // vi masks, the cells' bits, the lists (and the
+                   // cluster's exchange of them, the tiled verdict)
+  kRpList,         // the sent cells' list
   kRpStage,        // verdict: warp 0 staging its packets, packet facts
   kRpReceivers,    // verdict: warp 0's receiver passes
   kRpVerdictWait,  // verdict: warp 0 at the barrier
@@ -126,13 +130,16 @@ template <bool kSharded>
 struct BlockAt {
   int shard;
   size_t t;
-  __device__ explicit BlockAt(int n_trials) {
+  __device__ explicit BlockAt(int n_trials) : BlockAt(n_trials, blockIdx.x) {}
+  // Of (shard, trial) block `block` (the tiled verdict's clusters run
+  // several thread blocks a (shard, trial)).
+  __device__ BlockAt(int n_trials, int block) {
     if constexpr (kSharded) {
-      shard = int(blockIdx.x) / n_trials;
-      t = size_t(int(blockIdx.x) - shard * n_trials);
+      shard = block / n_trials;
+      t = size_t(block - shard * n_trials);
     } else {
       shard = 0;
-      t = blockIdx.x;
+      t = size_t(block);
     }
   }
   // The block's round dims, from the launch's (n_rv the block's).
@@ -246,6 +253,17 @@ struct Draws {
 
 __host__ __device__ inline int align16(int x) { return (x + 15) & ~15; }
 
+// A block's part of a (shard, trial) whose round n_ranks blocks of a
+// thread-block cluster split (the tiled verdict): block `rank` loads and
+// dedups the receivers [lo(n_rv), hi(n_rv)), loads the cells' words
+// [lo(n_words), hi(n_words)), and checks the list entries verdict_owner
+// gives it.  The default is a whole round in one block.
+struct Part {
+  int rank = 0, n_ranks = 1;
+  __device__ int lo(int n) const { return rank * n / n_ranks; }
+  __device__ int hi(int n) const { return (rank + 1) * n / n_ranks; }
+};
+
 // ---- Helpers of the verdicts (this one and mega_phases.cuh's). ----
 
 // Lanes a receiver in a verdict: 32 / G receivers a pass.  Mirrored by
@@ -260,6 +278,13 @@ __device__ inline unsigned compress_lanes(unsigned bits, int G) {
   unsigned out = 0;
   for (int i = 0; i * G < 32; ++i) out |= ((bits >> (i * G)) & 1u) << i;
   return out;
+}
+
+// 0x80 in each byte where a and b agree, 0 elsewhere (exact per byte: no
+// borrow crosses a byte).
+__device__ inline unsigned byte_eq(unsigned a, unsigned b) {
+  const unsigned z = a ^ b;
+  return ~(((z & 0x7f7f7f7fu) + 0x7f7f7f7fu) | z) & 0x80808080u;
 }
 
 // The last word's valid positions as a byte mask (words before it: all).
@@ -340,14 +365,16 @@ __device__ inline void offsets_phase(int* offs, const int* k_cnt, int n_rv) {
 constexpr int kSmemLimit = 232448;
 
 // Shared-memory layout, computed identically on host and device (and by
-// round_smem_bytes in round_kernel_tiled.py).  The accepted sets, slots,
+// round_smem_bytes in round_kernel_tiled.py).  The accepted sets, slots
+// (with `slots`: every kernel but the tiled verdict, which takes none),
 // counts, offsets and flags first; with `verdict` (every kernel but the
 // tiled rebuild) the verdict's parts: each warp's lossy receivers, the
 // verdict and order of each cell, the cells' sent and honesty bits (a
 // word per 32 cells), the sent cells' list, the block's lists li as int8
 // words [sw][n_rv + 1] (position-major: lanes over receivers read
 // consecutive words; the pad word keeps a warp over one receiver's words
-// off a single bank) and their out-of-range words, and per warp `stages`
+// off a single bank) and their ineligibility words (round_setup), and
+// per warp `stages`
 // packet buffers of `buf` bytes: lens int32 [max_l], then P and the rows
 // [max_l] as sw words of four positions, each part 16-aligned.  Two
 // buffers a warp where they fit, else one.
@@ -356,7 +383,8 @@ struct Smem {
   size_t stage;
   size_t total;
   int sw, ld, bp, br, buf, stages;
-  __host__ __device__ Smem(const Dims& d, bool verdict = true) {
+  __host__ __device__ Smem(const Dims& d, bool verdict = true,
+                           bool slots = true) {
     const size_t n_pool = size_t(d.n_pool()), chunks = (n_pool + 31) / 32;
     sw = (d.size_l + 3) / 4;
     ld = d.n_rv + 1;
@@ -365,7 +393,7 @@ struct Smem {
     buf = br + align16(4 * sw * d.max_l);
     vi = 0;                                           // uint64 [n_rv]
     src = vi + 8 * size_t(d.n_rv);                    // int32 [n_rv*slots]
-    cnt = src + 4 * size_t(d.n_out());                // int32 [n_rv]
+    cnt = src + (slots ? 4 * size_t(d.n_out()) : 0);  // int32 [n_rv]
     offs = cnt + 4 * size_t(d.n_rv);                  // int32 [n_rv + 1]
     misc = size_t(align16(int(offs + 4 * size_t(d.n_rv + 1))));  // int32 [8]
     lossy = misc + 32;                                // uint64 [kWarps]
@@ -393,17 +421,20 @@ struct Shared {
   unsigned long long* lossy_w;  // per warp: receivers whose lists it read
                                 // past int8
   unsigned long long* ok_mask;  // per cell: mask of accepting receivers
+                                // (after a pruning dedup: of the winners)
   int* info;                    // per cell: cell << 8 | order (0xFF: none)
   unsigned* hon;                // per cell: honest sender bit
   unsigned* sent;               // per cell: sent bit
   int* list;                    // the sent cells, in cell order
   unsigned* li;                 // [sw][ld] list bytes
-  unsigned* oor;                // [sw][ld] 0xFF where li is not in [0, w]
+  unsigned* oor;                // [sw][ld] 0xFF where li is not in [0, w],
+                                // 0x7F where it is 64 (in range, not
+                                // eligible), else 0
   unsigned char* raw;
   Smem L;
   __device__ Shared(unsigned char* smem_raw, const Dims& d,
-                    bool verdict = true)
-      : raw(smem_raw), L(d, verdict) {
+                    bool verdict = true, bool slots = true)
+      : raw(smem_raw), L(d, verdict, slots) {
     vi_mask = reinterpret_cast<unsigned long long*>(raw + L.vi);
     src_list = reinterpret_cast<int*>(raw + L.src);
     k_cnt = reinterpret_cast<int*>(raw + L.cnt);
@@ -447,37 +478,39 @@ __device__ inline void block_fill(int8_t* dst, size_t n, int8_t byte) {
     dst[i] = byte;
 }
 
-// vi int32 0/1 [n_rv, w] -> per-receiver masks, a warp per receiver:
-// each warp loads all its receivers' words before it ballots, so their
-// loads are in flight together.
+// vi int32 0/1 [n_rv, w] -> per-receiver masks of the receivers [r0,
+// r1), a warp per receiver: each warp loads all its receivers' words
+// before it ballots, so their loads are in flight together.
 __device__ inline void load_vi_mask(const Shared& sh, const int32_t* vi,
-                                    const Dims& d) {
+                                    const Dims& d, int r0, int r1) {
   constexpr int kR = (64 + kWarps - 1) / kWarps;  // receivers a warp
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int x[kR][2];
 #pragma unroll
   for (int k = 0; k < kR; ++k) {
-    const int r = warp + k * kWarps;
+    const int r = r0 + warp + k * kWarps;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int c = 32 * h + lane;
-      x[k][h] = r < d.n_rv && c < d.w ? vi[size_t(r) * d.w + c] : 0;
+      x[k][h] = r < r1 && c < d.w ? vi[size_t(r) * d.w + c] : 0;
     }
   }
 #pragma unroll
   for (int k = 0; k < kR; ++k) {
-    const int r = warp + k * kWarps;
+    const int r = r0 + warp + k * kWarps;
     const unsigned lo = __ballot_sync(kFull, x[k][0] != 0);
     const unsigned hi = __ballot_sync(kFull, x[k][1] != 0);
-    if (lane == 0 && r < d.n_rv)
+    if (lane == 0 && r < r1)
       sh.vi_mask[r] = (static_cast<unsigned long long>(hi) << 32) | lo;
   }
 }
 
-// The per-receiver masks -> vi int32 0/1 [n_rv, w].
+// The per-receiver masks of the part's receivers -> their rows of vi
+// int32 0/1 [n_rv, w].
 __device__ inline void store_vi(const Shared& sh, int32_t* o_vi,
-                                const Dims& d) {
-  for (int i = threadIdx.x; i < d.n_rv * d.w; i += kThreads) {
+                                const Dims& d, Part part = Part{}) {
+  for (int i = part.lo(d.n_rv) * d.w + threadIdx.x;
+       i < part.hi(d.n_rv) * d.w; i += kThreads) {
     const int r = i / d.w, x = i - r * d.w;
     o_vi[i] = int32_t((sh.vi_mask[r] >> x) & 1ull);
   }
@@ -486,33 +519,41 @@ __device__ inline void store_vi(const Shared& sh, int32_t* o_vi,
 // ---- Setup (block), step 1: the round's flags, vi as masks, the cells'
 // sent and honesty bits (a ballot a word of 32 cells, four words a warp
 // at a time), and the block's lists li as int8 words with their
-// out-of-range words (0xFF where li is not in [0, w]), a thread a
-// position, each warp noting the receivers whose lists hold a value past
-// int8; with clear_ok the verdicts of every cell zeroed (for a dedup that
-// walks cells, not the list).  The loads of each part are in flight
-// together.  The caller synchronises. ----
+// ineligibility words (0xFF where li is not in [0, w], 0x7F where it is
+// 64: in range but no position of a value mask; a nonzero byte is
+// ineligible, bit 7 out of range), a thread a position, each warp noting
+// the receivers whose lists hold a value past int8.  The loads of each
+// part are in flight together.  Of a split round (Part), the block loads
+// its receivers' vi and lists and its words of cells; the tiled verdict
+// gathers the rest from the cluster.  The caller synchronises. ----
 __device__ inline void round_setup(const Shared& sh, const int32_t* meta,
                                    const int32_t* honest, const int32_t* vi,
                                    const int32_t* li, const Dims& d,
-                                   bool clear_ok) {
+                                   Part part = Part{}) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_pool = d.n_pool();
+  const int n_pool = d.n_pool(), n_words = (n_pool + 31) / 32;
+  const int r0 = part.lo(d.n_rv), r1 = part.hi(d.n_rv);
   if (threadIdx.x < 8) sh.misc[threadIdx.x] = 0;
-  load_vi_mask(sh, vi, d);
-  for (int c0 = warp * 32; c0 < n_pool; c0 += 4 * kThreads) {
+  load_vi_mask(sh, vi, d, r0, r1);
+  // The cells of the words [lo(n_words), hi(n_words)): four words a
+  // warp at a time.
+  const int c_hi = 32 * part.hi(n_words);
+  const int c_end = c_hi < n_pool ? c_hi : n_pool;
+  for (int c0 = 32 * (part.lo(n_words) + warp); c0 < c_end;
+       c0 += 4 * kThreads) {
     bool s[4], h[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const int c = c0 + k * kThreads + lane;
-      s[k] = c < n_pool && meta[size_t(c) * 4 + 2] != 0;
-      h[k] = c < n_pool && honest[c] != 0;
+      s[k] = c < c_end && meta[size_t(c) * 4 + 2] != 0;
+      h[k] = c < c_end && honest[c] != 0;
     }
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const unsigned sb = __ballot_sync(kFull, s[k]);
       const unsigned hb = __ballot_sync(kFull, h[k]);
       const int c = c0 + k * kThreads;
-      if (lane == 0 && c < n_pool) {
+      if (lane == 0 && c < c_end) {
         sh.sent[c >> 5] = sb;
         sh.hon[c >> 5] = hb;
       }
@@ -520,11 +561,11 @@ __device__ inline void round_setup(const Shared& sh, const int32_t* meta,
   }
   // Position j of receiver rv is element rv * 4 sw + j, j < 4 sw.
   const int S = d.size_l, ld = sh.L.ld, row = 4 * sh.L.sw;
-  const int n = d.n_rv * row;
+  const int n = r1 * row;
   unsigned char* lib = reinterpret_cast<unsigned char*>(sh.li);
   unsigned char* oob = reinterpret_cast<unsigned char*>(sh.oor);
   unsigned long long lossy = 0ull;
-  for (int e0 = threadIdx.x; e0 < n; e0 += 4 * kThreads) {
+  for (int e0 = r0 * row + threadIdx.x; e0 < n; e0 += 4 * kThreads) {
     int x[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
@@ -537,14 +578,13 @@ __device__ inline void round_setup(const Shared& sh, const int32_t* meta,
       if (e >= n) continue;
       const size_t at = (size_t(j >> 2) * ld + rv) * 4 + (j & 3);
       lib[at] = uint8_t(x[k]);
-      oob[at] = (j < S && (x[k] < 0 || x[k] > d.w)) ? 0xff : 0;
+      oob[at] = j >= S ? 0 : (x[k] < 0 || x[k] > d.w) ? 0xff
+                                                     : (x[k] == 64 ? 0x7f : 0);
       if (x[k] != int(int8_t(x[k]))) lossy |= 1ull << rv;
     }
   }
   lossy = warp_or64(lossy);
   if (lane == 0) sh.lossy_w[warp] = lossy;
-  if (clear_ok)
-    for (int i = threadIdx.x; i < n_pool; i += kThreads) sh.ok_mask[i] = 0ull;
 }
 
 // ---- Setup, step 2: the sent cells as a list in cell order (list[0,
@@ -635,9 +675,16 @@ __device__ inline void packet_draws(unsigned (&out)[2], const Draws& dr,
   }
 }
 
+// Which of n_ranks blocks splitting the list checks list entry i.
+__device__ inline int verdict_owner(int i, int n_ranks) {
+  return (i / kWarps) % n_ranks;
+}
+
 // ---- Phase A: verdict, a warp per sent cell of the list (list[warp],
 // list[warp + kWarps], ...), receivers across lanes.  Writes ok_mask[pk]
-// (a bit per block receiver) and info[pk] for every listed cell pk.
+// (a bit per block receiver) and info[pk] for every listed cell pk.  Of
+// a split round (Part), block `rank` takes the runs of kWarps entries i
+// with (i / kWarps) % n_ranks == rank (verdict_owner).
 //
 // Each warp stages its next packet into its other buffer with cp.async
 // while it checks the current one, its meta two packets ahead and its
@@ -654,7 +701,8 @@ template <class In, class Clock>
 __device__ inline void verdict_phase(const Shared& sh, const In& in,
                                      const int32_t* li, const Draws& dr,
                                      const Dims& d, int n_sent,
-                                     int round_idx, int use_fp, Clock& clk) {
+                                     int round_idx, int use_fp, Clock& clk,
+                                     Part part = Part{}) {
   const int n_rv = d.n_rv, slots = d.slots, max_l = d.max_l;
   const int S = d.size_l, w = d.w, n_pool = d.n_pool();
   const int sw = sh.L.sw, ld = sh.L.ld;
@@ -666,9 +714,11 @@ __device__ inline void verdict_phase(const Shared& sh, const In& in,
                      reinterpret_cast<uintptr_t>(in.p)) & 15) == 0;
   const bool two = sh.L.stages == 2;
   const unsigned long long lossy = sh.lossy();
+  const int first = part.rank * kWarps + warp;
+  const int stride = part.n_ranks * kWarps;
   const int n_mine =
-      warp < n_sent ? (n_sent - warp + kWarps - 1) / kWarps : 0;
-  const auto pk_of = [&](int i) { return sh.list[warp + i * kWarps]; };
+      first < n_sent ? (n_sent - first + stride - 1) / stride : 0;
+  const auto pk_of = [&](int i) { return sh.list[first + i * stride]; };
   const auto meta_of = [&](int i) {
     return i < n_mine
                ? *reinterpret_cast<const int4*>(in.meta + size_t(pk_of(i)) * 4)
@@ -706,23 +756,42 @@ __device__ inline void verdict_phase(const Shared& sh, const In& in,
       unsigned* P4 = reinterpret_cast<unsigned*>(e + sh.L.bp);
       const unsigned* R4 = reinterpret_cast<const unsigned*>(e + sh.L.br);
       const int cnt_v = rows_of(count);
-      // The packet's facts, lanes over its (row, word) pairs; P to bytes
-      // 0x00/0xFF in place.
-      bool oob = false, coll = false, lens_bad = false;
+      // The packet's facts, lanes over its words, the rows in turn, in
+      // byte-parallel word arithmetic (byte_eq, borrow-free sums): values
+      // out of range, the packet's order present in a row (where some
+      // receiver forges its order, every value present: pm_any), rows
+      // that collide (hold one value at one position), lens that
+      // disagree; P to bytes 0x00/0xFF in place.
+      const bool forged =
+          __any_sync(kFull, ((dc[0] | dc[1]) & unsigned(kForge)) != 0u);
+      const bool v_in = v >= 0 && v < 64;
+      const unsigned v4 = uint8_t(v) * 0x01010101u;
+      const unsigned above_w = 0x7f7f7f7fu - uint8_t(w) * 0x01010101u;
+      unsigned oob_w = 0u, coll_w = 0u, cont_w = 0u;
       unsigned long long pm_any = 0ull;
-      for (int k = lane; k < cnt_v * sw; k += 32) {
-        const int r = k / sw, q = k - r * sw;
-        const unsigned x4 = R4[k];
-        for (int c = 0; c < 4; ++c) {
-          const int x = int(int8_t(x4 >> (8 * c)));
-          if (x == -1) continue;
-          if (x > w || x < 0) oob = true;
-          if (x >= 0 && x < 64) pm_any |= 1ull << x;
+      for (int q = lane; q < sw; q += 32) {
+        for (int r = 0; r < cnt_v; ++r) {
+          const unsigned x4 = R4[r * sw + q];
+          const unsigned unset = byte_eq(x4, 0xffffffffu);
+          // Negative other than the sentinel -1, or above w.
+          oob_w |= (x4 & 0x80808080u & ~unset) |
+                   (((x4 & 0x7f7f7f7fu) + above_w) & ~x4 & 0x80808080u);
+          cont_w |= byte_eq(x4, v4);
+          if (forged) {
+            for (int c = 0; c < 4; ++c) {
+              const int x = int(int8_t(x4 >> (8 * c)));
+              if (x >= 0 && x < 64) pm_any |= 1ull << x;
+            }
+          }
+          // A zero byte of z: an earlier row holds this row's value there.
+          const unsigned keep = unset >> 7;
+          for (int r2 = 0; r2 < r; ++r2) {
+            const unsigned z = (x4 ^ R4[r2 * sw + q]) | keep;
+            coll_w |= (z - 0x01010101u) & ~z & 0x80808080u;
+          }
         }
-        const unsigned set = ~__vcmpeq4(x4, 0xffffffffu);
-        for (int r2 = 0; r2 < r; ++r2)
-          if (__vcmpeq4(x4, R4[r2 * sw + q]) & set) coll = true;
       }
+      bool lens_bad = false;
       const int len0 = lens[0];
       for (int r = lane; r < cnt_v; r += 32)
         if (lens[r] != len0) lens_bad = true;
@@ -732,10 +801,11 @@ __device__ inline void verdict_phase(const Shared& sh, const In& in,
         P4[q] = p4;
         plen_p += __popc(p4) >> 3;
       }
-      oob = __any_sync(kFull, oob);
-      coll = __any_sync(kFull, coll);
+      const bool oob = __any_sync(kFull, oob_w != 0u);
+      const bool coll = __any_sync(kFull, coll_w != 0u);
+      const bool cont_v = __any_sync(kFull, cont_w != 0u) && v_in;
       lens_bad = __any_sync(kFull, lens_bad);
-      pm_any = warp_or64(pm_any);
+      if (forged) pm_any = warp_or64(pm_any);
       plen_p = __reduce_add_sync(kFull, plen_p);
       __syncwarp();
       clk.mark(kRpStage);
@@ -762,7 +832,10 @@ __device__ inline void verdict_phase(const Shared& sh, const In& in,
             if (count_eff != round_idx && count_eff != round_idx + 1) {
               act = false;
             } else if (!clear_l) {
-              const bool cont = v2 >= 0 && v2 < 64 && ((pm_any >> v2) & 1ull);
+              // Without a forging receiver every v2 is the packet's v.
+              const bool cont =
+                  forged ? v2 >= 0 && v2 < 64 && ((pm_any >> v2) & 1ull)
+                         : cont_v;
               if (cont || oob || coll || lens_bad) act = false;
             }
           }
@@ -790,10 +863,10 @@ __device__ inline void verdict_phase(const Shared& sh, const In& in,
             const unsigned p4 = forge_p ? valid_word(q, sw, S)
                                         : (clear_p ? 0u : P4[q]);
             own[k] = li4 | ~p4;
-            const unsigned eqv = v2_in ? __vcmpeq4(li4, v2w) : 0u;
-            if ((oor4 | eqv) & p4) bad_own = true;
-            // Eligible: set in P, in [0, w] and below 64.
-            nel[k] = ~(p4 & ~oor4 & ~__vcmpeq4(li4, 0x40404040u));
+            const unsigned eqv = v2_in ? byte_eq(li4, v2w) : 0u;
+            if (((oor4 & 0x80808080u) | eqv) & p4) bad_own = true;
+            // Eligible (nel zero): set in P, in [0, w] and below 64.
+            nel[k] = ~p4 | oor4;
           }
           for (int r = 0; r < cnt_v; ++r) {
             unsigned row[4];
@@ -875,27 +948,30 @@ __device__ inline void close_slots(const Shared& sh, int rv, int cnt,
 }
 
 // ---- Phase B: first accept per value, a warp per receiver, over the
-// cells list[0, n) (or, with list null, the cells [0, n)), each one's
-// verdict, cell and order read from shared memory.  Updates vi_mask; with
-// `rebroadcast`, fills src_list/k_cnt and raises misc[1] on overflow.
-// With `acc` non-null, writes the accepted matrix int32 0/1 [n_pool, n_rv]
-// for its rows pk < n (list null). ----
+// listed cells list[0, n), each one's verdict, cell and order read from
+// shared memory.  Updates vi_mask; with `rebroadcast`, fills
+// src_list/k_cnt and raises misc[1] on overflow.  With `prune`, clears
+// the receiver's bit in each listed cell's verdict mask where the verdict
+// accepted but the value was not new (already in vi, or taken by an
+// earlier packet): ok_mask[pk] then holds the packet's winners, the tiled
+// verdict's accepted mask.  Each warp clears only its receivers' bits,
+// with a 32-bit atomicAnd on the word's half, so the other warps' reads
+// of their own bits are unaffected.  Of a split round (Part), the block
+// dedups its receivers. ----
 __device__ inline void dedup_phase(const Shared& sh, const Draws& dr,
-                                   const Dims& d, int n, const int* list,
-                                   bool rebroadcast, int32_t* acc) {
-  const int n_rv = d.n_rv, slots = d.slots, w = d.w;
+                                   const Dims& d, int n, bool rebroadcast,
+                                   bool prune = false, Part part = Part{}) {
+  const int slots = d.slots, w = d.w;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int rv = warp; rv < n_rv; rv += kWarps) {
+  for (int rv = part.lo(d.n_rv) + warp; rv < part.hi(d.n_rv);
+       rv += kWarps) {
     unsigned long long vim = sh.vi_mask[rv];
     int cnt = 0;
     for (int base = 0; base < n; base += 32) {
       const int i = base + lane;
-      const int pk = i < n ? (list ? list[i] : i) : 0;
+      const int pk = i < n ? sh.list[i] : 0;
       const bool hit = i < n && ((sh.ok_mask[pk] >> rv) & 1ull);
-      if (!__any_sync(kFull, hit)) {
-        if (acc != nullptr && i < n) acc[size_t(pk) * n_rv + rv] = 0;
-        continue;
-      }
+      if (!__any_sync(kFull, hit)) continue;
       bool cand = false;
       int v2 = -1;
       if (hit) {
@@ -908,7 +984,9 @@ __device__ inline void dedup_phase(const Shared& sh, const Draws& dr,
       const bool win = cand && lane == __ffs(peers) - 1;
       const unsigned winners = __ballot_sync(kFull, win);
       vim |= warp_or64(win ? (1ull << v2) : 0ull);
-      if (acc != nullptr && i < n) acc[size_t(pk) * n_rv + rv] = int32_t(win);
+      if (prune && hit && !win)
+        atomicAnd(reinterpret_cast<unsigned*>(sh.ok_mask + pk) + (rv >> 5),
+                  ~(1u << (rv & 31)));
       if (rebroadcast) assign_slots(sh, rv, pk, win, winners, cnt, slots);
     }
     if (lane == 0) sh.vi_mask[rv] = vim;
@@ -916,24 +994,40 @@ __device__ inline void dedup_phase(const Shared& sh, const Draws& dr,
   }
 }
 
-// ---- Phase B from a given accepted matrix: the winners' slots, a warp
-// per receiver over packets pk < n_rows. ----
-__device__ inline void slots_from_acc(const Shared& sh, const int32_t* acc,
+// ---- Phase B from the accepted masks (store_acc's words): the winners'
+// slots of the block's receivers, a warp for receivers warp, warp +
+// kWarps, ...: over packets pk < n_rows in chunks of 32, a lane a packet,
+// each lane's word read once for all the warp's receivers (coalesced),
+// a ballot of bit rv a receiver.  Chunks without a set bit are skipped.
+// ----
+__device__ inline void slots_from_acc(const Shared& sh,
+                                      const unsigned long long* acc,
                                       const Dims& d, int n_rows,
                                       bool rebroadcast) {
+  constexpr int kR = (64 + kWarps - 1) / kWarps;  // receivers a warp
   const int n_rv = d.n_rv, slots = d.slots;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int rv = warp; rv < n_rv; rv += kWarps) {
-    int cnt = 0;
-    if (rebroadcast) {
-      for (int base = 0; base < n_rows; base += 32) {
-        const int pk = base + lane;
-        const bool win = pk < n_rows && acc[size_t(pk) * n_rv + rv] != 0;
+  int cnt[kR];
+#pragma unroll
+  for (int k = 0; k < kR; ++k) cnt[k] = 0;
+  for (int base = 0; rebroadcast && base < n_rows; base += 32) {
+    const int pk = base + lane;
+    const unsigned long long word = pk < n_rows ? acc[pk] : 0ull;
+    if (!__any_sync(kFull, word != 0ull)) continue;
+#pragma unroll
+    for (int k = 0; k < kR; ++k) {
+      const int rv = warp + k * kWarps;
+      if (rv < n_rv) {
+        const bool win = (word >> rv) & 1ull;
         const unsigned winners = __ballot_sync(kFull, win);
-        assign_slots(sh, rv, pk, win, winners, cnt, slots);
+        if (winners) assign_slots(sh, rv, pk, win, winners, cnt[k], slots);
       }
     }
-    close_slots(sh, rv, cnt, slots);
+  }
+#pragma unroll
+  for (int k = 0; k < kR; ++k) {
+    const int rv = warp + k * kWarps;
+    if (rv < n_rv) close_slots(sh, rv, cnt[k], slots);
   }
 }
 
@@ -1078,8 +1172,8 @@ __device__ inline Draws draws_at(const uint8_t* attack, const uint8_t* rand_v,
 // where needed.
 template <typename Kernel>
 inline int prepare_smem(Kernel kernel, const Dims& d, size_t* smem,
-                        bool verdict = true) {
-  *smem = Smem(d, verdict).total;
+                        bool verdict = true, bool slots = true) {
+  *smem = Smem(d, verdict, slots).total;
   if (*smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(*smem));

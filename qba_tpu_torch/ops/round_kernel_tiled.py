@@ -20,7 +20,12 @@ Three wrappers, each with its plain PyTorch version beside it:
 :func:`tiled_rebuild` (:func:`rebuild_reference`, both in
 ``csrc/tiled_round.cu``).  The fused round's plain version is the
 composition of the two tiled ones; the seam between them is the accepted
-matrix ``acc`` int32 0/1 ``[T, n_pool, n_rv]``.  A wrapper launches its
+matrix as one receiver mask a packet, ``acc`` int64 ``[T, n_pool]``: bit
+``r`` is set where receiver ``r`` accepted the packet (first accept per
+value), 0 past the receivers and for unsent entries (:func:`pack_acc`,
+:func:`unpack_acc`).  The word is 64 bits because every kernel keeps its
+receivers as 64-bit masks (``KERNEL_MAX_W``: at most 64 lieutenants).  A
+wrapper launches its
 hand-written CUDA kernel for CUDA tensors and runs the plain version for
 CPU tensors; a CUDA tensor never reaches the plain version.
 
@@ -31,9 +36,12 @@ assembled pool and the rebuilding kernels write its LOCAL successor
 segment (capacity ``n_recv * slots``, locally compacted, global cell
 ids).  Shard tensors carry a leading shard axis ``[n_shards, T, ...]``;
 the round's honesty and draws stay global.  The verdict's ``acc`` is
-then ``[n_shards, T, n_pool, n_recv]``: the entries between the segments
-of an assembled pool are unsent and their rows stay zero, so the
-rebuild reads the accepted packets in the global (sender, slot) order.
+then ``[n_shards, T, n_pool]``, bit ``r`` of a shard's word its local
+receiver ``r`` (global ``start + shard * n_recv + r``;
+:func:`join_acc_shards` gives the single-device words): the entries
+between the segments of an assembled pool are unsent and their words
+stay zero, so the rebuild reads the accepted packets in the global
+(sender, slot) order.
 :func:`sharded_mega_plan` admits the party-sharded trial megakernel.
 """
 
@@ -68,8 +76,8 @@ META_COUNT, META_V, META_SENT, META_CELL = 0, 1, 2, 3
 # ``RoundPhase``): the phases of the fused round's and the dense-mailbox
 # round's blocks, in the order of the clock's int64 ``[..., T,
 # len(ROUND_PHASES)]`` buffer.
-ROUND_PHASES = ("setup", "stage", "receivers", "verdict_wait", "dedup",
-                "offsets", "rebuild", "fill")
+ROUND_PHASES = ("setup", "list", "stage", "receivers", "verdict_wait",
+                "dedup", "offsets", "rebuild", "fill")
 # The per-round kernels' block: ROUND_WARPS warps (``kWarps``,
 # ``csrc/round_common.cuh``).
 ROUND_WARPS = 8
@@ -89,11 +97,12 @@ def _align16(x: int) -> int:
 
 
 def round_smem_bytes(cfg: QBAConfig, n_local: int | None = None,
-                     verdict: bool = True) -> int:
+                     verdict: bool = True, slots: bool = True) -> int:
     """Dynamic shared memory of a per-round kernel's block (``Smem``,
     ``csrc/round_common.cuh``) draining ``n_local`` receivers (default
-    every lieutenant): the accepted sets, slots, counts, offsets and
-    flags; with ``verdict`` (every kernel but the tiled rebuild) also each
+    every lieutenant): the accepted sets, slots (with ``slots``: every
+    kernel but the tiled verdict), counts, offsets and flags; with
+    ``verdict`` (every kernel but the tiled rebuild) also each
     warp's lossy receivers, each cell's verdict and order, the cells' sent
     and honesty bits, the sent cells' list, the block's lists as int8
     words ``[sw][n_local + 1]`` with their out-of-range words, and
@@ -102,8 +111,8 @@ def round_smem_bytes(cfg: QBAConfig, n_local: int | None = None,
     n_rv = cfg.n_lieutenants if n_local is None else n_local
     n_pool = cfg.n_lieutenants * cfg.slots
     sw = -(-cfg.size_l // 4)
-    lossy = _align16(8 * n_rv + 4 * n_rv * cfg.slots + 4 * n_rv
-                     + 4 * (n_rv + 1)) + 32
+    lossy = _align16(8 * n_rv + (4 * n_rv * cfg.slots if slots else 0)
+                     + 4 * n_rv + 4 * (n_rv + 1)) + 32
     if not verdict:
         return lossy
     ok = lossy + 8 * ROUND_WARPS
@@ -115,10 +124,19 @@ def round_smem_bytes(cfg: QBAConfig, n_local: int | None = None,
     return stage + ROUND_WARPS * stages * buf
 
 
-def check_round_smem(cfg: QBAConfig, n_local: int, kernel: str) -> None:
+def verdict_ranks(cfg: QBAConfig, n_local: int) -> int:
+    """Thread blocks a (shard, trial) in the tiled verdict's launch (its
+    cluster dimension, ``csrc/tiled_round.cu``): two where a block drains
+    more than 16 receivers (33 parties single-device), which splits each
+    trial's listed packets over two SMs, else one."""
+    return 2 if n_local > 16 else 1
+
+
+def check_round_smem(cfg: QBAConfig, n_local: int, kernel: str,
+                     slots: bool = True) -> None:
     """Raise ``NotImplementedError`` where a per-round kernel's block
     would need more shared memory than the card gives one block."""
-    need = round_smem_bytes(cfg, n_local)
+    need = round_smem_bytes(cfg, n_local, slots=slots)
     if need > SMEM_LIMIT:
         raise NotImplementedError(
             f"the {kernel} kernel needs {need} B of shared memory a block "
@@ -259,6 +277,34 @@ def shard_starts(li, start: int, n_recv: int):
     return [start + s * n_recv for s in range(li.shape[0])]
 
 
+def pack_acc(acc: torch.Tensor) -> torch.Tensor:
+    """An accepted matrix 0/1 (any integer or bool dtype) ``[..., n_pool,
+    n_local]`` -> one receiver mask a packet, int64 ``[..., n_pool]``:
+    bit ``r`` is receiver ``r``'s entry (``n_local <= 64``)."""
+    n_local = acc.shape[-1]
+    if n_local > KERNEL_MAX_W:
+        raise ValueError(f"{n_local} receivers do not fit a 64-bit mask")
+    bits = torch.arange(n_local, dtype=torch.int64, device=acc.device)
+    # Disjoint bits: the sum is their or, bit 63 included.
+    return ((acc != 0).to(torch.int64) << bits).sum(-1)
+
+
+def unpack_acc(acc: torch.Tensor, n_local: int) -> torch.Tensor:
+    """One receiver mask a packet, int64 ``[..., n_pool]`` -> the accepted
+    matrix int32 0/1 ``[..., n_pool, n_local]`` (the JAX verdict
+    kernel's ``acc``)."""
+    bits = torch.arange(n_local, dtype=torch.int64, device=acc.device)
+    return ((acc[..., None] >> bits) & 1).to(torch.int32)
+
+
+def join_acc_shards(acc: torch.Tensor, n_local: int) -> torch.Tensor:
+    """The ``n_recv`` verdict's masks ``[n_sh, T, n_pool]`` (``n_local``
+    receivers a shard) -> the single-device masks ``[T, n_pool]`` of the
+    ``n_sh * n_local`` receivers in shard order."""
+    rows = unpack_acc(acc, n_local)  # [n_sh, T, n_pool, n_local]
+    return pack_acc(rows.permute(1, 2, 0, 3).flatten(2))
+
+
 def verdict_reference(cfg: QBAConfig, round_idx: int, pool, li, vi,
                       honest_c, attack, rand_v, late, *, start: int = 0,
                       n_recv: int | None = None):
@@ -269,14 +315,14 @@ def verdict_reference(cfg: QBAConfig, round_idx: int, pool, li, vi,
     ``li`` int32 ``[T, n_rv, size_l]``, ``vi`` int32 0/1 ``[T, n_rv, w]``,
     ``honest_c`` ``[T, n_cells]``, draws ``[T, n_cells, n_glob]``; the
     receivers are the global ``[start, start + n_rv)``.  Returns ``(acc
-    int32 0/1 [T, n_pool, n_rv], vi' int32)``: ``acc`` is the accepted
-    matrix after first-accept dedup, as the JAX verdict kernel returns
-    it.
+    int64 [T, n_pool], vi' int32)``: ``acc`` is the accepted matrix after
+    first-accept dedup, one receiver mask a packet (:func:`pack_acc` of
+    the JAX verdict kernel's int32 0/1 ``[T, n_pool, n_rv]``).
 
     With ``n_recv`` (the party-sharded variant) the pool, ``li`` and
     ``vi`` carry a leading shard axis, as in
     :func:`fused_round_reference`, and so do both results: ``acc``
-    ``[n_sh, T, n_pool, n_recv]``.
+    ``[n_sh, T, n_pool]``, bit ``r`` the shard's local receiver ``r``.
     """
     if n_recv is not None:
         return stack_shards([
@@ -290,8 +336,7 @@ def verdict_reference(cfg: QBAConfig, round_idx: int, pool, li, vi,
     attack, rand_v, late = _receiver_draws((attack, rand_v, late), start,
                                            n_rv)
     dev = vals.device
-    acc = torch.zeros((n_trials, n_pool, n_rv), dtype=torch.int32,
-                      device=dev)
+    acc = torch.zeros((n_trials, n_pool), dtype=torch.int64, device=dev)
     sent_any = (meta[..., META_SENT] != 0).any(0).nonzero()
     if sent_any.numel() == 0:
         return acc, vi.clone()
@@ -313,7 +358,7 @@ def verdict_reference(cfg: QBAConfig, round_idx: int, pool, li, vi,
         recv_off=start,
     )
     acc_s, vi_new = accept_first_per_value(ok, v2, vi != 0, w)
-    acc[:, :n_scan] = acc_s.to(torch.int32)
+    acc[:, :n_scan] = pack_acc(acc_s)
     return acc, vi_new.to(torch.int32)
 
 
@@ -376,7 +421,8 @@ def rebuild_reference(cfg: QBAConfig, round_idx: int, pool, li, acc,
                       honest_c, attack, rand_v, *, start: int = 0,
                       n_recv: int | None = None):
     """Phase 2 of a round in plain PyTorch: slot allocation from the
-    accepted matrix ``acc`` ``[T, n_pool, n_rv]``, with overflow, and the
+    accepted matrix ``acc`` (int64 ``[T, n_pool]``, one receiver mask a
+    packet, as :func:`verdict_reference` returns it), with overflow, and the
     successor pool of the receivers ``[start, start + n_rv)`` (capacity
     ``n_rv * slots``, global cell ids).  Returns ``(pool', overflow bool
     [T])``.
@@ -396,7 +442,7 @@ def rebuild_reference(cfg: QBAConfig, round_idx: int, pool, li, acc,
     attack, rand_v = _receiver_draws((attack, rand_v), start, n_rv)
     dev = vals.device
     out = empty_pool(cfg, n_trials, dev, n_recv=n_rv)
-    acc_rows = (acc != 0).any(-1).any(0).nonzero()
+    acc_rows = (acc != 0).any(0).nonzero()
     if acc_rows.numel() == 0 or round_idx > cfg.n_dishonest:
         return out, torch.zeros(n_trials, dtype=torch.bool, device=dev)
     # Rows past the last accepted packet of every trial write nothing.
@@ -408,7 +454,7 @@ def rebuild_reference(cfg: QBAConfig, round_idx: int, pool, li, acc,
 
     # Slot allocation: per receiver, an exclusive prefix count of its
     # rebroadcasts in packet order; past `slots` is overflow.
-    rebroadcast = acc[:, :n_scan] != 0
+    rebroadcast = unpack_acc(acc[:, :n_scan], n_rv) != 0
     rb = rebroadcast.to(torch.int64)
     slot_r = torch.cumsum(rb, 1) - rb  # [T, P, R]
     write = rebroadcast & (slot_r < slots)
@@ -505,7 +551,7 @@ def _check_round_inputs(cfg: QBAConfig, pool, li, honest_c, draws,
     if vi is not None:
         shapes["vi"] = (vi, torch.int32, lt + (n_loc, w))
     if acc is not None:
-        shapes["acc"] = (acc, torch.int32, lt + (n_pool, n_loc))
+        shapes["acc"] = (acc, torch.int64, lt + (n_pool,))
     for name, x in draws.items():
         shapes[name] = (x, torch.uint8, (n_trials, n_pool, n_rv))
     for name, (x, dt, shp) in shapes.items():
@@ -636,36 +682,39 @@ fused_round.events = None
 
 def tiled_verdict(cfg: QBAConfig, round_idx: int, pool, li, vi, honest_c,
                   attack, rand_v, late, *, start: int = 0,
-                  n_recv: int | None = None):
-    """Phase 1 of the two-launch round: ``(acc int32 [T, n_pool, n_rv],
-    vi')``.
+                  n_recv: int | None = None, clock=None):
+    """Phase 1 of the two-launch round: ``(acc int64 [T, n_pool], vi')``,
+    ``acc`` one receiver mask a packet (:func:`verdict_reference`).
 
     CPU tensors run :func:`verdict_reference`; CUDA tensors launch the
     verdict kernel (``csrc/tiled_round.cu``) with the input rules of
     :func:`fused_round`.  Any other input raises.  With ``n_recv``, the
     party-sharded variant (see :func:`verdict_reference`): one launch for
-    every shard of the leading shard axis; ``acc`` is ``[n_sh, T, n_pool,
-    n_recv]``.
+    every shard of the leading shard axis; ``acc`` is ``[n_sh, T,
+    n_pool]``.  ``clock`` as in :func:`fused_round`.
     """
     if not dispatch("tiled_verdict", pool):
+        no_clock(clock)
         return verdict_reference(cfg, round_idx, pool, li, vi, honest_c,
                                  attack, rand_v, late, start=start,
                                  n_recv=n_recv)
     check_kernel_shapes(cfg, "tiled verdict")
     n_sh, n_local, lead = shard_plan(cfg, li, start, n_recv)
-    check_round_smem(cfg, n_local, "tiled verdict")
+    check_round_smem(cfg, n_local, "tiled verdict", slots=False)
     n_trials = _check_round_inputs(
         cfg, pool, li, honest_c,
         dict(attack=attack, rand_v=rand_v, late=late), vi=vi, lead=lead,
         n_local=n_local)
     n_pool = cfg.n_lieutenants * cfg.slots
-    acc = torch.empty(lead + (n_trials, n_pool, n_local), dtype=torch.int32,
+    acc = torch.empty(lead + (n_trials, n_pool), dtype=torch.int64,
                       device=vi.device)
     vi_out = torch.empty_like(vi)
-    fn = kernel_fn("tiled_round", "qba_tiled_verdict", 12, 11)
+    fn = kernel_fn("tiled_round", "qba_tiled_verdict", 13, 12)
     args = ptrs(*pool, li, vi, honest_c, attack, rand_v, late, acc, vi_out)
+    args += [round_clock_ptr(clock, lead, n_trials, vi.device)]
     args += launch_ints(cfg, n_trials, n_sh, n_local, start)
-    args += [int(round_idx), int(cfg.strategy == "split")]
+    args += [int(round_idx), int(cfg.strategy == "split"),
+             verdict_ranks(cfg, n_local)]
     timed_launch(tiled_verdict, fn, args,
                   torch.cuda.current_stream(vi.device))
     return acc, vi_out
@@ -677,9 +726,10 @@ tiled_verdict.events = None
 
 def tiled_rebuild(cfg: QBAConfig, round_idx: int, pool, li, acc, honest_c,
                   attack, rand_v, out=None, *, start: int = 0,
-                  n_recv: int | None = None):
+                  n_recv: int | None = None, clock=None):
     """Phase 2 of the two-launch round: ``(pool', overflow bool [T])``
-    from the accepted matrix ``acc``.
+    from the accepted matrix ``acc`` (int64 ``[T, n_pool]``, one receiver
+    mask a packet, as :func:`tiled_verdict` returns it).
 
     CPU tensors run :func:`rebuild_reference`; CUDA tensors launch the
     rebuild kernel (``csrc/tiled_round.cu``), writing into ``out`` (a
@@ -687,9 +737,11 @@ def tiled_rebuild(cfg: QBAConfig, round_idx: int, pool, li, acc, honest_c,
     :func:`fused_round`.  Any other input raises.  With ``n_recv``, the
     party-sharded variant (see :func:`rebuild_reference`): one launch for
     every shard, each writing its local segment ``[n_sh, T, ...]`` of
-    ``n_recv * slots`` entries; overflow is ``[n_sh, T]``.
+    ``n_recv * slots`` entries; overflow is ``[n_sh, T]``.  ``clock`` as
+    in :func:`fused_round`.
     """
     if not dispatch("tiled_rebuild", pool):
+        no_clock(clock)
         return rebuild_reference(cfg, round_idx, pool, li, acc, honest_c,
                                  attack, rand_v, start=start, n_recv=n_recv)
     check_kernel_shapes(cfg, "tiled rebuild")
@@ -700,8 +752,9 @@ def tiled_rebuild(cfg: QBAConfig, round_idx: int, pool, li, acc, honest_c,
     out = _check_out_pool(cfg, pool, out, lead, n_local)
     ovf = torch.empty(lead + (n_trials,), dtype=torch.int32,
                       device=acc.device)
-    fn = kernel_fn("tiled_round", "qba_tiled_rebuild", 14, 12)
+    fn = kernel_fn("tiled_round", "qba_tiled_rebuild", 15, 12)
     args = ptrs(*pool, li, acc, honest_c, attack, rand_v, *out, ovf)
+    args += [round_clock_ptr(clock, lead, n_trials, acc.device)]
     args += launch_ints(cfg, n_trials, n_sh, n_local, start)
     args += [cfg.n_dishonest, int(round_idx), int(cfg.strategy == "split")]
     timed_launch(tiled_rebuild, fn, args,

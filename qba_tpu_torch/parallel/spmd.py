@@ -48,6 +48,7 @@ from qba_tpu_torch.backends.torch_backend import (
 from qba_tpu_torch.config import QBAConfig
 from qba_tpu_torch.diagnostics import warn_demotion
 from qba_tpu_torch.ops import round_kernel as rs
+from qba_tpu_torch.ops._launch import masks_fit
 from qba_tpu_torch.ops.round_kernel_tiled import (
     POOL_AXES,
     empty_pool,
@@ -78,6 +79,7 @@ from qba_tpu_torch.rounds.engine import (
     scan_rounds,
     setup_trial,
     step3a_one,
+    warn_masks_demotion,
 )
 from qba_tpu_torch.rounds.mailbox import Mailbox, mailbox_from_step3a
 
@@ -249,7 +251,10 @@ def _resolve_spmd_engine(cfg: QBAConfig, n_local: int, device) -> str:
     through, as in JAX.  ``auto`` is ``xla`` on the CPU; on CUDA it is
     ``pallas_mega`` where :func:`~qba_tpu_torch.ops.round_kernel_tiled
     .sharded_mega_plan` admits it and counters are off, else
-    ``pallas_fused``.  A forced ``pallas_mega`` demotes to
+    ``pallas_fused``, and ``xla`` past the kernels' 64-bit masks (with
+    a :class:`~qba_tpu_torch.diagnostics.QBADemotionWarning`, as
+    :func:`~qba_tpu_torch.rounds.engine.resolve_round_engine` records
+    it).  A forced ``pallas_mega`` demotes to
     ``pallas_fused`` with the JAX package's two recorded reasons
     (counters need the host round scan; no sharded plan), and
     ``mega_gen='gf2'`` records that generation stays on the host (the
@@ -261,6 +266,9 @@ def _resolve_spmd_engine(cfg: QBAConfig, n_local: int, device) -> str:
         return engine
     if engine == "auto":
         if torch.device(device).type != "cuda":
+            return "xla"
+        if not masks_fit(cfg):
+            warn_masks_demotion(cfg, stacklevel=3)
             return "xla"
         if cfg.collect_counters or sharded_mega_plan(cfg, n_tp,
                                                      device) is None:

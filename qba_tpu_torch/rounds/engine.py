@@ -26,10 +26,12 @@ Five round engines, trial-for-trial identical:
   generates the lists from the GF(2) operands (:func:`resolve_mega_gen`).
 
 ``auto`` picks ``pallas_mega`` for CUDA tensors and ``xla`` for CPU
-tensors.  On CPU tensors the kernel engines run their kernels' plain
-versions.  The per-round kernel engines draw each round's attacks with
-the draws kernel (:func:`~qba_tpu_torch.ops.attack_draws.attack_draws`,
-one launch a round); the ``xla`` oracle keeps the plain
+tensors; past the kernels' 64-bit masks (65 parties and up) it picks
+``xla`` on CUDA too, with a :class:`QBADemotionWarning`.  On CPU
+tensors the kernel engines run their kernels' plain versions.  The
+per-round kernel engines draw each round's attacks with the draws
+kernel (:func:`~qba_tpu_torch.ops.attack_draws.attack_draws`, one launch
+a round); the ``xla`` oracle keeps the plain
 :func:`~qba_tpu_torch.adversary.model.sample_attacks_round`.
 
 The per-round engines share one loop, :func:`scan_rounds`, which with
@@ -68,6 +70,7 @@ from qba_tpu_torch.core import (
 )
 from qba_tpu_torch.core.types import SENTINEL
 from qba_tpu_torch.diagnostics import QBADemotionWarning, warn_demotion  # noqa: F401
+from qba_tpu_torch.ops._launch import KERNEL_MAX_W, masks_fit
 from qba_tpu_torch.ops.attack_draws import attack_draws
 from qba_tpu_torch.qsim import generate_lists_for
 from qba_tpu_torch.rounds.mailbox import Mailbox, mailbox_from_step3a
@@ -104,15 +107,32 @@ class TrialResult:
     counters: ProtocolCounters | None = None  # with cfg.collect_counters
 
 
+def warn_masks_demotion(cfg: QBAConfig, stacklevel: int) -> None:
+    """Record that ``auto`` on CUDA runs the ``xla`` engine because the
+    kernels' 64-bit masks cannot hold ``cfg`` (JAX's ``auto`` falls
+    through to ``xla`` where no kernel plan compiles)."""
+    warn_demotion(
+        f"the CUDA kernels keep values and receivers as 64-bit masks "
+        f"(w <= {KERNEL_MAX_W}, n_lieutenants <= {KERNEL_MAX_W}); at "
+        f"w={cfg.w}, n_lieutenants={cfg.n_lieutenants} auto demotes to the "
+        "xla engine", "kernel_masks_64", stacklevel=stacklevel + 1)
+
+
 def resolve_round_engine(cfg: QBAConfig, device: torch.device) -> str:
     """``auto`` -> ``pallas_mega`` on CUDA (``pallas_fused`` when
     counters are collected: they need the per-round loop), ``xla`` on
-    the CPU.  An explicit engine is kept, except ``pallas_mega`` with
-    counters, which demotes to ``pallas_fused`` with a
-    :class:`QBADemotionWarning` (the counters are identical: every
-    engine's per-round ``vi`` sequence is)."""
+    the CPU, and ``xla`` on CUDA with a :class:`QBADemotionWarning` where
+    the kernels' 64-bit masks cannot hold the config (:func:`masks_fit`).
+    An explicit engine is kept (a kernel engine past the masks raises
+    when it launches), except ``pallas_mega`` with counters, which
+    demotes to ``pallas_fused`` with a :class:`QBADemotionWarning` (the
+    counters are identical: every engine's per-round ``vi`` sequence
+    is)."""
     if cfg.round_engine == "auto":
         if torch.device(device).type != "cuda":
+            return "xla"
+        if not masks_fit(cfg):
+            warn_masks_demotion(cfg, stacklevel=2)
             return "xla"
         return "pallas_fused" if cfg.collect_counters else "pallas_mega"
     if cfg.round_engine == "pallas_mega" and cfg.collect_counters:
@@ -135,11 +155,13 @@ def resolve_mega_gen(cfg: QBAConfig, device: torch.device) -> str:
     resolver can demote a forced ``"gf2"`` when the TPU's VMEM plan
     refuses it; Hopper has no such plan here, so a forced ``"gf2"``
     never demotes.  A config whose engine is not the megakernel (the
-    counters demote it) generates on the host."""
+    counters demote it, and ``auto`` past the 64-bit masks is ``xla``)
+    generates on the host."""
     if cfg.qsim_path != "stabilizer" or cfg.mega_gen == "host":
         return "host"
     mega = cfg.round_engine == "pallas_mega" or (
-        cfg.round_engine == "auto" and torch.device(device).type == "cuda")
+        cfg.round_engine == "auto" and torch.device(device).type == "cuda"
+        and masks_fit(cfg))
     return "gf2" if mega and not cfg.collect_counters else "host"
 
 

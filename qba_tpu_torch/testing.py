@@ -35,6 +35,7 @@ from qba_tpu_torch.convert import (
     mailbox_from_numpy,
     pool_from_numpy,
 )
+from qba_tpu_torch.ops.round_kernel_tiled import pack_acc
 
 
 def random_draws(rng, cfg: QBAConfig, shape):
@@ -286,16 +287,19 @@ def random_round_inputs(cfg: QBAConfig, round_idx: int, n_trials: int,
                               device=device))
 
 
-def dense_acc(cfg: QBAConfig, pool, seed: int, rate: float = 0.5):
-    """An accepted matrix int32 0/1 ``[T, n_pool, n_rv]`` for ``pool``, far
-    denser than the protocol makes: each sent (packet, receiver) pair
-    with probability ``rate`` (many slots per receiver, overflow wherever
-    the slot bound is small)."""
+def dense_acc(cfg: QBAConfig, pool, seed: int, rate: float = 0.5,
+              n_local: int | None = None):
+    """An accepted matrix for ``pool`` as the verdict returns it (one
+    receiver mask a packet, int64 ``[T, n_pool]``), far denser than the
+    protocol makes: each sent (packet, receiver) pair with probability
+    ``rate`` (many slots per receiver, overflow wherever the slot bound
+    is small).  ``n_local`` keeps the first ``n_local`` receivers' bits
+    (a shard's)."""
     rng = np.random.default_rng(seed)
     meta = pool[3].cpu().numpy()
     acc = ((rng.random(meta.shape[:2] + (cfg.n_lieutenants,)) < rate)
-           & (meta[..., 2:3] != 0)).astype(np.int32)
-    return torch.from_numpy(acc).to(pool[3].device)
+           & (meta[..., 2:3] != 0))
+    return pack_acc(torch.from_numpy(acc[..., :n_local])).to(pool[3].device)
 
 
 def random_trial_inputs(cfg: QBAConfig, n_trials: int, seed: int,

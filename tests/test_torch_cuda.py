@@ -18,6 +18,10 @@ and the engines, sharded or not, must agree trial for trial.  The draws
 kernel and the megakernels' keyed entries (which hash their own draws)
 are held bit-exact against their plain versions, and the keyed entries
 against the stacked ones, in every strategy, attack scope and delivery.
+The tiled verdict's receiver masks are held against their plain
+versions at 33 and 34 parties (the word's high half) and at every
+cluster size its launch takes, and ``auto`` at 65 parties, past the
+masks, equals the ``xla`` engine trial for trial.
 Every test is marked ``cuda`` and skips without a card
 (the kernels have no CPU mode; the CPU tests hold the plain versions
 against ``qba_tpu``).  The file imports no JAX, so on a machine with the
@@ -201,7 +205,7 @@ def test_round_kernels_on_random_inputs(cuda, case):
     acc, vi2 = rk.tiled_verdict(cfg, r, pool, li, vi, hc, att, rv, late)
     assert_equal((acc, vi2), rk.verdict_reference(cfg, r, pool, li, vi, hc,
                                                   att, rv, late))
-    assert int(acc.sum()) > 0
+    assert bool(acc.any())
     for a in (acc, dense_acc(cfg, pool, seed=r)):
         assert_equal(rk.tiled_rebuild(cfg, r, pool, li, a, hc, att, rv),
                      rk.rebuild_reference(cfg, r, pool, li, a, hc, att, rv))
@@ -558,7 +562,7 @@ def test_tiled_and_round_step_n_recv_on_random_shards(cuda, case):
         assert_equal((acc, vi2), rk.verdict_reference(
             cfg, r, pool, li, vi, hc, att, rv, late, n_recv=n_local))
         dense = torch.stack([dense_acc(cfg, tuple(x[s] for x in pool),
-                                       seed=s)[..., :n_local]
+                                       seed=s, n_local=n_local)
                              for s in range(tp)])
         for a in (acc, dense):
             assert_equal(
@@ -585,7 +589,7 @@ def launched_round_step(cfg, r, args, n_local):
 @pytest.mark.parametrize("case", list(SHARDED))
 def test_tiled_n_recv_kernels(cuda, case):
     # On protocol state: each shard against the whole pool; its accepted
-    # matrix is its receivers' columns of the single-device one, and its
+    # masks are its receivers' bits of the single-device ones, and its
     # segments are the fused n_recv round's.
     name, tp = SHARDED[case]
     cfg = qba_tpu_torch.QBAConfig(**CONFIGS[name])
@@ -597,8 +601,7 @@ def test_tiled_n_recv_kernels(cuda, case):
         assert_equal((acc, vi2), rk.verdict_reference(
             cfg, r, *shards, *draws, n_recv=n_local))
         acc_one, vi_one = rk.tiled_verdict(cfg, r, pool, li, vi, hc, *draws)
-        assert torch.equal(acc.permute(1, 2, 0, 3).reshape(acc_one.shape),
-                           acc_one)
+        assert torch.equal(rk.join_acc_shards(acc, n_local), acc_one)
         assert torch.equal(rk.unshard_receivers(vi2), vi_one)
         got = rk.tiled_rebuild(cfg, r, shards[0], shards[1], acc, hc,
                                *draws[:2], n_recv=n_local)
@@ -607,6 +610,97 @@ def test_tiled_n_recv_kernels(cuda, case):
             n_recv=n_local))
         fused = rk.fused_round(cfg, r, *shards, *draws, n_recv=n_local)
         assert_equal(got, (fused[0], fused[2]))
+
+
+# The masks' halves: 33 parties fill the low word's 32 bits, 34 parties
+# reach the high word (bit 32); at tp = 3, 34 parties' shards of 11.
+TILED_WIDE = {
+    "33p": (dict(n_parties=33, size_l=64, n_dishonest=10), (1, 4)),
+    "34p": (dict(n_parties=34, size_l=16, n_dishonest=2), (1, 3)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(TILED_WIDE))
+def test_tiled_masks_wide(cuda, case):
+    # The verdict's one mask a packet and the rebuild reading it at the
+    # widths the masks hold, on protocol state and on random inputs,
+    # single-device and n_recv: bit-exact against the plain versions.
+    kw, tps = TILED_WIDE[case]
+    cfg = qba_tpu_torch.QBAConfig(**kw, trials=8, seed=11)
+    high = False
+    for r, pool, li, vi, hc, *draws in round_states(cfg, cuda):
+        acc_one, vi_one = rk.tiled_verdict(cfg, r, pool, li, vi, hc, *draws)
+        for tp in tps:
+            n_local = cfg.n_lieutenants // tp
+            if tp == 1:
+                args, kw_sh = (pool, li, vi, hc), {}
+            else:
+                args = (copies(pool, tp), rk.shard_receivers(li, tp),
+                        rk.shard_receivers(vi, tp), hc)
+                kw_sh = dict(n_recv=n_local)
+            acc, vi2 = rk.tiled_verdict(cfg, r, *args, *draws, **kw_sh)
+            assert acc.dtype == torch.int64
+            assert_equal((acc, vi2), rk.verdict_reference(
+                cfg, r, *args, *draws, **kw_sh))
+            assert torch.equal(acc if tp == 1 else
+                               rk.join_acc_shards(acc, n_local), acc_one)
+            assert_equal(
+                rk.tiled_rebuild(cfg, r, *args[:2], acc, hc, *draws[:2],
+                                 **kw_sh),
+                rk.rebuild_reference(cfg, r, *args[:2], acc, hc, *draws[:2],
+                                     **kw_sh))
+        high |= bool((acc_one >> 32).any())
+        if r == 3:
+            break
+    args = random_round_inputs(cfg, 1, 16, seed=34, device=cuda)
+    acc, vi2 = rk.tiled_verdict(cfg, 1, *args)
+    assert_equal((acc, vi2), rk.verdict_reference(cfg, 1, *args))
+    dense = dense_acc(cfg, args[0], seed=34)
+    for a in (acc, dense):
+        assert_equal(rk.tiled_rebuild(cfg, 1, *args[:2], a, args[3],
+                                      *args[4:6]),
+                     rk.rebuild_reference(cfg, 1, *args[:2], a, args[3],
+                                          *args[4:6]))
+    if cfg.n_lieutenants > 32:
+        assert high or bool((acc >> 32).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranks", [1, 2])
+@pytest.mark.parametrize("case", ["5p-r1", "7p-L8-r3", "11p-L64-r1"])
+def test_tiled_verdict_cluster_sizes(cuda, case, ranks, monkeypatch):
+    # Both cluster sizes the verdict's launch takes (verdict_ranks: one
+    # block or two), on random inputs, single-device and n_recv: the same
+    # masks and vi.
+    kw, r = RANDOM[case]
+    cfg = qba_tpu_torch.QBAConfig(**kw)
+    monkeypatch.setattr(rk, "verdict_ranks", lambda cfg, n_local: ranks)
+    args = random_round_inputs(cfg, r, 24, seed=ranks + r, device=cuda)
+    got = rk.tiled_verdict(cfg, r, *args)
+    assert_equal(got, rk.verdict_reference(cfg, r, *args))
+    assert bool(got[0].any())
+    tp = 2
+    n_local = cfg.n_lieutenants // tp
+    sargs = random_shard_inputs(cfg, tp, r, 16, seed=ranks, device=cuda)
+    assert_equal(rk.tiled_verdict(cfg, r, *sargs, n_recv=n_local),
+                 rk.verdict_reference(cfg, r, *sargs, n_recv=n_local))
+
+
+@pytest.mark.cuda
+def test_auto_past_the_masks_equals_xla(cuda):
+    # 65 parties (w = 128): auto demotes to the xla engine on the card,
+    # with a recorded demotion, and equals it trial for trial.
+    from qba_tpu_torch.diagnostics import QBADemotionWarning
+
+    cfg = qba_tpu_torch.QBAConfig(n_parties=65, size_l=8, n_dishonest=1,
+                                  trials=8, seed=65)
+    with pytest.warns(QBADemotionWarning, match="64-bit masks"):
+        got = qba_tpu_torch.run_trials(cfg, device=cuda).trials
+    want = qba_tpu_torch.run_trials(
+        dataclasses.replace(cfg, round_engine="xla"), device=cuda).trials
+    for f in ("decisions", "success", "vi", "overflow", "honest", "v_comm"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
 
 
 @pytest.mark.cuda
@@ -993,7 +1087,7 @@ def test_round_verdict_edges(cuda, case, tp):
         accepted |= bool(acc.any())
         overflowed |= bool(fused[2].any())
         if mutate == "empty":
-            assert not acc[..., 1::2, :, :].any()
+            assert not acc[..., 1::2, :].any()
     assert accepted
     if case == "11p-slots1":
         assert overflowed
@@ -1001,10 +1095,11 @@ def test_round_verdict_edges(cuda, case, tp):
 
 @pytest.mark.cuda
 def test_round_phase_clock(cuda):
-    # The clocked instantiations of the fused round and the dense-mailbox
-    # round, single-device and n_recv, give the plain launch's round and
-    # fill the clock: every block spends cycles in set-up, some in the
-    # receiver passes.
+    # The clocked instantiations of the fused round, the dense-mailbox
+    # round and the tiled verdict, single-device and n_recv, give the plain
+    # launch's round and fill the clock: every block spends cycles in
+    # set-up, some in the receiver passes; the tiled rebuild's too, every
+    # block in its slots (the "dedup" phase).
     cfg = qba_tpu_torch.QBAConfig(n_parties=9, size_l=16, n_dishonest=3,
                                   trials=16, seed=6)
     for r, pool, mbox, li, vi, hc, draws in protocol_rounds(cfg, cuda):
@@ -1025,5 +1120,22 @@ def test_round_phase_clock(cuda):
                 assert (phases["setup"] > 0).all()
                 if r == 1:
                     assert phases["receivers"].any()
+            clock = rk.round_phase_clock(cfg.trials, lead, cuda)
+            acc, vi2 = rk.tiled_verdict(cfg, r, *args, *draws, **kw_sh,
+                                        clock=clock)
+            assert_equal((acc, vi2),
+                         rk.tiled_verdict(cfg, r, *args, *draws, **kw_sh))
+            phases = dict(zip(rk.ROUND_PHASES, clock.unbind(-1)))
+            assert (phases["setup"] > 0).all() and (phases["fill"] > 0).all()
+            if r == 1:
+                assert phases["receivers"].any()
+            clock = rk.round_phase_clock(cfg.trials, lead, cuda)
+            assert_equal(
+                rk.tiled_rebuild(cfg, r, *args[:2], acc, hc, *draws[:2],
+                                 **kw_sh, clock=clock),
+                rk.tiled_rebuild(cfg, r, *args[:2], acc, hc, *draws[:2],
+                                 **kw_sh))
+            phases = dict(zip(rk.ROUND_PHASES, clock.unbind(-1)))
+            assert (phases["dedup"] > 0).all()
         if r == 2:
             break

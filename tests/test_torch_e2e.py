@@ -95,6 +95,70 @@ def test_auto_engine_on_cpu_is_xla():
         cfg, torch.device("cuda")) == "pallas_mega"
 
 
+# auto on CUDA past the kernels' 64-bit masks: (config, engine, whether
+# the resolver records a demotion).  65 parties have w = 128.
+P65 = dict(n_parties=65, size_l=8, n_dishonest=1)
+P33 = dict(n_parties=33, size_l=64, n_dishonest=10)
+MASK_CASES = {
+    "65p": (P65, "xla", True),
+    "65p-counters": (dict(P65, collect_counters=True), "xla", True),
+    "33p": (P33, "pallas_mega", False),
+    "33p-counters": (dict(P33, collect_counters=True), "pallas_fused",
+                     False),
+}
+
+
+@pytest.mark.parametrize("case", list(MASK_CASES))
+def test_auto_on_cuda_past_the_masks_is_xla(case):
+    import warnings
+
+    from qba_tpu_torch.diagnostics import QBADemotionWarning
+    from qba_tpu_torch.parallel.spmd import _resolve_spmd_engine
+    from qba_tpu_torch.rounds.engine import (
+        resolve_mega_gen,
+        resolve_round_engine,
+    )
+
+    kw, engine, demotes = MASK_CASES[case]
+    cfg = qba_tpu_torch.QBAConfig(**kw)
+    stab = dataclasses.replace(cfg, qsim_path="stabilizer")
+    cuda = torch.device("cuda")
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        assert resolve_round_engine(cfg, cuda) == engine
+        # The gen entry only where the engine is the megakernel.
+        assert resolve_mega_gen(stab, cuda) == (
+            "gf2" if engine == "pallas_mega" else "host")
+        if demotes:
+            # The tp mesh's auto too (its kernels share the masks).
+            assert _resolve_spmd_engine(cfg, cfg.n_lieutenants // 4,
+                                        cuda) == "xla"
+    demotions = [w.message for w in seen
+                 if isinstance(w.message, QBADemotionWarning)]
+    assert len(demotions) == (2 if demotes else 0), demotions
+    for w in demotions:
+        assert w.reason == "kernel_masks_64" and "64-bit masks" in str(w)
+    assert resolve_round_engine(cfg, torch.device("cpu")) == "xla"
+
+
+@pytest.mark.parametrize("engine", ["pallas_mega", "pallas_fused",
+                                    "pallas_tiled", "pallas"])
+def test_forced_kernel_engine_past_the_masks_still_raises(engine):
+    import warnings
+
+    from qba_tpu_torch.ops._launch import check_kernel_shapes, masks_fit
+    from qba_tpu_torch.rounds.engine import resolve_round_engine
+
+    cfg = qba_tpu_torch.QBAConfig(round_engine=engine, **P65)
+    assert not masks_fit(cfg) and masks_fit(qba_tpu_torch.QBAConfig(**P33))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert resolve_round_engine(cfg, torch.device("cuda")) == engine
+    # The wrapper refuses the launch before it reaches the card.
+    with pytest.raises(NotImplementedError, match="64-bit masks"):
+        check_kernel_shapes(cfg, engine)
+
+
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = qba_tpu_torch.QBAConfig(n_parties=3, size_l=4, n_dishonest=1)

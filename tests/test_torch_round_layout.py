@@ -25,9 +25,11 @@ def a16(x):
     return -(-x // 16) * 16
 
 
-def smem_by_hand(n_rv, n_glob, slots, max_l, size_l, verdict=True):
+def smem_by_hand(n_rv, n_glob, slots, max_l, size_l, verdict=True,
+                 slot_lists=True):
     """Smem's offsets written out for a block of n_rv receivers of n_glob:
-    the accepted sets (8 B a receiver), slots (4 B each), counts and
+    the accepted sets (8 B a receiver), slots (4 B each, where the kernel
+    takes slot lists: all but the tiled verdict), counts and
     offsets, then 16-aligned, the eight flags; with the verdict's parts:
     each of 8 warps' lossy receivers (8 B), each cell's verdict (8 B) and order (4 B), the sent and honesty bits
     (4 B a word of 32 cells each), the sent cells' list (4 B a cell), the
@@ -37,7 +39,8 @@ def smem_by_hand(n_rv, n_glob, slots, max_l, size_l, verdict=True):
     they fit 232,448 B, else one."""
     n_pool = n_glob * slots
     sw = -(-size_l // 4)
-    at = a16(8 * n_rv + 4 * n_rv * slots + 4 * n_rv + 4 * (n_rv + 1)) + 32
+    at = a16(8 * n_rv + (4 * n_rv * slots if slot_lists else 0) + 4 * n_rv
+             + 4 * (n_rv + 1)) + 32
     if not verdict:
         return at
     at += 8 * 8 + 8 * n_pool + 4 * n_pool + 2 * 4 * -(-n_pool // 32) + 4 * n_pool
@@ -80,6 +83,33 @@ def test_round_smem_bytes_by_hand(shape):
     assert rk.round_smem_bytes(cfg) == rk.round_smem_bytes(cfg, n_rv)
 
 
+# The tiled verdict's block takes no slot lists (4 B a receiver and
+# slot fewer): (parties, size_l, dishonest, tp) -> its shared memory.
+VERDICT_SMEM = {
+    (5, 16, 2, 1): 2400,
+    (11, 64, 3, 1): 10944,
+    (11, 64, 3, 2): 10224,
+    (33, 64, 10, 1): 52208,
+    (33, 64, 10, 4): 48752,
+}
+
+
+@pytest.mark.parametrize("shape", list(VERDICT_SMEM))
+def test_tiled_verdict_smem_by_hand(shape):
+    n, s, d, tp = shape
+    cfg = QBAConfig(n_parties=n, size_l=s, n_dishonest=d)
+    n_rv = cfg.n_lieutenants
+    want = VERDICT_SMEM[shape]
+    assert rk.round_smem_bytes(cfg, n_rv // tp, slots=False) == want
+    assert smem_by_hand(n_rv // tp, n_rv, cfg.slots, cfg.max_l, s,
+                        slot_lists=False) == want
+    # 33 parties: four blocks an SM fit the SM's 228 KB (1 KB reserved a
+    # block), where the layout with slot lists fits three.
+    if (n, tp) == (33, 1):
+        assert 4 * (want + 1024) <= 228 * 1024
+        assert 4 * (rk.round_smem_bytes(cfg) + 1024) > 228 * 1024
+
+
 def test_round_smem_past_the_card_raises():
     # 2048 positions at 33 parties need more than a block's shared memory
     # even with one buffer a warp: the wrapper says so before a launch.
@@ -101,6 +131,27 @@ def test_lane_groups_cover_the_receivers(n_rv):
     passes = -(-n_rv // per_pass)
     assert g in (1, 2, 4) and passes == (2 if n_rv > 32 else 1)
     assert g == 1 or n_rv <= per_pass
+
+
+@pytest.mark.parametrize("n_local", [1, 4, 31, 32, 33, 64])
+def test_pack_acc_round_trip(n_local):
+    # One receiver mask a packet: bit r is receiver r's entry, 0 past
+    # n_local; bit 63 is the sign bit of the int64 word.
+    gen = torch.Generator().manual_seed(n_local)
+    acc = (torch.rand((3, 7, n_local), generator=gen) < 0.5).to(torch.int32)
+    words = rk.pack_acc(acc)
+    assert words.dtype == torch.int64 and words.shape == (3, 7)
+    assert torch.equal(rk.unpack_acc(words, n_local), acc)
+    assert torch.equal(rk.pack_acc(acc != 0), words)
+    if n_local < 64:
+        assert not (words >> n_local).any()
+    one = torch.zeros(n_local, dtype=torch.int32)
+    one[-1] = 1
+    assert int(rk.pack_acc(one)) == (-(1 << 63) if n_local == 64
+                                     else 1 << (n_local - 1))
+    assert int(rk.pack_acc(torch.ones(64, dtype=torch.int32))) == -1
+    with pytest.raises(ValueError, match="64-bit"):
+        rk.pack_acc(torch.ones(65, dtype=torch.int32))
 
 
 def test_round_phase_clock_buffer_and_breakdown():

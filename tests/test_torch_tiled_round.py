@@ -6,8 +6,9 @@ card) against ``build_verdict_kernel(..., interpret=True)`` and
 ``build_rebuild_kernel(..., interpret=True)``, the TPU kernels run as
 tests/test_round_kernel_tiled.py runs them on the CPU, with inputs made
 (a) from numpy with a seed and (b) from the protocol state of real
-trials.  The accepted matrix, ``vi``, the successor pool and the
-overflow flag must be equal.  The JAX verdict kernel followed by the JAX
+trials.  The accepted matrix (the port's one receiver mask a packet,
+unpacked), ``vi``, the successor pool and the overflow flag must be
+equal.  The JAX verdict kernel followed by the JAX
 rebuild kernel must equal the port's ``fused_round_reference``, and the
 ``pallas_tiled`` engine must equal JAX's and the port's ``xla`` engine
 trial for trial.  Every output is an integer: the tolerance is 0.
@@ -43,12 +44,17 @@ from qba_tpu_torch.convert import (
 )
 from qba_tpu_torch.ops.round_kernel_tiled import (
     fused_round_reference,
+    join_acc_shards,
+    pack_acc,
     rebuild_reference,
+    shard_receivers,
     tiled_rebuild,
     tiled_verdict,
+    unpack_acc,
+    unshard_receivers,
     verdict_reference,
 )
-from qba_tpu_torch.testing import random_state
+from qba_tpu_torch.testing import random_round_inputs, random_state
 from tests.test_torch_fused_round import jax_round_draws, protocol_states
 
 FIELDS = ("decisions", "success", "vi", "overflow", "honest", "v_comm")
@@ -104,7 +110,9 @@ def port_args(pools, lis, hcs, atts, rvs, lates):
 def assert_tiled_equal(jcfg, cfg, round_idx, states, acc_override=None):
     """The JAX verdict and rebuild kernels against the port's plain
     versions on per-trial states.  The rebuild reads the JAX verdict's
-    ``acc``, or ``acc_override`` per trial.  Returns the JAX outputs."""
+    ``acc`` (packed, :func:`pack_acc`), or ``acc_override`` per trial;
+    the port's masks are unpacked against JAX's int32 0/1 matrix.
+    Returns the JAX outputs."""
     pools, lis, vis, hcs, atts, rvs, lates = zip(*states)
     verdicts = [run_jax_verdict(jcfg, round_idx, *s) for s in states]
     accs = acc_override or [v[0] for v in verdicts]
@@ -116,9 +124,10 @@ def assert_tiled_equal(jcfg, cfg, round_idx, states, acc_override=None):
     vi = torch.from_numpy(np.stack(vis))
     acc_p, vi_p = verdict_reference(cfg, round_idx, pool, li, vi, hc, att,
                                     rv, late)
-    out_p, ovf_p = rebuild_reference(cfg, round_idx, pool, li,
-                                     torch.from_numpy(np.stack(accs)), hc,
+    acc_j = pack_acc(torch.from_numpy(np.stack(accs)))
+    out_p, ovf_p = rebuild_reference(cfg, round_idx, pool, li, acc_j, hc,
                                      att, rv)
+    acc_p = unpack_acc(acc_p, cfg.n_lieutenants)
     for t, ((acc_j, vi_j), (out_j, ovf_j)) in enumerate(
             zip(verdicts, rebuilds)):
         assert np.array_equal(acc_j, acc_p[t].numpy()), ("acc", t)
@@ -150,6 +159,43 @@ def test_verdict_and_rebuild_random_inputs(kw, round_idx):
     assert sum(int(v[0].sum()) for v in verdicts) > 0  # something accepted
     if round_idx <= cfg.n_dishonest:
         assert sum(int((r[0][3][:, 2] != 0).sum()) for r in rebuilds) > 0
+
+
+def test_verdict_masks_cross_the_32_bit_line():
+    # 33 lieutenants (34 parties, w = 64): receivers 32 and up sit in the
+    # high half of the packet's word.
+    jcfg = JConfig(n_parties=34, size_l=4, n_dishonest=2,
+                   max_accepts_per_round=1)
+    cfg = config_from_jax_fields(dataclasses.asdict(jcfg))
+    assert cfg.n_lieutenants == 33 and cfg.w == 64
+    rng = np.random.default_rng(34)
+    states = [random_state(rng, cfg, 1) for _ in range(2)]
+    verdicts, _ = assert_tiled_equal(jcfg, cfg, 1, states)
+    assert any(v[0][:, 32:].any() for v in verdicts)
+
+
+@pytest.mark.parametrize("kw,tp,round_idx", [
+    (dict(n_parties=5, size_l=16, n_dishonest=2), 2, 1),
+    (dict(n_parties=7, size_l=8, n_dishonest=3), 3, 2),
+    (dict(n_parties=34, size_l=4, n_dishonest=2), 3, 1),
+])
+def test_n_recv_masks_join_to_single_device(kw, tp, round_idx):
+    # Each shard's masks hold its own receivers' bits from bit 0; joined
+    # in shard order they are the single-device verdict's masks.
+    cfg = qba_tpu_torch.QBAConfig(**kw)
+    n_local = cfg.n_lieutenants // tp
+    pool, li, vi, hc, *draws = random_round_inputs(cfg, round_idx, 6,
+                                                   seed=tp)
+    acc, vi2 = verdict_reference(cfg, round_idx, pool, li, vi, hc, *draws)
+    shards = (tuple(x.expand((tp,) + x.shape).contiguous() for x in pool),
+              shard_receivers(li, tp), shard_receivers(vi, tp), hc)
+    s_acc, s_vi = verdict_reference(cfg, round_idx, *shards, *draws,
+                                    n_recv=n_local)
+    assert s_acc.shape == (tp,) + acc.shape and s_acc.dtype == torch.int64
+    assert not (s_acc >> n_local).any()
+    assert torch.equal(join_acc_shards(s_acc, n_local), acc)
+    assert torch.equal(unshard_receivers(s_vi), vi2)
+    assert bool(acc.any())
 
 
 @pytest.mark.parametrize("kw,round_idx", CONFIGS[:4])
@@ -258,5 +304,5 @@ def test_wrappers_use_plain_versions_on_cpu():
     assert all(torch.equal(a, b) for a, b in zip(out, ref_out))
     assert torch.equal(ovf, ref_ovf)
     n_pool = cfg.n_lieutenants * cfg.slots
-    assert acc.dtype == torch.int32 and acc.shape == (1, n_pool, 4)
+    assert acc.dtype == torch.int64 and acc.shape == (1, n_pool)
 
