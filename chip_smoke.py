@@ -66,6 +66,9 @@ Phases, each reported on its own line:
    trial overflows): single-device, party-sharded at ``tp`` 2 and 4 and
    the gen entry on ``qsim_path="stabilizer"``, each against its plain
    version and its stacked form, trial for trial;
+   ``sweep_stop_vs_plain``: the sweep loop's stop kernel against its
+   plain version, bit-exact on the carry, at every index of a four-chunk
+   budget and past it, on seeded random chunks of 1 to 5000 trials;
 5. ``engines_agree``: ``run_trials`` with the ``xla``, ``pallas``,
    ``pallas_fused``, ``pallas_tiled`` and ``pallas_mega`` engines trial
    for trial at 5p/L16/d2 x 64, and the protocol counters of the four
@@ -136,6 +139,20 @@ Phases, each reported on its own line:
    instantiations, each round's result equal to the unclocked launch's)
    over every round of the 11p and 33p batches and, as ``n_recv``
    variants, of the 33p batch at ``tp = 4``.
+10. ``sweep_path``: the precision-targeted sweep, ``run_sweep(cfg,
+   12, 1000, target=...)`` at 33p/L64/d10 and 11p/L64/d3 (seed 3), a
+   decide target at each width that stops inside the budget and one at
+   33p that spends it: the host loop (one chunk a dispatch, one readback
+   a chunk) and the graph loop (``dispatch="device"``: one launch of a
+   CUDA graph whose WHILE node runs the captured chunk, keys to
+   ``sweep_stop``, and one readback), equal chunk for chunk and in their
+   stop decision to each other and to the fixed-budget run's prefix,
+   with launch counts asserted (the graph loop launches each kernel once
+   eagerly as its warm-up and once into the capture; the graph then
+   runs them once a chunk), readbacks, wall, rounds/s and ms a chunk
+   over the executed chunks, the graph's warm-up, capture and
+   instantiate ms and its body's node types; then ``sweep_stop`` on a
+   33p chunk against its plain version, timed, with its bound.
 
 Any failure exits non-zero.  The line before the last is the kernel
 table as JSON, the one before it the card; the last line is
@@ -188,6 +205,10 @@ SOURCES = {
     # not of a pallas_call site.
     "attack_draws": ("qba_tpu_torch/ops/csrc/attack_draws.cu",
                      "qba_tpu/adversary/model.py:250"),
+    # The counterpart of the condition and per-chunk reduce of the sweep's
+    # lax.while_loop, not of a pallas_call site.
+    "sweep_stop": ("qba_tpu_torch/ops/csrc/sweep_loop.cu",
+                   "qba_tpu/sweep.py:317"),
 }
 # 32-bit operations of one threefry2x32 (csrc/draws.cuh): 20 rounds of an
 # add, a rotate and a xor, and the key injections.
@@ -1101,7 +1122,8 @@ COUNTED = ("fused_round", "tiled_verdict", "tiled_rebuild",
            "trial_megakernel", "round_step", "fused_circuit", "gf2_sweep",
            "trial_megakernel_gen", "sharded_trial_megakernel", "ring_gather",
            "attack_draws", "trial_megakernel_keyed",
-           "trial_megakernel_gen_keyed", "sharded_trial_megakernel_keyed")
+           "trial_megakernel_gen_keyed", "sharded_trial_megakernel_keyed",
+           "sweep_stop")
 ROUND_KERNELS = COUNTED[:5]
 # The megakernel rows of the kernel table time the keyed entries, the ones
 # the engines launch.
@@ -1970,6 +1992,211 @@ def ring_timing(leaves, reps=5):
     return out
 
 
+# The sweep path: (config, target, budget chunks) at chunk_trials=1000,
+# seed 3.  The two decide targets stop inside the budget (11p below 0.3
+# at chunk 7, 33p below 0.56 at chunk 6, on these keys); the third runs
+# the whole budget without deciding.
+TARGETED_TRIALS = 1000
+TARGETED_SEED = 3
+TARGETED_CASES = [("33p/L64/d10", "decide vs 0.56 +-0.01", 12, "decided"),
+                  ("11p/L64/d3", "decide vs 0.3 +-0.005", 12, "decided"),
+                  ("33p/L64/d10", "decide vs 0.55 +-0.01", 12,
+                   "budget_exhausted")]
+
+
+def sweep_stop_cost(n_trials):
+    """``sweep_stop``'s bytes (the chunk's success and overflow bytes, two
+    table words, the carry's two words read and four written) and
+    operations (an add and an or a trial)."""
+    return 2 * n_trials + 8 + 8 + 16, 2 * n_trials
+
+
+def sweep_stop_vs_plain(dev, inputs=None):
+    """The ``sweep_stop`` kernel against its plain version, bit-exact on
+    the carry, at every index of a four-chunk budget and past it: on
+    seeded random chunks of 1, 37, 1000 and 5000 trials, or on
+    ``inputs`` (a chunk's ``(success, overflow)``).  Returns the largest
+    difference."""
+    import torch
+
+    from qba_tpu_torch.ops import sweep_loop as sl
+
+    if inputs is None:
+        g = torch.Generator().manual_seed(0)
+        cases = [(torch.rand(t, generator=g) < 0.4,
+                  torch.rand(t, generator=g) < 2.0 / t)
+                 for t in (1, 37, 1000, 5000)]
+    else:
+        cases = [tuple(x.cpu() for x in inputs)]
+    err = 0
+    for success, overflow in cases:
+        t = success.shape[0]
+        lo = torch.tensor([-1, 0, t // 3, t // 2, t], dtype=torch.int32)
+        hi = lo + torch.tensor([2, t, t, t, t], dtype=torch.int32)
+        for start in range(5):
+            carry = sl.new_carry(4, start, (t // 4) * start, "cpu")
+            want = sl.sweep_stop_reference(success, overflow, lo, hi,
+                                           carry.clone())
+            got = sl.sweep_stop(success.to(dev), overflow.to(dev),
+                                lo.to(dev), hi.to(dev), carry.to(dev))
+            err = max(err, max_err(got.cpu(), want))
+    if err:
+        raise AssertionError(f"sweep_stop != plain version: {err}")
+    return err
+
+
+def sweep_stop_timing(cfg, dev, reps=100):
+    """``sweep_stop`` on one full chunk of ``cfg`` (its keys' success and
+    overflow flags) against its plain version: bit-exact on the carry,
+    ms per launch (CUDA events around each of ``reps`` launches, each a
+    real step of a long budget; and ``queued_ms``, ``reps`` launches
+    queued behind a sleep between one pair of events, which leaves out
+    the host's launch rate), the plain version's ms (host clock,
+    fenced), its bound and a library call's ms (none computes this
+    step)."""
+    import torch
+
+    from qba_tpu_torch.ops import sweep_loop as sl
+    from qba_tpu_torch.rounds.engine import run_trial
+    from qba_tpu_torch.sweep import chunk_keys
+
+    res = run_trial(cfg, chunk_keys(cfg, 0, cfg.trials, dev))
+    success, overflow = res.success.contiguous(), res.overflow.contiguous()
+    err = sweep_stop_vs_plain(dev, (success, overflow))
+    n = 2 * reps + 1
+    lo = torch.full((n + 1,), -1, dtype=torch.int32, device=dev)
+    hi = torch.full((n + 1,), cfg.trials * n + 1, dtype=torch.int32,
+                    device=dev)
+    carry = sl.new_carry(n, 0, 0, dev)
+    sl.sweep_stop(success, overflow, lo, hi, carry)  # warm-up
+    ms = kernel_ms(sl.sweep_stop, reps, success, overflow, lo, hi, carry)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(reps):
+        sl.sweep_stop(success, overflow, lo, hi, carry)
+    end.record()
+    torch.cuda.synchronize()
+    queued_ms = start.elapsed_time(end) / reps
+    if sl.read_carry(carry)[0] != n:
+        raise AssertionError("sweep_stop timing: the steps did not advance")
+    plain = sl.new_carry(n, 0, 0, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        sl.sweep_stop_reference(success, overflow, lo, hi, plain)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) / 10 * 1e3
+    b = bound(*sweep_stop_cost(cfg.trials))
+    return dict(max_abs_err=err, ms=ms, queued_ms=queued_ms,
+                plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
+                library_ms=None, trials=cfg.trials)
+
+
+def sweep_run(cfg, n_chunks, target, dispatch):
+    """One targeted ``run_sweep`` on the card, every kernel's launch
+    count set to 0 just before and read just after (no CUDA events: the
+    graph loop captures the launches).  Returns the result, the wall
+    seconds, the counts and the run's timers."""
+    import torch
+
+    from qba_tpu_torch.obs.timers import PhaseTimers
+    from qba_tpu_torch.sweep import run_sweep
+
+    fns = wrappers()
+    for fn in fns.values():
+        fn.launches, fn.events = 0, None
+    timers = PhaseTimers()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_sweep(cfg, n_chunks, cfg.trials, target=target,
+                    dispatch=dispatch, timers=timers)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return res, wall, {k: fn.launches for k, fn in fns.items()}, timers
+
+
+def sweep_path(configs):
+    """The targeted sweep on the card (``TARGETED_CASES``): the host loop
+    (one chunk a dispatch, one readback a chunk), the graph loop (one
+    launch of a CUDA graph whose WHILE node runs the captured chunk, one
+    readback) and the fixed-budget run, chunk for chunk and stop for
+    stop, with launch counts asserted, readbacks, wall and rounds/s over
+    the executed chunks, and the graph's warm-up, capture and instantiate
+    ms.  Returns ``(runs, launches)``."""
+    import dataclasses
+
+    from qba_tpu_torch.sweep import run_sweep
+
+    runs, launches = [], dict.fromkeys(COUNTED, 0)
+    for name, spec, budget, outcome in TARGETED_CASES:
+        cfg = dataclasses.replace(configs[name], trials=TARGETED_TRIALS,
+                                  seed=TARGETED_SEED)
+        t0 = time.perf_counter()
+        fixed = run_sweep(cfg, budget, cfg.trials)
+        fixed_s = time.perf_counter() - t0
+        out = dict(config=name, target=spec, budget_chunks=budget,
+                   chunk_trials=cfg.trials, rounds=cfg.n_rounds,
+                   fixed_budget=dict(wall_s=fixed_s, rounds_per_s=(
+                       budget * cfg.trials * cfg.n_rounds / fixed_s)))
+        res = {}
+        for dispatch in ("host", "device"):
+            r, wall, counts, timers = sweep_run(cfg, budget, spec, dispatch)
+            for k, n in counts.items():
+                launches[k] += n
+            done = len(r.chunks)
+            rounds = done * cfg.trials * cfg.n_rounds
+            if dispatch == "host":
+                want = {"trial_megakernel_keyed": done}
+                rec = dict(readbacks=timers.count("readback"), wall_s=wall,
+                           rounds_per_s=rounds / wall,
+                           ms_per_chunk=wall / done * 1e3)
+            else:
+                # Eager warm-up and capture: one launch of each kernel;
+                # the graph then runs them once a chunk.
+                want = {"trial_megakernel_keyed": 2, "sweep_stop": 2}
+                (span,) = [sp for sp in timers.spans.spans
+                           if sp.name == "device_loop"]
+                info = span.args
+                if info["dispatch"] != "graph" or info["readbacks"] != 1:
+                    raise AssertionError(f"sweep {name}: not one graph "
+                                         f"launch: {info}")
+                rec = dict(readbacks=info["readbacks"], wall_s=wall,
+                           rounds_per_s=rounds / wall,
+                           loop_s=info["loop_s"],
+                           loop_rounds_per_s=rounds / info["loop_s"],
+                           ms_per_chunk=info["loop_s"] / done * 1e3,
+                           warmup_ms=info["warmup_s"] * 1e3,
+                           capture_ms=info["capture_s"] * 1e3,
+                           instantiate_ms=info["instantiate_s"] * 1e3,
+                           body_nodes=info["body_nodes"])
+            want = {k: want.get(k, 0) for k in COUNTED}
+            if counts != want:
+                raise AssertionError(f"sweep {name} {dispatch}: launches "
+                                     f"{counts}, expected {want}")
+            rec.update(chunks=done, stop_chunk=done - 1,
+                       stop=r.stop.reason, successes=r.successes,
+                       launches={k: n for k, n in counts.items() if n})
+            res[dispatch] = r
+            out[dispatch] = rec
+        host, dev = res["host"], res["device"]
+        if not (host.chunks == dev.chunks == fixed.chunks[:len(host.chunks)]
+                and host.stop.to_json() == dev.stop.to_json()):
+            raise AssertionError(f"sweep {name} {spec}: host loop, graph "
+                                 "loop and fixed-budget prefix disagree")
+        if not (host.stop.reason.startswith(outcome)
+                and (len(host.chunks) < budget) == (outcome == "decided")):
+            raise AssertionError(f"sweep {name} {spec}: stopped with "
+                                 f"{host.stop.reason} after "
+                                 f"{len(host.chunks)} chunks")
+        out["counts"] = [c.successes for c in host.chunks]
+        out["graph_over_host"] = (out["host"]["ms_per_chunk"]
+                                  / out["device"]["ms_per_chunk"])
+        log("sweep_path", **out)
+        runs.append(out)
+    return runs, launches
+
+
 def wrappers():
     from qba_tpu_torch.ops import attack_draws as ad
     from qba_tpu_torch.ops import fused_circuit as fc
@@ -1977,6 +2204,7 @@ def wrappers():
     from qba_tpu_torch.ops import ring_shuffle as rg
     from qba_tpu_torch.ops import round_kernel as rs
     from qba_tpu_torch.ops import round_kernel_tiled as rk
+    from qba_tpu_torch.ops import sweep_loop as sl
     from qba_tpu_torch.ops import trial_megakernel as tm
 
     return {"fused_round": rk.fused_round, "tiled_verdict": rk.tiled_verdict,
@@ -1991,7 +2219,8 @@ def wrappers():
             "trial_megakernel_keyed": tm.trial_megakernel_keyed,
             "trial_megakernel_gen_keyed": tm.trial_megakernel_gen_keyed,
             "sharded_trial_megakernel_keyed":
-                tm.sharded_trial_megakernel_keyed}
+                tm.sharded_trial_megakernel_keyed,
+            "sweep_stop": sl.sweep_stop}
 
 
 def drive(cfg, engine, mesh=None):
@@ -2150,6 +2379,10 @@ def main(argv):
                                     cases=keyed_facts)
     log("keyed_vs_plain", tolerance=0, max_abs_err=keyed_errs,
         cases=keyed_facts)
+    stop_err = sweep_stop_vs_plain(dev)
+    report["sweep_stop_vs_plain"] = dict(max_abs_err=stop_err)
+    log("sweep_stop_vs_plain", tolerance=0, max_abs_err=stop_err,
+        trials=[1, 37, 1000, 5000], starts=[0, 1, 2, 3, 4], budget=4)
     if quick:
         print(card)
         print(json.dumps({"ok": True, "device": {
@@ -2597,6 +2830,7 @@ def main(argv):
     report["mesh_path"] = dict(runs=mesh_runs, small_batch_33p_x64_ms=small_batch)
     log("mesh_path", config="33p/L64/d10 x64", kernel_ms=small_batch)
 
+
     # Where a megakernel block's time goes: the phase clock's breakdown on
     # the main path's batches, the small batch and the sharded entry.
     phases = {}
@@ -2619,6 +2853,17 @@ def main(argv):
     report["round_phases"] = rphases
     log("round_phases", unit="SM cycles of warp 0 per block, summed over "
         "the batch's rounds", **rphases)
+
+    # The targeted sweep: host loop against the graph loop (one launch,
+    # one readback) and the fixed-budget prefix, at full width.
+    sweep_runs, sweep_launches = sweep_path(dict(main_cfgs))
+    for k, n in sweep_launches.items():
+        launches[k] += n
+    stop_row = sweep_stop_timing(dataclasses.replace(
+        dict(main_cfgs)["33p/L64/d10"], seed=TARGETED_SEED), dev)
+    report["sweep_path"] = dict(runs=sweep_runs, sweep_stop=stop_row)
+    log("sweep_stop_timing", config="33p/L64/d10 chunk", tolerance=0,
+        **stop_row)
 
     big = runs[-1]
     kernels = []
@@ -2737,6 +2982,18 @@ def main(argv):
         ["kernel_ms_per_launch"]["attack_draws"],
         "config": (f"{big['config']} x{big['trials']} trials, "
                    f"{big['rounds']} rounds a launch"),
+    })
+    # The sweep loop's stop step: the graph loop's own kernel.
+    source, replaces = SOURCES["sweep_stop"]
+    kernels.append({
+        "name": "sweep_stop", "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches["sweep_stop"],
+        "max_abs_err": max(stop_row["max_abs_err"], stop_err),
+        **{k: stop_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "queued_ms")},
+        "config": (f"33p/L64/d10 chunk of {stop_row['trials']} trials; "
+                   "launched eagerly once and captured once a graph loop, "
+                   "then run once a chunk by the graph"),
     })
     report["kernels"] = kernels
     report["device"] = card

@@ -22,6 +22,8 @@ the JAX package's draws.
 
 from __future__ import annotations
 
+import struct
+
 import torch
 
 from qba_tpu_torch import random as jr
@@ -54,9 +56,9 @@ STRATEGY_CODE = {s: i for i, s in enumerate(STRATEGIES)}
 def law_ints(cfg: QBAConfig) -> list[int]:
     """The round law as the kernels take it: ``[strategy code, broadcast
     scope, racy delivery, float32 bits of p_late, n_parties + 1]``."""
-    p32 = torch.tensor(cfg.p_late, dtype=torch.float32).view(torch.int32)
+    p32 = struct.unpack("i", struct.pack("f", cfg.p_late))[0]
     return [STRATEGY_CODE[cfg.strategy], int(cfg.attack_scope == "broadcast"),
-            int(cfg.delivery == "racy"), int(p32), cfg.n_parties + 1]
+            int(cfg.delivery == "racy"), p32, cfg.n_parties + 1]
 
 
 def keyed_inputs(cfg: QBAConfig, k_rounds, ctx: AdversaryCtx | None):

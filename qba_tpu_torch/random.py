@@ -18,6 +18,7 @@ are explicit tensors passed in, never global state.
 from __future__ import annotations
 
 import math
+import struct
 
 import torch
 
@@ -29,12 +30,15 @@ _PARITY = 0x1BD11BDA
 def key(seed: int, device=None) -> torch.Tensor:
     """``jax.random.key(seed)``'s key data: ``[seed >> 32, seed & M32]``
     for a seed in int32 range (JAX truncates Python ints to int32 in its
-    default 32-bit mode)."""
+    default 32-bit mode).  Filled on ``device``, with no copy from host
+    memory, so a CUDA graph may capture it."""
     s = int(seed)
     if not -(2**31) <= s < 2**31:
         raise ValueError(f"seed {s} outside int32 range")
     hi = _M32 if s < 0 else 0
-    return torch.tensor([hi, s & _M32], dtype=torch.int64, device=device)
+    k = torch.full((2,), s & _M32, dtype=torch.int64, device=device)
+    k[:1].fill_(hi)
+    return k
 
 
 def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -73,9 +77,16 @@ def split(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
-def fold_in(keys: torch.Tensor, data: int) -> torch.Tensor:
-    """``jax.random.fold_in`` with a Python integer (cast to uint32)."""
-    d = torch.tensor(int(data) & _M32, dtype=torch.int64, device=keys.device)
+def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in`` with a Python integer or an integer tensor
+    on the keys' device (cast to uint32, as JAX casts a traced int32).
+    A tensor operand stays on the device: a CUDA graph may capture the
+    call and read ``data`` when it replays."""
+    if isinstance(data, torch.Tensor):
+        d = data.to(torch.int64) & _M32
+    else:
+        d = torch.full((), int(data) & _M32, dtype=torch.int64,
+                       device=keys.device)
     y0, y1 = threefry2x32(keys[..., 0], keys[..., 1], torch.zeros_like(d), d)
     return torch.stack([y0, y1], dim=-1)
 
@@ -117,6 +128,13 @@ def uniform(keys: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
 _TINY = torch.finfo(torch.float32).tiny
 
 
+def _float32(x: float) -> float:
+    """``x`` rounded to float32, as a Python float: a scalar operand
+    that compares with a float32 tensor as JAX's ``float32(x)`` does,
+    with no tensor made from host memory."""
+    return struct.unpack("f", struct.pack("f", x))[0]
+
+
 def gumbel(keys: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
     """``jax.random.gumbel`` in float32 (JAX's default "low" mode):
     ``-log(-log(u))`` with ``u = uniform(minval=tiny, maxval=1)``, which
@@ -124,8 +142,9 @@ def gumbel(keys: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
     uniform ``f``.  The uniforms equal JAX's bit for bit; the two ``log``
     calls may differ from XLA's in the last place."""
     f = uniform(keys, shape)
-    tiny = torch.tensor(_TINY, dtype=torch.float32, device=f.device)
-    u = torch.maximum(tiny, f * (1.0 - tiny) + tiny)
+    # float32(1 - tiny) is 1, and tiny is a float32 value: the float32
+    # arithmetic is JAX's.
+    u = (f + _TINY).clamp_min(_TINY)
     return -torch.log(-torch.log(u))
 
 
@@ -142,7 +161,7 @@ def bernoulli(keys: torch.Tensor, p: float,
               shape: tuple[int, ...]) -> torch.Tensor:
     """``jax.random.bernoulli``: ``uniform < float32(p)``, bool."""
     u = uniform(keys, shape)
-    return u < torch.tensor(p, dtype=torch.float32, device=u.device)
+    return u < _float32(p)
 
 
 def permutation(keys: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -581,6 +581,23 @@ def finish_trial(cfg: QBAConfig, vi, v_comm, honest, overflow,
     )
 
 
+def run_chunk_counts(cfg: QBAConfig, keys: torch.Tensor):
+    """One chunk's verdicts reduced on its device: ``(successes int32,
+    overflow bool)`` 0-dim tensors from a :func:`run_trial` batch, the
+    two numbers a stopping rule reads (counterpart of
+    :func:`qba_tpu.rounds.engine.run_chunk_counts`)."""
+    res = run_trial(cfg, keys)
+    return res.success.sum(dtype=torch.int32), res.overflow.any()
+
+
+def run_chunk_outcomes(cfg: QBAConfig, keys: torch.Tensor):
+    """Like :func:`run_chunk_counts` but keeps the per-trial success
+    bits: ``(success bool [len(keys)], overflow bool 0-dim)``, for a
+    caller that reports each trial's success."""
+    res = run_trial(cfg, keys)
+    return res.success, res.overflow.any()
+
+
 def run_trial(cfg: QBAConfig, keys: torch.Tensor) -> TrialResult:
     """Full protocol executions for a batch of trial keys ``[T, 2]`` on
     their device, with the engine :func:`resolve_round_engine` picks."""

@@ -1139,3 +1139,56 @@ def test_round_phase_clock(cuda):
             assert (phases["dedup"] > 0).all()
         if r == 2:
             break
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_trials", [1, 37, 1000, 5000])
+def test_sweep_stop_equals_plain(cuda, n_trials):
+    from qba_tpu_torch.ops import sweep_loop as sl
+
+    g = torch.Generator().manual_seed(n_trials)
+    success = torch.rand(n_trials, generator=g) < 0.4
+    overflow = torch.rand(n_trials, generator=g) < 2.0 / n_trials
+    n = 4
+    lo = torch.tensor([-1, 0, 300, 700, 1500], dtype=torch.int32)
+    hi = lo + torch.tensor([2, 900, 700, 600, 700], dtype=torch.int32)
+    for start in range(n + 1):
+        carry = sl.new_carry(n, start, 211 * start, "cpu")
+        want = sl.sweep_stop_reference(success, overflow, lo, hi,
+                                       carry.clone())
+        got = sl.sweep_stop(success.to(cuda), overflow.to(cuda),
+                            lo.to(cuda), hi.to(cuda), carry.to(cuda))
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), (start, got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["decide vs 1/3", "ci_width<=0.01"])
+def test_sweep_graph_loop_equals_host_loop(cuda, spec):
+    # The graph loop (one launch, one readback) against the host loop on
+    # the card and the plain loop on the CPU: the same chunks and stop.
+    from qba_tpu_torch.obs.timers import PhaseTimers
+    from qba_tpu_torch.ops.sweep_loop import BODY_NODE_TYPES
+    from qba_tpu_torch.sweep import run_sweep
+
+    cfg = qba_tpu_torch.QBAConfig(n_parties=5, size_l=16, n_dishonest=2,
+                                  seed=3)
+    runs = {}
+    for device, dispatch in (("cuda", "host"), ("cuda", "device"),
+                             ("cpu", "device")):
+        timers = PhaseTimers()
+        runs[device, dispatch] = res = run_sweep(
+            cfg, 5, 64, target=spec, dispatch=dispatch, device=device,
+            timers=timers)
+        if (device, dispatch) == ("cuda", "device"):
+            (span,) = [s for s in timers.spans.spans
+                       if s.name == "device_loop"]
+            assert span.args["dispatch"] == "graph"
+            assert span.args["readbacks"] == 1
+            assert set(span.args["body_nodes"]) <= set(
+                BODY_NODE_TYPES.values())
+        assert res.n_trials > 0
+    want = runs["cpu", "device"]
+    for res in runs.values():
+        assert res.chunks == want.chunks
+        assert res.stop.to_json() == want.stop.to_json()

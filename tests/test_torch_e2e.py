@@ -214,6 +214,14 @@ for engine in ("auto", "xla", "pallas", "pallas_fused", "pallas_tiled",
             mesh)
         assert (sharded.trials.vi == res.trials.vi).all(), (engine, comms)
         assert (sharded.trials.decisions == res.trials.decisions).all()
+from qba_tpu_torch.sweep import run_sweep
+sweep = run_sweep(cfg, 2, 8, device="cpu")
+assert [c.chunk for c in sweep.chunks] == [0, 1]
+for dispatch in ("host", "device"):
+    targeted = run_sweep(cfg, 2, 8, target="ci_width<=0.01",
+                         dispatch=dispatch, device="cpu")
+    assert targeted.chunks == sweep.chunks, dispatch
+    assert targeted.stop.reason == "budget_exhausted"
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "flax", "qba_tpu")]
 assert not bad, bad
