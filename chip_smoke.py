@@ -142,7 +142,8 @@ Phases, each reported on its own line:
 10. ``sweep_path``: the precision-targeted sweep, ``run_sweep(cfg,
    12, 1000, target=...)`` at 33p/L64/d10 and 11p/L64/d3 (seed 3), a
    decide target at each width that stops inside the budget and one at
-   33p that spends it: the host loop (one chunk a dispatch, one readback
+   33p that spends it, and at 33p on ``qsim_path="stabilizer"`` (the gen
+   entry; budget 4): the host loop (one chunk a dispatch, one readback
    a chunk) and the graph loop (``dispatch="device"``: one launch of a
    CUDA graph whose WHILE node runs the captured chunk, keys to
    ``sweep_stop``, and one readback), equal chunk for chunk and in their
@@ -153,6 +154,32 @@ Phases, each reported on its own line:
    over the executed chunks, the graph's warm-up, capture and
    instantiate ms and its body's node types; then ``sweep_stop`` on a
    33p chunk against its plain version, timed, with its bound.
+11. ``serve_path``: the serving worker (``qba_tpu_torch.serve``).  The
+   host path: a ``QBAServer(chunk_trials=64, depth=2)`` fed through
+   ``serve_jsonl`` in process with four 1000-trial requests, 33p/L64/d10
+   targeted (``decide vs 0.58 +-0.02``) and untargeted, 11p/L64/d3 with
+   ``return_decisions`` and 33p on ``qsim_path="stabilizer"``, after one
+   warm-up pass of the same stream; one keyed megakernel (or gen entry)
+   launch a chunk, asserted; every result equal to a direct
+   ``run_trials`` of its config and keys, trial for trial (decisions
+   where returned); per request its latency, chunks, rounds/s, the
+   medians of ``serve.dispatch`` and ``serve.readback`` and the
+   megakernel's CUDA-event ms a chunk; peak memory; the same stream's
+   wall at depth 1; a probe of whether a dispatch reads the card (one
+   dispatch under ``torch.cuda.set_sync_debug_mode("error")``, the key
+   upload timed behind a sleep kernel, which it must not wait out, and
+   a whole dispatch behind a sleep beside the time to enqueue 256 to
+   4096 tiny kernels behind one: the launch queue's depth).  The device
+   path: the
+   targeted request on a ``dispatch="device"`` server, one graph launch
+   and one readback (the loop's chunk gathers the request's key rows by
+   the carry's index, and ``sweep_stop`` stores the success bits), equal
+   to its host-path twin in stop, trials, success and interval, with the
+   graph's warm-up, capture, instantiate and loop ms and node types.
+   ``sweep_stop`` storing the bits of a 64-trial chunk against its plain
+   version, timed.  Then ``python -m qba_tpu_torch serve --transport
+   file-queue`` in a process of its own answers one 11p x 1000 request
+   dropped in its inbox (equal to a direct run): its wall and engine.
 
 Any failure exits non-zero.  The line before the last is the kernel
 table as JSON, the one before it the card; the last line is
@@ -1992,40 +2019,49 @@ def ring_timing(leaves, reps=5):
     return out
 
 
-# The sweep path: (config, target, budget chunks) at chunk_trials=1000,
-# seed 3.  The two decide targets stop inside the budget (11p below 0.3
-# at chunk 7, 33p below 0.56 at chunk 6, on these keys); the third runs
-# the whole budget without deciding.
+# The sweep path: (config, target, budget chunks, outcome, config
+# changes) at chunk_trials=1000, seed 3.  The two decide targets stop
+# inside the budget (11p below 0.3 at chunk 7, 33p below 0.56 at chunk 6,
+# on these keys); the third runs the whole budget without deciding.  The
+# fourth holds the graph loop on the stabilizer path (the gen entry), its
+# outcome not pinned: its lists differ from the factorized path's.
 TARGETED_TRIALS = 1000
 TARGETED_SEED = 3
-TARGETED_CASES = [("33p/L64/d10", "decide vs 0.56 +-0.01", 12, "decided"),
-                  ("11p/L64/d3", "decide vs 0.3 +-0.005", 12, "decided"),
+TARGETED_CASES = [("33p/L64/d10", "decide vs 0.56 +-0.01", 12, "decided",
+                   {}),
+                  ("11p/L64/d3", "decide vs 0.3 +-0.005", 12, "decided", {}),
                   ("33p/L64/d10", "decide vs 0.55 +-0.01", 12,
-                   "budget_exhausted")]
+                   "budget_exhausted", {}),
+                  ("33p/L64/d10", "decide vs 0.56 +-0.01", 4, None,
+                   dict(qsim_path="stabilizer"))]
 
 
-def sweep_stop_cost(n_trials):
+def sweep_stop_cost(n_trials, bits=False):
     """``sweep_stop``'s bytes (the chunk's success and overflow bytes, two
-    table words, the carry's two words read and four written) and
-    operations (an add and an or a trial)."""
-    return 2 * n_trials + 8 + 8 + 16, 2 * n_trials
+    table words, the carry's two words read and four written, and with
+    ``bits`` the chunk's success bits stored) and operations (an add and
+    an or a trial)."""
+    return 2 * n_trials + 8 + 8 + 16 + (n_trials if bits else 0), \
+        2 * n_trials
 
 
 def sweep_stop_vs_plain(dev, inputs=None):
     """The ``sweep_stop`` kernel against its plain version, bit-exact on
-    the carry, at every index of a four-chunk budget and past it: on
-    seeded random chunks of 1, 37, 1000 and 5000 trials, or on
-    ``inputs`` (a chunk's ``(success, overflow)``).  Returns the largest
-    difference."""
+    the carry (counts, flags, index, total and the loop's flag, which the
+    graph loop's handle takes) and, with ``succ_out``, on the stored
+    success bits (rows of earlier chunks left as they were), at every
+    index of a four-chunk budget and past it: on seeded random chunks of
+    1, 37, 64, 1000 and 5000 trials, or on ``inputs`` (a chunk's
+    ``(success, overflow)``).  Returns the largest difference."""
     import torch
 
     from qba_tpu_torch.ops import sweep_loop as sl
 
+    g = torch.Generator().manual_seed(0)
     if inputs is None:
-        g = torch.Generator().manual_seed(0)
         cases = [(torch.rand(t, generator=g) < 0.4,
                   torch.rand(t, generator=g) < 2.0 / t)
-                 for t in (1, 37, 1000, 5000)]
+                 for t in (1, 37, 64, 1000, 5000)]
     else:
         cases = [tuple(x.cpu() for x in inputs)]
     err = 0
@@ -2040,19 +2076,30 @@ def sweep_stop_vs_plain(dev, inputs=None):
             got = sl.sweep_stop(success.to(dev), overflow.to(dev),
                                 lo.to(dev), hi.to(dev), carry.to(dev))
             err = max(err, max_err(got.cpu(), want))
+            bits = torch.rand(4 * t, generator=g) < 0.5
+            want_bits = bits.clone()
+            want = sl.sweep_stop_reference(success, overflow, lo, hi,
+                                           carry.clone(), want_bits)
+            got_bits = bits.to(dev)
+            got = sl.sweep_stop(success.to(dev), overflow.to(dev),
+                                lo.to(dev), hi.to(dev), carry.to(dev),
+                                succ_out=got_bits)
+            err = max(err, max_err(got.cpu(), want),
+                      max_err(got_bits.cpu(), want_bits))
     if err:
         raise AssertionError(f"sweep_stop != plain version: {err}")
     return err
 
 
-def sweep_stop_timing(cfg, dev, reps=100):
+def sweep_stop_timing(cfg, dev, reps=100, bits=False):
     """``sweep_stop`` on one full chunk of ``cfg`` (its keys' success and
-    overflow flags) against its plain version: bit-exact on the carry,
-    ms per launch (CUDA events around each of ``reps`` launches, each a
-    real step of a long budget; and ``queued_ms``, ``reps`` launches
-    queued behind a sleep between one pair of events, which leaves out
-    the host's launch rate), the plain version's ms (host clock,
-    fenced), its bound and a library call's ms (none computes this
+    overflow flags; with ``bits`` also storing them, as the serving
+    worker's loop does) against its plain version: bit-exact on the
+    carry, ms per launch (CUDA events around each of ``reps`` launches,
+    each a real step of a long budget; and ``queued_ms``, ``reps``
+    launches queued behind a sleep between one pair of events, which
+    leaves out the host's launch rate), the plain version's ms (host
+    clock, fenced), its bound and a library call's ms (none computes this
     step)."""
     import torch
 
@@ -2068,29 +2115,35 @@ def sweep_stop_timing(cfg, dev, reps=100):
     hi = torch.full((n + 1,), cfg.trials * n + 1, dtype=torch.int32,
                     device=dev)
     carry = sl.new_carry(n, 0, 0, dev)
-    sl.sweep_stop(success, overflow, lo, hi, carry)  # warm-up
-    ms = kernel_ms(sl.sweep_stop, reps, success, overflow, lo, hi, carry)
+    succ = (torch.zeros(n * cfg.trials, dtype=torch.bool, device=dev)
+            if bits else None)
+    args = (success, overflow, lo, hi, carry, 0, succ)
+    sl.sweep_stop(*args)  # warm-up
+    ms = kernel_ms(sl.sweep_stop, reps, *args)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
     torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
-        sl.sweep_stop(success, overflow, lo, hi, carry)
+        sl.sweep_stop(*args)
     end.record()
     torch.cuda.synchronize()
     queued_ms = start.elapsed_time(end) / reps
     if sl.read_carry(carry)[0] != n:
         raise AssertionError("sweep_stop timing: the steps did not advance")
+    if bits and not torch.equal(succ.view(n, -1), success.expand(n, -1)):
+        raise AssertionError("sweep_stop timing: the stored bits differ")
     plain = sl.new_carry(n, 0, 0, dev)
+    plain_succ = None if succ is None else torch.zeros_like(succ)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(10):
-        sl.sweep_stop_reference(success, overflow, lo, hi, plain)
+        sl.sweep_stop_reference(success, overflow, lo, hi, plain, plain_succ)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) / 10 * 1e3
-    b = bound(*sweep_stop_cost(cfg.trials))
+    b = bound(*sweep_stop_cost(cfg.trials, bits))
     return dict(max_abs_err=err, ms=ms, queued_ms=queued_ms,
                 plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
-                library_ms=None, trials=cfg.trials)
+                library_ms=None, trials=cfg.trials, bits=bits)
 
 
 def sweep_run(cfg, n_chunks, target, dispatch):
@@ -2129,9 +2182,12 @@ def sweep_path(configs):
     from qba_tpu_torch.sweep import run_sweep
 
     runs, launches = [], dict.fromkeys(COUNTED, 0)
-    for name, spec, budget, outcome in TARGETED_CASES:
+    for name, spec, budget, outcome, kw in TARGETED_CASES:
         cfg = dataclasses.replace(configs[name], trials=TARGETED_TRIALS,
-                                  seed=TARGETED_SEED)
+                                  seed=TARGETED_SEED, **kw)
+        mega = ("trial_megakernel_gen_keyed" if cfg.qsim_path == "stabilizer"
+                else "trial_megakernel_keyed")
+        name = " ".join([name, *kw.values()])
         t0 = time.perf_counter()
         fixed = run_sweep(cfg, budget, cfg.trials)
         fixed_s = time.perf_counter() - t0
@@ -2147,14 +2203,14 @@ def sweep_path(configs):
             done = len(r.chunks)
             rounds = done * cfg.trials * cfg.n_rounds
             if dispatch == "host":
-                want = {"trial_megakernel_keyed": done}
+                want = {mega: done}
                 rec = dict(readbacks=timers.count("readback"), wall_s=wall,
                            rounds_per_s=rounds / wall,
                            ms_per_chunk=wall / done * 1e3)
             else:
                 # Eager warm-up and capture: one launch of each kernel;
                 # the graph then runs them once a chunk.
-                want = {"trial_megakernel_keyed": 2, "sweep_stop": 2}
+                want = {mega: 2, "sweep_stop": 2}
                 (span,) = [sp for sp in timers.spans.spans
                            if sp.name == "device_loop"]
                 info = span.args
@@ -2184,7 +2240,8 @@ def sweep_path(configs):
                 and host.stop.to_json() == dev.stop.to_json()):
             raise AssertionError(f"sweep {name} {spec}: host loop, graph "
                                  "loop and fixed-budget prefix disagree")
-        if not (host.stop.reason.startswith(outcome)
+        if outcome is not None and not (
+                host.stop.reason.startswith(outcome)
                 and (len(host.chunks) < budget) == (outcome == "decided")):
             raise AssertionError(f"sweep {name} {spec}: stopped with "
                                  f"{host.stop.reason} after "
@@ -2195,6 +2252,314 @@ def sweep_path(configs):
         log("sweep_path", **out)
         runs.append(out)
     return runs, launches
+
+
+# The serving worker on the card: 1000-trial requests at full width in
+# chunks of 64 trials, two in flight, fed as JSONL.  The targeted request
+# comes first in its bucket, so its chunks start at chunk boundaries as
+# the device path's do; its target decides inside the budget (below 0.58
+# at chunk 7 on these keys; the sweep's 0.56 +-0.01 needs about 6000
+# trials at 33p, PERF.md §5), so the device path's budget,
+# floor-quantized to 15 chunks, does not cut it short of the host path's.
+SERVE_CHUNK = 64
+SERVE_TRIALS = 1000
+SERVE_TARGET = "decide vs 0.58 +-0.02"
+SERVE_REQUESTS = [
+    ("33p-target", "33p/L64/d10", dict(seed=3, target=SERVE_TARGET)),
+    ("33p", "33p/L64/d10", dict(seed=4)),
+    ("11p-decisions", "11p/L64/d3", dict(seed=5, return_decisions=True)),
+    ("33p-stabilizer", "33p/L64/d10", dict(seed=6, qsim_path="stabilizer")),
+]
+
+
+def median(xs):
+    xs = sorted(xs)
+    return (xs[(len(xs) - 1) // 2] + xs[len(xs) // 2]) / 2 if xs else None
+
+
+def serve_run(server, stream, events):
+    """``stream`` through ``serve_jsonl`` on ``server``, every kernel's
+    launch count set to 0 just before and read just after (with CUDA
+    events when ``events``).  Returns the results by id, the wall
+    seconds, the counts, the events and the peak memory."""
+    import io
+
+    import torch
+
+    from qba_tpu_torch.serve import serve_jsonl
+
+    fns = wrappers()
+    for fn in fns.values():
+        fn.launches, fn.events = 0, [] if events else None
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    serve_jsonl(server, io.StringIO(stream), out)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in fns.items()}
+    evs = {k: fn.events for k, fn in fns.items() if fn.events}
+    for fn in fns.values():
+        fn.events = None
+    results = {r["request_id"]: r
+               for r in map(json.loads, out.getvalue().splitlines())}
+    return results, wall, counts, evs, torch.cuda.max_memory_allocated()
+
+
+def behind_sleep(fn, cycles=400_000_000):
+    """Host ms of ``fn()`` issued while the card runs a sleep kernel of
+    ``cycles`` clocks, and the sleep's ms (CUDA events).  A call that
+    reads the card waits out the sleep."""
+    import torch
+
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+    ev[0].record()
+    torch.cuda._sleep(cycles)
+    ev[1].record()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return host_ms, ev[0].elapsed_time(ev[1])
+
+
+def dispatch_probe(req, dev):
+    """Does a chunk's dispatch read the card?  One 64-trial dispatch runs
+    under ``torch.cuda.set_sync_debug_mode("error")`` (any synchronizing
+    op torch knows raises); the pinned key upload is timed behind a sleep
+    kernel (it must not wait); and the whole dispatch behind a sleep is
+    set beside the time to enqueue N one-element adds behind a sleep: a
+    dispatch of more launches than CUDA's launch queue holds waits
+    for the card to drain it, which is not a read."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from qba_tpu_torch.serve import QBAServer
+
+    probe = QBAServer(chunk_trials=SERVE_CHUNK, depth=SERVE_CHUNK)
+    probe.submit(dataclasses.replace(req, request_id="probe",
+                                     trials=4 * SERVE_CHUNK))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        probe._dispatch(probe.scheduler.next_chunk())
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    host = torch.from_numpy(np.zeros((SERVE_CHUNK, 2), dtype=np.int64))
+    upload_ms, sleep_ms = behind_sleep(
+        lambda: host.pin_memory().to(dev, non_blocking=True))
+    dispatch_ms, _ = behind_sleep(
+        lambda: probe._dispatch(probe.scheduler.next_chunk()))
+    x = torch.zeros(1, device=dev)
+    queue = {}
+    for n in (256, 512, 1024, 2048, 4096):
+        queue[n] = behind_sleep(lambda: [x.add_(1) for _ in range(n)])[0]
+    probe.flush()
+    out = dict(sync_debug_mode="error: nothing raised",
+               sleep_ms=sleep_ms, upload_behind_sleep_ms=upload_ms,
+               dispatch_behind_sleep_ms=dispatch_ms,
+               adds_behind_sleep_ms=queue)
+    if upload_ms > 0.5 * sleep_ms:
+        raise AssertionError(f"serve: the key upload waited for the card: "
+                             f"{out}")
+    return out
+
+
+def serve_path(configs, dev):
+    """The serving worker (``qba_tpu_torch.serve``) on the card: the host
+    path (``SERVE_REQUESTS`` through ``serve_jsonl`` on a
+    ``QBAServer(chunk_trials=64, depth=2)``, after one warm-up pass of
+    the same stream), every result held against a direct ``run_trials``
+    of its config and keys, trial for trial; the device path (the
+    targeted request on a ``dispatch="device"`` server: one graph launch,
+    one readback) against its host-path twin; ``sweep_stop`` storing the
+    success bits on a 64-trial chunk against its plain version, timed;
+    and ``python -m qba_tpu_torch serve`` answering one request from a
+    file queue.  Returns ``(report, launches)``."""
+    import ast
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from qba_tpu_torch.backends.torch_backend import run_trials
+    from qba_tpu_torch.obs.telemetry import spans_from_jsonl
+    from qba_tpu_torch.serve import EvalRequest, QBAServer, serve_batch
+    from qba_tpu_torch.serve.queuefs import drop_request, queue_paths
+    from qba_tpu_torch.serve.request import EvalResult
+
+    def request(rid, name, kw):
+        c = configs[name]
+        return EvalRequest(request_id=rid, n_parties=c.n_parties,
+                           size_l=c.size_l, n_dishonest=c.n_dishonest,
+                           trials=SERVE_TRIALS, **kw)
+
+    reqs = [request(*r) for r in SERVE_REQUESTS]
+    stream = "".join(json.dumps(r.to_json()) + "\n" for r in reqs)
+    launches = dict.fromkeys(COUNTED, 0)
+    t0 = time.perf_counter()
+    serve_run(QBAServer(chunk_trials=SERVE_CHUNK, depth=2), stream, False)
+    warmup_s = time.perf_counter() - t0
+    server = QBAServer(chunk_trials=SERVE_CHUNK, depth=2)
+    results, wall, counts, events, peak = serve_run(server, stream, True)
+    spans = server.recorder.spans
+    dispatches = [sp for sp in spans if sp.name == "serve.dispatch"]
+    readbacks = [sp for sp in spans if sp.name == "serve.readback"]
+    # The chunks' megakernel launches, in dispatch order: the gen entry
+    # on the stabilizer bucket, the keyed entry on the others.
+    # A bucket's label leaves out its list generation: key chunks by both.
+    key = [(sp.args["bucket"], sp.args["qsim_path"]) for sp in dispatches]
+    is_gen = [q == "stabilizer" for _, q in key]
+    want = {"trial_megakernel_keyed": is_gen.count(False),
+            "trial_megakernel_gen_keyed": is_gen.count(True)}
+    want = {k: want.get(k, 0) for k in COUNTED}
+    if counts != want:
+        raise AssertionError(f"serve host path: launches {counts}, "
+                             f"expected {want}")
+    for k, n in counts.items():
+        launches[k] += n
+    kernel_ms = {True: iter(events.get("trial_megakernel_gen_keyed", [])),
+                 False: iter(events.get("trial_megakernel_keyed", []))}
+    chunk_ms, dispatch_ms, readback_ms = {}, {}, {}
+    for k, gen, d in zip(key, is_gen, dispatches):
+        a, b = next(kernel_ms[gen])
+        chunk_ms.setdefault(k, []).append(a.elapsed_time(b))
+        dispatch_ms.setdefault(k, []).append(d.dur * 1e3)
+    # A chunk's readback span carries its chunk index.
+    bucket_of = {d.args["chunk"]: k for k, d in zip(key, dispatches)}
+    for r in readbacks:
+        readback_ms.setdefault(bucket_of[r.args["chunk"]], []).append(
+            r.dur * 1e3)
+    host = []
+    for req in reqs:
+        res = results[req.request_id]
+        cfg = req.config()
+        if res["error"] is not None:
+            raise AssertionError(f"serve {req.request_id}: {res['error']}")
+        direct = run_trials(cfg).trials
+        n = res["n_trials"]
+        if res["success"] != direct.success[:n].tolist():
+            raise AssertionError(f"serve {req.request_id}: success != a "
+                                 "direct run_trials of its keys")
+        if req.return_decisions and (
+                res["decisions"] != direct.decisions.tolist()):
+            raise AssertionError(f"serve {req.request_id}: decisions != a "
+                                 "direct run_trials of its keys")
+        k = (res["bucket"], cfg.qsim_path)
+        host.append(dict(
+            request=req.request_id, config=res["bucket"],
+            qsim_path=cfg.qsim_path, trials=n, target=req.target,
+            stop=res["stop"] and res["stop"]["reason"],
+            latency_s=res["latency_s"], chunks=res["chunks"],
+            rounds_per_s=n * cfg.n_rounds / res["latency_s"],
+            engine=res["engine"], dispatch_ms=median(dispatch_ms[k]),
+            readback_ms=median(readback_ms[k]),
+            kernel_ms_per_chunk=median(chunk_ms[k])))
+    tgt = results["33p-target"]
+    if not (tgt["stop"]["reason"].startswith("decided")
+            and tgt["n_trials"] < SERVE_TRIALS):
+        raise AssertionError(f"serve 33p-target: no early decision: "
+                             f"{tgt['stop']}")
+    # Depth 1 (no chunk in flight during a readback) on the same stream.
+    _r, wall_d1, _c, _e, _p = serve_run(
+        QBAServer(chunk_trials=SERVE_CHUNK, depth=1), stream, False)
+    sync_probe = dispatch_probe(reqs[1], dev)
+    log("serve_path", path="host", wall_s=wall, depth1_wall_s=wall_d1,
+        warmup_s=warmup_s, chunk_trials=SERVE_CHUNK, depth=2,
+        chunks=len(dispatches),
+        launches={k: v for k, v in counts.items() if v},
+        peak_mem_bytes=peak, sync_probe=sync_probe, requests=host)
+
+    # The device path: the targeted request as one graph launch.
+    tel = os.path.abspath(os.path.join("build", "serve_telemetry"))
+    shutil.rmtree(tel, ignore_errors=True)
+    dserver = QBAServer(chunk_trials=SERVE_CHUNK, dispatch="device",
+                        telemetry_dir=tel)
+    fns = wrappers()
+    for fn in fns.values():
+        fn.launches, fn.events = 0, None
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    [dres] = serve_batch(dserver, [reqs[0]])
+    torch.cuda.synchronize()
+    dwall = time.perf_counter() - t0
+    dcounts = {k: fn.launches for k, fn in fns.items()}
+    dwant = {k: 0 for k in COUNTED}
+    dwant.update(trial_megakernel_keyed=2, sweep_stop=2)
+    if dcounts != dwant:
+        raise AssertionError(f"serve device path: launches {dcounts}, "
+                             f"expected {dwant}")
+    for k, n in dcounts.items():
+        launches[k] += n
+    (loop,) = [sp for sp in spans_from_jsonl(os.path.join(
+        tel, reqs[0].request_id, "spans.jsonl"))
+        if sp.name == "serve.device_loop"]
+    info = loop.args
+    # The span file keeps scalars; the node counts come back as text.
+    info["body_nodes"] = ast.literal_eval(str(info["body_nodes"]))
+    if info["dispatch"] != "graph" or info["readbacks"] != 1:
+        raise AssertionError(f"serve device path: not one graph launch: "
+                             f"{info}")
+    if dres.error is not None or any(
+            getattr(dres, f) != tgt[f]
+            for f in ("stop", "n_trials", "success", "ci")):
+        raise AssertionError("serve device path != its host-path twin: "
+                             f"{dres.stop} against {tgt['stop']}")
+    cfg = reqs[0].config()
+    device = dict(
+        request=reqs[0].request_id, trials=dres.n_trials,
+        stop=dres.stop["reason"], chunks=dres.chunks,
+        budget_chunks=SERVE_TRIALS // SERVE_CHUNK, wall_s=dwall,
+        latency_s=dres.latency_s, readbacks=info["readbacks"],
+        rounds_per_s=dres.n_trials * cfg.n_rounds / dres.latency_s,
+        loop_rounds_per_s=dres.n_trials * cfg.n_rounds / info["loop_s"],
+        warmup_ms=info["warmup_s"] * 1e3, capture_ms=info["capture_s"] * 1e3,
+        instantiate_ms=info["instantiate_s"] * 1e3,
+        loop_ms=info["loop_s"] * 1e3, body_nodes=info["body_nodes"],
+        launches={k: v for k, v in dcounts.items() if v},
+        peak_mem_bytes=torch.cuda.max_memory_allocated(), engine=dres.engine)
+    log("serve_path", path="device", **device)
+
+    stop_row = sweep_stop_timing(dataclasses.replace(
+        cfg, trials=SERVE_CHUNK), dev, bits=True)
+    log("sweep_stop_timing", config=f"33p/L64/d10 chunk of {SERVE_CHUNK}, "
+        "storing the success bits", tolerance=0, **stop_row)
+
+    # The worker's entry point from a file queue, in a process of its own.
+    # Absolute: the worker runs from the checkout's root.
+    qdir = os.path.abspath(os.path.join("build", "serve_queue"))
+    shutil.rmtree(qdir, ignore_errors=True)
+    inbox = queue_paths(qdir)["inbox"]
+    os.makedirs(inbox)
+    creq = request("cli-11p", "11p/L64/d3", dict(seed=7))
+    drop_request(inbox, creq.to_json(), creq.request_id)
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "qba_tpu_torch", "serve", "--transport",
+         "file-queue", "--queue-dir", qdir, "--max-requests", "1"],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    cli_wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"serve CLI exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    with open(os.path.join(queue_paths(qdir)["outbox"],
+                           "cli-11p.json")) as f:
+        cres = EvalResult.from_json(json.load(f))
+    direct = run_trials(creq.config()).trials
+    if cres.error is not None or cres.success != direct.success.tolist():
+        raise AssertionError(f"serve CLI result != a direct run_trials: "
+                             f"{cres.error}")
+    cli = dict(wall_s=cli_wall, latency_s=cres.latency_s, engine=cres.engine,
+               chunks=cres.chunks, trials=cres.n_trials)
+    log("serve_path", path="cli file-queue", **cli)
+    return dict(host=host, host_wall_s=wall, depth1_wall_s=wall_d1,
+                host_peak_mem_bytes=peak, sync_probe=sync_probe,
+                device=device, sweep_stop_bits=stop_row, cli=cli), launches
 
 
 def wrappers():
@@ -2382,7 +2747,8 @@ def main(argv):
     stop_err = sweep_stop_vs_plain(dev)
     report["sweep_stop_vs_plain"] = dict(max_abs_err=stop_err)
     log("sweep_stop_vs_plain", tolerance=0, max_abs_err=stop_err,
-        trials=[1, 37, 1000, 5000], starts=[0, 1, 2, 3, 4], budget=4)
+        trials=[1, 37, 64, 1000, 5000], starts=[0, 1, 2, 3, 4], budget=4,
+        succ_out=[False, True])
     if quick:
         print(card)
         print(json.dumps({"ok": True, "device": {
@@ -2865,6 +3231,13 @@ def main(argv):
     log("sweep_stop_timing", config="33p/L64/d10 chunk", tolerance=0,
         **stop_row)
 
+    # The serving worker: the host path, the device path, the CLI.
+    t0 = time.perf_counter()
+    report["serve_path"], serve_launches = serve_path(dict(main_cfgs), dev)
+    report["serve_path"]["phase_s"] = time.perf_counter() - t0
+    for k, n in serve_launches.items():
+        launches[k] += n
+
     big = runs[-1]
     kernels = []
     for k in ("fused_round", "trial_megakernel", "tiled_verdict",
@@ -2988,12 +3361,18 @@ def main(argv):
     kernels.append({
         "name": "sweep_stop", "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches["sweep_stop"],
-        "max_abs_err": max(stop_row["max_abs_err"], stop_err),
+        "max_abs_err": max(stop_row["max_abs_err"], stop_err,
+                           report["serve_path"]["sweep_stop_bits"]
+                           ["max_abs_err"]),
         **{k: stop_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms", "queued_ms")},
+        "bits_64": {k: report["serve_path"]["sweep_stop_bits"][k]
+                    for k in ("ms", "queued_ms", "plain_ms", "bound_ms")},
         "config": (f"33p/L64/d10 chunk of {stop_row['trials']} trials; "
-                   "launched eagerly once and captured once a graph loop, "
-                   "then run once a chunk by the graph"),
+                   "launched eagerly once and captured once a graph loop "
+                   "(the sweep's and the serving worker's), then run once "
+                   "a chunk by the graph; bits_64: storing the success "
+                   "bits of a 64-trial chunk"),
     })
     report["kernels"] = kernels
     report["device"] = card

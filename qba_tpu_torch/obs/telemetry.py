@@ -1,6 +1,6 @@
 """Hierarchical run telemetry: nested spans with device-time attribution —
-the ``Span``/``SpanRecorder`` part of :mod:`qba_tpu.obs.telemetry`,
-copied.
+the ``Span``/``SpanRecorder`` part of :mod:`qba_tpu.obs.telemetry`
+and its latency summary, copied.
 
 * A span is a named wall-clock interval with a parent (spans nest via a
   context-manager stack), free-form key/value args, and a ``fenced``
@@ -24,7 +24,7 @@ import dataclasses
 import json
 import os
 import time
-from typing import Any, Callable, Iterator
+from typing import Any, Callable, Iterable, Iterator
 
 
 def _jsonable(v: Any) -> Any:
@@ -177,3 +177,83 @@ class SpanRecorder:
         with open(path, "w") as f:
             json.dump(self.chrome_trace(), f, indent=1)
         return path
+
+
+def spans_from_jsonl(path: str) -> list[Span]:
+    """Reconstruct :class:`Span` objects from a ``write_jsonl`` export.
+
+    The inverse of :meth:`SpanRecorder.to_jsonl`, for cross-process
+    aggregation: each worker exports its own span file per request, and
+    a summary merges them back into one list (``index``/``parent`` stay
+    file-local — only name/dur/args matter to aggregation).  Malformed
+    lines are skipped: a worker killed mid-write must not take the
+    summary down with it."""
+    spans: list[Span] = []
+    try:
+        with open(path) as f:
+            lines = f.readlines()
+    except OSError:
+        return spans
+    for line in lines:
+        line = line.strip()
+        if not line:
+            continue
+        try:
+            d = json.loads(line)
+            spans.append(
+                Span(
+                    name=d["name"],
+                    index=int(d.get("index", len(spans))),
+                    parent=d.get("parent"),
+                    depth=int(d.get("depth", 0)),
+                    t0=float(d.get("t0_s", 0.0)),
+                    dur=(
+                        float(d["dur_s"]) if d.get("dur_s") is not None else None
+                    ),
+                    cat=d.get("cat", "host"),
+                    fenced=bool(d.get("fenced", False)),
+                    args=dict(d.get("args") or {}),
+                )
+            )
+        except (json.JSONDecodeError, KeyError, TypeError, ValueError):
+            continue
+    return spans
+
+
+def _percentile(sorted_vals: list[float], q: float) -> float:
+    """Linear-interpolation percentile over pre-sorted values (numpy's
+    default method, reimplemented so latency summaries stay free of
+    numpy and torch like the rest of this module)."""
+    if not sorted_vals:
+        raise ValueError("percentile of empty sequence")
+    pos = (len(sorted_vals) - 1) * (q / 100.0)
+    lo = int(pos)
+    hi = min(lo + 1, len(sorted_vals) - 1)
+    frac = pos - lo
+    return sorted_vals[lo] * (1.0 - frac) + sorted_vals[hi] * frac
+
+
+def span_latency_summary(
+    spans: Iterable[Span],
+    name: str,
+    percentiles: tuple[float, ...] = (50.0, 99.0),
+) -> dict[str, Any]:
+    """Latency distribution of every closed span named ``name``.
+
+    This is the serving worker's p50/p99 instrument: the span tree
+    already records one ``request`` span per served request, so the
+    latency report is *derived from* the telemetry rather than a second
+    bookkeeping path.  Keys: ``count``, ``mean_s``, ``min_s``,
+    ``max_s``, and one ``p<q>_s`` per requested percentile."""
+    durs = sorted(
+        sp.dur for sp in spans if sp.name == name and sp.dur is not None
+    )
+    summary: dict[str, Any] = {"name": name, "count": len(durs)}
+    if not durs:
+        return summary
+    summary["mean_s"] = sum(durs) / len(durs)
+    summary["min_s"] = durs[0]
+    summary["max_s"] = durs[-1]
+    for q in percentiles:
+        summary[f"p{q:g}_s"] = _percentile(durs, q)
+    return summary

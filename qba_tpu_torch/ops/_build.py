@@ -40,6 +40,11 @@ _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
+class KernelBuildError(RuntimeError):
+    """A kernel library that could not be built (no ``nvcc``, or a
+    compiler error)."""
+
+
 def build_dir() -> Path:
     """Where built libraries go: ``build/qba_tpu_torch`` at the root of
     the checkout the package sits in (a directory holding
@@ -61,7 +66,8 @@ def nvcc() -> str:
             return str(Path(root) / "bin" / "nvcc")
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+        raise KernelBuildError(
+            "nvcc not found: the CUDA kernels cannot be built")
     return found
 
 
@@ -125,7 +131,8 @@ def build(names=KERNELS) -> dict[str, str]:
         os.replace(tmp, lib)
         (lib.parent / f"{name}.log").write_text(out)
     if failed:
-        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+        raise KernelBuildError("CUDA kernel build failed: "
+                               + "\n".join(failed))
     return logs
 
 
@@ -137,3 +144,8 @@ def load_library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_target(name)[1]))
         _loaded[name] = lib
     return lib
+
+
+def loaded_libraries() -> list[str]:
+    """The kernels whose libraries this process has loaded."""
+    return sorted(_loaded)

@@ -25,6 +25,16 @@ from qba_tpu_torch.config import QBAConfig
 KERNEL_MAX_W = 64
 
 
+class KernelUnsupported(NotImplementedError):
+    """A kernel that refuses a config's shapes before any launch."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel launch the runtime refused (its configuration or
+    resources) while the CUDA context stayed usable.  A fault that ruins
+    the context raises PyTorch's own CUDA error instead."""
+
+
 def check(name, x, dtype, shape, device):
     """Raise unless ``x`` has exactly this dtype and shape, is contiguous
     and lies on ``device``."""
@@ -47,10 +57,10 @@ def masks_fit(cfg: QBAConfig) -> bool:
 
 
 def check_kernel_shapes(cfg: QBAConfig, kernel: str) -> None:
-    """Raise ``NotImplementedError`` where the 64-bit masks cannot hold
-    ``cfg``'s values or receivers."""
+    """Raise :class:`KernelUnsupported` where the 64-bit masks cannot
+    hold ``cfg``'s values or receivers."""
     if not masks_fit(cfg):
-        raise NotImplementedError(
+        raise KernelUnsupported(
             f"the {kernel} kernel keeps values and receivers as 64-bit "
             f"masks (w <= {KERNEL_MAX_W}, n_lieutenants <= {KERNEL_MAX_W}); "
             f"w={cfg.w}, n_lieutenants={cfg.n_lieutenants} is not supported "
@@ -73,15 +83,21 @@ def dispatch(name: str, tensors) -> bool:
 def timed_launch(wrapper, fn, args, stream):
     """Launch ``fn(*args, stream)`` on ``stream``, count it on
     ``wrapper.launches`` and, when ``wrapper.events`` is a list, record
-    its ``(start, end)`` CUDA events."""
+    its ``(start, end)`` CUDA events.  A launch that fails raises
+    :class:`KernelLaunchError` where the context survives it (outside a
+    graph capture, a synchronize tells), else the CUDA error itself."""
     events = wrapper.events
     if events is not None:
         start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
         start.record(stream)
     rc = fn(*args, stream.cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{wrapper.__name__} kernel launch failed: "
-                           f"CUDA error {rc}")
+        if not torch.cuda.is_current_stream_capturing():
+            # A sticky fault (an earlier kernel's illegal address) raises
+            # here, and every later CUDA call would raise it too.
+            torch.cuda.synchronize(stream.device)
+        raise KernelLaunchError(f"{wrapper.__name__} kernel launch failed: "
+                                f"CUDA error {rc}")
     wrapper.launches += 1
     if events is not None:
         end.record(stream)

@@ -42,6 +42,7 @@ from qba_tpu_torch.adversary.model import (
 )
 from qba_tpu_torch.config import QBAConfig
 from qba_tpu_torch.ops._launch import (
+    KernelUnsupported,
     check,
     dispatch,
     kernel_fn,
@@ -68,7 +69,7 @@ def keyed_inputs(cfg: QBAConfig, k_rounds, ctx: AdversaryCtx | None):
     contiguous, on ``k_rounds``' device.  Returns ``(k_rounds,
     collude_target or None, v_sent or None)``."""
     if cfg.w > 256:
-        raise NotImplementedError(
+        raise KernelUnsupported(
             f"the draws are uint8: w <= 256; got w={cfg.w}")
     dev, n = k_rounds.device, k_rounds.shape[0]
     check("k_rounds", k_rounds, torch.int64, (n, 2), dev)

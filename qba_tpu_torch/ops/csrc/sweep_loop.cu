@@ -12,9 +12,14 @@
 // totals: the loop goes on while
 //     i < n_chunks && !(k_total <= lo[i] || k_total >= hi[i]).
 // It stores that flag in the carry and, inside the graph, sets the WHILE
-// node's handle to it (cudaGraphSetConditional).  Bound: it reads
-// 2 x chunk_trials bytes and a few words, a microsecond of HBM time far
-// under one launch's latency, so it is one block and no more.
+// node's handle to it (cudaGraphSetConditional).  In the serving worker's
+// loop (qba_tpu/sweep.py::_device_loop_prefix, whose carry keeps every
+// trial's success bit) it also copies the chunk's success bits to
+// succ_out[i * chunk_trials, (i + 1) * chunk_trials), so the loop's body
+// stays the megakernel and this one kernel.  Bound: it reads 2 x
+// chunk_trials bytes (writes chunk_trials more with succ_out) and a few
+// words, a microsecond of HBM time far under one launch's latency, so it
+// is one block and no more.
 //
 // The carry, int32: [0] the chunk index i, [1] k_total, [2] the flag,
 // [3, 3 + n) each chunk's successes, [3 + n, 3 + 2n) its overflow flag.
@@ -36,12 +41,22 @@ constexpr int kWarps = kThreads / 32;
 __global__ void __launch_bounds__(kThreads) sweep_stop_kernel(
     const uint8_t* __restrict__ success, const uint8_t* __restrict__ overflow,
     const int32_t* __restrict__ lo, const int32_t* __restrict__ hi,
-    int32_t* __restrict__ carry, int n_trials, int n_chunks,
-    cudaGraphConditionalHandle handle) {
+    int32_t* __restrict__ carry, uint8_t* __restrict__ succ_out,
+    int n_trials, int n_chunks, cudaGraphConditionalHandle handle) {
+  // Every thread reads the index before thread 0 advances it (after the
+  // barrier below).
+  const int i = carry[0];
+  const bool in_budget = i >= 0 && i < n_chunks;
+  uint8_t* const bits =
+      succ_out != nullptr && in_budget
+          ? succ_out + static_cast<int64_t>(i) * n_trials
+          : nullptr;
   int k = 0, o = 0;
   for (int t = threadIdx.x; t < n_trials; t += kThreads) {
-    k += success[t] != 0;
+    const uint8_t s = success[t] != 0;
+    k += s;
     o |= overflow[t] != 0;
+    if (bits != nullptr) bits[t] = s;
   }
   for (int s = 16; s > 0; s >>= 1) {
     k += __shfl_xor_sync(0xffffffffu, k, s);
@@ -59,9 +74,8 @@ __global__ void __launch_bounds__(kThreads) sweep_stop_kernel(
     ks[0] += ks[w];
     os[0] |= os[w];
   }
-  const int i = carry[0];
   unsigned int go = 0;
-  if (i >= 0 && i < n_chunks) {
+  if (in_budget) {
     const int k_total = carry[1] + ks[0];
     carry[3 + i] = ks[0];
     carry[3 + n_chunks + i] = os[0];
@@ -84,18 +98,18 @@ extern "C" const char* qba_sweep_error_string(int e) {
 }
 
 // One chunk's stop step on `stream`; `handle` 0 sets no graph handle
-// (a launch outside the loop's graph).
+// (a launch outside the loop's graph), a null `succ_out` stores no bits.
 extern "C" int qba_sweep_stop(const void* success, const void* overflow,
                               const void* lo, const void* hi, void* carry,
-                              int n_trials, int n_chunks,
+                              void* succ_out, int n_trials, int n_chunks,
                               unsigned long long handle, void* stream) {
   if (n_trials < 0 || n_chunks < 1) return int(cudaErrorInvalidValue);
   sweep_stop_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(success),
       static_cast<const uint8_t*>(overflow),
       static_cast<const int32_t*>(lo), static_cast<const int32_t*>(hi),
-      static_cast<int32_t*>(carry), n_trials, n_chunks,
-      static_cast<cudaGraphConditionalHandle>(handle));
+      static_cast<int32_t*>(carry), static_cast<uint8_t*>(succ_out),
+      n_trials, n_chunks, static_cast<cudaGraphConditionalHandle>(handle));
   return int(cudaGetLastError());
 }
 

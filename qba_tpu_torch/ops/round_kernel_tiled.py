@@ -55,6 +55,7 @@ from qba_tpu_torch.config import QBAConfig
 from qba_tpu_torch.core.types import SENTINEL
 from qba_tpu_torch.ops._launch import (
     KERNEL_MAX_W,
+    KernelUnsupported,
     check,
     check_kernel_shapes,
     clock_breakdown,
@@ -134,11 +135,12 @@ def verdict_ranks(cfg: QBAConfig, n_local: int) -> int:
 
 def check_round_smem(cfg: QBAConfig, n_local: int, kernel: str,
                      slots: bool = True) -> None:
-    """Raise ``NotImplementedError`` where a per-round kernel's block
-    would need more shared memory than the card gives one block."""
+    """Raise :class:`~qba_tpu_torch.ops._launch.KernelUnsupported` where a
+    per-round kernel's block would need more shared memory than the card
+    gives one block."""
     need = round_smem_bytes(cfg, n_local, slots=slots)
     if need > SMEM_LIMIT:
-        raise NotImplementedError(
+        raise KernelUnsupported(
             f"the {kernel} kernel needs {need} B of shared memory a block "
             f"at size_l={cfg.size_l}, more than the {SMEM_LIMIT} B the card "
             "gives one block")

@@ -1,25 +1,32 @@
-"""The device-resident stop loop of a precision-targeted sweep —
+"""The device-resident stop loop of a precision-targeted run —
 counterpart of the JAX package's ``lax.while_loop``
-(``qba_tpu/sweep.py::_device_while`` and ``_device_loop_foldin``); not a
-``pallas_call`` site.
+(``qba_tpu/sweep.py::_device_while``, ``_device_loop_foldin`` and
+``_device_loop_prefix``); not a ``pallas_call`` site.
 
-A pass of the loop is one chunk (:func:`chunk_step`): chunk ``i``'s keys
-``split(fold_in(key(seed), i), chunk_trials)`` derived on the device from
-the index in the carry, :func:`~qba_tpu_torch.rounds.engine.run_trial` on
-them, then :func:`sweep_stop`, which folds the chunk's counts into the
-carry and evaluates the stop tables
-(:func:`~qba_tpu_torch.stats.device.stop_tables`).  The carry is one
-int32 tensor ``[3 + 2 * n_chunks]``: the chunk index ``i``, the running
-success count ``k_total``, the loop's flag, each chunk's successes and
-each chunk's overflow flag (:func:`new_carry`, :func:`read_carry`).
+A pass of the loop is one chunk.  The sweep's step (:func:`chunk_step`)
+derives chunk ``i``'s keys ``split(fold_in(key(seed), i), chunk_trials)``
+on the device from the index in the carry; the serving worker's step
+(:func:`prefix_step`) gathers rows ``[i * chunk_trials, (i + 1) *
+chunk_trials)`` of the request's own key table.  Both run
+:func:`~qba_tpu_torch.rounds.engine.run_trial` on the keys, then
+:func:`sweep_stop`, which folds the chunk's counts into the carry and
+evaluates the stop tables (:func:`~qba_tpu_torch.stats.device.stop_tables`)
+and, in the worker's loop, stores the chunk's per-trial success bits.
+The carry is one int32 tensor ``[3 + 2 * n_chunks]``: the chunk index
+``i``, the running success count ``k_total``, the loop's flag, each
+chunk's successes and each chunk's overflow flag (:func:`new_carry`,
+:func:`read_carry`).
 
-:func:`device_loop` runs the loop.  On CUDA it is one CUDA graph
-(:func:`graph_loop`): the chunk is captured once (``torch.cuda.graph``,
-after an eager warm-up pass), a WHILE conditional node takes a copy of it
-as its body, and the kernel sets the node's handle
-(``csrc/sweep_loop.cu``), so the whole budget is one graph launch and one
-readback of the carry.  A graph that cannot be built raises with the
-CUDA error: there is no fallback to a host loop.  On the CPU it is
+:func:`device_loop` and :func:`device_loop_prefix` run the loop through
+:func:`run_loop`.  On CUDA it is one CUDA graph (:func:`graph_loop`):
+the chunk is captured once (``torch.cuda.graph``, after an eager warm-up
+pass), a WHILE conditional node takes a copy of it as its body, and the
+kernel sets the node's handle (``csrc/sweep_loop.cu``), so the whole
+budget is one graph launch and one readback.  A graph that cannot be
+built raises :class:`GraphLoopError` with the CUDA error: there is no
+fallback to a host loop.  A config whose chunk cannot be captured is
+refused at intake, before any capture starts: ``run_sweep`` and the
+serving worker call :func:`check_capturable`.  On the CPU the loop is
 :func:`plain_loop`, the same passes in Python, reading the flag back
 after each.
 
@@ -37,7 +44,7 @@ import torch
 
 from qba_tpu_torch import random as jr
 from qba_tpu_torch.config import QBAConfig
-from qba_tpu_torch.ops._launch import check, dispatch, timed_launch
+from qba_tpu_torch.ops._launch import check, dispatch, masks_fit, timed_launch
 
 # The carry's head: the chunk index, the running success count, the flag.
 HEAD = 3
@@ -77,13 +84,16 @@ def loop_condition(i: int, k_total: int, lo, hi) -> bool:
     return i < len(lo) - 1 and not (k_total <= lo[i] or k_total >= hi[i])
 
 
-def sweep_stop_reference(success, overflow, lo, hi, carry):
-    """:func:`sweep_stop` in plain PyTorch: updates ``carry`` in place
-    and returns it."""
+def sweep_stop_reference(success, overflow, lo, hi, carry, succ_out=None):
+    """:func:`sweep_stop` in plain PyTorch: updates ``carry`` (and
+    ``succ_out``) in place and returns ``carry``."""
     n = (carry.shape[0] - HEAD) // 2
     i = int(carry[0])
     go = False
     if 0 <= i < n:
+        if succ_out is not None:
+            t = success.shape[0]
+            succ_out[i * t:(i + 1) * t] = success
         k = int(success.sum())
         k_total = int(carry[1]) + k
         carry[HEAD + i] = k
@@ -95,12 +105,16 @@ def sweep_stop_reference(success, overflow, lo, hi, carry):
     return carry
 
 
-def sweep_stop(success, overflow, lo, hi, carry, handle: int = 0):
+def sweep_stop(success, overflow, lo, hi, carry, handle: int = 0,
+               succ_out=None):
     """One chunk's stop step: adds the chunk's successes (``success``
     bool ``[T]``) and its overflow (any of ``overflow`` bool ``[T]``) to
     the carry at its index ``i``, advances ``i`` and ``k_total``, and
     stores the loop's flag (:func:`loop_condition` at the new totals over
-    ``lo``/``hi`` int32 ``[n_chunks + 1]``).  Returns ``carry``.
+    ``lo``/``hi`` int32 ``[n_chunks + 1]``).  With ``succ_out`` (bool
+    ``[n_chunks * T]``) it also stores ``success`` at rows ``[i * T, (i +
+    1) * T)`` of it.  Nothing is stored past the budget.  Returns
+    ``carry``.
 
     CPU tensors run :func:`sweep_stop_reference`.  CUDA tensors launch
     the kernel once; it takes exactly these dtypes and shapes, contiguous,
@@ -110,7 +124,8 @@ def sweep_stop(success, overflow, lo, hi, carry, handle: int = 0):
     if not dispatch("sweep_stop", (carry,)):
         if handle:
             raise ValueError("the graph's handle is set only on CUDA")
-        return sweep_stop_reference(success, overflow, lo, hi, carry)
+        return sweep_stop_reference(success, overflow, lo, hi, carry,
+                                    succ_out)
     dev, n_trials = carry.device, success.shape[0]
     n_chunks = (carry.shape[0] - HEAD) // 2
     check("success", success, torch.bool, (n_trials,), dev)
@@ -118,11 +133,15 @@ def sweep_stop(success, overflow, lo, hi, carry, handle: int = 0):
     check("lo", lo, torch.int32, (n_chunks + 1,), dev)
     check("hi", hi, torch.int32, (n_chunks + 1,), dev)
     check("carry", carry, torch.int32, (HEAD + 2 * n_chunks,), dev)
+    if succ_out is not None:
+        check("succ_out", succ_out, torch.bool, (n_chunks * n_trials,), dev)
     fn = _lib().qba_sweep_stop
     timed_launch(sweep_stop, fn,
                  [success.data_ptr(), overflow.data_ptr(), lo.data_ptr(),
-                  hi.data_ptr(), carry.data_ptr(), n_trials, n_chunks,
-                  handle], torch.cuda.current_stream(dev))
+                  hi.data_ptr(), carry.data_ptr(),
+                  None if succ_out is None else succ_out.data_ptr(),
+                  n_trials, n_chunks, handle],
+                 torch.cuda.current_stream(dev))
     return carry
 
 
@@ -130,6 +149,49 @@ sweep_stop.launches = 0
 # When set to a list, each launch appends its (start, end) CUDA events
 # (leave it None while a graph is captured).
 sweep_stop.events = None
+
+
+class GraphLoopError(RuntimeError):
+    """A loop graph that the CUDA runtime would not build or launch."""
+
+
+class GraphLoopUnsupported(ValueError):
+    """A config whose chunk the graph loop cannot capture (ROADMAP A14);
+    raised before any capture starts."""
+
+
+def check_capturable(cfg: QBAConfig) -> None:
+    """Raise :class:`GraphLoopUnsupported` unless the graph loop can
+    capture ``cfg``'s chunk on CUDA: on the trial megakernel (``auto``
+    within the 64-bit masks, or ``pallas_mega``, no counters) over
+    factorized or stabilizer lists.  The dense paths pick each
+    position's circuit family by boolean-mask indexing, which reads the
+    mask's count on the host; the per-round engines' chunks have not been
+    checked for host reads."""
+    if cfg.qsim_path in ("dense", "dense_pallas"):
+        reason = (f"qsim_path={cfg.qsim_path!r} selects each position's "
+                  "circuit family by boolean-mask indexing, a host read")
+    elif (cfg.round_engine not in ("auto", "pallas_mega")
+            or cfg.collect_counters or not masks_fit(cfg)):
+        reason = (f"round_engine={cfg.round_engine!r}, collect_counters="
+                  f"{cfg.collect_counters}, {cfg.n_parties} parties: only "
+                  "the trial megakernel's chunk is known capturable")
+    else:
+        return
+    raise GraphLoopUnsupported(
+        "the device loop cannot capture this config's chunk as a CUDA "
+        f"graph ({reason}; ROADMAP A14): use dispatch='host'")
+
+
+def prepare_capture(cfg: QBAConfig, device) -> None:
+    """Build ``cfg``'s per-config tables on ``device`` now, before the
+    warm-up and the capture (a captured chunk cannot copy from the
+    host).  The loops' callers have refused an uncapturable ``cfg`` at
+    intake (:func:`check_capturable`)."""
+    if cfg.qsim_path == "stabilizer":
+        from qba_tpu_torch.qsim.protocol_circuits import prepare_tables
+
+        prepare_tables(cfg, device)
 
 
 def chunk_step(cfg: QBAConfig, chunk_trials: int, root, carry, lo, hi,
@@ -147,6 +209,23 @@ def chunk_step(cfg: QBAConfig, chunk_trials: int, root, carry, lo, hi,
                carry, handle)
 
 
+def prefix_step(cfg: QBAConfig, chunk_trials: int, keys, offsets, carry,
+                lo, hi, succ, handle: int = 0):
+    """One pass of the serving worker's loop: rows ``carry[0] *
+    chunk_trials + offsets`` (``offsets`` is ``arange(chunk_trials)``,
+    made before the capture) of the request's key table ``keys`` (int64
+    ``[n_chunks * chunk_trials, 2]``),
+    :func:`~qba_tpu_torch.rounds.engine.run_trial` on them and
+    :func:`sweep_stop`, which also stores the chunk's success bits in
+    ``succ``.  Nothing reads the host, so a CUDA graph can capture it."""
+    from qba_tpu_torch.rounds.engine import run_trial
+
+    rows = carry[0].to(torch.int64) * chunk_trials + offsets
+    res = run_trial(cfg, keys.index_select(0, rows))
+    sweep_stop(res.success.contiguous(), res.overflow.contiguous(), lo, hi,
+               carry, handle, succ_out=succ)
+
+
 def plain_loop(step, carry, go: bool) -> int:
     """The loop in Python: ``step(0)`` while the flag holds, reading the
     flag back after each pass.  Returns the readbacks."""
@@ -158,15 +237,17 @@ def plain_loop(step, carry, go: bool) -> int:
     return readbacks
 
 
-def graph_loop(step, carry, go: bool) -> tuple[torch.Tensor, dict]:
+def graph_loop(step, carry, go: bool,
+               readback: torch.Tensor) -> tuple[torch.Tensor, dict]:
     """The loop as one CUDA graph: ``step(0)`` once eagerly (the warm-up
     graph capture needs), the carry restored, ``step(handle)`` captured
     into a ``torch.cuda.CUDAGraph``, a WHILE node on ``handle`` (default
     ``go``) with a copy of the capture as its body, one launch on the
-    current stream and one readback of the carry.  Raises, with the
-    CUDA error, where the graph cannot be built or run.  Returns the
-    carry as read back (on the CPU) and the loop's record: the timings
-    (s), the body's node types and the readbacks."""
+    current stream and one readback of ``readback`` (the carry, or a
+    buffer that holds it).  Raises :class:`GraphLoopError`, with the
+    CUDA error, where the graph cannot be built or launched.  Returns the
+    readback (on the CPU) and the loop's record: the timings (s), the
+    body's node types and the readbacks."""
     lib = _lib()
     dev = carry.device
     start = carry.clone()
@@ -194,7 +275,7 @@ def graph_loop(step, carry, go: bool) -> tuple[torch.Tensor, dict]:
         bad = {t: n for t, n in enumerate(types)
                if n and t not in BODY_NODE_TYPES}
         if bad:
-            raise RuntimeError(
+            raise GraphLoopError(
                 "the captured chunk holds nodes a WHILE body may not: "
                 f"{ {NODE_TYPE_NAMES.get(t, t): n for t, n in bad.items()} }")
         t0 = time.perf_counter()
@@ -208,7 +289,7 @@ def graph_loop(step, carry, go: bool) -> tuple[torch.Tensor, dict]:
         _check(lib.qba_sweep_graph_launch(exec_, stream.cuda_stream),
                "launch")
         # The one readback: the loop's whole carry, after the graph ends.
-        host = carry.cpu()
+        host = readback.cpu()
         loop_s = time.perf_counter() - t0
     finally:
         lib.qba_sweep_graph_destroy(graph, exec_)
@@ -218,41 +299,88 @@ def graph_loop(step, carry, go: bool) -> tuple[torch.Tensor, dict]:
                       body_nodes=nodes, readbacks=1)
 
 
+def run_loop(cfg: QBAConfig, step, carry, go: bool, readback):
+    """Run ``step`` while the carry's flag holds (``go`` before the
+    first pass): the graph loop on CUDA, after ``cfg``'s per-config
+    tables are built (:func:`prepare_capture`), the plain loop on the
+    CPU.  Returns ``readback`` on the CPU and the loop's record
+    (``dispatch``: ``"graph"`` or ``"plain"``, readbacks, and the graph's
+    timings)."""
+    if carry.device.type != "cuda":
+        return readback, dict(dispatch="plain",
+                              readbacks=plain_loop(step, carry, go))
+    info = dict(dispatch="graph", readbacks=0)
+    if not go:
+        return readback.cpu(), info
+    prepare_capture(cfg, carry.device)
+    host, record = graph_loop(step, carry, go, readback)
+    info.update(record)
+    return host, info
+
+
+def _tables(lo, hi, dev):
+    """The stop tables ``lo``/``hi`` (numpy) as int32 tensors on ``dev``."""
+    return [torch.from_numpy(np.ascontiguousarray(t, np.int32)).to(dev)
+            for t in (lo, hi)]
+
+
 def device_loop(cfg: QBAConfig, n_chunks: int, chunk_trials: int,
                 start: int, k_start: int, lo, hi, device):
     """Chunks ``start, start + 1, ...`` of the budget ``n_chunks`` until
     the stop tables ``lo``/``hi`` (int32 numpy ``[n_chunks + 1]``) fire,
-    ``k_start`` successes already counted: the graph loop on CUDA, the
-    plain loop on the CPU.  Returns ``(i_stop, counts, overflow, info)``
-    with the per-chunk counts and flags ``[n_chunks]`` (entries before
-    ``start`` and from ``i_stop`` on are 0) and ``info`` the loop's
-    record (``dispatch``: ``"graph"`` or ``"plain"``, readbacks, and the
-    graph's timings)."""
+    ``k_start`` successes already counted, through :func:`run_loop`.
+    Returns ``(i_stop, counts, overflow, info)`` with the per-chunk
+    counts and flags ``[n_chunks]`` (entries before ``start`` and from
+    ``i_stop`` on are 0) and ``info`` the loop's record."""
     dev = torch.device(device)
     carry = new_carry(n_chunks, start, k_start, dev)
-    lo_d = torch.from_numpy(np.ascontiguousarray(lo, np.int32)).to(dev)
-    hi_d = torch.from_numpy(np.ascontiguousarray(hi, np.int32)).to(dev)
+    lo_d, hi_d = _tables(lo, hi, dev)
     root = jr.key(cfg.seed, dev)
-    go = loop_condition(start, k_start, lo.tolist(), hi.tolist())
 
     def step(handle):
         chunk_step(cfg, chunk_trials, root, carry, lo_d, hi_d, handle)
 
-    if dev.type == "cuda":
-        info = dict(dispatch="graph", readbacks=0)
-        if go:
-            carry, record = graph_loop(step, carry, go)
-            info.update(record)
-    else:
-        info = dict(dispatch="plain", readbacks=plain_loop(step, carry, go))
-    i_stop, _k, counts, ovf = read_carry(carry)
+    host, info = run_loop(cfg, step, carry,
+                          loop_condition(start, k_start, lo, hi), carry)
+    i_stop, _k, counts, ovf = read_carry(host)
     return i_stop, counts, ovf, info
+
+
+def device_loop_prefix(cfg: QBAConfig, n_chunks: int, chunk_trials: int,
+                       keys, lo, hi, device):
+    """The serving worker's early finish: chunks ``0, 1, ...`` of the
+    budget ``n_chunks``, chunk ``i`` on rows ``[i * chunk_trials, (i + 1)
+    * chunk_trials)`` of ``keys`` (int64 ``[n_chunks * chunk_trials, 2]``,
+    contiguous, on ``device``), until the stop tables ``lo``/``hi`` fire,
+    through :func:`run_loop` (on CUDA one launch and one readback of the
+    carry and the success bits, which share one buffer).  Returns
+    ``(i_stop, counts, overflow, success, info)``: per-chunk counts and
+    flags ``[n_chunks]`` and each trial's success bit (numpy bool
+    ``[n_chunks * chunk_trials]``), 0 from chunk ``i_stop`` on, as
+    :func:`device_loop` returns them."""
+    dev = torch.device(device)
+    n_carry = 4 * (HEAD + 2 * n_chunks)
+    buf = torch.zeros(n_carry + n_chunks * chunk_trials, dtype=torch.uint8,
+                      device=dev)
+    carry, succ = buf[:n_carry].view(torch.int32), buf[n_carry:].view(
+        torch.bool)
+    lo_d, hi_d = _tables(lo, hi, dev)
+    offsets = torch.arange(chunk_trials, device=dev)
+
+    def step(handle):
+        prefix_step(cfg, chunk_trials, keys, offsets, carry, lo_d, hi_d,
+                    succ, handle)
+
+    host, info = run_loop(cfg, step, carry, loop_condition(0, 0, lo, hi),
+                          buf)
+    i_stop, _k, counts, ovf = read_carry(host[:n_carry].view(torch.int32))
+    return i_stop, counts, ovf, host[n_carry:].view(torch.bool).numpy(), info
 
 
 def _check(rc: int, what: str) -> None:
     if rc != 0:
         name = _lib().qba_sweep_error_string(rc).decode()
-        raise RuntimeError(f"sweep loop graph: {what} failed: CUDA error "
+        raise GraphLoopError(f"sweep loop graph: {what} failed: CUDA error "
                            f"{rc} ({name})")
 
 
@@ -262,7 +390,7 @@ def _lib():
     lib = load_library("sweep_loop")
     if lib.qba_sweep_stop.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.qba_sweep_stop.argtypes = [p, p, p, p, p, i, i,
+        lib.qba_sweep_stop.argtypes = [p, p, p, p, p, p, i, i,
                                        ctypes.c_ulonglong, p]
         lib.qba_sweep_graph_create.argtypes = [
             ctypes.c_uint, ctypes.POINTER(p),

@@ -155,16 +155,58 @@ def _programs(n_parties: int, n_qubits: int):
             compile_symplectic(total, tuple(circ_nq.ops), 0))
 
 
+def _on(device) -> torch.device:
+    """``device`` as its tensors name it (``cuda`` with its index), the
+    CPU for None: the key of the per-device table caches."""
+    dev = torch.device("cpu" if device is None else device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+@functools.lru_cache(maxsize=None)
+def _gen_tables(n_parties: int, n_qubits: int, device: torch.device):
+    from qba_tpu_torch.gf2.bitops import pack_bits
+
+    prog_q, prog_nq = _programs(n_parties, n_qubits)
+    return tuple(pack_bits(torch.from_numpy(m)).to(device)
+                 for m in (prog_q.x, prog_q.z, prog_nq.x, prog_nq.z))
+
+
 def stabilizer_gen_tables(cfg: QBAConfig, device=None):
     """Static packed tableaux of both circuit families: ``(x0w_q, z0w_q,
     x0w_nq, z0w_nq)``, each int32 ``[2 * total_qubits, W]`` holding the
     JAX package's uint32 words (:mod:`qba_tpu_torch.gf2.bitops`), on
-    ``device`` (default: the CPU)."""
-    from qba_tpu_torch.gf2.bitops import pack_bits
+    ``device`` (default: the CPU), built once per config and device and
+    shared by every caller (read them, never write them)."""
+    return _gen_tables(cfg.n_parties, cfg.n_qubits, _on(device))
 
-    prog_q, prog_nq = _programs(cfg.n_parties, cfg.n_qubits)
-    return tuple(pack_bits(torch.from_numpy(m)).to(device)
-                 for m in (prog_q.x, prog_q.z, prog_nq.x, prog_nq.z))
+
+@functools.lru_cache(maxsize=None)
+def _operand_tables(n_parties: int, n_qubits: int, device: torch.device):
+    """The int32 matrices :func:`stabilizer_gen_operands` reads, on
+    ``device``: each family's initial phases ``r`` and tableau
+    transposes, and the Q-correlated family's parameter map ``L^T``."""
+    prog_q, prog_nq = _programs(n_parties, n_qubits)
+
+    def t(m):
+        return torch.from_numpy(np.ascontiguousarray(m)).to(device,
+                                                            torch.int32)
+
+    return dict(r_q=t(prog_q.r), l_q=t(prog_q.l.T), r_nq=t(prog_nq.r),
+                z_q=t(prog_q.z.T), x_q=t(prog_q.x.T), z_nq=t(prog_nq.z.T),
+                x_nq=t(prog_nq.x.T))
+
+
+def prepare_tables(cfg: QBAConfig, device=None) -> None:
+    """Build every per-config table of the stabilizer path on ``device``
+    now: the tableaux, the operands' matrices and the sweep kernel's
+    affine maps.  Each is built on the host and copied to the device
+    once; a CUDA graph that captures a chunk cannot copy from host
+    memory, so the graph loop calls this before its capture."""
+    stabilizer_gen_tables(cfg, device)
+    _operand_tables(cfg.n_parties, cfg.n_qubits, _on(device))
+    stabilizer_sweep_tables(cfg, device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -189,8 +231,7 @@ def stabilizer_sweep_tables(cfg: QBAConfig, device=None) -> torch.Tensor:
     Q-correlated): int32 ``[2, wt, n_pad]`` on ``device`` (default: the
     CPU), built once per config and device (the host's symbolic sweeps,
     PERF.md)."""
-    return _sweep_tables(cfg.n_parties, cfg.n_qubits,
-                         torch.device("cpu" if device is None else device))
+    return _sweep_tables(cfg.n_parties, cfg.n_qubits, _on(device))
 
 
 def stabilizer_gen_operands(cfg: QBAConfig, keys: torch.Tensor):
@@ -213,27 +254,21 @@ def stabilizer_gen_operands(cfg: QBAConfig, keys: torch.Tensor):
     from qba_tpu_torch.gf2.linalg import gf2_matmul
     from qba_tpu_torch.gf2.symplectic import _draw_coins
 
-    dev = keys.device
     total, s = cfg.total_qubits, cfg.size_l
-    prog_q, prog_nq = _programs(cfg.n_parties, cfg.n_qubits)
-
-    def t(m):
-        return torch.from_numpy(np.ascontiguousarray(m)).to(dev, torch.int32)
+    m = _operand_tables(cfg.n_parties, cfg.n_qubits, keys.device)
 
     qcorr, _perms, params, meas_keys = dense_draws(cfg, keys)
     coins = _draw_coins(meas_keys, total)                # [T, S, total]
-    r_q = t(prog_q.r) ^ gf2_matmul(params & 1, t(prog_q.l.T))
-    r_nq = t(prog_nq.r).expand(keys.shape[0], s, 2 * total)
+    r_q = m["r_q"] ^ gf2_matmul(params & 1, m["l_q"])
+    r_nq = m["r_nq"].expand(keys.shape[0], s, 2 * total)
     noisy = cfg.p_depolarize > 0.0 or cfg.p_measure_flip > 0.0
     if noisy:
         from qba_tpu_torch.qsim.noise import noise_draws
 
         bx, bz, mflip = noise_draws(meas_keys, total, cfg.p_depolarize,
                                     cfg.p_measure_flip)
-        r_q = r_q ^ gf2_matmul(bx, t(prog_q.z.T)) ^ gf2_matmul(
-            bz, t(prog_q.x.T))
-        r_nq = r_nq ^ gf2_matmul(bx, t(prog_nq.z.T)) ^ gf2_matmul(
-            bz, t(prog_nq.x.T))
+        r_q = r_q ^ gf2_matmul(bx, m["z_q"]) ^ gf2_matmul(bz, m["x_q"])
+        r_nq = r_nq ^ gf2_matmul(bx, m["z_nq"]) ^ gf2_matmul(bz, m["x_nq"])
     else:
         mflip = torch.zeros_like(coins)
 

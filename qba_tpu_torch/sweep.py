@@ -840,7 +840,10 @@ def run_sweep(
     the whole budget, :mod:`qba_tpu_torch.ops.sweep_loop`; on the CPU
     the same passes in Python).  Both execute identical chunks and stop
     at the same chunk boundary.  ``"device"`` needs ``target`` and runs
-    the built-in engine batch: it takes no custom ``runner``.
+    the built-in engine batch: it takes no custom ``runner``, and a
+    config whose chunk the graph cannot capture (the dense paths, the
+    per-round engines: ROADMAP A14) raises
+    :class:`~qba_tpu_torch.ops.sweep_loop.GraphLoopUnsupported`.
     """
     if dispatch not in ("host", "device"):
         raise ValueError(
@@ -859,6 +862,11 @@ def run_sweep(
                 "dispatch='device' cannot take a custom runner: the "
                 "loop body is the captured run_trial chunk"
             )
+        from qba_tpu_torch.ops.sweep_loop import check_capturable
+
+        # On every device, so a config the card's graph cannot capture is
+        # refused alike on the CPU (GraphLoopUnsupported, a ValueError).
+        check_capturable(cfg)
     dev = resolve_device(device)
     if chunk_trials is None:
         chunk_trials = cfg.trials

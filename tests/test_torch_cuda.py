@@ -1160,6 +1160,64 @@ def test_sweep_stop_equals_plain(cuda, n_trials):
                             lo.to(cuda), hi.to(cuda), carry.to(cuda))
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), want), (start, got, want)
+        # With succ_out: the chunk's bits at rows start * T, the other
+        # rows as they were, the carry the same.
+        bits = torch.rand(n * n_trials, generator=g) < 0.5
+        want_bits = bits.clone()
+        sl.sweep_stop_reference(success, overflow, lo, hi, carry.clone(),
+                                want_bits)
+        got_bits = bits.to(cuda)
+        got = sl.sweep_stop(success.to(cuda), overflow.to(cuda),
+                            lo.to(cuda), hi.to(cuda), carry.to(cuda),
+                            succ_out=got_bits)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), start
+        assert torch.equal(got_bits.cpu(), want_bits), start
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qsim_path", ["factorized", "stabilizer"])
+def test_prefix_graph_loop_equals_plain_loop(cuda, qsim_path):
+    # The serving worker's loop over pre-assigned keys as one graph on
+    # the card against the plain loop on the CPU: the same stop, counts
+    # and success bits.
+    from qba_tpu_torch.ops import sweep_loop as sl
+    from qba_tpu_torch.stats import parse_target, stop_tables
+
+    cfg = qba_tpu_torch.QBAConfig(n_parties=5, size_l=16, n_dishonest=2,
+                                  trials=64, qsim_path=qsim_path)
+    keys = jr.split(jr.key(3, "cpu"), 6 * 64)
+    lo, hi = stop_tables(parse_target("decide vs 0.9 +-0.05"), 6, 64)
+    want = sl.device_loop_prefix(cfg, 6, 64, keys, lo, hi, "cpu")
+    got = sl.device_loop_prefix(cfg, 6, 64, keys.to(cuda), lo, hi, cuda)
+    assert got[4]["dispatch"] == "graph" and got[4]["readbacks"] == 1
+    assert got[0] == want[0]
+    for a, b in zip(got[1:4], want[1:4]):
+        assert (a == b).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dispatch", ["host", "device"])
+def test_served_results_on_the_card_equal_the_cpu(cuda, dispatch):
+    from qba_tpu_torch.serve import EvalRequest, QBAServer, serve_batch
+
+    reqs = [EvalRequest(request_id="t", n_parties=5, size_l=16,
+                        n_dishonest=2, trials=96, seed=4,
+                        target="decide vs 0.9 +-0.05"),
+            EvalRequest(request_id="d", n_parties=7, size_l=16,
+                        n_dishonest=2, trials=40, seed=2,
+                        return_decisions=True),
+            EvalRequest(request_id="s", n_parties=5, size_l=16,
+                        n_dishonest=2, trials=40, seed=1,
+                        qsim_path="stabilizer")]
+    runs = [{r.request_id: r.to_json() for r in serve_batch(
+        QBAServer(chunk_trials=16, dispatch=dispatch, device=d), reqs)}
+        for d in (None, "cpu")]
+    for rid in ("t", "d", "s"):
+        for f in ("success", "decisions", "n_trials", "stop", "chunks",
+                  "error"):
+            assert runs[0][rid][f] == runs[1][rid][f], (rid, f)
+    assert runs[0]["t"]["engine"] == "pallas_mega/keyed"
 
 
 @pytest.mark.cuda

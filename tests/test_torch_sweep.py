@@ -286,7 +286,8 @@ def test_sweep_stop_plain_version():
 
 class _HostData(TorchDispatchMode):
     """Records the ops a CUDA graph cannot capture: a tensor made from
-    host data (an upload) and a read of a tensor's value."""
+    host data (an upload: ``torch.tensor``, ``torch.from_numpy``) and a
+    read of a tensor's value."""
 
     BAD = {"aten.lift_fresh.default", "aten._local_scalar_dense.default",
            "aten.nonzero.default", "aten.masked_select.default",
@@ -296,31 +297,115 @@ class _HostData(TorchDispatchMode):
         super().__init__()
         self.seen = []
 
+    def __enter__(self):
+        self._from_numpy = torch.from_numpy
+
+        def from_numpy(a):
+            self.seen.append("torch.from_numpy")
+            return self._from_numpy(a)
+
+        torch.from_numpy = from_numpy
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        torch.from_numpy = self._from_numpy
+        return super().__exit__(*exc)
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if str(func) in self.BAD:
             self.seen.append(str(func))
         return func(*args, **(kwargs or {}))
 
 
+def _zeros_mega(cfg, *args):
+    v_sent = args[-4]
+    t, n = v_sent.shape
+    return (torch.zeros((t, n, cfg.w), dtype=torch.int32),
+            torch.zeros((t, n), dtype=torch.int32),
+            torch.zeros(t, dtype=torch.bool))
+
+
 @pytest.mark.parametrize("kw", [{}, dict(strategy="adaptive"),
                                 dict(p_depolarize=0.05, delivery="racy",
-                                     p_late=0.25)])
+                                     p_late=0.25),
+                                dict(qsim_path="stabilizer"),
+                                dict(qsim_path="stabilizer", mega_gen="host",
+                                     p_depolarize=0.05, p_measure_flip=0.02)])
 def test_chunk_step_is_capturable(kw, monkeypatch):
-    # The engine the card runs (the keyed megakernel), with the two
-    # kernels stubbed: everything around them must stay on the device.
+    # The engine the card runs (the keyed megakernel; on the stabilizer
+    # path its gen entry, or the sweep and the host-gen megakernel), the
+    # kernels stubbed: after the graph loop's preparation (the
+    # per-config tables, from empty caches), the sweep's chunk and the
+    # serving worker's prefix chunk must stay on the device.
+    from qba_tpu_torch.ops import gf2_sweep as gs
+    from qba_tpu_torch.qsim import protocol_circuits as pc
+
     cfg = dataclasses.replace(CFG, round_engine="pallas_mega", **kw)
-
-    def mega(cfg, p_rows, li, v_sent, honest_c, k_rounds, ctx):
-        t, n = v_sent.shape
-        return (torch.zeros((t, n, cfg.w), dtype=torch.int32),
-                torch.zeros((t, n), dtype=torch.int32),
-                torch.zeros(t, dtype=torch.bool))
-
-    monkeypatch.setattr(tm, "trial_megakernel_keyed", mega)
-    monkeypatch.setattr(sl, "sweep_stop", lambda *a: None)
+    monkeypatch.setattr(tm, "trial_megakernel_keyed", _zeros_mega)
+    monkeypatch.setattr(tm, "trial_megakernel_gen_keyed", _zeros_mega)
+    monkeypatch.setattr(gs, "gf2_sweep", lambda n, xw, zw, r, *a, **k:
+                        torch.zeros((r.shape[0], n), dtype=torch.int32))
+    monkeypatch.setattr(sl, "sweep_stop", lambda *a, **k: None)
+    for cache in (pc._gen_tables, pc._operand_tables, pc._sweep_tables):
+        cache.cache_clear()
+    sl.prepare_capture(cfg, "cpu")
     carry = sl.new_carry(4, 1, 0, "cpu")
     lo, hi = (torch.zeros(5, dtype=torch.int32) for _ in "ab")
     root = psweep.jr.key(cfg.seed, "cpu")
+    keys = psweep.jr.split(root, 4 * CT)
+    succ = torch.zeros(4 * CT, dtype=torch.bool)
+    offsets = torch.arange(CT)
     with _HostData() as mode:
         sl.chunk_step(cfg, CT, root, carry, lo, hi)
+        sl.prefix_step(cfg, CT, keys, offsets, carry, lo, hi, succ)
     assert mode.seen == []
+
+
+@pytest.mark.parametrize("kw", [dict(qsim_path="dense"),
+                                dict(qsim_path="dense_pallas"),
+                                dict(round_engine="pallas_fused"),
+                                dict(collect_counters=True)])
+def test_graph_loop_refuses_uncapturable_chunks(kw):
+    # Refused before any capture, on every device, naming ROADMAP A14.
+    cfg = dataclasses.replace(CFG, **kw)
+    with pytest.raises(sl.GraphLoopUnsupported, match="A14"):
+        p_run_sweep(cfg, BUDGET, CT, target=TARGETS[0], dispatch="device")
+    sl.check_capturable(CFG)
+    sl.check_capturable(dataclasses.replace(CFG, qsim_path="stabilizer"))
+
+
+def test_sweep_stop_reference_stores_success_bits():
+    # With succ_out the chunk's bits land at rows carry[0] * T; the carry
+    # is what it is without; past the budget nothing is stored.
+    success = torch.tensor([True, False, True, True, False])
+    overflow = torch.zeros(5, dtype=torch.bool)
+    lo = torch.full((4,), -1, dtype=torch.int32)
+    hi = torch.full((4,), 99, dtype=torch.int32)
+    for start in range(4):
+        succ = torch.zeros(15, dtype=torch.bool)
+        plain = sl.new_carry(3, start, 2, "cpu")
+        got = sl.new_carry(3, start, 2, "cpu")
+        sl.sweep_stop_reference(success, overflow, lo, hi, plain)
+        sl.sweep_stop(success, overflow, lo, hi, got, succ_out=succ)
+        assert torch.equal(got, plain)
+        want = torch.zeros(15, dtype=torch.bool)
+        if start < 3:
+            want[start * 5:(start + 1) * 5] = success
+        assert torch.equal(succ, want), start
+
+
+def test_device_loop_prefix_equals_host_chunks():
+    # The plain prefix loop over pre-assigned keys: chunk i runs rows
+    # [i * CT, (i + 1) * CT), its bits and counts equal that batch's.
+    from qba_tpu_torch.stats import parse_target, stop_tables
+
+    keys = psweep.jr.split(psweep.jr.key(7, "cpu"), BUDGET * CT)
+    lo, hi = stop_tables(parse_target(TARGETS[0]), BUDGET, CT)
+    i_stop, counts, ovf, succ, info = sl.device_loop_prefix(
+        CFG, BUDGET, CT, keys, lo, hi, "cpu")
+    assert 0 < i_stop <= BUDGET and info["readbacks"] == i_stop
+    want = run_chunk_outcomes(CFG, keys[:i_stop * CT])[0].numpy()
+    np.testing.assert_array_equal(succ[:i_stop * CT], want)
+    assert not succ[i_stop * CT:].any()
+    assert counts[:i_stop].tolist() == [
+        int(want[c * CT:(c + 1) * CT].sum()) for c in range(i_stop)]
