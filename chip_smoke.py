@@ -9,6 +9,8 @@ Phases, each reported on its own line:
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``qba_tpu_torch/ops/csrc``, one ``nvcc``
    per source, all started together (build time, registers, spills);
+   the CUDA driver's and runtime's versions (the device surface's SWITCH
+   node needs a 12.8 driver);
 3. ``kernel_vs_plain``: the fused round kernel, the tiled verdict and
    rebuild kernels and the dense-mailbox round kernel against their
    plain PyTorch versions, bit-exact on every output, round by round, on
@@ -69,6 +71,12 @@ Phases, each reported on its own line:
    ``sweep_stop_vs_plain``: the sweep loop's stop kernel against its
    plain version, bit-exact on the carry, at every index of a four-chunk
    budget and past it, on seeded random chunks of 1 to 5000 trials;
+   ``surface_vs_plain``: the device surface's ``surface_pick`` and
+   ``surface_fold`` against their plain versions on the card's tensors,
+   on seeded random carries of 1, 4, 33 and 256 cells (up to 32 chunks of
+   1000 trials a cell, a quarter done) under two thresholds and a width
+   target: the chosen cell and its tier exact, the endpoints within
+   ``PICK_ATOL`` (equal expected), the fold bit-exact;
 5. ``engines_agree``: ``run_trials`` with the ``xla``, ``pallas``,
    ``pallas_fused``, ``pallas_tiled`` and ``pallas_mega`` engines trial
    for trial at 5p/L16/d2 x 64, and the protocol counters of the four
@@ -154,7 +162,27 @@ Phases, each reported on its own line:
    over the executed chunks, the graph's warm-up, capture and
    instantiate ms and its body's node types; then ``sweep_stop`` on a
    33p chunk against its plain version, timed, with its bound.
-11. ``serve_path``: the serving worker (``qba_tpu_torch.serve``).  The
+11. ``surface_path``: the device surface at 33p/L64/d10, chunks of 1000
+   trials, seed 3, over strategies ``reference`` and ``split`` x noise
+   0 and 0.01 x ``sizeL`` 64 (four cells).  Run A: the first target of
+   ``SURFACE_TARGETS`` under which the host surface resolves every cell
+   inside a shared budget of 48 chunks, then ``run_surface(...,
+   dispatch="device")``: one launch of a CUDA graph whose WHILE node runs
+   ``surface_pick``, a SWITCH node into the chosen cell's captured chunk
+   and ``surface_fold``, and one readback, equal to the host surface cell
+   by cell (chunks, stop, spent chunks) and each cell to its own targeted
+   ``run_sweep``.  Run B: budget 6, where the budget runs out: the
+   device's schedule and tiers beside the host allocator's, equal but at
+   near-ties (printed), a pass out of capture order (the captures share
+   one memory pool).  Launch counts asserted (each kernel once eagerly
+   and once captured, the megakernel once each a cell), ms a pass of the
+   graph against the host surface's ms a chunk, warm-up, capture (a cell)
+   and instantiate ms, node counts a branch and in all, peak memory; the
+   two kernels timed at run A's totals (CUDA events and queued behind a
+   sleep) with their plain versions' ms and bounds; and ``python -m
+   qba_tpu_torch sweep ... --dispatch device`` at 11p/L64/d3 x 1000 in a
+   process of its own, stopping below 0.3 after 7 chunks.
+12. ``serve_path``: the serving worker (``qba_tpu_torch.serve``).  The
    host path: a ``QBAServer(chunk_trials=64, depth=2)`` fed through
    ``serve_jsonl`` in process with four 1000-trial requests, 33p/L64/d10
    targeted (``decide vs 0.58 +-0.02``) and untargeted, 11p/L64/d3 with
@@ -236,6 +264,13 @@ SOURCES = {
     # lax.while_loop, not of a pallas_call site.
     "sweep_stop": ("qba_tpu_torch/ops/csrc/sweep_loop.cu",
                    "qba_tpu/sweep.py:317"),
+    # The counterparts of the device surface's loop body (its scoring over
+    # qba_tpu/stats/device.py:144, and its fold and condition), not of a
+    # pallas_call site.
+    "surface_pick": ("qba_tpu_torch/ops/csrc/surface_loop.cu",
+                     "qba_tpu/sweep.py:705"),
+    "surface_fold": ("qba_tpu_torch/ops/csrc/surface_loop.cu",
+                     "qba_tpu/sweep.py:732"),
 }
 # 32-bit operations of one threefry2x32 (csrc/draws.cuh): 20 rounds of an
 # add, a rotate and a xor, and the key injections.
@@ -1150,7 +1185,7 @@ COUNTED = ("fused_round", "tiled_verdict", "tiled_rebuild",
            "trial_megakernel_gen", "sharded_trial_megakernel", "ring_gather",
            "attack_draws", "trial_megakernel_keyed",
            "trial_megakernel_gen_keyed", "sharded_trial_megakernel_keyed",
-           "sweep_stop")
+           "sweep_stop", "surface_pick", "surface_fold")
 ROUND_KERNELS = COUNTED[:5]
 # The megakernel rows of the kernel table time the keyed entries, the ones
 # the engines launch.
@@ -2254,6 +2289,444 @@ def sweep_path(configs):
     return runs, launches
 
 
+# The device surface: the (strategy x noise x sizeL) grid of a targeted
+# run as one CUDA graph, at 33p/L64/d10, chunks of 1000 trials, seed 3.
+# Run A spends a shared budget of 48 chunks on the first target of
+# SURFACE_TARGETS under which the host surface resolves every cell; run B
+# cuts the budget to 6, where it runs out first.
+SURFACE_GRID = (("reference", "split"), [(0.0, 0.0), (0.01, 0.01)], [64])
+SURFACE_BUDGET = 48
+SURFACE_SHORT_BUDGET = 6
+SURFACE_TARGETS = ["decide vs 0.56 +-0.01", "decide vs 0.6 +-0.02",
+                   "decide vs 0.5 +-0.02"]
+# Two best scores of a step closer than this are a near-tie: float32
+# widths may order the two cells either way.
+SURFACE_NEAR_TIE = 1e-4
+# surface_pick's endpoints against its plain version on the card: both
+# take each float32 operation rounded on its own (the kernel is built with
+# -fmad=false) and the card's lgammaf, logf and log1pf, so they are
+# expected equal; the chosen cell and its tier are held exact.
+PICK_ATOL = 1e-6
+PICK_CELLS = (1, 4, 33, 256)
+# float32 operations of one bisection step of surface_pick (midpoint,
+# clip, log, log1p and the mixture's products and sums, the compare) and
+# of a cell's fixed work (three lgamma, the MLE, the edge tests, the
+# score).
+PICK_STEP_OPS = 14
+PICK_CELL_OPS = 30
+CLI_SWEEP = ["sweep", "--n-parties", "11", "--size-l", "64",
+             "--n-dishonest", "3", "--trials", "1000", "--seed", "3",
+             "--n-chunks", "12", "--target", "decide vs 0.3 +-0.005",
+             "--dispatch", "device"]
+
+
+def pick_cost(ci):
+    """``surface_pick``'s bytes (each cell's three carry words read and
+    its two endpoints written, the head and a tier word) and float
+    operations, counting the bisections this carry needs: a side whose
+    endpoint is not the interval's edge took 60 steps."""
+    n = ci.shape[1]
+    lo, hi = ci[0].cpu(), ci[1].cpu()
+    sides = int((lo != 0).sum()) + int((hi != 1).sum())
+    return n * 20 + 24, n * PICK_CELL_OPS + sides * 60 * PICK_STEP_OPS
+
+
+def fold_cost(n_trials, n_cells):
+    """``surface_fold``'s bytes (the slot's two bytes a trial, two table
+    words, each cell's done word, the head, and seven words stored) and
+    operations (an add and an or a trial, a test a cell)."""
+    return 2 * n_trials + 8 + 4 * n_cells + 20 + 28, 2 * n_trials + n_cells
+
+
+def random_surface(g, n, budget, steps, dev):
+    """A random carry of ``n`` cells: chunks up to ``budget - 1`` of 1000
+    trials, successes up to all of them, a quarter of the cells done."""
+    import torch
+
+    from qba_tpu_torch.ops import surface_loop as su
+
+    layout = su.SurfaceLayout(n, budget, steps)
+    i = torch.randint(0, budget, (n,), generator=g)
+    k = (torch.rand(n, generator=g) * i * 1000).long()
+    done = torch.rand(n, generator=g) < 0.25
+    return layout, su.new_surface_carry(layout, k, i, done, dev)
+
+
+def surface_vs_plain(dev):
+    """``surface_pick`` and ``surface_fold`` against their plain versions
+    on the card's tensors: random carries of 1, 4, 33 and 256 cells with
+    up to 32 chunks of 1000 trials a cell, a quarter done, under a decide
+    threshold of 0.3 and 0.55 and a width target (no threshold), the
+    chosen cell, its chunk index and tier exact, the endpoints within
+    ``PICK_ATOL``; the fold bit-exact on the carry from a random chosen
+    cell's chunk, and past the steps (nothing stored).  Returns the
+    largest endpoint and carry differences."""
+    import numpy as np
+    import torch
+
+    from qba_tpu_torch.ops import surface_loop as su
+
+    g = torch.Generator().manual_seed(0)
+    pick_err, fold_err = 0.0, 0
+    for n in PICK_CELLS:
+        for rep in range(3):
+            layout, carry = random_surface(g, n, 33, 4, dev)
+            carry[su.STEP] = rep
+            for thr in (0.3, 0.55, None):
+                cis = [torch.zeros((2, n), device=dev) for _ in "ab"]
+                want = su.surface_pick_reference(carry.clone(), cis[0],
+                                                 layout, 1000, 0.95, thr)
+                got = su.surface_pick(carry.clone(), cis[1], layout, 1000,
+                                      0.95, thr)
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"surface_pick != plain version at {n} cells, "
+                        f"threshold {thr}: chosen "
+                        f"{int(got[su.CHOSEN])} vs {int(want[su.CHOSEN])}")
+                pick_err = max(pick_err,
+                               float((cis[0] - cis[1]).abs().max()))
+            lo = (torch.arange(34) * 1000 * 0.3).int().to(dev)
+            hi = (torch.arange(34) * 1000 * 0.7).int().to(dev)
+            hi[0] = 1
+            open_ = np.flatnonzero(~su.read_surface_carry(layout,
+                                                          carry)["done"])
+            for step in (rep, 4):
+                c = int(open_[0]) if len(open_) else 0
+                carry[su.CHOSEN] = c
+                carry[su.I_CUR] = int(carry[layout.section("i")][c])
+                carry[su.STEP] = step
+                success = (torch.rand(1000, generator=g) < 0.5).to(dev)
+                overflow = (torch.rand(1000, generator=g) < 0.002).to(dev)
+                want = su.surface_fold_reference(success, overflow, lo, hi,
+                                                 carry.clone(), layout)
+                got = su.surface_fold(success, overflow, lo, hi,
+                                      carry.clone(), layout)
+                fold_err = max(fold_err, max_err(got, want))
+    torch.cuda.synchronize()
+    if pick_err > PICK_ATOL or fold_err:
+        raise AssertionError(f"surface kernels != plain versions: endpoints "
+                             f"{pick_err}, fold {fold_err}")
+    return pick_err, fold_err
+
+
+def queued_ms(fn, reps, *args):
+    """``fn(*args)``'s ms a launch with ``reps`` launches queued behind a
+    sleep kernel between one pair of events (the host's launch rate left
+    out)."""
+    import torch
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(reps):
+        fn(*args)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def plain_ms(fn, reps, *args):
+    """The plain version's ms a call on the card's tensors (host clock,
+    fenced)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn(*args)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def surface_timing(k, i, done, target, dev, reps=100):
+    """``surface_pick`` and ``surface_fold`` at the main path's shapes (the
+    grid's four cells at totals ``k`` of ``i`` chunks, budget 48, chunks
+    of 1000 trials): ms a launch from CUDA events, queued behind a sleep,
+    the plain version's ms, the bound and a library call's ms (none: no
+    PyTorch call sets a graph's handle)."""
+    import torch
+
+    from qba_tpu_torch.ops import surface_loop as su
+    from qba_tpu_torch.stats import parse_target
+
+    tgt = parse_target(target)
+    layout = su.SurfaceLayout(len(k), SURFACE_BUDGET, 2 * reps + 1)
+    carry = su.new_surface_carry(layout, k, i, done, dev)
+    ci = torch.zeros((2, len(k)), device=dev)
+    args = (carry, ci, layout, 1000, tgt.confidence, tgt.threshold)
+    su.surface_pick(*args)
+    rows = {}
+    b = bound(*pick_cost(ci), float_ops=True)
+    rows["surface_pick"] = dict(
+        ms=kernel_ms(su.surface_pick, reps, *args),
+        queued_ms=queued_ms(su.surface_pick, reps, *args),
+        plain_ms=plain_ms(su.surface_pick_reference, 10, carry.clone(),
+                          ci.clone(), *args[2:]),
+        bound_ms=b[0], bound_by=b[1], library_ms=None)
+    g = torch.Generator().manual_seed(1)
+    success = (torch.rand(1000, generator=g) < 0.5).to(dev)
+    overflow = torch.zeros(1000, dtype=torch.bool, device=dev)
+    lo = torch.full((SURFACE_BUDGET + 1,), -1, dtype=torch.int32, device=dev)
+    hi = torch.full((SURFACE_BUDGET + 1,), 10 ** 9, dtype=torch.int32,
+                    device=dev)
+    args = (success, overflow, lo, hi, carry, layout)
+    su.surface_fold(*args)
+    b = bound(*fold_cost(1000, len(k)))
+    rows["surface_fold"] = dict(
+        ms=kernel_ms(su.surface_fold, reps, *args),
+        queued_ms=queued_ms(su.surface_fold, reps, *args),
+        plain_ms=plain_ms(su.surface_fold_reference, 10, *args[:4],
+                          carry.clone(), layout),
+        bound_ms=b[0], bound_by=b[1], library_ms=None)
+    if su.read_surface_carry(layout, carry)["step"] != 2 * reps + 1:
+        raise AssertionError("surface_fold timing: the steps did not advance")
+    return rows
+
+
+def step_scores(trace, cells, threshold, confidence):
+    """The device's float32 score of every cell at each step of ``trace``
+    (a host allocator's), from the chunks each cell had run by then."""
+    import torch
+
+    from qba_tpu_torch.ops.surface_loop import surface_scores
+
+    counts = [[c.successes for c in cell.result.chunks] for cell in cells]
+    done_at = [len(cell.result.chunks)
+               if cell.result.stop.reason.startswith("decided") else None
+               for cell in cells]
+    ran = [0] * len(cells)
+    out = []
+    for step in trace:
+        out.append(surface_scores(
+            torch.tensor([sum(c[:r]) for c, r in zip(counts, ran)]),
+            torch.tensor(ran),
+            torch.tensor([d is not None and r >= d
+                          for d, r in zip(done_at, ran)]),
+            1000, confidence, threshold)[0].tolist())
+        ran[step["cell"]] += 1
+    return out
+
+
+def near_tie(scores):
+    """Whether the two best scores of a step (neither a bootstrap's, which
+    go in index order on both sides, nor a done cell's) lie within
+    ``SURFACE_NEAR_TIE``."""
+    a, b = sorted(scores)[:2]
+    return 2.0 <= a and b < 1e9 and b - a <= SURFACE_NEAR_TIE
+
+
+def surface_run(cfg, target, budget, dispatch):
+    """One targeted ``run_surface`` over ``SURFACE_GRID`` on the card,
+    every kernel's launch count set to 0 just before and read just after.
+    Returns the cells, the wall seconds, the counts, the device loop's
+    record (None on the host) and the peak memory."""
+    import torch
+
+    from qba_tpu_torch.ops import surface_loop as su
+    from qba_tpu_torch.sweep import run_surface
+
+    records = []
+    loop = su.device_surface_loop
+
+    def recorded(*args, **kw):
+        out, info = loop(*args, **kw)
+        records.append(info)
+        return out, info
+
+    fns = wrappers()
+    for fn in fns.values():
+        fn.launches, fn.events = 0, None
+    su.device_surface_loop = recorded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        cells = run_surface(cfg, *SURFACE_GRID, chunk_trials=cfg.trials,
+                            target=target, budget_chunks=budget,
+                            dispatch=dispatch)
+    finally:
+        su.device_surface_loop = loop
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (cells, wall, {k: fn.launches for k, fn in fns.items()},
+            records[0] if records else None,
+            torch.cuda.max_memory_allocated())
+
+
+def surface_alloc(cells):
+    return cells[0].manifest["stats"]["allocator"]
+
+
+def surface_path(configs, dev):
+    """The device surface at full width (``SURFACE_GRID``): run A, where
+    every cell resolves inside ``SURFACE_BUDGET`` (the target picked with
+    the host surface first), the graph surface (one launch, one readback)
+    equal to the host surface and each cell to its own ``run_sweep``; run
+    B, budget 6, its schedule beside the host allocator's, equal but at
+    near-ties, with a pass out of capture order; launch counts asserted;
+    the graph's ms a pass against the host's ms a chunk, its warm-up,
+    capture and instantiate ms, node counts and peak memory; the two
+    kernels timed; the CLI's ``sweep --dispatch device`` at 11p.  Returns
+    ``(record, launches)``."""
+    import dataclasses
+
+    from qba_tpu_torch.sweep import run_sweep
+
+    cfg = dataclasses.replace(configs["33p/L64/d10"], trials=1000,
+                              seed=TARGETED_SEED)
+    n_cells = len(SURFACE_GRID[0]) * len(SURFACE_GRID[1])
+    launches = dict.fromkeys(COUNTED, 0)
+    # A warm-up: the four cells' first chunks on the host.
+    _cells, _wall, counts, _info, _peak = surface_run(
+        cfg, SURFACE_TARGETS[0], n_cells, "host")
+    for k, n in counts.items():
+        launches[k] += n
+    tried = []
+    for target in SURFACE_TARGETS:
+        host, host_wall, counts, _, host_peak = surface_run(
+            cfg, target, SURFACE_BUDGET, "host")
+        for k, n in counts.items():
+            launches[k] += n
+        spent = surface_alloc(host)["spent_chunks"]
+        if counts != {k: (spent if k == "trial_megakernel_keyed" else 0)
+                      for k in COUNTED}:
+            raise AssertionError(f"host surface: launches {counts}, "
+                                 f"expected {spent} megakernel launches")
+        outcome = [(len(c.result.chunks), c.result.stop.reason,
+                    c.result.success_rate) for c in host]
+        tried.append(dict(target=target, cells=outcome))
+        if all(c.result.stop.reason.startswith("decided") for c in host):
+            break
+    else:
+        raise AssertionError(f"no target resolves every cell in "
+                             f"{SURFACE_BUDGET} chunks: {tried}")
+    log("surface_path", run="target", tried=tried, target=target)
+
+    runs = {}
+    for label, budget in (("A", SURFACE_BUDGET), ("B", SURFACE_SHORT_BUDGET)):
+        if label == "B":
+            host, host_wall, counts, _, host_peak = surface_run(
+                cfg, target, budget, "host")
+            for k, n in counts.items():
+                launches[k] += n
+        dev_cells, wall, counts, info, peak = surface_run(
+            cfg, target, budget, "device")
+        for k, n in counts.items():
+            launches[k] += n
+        # Eager warm-up and capture: one launch of each kernel (of the
+        # megakernel, one a cell); the graph then runs them once a pass.
+        want = {k: 0 for k in COUNTED}
+        want.update(trial_megakernel_keyed=2 * n_cells, surface_pick=2,
+                    surface_fold=2)
+        if counts != want:
+            raise AssertionError(f"surface {label}: launches {counts}, "
+                                 f"expected {want}")
+        if info["dispatch"] != "graph" or info["readbacks"] != 1:
+            raise AssertionError(f"surface {label}: not one graph launch: "
+                                 f"{info}")
+        h_alloc, d_alloc = surface_alloc(host), surface_alloc(dev_cells)
+        h_sched = [t["cell"] for t in h_alloc["trace"]]
+        d_sched = [t["cell"] for t in d_alloc["trace"]]
+        scores = step_scores(h_alloc["trace"], host, parse_threshold(target),
+                             0.95)
+        near = [dict(step=s, scores=sc) for s, sc in enumerate(scores)
+                if near_tie(sc)]
+        same = h_sched == d_sched and [t["reason"] for t in h_alloc["trace"]] \
+            == [t["reason"] for t in d_alloc["trace"]]
+        first = next((s for s, (a, b) in enumerate(zip(h_sched, d_sched))
+                      if a != b), None)
+        if not same and not any(x["step"] == first for x in near):
+            raise AssertionError(f"surface {label}: device schedule "
+                                 f"{d_sched} != host {h_sched}")
+        if label == "A" or same:
+            for h, d in zip(host, dev_cells):
+                if not (h.result.chunks == d.result.chunks
+                        and h.result.stop.to_json() == d.result.stop.to_json()):
+                    raise AssertionError(f"surface {label}: cell "
+                                         f"{h.strategy}/{h.p_depolarize} "
+                                         "differs from the host surface")
+            if h_alloc["spent_chunks"] != d_alloc["spent_chunks"]:
+                raise AssertionError(f"surface {label}: spent chunks differ")
+        passes = info["passes"]
+        rec = dict(
+            budget_chunks=budget, target=target, same_schedule=same,
+            near_ties=near, host_schedule=h_sched,
+            host_reasons=[t["reason"] for t in h_alloc["trace"]],
+            device_sched=d_sched,
+            device_tiers=[t["reason"] for t in d_alloc["trace"]],
+            out_of_capture_order=[s for s in range(1, len(d_sched))
+                                  if d_sched[s] < d_sched[s - 1]],
+            cells=[dict(cell=f"{c.strategy}_p{c.p_depolarize}",
+                        chunks=len(c.result.chunks),
+                        stop=c.result.stop.reason,
+                        success_rate=c.result.success_rate)
+                   for c in dev_cells],
+            spent_chunks=d_alloc["spent_chunks"], passes=passes,
+            design=info["design"], readbacks=info["readbacks"],
+            launches={k: n for k, n in counts.items() if n},
+            wall_s=wall, host_wall_s=host_wall,
+            ms_per_pass=info["loop_s"] / passes * 1e3,
+            host_ms_per_chunk=host_wall / h_alloc["spent_chunks"] * 1e3,
+            loop_ms=info["loop_s"] * 1e3,
+            warmup_ms=info["warmup_s"] * 1e3,
+            warmup_cell_ms=[x * 1e3 for x in info["warmup_cell_s"]],
+            capture_ms=info["capture_s"] * 1e3,
+            capture_cell_ms=[x * 1e3 for x in info["capture_cell_s"]],
+            instantiate_ms=info["instantiate_s"] * 1e3,
+            upload_ms=info["upload_s"] * 1e3,
+            body_nodes=info["body_nodes"],
+            body_nodes_total=info["body_nodes_total"],
+            peak_mem_bytes=peak, host_peak_mem_bytes=host_peak)
+        log("surface_path", run=label, config="33p/L64/d10",
+            chunk_trials=cfg.trials, **rec)
+        runs[label] = rec
+        if label == "A":
+            # Each cell equals its own targeted run_sweep.
+            for c in dev_cells:
+                own = run_sweep(c.result.cfg, SURFACE_BUDGET, cfg.trials,
+                                target=target)
+                if not (own.chunks == c.result.chunks
+                        and own.stop.to_json() == c.result.stop.to_json()):
+                    raise AssertionError(f"surface A: cell {c.strategy}/"
+                                         f"{c.p_depolarize} != its own "
+                                         "run_sweep")
+            totals = ([c.result.successes for c in dev_cells],
+                      [len(c.result.chunks) for c in dev_cells])
+    # A pass out of capture order shows that the captures' shared memory
+    # pool holds whatever order the branches run in.
+    if not (runs["B"]["out_of_capture_order"]
+            or runs["A"]["out_of_capture_order"]):
+        raise AssertionError("surface: no pass picked a cell out of "
+                             "capture order")
+    kernels = surface_timing(*totals, [False] * n_cells, target, dev)
+    log("surface_timing", config="33p/L64/d10 run A's totals, 4 cells",
+        **kernels)
+
+    import subprocess as sp
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = sp.run([sys.executable, "-m", "qba_tpu_torch", *CLI_SWEEP],
+                  cwd=root, capture_output=True, text=True, timeout=600)
+    cli_wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"sweep CLI exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    stop_line = proc.stdout.strip().splitlines()[-1]
+    if not stop_line.startswith("stop: decided_below after 7000 trials"):
+        raise AssertionError(f"sweep CLI: {stop_line}")
+    cli = dict(wall_s=cli_wall, argv=CLI_SWEEP, stop=stop_line)
+    log("surface_path", run="cli", **cli)
+    return dict(runs=runs, targets_tried=tried, kernels=kernels,
+                cli=cli), launches
+
+
+def parse_threshold(target):
+    from qba_tpu_torch.stats import parse_target
+
+    return parse_target(target).threshold
+
+
 # The serving worker on the card: 1000-trial requests at full width in
 # chunks of 64 trials, two in flight, fed as JSONL.  The targeted request
 # comes first in its bucket, so its chunks start at chunk boundaries as
@@ -2569,6 +3042,7 @@ def wrappers():
     from qba_tpu_torch.ops import ring_shuffle as rg
     from qba_tpu_torch.ops import round_kernel as rs
     from qba_tpu_torch.ops import round_kernel_tiled as rk
+    from qba_tpu_torch.ops import surface_loop as su
     from qba_tpu_torch.ops import sweep_loop as sl
     from qba_tpu_torch.ops import trial_megakernel as tm
 
@@ -2585,7 +3059,9 @@ def wrappers():
             "trial_megakernel_gen_keyed": tm.trial_megakernel_gen_keyed,
             "sharded_trial_megakernel_keyed":
                 tm.sharded_trial_megakernel_keyed,
-            "sweep_stop": sl.sweep_stop}
+            "sweep_stop": sl.sweep_stop,
+            "surface_pick": su.surface_pick,
+            "surface_fold": su.surface_fold}
 
 
 def drive(cfg, engine, mesh=None):
@@ -2651,6 +3127,14 @@ def main(argv):
              for ln in text.splitlines()
              if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
     log("build", seconds=build_s, kernels=list(logs), ptxas=ptxas)
+    from qba_tpu_torch.ops import surface_loop as su
+
+    driver, runtime = su.versions(dev)
+    # The device surface's graph switches into a cell's chunk with a SWITCH
+    # conditional node, which needs a CUDA 12.8 driver (check_driver).
+    su.check_driver(dev)
+    log("cuda_versions", driver=driver, runtime=runtime,
+        surface_design="switch")
 
     small = [
         ("5p/L16/d2", QBAConfig(n_parties=5, size_l=16, n_dishonest=2,
@@ -2749,6 +3233,12 @@ def main(argv):
     log("sweep_stop_vs_plain", tolerance=0, max_abs_err=stop_err,
         trials=[1, 37, 64, 1000, 5000], starts=[0, 1, 2, 3, 4], budget=4,
         succ_out=[False, True])
+    pick_err, fold_err = surface_vs_plain(dev)
+    report["surface_vs_plain"] = dict(pick_max_abs_err=pick_err,
+                                      fold_max_abs_err=fold_err)
+    log("surface_vs_plain", pick_tolerance=PICK_ATOL, fold_tolerance=0,
+        pick_max_abs_err=pick_err, fold_max_abs_err=fold_err,
+        cells=PICK_CELLS, thresholds=[0.3, 0.55, None])
     if quick:
         print(card)
         print(json.dumps({"ok": True, "device": {
@@ -3231,6 +3721,14 @@ def main(argv):
     log("sweep_stop_timing", config="33p/L64/d10 chunk", tolerance=0,
         **stop_row)
 
+    # The device surface: the grid as one graph, against the host surface.
+    t0 = time.perf_counter()
+    report["surface_path"], surface_launches = surface_path(dict(main_cfgs),
+                                                            dev)
+    report["surface_path"]["phase_s"] = time.perf_counter() - t0
+    for k, n in surface_launches.items():
+        launches[k] += n
+
     # The serving worker: the host path, the device path, the CLI.
     t0 = time.perf_counter()
     report["serve_path"], serve_launches = serve_path(dict(main_cfgs), dev)
@@ -3374,6 +3872,24 @@ def main(argv):
                    "a chunk by the graph; bits_64: storing the success "
                    "bits of a 64-trial chunk"),
     })
+    # The device surface's two kernels: captured once each a surface graph,
+    # then run once a pass.
+    surf = report["surface_path"]
+    for k, err in (("surface_pick", pick_err), ("surface_fold", fold_err)):
+        source, replaces = SOURCES[k]
+        kernels.append({
+            "name": k, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[k],
+            "max_abs_err": err,
+            **{f: surf["kernels"][k][f] for f in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "queued_ms")},
+            "library_note": "none: no PyTorch call sets a graph's handle",
+            "config": ("33p/L64/d10 surface of 4 cells, chunks of 1000 "
+                       "trials, budget 48; launched eagerly once and "
+                       "captured once a surface graph, then run once a "
+                       "pass by the graph"),
+        })
     report["kernels"] = kernels
     report["device"] = card
     os.makedirs(os.path.dirname(REPORT), exist_ok=True)

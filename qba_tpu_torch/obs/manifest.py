@@ -1,5 +1,6 @@
 """Run manifest: a structured record of what ran — counterpart of
-:mod:`qba_tpu.obs.manifest` (its collector, validator and file helpers).
+:mod:`qba_tpu.obs.manifest` (its collector, validator, file helpers and
+``--telemetry`` session).
 
 A manifest holds the environment (torch, the CUDA runtime, the device),
 the config fingerprint, the kernel plan
@@ -13,10 +14,12 @@ a required dict of empty dicts: the port has no compile probes.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import os
 import time
-from typing import Any
+from typing import Any, Iterator
 
 from qba_tpu_torch.config import QBAConfig
 from qba_tpu_torch.obs.telemetry import SpanRecorder
@@ -185,3 +188,64 @@ def write_manifest(path: str, manifest: dict[str, Any]) -> str:
 def load_manifest(path: str) -> dict[str, Any]:
     with open(path) as f:
         return validate_manifest(json.load(f))
+
+
+@dataclasses.dataclass
+class TelemetrySession:
+    """Live handle yielded by :func:`telemetry_session`: the shared span
+    recorder (hand it to ``PhaseTimers(spans=...)``), plus mutable
+    ``extra`` merged into the manifest at exit."""
+
+    directory: str
+    spans: SpanRecorder
+    extra: dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    @property
+    def manifest_path(self) -> str:
+        return os.path.join(self.directory, "run_manifest.json")
+
+    @property
+    def trace_path(self) -> str:
+        return os.path.join(self.directory, "trace.json")
+
+
+@contextlib.contextmanager
+def telemetry_session(
+    directory: str, cfg: QBAConfig, command: str, *, device
+) -> Iterator[TelemetrySession]:
+    """Everything ``--telemetry DIR`` needs in one context manager for a
+    run of ``cfg`` on ``device``:
+
+    * opens a :class:`SpanRecorder` with a root span named ``command``,
+    * captures the decisions
+      (:func:`~qba_tpu_torch.diagnostics.record_decisions`) across the
+      block,
+    * on exit writes ``run_manifest.json`` (validated), ``trace.json``
+      (Chrome trace events, Perfetto-loadable) and ``spans.jsonl`` into
+      ``directory``.
+
+    The files are written even when the block raises: a failed run's
+    partial trace is when telemetry is wanted most.
+    """
+    from qba_tpu_torch.diagnostics import record_decisions
+
+    os.makedirs(directory, exist_ok=True)
+    session = TelemetrySession(directory=directory, spans=SpanRecorder())
+    before = probe_stats_snapshot()
+    try:
+        with record_decisions() as decisions:
+            with session.spans.span(command, cat="command"):
+                yield session
+    finally:
+        manifest = collect_manifest(
+            cfg,
+            device=device,
+            command=command,
+            decisions=decisions,
+            probe_stats_before=before,
+            spans=session.spans,
+            extra=session.extra,
+        )
+        write_manifest(session.manifest_path, validate_manifest(manifest))
+        session.spans.write_chrome_trace(session.trace_path)
+        session.spans.write_jsonl(os.path.join(directory, "spans.jsonl"))

@@ -26,15 +26,18 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("fused_round", "trial_megakernel", "tiled_round", "round_step",
            "fused_circuit", "gf2_sweep", "ring_shuffle", "attack_draws",
-           "sweep_loop")
+           "sweep_loop", "surface_loop")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # Flags of one kernel, in its build key: the trial megakernel's fifteen
 # instantiations are optimised in parallel (nvcc's split compilation)
-# rather than one after another.
-KERNEL_FLAGS = {"trial_megakernel": ("-split-compile=0",)}
+# rather than one after another; the surface loop's float arithmetic
+# rounds every operation on its own, as its plain PyTorch version does
+# (no contraction into fused multiply-adds).
+KERNEL_FLAGS = {"trial_megakernel": ("-split-compile=0",),
+                "surface_loop": ("-fmad=false",)}
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -31,19 +31,25 @@ Sentinels: ``lo[i] = -1`` / ``hi[i] = N+1`` mean "never fires at this
 always holds sentinels — a rule with zero observations never fires,
 and the device loop must run at least one chunk, like the host loop.
 
-The JAX package's ``device_ci_interval`` (the float32 interval its
-single-dispatch surface orders cells by) has no counterpart yet: it
-waits for the device surface (ROADMAP A9b).
+Also here: :func:`device_ci_interval`, the float32 mixture-CI
+bisection the device surface orders cells by (widest first), in plain
+PyTorch; the ``surface_pick`` kernel
+(:mod:`qba_tpu_torch.ops.surface_loop`) computes the same in CUDA.
+Scheduling order tolerates float32: per-cell stop decisions always go
+through the exact integer tables above.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
+import torch
 
 from qba_tpu_torch.stats.sequential import SPRT, MixtureMartingaleCI
 from qba_tpu_torch.stats.targets import Target
 
-__all__ = ["stop_tables"]
+__all__ = ["stop_tables", "device_ci_interval"]
 
 
 def _bisect_threshold(fires, lo_k: int, hi_k: int, first_true: bool) -> int:
@@ -139,3 +145,57 @@ def stop_tables(
             lo_i, hi_i = _width_thresholds(rule, n)
         lo[i], hi[i] = lo_i, hi_i
     return lo, hi
+
+
+# Bounds of the candidate rate inside the float32 mixture (as float32).
+_P_MIN, _P_MAX = 1e-7, 1.0 - 1e-7
+
+
+def device_ci_interval(k, n, confidence: float, iters: int = 60):
+    """The float32 mixture-martingale interval at totals ``(k, n)``,
+    elementwise over tensors ``k`` and ``n`` (one entry a cell): the same
+    Beta(½,½) mixture and MLE-outward bisection as
+    :meth:`MixtureMartingaleCI.interval`, in float32 and ``iters`` steps
+    a side, the JAX package's ``device_ci_interval`` operation for
+    operation.  ``n == 0``, or a mixture already past the critical value
+    at the MLE, gives the vacuous ``(0, 1)``.  Returns ``(lo, hi)``
+    float32 tensors.
+
+    Used only to order cells inside the device surface: float32 endpoints
+    may differ from the host's float64 interval in the last ulps, which
+    can reorder near-tied cells but never changes a stop decision."""
+    k = torch.as_tensor(k).to(torch.float32)
+    n = torch.as_tensor(n).to(torch.float32)
+    dev = k.device
+
+    def f32(x: float) -> torch.Tensor:
+        return torch.tensor(x, dtype=torch.float32, device=dev)
+
+    crit = f32(math.log(1.0 / (1.0 - confidence)))
+    half = f32(0.5)
+    lbeta = (torch.lgamma(k + half) + torch.lgamma((n - k) + half)
+             - torch.lgamma((n + half) + half))
+    lbeta0 = f32(math.log(math.pi))  # log B(1/2, 1/2)
+
+    def log_mixture(p):
+        p = torch.clamp(p, _P_MIN, _P_MAX)
+        return (lbeta - lbeta0) - (k * torch.log(p)
+                                   + (n - k) * torch.log1p(-p))
+
+    zero, one = torch.zeros_like(k), torch.ones_like(k)
+    p_hat = torch.where(n > 0, k / torch.clamp(n, min=1.0), half)
+
+    def boundary(lo, hi, rising_at_hi: bool):
+        for _ in range(iters):
+            mid = half * (lo + hi)
+            cross = (log_mixture(mid) >= crit) == rising_at_hi
+            lo, hi = torch.where(cross, lo, mid), torch.where(cross, mid, hi)
+        return half * (lo + hi)
+
+    lower = torch.where(log_mixture(zero) < crit, zero,
+                        boundary(zero, p_hat, False))
+    upper = torch.where(log_mixture(one) < crit, one,
+                        boundary(p_hat, one, True))
+    degenerate = (n == 0) | (log_mixture(p_hat) >= crit)
+    return (torch.where(degenerate, zero, lower),
+            torch.where(degenerate, one, upper))

@@ -18,12 +18,13 @@ WHILE node runs a captured chunk and a kernel that evaluates the stop
 tables (:mod:`qba_tpu_torch.ops.sweep_loop`), one launch and one
 readback for the whole budget.  ``run_surface`` runs a (strategy x noise
 x sizeL) grid of sweeps, uniformly or, with ``target=``, by the adaptive
-allocator.
+allocator; with ``dispatch="device"`` the whole adaptive grid is one
+CUDA graph whose WHILE node picks a cell and switches into its captured
+chunk (:mod:`qba_tpu_torch.ops.surface_loop`).  Every surface cell
+carries its run manifest (:mod:`qba_tpu_torch.obs.manifest`).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``:
-``device=None`` raises without a card.  Not ported yet, each raising
-where it is asked for: ``run_surface(dispatch="device")`` (ROADMAP A9b)
-and ``with_manifest=True`` (A13).  The JAX package's
+``device=None`` raises without a card.  The JAX package's
 ``QBA_COMPILE_CACHE`` has no counterpart: the port's kernels are cached
 by their build (``ops/_build.py``).
 """
@@ -44,9 +45,11 @@ from qba_tpu_torch.config import QBAConfig
 from qba_tpu_torch.diagnostics import (
     QBACheckpointMismatch,
     QBAWarning,
+    record_decisions,
     warn_and_record,
 )
 from qba_tpu_torch.obs.events import EventLog
+from qba_tpu_torch.obs.manifest import collect_manifest
 from qba_tpu_torch.obs.timers import PhaseTimers
 from qba_tpu_torch.stats.estimators import SweepEstimators
 from qba_tpu_torch.stats.estimators import success_rate as _success_rate
@@ -502,8 +505,8 @@ def _run_sweep_targeted(
 @dataclasses.dataclass(frozen=True)
 class SurfaceCell:
     """One (strategy x noise x size_l) grid point of an adversary
-    surface.  ``manifest`` stays None: run manifests wait for ROADMAP
-    A13."""
+    surface, with the run manifest of the config that ran (None where
+    ``run_surface(with_manifest=False)``)."""
 
     strategy: str
     p_depolarize: float
@@ -562,6 +565,239 @@ def _surface_grid(
     return grid
 
 
+def _surface_labels(grid) -> list[str]:
+    return [f"{strat}_p{p_dep}_q{p_mf}_L{size_l}"
+            for strat, p_dep, p_mf, size_l, _, _ in grid]
+
+
+def _surface_cells(grid, results, decisions_of, target, alloc_summary,
+                   with_manifest, log, labels, device) -> list[SurfaceCell]:
+    """The targeted paths' cells: each cell's result with, where asked,
+    its manifest (the decisions recorded while it ran, and a ``stats``
+    block with its certified rate, the target and the allocator's
+    summary)."""
+    cells: list[SurfaceCell] = []
+    for idx, (strat, p_dep, p_mf, size_l, cfg_cell, _) in enumerate(grid):
+        res = results[idx]
+        manifest = None
+        if with_manifest:
+            stats_block = res.stats_summary(confidence=target.confidence)
+            stats_block["target"] = target.to_json()
+            stats_block["allocator"] = alloc_summary
+            manifest = collect_manifest(
+                cfg_cell,
+                device=device,
+                command="surface",
+                decisions=decisions_of(idx),
+                extra={"stats": stats_block},
+            )
+        cells.append(
+            SurfaceCell(
+                strategy=strat,
+                p_depolarize=p_dep,
+                p_measure_flip=p_mf,
+                size_l=size_l,
+                result=res,
+                manifest=manifest,
+            )
+        )
+        if log:
+            log.info(
+                "surface",
+                "cell resolved",
+                cell=labels[idx],
+                reason=res.stop.reason,
+                n_trials=res.n_trials,
+            )
+    return cells
+
+
+def _run_surface_targeted_device(
+    cfg: QBAConfig,
+    strategies,
+    noise_points,
+    size_ls,
+    target: Target,
+    budget_chunks: int,
+    chunk_trials: int,
+    checkpoint_dir: str | None,
+    log: EventLog | None,
+    with_manifest: bool,
+    resume_force: bool,
+    device: torch.device,
+) -> list[SurfaceCell]:
+    """The ``dispatch="device"`` surface: the whole adaptive grid runs
+    through :func:`~qba_tpu_torch.ops.surface_loop.device_surface_loop`
+    (on the card one CUDA graph launch and one readback); the host replays
+    the readback (the schedule and per-cell counts) through the same
+    per-cell rules for typed :class:`StopDecision`\\ s, the allocator
+    trace, per-cell checkpoints and manifests, the artifacts of
+    :func:`_run_surface_targeted`.  The span ``device_loop`` carries the
+    loop's record."""
+    from qba_tpu_torch.ops.surface_loop import device_surface_loop
+    from qba_tpu_torch.stats.device import stop_tables
+
+    grid = _surface_grid(cfg, strategies, noise_points, size_ls, checkpoint_dir)
+    labels = _surface_labels(grid)
+    n_cells = len(grid)
+    timers = PhaseTimers()
+    rules = [target.make_rule() for _ in grid]
+    cell_chunks: list[list[ChunkResult]] = [[] for _ in grid]
+    cell_decision: list[StopDecision | None] = [None] * n_cells
+    cell_resumed = [0] * n_cells
+    trace: list[dict[str, Any]] = []
+
+    # Resume: replay each cell's checkpointed contiguous prefix, in
+    # cell-index order: the host allocator's rule state and budget.
+    spent = 0
+    for idx, (_, _, _, _, cfg_cell, ckpt) in enumerate(grid):
+        if not ckpt:
+            continue
+        loaded = load_checkpoint(
+            ckpt, cfg_cell, chunk_trials, force=resume_force
+        )
+        replayed, dec = _replay_prefix(loaded, rules[idx], budget_chunks)
+        cell_chunks[idx] = replayed
+        cell_decision[idx] = dec
+        cell_resumed[idx] = len(replayed)
+        for _ in replayed:
+            trace.append(
+                {
+                    "step": spent,
+                    "cell": idx,
+                    "label": labels[idx],
+                    "reason": "resume",
+                    "ci_width": None,
+                }
+            )
+            spent += 1
+        if log and cell_resumed[idx]:
+            log.info(
+                "surface",
+                "cell resumed from checkpoint",
+                cell=labels[idx],
+                chunks=cell_resumed[idx],
+            )
+
+    steps = max(0, budget_chunks - spent)
+    open_cells = any(d is None for d in cell_decision)
+    decisions_log: list[dict] = []
+    if steps > 0 and open_cells:
+        lo, hi = stop_tables(target, budget_chunks, chunk_trials)
+        threshold = target.threshold if target.kind == "decide" else None
+        with record_decisions() as decisions_log:
+            with timers.time(
+                "device_loop",
+                budget_chunks=steps,
+                cells=n_cells,
+                chunk_trials=chunk_trials,
+            ) as sp:
+                # The loop's one readback ends inside: the span is fenced.
+                out, info = device_surface_loop(
+                    [g[4] for g in grid], steps, budget_chunks,
+                    chunk_trials, target.confidence, threshold,
+                    [r.k for r in rules], [len(c) for c in cell_chunks],
+                    [d is not None for d in cell_decision], lo, hi, device)
+                sp.fenced = True
+                sp.args.update(info)
+
+        # Host replay of the device schedule: exact rule state, exact
+        # decisions, the allocator's trace.
+        for s in range(out["step"]):
+            idx = int(out["sched"][s])
+            chunk_index = len(cell_chunks[idx])
+            est_width = (
+                rules[idx].estimate().width if chunk_index else None
+            )
+            cr = ChunkResult(
+                chunk=chunk_index,
+                trials=chunk_trials,
+                successes=int(out["counts"][idx, chunk_index]),
+                overflow=bool(out["ovf"][idx, chunk_index]),
+            )
+            cell_chunks[idx].append(cr)
+            rules[idx].observe(cr.successes, cr.trials)
+            trace.append(
+                {
+                    "step": spent,
+                    "cell": idx,
+                    "label": labels[idx],
+                    "reason": (
+                        "bootstrap", "straddling", "undecided"
+                    )[int(out["tier"][s])],
+                    "ci_width": est_width,
+                }
+            )
+            spent += 1
+            dec = rules[idx].decision()
+            if dec is not None and cell_decision[idx] is None:
+                cell_decision[idx] = dec
+            if log:
+                log.info(
+                    "surface",
+                    "allocated chunk done",
+                    cell=labels[idx],
+                    chunk=chunk_index,
+                    successes=cr.successes,
+                    decided=dec is not None,
+                    dispatch="device",
+                )
+
+    for idx, (_, _, _, _, cfg_cell, ckpt) in enumerate(grid):
+        if ckpt and len(cell_chunks[idx]) > cell_resumed[idx]:
+            save_checkpoint(
+                ckpt,
+                cfg_cell,
+                chunk_trials,
+                cell_chunks[idx],
+                stats={
+                    "target": target.to_json(),
+                    "stop": (
+                        cell_decision[idx].to_json()
+                        if cell_decision[idx]
+                        else None
+                    ),
+                    "dispatch": "device",
+                },
+            )
+
+    decisions = [
+        cell_decision[i]
+        if cell_decision[i] is not None
+        else rules[i].exhausted()
+        for i in range(n_cells)
+    ]
+    alloc_summary = {
+        "target": target.to_json(),
+        "budget_chunks": budget_chunks,
+        "spent_chunks": spent,
+        "dispatch": "device",
+        "cells": [
+            {
+                "index": i,
+                "label": labels[i],
+                "chunks_run": len(cell_chunks[i]),
+                "decision": decisions[i].to_json(),
+            }
+            for i in range(n_cells)
+        ],
+        "trace": trace,
+    }
+    results = [
+        SweepResult(
+            cfg=grid[idx][4],
+            chunks=tuple(cell_chunks[idx]),
+            resumed_chunks=cell_resumed[idx],
+            stop=decisions[idx],
+            dispatch="device",
+        )
+        for idx in range(n_cells)
+    ]
+    return _surface_cells(grid, results, lambda idx: list(decisions_log),
+                          target, alloc_summary, with_manifest, log, labels,
+                          device)
+
+
 def _run_surface_targeted(
     cfg: QBAConfig,
     strategies,
@@ -573,6 +809,7 @@ def _run_surface_targeted(
     checkpoint_dir: str | None,
     log: EventLog | None,
     runner,
+    with_manifest: bool,
     resume_force: bool,
     device: torch.device,
 ) -> list[SurfaceCell]:
@@ -584,13 +821,11 @@ def _run_surface_targeted(
     from qba_tpu_torch.stats.allocate import AdaptiveAllocator
 
     grid = _surface_grid(cfg, strategies, noise_points, size_ls, checkpoint_dir)
-    labels = [
-        f"{strat}_p{p_dep}_q{p_mf}_L{size_l}"
-        for strat, p_dep, p_mf, size_l, _, _ in grid
-    ]
+    labels = _surface_labels(grid)
     alloc = AdaptiveAllocator(labels, target, budget_chunks)
     timers = PhaseTimers()
     cell_chunks: list[list[ChunkResult]] = [[] for _ in grid]
+    cell_decisions: list[list[dict]] = [[] for _ in grid]
     cell_resumed = [0] * len(grid)
 
     # Resume: replay each cell's checkpointed contiguous prefix through
@@ -620,8 +855,10 @@ def _run_surface_targeted(
         if runner is None:
             runner = _default_runner(chunk_trials, log, device)
         chunk_index = len(cell_chunks[idx])
-        cr = run_chunk(cfg_cell, chunk_index, chunk_trials, runner, timers,
-                       device)
+        with record_decisions() as decs:
+            cr = run_chunk(cfg_cell, chunk_index, chunk_trials, runner,
+                           timers, device)
+        cell_decisions[idx].extend(decs)
         cell_chunks[idx].append(cr)
         dec = alloc.record(idx, cr.successes, cr.trials)
         if ckpt:
@@ -647,32 +884,18 @@ def _run_surface_targeted(
 
     alloc.finish()
     decisions = alloc.decisions()
-    cells: list[SurfaceCell] = []
-    for idx, (strat, p_dep, p_mf, size_l, cfg_cell, _) in enumerate(grid):
-        res = SweepResult(
-            cfg=cfg_cell,
+    results = [
+        SweepResult(
+            cfg=grid[idx][4],
             chunks=tuple(cell_chunks[idx]),
             resumed_chunks=cell_resumed[idx],
             stop=decisions[idx],
         )
-        cells.append(
-            SurfaceCell(
-                strategy=strat,
-                p_depolarize=p_dep,
-                p_measure_flip=p_mf,
-                size_l=size_l,
-                result=res,
-            )
-        )
-        if log:
-            log.info(
-                "surface",
-                "cell resolved",
-                cell=labels[idx],
-                reason=decisions[idx].reason,
-                n_trials=res.n_trials,
-            )
-    return cells
+        for idx in range(len(grid))
+    ]
+    return _surface_cells(grid, results, lambda idx: cell_decisions[idx],
+                          target, alloc.summary(), with_manifest, log,
+                          labels, device)
 
 
 def run_surface(
@@ -685,7 +908,7 @@ def run_surface(
     checkpoint_dir: str | None = None,
     log: EventLog | None = None,
     runner=None,
-    with_manifest: bool = False,
+    with_manifest: bool = True,
     target: Target | str | None = None,
     budget_chunks: int | None = None,
     resume_force: bool = False,
@@ -707,60 +930,98 @@ def run_surface(
     budget runs out.  ``store_dir`` publishes every finished cell into a
     content-addressed atlas store (:mod:`qba_tpu_torch.atlas.store`).
 
+    With ``with_manifest`` (the default), each cell carries the run
+    manifest collected around its own run
+    (:func:`~qba_tpu_torch.obs.manifest.collect_manifest`, command
+    ``"surface"``) with a ``stats`` block: the cell's certified rate and,
+    on the targeted paths, the target and the allocator's summary.
+
+    ``dispatch="device"`` (targeted runs only) moves the allocator loop
+    onto the device: on CUDA the whole grid is one CUDA graph
+    (:mod:`qba_tpu_torch.ops.surface_loop`), one launch and one readback;
+    on the CPU the same passes run in Python.  Per-cell chunks and stop
+    decisions equal the host allocator's; the schedule may reorder
+    near-tied cells (float32 widths on the device against float64 on the
+    host).  It takes no custom ``runner``, and a grid with a cell the
+    graph cannot capture (the dense paths, the per-round engines: ROADMAP
+    A14), or a CUDA driver without the graph's SWITCH node, raises
+    :class:`~qba_tpu_torch.ops.sweep_loop.GraphLoopUnsupported` before
+    anything runs.
+
     ``device=None`` means CUDA (raises without a card); ``device="cpu"``
-    runs the plain PyTorch path.  ``dispatch="device"`` (the JAX
-    package's single-dispatch surface) and ``with_manifest=True`` raise
-    ``NotImplementedError``: they wait for ROADMAP A9b and A13.
+    runs the plain PyTorch path.
     """
     if dispatch not in ("host", "device"):
         raise ValueError(
             f"dispatch must be 'host' or 'device', got {dispatch!r}"
         )
+    if dispatch == "device" and target is None:
+        raise ValueError(
+            "dispatch='device' needs a target: the device surface loop's "
+            "condition is the all-cells-resolved predicate"
+        )
+    if dispatch == "device" and runner is not None:
+        raise ValueError(
+            "dispatch='device' cannot take a custom runner: the loop "
+            "body switches into each cell's captured chunk"
+        )
     if dispatch == "device":
-        raise NotImplementedError(
-            "run_surface(dispatch='device'), the whole grid as one device "
-            "loop, is not ported yet (ROADMAP A9b); use dispatch='host'"
-        )
-    if with_manifest:
-        raise NotImplementedError(
-            "run_surface(with_manifest=True): run manifests are not ported "
-            "yet (ROADMAP A13)"
-        )
+        from qba_tpu_torch.ops.sweep_loop import check_capturable
+
+        # Every cell, on every device, before anything runs.
+        for g in _surface_grid(cfg, strategies, noise_points, size_ls, None):
+            check_capturable(g[4])
     dev = resolve_device(device)
+    if dispatch == "device" and dev.type == "cuda":
+        from qba_tpu_torch.ops.surface_loop import check_driver
+
+        check_driver(dev)
     if chunk_trials is None:
         chunk_trials = cfg.trials
     if target is not None:
         if isinstance(target, str):
             target = parse_target(target)
         n_cells = len(strategies) * len(noise_points) * len(size_ls)
-        cells = _run_surface_targeted(
-            cfg,
-            strategies,
-            noise_points,
-            size_ls,
-            target,
-            budget_chunks if budget_chunks is not None else n_chunks * n_cells,
-            chunk_trials,
-            checkpoint_dir,
-            log,
-            runner,
-            resume_force,
-            dev,
-        )
+        budget = (budget_chunks if budget_chunks is not None
+                  else n_chunks * n_cells)
+        if dispatch == "device":
+            cells = _run_surface_targeted_device(
+                cfg, strategies, noise_points, size_ls, target, budget,
+                chunk_trials, checkpoint_dir, log, with_manifest,
+                resume_force, dev,
+            )
+        else:
+            cells = _run_surface_targeted(
+                cfg, strategies, noise_points, size_ls, target, budget,
+                chunk_trials, checkpoint_dir, log, runner, with_manifest,
+                resume_force, dev,
+            )
         return _publish_surface_cells(cells, store_dir, target, chunk_trials)
 
     cells: list[SurfaceCell] = []
     grid = _surface_grid(cfg, strategies, noise_points, size_ls, checkpoint_dir)
     for strat, p_dep, p_mf, size_l, cfg_cell, ckpt in grid:
-        res = run_sweep(
-            cfg_cell,
-            n_chunks=n_chunks,
-            chunk_trials=chunk_trials,
-            checkpoint=ckpt,
-            log=log,
-            runner=runner,
-            resume_force=resume_force,
-            device=dev,
+        with record_decisions() as decisions:
+            res = run_sweep(
+                cfg_cell,
+                n_chunks=n_chunks,
+                chunk_trials=chunk_trials,
+                checkpoint=ckpt,
+                log=log,
+                runner=runner,
+                resume_force=resume_force,
+                device=dev,
+            )
+        manifest = (
+            collect_manifest(
+                cfg_cell,
+                device=dev,
+                command="surface",
+                decisions=decisions,
+                extra={"stats": res.stats_summary()},
+            )
+            if with_manifest
+            else None
         )
         cells.append(
             SurfaceCell(
@@ -769,6 +1030,7 @@ def run_surface(
                 p_measure_flip=p_mf,
                 size_l=size_l,
                 result=res,
+                manifest=manifest,
             )
         )
         if log:

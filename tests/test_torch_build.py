@@ -86,21 +86,21 @@ def test_build_dir_outside_a_checkout(csrc, tmp_path, monkeypatch):
 
 def test_repo_kernels_and_their_sources():
     # Every kernel source exists; the four round kernels share the round
-    # header (so its edits rebuild them), the circuit, ring and sweep-loop
-    # kernels stand alone, the sweep's header is in the sweep kernel and
+    # header (so its edits rebuild them), the circuit, ring, sweep-loop and
+    # surface-loop kernels stand alone, the sweep's header is in the sweep kernel and
     # the megakernel, and the draws' header in the draws kernel and the
     # megakernel.
     assert set(_build.KERNELS) == {"fused_round", "trial_megakernel",
                                    "tiled_round", "round_step",
                                    "fused_circuit", "gf2_sweep",
                                    "ring_shuffle", "attack_draws",
-                                   "sweep_loop"}
+                                   "sweep_loop", "surface_loop"}
     for name in _build.KERNELS:
         files = [p.name for p in _build.sources(name)]
         assert files[0] == f"{name}.cu"
         assert ("round_common.cuh" in files) == (
             name not in ("fused_circuit", "gf2_sweep", "ring_shuffle",
-                         "attack_draws", "sweep_loop"))
+                         "attack_draws", "sweep_loop", "surface_loop"))
         assert ("gf2_sweep.cuh" in files) == (
             name in ("gf2_sweep", "trial_megakernel"))
         assert ("draws.cuh" in files) == (
@@ -110,7 +110,8 @@ def test_repo_kernels_and_their_sources():
 
 @pytest.mark.parametrize("name", ["round_step", "fused_circuit", "gf2_sweep",
                                   "ring_shuffle", "trial_megakernel",
-                                  "attack_draws", "sweep_loop"])
+                                  "attack_draws", "sweep_loop",
+                                  "surface_loop"])
 def test_new_sources_are_in_their_build_key(name, tmp_path, monkeypatch):
     # A copy of csrc with one byte appended to the source changes the key.
     import shutil

@@ -21,7 +21,10 @@ against the stacked ones, in every strategy, attack scope and delivery.
 The tiled verdict's receiver masks are held against their plain
 versions at 33 and 34 parties (the word's high half) and at every
 cluster size its launch takes, and ``auto`` at 65 parties, past the
-masks, equals the ``xla`` engine trial for trial.
+masks, equals the ``xla`` engine trial for trial.  The device surface's
+``surface_pick`` and ``surface_fold`` equal their plain versions, and
+its graph (a WHILE node over pick, a SWITCH into the chosen cell's
+captured chunk, and fold) equals the host surface and the plain loop.
 Every test is marked ``cuda`` and skips without a card
 (the kernels have no CPU mode; the CPU tests hold the plain versions
 against ``qba_tpu``).  The file imports no JAX, so on a machine with the
@@ -1250,3 +1253,91 @@ def test_sweep_graph_loop_equals_host_loop(cuda, spec):
     for res in runs.values():
         assert res.chunks == want.chunks
         assert res.stop.to_json() == want.stop.to_json()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_cells", [1, 33, 256])
+def test_surface_kernels_equal_plain(cuda, n_cells):
+    # surface_pick and surface_fold against their plain versions on the
+    # card's tensors: the kernel rounds each float operation on its own
+    # (-fmad=false), as the plain version does, so the endpoints are
+    # equal; the chosen cell, its chunk index and tier, and the fold's
+    # carry are exact.
+    from qba_tpu_torch.ops import surface_loop as su
+
+    g = torch.Generator().manual_seed(n_cells)
+    layout = su.SurfaceLayout(n_cells, 33, 4)
+    i = torch.randint(0, 33, (n_cells,), generator=g)
+    k = (torch.rand(n_cells, generator=g) * i * 1000).long()
+    done = torch.rand(n_cells, generator=g) < 0.25
+    carry = su.new_surface_carry(layout, k, i, done, cuda)
+    for threshold in (0.3, 0.55, None):
+        cis = [torch.zeros((2, n_cells), device=cuda) for _ in "ab"]
+        want = su.surface_pick_reference(carry.clone(), cis[0], layout, 1000,
+                                         0.95, threshold)
+        got = su.surface_pick(carry.clone(), cis[1], layout, 1000, 0.95,
+                              threshold)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), threshold
+        assert torch.equal(cis[0], cis[1]), threshold
+    lo = (torch.arange(34) * 300).int().to(cuda)
+    hi = (torch.arange(34) * 700).int().to(cuda)
+    success = (torch.rand(1000, generator=g) < 0.5).to(cuda)
+    overflow = (torch.rand(1000, generator=g) < 0.01).to(cuda)
+    for step in (0, 3, 4):  # the last past the steps: nothing stored
+        carry[su.STEP] = step
+        su.surface_pick(carry, cis[1], layout, 1000, 0.95, 0.5)
+        want = su.surface_fold_reference(success, overflow, lo, hi,
+                                         carry.clone(), layout)
+        got = su.surface_fold(success, overflow, lo, hi, carry.clone(),
+                              layout)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), step
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [6, 16])
+def test_surface_graph_equals_host_surface(cuda, budget):
+    # The device surface as one graph (one launch, one readback) against
+    # the host surface on the card and the plain loop on the CPU: the
+    # same per-cell chunks, stops and schedule, with passes out of capture
+    # order (the captures share one memory pool).
+    from qba_tpu_torch.ops import surface_loop as su
+    from qba_tpu_torch.sweep import run_surface
+
+    cfg = qba_tpu_torch.QBAConfig(n_parties=5, size_l=16, n_dishonest=1,
+                                  trials=64, seed=3)
+    grid = (["reference", "split"], [(0.0, 0.0), (0.05, 0.02)], [16])
+    kw = dict(chunk_trials=64, target="decide vs 0.9 +-0.02",
+              budget_chunks=budget)
+    records = []
+    loop = su.device_surface_loop
+
+    def recorded(*args, **kwargs):
+        out, info = loop(*args, **kwargs)
+        records.append(info)
+        return out, info
+
+    su.device_surface_loop = recorded
+    try:
+        runs = {(device, dispatch): run_surface(cfg, *grid, device=device,
+                                                dispatch=dispatch, **kw)
+                for device, dispatch in (("cuda", "host"), ("cuda", "device"),
+                                         ("cpu", "device"))}
+    finally:
+        su.device_surface_loop = loop
+    graph = records[0]
+    assert graph["dispatch"] == "graph" and graph["readbacks"] == 1
+    assert graph["design"] == "switch"
+    for nodes in graph["body_nodes"].values():
+        assert set(nodes) <= set(su.BODY_NODE_TYPES.values())
+    want = runs["cpu", "device"]
+    sched = [t["cell"] for t in want[0].manifest["stats"]["allocator"]
+             ["trace"]]
+    assert any(b < a for a, b in zip(sched, sched[1:]))
+    for cells in runs.values():
+        alloc = cells[0].manifest["stats"]["allocator"]
+        assert [t["cell"] for t in alloc["trace"]] == sched
+        for c, w in zip(cells, want):
+            assert c.result.chunks == w.result.chunks
+            assert c.result.stop.to_json() == w.result.stop.to_json()

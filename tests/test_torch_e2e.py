@@ -11,8 +11,9 @@ kernels' plain versions here) is checked; ``pallas`` has its own file,
 tests/test_torch_round_step.py.
 Plus: ``device=None`` means CUDA and raises without it, and the port
 imports and runs with ``jax``, ``flax`` and ``qba_tpu`` blocked, the
-stabilizer path, the megakernel's gen entry (plain version) and the
-party-sharded ``run_trials_spmd`` on a CPU mesh included.
+stabilizer path, the megakernel's gen entry (plain version), the
+party-sharded ``run_trials_spmd`` on a CPU mesh and ``python -m
+qba_tpu_torch sweep --dispatch device`` included.
 """
 
 import dataclasses
@@ -222,6 +223,15 @@ for dispatch in ("host", "device"):
                          dispatch=dispatch, device="cpu")
     assert targeted.chunks == sweep.chunks, dispatch
     assert targeted.stop.reason == "budget_exhausted"
+import io
+from qba_tpu_torch.cli import main
+out = io.StringIO()
+assert main(["sweep", "--n-parties", "5", "--size-l", "16", "--n-dishonest",
+             "1", "--trials", "8", "--seed", "3", "--n-chunks", "6",
+             "--target", "decide vs 0.9 +-0.05", "--dispatch", "device",
+             "--device", "cpu"], out=out) == 0
+assert out.getvalue().splitlines()[-1].startswith(
+    "stop: decided_below after 32 trials"), out.getvalue()
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "flax", "qba_tpu")]
 assert not bad, bad

@@ -243,14 +243,16 @@ def test_surface_targeted_equals_jax(tmp_path):
 
 
 def test_unported_surface_options_raise():
+    # The device loops' own refusals, as JAX's: a device sweep or surface
+    # needs a target and runs the built-in chunk, no custom runner.
     grid = (["reference"], [(0.0, 0.0)], [16])
-    with pytest.raises(NotImplementedError, match="A9b"):
-        psweep.run_surface(CFG, *grid, target=TARGETS[0], dispatch="device",
-                           device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        psweep.run_surface(CFG, *grid, with_manifest=True, device="cpu")
     with pytest.raises(ValueError, match="needs a target"):
         p_run_sweep(CFG, 2, CT, dispatch="device")
+    with pytest.raises(ValueError, match="needs a target"):
+        psweep.run_surface(CFG, *grid, dispatch="device", device="cpu")
+    with pytest.raises(ValueError, match="cannot take a custom runner"):
+        psweep.run_surface(CFG, *grid, target=TARGETS[0], dispatch="device",
+                           runner=lambda cfg, keys: None, device="cpu")
 
 
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
@@ -326,6 +328,7 @@ def _zeros_mega(cfg, *args):
 
 
 @pytest.mark.parametrize("kw", [{}, dict(strategy="adaptive"),
+                                dict(strategy="split"),
                                 dict(p_depolarize=0.05, delivery="racy",
                                      p_late=0.25),
                                 dict(qsim_path="stabilizer"),
@@ -335,9 +338,14 @@ def test_chunk_step_is_capturable(kw, monkeypatch):
     # The engine the card runs (the keyed megakernel; on the stabilizer
     # path its gen entry, or the sweep and the host-gen megakernel), the
     # kernels stubbed: after the graph loop's preparation (the
-    # per-config tables, from empty caches), the sweep's chunk and the
-    # serving worker's prefix chunk must stay on the device.
+    # per-config tables, from empty caches), the sweep's chunk, the
+    # serving worker's prefix chunk and a device surface's branch must
+    # stay on the device, and so must the surface's pick and fold on
+    # their launch path (the library and the stream stubbed).
+    import types
+
     from qba_tpu_torch.ops import gf2_sweep as gs
+    from qba_tpu_torch.ops import surface_loop as su
     from qba_tpu_torch.qsim import protocol_circuits as pc
 
     cfg = dataclasses.replace(CFG, round_engine="pallas_mega", **kw)
@@ -355,10 +363,30 @@ def test_chunk_step_is_capturable(kw, monkeypatch):
     keys = psweep.jr.split(root, 4 * CT)
     succ = torch.zeros(4 * CT, dtype=torch.bool)
     offsets = torch.arange(CT)
+    layout = su.SurfaceLayout(3, 4, 5)
+    s_carry = su.new_surface_carry(layout, [0, 3, 9], [0, 1, 2], [0, 0, 1],
+                                   "cpu")
+    s_carry[su.I_CUR] = 2
+    slot = torch.zeros((2, CT), dtype=torch.bool)
+    ci = torch.zeros((2, 3), dtype=torch.float32)
+    launched = []
+    lib = types.SimpleNamespace(
+        qba_surface_pick=lambda *a: launched.append("pick") or 0,
+        qba_surface_fold=lambda *a: launched.append("fold") or 0)
+    monkeypatch.setattr(su, "dispatch", lambda name, tensors: True)
+    monkeypatch.setattr(su, "_lib", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    for fn in (su.surface_pick, su.surface_fold):
+        monkeypatch.setattr(fn, "launches", 0)
     with _HostData() as mode:
         sl.chunk_step(cfg, CT, root, carry, lo, hi)
         sl.prefix_step(cfg, CT, keys, offsets, carry, lo, hi, succ)
+        su.branch_step(cfg, CT, root, s_carry, slot)
+        su.surface_pick(s_carry, ci, layout, CT, 0.95, 0.5, handle=7)
+        su.surface_fold(slot[0], slot[1], lo, hi, s_carry, layout, handle=9)
     assert mode.seen == []
+    assert launched == ["pick", "fold"]
 
 
 @pytest.mark.parametrize("kw", [dict(qsim_path="dense"),
