@@ -208,6 +208,34 @@ Phases, each reported on its own line:
    version, timed.  Then ``python -m qba_tpu_torch serve --transport
    file-queue`` in a process of its own answers one 11p x 1000 request
    dropped in its inbox (equal to a direct run): its wall and engine.
+13. ``fleet_path``: the fleet (``qba_tpu_torch.serve.fleet``).  First the
+   admission's byte model (``analysis.memory.batch_bytes``) held at or
+   above ``torch.cuda.max_memory_allocated`` (above what was held
+   before) for a 64-trial chunk and a 1000-trial batch at 11p/L64/d3,
+   33p/L64/d10 and 33p ``stabilizer``, a 1000-trial ``pallas_fused``
+   batch and a 64-trial ``xla`` batch at 11p.  Then ``python -m qba_tpu_torch fleet --replicas 2
+   --supervise --chunk-trials 64 --depth 2`` in a process group of its
+   own (queue, cache and telemetry under a temporary directory), both
+   workers on card 0: ``serve_path``'s four requests over one socket and
+   one 11p request by HTTP POST, every result equal to a direct
+   ``run_trials`` of its config and keys on the keyed megakernel (or its
+   gen entry); one busy worker SIGKILLed after the first result, the
+   supervisor's respawn, every request answered once; ``GET /metrics``
+   and ``/status``; ``fleet_summary.json``; ``python -m qba_tpu_torch
+   trace`` (one closed trace per request, no orphan span); the card's
+   compute processes (``nvidia-smi``) and each process's open
+   ``/dev/nvidia*`` files (the workers', not the fleet process's); each
+   request's latency and queue wait, each worker's boot (spawn to its
+   ``boot`` note with its first ``idle`` beat) and the respawn (kill to
+   the replacement's); the same mix on a 1-replica and a clean 2-replica
+   fleet, for the wall.  The workers' launches come from their exit
+   summaries.
+14. ``atlas_path``: ``python -m qba_tpu_torch atlas`` over 11p and 33p x
+   dishonest 0 and 1/3 x ``reference`` and ``split`` x noise 0:0 and
+   0.05:0.02 at ``sizeL`` 64 (16 cells, chunks of 64, budget 1024, one
+   escalation) through a supervised 2-replica fleet with one worker
+   SIGKILLed after the first result, and with ``--executor local``: no
+   cell open and the two stores' digests equal.
 
 Any failure exits non-zero.  The line before the last is the kernel
 table as JSON, the one before it the card; the last line is
@@ -3035,33 +3063,527 @@ def serve_path(configs, dev):
                 device=device, sweep_stop_bits=stop_row, cli=cli), launches
 
 
-def wrappers():
-    from qba_tpu_torch.ops import attack_draws as ad
-    from qba_tpu_torch.ops import fused_circuit as fc
-    from qba_tpu_torch.ops import gf2_sweep as gs
-    from qba_tpu_torch.ops import ring_shuffle as rg
-    from qba_tpu_torch.ops import round_kernel as rs
-    from qba_tpu_torch.ops import round_kernel_tiled as rk
-    from qba_tpu_torch.ops import surface_loop as su
-    from qba_tpu_torch.ops import sweep_loop as sl
-    from qba_tpu_torch.ops import trial_megakernel as tm
+# The fleet on the card: two supervised ``serve`` workers behind the
+# socket/HTTP front end, answering SERVE_REQUESTS over a socket and one
+# more request by HTTP POST; one worker SIGKILLed after the first result.
+FLEET_REPLICAS = 2
+# The admission window of every fleet run: the default (8 chunks of 64 a
+# replica) admits one 1000-trial request fleet-wide at a time, so the
+# workers would take turns; this one admits the whole mix.
+FLEET_CAPACITY = 8192
+FLEET_HTTP = ("http-11p", "11p/L64/d3", dict(seed=8))
+# What the workers run: the keyed megakernel on every chunk, its gen
+# entry on the stabilizer request (the results' engine names the
+# megakernel and its entry).
+FLEET_ENGINE = "pallas_mega"
+FLEET_KERNELS = ("trial_megakernel_keyed", "trial_megakernel_gen_keyed")
+# The byte model against the card's peak: a worker's chunk and a batch
+# of each kind of request in the mix, and a per-round engine's batch.
+MEMORY_CASES = (("11p/L64/d3", 64, {}), ("11p/L64/d3", 1000, {}),
+                ("33p/L64/d10", 64, {}), ("33p/L64/d10", 1000, {}),
+                ("33p/L64/d10", 64, {"qsim_path": "stabilizer"}),
+                ("33p/L64/d10", 1000, {"qsim_path": "stabilizer"}),
+                ("11p/L64/d3", 1000, {"round_engine": "pallas_fused"}),
+                ("11p/L64/d3", 64, {"round_engine": "xla"}))
+# The atlas campaign: 2 x 2 x 2 x 2 = 16 cells at full width.
+ATLAS_SPEC = ["--parties", "11", "33", "--dishonest", "0", "1/3",
+              "--strategies", "reference", "split",
+              "--noise", "0:0", "0.05:0.02", "--size-l", "64",
+              "--chunk-trials", "64", "--budget-trials", "1024",
+              "--max-escalations", "1"]
 
-    return {"fused_round": rk.fused_round, "tiled_verdict": rk.tiled_verdict,
-            "tiled_rebuild": rk.tiled_rebuild,
-            "trial_megakernel": tm.trial_megakernel,
-            "round_step": rs.round_step, "fused_circuit": fc.fused_circuit,
-            "gf2_sweep": gs.gf2_sweep,
-            "trial_megakernel_gen": tm.trial_megakernel_gen,
-            "sharded_trial_megakernel": tm.sharded_trial_megakernel,
-            "ring_gather": rg.ring_gather,
-            "attack_draws": ad.attack_draws,
-            "trial_megakernel_keyed": tm.trial_megakernel_keyed,
-            "trial_megakernel_gen_keyed": tm.trial_megakernel_gen_keyed,
-            "sharded_trial_megakernel_keyed":
-                tm.sharded_trial_megakernel_keyed,
-            "sweep_stop": sl.sweep_stop,
-            "surface_pick": su.surface_pick,
-            "surface_fold": su.surface_fold}
+
+def port_cli(*args):
+    """``python -m qba_tpu_torch`` with ``args``, run from the checkout's
+    root."""
+    return [sys.executable, "-m", "qba_tpu_torch", *args]
+
+
+def memory_model(configs):
+    """The admission model's bytes (``analysis.memory.batch_bytes``)
+    against the card's peak for one batch (``torch.cuda.
+    max_memory_allocated`` above what was held before it, after a
+    warm-up of the same shape), at each of ``MEMORY_CASES``.  The model
+    must not undershoot: admission would admit work that runs out of
+    memory."""
+    import dataclasses
+
+    import torch
+
+    import qba_tpu_torch
+    from qba_tpu_torch.analysis.memory import batch_bytes, per_trial_bytes
+
+    rows = []
+    for name, n, kw in MEMORY_CASES:
+        cfg = dataclasses.replace(configs[name], trials=n, **kw)
+        qba_tpu_torch.run_trials(cfg)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = qba_tpu_torch.run_trials(cfg)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        del res
+        model = batch_bytes(cfg, n, "cuda")
+        rows.append(dict(config=name, trials=n, **kw, peak_bytes=peak,
+                         model_bytes=model, peak_per_trial=peak / n,
+                         model_per_trial=per_trial_bytes(cfg, "cuda"),
+                         model_over_peak=model / peak))
+        if model < peak:
+            raise AssertionError(f"memory model {model} B < the card's "
+                                 f"peak {peak} B at {name} {kw} x {n}")
+    return rows
+
+
+def device_fds(pid):
+    """How many of ``pid``'s open files are NVIDIA device nodes (a
+    process that initialised CUDA holds ``/dev/nvidiactl`` and more)."""
+    n = 0
+    for fd in os.listdir(f"/proc/{pid}/fd"):
+        try:
+            n += os.readlink(f"/proc/{pid}/fd/{fd}").startswith("/dev/nvidia")
+        except OSError:
+            pass
+    return n
+
+
+def compute_apps():
+    """``nvidia-smi``'s compute processes as ``{pid: used MiB}``."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60).stdout
+    apps = {}
+    for line in out.splitlines():
+        pid, _, mem = line.partition(",")
+        if pid.strip().isdigit():
+            apps[int(pid)] = float(mem) if mem.strip() else None
+    return apps
+
+
+def card_used_mib():
+    """``nvidia-smi``'s ``memory.used`` of card 0, MiB."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60).stdout.split()[0])
+
+
+def spawn_monotonic(pid):
+    """``pid``'s start on ``time.monotonic()``'s clock (``/proc``'s
+    start time is counted from boot)."""
+    with open(f"/proc/{pid}/stat") as f:
+        ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    boot = time.clock_gettime(time.CLOCK_BOOTTIME) - time.monotonic()
+    return ticks / os.sysconf("SC_CLK_TCK") - boot
+
+
+class BootWatch:
+    """Polls the queue's flight recorders every 5 ms on a thread and
+    keeps each worker incarnation's ``boot`` note (written with its
+    first ``idle`` heartbeat) as ``{(replica, pid): monotonic}``."""
+
+    def __init__(self, qdir, replicas):
+        import threading
+
+        self.qdir, self.replicas = qdir, replicas
+        self.boots = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        from qba_tpu_torch.serve.queuefs import read_flight_recorder
+
+        while not self._stop.wait(0.005):
+            for rid in self.replicas:
+                rec = read_flight_recorder(self.qdir, rid)
+                if rec is None or (rid, rec.get("pid")) in self.boots:
+                    continue
+                for ev in rec.get("events", []):
+                    if ev.get("event") == "boot":
+                        self.boots[(rid, rec["pid"])] = ev["monotonic"]
+
+    def wait(self, n, timeout):
+        """Block until ``n`` incarnations have booted."""
+        end = time.monotonic() + timeout
+        while len(self.boots) < n:
+            if time.monotonic() > end:
+                raise AssertionError(f"fleet: {len(self.boots)} of {n} "
+                                     f"workers booted in {timeout} s")
+            time.sleep(0.01)
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=10)
+
+
+def http(port, raw):
+    """One HTTP exchange on the front end: ``(status, body)``."""
+    import socket
+
+    with socket.create_connection(("127.0.0.1", port), timeout=600) as c:
+        c.sendall(raw)
+        buf = b""
+        while chunk := c.recv(65536):
+            buf += chunk
+    head, _, body = buf.partition(b"\r\n\r\n")
+    return int(head.split(b" ")[1]), body
+
+
+def fleet_run(reqs, http_req, direct, *, replicas, chaos, root, cache,
+              label):
+    """``python -m qba_tpu_torch fleet --replicas N --supervise`` in a
+    process group of its own over a fresh queue (and telemetry) dir;
+    ``reqs`` over one socket, results read as they land, and
+    ``http_req`` by HTTP POST once they have; with ``chaos`` one busy
+    worker SIGKILLed after the first result.  Every result is held
+    against ``direct`` (a direct ``run_trials`` of its config and keys).
+    Returns the run's record and the workers' kernel launches."""
+    import signal
+    import socket
+
+    from qba_tpu_torch.obs.metrics import validate_exposition
+    from qba_tpu_torch.serve.queuefs import queue_paths, read_heartbeat
+
+    qdir, tel = os.path.join(root, label, "q"), os.path.join(root, label,
+                                                             "t")
+    err_path = os.path.join(root, label, "fleet.stderr")
+    os.makedirs(os.path.dirname(err_path), exist_ok=True)
+    n_req = len(reqs) + 1
+    rids = [f"r{i}" for i in range(replicas)]
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            port_cli("fleet", "--queue-dir", qdir, "--replicas",
+                     str(replicas), "--supervise", "--chunk-trials",
+                     str(SERVE_CHUNK), "--depth", "2", "--cache-dir", cache,
+                     "--telemetry", tel, "--max-requests", str(n_req),
+                     "--capacity-trials", str(FLEET_CAPACITY)),
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.DEVNULL, stderr=err, start_new_session=True)
+    used_before = card_used_mib()
+    watch = BootWatch(qdir, rids)
+    try:
+        port = None
+        end = time.monotonic() + 120
+        while port is None:
+            if proc.poll() is not None or time.monotonic() > end:
+                raise AssertionError(f"fleet {label} did not listen: "
+                                     f"{open(err_path).read()[-2000:]}")
+            for line in open(err_path):
+                if '"listening"' in line:
+                    port = int(json.loads(line)["fleet"]["listening"]
+                               .rsplit(":", 1)[1])
+            time.sleep(0.05)
+        watch.wait(replicas, timeout=300)
+        with open(os.path.join(qdir, "replicas.json")) as f:
+            pids = {r["replica_id"]: r["pid"]
+                    for r in json.load(f)["replicas"]}
+        boot_s = {rid: watch.boots[(rid, pid)] - spawn_monotonic(pid)
+                  for rid, pid in pids.items()}
+        used_idle = card_used_mib()
+        sent, got, client_s = {}, {}, {}
+        t0 = time.perf_counter()
+        conn = socket.create_connection(("127.0.0.1", port), timeout=600)
+        wire = conn.makefile("rw")
+        for req in reqs:
+            sent[req.request_id] = time.perf_counter()
+            wire.write(json.dumps(req.to_json()) + "\n")
+        wire.flush()
+        conn.shutdown(socket.SHUT_WR)
+        apps = kill = None
+        for line in wire:
+            res = json.loads(line)
+            rid = res["request_id"]
+            if rid in got:
+                raise AssertionError(f"fleet {label}: {rid} answered twice")
+            got[rid] = res
+            client_s[rid] = time.perf_counter() - sent[rid]
+            if len(got) == 1:
+                apps, used_busy = compute_apps(), card_used_mib()
+                fds = {"fleet": device_fds(proc.pid),
+                       **{rid: device_fds(pid) for rid, pid in pids.items()}}
+            if len(got) == 1 and chaos:
+                busy = [rid for rid in rids
+                        if (read_heartbeat(qdir, rid) or {}).get(
+                            "phase", "idle") != "idle"]
+                victim = (busy or rids)[-1]
+                os.kill(pids[victim], signal.SIGKILL)
+                kill = dict(replica=victim, pid=pids[victim],
+                            at=time.monotonic(),
+                            phase=(read_heartbeat(qdir, victim) or {}).get(
+                                "phase"))
+        conn.close()
+        mix_s = time.perf_counter() - t0
+        code, metrics = http(port, b"GET /metrics HTTP/1.1\r\n\r\n")
+        problems = validate_exposition(metrics.decode())
+        if code != 200 or problems or b"qba_intake_requests_total" not in (
+                metrics):
+            raise AssertionError(f"fleet {label}: GET /metrics {code}: "
+                                 f"{problems[:3]}")
+        code, status = http(port, b"GET /status HTTP/1.1\r\n\r\n")
+        status = json.loads(status)
+        body = (json.dumps(http_req.to_json()) + "\n").encode()
+        t1 = time.perf_counter()
+        code, out = http(port, b"POST /eval HTTP/1.1\r\nContent-Length: "
+                         + str(len(body)).encode() + b"\r\n\r\n" + body)
+        client_s[http_req.request_id] = time.perf_counter() - t1
+        if code != 200:
+            raise AssertionError(f"fleet {label}: POST answered {code}")
+        [res] = [json.loads(ln) for ln in out.splitlines() if ln.strip()]
+        got[res["request_id"]] = res
+        proc.wait(timeout=300)
+    finally:
+        watch.stop()
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"fleet {label} exited {proc.returncode}: "
+                             f"{open(err_path).read()[-2000:]}")
+    for rid, want in direct.items():
+        res = got.get(rid)
+        if res is None or res["error"] is not None:
+            raise AssertionError(f"fleet {label} {rid}: "
+                                 f"{res and res['error']}")
+        n = res["n_trials"]
+        if res["success"] != want.success[:n].tolist() or (
+                res.get("decisions") is not None
+                and res["decisions"] != want.decisions.tolist()):
+            raise AssertionError(f"fleet {label} {rid}: != a direct "
+                                 "run_trials of its keys")
+        if not res["engine"].startswith(FLEET_ENGINE):
+            raise AssertionError(f"fleet {label} {rid}: engine "
+                                 f"{res['engine']}")
+    paths = queue_paths(qdir)
+    consumed = sorted(os.listdir(paths["consumed"]))
+    if consumed != sorted(f"{rid}.json" for rid in direct) or os.listdir(
+            paths["outbox"]):
+        raise AssertionError(f"fleet {label}: results {consumed}")
+    with open(os.path.join(qdir, "fleet_summary.json")) as f:
+        summary = json.load(f)
+    if summary["completed"] != n_req or summary["errored"]:
+        raise AssertionError(f"fleet {label}: summary {summary['completed']}"
+                             f" completed, {summary['errored']} errored")
+    # The workers' exit summaries.  A SIGKILLed incarnation writes none
+    # and its replacement reuses the id, so the counts leave out what the
+    # killed worker launched.
+    launches = {}
+    for name in os.listdir(qdir):
+        if name.startswith("summary-"):
+            with open(os.path.join(qdir, name)) as f:
+                counts = json.load(f)["resolver"]["kernel_launches"]
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+    record = dict(
+        replicas=replicas, chaos=kill is not None, mix_wall_s=mix_s,
+        boot_s=boot_s, launches=launches,
+        requests={rid: dict(latency_s=r["latency_s"],
+                            queue_wait_s=r["queue_wait_s"],
+                            client_s=client_s[rid], replica=r["replica_id"],
+                            trials=r["n_trials"], chunks=r["chunks"])
+                  for rid, r in sorted(got.items())},
+        replica_latency={rid: {k: v["latency"].get(k)
+                               for k in ("count", "p50_s", "p99_s")}
+                         for rid, v in summary["replicas"].items()
+                         if "latency" in v},
+        self_healing=summary.get("self_healing"),
+        status_replicas=sorted(status.get("replicas") or {}))
+    if apps is not None:
+        # The card's memory in use before the fleet, with its workers
+        # booted and idle, and at the first result (MiB).
+        record.update(compute_apps=apps, device_fds=fds,
+                      fleet_pid=proc.pid, worker_pids=pids,
+                      card_used_mib=dict(before=used_before, idle=used_idle,
+                                         busy=used_busy))
+    if kill is not None:
+        respawn = [(pid, t) for (rid, pid), t in watch.boots.items()
+                   if rid == kill["replica"] and pid != kill["pid"]]
+        if not respawn:
+            raise AssertionError(f"fleet {label}: {kill['replica']} was "
+                                 "not respawned")
+        record["kill"] = dict(kill, respawn_s=respawn[0][1] - kill["at"],
+                              new_pid=respawn[0][0])
+        del record["kill"]["at"]
+        if not summary["self_healing"]["respawned"]:
+            raise AssertionError(f"fleet {label}: no respawn recorded")
+    return record, tel, qdir
+
+
+def fleet_path(configs, dev):
+    """The fleet (``qba_tpu_torch.serve.fleet``) on the card: the byte
+    model against the peak (``memory_model``); ``python -m qba_tpu_torch
+    fleet --replicas 2 --supervise`` answering SERVE_REQUESTS over a
+    socket and one more by HTTP POST, one worker SIGKILLed after the
+    first result (respawned, every request answered once, equal to a
+    direct ``run_trials``), its fleet summary, ``GET /metrics``, ``python
+    -m qba_tpu_torch trace`` (one closed trace per request) and the
+    card's compute processes (the two workers, not the fleet process);
+    then the same mix on a 1-replica and a clean 2-replica fleet, for
+    the wall.  Returns ``(report, launches)``."""
+    import shutil
+    import tempfile
+
+    from qba_tpu_torch.backends.torch_backend import run_trials
+    from qba_tpu_torch.serve import EvalRequest
+
+    def request(rid, name, kw):
+        c = configs[name]
+        return EvalRequest(request_id=rid, n_parties=c.n_parties,
+                           size_l=c.size_l, n_dishonest=c.n_dishonest,
+                           trials=SERVE_TRIALS, **kw)
+
+    mem = memory_model(configs)
+    log("fleet_path", part="memory_model", cases=mem)
+    reqs = [request(*r) for r in SERVE_REQUESTS]
+    http_req = request(*FLEET_HTTP)
+    direct = {r.request_id: run_trials(r.config()).trials
+              for r in reqs + [http_req]}
+    root = tempfile.mkdtemp(prefix="qba_fleet_")
+    cache = os.path.join(root, "cache")
+    launches = {}
+    try:
+        runs = {}
+        for label, replicas, chaos in (("chaos", FLEET_REPLICAS, True),
+                                       ("one", 1, False),
+                                       ("two", FLEET_REPLICAS, False)):
+            rec, tel, qdir = fleet_run(
+                reqs, http_req, direct, replicas=replicas, chaos=chaos,
+                root=root, cache=cache, label=label)
+            runs[label] = rec
+            for k, v in rec["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+            if label == "chaos":
+                proc = subprocess.run(
+                    port_cli("trace", "--queue-dir", qdir, "--telemetry",
+                             tel), capture_output=True, text=True,
+                    timeout=300, cwd=os.path.dirname(os.path.abspath(
+                        __file__)))
+                traces = json.loads(proc.stdout)["summary"]
+                out = os.path.join(root, "trace.json")
+                proc2 = subprocess.run(
+                    port_cli("trace", "--queue-dir", qdir, "--telemetry",
+                             tel, "--out", out), capture_output=True,
+                    text=True, timeout=300,
+                    cwd=os.path.dirname(os.path.abspath(__file__)))
+                exported = json.loads(proc2.stdout)
+                n = len(direct)
+                if (traces["count"], traces["closed"], traces["open"],
+                        traces["orphan_spans"], exported["traces"]) != (
+                            n, n, 0, 0, n):
+                    raise AssertionError(f"fleet trace: {traces}, "
+                                         f"{exported}")
+                rec["traces"] = dict(traces, exported_events=exported[
+                    "events"])
+            log("fleet_path", part=label, **rec)
+        for k in FLEET_KERNELS:
+            if not runs["chaos"]["launches"].get(k):
+                raise AssertionError(f"fleet: the workers launched no {k}: "
+                                     f"{runs['chaos']['launches']}")
+        chaos = runs["chaos"]
+        apps, fds = chaos["compute_apps"], chaos["device_fds"]
+        workers = set(chaos["worker_pids"].values())
+        if fds["fleet"] or not all(fds[r] for r in chaos["worker_pids"]):
+            raise AssertionError(f"fleet: device files {fds}")
+        if os.getpid() in apps:
+            # nvidia-smi sees this machine's pids: the workers are there
+            # and the fleet process is not.
+            if chaos["fleet_pid"] in apps or not workers <= set(apps):
+                raise AssertionError(f"fleet: compute apps {apps}, "
+                                     f"workers {workers}")
+            worker_mib = {p: apps[p] for p in workers}
+            how = "pids"
+        else:
+            # nvidia-smi reports the pids of another namespace: the open
+            # device files above are the proof, and the card's memory in
+            # use on the clean 2-replica fleet, less before it, is its
+            # workers' (idle, and at the first result).
+            used = runs["two"]["card_used_mib"]
+            worker_mib = {k: (used[k] - used["before"]) / FLEET_REPLICAS
+                          for k in ("idle", "busy")}
+            how = "device files; nvidia-smi pids of another namespace"
+        report = dict(memory_model=mem, runs=runs, worker_mib=worker_mib,
+                      compute_apps_by=how,
+                      one_replica_wall_s=runs["one"]["mix_wall_s"],
+                      two_replica_wall_s=runs["two"]["mix_wall_s"])
+        log("fleet_path", part="card", compute_apps_by=how,
+            worker_mib=worker_mib, device_fds=fds,
+            one_replica_wall_s=report["one_replica_wall_s"],
+            two_replica_wall_s=report["two_replica_wall_s"])
+        return report, launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def atlas_path():
+    """``python -m qba_tpu_torch atlas`` over ``ATLAS_SPEC`` (16 cells)
+    through a supervised 2-replica fleet with one worker SIGKILLed after
+    the first result, and in process (``--executor local``): every cell
+    closed and the two stores' digests equal.  Returns ``(report,
+    launches)``."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="qba_atlas_")
+    cwd = os.path.dirname(os.path.abspath(__file__))
+    try:
+        runs = {}
+        for executor in ("fleet", "local"):
+            args = ["atlas", "--store", os.path.join(root, executor),
+                    *ATLAS_SPEC, "--executor", executor,
+                    "--capacity-trials", str(FLEET_CAPACITY)]
+            if executor == "fleet":
+                args += ["--queue-dir", os.path.join(root, "q"),
+                         "--replicas", str(FLEET_REPLICAS), "--supervise",
+                         "--chaos-kill", "--cache-dir",
+                         os.path.join(root, "cache")]
+            t0 = time.perf_counter()
+            proc = subprocess.run(port_cli(*args), capture_output=True,
+                                  text=True, timeout=900, cwd=cwd)
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"atlas {executor} exited "
+                                     f"{proc.returncode}: "
+                                     f"{proc.stderr[-2000:]}")
+            summary = json.loads(proc.stdout)["atlas"]
+            runs[executor] = dict(
+                wall_s=wall, cells=summary["cells"],
+                certified=summary["certified"], refused=summary["refused"],
+                open=summary["open"], store_digest=summary["store_digest"],
+                escalated=summary["metrics"]["escalated"],
+                budget_trials=summary["metrics"]["budget_trials"],
+                chaos=[json.loads(ln)["chaos"]
+                       for ln in proc.stderr.splitlines()
+                       if ln.startswith('{"chaos"')],
+                self_healing=summary.get("self_healing"))
+        fleet, local = runs["fleet"], runs["local"]
+        # As in fleet_run: the killed incarnation's launches are left out.
+        launches = {}
+        qdir = os.path.join(root, "q")
+        for name in os.listdir(qdir):
+            if name.startswith("summary-"):
+                with open(os.path.join(qdir, name)) as f:
+                    for k, v in json.load(f)["resolver"][
+                            "kernel_launches"].items():
+                        launches[k] = launches.get(k, 0) + v
+        if (fleet["open"], local["open"]) != (0, 0) or (
+                fleet["store_digest"] != local["store_digest"]) or (
+                fleet["cells"] != 16) or not fleet["chaos"]:
+            raise AssertionError(f"atlas: fleet {fleet} against local "
+                                 f"{local}")
+        if not all(launches.get(k) for k in FLEET_KERNELS[:1]):
+            raise AssertionError(f"atlas: the workers launched {launches}")
+        report = dict(runs=runs, launches=launches)
+        log("atlas_path", **report)
+        return report, launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def wrappers():
+    from qba_tpu_torch.ops import kernel_wrappers
+
+    return kernel_wrappers()
 
 
 def drive(cfg, engine, mesh=None):
@@ -3735,6 +4257,19 @@ def main(argv):
     report["serve_path"]["phase_s"] = time.perf_counter() - t0
     for k, n in serve_launches.items():
         launches[k] += n
+
+    # The fleet: two supervised workers on the card behind the front
+    # end; then the atlas campaign through a fleet and in process.  The
+    # workers' launches come from their exit summaries.
+    for phase, run in (("fleet_path", lambda: fleet_path(dict(main_cfgs),
+                                                         dev)),
+                       ("atlas_path", atlas_path)):
+        t0 = time.perf_counter()
+        report[phase], phase_launches = run()
+        report[phase]["phase_s"] = time.perf_counter() - t0
+        log(phase, part="phase", seconds=report[phase]["phase_s"])
+        for k, n in phase_launches.items():
+            launches[k] += n
 
     big = runs[-1]
     kernels = []

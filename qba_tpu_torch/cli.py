@@ -1,5 +1,6 @@
-"""Command-line interface: ``python -m qba_tpu_torch {sweep,study,serve}``
-— those subcommands of :mod:`qba_tpu.cli`, with their flags, on the port.
+"""Command-line interface: ``python -m qba_tpu_torch
+{sweep,study,serve,fleet,atlas,trace}`` — those subcommands of
+:mod:`qba_tpu.cli`, with their flags, on the port.
 
 * ``sweep`` — chunked, checkpoint-resumable Monte-Carlo sweep, fixed
   budget or precision-targeted (``--target``); ``--dispatch device`` runs
@@ -9,13 +10,22 @@
 * ``serve`` — persistent evaluation service: answers request streams
   (stdin-JSONL or file-queue) with shape-bucketed, double-buffered
   dispatch and per-request run manifests (:mod:`qba_tpu_torch.serve`).
+* ``fleet`` — N supervised ``serve`` workers behind a socket/HTTP JSONL
+  front end with target-aware admission (:mod:`qba_tpu_torch.serve.fleet`).
+* ``atlas`` — a (parties x dishonest x strategy x noise) campaign,
+  every cell certified to a precision target, locally or through a
+  fleet (:mod:`qba_tpu_torch.atlas`).
+* ``trace`` — one fleet run's lifecycle events and worker span files
+  stitched into per-request traces (:mod:`qba_tpu_torch.obs.tracing`).
 
-Each runs on CUDA; ``--device cpu`` runs the plain PyTorch versions.
-``--plot`` needs matplotlib, and without it is a clean usage error.
+Each runs on CUDA; ``--device cpu`` runs the plain PyTorch versions (a
+fleet's workers too).  ``--plot`` needs matplotlib, and without it is a
+clean usage error.
 
 The JAX package's other subcommands are named here and refuse with the
-ROADMAP item that ports them: ``fleet`` (A10b); ``run``, ``bench``,
-``lint``, ``atlas`` and ``trace`` (A13).
+ROADMAP item that ports them: ``bench`` (A11); ``run`` and ``lint``
+(A13).  So do the fleet's mesh flags (A12b): the port's worker serves no
+mesh.
 """
 
 from __future__ import annotations
@@ -31,8 +41,7 @@ from qba_tpu_torch.obs.plots import PlottingUnavailableError
 from qba_tpu_torch.serve import timing as _timing
 
 # Subcommands of the JAX package's CLI not ported yet, and their items.
-_NOT_PORTED = {"run": "A13", "bench": "A13", "lint": "A13",
-               "fleet": "A10b", "atlas": "A13", "trace": "A13"}
+_NOT_PORTED = {"run": "A13", "bench": "A11", "lint": "A13"}
 
 
 def _add_config_args(p: argparse.ArgumentParser, trials_default: int) -> None:
@@ -313,10 +322,272 @@ def _parser() -> argparse.ArgumentParser:
         "clobber each other",
     )
     _add_device_arg(serve)
+    _add_fleet_parser(sub)
+    _add_atlas_parser(sub)
+    _add_trace_parser(sub)
     for name, item in _NOT_PORTED.items():
         sub.add_parser(name, help=f"not ported yet (ROADMAP {item})",
                        add_help=False, prefix_chars="\0")
     return parser
+
+
+def _add_fleet_parser(sub) -> None:
+    fleet = sub.add_parser(
+        "fleet",
+        help="multi-replica serving: socket/HTTP front end + N card-"
+        "pinned serve workers over one shared file queue, with target-"
+        "aware admission",
+    )
+    fleet.add_argument(
+        "--queue-dir", metavar="DIR", required=True,
+        help="shared queue directory (created if missing); the fleet "
+        "summary lands here as fleet_summary.json",
+    )
+    fleet.add_argument(
+        "--replicas", type=int, default=2,
+        help="worker processes; each runs the file-queue serve loop "
+        "pinned to one card (CUDA_VISIBLE_DEVICES: replica K on card K "
+        "modulo the cards)",
+    )
+    fleet.add_argument("--host", default="127.0.0.1",
+                       help="front-end listen address")
+    fleet.add_argument(
+        "--port", type=int, default=0,
+        help="front-end listen port (0 = ephemeral; the bound port is "
+        "printed to stderr at boot)",
+    )
+    fleet.add_argument(
+        "--chunk-trials", type=int, default=64,
+        help="trials per device chunk (shared by workers and the "
+        "admission price quantizer)",
+    )
+    fleet.add_argument("--depth", type=int, default=2,
+                       help="per-replica double-buffer depth")
+    fleet.add_argument(
+        "--cache-dir", metavar="DIR", default=None,
+        help="shared warm-start artifact directory; the plans.json "
+        "file lock makes concurrent replica boots/saves safe",
+    )
+    fleet.add_argument(
+        "--telemetry", metavar="DIR", default=None,
+        help="per-request telemetry root shared by all replicas (each "
+        "request dir carries its replica_id)",
+    )
+    fleet.add_argument(
+        "--deadline-s", type=float, default=None,
+        help="per-request wall-clock deadline inside each worker",
+    )
+    fleet.add_argument(
+        "--reclaim-timeout-s", type=float,
+        default=_timing.RECLAIM_TIMEOUT_S,
+        help="crash recovery: claims older than this with no result "
+        "are pushed back to the inbox for a surviving replica",
+    )
+    fleet.add_argument(
+        "--max-reclaims", type=int, default=_timing.MAX_RECLAIMS,
+        help="reclaim attempts per request before dead-lettering",
+    )
+    fleet.add_argument(
+        "--max-requests", type=int, default=None,
+        help="front end exits after fully answering this many "
+        "requests; default: run until SIGINT",
+    )
+    fleet.add_argument(
+        "--no-admission", action="store_true",
+        help="disable the admission layer (every request goes straight "
+        "to the queue; no pricing, no defer/reject)",
+    )
+    fleet.add_argument(
+        "--capacity-trials", type=int, default=None,
+        help="admission window: max priced-but-unsettled trials "
+        "fleet-wide (default: replicas * window-chunks * chunk-trials)",
+    )
+    fleet.add_argument(
+        "--window-chunks", type=int, default=8,
+        help="per-replica chunks of headroom in the default capacity "
+        "window",
+    )
+    fleet.add_argument(
+        "--mesh-dp", type=int, default=None,
+        help="not ported (ROADMAP A12b): the port's worker serves no mesh",
+    )
+    fleet.add_argument(
+        "--mesh-tp", type=int, default=None,
+        help="not ported (ROADMAP A12b): the port's worker serves no mesh",
+    )
+    fleet.add_argument(
+        "--tp-comms", default=None, choices=("ring", "all_gather"),
+        help="not ported (ROADMAP A12b): the port's worker serves no mesh",
+    )
+    fleet.add_argument(
+        "--poll-s", type=float, default=_timing.WORKER_POLL_S,
+        help="worker inbox poll interval (the front-end outbox poll "
+        "runs at timing.FRONTEND_POLL_S)",
+    )
+    fleet.add_argument(
+        "--supervise", action="store_true",
+        help="run the self-healing supervisor: heartbeat watchdog "
+        "(SIGKILL hung workers), immediate claim release + poison "
+        "quarantine on worker death, crash-loop breaker, respawn "
+        "with backoff",
+    )
+    fleet.add_argument(
+        "--watchdog-s", type=float, default=_timing.WATCHDOG_S,
+        help="base heartbeat staleness budget; the compile phase (a "
+        "bucket's first dispatch: its kernels' build and load) gets "
+        "timing.WATCHDOG_PHASE_SCALE x",
+    )
+    fleet.add_argument(
+        "--breaker-k", type=int, default=_timing.BREAKER_K,
+        help="crash-loop breaker: deaths of one replica slot inside "
+        "--breaker-window-s that bench it for good",
+    )
+    fleet.add_argument(
+        "--breaker-window-s", type=float,
+        default=_timing.BREAKER_WINDOW_S,
+        help="crash-loop breaker window (seconds)",
+    )
+    fleet.add_argument(
+        "--poison-threshold", type=int, default=_timing.POISON_THRESHOLD,
+        help="worker deaths blamed on one request before it is "
+        "quarantined (dead-lettered with a crash report)",
+    )
+    fleet.add_argument(
+        "--max-respawns", type=int, default=_timing.MAX_RESPAWNS,
+        help="respawns per replica slot before it is benched",
+    )
+    fleet.add_argument(
+        "--respawn-backoff-s", type=float,
+        default=_timing.RESPAWN_BACKOFF_S,
+        help="base exponential backoff between respawns of one slot",
+    )
+    _add_device_arg(fleet)
+
+
+def _add_atlas_parser(sub) -> None:
+    atlas = sub.add_parser(
+        "atlas",
+        help="4-D validity-atlas campaign: enumerate the (parties x "
+        "dishonest x strategy x noise) cube, certify every cell to a "
+        "precision target, and render the phase diagram",
+    )
+    atlas.add_argument(
+        "--store", metavar="DIR", required=True,
+        help="atlas store directory (content-addressed cell records + "
+        "campaign ledger + rendered atlas.json); resumable: an "
+        "interrupted campaign restarts from the ledger here",
+    )
+    atlas.add_argument("--parties", type=int, nargs="+", required=True,
+                       help="party counts, e.g. --parties 4 7 13")
+    atlas.add_argument(
+        "--dishonest", nargs="+", required=True,
+        help="traitor counts (integers) and/or fractions of n "
+        "('1/3', '0.4'), resolved per party count, e.g. "
+        "--dishonest 0 1 1/3",
+    )
+    atlas.add_argument(
+        "--strategies", nargs="+", default=["reference"],
+        help="adversary strategies (reference collude adaptive split)",
+    )
+    atlas.add_argument(
+        "--noise", nargs="+", default=["0:0"], metavar="P:Q",
+        help="noise points as p_depolarize:p_measure_flip pairs, e.g. "
+        "--noise 0:0 0.01:0 0:0.02",
+    )
+    atlas.add_argument("--size-l", type=int, default=4, help="protocol sizeL")
+    atlas.add_argument("--seed", type=int, default=0, help="campaign seed")
+    atlas.add_argument(
+        "--target", default="decide vs 1/3 @ 95%",
+        help="per-cell precision target (stats target grammar)",
+    )
+    atlas.add_argument(
+        "--budget-trials", type=int, default=1024,
+        help="wave-0 per-cell trial budget; unresolved cells escalate",
+    )
+    atlas.add_argument(
+        "--escalation", type=float, default=4.0,
+        help="budget multiplier per escalation wave (frontier cells "
+        "only; interior cells resolve on wave 0)",
+    )
+    atlas.add_argument(
+        "--max-escalations", type=int, default=2,
+        help="escalation waves before a cell is refused as truncated",
+    )
+    atlas.add_argument(
+        "--chunk-trials", type=int, default=64,
+        help="trials per device chunk (shared with admission pricing)",
+    )
+    atlas.add_argument("--engine", default="auto",
+                       help="round engine for every cell")
+    atlas.add_argument(
+        "--executor", choices=("local", "fleet"), default="local",
+        help="local = in-process server; fleet = file-queue replicas "
+        "under this driver (needs --queue-dir)",
+    )
+    atlas.add_argument("--queue-dir", metavar="DIR", default=None,
+                       help="fleet executor: shared queue directory")
+    atlas.add_argument("--replicas", type=int, default=2,
+                       help="fleet executor: worker processes")
+    atlas.add_argument(
+        "--supervise", action="store_true",
+        help="fleet executor: run the self-healing supervisor "
+        "(watchdog, claim release, poison quarantine, respawn)",
+    )
+    atlas.add_argument("--cache-dir", metavar="DIR", default=None,
+                       help="shared warm-start artifact directory")
+    atlas.add_argument("--telemetry", metavar="DIR", default=None,
+                       help="per-request telemetry root")
+    atlas.add_argument(
+        "--capacity-trials", type=int, default=None,
+        help="admission window override (default: replicas * 8 chunks)",
+    )
+    atlas.add_argument("--window-chunks", type=int, default=8,
+                       help="per-replica chunks of admission headroom")
+    atlas.add_argument(
+        "--chaos-kill", action="store_true",
+        help="fleet executor: SIGKILL one worker after the first "
+        "result lands (the supervisor + campaign ledger must finish "
+        "the cube anyway)",
+    )
+    atlas.add_argument(
+        "--max-results", type=int, default=None,
+        help="interrupt the driver after N processed results (exit 3; "
+        "re-run with the same spec to resume from the ledger)",
+    )
+    atlas.add_argument(
+        "--plot", metavar="DIR", default=None,
+        help="also render per-slice PNGs + the noise fence figure into "
+        "DIR (requires matplotlib)",
+    )
+    _add_device_arg(atlas)
+
+
+def _add_trace_parser(sub) -> None:
+    trace = sub.add_parser(
+        "trace",
+        help="stitch one fleet run's lifecycle events + worker span "
+        "files into causal per-request traces; print the summary or "
+        "export Perfetto-loadable trace JSON",
+    )
+    trace.add_argument(
+        "trace_id", nargs="?", default=None,
+        help="a trace id (or request id) to select; omitted = all "
+        "stitched traces",
+    )
+    trace.add_argument(
+        "--queue-dir", metavar="DIR", required=True,
+        help="the fleet queue directory (holds trace-events.jsonl)",
+    )
+    trace.add_argument(
+        "--telemetry", metavar="DIR", default=None,
+        help="per-request telemetry root with the worker span files; "
+        "without it traces stitch from lifecycle events alone",
+    )
+    trace.add_argument(
+        "--out", metavar="PATH", default=None,
+        help="write Chrome/Perfetto trace-event JSON here instead of "
+        "printing the stitched summary",
+    )
 
 
 def _cache_stats(args: argparse.Namespace) -> dict:
@@ -514,6 +785,300 @@ def _cmd_serve(args: argparse.Namespace, out) -> int:
     return 0
 
 
+def _cmd_trace(args: argparse.Namespace, out) -> int:
+    from qba_tpu_torch.obs.tracing import (
+        stitch_traces,
+        stitched_chrome_trace,
+        trace_summary,
+    )
+
+    stitched = stitch_traces(args.queue_dir, telemetry_dir=args.telemetry)
+    traces = stitched["traces"]
+    selected = sorted(traces)
+    if args.trace_id is not None:
+        selected = [
+            tid for tid, t in traces.items()
+            if tid == args.trace_id
+            or tid.startswith(args.trace_id)
+            or t.get("request_id") == args.trace_id
+        ]
+        if not selected:
+            print(
+                f"error: no stitched trace matches {args.trace_id!r} "
+                f"({len(traces)} trace(s) in {args.queue_dir})",
+                file=sys.stderr,
+            )
+            return 1
+    if args.out:
+        chrome = stitched_chrome_trace(stitched, trace_ids=selected)
+        with open(args.out, "w") as fh:
+            json.dump(chrome, fh, indent=1)
+        print(json.dumps({"trace_json": args.out, "traces": len(selected),
+                          "events": len(chrome["traceEvents"])}), file=out)
+        return 0
+    payload = {
+        "summary": trace_summary(stitched),
+        "traces": [
+            {
+                "trace_id": tid,
+                "request_id": traces[tid].get("request_id"),
+                "closed": traces[tid]["closed"],
+                "dur_s": round(traces[tid]["dur"], 6),
+                "coverage": traces[tid]["coverage"],
+                "segments": traces[tid]["segments"],
+                "events": [e["event"] for e in traces[tid]["events"]],
+            }
+            for tid in selected
+        ],
+    }
+    print(json.dumps(payload, indent=1, default=str), file=out)
+    return 0
+
+
+def _start_supervisor(supervisor):
+    """Run ``supervisor`` on a daemon thread; returns ``(stop_event,
+    thread)`` (the thread None without a supervisor)."""
+    import threading
+
+    stop = threading.Event()
+    if supervisor is None:
+        return stop, None
+    thread = threading.Thread(target=supervisor.run, args=(stop,),
+                              daemon=True)
+    thread.start()
+    return stop, thread
+
+
+def _cmd_atlas(args: argparse.Namespace, out) -> int:
+    import time
+
+    from qba_tpu_torch.analysis.memory import device_memory_bytes
+    from qba_tpu_torch.atlas import (
+        AtlasStore,
+        CampaignDriver,
+        CampaignSpec,
+        FleetExecutor,
+        LocalExecutor,
+    )
+    from qba_tpu_torch.atlas.cube import parse_dishonest
+    from qba_tpu_torch.serve.fleet import AdmissionController
+
+    noise: list[tuple[float, float]] = []
+    for tok in args.noise:
+        p, sep, q = tok.partition(":")
+        if not sep:
+            raise ValueError(
+                f"--noise wants p_depolarize:p_measure_flip, got {tok!r}")
+        noise.append((float(p), float(q or 0)))
+    spec = CampaignSpec(
+        parties=tuple(args.parties),
+        dishonest=parse_dishonest(args.dishonest),
+        strategies=tuple(args.strategies),
+        noise_points=tuple(noise),
+        size_l=args.size_l,
+        seed=args.seed,
+        chunk_trials=args.chunk_trials,
+        budget_trials=args.budget_trials,
+        escalation=args.escalation,
+        max_escalations=args.max_escalations,
+        target=args.target,
+        round_engine=args.engine,
+    )
+    store = AtlasStore(args.store)
+    admission = AdmissionController(
+        chunk_trials=args.chunk_trials,
+        replicas=args.replicas if args.executor == "fleet" else 1,
+        capacity_trials=args.capacity_trials,
+        window_chunks=args.window_chunks,
+        hbm_bytes=device_memory_bytes(args.device),
+        device=args.device,
+    )
+    pool = supervisor = None
+    on_result = None
+    t0 = time.monotonic()
+    if args.executor == "fleet":
+        if not args.queue_dir:
+            raise ValueError("--executor fleet requires --queue-dir")
+        from qba_tpu_torch.serve.fleet import FleetSupervisor, ReplicaPool
+
+        executor = FleetExecutor(args.queue_dir)
+        pool = ReplicaPool(
+            args.queue_dir,
+            replicas=args.replicas,
+            chunk_trials=args.chunk_trials,
+            cache_dir=args.cache_dir,
+            telemetry_dir=args.telemetry,
+            device=args.device,
+        )
+        if args.supervise:
+            supervisor = FleetSupervisor(pool, admission=admission)
+        if args.chaos_kill:
+            killed = []
+
+            def on_result(count: int, payload: dict) -> None:
+                # One SIGKILL, after the first result proves the fleet
+                # works: the supervisor + ledger must finish the cube.
+                if count == 1 and not killed:
+                    alive = pool.alive()
+                    if alive:
+                        victim = alive[-1]
+                        pid = pool.kill(victim)
+                        killed.append(victim)
+                        print(json.dumps({"chaos": {"killed": victim,
+                                                    "pid": pid}}),
+                              file=sys.stderr, flush=True)
+
+        pool.start()
+    else:
+        executor = LocalExecutor(
+            chunk_trials=args.chunk_trials,
+            cache_dir=args.cache_dir,
+            telemetry_dir=args.telemetry,
+            device=_device(args),
+        )
+    sup_stop, sup_thread = _start_supervisor(supervisor)
+    driver = CampaignDriver(
+        store,
+        spec,
+        executor,
+        admission=admission,
+        log=lambda s: print(s, file=sys.stderr, flush=True),
+        max_results=args.max_results,
+        on_result=on_result,
+    )
+    try:
+        summary = driver.run()
+    finally:
+        # Stop supervising BEFORE stopping the pool (as `fleet` does: a
+        # draining worker must not be watchdogged).
+        sup_stop.set()
+        if sup_thread is not None:
+            sup_thread.join(timeout=30)
+        if pool is not None:
+            pool.stop()
+    summary["elapsed_s"] = time.monotonic() - t0
+    if supervisor is not None:
+        summary["self_healing"] = supervisor.summary()
+    if args.plot:
+        from qba_tpu_torch.atlas import plot_slices
+
+        written = plot_slices(store, args.plot)
+        if not written:
+            raise PlottingUnavailableError(
+                "--plot requires matplotlib, which is not importable")
+        summary["plots"] = written
+    print(json.dumps({"atlas": summary}, indent=1, default=str), file=out)
+    if summary.get("interrupted"):
+        return 3
+    return 0 if summary["open"] == 0 else 1
+
+
+def _cmd_fleet(args: argparse.Namespace, out) -> int:
+    import time
+
+    from qba_tpu_torch.analysis.memory import device_memory_bytes
+    from qba_tpu_torch.serve.fleet import (
+        AdmissionController,
+        FleetFrontend,
+        FleetSupervisor,
+        ReplicaPool,
+        fleet_summary,
+        write_fleet_summary,
+    )
+    from qba_tpu_torch.serve.persist import saved_mesh
+
+    if (args.mesh_dp, args.mesh_tp, args.tp_comms) != (None, None, None):
+        raise ValueError("--mesh-dp, --mesh-tp and --tp-comms are not "
+                         "ported: the port's worker serves no mesh "
+                         "(ROADMAP A12b)")
+    # A mesh recorded in the warm-start artifact (by the JAX package's
+    # fleet) prices as it does there; the controller refuses tp > 1.
+    mesh_shape = None
+    recorded = saved_mesh(args.cache_dir) if args.cache_dir else None
+    if recorded is not None:
+        mesh_shape = (int(recorded.get("dp", 1)), int(recorded.get("tp", 1)))
+    admission = None
+    if not args.no_admission:
+        admission = AdmissionController(
+            chunk_trials=args.chunk_trials,
+            replicas=args.replicas,
+            capacity_trials=args.capacity_trials,
+            window_chunks=args.window_chunks,
+            hbm_bytes=device_memory_bytes(args.device),
+            device=args.device,
+            mesh_shape=mesh_shape,
+        )
+    pool = ReplicaPool(
+        args.queue_dir,
+        replicas=args.replicas,
+        chunk_trials=args.chunk_trials,
+        depth=args.depth,
+        cache_dir=args.cache_dir,
+        telemetry_dir=args.telemetry,
+        deadline_s=args.deadline_s,
+        reclaim_timeout_s=args.reclaim_timeout_s,
+        max_reclaims=args.max_reclaims,
+        poll_s=args.poll_s,
+        device=args.device,
+        max_respawns=args.max_respawns,
+        respawn_backoff_s=args.respawn_backoff_s,
+    )
+    supervisor = None
+    if args.supervise:
+        supervisor = FleetSupervisor(
+            pool,
+            admission=admission,
+            watchdog_s=args.watchdog_s,
+            breaker_k=args.breaker_k,
+            breaker_window_s=args.breaker_window_s,
+            poison_threshold=args.poison_threshold,
+        )
+    frontend = FleetFrontend(
+        args.queue_dir,
+        admission,
+        host=args.host,
+        port=args.port,
+        max_requests=args.max_requests,
+        health_provider=supervisor.health if supervisor else None,
+    )
+    t0 = time.monotonic()
+    pool.start()
+    sup_stop, sup_thread = _start_supervisor(supervisor)
+    try:
+        port = frontend.start_in_thread()
+        print(json.dumps({"fleet": {
+            "listening": f"{args.host}:{port}",
+            "replicas": pool.alive(),
+            "queue_dir": args.queue_dir,
+            "supervised": supervisor is not None,
+            "device": args.device,
+        }}), file=sys.stderr, flush=True)
+        try:
+            frontend._thread.join()
+        except KeyboardInterrupt:
+            frontend.stop_in_thread()
+    finally:
+        # Stop supervising BEFORE dropping the stop sentinel: workers
+        # draining a slow flush must not be watchdogged or "respawned"
+        # into a stopping queue.
+        sup_stop.set()
+        if sup_thread is not None:
+            sup_thread.join(timeout=30)
+        codes = pool.stop()
+    summary = fleet_summary(
+        args.queue_dir,
+        admission_summary=admission.summary() if admission else None,
+        frontend_status=frontend.status(),
+        elapsed_s=time.monotonic() - t0,
+        telemetry_dir=args.telemetry,
+        self_healing=supervisor.summary() if supervisor else None,
+    )
+    summary["replica_exit_codes"] = codes
+    path = write_fleet_summary(args.queue_dir, summary)
+    print(json.dumps({"fleet_summary": path}), file=sys.stderr)
+    return 0
+
+
 def main(argv: Sequence[str] | None = None, out=None) -> int:
     out = out if out is not None else sys.stdout
     args, rest = _parser().parse_known_args(argv)
@@ -525,7 +1090,8 @@ def main(argv: Sequence[str] | None = None, out=None) -> int:
     if rest:
         _parser().parse_args(argv)  # argparse's own error for the extras
     command = {"sweep": _cmd_sweep, "study": _cmd_study,
-               "serve": _cmd_serve}[args.command]
+               "serve": _cmd_serve, "fleet": _cmd_fleet,
+               "atlas": _cmd_atlas, "trace": _cmd_trace}[args.command]
     try:
         return command(args, out)
     except (ValueError, PlottingUnavailableError) as e:

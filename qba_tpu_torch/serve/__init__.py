@@ -1,5 +1,5 @@
 """qba_tpu_torch.serve — the persistent evaluation service, counterpart
-of :mod:`qba_tpu.serve` (all of it but the fleet, ROADMAP A10b).
+of :mod:`qba_tpu.serve`.
 
 A long-lived worker answers :class:`EvalRequest` s ("n parties, d
 traitors — failure probability at sizeL=L?") by bucketing mixed-shape
@@ -18,6 +18,8 @@ Module map:
 * :mod:`~qba_tpu_torch.serve.queuefs` — file-queue paths, atomic writes,
   heartbeats and the flight recorder.
 * :mod:`~qba_tpu_torch.serve.timing` — the protocol's timing constants.
+* :mod:`~qba_tpu_torch.serve.fleet` — the front end, replica pool,
+  admission, supervisor and fleet summary over N workers.
 """
 
 from qba_tpu_torch.serve.engine import QBAServer, serve_batch

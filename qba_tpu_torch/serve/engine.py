@@ -766,6 +766,7 @@ class QBAServer:
         return summary
 
     def stats(self) -> dict[str, Any]:
+        from qba_tpu_torch.ops import kernel_launches
         from qba_tpu_torch.ops._build import build_dir, loaded_libraries
 
         return {
@@ -781,9 +782,11 @@ class QBAServer:
             "latency": self.latency_summary(),
             "queue_wait": self.queue_wait_summary(),
             # In place of the JAX package's resolver caches: the kernels'
-            # build directory and the libraries this process loaded.
+            # build directory, the libraries this process loaded and
+            # each kernel's launches.
             "resolver": {"build_dir": str(build_dir()),
-                         "kernels_loaded": loaded_libraries()},
+                         "kernels_loaded": loaded_libraries(),
+                         "kernel_launches": kernel_launches()},
         }
 
 

@@ -3,9 +3,9 @@
 the JAX package's fleet supervisor agree on every poll period, watchdog
 budget and reclaim bound.
 
-The worker's transport (:mod:`qba_tpu_torch.serve.transport`) and the
-CLI read the worker constants; the supervisor and pool constants are
-kept for the fleet's port (ROADMAP A10b), which has not landed.
+The worker's transport (:mod:`qba_tpu_torch.serve.transport`), the
+fleet's supervisor and pool (:mod:`qba_tpu_torch.serve.fleet`) and the
+CLI's defaults read these constants.
 """
 
 from __future__ import annotations

@@ -40,6 +40,16 @@ from qba_tpu_torch.serve.queuefs import (
 from qba_tpu_torch.serve.request import EvalResult, decode_request_line
 from qba_tpu_torch.serve.timing import MAX_RECLAIMS, WORKER_POLL_S
 
+#: Test-only crash hook (the chaos harness's poison-request injector),
+#: with the JAX package's name and meaning: when this variable is set, a
+#: worker that claims a request whose id contains its value hard-exits
+#: mid-claim with :data:`CRASH_HOOK_EXIT`, as a fatal fault would, and
+#: leaves its claim for the supervisor to blame.  Unset, the check never
+#: runs.
+CRASH_HOOK_ENV = "QBA_TEST_CRASH_HOOK"
+CRASH_HOOK_EXIT = 113
+
+
 def _emit_jsonl(out: IO[str], results: Iterable[EvalResult]) -> int:
     n = 0
     for res in results:
@@ -204,10 +214,11 @@ def serve_file_queue(
         # ring of recent lifecycle events, flushed atomically on every
         # note, so a worker that dies without warning (SIGKILL, a
         # fatal fault) leaves its last moments on disk for the
-        # supervisor's KI-9 crash report.
+        # supervisor's crash report.
         flight = FlightRecorder(queue_dir, server.replica_id)
         server.flight = flight
         flight.note("boot", queue_dir=queue_dir)
+    crash_token = os.environ.get(CRASH_HOOK_ENV)
 
     def settle(name: str) -> None:
         try:
@@ -299,6 +310,11 @@ def serve_file_queue(
                 try:
                     with open(claimed) as f:
                         req = decode_request_line(f.read())
+                    if crash_token and crash_token in req.request_id:
+                        # Test-only poison hook: die like a fatal fault
+                        # would, with no cleanup and no result, the claim
+                        # left in claimed/ for the supervisor to blame.
+                        os._exit(CRASH_HOOK_EXIT)
                     server.submit(req, queue_wait_s=queue_wait)
                 except ValueError as e:
                     emit([EvalResult.failure(os.path.splitext(name)[0], str(e))])

@@ -232,6 +232,20 @@ assert main(["sweep", "--n-parties", "5", "--size-l", "16", "--n-dishonest",
              "--device", "cpu"], out=out) == 0
 assert out.getvalue().splitlines()[-1].startswith(
     "stop: decided_below after 32 trials"), out.getvalue()
+import tempfile
+from qba_tpu_torch.atlas import (AtlasStore, CampaignDriver, CampaignSpec,
+                                 LocalExecutor)
+from qba_tpu_torch.serve.fleet import (AdmissionController, FleetFrontend,
+                                       FleetSupervisor, ReplicaPool)
+with tempfile.TemporaryDirectory() as d:
+    spec = CampaignSpec(parties=(4,), dishonest=(1.0,), chunk_trials=8,
+                        budget_trials=16, max_escalations=0)
+    atlas = CampaignDriver(
+        AtlasStore(d), spec, LocalExecutor(chunk_trials=8, device="cpu"),
+        admission=AdmissionController(chunk_trials=8, hbm_bytes=2**34,
+                                      device="cpu")).run()
+    assert atlas["open"] == 0 and atlas["cells"] == 1, atlas
+    assert main(["trace", "--queue-dir", d], out=io.StringIO()) == 0
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "flax", "qba_tpu")]
 assert not bad, bad
