@@ -236,6 +236,32 @@ Phases, each reported on its own line:
    escalation) through a supervised 2-replica fleet with one worker
    SIGKILLed after the first result, and with ``--executor local``: no
    cell open and the two stores' digests equal.
+15. ``run_path``: the reference's own runtime, the message-level
+   backends (``qba_tpu_torch.backends``), their randomness presampled on
+   the card (one ``attack_draws`` launch over every round and trial, one
+   host copy).  At 11p/L64/d3 and 33p/L64/d10 x 1000 (seed 0): ``native``
+   over the whole batch, ``local`` over its first 200 (11p) or 20 (33p)
+   trials and ``mp`` (one party process a party over a Unix-socket mesh,
+   started once a batch from a forkserver) over its first 100 or 10, each
+   equal to the batched runner's ``auto`` batch trial for trial
+   (decisions, success, honest, vi, overflow); the same on ``small``'s
+   ``11p/L64/d3 split``, ``5p/L16/d2 slots=1`` and ``5p/L16/d1 racy``
+   (``racy_mode="defer"``), and ``native`` at 33p on
+   ``qsim_path="stabilizer"`` (a sweep launch in the presample) and at
+   5p/L64/d2 x 32 on ``dense_pallas`` (circuit kernel launches).  Each
+   presample's launches counted, its draws equal to the plain draws bit
+   for bit in the layouts the backends read; no party holds a
+   ``/dev/nvidia*`` file, every party exits 0.  Per backend: wall,
+   trials/s, the presample's set-up, draws (the kernel's CUDA-event ms)
+   and host copy, the message loop, the mesh's start.  Then a warm 33p
+   ``run_trials`` batch under ``profile_trace`` (its one megakernel
+   launch counted; device busy ms, top kernels, idle share of the
+   window), a ``fork`` of this process
+   (the ``/dev/nvidia*`` files a forked party would inherit), and
+   ``python -m qba_tpu_torch run``: every backend at 11p x 100 (exit 0,
+   the same verdict blocks and success rate), at 11p x 4 with ``-v
+   --jsonl`` (the same trail), and ``--backend torch`` and ``native`` at
+   33p x 1000 with ``--profile-dir`` (each trace's device account).
 
 Any failure exits non-zero.  The line before the last is the kernel
 table as JSON, the one before it the card; the last line is
@@ -3580,6 +3606,415 @@ def atlas_path():
         shutil.rmtree(root, ignore_errors=True)
 
 
+# The message-level backends (run_path): trials each in process at full
+# width, beside the batched runner's `auto` batch of the same keys.
+RUN_TRIALS = {"11p/L64/d3": dict(native=1000, local=200, mp=100),
+              "33p/L64/d10": dict(native=1000, local=20, mp=10)}
+RUN_FIELDS = ("decisions", "success", "honest", "vi", "overflow")
+# Configs of main's `small` list run on every message-level backend too
+# (racy delivery under racy_mode="defer").
+RUN_SMALL = ("11p/L64/d3 split", "5p/L16/d2 slots=1", "5p/L16/d1 racy")
+# `python -m qba_tpu_torch run`: each backend at 11p (verdict blocks
+# equal), the trail at 11p x 4 (-v --jsonl, equal event for event) and the
+# profiled 33p batches.
+CLI_RUN = ["run", "--n-parties", "11", "--size-l", "64", "--n-dishonest",
+           "3"]
+CLI_RUN_TRIALS = 100
+CLI_TRAIL_TRIALS = 4
+CLI_PROFILE = ["run", "--n-parties", "33", "--size-l", "64",
+               "--n-dishonest", "10", "--trials", "1000"]
+BACKENDS = ("torch", "local", "native", "mp")
+
+
+def as_fields(cfg, rows):
+    """The message-level backends' per-trial dicts as ``RUN_FIELDS``
+    arrays (``vi``: bool ``[T, n_lieu, w]``)."""
+    import numpy as np
+
+    vi = np.zeros((len(rows), cfg.n_lieutenants, cfg.w), dtype=bool)
+    for t, r in enumerate(rows):
+        for i, s in enumerate(r["vi"]):
+            vi[t, i, sorted(s)] = True
+    return dict(decisions=np.array([r["decisions"] for r in rows]),
+                success=np.array([r["success"] for r in rows]),
+                honest=np.array([r["honest"] for r in rows]), vi=vi,
+                overflow=np.array([r["overflow"] for r in rows]))
+
+
+def check_equal(label, got, ref, n):
+    """``got`` (``RUN_FIELDS`` arrays) equal to the first ``n`` trials of
+    the batched runner's ``ref``, field by field."""
+    import numpy as np
+
+    for f in RUN_FIELDS:
+        want = getattr(ref, f)[:n].cpu().numpy()
+        if not np.array_equal(np.asarray(got[f]), want):
+            bad = int((np.asarray(got[f]) != want).reshape(n, -1).any(1)
+                      .argmax())
+            raise AssertionError(f"{label}: {f} differs from run_trials "
+                                 f"(first at trial {bad})")
+
+
+def counted(fn):
+    """``fn()`` with every kernel's launches set to 0 just before and read
+    just after, and the draws kernel's CUDA events kept: ``(result,
+    launches, draws_ms)``."""
+    fns = wrappers()
+    for w in fns.values():
+        w.launches, w.events = 0, None
+    fns["attack_draws"].events = []
+    out = fn()
+    import torch
+
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in fns.items() if w.launches}
+    ms = [a.elapsed_time(b) for a, b in fns["attack_draws"].events]
+    fns["attack_draws"].events = None
+    return out, launches, ms
+
+
+def presampled(cfg, keys):
+    """One counted presample (one draws launch asserted): ``(pre,
+    launches, {setup_ms, draws_ms, draws_kernel_ms, copy_ms})``."""
+    from qba_tpu_torch.backends.local_backend import presample_batch
+
+    timings = {}
+    pre, launches, ms = counted(lambda: presample_batch(cfg, keys, timings))
+    if launches.get("attack_draws") != 1 or len(ms) != 1:
+        raise AssertionError(f"presample: launches {launches}, expected one "
+                             "attack_draws")
+    return pre, launches, dict(
+        setup_ms=timings["setup_s"] * 1e3, draws_ms=timings["draws_s"] * 1e3,
+        draws_kernel_ms=ms[0], copy_ms=timings["copy_s"] * 1e3)
+
+
+def check_draws(cfg, keys, pre, dev):
+    """The presample's draws against the plain draws on the same keys, bit
+    for bit, in the layouts the backends read: the tables ``local`` and
+    ``native`` read (uint8 ``[T, n_rounds, n_pool, n_rv]``, the C engine
+    at ``((round - 1) * n_pool + cell) * n_rv + receiver`` of a trial's
+    rows) and each ``mp`` party's columns (``party_draws``)."""
+    import numpy as np
+    import torch
+
+    from qba_tpu_torch import random as jr
+    from qba_tpu_torch.adversary import adversary_ctx, assign_dishonest
+    from qba_tpu_torch.adversary import commander_orders
+    from qba_tpu_torch.backends.mp_backend import party_draws
+    from qba_tpu_torch.ops.attack_draws import attack_draws_reference
+
+    k = jr.split(keys, 4)
+    honest = assign_dishonest(cfg, k[:, 0])
+    v_sent, _vc = commander_orders(cfg, k[:, 2], honest[:, 1])
+    k_rounds = k[:, 3].contiguous()
+    want = attack_draws_reference(cfg, k_rounds,
+                                  adversary_ctx(cfg, k_rounds, v_sent))
+    err = 0
+    for host, ref in zip((pre.attack, pre.rand_v, pre.late), want):
+        got = torch.from_numpy(host).to(dev)
+        err = max(err, max_err(got, ref))
+    ref = [x.cpu().numpy() for x in want]
+    for t in (0, len(pre) - 1):
+        for rank in range(2, cfg.n_parties + 1):
+            cols = np.stack([x[t, :, :, rank - 2] for x in ref], axis=-1)
+            err = max(err, int(np.abs(party_draws(pre, t, rank).astype(
+                np.int64) - cols).max()))
+    if err:
+        raise AssertionError(f"presampled draws differ from the plain "
+                             f"draws by {err}")
+    return err
+
+
+def fork_probe():
+    """A plain ``fork`` of this process, which holds a CUDA context: the
+    child counts its open ``/dev/nvidia*`` files and exits.  Shows what a
+    forked party would inherit (the mp backend starts its parties from a
+    forkserver instead)."""
+    import warnings
+
+    r, w = os.pipe()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        pid = os.fork()
+    if pid == 0:
+        try:
+            os.write(w, str(device_fds(os.getpid())).encode())
+        finally:
+            os._exit(0)
+    os.close(w)
+    with os.fdopen(r) as f:
+        child = int(f.read() or -1)
+    _pid, status = os.waitpid(pid, 0)
+    return dict(parent_device_fds=device_fds(os.getpid()),
+                child_device_fds=child,
+                child_exit=os.waitstatus_to_exitcode(status),
+                fork_to_exit_s=time.perf_counter() - t0,
+                warnings=[str(c.message)[:120] for c in caught])
+
+
+def cli_run(args, root, name):
+    """Start ``python -m qba_tpu_torch`` with ``args``, its output into
+    files under ``root``: ``(process, stdout path, stderr path)``."""
+    out, err = (os.path.join(root, f"{name}.{s}") for s in ("out", "err"))
+    with open(out, "w") as fo, open(err, "w") as fe:
+        proc = subprocess.Popen(port_cli(*args), stdout=fo, stderr=fe,
+                                cwd=os.path.dirname(os.path.abspath(
+                                    __file__)))
+    return proc, out, err
+
+
+def cli_wait(runs, timeout=600):
+    """Wait for every ``cli_run``; raise unless each exits 0.  Returns
+    each one's stdout and seconds."""
+    done = {}
+    for name, (proc, out, err, t0) in runs.items():
+        try:
+            proc.wait(timeout=max(1.0, t0 + timeout - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        with open(out) as f, open(err) as fe:
+            text, errs = f.read(), fe.read()
+        if proc.returncode != 0:
+            raise AssertionError(f"run {name}: exit {proc.returncode}: "
+                                 f"{errs[-2000:]}")
+        done[name] = (text, time.perf_counter() - t0)
+    return done
+
+
+def verdict_blocks(text):
+    """``run``'s verdict blocks and aggregate lines, timing apart."""
+    keep = ("trial ", "Decisions:", "Dishonests:", "Success:", "(mailbox",
+            "config:", "trials:", "success rate:")
+    return [ln for ln in text.splitlines() if ln.startswith(keep)]
+
+
+def trail_events(path):
+    """A ``--jsonl`` trail without its timestamps and the ``experiment``
+    event (which names the backend)."""
+    rows = []
+    with open(path) as f:
+        for line in f:
+            e = json.loads(line)
+            e.pop("ts")
+            if e["message"] != "experiment":
+                rows.append(e)
+    return rows
+
+
+def run_cli_checks(root):
+    """``python -m qba_tpu_torch run`` on the card: every backend at 11p x
+    ``CLI_RUN_TRIALS`` (exit 0, the same verdict blocks and success rate),
+    each at 11p x ``CLI_TRAIL_TRIALS`` with ``-v --jsonl`` (the same trail;
+    ``torch`` replays through ``local``), then ``torch`` and ``native``
+    at 33p x 1000 with ``--profile-dir``: each trace's device busy ms, top
+    kernels and the idle share of its window."""
+    import glob
+
+    from qba_tpu_torch.obs.profiling import trace_summary
+
+    runs = {}
+    for b in BACKENDS:
+        runs[f"verdicts-{b}"] = (*cli_run(
+            [*CLI_RUN, "--trials", str(CLI_RUN_TRIALS), "--backend", b],
+            root, f"verdicts-{b}"), time.perf_counter())
+        runs[f"trail-{b}"] = (*cli_run(
+            [*CLI_RUN, "--trials", str(CLI_TRAIL_TRIALS), "--backend", b,
+             "-v", "--jsonl", os.path.join(root, f"trail-{b}.jsonl")],
+            root, f"trail-{b}"), time.perf_counter())
+    done = cli_wait(runs)
+    blocks = {b: verdict_blocks(done[f"verdicts-{b}"][0]) for b in BACKENDS}
+    trails = {b: trail_events(os.path.join(root, f"trail-{b}.jsonl"))
+              for b in BACKENDS}
+    for b in BACKENDS[1:]:
+        if blocks[b] != blocks["torch"]:
+            raise AssertionError(f"run --backend {b}: verdict blocks differ "
+                                 "from --backend torch")
+        if trails[b] != trails["local"]:
+            raise AssertionError(f"run --backend {b} -v: trail differs from "
+                                 "--backend local")
+    rate = [ln for ln in blocks["torch"] if ln.startswith("success rate")]
+    mismatch = [e for e in trails["torch"] if e["message"] ==
+                "trail replay mismatch"]
+    if len(blocks["torch"]) < 4 * 8 or not rate or mismatch:
+        raise AssertionError(f"run: blocks {blocks['torch'][:8]}, "
+                             f"{mismatch}")
+    profiles = {}
+    runs = {}
+    for b in ("torch", "native"):
+        d = os.path.join(root, f"profile-{b}")
+        runs[b] = (*cli_run([*CLI_PROFILE, "--backend", b, "--profile-dir",
+                             d], root, f"profile-{b}"), time.perf_counter())
+    for b, (_text, secs) in cli_wait(runs).items():
+        (path,) = glob.glob(os.path.join(root, f"profile-{b}", "*.json"))
+        profiles[b] = dict(trace_summary(path), process_s=secs,
+                           trace_bytes=os.path.getsize(path))
+    return dict(
+        success_rate=rate[0], verdict_lines=len(blocks["torch"]),
+        trail_events=len(trails["local"]),
+        cli_s={k: v[1] for k, v in done.items()}, profiles=profiles)
+
+
+def run_path(configs, small, dev):
+    """The reference's own runtime on the port (``qba_tpu_torch.backends``
+    ``local``, ``native`` and ``mp``; ``python -m qba_tpu_torch run``).
+
+    At 11p/L64/d3 and 33p/L64/d10 x 1000 (``RUN_TRIALS``), and on
+    ``small``, each backend runs in process on the batch's keys and must
+    equal the batched runner's ``auto`` batch trial for trial on
+    ``RUN_FIELDS``: ``native`` over the whole batch, ``local`` and ``mp``
+    (one party mesh a batch, the parties holding no ``/dev/nvidia*`` file
+    and exiting 0) over its first trials; then ``native`` at 33p on
+    ``qsim_path="stabilizer"`` and at 5p x 32 on ``dense_pallas``.  Each
+    presample is one counted launch of the draws kernel (with a sweep
+    launch on the stabilizer path, circuit launches on dense_pallas), and
+    its draws equal the plain draws in each backend's layout.  Per
+    backend: wall, trials/s, the presample's set-up, draws (and the
+    kernel's CUDA-event ms) and host copy, the host message loop, and the
+    mp mesh's start.  Then a warm ``run_trials`` batch at 33p under
+    ``profile_trace``, a fork of this process (``fork_probe``) and the
+    CLI (``run_cli_checks``).  Returns ``(report, launches)``."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import qba_tpu_torch
+    from qba_tpu_torch import QBAConfig
+    from qba_tpu_torch.backends.local_backend import local_trial
+    from qba_tpu_torch.backends.mp_backend import run_trials_mp
+    from qba_tpu_torch.backends.native_backend import run_trials_native
+    from qba_tpu_torch.backends.torch_backend import fence, trial_keys
+    from qba_tpu_torch.obs import profile_trace
+    from qba_tpu_torch.obs.profiling import trace_path, trace_summary
+
+    from qba_tpu_torch import native
+
+    # The C++ runtime's build (g++, at first use) before any timed run.
+    t0 = time.perf_counter()
+    native.load()
+    native_build_s = time.perf_counter() - t0
+    log("run_path", part="native_build", seconds=native_build_s,
+        library=native.library_path().name)
+    launches, rows = {}, []
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    def backends(name, cfg, sizes):
+        keys = trial_keys(cfg, dev)
+        ref = fence(qba_tpu_torch.run_trials(cfg, keys)).trials
+        row = dict(config=name, trials=cfg.trials, rounds=cfg.n_rounds)
+        for b, n in sizes.items():
+            t0 = time.perf_counter()
+            pre, counts, pms = presampled(cfg, keys[:n])
+            add(counts)
+            t1 = time.perf_counter()
+            stats, pids = {}, []
+            if b == "native":
+                res = run_trials_native(cfg, keys[:n], pre=pre)
+                got = {f: res[f] for f in RUN_FIELDS}
+            elif b == "local":
+                got = as_fields(cfg, [local_trial(cfg, pre, i)
+                                      for i in range(n)])
+            else:
+                got = as_fields(cfg, run_trials_mp(
+                    cfg, keys[:n], pre=pre, stats=stats,
+                    on_mesh=lambda p: pids.extend(
+                        (p_, device_fds(p_)) for p_ in p)))
+                if (len(pids) != cfg.n_parties or any(f for _p, f in pids)
+                        or stats["exitcodes"] != [0] * cfg.n_parties):
+                    raise AssertionError(f"{name} mp: parties {pids}, exit "
+                                         f"{stats['exitcodes']}")
+            t2 = time.perf_counter()
+            check_equal(f"{name} {b}", got, ref, n)
+            if b == "native":
+                row["draws_max_abs_err"] = check_draws(cfg, keys[:n], pre,
+                                                       dev)
+            row[b] = dict(trials=n, wall_s=t2 - t0,
+                          trials_per_s=n / (t2 - t0), launches=counts,
+                          presample=pms, loop_ms=(t2 - t1) * 1e3,
+                          success_rate=float(got["success"].mean()))
+            if b == "mp":
+                row[b].update(parties=len(pids),
+                              mesh_start_s=stats["mesh_start_s"],
+                              loop_ms=(t2 - t1 - stats["mesh_start_s"])
+                              * 1e3,
+                              party_device_fds=sum(f for _p, f in pids),
+                              exitcodes=sorted(set(stats["exitcodes"])))
+        log("run_path", **row)
+        rows.append(row)
+
+    for name, sizes in RUN_TRIALS.items():
+        backends(name, configs[name], sizes)
+    for name, cfg in small:
+        cfg = dataclasses.replace(cfg, racy_mode="defer") if (
+            cfg.delivery == "racy") else cfg
+        n = cfg.trials
+        backends(name, cfg, dict(native=n, local=n, mp=n))
+    # The list-generation kernels in the presample: one sweep launch on
+    # the stabilizer path, the circuit kernel on dense_pallas (main's
+    # dense batch: 5 parties, 18 qubits).
+    name = "33p/L64/d10"
+    for label, cfg, kernel in (
+            (f"{name} stabilizer", dataclasses.replace(
+                configs[name], qsim_path="stabilizer"), "gf2_sweep"),
+            ("5p/L64/d2 dense_pallas", QBAConfig(
+                n_parties=5, size_l=64, n_dishonest=2, trials=32,
+                qsim_path="dense_pallas"), "fused_circuit")):
+        keys = trial_keys(cfg, dev)
+        ref = fence(qba_tpu_torch.run_trials(cfg, keys)).trials
+        t0 = time.perf_counter()
+        pre, counts, pms = presampled(cfg, keys)
+        if not counts.get(kernel) or (kernel == "gf2_sweep"
+                                      and counts[kernel] != 1):
+            raise AssertionError(f"{label} presample: launches {counts}")
+        add(counts)
+        t1 = time.perf_counter()
+        res = run_trials_native(cfg, keys, pre=pre)
+        t2 = time.perf_counter()
+        check_equal(f"{label} native", res, ref, cfg.trials)
+        row = dict(config=label, trials=cfg.trials,
+                   draws_max_abs_err=check_draws(cfg, keys, pre, dev),
+                   native=dict(wall_s=t2 - t0, trials_per_s=cfg.trials
+                               / (t2 - t0), launches=counts, presample=pms,
+                               loop_ms=(t2 - t1) * 1e3,
+                               success_rate=res["success_rate"]))
+        log("run_path", **row)
+        rows.append(row)
+
+    root = tempfile.mkdtemp(prefix="qba_run_")
+    try:
+        # The batched runner's device account, warm: one 33p batch under
+        # the profiler after a warm-up batch.
+        cfg = configs[name]
+        fence(qba_tpu_torch.run_trials(cfg))
+        d = os.path.join(root, "in-process")
+        with profile_trace(d):
+            _out, counts, _ms = counted(
+                lambda: fence(qba_tpu_torch.run_trials(cfg)))
+        if counts != {"trial_megakernel_keyed": 1}:
+            raise AssertionError(f"profiled batch: launches {counts}")
+        add(counts)
+        warm = dict(trace_summary(trace_path(d)), launches=counts)
+        log("run_path", part="profile", config=f"{name} x{cfg.trials}",
+            run="in process, warm", **warm)
+        fork = fork_probe()
+        log("run_path", part="fork_probe", **fork)
+        cli = run_cli_checks(root)
+        for b, p in cli["profiles"].items():
+            log("run_path", part="profile", config=f"{name} x1000",
+                run=f"python -m qba_tpu_torch run --backend {b} "
+                "--profile-dir (cold process)", **p)
+        log("run_path", part="cli", **{k: v for k, v in cli.items()
+                                       if k != "profiles"})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(runs=rows, native_build_s=native_build_s, warm_profile=warm,
+                fork_probe=fork, cli=cli), launches
+
+
 def wrappers():
     from qba_tpu_torch.ops import kernel_wrappers
 
@@ -4271,6 +4706,15 @@ def main(argv):
         for k, n in phase_launches.items():
             launches[k] += n
 
+    # The message-level backends, presampled on the card, and `run`.
+    t0 = time.perf_counter()
+    report["run_path"], run_launches = run_path(
+        dict(main_cfgs), [s for s in small if s[0] in RUN_SMALL], dev)
+    report["run_path"]["phase_s"] = time.perf_counter() - t0
+    log("run_path", part="phase", seconds=report["run_path"]["phase_s"])
+    for k, n in run_launches.items():
+        launches[k] += n
+
     big = runs[-1]
     kernels = []
     for k in ("fused_round", "trial_megakernel", "tiled_verdict",
@@ -4379,9 +4823,16 @@ def main(argv):
         "name": "attack_draws", "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches["attack_draws"],
         # 32 trials in every law; each main batch whole and a round a
-        # launch (``checked_draws`` raises on a mismatch).
+        # launch (``checked_draws`` raises on a mismatch); the message-level
+        # backends' presamples (``check_draws``).
         "max_abs_err": max([draws_err] + [r["attack_draws"]["max_abs_err"]
-                                          for r in runs]),
+                                          for r in runs]
+                           + [r["draws_max_abs_err"] for r in
+                              report["run_path"]["runs"]
+                              if "draws_max_abs_err" in r]),
+        "presample_launches": run_launches["attack_draws"],
+        "presample_ms": {r["config"]: r["native"]["presample"][
+            "draws_kernel_ms"] for r in report["run_path"]["runs"][:2]},
         **{k: big["attack_draws"][k] for k in ("ms", "plain_ms", "bound_ms",
                                                "bound_by", "library_ms")},
         "ms_per_round_launch": big["engines"]["pallas_fused"]

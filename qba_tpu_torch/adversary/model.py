@@ -41,6 +41,23 @@ STRATEGY_FORGE_BOUND = {
 }
 
 
+# The trail's names of the attack edits (tfg.py:272-284), shared by every
+# backend that renders protocol events; mp_party keeps a torch-free copy.
+EFFECT_NAMES = (
+    (DROP_BIT, "drop"),
+    (FORGE_BIT, "corrupt-v"),
+    (CLEAR_P_BIT, "clear-P"),
+    (CLEAR_L_BIT, "clear-L"),
+    (FORGE_P_BIT, "forge-P"),
+)
+
+
+def effect_names(bits: int) -> str:
+    """Human-readable rendering of an attack bitmask for the event trail."""
+    names = [n for b, n in EFFECT_NAMES if bits & b]
+    return "+".join(names) if names else "none"
+
+
 def assign_dishonest(cfg: QBAConfig, keys: torch.Tensor) -> torch.Tensor:
     """bool ``[..., n_parties + 1]`` honesty mask by rank (rank 0, the
     QSD, is always honest): ``n_dishonest`` distinct ranks of

@@ -1,7 +1,13 @@
 """Command-line interface: ``python -m qba_tpu_torch
-{sweep,study,serve,fleet,atlas,trace}`` — those subcommands of
+{run,sweep,study,serve,fleet,atlas,trace}`` — those subcommands of
 :mod:`qba_tpu.cli`, with their flags, on the port.
 
+* ``run`` — execute trials and print per-trial verdicts in the
+  reference's ``Decisions / Dishonests / Success`` format
+  (``tfg.py:360-363``) plus the Monte-Carlo aggregate, on one of four
+  backends: ``torch`` (the batched runner, the default), ``local``,
+  ``native`` and ``mp`` (the message-level backends, their randomness
+  presampled on the device in one batch).
 * ``sweep`` — chunked, checkpoint-resumable Monte-Carlo sweep, fixed
   budget or precision-targeted (``--target``); ``--dispatch device`` runs
   the targeted loop as one CUDA graph (:mod:`qba_tpu_torch.sweep`).
@@ -23,9 +29,8 @@ fleet's workers too).  ``--plot`` needs matplotlib, and without it is a
 clean usage error.
 
 The JAX package's other subcommands are named here and refuse with the
-ROADMAP item that ports them: ``bench`` (A11); ``run`` and ``lint``
-(A13).  So do the fleet's mesh flags (A12b): the port's worker serves no
-mesh.
+ROADMAP item that ports them: ``bench`` (A11) and ``lint`` (A13b).  So
+do the fleet's mesh flags (A12b): the port's worker serves no mesh.
 """
 
 from __future__ import annotations
@@ -37,11 +42,12 @@ import sys
 from typing import Sequence
 
 from qba_tpu_torch.config import QBAConfig
+from qba_tpu_torch.native import NativeUnavailableError
 from qba_tpu_torch.obs.plots import PlottingUnavailableError
 from qba_tpu_torch.serve import timing as _timing
 
 # Subcommands of the JAX package's CLI not ported yet, and their items.
-_NOT_PORTED = {"run": "A13", "bench": "A11", "lint": "A13"}
+_NOT_PORTED = {"bench": "A11", "lint": "A13b"}
 
 
 def _add_config_args(p: argparse.ArgumentParser, trials_default: int) -> None:
@@ -185,6 +191,41 @@ def _parser() -> argparse.ArgumentParser:
         description="detectable Quantum Byzantine Agreement on PyTorch/CUDA",
     )
     sub = parser.add_subparsers(dest="command", required=True)
+
+    run = sub.add_parser("run", help="run trials, print verdicts")
+    _add_config_args(run, trials_default=1)
+    run.add_argument(
+        "--backend", choices=("torch", "local", "native", "mp"),
+        default="torch",
+        help="torch = the batched runner (the round engine's kernels on "
+        "CUDA); local = message-level pure-Python path; native = C++ host "
+        "runtime (qba_tpu_torch/native); mp = one OS process per party "
+        "over a Unix-socket mesh + the C++ PvL wire codec (the "
+        "reference's mpiexec runtime shape).  The message-level backends "
+        "presample their randomness on --device in one batch",
+    )
+    run.add_argument(
+        "-v", "--verbose", action="store_true", help="debug-level event log"
+    )
+    run.add_argument(
+        "--jsonl", metavar="PATH", default=None, help="write event log as JSONL"
+    )
+    run.add_argument(
+        "--profile-dir", default=None,
+        help="write a torch.profiler Chrome trace of the run into this "
+        "directory",
+    )
+    run.add_argument(
+        "--telemetry", metavar="DIR", default=None,
+        help="write run telemetry into DIR: run_manifest.json, trace.json "
+        "(Chrome trace events), spans.jsonl",
+    )
+    run.add_argument(
+        "--max-verdicts", type=int, default=8,
+        help="print at most this many per-trial verdict blocks; with "
+        "--backend torch and -v/--jsonl, each displayed trial is re-run "
+        "through the local backend to collect its event trail",
+    )
 
     sweep = sub.add_parser("sweep", help="chunked checkpoint-resumable sweep")
     _add_config_args(sweep, trials_default=256)
@@ -627,6 +668,135 @@ def _cache_stats(args: argparse.Namespace) -> dict:
                 for entry, plan in state["buckets"]]
         info["cache_dir"] = artifact
     return info
+
+
+def _cmd_run(args: argparse.Namespace, out) -> int:
+    cfg = _config(args)
+    with _telemetry(args, cfg, "run") as session:
+        return _run_impl(args, cfg, session, out)
+
+
+def _run_impl(args: argparse.Namespace, cfg: QBAConfig, session, out) -> int:
+    import types
+
+    from qba_tpu_torch.backends.local_backend import (
+        presample_batch,
+        run_trials_local,
+    )
+    from qba_tpu_torch.backends.torch_backend import (
+        fence,
+        resolve_device,
+        run_trials,
+        trial_keys,
+    )
+    from qba_tpu_torch.obs import (
+        EventLog,
+        Level,
+        PhaseTimers,
+        profile_trace,
+        render_sweep,
+        render_verdict,
+    )
+    from qba_tpu_torch.stats.estimators import success_rate as rate_of
+
+    log = EventLog(
+        # --jsonl collects the DEBUG trail for export even without -v;
+        # only -v streams it live.
+        min_level=Level.DEBUG if (args.verbose or args.jsonl) else Level.INFO,
+        stream=out,
+        stream_level=Level.DEBUG if args.verbose else Level.INFO,
+    )
+    timers = PhaseTimers(spans=session.spans if session else None)
+    log.info("config", "experiment", n_parties=cfg.n_parties,
+             size_l=cfg.size_l, n_dishonest=cfg.n_dishonest, w=cfg.w,
+             trials=cfg.trials, backend=args.backend,
+             qsim_path=cfg.qsim_path)
+    keys = trial_keys(cfg, resolve_device(_device(args)))
+    shown = min(cfg.trials, args.max_verdicts)
+    trail = args.verbose or args.jsonl
+
+    with profile_trace(args.profile_dir):
+        if args.backend == "torch":
+            with timers.time("trials") as sp:
+                res = fence(run_trials(cfg, keys, device=keys.device))
+                # fence() waits for the device: the span is device time.
+                sp.fenced = True
+            t = res.trials
+            rows = [types.SimpleNamespace(
+                decisions=t.decisions[i].cpu(), honest=t.honest[i].cpu(),
+                success=t.success[i].cpu(), overflow=t.overflow[i].cpu())
+                for i in range(shown)]
+            if trail:
+                # The batched engine emits no per-packet events; for a
+                # given key the local backend reproduces its decisions
+                # exactly, so the displayed trials replay through it for
+                # the trail.
+                replay = run_trials_local(cfg, keys[:shown], log=log)
+                for i, r in enumerate(replay):
+                    vec = [int(x) for x in rows[i].decisions]
+                    if r["decisions"] != vec:
+                        # Unreachable unless the differential contract
+                        # is broken: say so rather than show a trail
+                        # that does not match the printed verdicts.
+                        log.warning("decision", "trail replay mismatch",
+                                    trial=i, replay=r["decisions"],
+                                    vectorized=vec)
+            any_overflow = bool(t.overflow.any())
+            success_rate = float(res.success_rate)
+        elif args.backend == "native":
+            # The C++ runtime's threaded batch executor over one presample.
+            from qba_tpu_torch.backends.native_backend import (
+                native_trial,
+                run_trials_native,
+            )
+
+            with timers.time("trials"):
+                pre = presample_batch(cfg, keys)
+                res = run_trials_native(cfg, keys, pre=pre)
+            if trail:
+                # The displayed trials again through the C engine's trace
+                # path, on the same presample.
+                for i in range(shown):
+                    native_trial(cfg, pre, i, log=log, trial=i)
+            rows = [types.SimpleNamespace(
+                decisions=res["decisions"][i], honest=res["honest"][i],
+                success=res["success"][i], overflow=res["overflow"][i])
+                for i in range(shown)]
+            any_overflow = bool(res["overflow"].any())
+            success_rate = res["success_rate"]
+        else:
+            with timers.time("trials"):
+                if args.backend == "mp":
+                    # ONE party mesh for the whole batch.
+                    from qba_tpu_torch.backends.mp_backend import (
+                        run_trials_mp,
+                    )
+
+                    results = run_trials_mp(cfg, keys, log=log,
+                                            log_limit=args.max_verdicts)
+                else:
+                    # The trail covers the trials whose verdicts are
+                    # printed: unbounded trails would flood stdout.
+                    results = run_trials_local(cfg, keys, log=log,
+                                               log_limit=args.max_verdicts)
+            rows = [types.SimpleNamespace(**{k: r[k] for k in (
+                "decisions", "honest", "success", "overflow")})
+                for r in results[:shown]]
+            any_overflow = any(r["overflow"] for r in results)
+            success_rate = rate_of(sum(r["success"] for r in results),
+                                   cfg.trials)
+        for i, row in enumerate(rows):
+            print(render_verdict(cfg, row, index=i), file=out)
+
+    if any_overflow:
+        log.warning("round", "mailbox slot overflow in some trials")
+    print(
+        render_sweep(cfg, success_rate, cfg.trials, timers.total("trials")),
+        file=out,
+    )
+    if args.jsonl:
+        log.write_jsonl(args.jsonl)
+    return 0
 
 
 def _cmd_sweep(args: argparse.Namespace, out) -> int:
@@ -1089,7 +1259,7 @@ def main(argv: Sequence[str] | None = None, out=None) -> int:
         return 2
     if rest:
         _parser().parse_args(argv)  # argparse's own error for the extras
-    command = {"sweep": _cmd_sweep, "study": _cmd_study,
+    command = {"run": _cmd_run, "sweep": _cmd_sweep, "study": _cmd_study,
                "serve": _cmd_serve, "fleet": _cmd_fleet,
                "atlas": _cmd_atlas, "trace": _cmd_trace}[args.command]
     try:
@@ -1098,4 +1268,8 @@ def main(argv: Sequence[str] | None = None, out=None) -> int:
         # Config validation, or --plot without matplotlib -> a clean CLI
         # failure; other errors keep their tracebacks.
         print(f"error: {e}", file=sys.stderr)
+        return 2
+    except NativeUnavailableError as e:
+        # --backend native (or mp) without a working C++ toolchain.
+        print(f"error: NativeUnavailableError: {e}", file=sys.stderr)
         return 2

@@ -11,7 +11,6 @@ the fused per-round engine with a warning.  Integers: the tolerance is 0.
 import dataclasses
 import warnings
 
-import jax
 import numpy as np
 import pytest
 
@@ -21,7 +20,6 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import qba_tpu_torch
-from qba_tpu.backends.jax_backend import run_trials as j_run_trials
 from qba_tpu.config import QBAConfig as JConfig
 from qba_tpu_torch.convert import config_from_jax_fields
 from qba_tpu_torch.rounds.engine import (
@@ -32,6 +30,7 @@ from qba_tpu_torch.rounds.engine import (
     counters_step,
     resolve_round_engine,
 )
+from tests.test_torch_draws import jax_run_trials
 
 COUNTER_FIELDS = [f.name for f in dataclasses.fields(ProtocolCounters)]
 PRIMARY = ("decisions", "success", "vi", "overflow", "honest", "v_comm")
@@ -47,11 +46,10 @@ CASES = {
 
 
 def jax_counters(jcfg):
-    with jax.threefry_partitionable(True):
-        res = j_run_trials(jcfg).trials
-        return ({f: np.asarray(getattr(res.counters, f))
-                 for f in COUNTER_FIELDS},
-                {f: np.asarray(getattr(res, f)) for f in PRIMARY})
+    res = jax_run_trials(jcfg).trials
+    return ({f: np.asarray(getattr(res.counters, f))
+             for f in COUNTER_FIELDS},
+            {f: np.asarray(getattr(res, f)) for f in PRIMARY})
 
 
 @pytest.mark.parametrize("case", list(CASES))

@@ -31,7 +31,6 @@ torch.set_num_threads(1)
 
 import qba_tpu_torch
 from qba_tpu_torch.diagnostics import QBADemotionWarning
-from qba_tpu.backends.jax_backend import run_trials as j_run_trials
 from qba_tpu.config import QBAConfig as JConfig
 from qba_tpu.qsim import noise as j_noise
 from qba_tpu.qsim import protocol_circuits as j_pc
@@ -52,6 +51,7 @@ from qba_tpu_torch.qsim import statevector as sv
 from qba_tpu_torch.qsim.circuit import Circuit, Gate
 from qba_tpu_torch.testing import random_circuit
 from tests.test_qsim import check_closed_form_properties
+from tests.test_torch_draws import jax_run_trials
 
 ATOL = 1e-6
 FIELDS = ("decisions", "success", "vi", "overflow", "honest", "v_comm")
@@ -373,9 +373,8 @@ def test_noise_flips_match_jax():
 def test_whole_trial_on_the_dense_path_matches_jax(path):
     jcfg = JConfig(n_parties=3, size_l=16, n_dishonest=1, trials=6, seed=2,
                    qsim_path="dense")
-    with jax.threefry_partitionable(True):
-        res = j_run_trials(jcfg)
-        want = {f: np.asarray(getattr(res.trials, f)) for f in FIELDS}
+    res = jax_run_trials(jcfg)
+    want = {f: np.asarray(getattr(res.trials, f)) for f in FIELDS}
     cfg = dataclasses.replace(
         config_from_jax_fields(dataclasses.asdict(jcfg)), qsim_path=path)
     got = qba_tpu_torch.run_trials(cfg, device="cpu")

@@ -35,6 +35,7 @@ import qba_tpu_torch
 from qba_tpu.adversary import adversary_ctx as j_ctx
 from qba_tpu.adversary import assign_dishonest as j_assign_dishonest
 from qba_tpu.adversary import commander_orders as j_commander_orders
+from qba_tpu.backends.jax_backend import aggregate as j_aggregate
 from qba_tpu.backends.jax_backend import batched_trials as j_batched_trials
 from qba_tpu.backends.jax_backend import trial_keys as j_trial_keys
 from qba_tpu.config import QBAConfig as JConfig
@@ -81,6 +82,37 @@ def law_of(combo):
 def run_jax(fn, keys):
     """``jax.jit(fn)(keys)``, compiled with ``FAST_COMPILE``."""
     return jax.jit(fn).lower(keys).compile(FAST_COMPILE)(keys)
+
+
+def fast_jit(fn):
+    """``jax.jit(fn)``, compiled with ``FAST_COMPILE`` once for each
+    argument signature (structure, shapes, dtypes and the threefry mode).
+    The other test files' JAX references compile through it: their
+    outputs are integers and flags too."""
+    jitted, compiled = jax.jit(fn), {}
+
+    def call(*args):
+        leaves, tree = jax.tree.flatten(args)
+        sig = (jax.config.jax_threefry_partitionable, tree,
+               tuple((np.shape(x), str(getattr(x, "dtype", type(x))))
+                     for x in leaves))
+        if sig not in compiled:
+            compiled[sig] = jitted.lower(*args).compile(FAST_COMPILE)
+        return compiled[sig](*args)
+
+    return call
+
+
+def jax_run_trials(jcfg, keys=None):
+    """JAX's ``run_trials(jcfg, keys)`` in partitionable threefry mode,
+    compiled with ``FAST_COMPILE``: its unpacked path, the one it takes
+    off the TPU (``trial_pack`` unset)."""
+    assert jcfg.trial_pack is None
+    with jax.threefry_partitionable(True):
+        if keys is None:
+            keys = j_trial_keys(jcfg)
+        return run_jax(lambda k: j_aggregate(j_batched_trials(jcfg, k)),
+                       keys)
 
 
 @functools.lru_cache(maxsize=None)

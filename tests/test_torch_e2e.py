@@ -21,7 +21,6 @@ import os
 import subprocess
 import sys
 
-import jax
 import numpy as np
 import pytest
 
@@ -31,9 +30,9 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import qba_tpu_torch
-from qba_tpu.backends.jax_backend import run_trials as j_run_trials
 from qba_tpu.config import QBAConfig as JConfig
 from qba_tpu_torch.convert import config_from_jax_fields
+from tests.test_torch_draws import jax_run_trials
 
 FIELDS = ("decisions", "success", "vi", "overflow", "honest", "v_comm")
 ENGINES = ("xla", "pallas_fused", "pallas_tiled", "pallas_mega")
@@ -52,9 +51,8 @@ CASES = {
 
 
 def jax_trials(jcfg):
-    with jax.threefry_partitionable(True):
-        res = j_run_trials(jcfg)
-        return {f: np.asarray(getattr(res.trials, f)) for f in FIELDS}
+    res = jax_run_trials(jcfg)
+    return {f: np.asarray(getattr(res.trials, f)) for f in FIELDS}
 
 
 @pytest.mark.parametrize("case", list(CASES))

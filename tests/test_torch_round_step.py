@@ -26,7 +26,6 @@ torch.set_num_threads(1)
 
 import qba_tpu_torch
 from qba_tpu.adversary import adversary_ctx as j_ctx
-from qba_tpu.backends.jax_backend import run_trials as j_run_trials
 from qba_tpu.config import QBAConfig as JConfig
 from qba_tpu.ops.round_kernel import build_round_step
 from qba_tpu.ops.round_kernel import honest_packets as j_honest_packets
@@ -43,6 +42,7 @@ from qba_tpu_torch.ops import round_kernel as rk
 from qba_tpu_torch.rounds.engine import step3a_one
 from qba_tpu_torch.rounds.mailbox import mailbox_from_step3a
 from qba_tpu_torch.testing import random_mailbox_state
+from tests.test_torch_draws import fast_jit, jax_run_trials
 from tests.test_torch_fused_round import jax_round_draws
 
 FIELDS = ("decisions", "success", "vi", "overflow", "honest", "v_comm")
@@ -61,11 +61,11 @@ ROUND_CASES = {
 
 @functools.lru_cache(maxsize=None)
 def jax_step(jcfg):
-    """The interpret-mode JAX kernel, jitted and vmapped over trials; the
-    round index is traced, as in the JAX engine's scan, so one compile
-    serves every round."""
+    """The interpret-mode JAX kernel, jitted (``FAST_COMPILE``) and vmapped
+    over trials; the round index is traced, as in the JAX engine's scan,
+    so one compile serves every round."""
     step = build_round_step(jcfg, interpret=True)
-    return jax.jit(jax.vmap(step, in_axes=(None,) + (0,) * 12))
+    return fast_jit(jax.vmap(step, in_axes=(None,) + (0,) * 12))
 
 
 def jax_state(jcfg, keys):
@@ -85,7 +85,7 @@ def jax_state(jcfg, keys):
                 j_ctx(jcfg, k_rounds, v_sent))
 
     with jax.threefry_partitionable(True):
-        return jax.jit(jax.vmap(one))(keys)
+        return fast_jit(jax.vmap(one))(keys)
 
 
 @pytest.mark.parametrize("case", list(ROUND_CASES))
@@ -180,9 +180,8 @@ ENGINE_CASES = {
 @pytest.mark.parametrize("case", list(ENGINE_CASES))
 def test_pallas_engine_matches_jax_and_xla(case):
     jcfg = JConfig(round_engine="pallas", **ENGINE_CASES[case])
-    with jax.threefry_partitionable(True):
-        res = j_run_trials(jcfg)
-        want = {f: np.asarray(getattr(res.trials, f)) for f in FIELDS}
+    res = jax_run_trials(jcfg)
+    want = {f: np.asarray(getattr(res.trials, f)) for f in FIELDS}
     cfg = config_from_jax_fields(dataclasses.asdict(jcfg))
     for engine in ("pallas", "xla"):
         got = qba_tpu_torch.run_trials(

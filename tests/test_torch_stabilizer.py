@@ -27,7 +27,6 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import qba_tpu_torch
-from qba_tpu.backends.jax_backend import run_trials as j_run_trials
 from qba_tpu.config import QBAConfig as JConfig
 from qba_tpu.qsim import noise as jnoise
 from qba_tpu.qsim import protocol_circuits as jpc
@@ -45,6 +44,7 @@ from qba_tpu_torch.qsim import compat
 from qba_tpu_torch.qsim import noise as tnoise
 from qba_tpu_torch.qsim import protocol_circuits as tpc
 from qba_tpu_torch.rounds.engine import resolve_mega_gen
+from tests.test_torch_draws import jax_run_trials
 
 NOISE = dict(p_depolarize=0.1, p_measure_flip=0.05)
 GEN = {
@@ -197,9 +197,8 @@ TRIALS = {
 
 @functools.lru_cache(maxsize=None)
 def jax_trials(case):
-    with jax.threefry_partitionable(True):
-        res = j_run_trials(JConfig(**TRIALS[case]))
-        return {f: np.asarray(getattr(res.trials, f)) for f in FIELDS}
+    res = jax_run_trials(JConfig(**TRIALS[case]))
+    return {f: np.asarray(getattr(res.trials, f)) for f in FIELDS}
 
 
 @pytest.mark.parametrize("case", list(TRIALS))

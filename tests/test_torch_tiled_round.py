@@ -28,7 +28,6 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import qba_tpu_torch
-from qba_tpu.backends.jax_backend import run_trials as j_run_trials
 from qba_tpu.config import QBAConfig as JConfig
 from qba_tpu.ops.round_kernel_tiled import (
     build_rebuild_kernel,
@@ -55,6 +54,7 @@ from qba_tpu_torch.ops.round_kernel_tiled import (
     verdict_reference,
 )
 from qba_tpu_torch.testing import random_round_inputs, random_state
+from tests.test_torch_draws import jax_run_trials
 from tests.test_torch_fused_round import jax_round_draws, protocol_states
 
 FIELDS = ("decisions", "success", "vi", "overflow", "honest", "v_comm")
@@ -257,9 +257,8 @@ def test_jax_tiled_round_equals_port_fused_reference(kw, trials, seed):
 
 
 def jax_trials(jcfg):
-    with jax.threefry_partitionable(True):
-        res = j_run_trials(jcfg)
-        return {f: np.asarray(getattr(res.trials, f)) for f in FIELDS}
+    res = jax_run_trials(jcfg)
+    return {f: np.asarray(getattr(res.trials, f)) for f in FIELDS}
 
 
 @pytest.mark.parametrize(

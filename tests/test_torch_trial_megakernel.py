@@ -26,7 +26,6 @@ torch.set_num_threads(1)
 
 import qba_tpu_torch
 from qba_tpu.adversary import adversary_ctx as j_ctx
-from qba_tpu.backends.jax_backend import run_trials as j_run_trials
 from qba_tpu.config import QBAConfig as JConfig
 from qba_tpu.ops.round_kernel_tiled import honest_cells as j_honest_cells
 from qba_tpu.ops.round_kernel_tiled import resolve_mega_block
@@ -46,6 +45,7 @@ from qba_tpu_torch.ops.trial_megakernel import (
 from qba_tpu_torch.ops.attack_draws import attack_draws
 from qba_tpu_torch.rounds.engine import setup_trial, step3a_one
 from qba_tpu_torch.testing import random_trial_inputs
+from tests.test_torch_draws import fast_jit, jax_run_trials
 
 FIELDS = ("decisions", "success", "vi", "overflow", "honest", "v_comm")
 CASES = {
@@ -60,8 +60,16 @@ CASES = {
 }
 
 
-def jax_inputs(jcfg, keys):
-    """Per-trial megakernel inputs from the JAX package, vmapped."""
+def case_keys(jcfg):
+    with jax.threefry_partitionable(True):
+        return jax.random.split(jax.random.key(jcfg.seed), jcfg.trials)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_inputs(case):
+    """A case's per-trial megakernel inputs from the JAX package, vmapped,
+    on its keys; computed once a case (two tests read them)."""
+    jcfg = JConfig(**CASES[case])
 
     def one(key):
         honest, lieu, p_rows, v_sent, _v_comm, k_rounds = j_setup(jcfg, key)
@@ -70,14 +78,14 @@ def jax_inputs(jcfg, keys):
         return (p_rows, lieu, v_sent, j_honest_cells(honest, jcfg), *draws)
 
     with jax.threefry_partitionable(True):
-        return jax.jit(jax.vmap(one))(keys)
+        return fast_jit(jax.vmap(one))(case_keys(jcfg))
 
 
 @functools.lru_cache(maxsize=None)
 def jax_mega(jcfg):
     blk_d, blk_v = resolve_mega_block(jcfg)
     mega = build_trial_megakernel(jcfg, blk_d, blk_v, interpret=True)
-    return jax.jit(jax.vmap(
+    return fast_jit(jax.vmap(
         lambda p, li, v, hc, a, r, la: mega(p, li, li, v, hc, a, r, la)))
 
 
@@ -85,9 +93,8 @@ def jax_mega(jcfg):
 def test_reference_matches_jax_kernel(case):
     jcfg = JConfig(**CASES[case])
     cfg = config_from_jax_fields(dataclasses.asdict(jcfg))
+    inputs = jax_inputs(case)
     with jax.threefry_partitionable(True):
-        keys = jax.random.split(jax.random.key(jcfg.seed), jcfg.trials)
-        inputs = jax_inputs(jcfg, keys)
         vi_j, dec_j, ovf_j = (np.asarray(x) for x in jax_mega(jcfg)(*inputs))
     p_rows, lieu, v_sent, hc, att, rv, late = (np.array(x) for x in inputs)
     vi, dec, ovf = trial_megakernel_reference(
@@ -110,11 +117,9 @@ def test_reference_matches_jax_kernel(case):
 def test_stacked_draws_match_jax(case):
     jcfg = JConfig(**CASES[case])
     cfg = config_from_jax_fields(dataclasses.asdict(jcfg))
-    with jax.threefry_partitionable(True):
-        keys = jax.random.split(jax.random.key(jcfg.seed), jcfg.trials)
-        want = stacked_draws_from_numpy(
-            *(np.array(x) for x in jax_inputs(jcfg, keys)[4:]))
-    kt = key_from_jax(jax.random.key_data(keys))
+    want = stacked_draws_from_numpy(
+        *(np.array(x) for x in jax_inputs(case)[4:]))
+    kt = key_from_jax(jax.random.key_data(case_keys(jcfg)))
     _h, _li, _p, v_sent, _vc, k_rounds = setup_trial(cfg, kt)
     k_rounds = k_rounds.contiguous()
     got = attack_draws(cfg, k_rounds, adversary_ctx(cfg, k_rounds, v_sent))
@@ -126,9 +131,8 @@ def test_stacked_draws_match_jax(case):
 
 
 def jax_trials(jcfg):
-    with jax.threefry_partitionable(True):
-        res = j_run_trials(jcfg)
-        return {f: np.asarray(getattr(res.trials, f)) for f in FIELDS}
+    res = jax_run_trials(jcfg)
+    return {f: np.asarray(getattr(res.trials, f)) for f in FIELDS}
 
 
 @pytest.mark.parametrize(
