@@ -262,6 +262,22 @@ Phases, each reported on its own line:
    the same verdict blocks and success rate), at 11p x 4 with ``-v
    --jsonl`` (the same trail), and ``--backend torch`` and ``native`` at
    33p x 1000 with ``--profile-dir`` (each trace's device account).
+16. ``lint_path``: the invariant checker (``qba_tpu_torch.analysis``).
+   ``python -m qba_tpu_torch lint --effects --protocol --obs`` over the
+   built-in matrix in a process of its own exits 0 with the JAX
+   package's findings-JSON keys (its launches, from the JSON's stats,
+   count in the kernel line).  In process, at 11p/L64/d3 and 33p/L64/d10
+   x 64 trials: the launch pin of ``xla``, ``pallas``, ``pallas_tiled``,
+   ``pallas_fused``, ``pallas_mega`` and ``auto``, of 33p ``stabilizer``
+   ``auto`` and of the 33p ``tp = 4`` mesh (``auto`` and the three
+   per-round engines), each batch's launches counted by the wrappers, at
+   the seams and by ``torch.profiler``'s kernel records, all equal to the
+   engine's model; the sync probe (each engine's chunk, warmed up, under
+   ``torch.cuda.set_sync_debug_mode("error")``: the megakernel's must not
+   raise, every other engine's and ``dense_pallas``'s first sync site is
+   printed); the per-round engines' ping-pong carry; the exact-dot
+   records of a 33p ``stabilizer`` and a 5p/L64/d2 x 32 ``dense_pallas``
+   batch.  Per check its wall and findings; any finding fails.
 
 Any failure exits non-zero.  The line before the last is the kernel
 table as JSON, the one before it the card; the last line is
@@ -4015,6 +4031,228 @@ def run_path(configs, small, dev):
                 fork_probe=fork, cli=cli), launches
 
 
+LINT_TRIALS = 64
+LINT_CLI = ["lint", "--effects", "--protocol", "--obs"]
+# The engines the launch pin drives at each width; the mesh's at tp = 4.
+LINT_ENGINES = ("xla", "pallas", "pallas_tiled", "pallas_fused",
+                "pallas_mega", "auto")
+LINT_MESH_ENGINES = ("auto", "pallas_fused", "pallas_tiled", "pallas")
+
+
+def lint_pin(label, cfg, engine, dev, tp=None):
+    """One traced batch's launches three ways against the engine's model
+    (``analysis.launches.batch_launch_model``): its seams and wrappers'
+    counts (``analysis.trace.trace_batch``), and the kernel records of
+    its ``torch.profiler`` trace (``obs.profile_trace`` around the
+    recorded batch), the megakernel's entries folded into one row."""
+    import shutil
+    import tempfile
+
+    from qba_tpu_torch.analysis import launches as la
+    from qba_tpu_torch.analysis.trace import trace_batch
+    from qba_tpu_torch.obs import profile_trace
+    from qba_tpu_torch.obs.profiling import trace_path
+
+    model = la.batch_launch_model(cfg, engine, dev, tp)
+    d = tempfile.mkdtemp(prefix="qba_pin_")
+    try:
+        rec = trace_batch(label, cfg, engine, dev, LINT_TRIALS, tp=tp,
+                          within=profile_trace(d))
+        events = []
+        if os.path.exists(trace_path(d)):
+            with open(trace_path(d)) as f:
+                events = json.load(f)["traceEvents"]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    seams = {k: v for k, v in rec.seams.items() if k not in la.UNPINNED}
+    launches = {k: v for k, v in rec.launches.items() if k not in la.UNPINNED}
+    names = [e["name"] for e in events if e.get("cat") == "kernel"]
+    prof_counts = la.profiler_counts(names)
+    got = {k: v for k, v in prof_counts.items() if k not in la.UNPINNED}
+    row = dict(trials=rec.trials, model=model, seams=seams,
+               launches=rec.launches,
+               profiler=prof_counts, demoted=rec.demoted, refused=rec.refused,
+               error=rec.error)
+    if (rec.error or rec.refused or rec.demoted
+            or not (launches == seams == model
+                    and got == la.fold_mega(model))):
+        raise AssertionError(f"lint {rec.path}: launches {row}; kernel "
+                             f"records {len(names)}, e.g. "
+                             f"{sorted(set(names))[:12]}")
+    return row
+
+
+def lint_path(configs, dev):
+    """``python -m qba_tpu_torch lint`` on the card, and its dynamic
+    checks at full width in process.
+
+    In process, at 11p/L64/d3 and 33p/L64/d10 x ``LINT_TRIALS`` (fewer
+    where half the admission model's ceiling is smaller, ``xla`` at 33p:
+    ``analysis.trace.batch_trials``): the launch pin (``lint_pin``) on each
+    of ``LINT_ENGINES``, on 33p ``stabilizer`` ``auto`` and on the 33p
+    ``tp = 4`` mesh (``LINT_MESH_ENGINES``); KI-6's dynamic half
+    (``analysis.transfers.check_device_loop``: the megakernel's chunk
+    under ``set_sync_debug_mode("error")`` must raise nothing, every other
+    engine's and ``dense_pallas``'s first sync site is printed); KI-5's
+    carry audit of the per-round engines (``analysis.effects``); KI-3 over
+    the dots of a 33p ``stabilizer`` and a 5p/L64/d2 x 32 ``dense_pallas``
+    batch (``analysis.dots``).  Beside them the CLI (``LINT_CLI`` over the
+    built-in matrix, with ``--findings-json``) in a process of its own
+    must exit 0 with the JAX package's JSON keys and no finding.  Per
+    check its wall and findings; any finding fails the phase.  Returns
+    ``(report, launches)``: the launches are the wrappers' counts after
+    the in-process part less those before it (warm-ups, traced batches
+    and sync probes alike, a cached record adding none), plus the CLI
+    process's own ``kernel_launches()`` at its end."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from qba_tpu_torch import QBAConfig
+    from qba_tpu_torch.analysis import trace
+    from qba_tpu_torch.analysis.dots import check_dots
+    from qba_tpu_torch.analysis.effects import CARRY_ENGINES, check_effects
+    from qba_tpu_torch.analysis.transfers import LOOP_ENGINES, check_device_loop
+    from qba_tpu_torch.ops import kernel_launches
+
+    launches, out = {}, {}
+    # The CLI runs in a process of its own beside the checks below.
+    root = tempfile.mkdtemp(prefix="qba_lint_")
+    cli_json = os.path.join(root, "findings.json")
+    cli_t0 = time.perf_counter()
+    cli_log = open(os.path.join(root, "cli.log"), "w+")
+    cli = subprocess.Popen(port_cli(*LINT_CLI, "--findings-json", cli_json),
+                           stdout=cli_log, stderr=subprocess.STDOUT)
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    def checked(name, fn):
+        t0 = time.perf_counter()
+        rep = fn()
+        wall = time.perf_counter() - t0
+        out[name] = dict(wall_s=wall, findings=len(rep.findings),
+                         notes=len(rep.notes))
+        log("lint_path", check=name, wall_s=wall,
+            findings=[f.render() for f in rep.findings])
+        if rep.findings:
+            raise AssertionError(f"lint {name}: {rep.render()}")
+        return rep
+
+    def in_process():
+        widths = [(name, dataclasses.replace(configs[name], trials=LINT_TRIALS))
+                  for name in ("11p/L64/d3", "33p/L64/d10")]
+        trace.reset()
+        pins = {}
+        t0 = time.perf_counter()
+        cases = [(name, cfg, e, None) for name, cfg in widths
+                 for e in LINT_ENGINES]
+        stab = dataclasses.replace(widths[1][1], qsim_path="stabilizer")
+        cases.append(("33p/L64/d10 stabilizer", stab, "auto", None))
+        cases += [(widths[1][0], widths[1][1], e, 4) for e in LINT_MESH_ENGINES]
+        for name, cfg, engine, tp in cases:
+            row = lint_pin(name, cfg, engine, dev, tp)
+            key = f"{name}/{engine}" + (f"/tp={tp}" if tp else "")
+            pins[key] = row
+            log("lint_path", check="launch_pin", batch=key, **row)
+        out["launch_pin"] = dict(wall_s=time.perf_counter() - t0, findings=0,
+                                 batches=pins)
+        loop = checked("device_loop", lambda: check_device_loop(
+            widths, LOOP_ENGINES, dev, LINT_TRIALS))
+        verdicts = loop.stats["sync_verdicts"]
+        out["device_loop"]["sync_verdicts"] = verdicts
+        log("lint_path", check="sync_verdicts", **verdicts)
+        carry = {}
+        for name, cfg in widths:
+            rep = checked(f"carry {name}", lambda: check_effects(
+                name, cfg, CARRY_ENGINES, dev, LINT_TRIALS))
+            carry[name] = [n for n in rep.notes]
+        dense = QBAConfig(n_parties=5, size_l=64, n_dishonest=2,
+                          qsim_path="dense_pallas", trials=32)
+        dots = {}
+
+        def dot_records():
+            recs, errors = [], []
+            for name, cfg, engine, trials in (
+                    ("33p/L64/d10 stabilizer", stab, "auto", LINT_TRIALS),
+                    ("5p/L64/d2 dense_pallas", dense, "auto", 32)):
+                rec = trace.trace_batch(name, cfg, engine, dev, trials)
+                if rec.error:
+                    errors.append(trace.batch_error(rec))
+                recs += rec.dots
+                dots[name] = dict(
+                    dots=len(rec.dots),
+                    integral=sum(d.integral for d in rec.dots),
+                    max_k=max((d.k for d in rec.dots), default=0),
+                    max_operand=max((max(d.lhs_max, d.rhs_max)
+                                     for d in rec.dots if d.integral), default=0),
+                    sites=sorted({d.where for d in rec.dots}),
+                    precision=sorted({d.precision for d in rec.dots}))
+            rep = check_dots(recs)
+            rep.findings += errors
+            return rep
+
+        checked("exact_dot", dot_records)
+        out["exact_dot"]["records"] = dots
+        log("lint_path", check="exact_dot_records", **dots)
+        return carry
+
+    try:
+        before = kernel_launches()
+        carry = in_process()
+        in_proc = {k: n - before.get(k, 0)
+                   for k, n in kernel_launches().items()
+                   if n != before.get(k, 0)}
+        add(in_proc)
+        cli.wait(timeout=600)
+        cli_s = time.perf_counter() - cli_t0
+        if cli.returncode != 0:
+            cli_log.seek(0)
+            raise AssertionError(f"lint CLI exit {cli.returncode}: "
+                                 f"{cli_log.read()[-6000:]}")
+        with open(cli_json) as f:
+            payload = json.load(f)
+        keys = {"schema", "ok", "effects", "protocol", "obs", "findings",
+                "notes", "stats"}
+        if set(payload) != keys or not payload["ok"] or payload["findings"]:
+            raise AssertionError(f"lint CLI findings json: {sorted(payload)}"
+                                 f" ok={payload.get('ok')}")
+        stats = payload["stats"]
+        add(stats.get("kernel_launches", {}))
+        out["launches"] = dict(in_process=in_proc,
+                               cli=stats.get("kernel_launches", {}))
+        log("lint_path", check="launches", **out["launches"])
+        out["cli"] = dict(wall_s=cli_s, notes=len(payload["notes"]),
+                          sync_verdicts=stats.get("sync_verdicts"),
+                          kernel_launches=stats.get("kernel_launches"))
+        log("lint_path", check="cli", wall_s=cli_s,
+            notes=len(payload["notes"]), findings=0,
+            sync_verdicts=stats.get("sync_verdicts"),
+            kernel_launches=stats.get("kernel_launches"))
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.wait()
+        cli_log.close()
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(out, carry=carry), launches
+
+
+def modelled(cfg, engine, dev, tp=None):
+    """Every counted kernel's launches in one batch of ``cfg`` with
+    ``round_engine=engine``, by the package's launch model
+    (``analysis.launches.batch_launch_model``; ``tp``: the party-sharded
+    batch on one card)."""
+    from qba_tpu_torch.analysis.launches import batch_launch_model
+
+    model = batch_launch_model(cfg, engine, dev, tp)
+    if set(model) - set(COUNTED):
+        raise AssertionError(f"launch model {model} names a kernel the "
+                             "smoke does not count")
+    return {k: model.get(k, 0) for k in COUNTED}
+
+
 def wrappers():
     from qba_tpu_torch.ops import kernel_wrappers
 
@@ -4236,22 +4474,15 @@ def main(argv):
         ("33p/L64/d10", QBAConfig(n_parties=33, size_l=64, n_dishonest=10,
                                   trials=1000)),
     ]
-    # Launches a batch: None is one a round.
-    expect = {"auto": {"trial_megakernel_keyed": 1},
-              "pallas_fused": {"fused_round": None, "attack_draws": None},
-              "pallas_tiled": {"tiled_verdict": None, "tiled_rebuild": None,
-                               "attack_draws": None},
-              "pallas": {"round_step": None, "attack_draws": None}}
     launches = dict.fromkeys(COUNTED, 0)
     runs, single = [], {}
     for name, cfg in main_cfgs:
         if resolve_round_engine(cfg, dev) != "pallas_mega":
             raise AssertionError("auto does not resolve to pallas_mega")
         per_engine, results = {}, {}
-        for engine, per_batch in expect.items():
+        for engine in ("auto", "pallas_fused", "pallas_tiled", "pallas"):
             out, wall, counts, events, peak = drive(cfg, engine)
-            want = {k: cfg.n_rounds if per_batch.get(k, 0) is None
-                    else per_batch.get(k, 0) for k in COUNTED}
+            want = modelled(cfg, engine, dev)
             if counts != want:
                 raise AssertionError(
                     f"{name} {engine}: launches {counts}, expected {want}")
@@ -4349,8 +4580,7 @@ def main(argv):
     if resolve_round_engine(ccfg, dev) != "pallas_fused":
         raise AssertionError("auto with counters is not pallas_fused")
     out, wall, counts, _events, peak = drive(ccfg, "auto")
-    want = {k: cfg.n_rounds if k in ("fused_round", "attack_draws") else 0
-            for k in COUNTED}
+    want = modelled(ccfg, "auto", dev)
     if counts != want:
         raise AssertionError(
             f"{name} counters: launches {counts}, expected {want}")
@@ -4384,9 +4614,9 @@ def main(argv):
     dcfg = QBAConfig(n_parties=5, size_l=64, n_dishonest=2,
                      qsim_path="dense_pallas", trials=32)
     out, wall, counts, events, peak = drive(dcfg, "auto")
-    want = {k: int(k == "trial_megakernel_keyed") for k in COUNTED
-            if k != "fused_circuit"}
-    if ({k: counts[k] for k in want} != want
+    want = modelled(dcfg, "auto", dev)
+    if ({k: counts[k] for k in want if k != "fused_circuit"}
+            != {k: n for k, n in want.items() if k != "fused_circuit"}
             or counts["fused_circuit"] < 1):
         raise AssertionError(f"dense_pallas: launches {counts}")
     for k, n in counts.items():
@@ -4430,14 +4660,8 @@ def main(argv):
     # kernel and the fused round per round.
     from qba_tpu_torch.rounds.engine import resolve_mega_gen
 
-    stab_expect = {
-        "auto": ({}, {"trial_megakernel_gen_keyed": 1}),
-        "host": (dict(mega_gen="host"),
-                 {"trial_megakernel_keyed": 1, "gf2_sweep": 1}),
-        "pallas_fused": (dict(round_engine="pallas_fused"),
-                         {"fused_round": None, "attack_draws": None,
-                          "gf2_sweep": 1}),
-    }
+    stab_runs_of = {"auto": {}, "host": dict(mega_gen="host"),
+                    "pallas_fused": dict(round_engine="pallas_fused")}
     stab_runs = []
     for name, base in main_cfgs:
         cfg = dataclasses.replace(base, qsim_path="stabilizer")
@@ -4446,11 +4670,10 @@ def main(argv):
             raise AssertionError("auto on the stabilizer path is not the "
                                  "megakernel's gen entry")
         per_engine, results = {}, {}
-        for label, (kw, per_batch) in stab_expect.items():
-            out, wall, counts, events, peak = drive(
-                dataclasses.replace(cfg, **kw), "auto")
-            want = {k: cfg.n_rounds if per_batch.get(k, 0) is None
-                    else per_batch.get(k, 0) for k in COUNTED}
+        for label, kw in stab_runs_of.items():
+            scfg = dataclasses.replace(cfg, **kw)
+            out, wall, counts, events, peak = drive(scfg, "auto")
+            want = modelled(scfg, scfg.round_engine, dev)
             if counts != want:
                 raise AssertionError(f"{name} stabilizer {label}: launches "
                                      f"{counts}, expected {want}")
@@ -4476,7 +4699,7 @@ def main(argv):
                     raise AssertionError(f"{name} stabilizer: gen entry and "
                                          f"{label} disagree on {f}")
         log("engines_agree", config=name, qsim_path="stabilizer",
-            trials=cfg.trials, engines=list(stab_expect))
+            trials=cfg.trials, engines=list(stab_runs_of))
         keys = trial_keys(cfg, dev)
         sweep, plain_bits = sweep_batch(cfg, keys)
         gen, gen_vi = gen_vs_plain(cfg, keys, reps=3,
@@ -4545,25 +4768,16 @@ def main(argv):
             raise AssertionError(f"{name}: auto under tp={tp} is not the "
                                  "sharded megakernel")
         per_run = {}
-        n_r = cfg.n_rounds
         # Per round: the ring once a leaf of the pool or mailbox (none
         # with all_gather), then the round's n_recv kernels.
-        round_kernels = {"pallas_fused": {"fused_round": n_r},
-                         "pallas_tiled": {"tiled_verdict": n_r,
-                                          "tiled_rebuild": n_r},
-                         "pallas": {"round_step": n_r}}
-        mesh_runs_of = [("auto", {}, {"sharded_trial_megakernel_keyed": 1})]
-        for engine, ks in round_kernels.items():
-            ks = {**ks, "attack_draws": n_r}
-            for comms in ("ring", "all_gather"):
-                ring = {"ring_gather": 4 * n_r} if comms == "ring" else {}
-                mesh_runs_of.append((f"{engine} {comms}",
-                                     dict(round_engine=engine,
-                                          tp_comms=comms), {**ring, **ks}))
-        for label, kw, per_batch in mesh_runs_of:
-            out, wall, counts, events, peak = drive(
-                dataclasses.replace(cfg, **kw), "auto", mesh)
-            want = {k: per_batch.get(k, 0) for k in COUNTED}
+        mesh_runs_of = [("auto", {})] + [
+            (f"{engine} {comms}", dict(round_engine=engine, tp_comms=comms))
+            for engine in ("pallas_fused", "pallas_tiled", "pallas")
+            for comms in ("ring", "all_gather")]
+        for label, kw in mesh_runs_of:
+            mcfg = dataclasses.replace(cfg, **kw)
+            out, wall, counts, events, peak = drive(mcfg, "auto", mesh)
+            want = modelled(mcfg, mcfg.round_engine, dev, tp)
             if counts != want:
                 raise AssertionError(f"{name} tp={tp} {label}: launches "
                                      f"{counts}, expected {want}")
@@ -4714,6 +4928,16 @@ def main(argv):
     log("run_path", part="phase", seconds=report["run_path"]["phase_s"])
     for k, n in run_launches.items():
         launches[k] += n
+
+    # The invariant checker: `lint` on the card, and its launch, host-sync,
+    # carry and exact-dot checks at full width.
+    t0 = time.perf_counter()
+    report["lint_path"], lint_launches = lint_path(dict(main_cfgs), dev)
+    report["lint_path"]["phase_s"] = time.perf_counter() - t0
+    log("lint_path", part="phase", seconds=report["lint_path"]["phase_s"])
+    for k, n in lint_launches.items():
+        if k in launches:
+            launches[k] += n
 
     big = runs[-1]
     kernels = []

@@ -1,6 +1,18 @@
-"""Device-memory price of a trial batch on the port's worker — the
-counterpart of :func:`qba_tpu.analysis.memory.trial_ceiling` (and only
-of it), which the fleet's admission controller prices requests with.
+"""KI-2: the port's memory plans — the counterpart of
+:mod:`qba_tpu.analysis.memory`.  Two parts:
+
+* the device-memory price of a trial batch on the port's worker
+  (:func:`trial_ceiling`), which the fleet's admission controller prices
+  requests with, described below;
+* the lint's plan audit (:func:`check_memory`, :func:`check_gf2_memory`):
+  every kernel's shared memory a block (the per-round kernels'
+  :func:`~qba_tpu_torch.ops.round_kernel_tiled.round_smem_bytes`, which
+  ``check_round_smem`` prices, the megakernel's and its sharded entry's,
+  the circuit kernel's routes and the sweep's tables) against the
+  card's opt-in shared memory a block, read from the device
+  (:func:`smem_budget`); the trial ceiling at the card's memory; the
+  graph loops' carry bytes (:func:`device_loop_carry_bytes`); and the
+  stabilizer path's packed tableaux per shot.
 
 The JAX model prices a trial by the TPU's padded tiled pool against a
 fixed HBM size.  Here a trial is priced by the buffers the port's worker
@@ -38,6 +50,8 @@ from __future__ import annotations
 import os
 import subprocess
 import warnings
+
+from qba_tpu_torch.analysis.findings import Finding, Report
 
 #: Memory a worker holds outside its batches: the CUDA context, the
 #: kernels' modules, per-config tables and the caching allocator's
@@ -191,3 +205,196 @@ def device_memory_bytes(device: str) -> int:
                          "fleet's device memory is unknown (pass --device "
                          "cpu for a CPU fleet)")
     return min(sizes)
+
+
+# ---------------------------------------------------------------------------
+# The lint's plan audit (KI-2).
+
+#: A graph loop's carry is priced at 64 chunks of 1000 trials.
+LOOP_CHUNKS, LOOP_CHUNK_TRIALS = 64, 1000
+
+
+def smem_budget(device) -> int:
+    """Shared memory one block may opt in to: read from a CUDA
+    ``device``, else the H100's (``SMEM_LIMIT``, which the kernels'
+    host checks use)."""
+    from qba_tpu_torch.ops.round_kernel_tiled import SMEM_LIMIT
+
+    import torch
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return SMEM_LIMIT
+    return torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+
+
+def kernel_plans(cfg, budget: int) -> list[tuple[str, int]]:
+    """``(plan, shared bytes a block)`` of every kernel that could run
+    ``cfg`` (none past the kernels' 64-bit masks, which refuse it): the
+    per-round kernels single-device and at each ``tp`` of 2, 4 and 8
+    that divides the lieutenants, the megakernel (staged where its
+    staged layout fits ``budget``, as the kernel chooses) and its
+    sharded entry where a plan admits it, the sweep's shared tables
+    and the circuit kernel's block and cluster routes."""
+    from qba_tpu_torch.ops import fused_circuit as fc
+    from qba_tpu_torch.ops._launch import masks_fit
+    from qba_tpu_torch.ops.gf2_sweep import SMEM_TABLES
+    from qba_tpu_torch.ops.round_kernel_tiled import (
+        round_smem_bytes,
+        sharded_mega_plan,
+    )
+    from qba_tpu_torch.ops.trial_megakernel import (
+        mega_smem_bytes,
+        mega_staged,
+    )
+
+    if not masks_fit(cfg):
+        return []
+    plans = [
+        ("pallas_fused/round", round_smem_bytes(cfg)),  # round_step's too
+        ("pallas_tiled/verdict", round_smem_bytes(cfg, slots=False)),
+        ("pallas_tiled/rebuild", round_smem_bytes(cfg, verdict=False)),
+        ("pallas_mega/trial", mega_smem_bytes(
+            cfg, staged=mega_staged(cfg, limit=budget))),
+    ]
+    for tp in (2, 4, 8):
+        if cfg.n_lieutenants % tp:
+            continue
+        n_local = cfg.n_lieutenants // tp
+        plans.append((f"spmd[tp={tp}]/pallas_fused/round",
+                      round_smem_bytes(cfg, n_local)))
+        if sharded_mega_plan(cfg, tp) is not None:
+            plans.append((f"spmd[tp={tp}]/pallas_mega/trial", mega_smem_bytes(
+                cfg, tp, staged=mega_staged(cfg, tp, limit=budget))))
+    if cfg.qsim_path == "stabilizer":
+        plans.append(("gf2_sweep/tables", SMEM_TABLES))
+    if cfg.qsim_path == "dense_pallas":
+        plans.append(("fused_circuit/block", fc.BLOCK_STATE_BYTES))
+        plans.append(("fused_circuit/cluster", fc.BLOCK_STATE_BYTES))
+    return plans
+
+
+def device_loop_carry_bytes(n_chunks: int, chunk_trials: int,
+                            n_cells: int = 1,
+                            per_trial_bits: bool = False) -> int:
+    """Bytes the graph loops keep on the card beside a chunk's own
+    working set: the sweep's carry (``sweep_loop.new_carry``) and its
+    stop tables; for a surface of ``n_cells`` cells its carry
+    (``surface_loop.SurfaceLayout``, ``n_chunks`` a cell and as many
+    passes as chunks in all); with ``per_trial_bits`` the serving
+    worker's success bits, key table and row offsets."""
+    from qba_tpu_torch.ops.surface_loop import SurfaceLayout
+    from qba_tpu_torch.ops.sweep_loop import HEAD
+
+    tables = 2 * (n_chunks + 1) * 4
+    if n_cells > 1:
+        carry = SurfaceLayout(n_cells, n_chunks, n_cells * n_chunks).size * 4
+    else:
+        carry = (HEAD + 2 * n_chunks) * 4
+    if per_trial_bits:
+        carry += n_chunks * chunk_trials * (1 + 16) + chunk_trials * 8
+    return carry + tables
+
+
+def check_memory(cfg, device) -> Report:
+    """The KI-2 plan audit of one config on ``device`` (``"cuda"`` or
+    ``"cpu"``): each kernel plan's shared memory against
+    :func:`smem_budget`, the trial ceiling at the device's memory and
+    the graph loops' carries."""
+    import torch
+
+    report = Report()
+    budget = smem_budget(device)
+    dev_type = torch.device(device).type
+    plans = kernel_plans(cfg, budget)
+    if not plans:
+        report.notes.append(
+            f"memory: {cfg.n_parties} parties pass the kernels' 64-bit "
+            "masks; no kernel runs this config")
+    for plan, nbytes in plans:
+        if nbytes > budget:
+            report.findings.append(Finding(
+                ki="KI-2", check="smem-plan", path=plan,
+                message=(
+                    f"{nbytes} B of shared memory a block, over the "
+                    f"{budget} B a block may opt in to on this "
+                    f"{dev_type} device: the kernel would refuse the "
+                    "config at launch"
+                ),
+            ))
+    if plans:
+        worst = max(plans, key=lambda p: p[1])
+        report.notes.append(
+            f"smem: {len(plans)} kernel plans, the largest {worst[0]} "
+            f"{worst[1]} B of {budget} B a block")
+    hbm = device_memory_bytes(dev_type)
+    ceiling = trial_ceiling(cfg, hbm, dev_type)
+    report.notes.append(
+        f"hbm-ceiling: {per_trial_bytes(cfg, dev_type)} B a trial -> "
+        f"{ceiling} trials a batch in {hbm} B")
+    if ceiling < 1:
+        report.findings.append(Finding(
+            ki="KI-2", check="hbm-ceiling", path="batch",
+            message=(
+                f"one trial ({per_trial_bytes(cfg, dev_type)} B) does not "
+                f"fit the device's {hbm} B after the worker's reserve"
+            ),
+        ))
+    loops = {
+        "sweep": device_loop_carry_bytes(LOOP_CHUNKS, LOOP_CHUNK_TRIALS),
+        "serve": device_loop_carry_bytes(LOOP_CHUNKS, LOOP_CHUNK_TRIALS,
+                                         per_trial_bits=True),
+        "surface(16 cells)": device_loop_carry_bytes(
+            LOOP_CHUNKS, LOOP_CHUNK_TRIALS, 16),
+    }
+    report.notes.append(
+        f"device-loop-carry at {LOOP_CHUNKS} chunks of "
+        f"{LOOP_CHUNK_TRIALS}: "
+        + ", ".join(f"{k} {v} B" for k, v in loops.items()))
+    over = {k: v for k, v in loops.items() if v > hbm - HBM_RESERVE}
+    if over:
+        report.findings.append(Finding(
+            ki="KI-2", check="device-loop-carry", path="sweep/device",
+            message=f"graph-loop carries {over} no longer fit the device",
+        ))
+    report.stats["smem_plans_checked"] = len(plans)
+    return report
+
+
+def gf2_tableau_bytes(cfg) -> dict:
+    """Packed-tableau working set of one shot (one list position) of the
+    stabilizer path: the x and z word planes ``[2n, W]`` (``W`` words
+    of 32 qubits, held in int64), the phase vector, the coins and the
+    output bits."""
+    from qba_tpu_torch.gf2 import n_words
+
+    n = cfg.total_qubits
+    w = n_words(n)
+    per_shot = 2 * (2 * n) * w * 8 + (2 * n + 2 * n) * 4 + 2 * n * 4
+    return {"n_qubits": n, "words_per_row": w, "per_shot_bytes": per_shot}
+
+
+def check_gf2_memory(cfg, device) -> Report:
+    """KI-2 for the stabilizer path's packed tableaux: the shots
+    (trials x list positions) the device's memory holds at once."""
+    import torch
+
+    report = Report()
+    dev_type = torch.device(device).type
+    tb = gf2_tableau_bytes(cfg)
+    room = device_memory_bytes(dev_type) - HBM_RESERVE
+    shots = max(0, room) // tb["per_shot_bytes"]
+    trials = shots // max(cfg.size_l, 1)
+    report.notes.append(
+        f"gf2-tableau: {tb['n_qubits']} qubits packed to "
+        f"{tb['words_per_row']} words a row, {tb['per_shot_bytes']} B a "
+        f"shot -> {shots} shots, {trials} trials at size_l={cfg.size_l}")
+    if trials < 1:
+        report.findings.append(Finding(
+            ki="KI-2", check="gf2-tableau", path="gf2/sampler",
+            message=(
+                f"one trial's packed tableaux ({cfg.size_l} positions x "
+                f"{tb['per_shot_bytes']} B) do not fit the device"
+            ),
+        ))
+    return report

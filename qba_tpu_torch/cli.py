@@ -1,5 +1,5 @@
 """Command-line interface: ``python -m qba_tpu_torch
-{run,sweep,study,serve,fleet,atlas,trace}`` — those subcommands of
+{run,sweep,study,serve,fleet,atlas,trace,lint}`` — those subcommands of
 :mod:`qba_tpu.cli`, with their flags, on the port.
 
 * ``run`` — execute trials and print per-trial verdicts in the
@@ -23,14 +23,17 @@
   fleet (:mod:`qba_tpu_torch.atlas`).
 * ``trace`` — one fleet run's lifecycle events and worker span files
   stitched into per-request traces (:mod:`qba_tpu_torch.obs.tracing`).
+* ``lint`` — the invariant checker (:mod:`qba_tpu_torch.analysis`): its
+  KI passes over one small batch per (config, engine) on the device;
+  exit 1 on any finding.
 
 Each runs on CUDA; ``--device cpu`` runs the plain PyTorch versions (a
 fleet's workers too).  ``--plot`` needs matplotlib, and without it is a
 clean usage error.
 
-The JAX package's other subcommands are named here and refuse with the
-ROADMAP item that ports them: ``bench`` (A11) and ``lint`` (A13b).  So
-do the fleet's mesh flags (A12b): the port's worker serves no mesh.
+The JAX package's other subcommand, ``bench``, is named here and
+refuses with the ROADMAP item that ports it (A11).  So do the fleet's
+mesh flags (A12b): the port's worker serves no mesh.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ from qba_tpu_torch.obs.plots import PlottingUnavailableError
 from qba_tpu_torch.serve import timing as _timing
 
 # Subcommands of the JAX package's CLI not ported yet, and their items.
-_NOT_PORTED = {"bench": "A11", "lint": "A13b"}
+_NOT_PORTED = {"bench": "A11"}
 
 
 def _add_config_args(p: argparse.ArgumentParser, trials_default: int) -> None:
@@ -366,10 +369,88 @@ def _parser() -> argparse.ArgumentParser:
     _add_fleet_parser(sub)
     _add_atlas_parser(sub)
     _add_trace_parser(sub)
+    _add_lint_parser(sub)
     for name, item in _NOT_PORTED.items():
         sub.add_parser(name, help=f"not ported yet (ROADMAP {item})",
                        add_help=False, prefix_chars="\0")
     return parser
+
+
+def _add_lint_parser(sub) -> None:
+    lint = sub.add_parser(
+        "lint",
+        help="invariant check (KI-2/3/5/6/8/10/11/12) over one small batch "
+        "per config and engine on the device; exit 1 on findings",
+    )
+    lint.add_argument(
+        "--engines", default=None, metavar="E1,E2,...",
+        help="restrict to these engines "
+        "(xla,pallas,pallas_tiled,pallas_fused,pallas_mega,spmd,gf2; "
+        "default: all)",
+    )
+    lint.add_argument(
+        "--config", action="append", default=None, metavar="P,L,D",
+        dest="lint_configs",
+        help="lint one n_parties,size_l,n_dishonest triple instead of "
+        "the built-in matrix (repeatable)",
+    )
+    lint.add_argument(
+        "--saved-plans", metavar="PLANS_JSON", default=None,
+        help="also lint every shape recorded in a serve warm-start "
+        "artifact (<cache-dir>/plans.json)",
+    )
+    lint.add_argument(
+        "--effects", action="store_true",
+        help="also run KI-5 (launches per batch pinned to each engine's "
+        "model, the round loops' ping-pong carry) and KI-6 (AST sweep of "
+        "the hot modules, serve dispatch order, fleet front half, and "
+        "each engine's chunk under the sync probe)",
+    )
+    lint.add_argument(
+        "--manifests", action="append", default=None, metavar="GLOB",
+        help="also run the KI-8 manifest-CI audit over these run-"
+        "manifest JSON files (repeatable; globs allowed)",
+    )
+    lint.add_argument(
+        "--protocol", action="store_true",
+        help="also run the KI-10 file-queue protocol pass: bounded "
+        "model check, serve/ conformance sweep, admission purity",
+    )
+    lint.add_argument(
+        "--atlas", metavar="STORE_DIR", default=None, dest="atlas_store",
+        help="also run the KI-11 campaign-completeness gate over this "
+        "atlas store",
+    )
+    lint.add_argument(
+        "--obs", action="store_true",
+        help="also run the KI-12 observability-plane audit: mint sites, "
+        "metric names, trace-context propagation, span anchoring",
+    )
+    lint.add_argument(
+        "--obs-queue-dir", metavar="DIR", default=None,
+        help="KI-12 dynamic half: stitch this fleet queue dir's traces "
+        "and fail on orphan spans or closed traces below the span-"
+        "coverage floor",
+    )
+    lint.add_argument(
+        "--obs-telemetry", metavar="DIR", default=None,
+        help="telemetry root for --obs-queue-dir (worker span files)",
+    )
+    lint.add_argument(
+        "--obs-coverage-floor", type=float, default=None,
+        help="span-coverage floor for --obs-queue-dir (default 0.8)",
+    )
+    lint.add_argument(
+        "--findings-json", metavar="PATH", default=None,
+        help="write the full report (findings, notes, stats) as JSON "
+        "to PATH",
+    )
+    lint.add_argument(
+        "-v", "--verbose", action="store_true",
+        help="print notes (plans, launch counts, sync sites) even when "
+        "there are findings",
+    )
+    _add_device_arg(lint)
 
 
 def _add_fleet_parser(sub) -> None:
@@ -1249,6 +1330,79 @@ def _cmd_fleet(args: argparse.Namespace, out) -> int:
     return 0
 
 
+def _cmd_lint(args: argparse.Namespace, out) -> int:
+    from qba_tpu_torch.analysis.driver import (
+        lint_configs,
+        run_lint,
+        saved_plan_configs,
+    )
+
+    engines = (
+        [e.strip() for e in args.engines.split(",") if e.strip()]
+        if args.engines else None
+    )
+    if args.lint_configs:
+        configs = []
+        for spec in args.lint_configs:
+            try:
+                p, l, d = (int(x) for x in spec.split(","))
+            except ValueError:
+                raise ValueError(
+                    f"--config wants n_parties,size_l,n_dishonest; got {spec!r}"
+                ) from None
+            configs.append((f"({p},{l},{d})", QBAConfig(p, l, d)))
+    else:
+        configs = lint_configs()
+    if args.saved_plans:
+        covered = {(c.n_parties, c.size_l, c.n_dishonest) for _, c in configs}
+        for label, cfg in saved_plan_configs(args.saved_plans):
+            if (cfg.n_parties, cfg.size_l, cfg.n_dishonest) not in covered:
+                configs.append((label, cfg))
+    report = run_lint(configs=configs, engines=engines, effects=args.effects,
+                      protocol=args.protocol, device=args.device)
+    if args.manifests:
+        from qba_tpu_torch.analysis.manifests import check_manifest_files
+
+        report.extend(check_manifest_files(args.manifests))
+    if args.atlas_store:
+        from qba_tpu_torch.analysis.atlas import check_atlas_store
+
+        report.extend(check_atlas_store(args.atlas_store))
+    if args.obs:
+        from qba_tpu_torch.analysis.obs import check_obs
+
+        report.extend(check_obs())
+    if args.obs_queue_dir:
+        from qba_tpu_torch.analysis.obs import COVERAGE_FLOOR, check_span_coverage
+
+        report.extend(check_span_coverage(
+            args.obs_queue_dir, telemetry_dir=args.obs_telemetry,
+            floor=(args.obs_coverage_floor
+                   if args.obs_coverage_floor is not None
+                   else COVERAGE_FLOOR)))
+    print(report.render(verbose=args.verbose), file=out)
+    if args.findings_json:
+        import dataclasses
+
+        payload = {
+            "schema": "qba-tpu-torch/lint-findings/v1",
+            "ok": report.ok,
+            "effects": bool(args.effects),
+            "protocol": bool(args.protocol),
+            "obs": bool(args.obs),
+            "findings": [dataclasses.asdict(f) for f in report.findings],
+            "notes": report.notes,
+            "stats": {
+                k: (sorted(v) if isinstance(v, (set, frozenset)) else v)
+                for k, v in report.stats.items()
+            },
+        }
+        with open(args.findings_json, "w") as fh:
+            json.dump(payload, fh, indent=2, sort_keys=True)
+        print(f"findings json: {args.findings_json}", file=out)
+    return 0 if report.ok else 1
+
+
 def main(argv: Sequence[str] | None = None, out=None) -> int:
     out = out if out is not None else sys.stdout
     args, rest = _parser().parse_known_args(argv)
@@ -1261,7 +1415,8 @@ def main(argv: Sequence[str] | None = None, out=None) -> int:
         _parser().parse_args(argv)  # argparse's own error for the extras
     command = {"run": _cmd_run, "sweep": _cmd_sweep, "study": _cmd_study,
                "serve": _cmd_serve, "fleet": _cmd_fleet,
-               "atlas": _cmd_atlas, "trace": _cmd_trace}[args.command]
+               "atlas": _cmd_atlas, "trace": _cmd_trace,
+               "lint": _cmd_lint}[args.command]
     try:
         return command(args, out)
     except (ValueError, PlottingUnavailableError) as e:

@@ -44,6 +44,7 @@ def gf2_matmul(a: torch.Tensor, b: torch.Tensor, *,
     bf = (b.to(torch.int32) & 1).to(torch.float32)
     acc = None
     for k0 in range(0, k, tile_k):
+        # qba-lint: exact-dot (0/1 operands, tile sums <= GF2_TILE_K = 2**11)
         part = torch.matmul(af[..., :, k0:k0 + tile_k],
                             bf[..., k0:k0 + tile_k, :])
         tile = part.to(torch.int32) & 1

@@ -9,7 +9,10 @@ contract: CPU tensors take the plain version, CUDA tensors launch the
 hand-written kernel or raise; inputs are checked for exact dtype, shape,
 contiguity and device before a launch; each launch adds one to the
 wrapper's ``launches`` count and, when its ``events`` attribute is a
-list, appends its ``(start, end)`` CUDA events.
+list, appends its ``(start, end)`` CUDA events.  Every call, launch or
+plain version, first passes :func:`dispatch`, the wrapper's seam, which
+tells each callable in :data:`seam_observers` (the invariant checker's
+launch, carry and trace records, :mod:`qba_tpu_torch.analysis.trace`).
 """
 
 from __future__ import annotations
@@ -23,6 +26,11 @@ from qba_tpu_torch.config import QBAConfig
 # The kernels keep a receiver's accepted set and a packet's per-receiver
 # verdicts as 64-bit masks.
 KERNEL_MAX_W = 64
+
+#: Callables ``observer(name, tensors)`` that :func:`dispatch` calls with
+#: each wrapper's name and its seam tensors, before it picks the kernel
+#: or the plain version.
+seam_observers: list = []
 
 
 class KernelUnsupported(NotImplementedError):
@@ -72,12 +80,33 @@ def dispatch(name: str, tensors) -> bool:
     """True to launch a kernel (the first of ``tensors`` is a CUDA
     tensor), False for the plain version (a CPU tensor); raises on any
     other device."""
+    for observer in seam_observers:
+        observer(name, tensors)
     dev = tensors[0].device
     if dev.type == "cuda":
         return True
     if dev.type != "cpu":
         raise ValueError(f"{name}: unsupported device {dev}")
     return False
+
+
+def write_out(name: str, new, out, src):
+    """A plain version's successor ``new`` (a tuple of leaves) written
+    into ``out``, the other buffer of the ping-pong pair the kernel
+    writes, after the kernel's checks: the same shapes and dtypes, and
+    no leaf that aliases its input ``src``.  ``new`` itself where
+    ``out`` is None."""
+    if out is None:
+        return new
+    for i, (o, x, s) in enumerate(zip(out, new, src)):
+        if o.shape != x.shape or o.dtype != x.dtype:
+            raise ValueError(f"{name} out[{i}] is {o.dtype}{list(o.shape)}, "
+                             f"the result {x.dtype}{list(x.shape)}")
+        if o.data_ptr() == s.data_ptr():
+            raise ValueError(f"{name} out[{i}] aliases its input; pass the "
+                             "other buffer of the ping-pong pair")
+        o.copy_(x)
+    return tuple(out)
 
 
 def timed_launch(wrapper, fn, args, stream):
@@ -95,6 +124,7 @@ def timed_launch(wrapper, fn, args, stream):
         if not torch.cuda.is_current_stream_capturing():
             # A sticky fault (an earlier kernel's illegal address) raises
             # here, and every later CUDA call would raise it too.
+            # qba-lint: sync-ok (a refused launch: tells a sticky fault from a refusal)
             torch.cuda.synchronize(stream.device)
         raise KernelLaunchError(f"{wrapper.__name__} kernel launch failed: "
                                 f"CUDA error {rc}")
@@ -126,11 +156,13 @@ def clock_breakdown(clock, names) -> dict:
     and the largest of the blocks' sums (the slowest block bounds a
     one-wave launch)."""
     per_block = clock.reshape(-1, len(names)).double()
+    # qba-lint: sync-ok (the phase clock's readout, after the timed launches)
     cycles = per_block.mean(0).tolist()
     total = sum(cycles) or 1.0
     out = {name: dict(cycles=c, share=c / total)
            for name, c in zip(names, cycles)}
     sums = per_block.sum(1)
+    # qba-lint: sync-ok (the phase clock's readout, after the timed launches)
     out["block"] = dict(mean=float(sums.mean()), max=float(sums.max()))
     return out
 

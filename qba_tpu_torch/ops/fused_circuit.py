@@ -161,6 +161,7 @@ def circuit_tables(n_qubits: int, ops, n_params: int) -> CircuitTables:
         n_qubits=n_qubits, n_params=max(n_params, 1), is_real=is_real,
         ops_i=torch.tensor(rows_i, dtype=torch.int32).reshape(-1, 4),
         ops_f=torch.from_numpy(
+            # qba-lint: sync-ok (host lists: the tables are built on the host)
             np.asarray(rows_f, np.float32).reshape(-1, 8)),
         passes=torch.tensor(_passes(rows_i, route[2]),
                             dtype=torch.int32).reshape(-1, 3),
@@ -229,6 +230,7 @@ def fused_circuit_reference(tables: CircuitTables,
     planes = [x] if tables.is_real else [x, torch.zeros_like(x)]
     index = torch.arange(size, device=dev)
     ops_f = tables.ops_f.to(dev)
+    # qba-lint: sync-ok (plain version: CPU tensors only)
     for (kind, bit, ctrl, pi), m in zip(tables.ops_i.tolist(), ops_f):
         lo = 1 << bit
         # A pair takes part when every control bit of i is set.
@@ -264,6 +266,7 @@ def cluster_split_reference(tables: CircuitTables, params: torch.Tensor,
     index = torch.arange(nl, device=dev)
     rank = torch.arange(cluster, device=dev)
     ops_f = tables.ops_f.to(dev)
+    # qba-lint: sync-ok (plain version: CPU tensors only)
     for (kind, bit, ctrl, pi), m in zip(tables.ops_i.tolist(), ops_f):
         ctrl_local, ctrl_rank = ctrl & lmask, ctrl >> local
         run_on = (params[:, pi] != 0 if kind == KIND_XPOW
@@ -278,6 +281,7 @@ def cluster_split_reference(tables: CircuitTables, params: torch.Tensor,
                 kind, m, on, [p.reshape(-1, nl) for p in planes], lo)]
             continue
         tb = 1 << (bit - local)
+        # qba-lint: sync-ok (plain version: CPU tensors only)
         lower = rank[(rank & tb) == 0]
         upper = lower | tb
         half = nl // 2

@@ -147,6 +147,7 @@ def gf2_sweep(n: int, xw, zw, r, rnds, family=None, mflip=None, *,
     args = [tables.data_ptr(),
             None if family is None else family.data_ptr(), r.data_ptr(),
             rnds.data_ptr(), None if mflip is None else mflip.data_ptr(),
+            # qba-lint: sync-ok (a Python bool)
             bits.data_ptr(), b, n, f, int(tables_in_shared(tables))]
     timed_launch(gf2_sweep, fn, args, torch.cuda.current_stream(dev))
     return bits

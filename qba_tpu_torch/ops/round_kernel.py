@@ -42,6 +42,7 @@ from qba_tpu_torch.ops._launch import (
     no_clock,
     ptrs,
     timed_launch,
+    write_out,
 )
 from qba_tpu_torch.ops.round_kernel_tiled import (
     META_COUNT,
@@ -166,6 +167,7 @@ def round_step_reference(cfg: QBAConfig, round_idx: int, mailbox, li, vi,
     dev = vals.device
     out = empty_mailbox(cfg, n_trials, dev, n_recv=n_rv, start=start)
     no_overflow = torch.zeros(n_trials, dtype=torch.bool, device=dev)
+    # qba-lint: sync-ok (plain version: CPU tensors only)
     cols = (meta[..., META_SENT] != 0).any(0).nonzero()[:, 0]
     if cols.numel() == 0:
         return out, vi.clone(), no_overflow
@@ -184,6 +186,7 @@ def round_step_reference(cfg: QBAConfig, round_idx: int, mailbox, li, vi,
     )
     acc, vi_new = accept_first_per_value(ok, v2, vi != 0, w)
     vi_new = vi_new.to(torch.int32)
+    # qba-lint: sync-ok (plain version: CPU tensors only)
     if round_idx > cfg.n_dishonest or not bool(acc.any()):
         return out, vi_new, no_overflow
 
@@ -254,7 +257,8 @@ def round_step(cfg: QBAConfig, round_idx: int, mailbox, li, vi, honest_pk,
     """One voting round over the dense mailbox: ``(mailbox', vi',
     overflow bool [T])``.
 
-    CPU tensors run :func:`round_step_reference`.  CUDA tensors launch the
+    CPU tensors run :func:`round_step_reference` (its result written
+    into ``out`` where one is given).  CUDA tensors launch the
     CUDA kernel, which takes exactly the dtypes ``int8`` (``vals``,
     ``p``), ``int32`` (``lens``, ``meta``, ``li``, ``vi``, ``honest_pk``)
     and ``uint8`` (the three draw tables), contiguous, on one device, and
@@ -272,9 +276,10 @@ def round_step(cfg: QBAConfig, round_idx: int, mailbox, li, vi, honest_pk,
     """
     if not dispatch("round_step", mailbox):
         no_clock(clock)
-        return round_step_reference(cfg, round_idx, mailbox, li, vi,
-                                    honest_pk, attack, rand_v, late,
-                                    start=start, n_recv=n_recv)
+        new, vi_new, ovf = round_step_reference(
+            cfg, round_idx, mailbox, li, vi, honest_pk, attack, rand_v, late,
+            start=start, n_recv=n_recv)
+        return write_out("round_step", new, out, mailbox), vi_new, ovf
     check_kernel_shapes(cfg, "dense-mailbox round")
     n_sh, n_local, lead = shard_plan(cfg, li, start, n_recv)
     check_round_smem(cfg, n_local, "dense-mailbox round")

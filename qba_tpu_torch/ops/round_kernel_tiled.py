@@ -65,6 +65,7 @@ from qba_tpu_torch.ops._launch import (
     no_clock,
     ptrs,
     timed_launch,
+    write_out,
 )
 from qba_tpu_torch.ops.verdict_algebra import (
     accept_first_per_value,
@@ -339,11 +340,13 @@ def verdict_reference(cfg: QBAConfig, round_idx: int, pool, li, vi,
                                            n_rv)
     dev = vals.device
     acc = torch.zeros((n_trials, n_pool), dtype=torch.int64, device=dev)
+    # qba-lint: sync-ok (plain version: CPU tensors only)
     sent_any = (meta[..., META_SENT] != 0).any(0).nonzero()
     if sent_any.numel() == 0:
         return acc, vi.clone()
     # Packets past the last sent entry of every trial can be accepted by
     # no receiver: the verdict scans only up to it.
+    # qba-lint: sync-ok (plain version: CPU tensors only)
     n_scan = int(sent_any.max()) + 1
     vals_s = vals[:, :, :n_scan].to(torch.int32).transpose(1, 2)
     lens_s, meta_s = lens[:, :n_scan], meta[:, :n_scan]
@@ -444,10 +447,12 @@ def rebuild_reference(cfg: QBAConfig, round_idx: int, pool, li, acc,
     attack, rand_v = _receiver_draws((attack, rand_v), start, n_rv)
     dev = vals.device
     out = empty_pool(cfg, n_trials, dev, n_recv=n_rv)
+    # qba-lint: sync-ok (plain version: CPU tensors only)
     acc_rows = (acc != 0).any(0).nonzero()
     if acc_rows.numel() == 0 or round_idx > cfg.n_dishonest:
         return out, torch.zeros(n_trials, dtype=torch.bool, device=dev)
     # Rows past the last accepted packet of every trial write nothing.
+    # qba-lint: sync-ok (plain version: CPU tensors only)
     n_scan = int(acc_rows.max()) + 1
     vals_s = vals[:, :, :n_scan].to(torch.int32).transpose(1, 2)
     lens_s, meta_s = lens[:, :n_scan], meta[:, :n_scan]
@@ -634,7 +639,8 @@ def fused_round(cfg: QBAConfig, round_idx: int, pool, li, vi, honest_c,
                 n_recv: int | None = None, clock=None):
     """One voting round: ``(pool', vi', overflow bool [T])``.
 
-    CPU tensors run :func:`fused_round_reference`.  CUDA tensors launch
+    CPU tensors run :func:`fused_round_reference` (its pool written into
+    ``out`` where one is given).  CUDA tensors launch
     the CUDA kernel, which takes exactly the dtypes ``int8`` (``vals``,
     ``p``), ``int32`` (``lens``, ``meta``, ``li``, ``vi``, ``honest_c``)
     and ``uint8`` (the three draw tables), contiguous, on one device,
@@ -653,9 +659,10 @@ def fused_round(cfg: QBAConfig, round_idx: int, pool, li, vi, honest_c,
     """
     if not dispatch("fused_round", pool):
         no_clock(clock)
-        return fused_round_reference(cfg, round_idx, pool, li, vi,
-                                     honest_c, attack, rand_v, late,
-                                     start=start, n_recv=n_recv)
+        new, vi_new, ovf = fused_round_reference(
+            cfg, round_idx, pool, li, vi, honest_c, attack, rand_v, late,
+            start=start, n_recv=n_recv)
+        return write_out("fused_round", new, out, pool), vi_new, ovf
     check_kernel_shapes(cfg, "fused round")
     n_sh, n_local, lead = shard_plan(cfg, li, start, n_recv)
     check_round_smem(cfg, n_local, "fused round")
@@ -733,7 +740,8 @@ def tiled_rebuild(cfg: QBAConfig, round_idx: int, pool, li, acc, honest_c,
     from the accepted matrix ``acc`` (int64 ``[T, n_pool]``, one receiver
     mask a packet, as :func:`tiled_verdict` returns it).
 
-    CPU tensors run :func:`rebuild_reference`; CUDA tensors launch the
+    CPU tensors run :func:`rebuild_reference` (its pool written into
+    ``out`` where one is given); CUDA tensors launch the
     rebuild kernel (``csrc/tiled_round.cu``), writing into ``out`` (a
     pool of the same shapes) or a new pool, with the input rules of
     :func:`fused_round`.  Any other input raises.  With ``n_recv``, the
@@ -744,8 +752,10 @@ def tiled_rebuild(cfg: QBAConfig, round_idx: int, pool, li, acc, honest_c,
     """
     if not dispatch("tiled_rebuild", pool):
         no_clock(clock)
-        return rebuild_reference(cfg, round_idx, pool, li, acc, honest_c,
-                                 attack, rand_v, start=start, n_recv=n_recv)
+        new, ovf = rebuild_reference(cfg, round_idx, pool, li, acc, honest_c,
+                                     attack, rand_v, start=start,
+                                     n_recv=n_recv)
+        return write_out("tiled_rebuild", new, out, pool), ovf
     check_kernel_shapes(cfg, "tiled rebuild")
     n_sh, n_local, lead = shard_plan(cfg, li, start, n_recv)
     n_trials = _check_round_inputs(

@@ -123,6 +123,7 @@ def read_surface_carry(layout: SurfaceLayout, carry: torch.Tensor) -> dict:
     a device): ``step``, ``chosen``, ``i_cur``, ``flag``, ``k``, ``i``,
     ``done``, ``counts`` and ``ovf`` ``[n_cells, budget]``, ``sched`` and
     ``tier``."""
+    # qba-lint: sync-ok (the loop's one readback, after the graph ends)
     host = carry.cpu().numpy()
     out = dict(step=int(host[STEP]), chosen=int(host[CHOSEN]),
                i_cur=int(host[I_CUR]), flag=bool(host[FLAG]))
@@ -178,11 +179,15 @@ def surface_pick_reference(carry, ci, layout: SurfaceLayout,
         chunk_trials, confidence, threshold)
     ci[0].copy_(lo)
     ci[1].copy_(hi)
+    # qba-lint: sync-ok (plain version: CPU tensors only)
     chosen = int(torch.argmin(score))  # the first of equal scores
+    # qba-lint: sync-ok (plain version: CPU tensors only)
     step = int(carry[STEP])
     carry[CHOSEN] = chosen
+    # qba-lint: sync-ok (plain version: CPU tensors only)
     carry[I_CUR] = int(i[chosen])
     if 0 <= step < layout.steps:
+        # qba-lint: sync-ok (plain version: CPU tensors only)
         carry[layout.section("tier").start + step] = int(tier[chosen])
     return carry
 
@@ -230,23 +235,31 @@ def surface_fold_reference(success, overflow, lo, hi, carry,
     """:func:`surface_fold` in plain PyTorch, on the carry's device:
     updates ``carry`` in place and returns it."""
     n, budget = layout.n_cells, layout.budget
+    # qba-lint: sync-ok (plain version: CPU tensors only)
     chosen, i_cur, step = (int(carry[x]) for x in (CHOSEN, I_CUR, STEP))
     go = False
     if 0 <= chosen < n and 0 <= i_cur < budget and 0 <= step < layout.steps:
+        # qba-lint: sync-ok (plain version: CPU tensors only)
         k = int(success.sum())
+        # qba-lint: sync-ok (plain version: CPU tensors only)
         o = int(overflow.any())
         kc = layout.section("k").start + chosen
+        # qba-lint: sync-ok (plain version: CPU tensors only)
         k_new = int(carry[kc]) + k
+        # qba-lint: sync-ok (plain version: CPU tensors only)
         stopped = k_new <= int(lo[i_cur + 1]) or k_new >= int(hi[i_cur + 1])
         carry[kc] = k_new
         carry[layout.section("i").start + chosen] = i_cur + 1
+        # qba-lint: sync-ok (plain version: CPU tensors only)
         carry[layout.section("done").start + chosen] = int(stopped)
         carry[layout.section("counts").start + chosen * budget + i_cur] = k
         carry[layout.section("ovf").start + chosen * budget + i_cur] = o
         carry[layout.section("sched").start + step] = chosen
         carry[STEP] = step + 1
+        # qba-lint: sync-ok (plain version: CPU tensors only)
         go = step + 1 < layout.steps and not bool(
             carry[layout.section("done")].all())
+    # qba-lint: sync-ok (plain version: CPU tensors only)
     carry[FLAG] = int(go)
     return carry
 
@@ -428,6 +441,7 @@ def graph_surface_loop(cfgs, run: SurfaceRun, go: bool):
         t0 = time.perf_counter()
         run.pick()
         run.fold()
+        # qba-lint: sync-ok (graph readback, timing fences)
         torch.cuda.synchronize(dev)
         warmup_s = [time.perf_counter() - t0]
         run.carry.copy_(carry0)
@@ -443,6 +457,7 @@ def graph_surface_loop(cfgs, run: SurfaceRun, go: bool):
             prepare_capture(cfg, dev)
             t0 = time.perf_counter()
             run.branch(cfg)
+            # qba-lint: sync-ok (graph readback, timing fences)
             torch.cuda.synchronize(dev)
             warmup_s.append(time.perf_counter() - t0)
             run.carry.copy_(carry0)
@@ -466,12 +481,14 @@ def graph_surface_loop(cfgs, run: SurfaceRun, go: bool):
         t0 = time.perf_counter()
         _check(lib.qba_surface_graph_upload(exec_, stream.cuda_stream),
                "upload")
+        # qba-lint: sync-ok (graph readback, timing fences)
         torch.cuda.synchronize(dev)
         upload_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         _check(lib.qba_surface_graph_launch(exec_, stream.cuda_stream),
                "launch")
         # The one readback: the whole carry, after the graph ends.
+        # qba-lint: sync-ok (graph readback, timing fences)
         host = run.carry.cpu()
         loop_s = time.perf_counter() - t0
     finally:
@@ -518,6 +535,7 @@ def device_surface_loop(cfgs, steps: int, budget: int, chunk_trials: int,
     elif go:
         host, info = graph_surface_loop(cfgs, run, go)
     else:
+        # qba-lint: sync-ok (no pass to run: the carry is read back once)
         host, info = run.carry.cpu(), dict(dispatch="graph", readbacks=0)
     out = read_surface_carry(layout, host)
     info["passes"] = out["step"]

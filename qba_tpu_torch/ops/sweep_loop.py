@@ -71,6 +71,7 @@ def new_carry(n_chunks: int, start: int, k_start: int, device) -> torch.Tensor:
 def read_carry(carry: torch.Tensor):
     """``(i, k_total, counts int [n_chunks], overflow bool [n_chunks])``
     from a carry (one device-to-host copy where it lies on a device)."""
+    # qba-lint: sync-ok (the loop's one readback, after the graph ends)
     host = carry.cpu().numpy()
     n = (host.shape[0] - HEAD) // 2
     return (int(host[0]), int(host[1]), host[HEAD:HEAD + n].astype(np.int64),
@@ -88,20 +89,24 @@ def sweep_stop_reference(success, overflow, lo, hi, carry, succ_out=None):
     """:func:`sweep_stop` in plain PyTorch: updates ``carry`` (and
     ``succ_out``) in place and returns ``carry``."""
     n = (carry.shape[0] - HEAD) // 2
-    i = int(carry[0])
+    i = int(carry[0])  # qba-lint: sync-ok (plain version: CPU tensors only)
     go = False
     if 0 <= i < n:
         if succ_out is not None:
             t = success.shape[0]
             succ_out[i * t:(i + 1) * t] = success
+        # qba-lint: sync-ok (plain version: CPU tensors only)
         k = int(success.sum())
+        # qba-lint: sync-ok (plain version: CPU tensors only)
         k_total = int(carry[1]) + k
         carry[HEAD + i] = k
+        # qba-lint: sync-ok (plain version: CPU tensors only)
         carry[HEAD + n + i] = int(overflow.any())
         carry[0] = i + 1
         carry[1] = k_total
+        # qba-lint: sync-ok (plain version: CPU tensors only)
         go = loop_condition(i + 1, k_total, lo.tolist(), hi.tolist())
-    carry[2] = int(go)
+    carry[2] = int(go)  # qba-lint: sync-ok (plain version: CPU tensors only)
     return carry
 
 
@@ -259,6 +264,7 @@ def graph_loop(step, carry, go: bool,
     try:
         t0 = time.perf_counter()
         step(0)
+        # qba-lint: sync-ok (graph readback, timing fences)
         torch.cuda.synchronize(dev)
         warmup_s = time.perf_counter() - t0
         carry.copy_(start)
@@ -284,11 +290,13 @@ def graph_loop(step, carry, go: bool,
                "instantiate")
         instantiate_s = time.perf_counter() - t0
         stream = torch.cuda.current_stream(dev)
+        # qba-lint: sync-ok (graph readback, timing fences)
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         _check(lib.qba_sweep_graph_launch(exec_, stream.cuda_stream),
                "launch")
         # The one readback: the loop's whole carry, after the graph ends.
+        # qba-lint: sync-ok (graph readback, timing fences)
         host = readback.cpu()
         loop_s = time.perf_counter() - t0
     finally:
@@ -311,6 +319,7 @@ def run_loop(cfg: QBAConfig, step, carry, go: bool, readback):
                               readbacks=plain_loop(step, carry, go))
     info = dict(dispatch="graph", readbacks=0)
     if not go:
+        # qba-lint: sync-ok (no pass to run: the carry is read back once)
         return readback.cpu(), info
     prepare_capture(cfg, carry.device)
     host, record = graph_loop(step, carry, go, readback)
@@ -374,6 +383,7 @@ def device_loop_prefix(cfg: QBAConfig, n_chunks: int, chunk_trials: int,
     host, info = run_loop(cfg, step, carry, loop_condition(0, 0, lo, hi),
                           buf)
     i_stop, _k, counts, ovf = read_carry(host[:n_carry].view(torch.int32))
+    # qba-lint: sync-ok (host data: the loop's readback)
     return i_stop, counts, ovf, host[n_carry:].view(torch.bool).numpy(), info
 
 

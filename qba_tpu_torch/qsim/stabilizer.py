@@ -164,6 +164,7 @@ def build_tableau_run(n: int, ops, n_params: int, p_depolarize: float = 0.0,
             s = xa[:, :n]
             xs = (s[..., None] * x[:, n:]).to(torch.float32)
             zs = (s[..., None] * z[:, n:]).to(torch.float32)
+            # qba-lint: exact-dot (0/1 operands, float32 sums <= n < 2**24)
             m = (zs @ xs.transpose(1, 2)).to(torch.int64)
             upper = torch.triu(m, diagonal=1).sum((1, 2))
             det = ((s * r[:, n:]).sum(1) + upper) & 1

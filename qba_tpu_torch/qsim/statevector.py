@@ -94,6 +94,7 @@ def apply_1q(state: torch.Tensor, mat, target: int) -> torch.Tensor:
     2]``) to qubit ``target``."""
     mat = _as_matrix(mat, state.device)
     moved = torch.movedim(state, target + 1, -1)
+    # qba-lint: exact-dot (complex amplitudes, not integer data: exempt)
     out = torch.matmul(moved.reshape(state.shape[0], -1, 2),
                        mat.transpose(-1, -2))
     return torch.movedim(out.reshape(moved.shape), -1, target + 1)

@@ -127,6 +127,7 @@ def request_keys(cfg: QBAConfig) -> np.ndarray:
     2]`` (the JAX package's ``key_data`` form): ``split(key(seed),
     trials)``, derived on the CPU before anything is in flight."""
     keys = jr.split(jr.key(cfg.seed, "cpu"), cfg.trials)
+    # qba-lint: sync-ok (host data: the key table is derived on the CPU)
     return keys.numpy().astype(np.uint32)
 
 
@@ -347,6 +348,7 @@ class QBAServer:
             self._expired += 1
         latency = float(ar.root_span.dur or 0.0)
         label = bucket_label(ar.bucket)
+        # qba-lint: sync-ok (host data: the request's success bits)
         k_part = int(ar.success[: ar.filled].sum())
         stats_block: dict[str, Any] = {
             "success_rate": rate_estimate(k_part, ar.filled).to_json(),
@@ -501,9 +503,11 @@ class QBAServer:
         dec = None
         for c in range(i_stop):
             ar.success[c * ct : (c + 1) * ct] = succ_h[c * ct : (c + 1) * ct]
+            # qba-lint: sync-ok (host data: the loop's readback)
             ar.overflow[c * ct : (c + 1) * ct] = bool(ovf_h[c])
             ar.filled += ct
             ar.chunks += 1
+            # qba-lint: sync-ok (host data: the loop's readback)
             ar.rule.observe(int(counts_h[c]), ct)
             dec = ar.rule.decision()
             if dec is not None:
@@ -625,6 +629,7 @@ class QBAServer:
             if ar.rule is not None:
                 # The segment extended the request's contiguous prefix to
                 # [0, filled): the rule sees chunk counts in trial order.
+                # qba-lint: sync-ok (host data: the chunk's readback)
                 ar.rule.observe(int(success[src].sum()), seg.length)
             if ar.filled == ar.cfg.trials:
                 done.append(self._finish(ar))
@@ -657,6 +662,7 @@ class QBAServer:
         latency = float(ar.root_span.dur or 0.0)
         label = bucket_label(ar.bucket)
         n_done = ar.filled
+        # qba-lint: sync-ok (host data: the request's results)
         k_done = int(ar.success[:n_done].sum())
         # Every manifest carries a certified rate: point estimate + CI.
         stats_block: dict[str, Any] = {
@@ -703,6 +709,7 @@ class QBAServer:
             n_trials=n_done,
             successes=k_done,
             success_rate=_success_rate(k_done, n_done),
+            # qba-lint: sync-ok (host data: the request's results)
             any_overflow=bool(ar.overflow[:n_done].any()),
             latency_s=latency,
             engine=engine_description(ar.cfg, self.device),
@@ -710,6 +717,7 @@ class QBAServer:
             chunks=ar.chunks,
             success=[bool(x) for x in ar.success[:n_done]],
             decisions=(
+                # qba-lint: sync-ok (host data: the request's results)
                 ar.decisions[:n_done].tolist()
                 if ar.req.return_decisions and ar.decisions is not None
                 else None

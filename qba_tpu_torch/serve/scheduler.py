@@ -112,6 +112,7 @@ class BucketScheduler:
         request's bucket; returns the bucket config."""
         # The key table arrives as host numpy and stays on the host
         # until its chunk is dispatched.
+        # qba-lint: sync-ok (host data: the key table arrives from the host)
         key_data = np.asarray(key_data, dtype=np.uint32)
         if key_data.shape != (cfg.trials, 2):
             raise ValueError(

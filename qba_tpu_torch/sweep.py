@@ -254,6 +254,7 @@ def _default_runner(chunk_trials: int, log: EventLog | None, device):
 def _read_chunk(res) -> tuple[int, bool]:
     """A chunk's success count and overflow flag: one device-to-host
     copy, which waits for the chunk."""
+    # qba-lint: sync-ok (the chunk's one readback, timed in a fenced span)
     k, o = torch.stack([res.success.sum(), res.overflow.any().long()]).tolist()
     return int(k), bool(o)
 

@@ -25,6 +25,8 @@ masks, equals the ``xla`` engine trial for trial.  The device surface's
 ``surface_pick`` and ``surface_fold`` equal their plain versions, and
 its graph (a WHILE node over pick, a SWITCH into the chosen cell's
 captured chunk, and fold) equals the host surface and the plain loop.
+The invariant checker's dynamic checks (``qba_tpu_torch.analysis``: the
+launch pin, the carry audit and the sync probe) pass on the kernels.
 Every test is marked ``cuda`` and skips without a card
 (the kernels have no CPU mode; the CPU tests hold the plain versions
 against ``qba_tpu``).  The file imports no JAX, so on a machine with the
@@ -1341,3 +1343,38 @@ def test_surface_graph_equals_host_surface(cuda, budget):
         for c, w in zip(cells, want):
             assert c.result.chunks == w.result.chunks
             assert c.result.stop.to_json() == w.result.stop.to_json()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["pallas", "pallas_tiled", "pallas_fused",
+                                    "pallas_mega"])
+def test_lint_launches_and_carry_on_the_card(cuda, engine):
+    # The launch pin and the carry audit (analysis.launches, .effects) on
+    # the kernels: wrappers, seams and the model agree; the per-round
+    # engines ping-pong one buffer pair and allocate no pool in a round.
+    from qba_tpu_torch.analysis import effects, launches, trace
+
+    cfg = qba_tpu_torch.QBAConfig(n_parties=11, size_l=64, n_dishonest=3)
+    trace.reset()
+    rep = launches.check_launches("11p", cfg, [engine], cuda, 64)
+    rep.extend(effects.check_effects("11p", cfg, [engine], cuda, 64))
+    assert rep.ok, rep.render()
+    rec = trace.trace_batch("11p", cfg, engine, cuda, 64)
+    assert rec.launches == dict(rec.seams) == launches.batch_launch_model(
+        cfg, engine, cuda)
+
+
+@pytest.mark.cuda
+def test_lint_sync_probe_on_the_card(cuda):
+    # The megakernel's chunk runs under set_sync_debug_mode("error")
+    # without a raise (check_capturable accepts it); the lint at 11p
+    # exits clean on the card.
+    from qba_tpu_torch.analysis import run_lint, transfers
+
+    cfg = qba_tpu_torch.QBAConfig(n_parties=11, size_l=64, n_dishonest=3)
+    rep = transfers.check_device_loop([("11p", cfg)], ["pallas_mega"], cuda,
+                                      64)
+    assert rep.ok, rep.render()
+    assert rep.stats["sync_verdicts"]["11p/pallas_mega"] == "no sync"
+    rep = run_lint([("11p", cfg)], effects=True)
+    assert rep.ok, rep.render()
