@@ -272,12 +272,29 @@ Phases, each reported on its own line:
    ``auto`` and of the 33p ``tp = 4`` mesh (``auto`` and the three
    per-round engines), each batch's launches counted by the wrappers, at
    the seams and by ``torch.profiler``'s kernel records, all equal to the
-   engine's model; the sync probe (each engine's chunk, warmed up, under
-   ``torch.cuda.set_sync_debug_mode("error")``: the megakernel's must not
-   raise, every other engine's and ``dense_pallas``'s first sync site is
-   printed); the per-round engines' ping-pong carry; the exact-dot
-   records of a 33p ``stabilizer`` and a 5p/L64/d2 x 32 ``dense_pallas``
-   batch.  Per check its wall and findings; any finding fails.
+   engine's model; the sync probe (the graph loop's chunk on each engine,
+   on the fused round with counters and on 3p ``dense`` and
+   ``dense_pallas``, warmed up, under
+   ``torch.cuda.set_sync_debug_mode("error")``: none may raise); the
+   per-round engines' ping-pong carry; the exact-dot records of a 33p
+   ``stabilizer`` and a 5p/L64/d2 x 32 ``dense_pallas`` batch.  Per check
+   its wall and findings; any finding fails.
+17. ``graph_path``: the graph loop on every engine and list path.  Sweeps
+   (``GRAPH_SWEEPS``, seed 3, chunks of 1000): 33p/L64/d10 on
+   ``pallas_fused``, ``pallas``, ``pallas_tiled`` and ``auto`` with
+   ``collect_counters=True``, 11p/L64/d3 on ``xla``, and 5p/L64/d2 x 32
+   on ``dense_pallas`` and ``dense``; each case's graph loop, host loop
+   and fixed-budget run equal chunk for chunk and stop for stop, launch
+   counts asserted against the launch model (the graph's warm-up and
+   capture once each), with ms a chunk by graph and by host, the graph's
+   warm-up, capture and instantiate ms, body nodes by type and peak
+   memory.  The worker's device path (``GRAPH_SERVE``): a targeted 33p
+   request on ``pallas_fused`` and a 5p ``dense_pallas`` request, equal
+   to the host path and a direct ``run_trials``.  The device surface: 4
+   cells at 33p on ``pallas_fused`` and 16 cells at 33p on ``auto`` (4
+   strategies x 2 noise points x 2 sizeL; budgets of one and two passes
+   a cell, for a first and a repeat pass's ms), each against the host
+   surface, with instantiate, upload, nodes a branch and peak memory.
 
 Any failure exits non-zero.  The line before the last is the kernel
 table as JSON, the one before it the card; the last line is
@@ -2585,8 +2602,8 @@ def near_tie(scores):
     return 2.0 <= a and b < 1e9 and b - a <= SURFACE_NEAR_TIE
 
 
-def surface_run(cfg, target, budget, dispatch):
-    """One targeted ``run_surface`` over ``SURFACE_GRID`` on the card,
+def surface_run(cfg, target, budget, dispatch, grid=SURFACE_GRID):
+    """One targeted ``run_surface`` over ``grid`` on the card,
     every kernel's launch count set to 0 just before and read just after.
     Returns the cells, the wall seconds, the counts, the device loop's
     record (None on the host) and the peak memory."""
@@ -2611,7 +2628,7 @@ def surface_run(cfg, target, budget, dispatch):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
-        cells = run_surface(cfg, *SURFACE_GRID, chunk_trials=cfg.trials,
+        cells = run_surface(cfg, *grid, chunk_trials=cfg.trials,
                             target=target, budget_chunks=budget,
                             dispatch=dispatch)
     finally:
@@ -4091,9 +4108,9 @@ def lint_path(configs, dev):
     ``analysis.trace.batch_trials``): the launch pin (``lint_pin``) on each
     of ``LINT_ENGINES``, on 33p ``stabilizer`` ``auto`` and on the 33p
     ``tp = 4`` mesh (``LINT_MESH_ENGINES``); KI-6's dynamic half
-    (``analysis.transfers.check_device_loop``: the megakernel's chunk
-    under ``set_sync_debug_mode("error")`` must raise nothing, every other
-    engine's and ``dense_pallas``'s first sync site is printed); KI-5's
+    (``analysis.transfers.check_device_loop``: the graph loop's chunk on
+    every engine, with counters and on the dense paths, under
+    ``set_sync_debug_mode("error")`` must raise nothing); KI-5's
     carry audit of the per-round engines (``analysis.effects``); KI-3 over
     the dots of a 33p ``stabilizer`` and a 5p/L64/d2 x 32 ``dense_pallas``
     batch (``analysis.dots``).  Beside them the CLI (``LINT_CLI`` over the
@@ -4237,6 +4254,360 @@ def lint_path(configs, dev):
         cli_log.close()
         shutil.rmtree(root, ignore_errors=True)
     return dict(out, carry=carry), launches
+
+
+# The graph loop on every engine and list path: each sweep case runs the
+# graph loop (one CUDA graph: warm-up, capture, one launch, one readback),
+# the host loop and the fixed-budget run, at seed 3, and they agree chunk
+# for chunk and stop for stop.  (config, target, budget chunks, chunk
+# trials, config changes.)  The 33p per-round engines and the counters
+# (``auto`` demotes to the fused round) take the first targeted case's
+# target, ``xla`` the 11p one's (its 33p batch would need about 2.5 GB a
+# trial: ``analysis.memory``); the dense paths run 5p/L64/d2 (18 qubits)
+# in chunks of 32 on a width target (3 chunks), a budget of 4: a chunk
+# takes 0.7-1.5 s.
+GRAPH_DENSE = ("5p/L64/d2", dict(n_parties=5, size_l=64, n_dishonest=2))
+GRAPH_DENSE_TARGET = "ci_width<=0.25"
+GRAPH_SWEEPS = [
+    ("33p/L64/d10", "decide vs 0.56 +-0.01", 12, 1000,
+     dict(round_engine="pallas_fused")),
+    ("33p/L64/d10", "decide vs 0.56 +-0.01", 12, 1000,
+     dict(round_engine="pallas")),
+    ("33p/L64/d10", "decide vs 0.56 +-0.01", 12, 1000,
+     dict(round_engine="pallas_tiled")),
+    ("33p/L64/d10", "decide vs 0.56 +-0.01", 12, 1000,
+     dict(collect_counters=True)),
+    ("11p/L64/d3", "decide vs 0.3 +-0.005", 12, 1000,
+     dict(round_engine="xla")),
+    ("5p/L64/d2", GRAPH_DENSE_TARGET, 4, 32, dict(qsim_path="dense_pallas")),
+    ("5p/L64/d2", GRAPH_DENSE_TARGET, 4, 32, dict(qsim_path="dense")),
+]
+# The serving worker's device path: (request id, config, request fields,
+# chunk trials).
+GRAPH_SERVE = [
+    ("33p-fused", "33p/L64/d10", dict(seed=3, trials=SERVE_TRIALS,
+                                      target=SERVE_TARGET,
+                                      round_engine="pallas_fused"), 64),
+    ("5p-dense", "5p/L64/d2", dict(seed=4, trials=256,
+                                   target=GRAPH_DENSE_TARGET,
+                                   qsim_path="dense_pallas"), 32),
+]
+# The surfaces: 4 cells on the fused round (SURFACE_GRID), and 16 cells
+# on ``auto`` (4 strategies x 2 noise points x 2 sizeL), each at 33p,
+# chunks of 1000.  The 16-cell grid runs twice: a budget of one pass a
+# cell (every pass a branch's first) and of two.
+GRAPH_SURFACE_BUDGET = 8
+GRAPH_GRID16 = (("reference", "collude", "adaptive", "split"),
+                [(0.0, 0.0), (0.01, 0.01)], [32, 64])
+
+
+def dense_circuit_launches(cfg):
+    """Circuit-kernel launches of one ``dense_pallas`` batch of
+    ``cfg.trials`` trials: one a chunk of list positions (the
+    Q-correlated family's states) and one for the shared
+    not-Q-correlated state."""
+    from qba_tpu_torch.qsim.statevector import SAMPLE_CHUNK_ELEMS
+
+    step = max(1, SAMPLE_CHUNK_ELEMS >> cfg.total_qubits)
+    return -(-cfg.trials * cfg.size_l // step) + 1
+
+
+def chunk_model(cfg, dev):
+    """Every counted kernel's launches in one chunk of ``cfg`` (the
+    launch model, plus the circuit kernel on ``dense_pallas``)."""
+    model = modelled(cfg, cfg.round_engine, dev)
+    if cfg.qsim_path == "dense_pallas":
+        model["fused_circuit"] = dense_circuit_launches(cfg)
+    return model
+
+
+def graph_record(info):
+    """A graph loop's record in ms, with its body's node count."""
+    return dict(
+        readbacks=info["readbacks"], warmup_ms=info["warmup_s"] * 1e3,
+        capture_ms=info["capture_s"] * 1e3,
+        instantiate_ms=info["instantiate_s"] * 1e3,
+        loop_ms=info["loop_s"] * 1e3, body_nodes=info["body_nodes"],
+        body_node_total=sum(info["body_nodes"].values()))
+
+
+def graph_sweeps(configs, dev):
+    """``GRAPH_SWEEPS``: per case the fixed-budget run, the host loop and
+    the graph loop (launch counts asserted against the launch model: a
+    chunk's launches per host chunk; the graph's eager warm-up and its
+    capture once each, the replays counting nothing), equal chunk for
+    chunk and stop for stop.  Returns ``(runs, launches)``."""
+    import dataclasses
+
+    import torch
+
+    from qba_tpu_torch.sweep import run_sweep
+
+    runs, launches = [], dict.fromkeys(COUNTED, 0)
+    for name, spec, budget, trials, kw in GRAPH_SWEEPS:
+        cfg = dataclasses.replace(configs[name], trials=trials,
+                                  seed=TARGETED_SEED, **kw)
+        label = " ".join([name, *(f"{k}={v}" for k, v in kw.items())])
+        model = chunk_model(cfg, dev)
+        t0 = time.perf_counter()
+        fixed = run_sweep(cfg, budget, trials)
+        fixed_s = time.perf_counter() - t0
+        out = dict(config=label, target=spec, budget_chunks=budget,
+                   chunk_trials=trials, rounds=cfg.n_rounds,
+                   chunk_model={k: n for k, n in model.items() if n},
+                   fixed_budget_ms_per_chunk=fixed_s / budget * 1e3)
+        res = {}
+        for dispatch in ("host", "device"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            r, wall, counts, timers = sweep_run(cfg, budget, spec, dispatch)
+            peak = torch.cuda.max_memory_allocated()
+            for k, n in counts.items():
+                launches[k] += n
+            done = len(r.chunks)
+            if dispatch == "host":
+                want = {k: done * n for k, n in model.items()}
+                rec = dict(readbacks=timers.count("readback"), wall_s=wall,
+                           ms_per_chunk=wall / done * 1e3)
+            else:
+                want = {k: 2 * n for k, n in model.items()}
+                want["sweep_stop"] = 2
+                (span,) = [sp for sp in timers.spans.spans
+                           if sp.name == "device_loop"]
+                info = span.args
+                if info["dispatch"] != "graph" or info["readbacks"] != 1:
+                    raise AssertionError(f"graph sweep {label}: not one "
+                                         f"graph launch: {info}")
+                rec = dict(graph_record(info), wall_s=wall,
+                           ms_per_chunk=info["loop_s"] / done * 1e3)
+            want = {k: want.get(k, 0) for k in COUNTED}
+            if counts != want:
+                raise AssertionError(f"graph sweep {label} {dispatch}: "
+                                     f"launches {counts}, expected {want}")
+            rec.update(chunks=done, stop=r.stop.reason, peak_mem_bytes=peak,
+                       launches={k: n for k, n in counts.items() if n})
+            res[dispatch] = r
+            out[dispatch] = rec
+        host, devr = res["host"], res["device"]
+        if not (host.chunks == devr.chunks == fixed.chunks[:len(host.chunks)]
+                and host.stop.to_json() == devr.stop.to_json()):
+            raise AssertionError(f"graph sweep {label}: host loop, graph "
+                                 "loop and fixed-budget prefix disagree")
+        out["counts"] = [c.successes for c in host.chunks]
+        out["host_over_graph"] = (out["host"]["ms_per_chunk"]
+                                  / out["device"]["ms_per_chunk"])
+        log("graph_path", part="sweep", **out)
+        runs.append(out)
+        torch.cuda.empty_cache()
+    return runs, launches
+
+
+def graph_serve(configs, dev):
+    """``GRAPH_SERVE``: each request on a ``dispatch="device"`` server
+    (one graph launch, one readback) against the host path's result and
+    a direct ``run_trials`` of its keys.  Returns ``(runs, launches)``."""
+    import ast
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from qba_tpu_torch.backends.torch_backend import run_trials
+    from qba_tpu_torch.obs.telemetry import spans_from_jsonl
+    from qba_tpu_torch.serve import EvalRequest, QBAServer, serve_batch
+
+    runs, launches = [], dict.fromkeys(COUNTED, 0)
+    tel = os.path.abspath(os.path.join("build", "graph_telemetry"))
+    for rid, name, kw, chunk in GRAPH_SERVE:
+        c = configs[name]
+        req = EvalRequest(request_id=rid, n_parties=c.n_parties,
+                          size_l=c.size_l, n_dishonest=c.n_dishonest, **kw)
+        cfg = req.config()
+        [host] = serve_batch(QBAServer(chunk_trials=chunk, depth=2), [req])
+        shutil.rmtree(tel, ignore_errors=True)
+        server = QBAServer(chunk_trials=chunk, dispatch="device",
+                           telemetry_dir=tel)
+        fns = wrappers()
+        for fn in fns.values():
+            fn.launches, fn.events = 0, None
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        [res] = serve_batch(server, [req])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: fn.launches for k, fn in fns.items()}
+        model = chunk_model(dataclasses.replace(cfg, trials=chunk), dev)
+        want = {k: 2 * model.get(k, 0) for k in COUNTED}
+        want["sweep_stop"] = 2
+        if counts != want:
+            raise AssertionError(f"graph serve {rid}: launches {counts}, "
+                                 f"expected {want}")
+        for k, n in counts.items():
+            launches[k] += n
+        (loop,) = [sp for sp in spans_from_jsonl(os.path.join(
+            tel, rid, "spans.jsonl")) if sp.name == "serve.device_loop"]
+        info = loop.args
+        info["body_nodes"] = ast.literal_eval(str(info["body_nodes"]))
+        if info["dispatch"] != "graph" or info["readbacks"] != 1:
+            raise AssertionError(f"graph serve {rid}: not one graph launch: "
+                                 f"{info}")
+        direct = run_trials(cfg).trials
+        if res.error is not None or host.error is not None or any(
+                getattr(res, f) != getattr(host, f)
+                for f in ("stop", "n_trials", "success", "ci")):
+            raise AssertionError(f"graph serve {rid}: device path != host "
+                                 f"path: {res.error or res.stop} against "
+                                 f"{host.error or host.stop}")
+        if res.success != direct.success[:res.n_trials].tolist():
+            raise AssertionError(f"graph serve {rid}: success != a direct "
+                                 "run_trials of its keys")
+        out = dict(graph_record(info), request=rid, config=res.bucket,
+                   chunk_trials=chunk, trials=res.n_trials,
+                   stop=res.stop["reason"], chunks=res.chunks,
+                   budget_chunks=cfg.trials // chunk, wall_s=wall,
+                   latency_s=res.latency_s, host_latency_s=host.latency_s,
+                   ms_per_chunk=info["loop_s"] / res.chunks * 1e3,
+                   launches={k: n for k, n in counts.items() if n},
+                   peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                   engine=res.engine)
+        log("graph_path", part="serve", **out)
+        runs.append(out)
+    shutil.rmtree(tel, ignore_errors=True)
+    return runs, launches
+
+
+def surfaces_agree(label, host, dev_cells, target):
+    """A device surface against the host surface: each cell's chunks, in
+    both, are a prefix of one sequence (a cell's chunk i runs chunk i's
+    keys, whichever pass picks it); where the two schedules are the same
+    every cell is equal, stop included; else they part at a near-tie of
+    the host's scores.  Returns ``(same, first_divergence)``."""
+    h_alloc, d_alloc = surface_alloc(host), surface_alloc(dev_cells)
+    h_sched = [t["cell"] for t in h_alloc["trace"]]
+    d_sched = [t["cell"] for t in d_alloc["trace"]]
+    same = h_sched == d_sched
+    for h, d in zip(host, dev_cells):
+        a, b = h.result.chunks, d.result.chunks
+        n = min(len(a), len(b))
+        if a[:n] != b[:n] or (same and (
+                a != b or h.result.stop.to_json() != d.result.stop.to_json())):
+            raise AssertionError(f"graph surface {label}: cell "
+                                 f"{d.strategy}/{d.p_depolarize}/{d.size_l} "
+                                 "differs from the host surface")
+    first = next((s for s, (a, b) in enumerate(zip(h_sched, d_sched))
+                  if a != b), None)
+    if not same:
+        scores = step_scores(h_alloc["trace"], host, parse_threshold(target),
+                             0.95)
+        if first is None or not near_tie(scores[first]):
+            raise AssertionError(f"graph surface {label}: device schedule "
+                                 f"{d_sched} != host {h_sched}")
+    return same, first
+
+
+def graph_surface_run(cfg, grid, target, budget, label, dev):
+    """One device surface over ``grid`` beside the host surface: launch
+    counts (the pick and fold twice, each cell's chunk twice: its warm-up
+    and its capture), the graph's record, equal to the host surface
+    (``surfaces_agree``)."""
+    import torch
+
+    host, host_wall, _hc, _i, _hp = surface_run(cfg, target, budget, "host",
+                                                grid)
+    torch.cuda.empty_cache()
+    cells, wall, counts, info, peak = surface_run(cfg, target, budget,
+                                                  "device", grid)
+    n_cells = len(cells)
+    want = {k: 0 for k in COUNTED}
+    for c in cells:
+        for k, n in chunk_model(c.result.cfg, dev).items():
+            want[k] += 2 * n
+    want.update(surface_pick=2, surface_fold=2)
+    if counts != want:
+        raise AssertionError(f"graph surface {label}: launches {counts}, "
+                             f"expected {want}")
+    if info["dispatch"] != "graph" or info["readbacks"] != 1:
+        raise AssertionError(f"graph surface {label}: not one graph "
+                             f"launch: {info}")
+    same, first = surfaces_agree(label, host, cells, target)
+    branch_nodes = [sum(v.values()) for k, v in info["body_nodes"].items()
+                    if k.startswith("branch_")]
+    passes = info["passes"]
+    rec = dict(
+        cells=n_cells, budget_chunks=budget, target=target,
+        same_schedule=same, first_divergence=first, passes=passes,
+        readbacks=info["readbacks"], wall_s=wall, host_wall_s=host_wall,
+        ms_per_pass=info["loop_s"] / passes * 1e3,
+        host_ms_per_chunk=host_wall / surface_alloc(host)["spent_chunks"]
+        * 1e3,
+        loop_ms=info["loop_s"] * 1e3, warmup_ms=info["warmup_s"] * 1e3,
+        capture_ms=info["capture_s"] * 1e3,
+        capture_cell_ms=[x * 1e3 for x in info["capture_cell_s"]],
+        instantiate_ms=info["instantiate_s"] * 1e3,
+        upload_ms=info["upload_s"] * 1e3,
+        branch_nodes=branch_nodes, body_nodes_total=info["body_nodes_total"],
+        peak_mem_bytes=peak,
+        launches={k: n for k, n in counts.items() if n},
+        stops=[c.result.stop.reason for c in cells])
+    log("graph_path", part="surface", run=label, **rec)
+    return rec, counts
+
+
+def graph_surfaces(configs, dev):
+    """The device surface with per-round branches (4 cells of
+    ``SURFACE_GRID`` on the fused round) and past four cells (16 cells of
+    ``GRAPH_GRID16`` on ``auto``, once at one pass a cell and once at
+    two: a repeat pass's ms is the difference over the 16 extra passes).
+    Returns ``(runs, launches)``."""
+    import dataclasses
+
+    import torch
+
+    base = dataclasses.replace(configs["33p/L64/d10"], trials=1000,
+                               seed=TARGETED_SEED)
+    launches = dict.fromkeys(COUNTED, 0)
+    runs = {}
+    n16 = len(GRAPH_GRID16[0]) * len(GRAPH_GRID16[1]) * len(GRAPH_GRID16[2])
+    for label, cfg, grid, budget in (
+            ("4 cells pallas_fused",
+             dataclasses.replace(base, round_engine="pallas_fused"),
+             SURFACE_GRID, GRAPH_SURFACE_BUDGET),
+            ("16 cells auto, one pass a cell", base, GRAPH_GRID16, n16),
+            ("16 cells auto, two passes a cell", base, GRAPH_GRID16,
+             2 * n16)):
+        rec, counts = graph_surface_run(cfg, grid, SURFACE_TARGETS[0],
+                                        budget, label, dev)
+        for k, n in counts.items():
+            launches[k] += n
+        runs[label] = rec
+        torch.cuda.empty_cache()
+    one, two = (runs[f"16 cells auto, {x}"] for x in
+                ("one pass a cell", "two passes a cell"))
+    runs["16 cells first and repeat pass"] = dict(
+        first_pass_ms=one["loop_ms"] / one["passes"],
+        repeat_pass_ms=(two["loop_ms"] - one["loop_ms"])
+        / max(1, two["passes"] - one["passes"]))
+    log("graph_path", part="surface", run="16 cells first and repeat pass",
+        **runs["16 cells first and repeat pass"])
+    return runs, launches
+
+
+def graph_path(configs, dev):
+    """The graph loop on every engine and list path, at full width:
+    ``graph_sweeps``, ``graph_serve`` and ``graph_surfaces``.  Returns
+    ``(report, launches)``."""
+    launches = dict.fromkeys(COUNTED, 0)
+    out = {}
+    for part, fn in (("sweeps", graph_sweeps), ("serve", graph_serve),
+                     ("surfaces", graph_surfaces)):
+        t0 = time.perf_counter()
+        out[part], counts = fn(configs, dev)
+        log("graph_path", part=part, seconds=time.perf_counter() - t0)
+        for k, n in counts.items():
+            launches[k] += n
+    return out, launches
 
 
 def modelled(cfg, engine, dev, tp=None):
@@ -4939,6 +5310,17 @@ def main(argv):
         if k in launches:
             launches[k] += n
 
+    # The graph loop on every engine and list path: sweeps, the serving
+    # worker's device path and the device surface past four cells.
+    t0 = time.perf_counter()
+    report["graph_path"], graph_launches = graph_path(
+        dict(main_cfgs, **{GRAPH_DENSE[0]: QBAConfig(**GRAPH_DENSE[1],
+                                                     trials=32)}), dev)
+    report["graph_path"]["phase_s"] = time.perf_counter() - t0
+    log("graph_path", part="phase", seconds=report["graph_path"]["phase_s"])
+    for k, n in graph_launches.items():
+        launches[k] += n
+
     big = runs[-1]
     kernels = []
     for k in ("fused_round", "trial_megakernel", "tiled_verdict",
@@ -5100,6 +5482,14 @@ def main(argv):
                        "captured once a surface graph, then run once a "
                        "pass by the graph"),
         })
+    # What "launches" counts, and this slice's graph_path share of it.
+    for row in kernels:
+        row["launches_counted"] = (
+            "each wrapper's launches over every phase, eager or into a "
+            "graph being captured (a graph loop's chunk twice: its warm-up "
+            "and its capture); the graphs' replays count none")
+        row["graph_path_launches"] = graph_launches[KEYED.get(row["name"],
+                                                              row["name"])]
     report["kernels"] = kernels
     report["device"] = card
     os.makedirs(os.path.dirname(REPORT), exist_ok=True)

@@ -34,8 +34,9 @@ seam_observers`): on CUDA each seam call is a launch, and the wrappers'
 ``launches`` counts are held equal to them; on the CPU the same seams
 run the plain versions.  A drift is a finding tagged KI-5, as in the JAX
 package: everything stays bit-identical, so nothing else would see it.
-The circuit kernel's launches on the dense paths depend on the list
-positions' families and are not pinned.
+The circuit kernel's launches on the dense paths depend on the batch's
+size (one launch a chunk of list positions and one for the shared
+not-Q-correlated state) and are not pinned.
 """
 
 from __future__ import annotations
@@ -113,7 +114,10 @@ def batch_launch_model(cfg, engine: str, device,
                        tp: int | None = None) -> dict[str, int]:
     """Kernel launches one batch of ``cfg`` dispatches with
     ``round_engine=engine`` on ``device`` (``tp``: the party-sharded
-    batch on one card), by wrapper name."""
+    batch on one card), by wrapper name.  The wrappers count a launch
+    where they call the kernel, eagerly or into a CUDA graph being
+    captured: a graph loop's chunk counts twice (its warm-up and its
+    capture), and the graph's replays count nothing."""
     from qba_tpu_torch.parallel.ring import resolve_tp_comms
     from qba_tpu_torch.rounds.engine import resolve_mega_gen
 

@@ -33,18 +33,17 @@ Four checks:
   spawns the stock ``serve --transport file-queue`` worker, which alone
   writes heartbeats.
 * **Dynamic half** (:func:`check_device_loop`), the counterpart of the
-  JAX package's traced device-loop proof: each chunk that
-  :func:`~qba_tpu_torch.ops.sweep_loop.check_capturable` accepts is
-  warmed up, then run under ``torch.cuda.set_sync_debug_mode("error")``
-  on the card — a raise is a finding.  Every other engine and the
-  dense paths run one batch the same way, and their first sync site
-  (``file:line`` inside the package) becomes a note: the input ROADMAP
-  A14 needs to lift :class:`~qba_tpu_torch.ops.sweep_loop.
-  GraphLoopUnsupported`.  On the CPU a dispatch mode stands in for the
-  debug mode: it stops at the first op that reads a value on the host
-  (``_local_scalar_dense``, ``nonzero``, a boolean index, ...) outside a
-  kernel wrapper's plain version (on the card that call is one launch).
-  Uploads from host memory show only on the card.
+  JAX package's traced device-loop proof: the graph loop's chunk
+  (:func:`~qba_tpu_torch.ops.sweep_loop.chunk_step`) on every engine, with
+  ``collect_counters`` and on the dense paths, is warmed up, then run
+  under ``torch.cuda.set_sync_debug_mode("error")`` on the card — a
+  raise is a finding, since a CUDA graph captures every such chunk, and
+  its first sync site (``file:line`` inside the package) is named.  On
+  the CPU a dispatch mode stands in for the debug mode: it stops at the
+  first op that reads a value on the host (``_local_scalar_dense``,
+  ``nonzero``, a boolean index, ...) outside a kernel wrapper's plain
+  version (on the card that call is one launch).  Uploads from host
+  memory show only on the card, where the capture itself refuses them.
 
 Findings are tagged ``KI-6``.
 """
@@ -715,24 +714,18 @@ LOOP_ENGINES = ("xla", "pallas", "pallas_tiled", "pallas_fused",
 
 
 def _chunk_fn(cfg, device, trials: int):
-    """A zero-argument run of ``cfg``'s chunk on ``device``: the graph
-    loop's :func:`~qba_tpu_torch.ops.sweep_loop.chunk_step` where
-    :func:`~qba_tpu_torch.ops.sweep_loop.check_capturable` accepts
-    ``cfg`` (then True), else one ``run_trial`` batch (False)."""
+    """A zero-argument run of the graph loop's chunk
+    (:func:`~qba_tpu_torch.ops.sweep_loop.chunk_step`) of ``cfg`` on
+    ``device``, after :func:`~qba_tpu_torch.ops.sweep_loop.
+    prepare_capture`, the carry reset before each run."""
     import torch
 
     from qba_tpu_torch import random as jr
     from qba_tpu_torch.analysis.trace import batch_trials
     from qba_tpu_torch.ops import sweep_loop as sl
-    from qba_tpu_torch.rounds.engine import run_trial
 
     trials = batch_trials(cfg, device, trials)
     root = jr.key(cfg.seed, device)
-    try:
-        sl.check_capturable(cfg)
-    except sl.GraphLoopUnsupported:
-        keys = jr.split(root, trials)
-        return (lambda: run_trial(cfg, keys)), False
     sl.prepare_capture(cfg, device)
     carry = sl.new_carry(4, 0, 0, device)
     lo = torch.full((5,), -1, dtype=torch.int32, device=device)
@@ -743,29 +736,35 @@ def _chunk_fn(cfg, device, trials: int):
         carry.copy_(start)
         sl.chunk_step(cfg, trials, root, carry, lo, hi)
 
-    return step, True
+    return step
 
 
 def check_device_loop(configs, engines, device, trials: int = 64) -> Report:
     """The KI-6 dynamic half over ``configs`` (``(label, cfg)``) on
-    ``device``: each engine of ``engines`` in :data:`LOOP_ENGINES` and,
-    once, a 3-party config on ``qsim_path="dense_pallas"`` (the dense
-    paths' sync site does not depend on the width).  A
-    capturable chunk that syncs is a finding; every other path's first
-    sync site is a note."""
+    ``device``: each engine of ``engines`` in :data:`LOOP_ENGINES`, the
+    fused round with ``collect_counters`` on each config, and, once, a
+    3-party config on ``qsim_path="dense"`` and on ``"dense_pallas"``
+    (the dense paths' list generation does not depend on the width past
+    its batch).  The graph loop captures every one of these chunks, so a
+    chunk that syncs is a finding."""
     import dataclasses
 
     report = Report()
     verdicts: dict[str, str] = {}
     runs = [(f"{label}/{e}", dataclasses.replace(cfg, round_engine=e))
             for label, cfg in configs for e in LOOP_ENGINES if e in engines]
+    runs += [(f"{label}/pallas_fused+counters", dataclasses.replace(
+        cfg, round_engine="pallas_fused", collect_counters=True))
+        for label, cfg in configs]
     if configs:
-        dense = dataclasses.replace(configs[0][1], n_parties=3, size_l=8,
-                                    n_dishonest=1, qsim_path="dense_pallas")
-        runs.append(("3p/dense_pallas", dense))
+        for path in ("dense", "dense_pallas"):
+            runs.append((f"3p/{path}", dataclasses.replace(
+                configs[0][1], n_parties=3, size_l=8, n_dishonest=1,
+                round_engine="auto", collect_counters=False,
+                qsim_path=path)))
     for path, cfg in runs:
         try:
-            fn, capturable = _chunk_fn(cfg, device, trials)
+            fn = _chunk_fn(cfg, device, trials)
             fn()  # warm-up: kernels built, tables cached
             hit = first_sync(fn, device)
         except Exception as exc:
@@ -781,19 +780,17 @@ def check_device_loop(configs, engines, device, trials: int = 64) -> Report:
             continue
         verdict = "no sync" if hit is None else f"{hit[0]} at {hit[1]}"
         verdicts[path] = verdict
-        if capturable and hit is not None:
+        if hit is not None:
             report.findings.append(Finding(
                 ki="KI-6", check="device-loop", path=path, where=hit[1],
                 message=(
                     f"the graph loop's chunk reads the card on the host "
-                    f"({hit[0]}): check_capturable accepts this config, "
-                    "but a CUDA graph cannot capture a host sync"
+                    f"({hit[0]}): a CUDA graph cannot capture a host sync"
                 ),
             ))
         else:
-            kind = "capturable chunk" if capturable else "A14 input"
             report.notes.append(
-                f"transfers/device-loop [{path}] ({kind}): {verdict}")
+                f"transfers/device-loop [{path}]: {verdict}")
     report.stats["device_loop_runs"] = len(verdicts)
     report.stats["sync_verdicts"] = verdicts
     return report

@@ -114,8 +114,19 @@ def timed_launch(wrapper, fn, args, stream):
     ``wrapper.launches`` and, when ``wrapper.events`` is a list, record
     its ``(start, end)`` CUDA events.  A launch that fails raises
     :class:`KernelLaunchError` where the context survives it (outside a
-    graph capture, a synchronize tells), else the CUDA error itself."""
+    graph capture, a synchronize tells), else the CUDA error itself.
+
+    While ``stream`` is being captured, ``wrapper.events`` must be None:
+    a recorded event would be an event-record node, which the graph
+    loops' conditional bodies may not hold, so a list raises
+    ``RuntimeError`` before anything is launched."""
     events = wrapper.events
+    if events is not None and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"{wrapper.__name__}.events is a list while a CUDA graph is "
+            "being captured: each launch would record an event node, which "
+            "a graph loop's WHILE or SWITCH body may not hold; set it to "
+            "None before the capture")
     if events is not None:
         start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
         start.record(stream)

@@ -345,7 +345,9 @@ def build_fused_circuit_run(n_qubits: int, ops, n_params: int):
     per row, on the params' device; ``params=None`` means all-zero
     params (every ``X**b`` the identity) and gives one flat state
     ``[2**n]`` on ``device`` (default: CUDA).  float32 when every gate is
-    real, complex64 otherwise."""
+    real, complex64 otherwise.  ``run.place(device)`` copies the tables
+    to ``device`` now (the first run there does it otherwise), so a CUDA
+    graph that captures a later run copies nothing from the host."""
     tables = circuit_tables(n_qubits, tuple(ops), n_params)
     on_device: dict[torch.device, CircuitTables] = {}
 
@@ -356,11 +358,18 @@ def build_fused_circuit_run(n_qubits: int, ops, n_params: int):
             params = torch.zeros((1, tables.n_params), dtype=torch.int32,
                                  device=dev)
         params = params.to(torch.int32).contiguous()
-        dev = params.device
-        if dev not in on_device:
-            on_device[dev] = tables.to(dev)
-        out = fused_circuit(on_device[dev], params)
+        out = fused_circuit(place(params.device), params)
         return out[0] if single else out
 
+    def place(device) -> CircuitTables:
+        """The tables on ``device``, copied there once."""
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if dev not in on_device:
+            on_device[dev] = tables.to(dev)
+        return on_device[dev]
+
     run.tables = tables
+    run.place = place
     return run

@@ -18,7 +18,8 @@ A pass of the loop runs one chunk of one cell in three steps:
    index read from the carry (every cell shares the seed, so a cell's
    chunk ``i`` is its own ``run_sweep`` chunk ``i``), and copies the
    chunk's success and overflow flags into one slot that every branch
-   shares;
+   shares (the chunk may run any engine and list path, as the sweep's
+   graph loop's may: :mod:`qba_tpu_torch.ops.sweep_loop`);
 3. :func:`surface_fold` folds the slot into the chosen cell's totals,
    decides the cell's stop from the exact integer stop tables
    (:func:`~qba_tpu_torch.stats.device.stop_tables`), records the chunk's

@@ -22,11 +22,17 @@ chunk's successes and each chunk's overflow flag (:func:`new_carry`,
 the chunk is captured once (``torch.cuda.graph``, after an eager warm-up
 pass), a WHILE conditional node takes a copy of it as its body, and the
 kernel sets the node's handle (``csrc/sweep_loop.cu``), so the whole
-budget is one graph launch and one readback.  A graph that cannot be
-built raises :class:`GraphLoopError` with the CUDA error: there is no
-fallback to a host loop.  A config whose chunk cannot be captured is
-refused at intake, before any capture starts: ``run_sweep`` and the
-serving worker call :func:`check_capturable`.  On the CPU the loop is
+budget is one graph launch and one readback.  Every engine
+``run_trial`` runs takes part: the trial megakernel (one launch a
+chunk), the per-round engines ``pallas_fused``, ``pallas`` and
+``pallas_tiled`` (set-up, then each round's draws and round launches;
+with ``collect_counters`` their counters too), and ``xla`` (its eager
+rounds, as on the CPU, and ``auto``'s engine past the kernels' 64-bit
+masks), over every list path: factorized, stabilizer, ``dense`` and
+``dense_pallas``.  :func:`prepare_capture` first builds the per-config
+tables a chunk reads (a captured chunk cannot copy from host memory).
+A graph that cannot be built raises :class:`GraphLoopError` with the
+CUDA error: there is no fallback to a host loop.  On the CPU the loop is
 :func:`plain_loop`, the same passes in Python, reading the flag back
 after each.
 
@@ -44,7 +50,7 @@ import torch
 
 from qba_tpu_torch import random as jr
 from qba_tpu_torch.config import QBAConfig
-from qba_tpu_torch.ops._launch import check, dispatch, masks_fit, timed_launch
+from qba_tpu_torch.ops._launch import check, dispatch, timed_launch
 
 # The carry's head: the chunk index, the running success count, the flag.
 HEAD = 3
@@ -161,42 +167,23 @@ class GraphLoopError(RuntimeError):
 
 
 class GraphLoopUnsupported(ValueError):
-    """A config whose chunk the graph loop cannot capture (ROADMAP A14);
-    raised before any capture starts."""
-
-
-def check_capturable(cfg: QBAConfig) -> None:
-    """Raise :class:`GraphLoopUnsupported` unless the graph loop can
-    capture ``cfg``'s chunk on CUDA: on the trial megakernel (``auto``
-    within the 64-bit masks, or ``pallas_mega``, no counters) over
-    factorized or stabilizer lists.  The dense paths pick each
-    position's circuit family by boolean-mask indexing, which reads the
-    mask's count on the host; the per-round engines' chunks have not been
-    checked for host reads."""
-    if cfg.qsim_path in ("dense", "dense_pallas"):
-        reason = (f"qsim_path={cfg.qsim_path!r} selects each position's "
-                  "circuit family by boolean-mask indexing, a host read")
-    elif (cfg.round_engine not in ("auto", "pallas_mega")
-            or cfg.collect_counters or not masks_fit(cfg)):
-        reason = (f"round_engine={cfg.round_engine!r}, collect_counters="
-                  f"{cfg.collect_counters}, {cfg.n_parties} parties: only "
-                  "the trial megakernel's chunk is known capturable")
-    else:
-        return
-    raise GraphLoopUnsupported(
-        "the device loop cannot capture this config's chunk as a CUDA "
-        f"graph ({reason}; ROADMAP A14): use dispatch='host'")
+    """A loop the graph cannot hold, refused at intake before any
+    capture starts: the device surface on a driver without the SWITCH
+    node (:func:`~qba_tpu_torch.ops.surface_loop.check_driver`)."""
 
 
 def prepare_capture(cfg: QBAConfig, device) -> None:
     """Build ``cfg``'s per-config tables on ``device`` now, before the
     warm-up and the capture (a captured chunk cannot copy from the
-    host).  The loops' callers have refused an uncapturable ``cfg`` at
-    intake (:func:`check_capturable`)."""
-    if cfg.qsim_path == "stabilizer":
-        from qba_tpu_torch.qsim.protocol_circuits import prepare_tables
+    host): the stabilizer path's tableaux, operand matrices and affine
+    maps; on the dense paths both circuit families' state functions with
+    their gate matrices or the circuit kernel's tables."""
+    from qba_tpu_torch.qsim import protocol_circuits as pc
 
-        prepare_tables(cfg, device)
+    if cfg.qsim_path == "stabilizer":
+        pc.prepare_tables(cfg, device)
+    elif cfg.qsim_path in ("dense", "dense_pallas"):
+        pc.prepare_dense(cfg, device)
 
 
 def chunk_step(cfg: QBAConfig, chunk_trials: int, root, carry, lo, hi,
@@ -204,8 +191,9 @@ def chunk_step(cfg: QBAConfig, chunk_trials: int, root, carry, lo, hi,
     """One pass of the loop: chunk ``carry[0]``'s keys (``split(fold_in(
     root, i), chunk_trials)``, :func:`qba_tpu_torch.sweep.chunk_keys` on
     the device), :func:`~qba_tpu_torch.rounds.engine.run_trial` on them
-    and :func:`sweep_stop`.  Nothing reads the host, so a CUDA graph can
-    capture it."""
+    (any engine and list path) and :func:`sweep_stop`.  After
+    :func:`prepare_capture` and one eager pass nothing reads the host or
+    copies from it, so a CUDA graph can capture it."""
     from qba_tpu_torch.rounds.engine import run_trial
 
     keys = jr.split(jr.fold_in(root, carry[0]), chunk_trials)
@@ -222,7 +210,9 @@ def prefix_step(cfg: QBAConfig, chunk_trials: int, keys, offsets, carry,
     ``[n_chunks * chunk_trials, 2]``),
     :func:`~qba_tpu_torch.rounds.engine.run_trial` on them and
     :func:`sweep_stop`, which also stores the chunk's success bits in
-    ``succ``.  Nothing reads the host, so a CUDA graph can capture it."""
+    ``succ``.  As :func:`chunk_step`, any engine and list path: after
+    :func:`prepare_capture` and one eager pass nothing reads the host or
+    copies from it, so a CUDA graph can capture it."""
     from qba_tpu_torch.rounds.engine import run_trial
 
     rows = carry[0].to(torch.int64) * chunk_trials + offsets

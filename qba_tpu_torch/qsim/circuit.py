@@ -158,7 +158,9 @@ class Circuit:
         ``X**b`` the identity) and gives one state ``[2**n]`` on
         ``device`` (default: CUDA).  ``"xla"`` returns complex64;
         ``"pallas"`` float32 when every gate is real, complex64
-        otherwise."""
+        otherwise.  The function's ``place()`` copies the constants it
+        reads (gate matrices, the kernel's tables) to ``device`` now;
+        the first call does it otherwise."""
         dev = torch.device("cuda" if device is None else device)
         impl = self._resolve(impl, dev)
         ops, n, n_params = tuple(self.ops), self.n_qubits, self.n_params
@@ -172,24 +174,41 @@ class Circuit:
             from qba_tpu_torch.ops.fused_circuit import build_fused_circuit_run
 
             run = build_fused_circuit_run(n, ops, n_params)
-            return lambda params=None: run(params, device=dev)
+
+            def pallas_fn(params: torch.Tensor | None = None) -> torch.Tensor:
+                return run(params, device=dev)
+
+            pallas_fn.place = lambda: run.place(dev)
+            return pallas_fn
+
+        # Each static gate's matrix on the device, copied at the first
+        # call (or by ``place``): a call after it copies nothing from
+        # the host, so a CUDA graph can capture it.
+        mats: list = []
+
+        def place() -> None:
+            if not mats:
+                sv._as_matrix(sv.I2, dev)  # the two that X**b blends
+                sv._as_matrix(sv.X, dev)
+                mats.extend(None if op.kind == "XPOW" else sv._as_matrix(
+                    sv.gate_matrix(op.kind, op.angle), dev) for op in ops)
 
         def state_fn(params: torch.Tensor | None = None) -> torch.Tensor:
             single = params is None
             if single:
                 params = torch.zeros((1, max(n_params, 1)), dtype=torch.int32,
                                      device=dev)
+            place()
             state = sv.init_state(n, params.shape[0], params.device)
-            for op in ops:
+            for op, mat in zip(ops, mats):
                 if op.kind == "XPOW":
                     mat = sv.xpow_matrix(params[:, op.param])
-                else:
-                    mat = sv.gate_matrix(op.kind, op.angle)
                 state = sv.apply_controlled_1q(state, mat, op.target,
                                                op.controls)
             flat = state.reshape(params.shape[0], -1)
             return flat[0] if single else flat
 
+        state_fn.place = place
         return state_fn
 
     def compile(self, impl: str = "xla", p_depolarize: float = 0.0,

@@ -25,6 +25,7 @@ import torch
 from qba_tpu_torch import random as jr
 from qba_tpu_torch.config import QBAConfig
 from qba_tpu_torch.core.decode import measure_to_ints
+from qba_tpu_torch.qsim import statevector as sv
 from qba_tpu_torch.qsim.circuit import Circuit, Gate
 
 
@@ -116,10 +117,15 @@ def generate_lists_dense(cfg: QBAConfig, keys: torch.Tensor,
     ``impl`` selects the circuit executor (:meth:`Circuit.compile`):
     ``"xla"``, ``"pallas"``, ``"stabilizer"`` (the per-shot tableau
     engine, any width) or ``"auto"``, which past the dense cap hands the
-    whole batch to :func:`generate_lists_stabilizer`.  Each position runs
-    only the circuit family its ``qcorr`` bit selects, on that position's
-    measurement key (the JAX package runs both on the same key and
-    selects: the result is the same).
+    whole batch to :func:`generate_lists_stabilizer`.  As in the JAX
+    package both families serve every position and its ``qcorr`` bit
+    selects, with no shape that depends on the bits: on the statevector
+    executors the Q-correlated family's state is prepared for every
+    position, the not-Q-correlated family's one all-zero-params state is
+    shared, ``torch.where`` picks each position's state and the position
+    is sampled once, on its measurement key
+    (:func:`_dense_bits`); the tableau engine samples both families on
+    every key and selects the bits.
 
     Returns ``(lists int32 [T, n_parties + 1, size_l], qcorr bool [T,
     size_l])``: row 0 is the QSD's extra copy, row 1 the commander.
@@ -131,16 +137,76 @@ def generate_lists_dense(cfg: QBAConfig, keys: torch.Tensor,
         impl = gen_q_corr_circuit(n, nq).resolve_auto_impl(keys.device)
         if impl == "stabilizer":
             return generate_lists_stabilizer(cfg, keys)
-    noise = (cfg.p_depolarize, cfg.p_measure_flip)
-    run_q = gen_q_corr_circuit(n, nq).compile(impl, *noise)
-    run_nq = gen_nq_corr_circuit(n, nq).compile(impl, *noise)
-
     qcorr, _perms, params, meas_keys = dense_draws(cfg, keys)
-    bits = torch.empty(qcorr.shape + ((n + 1) * nq,), dtype=torch.int32,
-                       device=keys.device)
-    bits[qcorr] = run_q(meas_keys[qcorr], params[qcorr])
-    bits[~qcorr] = run_nq(meas_keys[~qcorr])
-    return lists_from_bits(cfg, bits), qcorr
+    b, total = qcorr.numel(), cfg.total_qubits
+    q = qcorr.reshape(b)
+    params, meas_keys = params.reshape(b, -1), meas_keys.reshape(b, 2)
+    if impl == "stabilizer":
+        noise = (cfg.p_depolarize, cfg.p_measure_flip)
+        run_q = gen_q_corr_circuit(n, nq).compile(impl, *noise)
+        run_nq = gen_nq_corr_circuit(n, nq).compile(impl, *noise)
+        bits = torch.where(q[:, None], run_q(meas_keys, params),
+                           run_nq(meas_keys))
+    else:
+        bits = _dense_bits(cfg, impl, q, params, meas_keys)
+    return lists_from_bits(cfg, bits.reshape(qcorr.shape + (total,))), qcorr
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_states(n_parties: int, n_qubits: int, impl: str,
+                  device: torch.device):
+    """Both families' state functions (:meth:`Circuit.compile_state`,
+    Q-correlated then not) on ``device``, with every constant they read
+    already there: compiled once per config, executor and device."""
+    fns = tuple(circ.compile_state(impl, device)
+                for circ in (gen_q_corr_circuit(n_parties, n_qubits),
+                             gen_nq_corr_circuit(n_parties, n_qubits)))
+    for fn in fns:
+        fn.place()
+    return fns
+
+
+def prepare_dense(cfg: QBAConfig, device=None) -> None:
+    """Compile both families' state functions for ``cfg``'s dense path
+    on ``device`` (the executor :func:`generate_lists_for` gives it
+    there) and copy their constants there now (the gate matrices, the
+    circuit kernel's op and pass tables); a CUDA graph that captures a
+    chunk cannot copy from host memory, so the graph loop calls this
+    before its capture."""
+    dev = _on(device)
+    impl = "xla"
+    if cfg.qsim_path == "dense_pallas":
+        impl = gen_q_corr_circuit(cfg.n_parties,
+                                  cfg.n_qubits).resolve_auto_impl(dev)
+    _dense_states(cfg.n_parties, cfg.n_qubits, impl, dev)
+
+
+def _dense_bits(cfg: QBAConfig, impl: str, qcorr, params, meas_keys):
+    """Every position's measured bits int32 ``[B, total]`` on a
+    statevector executor, for positions ``qcorr`` bool ``[B]``, the
+    Q-correlated family's runtime params ``[B, n_params]`` and the
+    measurement keys ``[B, 2]``: the Q-correlated state of every position
+    and the shared not-Q-correlated state, the position's family picked
+    by ``torch.where`` and one Born sample per position, a chunk of
+    positions at a time (:data:`~qba_tpu_torch.qsim.statevector.
+    SAMPLE_CHUNK_ELEMS` amplitudes), then the noise's classical flips."""
+    dev, total = meas_keys.device, cfg.total_qubits
+    state_q, state_nq = _dense_states(cfg.n_parties, cfg.n_qubits, impl,
+                                      _on(dev))
+    shared = state_nq()
+    step = max(1, sv.SAMPLE_CHUNK_ELEMS >> total)
+    bits = torch.empty((qcorr.shape[0], total), dtype=torch.int32,
+                       device=dev)
+    for a in range(0, qcorr.shape[0], step):
+        rows = slice(a, a + step)
+        state = torch.where(qcorr[rows, None], state_q(params[rows]), shared)
+        bits[rows] = sv.measure_all(state, meas_keys[rows])
+    if cfg.p_depolarize > 0.0 or cfg.p_measure_flip > 0.0:
+        from qba_tpu_torch.qsim.noise import classical_flips
+
+        bits = bits ^ classical_flips(meas_keys, total, cfg.p_depolarize,
+                                      cfg.p_measure_flip)
+    return bits
 
 
 @functools.lru_cache(maxsize=None)

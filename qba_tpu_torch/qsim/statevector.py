@@ -79,14 +79,30 @@ def gate_matrix(kind: str, angle: float | None = None) -> np.ndarray:
 def init_state(n: int, batch: int = 1, device=None) -> torch.Tensor:
     """``batch`` copies of |0...0> on ``n`` qubits."""
     state = torch.zeros((batch, 1 << n), dtype=torch.complex64, device=device)
-    state[:, 0] = 1.0
+    state[:, 0].fill_(1.0)  # a fill, no scalar tensor from the host
     return state.reshape((batch,) + (2,) * n)
 
 
+# Static gate matrices already copied to a device, by (matrix bytes,
+# device): each constant crosses to a device once, so a CUDA graph that
+# captures a circuit after a warm-up run copies nothing from the host.
+_ON_DEVICE: dict = {}
+
+
 def _as_matrix(mat, device) -> torch.Tensor:
+    """``mat`` as complex64 on ``device``.  A numpy matrix is a
+    constant: its device copy is made once per device and shared (read
+    it, never write it)."""
     if isinstance(mat, torch.Tensor):
         return mat.to(device=device, dtype=torch.complex64)
-    return torch.from_numpy(np.asarray(mat, dtype=np.complex64)).to(device)
+    host = np.ascontiguousarray(mat, dtype=np.complex64)
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = (host.tobytes(), host.shape, dev)
+    if key not in _ON_DEVICE:
+        _ON_DEVICE[key] = torch.from_numpy(host).to(dev)
+    return _ON_DEVICE[key]
 
 
 def apply_1q(state: torch.Tensor, mat, target: int) -> torch.Tensor:

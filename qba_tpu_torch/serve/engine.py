@@ -29,8 +29,9 @@ With ``dispatch="device"`` a targeted request with at least one whole
 chunk of budget and no per-trial decisions runs its whole budget as one
 device loop over its own key table
 (:func:`~qba_tpu_torch.ops.sweep_loop.device_loop_prefix`: one CUDA
-graph launch and one readback on the card).  A request whose chunk the
-graph cannot capture is refused at intake (ROADMAP A14).
+graph launch and one readback on the card), on any engine and list
+path; a request that asks for per-trial decisions, or whose budget is
+under one chunk, takes the host bucket stream.
 
 A chunk whose kernel refuses its shapes, fails to build or fails to
 launch becomes an error result for each request it carried, naming the
@@ -200,9 +201,8 @@ class QBAServer:
         """Validate and queue one request (the latency clock starts
         here).  ``queue_wait_s`` is the transport-measured wait before
         this submit, echoed on the result.  Raises ``ValueError`` on a
-        bad config, a bad target, a duplicate id, or a device-dispatch
-        request whose chunk the graph loop cannot capture — transports
-        turn that into an error result."""
+        bad config, a bad target or a duplicate id — transports turn
+        that into an error result."""
         if req.request_id in self._active:
             raise ValueError(f"request id already in flight: {req.request_id!r}")
         cfg = req.config()
@@ -221,10 +221,6 @@ class QBAServer:
             and not req.return_decisions
             and cfg.trials >= self.scheduler.chunk_trials
         )
-        if device_mode:
-            from qba_tpu_torch.ops.sweep_loop import check_capturable
-
-            check_capturable(cfg)
         key_data = request_keys(cfg)
         recorder = SpanRecorder()
         probe_before = probe_stats_snapshot()

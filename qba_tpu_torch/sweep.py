@@ -943,9 +943,8 @@ def run_surface(
     on the CPU the same passes run in Python.  Per-cell chunks and stop
     decisions equal the host allocator's; the schedule may reorder
     near-tied cells (float32 widths on the device against float64 on the
-    host).  It takes no custom ``runner``, and a grid with a cell the
-    graph cannot capture (the dense paths, the per-round engines: ROADMAP
-    A14), or a CUDA driver without the graph's SWITCH node, raises
+    host).  Every engine and list path runs in it.  It takes no custom
+    ``runner``, and a CUDA driver without the graph's SWITCH node raises
     :class:`~qba_tpu_torch.ops.sweep_loop.GraphLoopUnsupported` before
     anything runs.
 
@@ -966,12 +965,6 @@ def run_surface(
             "dispatch='device' cannot take a custom runner: the loop "
             "body switches into each cell's captured chunk"
         )
-    if dispatch == "device":
-        from qba_tpu_torch.ops.sweep_loop import check_capturable
-
-        # Every cell, on every device, before anything runs.
-        for g in _surface_grid(cfg, strategies, noise_points, size_ls, None):
-            check_capturable(g[4])
     dev = resolve_device(device)
     if dispatch == "device" and dev.type == "cuda":
         from qba_tpu_torch.ops.surface_loop import check_driver
@@ -1103,10 +1096,8 @@ def run_sweep(
     the whole budget, :mod:`qba_tpu_torch.ops.sweep_loop`; on the CPU
     the same passes in Python).  Both execute identical chunks and stop
     at the same chunk boundary.  ``"device"`` needs ``target`` and runs
-    the built-in engine batch: it takes no custom ``runner``, and a
-    config whose chunk the graph cannot capture (the dense paths, the
-    per-round engines: ROADMAP A14) raises
-    :class:`~qba_tpu_torch.ops.sweep_loop.GraphLoopUnsupported`.
+    the built-in engine batch (any engine and list path): it takes no
+    custom ``runner``.
     """
     if dispatch not in ("host", "device"):
         raise ValueError(
@@ -1125,11 +1116,6 @@ def run_sweep(
                 "dispatch='device' cannot take a custom runner: the "
                 "loop body is the captured run_trial chunk"
             )
-        from qba_tpu_torch.ops.sweep_loop import check_capturable
-
-        # On every device, so a config the card's graph cannot capture is
-        # refused alike on the CPU (GraphLoopUnsupported, a ValueError).
-        check_capturable(cfg)
     dev = resolve_device(device)
     if chunk_trials is None:
         chunk_trials = cfg.trials

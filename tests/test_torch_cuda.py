@@ -1258,6 +1258,42 @@ def test_sweep_graph_loop_equals_host_loop(cuda, spec):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(round_engine="pallas_fused"),
+                                dict(round_engine="pallas"),
+                                dict(round_engine="pallas_tiled"),
+                                dict(round_engine="xla"),
+                                dict(collect_counters=True),
+                                dict(qsim_path="dense_pallas",
+                                     n_parties=3, size_l=8, n_dishonest=1),
+                                dict(qsim_path="dense", n_parties=3,
+                                     size_l=8, n_dishonest=1)])
+def test_graph_loop_every_engine_equals_plain_loop(cuda, kw):
+    # The sweep's graph loop on each per-round engine, the counters and
+    # the dense paths (one graph, one readback) against the plain loop
+    # on the CPU, and the worker's prefix loop likewise (the dense paths
+    # at 8 qubits: the plain statevector runs on the CPU).
+    from qba_tpu_torch.ops import sweep_loop as sl
+    from qba_tpu_torch.stats import parse_target, stop_tables
+
+    cfg = qba_tpu_torch.QBAConfig(**{**dict(n_parties=5, size_l=16,
+                                            n_dishonest=2, seed=3), **kw})
+    lo, hi = stop_tables(parse_target("decide vs 0.9 +-0.05"), 5, 64)
+    want = sl.device_loop(cfg, 5, 64, 0, 0, lo, hi, "cpu")
+    got = sl.device_loop(cfg, 5, 64, 0, 0, lo, hi, cuda)
+    assert got[3]["dispatch"] == "graph" and got[3]["readbacks"] == 1
+    assert set(got[3]["body_nodes"]) <= set(sl.BODY_NODE_TYPES.values())
+    assert got[0] == want[0] and got[0] > 0
+    for a, b in zip(got[1:3], want[1:3]):
+        assert (a == b).all()
+    keys = jr.split(jr.key(3, "cpu"), 5 * 64)
+    want = sl.device_loop_prefix(cfg, 5, 64, keys, lo, hi, "cpu")
+    got = sl.device_loop_prefix(cfg, 5, 64, keys.to(cuda), lo, hi, cuda)
+    assert got[0] == want[0]
+    for a, b in zip(got[1:4], want[1:4]):
+        assert (a == b).all()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n_cells", [1, 33, 256])
 def test_surface_kernels_equal_plain(cuda, n_cells):
     # surface_pick and surface_fold against their plain versions on the
@@ -1367,8 +1403,8 @@ def test_lint_launches_and_carry_on_the_card(cuda, engine):
 @pytest.mark.cuda
 def test_lint_sync_probe_on_the_card(cuda):
     # The megakernel's chunk runs under set_sync_debug_mode("error")
-    # without a raise (check_capturable accepts it); the lint at 11p
-    # exits clean on the card.
+    # without a raise, and so do the fused round's with counters and the
+    # dense paths'; the lint at 11p exits clean on the card.
     from qba_tpu_torch.analysis import run_lint, transfers
 
     cfg = qba_tpu_torch.QBAConfig(n_parties=11, size_l=64, n_dishonest=3)

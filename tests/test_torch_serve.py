@@ -11,9 +11,11 @@ The same request streams go through ``qba_tpu.serve`` and
   ``dispatch="device"`` server the plain device loop over the request's
   own keys gives the same result as JAX's ``_run_device`` and the host
   path;
+* a device request on the dense path or a per-round engine runs its
+  device loop, equal to JAX's device result, the host path and a direct
+  run;
 * deadline expiry, a bad config and an invalid target give JAX's error
-  results; a device request whose chunk the graph loop cannot capture
-  and a chunk whose kernel fails give named error results;
+  results; a chunk whose kernel fails gives named error results;
 * the JSONL transport's result lines equal JAX's; the file queue
   reclaims a stale claim, dead-letters a poison one and drains before a
   stop sentinel; request, result and ``plans.json`` files cross between
@@ -52,7 +54,6 @@ from qba_tpu_torch import serve as pserve
 from qba_tpu_torch.backends.torch_backend import run_trials, trial_keys
 from qba_tpu_torch.obs.manifest import validate_manifest
 from qba_tpu_torch.obs.telemetry import span_latency_summary, spans_from_jsonl
-from qba_tpu_torch.ops.sweep_loop import GraphLoopUnsupported
 from qba_tpu_torch.serve import persist, transport
 from qba_tpu_torch.serve.engine import request_keys
 
@@ -218,18 +219,37 @@ def test_device_early_finish_equals_host_path(spec, trials):
         assert dev.stop == host.stop
 
 
-def test_device_request_refused_where_graph_cannot_capture():
-    # The dense path (boolean-mask indexing) is refused at intake, before
-    # any capture, with ROADMAP A14 named; the host path still serves it.
-    reqs = [_req(pserve, "dense", n=3, L=8, trials=16, seed=1,
-                 qsim_path="dense", target=TARGET)]
-    server = pserve.QBAServer(chunk_trials=8, dispatch="device",
-                              device="cpu")
-    with pytest.raises(GraphLoopUnsupported, match="A14"):
-        server.submit(reqs[0])
-    [res] = _p_serve(reqs, chunk_trials=8, dispatch="device").values()
-    assert "A14" in res.error and "dense" in res.error
-    assert _p_serve(reqs, chunk_trials=8)["dense"].error is None
+@pytest.mark.parametrize("kw", [dict(n=3, L=8, qsim_path="dense"),
+                                dict(round_engine="pallas_fused"),
+                                dict(round_engine="pallas")])
+def test_device_request_refused_where_graph_cannot_capture(kw, jax_runs):
+    # The dense path and the per-round engines were refused at intake
+    # (ROADMAP A14); the device loop now runs them: the targeted request
+    # of the stream on the fused round and on the dense-mailbox round
+    # equals JAX's device result, and a dense request equals the host
+    # path and a direct run of its trials.
+    if "qsim_path" in kw:
+        req = _req(pserve, "dense", trials=16, seed=1, target=TARGET, **kw)
+        dev = _p_serve([req], chunk_trials=8, dispatch="device")["dense"]
+        host = _p_serve([req], chunk_trials=8)["dense"]
+        assert dev.error is None and dev.manifest["stats"]["dispatch"] == \
+            "device"
+        for f in COMPARED:
+            assert getattr(dev, f) == getattr(host, f), f
+        direct = run_trials(req.config(), trial_keys(req.config(), "cpu"),
+                            device="cpu").trials
+        assert dev.success == direct.success[:dev.n_trials].tolist()
+        return
+    [req] = _targeted_stream(pserve)[:1]
+    got = _p_serve([dataclasses.replace(req, **kw)], chunk_trials=8,
+                   dispatch="device")["tgt"].to_json()
+    want = jax_runs["device"]["tgt"].to_json()
+    assert got["manifest"]["stats"]["dispatch"] == "device"
+    assert got["bucket"] == want["bucket"].replace(
+        "auto", kw["round_engine"])
+    for f in COMPARED:
+        if f != "bucket":
+            assert got[f] == want[f], f
 
 
 def test_failed_chunk_becomes_named_error_result(monkeypatch):

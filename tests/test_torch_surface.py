@@ -367,19 +367,65 @@ def test_uniform_surface_manifests():
         assert cell.manifest["config"]["size_l"] == cell.size_l
 
 
-def test_device_surface_refuses_uncapturable_grids(monkeypatch):
-    # Every cell is checked before anything runs, on every device.
-    def forbidden(*a, **k):
-        raise AssertionError("ran before the intake check")
+DENSE_GRID = (["reference"], [(0.0, 0.0), (0.05, 0.02)], [8])
 
-    monkeypatch.setattr(su, "device_surface_loop", forbidden)
-    monkeypatch.setattr(psweep, "run_chunk", forbidden)
-    grid = GRIDS["sizes"][0]
-    for kw in (dict(qsim_path="dense"), dict(round_engine="pallas_fused")):
-        with pytest.raises(GraphLoopUnsupported, match="A14"):
-            psweep.run_surface(dataclasses.replace(CFG, **kw), *grid,
-                               target=DECIDE, dispatch="device",
-                               device="cpu")
+
+@pytest.fixture(scope="module")
+def jax_dense_device():
+    """JAX's device surface over ``DENSE_GRID`` at 3p/L8/d1 on
+    ``qsim_path="dense"``, compiled at XLA's lowest optimisation level."""
+    from tests.test_torch_draws import FAST_COMPILE
+
+    real = jsweep._device_surface_loop
+
+    def fast(cfgs, steps, ct, confidence, threshold, carry, lo, hi):
+        return real.lower(cfgs, steps, ct, confidence, threshold, carry, lo,
+                          hi).compile(FAST_COMPILE)(carry, lo, hi)
+
+    jcfg = dataclasses.replace(JCFG, n_parties=3, size_l=8,
+                               qsim_path="dense")
+    jsweep._device_surface_loop = fast
+    try:
+        with jax.threefry_partitionable(True):
+            return jsweep.run_surface(jcfg, *DENSE_GRID, chunk_trials=CT,
+                                      target=DECIDE, budget_chunks=6,
+                                      dispatch="device")
+    finally:
+        jsweep._device_surface_loop = real
+
+
+@pytest.mark.parametrize("kw", [dict(qsim_path="dense"),
+                                dict(round_engine="pallas_fused")])
+def test_device_surface_refuses_uncapturable_grids(kw, jax_device,
+                                                   jax_dense_device):
+    # These grids were refused at intake (ROADMAP A14); the device surface
+    # now runs every engine and list path, and its plain form equals
+    # JAX's device surface cell by cell: the fused round's plain version
+    # on the four-cell grid, the dense path on a two-cell grid.
+    if "qsim_path" in kw:
+        cfg = dataclasses.replace(CFG, n_parties=3, size_l=8, **kw)
+        got = psweep.run_surface(cfg, *DENSE_GRID, chunk_trials=CT,
+                                 target=DECIDE, budget_chunks=6,
+                                 dispatch="device", device="cpu")
+        want = jax_dense_device
+    else:
+        got = psweep.run_surface(dataclasses.replace(CFG, **kw),
+                                 *GRIDS["strategies_noise"][0],
+                                 chunk_trials=CT, target=DECIDE,
+                                 budget_chunks=6, dispatch="device",
+                                 device="cpu")
+        want = jax_device
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert (g.strategy, g.p_depolarize, g.size_l) == (
+            w.strategy, w.p_depolarize, w.size_l)
+        assert chunk_tuples(g.result) == chunk_tuples(w.result)
+        assert g.result.stop.to_json() == w.result.stop.to_json()
+        assert g.result.dispatch == "device"
+    ga, wa = alloc_of(got), alloc_of(want)
+    assert ga["spent_chunks"] == wa["spent_chunks"]
+    assert ga["cells"] == wa["cells"]
+    assert_schedules_agree(ga["trace"], wa["trace"], want)
 
 
 def test_check_driver_refuses_a_driver_without_switch(monkeypatch):

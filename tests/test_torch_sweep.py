@@ -30,6 +30,7 @@ arguments).  JAX's threefry mode is set only inside
 import dataclasses
 import json
 import os
+import warnings
 
 import jax
 import numpy as np
@@ -49,6 +50,7 @@ from qba_tpu.config import QBAConfig as JConfig
 from qba_tpu_torch import sweep as psweep
 from qba_tpu_torch.atlas.store import AtlasStore
 from qba_tpu_torch.convert import config_from_jax_fields
+from qba_tpu_torch.diagnostics import QBADemotionWarning
 from qba_tpu_torch.ops import sweep_loop as sl
 from qba_tpu_torch.ops import trial_megakernel as tm
 from qba_tpu_torch.rounds.engine import run_chunk_counts, run_chunk_outcomes
@@ -118,12 +120,20 @@ def fixed():
     return p_run_sweep(CFG, BUDGET, CT)
 
 
+@pytest.fixture(scope="module")
+def jax_loops():
+    """JAX's host and device loops on each of ``TARGETS``, run once."""
+    return {spec: (j_run_sweep(JCFG, BUDGET, CT, target=spec),
+                   j_run_sweep(JCFG, BUDGET, CT, target=spec,
+                               dispatch="device"))
+            for spec in TARGETS}
+
+
 @pytest.mark.parametrize("spec", TARGETS)
-def test_triad_equals_jax(spec, fixed):
+def test_triad_equals_jax(spec, fixed, jax_loops):
     host = p_run_sweep(CFG, BUDGET, CT, target=spec)
     dev = p_run_sweep(CFG, BUDGET, CT, target=spec, dispatch="device")
-    j_host = j_run_sweep(JCFG, BUDGET, CT, target=spec)
-    j_dev = j_run_sweep(JCFG, BUDGET, CT, target=spec, dispatch="device")
+    j_host, j_dev = jax_loops[spec]
     want = chunk_tuples(j_host)
     assert chunk_tuples(j_dev) == want
     assert chunk_tuples(host) == chunk_tuples(dev) == want
@@ -327,35 +337,98 @@ def _zeros_mega(cfg, *args):
             torch.zeros(t, dtype=torch.bool))
 
 
+def _stub_round_kernels(monkeypatch):
+    """The per-round engines' kernels and the draws kernel replaced by
+    stubs that return outputs of the kernels' shapes, as a launch does
+    (their plain versions read the host on purpose: ``nonzero``)."""
+    from qba_tpu_torch.ops import round_kernel as rk
+    from qba_tpu_torch.ops import round_kernel_tiled as rt
+    from qba_tpu_torch.rounds import engine
+
+    def ovf(vi):
+        return torch.zeros(vi.shape[:-2], dtype=torch.bool)
+
+    def fused(cfg, r, pool, li, vi, hc, a, rv, late, out=None, **k):
+        return (out if out is not None else pool), vi, ovf(vi)
+
+    def verdict(cfg, r, pool, li, vi, hc, a, rv, late, **k):
+        return torch.zeros(a.shape[:2], dtype=torch.int64), vi
+
+    def rebuild(cfg, r, pool, li, acc, hc, a, rv, out=None, **k):
+        return (out if out is not None else pool), torch.zeros(
+            acc.shape[0], dtype=torch.bool)
+
+    def draws(cfg, k_rounds, ctx, r0, n_r, **k):
+        shape = (k_rounds.shape[0], n_r, cfg.n_lieutenants * cfg.slots,
+                 cfg.n_lieutenants)
+        return tuple(torch.zeros(shape, dtype=torch.uint8) for _ in "abc")
+
+    monkeypatch.setattr(rt, "fused_round", fused)
+    monkeypatch.setattr(rk, "round_step", fused)
+    monkeypatch.setattr(rt, "tiled_verdict", verdict)
+    monkeypatch.setattr(rt, "tiled_rebuild", rebuild)
+    monkeypatch.setattr(engine, "attack_draws", draws)
+
+
 @pytest.mark.parametrize("kw", [{}, dict(strategy="adaptive"),
                                 dict(strategy="split"),
                                 dict(p_depolarize=0.05, delivery="racy",
                                      p_late=0.25),
                                 dict(qsim_path="stabilizer"),
                                 dict(qsim_path="stabilizer", mega_gen="host",
-                                     p_depolarize=0.05, p_measure_flip=0.02)])
+                                     p_depolarize=0.05, p_measure_flip=0.02),
+                                dict(round_engine="pallas_fused"),
+                                dict(round_engine="pallas"),
+                                dict(round_engine="pallas_tiled",
+                                     strategy="adaptive"),
+                                dict(round_engine="xla"),
+                                dict(round_engine="pallas_fused",
+                                     collect_counters=True,
+                                     qsim_path="stabilizer"),
+                                dict(round_engine="pallas",
+                                     collect_counters=True, delivery="racy",
+                                     p_late=0.25),
+                                dict(round_engine="pallas_fused",
+                                     qsim_path="dense", n_parties=3,
+                                     size_l=8),
+                                dict(round_engine="pallas_fused",
+                                     qsim_path="dense_pallas", n_parties=3,
+                                     size_l=8, p_depolarize=0.05)])
 def test_chunk_step_is_capturable(kw, monkeypatch):
-    # The engine the card runs (the keyed megakernel; on the stabilizer
-    # path its gen entry, or the sweep and the host-gen megakernel), the
-    # kernels stubbed: after the graph loop's preparation (the
-    # per-config tables, from empty caches), the sweep's chunk, the
-    # serving worker's prefix chunk and a device surface's branch must
-    # stay on the device, and so must the surface's pick and fold on
-    # their launch path (the library and the stream stubbed).
+    # Every engine and list path the card runs, the kernels stubbed (the
+    # keyed megakernel, on the stabilizer path its gen entry or the sweep
+    # and the host-gen megakernel; the per-round kernels and the draws
+    # kernel; the circuit kernel on dense_pallas): after the graph loop's
+    # preparation (the per-config tables, from empty caches), the sweep's
+    # chunk, the serving worker's prefix chunk and a device surface's
+    # branch must stay on the device, and so must the surface's pick and
+    # fold on their launch path (the library and the stream stubbed).
     import types
 
+    from qba_tpu_torch.ops import fused_circuit as fc
     from qba_tpu_torch.ops import gf2_sweep as gs
     from qba_tpu_torch.ops import surface_loop as su
     from qba_tpu_torch.qsim import protocol_circuits as pc
+    from qba_tpu_torch.qsim import statevector as sv
+    from qba_tpu_torch.qsim.circuit import Circuit
 
-    cfg = dataclasses.replace(CFG, round_engine="pallas_mega", **kw)
+    cfg = dataclasses.replace(CFG, **{"round_engine": "pallas_mega", **kw})
     monkeypatch.setattr(tm, "trial_megakernel_keyed", _zeros_mega)
     monkeypatch.setattr(tm, "trial_megakernel_gen_keyed", _zeros_mega)
     monkeypatch.setattr(gs, "gf2_sweep", lambda n, xw, zw, r, *a, **k:
                         torch.zeros((r.shape[0], n), dtype=torch.int32))
     monkeypatch.setattr(sl, "sweep_stop", lambda *a, **k: None)
-    for cache in (pc._gen_tables, pc._operand_tables, pc._sweep_tables):
+    _stub_round_kernels(monkeypatch)
+    if cfg.qsim_path == "dense_pallas":
+        monkeypatch.setattr(Circuit, "resolve_auto_impl",
+                            lambda self, device=None: "pallas")
+        monkeypatch.setattr(fc, "fused_circuit", lambda tables, params:
+                            torch.ones((params.shape[0],
+                                        1 << tables.n_qubits)))
+    for cache in (pc._gen_tables, pc._operand_tables, pc._sweep_tables,
+                  pc._dense_states):
         cache.cache_clear()
+    monkeypatch.setattr(sv, "_ON_DEVICE", {})
     sl.prepare_capture(cfg, "cpu")
     carry = sl.new_carry(4, 1, 0, "cpu")
     lo, hi = (torch.zeros(5, dtype=torch.int32) for _ in "ab")
@@ -379,27 +452,125 @@ def test_chunk_step_is_capturable(kw, monkeypatch):
                         lambda dev: types.SimpleNamespace(cuda_stream=0))
     for fn in (su.surface_pick, su.surface_fold):
         monkeypatch.setattr(fn, "launches", 0)
-    with _HostData() as mode:
-        sl.chunk_step(cfg, CT, root, carry, lo, hi)
-        sl.prefix_step(cfg, CT, keys, offsets, carry, lo, hi, succ)
-        su.branch_step(cfg, CT, root, s_carry, slot)
-        su.surface_pick(s_carry, ci, layout, CT, 0.95, 0.5, handle=7)
-        su.surface_fold(slot[0], slot[1], lo, hi, s_carry, layout, handle=9)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", QBADemotionWarning)
+        with _HostData() as mode:
+            sl.chunk_step(cfg, CT, root, carry, lo, hi)
+            sl.prefix_step(cfg, CT, keys, offsets, carry, lo, hi, succ)
+            su.branch_step(cfg, CT, root, s_carry, slot)
+            su.surface_pick(s_carry, ci, layout, CT, 0.95, 0.5, handle=7)
+            su.surface_fold(slot[0], slot[1], lo, hi, s_carry, layout,
+                            handle=9)
     assert mode.seen == []
     assert launched == ["pick", "fold"]
+
+
+# The dense paths' config: 3p/L8/d1 (8 qubits), with a target that
+# stops at chunk 3 of the budget.
+DENSE_CFG = dataclasses.replace(CFG, n_parties=3, size_l=8)
+DENSE_TARGET = "ci_width<=0.3"
+
+
+@pytest.fixture(scope="module")
+def jax_dense_loop():
+    """JAX's device loop on ``qsim_path="dense"`` at ``DENSE_CFG``,
+    compiled at XLA's lowest optimisation level (its lists equal
+    ``dense_pallas``'s)."""
+    from tests.test_torch_draws import FAST_COMPILE
+
+    real = jsweep._device_loop_foldin
+
+    def fast(cfg, n, ct, carry, lo, hi):
+        return real.lower(cfg, n, ct, carry, lo, hi).compile(FAST_COMPILE)(
+            carry, lo, hi)
+
+    jcfg = JConfig(**{**KW, "n_parties": 3, "size_l": 8}, trials=CT,
+                   qsim_path="dense")
+    jsweep._device_loop_foldin = fast
+    try:
+        return j_run_sweep(jcfg, BUDGET, CT, target=DENSE_TARGET,
+                           dispatch="device")
+    finally:
+        jsweep._device_loop_foldin = real
 
 
 @pytest.mark.parametrize("kw", [dict(qsim_path="dense"),
                                 dict(qsim_path="dense_pallas"),
                                 dict(round_engine="pallas_fused"),
-                                dict(collect_counters=True)])
-def test_graph_loop_refuses_uncapturable_chunks(kw):
-    # Refused before any capture, on every device, naming ROADMAP A14.
-    cfg = dataclasses.replace(CFG, **kw)
-    with pytest.raises(sl.GraphLoopUnsupported, match="A14"):
-        p_run_sweep(cfg, BUDGET, CT, target=TARGETS[0], dispatch="device")
-    sl.check_capturable(CFG)
-    sl.check_capturable(dataclasses.replace(CFG, qsim_path="stabilizer"))
+                                dict(collect_counters=True),
+                                dict(round_engine="pallas"),
+                                dict(round_engine="pallas_tiled"),
+                                dict(round_engine="xla"),
+                                dict(round_engine="pallas_mega",
+                                     collect_counters=True)])
+def test_graph_loop_refuses_uncapturable_chunks(kw, monkeypatch, jax_loops,
+                                                jax_dense_loop):
+    # These configs were refused before any capture (ROADMAP A14); the
+    # graph loop now runs every engine and list path, and its plain form
+    # equals JAX's device loop chunk for chunk and stop for stop:
+    # ``dense_pallas`` on the circuit kernel's plain version, every
+    # per-round engine on its kernels' plain versions, the counters on
+    # the fused round (``pallas_mega`` demotes to it, as on the card).
+    from qba_tpu_torch.qsim.circuit import Circuit
+
+    if kw.get("qsim_path") == "dense_pallas":
+        monkeypatch.setattr(Circuit, "resolve_auto_impl",
+                            lambda self, device=None: "pallas")
+    if "qsim_path" in kw:
+        cases = [(DENSE_CFG, DENSE_TARGET, jax_dense_loop)]
+    else:
+        cases = [(CFG, spec, jax_loops[spec][1]) for spec in TARGETS]
+    for base, spec, want in cases:
+        cfg = dataclasses.replace(base, **kw)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", QBADemotionWarning)
+            got = p_run_sweep(cfg, BUDGET, CT, target=spec,
+                              dispatch="device")
+        assert got.dispatch == "device"
+        assert chunk_tuples(got) == chunk_tuples(want), (kw, spec)
+        assert got.stop.to_json() == want.stop.to_json(), (kw, spec)
+
+
+def test_dense_lists_select_one_sample_per_position(monkeypatch):
+    # The dense list generation has no data-dependent shape: every
+    # position's state is picked by torch.where and sampled once, on its
+    # key (one Born sample per position, not one per family).
+    from qba_tpu_torch.qsim import protocol_circuits as pc
+    from qba_tpu_torch.qsim import statevector as sv
+
+    keys = psweep.chunk_keys(DENSE_CFG, 0, CT, "cpu")
+    want, qcorr = pc.generate_lists_dense(DENSE_CFG, keys)
+    sampled = []
+    real = sv.measure_all
+    monkeypatch.setattr(sv, "measure_all", lambda state, k: sampled.append(
+        k.shape[0]) or real(state, k))
+    with _HostData() as mode:
+        got, got_q = pc.generate_lists_dense(DENSE_CFG, keys)
+    assert mode.seen == []
+    assert sum(sampled) == qcorr.numel() == CT * DENSE_CFG.size_l
+    assert torch.equal(got, want) and torch.equal(got_q, qcorr)
+
+
+def test_events_list_refused_while_capturing(monkeypatch):
+    # A wrapper whose events is a list would record an event node in the
+    # capture; the launch is refused before anything runs.
+    import types
+
+    from qba_tpu_torch.ops import _launch
+
+    def wrapper():
+        pass
+
+    wrapper.launches, wrapper.events = 0, []
+    ran = []
+    stream = types.SimpleNamespace(cuda_stream=0, device=None)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    with pytest.raises(RuntimeError, match="events is a list while a CUDA "
+                       "graph is being captured"):
+        _launch.timed_launch(wrapper, lambda s: ran.append(s) or 0, [],
+                             stream)
+    assert ran == [] and wrapper.launches == 0 and wrapper.events == []
 
 
 def test_sweep_stop_reference_stores_success_bits():
