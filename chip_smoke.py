@@ -295,6 +295,25 @@ Phases, each reported on its own line:
    strategies x 2 noise points x 2 sizeL; budgets of one and two passes
    a cell, for a first and a repeat pass's ms), each against the host
    surface, with instantiate, upload, nodes a branch and peak memory.
+18. ``bench_path``: the measurement harness, ``python -m qba_tpu_torch
+   bench``, each run in a process of its own (``BENCH_ROUNDS``,
+   ``BENCH_GEN``): ``rounds`` at 11p/L64/d3 x 1000 and the northstar
+   (``--preset northstar``, 33p/L64/d10 x 1000) with 8 reps, the
+   northstar in chunks of 250 and 33p on ``pallas_fused`` and
+   ``pallas`` with 3; ``resource_gen`` on ``stabilizer`` at 33p x 1000
+   and on ``dense_pallas`` at 5p/L64/d2 x 32 (18 qubits);
+   ``adversary_sweep`` at 33p x 1000 (4 strategies x noise 0 and 0.01);
+   the northstar with ``--profile-dir`` and ``--telemetry``.  Each exits
+   0; each ``rounds`` line's rates equal a direct ``run_trials`` on its
+   last rep's keys and its engine ``resolve_round_engine``'s; the 3-rep
+   33p runs (chunked or not, any engine) time the same keys and agree;
+   each process's launches (its exit summary) equal the launch model
+   times its batches; the profiled window holds 3 megakernel launches,
+   and the ``--telemetry`` manifest is the line's; every manifest names
+   the card.  Per line: rounds/s (shots/s) best and median, the reps'
+   spread, the process's wall; the trace's busy ms and idle share.  Then
+   in process ``measure_device_batch`` at 33p (3 pairs, 1 against 5
+   batches) beside ``measure_batch``'s median of 8.
 
 Any failure exits non-zero.  The line before the last is the kernel
 table as JSON, the one before it the card; the last line is
@@ -4610,6 +4629,313 @@ def graph_path(configs, dev):
     return out, launches
 
 
+# The measurement harness, ``python -m qba_tpu_torch bench``, each run in a
+# process of its own: (label, config, flags).  Every 33p run with 3 reps
+# times the same last rep's keys, split(key(seed + 3), 1000), chunked or
+# not, so their rates agree with one another.
+BENCH_11P = dict(n_parties=11, size_l=64, n_dishonest=3, trials=1000)
+BENCH_33P = dict(n_parties=33, size_l=64, n_dishonest=10, trials=1000)
+BENCH_DENSE = dict(n_parties=5, size_l=64, n_dishonest=2, trials=32,
+                   qsim_path="dense_pallas")
+BENCH_ROUNDS = [
+    ("11p/L64/d3", BENCH_11P, ["--reps", "8"]),
+    ("northstar", BENCH_33P, ["--preset", "northstar", "--reps", "8"]),
+    ("northstar chunks of 250", BENCH_33P,
+     ["--preset", "northstar", "--chunk-trials", "250", "--reps", "3"]),
+    ("33p pallas_fused", dict(BENCH_33P, round_engine="pallas_fused"),
+     ["--reps", "3"]),
+    ("33p pallas", dict(BENCH_33P, round_engine="pallas"), ["--reps", "3"]),
+]
+BENCH_GEN = [
+    ("33p stabilizer", dict(BENCH_33P, qsim_path="stabilizer")),
+    ("5p/L64/d2 x32 dense_pallas", BENCH_DENSE),
+]
+BENCH_GEN_REPS = 3
+BENCH_SWEEP_NOISE = 0.01
+BENCH_PROFILED_REPS = 3
+# measure_device_batch's pairs and chain depths, and measure_batch's reps
+# beside it.
+BENCH_SLOPE = dict(pairs=3, reps_lo=1, reps_hi=5)
+BENCH_WALL_REPS = 8
+
+
+def bench_argv(cfg, flags):
+    """``bench``'s arguments for the config fields ``cfg`` and ``flags``."""
+    argv = ["bench"]
+    for k, v in cfg.items():
+        argv += [f"--{k.replace('_', '-')}", str(v)]
+    return argv + list(flags)
+
+
+def bench_cli(cfg, flags):
+    """``python -m qba_tpu_torch bench`` in a process of its own: its JSON
+    lines, the kernel launches of its exit summary (stderr) and its
+    wall."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        port_cli(*bench_argv(cfg, flags)), capture_output=True, text=True,
+        timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"bench {flags}: exit {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()]
+    (summary,) = [json.loads(ln)["bench_summary"]
+                  for ln in proc.stderr.splitlines()
+                  if ln.startswith('{"bench_summary"')]
+    return lines, summary["kernel_launches"], wall
+
+
+def bench_rates(cfg, reps, chunk, dev):
+    """The success and overflow rates ``bench`` must print for ``cfg``: a
+    direct ``run_trials`` of each chunk of its last rep's keys,
+    ``split(key(seed + reps), n_chunks * chunk)``, as the line rounds
+    them."""
+    import dataclasses
+
+    import torch
+
+    import qba_tpu_torch
+    from qba_tpu_torch import random as jr
+
+    n = -(-cfg.trials // chunk) * chunk
+    keys = jr.split(jr.key(cfg.seed + reps, device=dev), n)
+    ccfg = dataclasses.replace(cfg, trials=chunk)
+    out = [qba_tpu_torch.run_trials(ccfg, keys[i:i + chunk], device=dev)
+           .trials for i in range(0, n, chunk)]
+    return {f"{k}_rate": round(float(torch.cat([getattr(t, k) for t in out])
+                                     .to(torch.float32).mean()), 4)
+            for k in ("success", "overflow")}
+
+
+def bench_batch_model(cfg, dev):
+    """Every counted kernel's launches in one ``bench`` batch of
+    ``cfg``, those it launches at all."""
+    return {k: n for k, n in chunk_model(cfg, dev).items() if n}
+
+
+def bench_gen_model(cfg):
+    """Kernel launches of one list generation of ``cfg`` on the card."""
+    if cfg.qsim_path == "dense_pallas":
+        return {"fused_circuit": dense_circuit_launches(cfg)}
+    return {"gf2_sweep": 1}
+
+
+def times_of(line, cfg):
+    """A ``bench`` line's rep times as rates: best and median rounds/s
+    (shots/s on resource_gen) and the spread of the reps, (max - min) /
+    median of the seconds."""
+    import statistics
+
+    reps = line["rep_seconds"]
+    med = statistics.median(reps)
+    work = (line["shots_per_rep"] if "shots_per_rep" in line
+            else line["config"]["trials"] * cfg.n_rounds)
+    return dict(value=line["value"], median_rate=work / med, median_s=med,
+                best_s=line["best_s"], spread=(max(reps) - min(reps)) / med,
+                reps=len(reps))
+
+
+def bench_kernel_count(account, name):
+    """Device launches, in a profiler trace's account (``trace_summary``
+    with every kernel ranked), of kernels whose name holds ``name``."""
+    return sum(n for kernel, _ms, n in account["top_kernels"]
+               if name in kernel)
+
+
+def bench_path(configs, dev):
+    """``python -m qba_tpu_torch bench`` on the card at full width, each
+    run in a process of its own: the ``rounds`` lines (``BENCH_ROUNDS``),
+    ``resource_gen`` on ``stabilizer`` and ``dense_pallas``,
+    ``adversary_sweep`` at 33p (4 strategies x 2 noise points), the
+    northstar under ``--profile-dir`` and ``--telemetry``; then in
+    process ``measure_device_batch``'s slope at 33p beside
+    ``measure_batch``'s median.  Returns ``(report, launches)``: the
+    processes' launches from their exit summaries, this process's from
+    the wrappers."""
+    import dataclasses
+    import glob
+    import shutil
+    import statistics
+    import tempfile
+
+    from qba_tpu_torch import QBAConfig
+    from qba_tpu_torch.benchmark import (
+        engine_description,
+        measure_batch,
+        measure_device_batch,
+    )
+    from qba_tpu_torch.obs.profiling import trace_summary
+    from qba_tpu_torch.ops import kernel_launches
+    from qba_tpu_torch.rounds.engine import resolve_round_engine
+
+    import torch
+
+    kind = torch.cuda.get_device_name(0)
+    before = kernel_launches()
+    launches = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    def check_manifest(label, manifest):
+        if manifest["environment"]["device_kind"] != kind:
+            raise AssertionError(f"bench {label}: manifest names "
+                                 f"{manifest['environment']['device_kind']}")
+
+    rounds, rates = {}, {}
+    for label, kw, flags in BENCH_ROUNDS:
+        cfg = QBAConfig(**kw)
+        reps = int(flags[flags.index("--reps") + 1])
+        chunk = (int(flags[flags.index("--chunk-trials") + 1])
+                 if "--chunk-trials" in flags else cfg.trials)
+        (line,), counts, wall = bench_cli(kw, flags)
+        want = bench_rates(cfg, reps, chunk, dev)
+        got = {k: line[k] for k in want}
+        if got != want:
+            raise AssertionError(f"bench {label}: rates {got}, run_trials "
+                                 f"on its keys {want}")
+        engine = resolve_round_engine(cfg, dev)
+        if line["engine"] != engine:
+            raise AssertionError(f"bench {label}: engine {line['engine']}, "
+                                 f"expected {engine}")
+        model = bench_batch_model(dataclasses.replace(cfg, trials=chunk), dev)
+        # A warm-up chunk, then every rep's chunks.
+        batches = 1 + reps * -(-cfg.trials // chunk)
+        if counts != {k: n * batches for k, n in model.items()}:
+            raise AssertionError(f"bench {label}: launches {counts}, model "
+                                 f"{model} x {batches} batches")
+        check_manifest(label, line["manifest"])
+        add(counts)
+        rates[label] = got
+        rounds[label] = dict(config=line["config"], engine=line["engine"],
+                             engine_description=line["manifest"]
+                             ["engine_description"], launches=counts,
+                             process_s=wall, **got, **times_of(line, cfg))
+        log("bench_path", scenario="rounds", run=label, **rounds[label])
+
+    gen = {}
+    for label, kw in BENCH_GEN:
+        cfg = QBAConfig(**kw)
+        (line,), counts, wall = bench_cli(kw, ["--scenario", "resource_gen",
+                                               "--reps", str(BENCH_GEN_REPS)])
+        want = {k: n * (BENCH_GEN_REPS + 1)
+                for k, n in bench_gen_model(cfg).items()}
+        if counts != want:
+            raise AssertionError(f"bench resource_gen {label}: launches "
+                                 f"{counts}, expected {want}")
+        if line["shots_per_rep"] != cfg.trials * cfg.size_l:
+            raise AssertionError(f"bench resource_gen {label}: {line}")
+        check_manifest(label, line["manifest"])
+        add(counts)
+        gen[label] = dict(qsim=line["qsim"], config=line["config"],
+                          shots_per_rep=line["shots_per_rep"],
+                          launches=counts, process_s=wall,
+                          **times_of(line, cfg))
+        log("bench_path", scenario="resource_gen", run=label, **gen[label])
+
+    cfg = QBAConfig(**BENCH_33P)
+    lines, counts, wall = bench_cli(
+        BENCH_33P, ["--scenario", "adversary_sweep", "--p-depolarize",
+                    str(BENCH_SWEEP_NOISE)])
+    *cells, total = lines
+    noise = {(0.0, 0.0), (BENCH_SWEEP_NOISE, 0.0)}
+    if (len(cells) != 8 or total["cells"] != 8
+            or {(c["p_depolarize"], c["p_measure_flip"]) for c in cells}
+            != noise):
+        raise AssertionError(f"bench adversary_sweep: {len(cells)} cells, "
+                             f"{total}")
+    for c in cells:
+        ccfg = dataclasses.replace(cfg, strategy=c["strategy"],
+                                   p_depolarize=c["p_depolarize"])
+        if (c["engine"] != engine_description(ccfg, dev)
+                or c["trials"] != cfg.trials
+                or not 0.0 <= c["success_rate"] <= 1.0):
+            raise AssertionError(f"bench adversary_sweep: cell {c}")
+        check_manifest("adversary_sweep", c["manifest"])
+    # A chunk a cell, no warm-up.
+    model = bench_batch_model(cfg, dev)
+    if counts != {k: n * len(cells) for k, n in model.items()}:
+        raise AssertionError(f"bench adversary_sweep: launches {counts}, "
+                             f"model {model} a cell")
+    add(counts)
+    sweep = dict(
+        cells={f"{c['strategy']} p_dep={c['p_depolarize']}": dict(
+            success_rate=c["success_rate"], overflow=c["overflow"],
+            engine=c["engine"]) for c in cells},
+        seconds=total["seconds"], launches=counts, process_s=wall)
+    log("bench_path", scenario="adversary_sweep", config="33p/L64/d10 x1000",
+        **sweep)
+
+    root = tempfile.mkdtemp(prefix="qba_bench_")
+    try:
+        prof, tel = os.path.join(root, "profile"), os.path.join(root, "tel")
+        (line,), counts, wall = bench_cli(
+            BENCH_33P, ["--preset", "northstar", "--reps",
+                        str(BENCH_PROFILED_REPS), "--profile-dir", prof,
+                        "--telemetry", tel])
+        (path,) = glob.glob(os.path.join(prof, "*.json"))
+        account = trace_summary(path, top=1 << 30)
+        in_window = bench_kernel_count(account, "trial_megakernel")
+        if in_window != BENCH_PROFILED_REPS:
+            raise AssertionError(f"bench --profile-dir: {in_window} "
+                                 "megakernel launches in the window, "
+                                 f"expected {BENCH_PROFILED_REPS}")
+        with open(os.path.join(tel, "run_manifest.json")) as f:
+            written = json.load(f)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # The session's manifest is the line's, but for when each was taken.
+    timed = ("created_unix_s", "phase_totals")
+    if ({k: v for k, v in written.items() if k not in timed}
+            != {k: v for k, v in line["manifest"].items() if k not in timed}):
+        raise AssertionError("bench --telemetry: the manifest differs from "
+                             "the line's")
+    check_manifest("profiled", line["manifest"])
+    got = {k: line[k] for k in ("success_rate", "overflow_rate")}
+    # The 3-rep 33p runs all time split(key(seed + 3), 1000).
+    for label in ("northstar chunks of 250", "33p pallas_fused",
+                  "33p pallas"):
+        if rates[label] != got:
+            raise AssertionError(f"bench: {label} rates {rates[label]} != "
+                                 f"the unchunked northstar's {got}")
+    # Warm-up (seed + 10,000: a batch and its own warm-up) outside the
+    # trace, then the timed reps.
+    want = {k: n * (BENCH_PROFILED_REPS + 2)
+            for k, n in bench_batch_model(cfg, dev).items()}
+    if counts != want:
+        raise AssertionError(f"bench --profile-dir: launches {counts}, "
+                             f"expected {want}")
+    add(counts)
+    profiled = dict(launches=counts, megakernels_in_window=in_window,
+                    process_s=wall, **got, **times_of(line, cfg),
+                    **{k: account[k] for k in ("window_ms", "device_busy_ms",
+                                               "idle_share", "kernels")},
+                    top_kernels=account["top_kernels"][:3],
+                    phase_totals=written["phase_totals"])
+    log("bench_path", scenario="rounds", run="northstar --profile-dir "
+        "--telemetry", **profiled)
+
+    # The slope method in process: device seconds a batch, beside the
+    # fenced wall's median.
+    cfg = configs["33p/L64/d10"]
+    slopes, n_run = measure_device_batch(cfg, device=dev, **BENCH_SLOPE)
+    walls, _n, _res = measure_batch(cfg, BENCH_WALL_REPS, device=dev)
+    dev_s, wall_s = statistics.median(slopes), statistics.median(walls)
+    slope = dict(config="33p/L64/d10", trials=n_run, **BENCH_SLOPE,
+                 slopes_s=slopes, device_s=dev_s, wall_reps=BENCH_WALL_REPS,
+                 wall_median_s=wall_s, wall_s=walls,
+                 device_rounds_per_s=n_run * cfg.n_rounds / dev_s,
+                 wall_rounds_per_s=n_run * cfg.n_rounds / wall_s,
+                 device_share=dev_s / wall_s)
+    log("bench_path", part="slope", **slope)
+    add({k: n - before.get(k, 0) for k, n in kernel_launches().items()
+         if n != before.get(k, 0)})
+    return dict(rounds=rounds, resource_gen=gen, adversary_sweep=sweep,
+                profiled=profiled, slope=slope), launches
+
+
 def modelled(cfg, engine, dev, tp=None):
     """Every counted kernel's launches in one batch of ``cfg`` with
     ``round_engine=engine``, by the package's launch model
@@ -5321,6 +5647,15 @@ def main(argv):
     for k, n in graph_launches.items():
         launches[k] += n
 
+    # The measurement harness: `bench`'s three scenarios in processes of
+    # their own (their launches from their exit summaries), the slope.
+    t0 = time.perf_counter()
+    report["bench_path"], bench_launches = bench_path(dict(main_cfgs), dev)
+    report["bench_path"]["phase_s"] = time.perf_counter() - t0
+    log("bench_path", part="phase", seconds=report["bench_path"]["phase_s"])
+    for k, n in bench_launches.items():
+        launches[k] += n
+
     big = runs[-1]
     kernels = []
     for k in ("fused_round", "trial_megakernel", "tiled_verdict",
@@ -5482,14 +5817,18 @@ def main(argv):
                        "captured once a surface graph, then run once a "
                        "pass by the graph"),
         })
-    # What "launches" counts, and this slice's graph_path share of it.
+    # What "launches" counts, and the graph and bench paths' shares of it.
     for row in kernels:
         row["launches_counted"] = (
             "each wrapper's launches over every phase, eager or into a "
             "graph being captured (a graph loop's chunk twice: its warm-up "
-            "and its capture); the graphs' replays count none")
-        row["graph_path_launches"] = graph_launches[KEYED.get(row["name"],
-                                                              row["name"])]
+            "and its capture); the graphs' replays count none; the "
+            "processes a phase starts count where they write an exit "
+            "summary: the fleet's workers and the bench processes (their "
+            "`bench_summary` on stderr)")
+        main = KEYED.get(row["name"], row["name"])
+        row["graph_path_launches"] = graph_launches[main]
+        row["bench_path_launches"] = bench_launches.get(main, 0)
     report["kernels"] = kernels
     report["device"] = card
     os.makedirs(os.path.dirname(REPORT), exist_ok=True)

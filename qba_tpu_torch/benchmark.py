@@ -1,6 +1,15 @@
-"""Kernel-plan attribution — the ``kernel_plan`` and
-``engine_description`` part of :mod:`qba_tpu.benchmark`, on the port's
-resolvers.
+"""The shared Monte-Carlo measurement harness and its attribution — the
+port of :mod:`qba_tpu.benchmark`.
+
+``python -m qba_tpu_torch bench`` times batches through
+:func:`measure_batch`, :func:`measure_resource_gen` and
+:func:`measure_device_batch`, so the timing recipe exists once: fresh
+keys every rep, made on the device and fenced before the clock starts
+(so neither the key kernels nor a host-to-device copy fall inside it),
+one fence after the batch (``torch.cuda.synchronize()``), and chunked
+dispatch with a partial last chunk rounded up.  The keys are the JAX
+recipe's own, so the last rep's trials equal the JAX package's trial for
+trial (in the partitionable threefry mode, the one the port implements).
 
 A plan names what a config runs on a device: the round engine
 (:func:`~qba_tpu_torch.rounds.engine.resolve_round_engine`), where the
@@ -18,11 +27,19 @@ kernel engine is never recorded as demoted to another.
 
 from __future__ import annotations
 
+import dataclasses
+import time
 import warnings
 
 import torch
 
 from qba_tpu_torch.config import QBAConfig
+
+# BASELINE.md config 5 as written (the "north star": nParties=33,
+# sizeL=64, nDishonest=10, lossless), 1000 trials in one batch: the
+# literal of ``bench --preset northstar``, as in the JAX package.
+NORTHSTAR = dict(n_parties=33, size_l=64, n_dishonest=10, trials=1000)
+NORTHSTAR_CHUNK = 1000
 
 # The CUDA libraries (``ops/csrc/<name>.cu``) each engine launches on a
 # batch; the per-round engines also launch the draws kernel once a round.
@@ -38,7 +55,7 @@ _LAUNCHES_PER_ROUND = {"xla": 0, "pallas": 2, "pallas_fused": 2,
                        "pallas_tiled": 3}
 
 
-def kernel_plan(cfg: QBAConfig, device) -> dict:
+def kernel_plan(cfg: QBAConfig, device, tp: int | None = None) -> dict:
     """The resolved execution plan of ``cfg`` on ``device``:
 
     - ``engine``: the round engine :func:`resolve_round_engine` picks
@@ -56,7 +73,15 @@ def kernel_plan(cfg: QBAConfig, device) -> dict:
       the round engine (one grid serves every trial), 0 on ``xla``;
     - ``kernels``: the CUDA libraries the batch launches, list
       generation included (``gf2_sweep``, ``fused_circuit``); none off
-      CUDA, where every kernel wrapper runs its plain version."""
+      CUDA, where every kernel wrapper runs its plain version.
+
+    With ``tp`` (a party-sharded run on a ``dp x tp`` mesh) the JAX
+    package's four comms keys follow: ``tp``; ``tp_engine``, the engine
+    :func:`~qba_tpu_torch.parallel.spmd._resolve_spmd_engine` picks for
+    the sharded round loop; ``tp_comms``, the transport
+    (:func:`~qba_tpu_torch.parallel.ring.resolve_tp_comms`); and
+    ``tp_demoted_from``, the forced engine the sharded path demoted away
+    from, or None."""
     from qba_tpu_torch.rounds.engine import resolve_mega_gen, resolve_round_engine
 
     dev = torch.device(device)
@@ -74,7 +99,7 @@ def kernel_plan(cfg: QBAConfig, device) -> dict:
         if cfg.qsim_path == "dense_pallas":
             kernels.insert(0, "fused_circuit")
     block = "trial" if engine != "xla" else None
-    return {
+    plan = {
         "engine": engine,
         "variant": "keyed" if engine == "pallas_mega" else None,
         "verdict_block": block if engine == "pallas_tiled" else None,
@@ -89,14 +114,40 @@ def kernel_plan(cfg: QBAConfig, device) -> dict:
             else _LAUNCHES_PER_ROUND[engine] * cfg.n_rounds),
         "kernels": kernels,
     }
+    if tp is not None:
+        from qba_tpu_torch.parallel.ring import resolve_tp_comms
+        from qba_tpu_torch.parallel.spmd import _resolve_spmd_engine
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            tp_engine = _resolve_spmd_engine(cfg, cfg.n_lieutenants // tp,
+                                             dev)
+        plan.update(
+            tp=tp, tp_engine=tp_engine, tp_comms=resolve_tp_comms(cfg),
+            tp_demoted_from=(cfg.round_engine
+                             if cfg.round_engine not in ("auto", tp_engine)
+                             else None))
+    return plan
 
 
-def engine_description(cfg: QBAConfig, device) -> str:
+def engine_description(cfg: QBAConfig, device, tp: int | None = None) -> str:
     """Engine attribution string: the resolved round engine, with the
     megakernel's entry and its in-launch generation where they apply
     (``"pallas_mega/keyed"``, ``"pallas_mega/keyed/gen-gf2"``), and the
     megakernel asked for but run as the fused per-round engine
-    (``"pallas_fused(from mega, counters)"``)."""
+    (``"pallas_fused(from mega, counters)"``).
+
+    With ``tp`` the string names the party-sharded path as the JAX
+    package does: ``"spmd[tp=4]/pallas_mega/ring"``, with a demotion of
+    the forced engine lifted into it
+    (``"spmd[tp=4]/pallas_fused(from mega)/ring"``)."""
+    if tp is not None:
+        plan = kernel_plan(cfg, device, tp=tp)
+        tp_engine = plan["tp_engine"]
+        if plan["tp_demoted_from"] is not None:
+            short = plan["tp_demoted_from"].removeprefix("pallas_")
+            tp_engine = f"{tp_engine}(from {short})"
+        return f"spmd[tp={tp}]/{tp_engine}/{plan['tp_comms']}"
     plan = kernel_plan(cfg, device)
     engine = plan["engine"]
     if engine == "pallas_mega":
@@ -105,3 +156,199 @@ def engine_description(cfg: QBAConfig, device) -> str:
     if cfg.round_engine == "pallas_mega" and engine != cfg.round_engine:
         return f"{engine}(from mega, counters)"
     return engine
+
+
+def qsim_description(cfg: QBAConfig) -> str:
+    """Resource-generation attribution string, the counterpart of
+    :func:`engine_description` for list generation: which sampler a
+    ``resource_gen`` measurement ran (``"stabilizer/gf2-batched"``,
+    ``"factorized/closed-form"``, ...), in the JAX package's words."""
+    from qba_tpu_torch import config
+
+    if cfg.qsim_path == "stabilizer":
+        return "stabilizer/gf2-batched"
+    if cfg.qsim_path == "factorized":
+        return "factorized/closed-form"
+    if cfg.qsim_path == "dense_pallas":
+        if cfg.total_qubits > config.DENSE_QUBIT_CAP:
+            # generate_lists_dense(impl="auto") hands off past the cap.
+            return "stabilizer/gf2-batched(auto)"
+        return "dense/pallas"
+    return "dense/xla"
+
+
+def rep_keys(seed: int, n: int, device) -> torch.Tensor:
+    """The ``n`` keys of one rep, ``split(key(seed), n)``, made on
+    ``device`` and fenced, so the rep's clock starts after them."""
+    from qba_tpu_torch import random as jr
+    from qba_tpu_torch.backends.torch_backend import fence
+
+    return fence(jr.split(jr.key(seed, device=device), n))
+
+
+def measure_resource_gen(cfg: QBAConfig, reps: int, *, warmup: bool = True,
+                         device=None):
+    """Time ``reps`` full resource-generation batches: ``cfg.trials``
+    list generations of ``cfg.size_l`` positions each, through the
+    :func:`~qba_tpu_torch.qsim.generate_lists_for` dispatch the trial
+    set-up calls, so the time is the sampler's the trials would run (its
+    dispatch takes the batch of keys at once).
+
+    The recipe of :func:`measure_batch`: an untimed warm-up batch (the
+    first call builds and loads the kernels and the per-config tables),
+    fresh fenced keys every rep, one fence after the batch.
+
+    Returns ``(rep_seconds, shots_per_rep)``, a *shot* being one list
+    position (``trials x size_l``).  ``device=None`` means CUDA."""
+    from qba_tpu_torch.backends.torch_backend import (
+        fence,
+        resolve_device,
+        trial_keys,
+    )
+    from qba_tpu_torch.qsim import generate_lists_for
+
+    if reps < 1:
+        raise ValueError("reps must be >= 1")
+    dev = resolve_device(device)
+    if warmup:
+        fence(generate_lists_for(cfg, trial_keys(cfg, dev)))
+    times = []
+    for rep in range(reps):
+        keys = rep_keys(cfg.seed + 1 + rep, cfg.trials, dev)
+        t0 = time.perf_counter()
+        fence(generate_lists_for(cfg, keys))
+        times.append(time.perf_counter() - t0)
+    return times, cfg.trials * cfg.size_l
+
+
+def measure_batch(cfg: QBAConfig, reps: int, chunk_trials: int | None = None,
+                  *, warmup: bool = True, device=None):
+    """Time ``reps`` full Monte-Carlo batches of ``cfg.trials`` trials.
+
+    ``chunk_trials`` splits each batch into sequential chunks of that
+    many trials; a partial last chunk rounds UP, so the trials actually
+    run are returned and a rate is computed against them.  Each rep's
+    keys are ``split(key(cfg.seed + 1 + rep), n_chunks * chunk)``, made
+    on the device and fenced before the clock starts; the clock stops
+    after one fence behind the last chunk.
+
+    Returns ``(rep_seconds, n_run, results)``: the wall time of each rep,
+    the trials a rep ran, and the last rep's
+    :class:`~qba_tpu_torch.backends.torch_backend.MonteCarloResult` of
+    each chunk.  ``warmup=False`` skips the untimed warm-up chunk, for a
+    caller that warmed up already and keeps it out of a profiler trace
+    (``bench --profile-dir``).  ``device=None`` means CUDA."""
+    from qba_tpu_torch.backends.torch_backend import (
+        fence,
+        resolve_device,
+        trial_keys,
+    )
+
+    if reps < 1:
+        raise ValueError("reps must be >= 1")
+    dev = resolve_device(device)
+    chunk, n_chunks, cfg_chunk = _chunks(cfg, chunk_trials)
+    if warmup:
+        fence(_run_trials_named(cfg_chunk, trial_keys(cfg_chunk, dev)))
+    times, results = [], None
+    for rep in range(reps):
+        keys = rep_keys(cfg.seed + 1 + rep, n_chunks * chunk, dev)
+        t0 = time.perf_counter()
+        results = [_run_trials_named(cfg_chunk, keys[i * chunk:(i + 1) * chunk])
+                   for i in range(n_chunks)]
+        fence(results)
+        times.append(time.perf_counter() - t0)
+    return times, n_chunks * chunk, results
+
+
+def _chunks(cfg: QBAConfig, chunk_trials: int | None):
+    """``(chunk, n_chunks, cfg_chunk)``: a batch of ``cfg.trials`` in
+    chunks of ``chunk_trials`` (all of it by default), the last rounded
+    up."""
+    chunk = chunk_trials or cfg.trials
+    return chunk, -(-cfg.trials // chunk), dataclasses.replace(cfg,
+                                                               trials=chunk)
+
+
+def _run_trials_named(cfg_chunk: QBAConfig, keys: torch.Tensor):
+    """``run_trials`` on ``keys``' device, with a device-memory failure
+    named: the batch, the ceiling the byte model
+    (:func:`~qba_tpu_torch.analysis.memory.trial_ceiling`) gives at the
+    device's memory, and the remedy, ``--chunk-trials``.  Every other
+    error passes through."""
+    from qba_tpu_torch.backends import torch_backend
+
+    try:
+        return torch_backend.run_trials(cfg_chunk, keys, device=keys.device)
+    except torch.cuda.OutOfMemoryError as e:
+        from qba_tpu_torch.analysis.memory import (
+            device_memory_bytes,
+            trial_ceiling,
+        )
+
+        dev = keys.device
+        if dev.type == "cuda":
+            memory = torch.cuda.get_device_properties(dev).total_memory
+        else:
+            memory = device_memory_bytes("cpu")
+        raise RuntimeError(
+            f"a batch of {cfg_chunk.trials} trials ran out of {dev.type} "
+            f"memory for this config (n_parties={cfg_chunk.n_parties}, "
+            f"size_l={cfg_chunk.size_l}, "
+            f"n_dishonest={cfg_chunk.n_dishonest}); the byte model "
+            "(analysis/memory.py::trial_ceiling) admits "
+            f"{trial_ceiling(cfg_chunk, memory, dev.type)} trials in the "
+            f"device's {memory} bytes.  If other processes hold device "
+            "memory, freeing it may suffice.  Split the batch with "
+            "chunk_trials / --chunk-trials."
+        ) from e
+
+
+def measure_device_batch(cfg: QBAConfig, pairs: int = 3, reps_lo: int = 1,
+                         reps_hi: int = 5, chunk_trials: int | None = None,
+                         *, warmup: bool = True, device=None):
+    """Device seconds a batch by the slope method: dispatch ``r``
+    same-shape batches back to back with one final fence, for ``r =
+    reps_lo`` and ``r = reps_hi``; the difference quotient
+
+        (T(reps_hi) - T(reps_lo)) / (reps_hi - reps_lo)
+
+    cancels the constant costs of a chain (its first dispatch, the final
+    synchronize), leaving the sustained time of one batch, the host's
+    enqueue overlapping the device's work.  Each of ``pairs`` pairs draws
+    fresh keys; a throwaway chain at full depth runs first, since the
+    first long chain after a warm-up pays one-off costs.
+
+    Returns ``(device_seconds_per_batch, n_run)``: one slope a pair (the
+    caller takes the median and quotes the spread) and the trials a
+    batch ran.  ``device=None`` means CUDA."""
+    from qba_tpu_torch.backends.torch_backend import (
+        fence,
+        resolve_device,
+        trial_keys,
+    )
+
+    if pairs < 1:
+        raise ValueError("pairs must be >= 1")
+    if not 1 <= reps_lo < reps_hi:
+        raise ValueError("need 1 <= reps_lo < reps_hi")
+    dev = resolve_device(device)
+    chunk, n_chunks, cfg_chunk = _chunks(cfg, chunk_trials)
+    if warmup:
+        fence(_run_trials_named(cfg_chunk, trial_keys(cfg_chunk, dev)))
+
+    def timed_chain(r: int, tag: int) -> float:
+        keys = rep_keys(cfg.seed + tag, r * n_chunks * chunk, dev)
+        t0 = time.perf_counter()
+        for i in range(r * n_chunks):
+            _run_trials_named(cfg_chunk, keys[i * chunk:(i + 1) * chunk])
+        fence(None)  # one stream: the last batch done, all done
+        return time.perf_counter() - t0
+
+    timed_chain(reps_hi, 999)
+    slopes = []
+    for p in range(pairs):
+        t_lo = timed_chain(reps_lo, 1001 + 2 * p)
+        t_hi = timed_chain(reps_hi, 1002 + 2 * p)
+        slopes.append((t_hi - t_lo) / (reps_hi - reps_lo))
+    return slopes, n_chunks * chunk

@@ -1,6 +1,6 @@
 """Command-line interface: ``python -m qba_tpu_torch
-{run,sweep,study,serve,fleet,atlas,trace,lint}`` — those subcommands of
-:mod:`qba_tpu.cli`, with their flags, on the port.
+{run,bench,sweep,study,serve,fleet,atlas,trace,lint}`` — the subcommands
+of :mod:`qba_tpu.cli`, with their flags, on the port.
 
 * ``run`` — execute trials and print per-trial verdicts in the
   reference's ``Decisions / Dishonests / Success`` format
@@ -8,6 +8,10 @@
   backends: ``torch`` (the batched runner, the default), ``local``,
   ``native`` and ``mp`` (the message-level backends, their randomness
   presampled on the device in one batch).
+* ``bench`` — time Monte-Carlo batches through the measurement harness
+  (:mod:`qba_tpu_torch.benchmark`) and print one JSON line: ``rounds``
+  (rounds/s), ``resource_gen`` (list generation alone, shots/s) or
+  ``adversary_sweep`` (the strategy x noise surface, a line a cell).
 * ``sweep`` — chunked, checkpoint-resumable Monte-Carlo sweep, fixed
   budget or precision-targeted (``--target``); ``--dispatch device`` runs
   the targeted loop as one CUDA graph (:mod:`qba_tpu_torch.sweep`).
@@ -31,9 +35,8 @@ Each runs on CUDA; ``--device cpu`` runs the plain PyTorch versions (a
 fleet's workers too).  ``--plot`` needs matplotlib, and without it is a
 clean usage error.
 
-The JAX package's other subcommand, ``bench``, is named here and
-refuses with the ROADMAP item that ports it (A11).  So do the fleet's
-mesh flags (A12b): the port's worker serves no mesh.
+The fleet's mesh flags refuse with the ROADMAP item that ports them
+(A12b): the port's worker serves no mesh.
 """
 
 from __future__ import annotations
@@ -49,8 +52,9 @@ from qba_tpu_torch.native import NativeUnavailableError
 from qba_tpu_torch.obs.plots import PlottingUnavailableError
 from qba_tpu_torch.serve import timing as _timing
 
-# Subcommands of the JAX package's CLI not ported yet, and their items.
-_NOT_PORTED = {"bench": "A11"}
+# Subcommands of the JAX package's CLI not ported yet, by ROADMAP item:
+# none since ``bench``.
+_NOT_PORTED: dict[str, str] = {}
 
 
 def _add_config_args(p: argparse.ArgumentParser, trials_default: int) -> None:
@@ -230,6 +234,43 @@ def _parser() -> argparse.ArgumentParser:
         "through the local backend to collect its event trail",
     )
 
+    bench = sub.add_parser("bench", help="time the Monte-Carlo batch")
+    _add_config_args(bench, trials_default=256)
+    bench.add_argument("--reps", type=int, default=3)
+    bench.add_argument(
+        "--scenario",
+        choices=("rounds", "resource_gen", "adversary_sweep"),
+        default="rounds",
+        help="rounds = full protocol Monte-Carlo (rounds/s headline); "
+        "resource_gen = list generation only through the qsim dispatch "
+        "(shots/s over trials x size_l, with sampler attribution); "
+        "adversary_sweep = the (strategy x noise) surface at the given "
+        "size_l through qba_tpu_torch.sweep.run_surface, one "
+        "kernel_plan-attributed JSON row per cell",
+    )
+    bench.add_argument(
+        "--profile-dir", default=None,
+        help="write a torch.profiler Chrome trace of the timed reps into "
+        "this directory (the warm-up runs outside it)",
+    )
+    bench.add_argument(
+        "--preset", choices=("northstar",), default=None,
+        help="northstar = BASELINE.md config 5 as written: nParties=33, "
+        "sizeL=64, nDishonest=10, 1000 trials",
+    )
+    bench.add_argument(
+        "--chunk-trials", type=int, default=None,
+        help="split the batch into chunks of this many trials (for "
+        "configs past the device memory; wall time covers all chunks end "
+        "to end)",
+    )
+    bench.add_argument(
+        "--telemetry", metavar="DIR", default=None,
+        help="write run_manifest.json + trace.json + spans.jsonl into "
+        "DIR; the manifest also lands under the JSON line's 'manifest' "
+        "key",
+    )
+
     sweep = sub.add_parser("sweep", help="chunked checkpoint-resumable sweep")
     _add_config_args(sweep, trials_default=256)
     sweep.add_argument("--n-chunks", type=int, required=True)
@@ -370,9 +411,6 @@ def _parser() -> argparse.ArgumentParser:
     _add_atlas_parser(sub)
     _add_trace_parser(sub)
     _add_lint_parser(sub)
-    for name, item in _NOT_PORTED.items():
-        sub.add_parser(name, help=f"not ported yet (ROADMAP {item})",
-                       add_help=False, prefix_chars="\0")
     return parser
 
 
@@ -877,6 +915,184 @@ def _run_impl(args: argparse.Namespace, cfg: QBAConfig, session, out) -> int:
     )
     if args.jsonl:
         log.write_jsonl(args.jsonl)
+    return 0
+
+
+def _cmd_bench(args: argparse.Namespace, out) -> int:
+    import dataclasses
+
+    from qba_tpu_torch.backends.torch_backend import resolve_device
+    from qba_tpu_torch.benchmark import NORTHSTAR, NORTHSTAR_CHUNK
+    from qba_tpu_torch.ops import kernel_launches
+
+    if args.reps < 1:
+        raise ValueError("bench: --reps must be >= 1")
+    cfg = _config(args)
+    chunk_trials = args.chunk_trials
+    if args.preset == "northstar":
+        cfg = dataclasses.replace(cfg, **NORTHSTAR)
+        chunk_trials = chunk_trials or NORTHSTAR_CHUNK
+    dev = resolve_device(_device(args))
+    with _telemetry(args, cfg, "bench") as session:
+        if args.scenario == "resource_gen":
+            rc = _bench_resource_gen(args, cfg, dev, session, out)
+        elif args.scenario == "adversary_sweep":
+            rc = _bench_adversary_sweep(args, cfg, dev, out)
+        else:
+            rc = _bench_impl(args, cfg, dev, chunk_trials, session, out)
+    # The JSON lines went to stdout; the process's kernel launches (its
+    # warm-up's included) go to stderr as its exit summary.
+    print(json.dumps({"bench_summary": {"kernel_launches": kernel_launches()}}),
+          file=sys.stderr)
+    return rc
+
+
+def _bench_impl(args: argparse.Namespace, cfg: QBAConfig, dev,
+                chunk_trials: int | None, session, out) -> int:
+    import dataclasses
+    import statistics
+
+    import torch
+
+    from qba_tpu_torch.benchmark import measure_batch
+    from qba_tpu_torch.diagnostics import record_decisions
+    from qba_tpu_torch.obs import PhaseTimers, profile_trace, throughput
+    from qba_tpu_torch.obs.manifest import (
+        collect_manifest,
+        probe_stats_snapshot,
+    )
+    from qba_tpu_torch.rounds.engine import resolve_round_engine
+
+    timers = PhaseTimers(spans=session.spans if session else None)
+    stats_before = probe_stats_snapshot()
+    with record_decisions() as decisions:
+        if args.profile_dir:
+            # Build, load and warm up OUTSIDE the trace, so it holds only
+            # the timed reps; on keys of its own (a shifted seed).
+            with timers.time("warmup"):
+                measure_batch(dataclasses.replace(cfg, seed=cfg.seed + 10_000),
+                              1, chunk_trials, device=dev)
+        with profile_trace(args.profile_dir):
+            with timers.time("measure", reps=args.reps) as sp:
+                rep_seconds, n_run, results = measure_batch(
+                    cfg, args.reps, chunk_trials,
+                    warmup=not args.profile_dir, device=dev)
+                # measure_batch fences every rep: device time.
+                sp.fenced = True
+    best = min(rep_seconds)
+    th = throughput(cfg, n_run, best)
+    overflow = float(torch.cat([r.trials.overflow for r in results])
+                     .to(torch.float32).mean())
+    success = float(torch.cat([r.trials.success for r in results])
+                    .to(torch.float32).mean())
+    manifest = collect_manifest(
+        cfg, device=dev, command="bench", decisions=decisions,
+        probe_stats_before=stats_before, spans=timers.spans)
+    print(json.dumps({
+        "metric": "protocol_rounds_per_sec",
+        "value": round(th["rounds_per_sec"], 2),
+        "unit": "rounds/s",
+        "trials_per_sec": round(th["trials_per_sec"], 2),
+        "best_s": round(best, 4),
+        "median_s": round(statistics.median(rep_seconds), 4),
+        "rep_seconds": [round(t, 4) for t in rep_seconds],
+        "engine": resolve_round_engine(cfg, dev),
+        "overflow_rate": round(overflow, 4),
+        "success_rate": round(success, 4),
+        "config": {
+            "n_parties": cfg.n_parties,
+            "size_l": cfg.size_l,
+            "n_dishonest": cfg.n_dishonest,
+            "trials": n_run,
+            "chunk_trials": chunk_trials or cfg.trials,
+        },
+        # The dispatch record (plan, demotion chain, decisions) next to
+        # the metric.
+        "manifest": manifest,
+    }, default=str), file=out)
+    return 0
+
+
+def _bench_adversary_sweep(args: argparse.Namespace, cfg: QBAConfig, dev,
+                           out) -> int:
+    """The (strategy x noise) surface at the config's size_l: a JSON row
+    a cell, each with the cell's own engine and kernel plan."""
+    import time
+
+    from qba_tpu_torch.adversary import STRATEGIES
+    from qba_tpu_torch.benchmark import engine_description, kernel_plan
+    from qba_tpu_torch.sweep import run_surface
+
+    noise_points = [(0.0, 0.0)]
+    if args.p_depolarize > 0.0 or args.p_measure_flip > 0.0:
+        noise_points.append((args.p_depolarize, args.p_measure_flip))
+    t0 = time.time()
+    cells = run_surface(cfg, strategies=STRATEGIES, noise_points=noise_points,
+                        size_ls=[cfg.size_l], n_chunks=1,
+                        chunk_trials=cfg.trials, device=dev)
+    for cell in cells:
+        cfg_cell = cell.result.cfg
+        print(json.dumps({
+            "metric": "adversary_surface_cell",
+            "strategy": cell.strategy,
+            "p_depolarize": cell.p_depolarize,
+            "p_measure_flip": cell.p_measure_flip,
+            "size_l": cell.size_l,
+            "trials": cell.result.n_trials,
+            "success_rate": round(cell.result.success_rate, 4),
+            "overflow": cell.result.any_overflow,
+            "engine": engine_description(cfg_cell, dev),
+            "kernel_plan": kernel_plan(cfg_cell, dev),
+            "manifest": cell.manifest,
+        }, default=str), file=out)
+    print(json.dumps({"metric": "adversary_surface", "cells": len(cells),
+                      "seconds": round(time.time() - t0, 2)}), file=out)
+    return 0
+
+
+def _bench_resource_gen(args: argparse.Namespace, cfg: QBAConfig, dev,
+                        session, out) -> int:
+    import statistics
+
+    from qba_tpu_torch.benchmark import measure_resource_gen, qsim_description
+    from qba_tpu_torch.diagnostics import record_decisions
+    from qba_tpu_torch.obs import PhaseTimers
+    from qba_tpu_torch.obs.manifest import (
+        collect_manifest,
+        probe_stats_snapshot,
+    )
+
+    timers = PhaseTimers(spans=session.spans if session else None)
+    stats_before = probe_stats_snapshot()
+    with record_decisions() as decisions:
+        with timers.time("measure", reps=args.reps) as sp:
+            rep_seconds, shots = measure_resource_gen(cfg, args.reps,
+                                                      device=dev)
+            sp.fenced = True  # measure_resource_gen fences every rep
+    best = min(rep_seconds)
+    manifest = collect_manifest(
+        cfg, device=dev, command="bench", decisions=decisions,
+        probe_stats_before=stats_before, spans=timers.spans)
+    print(json.dumps({
+        "metric": "resource_shots_per_sec",
+        "value": round(shots / best, 2),
+        "unit": "shots/s",
+        "shots_per_rep": shots,
+        "best_s": round(best, 4),
+        "median_s": round(statistics.median(rep_seconds), 4),
+        "rep_seconds": [round(t, 4) for t in rep_seconds],
+        "qsim": qsim_description(cfg),
+        "config": {
+            "n_parties": cfg.n_parties,
+            "size_l": cfg.size_l,
+            "n_dishonest": cfg.n_dishonest,
+            "trials": cfg.trials,
+            "total_qubits": cfg.total_qubits,
+            "w": cfg.w,
+            "qsim_path": cfg.qsim_path,
+        },
+        "manifest": manifest,
+    }, default=str), file=out)
     return 0
 
 
@@ -1405,16 +1621,9 @@ def _cmd_lint(args: argparse.Namespace, out) -> int:
 
 def main(argv: Sequence[str] | None = None, out=None) -> int:
     out = out if out is not None else sys.stdout
-    args, rest = _parser().parse_known_args(argv)
-    if args.command in _NOT_PORTED:
-        print(f"error: `{args.command}` is not ported to qba_tpu_torch yet "
-              f"(ROADMAP {_NOT_PORTED[args.command]}); run `python -m "
-              f"qba_tpu {args.command}`", file=sys.stderr)
-        return 2
-    if rest:
-        _parser().parse_args(argv)  # argparse's own error for the extras
-    command = {"run": _cmd_run, "sweep": _cmd_sweep, "study": _cmd_study,
-               "serve": _cmd_serve, "fleet": _cmd_fleet,
+    args = _parser().parse_args(argv)
+    command = {"run": _cmd_run, "bench": _cmd_bench, "sweep": _cmd_sweep,
+               "study": _cmd_study, "serve": _cmd_serve, "fleet": _cmd_fleet,
                "atlas": _cmd_atlas, "trace": _cmd_trace,
                "lint": _cmd_lint}[args.command]
     try:

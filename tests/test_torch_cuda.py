@@ -26,7 +26,9 @@ masks, equals the ``xla`` engine trial for trial.  The device surface's
 its graph (a WHILE node over pick, a SWITCH into the chosen cell's
 captured chunk, and fold) equals the host surface and the plain loop.
 The invariant checker's dynamic checks (``qba_tpu_torch.analysis``: the
-launch pin, the carry audit and the sync probe) pass on the kernels.
+launch pin, the carry audit and the sync probe) pass on the kernels,
+and the measurement harness's last rep (``benchmark.measure_batch``,
+chunked or not) equals ``run_trials`` on the same keys.
 Every test is marked ``cuda`` and skips without a card
 (the kernels have no CPU mode; the CPU tests hold the plain versions
 against ``qba_tpu``).  The file imports no JAX, so on a machine with the
@@ -1414,3 +1416,23 @@ def test_lint_sync_probe_on_the_card(cuda):
     assert rep.stats["sync_verdicts"]["11p/pallas_mega"] == "no sync"
     rep = run_lint([("11p", cfg)], effects=True)
     assert rep.ok, rep.render()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [None, 24])
+def test_measure_batch_on_the_card_equals_run_trials(cuda, chunk):
+    # The measurement harness (bench's timing loop) on the card: its last
+    # rep's trials equal run_trials on the same keys, split before the
+    # chunks (64 trials in chunks of 24: three, the last rounded up).
+    from qba_tpu_torch.benchmark import measure_batch
+
+    cfg = qba_tpu_torch.QBAConfig(n_parties=11, size_l=64, n_dishonest=3,
+                                  trials=64, seed=4)
+    times, n_run, results = measure_batch(cfg, 2, chunk, device=cuda)
+    assert len(times) == 2 and n_run == (72 if chunk else 64)
+    keys = jr.split(jr.key(cfg.seed + 2, cuda), n_run)
+    want = qba_tpu_torch.run_trials(dataclasses.replace(cfg, trials=n_run),
+                                    keys, device=cuda).trials
+    for f in ("decisions", "success", "vi", "overflow"):
+        got = torch.cat([getattr(r.trials, f) for r in results])
+        assert got.device.type == "cuda" and torch.equal(got, getattr(want, f))
