@@ -68,6 +68,14 @@ Phases, each reported on its own line:
    trial overflows): single-device, party-sharded at ``tp`` 2 and 4 and
    the gen entry on ``qsim_path="stabilizer"``, each against its plain
    version and its stacked form, trial for trial;
+   ``legacy_vs_plain``: JAX's legacy threefry mode
+   (``jax_threefry_partitionable=False``): ``mega_vs_plain`` and
+   ``sharded_mega_vs_plain`` on the ``small`` list, ``gen_vs_plain`` on
+   its cases, ``draws_vs_plain`` and ``keyed_vs_plain`` (at 33p, with
+   its 11p and 41p cases) again, each in that mode (its keys, set-up and plain versions the legacy key tree's,
+   the draws kernel and the keyed entries their legacy instantiations),
+   and the two instantiations of the draws kernel shown to differ on the
+   same rounds keys;
    ``sweep_stop_vs_plain``: the sweep loop's stop kernel against its
    plain version, bit-exact on the carry, at every index of a four-chunk
    budget and past it, on seeded random chunks of 1 to 5000 trials;
@@ -137,6 +145,24 @@ Phases, each reported on its own line:
    round on the batch against their plain versions and the
    single-device round (timed, with bounds), and 33p x 64 trials on the
    sharded megakernel (``tp = 4``) beside the single-device one;
+8b. ``legacy_path``: the main path in JAX's legacy threefry mode.  The
+   repo's golden pins (``GOLD_5P``, ``GOLD_11P``: the JAX package's
+   outputs recorded in that mode) exactly on ``xla``, ``pallas``,
+   ``pallas_fused``, ``pallas_tiled`` and ``auto``; at 11p/L64/d3 and
+   33p/L64/d10 x 1000, ``auto`` (the keyed megakernel's legacy
+   instantiation), ``pallas_fused``, ``pallas_tiled`` and ``pallas``
+   (the draws kernel's, a launch a round), and ``xla`` at 11p, each with
+   its launch counts reset just before and asserted just after, equal
+   trial for trial and different from the partitionable batch of phase
+   6; 33p at ``tp = 4`` (the sharded keyed entry) equal to the
+   single-device batch; 33p ``stabilizer`` on ``auto`` (the gen keyed
+   entry) and ``mega_gen="host"`` equal to each other; at full width the
+   keyed megakernel at 11p and the draws kernel over the 33p batch against
+   their plain versions, bit for bit.  Then each hashing
+   kernel's two instantiations timed in turns on the same card (CUDA
+   events; P L L P): the draws kernel over every round and over one
+   round at 33p, the keyed megakernel at 11p and 33p, the gen keyed
+   entry at 33p and the sharded keyed entry at 33p, ``tp = 4``.
 9. ``mega_phases``: the keyed megakernel's phase clock (its ``kClock``
    instantiation, launched here and by ``examples/torch_kernel_ab.py``
    only) on the 11p and 33p batches, 33p x 64 and the sharded entry at
@@ -1392,10 +1418,10 @@ def draws_timing(cfg, keys, reps=3):
                 library_ms=None)
 
 
-def keyed_vs_plain(dev):
+def keyed_vs_plain(dev, sizes=DRAW_SIZES):
     """The keyed megakernels in every combination of ``DRAW_COMBOS``, at
-    11p (32 trials) and 33p (16), at 11p with one slot a round (whose
-    trials overflow) and under the broadcast scope at 41p: single-device (``mega_vs_plain``), party-sharded at
+    ``sizes`` (11p with 32 trials, 33p with 16), at 11p with one slot a
+    round (whose trials overflow) and under the broadcast scope at 41p: single-device (``mega_vs_plain``), party-sharded at
     ``tp`` 2 and, at 33p and 41p, 4 (``sharded_mega_vs_plain``), and the gen entry
     on ``qsim_path="stabilizer"`` (``gen_vs_plain``), each against its
     plain version and its stacked form, trial for trial.  Returns the
@@ -1407,7 +1433,7 @@ def keyed_vs_plain(dev):
 
     errs = dict.fromkeys(KEYED, 0)
     facts = []
-    cases = [(size, base, combo, kw) for size, base in DRAW_SIZES
+    cases = [(size, base, combo, kw) for size, base in sizes
              for combo, kw in DRAW_COMBOS]
     cases.append((*DRAW_SIZES[0], "reference-sync slots=1",
                   dict(max_accepts_per_round=1)))
@@ -1432,6 +1458,252 @@ def keyed_vs_plain(dev):
                           overflow=mega["overflow"],
                           gen_overflow=gen["overflow"]))
     return errs, facts
+
+
+def legacy_vs_plain(dev, small):
+    """The hashing kernels' legacy instantiations against their plain
+    versions, bit-exact: ``mega_vs_plain`` and ``sharded_mega_vs_plain``
+    on ``small``, ``gen_vs_plain`` on ``GEN_CASES``, ``draws_vs_plain`` and
+    ``keyed_vs_plain`` (its every combination at 33p, where ``tp`` 4
+    divides the lieutenants, with its 11p overflow and 41p cases), each in
+    JAX's legacy threefry mode (keys, set-up, kernels and plain versions
+    all in it); then the draws kernel's two instantiations on the same
+    rounds keys, whose tables must differ.  Returns the largest error per
+    kernel and the cases."""
+    import torch
+
+    from qba_tpu_torch import QBAConfig
+    from qba_tpu_torch import random as jr
+    from qba_tpu_torch.backends.torch_backend import trial_keys
+    from qba_tpu_torch.ops.attack_draws import attack_draws
+
+    errs = dict.fromkeys(("attack_draws",) + tuple(KEYED), 0)
+    facts = dict(mega=[], sharded=[], gen=[])
+    with jr.threefry_partitionable(False):
+        for name, cfg in small:
+            keys = trial_keys(cfg, dev)
+            mega = mega_vs_plain(cfg, keys, chunk=cfg.trials)
+            errs["trial_megakernel"] = max(errs["trial_megakernel"],
+                                           mega["max_abs_err"])
+            facts["mega"].append((name, mega["overflow"]))
+            for tp in shard_tps(cfg.n_lieutenants):
+                sh = sharded_mega_vs_plain(cfg, keys, tp, chunk=cfg.trials)
+                errs["sharded_trial_megakernel"] = max(
+                    errs["sharded_trial_megakernel"], sh["max_abs_err"])
+                facts["sharded"].append((name, tp, sh["overflow"]))
+        for name, kw in GEN_CASES:
+            cfg = QBAConfig(**kw, trials=32, seed=21, qsim_path="stabilizer")
+            gen, _vi = gen_vs_plain(cfg, trial_keys(cfg, dev))
+            errs["trial_megakernel_gen"] = max(errs["trial_megakernel_gen"],
+                                               gen["max_abs_err"])
+            facts["gen"].append((name, gen["overflow"]))
+        errs["attack_draws"], facts["draws"] = draws_vs_plain(dev)
+        keyed_errs, facts["keyed"] = keyed_vs_plain(dev, DRAW_SIZES[1:])
+        cfg = QBAConfig(**DRAW_SIZES[1][1], **RACY, trials=32, seed=17)
+        k_rounds, ctx = keyed_ctx(cfg, trial_keys(cfg, dev))
+    for k, e in keyed_errs.items():
+        errs[k] = max(errs[k], e)
+    if not (any(f["overflow"] for f in facts["keyed"])
+            and any(o for _n, o in facts["mega"])):
+        raise AssertionError("no overflowing trial among the legacy checks")
+    tables = [attack_draws(cfg, k_rounds, ctx, partitionable=p)
+              for p in (True, False)]
+    same = [bool(torch.equal(a, b)) for a, b in zip(*tables)]
+    if any(same):
+        raise AssertionError(f"the draws kernel's legacy tables equal the "
+                             f"partitionable ones (attack, rand_v, late): "
+                             f"{same}")
+    facts["draws_modes_equal"] = same
+    return errs, facts
+
+
+def mode_ms(fn, reps, args, partitionable):
+    """``fn(*args, partitionable=...)``'s kernel ms per launch: CUDA
+    events over ``reps`` launches."""
+    import torch
+
+    fn.events = []
+    for _ in range(reps):
+        fn(*args, partitionable=partitionable)
+    torch.cuda.synchronize()
+    ms, fn.events = event_ms(fn.events), None
+    return ms
+
+
+def legacy_timing(configs, dev, turns=3, reps=3):
+    """Each hashing kernel's two instantiations timed in turns on the same
+    card, P L L P ``turns`` times (P partitionable, L legacy; ``reps``
+    launches a turn, CUDA events), each on its own mode's inputs from the
+    same seed: the draws kernel over every round and over round 1 at
+    33p/L64/d10 x 1000, the keyed megakernel at 33p and 11p/L64/d3, the gen
+    keyed entry at 33p on ``qsim_path="stabilizer"`` and the sharded keyed
+    entry at 33p, ``tp = 4``.  Returns per case each mode's mean ms and
+    the ratio legacy / partitionable, each kernel's case at its kernel
+    table row's config first."""
+    import dataclasses
+
+    from qba_tpu_torch import random as jr
+    from qba_tpu_torch.backends.torch_backend import trial_keys
+    from qba_tpu_torch.ops import trial_megakernel as tm
+    from qba_tpu_torch.ops.attack_draws import attack_draws
+
+    c11, c33 = configs["11p/L64/d3"], configs["33p/L64/d10"]
+    s33 = dataclasses.replace(c33, qsim_path="stabilizer")
+
+    def inputs(p):
+        with jr.threefry_partitionable(p):
+            k_rounds, ctx = keyed_ctx(c33, trial_keys(c33, dev))
+            body11, kr11, ctx11 = mega_inputs(c11, trial_keys(c11, dev))[:3]
+            body33, kr33, ctx33 = mega_inputs(c33, trial_keys(c33, dev))[:3]
+            gen, krg, ctxg = gen_inputs(s33, trial_keys(s33, dev))[:3]
+        return {
+            ("attack_draws", "33p/L64/d10 x1000, 11 rounds a launch"):
+                (attack_draws, (c33, k_rounds, ctx)),
+            ("attack_draws", "33p/L64/d10 x1000, round 1 (a per-round "
+                             "engine's launch)"):
+                (attack_draws, (c33, k_rounds, ctx, 1, 1)),
+            ("trial_megakernel", "33p/L64/d10 x1000"):
+                (tm.trial_megakernel_keyed, (c33, *body33, kr33, ctx33)),
+            ("trial_megakernel", "11p/L64/d3 x1000"):
+                (tm.trial_megakernel_keyed, (c11, *body11, kr11, ctx11)),
+            ("trial_megakernel_gen", "33p/L64/d10 stabilizer x1000"):
+                (tm.trial_megakernel_gen_keyed, (s33, *gen, krg, ctxg)),
+            ("sharded_trial_megakernel", "33p/L64/d10 x1000 tp=4"):
+                (tm.sharded_trial_megakernel_keyed,
+                 (c33, 4, *body33, kr33, ctx33)),
+        }
+
+    cases = {True: inputs(True), False: inputs(False)}
+    times = {case: {True: [], False: []} for case in cases[True]}
+    for case in times:
+        for p in (True, False):  # a launch of each before the turns
+            fn, args = cases[p][case]
+            fn(*args, partitionable=p)
+    for _ in range(turns):
+        for p in (True, False, False, True):
+            for case, t in times.items():
+                fn, args = cases[p][case]
+                t[p].append(mode_ms(fn, reps, args, p))
+    out = []
+    for (kernel, config), t in times.items():
+        part, leg = (sum(t[p]) / len(t[p]) for p in (True, False))
+        out.append(dict(kernel=kernel, config=config, partitionable_ms=part,
+                        legacy_ms=leg, ratio=leg / part if part else None,
+                        partitionable_turns_ms=t[True],
+                        legacy_turns_ms=t[False]))
+    return out
+
+
+def legacy_path(configs, partitionable_runs, dev):
+    """Phase 8b: the main path in JAX's legacy threefry mode (see the
+    module's docstring).  ``partitionable_runs`` holds phase 6's ``auto``
+    results by config, which the legacy batches must differ from.
+    Returns the phase's record, its launches and the kernels' timings."""
+    import dataclasses
+
+    import torch
+
+    import qba_tpu_torch
+    from qba_tpu_torch import QBAConfig
+    from qba_tpu_torch import random as jr
+    from qba_tpu_torch.backends.torch_backend import trial_keys
+    from qba_tpu_torch.parallel import make_mesh
+    from qba_tpu_torch.testing import GOLD_PINS
+
+    t_start = time.perf_counter()
+    fields = ("decisions", "success", "vi", "overflow")
+    launches = dict.fromkeys(COUNTED, 0)
+    gold_engines = ("xla", "pallas", "pallas_fused", "pallas_tiled", "auto")
+    report = dict(gold={}, runs=[])
+
+    def driven(cfg, engine, mesh=None, tp=None):
+        res, wall, counts, events, peak = drive(cfg, engine, mesh)
+        want = modelled(cfg, cfg.round_engine if engine == "auto" else engine,
+                        dev, tp)
+        if counts != want:
+            raise AssertionError(f"legacy {cfg.n_parties}p {engine} tp={tp}: "
+                                 f"launches {counts}, expected {want}")
+        for k, n in counts.items():
+            launches[k] += n
+        return res.trials, dict(
+            launches={k: n for k, n in counts.items() if n}, wall_s=wall,
+            rounds_per_s=cfg.trials * cfg.n_rounds / wall,
+            kernel_ms_per_launch={k: event_ms(ev) for k, ev in events.items()
+                                  if ev},
+            success_rate=float(res.success_rate), peak_mem_bytes=peak)
+
+    with jr.threefry_partitionable(False):
+        for name, kw, success, decisions in GOLD_PINS:
+            for engine in gold_engines:
+                cfg = QBAConfig(**kw)
+                if engine != "auto":
+                    cfg = dataclasses.replace(cfg, round_engine=engine)
+                got = qba_tpu_torch.run_trials(cfg).trials
+                if (got.success.tolist() != success
+                        or got.decisions.tolist() != decisions):
+                    raise AssertionError(
+                        f"{name} on {engine}: success {got.success.tolist()}"
+                        f", decisions {got.decisions.tolist()}")
+            report["gold"][name] = list(gold_engines)
+        log("legacy_path", part="gold", exact=report["gold"])
+        for name, cfg in configs.items():
+            engines = ["auto", "pallas_fused", "pallas_tiled", "pallas"]
+            if cfg.n_parties <= 11:
+                engines.append("xla")
+            results, per = {}, {}
+            for engine in engines:
+                results[engine], per[engine] = driven(cfg, engine)
+            for e in engines[1:]:
+                for f in fields:
+                    if not torch.equal(getattr(results["auto"], f),
+                                       getattr(results[e], f)):
+                        raise AssertionError(f"legacy {name}: auto and {e} "
+                                             f"disagree on {f}")
+            ref = partitionable_runs[name].decisions
+            differ = (ref != results["auto"].decisions).any(-1)
+            if not bool(differ.any()):
+                raise AssertionError(f"legacy {name}: the batch equals the "
+                                     "partitionable one")
+            run = dict(config=name, trials=cfg.trials, engines=per,
+                       trials_differing_from_partitionable=float(
+                           differ.float().mean()))
+            if cfg.n_parties > 11:
+                mesh = make_mesh({"dp": 1, "tp": 4}, devices=[dev] * 4)
+                got, run["tp4"] = driven(cfg, "auto", mesh, 4)
+                for f in fields:
+                    if not torch.equal(getattr(got, f),
+                                       getattr(results["auto"], f)):
+                        raise AssertionError(f"legacy {name} tp=4 != single"
+                                             f"-device batch on {f}")
+                scfg = dataclasses.replace(cfg, qsim_path="stabilizer")
+                stab = {}
+                for label, kw in (("auto", {}), ("host", dict(mega_gen="host"))):
+                    stab[label], run[f"stabilizer_{label}"] = driven(
+                        dataclasses.replace(scfg, **kw), "auto")
+                for f in fields:
+                    if not torch.equal(getattr(stab["auto"], f),
+                                       getattr(stab["host"], f)):
+                        raise AssertionError(f"legacy {name} stabilizer: gen "
+                                             f"entry and host gen disagree on "
+                                             f"{f}")
+                # The draws kernel over the whole batch, bit for bit.
+                run["draws_timing"] = draws_timing(cfg, trial_keys(cfg, dev))
+            else:
+                keys = trial_keys(cfg, dev)
+                mega = mega_vs_plain(cfg, keys, chunk=125)
+                if not torch.equal(mega.pop("vi"), results["auto"].vi):
+                    raise AssertionError(f"legacy {name}: main path != "
+                                         "staged megakernel")
+                run["full_width_vs_plain"] = mega
+            report["runs"].append(run)
+            log("legacy_path", **run)
+    timing = legacy_timing(configs, dev)
+    report["timing"] = timing
+    log("legacy_timing", unit="ms a launch, CUDA events", cases=timing)
+    report["phase_s"] = time.perf_counter() - t_start
+    log("legacy_path", part="phase", seconds=report["phase_s"])
+    return report, launches
+
 
 # Seeded random inputs (qba_tpu_torch.testing): round inputs as
 # (config, round) and whole-trial inputs as configs.
@@ -5120,6 +5392,15 @@ def main(argv):
                                     cases=keyed_facts)
     log("keyed_vs_plain", tolerance=0, max_abs_err=keyed_errs,
         cases=keyed_facts)
+    t0 = time.perf_counter()
+    legacy_errs, legacy_facts = legacy_vs_plain(dev, small)
+    report["legacy_vs_plain"] = dict(max_abs_err=legacy_errs,
+                                     cases=legacy_facts,
+                                     phase_s=time.perf_counter() - t0)
+    log("legacy_vs_plain", tolerance=0, max_abs_err=legacy_errs,
+        seconds=report["legacy_vs_plain"]["phase_s"],
+        cases={k: v for k, v in legacy_facts.items()
+               if k not in ("draws", "keyed")})
     stop_err = sweep_stop_vs_plain(dev)
     report["sweep_stop_vs_plain"] = dict(max_abs_err=stop_err)
     log("sweep_stop_vs_plain", tolerance=0, max_abs_err=stop_err,
@@ -5554,6 +5835,11 @@ def main(argv):
     report["mesh_path"] = dict(runs=mesh_runs, small_batch_33p_x64_ms=small_batch)
     log("mesh_path", config="33p/L64/d10 x64", kernel_ms=small_batch)
 
+    # JAX's legacy threefry mode on the main path: the golden pins, every
+    # engine at full width, and the hashing kernels' instantiations timed.
+    report["legacy_path"], legacy_launches = legacy_path(
+        dict(main_cfgs), {name: run[0] for name, run in single.items()}, dev)
+
 
     # Where a megakernel block's time goes: the phase clock's breakdown on
     # the main path's batches, the small batch and the sharded entry.
@@ -5817,6 +6103,23 @@ def main(argv):
                        "captured once a surface graph, then run once a "
                        "pass by the graph"),
         })
+    # The hashing kernels' legacy instantiations, variants of their rows:
+    # the legacy path's launches, the legacy checks' largest error and
+    # both instantiations' ms timed in turns on the row's config.
+    legacy_ms = {}
+    for t in report["legacy_path"]["timing"]:
+        legacy_ms.setdefault(t["kernel"], t)  # the row's config first
+    for row in kernels:
+        name = row["name"]
+        if name in legacy_errs:
+            t = legacy_ms[name]
+            row["legacy"] = dict(
+                launches=legacy_launches[KEYED.get(name, name)],
+                max_abs_err=legacy_errs[name], ms=t["legacy_ms"],
+                partitionable_ms=t["partitionable_ms"], ratio=t["ratio"],
+                bound_ms=row["bound_ms"], config=t["config"],
+                timed="in turns P L L P with the partitionable "
+                      "instantiation, CUDA events")
     # What "launches" counts, and the graph and bench paths' shares of it.
     for row in kernels:
         row["launches_counted"] = (

@@ -11,12 +11,13 @@ JAX package's.  This package imports neither JAX nor :mod:`qba_tpu`.
 from qba_tpu_torch.config import QBAConfig
 
 
-def run_trials(cfg, keys=None, *, device=None):
+def run_trials(cfg, keys=None, *, device=None, partitionable=None):
     """Re-export of :func:`qba_tpu_torch.backends.torch_backend.run_trials`
-    (``device=None`` means CUDA)."""
+    (``device=None`` means CUDA; ``partitionable``: JAX's threefry mode,
+    None for the current one)."""
     from qba_tpu_torch.backends.torch_backend import run_trials as _run
 
-    return _run(cfg, keys, device=device)
+    return _run(cfg, keys, device=device, partitionable=partitionable)
 
 
 __all__ = ["QBAConfig", "run_trials"]

@@ -4,7 +4,8 @@ Honesty assignment, commander equivocation, and the strategy zoo's
 per-round effective-edit arrays ``(attack, rand_v, late)``, drawn from the
 same key tree with the same fold_in tags, so every draw equals the JAX
 package's bit for bit.  All functions take a batch of trial keys
-``[..., 2]`` and return the leading batch axes in front.
+``[..., 2]`` and return the leading batch axes in front, and JAX's
+threefry mode as ``partitionable`` (None: the current mode).
 """
 
 from __future__ import annotations
@@ -58,12 +59,13 @@ def effect_names(bits: int) -> str:
     return "+".join(names) if names else "none"
 
 
-def assign_dishonest(cfg: QBAConfig, keys: torch.Tensor) -> torch.Tensor:
+def assign_dishonest(cfg: QBAConfig, keys: torch.Tensor, *,
+                     partitionable: bool | None = None) -> torch.Tensor:
     """bool ``[..., n_parties + 1]`` honesty mask by rank (rank 0, the
     QSD, is always honest): ``n_dishonest`` distinct ranks of
     ``1..n_parties``, the head of a key-derived permutation."""
     ranks1 = torch.arange(1, cfg.n_parties + 1, device=keys.device)
-    perm = jr.permutation(keys, ranks1)
+    perm = jr.permutation(keys, ranks1, partitionable=partitionable)
     dishonest = perm[..., : cfg.n_dishonest]
     ranks = torch.arange(cfg.n_parties + 1, device=keys.device)
     hit = (ranks[:, None] == dishonest[..., None, :]).any(-1)
@@ -71,16 +73,18 @@ def assign_dishonest(cfg: QBAConfig, keys: torch.Tensor) -> torch.Tensor:
 
 
 def commander_orders(cfg: QBAConfig, keys: torch.Tensor,
-                     commander_honest: torch.Tensor):
+                     commander_honest: torch.Tensor, *,
+                     partitionable: bool | None = None):
     """``(v_sent int32 [..., n_lieutenants], v_comm int32 [...])``: an
     honest commander sends its ``v`` to everyone; a dishonest one sends
     ``v1 != v2`` split at the midpoint rank (by rank parity under
     ``strategy="split"``) and still decides ``v``."""
-    w = cfg.w
-    k = jr.split(keys, 3)
-    v = jr.randint(k[..., 0, :], (), 0, w)
-    v1 = jr.randint(k[..., 1, :], (), 0, w)
-    v2 = (v1 + 1 + jr.randint(k[..., 2, :], (), 0, w - 1)) % w
+    w, p = cfg.w, jr.resolve_mode(partitionable)
+    k = jr.split(keys, 3, partitionable=p)
+    v = jr.randint(k[..., 0, :], (), 0, w, partitionable=p)
+    v1 = jr.randint(k[..., 1, :], (), 0, w, partitionable=p)
+    v2 = (v1 + 1 + jr.randint(k[..., 2, :], (), 0, w - 1,
+                              partitionable=p)) % w
     ranks = torch.arange(2, cfg.n_parties + 1, dtype=torch.int32,
                          device=keys.device)
     if cfg.strategy == "split":
@@ -93,7 +97,8 @@ def commander_orders(cfg: QBAConfig, keys: torch.Tensor,
     return v_sent, v
 
 
-def raw_attack_draws(cfg: QBAConfig, k_round: torch.Tensor):
+def raw_attack_draws(cfg: QBAConfig, k_round: torch.Tensor, *,
+                     partitionable: bool | None = None):
     """The round's raw per-(cell, receiver) draws ``(action, coin,
     rand_v)``, int32 ``[..., n_cells, n_lieutenants]``: bit fields of one
     uint32 stream (bits 0-1, bit 2, and bits 3-26 mod ``n_parties+1``)."""
@@ -103,7 +108,8 @@ def raw_attack_draws(cfg: QBAConfig, k_round: torch.Tensor):
             f"forge range [0, {cfg.n_parties + 1}) exceeds the value "
             f"domain [0, {cfg.w}) the round engines are exact on"
         )
-    b = jr.bits(jr.fold_in(k_round, ATTACK_TAG), shape)
+    b = jr.bits(jr.fold_in(k_round, ATTACK_TAG), shape,
+                partitionable=partitionable)
     action = (b & 3).to(torch.int32)
     coin = ((b >> 2) & 1).to(torch.int32)
     rand_v = (((b >> 3) & 0xFFFFFF) % (cfg.n_parties + 1)).to(torch.int32)
@@ -119,19 +125,21 @@ class AdversaryCtx(NamedTuple):
 
 
 def adversary_ctx(cfg: QBAConfig, k_rounds: torch.Tensor,
-                  v_sent: torch.Tensor) -> AdversaryCtx | None:
+                  v_sent: torch.Tensor, *,
+                  partitionable: bool | None = None) -> AdversaryCtx | None:
     """The per-trial context for strategies that need one (None for the
     stateless "reference" and "split")."""
     if cfg.strategy in ("reference", "split"):
         return None
     target = jr.randint(jr.fold_in(k_rounds, COLLUDE_TAG), (), 0,
-                        cfg.n_parties + 1)
+                        cfg.n_parties + 1, partitionable=partitionable)
     return AdversaryCtx(collude_target=target, v_sent=v_sent)
 
 
 def sample_attacks_round(cfg: QBAConfig, k_round: torch.Tensor,
                          round_idx: int | None = None,
-                         ctx: AdversaryCtx | None = None):
+                         ctx: AdversaryCtx | None = None, *,
+                         partitionable: bool | None = None):
     """One round's ``(attack int32, rand_v int32, late bool)``, each
     ``[..., n_cells, n_lieutenants]`` indexed by ``(sender * slots +
     slot, receiver)``, under ``cfg.strategy`` and ``cfg.attack_scope``
@@ -146,7 +154,8 @@ def sample_attacks_round(cfg: QBAConfig, k_round: torch.Tensor,
             f"outside the value domain [0, {cfg.w}) the round engines "
             "are exact on"
         )
-    action, coin, rand_v = raw_attack_draws(cfg, k_round)
+    p = jr.resolve_mode(partitionable)
+    action, coin, rand_v = raw_attack_draws(cfg, k_round, partitionable=p)
     forge_p = None
     if cfg.strategy in ("reference", "collude"):
         drop = (action == 0) & (coin == 0)
@@ -171,7 +180,7 @@ def sample_attacks_round(cfg: QBAConfig, k_round: torch.Tensor,
             drop, forge, clear_p, clear_l = u3 == 4, u3 < 4, u3 == 5, u3 == 6
         else:
             drop, forge, clear_p, clear_l = u3 < 4, u3 == 6, u3 == 4, u3 == 5
-        b2 = jr.bits(jr.fold_in(k_round, ADAPT_TAG), shape)
+        b2 = jr.bits(jr.fold_in(k_round, ADAPT_TAG), shape, partitionable=p)
         offset = ((b2 & 0xFFFFFF) % max(cfg.w - 1, 1)).to(torch.int32) + 1
         senders = torch.arange(n_cells, device=dev) // cfg.slots
         v_recv = ctx.v_sent.to(torch.int32)[..., senders][..., None]
@@ -206,7 +215,8 @@ def sample_attacks_round(cfg: QBAConfig, k_round: torch.Tensor,
     if forge_p is not None:
         attack = attack + forge_p.to(torch.int32) * FORGE_P_BIT
     if cfg.delivery == "racy":
-        late = jr.bernoulli(jr.fold_in(k_round, LATE_TAG), cfg.p_late, shape)
+        late = jr.bernoulli(jr.fold_in(k_round, LATE_TAG), cfg.p_late, shape,
+                            partitionable=p)
     else:
         late = torch.zeros(action.shape, dtype=torch.bool, device=dev)
     return attack, rand_v.to(torch.int32), late

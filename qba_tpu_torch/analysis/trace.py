@@ -235,15 +235,19 @@ def trace_batch(label: str, cfg, engine: str, device, trials: int = 8,
     exception in ``error``; neither is raised.  ``within``, a context
     manager, is entered around the recorded batch alone (not the
     warm-up), so that what it records (a ``torch.profiler`` trace) is
-    this batch's; the batch then runs even where the key is cached."""
+    this batch's; the batch then runs even where the key is cached.  The
+    batch runs in the current threefry mode, read once and part of the
+    cache's key."""
+    from qba_tpu_torch import random as jr
+
     global _hits
-    key = (cfg, engine, str(device), trials, tp)
+    p = jr.partitionable_mode()
+    key = (cfg, engine, str(device), trials, tp, p)
     if key in _cache and within is None:
         _hits += 1
         return _cache[key]
     import torch
 
-    from qba_tpu_torch import random as jr
     from qba_tpu_torch.diagnostics import QBADemotionWarning
     from qba_tpu_torch.ops import _launch, kernel_wrappers
     from qba_tpu_torch.rounds.engine import run_trial
@@ -253,17 +257,19 @@ def trace_batch(label: str, cfg, engine: str, device, trials: int = 8,
         dev = torch.device("cuda", torch.cuda.current_device())
     cfg = dataclasses.replace(cfg, round_engine=engine)
     trials = batch_trials(cfg, dev, trials)
-    keys = jr.split(jr.key(cfg.seed, dev), trials)
+    keys = jr.split(jr.key(cfg.seed, dev), trials, partitionable=p)
     if tp is None:
         def batch():
-            return run_trial(cfg, keys)
+            with jr.threefry_partitionable(p):
+                return run_trial(cfg, keys)
     else:
         from qba_tpu_torch.parallel import make_mesh, run_trials_spmd
 
         mesh = make_mesh({"dp": 1, "tp": tp}, devices=[dev] * tp)
 
         def batch():
-            return run_trials_spmd(cfg, mesh, keys)
+            with jr.threefry_partitionable(p):
+                return run_trials_spmd(cfg, mesh, keys)
 
     path = f"{label}/{engine}" + (f"/tp={tp}" if tp else "")
     rec = BatchTrace(path=path, device=dev.type, trials=trials)

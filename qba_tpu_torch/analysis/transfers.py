@@ -726,6 +726,7 @@ def _chunk_fn(cfg, device, trials: int):
 
     trials = batch_trials(cfg, device, trials)
     root = jr.key(cfg.seed, device)
+    mode = jr.partitionable_mode()
     sl.prepare_capture(cfg, device)
     carry = sl.new_carry(4, 0, 0, device)
     lo = torch.full((5,), -1, dtype=torch.int32, device=device)
@@ -734,7 +735,7 @@ def _chunk_fn(cfg, device, trials: int):
 
     def step():
         carry.copy_(start)
-        sl.chunk_step(cfg, trials, root, carry, lo, hi)
+        sl.chunk_step(cfg, trials, root, carry, lo, hi, partitionable=mode)
 
     return step
 

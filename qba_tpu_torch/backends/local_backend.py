@@ -103,7 +103,8 @@ def _fence(dev: torch.device) -> None:
 
 
 def presample_batch(cfg: QBAConfig, keys: torch.Tensor,
-                    timings: dict | None = None) -> Presample:
+                    timings: dict | None = None, *,
+                    partitionable: bool | None = None) -> Presample:
     """Every message-level backend's randomness for trial keys ``[T, 2]``,
     drawn on their device with the batched runner's key tree: ``split(key,
     4)`` into dishonesty, lists, orders and rounds; the adversary context;
@@ -112,24 +113,26 @@ def presample_batch(cfg: QBAConfig, keys: torch.Tensor,
 
     ``timings``, when a dict, receives the phases' seconds on the host
     clock, each fenced: ``setup_s`` (up to the draws), ``draws_s`` and
-    ``copy_s``.  Raises past ``w = 256``: the presample is uint8."""
+    ``copy_s``.  Raises past ``w = 256``: the presample is uint8.
+    ``partitionable``: JAX's threefry mode (None: the current mode)."""
     if cfg.w > MAX_W:
         raise ValueError(
             f"the message-level backends presample uint8 draws and lists "
             f"(w <= {MAX_W}); got w={cfg.w} (n_parties={cfg.n_parties})")
-    dev = keys.device
+    dev, p = keys.device, jr.resolve_mode(partitionable)
     t0 = time.perf_counter()
-    k = jr.split(keys, 4)
-    honest = assign_dishonest(cfg, k[:, 0])
-    lists, _qcorr = generate_lists_for(cfg, k[:, 1])
-    v_sent, v_comm = commander_orders(cfg, k[:, 2], honest[:, 1])
+    k = jr.split(keys, 4, partitionable=p)
+    honest = assign_dishonest(cfg, k[:, 0], partitionable=p)
+    lists, _qcorr = generate_lists_for(cfg, k[:, 1], partitionable=p)
+    v_sent, v_comm = commander_orders(cfg, k[:, 2], honest[:, 1],
+                                      partitionable=p)
     k_rounds = k[:, 3].contiguous()
-    ctx = adversary_ctx(cfg, k_rounds, v_sent)
+    ctx = adversary_ctx(cfg, k_rounds, v_sent, partitionable=p)
     if timings is not None:
         _fence(dev)
         t1 = time.perf_counter()
         timings["setup_s"] = t1 - t0
-    draws = attack_draws(cfg, k_rounds, ctx)
+    draws = attack_draws(cfg, k_rounds, ctx, partitionable=p)
     if timings is not None:
         _fence(dev)
         t2 = time.perf_counter()
@@ -182,6 +185,8 @@ def run_trial_local(
     key: torch.Tensor,
     log: "EventLog | None" = None,
     trial: int = 0,
+    *,
+    partitionable: bool | None = None,
 ) -> dict:
     """One protocol execution over Python sets for trial key ``[2]``;
     returns the rank-0 summary (``tfg.py:351-363``) plus diagnostics
@@ -190,17 +195,21 @@ def run_trial_local(
 
     With ``log`` the full protocol event trail is emitted, the structured
     equivalent of every ``mpi_print`` site of the reference: phase
-    summaries at INFO, per-packet events at DEBUG."""
-    return local_trial(cfg, presample_batch(cfg, key[None]), 0, log, trial)
+    summaries at INFO, per-packet events at DEBUG.  ``partitionable``:
+    JAX's threefry mode (None: the current mode)."""
+    return local_trial(cfg, presample_batch(cfg, key[None],
+                                            partitionable=partitionable),
+                       0, log, trial)
 
 
 def run_trials_local(cfg: QBAConfig, keys: torch.Tensor, log=None,
                      first_trial: int = 0,
-                     log_limit: int | None = None) -> list[dict]:
+                     log_limit: int | None = None, *,
+                     partitionable: bool | None = None) -> list[dict]:
     """A batch of :func:`run_trial_local` executions over one presample.
     ``log_limit`` bounds the trail to the first trials (the CLI's
     ``--max-verdicts``)."""
-    pre = presample_batch(cfg, keys)
+    pre = presample_batch(cfg, keys, partitionable=partitionable)
     return [local_trial(cfg, pre, i,
                         log if log_limit is None or i < log_limit else None,
                         first_trial + i)

@@ -240,6 +240,8 @@ def run_trials_mp(
     pre: Presample | None = None,
     stats: dict | None = None,
     on_mesh: Callable[[list[int]], None] | None = None,
+    *,
+    partitionable: bool | None = None,
 ) -> list[dict]:
     """A batch of protocol executions (trial keys ``[T, 2]``, or the
     presample ``pre`` of them) over ONE party mesh.
@@ -256,9 +258,10 @@ def run_trials_mp(
     ``on_mesh``, when given, is called with the parties' pids once every
     party reports its mesh up; ``stats``, when a dict, receives
     ``mesh_start_s`` (process start to every party up) and the parties'
-    ``exitcodes`` after the batch."""
+    ``exitcodes`` after the batch.  ``partitionable``: JAX's threefry
+    mode of the presample (None: the current mode)."""
     if pre is None:
-        pre = presample_batch(cfg, keys)
+        pre = presample_batch(cfg, keys, partitionable=partitionable)
     so_path = _native_so_path()
     ctx = _party_context()
     static = dict(

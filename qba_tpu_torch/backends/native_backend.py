@@ -124,7 +124,8 @@ def _trace_capacity(cfg: QBAConfig) -> int:
 
 
 def run_trial_native(cfg: QBAConfig, key: torch.Tensor, log=None,
-                     trial: int = 0) -> dict:
+                     trial: int = 0, *,
+                     partitionable: bool | None = None) -> dict:
     """One protocol execution in the C++ runtime for trial key ``[2]``;
     returns the rank-0 summary dict (the shape of
     :func:`~qba_tpu_torch.backends.local_backend.run_trial_local`).
@@ -132,8 +133,11 @@ def run_trial_native(cfg: QBAConfig, key: torch.Tensor, log=None,
     With ``log`` the C engine records its protocol event trail into a
     trace buffer, decoded here into the local backend's event grammar; the
     host-side phases (dishonesty, particles, commander state, verdict) are
-    emitted from the presample."""
-    return native_trial(cfg, presample_batch(cfg, key[None]), 0, log, trial)
+    emitted from the presample.  ``partitionable``: JAX's threefry mode
+    (None: the current mode)."""
+    return native_trial(cfg, presample_batch(cfg, key[None],
+                                             partitionable=partitionable),
+                        0, log, trial)
 
 
 def native_trial(cfg: QBAConfig, pre: Presample, i: int, log=None,
@@ -166,7 +170,8 @@ def native_trial(cfg: QBAConfig, pre: Presample, i: int, log=None,
 
 def run_trials_native(cfg: QBAConfig, keys: torch.Tensor,
                       n_threads: int = 0,
-                      pre: Presample | None = None) -> dict:
+                      pre: Presample | None = None, *,
+                      partitionable: bool | None = None) -> dict:
     """A Monte-Carlo batch on the C++ runtime's threaded executor.
 
     The batch's randomness is presampled once (or taken from ``pre``),
@@ -176,7 +181,7 @@ def run_trials_native(cfg: QBAConfig, keys: torch.Tensor,
     n_parties]``, ``v_comm [n]``, ``vi [n, n_lieutenants, w]``,
     ``overflow [n]``, and ``success_rate``."""
     if pre is None:
-        pre = presample_batch(cfg, keys)
+        pre = presample_batch(cfg, keys, partitionable=partitionable)
     return _run(cfg, pre, slice(None), n_threads=n_threads)
 
 

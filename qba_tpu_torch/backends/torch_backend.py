@@ -8,7 +8,9 @@ megakernel on CUDA, ``xla`` on the CPU).  ``trial_pack`` changes nothing
 here: the CUDA kernels already run one block per trial.
 ``device=None`` means CUDA: with no CUDA device :func:`run_trials`
 raises rather than quietly running on the CPU; pass ``device="cpu"`` to
-run the plain PyTorch path.
+run the plain PyTorch path.  The key tree follows JAX's threefry mode
+(:mod:`qba_tpu_torch.random`): ``partitionable=None`` reads the current
+mode once, and the bool goes down to every draw and kernel of the batch.
 """
 
 from __future__ import annotations
@@ -46,14 +48,17 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-def trial_keys(cfg: QBAConfig, device=None) -> torch.Tensor:
+def trial_keys(cfg: QBAConfig, device=None, *,
+               partitionable: bool | None = None) -> torch.Tensor:
     """The batch's key tree root: one key ``[2]`` per trial from the
     config seed (``split(key(seed), trials)``)."""
-    return jr.split(jr.key(cfg.seed, device=device), cfg.trials)
+    return jr.split(jr.key(cfg.seed, device=device), cfg.trials,
+                    partitionable=partitionable)
 
 
-def batched_trials(cfg: QBAConfig, keys: torch.Tensor) -> TrialResult:
-    return run_trial(cfg, keys)
+def batched_trials(cfg: QBAConfig, keys: torch.Tensor, *,
+                   partitionable: bool | None = None) -> TrialResult:
+    return run_trial(cfg, keys, partitionable=partitionable)
 
 
 def aggregate(trials: TrialResult) -> MonteCarloResult:
@@ -65,13 +70,16 @@ def aggregate(trials: TrialResult) -> MonteCarloResult:
 
 
 def run_trials(cfg: QBAConfig, keys: torch.Tensor | None = None, *,
-               device=None) -> MonteCarloResult:
+               device=None,
+               partitionable: bool | None = None) -> MonteCarloResult:
     """Run ``cfg.trials`` protocol executions (or one per given key) on
-    ``device`` (default: CUDA)."""
+    ``device`` (default: CUDA), in ``partitionable``'s threefry mode
+    (None: the current mode)."""
     dev = resolve_device(device)
+    p = jr.resolve_mode(partitionable)
     if keys is None:
-        keys = trial_keys(cfg, dev)
-    return aggregate(batched_trials(cfg, keys.to(dev)))
+        keys = trial_keys(cfg, dev, partitionable=p)
+    return aggregate(batched_trials(cfg, keys.to(dev), partitionable=p))
 
 
 def fence(res):

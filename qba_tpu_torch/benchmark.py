@@ -9,7 +9,9 @@ keys every rep, made on the device and fenced before the clock starts
 one fence after the batch (``torch.cuda.synchronize()``), and chunked
 dispatch with a partial last chunk rounded up.  The keys are the JAX
 recipe's own, so the last rep's trials equal the JAX package's trial for
-trial (in the partitionable threefry mode, the one the port implements).
+trial in either threefry mode: each measure reads the mode once
+(``partitionable``; None: the current mode) and makes every key and
+batch in it.
 
 A plan names what a config runs on a device: the round engine
 (:func:`~qba_tpu_torch.rounds.engine.resolve_round_engine`), where the
@@ -177,17 +179,19 @@ def qsim_description(cfg: QBAConfig) -> str:
     return "dense/xla"
 
 
-def rep_keys(seed: int, n: int, device) -> torch.Tensor:
+def rep_keys(seed: int, n: int, device, *,
+             partitionable: bool | None = None) -> torch.Tensor:
     """The ``n`` keys of one rep, ``split(key(seed), n)``, made on
     ``device`` and fenced, so the rep's clock starts after them."""
     from qba_tpu_torch import random as jr
     from qba_tpu_torch.backends.torch_backend import fence
 
-    return fence(jr.split(jr.key(seed, device=device), n))
+    return fence(jr.split(jr.key(seed, device=device), n,
+                          partitionable=partitionable))
 
 
 def measure_resource_gen(cfg: QBAConfig, reps: int, *, warmup: bool = True,
-                         device=None):
+                         device=None, partitionable: bool | None = None):
     """Time ``reps`` full resource-generation batches: ``cfg.trials``
     list generations of ``cfg.size_l`` positions each, through the
     :func:`~qba_tpu_torch.qsim.generate_lists_for` dispatch the trial
@@ -205,24 +209,28 @@ def measure_resource_gen(cfg: QBAConfig, reps: int, *, warmup: bool = True,
         resolve_device,
         trial_keys,
     )
+    from qba_tpu_torch import random as jr
     from qba_tpu_torch.qsim import generate_lists_for
 
     if reps < 1:
         raise ValueError("reps must be >= 1")
     dev = resolve_device(device)
+    p = jr.resolve_mode(partitionable)
     if warmup:
-        fence(generate_lists_for(cfg, trial_keys(cfg, dev)))
+        fence(generate_lists_for(cfg, trial_keys(cfg, dev, partitionable=p),
+                                 partitionable=p))
     times = []
     for rep in range(reps):
-        keys = rep_keys(cfg.seed + 1 + rep, cfg.trials, dev)
+        keys = rep_keys(cfg.seed + 1 + rep, cfg.trials, dev, partitionable=p)
         t0 = time.perf_counter()
-        fence(generate_lists_for(cfg, keys))
+        fence(generate_lists_for(cfg, keys, partitionable=p))
         times.append(time.perf_counter() - t0)
     return times, cfg.trials * cfg.size_l
 
 
 def measure_batch(cfg: QBAConfig, reps: int, chunk_trials: int | None = None,
-                  *, warmup: bool = True, device=None):
+                  *, warmup: bool = True, device=None,
+                  partitionable: bool | None = None):
     """Time ``reps`` full Monte-Carlo batches of ``cfg.trials`` trials.
 
     ``chunk_trials`` splits each batch into sequential chunks of that
@@ -244,17 +252,23 @@ def measure_batch(cfg: QBAConfig, reps: int, chunk_trials: int | None = None,
         trial_keys,
     )
 
+    from qba_tpu_torch import random as jr
+
     if reps < 1:
         raise ValueError("reps must be >= 1")
     dev = resolve_device(device)
+    p = jr.resolve_mode(partitionable)
     chunk, n_chunks, cfg_chunk = _chunks(cfg, chunk_trials)
     if warmup:
-        fence(_run_trials_named(cfg_chunk, trial_keys(cfg_chunk, dev)))
+        fence(_run_trials_named(
+            cfg_chunk, trial_keys(cfg_chunk, dev, partitionable=p), p))
     times, results = [], None
     for rep in range(reps):
-        keys = rep_keys(cfg.seed + 1 + rep, n_chunks * chunk, dev)
+        keys = rep_keys(cfg.seed + 1 + rep, n_chunks * chunk, dev,
+                        partitionable=p)
         t0 = time.perf_counter()
-        results = [_run_trials_named(cfg_chunk, keys[i * chunk:(i + 1) * chunk])
+        results = [_run_trials_named(cfg_chunk,
+                                     keys[i * chunk:(i + 1) * chunk], p)
                    for i in range(n_chunks)]
         fence(results)
         times.append(time.perf_counter() - t0)
@@ -270,16 +284,22 @@ def _chunks(cfg: QBAConfig, chunk_trials: int | None):
                                                                trials=chunk)
 
 
-def _run_trials_named(cfg_chunk: QBAConfig, keys: torch.Tensor):
-    """``run_trials`` on ``keys``' device, with a device-memory failure
+def _run_trials_named(cfg_chunk: QBAConfig, keys: torch.Tensor,
+                      partitionable: bool):
+    """``run_trials`` on ``keys``' device in ``partitionable``'s threefry
+    mode, with a device-memory failure
     named: the batch, the ceiling the byte model
     (:func:`~qba_tpu_torch.analysis.memory.trial_ceiling`) gives at the
     device's memory, and the remedy, ``--chunk-trials``.  Every other
     error passes through."""
     from qba_tpu_torch.backends import torch_backend
 
+    from qba_tpu_torch import random as jr
+
     try:
-        return torch_backend.run_trials(cfg_chunk, keys, device=keys.device)
+        with jr.threefry_partitionable(partitionable):
+            return torch_backend.run_trials(cfg_chunk, keys,
+                                            device=keys.device)
     except torch.cuda.OutOfMemoryError as e:
         from qba_tpu_torch.analysis.memory import (
             device_memory_bytes,
@@ -306,7 +326,8 @@ def _run_trials_named(cfg_chunk: QBAConfig, keys: torch.Tensor):
 
 def measure_device_batch(cfg: QBAConfig, pairs: int = 3, reps_lo: int = 1,
                          reps_hi: int = 5, chunk_trials: int | None = None,
-                         *, warmup: bool = True, device=None):
+                         *, warmup: bool = True, device=None,
+                         partitionable: bool | None = None):
     """Device seconds a batch by the slope method: dispatch ``r``
     same-shape batches back to back with one final fence, for ``r =
     reps_lo`` and ``r = reps_hi``; the difference quotient
@@ -328,20 +349,25 @@ def measure_device_batch(cfg: QBAConfig, pairs: int = 3, reps_lo: int = 1,
         trial_keys,
     )
 
+    from qba_tpu_torch import random as jr
+
     if pairs < 1:
         raise ValueError("pairs must be >= 1")
     if not 1 <= reps_lo < reps_hi:
         raise ValueError("need 1 <= reps_lo < reps_hi")
     dev = resolve_device(device)
+    p = jr.resolve_mode(partitionable)
     chunk, n_chunks, cfg_chunk = _chunks(cfg, chunk_trials)
     if warmup:
-        fence(_run_trials_named(cfg_chunk, trial_keys(cfg_chunk, dev)))
+        fence(_run_trials_named(
+            cfg_chunk, trial_keys(cfg_chunk, dev, partitionable=p), p))
 
     def timed_chain(r: int, tag: int) -> float:
-        keys = rep_keys(cfg.seed + tag, r * n_chunks * chunk, dev)
+        keys = rep_keys(cfg.seed + tag, r * n_chunks * chunk, dev,
+                        partitionable=p)
         t0 = time.perf_counter()
         for i in range(r * n_chunks):
-            _run_trials_named(cfg_chunk, keys[i * chunk:(i + 1) * chunk])
+            _run_trials_named(cfg_chunk, keys[i * chunk:(i + 1) * chunk], p)
         fence(None)  # one stream: the last batch done, all done
         return time.perf_counter() - t0
 

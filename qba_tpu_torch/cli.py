@@ -830,14 +830,19 @@ def _run_impl(args: argparse.Namespace, cfg: QBAConfig, session, out) -> int:
              size_l=cfg.size_l, n_dishonest=cfg.n_dishonest, w=cfg.w,
              trials=cfg.trials, backend=args.backend,
              qsim_path=cfg.qsim_path)
-    keys = trial_keys(cfg, resolve_device(_device(args)))
+    from qba_tpu_torch import random as jr
+
+    # JAX's threefry mode, read once for every draw of the command.
+    mode = jr.partitionable_mode()
+    keys = trial_keys(cfg, resolve_device(_device(args)), partitionable=mode)
     shown = min(cfg.trials, args.max_verdicts)
     trail = args.verbose or args.jsonl
 
     with profile_trace(args.profile_dir):
         if args.backend == "torch":
             with timers.time("trials") as sp:
-                res = fence(run_trials(cfg, keys, device=keys.device))
+                res = fence(run_trials(cfg, keys, device=keys.device,
+                                       partitionable=mode))
                 # fence() waits for the device: the span is device time.
                 sp.fenced = True
             t = res.trials
@@ -850,7 +855,8 @@ def _run_impl(args: argparse.Namespace, cfg: QBAConfig, session, out) -> int:
                 # given key the local backend reproduces its decisions
                 # exactly, so the displayed trials replay through it for
                 # the trail.
-                replay = run_trials_local(cfg, keys[:shown], log=log)
+                replay = run_trials_local(cfg, keys[:shown], log=log,
+                                          partitionable=mode)
                 for i, r in enumerate(replay):
                     vec = [int(x) for x in rows[i].decisions]
                     if r["decisions"] != vec:
@@ -870,7 +876,7 @@ def _run_impl(args: argparse.Namespace, cfg: QBAConfig, session, out) -> int:
             )
 
             with timers.time("trials"):
-                pre = presample_batch(cfg, keys)
+                pre = presample_batch(cfg, keys, partitionable=mode)
                 res = run_trials_native(cfg, keys, pre=pre)
             if trail:
                 # The displayed trials again through the C engine's trace
@@ -892,12 +898,14 @@ def _run_impl(args: argparse.Namespace, cfg: QBAConfig, session, out) -> int:
                     )
 
                     results = run_trials_mp(cfg, keys, log=log,
-                                            log_limit=args.max_verdicts)
+                                            log_limit=args.max_verdicts,
+                                            partitionable=mode)
                 else:
                     # The trail covers the trials whose verdicts are
                     # printed: unbounded trails would flood stdout.
                     results = run_trials_local(cfg, keys, log=log,
-                                               log_limit=args.max_verdicts)
+                                               log_limit=args.max_verdicts,
+                                               partitionable=mode)
             rows = [types.SimpleNamespace(**{k: r[k] for k in (
                 "decisions", "honest", "success", "overflow")})
                 for r in results[:shown]]

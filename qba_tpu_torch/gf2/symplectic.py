@@ -158,10 +158,12 @@ def gf2_measure_sweep(n: int, xw: torch.Tensor, zw: torch.Tensor,
     return out
 
 
-def _draw_coins(keys: torch.Tensor, n: int) -> torch.Tensor:
+def _draw_coins(keys: torch.Tensor, n: int,
+                partitionable: bool | None = None) -> torch.Tensor:
     """Per-shot coins, ``bits(key, (n,)) & 1`` per key: int32 ``[..., n]``
     (the per-shot engine's draw)."""
-    return (jr.bits(keys, (n,)) & 1).to(torch.int32)
+    return (jr.bits(keys, (n,), partitionable=partitionable) & 1).to(
+        torch.int32)
 
 
 def build_gf2_sample_core(n: int, ops, n_params: int):
@@ -210,9 +212,10 @@ def build_gf2_tableau_run_batch(n: int, ops, n_params: int,
     core = build_gf2_sample_core(n, ops, n_params)
     noisy = p_depolarize > 0.0 or p_measure_flip > 0.0
 
-    def run_batch(keys: torch.Tensor,
-                  params: torch.Tensor | None = None) -> torch.Tensor:
-        rnds = _draw_coins(keys, n)
+    def run_batch(keys: torch.Tensor, params: torch.Tensor | None = None, *,
+                  partitionable: bool | None = None) -> torch.Tensor:
+        p = jr.resolve_mode(partitionable)
+        rnds = _draw_coins(keys, n, p)
         if params is not None and params.dim() == 1:
             params = params[None, :].expand(rnds.shape[0], params.shape[0])
         if not noisy:
@@ -220,7 +223,8 @@ def build_gf2_tableau_run_batch(n: int, ops, n_params: int,
         from qba_tpu_torch.qsim.noise import noise_draws
 
         prog, dev = core.program, keys.device
-        bx, bz, mflip = noise_draws(keys, n, p_depolarize, p_measure_flip)
+        bx, bz, mflip = noise_draws(keys, n, p_depolarize, p_measure_flip,
+                                    partitionable=p)
         phase_noise = (gf2_matmul(bx, torch.from_numpy(prog.z.T).to(dev))
                        ^ gf2_matmul(bz, torch.from_numpy(prog.x.T).to(dev)))
         return core(rnds, params, phase_noise=phase_noise) ^ mflip
@@ -237,7 +241,10 @@ def build_gf2_tableau_run_shots(n: int, ops, n_params: int,
                                             p_measure_flip)
 
     def run(key: torch.Tensor, shots: int,
-            params: torch.Tensor | None = None) -> torch.Tensor:
-        return run_batch(jr.split(key, shots), params)
+            params: torch.Tensor | None = None, *,
+            partitionable: bool | None = None) -> torch.Tensor:
+        p = jr.resolve_mode(partitionable)
+        return run_batch(jr.split(key, shots, partitionable=p), params,
+                         partitionable=p)
 
     return run

@@ -18,6 +18,10 @@ tensor never reaches the plain version.
 :func:`attack_draw_at_reference` is the formula the device code
 implements, entry by entry, in int64 PyTorch: the tests hold it against
 the JAX package's draws.
+
+Each function takes JAX's threefry mode as ``partitionable`` (None: the
+current mode, :func:`qba_tpu_torch.random.resolve_mode`); the kernel is
+instantiated for both modes, and the launch picks one.
 """
 
 from __future__ import annotations
@@ -96,12 +100,14 @@ def _round_range(cfg: QBAConfig, r0: int, n_r: int | None):
 
 
 def attack_draws_reference(cfg: QBAConfig, k_rounds, ctx, r0: int = 1,
-                           n_r: int | None = None):
+                           n_r: int | None = None, *,
+                           partitionable: bool | None = None):
     """Rounds ``r0 .. r0 + n_r - 1`` (default: to the last) of the draws
     in plain PyTorch: round ``r``'s slab is ``sample_attacks_round(cfg,
     fold_in(k_rounds, r), r, ctx)``, written into one preallocated uint8
     tensor ``[T, n_r, n_pool, n_rv]`` a round at a time.  Every value fits
     uint8: attack bits < 32, forged values < w, late 0/1."""
+    p = jr.resolve_mode(partitionable)
     n_r = _round_range(cfg, r0, n_r)
     n_pool = cfg.n_lieutenants * cfg.slots
     shape = (k_rounds.shape[0], n_r, n_pool, cfg.n_lieutenants)
@@ -109,24 +115,29 @@ def attack_draws_reference(cfg: QBAConfig, k_rounds, ctx, r0: int = 1,
                 for _ in range(3))
     for j in range(n_r):
         r = r0 + j
-        draws = sample_attacks_round(cfg, jr.fold_in(k_rounds, r), r, ctx)
+        draws = sample_attacks_round(cfg, jr.fold_in(k_rounds, r), r, ctx,
+                                     partitionable=p)
         for dst, x in zip(out, draws):
             dst[:, j] = x
     return out
 
 
 def attack_draws(cfg: QBAConfig, k_rounds, ctx, r0: int = 1,
-                 n_r: int | None = None):
+                 n_r: int | None = None, *,
+                 partitionable: bool | None = None):
     """Rounds ``r0 .. r0 + n_r - 1`` of the attack draws ``(attack,
     rand_v, late)``, each uint8 ``[T, n_r, n_pool, n_rv]``.
 
     CPU tensors run :func:`attack_draws_reference`.  CUDA tensors launch
     the kernel once, a thread an entry (a warp a cell under
     ``attack_scope="broadcast"``, scanning its receivers); it takes the
-    inputs :func:`keyed_inputs` admits, and any other input raises.
+    inputs :func:`keyed_inputs` admits, and any other input raises.  The
+    launch runs the instantiation of ``partitionable``'s threefry mode.
     """
+    p = jr.resolve_mode(partitionable)
     if not dispatch("attack_draws", (k_rounds,)):
-        return attack_draws_reference(cfg, k_rounds, ctx, r0, n_r)
+        return attack_draws_reference(cfg, k_rounds, ctx, r0, n_r,
+                                      partitionable=p)
     n_r = _round_range(cfg, r0, n_r)
     k_rounds, collude, v_sent = keyed_inputs(cfg, k_rounds, ctx)
     dev, n = k_rounds.device, k_rounds.shape[0]
@@ -134,13 +145,13 @@ def attack_draws(cfg: QBAConfig, k_rounds, ctx, r0: int = 1,
     shape = (n, n_r, n_rv * cfg.slots, n_rv)
     out = [torch.empty(shape, dtype=torch.uint8, device=dev)
            for _ in range(3)]
-    fn = kernel_fn("attack_draws", "qba_attack_draws", 6, 12)
+    fn = kernel_fn("attack_draws", "qba_attack_draws", 6, 13)
     args = [k_rounds.data_ptr(),
             None if collude is None else collude.data_ptr(),
             None if v_sent is None else v_sent.data_ptr(), *ptrs(*out)]
     strategy, broadcast, racy, p32, n_mod = law_ints(cfg)
     args += [n, n_r, r0, cfg.n_rounds, n_rv, cfg.slots, n_mod, cfg.w,
-             strategy, broadcast, racy, p32]
+             strategy, broadcast, racy, p32, int(not p)]
     timed_launch(attack_draws, fn, args, torch.cuda.current_stream(dev))
     return tuple(out)
 
@@ -151,7 +162,7 @@ attack_draws.events = None
 
 
 def attack_draw_at_reference(cfg: QBAConfig, k_rounds, ctx, r: int, cell,
-                             rv):
+                             rv, *, partitionable: bool | None = None):
     """Round ``r``'s draws at the entries ``(cell, rv)`` (int64 index
     tensors of one shape ``S``) of every trial, computed entry by entry as
     the device code does (``csrc/draws.cuh``): ``(attack int32, rand_v
@@ -163,8 +174,18 @@ def attack_draw_at_reference(cfg: QBAConfig, k_rounds, ctx, r: int, cell,
     under ``attack_scope="broadcast"`` it walks the receivers ``rv' <=
     rv`` of its cell, skipping the sender, for the last forge (its raw
     order; without one the raw order at ``rv' = 0``, the table's gather)
-    and the running clears."""
+    and the running clears.
+
+    In the legacy threefry mode an entry's hash pairs its index with
+    another across the whole ``[n_pool, n_rv]`` table (``n`` entries,
+    ``h = ceil(n / 2)``): ``i < h`` takes word 0 of ``threefry(key, (i, i
+    + h))`` (the counter 0 where ``i + h == n``), ``i >= h`` word 1 of
+    ``threefry(key, (i - h, i))``, whatever slice ``cell`` and ``rv``
+    cover."""
+    legacy = not jr.resolve_mode(partitionable)
     n_rv, slots = cfg.n_lieutenants, cfg.slots
+    n = n_rv * slots * n_rv
+    h = n - n // 2
     k_round = jr.fold_in(k_rounds, r)
     lead = (slice(None),) + (None,) * cell.dim()
 
@@ -173,6 +194,12 @@ def attack_draw_at_reference(cfg: QBAConfig, k_rounds, ctx, r: int, cell,
         return k[..., 0][lead], k[..., 1][lead]
 
     def bits_at(key, i):
+        if legacy:
+            second = i >= h
+            pair = torch.where(i + h == n, 0, i + h)
+            y0, y1 = jr.threefry2x32(*key, torch.where(second, i - h, i),
+                                     torch.where(second, i, pair))
+            return torch.where(second, y1, y0)
         y0, y1 = jr.threefry2x32(*key, torch.zeros_like(i), i)
         return y0 ^ y1
 

@@ -15,7 +15,10 @@
 // items are cells and a warp takes a cell: a lane a receiver, 32 at a
 // time, the forges and clears of the receivers before it from ballots
 // (draws.cuh :: broadcast_step, the trial megakernel's scan too).  One
-// hash an entry either way.
+// hash an entry either way.  The kernel is instantiated for both of JAX's
+// threefry modes (kLegacy, draws.cuh :: bits_at); the legacy form pairs
+// entries across the whole [n_pool, n_rv] table, whatever the launch
+// covers, so it takes the table's size.
 //
 // Bound on this card: operations.  Each entry costs one threefry2x32 of
 // about 80 32-bit operations on the attack stream, one more under racy
@@ -53,8 +56,10 @@ struct Params {
   int n_r, r0, n_rounds, n_rv, slots, n_mod, w, strategy, broadcast, racy;
   float p32;
   int n_items, chunks;  // items a slab, blocks a slab
+  uint32_t n_table;     // entries of a round's table (the legacy pairing)
 };
 
+template <bool kLegacy>
 __global__ void __launch_bounds__(kThreads) attack_draws_kernel(Params P) {
   __shared__ uint32_t s_key[6];  // attack, late, adapt
   const int slab = int(blockIdx.x) / P.chunks;
@@ -88,7 +93,8 @@ __global__ void __launch_bounds__(kThreads) attack_draws_kernel(Params P) {
       for (int q0 = 0; q0 < n_rv; q0 += 32) {
         const int q = q0 + lane;
         const uint32_t i = base + uint32_t(q);
-        const uint32_t b = q < n_rv ? bits_at(attack, i) : 0u;
+        const uint32_t b =
+            q < n_rv ? bits_at<kLegacy>(attack, i, P.n_table) : 0u;
         int v;
         const int att = broadcast_step(b, q, n_rv, cell / P.slots, P.n_mod,
                                        q0 == 0, sc, &v);
@@ -96,41 +102,46 @@ __global__ void __launch_bounds__(kThreads) attack_draws_kernel(Params P) {
         const size_t o = out0 + i;
         P.attack[o] = uint8_t(att);
         P.rand_v[o] = uint8_t(v);
-        P.late[o] = uint8_t(P.racy && late_at(late, i, P.p32));
+        P.late[o] =
+            uint8_t(P.racy && late_at<kLegacy>(late, i, P.p32, P.n_table));
       }
     }
     return;
   }
   for (int item = first + int(threadIdx.x); item < last; item += kThreads) {
     const uint32_t i = uint32_t(item);
-    const uint32_t b = bits_at(attack, i);
+    const uint32_t b = bits_at<kLegacy>(attack, i, P.n_table);
     int v;
     if (P.strategy == kCollude) {
       v = P.collude[t];
     } else if (P.strategy == kAdaptive) {
       const int sender = item / n_rv / P.slots;
-      v = adaptive_rand_v(adapt, i, P.v_sent[size_t(t) * n_rv + sender], P.w);
+      v = adaptive_rand_v<kLegacy>(adapt, i,
+                                   P.v_sent[size_t(t) * n_rv + sender], P.w,
+                                   P.n_table);
     } else {
       v = raw_rand_v(b, P.n_mod);
     }
     const size_t o = out0 + i;
     P.attack[o] = uint8_t(attack_bits(b, P.strategy, late_phase));
     P.rand_v[o] = uint8_t(v);
-    P.late[o] = uint8_t(P.racy && late_at(late, i, P.p32));
+    P.late[o] =
+        uint8_t(P.racy && late_at<kLegacy>(late, i, P.p32, P.n_table));
   }
 }
 
 }  // namespace
 
 // Returns a cudaError_t: 0 on a launch that was accepted.  p32_bits is
-// float32 p_late's bit pattern.
+// float32 p_late's bit pattern; legacy selects JAX's non-partitionable
+// threefry mode.
 extern "C" int qba_attack_draws(const void* k_rounds, const void* collude,
                                 const void* v_sent, void* attack,
                                 void* rand_v, void* late, int n_trials,
                                 int n_r, int r0, int n_rounds, int n_rv,
                                 int slots, int n_mod, int w, int strategy,
                                 int broadcast, int racy, int p32_bits,
-                                void* stream) {
+                                int legacy, void* stream) {
   if (n_trials <= 0) return 0;
   if (n_r < 1 || r0 < 1 || r0 + n_r - 1 > n_rounds || n_rv < 1 ||
       slots < 1 || n_mod < 1 || n_mod > 256 || w < 1 || w > 256 ||
@@ -161,10 +172,14 @@ extern "C" int qba_attack_draws(const void* k_rounds, const void* collude,
   const long long items = broadcast ? n_pool : n_pool * n_rv;
   const long long chunks = (items + kItems - 1) / kItems;
   const long long blocks = (long long)n_trials * n_r * chunks;
-  if (items > INT_MAX || blocks > INT_MAX) return int(cudaErrorInvalidValue);
+  if (items > INT_MAX || blocks > INT_MAX ||
+      (legacy && n_pool * n_rv >= 0xFFFFFFFFll))
+    return int(cudaErrorInvalidValue);
   P.n_items = int(items);
   P.chunks = int(chunks);
-  attack_draws_kernel<<<unsigned(blocks), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(P);
+  P.n_table = uint32_t(n_pool * n_rv);
+  auto kernel = legacy ? attack_draws_kernel<true> : attack_draws_kernel<false>;
+  kernel<<<unsigned(blocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      P);
   return int(cudaGetLastError());
 }

@@ -1,7 +1,7 @@
 // The attack draws of one round, one entry at a time: the device form of
 // qba_tpu_torch/adversary/model.py :: sample_attacks_round on the
-// threefry2x32 key tree of qba_tpu_torch/random.py (jax.random's, in its
-// partitionable mode), bit for bit.  Its plain per-entry mirror is
+// threefry2x32 key tree of qba_tpu_torch/random.py (jax.random's), in both
+// of JAX's threefry modes, bit for bit.  Its plain per-entry mirror is
 // qba_tpu_torch/ops/attack_draws.py :: attack_draw_at_reference.
 //
 // A round's draws are the entries (cell, rv) of a [n_pool, n_rv] table,
@@ -13,9 +13,16 @@
 //           below p_late (delivery="racy" only);
 //   adapt   bits(fold_in(k_round, ADAPT_TAG), i): the offset of the
 //           sender's own order (strategy="adaptive" only);
-// k_round = fold_in(k_rounds[t], r).  bits(key, i) is y0 ^ y1 of
-// threefry2x32(key, (0, i)) (i < 2^32 here), fold_in(key, tag) the pair
-// threefry2x32(key, (0, tag)).  Under attack_scope="broadcast" (reference
+// k_round = fold_in(k_rounds[t], r), fold_in(key, tag) the pair
+// threefry2x32(key, (0, tag)) in either mode.  bits(key, i) is, in the
+// partitionable mode (template flag kLegacy false), y0 ^ y1 of
+// threefry2x32(key, (0, i)) (i < 2^32 here); in the legacy mode
+// (jax_threefry_partitionable=False, kLegacy true) it depends on the
+// table's size n = n_pool * n_rv: with h = ceil(n / 2), entry i < h is y0
+// of threefry2x32(key, (i, i + h)) (the counter 0 where i + h == n, the
+// odd size's pad) and entry i >= h is y1 of threefry2x32(key, (i - h, i)).
+// Every stream's table has the same n.  One hash an entry in either mode.
+// Under attack_scope="broadcast" (reference
 // strategy only) an entry's forge, clear-P and clear-L are those of the
 // receivers rv' <= rv of its cell other than the sender (the last forge's
 // rand_v), and its drop is its own.
@@ -77,11 +84,23 @@ __device__ __forceinline__ Key fold_in(Key k, uint32_t tag) {
   return Key{x0, x1};
 }
 
-// jax.random.bits(key, shape, uint32) at flat index i (< 2^32).
-__device__ __forceinline__ uint32_t bits_at(Key k, uint32_t i) {
-  uint32_t x0 = 0u, x1 = i;
-  threefry2x32(k, x0, x1);
-  return x0 ^ x1;
+// jax.random.bits(key, shape, uint32) at flat index i (< 2^32) of a table
+// of n entries (n < 2^32 - 1, read by the legacy form only).
+template <bool kLegacy = false>
+__device__ __forceinline__ uint32_t bits_at(Key k, uint32_t i,
+                                            uint32_t n = 0u) {
+  if constexpr (kLegacy) {
+    const uint32_t h = n - (n >> 1);
+    const bool second = i >= h;
+    uint32_t x0 = second ? i - h : i;
+    uint32_t x1 = second ? i : (i + h == n ? 0u : i + h);
+    threefry2x32(k, x0, x1);
+    return second ? x1 : x0;
+  } else {
+    uint32_t x0 = 0u, x1 = i;
+    threefry2x32(k, x0, x1);
+    return x0 ^ x1;
+  }
 }
 
 // The raw forged order of an attack word: bits 3-26 mod n_parties + 1.
@@ -119,20 +138,26 @@ __device__ __forceinline__ int attack_bits(uint32_t b, int strategy,
 }
 
 // adaptive's forged order: an offset in [1, w) of the sender's own order
-// v_sender, mod w.
+// v_sender, mod w (n: the table's size, as bits_at).
+template <bool kLegacy = false>
 __device__ __forceinline__ int adaptive_rand_v(Key adapt, uint32_t i,
-                                               int v_sender, int w) {
+                                               int v_sender, int w,
+                                               uint32_t n = 0u) {
   const uint32_t m = uint32_t(w - 1 > 1 ? w - 1 : 1);
-  const int offset = int((bits_at(adapt, i) & 0xFFFFFFu) % m) + 1;
+  const int offset =
+      int((bits_at<kLegacy>(adapt, i, n) & 0xFFFFFFu) % m) + 1;
   return (v_sender + offset) % w;
 }
 
 // delivery="racy": jax.random.bernoulli(late_key, p_late) at i, the
 // uniform's 23 top bits as a float in [1, 2) minus one, against float32
-// p_late.
-__device__ __forceinline__ bool late_at(Key late, uint32_t i, float p32) {
-  const float u = __uint_as_float((bits_at(late, i) >> 9) | 0x3F800000u)
-                  - 1.0f;
+// p_late (n: the table's size, as bits_at).
+template <bool kLegacy = false>
+__device__ __forceinline__ bool late_at(Key late, uint32_t i, float p32,
+                                        uint32_t n = 0u) {
+  const float u =
+      __uint_as_float((bits_at<kLegacy>(late, i, n) >> 9) | 0x3F800000u) -
+      1.0f;
   return u < p32;
 }
 
@@ -184,14 +209,17 @@ __device__ __forceinline__ int broadcast_step(uint32_t b, int q, int n,
 // the receivers rv' = rv, rv - 1, ..., 0 of the cell (first flat index
 // `base` = cell * n_rv) until the last forge and both clears are found;
 // *rand_v is the last forge's raw order (left as it is without a forge).
-// `own` is the entry's own attack word, bits_at(attack, base + rv).
+// `own` is the entry's own attack word, bits_at(attack, base + rv, n).
+template <bool kLegacy = false>
 __device__ __forceinline__ int scanned_attack(Key attack, uint32_t base,
                                               int rv, int sender, uint32_t own,
-                                              int n_mod, int* rand_v) {
+                                              int n_mod, int* rand_v,
+                                              uint32_t n = 0u) {
   const bool drop = (own & 7u) == 0u;  // action 0, coin 0
   bool forge = false, clear_p = false, clear_l = false;
   for (int q = rv; q >= 0; --q) {
-    const uint32_t b = q == rv ? own : bits_at(attack, base + uint32_t(q));
+    const uint32_t b =
+        q == rv ? own : bits_at<kLegacy>(attack, base + uint32_t(q), n);
     if (q != sender) {
       const uint32_t action = b & 3u;
       if (!forge && action == 1u) {

@@ -172,6 +172,11 @@
 // megakernel from 11.27 ms (each read hashing alone) to 9.99-10.11,
 // level with the stacked entry's 9.87-10.20, and the broadcast scope
 // from 8.70 to 5.17-5.43 (PERF.md).
+// Each keyed entry is instantiated for both of JAX's threefry modes
+// (template flag kLegacy, draws.cuh :: bits_at; the C entries' `legacy`):
+// the legacy form pairs the entries of a round's whole [n_pool, n_glob]
+// table, so a shard's or a walk's hash takes the table's size, and still
+// hashes each entry once.  The phase clock is the partitionable form's.
 // Bound of the keyed entries: the larger of the bytes above without the
 // draws and the operations of the hashes the trial reads, each entry once
 // (about 80 a hash); the dedup's and rebuild's hashes of entries the
@@ -226,7 +231,7 @@ struct Params {
   const int64_t* k_rounds;
   const int32_t* collude;
   const int32_t* orders;
-  int strategy, broadcast, racy, n_mod;
+  int strategy, broadcast, racy, n_mod, legacy;
   float p32;
   // The phase clock's int64 [T * n_tp, kPhases] (kClock instantiations).
   long long* clock;
@@ -259,7 +264,9 @@ struct HashedRow {
 // global flat index cell * n_glob + r_off + rv on the round's streams.
 // The verdict's row hashes a cell's receivers a lane each, and under the
 // broadcast scope scans them with ballots; the dedup's and rebuild's
-// single reads hash (and walk) the entry alone.
+// single reads hash (and walk) the entry alone.  kLegacy: JAX's legacy
+// threefry mode, whose hashes take the round's table size (n_tab).
+template <bool kLegacy>
 struct HashedDraws {
   const uint32_t* s;  // the shared words above
   const uint32_t* k;  // the round's keys among them (keys_of)
@@ -267,6 +274,10 @@ struct HashedDraws {
   int strategy, n_mod, w, slots;
   bool late_phase, broadcast, racy;
   float p32;
+  // Entries of a round's table, [n_pool, n_glob] (read by kLegacy only).
+  __device__ uint32_t n_tab(const Dims& d) const {
+    return uint32_t(d.n_glob) * uint32_t(slots) * uint32_t(d.n_glob);
+  }
   // Cell `cell`'s row, by the whole warp: lane j takes the global
   // receivers j and j + 32.
   __device__ HashedRow row(const Dims& d, int cell, bool biz) const {
@@ -279,8 +290,9 @@ struct HashedDraws {
     for (int k = 0; k < 2; ++k) {
       const int q = lane + 32 * k;
       if (q >= n) continue;
-      if (biz) b[k] = bits_at(attack, base + uint32_t(q));
-      p[128 + q] = uint8_t(racy && late_at(late, base + uint32_t(q), p32));
+      if (biz) b[k] = bits_at<kLegacy>(attack, base + uint32_t(q), n_tab(d));
+      p[128 + q] = uint8_t(
+          racy && late_at<kLegacy>(late, base + uint32_t(q), p32, n_tab(d)));
     }
     if (biz && broadcast) {
       // Receiver q's scan covers receivers 0..q other than the sender.
@@ -301,7 +313,8 @@ struct HashedDraws {
         int att = 0, v = 0;
         if (biz) {
           att = attack_bits(b[k], strategy, late_phase);
-          if (att & kForgeBit) v = forged(b[k], base + uint32_t(q), cell);
+          if (att & kForgeBit)
+            v = forged(b[k], base + uint32_t(q), cell, n_tab(d));
         }
         p[q] = uint8_t(att);
         p[64 + q] = uint8_t(v);
@@ -318,13 +331,15 @@ struct HashedDraws {
   __device__ bool is_late(HashedRow r, const Dims& d, int, int rv) const {
     return r.p[128 + d.r_off + rv] != 0;
   }
-  // The forged order of attack word b at flat index i (delivery scope).
-  __device__ int forged(uint32_t b, uint32_t i, int cell) const {
+  // The forged order of attack word b at flat index i of a table of n
+  // entries (delivery scope).
+  __device__ int forged(uint32_t b, uint32_t i, int cell, uint32_t n) const {
     using namespace qba_draws;
     if (strategy == kCollude) return int(s[kWordCollude]);
     if (strategy == kAdaptive)
-      return adaptive_rand_v(Key{k[4], k[5]}, i,
-                             int(s[kWordOrders + cell / slots]), w);
+      return adaptive_rand_v<kLegacy>(Key{k[4], k[5]}, i,
+                                      int(s[kWordOrders + cell / slots]), w,
+                                      n);
     return raw_rand_v(b, n_mod);
   }
   __device__ HashedDraw draw(const Dims& d, int cell, int rv,
@@ -334,19 +349,21 @@ struct HashedDraws {
     const Key attack{k[0], k[1]};
     const int g = d.r_off + rv;
     const uint32_t base = uint32_t(cell) * uint32_t(d.n_glob);
-    const uint32_t b = bits_at(attack, base + uint32_t(g));
+    const uint32_t n = n_tab(d);
+    const uint32_t b = bits_at<kLegacy>(attack, base + uint32_t(g), n);
     int v = 0;
     if (broadcast)
-      return HashedDraw{scanned_attack(attack, base, g, cell / slots, b,
-                                       n_mod, &v), v};
+      return HashedDraw{scanned_attack<kLegacy>(attack, base, g, cell / slots,
+                                                b, n_mod, &v, n), v};
     const int att = attack_bits(b, strategy, late_phase);
-    if (att & kForgeBit) v = forged(b, base + uint32_t(g), cell);
+    if (att & kForgeBit) v = forged(b, base + uint32_t(g), cell, n);
     return HashedDraw{att, v};
   }
   __device__ bool is_late(const Dims& d, int cell, int rv) const {
-    return racy && qba_draws::late_at(
+    return racy && qba_draws::late_at<kLegacy>(
         qba_draws::Key{k[2], k[3]},
-        uint32_t(cell) * uint32_t(d.n_glob) + uint32_t(d.r_off + rv), p32);
+        uint32_t(cell) * uint32_t(d.n_glob) + uint32_t(d.r_off + rv), p32,
+        n_tab(d));
   }
 };
 
@@ -369,12 +386,13 @@ __device__ inline void round_keys(const Params& P, size_t t, int r,
   keys_of(s, r)[2 * i + 1] = k.k1;
 }
 
-// Round r's draw source: hashed (kKeyed) or the stacked slab.
-template <bool kKeyed>
+// Round r's draw source: hashed (kKeyed, in the mode kLegacy) or the
+// stacked slab.
+template <bool kKeyed, bool kLegacy>
 __device__ inline auto round_draws(const Params& P, size_t t, int r,
                                    const Dims& d, uint32_t* s) {
   if constexpr (kKeyed) {
-    return HashedDraws{s, keys_of(s, r),
+    return HashedDraws<kLegacy>{s, keys_of(s, r),
                        reinterpret_cast<uint8_t*>(s + kDrawWords),
                        P.strategy, P.n_mod, d.w, d.slots,
                        2 * r > P.n_rounds, P.broadcast != 0, P.racy != 0,
@@ -504,9 +522,10 @@ __device__ void gen_prologue(const Params& P, size_t t) {
 // selects the party-sharded entry: a cluster of P.n_tp blocks a trial.
 // kKeyed selects the keyed entries, which hash their draws; kStaged the
 // layout (choose_smem: entries staged through the warps' buffers, or read
-// where they lie); kClock the phase clock (mega_phases.cuh).
+// where they lie); kClock the phase clock (mega_phases.cuh); kLegacy the
+// keyed entries' legacy threefry mode.
 template <bool kGen, bool kSharded, bool kKeyed, bool kStaged,
-          bool kClock = false>
+          bool kClock = false, bool kLegacy = false>
 __global__ void __launch_bounds__(kMegaThreads, kMegaBlocks)
 trial_megakernel(Params P) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -580,10 +599,11 @@ trial_megakernel(Params P) {
   // ---- Rounds 1..n_dis+1, pool A -> pool B. ----
   for (int r = 1; r <= P.n_rounds; ++r) {
     clk.mark(kPhClear);
-    const auto dr = round_draws<kKeyed>(P, t, r, d, s_draw);
+    const auto dr = round_draws<kKeyed, kLegacy>(P, t, r, d, s_draw);
     const bool rebroadcast = r <= P.n_dis;
     mega_verdict<kStaged>(sh, pa, li_all,
-                          round_draws<kKeyed>(P, t, r, dx, s_draw), dx,
+                          round_draws<kKeyed, kLegacy>(P, t, r, dx, s_draw),
+                          dx,
                           n_scan, r, P.use_fp, clk, rank, P.n_tp);
     if constexpr (kSharded) {
       gather_verdicts(sh, n_scan, rank, P.n_tp);
@@ -675,13 +695,15 @@ void set_stacks(Params* p, const void* attack, const void* rand_v,
 // the reference strategy; collude needs its targets, adaptive its orders).
 bool set_law(Params* p, const void* k_rounds, const void* collude,
              const void* orders, int strategy, int broadcast, int racy,
-             int p32_bits, int n_mod) {
+             int p32_bits, int n_mod, int legacy) {
   using namespace qba_draws;
   if (!k_rounds || strategy < kReference || strategy > kSplit ||
       (broadcast && strategy != kReference) ||
       (strategy == kCollude && !collude) ||
-      (strategy == kAdaptive && !orders) || n_mod < 1 || n_mod > 256)
+      (strategy == kAdaptive && !orders) || n_mod < 1 || n_mod > 256 ||
+      legacy < 0 || legacy > 1)
     return false;
+  p->legacy = legacy;
   p->k_rounds = static_cast<const int64_t*>(k_rounds);
   p->collude = static_cast<const int32_t*>(collude);
   p->orders = static_cast<const int32_t*>(orders);
@@ -735,15 +757,21 @@ size_t choose_smem(const Dims& d, bool* staged) {
   return smem_bytes<kKeyed>(d, *staged);
 }
 
-// The instantiation of a launch: its layout, and the phase clock's form
-// where a clock buffer is given (staged layouts only).
+// The instantiation of a launch: its layout, the phase clock's form where
+// a clock buffer is given (staged layouts only) and, for a keyed entry,
+// the legacy threefry mode's form where `legacy` is set.
 template <bool kGen, bool kSharded, bool kKeyed>
-auto megakernel_for(bool staged, bool clock) {
+auto megakernel_for(bool staged, bool clock, bool legacy = false) {
   auto kernel = staged ? trial_megakernel<kGen, kSharded, kKeyed, true>
                        : trial_megakernel<kGen, kSharded, kKeyed, false>;
-  if constexpr (kKeyed)
-    if (clock && staged)
+  if constexpr (kKeyed) {
+    if (legacy)
+      kernel = staged
+          ? trial_megakernel<kGen, kSharded, true, true, false, true>
+          : trial_megakernel<kGen, kSharded, true, false, false, true>;
+    else if (clock && staged)
       kernel = trial_megakernel<kGen, kSharded, true, true, true>;
+  }
   return kernel;
 }
 
@@ -759,8 +787,9 @@ template <bool kGen, bool kKeyed>
 int launch_single(const Params& prm, int n_trials, void* stream) {
   bool staged;
   const size_t smem = choose_smem<kKeyed>(prm.d, &staged);
-  if (prm.clock && !staged) return int(cudaErrorInvalidValue);
-  auto kernel = megakernel_for<kGen, false, kKeyed>(staged, prm.clock);
+  if (prm.clock && (!staged || prm.legacy)) return int(cudaErrorInvalidValue);
+  auto kernel =
+      megakernel_for<kGen, false, kKeyed>(staged, prm.clock, prm.legacy);
   if (int e = raise_smem(reinterpret_cast<const void*>(kernel), smem))
     return e;
   kernel<<<n_trials, kMegaThreads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -791,8 +820,9 @@ template <bool kKeyed>
 int launch_sharded(const Params& prm, int n_trials, void* stream) {
   bool staged;
   const size_t smem = choose_smem<kKeyed>(prm.d, &staged);
-  if (prm.clock && !staged) return int(cudaErrorInvalidValue);
-  auto kernel = megakernel_for<false, true, kKeyed>(staged, prm.clock);
+  if (prm.clock && (!staged || prm.legacy)) return int(cudaErrorInvalidValue);
+  auto kernel =
+      megakernel_for<false, true, kKeyed>(staged, prm.clock, prm.legacy);
   if (int e = raise_smem(reinterpret_cast<const void*>(kernel), smem))
     return e;
   cudaLaunchAttribute attr;
@@ -849,13 +879,13 @@ extern "C" int qba_trial_megakernel_keyed(
     void* o_dec, void* o_ovf, void* clock, int n_trials, int n_rv, int slots,
     int max_l, int size_l,
     int w, int n_dis, int use_fp, int strategy, int broadcast, int racy,
-    int p32_bits, int n_mod, void* stream) {
+    int p32_bits, int n_mod, int legacy, void* stream) {
   if (n_trials <= 0) return 0;
   const Dims d = make_dims(n_rv, slots, max_l, size_l, w);
   Params prm = {};
   if (!dims_ok(d) || n_dis < 0 ||
       !set_law(&prm, k_rounds, collude, orders, strategy, broadcast, racy,
-               p32_bits, n_mod))
+               p32_bits, n_mod, legacy))
     return int(cudaErrorInvalidValue);
   prm.p_rows = static_cast<const uint8_t*>(p_rows);
   prm.li = static_cast<const int32_t*>(li);
@@ -900,7 +930,8 @@ extern "C" int qba_trial_megakernel_gen_keyed(
     void* pool_a, void* pool_b, void* o_vi, void* o_dec, void* o_ovf,
     void* clock, int n_trials, int n_rv, int slots, int max_l, int size_l,
     int w, int n_dis, int use_fp, int total, int n_qubits, int strategy,
-    int broadcast, int racy, int p32_bits, int n_mod, void* stream) {
+    int broadcast, int racy, int p32_bits, int n_mod, int legacy,
+    void* stream) {
   if (n_trials <= 0) return 0;
   const Dims d = make_dims(n_rv, slots, max_l, size_l, w);
   Params prm = {};
@@ -908,7 +939,7 @@ extern "C" int qba_trial_megakernel_gen_keyed(
       !set_gen(&prm, tables, qcorr, coins, r_q, r_nq, mflip, p_scr, li_scr,
                n_rv, total, n_qubits) ||
       !set_law(&prm, k_rounds, collude, orders, strategy, broadcast, racy,
-               p32_bits, n_mod))
+               p32_bits, n_mod, legacy))
     return int(cudaErrorInvalidValue);
   prm.v_sent = static_cast<const int32_t*>(v_sent);
   prm.honest = static_cast<const int32_t*>(honest);
@@ -978,13 +1009,13 @@ extern "C" int qba_sharded_trial_megakernel_keyed(
     void* o_dec, void* o_ovf, void* clock, int n_trials, int n_tp, int n_rv,
     int slots, int max_l,
     int size_l, int w, int n_dis, int use_fp, int strategy, int broadcast,
-    int racy, int p32_bits, int n_mod, void* stream) {
+    int racy, int p32_bits, int n_mod, int legacy, void* stream) {
   if (n_trials <= 0) return 0;
   Dims d;
   Params prm = {};
   if (!sharded_dims(n_tp, n_rv, slots, max_l, size_l, w, &d) || n_dis < 0 ||
       !set_law(&prm, k_rounds, collude, orders, strategy, broadcast, racy,
-               p32_bits, n_mod))
+               p32_bits, n_mod, legacy))
     return int(cudaErrorInvalidValue);
   prm.p_rows = static_cast<const uint8_t*>(p_rows);
   prm.li = static_cast<const int32_t*>(li);

@@ -302,17 +302,21 @@ surface_fold.launches = 0
 surface_fold.events = None
 
 
-def branch_step(cfg: QBAConfig, chunk_trials: int, root, carry, slot) -> None:
+def branch_step(cfg: QBAConfig, chunk_trials: int, root, carry, slot, *,
+                partitionable: bool | None = None) -> None:
     """Cell ``cfg``'s branch: chunk ``carry[I_CUR]``'s keys
     (``split(fold_in(root, i), chunk_trials)``),
     :func:`~qba_tpu_torch.rounds.engine.run_trial` on them, and the
     chunk's success and overflow flags copied into ``slot`` (bool ``[2,
     chunk_trials]``, made before any capture, shared by every branch).
-    Nothing reads the host, so a CUDA graph can capture it."""
+    Nothing reads the host, so a CUDA graph can capture it.
+    ``partitionable``: JAX's threefry mode (None: the current mode)."""
     from qba_tpu_torch.rounds.engine import run_trial
 
-    keys = jr.split(jr.fold_in(root, carry[I_CUR]), chunk_trials)
-    res = run_trial(cfg, keys)
+    p = jr.resolve_mode(partitionable)
+    keys = jr.split(jr.fold_in(root, carry[I_CUR]), chunk_trials,
+                    partitionable=p)
+    res = run_trial(cfg, keys, partitionable=p)
     slot[0].copy_(res.success)
     slot[1].copy_(res.overflow)
 
@@ -354,6 +358,7 @@ class SurfaceRun(NamedTuple):
     lo: torch.Tensor  # int32 [budget + 1]
     hi: torch.Tensor
     root: torch.Tensor  # the shared seed's key
+    partitionable: bool = True  # the threefry mode of every branch
 
     def pick(self, handle: int = 0):
         surface_pick(self.carry, self.ci, self.layout, self.chunk_trials,
@@ -364,7 +369,8 @@ class SurfaceRun(NamedTuple):
                      self.carry, self.layout, handle)
 
     def branch(self, cfg: QBAConfig):
-        branch_step(cfg, self.chunk_trials, self.root, self.carry, self.slot)
+        branch_step(cfg, self.chunk_trials, self.root, self.carry, self.slot,
+                    partitionable=self.partitionable)
 
 
 def plain_surface_loop(cfgs, run: SurfaceRun, go: bool):
@@ -509,7 +515,8 @@ def graph_surface_loop(cfgs, run: SurfaceRun, go: bool):
 
 def device_surface_loop(cfgs, steps: int, budget: int, chunk_trials: int,
                         confidence: float, threshold: float | None, k, i,
-                        done, lo, hi, device):
+                        done, lo, hi, device, *,
+                        partitionable: bool | None = None):
     """At most ``steps`` chunks over the cells ``cfgs`` (one config a
     cell, all of one seed), each cell starting from ``k`` successes in
     ``i`` chunks and its ``done`` flag, the budget ``budget`` chunks a
@@ -518,7 +525,8 @@ def device_surface_loop(cfgs, steps: int, budget: int, chunk_trials: int,
     loop on the CPU.  Returns the final carry
     (:func:`read_surface_carry`) and the loop's record (``dispatch``:
     ``"graph"`` or ``"plain"``, readbacks, passes, and the graph's
-    timings)."""
+    timings).  The threefry mode (``partitionable``; None: the current
+    mode) is read once: every cell's capture is that mode's."""
     dev = torch.device(device)
     layout = SurfaceLayout(len(cfgs), budget, steps)
     tables = [torch.from_numpy(np.ascontiguousarray(t, np.int32)).to(dev)
@@ -529,7 +537,8 @@ def device_surface_loop(cfgs, steps: int, budget: int, chunk_trials: int,
         carry=new_surface_carry(layout, k, i, done, dev),
         ci=torch.zeros((2, layout.n_cells), dtype=torch.float32, device=dev),
         slot=torch.zeros((2, chunk_trials), dtype=torch.bool, device=dev),
-        lo=tables[0], hi=tables[1], root=jr.key(cfgs[0].seed, dev))
+        lo=tables[0], hi=tables[1], root=jr.key(cfgs[0].seed, dev),
+        partitionable=jr.resolve_mode(partitionable))
     go = steps > 0 and not all(bool(d) for d in done)
     if dev.type != "cuda":
         host, info = plain_surface_loop(cfgs, run, go)

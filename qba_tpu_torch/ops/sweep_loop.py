@@ -187,23 +187,27 @@ def prepare_capture(cfg: QBAConfig, device) -> None:
 
 
 def chunk_step(cfg: QBAConfig, chunk_trials: int, root, carry, lo, hi,
-               handle: int = 0):
+               handle: int = 0, *, partitionable: bool | None = None):
     """One pass of the loop: chunk ``carry[0]``'s keys (``split(fold_in(
     root, i), chunk_trials)``, :func:`qba_tpu_torch.sweep.chunk_keys` on
     the device), :func:`~qba_tpu_torch.rounds.engine.run_trial` on them
     (any engine and list path) and :func:`sweep_stop`.  After
     :func:`prepare_capture` and one eager pass nothing reads the host or
-    copies from it, so a CUDA graph can capture it."""
+    copies from it, so a CUDA graph can capture it.  ``partitionable``:
+    JAX's threefry mode (None: the current mode)."""
     from qba_tpu_torch.rounds.engine import run_trial
 
-    keys = jr.split(jr.fold_in(root, carry[0]), chunk_trials)
-    res = run_trial(cfg, keys)
+    p = jr.resolve_mode(partitionable)
+    keys = jr.split(jr.fold_in(root, carry[0]), chunk_trials,
+                    partitionable=p)
+    res = run_trial(cfg, keys, partitionable=p)
     sweep_stop(res.success.contiguous(), res.overflow.contiguous(), lo, hi,
                carry, handle)
 
 
 def prefix_step(cfg: QBAConfig, chunk_trials: int, keys, offsets, carry,
-                lo, hi, succ, handle: int = 0):
+                lo, hi, succ, handle: int = 0, *,
+                partitionable: bool | None = None):
     """One pass of the serving worker's loop: rows ``carry[0] *
     chunk_trials + offsets`` (``offsets`` is ``arange(chunk_trials)``,
     made before the capture) of the request's key table ``keys`` (int64
@@ -216,7 +220,8 @@ def prefix_step(cfg: QBAConfig, chunk_trials: int, keys, offsets, carry,
     from qba_tpu_torch.rounds.engine import run_trial
 
     rows = carry[0].to(torch.int64) * chunk_trials + offsets
-    res = run_trial(cfg, keys.index_select(0, rows))
+    res = run_trial(cfg, keys.index_select(0, rows),
+                    partitionable=partitionable)
     sweep_stop(res.success.contiguous(), res.overflow.contiguous(), lo, hi,
                carry, handle, succ_out=succ)
 
@@ -324,20 +329,26 @@ def _tables(lo, hi, dev):
 
 
 def device_loop(cfg: QBAConfig, n_chunks: int, chunk_trials: int,
-                start: int, k_start: int, lo, hi, device):
+                start: int, k_start: int, lo, hi, device, *,
+                partitionable: bool | None = None):
     """Chunks ``start, start + 1, ...`` of the budget ``n_chunks`` until
     the stop tables ``lo``/``hi`` (int32 numpy ``[n_chunks + 1]``) fire,
     ``k_start`` successes already counted, through :func:`run_loop`.
     Returns ``(i_stop, counts, overflow, info)`` with the per-chunk
     counts and flags ``[n_chunks]`` (entries before ``start`` and from
-    ``i_stop`` on are 0) and ``info`` the loop's record."""
+    ``i_stop`` on are 0) and ``info`` the loop's record.  The threefry
+    mode (``partitionable``; None: the current mode) is read once, before
+    the warm-up: the graph captured is that mode's, and it is replayed
+    only in this call."""
     dev = torch.device(device)
+    p = jr.resolve_mode(partitionable)
     carry = new_carry(n_chunks, start, k_start, dev)
     lo_d, hi_d = _tables(lo, hi, dev)
     root = jr.key(cfg.seed, dev)
 
     def step(handle):
-        chunk_step(cfg, chunk_trials, root, carry, lo_d, hi_d, handle)
+        chunk_step(cfg, chunk_trials, root, carry, lo_d, hi_d, handle,
+                   partitionable=p)
 
     host, info = run_loop(cfg, step, carry,
                           loop_condition(start, k_start, lo, hi), carry)
@@ -346,7 +357,8 @@ def device_loop(cfg: QBAConfig, n_chunks: int, chunk_trials: int,
 
 
 def device_loop_prefix(cfg: QBAConfig, n_chunks: int, chunk_trials: int,
-                       keys, lo, hi, device):
+                       keys, lo, hi, device, *,
+                       partitionable: bool | None = None):
     """The serving worker's early finish: chunks ``0, 1, ...`` of the
     budget ``n_chunks``, chunk ``i`` on rows ``[i * chunk_trials, (i + 1)
     * chunk_trials)`` of ``keys`` (int64 ``[n_chunks * chunk_trials, 2]``,
@@ -356,8 +368,9 @@ def device_loop_prefix(cfg: QBAConfig, n_chunks: int, chunk_trials: int,
     ``(i_stop, counts, overflow, success, info)``: per-chunk counts and
     flags ``[n_chunks]`` and each trial's success bit (numpy bool
     ``[n_chunks * chunk_trials]``), 0 from chunk ``i_stop`` on, as
-    :func:`device_loop` returns them."""
+    :func:`device_loop` returns them; the threefry mode as there."""
     dev = torch.device(device)
+    p = jr.resolve_mode(partitionable)
     n_carry = 4 * (HEAD + 2 * n_chunks)
     buf = torch.zeros(n_carry + n_chunks * chunk_trials, dtype=torch.uint8,
                       device=dev)
@@ -368,7 +381,7 @@ def device_loop_prefix(cfg: QBAConfig, n_chunks: int, chunk_trials: int,
 
     def step(handle):
         prefix_step(cfg, chunk_trials, keys, offsets, carry, lo_d, hi_d,
-                    succ, handle)
+                    succ, handle, partitionable=p)
 
     host, info = run_loop(cfg, step, carry, loop_condition(0, 0, lo, hi),
                           buf)

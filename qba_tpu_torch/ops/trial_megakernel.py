@@ -43,7 +43,9 @@ the one the engines launch: it takes each trial's rounds key
 draw stacks, and the kernel hashes each draw where it reads it
 (``csrc/draws.cuh``), so no stack exists.  Its plain version is
 :func:`~qba_tpu_torch.ops.attack_draws.attack_draws_reference` followed by
-the stacked entry's plain version.
+the stacked entry's plain version.  Each keyed form takes JAX's threefry
+mode as ``partitionable`` (None: the current mode) and launches that
+mode's instantiation; the phase clock is the partitionable form's.
 """
 
 from __future__ import annotations
@@ -52,9 +54,11 @@ import ctypes
 
 import torch
 
+from qba_tpu_torch import random as jr
 from qba_tpu_torch.config import QBAConfig
 from qba_tpu_torch.core import decide_order
 from qba_tpu_torch.ops._launch import (
+    KernelUnsupported,
     check,
     check_kernel_shapes,
     clock_breakdown,
@@ -148,17 +152,20 @@ trial_megakernel.events = None
 
 
 def trial_megakernel_keyed_reference(cfg: QBAConfig, p_rows, li, v_sent,
-                                     honest_c, k_rounds, ctx):
+                                     honest_c, k_rounds, ctx, *,
+                                     partitionable: bool | None = None):
     """:func:`trial_megakernel_keyed` in plain PyTorch: every round's
     draws (:func:`~qba_tpu_torch.ops.attack_draws.attack_draws_reference`),
     then :func:`trial_megakernel_reference`."""
     return trial_megakernel_reference(
         cfg, p_rows, li, v_sent, honest_c,
-        *attack_draws_reference(cfg, k_rounds, ctx))
+        *attack_draws_reference(cfg, k_rounds, ctx,
+                                partitionable=partitionable))
 
 
 def trial_megakernel_keyed(cfg: QBAConfig, p_rows, li, v_sent, honest_c,
-                           k_rounds, ctx, clock=None):
+                           k_rounds, ctx, clock=None, *,
+                           partitionable: bool | None = None):
     """Whole trials that hash their own draws: the results of
     :func:`trial_megakernel` on the draws of ``k_rounds`` (int64 ``[T,
     2]``, each trial's rounds key) and ``ctx``
@@ -173,16 +180,18 @@ def trial_megakernel_keyed(cfg: QBAConfig, p_rows, li, v_sent, honest_c,
     adds each phase's cycles into it (staged layouts only,
     :func:`mega_staged`; else the launch raises).
     """
+    p = jr.resolve_mode(partitionable)
     if not dispatch("trial_megakernel_keyed", (li,)):
         no_clock(clock)
-        return trial_megakernel_keyed_reference(cfg, p_rows, li, v_sent,
-                                                honest_c, k_rounds, ctx)
+        return trial_megakernel_keyed_reference(
+            cfg, p_rows, li, v_sent, honest_c, k_rounds, ctx,
+            partitionable=p)
     dev = li.device
     check_kernel_shapes(cfg, "trial megakernel")
     n_trials = _check_trial_inputs(cfg, p_rows, li, v_sent, honest_c)
-    keys, law = _keyed(cfg, n_trials, dev, k_rounds, ctx)
+    keys, law = _keyed(cfg, n_trials, dev, k_rounds, ctx, clock, p)
     out = _outputs(cfg, n_trials, dev)
-    fn = kernel_fn("trial_megakernel", "qba_trial_megakernel_keyed", 13, 13)
+    fn = kernel_fn("trial_megakernel", "qba_trial_megakernel_keyed", 13, 14)
     args = ptrs(p_rows, li, v_sent, honest_c) + keys + ptrs(*out)
     args += [_clock_ptr(clock, n_trials, 1, dev)]
     args += _body_ints(cfg, n_trials) + law
@@ -277,14 +286,21 @@ def _body_ints(cfg: QBAConfig, n_trials: int, n_tp: int | None = None):
                    cfg.n_dishonest, int(cfg.strategy == "split")]
 
 
-def _keyed(cfg: QBAConfig, n_trials: int, device, k_rounds, ctx):
+def _keyed(cfg: QBAConfig, n_trials: int, device, k_rounds, ctx, clock,
+           partitionable: bool):
     """The keyed entries' pointer arguments ``(k_rounds, collude targets
-    or null, adaptive's orders or null)`` and round-law ints, from inputs
+    or null, adaptive's orders or null)`` and round-law ints with the
+    threefry mode's flag last (1: legacy), from inputs
     :func:`~qba_tpu_torch.ops.attack_draws.keyed_inputs` admits, on
-    ``device``, for ``n_trials`` trials."""
+    ``device``, for ``n_trials`` trials.  The phase clock has no legacy
+    instantiation: a clock in the legacy mode raises."""
     check("k_rounds", k_rounds, torch.int64, (n_trials, 2), device)
+    if clock is not None and not partitionable:
+        raise KernelUnsupported("the phase clock is instantiated for the "
+                                "partitionable threefry mode only")
     keys = keyed_inputs(cfg, k_rounds, ctx)
-    return [None if x is None else x.data_ptr() for x in keys], law_ints(cfg)
+    return ([None if x is None else x.data_ptr() for x in keys],
+            law_ints(cfg) + [int(not partitionable)])
 
 
 def sharded_trial_megakernel_reference(cfg: QBAConfig, n_tp: int, p_rows,
@@ -381,19 +397,21 @@ sharded_trial_megakernel.launches = 0
 sharded_trial_megakernel.events = None
 
 
-def sharded_trial_megakernel_keyed_reference(cfg: QBAConfig, n_tp: int,
-                                             p_rows, li, v_sent, honest_c,
-                                             k_rounds, ctx):
+def sharded_trial_megakernel_keyed_reference(
+        cfg: QBAConfig, n_tp: int, p_rows, li, v_sent, honest_c, k_rounds,
+        ctx, *, partitionable: bool | None = None):
     """:func:`sharded_trial_megakernel_keyed` in plain PyTorch: every
     round's draws, then :func:`sharded_trial_megakernel_reference`."""
     return sharded_trial_megakernel_reference(
         cfg, n_tp, p_rows, li, v_sent, honest_c,
-        *attack_draws_reference(cfg, k_rounds, ctx))
+        *attack_draws_reference(cfg, k_rounds, ctx,
+                                partitionable=partitionable))
 
 
 def sharded_trial_megakernel_keyed(cfg: QBAConfig, n_tp: int, p_rows, li,
                                    v_sent, honest_c, k_rounds, ctx,
-                                   clock=None):
+                                   clock=None, *,
+                                   partitionable: bool | None = None):
     """Whole trials in ``n_tp`` shards that hash their own draws: the
     results of :func:`sharded_trial_megakernel` on the draws of
     ``k_rounds`` and ``ctx``.  CPU tensors run
@@ -402,17 +420,19 @@ def sharded_trial_megakernel_keyed(cfg: QBAConfig, n_tp: int, p_rows, li,
     rules of :func:`trial_megakernel_keyed` and ``n_tp`` as
     :func:`sharded_trial_megakernel`; ``clock`` as
     :func:`trial_megakernel_keyed`, a row a block."""
+    p = jr.resolve_mode(partitionable)
     if not dispatch("sharded_trial_megakernel_keyed", (li,)):
         no_clock(clock)
         return sharded_trial_megakernel_keyed_reference(
-            cfg, n_tp, p_rows, li, v_sent, honest_c, k_rounds, ctx)
+            cfg, n_tp, p_rows, li, v_sent, honest_c, k_rounds, ctx,
+            partitionable=p)
     _check_shards(cfg, n_tp)
     n_trials = _check_trial_inputs(cfg, p_rows, li, v_sent, honest_c)
     dev = li.device
-    keys, law = _keyed(cfg, n_trials, dev, k_rounds, ctx)
+    keys, law = _keyed(cfg, n_trials, dev, k_rounds, ctx, clock, p)
     out = _outputs(cfg, n_trials, dev, n_tp)
     fn = kernel_fn("trial_megakernel", "qba_sharded_trial_megakernel_keyed",
-                   13, 14)
+                   13, 15)
     args = ptrs(p_rows, li, v_sent, honest_c) + keys + ptrs(*out)
     args += [_clock_ptr(clock, n_trials, n_tp, dev)]
     args += _body_ints(cfg, n_trials, n_tp) + law
@@ -528,16 +548,19 @@ trial_megakernel_gen.events = None
 
 def trial_megakernel_gen_keyed_reference(cfg: QBAConfig, gen_tables,
                                          gen_ops, v_sent, honest_c, k_rounds,
-                                         ctx):
+                                         ctx, *,
+                                         partitionable: bool | None = None):
     """:func:`trial_megakernel_gen_keyed` in plain PyTorch: every round's
     draws, then :func:`trial_megakernel_gen_reference`."""
     return trial_megakernel_gen_reference(
         cfg, gen_tables, gen_ops, v_sent, honest_c,
-        *attack_draws_reference(cfg, k_rounds, ctx))
+        *attack_draws_reference(cfg, k_rounds, ctx,
+                                partitionable=partitionable))
 
 
 def trial_megakernel_gen_keyed(cfg: QBAConfig, gen_tables, gen_ops, v_sent,
-                               honest_c, k_rounds, ctx, clock=None):
+                               honest_c, k_rounds, ctx, clock=None, *,
+                               partitionable: bool | None = None):
     """Whole trials from the GF(2) generation operands that hash their own
     draws: the results of :func:`trial_megakernel_gen` on the draws of
     ``k_rounds`` and ``ctx``.  CPU tensors run
@@ -545,17 +568,19 @@ def trial_megakernel_gen_keyed(cfg: QBAConfig, gen_tables, gen_ops, v_sent,
     gen entry's keyed form once for the batch, with the input rules of
     :func:`trial_megakernel_gen` and :func:`trial_megakernel_keyed`
     (``clock`` too)."""
+    p = jr.resolve_mode(partitionable)
     if not dispatch("trial_megakernel_gen_keyed", (v_sent,)):
         no_clock(clock)
         return trial_megakernel_gen_keyed_reference(
-            cfg, gen_tables, gen_ops, v_sent, honest_c, k_rounds, ctx)
+            cfg, gen_tables, gen_ops, v_sent, honest_c, k_rounds, ctx,
+            partitionable=p)
     dev = v_sent.device
     n_trials, gen_ptrs, gen_ints, _keep = _gen_inputs(cfg, gen_tables,
                                                      gen_ops, v_sent, honest_c)
-    keys, law = _keyed(cfg, n_trials, dev, k_rounds, ctx)
+    keys, law = _keyed(cfg, n_trials, dev, k_rounds, ctx, clock, p)
     out = _outputs(cfg, n_trials, dev)
     fn = kernel_fn("trial_megakernel", "qba_trial_megakernel_gen_keyed",
-                   19, 15)
+                   19, 16)
     args = gen_ptrs + ptrs(v_sent, honest_c) + keys + ptrs(*out)
     args += [_clock_ptr(clock, n_trials, 1, dev)]
     args += _body_ints(cfg, n_trials) + gen_ints + law

@@ -13,6 +13,7 @@ import dataclasses
 
 import torch
 
+from qba_tpu_torch import random as jr
 from qba_tpu_torch.backends.torch_backend import (
     MonteCarloResult,
     aggregate,
@@ -46,22 +47,25 @@ def cat_trials(parts: list[TrialResult], device) -> TrialResult:
 
 
 def run_trials_sharded(cfg: QBAConfig, mesh: Mesh,
-                       keys: torch.Tensor | None = None) -> MonteCarloResult:
+                       keys: torch.Tensor | None = None, *,
+                       partitionable: bool | None = None) -> MonteCarloResult:
     """Run ``cfg.trials`` protocol executions sharded over ``mesh``.
 
     ``mesh`` axes used (others are ignored): ``dp`` shards the trial
     batch (``cfg.trials`` must be divisible by it); ``sp`` — if present —
     must divide ``cfg.size_l``.  Results are identical to the
-    single-device ``run_trials`` for the same keys.
+    single-device ``run_trials`` for the same keys (and threefry mode,
+    ``partitionable``; None: the current mode).
     """
     axes = axis_sizes(mesh)
     dp = axes.get("dp", 1)
     sp = axes.get("sp", 1)
     devices = dp_devices(mesh)
+    p = jr.resolve_mode(partitionable)
     if keys is None:
-        keys = trial_keys(cfg, devices[0])
+        keys = trial_keys(cfg, devices[0], partitionable=p)
     require_divisible(keys.shape[0], dp, "trials", "dp")
     require_divisible(cfg.size_l, sp, "size_l", "sp")
-    parts = [batched_trials(cfg, k.to(dev))
+    parts = [batched_trials(cfg, k.to(dev), partitionable=p)
              for k, dev in zip(keys.chunk(dp), devices)]
     return aggregate(cat_trials(parts, devices[0]))

@@ -107,17 +107,19 @@ def _stacked(segs, layout, device):
 
 
 def _trial_party_sharded(cfg: QBAConfig, n_tp: int, keys: torch.Tensor,
-                         engine: str, comms: str) -> TrialResult:
+                         engine: str, comms: str,
+                         partitionable: bool) -> TrialResult:
     """Trials ``keys`` ``[T, 2]`` with the lieutenants in ``n_tp`` shards,
     on the engine ``xla``, ``pallas``, ``pallas_fused``, ``pallas_tiled``
-    or ``pallas_mega``."""
+    or ``pallas_mega``, in ``partitionable``'s threefry mode."""
+    p = partitionable
     if engine == "pallas_mega":
-        return _trial_sharded_mega(cfg, n_tp, keys)
+        return _trial_sharded_mega(cfg, n_tp, keys, p)
     n_local = cfg.n_lieutenants // n_tp
     n_trials = keys.shape[0]
     honest, lieu_lists, p_rows, v_sent, v_comm, k_rounds = setup_trial(
-        cfg, keys)
-    ctx = adversary_ctx(cfg, k_rounds, v_sent)
+        cfg, keys, partitionable=p)
+    ctx = adversary_ctx(cfg, k_rounds, v_sent, partitionable=p)
     vi, out_cells = step3a_one(cfg, p_rows, v_sent, lieu_lists)
     # Each shard's receivers: step 3a is per lieutenant, so its rows are
     # what the shard computes for itself.
@@ -126,7 +128,8 @@ def _trial_party_sharded(cfg: QBAConfig, n_tp: int, keys: torch.Tensor,
     gather_tp = _make_gather_tp(n_tp, comms)
 
     def draws_of(r):
-        return sample_attacks_round(cfg, jr.fold_in(k_rounds, r), r, ctx)
+        return sample_attacks_round(cfg, jr.fold_in(k_rounds, r), r, ctx,
+                                    partitionable=p)
 
     def shard_cells(s):
         return tuple(c[s] for c in cells_l)
@@ -159,7 +162,7 @@ def _trial_party_sharded(cfg: QBAConfig, n_tp: int, keys: torch.Tensor,
         def round_body(r, vi, bufs):
             cur, spare = bufs
             whole = tuple(gather_tp(x, axis=ax) for x, ax in zip(cur, axes))
-            draws = round_draws(cfg, k_rounds, ctx, r)
+            draws = round_draws(cfg, k_rounds, ctx, r, partitionable=p)
             if engine == "pallas_tiled":
                 acc, vi = tiled_verdict(cfg, r, whole, li_l, vi, hc, *draws,
                                         n_recv=n_local)
@@ -205,8 +208,8 @@ def _trial_party_sharded(cfg: QBAConfig, n_tp: int, keys: torch.Tensor,
     return finish_trial(cfg, vi, v_comm, honest, overflows.any(0), counters)
 
 
-def _trial_sharded_mega(cfg: QBAConfig, n_tp: int,
-                        keys: torch.Tensor) -> TrialResult:
+def _trial_sharded_mega(cfg: QBAConfig, n_tp: int, keys: torch.Tensor,
+                        partitionable: bool) -> TrialResult:
     """The party-sharded trial megakernel: set-up as for the single-device
     megakernel, then one launch for the batch, which hashes every round's
     draws where it reads them
@@ -216,14 +219,16 @@ def _trial_sharded_mega(cfg: QBAConfig, n_tp: int,
         sharded_trial_megakernel_keyed,
     )
 
+    p = partitionable
     honest, lieu_lists, p_rows, v_sent, v_comm, k_rounds = setup_trial(
-        cfg, keys)
+        cfg, keys, partitionable=p)
     k_rounds = k_rounds.contiguous()
     vi, dec, overflow = sharded_trial_megakernel_keyed(
         cfg, n_tp, p_rows.contiguous(),
         lieu_lists.to(torch.int32).contiguous(),
         v_sent.to(torch.int32).contiguous(), honest_cells(honest, cfg),
-        k_rounds, adversary_ctx(cfg, k_rounds, v_sent))
+        k_rounds, adversary_ctx(cfg, k_rounds, v_sent, partitionable=p),
+        partitionable=p)
     return mega_result(honest, v_comm, vi, dec, overflow)
 
 
@@ -313,9 +318,11 @@ def _tp_row_devices(mesh: Mesh) -> list[torch.device]:
 
 
 def run_trials_spmd(cfg: QBAConfig, mesh: Mesh,
-                    keys: torch.Tensor | None = None) -> MonteCarloResult:
+                    keys: torch.Tensor | None = None, *,
+                    partitionable: bool | None = None) -> MonteCarloResult:
     """Monte-Carlo batch with trials over ``dp`` and lieutenants over
-    ``tp``.
+    ``tp``, in ``partitionable``'s threefry mode (None: the current
+    mode).
 
     Requires ``cfg.trials`` divisible by the ``dp`` size and
     ``cfg.n_lieutenants`` divisible by the ``tp`` size.  ``dp`` index
@@ -330,13 +337,14 @@ def run_trials_spmd(cfg: QBAConfig, mesh: Mesh,
         )
     dp, tp = axes.get("dp", 1), axes["tp"]
     devices = dp_devices(mesh)
+    p = jr.resolve_mode(partitionable)
     if keys is None:
-        keys = trial_keys(cfg, devices[0])
+        keys = trial_keys(cfg, devices[0], partitionable=p)
     require_divisible(keys.shape[0], dp, "trials", "dp")
     require_divisible(cfg.n_lieutenants, tp, "n_lieutenants", "tp")
     _tp_row_devices(mesh)
     engine = _resolve_spmd_engine(cfg, cfg.n_lieutenants // tp, devices[0])
     comms = resolve_tp_comms(cfg)
-    parts = [_trial_party_sharded(cfg, tp, k.to(dev), engine, comms)
+    parts = [_trial_party_sharded(cfg, tp, k.to(dev), engine, comms, p)
              for k, dev in zip(keys.chunk(dp), devices)]
     return aggregate(cat_trials(parts, devices[0]))

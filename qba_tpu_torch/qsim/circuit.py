@@ -26,6 +26,7 @@ import warnings
 
 import torch
 
+from qba_tpu_torch import random as jr
 from qba_tpu_torch.config import DENSE_QUBIT_CAP
 from qba_tpu_torch.qsim import statevector as sv
 
@@ -233,14 +234,14 @@ class Circuit:
         noisy = p_depolarize > 0.0 or p_measure_flip > 0.0
         state_fns: dict = {}
 
-        def run(keys: torch.Tensor,
-                params: torch.Tensor | None = None) -> torch.Tensor:
-            dev = keys.device
+        def run(keys: torch.Tensor, params: torch.Tensor | None = None, *,
+                partitionable: bool | None = None) -> torch.Tensor:
+            dev, p = keys.device, jr.resolve_mode(partitionable)
             if dev not in state_fns:
                 state_fns[dev] = self.compile_state(impl, dev)
             state_fn = state_fns[dev]
             if params is None:
-                bits = sv.measure_all(state_fn(), keys)
+                bits = sv.measure_all(state_fn(), keys, partitionable=p)
             else:
                 # A state per key: prepare and sample a chunk at a time.
                 step = max(1, sv.SAMPLE_CHUNK_ELEMS >> n)
@@ -248,12 +249,14 @@ class Circuit:
                                    device=dev)
                 for a in range(0, keys.shape[0], step):
                     bits[a:a + step] = sv.measure_all(
-                        state_fn(params[a:a + step]), keys[a:a + step])
+                        state_fn(params[a:a + step]), keys[a:a + step],
+                        partitionable=p)
             if noisy:
                 from qba_tpu_torch.qsim.noise import classical_flips
 
                 bits = bits ^ classical_flips(keys, n, p_depolarize,
-                                              p_measure_flip)
+                                              p_measure_flip,
+                                              partitionable=p)
             return bits
 
         return run
@@ -277,16 +280,19 @@ class Circuit:
         noisy = p_depolarize > 0.0 or p_measure_flip > 0.0
 
         def run(key: torch.Tensor, shots: int,
-                params: torch.Tensor | None = None) -> torch.Tensor:
+                params: torch.Tensor | None = None, *,
+                partitionable: bool | None = None) -> torch.Tensor:
+            p = jr.resolve_mode(partitionable)
             state_fn = self.compile_state(impl, key.device)
             state = (state_fn() if params is None
                      else state_fn(params.to(key.device)[None])[0])
-            bits = sv.measure_shots(state, key, shots)
+            bits = sv.measure_shots(state, key, shots, partitionable=p)
             if noisy:
                 from qba_tpu_torch.qsim.noise import classical_flips_shots
 
                 bits = bits ^ classical_flips_shots(
-                    key, shots, n, p_depolarize, p_measure_flip)
+                    key, shots, n, p_depolarize, p_measure_flip,
+                    partitionable=p)
             return bits
 
         return run

@@ -140,7 +140,8 @@ class Drewom:
         if not isinstance(circuit, QCircuit):
             raise TypeError("Drewom.execute expects a QCircuit")
         run = circuit._circ.compile_shots(self._impl_for(circuit))
-        self._key, k = jr.split(self._key)
-        bits = run(k, shots).cpu().numpy()
+        p = jr.partitionable_mode()
+        self._key, k = jr.split(self._key, partitionable=p)
+        bits = run(k, shots, partitionable=p).cpu().numpy()
         order = list(circuit._measure_order())
         return [[int(b) for b in row[order]] for row in bits]

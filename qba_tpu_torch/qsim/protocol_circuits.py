@@ -82,20 +82,22 @@ def _perm_bits(perm: torch.Tensor, n_qubits: int) -> torch.Tensor:
     return bits.reshape(perm.shape[:-1] + (-1,)).to(torch.int32)
 
 
-def dense_draws(cfg: QBAConfig, keys: torch.Tensor):
+def dense_draws(cfg: QBAConfig, keys: torch.Tensor, *,
+                partitionable: bool | None = None):
     """The integer draws of the dense path for trial keys ``[T, 2]``:
     ``(qcorr bool [T, S], perms int32 [T, S, n], params int32 [T, S, n *
     n_qubits], meas_keys [T, S, 2])`` — which positions are Q-correlated,
     each position's permutation of ``1..n``, its bits as the Q-correlated
     circuit's runtime params, and its measurement key."""
     n, s = cfg.n_parties, cfg.size_l
-    k = jr.split(keys, 3)
-    qcorr = jr.bernoulli(k[..., 0, :], 0.5, (s,))
-    perm_keys = jr.split(k[..., 1, :], s)
-    meas_keys = jr.split(k[..., 2, :], s)
+    p = jr.resolve_mode(partitionable)
+    k = jr.split(keys, 3, partitionable=p)
+    qcorr = jr.bernoulli(k[..., 0, :], 0.5, (s,), partitionable=p)
+    perm_keys = jr.split(k[..., 1, :], s, partitionable=p)
+    meas_keys = jr.split(k[..., 2, :], s, partitionable=p)
     perms = jr.permutation(
         perm_keys, torch.arange(1, n + 1, dtype=torch.int32,
-                                device=keys.device))
+                                device=keys.device), partitionable=p)
     return qcorr, perms, _perm_bits(perms, cfg.n_qubits), meas_keys
 
 
@@ -109,7 +111,8 @@ def lists_from_bits(cfg: QBAConfig, bits: torch.Tensor) -> torch.Tensor:
 
 
 def generate_lists_dense(cfg: QBAConfig, keys: torch.Tensor,
-                         impl: str = "xla"):
+                         impl: str = "xla", *,
+                         partitionable: bool | None = None):
     """Dense-path list generation for trial keys ``[T, 2]``: one sample
     of the joint circuit per list position, every trial and position in
     one batch.
@@ -133,11 +136,13 @@ def generate_lists_dense(cfg: QBAConfig, keys: torch.Tensor,
     n, nq = cfg.n_parties, cfg.n_qubits
     if keys.dim() != 2:
         raise ValueError(f"keys must be [T, 2]; got {tuple(keys.shape)}")
+    p = jr.resolve_mode(partitionable)
     if impl == "auto":
         impl = gen_q_corr_circuit(n, nq).resolve_auto_impl(keys.device)
         if impl == "stabilizer":
-            return generate_lists_stabilizer(cfg, keys)
-    qcorr, _perms, params, meas_keys = dense_draws(cfg, keys)
+            return generate_lists_stabilizer(cfg, keys, partitionable=p)
+    qcorr, _perms, params, meas_keys = dense_draws(cfg, keys,
+                                                   partitionable=p)
     b, total = qcorr.numel(), cfg.total_qubits
     q = qcorr.reshape(b)
     params, meas_keys = params.reshape(b, -1), meas_keys.reshape(b, 2)
@@ -145,10 +150,11 @@ def generate_lists_dense(cfg: QBAConfig, keys: torch.Tensor,
         noise = (cfg.p_depolarize, cfg.p_measure_flip)
         run_q = gen_q_corr_circuit(n, nq).compile(impl, *noise)
         run_nq = gen_nq_corr_circuit(n, nq).compile(impl, *noise)
-        bits = torch.where(q[:, None], run_q(meas_keys, params),
-                           run_nq(meas_keys))
+        bits = torch.where(q[:, None],
+                           run_q(meas_keys, params, partitionable=p),
+                           run_nq(meas_keys, partitionable=p))
     else:
-        bits = _dense_bits(cfg, impl, q, params, meas_keys)
+        bits = _dense_bits(cfg, impl, q, params, meas_keys, p)
     return lists_from_bits(cfg, bits.reshape(qcorr.shape + (total,))), qcorr
 
 
@@ -181,7 +187,8 @@ def prepare_dense(cfg: QBAConfig, device=None) -> None:
     _dense_states(cfg.n_parties, cfg.n_qubits, impl, dev)
 
 
-def _dense_bits(cfg: QBAConfig, impl: str, qcorr, params, meas_keys):
+def _dense_bits(cfg: QBAConfig, impl: str, qcorr, params, meas_keys,
+                partitionable: bool):
     """Every position's measured bits int32 ``[B, total]`` on a
     statevector executor, for positions ``qcorr`` bool ``[B]``, the
     Q-correlated family's runtime params ``[B, n_params]`` and the
@@ -197,15 +204,18 @@ def _dense_bits(cfg: QBAConfig, impl: str, qcorr, params, meas_keys):
     step = max(1, sv.SAMPLE_CHUNK_ELEMS >> total)
     bits = torch.empty((qcorr.shape[0], total), dtype=torch.int32,
                        device=dev)
-    for a in range(0, qcorr.shape[0], step):
-        rows = slice(a, a + step)
-        state = torch.where(qcorr[rows, None], state_q(params[rows]), shared)
-        bits[rows] = sv.measure_all(state, meas_keys[rows])
+    with jr.threefry_partitionable(partitionable):
+        for a in range(0, qcorr.shape[0], step):
+            rows = slice(a, a + step)
+            state = torch.where(qcorr[rows, None], state_q(params[rows]),
+                                shared)
+            bits[rows] = sv.measure_all(state, meas_keys[rows])
     if cfg.p_depolarize > 0.0 or cfg.p_measure_flip > 0.0:
         from qba_tpu_torch.qsim.noise import classical_flips
 
         bits = bits ^ classical_flips(meas_keys, total, cfg.p_depolarize,
-                                      cfg.p_measure_flip)
+                                      cfg.p_measure_flip,
+                                      partitionable=partitionable)
     return bits
 
 
@@ -300,7 +310,8 @@ def stabilizer_sweep_tables(cfg: QBAConfig, device=None) -> torch.Tensor:
     return _sweep_tables(cfg.n_parties, cfg.n_qubits, _on(device))
 
 
-def stabilizer_gen_operands(cfg: QBAConfig, keys: torch.Tensor):
+def stabilizer_gen_operands(cfg: QBAConfig, keys: torch.Tensor, *,
+                            partitionable: bool | None = None):
     """Per-trial operands of the stabilizer list generation for trial
     keys ``[T, 2]`` (each trial's ``k_lists`` subkey): everything of
     :func:`generate_lists_stabilizer` except the sweep and the decode,
@@ -323,8 +334,10 @@ def stabilizer_gen_operands(cfg: QBAConfig, keys: torch.Tensor):
     total, s = cfg.total_qubits, cfg.size_l
     m = _operand_tables(cfg.n_parties, cfg.n_qubits, keys.device)
 
-    qcorr, _perms, params, meas_keys = dense_draws(cfg, keys)
-    coins = _draw_coins(meas_keys, total)                # [T, S, total]
+    p = jr.resolve_mode(partitionable)
+    qcorr, _perms, params, meas_keys = dense_draws(cfg, keys,
+                                                   partitionable=p)
+    coins = _draw_coins(meas_keys, total, p)             # [T, S, total]
     r_q = m["r_q"] ^ gf2_matmul(params & 1, m["l_q"])
     r_nq = m["r_nq"].expand(keys.shape[0], s, 2 * total)
     noisy = cfg.p_depolarize > 0.0 or cfg.p_measure_flip > 0.0
@@ -332,7 +345,7 @@ def stabilizer_gen_operands(cfg: QBAConfig, keys: torch.Tensor):
         from qba_tpu_torch.qsim.noise import noise_draws
 
         bx, bz, mflip = noise_draws(meas_keys, total, cfg.p_depolarize,
-                                    cfg.p_measure_flip)
+                                    cfg.p_measure_flip, partitionable=p)
         r_q = r_q ^ gf2_matmul(bx, m["z_q"]) ^ gf2_matmul(bz, m["x_q"])
         r_nq = r_nq ^ gf2_matmul(bx, m["z_nq"]) ^ gf2_matmul(bz, m["x_nq"])
     else:
@@ -370,7 +383,8 @@ def stabilizer_bits(cfg: QBAConfig, tables, operands, *,
     return bits.reshape(qcorr.shape + (total,))
 
 
-def generate_lists_stabilizer(cfg: QBAConfig, keys: torch.Tensor):
+def generate_lists_stabilizer(cfg: QBAConfig, keys: torch.Tensor, *,
+                              partitionable: bool | None = None):
     """List generation on the batched GF(2) engine for trial keys ``[T,
     2]`` — the primary resource path at the reference's own scale (the
     48-qubit 11-party and 204-qubit 33-party joint circuits).  Same key
@@ -378,7 +392,8 @@ def generate_lists_stabilizer(cfg: QBAConfig, keys: torch.Tensor):
     are bit-identical to ``generate_lists_dense(cfg, keys,
     impl="stabilizer")`` and to the JAX package's.  Returns ``(lists,
     qcorr)`` as :func:`generate_lists_dense`."""
-    operands = stabilizer_gen_operands(cfg, keys)
+    operands = stabilizer_gen_operands(cfg, keys,
+                                       partitionable=partitionable)
     tables = stabilizer_gen_tables(cfg, keys.device)
     return lists_from_bits(cfg, stabilizer_bits(cfg, tables, operands)), \
         operands[0]

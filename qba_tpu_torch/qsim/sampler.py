@@ -15,7 +15,8 @@ from qba_tpu_torch import random as jr
 from qba_tpu_torch.config import QBAConfig
 
 
-def generate_lists(cfg: QBAConfig, keys: torch.Tensor):
+def generate_lists(cfg: QBAConfig, keys: torch.Tensor, *,
+                   partitionable: bool | None = None):
     """All parties' lists for each trial key ``[..., 2]``.
 
     Returns ``(lists int32 [..., n_parties+1, size_l], qcorr bool
@@ -28,15 +29,16 @@ def generate_lists(cfg: QBAConfig, keys: torch.Tensor):
             f"two > n_parties={n}; engine verdict identities assume "
             "vals in [0, w)"
         )
-    k = jr.split(keys, 4)
-    qcorr = jr.bernoulli(k[..., 0, :], 0.5, (s,))
-    r = jr.randint(k[..., 1, :], (s,), 0, w)
-    noise = jr.bits(k[..., 2, :], (s, n))
+    p = jr.resolve_mode(partitionable)
+    k = jr.split(keys, 4, partitionable=p)
+    qcorr = jr.bernoulli(k[..., 0, :], 0.5, (s,), partitionable=p)
+    r = jr.randint(k[..., 1, :], (s,), 0, w, partitionable=p)
+    noise = jr.bits(k[..., 2, :], (s, n), partitionable=p)
     perms = (torch.argsort(noise, dim=-1, stable=True) + 1).to(torch.int32)
     rows_q = torch.cat(
         [r[..., None, :], r[..., None, :] ^ perms.transpose(-1, -2)], dim=-2
     )
-    u = jr.randint(k[..., 3, :], (n, s), 0, w)
+    u = jr.randint(k[..., 3, :], (n, s), 0, w, partitionable=p)
     rows_nq = torch.cat([u[..., 0:1, :], u], dim=-2)
     lists = torch.where(qcorr[..., None, :], rows_q, rows_nq)
     if cfg.p_depolarize > 0.0 or cfg.p_measure_flip > 0.0:
@@ -44,6 +46,6 @@ def generate_lists(cfg: QBAConfig, keys: torch.Tensor):
 
         lists = lists ^ classical_flip_ints(
             keys, (n + 1, s), cfg.n_qubits,
-            cfg.p_depolarize, cfg.p_measure_flip,
+            cfg.p_depolarize, cfg.p_measure_flip, partitionable=p,
         )
     return lists, qcorr

@@ -114,9 +114,10 @@ def build_tableau_run(n: int, ops, n_params: int, p_depolarize: float = 0.0,
     _validate_ops(ops)
     noisy = p_depolarize > 0.0 or p_measure_flip > 0.0
 
-    def run(keys: torch.Tensor,
-            params: torch.Tensor | None = None) -> torch.Tensor:
+    def run(keys: torch.Tensor, params: torch.Tensor | None = None, *,
+            partitionable: bool | None = None) -> torch.Tensor:
         k, dev = keys.shape[0], keys.device
+        mode = jr.resolve_mode(partitionable)
         if params is None:
             params = torch.zeros((k, max(n_params, 1)), dtype=torch.int32,
                                  device=dev)
@@ -132,10 +133,10 @@ def build_tableau_run(n: int, ops, n_params: int, p_depolarize: float = 0.0,
             from qba_tpu_torch.qsim.noise import noise_draws
 
             bx, bz, mflip = noise_draws(keys, n, p_depolarize,
-                                        p_measure_flip)
+                                        p_measure_flip, partitionable=mode)
             r = r ^ (((z * bx[:, None, :]).sum(-1)
                       + (x * bz[:, None, :]).sum(-1)) & 1).to(torch.int32)
-        rnds = (jr.bits(keys, (n,)) & 1).to(torch.int32)
+        rnds = (jr.bits(keys, (n,), partitionable=mode) & 1).to(torch.int32)
         rows = torch.arange(2 * n, device=dev)
         shots = torch.arange(k, device=dev)
         out = torch.zeros((k, n), dtype=torch.int32, device=dev)
@@ -189,10 +190,12 @@ def build_tableau_run_shots(n: int, ops, n_params: int,
     run1 = build_tableau_run(n, ops, n_params, p_depolarize, p_measure_flip)
 
     def run(key: torch.Tensor, shots: int,
-            params: torch.Tensor | None = None) -> torch.Tensor:
-        keys = jr.split(key, shots)
+            params: torch.Tensor | None = None, *,
+            partitionable: bool | None = None) -> torch.Tensor:
+        mode = jr.resolve_mode(partitionable)
+        keys = jr.split(key, shots, partitionable=mode)
         if params is not None:
             params = params.to(key.device)[None].expand(shots, -1)
-        return run1(keys, params)
+        return run1(keys, params, partitionable=mode)
 
     return run

@@ -147,7 +147,8 @@ def _bits_of(idx: torch.Tensor, n: int) -> torch.Tensor:
     return ((idx[..., None] >> shifts) & 1).to(torch.int32)
 
 
-def measure_all(state: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+def measure_all(state: torch.Tensor, keys: torch.Tensor, *,
+                partitionable: bool | None = None) -> torch.Tensor:
     """One computational-basis sample of every qubit per key.
 
     ``state`` is flat, ``[2**n]`` (one state for every key) or ``[K,
@@ -157,23 +158,25 @@ def measure_all(state: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
     """
     size = state.shape[-1]
     n = size.bit_length() - 1
+    p = jr.resolve_mode(partitionable)
     logits = torch.log(torch.abs(state) ** 2)
     step = max(1, SAMPLE_CHUNK_ELEMS // size)
     idx = torch.empty(keys.shape[0], dtype=torch.int64, device=keys.device)
     for a in range(0, keys.shape[0], step):
         idx[a:a + step] = jr.categorical(
             keys[a:a + step],
-            logits if logits.dim() == 1 else logits[a:a + step])
+            logits if logits.dim() == 1 else logits[a:a + step],
+            partitionable=p)
     return _bits_of(idx, n)
 
 
-def measure_shots(state: torch.Tensor, key: torch.Tensor,
-                  shots: int) -> torch.Tensor:
+def measure_shots(state: torch.Tensor, key: torch.Tensor, shots: int, *,
+                  partitionable: bool | None = None) -> torch.Tensor:
     """``shots`` independent samples from ONE flat state ``[2**n]`` under
     one key ``[2]``: int32 bits ``[shots, n]``
     (``jax.random.categorical(key, logits, shape=(shots,))``)."""
     size = state.shape[-1]
     n = size.bit_length() - 1
     logits = torch.log(torch.abs(state) ** 2)
-    g = jr.gumbel(key, (shots, size))
+    g = jr.gumbel(key, (shots, size), partitionable=partitionable)
     return _bits_of(torch.argmax(g + logits, dim=-1), n)

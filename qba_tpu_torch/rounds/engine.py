@@ -40,6 +40,12 @@ overflow flag into :class:`ProtocolCounters`.  The megakernel has no
 per-round loop on the host: with counters on, ``auto`` on CUDA picks
 ``pallas_fused`` and an explicit ``pallas_mega`` demotes to it with a
 :class:`QBADemotionWarning`.
+
+Every function that draws takes JAX's threefry mode as
+``partitionable`` (None: the current mode,
+:func:`qba_tpu_torch.random.resolve_mode`), reads it once and passes the
+bool down to the draws, the kernels' instantiations and the list
+generation.
 """
 
 from __future__ import annotations
@@ -174,7 +180,8 @@ def p_sets(lists: torch.Tensor, v_sent: torch.Tensor) -> torch.Tensor:
     return is_qcorr[..., None, :] & (lists[..., 1:2, :] == v_sent[..., None])
 
 
-def setup_trial(cfg: QBAConfig, keys: torch.Tensor):
+def setup_trial(cfg: QBAConfig, keys: torch.Tensor, *,
+                partitionable: bool | None = None):
     """Protocol phases before the round loop, for trial keys ``[T, 2]``:
     dishonesty assignment, particle lists, commander orders and each
     lieutenant's P-set.
@@ -182,15 +189,18 @@ def setup_trial(cfg: QBAConfig, keys: torch.Tensor):
     Returns ``(honest [T, n+1], lieu_lists [T, n_lieu, S], p_rows
     [T, n_lieu, S], v_sent [T, n_lieu], v_comm [T], k_rounds [T, 2])``.
     """
-    k = jr.split(keys, 4)
-    honest = assign_dishonest(cfg, k[..., 0, :])
-    lists, _qcorr = generate_lists_for(cfg, k[..., 1, :])
-    v_sent, v_comm = commander_orders(cfg, k[..., 2, :], honest[..., 1])
+    p = jr.resolve_mode(partitionable)
+    k = jr.split(keys, 4, partitionable=p)
+    honest = assign_dishonest(cfg, k[..., 0, :], partitionable=p)
+    lists, _qcorr = generate_lists_for(cfg, k[..., 1, :], partitionable=p)
+    v_sent, v_comm = commander_orders(cfg, k[..., 2, :], honest[..., 1],
+                                      partitionable=p)
     return (honest, lists[..., 2:, :], p_sets(lists, v_sent), v_sent, v_comm,
             k[..., 3, :])
 
 
-def _mega_gen_setup(cfg: QBAConfig, keys: torch.Tensor):
+def _mega_gen_setup(cfg: QBAConfig, keys: torch.Tensor,
+                    partitionable: bool | None = None):
     """:func:`setup_trial`'s phases for the megakernel's gen entry: the
     same key split (``k_dis, k_lists, k_comm, k_rounds``), with
     ``k_lists`` feeding
@@ -199,10 +209,12 @@ def _mega_gen_setup(cfg: QBAConfig, keys: torch.Tensor):
     v_sent, v_comm, k_rounds)``."""
     from qba_tpu_torch.qsim.protocol_circuits import stabilizer_gen_operands
 
-    k = jr.split(keys, 4)
-    honest = assign_dishonest(cfg, k[..., 0, :])
-    gen_ops = stabilizer_gen_operands(cfg, k[..., 1, :])
-    v_sent, v_comm = commander_orders(cfg, k[..., 2, :], honest[..., 1])
+    p = jr.resolve_mode(partitionable)
+    k = jr.split(keys, 4, partitionable=p)
+    honest = assign_dishonest(cfg, k[..., 0, :], partitionable=p)
+    gen_ops = stabilizer_gen_operands(cfg, k[..., 1, :], partitionable=p)
+    v_sent, v_comm = commander_orders(cfg, k[..., 2, :], honest[..., 1],
+                                      partitionable=p)
     return honest, gen_ops, v_sent, v_comm, k[..., 3, :]
 
 
@@ -390,12 +402,14 @@ def scan_rounds(cfg: QBAConfig, round_body, vi, state):
 
 
 def run_rounds_xla(cfg: QBAConfig, vi, mb: Mailbox, lieu_lists, honest,
-                   k_rounds, ctx=None):
+                   k_rounds, ctx=None, *, partitionable: bool | None = None):
     """Step 3b on the dense mailbox, one :func:`receiver_round` per
     round.  Returns ``(vi, overflow [T], counters)``."""
+    p = jr.resolve_mode(partitionable)
 
     def round_body(r, vi, mb):
-        draws = sample_attacks_round(cfg, jr.fold_in(k_rounds, r), r, ctx)
+        draws = sample_attacks_round(cfg, jr.fold_in(k_rounds, r), r, ctx,
+                                     partitionable=p)
         return receiver_round(cfg, r, draws, vi, lieu_lists, mb, honest)
 
     return scan_rounds(cfg, round_body, vi, mb)
@@ -406,17 +420,20 @@ def _run_rounds_kernel(cfg: QBAConfig, round_step, vi, state, spare,
     """Step 3b on a per-round kernel: ``round_step(r, state, li, vi,
     honest_c, attack, rand_v, late, out) -> (state', vi', overflow)`` per
     round, the packet state (a pool or a packed mailbox) ping-ponging
-    between two buffers allocated once per batch.  Returns ``(vi,
+    between two buffers allocated once per batch, each round's draws in
+    the threefry mode its caller runs it in (read once).  Returns ``(vi,
     overflow [T], counters)``."""
     from qba_tpu_torch.ops.round_kernel_tiled import honest_cells
 
+    partitionable = jr.partitionable_mode()
     hc = honest_cells(honest, cfg)
     li = lieu_lists.to(torch.int32).contiguous()
 
     def round_body(r, vi, bufs):
         cur, spare = bufs
         new, vi, ovf = round_step(r, cur, li, vi, hc,
-                                  *round_draws(cfg, k_rounds, ctx, r),
+                                  *round_draws(cfg, k_rounds, ctx, r,
+                                               partitionable=partitionable),
                                   out=spare)
         return vi, (new, cur), ovf
 
@@ -426,7 +443,8 @@ def _run_rounds_kernel(cfg: QBAConfig, round_step, vi, state, spare,
 
 
 def run_rounds_pallas(cfg: QBAConfig, vi, out_cells, lieu_lists, honest,
-                      k_rounds, ctx=None):
+                      k_rounds, ctx=None, *,
+                      partitionable: bool | None = None):
     """Step 3b on the dense-mailbox round kernel: one
     :func:`~qba_tpu_torch.ops.round_kernel.round_step` per round over
     the packed mailbox.  Returns ``(vi, overflow [T], counters)``."""
@@ -436,31 +454,34 @@ def run_rounds_pallas(cfg: QBAConfig, vi, out_cells, lieu_lists, honest,
         round_step,
     )
 
-    return _run_rounds_kernel(
-        cfg, functools.partial(round_step, cfg), vi,
-        packed_from_step3a(cfg, out_cells),
-        empty_mailbox(cfg, vi.shape[0], vi.device), lieu_lists, honest,
-        k_rounds, ctx,
-    )
+    with jr.threefry_partitionable(jr.resolve_mode(partitionable)):
+        return _run_rounds_kernel(
+            cfg, functools.partial(round_step, cfg), vi,
+            packed_from_step3a(cfg, out_cells),
+            empty_mailbox(cfg, vi.shape[0], vi.device), lieu_lists, honest,
+            k_rounds, ctx,
+        )
 
 
 def _run_rounds_pool(cfg: QBAConfig, round_step, vi, out_cells, lieu_lists,
-                     honest, k_rounds, ctx):
+                     honest, k_rounds, ctx, partitionable):
     """Step 3b over the compacted pool (see :func:`_run_rounds_kernel`)."""
     from qba_tpu_torch.ops.round_kernel_tiled import (
         empty_pool,
         pool_from_step3a,
     )
 
-    return _run_rounds_kernel(
-        cfg, round_step, vi, pool_from_step3a(cfg, out_cells),
-        empty_pool(cfg, vi.shape[0], vi.device), lieu_lists, honest,
-        k_rounds, ctx,
-    )
+    with jr.threefry_partitionable(jr.resolve_mode(partitionable)):
+        return _run_rounds_kernel(
+            cfg, round_step, vi, pool_from_step3a(cfg, out_cells),
+            empty_pool(cfg, vi.shape[0], vi.device), lieu_lists, honest,
+            k_rounds, ctx,
+        )
 
 
 def run_rounds_fused(cfg: QBAConfig, vi, out_cells, lieu_lists, honest,
-                     k_rounds, ctx=None):
+                     k_rounds, ctx=None, *,
+                     partitionable: bool | None = None):
     """Step 3b on the fused round kernel: one
     :func:`~qba_tpu_torch.ops.round_kernel_tiled.fused_round` per round
     over the compacted pool.  Returns ``(vi, overflow [T], counters)``."""
@@ -468,12 +489,13 @@ def run_rounds_fused(cfg: QBAConfig, vi, out_cells, lieu_lists, honest,
 
     return _run_rounds_pool(
         cfg, functools.partial(fused_round, cfg), vi, out_cells, lieu_lists,
-        honest, k_rounds, ctx,
+        honest, k_rounds, ctx, partitionable,
     )
 
 
 def run_rounds_tiled(cfg: QBAConfig, vi, out_cells, lieu_lists, honest,
-                     k_rounds, ctx=None):
+                     k_rounds, ctx=None, *,
+                     partitionable: bool | None = None):
     """Step 3b on the two-kernel tiled round: per round one
     :func:`~qba_tpu_torch.ops.round_kernel_tiled.tiled_verdict` (the
     accepted matrix and ``vi'``) and one
@@ -492,20 +514,22 @@ def run_rounds_tiled(cfg: QBAConfig, vi, out_cells, lieu_lists, honest,
         return new, vi, ovf
 
     return _run_rounds_pool(cfg, round_step, vi, out_cells, lieu_lists,
-                            honest, k_rounds, ctx)
+                            honest, k_rounds, ctx, partitionable)
 
 
-def round_draws(cfg: QBAConfig, k_rounds, ctx, r: int):
+def round_draws(cfg: QBAConfig, k_rounds, ctx, r: int, *,
+                partitionable: bool | None = None):
     """Round ``r``'s draw tables ``(attack, rand_v, late)``, each uint8
     ``[T, n_pool, n_rv]``: one launch of the draws kernel on CUDA
     (:func:`~qba_tpu_torch.ops.attack_draws.attack_draws`), its plain
     version on the CPU.  The per-round kernel engines draw a round at a
     time, so their peak memory holds one round's tables."""
-    return tuple(x[:, 0] for x in attack_draws(cfg, k_rounds.contiguous(),
-                                                ctx, r, 1))
+    return tuple(x[:, 0] for x in attack_draws(
+        cfg, k_rounds.contiguous(), ctx, r, 1, partitionable=partitionable))
 
 
-def run_trial_mega(cfg: QBAConfig, keys: torch.Tensor) -> TrialResult:
+def run_trial_mega(cfg: QBAConfig, keys: torch.Tensor, *,
+                   partitionable: bool | None = None) -> TrialResult:
     """Full protocol executions on the trial megakernel
     (:func:`qba_tpu_torch.ops.trial_megakernel.trial_megakernel_keyed`):
     the same key tree as :func:`setup_trial`, then step 3a, the rounds
@@ -525,26 +549,32 @@ def run_trial_mega(cfg: QBAConfig, keys: torch.Tensor) -> TrialResult:
         trial_megakernel_keyed,
     )
 
+    p = jr.resolve_mode(partitionable)
     gen = resolve_mega_gen(cfg, keys.device) == "gf2"
     if gen:
         honest, gen_ops, v_sent, v_comm, k_rounds = _mega_gen_setup(cfg,
-                                                                    keys)
+                                                                    keys, p)
     else:
         honest, lieu_lists, p_rows, v_sent, v_comm, k_rounds = setup_trial(
-            cfg, keys)
-    ctx = adversary_ctx(cfg, k_rounds, v_sent)
+            cfg, keys, partitionable=p)
+    ctx = adversary_ctx(cfg, k_rounds, v_sent, partitionable=p)
     v32, hc = v_sent.to(torch.int32).contiguous(), honest_cells(honest, cfg)
     k_rounds = k_rounds.contiguous()
-    if gen:
-        from qba_tpu_torch.qsim.protocol_circuits import stabilizer_gen_tables
+    # The launch runs in the batch's mode (the wrappers read it once).
+    with jr.threefry_partitionable(p):
+        if gen:
+            from qba_tpu_torch.qsim.protocol_circuits import (
+                stabilizer_gen_tables,
+            )
 
-        vi, dec, overflow = trial_megakernel_gen_keyed(
-            cfg, stabilizer_gen_tables(cfg, keys.device), gen_ops, v32, hc,
-            k_rounds, ctx)
-    else:
-        vi, dec, overflow = trial_megakernel_keyed(
-            cfg, p_rows.contiguous(), lieu_lists.to(torch.int32).contiguous(),
-            v32, hc, k_rounds, ctx)
+            vi, dec, overflow = trial_megakernel_gen_keyed(
+                cfg, stabilizer_gen_tables(cfg, keys.device), gen_ops, v32,
+                hc, k_rounds, ctx)
+        else:
+            vi, dec, overflow = trial_megakernel_keyed(
+                cfg, p_rows.contiguous(),
+                lieu_lists.to(torch.int32).contiguous(), v32, hc, k_rounds,
+                ctx)
     return mega_result(honest, v_comm, vi, dec, overflow)
 
 
@@ -581,45 +611,51 @@ def finish_trial(cfg: QBAConfig, vi, v_comm, honest, overflow,
     )
 
 
-def run_chunk_counts(cfg: QBAConfig, keys: torch.Tensor):
+def run_chunk_counts(cfg: QBAConfig, keys: torch.Tensor, *,
+                     partitionable: bool | None = None):
     """One chunk's verdicts reduced on its device: ``(successes int32,
     overflow bool)`` 0-dim tensors from a :func:`run_trial` batch, the
     two numbers a stopping rule reads (counterpart of
     :func:`qba_tpu.rounds.engine.run_chunk_counts`)."""
-    res = run_trial(cfg, keys)
+    res = run_trial(cfg, keys, partitionable=partitionable)
     return res.success.sum(dtype=torch.int32), res.overflow.any()
 
 
-def run_chunk_outcomes(cfg: QBAConfig, keys: torch.Tensor):
+def run_chunk_outcomes(cfg: QBAConfig, keys: torch.Tensor, *,
+                       partitionable: bool | None = None):
     """Like :func:`run_chunk_counts` but keeps the per-trial success
     bits: ``(success bool [len(keys)], overflow bool 0-dim)``, for a
     caller that reports each trial's success."""
-    res = run_trial(cfg, keys)
+    res = run_trial(cfg, keys, partitionable=partitionable)
     return res.success, res.overflow.any()
 
 
-def run_trial(cfg: QBAConfig, keys: torch.Tensor) -> TrialResult:
+def run_trial(cfg: QBAConfig, keys: torch.Tensor, *,
+              partitionable: bool | None = None) -> TrialResult:
     """Full protocol executions for a batch of trial keys ``[T, 2]`` on
-    their device, with the engine :func:`resolve_round_engine` picks."""
+    their device, with the engine :func:`resolve_round_engine` picks, in
+    ``partitionable``'s threefry mode (None: the current mode)."""
+    p = jr.resolve_mode(partitionable)
     engine = resolve_round_engine(cfg, keys.device)
     if engine == "pallas_mega":
         # The megakernel absorbs step 3a and the decisions too.
-        return run_trial_mega(cfg, keys)
+        return run_trial_mega(cfg, keys, partitionable=p)
     honest, lieu_lists, p_rows, v_sent, v_comm, k_rounds = setup_trial(
-        cfg, keys
+        cfg, keys, partitionable=p
     )
     vi, out_cells = step3a_one(cfg, p_rows, v_sent, lieu_lists)
-    ctx = adversary_ctx(cfg, k_rounds, v_sent)
+    ctx = adversary_ctx(cfg, k_rounds, v_sent, partitionable=p)
     if engine == "xla":
         vi, overflow, counters = run_rounds_xla(
             cfg, vi, mailbox_from_step3a(cfg, out_cells), lieu_lists,
-            honest, k_rounds, ctx,
+            honest, k_rounds, ctx, partitionable=p,
         )
     else:
         rounds = {"pallas": run_rounds_pallas,
                   "pallas_fused": run_rounds_fused,
                   "pallas_tiled": run_rounds_tiled}[engine]
         vi, overflow, counters = rounds(
-            cfg, vi, out_cells, lieu_lists, honest, k_rounds, ctx
+            cfg, vi, out_cells, lieu_lists, honest, k_rounds, ctx,
+            partitionable=p,
         )
     return finish_trial(cfg, vi, v_comm, honest, overflow, counters)

@@ -123,11 +123,13 @@ class _Active:
         )
 
 
-def request_keys(cfg: QBAConfig) -> np.ndarray:
+def request_keys(cfg: QBAConfig, *,
+                 partitionable: bool | None = None) -> np.ndarray:
     """The request's trial keys as the host key table, uint32 ``[trials,
     2]`` (the JAX package's ``key_data`` form): ``split(key(seed),
     trials)``, derived on the CPU before anything is in flight."""
-    keys = jr.split(jr.key(cfg.seed, "cpu"), cfg.trials)
+    keys = jr.split(jr.key(cfg.seed, "cpu"), cfg.trials,
+                    partitionable=partitionable)
     # qba-lint: sync-ok (host data: the key table is derived on the CPU)
     return keys.numpy().astype(np.uint32)
 
@@ -137,7 +139,9 @@ class QBAServer:
     raising without a card; ``"cpu"`` runs the plain versions).
     Single-threaded by design: one recorder per request keeps span
     nesting well-formed, and the overlap comes from CUDA's asynchronous
-    launches, not host threads."""
+    launches, not host threads.  JAX's threefry mode is read once, when
+    the server is made (:attr:`partitionable`), and every request's keys,
+    chunks and device loops run in it."""
 
     def __init__(
         self,
@@ -161,6 +165,7 @@ class QBAServer:
                 f"dispatch must be 'host' or 'device', got {dispatch!r}"
             )
         self.device = resolve_device(device)
+        self.partitionable = jr.partitionable_mode()
         self.scheduler = BucketScheduler(chunk_trials)
         self.depth = depth
         self.deadline_s = deadline_s
@@ -221,7 +226,7 @@ class QBAServer:
             and not req.return_decisions
             and cfg.trials >= self.scheduler.chunk_trials
         )
-        key_data = request_keys(cfg)
+        key_data = request_keys(cfg, partitionable=self.partitionable)
         recorder = SpanRecorder()
         probe_before = probe_stats_snapshot()
         bucket = self.scheduler.bucket_for(cfg)
@@ -487,7 +492,8 @@ class QBAServer:
                     # The loop's one readback ends inside: fenced.
                     i_stop, counts_h, ovf_h, succ_h, info = (
                         device_loop_prefix(ar.bucket, n_chunks, ct, keys,
-                                           lo, hi, self.device))
+                                           lo, hi, self.device,
+                                           partitionable=self.partitionable))
                     sp.fenced = True
                     sp.args.update(info)
         except (*_KERNEL_ERRORS, GraphLoopError) as e:
@@ -551,8 +557,9 @@ class QBAServer:
                         # chunks in flight instead of waiting for them.
                         keys = keys.pin_memory().to(self.device,
                                                     non_blocking=True)
-                    trials = run_trials(chunk.bucket, keys,
-                                        device=self.device).trials
+                    with jr.threefry_partitionable(self.partitionable):
+                        trials = run_trials(chunk.bucket, keys,
+                                            device=self.device).trials
                     # One packed tensor: the readback is one copy.
                     packed = torch.cat(
                         [trials.decisions.to(torch.int32),

@@ -32,6 +32,7 @@ by their build (``ops/_build.py``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import tempfile
@@ -122,12 +123,14 @@ class SweepResult:
 
 
 def chunk_keys(cfg: QBAConfig, chunk: int, chunk_trials: int,
-               device=None) -> torch.Tensor:
+               device=None, *,
+               partitionable: bool | None = None) -> torch.Tensor:
     """The chunk's trial keys int64 ``[chunk_trials, 2]`` on ``device``
-    — a pure function of (seed, chunk), so a resumed sweep consumes
-    randomness identical to an uninterrupted one."""
+    — a pure function of (seed, chunk) and the threefry mode, so a
+    resumed sweep consumes randomness identical to an uninterrupted
+    one."""
     root = jr.fold_in(jr.key(cfg.seed, device), chunk)
-    return jr.split(root, chunk_trials)
+    return jr.split(root, chunk_trials, partitionable=partitionable)
 
 
 def _config_fingerprint(cfg: QBAConfig) -> dict[str, Any]:
@@ -223,9 +226,11 @@ def save_checkpoint(
     _atomic_write_json(path, payload)
 
 
-def _default_runner(chunk_trials: int, log: EventLog | None, device):
+def _default_runner(chunk_trials: int, log: EventLog | None, device,
+                    partitionable: bool):
     """One device's batch, or the chunk dp-sharded over every visible
-    CUDA device when there are several and they divide the chunk."""
+    CUDA device when there are several and they divide the chunk, in
+    ``partitionable``'s threefry mode."""
     from qba_tpu_torch.backends.torch_backend import batched_trials
 
     n = torch.cuda.device_count() if device.type == "cuda" else 1
@@ -238,7 +243,7 @@ def _default_runner(chunk_trials: int, log: EventLog | None, device):
                 devices=n,
                 chunk_trials=chunk_trials,
             )
-        return batched_trials
+        return functools.partial(batched_trials, partitionable=partitionable)
     from qba_tpu_torch.parallel import make_mesh, run_trials_sharded
 
     mesh = make_mesh({"dp": n})
@@ -246,7 +251,8 @@ def _default_runner(chunk_trials: int, log: EventLog | None, device):
         log.info("sweep", "chunks dp-sharded over devices", devices=n)
 
     def runner(cfg, keys):
-        return run_trials_sharded(cfg, mesh, keys).trials
+        return run_trials_sharded(cfg, mesh, keys,
+                                  partitionable=partitionable).trials
 
     return runner
 
@@ -266,12 +272,15 @@ def run_chunk(
     runner,
     timers: PhaseTimers,
     device=None,
+    *,
+    partitionable: bool | None = None,
 ) -> ChunkResult:
     """Execute ONE chunk: dispatch span, fenced readback span,
     :class:`ChunkResult` out.  The sequential paths (``target=`` sweeps,
     the surface allocator) run this: a stopping rule must see chunk k's
     counts before deciding whether chunk k+1 runs at all."""
-    keys = chunk_keys(cfg, chunk, chunk_trials, device)
+    keys = chunk_keys(cfg, chunk, chunk_trials, device,
+                      partitionable=partitionable)
     t0 = timers.total("dispatch")
     with timers.time("dispatch", chunk=chunk):
         res = runner(cfg, keys)
@@ -323,6 +332,7 @@ def _run_sweep_targeted_device(
     timers: PhaseTimers,
     resume_force: bool,
     device: torch.device,
+    partitionable: bool,
 ) -> SweepResult:
     """The ``dispatch="device"`` targeted path: the loop of
     :func:`~qba_tpu_torch.ops.sweep_loop.device_loop` (one CUDA graph
@@ -365,7 +375,8 @@ def _run_sweep_targeted_device(
         ) as sp:
             # The loop's one readback ends inside: the span is fenced.
             i_stop, counts, ovf, info = device_loop(
-                cfg, n_chunks, chunk_trials, start, k_start, lo, hi, device)
+                cfg, n_chunks, chunk_trials, start, k_start, lo, hi, device,
+                partitionable=partitionable)
             sp.fenced = True
             sp.args.update(info)
         for c in range(start, i_stop):
@@ -438,6 +449,7 @@ def _run_sweep_targeted(
     runner,
     resume_force: bool,
     device: torch.device,
+    partitionable: bool,
 ) -> SweepResult:
     """The ``target=`` path of :func:`run_sweep`: chunks run one at a
     time through ``target``'s stopping rule until it fires or the
@@ -463,8 +475,10 @@ def _run_sweep_targeted(
     next_chunk = len(chunks)
     while decision is None and next_chunk < n_chunks:
         if runner is None:
-            runner = _default_runner(chunk_trials, log, device)
-        cr = run_chunk(cfg, next_chunk, chunk_trials, runner, timers, device)
+            runner = _default_runner(chunk_trials, log, device,
+                                     partitionable)
+        cr = run_chunk(cfg, next_chunk, chunk_trials, runner, timers, device,
+                       partitionable=partitionable)
         chunks.append(cr)
         rule.observe(cr.successes, cr.trials)
         decision = rule.decision()
@@ -626,6 +640,7 @@ def _run_surface_targeted_device(
     with_manifest: bool,
     resume_force: bool,
     device: torch.device,
+    partitionable: bool,
 ) -> list[SurfaceCell]:
     """The ``dispatch="device"`` surface: the whole adaptive grid runs
     through :func:`~qba_tpu_torch.ops.surface_loop.device_surface_loop`
@@ -698,7 +713,8 @@ def _run_surface_targeted_device(
                     [g[4] for g in grid], steps, budget_chunks,
                     chunk_trials, target.confidence, threshold,
                     [r.k for r in rules], [len(c) for c in cell_chunks],
-                    [d is not None for d in cell_decision], lo, hi, device)
+                    [d is not None for d in cell_decision], lo, hi, device,
+                    partitionable=partitionable)
                 sp.fenced = True
                 sp.args.update(info)
 
@@ -813,6 +829,7 @@ def _run_surface_targeted(
     with_manifest: bool,
     resume_force: bool,
     device: torch.device,
+    partitionable: bool,
 ) -> list[SurfaceCell]:
     """The ``target=`` path of :func:`run_surface`: one shared chunk
     budget spent across the grid by the adaptive allocator
@@ -854,11 +871,12 @@ def _run_surface_targeted(
     while (idx := alloc.next_cell()) is not None:
         cfg_cell, ckpt = grid[idx][4], grid[idx][5]
         if runner is None:
-            runner = _default_runner(chunk_trials, log, device)
+            runner = _default_runner(chunk_trials, log, device,
+                                     partitionable)
         chunk_index = len(cell_chunks[idx])
         with record_decisions() as decs:
             cr = run_chunk(cfg_cell, chunk_index, chunk_trials, runner,
-                           timers, device)
+                           timers, device, partitionable=partitionable)
         cell_decisions[idx].extend(decs)
         cell_chunks[idx].append(cr)
         dec = alloc.record(idx, cr.successes, cr.trials)
@@ -916,6 +934,8 @@ def run_surface(
     dispatch: str = "host",
     store_dir: str | None = None,
     device=None,
+    *,
+    partitionable: bool | None = None,
 ) -> list[SurfaceCell]:
     """The (strategy x noise x sizeL) adversary surface: every cell is a
     :func:`run_sweep` over the same runner, with the same key discipline
@@ -966,6 +986,7 @@ def run_surface(
             "body switches into each cell's captured chunk"
         )
     dev = resolve_device(device)
+    p = jr.resolve_mode(partitionable)
     if dispatch == "device" and dev.type == "cuda":
         from qba_tpu_torch.ops.surface_loop import check_driver
 
@@ -982,13 +1003,13 @@ def run_surface(
             cells = _run_surface_targeted_device(
                 cfg, strategies, noise_points, size_ls, target, budget,
                 chunk_trials, checkpoint_dir, log, with_manifest,
-                resume_force, dev,
+                resume_force, dev, p,
             )
         else:
             cells = _run_surface_targeted(
                 cfg, strategies, noise_points, size_ls, target, budget,
                 chunk_trials, checkpoint_dir, log, runner, with_manifest,
-                resume_force, dev,
+                resume_force, dev, p,
             )
         return _publish_surface_cells(cells, store_dir, target, chunk_trials)
 
@@ -1005,6 +1026,7 @@ def run_surface(
                 runner=runner,
                 resume_force=resume_force,
                 device=dev,
+                partitionable=p,
             )
         manifest = (
             collect_manifest(
@@ -1071,10 +1093,13 @@ def run_sweep(
     resume_force: bool = False,
     dispatch: str = "host",
     device=None,
+    *,
+    partitionable: bool | None = None,
 ) -> SweepResult:
     """Run ``n_chunks`` batches of ``chunk_trials`` trials each on
     ``device`` (``None``: CUDA, raising without a card; ``"cpu"``: the
-    plain PyTorch path).
+    plain PyTorch path), in ``partitionable``'s threefry mode (None: the
+    current mode, read once for every chunk).
 
     ``runner(cfg, keys) -> TrialResult`` defaults to one device's batch
     (:func:`qba_tpu_torch.backends.torch_backend.batched_trials`), or to
@@ -1117,6 +1142,7 @@ def run_sweep(
                 "loop body is the captured run_trial chunk"
             )
     dev = resolve_device(device)
+    p = jr.resolve_mode(partitionable)
     if chunk_trials is None:
         chunk_trials = cfg.trials
     timers = timers or PhaseTimers()
@@ -1127,11 +1153,11 @@ def run_sweep(
         if dispatch == "device":
             return _run_sweep_targeted_device(
                 cfg, target, n_chunks, chunk_trials, checkpoint, log,
-                timers, resume_force, dev,
+                timers, resume_force, dev, p,
             )
         return _run_sweep_targeted(
             cfg, target, n_chunks, chunk_trials, checkpoint, log, timers,
-            runner, resume_force, dev,
+            runner, resume_force, dev, p,
         )
 
     loaded = (
@@ -1185,8 +1211,9 @@ def run_sweep(
         for chunk in todo:
             if runner is None:
                 # Lazy: a fully-checkpointed re-run builds no runner.
-                runner = _default_runner(chunk_trials, log, dev)
-            keys = chunk_keys(cfg, chunk, chunk_trials, dev)
+                runner = _default_runner(chunk_trials, log, dev, p)
+            keys = chunk_keys(cfg, chunk, chunk_trials, dev,
+                              partitionable=p)
             t0 = timers.total("dispatch")
             with timers.time("dispatch", chunk=chunk):
                 res = runner(cfg, keys)

@@ -22,12 +22,35 @@ cells hold stale packets);
 and the GF(2) sweep with its plain version on :func:`random_sweep_inputs`
 (the tableaux of :func:`random_clifford` circuits, random phases, coins
 and readout flips).  Everything is made with numpy from a seed.
+
+:data:`GOLD_PINS` are the repo's fixed, recorded outputs, which the tests
+and ``chip_smoke.py`` hold the port to in JAX's legacy threefry mode.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+# The repo's golden pins, copied from tests/test_strategies.py:63-76
+# (GOLD_5P and GOLD_11P: the reference strategy without noise, recorded
+# in JAX's legacy threefry mode, jax_threefry_partitionable=False): the
+# config's fields, then each trial's success and decisions (commander
+# first) of run_trials(cfg, trial_keys(cfg)).
+GOLD_PINS = (
+    ("GOLD_5P",
+     dict(n_parties=5, size_l=16, n_dishonest=2, trials=6, seed=2026),
+     [False, True, True, False, True, False],
+     [[5, 0, 5, 0, 5], [6, 6, 6, 6, 6], [4, 4, 4, 4, 4],
+      [7, 3, 2, 2, 2], [1, 0, 0, 0, 0], [4, 2, 4, 2, 2]]),
+    ("GOLD_11P",
+     dict(n_parties=11, size_l=8, n_dishonest=3, trials=4, seed=77),
+     [True, False, True, False],
+     [[2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2],
+      [7, 0, 0, 1, 1, 0, 0, 0, 0, 0, 0],
+      [9, 9, 9, 9, 9, 9, 9, 9, 9, 9, 9],
+      [6, 15, 15, 15, 15, 15, 2, 2, 2, 2, 2]]),
+)
 
 from qba_tpu_torch.config import QBAConfig
 from qba_tpu_torch.convert import (

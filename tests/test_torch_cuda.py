@@ -25,6 +25,9 @@ masks, equals the ``xla`` engine trial for trial.  The device surface's
 ``surface_pick`` and ``surface_fold`` equal their plain versions, and
 its graph (a WHILE node over pick, a SWITCH into the chosen cell's
 captured chunk, and fold) equals the host surface and the plain loop.
+In JAX's legacy threefry mode the draws kernel's and the keyed entries'
+legacy instantiations equal their plain versions, and the repo's golden
+pins come out exactly on every engine.
 The invariant checker's dynamic checks (``qba_tpu_torch.analysis``: the
 launch pin, the carry audit and the sync probe) pass on the kernels,
 and the measurement harness's last rep (``benchmark.measure_batch``,
@@ -1436,3 +1439,78 @@ def test_measure_batch_on_the_card_equals_run_trials(cuda, chunk):
     for f in ("decisions", "success", "vi", "overflow"):
         got = torch.cat([getattr(r.trials, f) for r in results])
         assert got.device.type == "cuda" and torch.equal(got, getattr(want, f))
+
+
+# ---- JAX's legacy threefry mode ------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combo", list(DRAW_COMBOS))
+def test_legacy_attack_draws_kernel(cuda, combo):
+    # The draws kernel's legacy instantiation: its tables pair entries
+    # across the whole round's table, a window of rounds included.
+    cfg = qba_tpu_torch.QBAConfig(n_parties=11, size_l=16, n_dishonest=3,
+                                  trials=16, seed=8, **DRAW_COMBOS[combo])
+    with jr.threefry_partitionable(False):
+        _body, k_rounds, ctx = keyed_inputs_of(cfg, cuda)
+        got = attack_draws(cfg, k_rounds, ctx)
+        assert_equal(got, attack_draws_reference(cfg, k_rounds, ctx))
+        assert_equal(attack_draws(cfg, k_rounds, ctx, 3, 1),
+                     attack_draws_reference(cfg, k_rounds, ctx, 3, 1))
+    other = attack_draws(cfg, k_rounds, ctx, partitionable=True)
+    assert not torch.equal(other[0], got[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combo", ["reference-sync", "adaptive-racy",
+                                   "broadcast-racy", "split-sync",
+                                   "collude-racy"])
+def test_legacy_keyed_megakernels(cuda, combo):
+    # The keyed, sharded keyed (tp 2 and 4) and gen keyed entries' legacy
+    # instantiations against their plain versions.
+    cfg = qba_tpu_torch.QBAConfig(n_parties=9, size_l=16, n_dishonest=3,
+                                  trials=32, seed=9, **DRAW_COMBOS[combo])
+    with jr.threefry_partitionable(False):
+        body, k_rounds, ctx = keyed_inputs_of(cfg, cuda)
+        want = tm.trial_megakernel_keyed_reference(cfg, *body, k_rounds, ctx)
+        got = tm.trial_megakernel_keyed(cfg, *body, k_rounds, ctx)
+        assert_equal(got, want)
+        for tp in (2, 4):
+            assert_equal(tm.sharded_trial_megakernel_keyed(
+                cfg, tp, *body, k_rounds, ctx), want)
+        scfg = dataclasses.replace(cfg, size_l=64, qsim_path="stabilizer")
+        keys = trial_keys(scfg, cuda)
+        honest, gen_ops, v_sent, _vc, kr = _mega_gen_setup(scfg, keys)
+        kr = kr.contiguous()
+        gctx = adversary_ctx(scfg, kr, v_sent)
+        args = (scfg, pc.stabilizer_gen_tables(scfg, cuda), gen_ops,
+                v_sent.to(torch.int32).contiguous(),
+                rk.honest_cells(honest, scfg))
+        assert_equal(tm.trial_megakernel_gen_keyed(*args, kr, gctx),
+                     tm.trial_megakernel_gen_keyed_reference(*args, kr, gctx))
+    # The phase clock has no legacy instantiation.
+    with pytest.raises(tm.KernelUnsupported, match="phase clock"):
+        tm.trial_megakernel_keyed(cfg, *body, k_rounds, ctx,
+                                  clock=tm.phase_clock(32, 1, cuda),
+                                  partitionable=False)
+
+
+@pytest.mark.cuda
+def test_golden_pins_on_the_card(cuda):
+    # The repo's golden pins, recorded in JAX's legacy mode, on every
+    # engine's kernels and on the sharded megakernel.
+    from qba_tpu_torch.parallel import make_mesh, run_trials_spmd
+    from qba_tpu_torch.testing import GOLD_PINS
+
+    with jr.threefry_partitionable(False):
+        for name, kw, success, decisions in GOLD_PINS:
+            cfg = qba_tpu_torch.QBAConfig(**kw)
+            runs = {e: qba_tpu_torch.run_trials(dataclasses.replace(
+                cfg, round_engine=e)).trials
+                for e in ("xla", "pallas", "pallas_fused", "pallas_tiled",
+                          "auto")}
+            mesh = make_mesh({"dp": 1, "tp": 2}, devices=[cuda] * 2)
+            runs["tp=2"] = run_trials_spmd(cfg, mesh).trials
+            for label, got in runs.items():
+                assert got.success.tolist() == success, (name, label)
+                assert got.decisions.tolist() == decisions, (name, label)

@@ -187,6 +187,16 @@ for engine in ("pallas", "pallas_fused", "pallas_tiled", "pallas_mega"):
     other = qba_tpu_torch.run_trials(
         dataclasses.replace(cfg, round_engine=engine), device="cpu")
     assert (other.trials.decisions == res.trials.decisions).all(), engine
+from qba_tpu_torch import random as jr
+from qba_tpu_torch.testing import GOLD_PINS
+with jr.threefry_partitionable(False):
+    for _name, kw, success, decisions in GOLD_PINS:
+        for engine in ("xla", "pallas", "pallas_fused", "pallas_tiled",
+                       "pallas_mega"):
+            gold = qba_tpu_torch.run_trials(qba_tpu_torch.QBAConfig(
+                round_engine=engine, **kw), device="cpu").trials
+            assert gold.success.tolist() == success, engine
+            assert gold.decisions.tolist() == decisions, engine
 counted = qba_tpu_torch.run_trials(
     dataclasses.replace(cfg, collect_counters=True), device="cpu")
 assert (counted.trials.decisions == res.trials.decisions).all()

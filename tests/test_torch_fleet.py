@@ -331,12 +331,19 @@ def _fleet_run(root, fe_pkg, worker_pkg):
     port = fe.start_in_thread()
     conn = socket.create_connection(("127.0.0.1", port), timeout=120)
     wire = conn.makefile("rw")
-    for line in _stream_lines(PKGS[fe_pkg][1]):
+    first, *rest = _stream_lines(PKGS[fe_pkg][1])
+    # s1 alone, its result read before the rest is sent: no poll of the
+    # worker can take s1 and the id-less request into one chunk.
+    wire.write(first + "\n")
+    wire.flush()
+    lines = [wire.readline()]
+    for line in rest:
         wire.write(line + "\n")
     wire.flush()
     conn.shutdown(socket.SHUT_WR)
+    lines += list(wire)
     results = {r["request_id"]: r
-               for r in (json.loads(ln) for ln in wire if ln.strip())}
+               for r in (json.loads(ln) for ln in lines if ln.strip())}
     conn.close()
     fe.stop_in_thread()
     worker.join(timeout=120)
