@@ -85,6 +85,13 @@ Phases, each reported on its own line:
    1000 trials a cell, a quarter done) under two thresholds and a width
    target: the chosen cell and its tier exact, the endpoints within
    ``PICK_ATOL`` (equal expected), the fold bit-exact;
+   ``setup_vs_plain``: the set-up kernel (``ops/setup_kernel.py``) in
+   each of its forms (whole, whole with every party's lists, given
+   lists, orders, lists) against its plain version, bit for bit on every
+   output, in both threefry modes, at 11p/L64/d3 and 33p/L64/d10 x 1000
+   and 65p/L64/d21 x 64 (w = 128, two tiles of positions), in the
+   strategies ``reference``, ``split``, ``collude``, ``adaptive`` and with
+   noise;
 5. ``engines_agree``: ``run_trials`` with the ``xla``, ``pallas``,
    ``pallas_fused``, ``pallas_tiled`` and ``pallas_mega`` engines trial
    for trial at 5p/L16/d2 x 64, and the protocol counters of the four
@@ -98,7 +105,12 @@ Phases, each reported on its own line:
    counts reset just before and asserted just after; wall time after a
    warm-up, rounds/s (trials x n_rounds / s), kernel time per launch
    from CUDA events, set-up and draw times, success rate and peak
-   memory.  The four engines must agree trial for trial.  Then
+   memory.  The four engines must agree trial for trial, and with the
+   same batches run on the plain set-up (``setup_plain_agrees``);
+   ``setup_timing`` times the set-up kernel in both modes in turns
+   beside its plain version and its bound, ``wall_split`` stages a warm
+   ``auto`` batch (keys, set-up, glue, megakernel, ``mega_result``)
+   beside its fenced wall.  Then
    ``full_width_vs_plain``: the same batches replayed round by round
    with the fused, verdict, rebuild and dense-mailbox kernels held
    against their plain versions (bit-exact, with times and bounds), each
@@ -403,6 +415,11 @@ SOURCES = {
                      "qba_tpu/sweep.py:705"),
     "surface_fold": ("qba_tpu_torch/ops/csrc/surface_loop.cu",
                      "qba_tpu/sweep.py:732"),
+    # The counterpart of the trial set-up XLA compiles inside the jitted
+    # batch (over qba_tpu/qsim/sampler.py:30 and
+    # qba_tpu/adversary/model.py:63,74,227), not of a pallas_call site.
+    "setup_trial": ("qba_tpu_torch/ops/csrc/setup_trial.cu",
+                    "qba_tpu/rounds/engine.py:511"),
 }
 # 32-bit operations of one threefry2x32 (csrc/draws.cuh): 20 rounds of an
 # add, a rotate and a xor, and the key injections.
@@ -743,18 +760,17 @@ def replay(cfg, keys, *, chunk, reps=0):
     ``torch.cuda.synchronize()``."""
     import torch
 
-    from qba_tpu_torch.adversary import adversary_ctx
     from qba_tpu_torch.ops import round_kernel as rs
     from qba_tpu_torch.ops import round_kernel_tiled as rk
-    from qba_tpu_torch.rounds.engine import setup_trial, step3a_one
+    from qba_tpu_torch.rounds.engine import step3a_one
 
     n = keys.shape[0]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    honest, li, p_rows, v_sent, _v_comm, k_rounds = setup_trial(cfg, keys)
+    (honest, li, p_rows, v_sent, _v_comm,
+     k_rounds), ctx = staged_setup(cfg, keys)
     k_rounds = k_rounds.contiguous()
     vi, out_cells = step3a_one(cfg, p_rows, v_sent, li)
-    ctx = adversary_ctx(cfg, k_rounds, v_sent)
     pool = rk.pool_from_step3a(cfg, out_cells)
     spare = rk.empty_pool(cfg, n, keys.device)
     hc = rk.honest_cells(honest, cfg)
@@ -981,16 +997,15 @@ def n_recv_replay(cfg, keys, tp, *, chunk, reps=3):
     per-round stats."""
     import torch
 
-    from qba_tpu_torch.adversary import adversary_ctx
     from qba_tpu_torch.ops import round_kernel as rs
     from qba_tpu_torch.ops import round_kernel_tiled as rk
-    from qba_tpu_torch.rounds.engine import setup_trial, step3a_one
+    from qba_tpu_torch.rounds.engine import step3a_one
 
     n = keys.shape[0]
-    honest, li, p_rows, v_sent, _v_comm, k_rounds = setup_trial(cfg, keys)
+    (honest, li, p_rows, v_sent, _v_comm,
+     k_rounds), ctx = staged_setup(cfg, keys)
     k_rounds = k_rounds.contiguous()
     vi, out_cells = step3a_one(cfg, p_rows, v_sent, li)
-    ctx = adversary_ctx(cfg, k_rounds, v_sent)
     pool = rk.pool_from_step3a(cfg, out_cells)
     mbox = rs.mailbox_from_step3a(cfg, out_cells)
     hc = rk.honest_cells(honest, cfg)
@@ -1102,20 +1117,21 @@ def mega_inputs(cfg, keys):
     """The megakernel's inputs for ``keys``, staged as ``run_trial_mega``
     builds them: the body's inputs, the rounds keys and the adversary
     context (the keyed entries'), and the draws kernel's stacks (the
-    stacked entries'), with the set-up and stack times (host clock,
-    fenced)."""
+    stacked entries'), with the set-up (the set-up kernel's launch), the
+    glue after it (``honest_cells``, the int32 and contiguous copies)
+    and the stacks' times (host clock, each fenced)."""
     import torch
 
-    from qba_tpu_torch.adversary import adversary_ctx
     from qba_tpu_torch.ops.attack_draws import attack_draws
     from qba_tpu_torch.ops.round_kernel_tiled import honest_cells
-    from qba_tpu_torch.rounds.engine import setup_trial
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    honest, li, p_rows, v_sent, _v_comm, k_rounds = setup_trial(cfg, keys)
+    (honest, li, p_rows, v_sent, _v_comm,
+     k_rounds), ctx = staged_setup(cfg, keys)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter()
     k_rounds = k_rounds.contiguous()
-    ctx = adversary_ctx(cfg, k_rounds, v_sent)
     body = [p_rows.contiguous(), li.to(torch.int32).contiguous(),
             v_sent.to(torch.int32).contiguous(), honest_cells(honest, cfg)]
     torch.cuda.synchronize()
@@ -1123,7 +1139,8 @@ def mega_inputs(cfg, keys):
     stacks = attack_draws(cfg, k_rounds, ctx)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    return body, k_rounds, ctx, stacks, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+    return (body, k_rounds, ctx, stacks, (t_setup - t0) * 1e3,
+            (t1 - t_setup) * 1e3, (t2 - t1) * 1e3)
 
 
 def keyed_plain(fn, cfg, pre, body, k_rounds, ctx, chunk):
@@ -1151,7 +1168,8 @@ def mega_vs_plain(cfg, keys, *, chunk, reps=0):
     events) and the plain version (host clock)."""
     from qba_tpu_torch.ops import trial_megakernel as tm
 
-    body, k_rounds, ctx, stacks, setup_ms, draws_ms = mega_inputs(cfg, keys)
+    (body, k_rounds, ctx, stacks, setup_ms, glue_ms,
+     draws_ms) = mega_inputs(cfg, keys)
     got = tm.trial_megakernel_keyed(cfg, *body, k_rounds, ctx)
     stacked = tm.trial_megakernel(cfg, *body, *stacks)
     want, plain_ms = keyed_plain(tm.trial_megakernel_keyed_reference, cfg,
@@ -1161,7 +1179,7 @@ def mega_vs_plain(cfg, keys, *, chunk, reps=0):
         raise AssertionError(f"keyed megakernel != plain version or stacked "
                              f"entry at {cfg}: max abs err {err}")
     out = dict(max_abs_err=err, ms=None, stacked_ms=None, plain_ms=None,
-               setup_ms=setup_ms, draws_ms=draws_ms,
+               setup_ms=setup_ms, glue_ms=glue_ms, draws_ms=draws_ms,
                overflow=int(got[2].sum()), vi=got[0] != 0)
     if reps:
         out.update(
@@ -1179,7 +1197,8 @@ def keyed_timing(cfg, keys, reps=3):
     (CUDA events over ``reps`` launches)."""
     from qba_tpu_torch.ops import trial_megakernel as tm
 
-    body, k_rounds, ctx, stacks, _setup_ms, draws_ms = mega_inputs(cfg, keys)
+    (body, k_rounds, ctx, stacks, _setup_ms, _glue_ms,
+     draws_ms) = mega_inputs(cfg, keys)
     if tree_err(tm.trial_megakernel_keyed(cfg, *body, k_rounds, ctx),
                 tm.trial_megakernel(cfg, *body, *stacks)):
         raise AssertionError(f"keyed != stacked megakernel at {cfg}")
@@ -1198,8 +1217,7 @@ def sharded_mega_vs_plain(cfg, keys, tp, *, chunk, reps=0):
     plain version (host clock, ``chunk`` trials at a time)."""
     from qba_tpu_torch.ops import trial_megakernel as tm
 
-    body, k_rounds, ctx, stacks, _setup_ms, _draws_ms = mega_inputs(cfg,
-                                                                    keys)
+    body, k_rounds, ctx, stacks = mega_inputs(cfg, keys)[:4]
     got = tm.sharded_trial_megakernel_keyed(cfg, tp, *body, k_rounds, ctx)
     single = tm.trial_megakernel_keyed(cfg, *body, k_rounds, ctx)
     stacked = tm.sharded_trial_megakernel(cfg, tp, *body, *stacks)
@@ -1232,7 +1250,7 @@ def mega_phases(cfg, keys, tp=None):
 
     from qba_tpu_torch.ops import trial_megakernel as tm
 
-    body, k_rounds, ctx, _st, _s, _d = mega_inputs(cfg, keys)
+    body, k_rounds, ctx = mega_inputs(cfg, keys)[:3]
     clock = tm.phase_clock(cfg.trials, tp or 1, keys.device)
     if tp is None:
         tm.trial_megakernel_keyed(cfg, *body, k_rounds, ctx, clock=clock)
@@ -1254,19 +1272,17 @@ def round_phases(cfg, keys, tp=None):
     instantiations, off the main path."""
     import torch
 
-    from qba_tpu_torch.adversary import adversary_ctx
     from qba_tpu_torch.ops import round_kernel as rs
     from qba_tpu_torch.ops import round_kernel_tiled as rk
     from qba_tpu_torch.rounds.engine import (
         round_draws,
-        setup_trial,
         step3a_one,
     )
 
-    honest, li, p_rows, v_sent, _vc, k_rounds = setup_trial(cfg, keys)
+    (honest, li, p_rows, v_sent, _vc,
+     k_rounds), ctx = staged_setup(cfg, keys)
     k_rounds = k_rounds.contiguous()
     vi, cells = step3a_one(cfg, p_rows, v_sent, li)
-    ctx = adversary_ctx(cfg, k_rounds, v_sent)
     hc = rk.honest_cells(honest, cfg)
     li = li.to(torch.int32).contiguous()
     vi = vi.to(torch.int32)
@@ -1317,7 +1333,7 @@ COUNTED = ("fused_round", "tiled_verdict", "tiled_rebuild",
            "trial_megakernel_gen", "sharded_trial_megakernel", "ring_gather",
            "attack_draws", "trial_megakernel_keyed",
            "trial_megakernel_gen_keyed", "sharded_trial_megakernel_keyed",
-           "sweep_stop", "surface_pick", "surface_fold")
+           "sweep_stop", "surface_pick", "surface_fold", "setup_trial")
 ROUND_KERNELS = COUNTED[:5]
 # The megakernel rows of the kernel table time the keyed entries, the ones
 # the engines launch.
@@ -1345,14 +1361,259 @@ WIDE_SIZES = [("41p/L64/d13", dict(n_parties=41, size_l=64, n_dishonest=13)),
 WIDE_COMBOS = [(c, kw) for c, kw in DRAW_COMBOS if c.startswith("broadcast")]
 
 
+def staged_setup(cfg, keys):
+    """The set-up of ``keys`` as the engines stage it
+    (``rounds.engine.setup_batch``: the set-up kernel, its collude target
+    in the context): ``((honest, lieu_lists, p_rows, v_sent, v_comm,
+    k_rounds), ctx)``."""
+    from qba_tpu_torch.rounds.engine import setup_batch
+
+    s, ctx = setup_batch(cfg, keys)
+    return (s.honest, s.lieu_lists, s.p_rows, s.v_sent, s.v_comm,
+            s.k_rounds), ctx
+
+
 def keyed_ctx(cfg, keys):
     """The rounds keys (contiguous) and adversary context of ``keys``."""
-    from qba_tpu_torch.adversary import adversary_ctx
-    from qba_tpu_torch.rounds.engine import setup_trial
+    (_h, _li, _p, _vs, _vc, k_rounds), ctx = staged_setup(cfg, keys)
+    return k_rounds.contiguous(), ctx
 
-    _h, _li, _p, v_sent, _vc, k_rounds = setup_trial(cfg, keys)
-    k_rounds = k_rounds.contiguous()
-    return k_rounds, adversary_ctx(cfg, k_rounds, v_sent)
+
+# The set-up kernel's checks: every form in both threefry modes at the
+# main path's widths and at 65 parties (w = 128, two tiles of positions),
+# in every strategy and with noise.
+SETUP_SIZES = [("11p/L64/d3", dict(n_parties=11, size_l=64, n_dishonest=3),
+                1000),
+               ("33p/L64/d10", dict(n_parties=33, size_l=64, n_dishonest=10),
+                1000),
+               ("65p/L64/d21", dict(n_parties=65, size_l=64, n_dishonest=21),
+                64)]
+SETUP_LAWS = [("reference", {}), ("split", dict(strategy="split")),
+              ("collude", dict(strategy="collude")),
+              ("adaptive", dict(strategy="adaptive")),
+              ("noise", dict(p_depolarize=0.05, p_measure_flip=0.02))]
+
+
+def setup_forms(cfg, keys, partitionable):
+    """Each form's call of the set-up kernel on ``keys`` (the lists form on
+    their ``k_lists``, the given form on the plain lists): ``[(label,
+    args, kwargs)]`` for ``setup_kernel`` and ``setup_reference``."""
+    from qba_tpu_torch import random as jr
+    from qba_tpu_torch.ops import setup_kernel as sk
+
+    p = partitionable
+    k_lists = jr.split(keys, 4, partitionable=p)[:, 1].contiguous()
+    lists = sk.setup_reference(cfg, keys, "whole", full_lists=True,
+                               partitionable=p).lists
+    kw = dict(partitionable=p)
+    return [("whole", (cfg, keys, "whole"), kw),
+            ("whole full_lists", (cfg, keys, "whole"),
+             dict(kw, full_lists=True)),
+            ("given", (cfg, keys, "given", lists), kw),
+            ("orders", (cfg, keys, "orders"), kw),
+            ("lists", (cfg, k_lists, "lists"), kw)]
+
+
+def setup_err(got, want, label):
+    """Largest difference of two set-ups field by field; raises where a
+    field is missing on one side or differs in dtype or shape."""
+    from qba_tpu_torch.ops.setup_kernel import TrialSetup
+
+    err = 0
+    for f in TrialSetup._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        if (a is None) != (b is None):
+            raise AssertionError(f"setup {label}: {f} made on one side only")
+        if a is None:
+            continue
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"setup {label}: {f} {a.dtype}{list(a.shape)}"
+                                 f" against {b.dtype}{list(b.shape)}")
+        err = max(err, max_err(a, b))
+    return err
+
+
+def setup_vs_plain(dev):
+    """The set-up kernel against its plain version, bit for bit on every
+    output of every form, in both threefry modes, at ``SETUP_SIZES`` in
+    every law of ``SETUP_LAWS``.  Returns ``(max_abs_err, facts)``."""
+    from qba_tpu_torch import QBAConfig
+    from qba_tpu_torch.backends.torch_backend import trial_keys
+    from qba_tpu_torch.ops import setup_kernel as sk
+
+    err, facts = 0, []
+    for p in (True, False):
+        for name, kw, trials in SETUP_SIZES:
+            for law, extra in SETUP_LAWS:
+                cfg = QBAConfig(**kw, **extra, trials=trials, seed=31)
+                keys = trial_keys(cfg, dev, partitionable=p)
+                for form, args, fkw in setup_forms(cfg, keys, p):
+                    label = (f"{name} {law} {form} "
+                             f"{'partitionable' if p else 'legacy'}")
+                    e = setup_err(sk.setup_kernel(*args, **fkw),
+                                  sk.setup_reference(*args, **fkw), label)
+                    if e:
+                        raise AssertionError(f"setup {label}: kernel != "
+                                             f"plain version by {e}")
+                    err = max(err, e)
+            facts.append(dict(config=name, trials=trials,
+                              mode="partitionable" if p else "legacy",
+                              laws=[law for law, _ in SETUP_LAWS],
+                              forms=[f for f, _a, _k in
+                                     setup_forms(cfg, keys, p)],
+                              tile=sk.setup_tile(cfg),
+                              smem_bytes=sk.setup_smem_bytes(cfg)))
+    return err, facts
+
+
+def setup_cost(cfg, n_trials, n_q):
+    """``(bytes, operations)`` of the set-up's whole form over ``n_trials``
+    trials whose positions hold ``n_q`` Q-correlated ones in all: per
+    trial the keys' hashes, the permutation's ``n`` words, a Q bit a
+    position, ``r`` (two words) and ``n`` sort words a Q-correlated
+    position, two words a row of ``u`` at the others, four words a qubit
+    of every row and position with noise, and the ranks' ``n^2`` compares
+    (a compare and an add) a Q-correlated position; the keys read, the
+    outputs written once."""
+    from qba_tpu_torch.adversary.model import needs_target
+    from qba_tpu_torch.ops.setup_kernel import perm_rounds
+
+    n, s, nq, n_lt = cfg.n_parties, cfg.size_l, cfg.n_qubits, cfg.n_lieutenants
+    noise = cfg.p_depolarize > 0.0 or cfg.p_measure_flip > 0.0
+    target = needs_target(cfg)
+    # The key chains: k_dis and its rounds; the lists' 4 keys and their
+    # halves; the orders' 3 keys, halves and words, k_rounds; the noise's
+    # and the target's.
+    keys = 1 + 2 * perm_rounds(n) + 9 + 17 + 7 * noise + 5 * target
+    hashes = (n_trials * (keys + perm_rounds(n) * n + s)
+              + n_q * (2 + n) + (n_trials * s - n_q) * 2 * (n + 1)
+              + noise * n_trials * 4 * nq * (n + 1) * s)
+    ops = hashes * HASH_OPS + 2 * n_q * n * n
+    out = ((n + 1) + n_lt * s * (4 + 1) + n_lt * 4 + 4 + 16
+           + 4 * target)
+    return n_trials * (16 + out), ops
+
+
+def setup_timing(cfg, keys, dev, turns=2, reps=10):
+    """The set-up kernel's whole form (the main path's) against its plain
+    version on ``keys``: the kernel in both threefry modes in turns P L L
+    P (CUDA events over ``reps`` launches each), the plain version by host
+    clock (fenced, the median of 3), equal bit for bit; the bound from
+    ``setup_cost`` on this batch's Q-correlated positions."""
+    import statistics
+
+    import torch
+
+    from qba_tpu_torch import random as jr
+    from qba_tpu_torch.backends.torch_backend import trial_keys
+    from qba_tpu_torch.ops import setup_kernel as sk
+
+    legacy_keys = trial_keys(cfg, dev, partitionable=False)
+    ms = {True: [], False: []}
+    for mode in [True, False, False, True] * turns:
+        with jr.threefry_partitionable(mode):
+            ms[mode].append(kernel_ms(sk.setup_kernel, reps, cfg,
+                                      keys if mode else legacy_keys))
+    plain = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = sk.setup_reference(cfg, keys, "whole", partitionable=True)
+        torch.cuda.synchronize()
+        plain.append((time.perf_counter() - t0) * 1e3)
+    err = setup_err(sk.setup_kernel(cfg, keys, "whole"), want, "timing")
+    if err:
+        raise AssertionError(f"setup timing {cfg}: kernel != plain by {err}")
+    k_lists = jr.split(keys, 4)[:, 1]
+    n_q = int(sk.setup_reference(cfg, k_lists, "lists").qcorr.sum())
+    b = bound(*setup_cost(cfg, cfg.trials, n_q))
+    part, legacy = statistics.median(ms[True]), statistics.median(ms[False])
+    return dict(max_abs_err=err, ms=part, legacy_ms=legacy,
+                ratio=legacy / part, ms_turns=ms[True],
+                legacy_ms_turns=ms[False], plain_ms=statistics.median(plain),
+                bound_ms=b[0], bound_by=b[1], q_positions=n_q,
+                library_ms=None)
+
+
+def wall_split(cfg, keys, reps=5):
+    """Where a warm ``auto`` batch's fenced wall goes once the set-up is
+    one launch: ``run_trial_mega``'s parts, each fenced (the set-up, the
+    glue before the megakernel, the megakernel, ``mega_result``), beside
+    the fenced wall of ``run_trials`` on the same keys and of the keys'
+    own split (``trial_keys``); medians of ``reps`` after a warm-up."""
+    import statistics
+
+    import torch
+
+    import qba_tpu_torch
+    from qba_tpu_torch.backends.torch_backend import fence, trial_keys
+    from qba_tpu_torch.ops.round_kernel_tiled import honest_cells
+    from qba_tpu_torch.ops.trial_megakernel import trial_megakernel_keyed
+    from qba_tpu_torch.rounds.engine import mega_result, setup_batch
+
+    parts = {k: [] for k in ("keys_ms", "setup_ms", "glue_in_ms",
+                             "kernel_ms", "glue_out_ms", "wall_ms")}
+    for rep in range(reps + 1):
+        t = [time.perf_counter()]
+        trial_keys(cfg, keys.device)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        s, ctx = setup_batch(cfg, keys)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        body = (s.p_rows.contiguous(), s.lieu_lists.to(torch.int32)
+                .contiguous(), s.v_sent.to(torch.int32).contiguous(),
+                honest_cells(s.honest, cfg), s.k_rounds.contiguous())
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        vi, dec, ovf = trial_megakernel_keyed(cfg, *body, ctx)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        mega_result(s.honest, s.v_comm, vi, dec, ovf)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        fence(qba_tpu_torch.run_trials(cfg, keys))
+        t.append(time.perf_counter())
+        if rep:
+            for k, a, b in zip(parts, t, t[1:]):
+                parts[k].append((b - a) * 1e3)
+    out = {k: statistics.median(v) for k, v in parts.items()}
+    out["parts_sum_ms"] = sum(v for k, v in out.items()
+                              if k not in ("keys_ms", "wall_ms"))
+    return out
+
+
+def plain_setup_agrees(cfg, results):
+    """``results`` (engine -> a batch's trials, the set-up kernel's) held
+    trial for trial against the same batches with the plain set-up on the
+    card: the set-up wrapper's seam sends its calls to the plain version
+    for this phase alone."""
+    import dataclasses
+
+    import torch
+
+    import qba_tpu_torch
+    from qba_tpu_torch.ops import setup_kernel as sk
+
+    real = sk.dispatch
+
+    def plain_setup(name, tensors):
+        return False if name == "setup_trial" else real(name, tensors)
+
+    sk.dispatch = plain_setup
+    try:
+        for engine, got in results.items():
+            ecfg = (cfg if engine == "auto"
+                    else dataclasses.replace(cfg, round_engine=engine))
+            want = qba_tpu_torch.run_trials(ecfg).trials
+            for f in ("decisions", "success", "vi", "overflow", "honest",
+                      "v_comm"):
+                if not torch.equal(getattr(got, f), getattr(want, f)):
+                    raise AssertionError(f"{engine}: the set-up kernel's "
+                                         f"batch != the plain set-up's on {f}")
+    finally:
+        sk.dispatch = real
+    return sorted(results)
 
 
 def draws_vs_plain(dev, trials=32):
@@ -2104,17 +2365,16 @@ def gen_inputs(cfg, keys):
     with the set-up (generation operands) and stack times."""
     import torch
 
-    from qba_tpu_torch.adversary import adversary_ctx
     from qba_tpu_torch.ops.attack_draws import attack_draws
     from qba_tpu_torch.ops.round_kernel_tiled import honest_cells
     from qba_tpu_torch.qsim.protocol_circuits import stabilizer_gen_tables
-    from qba_tpu_torch.rounds.engine import _mega_gen_setup
+    from qba_tpu_torch.rounds.engine import gen_setup_batch
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    honest, gen_ops, v_sent, _v_comm, k_rounds = _mega_gen_setup(cfg, keys)
-    k_rounds = k_rounds.contiguous()
-    ctx = adversary_ctx(cfg, k_rounds, v_sent)
+    setup, gen_ops, ctx = gen_setup_batch(cfg, keys)
+    honest, v_sent = setup.honest, setup.v_sent
+    k_rounds = setup.k_rounds.contiguous()
     args = [stabilizer_gen_tables(cfg, keys.device), gen_ops,
             v_sent.to(torch.int32).contiguous(), honest_cells(honest, cfg)]
     torch.cuda.synchronize()
@@ -2227,14 +2487,13 @@ def pool_rounds(cfg, keys):
     counts.  Returns them and the final accepted sets."""
     import torch
 
-    from qba_tpu_torch.adversary import adversary_ctx
     from qba_tpu_torch.ops import round_kernel_tiled as rk
-    from qba_tpu_torch.rounds.engine import setup_trial, step3a_one
+    from qba_tpu_torch.rounds.engine import step3a_one
 
-    honest, li, p_rows, v_sent, _v_comm, k_rounds = setup_trial(cfg, keys)
+    (honest, li, p_rows, v_sent, _v_comm,
+     k_rounds), ctx = staged_setup(cfg, keys)
     k_rounds = k_rounds.contiguous()
     vi, out_cells = step3a_one(cfg, p_rows, v_sent, li)
-    ctx = adversary_ctx(cfg, k_rounds, v_sent)
     pool = rk.pool_from_step3a(cfg, out_cells)
     hc = rk.honest_cells(honest, cfg)
     li, vi = li.to(torch.int32).contiguous(), vi.to(torch.int32)
@@ -2616,14 +2875,15 @@ def sweep_path(configs):
             done = len(r.chunks)
             rounds = done * cfg.trials * cfg.n_rounds
             if dispatch == "host":
-                want = {mega: done}
+                # A set-up launch a batch beside the megakernel's.
+                want = {mega: done, "setup_trial": done}
                 rec = dict(readbacks=timers.count("readback"), wall_s=wall,
                            rounds_per_s=rounds / wall,
                            ms_per_chunk=wall / done * 1e3)
             else:
                 # Eager warm-up and capture: one launch of each kernel;
                 # the graph then runs them once a chunk.
-                want = {mega: 2, "sweep_stop": 2}
+                want = {mega: 2, "sweep_stop": 2, "setup_trial": 2}
                 (span,) = [sp for sp in timers.spans.spans
                            if sp.name == "device_loop"]
                 info = span.args
@@ -2966,7 +3226,8 @@ def surface_path(configs, dev):
         for k, n in counts.items():
             launches[k] += n
         spent = surface_alloc(host)["spent_chunks"]
-        if counts != {k: (spent if k == "trial_megakernel_keyed" else 0)
+        if counts != {k: (spent if k in ("trial_megakernel_keyed",
+                                         "setup_trial") else 0)
                       for k in COUNTED}:
             raise AssertionError(f"host surface: launches {counts}, "
                                  f"expected {spent} megakernel launches")
@@ -2995,7 +3256,7 @@ def surface_path(configs, dev):
         # megakernel, one a cell); the graph then runs them once a pass.
         want = {k: 0 for k in COUNTED}
         want.update(trial_megakernel_keyed=2 * n_cells, surface_pick=2,
-                    surface_fold=2)
+                    surface_fold=2, setup_trial=2 * n_cells)
         if counts != want:
             raise AssertionError(f"surface {label}: launches {counts}, "
                                  f"expected {want}")
@@ -3265,7 +3526,8 @@ def serve_path(configs, dev):
     key = [(sp.args["bucket"], sp.args["qsim_path"]) for sp in dispatches]
     is_gen = [q == "stabilizer" for _, q in key]
     want = {"trial_megakernel_keyed": is_gen.count(False),
-            "trial_megakernel_gen_keyed": is_gen.count(True)}
+            "trial_megakernel_gen_keyed": is_gen.count(True),
+            "setup_trial": len(is_gen)}
     want = {k: want.get(k, 0) for k in COUNTED}
     if counts != want:
         raise AssertionError(f"serve host path: launches {counts}, "
@@ -3340,7 +3602,7 @@ def serve_path(configs, dev):
     dwall = time.perf_counter() - t0
     dcounts = {k: fn.launches for k, fn in fns.items()}
     dwant = {k: 0 for k in COUNTED}
-    dwant.update(trial_megakernel_keyed=2, sweep_stop=2)
+    dwant.update(trial_megakernel_keyed=2, sweep_stop=2, setup_trial=2)
     if dcounts != dwant:
         raise AssertionError(f"serve device path: launches {dcounts}, "
                              f"expected {dwant}")
@@ -3998,15 +4260,19 @@ def counted(fn):
 
 
 def presampled(cfg, keys):
-    """One counted presample (one draws launch asserted): ``(pre,
-    launches, {setup_ms, draws_ms, draws_kernel_ms, copy_ms})``."""
+    """One counted presample (one draws launch and the set-up kernel's
+    launches asserted: one on the factorized path, two where another path
+    makes the lists): ``(pre, launches, {setup_ms, draws_ms,
+    draws_kernel_ms, copy_ms})``."""
     from qba_tpu_torch.backends.local_backend import presample_batch
 
     timings = {}
     pre, launches, ms = counted(lambda: presample_batch(cfg, keys, timings))
-    if launches.get("attack_draws") != 1 or len(ms) != 1:
+    setups = 1 if cfg.qsim_path == "factorized" else 2
+    if (launches.get("attack_draws") != 1 or len(ms) != 1
+            or launches.get("setup_trial") != setups):
         raise AssertionError(f"presample: launches {launches}, expected one "
-                             "attack_draws")
+                             f"attack_draws and {setups} setup_trial")
     return pre, launches, dict(
         setup_ms=timings["setup_s"] * 1e3, draws_ms=timings["draws_s"] * 1e3,
         draws_kernel_ms=ms[0], copy_ms=timings["copy_s"] * 1e3)
@@ -4318,7 +4584,7 @@ def run_path(configs, small, dev):
         with profile_trace(d):
             _out, counts, _ms = counted(
                 lambda: fence(qba_tpu_torch.run_trials(cfg)))
-        if counts != {"trial_megakernel_keyed": 1}:
+        if counts != {"trial_megakernel_keyed": 1, "setup_trial": 1}:
             raise AssertionError(f"profiled batch: launches {counts}")
         add(counts)
         warm = dict(trace_summary(trace_path(d)), launches=counts)
@@ -4340,6 +4606,8 @@ def run_path(configs, small, dev):
 
 
 LINT_TRIALS = 64
+# Unpinned launches that open a launch pin's profiled window.
+PIN_PAD_LAUNCHES = 256
 LINT_CLI = ["lint", "--effects", "--protocol", "--obs"]
 # The engines the launch pin drives at each width; the mesh's at tp = 4.
 LINT_ENGINES = ("xla", "pallas", "pallas_tiled", "pallas_fused",
@@ -4353,8 +4621,11 @@ def lint_pin(label, cfg, engine, dev, tp=None):
     counts (``analysis.trace.trace_batch``), and the kernel records of
     its ``torch.profiler`` trace (``obs.profile_trace`` around the
     recorded batch), the megakernel's entries folded into one row."""
+    import contextlib
     import shutil
     import tempfile
+
+    import torch
 
     from qba_tpu_torch.analysis import launches as la
     from qba_tpu_torch.analysis.trace import trace_batch
@@ -4362,10 +4633,24 @@ def lint_pin(label, cfg, engine, dev, tp=None):
     from qba_tpu_torch.obs.profiling import trace_path
 
     model = la.batch_launch_model(cfg, engine, dev, tp)
+
+    @contextlib.contextmanager
+    def profiled(d):
+        # After run_path's profiles a window loses the device records of
+        # its first few kernels, and a batch's first kernel is now the
+        # set-up kernel's: the window opens with PIN_PAD_LAUNCHES fenced
+        # additions, whose names no pin counts.
+        with profile_trace(d):
+            pad = torch.zeros(1, device=dev)
+            for _ in range(PIN_PAD_LAUNCHES):
+                pad.add_(1)
+            torch.cuda.synchronize(dev)
+            yield
+
     d = tempfile.mkdtemp(prefix="qba_pin_")
     try:
         rec = trace_batch(label, cfg, engine, dev, LINT_TRIALS, tp=tp,
-                          within=profile_trace(d))
+                          within=profiled(d))
         events = []
         if os.path.exists(trace_path(d)):
             with open(trace_path(d)) as f:
@@ -5406,6 +5691,13 @@ def main(argv):
     log("sweep_stop_vs_plain", tolerance=0, max_abs_err=stop_err,
         trials=[1, 37, 64, 1000, 5000], starts=[0, 1, 2, 3, 4], budget=4,
         succ_out=[False, True])
+    t0 = time.perf_counter()
+    setup_err_max, setup_facts = setup_vs_plain(dev)
+    report["setup_vs_plain"] = dict(max_abs_err=setup_err_max,
+                                    cases=setup_facts,
+                                    phase_s=time.perf_counter() - t0)
+    log("setup_vs_plain", tolerance=0, max_abs_err=setup_err_max,
+        seconds=report["setup_vs_plain"]["phase_s"], cases=setup_facts)
     pick_err, fold_err = surface_vs_plain(dev)
     report["surface_vs_plain"] = dict(pick_max_abs_err=pick_err,
                                       fold_max_abs_err=fold_err)
@@ -5480,6 +5772,9 @@ def main(argv):
                 # megakernel, which hashes them).
                 draws_ms=sum(a.elapsed_time(b)
                              for a, b in events["attack_draws"]),
+                # The set-up kernel's launches in the batch (CUDA events).
+                setup_kernel_ms=sum(a.elapsed_time(b)
+                                    for a, b in events["setup_trial"]),
                 success_rate=rate, peak_mem_bytes=peak)
         for e in ("pallas_fused", "pallas_tiled", "pallas"):
             for f in fields:
@@ -5489,8 +5784,14 @@ def main(argv):
                         f"{name}: pallas_mega and {e} disagree on {f}")
         log("engines_agree", config=name, trials=cfg.trials,
             engines=["pallas_mega", "pallas_fused", "pallas_tiled", "pallas"])
+        log("setup_plain_agrees", config=name, trials=cfg.trials,
+            engines=plain_setup_agrees(cfg, results))
 
         keys = trial_keys(cfg, dev)
+        setup_row = setup_timing(cfg, keys, dev)
+        log("setup_timing", config=name, trials=cfg.trials, **setup_row)
+        split = wall_split(cfg, keys)
+        log("wall_split", config=name, trials=cfg.trials, **split)
         setup, *stats = replay(cfg, keys, chunk=32, reps=3)
         if not torch.equal(setup.pop("vi"), results["auto"].vi):
             raise AssertionError(f"{name}: main path != round-by-round replay")
@@ -5511,6 +5812,7 @@ def main(argv):
         log("keyed_timing", config=name, trials=cfg.trials, **laws)
         per_engine["auto"].update(
             engine="pallas_mega, keyed", setup_ms=mega["setup_ms"],
+            glue_ms=mega["glue_ms"], wall_split=split,
             stacked_draws_ms=mega["draws_ms"],
             bound_ms={"trial_megakernel": mega_bound[0]},
             bound_by={"trial_megakernel": mega_bound[1]})
@@ -5539,6 +5841,7 @@ def main(argv):
             stacked_bound_ms=stacked_bound[0], rehashes=rehashes(stats))
         run = dict(config=name, trials=cfg.trials, rounds=cfg.n_rounds,
                    vi=results["auto"].vi, attack_draws=draws,
+                   setup_trial=setup_row,
                    keyed_timing=laws,
                    engines=per_engine, full_width_vs_plain=kern,
                    pool_bytes_per_trial=pool_bytes(cfg, 1),
@@ -5562,7 +5865,7 @@ def main(argv):
     if counts != want:
         raise AssertionError(
             f"{name} counters: launches {counts}, expected {want}")
-    for k in ("fused_round", "attack_draws"):
+    for k in ("fused_round", "attack_draws", "setup_trial"):
         launches[k] += counts[k]
     c = out.trials.counters
     base = runs[0]["engines"]["pallas_fused"]
@@ -5669,6 +5972,9 @@ def main(argv):
                                       for k, ev in events.items() if ev},
                 draws_ms=sum(a.elapsed_time(b)
                              for a, b in events["attack_draws"]),
+                # The set-up kernel's launches in the batch (CUDA events).
+                setup_kernel_ms=sum(a.elapsed_time(b)
+                                    for a, b in events["setup_trial"]),
                 success_rate=rate, peak_mem_bytes=peak)
         for label in ("host", "pallas_fused"):
             for f in fields:
@@ -5824,7 +6130,7 @@ def main(argv):
     # A small batch, where one block a trial leaves most SMs idle: the
     # sharded megakernel at tp=4 beside the single-device one.
     cfg = dataclasses.replace(dict(main_cfgs)["33p/L64/d10"], trials=64)
-    body, k_rounds, ctx, _st, _s, _d = mega_inputs(cfg, trial_keys(cfg, dev))
+    body, k_rounds, ctx = mega_inputs(cfg, trial_keys(cfg, dev))[:3]
     small_batch = {}
     for label, fn, pre in (("single-device", tm.trial_megakernel_keyed, ()),
                            ("sharded tp=4", tm.sharded_trial_megakernel_keyed,
@@ -6066,6 +6372,27 @@ def main(argv):
         ["kernel_ms_per_launch"]["attack_draws"],
         "config": (f"{big['config']} x{big['trials']} trials, "
                    f"{big['rounds']} rounds a launch"),
+    })
+    # The set-up kernel: the whole form on the 33p batch, once a batch on
+    # every path (twice where another path makes the lists).
+    source, replaces = SOURCES["setup_trial"]
+    srow = big["setup_trial"]
+    kernels.append({
+        "name": "setup_trial", "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches["setup_trial"],
+        "max_abs_err": max([setup_err_max]
+                           + [r["setup_trial"]["max_abs_err"] for r in runs]),
+        **{k: srow[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")},
+        "library_note": "none: PyTorch's generators are Philox",
+        "legacy": dict(ms=srow["legacy_ms"], partitionable_ms=srow["ms"],
+                       ratio=srow["ratio"], bound_ms=srow["bound_ms"],
+                       timed="in turns P L L P, CUDA events"),
+        "per_config": {r["config"]: {k: r["setup_trial"][k] for k in (
+            "ms", "legacy_ms", "plain_ms", "bound_ms", "bound_by")}
+            for r in runs},
+        "config": (f"{big['config']} x{big['trials']} trials, the whole "
+                   "form"),
     })
     # The sweep loop's stop step: the graph loop's own kernel.
     source, replaces = SOURCES["sweep_stop"]

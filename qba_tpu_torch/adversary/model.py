@@ -124,15 +124,32 @@ class AdversaryCtx(NamedTuple):
     v_sent: torch.Tensor
 
 
+def needs_target(cfg: QBAConfig) -> bool:
+    """Whether ``cfg``'s strategy draws a per-trial context ("collude"
+    and "adaptive"; "reference" and "split" are stateless)."""
+    return cfg.strategy in ("collude", "adaptive")
+
+
+def collude_target(cfg: QBAConfig, k_rounds: torch.Tensor, *,
+                   partitionable: bool | None = None) -> torch.Tensor:
+    """The collude target int32 ``[...]``: ``randint(fold_in(k_rounds,
+    COLLUDE_TAG), (), 0, n_parties + 1)``."""
+    return jr.randint(jr.fold_in(k_rounds, COLLUDE_TAG), (), 0,
+                      cfg.n_parties + 1, partitionable=partitionable)
+
+
 def adversary_ctx(cfg: QBAConfig, k_rounds: torch.Tensor,
                   v_sent: torch.Tensor, *,
-                  partitionable: bool | None = None) -> AdversaryCtx | None:
+                  partitionable: bool | None = None,
+                  target: torch.Tensor | None = None) -> AdversaryCtx | None:
     """The per-trial context for strategies that need one (None for the
-    stateless "reference" and "split")."""
-    if cfg.strategy in ("reference", "split"):
+    stateless "reference" and "split").  ``target``: the collude target
+    the set-up kernel drew (``TrialSetup.target``); without it the
+    target is drawn here (:func:`collude_target`)."""
+    if not needs_target(cfg):
         return None
-    target = jr.randint(jr.fold_in(k_rounds, COLLUDE_TAG), (), 0,
-                        cfg.n_parties + 1, partitionable=partitionable)
+    if target is None:
+        target = collude_target(cfg, k_rounds, partitionable=partitionable)
     return AdversaryCtx(collude_target=target, v_sent=v_sent)
 
 

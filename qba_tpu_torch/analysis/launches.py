@@ -27,7 +27,13 @@ stabilizer path's host generation sweeps the tableaux with one
 ``gf2_sweep`` launch a batch; under a ``tp`` mesh of one card the
 per-round engines gather each pool or mailbox leaf once a round with
 ``ring_gather`` (the ``xla`` engine its mailbox's six fields), and
-``pallas_mega`` is one launch of the party-sharded megakernel.
+``pallas_mega`` is one launch of the party-sharded megakernel.  Every
+batch also sets its trials up with the ``setup_trial`` kernel
+(:func:`qba_tpu_torch.rounds.engine.setup_batch`): one launch on the
+factorized path (its ``"whole"`` form) and for the megakernel's gen
+entry (``"orders"``), two where another path makes the lists
+(``dense``, ``dense_pallas``, the stabilizer path's host generation:
+``"orders"`` for the lists key, ``"given"`` after the lists).
 
 The counts come from the seams (:data:`qba_tpu_torch.ops._launch.
 seam_observers`): on CUDA each seam call is a launch, and the wrappers'
@@ -87,6 +93,7 @@ PROFILER_KERNELS = (
     ("sweep_stop_kernel", "sweep_stop"),
     ("surface_pick_kernel", "surface_pick"),
     ("surface_fold_kernel", "surface_fold"),
+    ("setup_trial_kernel", "setup_trial"),
 )
 
 _MEGA = ("trial_megakernel_keyed", "trial_megakernel_gen_keyed",
@@ -143,6 +150,9 @@ def batch_launch_model(cfg, engine: str, device,
             out["ring_gather"] = RING_LEAVES[run] * cfg.n_rounds
     if host_gen:
         out["gf2_sweep"] = 1
+    gen_entry = cfg.qsim_path == "stabilizer" and not host_gen
+    out["setup_trial"] = (1 if cfg.qsim_path == "factorized" or gen_entry
+                          else 2)
     return out
 
 

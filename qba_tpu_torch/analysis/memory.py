@@ -26,9 +26,11 @@ matrix; on ``xla`` (``auto`` on the CPU and past the 64-bit masks) the
 eager dense mailbox, whose every round gives each receiver a copy of
 every packet and compares their rows in pairs.  Both add the set-up's lists (or the gen entry's
 operands where :func:`~qba_tpu_torch.rounds.engine.resolve_mega_gen`
-picks it), the adversary context and keys, and the transients of the
-eager set-up, whose threefry draws are int64 tensors with several alive
-at once.
+picks it), the adversary context and keys, and the set-up's transients:
+on the card's factorized path the set-up kernel's outputs (it keeps
+its draws in registers and shared memory), elsewhere (the CPU, and the
+eager draws of the other list paths) the eager set-up's int64 threefry
+draws, several alive at once.
 
 The card's memory is the caller's: :func:`device_memory_bytes` reads it
 with ``nvidia-smi`` (or the host's memory for a CPU fleet) without
@@ -97,10 +99,17 @@ def trial_bytes(cfg, device: str) -> dict[str, int]:
     n, n_rv, s, w = cfg.n_parties, cfg.n_lieutenants, cfg.size_l, cfg.w
     n_pool = n_rv * cfg.slots
     terms: dict[str, int] = {}
-    # The lists (int32, every party), the lieutenants' int32 copy and
-    # their P rows; a position's n draws in int64.
-    lists = (n + 1) * s * 4 + n_rv * s * (4 + 1)
-    transient = SETUP_LIVE * s * (n + 1) * 8
+    if device == "cuda" and cfg.qsim_path == "factorized":
+        # The set-up kernel's outputs: the lieutenants' int32 lists and
+        # their P rows, then the honesty, orders, target and keys; the
+        # kernel holds no temporaries in device memory.
+        lists = n_rv * s * (4 + 1)
+        transient = (n + 1) + n_rv * 4 + 4 + 4 + 2 * 16
+    else:
+        # The lists (int32, every party), the lieutenants' int32 copy and
+        # their P rows; a position's n draws in int64, made eagerly.
+        lists = (n + 1) * s * 4 + n_rv * s * (4 + 1)
+        transient = SETUP_LIVE * s * (n + 1) * 8
     if cfg.qsim_path == "stabilizer":
         # The gen operands (coins and parities per position and qubit)
         # and their int64 threefry draws; generated on the host side,

@@ -34,14 +34,11 @@ from qba_tpu_torch.adversary import (
     DROP_BIT,
     FORGE_BIT,
     FORGE_P_BIT,
-    adversary_ctx,
-    assign_dishonest,
-    commander_orders,
     effect_names,
 )
 from qba_tpu_torch.config import QBAConfig
 from qba_tpu_torch.ops.attack_draws import attack_draws
-from qba_tpu_torch.qsim import generate_lists_for
+from qba_tpu_torch.rounds.engine import setup_batch
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
     from qba_tpu_torch.obs import EventLog
@@ -107,7 +104,9 @@ def presample_batch(cfg: QBAConfig, keys: torch.Tensor,
                     partitionable: bool | None = None) -> Presample:
     """Every message-level backend's randomness for trial keys ``[T, 2]``,
     drawn on their device with the batched runner's key tree: ``split(key,
-    4)`` into dishonesty, lists, orders and rounds; the adversary context;
+    4)`` into dishonesty, lists, orders and rounds and the adversary
+    context (:func:`~qba_tpu_torch.rounds.engine.setup_batch`: the set-up
+    kernel on CUDA, a launch a form, its plain version on the CPU);
     every round's draws in one :func:`attack_draws` call (one kernel launch
     on CUDA, its plain version on the CPU); then one copy to the host.
 
@@ -121,13 +120,9 @@ def presample_batch(cfg: QBAConfig, keys: torch.Tensor,
             f"(w <= {MAX_W}); got w={cfg.w} (n_parties={cfg.n_parties})")
     dev, p = keys.device, jr.resolve_mode(partitionable)
     t0 = time.perf_counter()
-    k = jr.split(keys, 4, partitionable=p)
-    honest = assign_dishonest(cfg, k[:, 0], partitionable=p)
-    lists, _qcorr = generate_lists_for(cfg, k[:, 1], partitionable=p)
-    v_sent, v_comm = commander_orders(cfg, k[:, 2], honest[:, 1],
-                                      partitionable=p)
-    k_rounds = k[:, 3].contiguous()
-    ctx = adversary_ctx(cfg, k_rounds, v_sent, partitionable=p)
+    s, ctx = setup_batch(cfg, keys, partitionable=p, full_lists=True)
+    honest, lists, v_sent, v_comm = s.honest, s.lists, s.v_sent, s.v_comm
+    k_rounds = s.k_rounds.contiguous()
     if timings is not None:
         _fence(dev)
         t1 = time.perf_counter()

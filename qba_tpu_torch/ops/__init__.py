@@ -11,6 +11,7 @@ def kernel_wrappers() -> dict:
     from qba_tpu_torch.ops import ring_shuffle as rg
     from qba_tpu_torch.ops import round_kernel as rs
     from qba_tpu_torch.ops import round_kernel_tiled as rk
+    from qba_tpu_torch.ops import setup_kernel as sk
     from qba_tpu_torch.ops import surface_loop as su
     from qba_tpu_torch.ops import sweep_loop as sl
     from qba_tpu_torch.ops import trial_megakernel as tm
@@ -30,7 +31,8 @@ def kernel_wrappers() -> dict:
                 tm.sharded_trial_megakernel_keyed,
             "sweep_stop": sl.sweep_stop,
             "surface_pick": su.surface_pick,
-            "surface_fold": su.surface_fold}
+            "surface_fold": su.surface_fold,
+            "setup_trial": sk.setup_kernel}
 
 
 def kernel_launches() -> dict[str, int]:

@@ -103,6 +103,46 @@ __device__ __forceinline__ uint32_t bits_at(Key k, uint32_t i,
   }
 }
 
+// jax.random.split(key, num)[j]: in the partitionable mode the pair
+// threefry2x32(key, (0, j)); in the legacy mode words 2j and 2j + 1 of
+// bits over iota(2 * num).
+template <bool kLegacy = false>
+__device__ __forceinline__ Key split_at(Key k, uint32_t j, uint32_t num) {
+  if constexpr (kLegacy) {
+    return Key{bits_at<true>(k, 2u * j, 2u * num),
+               bits_at<true>(k, 2u * j + 1u, 2u * num)};
+  } else {
+    uint32_t x0 = 0u, x1 = j;
+    threefry2x32(k, x0, x1);
+    return Key{x0, x1};
+  }
+}
+
+// jax.random.uniform(key, shape) in float32 at flat index i of a table of
+// n entries: the word's 23 top bits as a float in [1, 2), minus one.
+// Compared against a float32 p it is jax.random.bernoulli.
+template <bool kLegacy = false>
+__device__ __forceinline__ float uniform_at(Key k, uint32_t i,
+                                            uint32_t n = 0u) {
+  return __uint_as_float((bits_at<kLegacy>(k, i, n) >> 9) | 0x3F800000u) -
+         1.0f;
+}
+
+// jax.random.randint(key, shape, 0, span) at flat index i of a table of n
+// entries, from the key's halves (hi, lo) = split(key, 2): the high word
+// scaled by 2^32 mod span plus the low one, each mod span, wrapping at 32
+// bits as random.py :: randint masks.
+template <bool kLegacy = false>
+__device__ __forceinline__ uint32_t randint_at(Key hi, Key lo, uint32_t i,
+                                               uint32_t span,
+                                               uint32_t n = 0u) {
+  const uint32_t m16 = 65536u % span;
+  const uint32_t mult = uint32_t(uint64_t(m16) * m16 % span);
+  const uint32_t off = (bits_at<kLegacy>(hi, i, n) % span) * mult +
+                       bits_at<kLegacy>(lo, i, n) % span;
+  return off % span;
+}
+
 // The raw forged order of an attack word: bits 3-26 mod n_parties + 1.
 __device__ __forceinline__ int raw_rand_v(uint32_t b, int n_mod) {
   return int(((b >> 3) & 0xFFFFFFu) % uint32_t(n_mod));

@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from qba_tpu_torch import random as jr
-from qba_tpu_torch.adversary import adversary_ctx, sample_attacks_round
+from qba_tpu_torch.adversary import sample_attacks_round
 from qba_tpu_torch.backends.torch_backend import (
     MonteCarloResult,
     aggregate,
@@ -77,7 +77,7 @@ from qba_tpu_torch.rounds.engine import (
     receiver_round,
     round_draws,
     scan_rounds,
-    setup_trial,
+    setup_batch,
     step3a_one,
     warn_masks_demotion,
 )
@@ -117,9 +117,9 @@ def _trial_party_sharded(cfg: QBAConfig, n_tp: int, keys: torch.Tensor,
         return _trial_sharded_mega(cfg, n_tp, keys, p)
     n_local = cfg.n_lieutenants // n_tp
     n_trials = keys.shape[0]
-    honest, lieu_lists, p_rows, v_sent, v_comm, k_rounds = setup_trial(
-        cfg, keys, partitionable=p)
-    ctx = adversary_ctx(cfg, k_rounds, v_sent, partitionable=p)
+    s, ctx = setup_batch(cfg, keys, partitionable=p)
+    honest, lieu_lists, p_rows, v_sent, v_comm, k_rounds = (
+        s.honest, s.lieu_lists, s.p_rows, s.v_sent, s.v_comm, s.k_rounds)
     vi, out_cells = step3a_one(cfg, p_rows, v_sent, lieu_lists)
     # Each shard's receivers: step 3a is per lieutenant, so its rows are
     # what the shard computes for itself.
@@ -220,16 +220,13 @@ def _trial_sharded_mega(cfg: QBAConfig, n_tp: int, keys: torch.Tensor,
     )
 
     p = partitionable
-    honest, lieu_lists, p_rows, v_sent, v_comm, k_rounds = setup_trial(
-        cfg, keys, partitionable=p)
-    k_rounds = k_rounds.contiguous()
+    s, ctx = setup_batch(cfg, keys, partitionable=p)
     vi, dec, overflow = sharded_trial_megakernel_keyed(
-        cfg, n_tp, p_rows.contiguous(),
-        lieu_lists.to(torch.int32).contiguous(),
-        v_sent.to(torch.int32).contiguous(), honest_cells(honest, cfg),
-        k_rounds, adversary_ctx(cfg, k_rounds, v_sent, partitionable=p),
-        partitionable=p)
-    return mega_result(honest, v_comm, vi, dec, overflow)
+        cfg, n_tp, s.p_rows.contiguous(),
+        s.lieu_lists.to(torch.int32).contiguous(),
+        s.v_sent.to(torch.int32).contiguous(), honest_cells(s.honest, cfg),
+        s.k_rounds.contiguous(), ctx, partitionable=p)
+    return mega_result(s.honest, s.v_comm, vi, dec, overflow)
 
 
 def _merge_counters_tp(cfg: QBAConfig, n_tp: int, cst: ProtocolCounters,

@@ -21,7 +21,20 @@ def generate_lists(cfg: QBAConfig, keys: torch.Tensor, *,
 
     Returns ``(lists int32 [..., n_parties+1, size_l], qcorr bool
     [..., size_l])``: row 0 is the QSD's extra copy, row 1 the commander.
+    CUDA keys launch the set-up kernel's ``"lists"`` form
+    (:func:`~qba_tpu_torch.ops.setup_kernel.setup_kernel`, one launch);
+    CPU keys run :func:`generate_lists_plain`.
     """
+    from qba_tpu_torch.ops.setup_kernel import setup_kernel
+
+    out = setup_kernel(cfg, keys, "lists", partitionable=partitionable)
+    return out.lists, out.qcorr
+
+
+def generate_lists_plain(cfg: QBAConfig, keys: torch.Tensor, *,
+                         partitionable: bool | None = None):
+    """:func:`generate_lists` in eager PyTorch on any device: the set-up
+    kernel's plain version of the lists."""
     n, w, s = cfg.n_parties, cfg.w, cfg.size_l
     if w & (w - 1) != 0 or n >= w:
         raise ValueError(

@@ -58,8 +58,6 @@ import torch
 from qba_tpu_torch import random as jr
 from qba_tpu_torch.adversary import (
     adversary_ctx,
-    assign_dishonest,
-    commander_orders,
     corrupt_at_delivery,
     sample_attacks_round,
 )
@@ -180,42 +178,75 @@ def p_sets(lists: torch.Tensor, v_sent: torch.Tensor) -> torch.Tensor:
     return is_qcorr[..., None, :] & (lists[..., 1:2, :] == v_sent[..., None])
 
 
+def setup_batch(cfg: QBAConfig, keys: torch.Tensor, *,
+                partitionable: bool | None = None, full_lists: bool = False):
+    """The protocol phases before the round loop for trial keys ``[T,
+    2]`` and the adversary context: ``(TrialSetup, ctx)``
+    (:class:`~qba_tpu_torch.ops.setup_kernel.TrialSetup`).
+
+    The factorized path is one :func:`~qba_tpu_torch.ops.setup_kernel.
+    setup_kernel` call (``"whole"``); the other list paths call its
+    ``"orders"`` form for ``k_lists``, make the lists with
+    :func:`~qba_tpu_torch.qsim.generate_lists_for` and hand them to its
+    ``"given"`` form.  On CUDA keys each call is one launch of the
+    set-up kernel, on CPU keys its plain version (the eager set-up).
+    The context takes the set-up's collude target.  ``full_lists``: the
+    result's ``lists`` holds every party's lists."""
+    from qba_tpu_torch.ops.setup_kernel import setup_kernel
+
+    p = jr.resolve_mode(partitionable)
+    if cfg.qsim_path == "factorized":
+        s = setup_kernel(cfg, keys, "whole", full_lists=full_lists,
+                         partitionable=p)
+    else:
+        k_lists = setup_kernel(cfg, keys, "orders", partitionable=p).k_lists
+        lists, _qcorr = generate_lists_for(cfg, k_lists, partitionable=p)
+        s = setup_kernel(cfg, keys, "given", lists, partitionable=p)
+        if full_lists:
+            s = s._replace(lists=lists)
+    ctx = adversary_ctx(cfg, s.k_rounds, s.v_sent, partitionable=p,
+                        target=s.target)
+    return s, ctx
+
+
 def setup_trial(cfg: QBAConfig, keys: torch.Tensor, *,
                 partitionable: bool | None = None):
     """Protocol phases before the round loop, for trial keys ``[T, 2]``:
     dishonesty assignment, particle lists, commander orders and each
-    lieutenant's P-set.
+    lieutenant's P-set (:func:`setup_batch` without the context).
 
     Returns ``(honest [T, n+1], lieu_lists [T, n_lieu, S], p_rows
     [T, n_lieu, S], v_sent [T, n_lieu], v_comm [T], k_rounds [T, 2])``.
     """
+    s, _ctx = setup_batch(cfg, keys, partitionable=partitionable)
+    return s.honest, s.lieu_lists, s.p_rows, s.v_sent, s.v_comm, s.k_rounds
+
+
+def gen_setup_batch(cfg: QBAConfig, keys: torch.Tensor, *,
+                    partitionable: bool | None = None):
+    """:func:`setup_batch` for the megakernel's gen entry: the set-up
+    kernel's ``"orders"`` form (the same key split, ``k_dis, k_lists,
+    k_comm, k_rounds``), with ``k_lists`` feeding
+    :func:`~qba_tpu_torch.qsim.protocol_circuits.stabilizer_gen_operands`
+    instead of generating the lists.  Returns ``(TrialSetup, gen_ops,
+    ctx)``."""
+    from qba_tpu_torch.ops.setup_kernel import setup_kernel
+    from qba_tpu_torch.qsim.protocol_circuits import stabilizer_gen_operands
+
     p = jr.resolve_mode(partitionable)
-    k = jr.split(keys, 4, partitionable=p)
-    honest = assign_dishonest(cfg, k[..., 0, :], partitionable=p)
-    lists, _qcorr = generate_lists_for(cfg, k[..., 1, :], partitionable=p)
-    v_sent, v_comm = commander_orders(cfg, k[..., 2, :], honest[..., 1],
-                                      partitionable=p)
-    return (honest, lists[..., 2:, :], p_sets(lists, v_sent), v_sent, v_comm,
-            k[..., 3, :])
+    s = setup_kernel(cfg, keys, "orders", partitionable=p)
+    gen_ops = stabilizer_gen_operands(cfg, s.k_lists, partitionable=p)
+    ctx = adversary_ctx(cfg, s.k_rounds, s.v_sent, partitionable=p,
+                        target=s.target)
+    return s, gen_ops, ctx
 
 
 def _mega_gen_setup(cfg: QBAConfig, keys: torch.Tensor,
                     partitionable: bool | None = None):
-    """:func:`setup_trial`'s phases for the megakernel's gen entry: the
-    same key split (``k_dis, k_lists, k_comm, k_rounds``), with
-    ``k_lists`` feeding
-    :func:`~qba_tpu_torch.qsim.protocol_circuits.stabilizer_gen_operands`
-    instead of generating the lists.  Returns ``(honest, gen_ops,
-    v_sent, v_comm, k_rounds)``."""
-    from qba_tpu_torch.qsim.protocol_circuits import stabilizer_gen_operands
-
-    p = jr.resolve_mode(partitionable)
-    k = jr.split(keys, 4, partitionable=p)
-    honest = assign_dishonest(cfg, k[..., 0, :], partitionable=p)
-    gen_ops = stabilizer_gen_operands(cfg, k[..., 1, :], partitionable=p)
-    v_sent, v_comm = commander_orders(cfg, k[..., 2, :], honest[..., 1],
-                                      partitionable=p)
-    return honest, gen_ops, v_sent, v_comm, k[..., 3, :]
+    """:func:`gen_setup_batch` as ``(honest, gen_ops, v_sent, v_comm,
+    k_rounds)``."""
+    s, gen_ops, _ctx = gen_setup_batch(cfg, keys, partitionable=partitionable)
+    return s.honest, gen_ops, s.v_sent, s.v_comm, s.k_rounds
 
 
 def step3a_one(cfg: QBAConfig, p_rows, v, li):
@@ -552,14 +583,12 @@ def run_trial_mega(cfg: QBAConfig, keys: torch.Tensor, *,
     p = jr.resolve_mode(partitionable)
     gen = resolve_mega_gen(cfg, keys.device) == "gf2"
     if gen:
-        honest, gen_ops, v_sent, v_comm, k_rounds = _mega_gen_setup(cfg,
-                                                                    keys, p)
+        s, gen_ops, ctx = gen_setup_batch(cfg, keys, partitionable=p)
     else:
-        honest, lieu_lists, p_rows, v_sent, v_comm, k_rounds = setup_trial(
-            cfg, keys, partitionable=p)
-    ctx = adversary_ctx(cfg, k_rounds, v_sent, partitionable=p)
-    v32, hc = v_sent.to(torch.int32).contiguous(), honest_cells(honest, cfg)
-    k_rounds = k_rounds.contiguous()
+        s, ctx = setup_batch(cfg, keys, partitionable=p)
+    honest, v_comm = s.honest, s.v_comm
+    v32, hc = s.v_sent.to(torch.int32).contiguous(), honest_cells(honest, cfg)
+    k_rounds = s.k_rounds.contiguous()
     # The launch runs in the batch's mode (the wrappers read it once).
     with jr.threefry_partitionable(p):
         if gen:
@@ -572,8 +601,8 @@ def run_trial_mega(cfg: QBAConfig, keys: torch.Tensor, *,
                 hc, k_rounds, ctx)
         else:
             vi, dec, overflow = trial_megakernel_keyed(
-                cfg, p_rows.contiguous(),
-                lieu_lists.to(torch.int32).contiguous(), v32, hc, k_rounds,
+                cfg, s.p_rows.contiguous(),
+                s.lieu_lists.to(torch.int32).contiguous(), v32, hc, k_rounds,
                 ctx)
     return mega_result(honest, v_comm, vi, dec, overflow)
 
@@ -640,11 +669,10 @@ def run_trial(cfg: QBAConfig, keys: torch.Tensor, *,
     if engine == "pallas_mega":
         # The megakernel absorbs step 3a and the decisions too.
         return run_trial_mega(cfg, keys, partitionable=p)
-    honest, lieu_lists, p_rows, v_sent, v_comm, k_rounds = setup_trial(
-        cfg, keys, partitionable=p
-    )
+    s, ctx = setup_batch(cfg, keys, partitionable=p)
+    honest, lieu_lists, p_rows, v_sent, v_comm, k_rounds = (
+        s.honest, s.lieu_lists, s.p_rows, s.v_sent, s.v_comm, s.k_rounds)
     vi, out_cells = step3a_one(cfg, p_rows, v_sent, lieu_lists)
-    ctx = adversary_ctx(cfg, k_rounds, v_sent, partitionable=p)
     if engine == "xla":
         vi, overflow, counters = run_rounds_xla(
             cfg, vi, mailbox_from_step3a(cfg, out_cells), lieu_lists,

@@ -217,7 +217,10 @@ def test_seams_count_jax_launches_per_trial(engine):
     with jax.threefry_partitionable(True):
         want = jlaunches.launches_per_trial(JConfig(**kw), engine)
     rec = ptrace.trace_batch("5p", QBAConfig(**kw), engine, "cpu")
-    kernels = {k: v for k, v in rec.seams.items() if k != "attack_draws"}
+    # The draws and the set-up are XLA code in the JAX package, no
+    # pallas_call: its per-trial table counts neither.
+    kernels = {k: v for k, v in rec.seams.items()
+               if k not in ("attack_draws", "setup_trial")}
     assert sum(kernels.values()) == want
     assert dict(rec.seams) == plaunches.batch_launch_model(
         QBAConfig(**kw), engine, "cpu")

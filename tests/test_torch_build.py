@@ -88,30 +88,32 @@ def test_repo_kernels_and_their_sources():
     # Every kernel source exists; the four round kernels share the round
     # header (so its edits rebuild them), the circuit, ring, sweep-loop and
     # surface-loop kernels stand alone, the sweep's header is in the sweep kernel and
-    # the megakernel, and the draws' header in the draws kernel and the
-    # megakernel.
+    # the megakernel, and the draws' header in the draws kernel, the
+    # megakernel and the set-up kernel.
     assert set(_build.KERNELS) == {"fused_round", "trial_megakernel",
                                    "tiled_round", "round_step",
                                    "fused_circuit", "gf2_sweep",
                                    "ring_shuffle", "attack_draws",
-                                   "sweep_loop", "surface_loop"}
+                                   "sweep_loop", "surface_loop",
+                                   "setup_trial"}
     for name in _build.KERNELS:
         files = [p.name for p in _build.sources(name)]
         assert files[0] == f"{name}.cu"
         assert ("round_common.cuh" in files) == (
             name not in ("fused_circuit", "gf2_sweep", "ring_shuffle",
-                         "attack_draws", "sweep_loop", "surface_loop"))
+                         "attack_draws", "sweep_loop", "surface_loop",
+                         "setup_trial"))
         assert ("gf2_sweep.cuh" in files) == (
             name in ("gf2_sweep", "trial_megakernel"))
         assert ("draws.cuh" in files) == (
-            name in ("attack_draws", "trial_megakernel"))
+            name in ("attack_draws", "trial_megakernel", "setup_trial"))
     assert _build.build_dir().parts[-2:] == ("build", "qba_tpu_torch")
 
 
 @pytest.mark.parametrize("name", ["round_step", "fused_circuit", "gf2_sweep",
                                   "ring_shuffle", "trial_megakernel",
                                   "attack_draws", "sweep_loop",
-                                  "surface_loop"])
+                                  "surface_loop", "setup_trial"])
 def test_new_sources_are_in_their_build_key(name, tmp_path, monkeypatch):
     # A copy of csrc with one byte appended to the source changes the key.
     import shutil
@@ -147,8 +149,8 @@ def test_package_data_ships_every_kernel_source():
 
 
 def test_draws_header_edit_rebuilds_its_kernels(tmp_path, monkeypatch):
-    # An edit to draws.cuh changes the draws kernel's and the megakernel's
-    # build keys, and no other kernel's.
+    # An edit to draws.cuh changes the draws kernel's, the megakernel's
+    # and the set-up kernel's build keys, and no other kernel's.
     import shutil
 
     before = {name: _build._target(name)[1].name for name in _build.KERNELS}
@@ -159,7 +161,7 @@ def test_draws_header_edit_rebuilds_its_kernels(tmp_path, monkeypatch):
         f.write("// edit\n")
     changed = {name for name in _build.KERNELS
                if _build._target(name)[1].name != before[name]}
-    assert changed == {"attack_draws", "trial_megakernel"}
+    assert changed == {"attack_draws", "trial_megakernel", "setup_trial"}
 
 
 def test_round_header_edit_rebuilds_its_kernels(tmp_path, monkeypatch):

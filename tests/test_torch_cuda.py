@@ -1514,3 +1514,90 @@ def test_golden_pins_on_the_card(cuda):
             for label, got in runs.items():
                 assert got.success.tolist() == success, (name, label)
                 assert got.decisions.tolist() == decisions, (name, label)
+
+
+# ---- the trial set-up kernel ---------------------------------------------
+
+SETUP_CASES = {
+    "11p-reference": dict(n_parties=11, size_l=64, n_dishonest=3),
+    "11p-split-noise": dict(n_parties=11, size_l=64, n_dishonest=3,
+                            strategy="split", p_depolarize=0.05,
+                            p_measure_flip=0.02),
+    "33p-collude": dict(n_parties=33, size_l=64, n_dishonest=10,
+                        strategy="collude"),
+    "65p-adaptive": dict(n_parties=65, size_l=70, n_dishonest=21,
+                         strategy="adaptive"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("partitionable", [True, False])
+@pytest.mark.parametrize("case", list(SETUP_CASES))
+def test_setup_kernel_forms(cuda, case, partitionable):
+    # Every form of the set-up kernel equals its plain version bit for
+    # bit on every output, in both threefry modes (65p: w = 128, two
+    # tiles of positions).
+    from qba_tpu_torch.ops import setup_kernel as sk
+
+    p = partitionable
+    cfg = qba_tpu_torch.QBAConfig(**SETUP_CASES[case], trials=64, seed=4)
+    keys = trial_keys(cfg, cuda, partitionable=p)
+    k_lists = jr.split(keys, 4, partitionable=p)[:, 1].contiguous()
+    lists = sk.setup_reference(cfg, keys, "whole", full_lists=True,
+                               partitionable=p).lists
+    before = sk.setup_kernel.launches
+    calls = [((cfg, keys, "whole"), {}), ((cfg, keys, "whole"),
+                                          dict(full_lists=True)),
+             ((cfg, keys, "given", lists), {}), ((cfg, keys, "orders"), {}),
+             ((cfg, k_lists, "lists"), {})]
+    for args, kw in calls:
+        got = sk.setup_kernel(*args, partitionable=p, **kw)
+        want = sk.setup_reference(*args, partitionable=p, **kw)
+        for f in sk.TrialSetup._fields:
+            a, b = getattr(got, f), getattr(want, f)
+            assert (a is None) == (b is None), (args[2], f)
+            if a is not None:
+                assert a.dtype == b.dtype and torch.equal(a, b), (args[2], f)
+    assert sk.setup_kernel.launches == before + len(calls)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["auto", "pallas_fused", "pallas_tiled",
+                                    "pallas", "xla"])
+def test_every_engine_launches_the_setup_kernel(cuda, engine):
+    # A batch launches the set-up kernel as the launch model says and no
+    # eager set-up: its results equal the same batch on the plain set-up.
+    from qba_tpu_torch.analysis.launches import batch_launch_model
+    from qba_tpu_torch.ops import setup_kernel as sk
+
+    cfg = qba_tpu_torch.QBAConfig(n_parties=11, size_l=64, n_dishonest=3,
+                                  trials=64, strategy="collude",
+                                  round_engine=engine)
+    for qsim in ("factorized", "stabilizer"):
+        qcfg = dataclasses.replace(cfg, qsim_path=qsim)
+        before = sk.setup_kernel.launches
+        got = qba_tpu_torch.run_trials(qcfg).trials
+        assert sk.setup_kernel.launches - before == batch_launch_model(
+            qcfg, engine, cuda)["setup_trial"]
+        real = sk.dispatch
+        try:
+            sk.dispatch = lambda name, t: (name != "setup_trial"
+                                           and real(name, t))
+            want = qba_tpu_torch.run_trials(qcfg).trials
+        finally:
+            sk.dispatch = real
+        for f in ("decisions", "success", "vi", "overflow", "honest"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), (qsim, f)
+
+
+@pytest.mark.cuda
+def test_setup_kernel_refuses_what_it_cannot_serve(cuda):
+    from qba_tpu_torch.ops import setup_kernel as sk
+
+    cfg = qba_tpu_torch.QBAConfig(n_parties=1100, size_l=4, n_dishonest=0)
+    with pytest.raises(sk.KernelUnsupported, match="parties"):
+        sk.setup_kernel(cfg, jr.split(jr.key(0, device=cuda), 2))
+    small = qba_tpu_torch.QBAConfig(n_parties=5, size_l=16, n_dishonest=2)
+    with pytest.raises(TypeError, match="dtype"):
+        sk.setup_kernel(small, torch.zeros(2, 2, dtype=torch.int32,
+                                           device=cuda))
