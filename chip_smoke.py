@@ -91,7 +91,11 @@ Phases, each reported on its own line:
    output, in both threefry modes, at 11p/L64/d3 and 33p/L64/d10 x 1000
    and 65p/L64/d21 x 64 (w = 128, two tiles of positions), in the
    strategies ``reference``, ``split``, ``collude``, ``adaptive`` and with
-   noise;
+   noise; ``keys_vs_plain``: the same file's key entry (``keys_kernel``,
+   ``split(fold_in(root, d), num)``) against its plain version in both
+   modes, bit for bit, eagerly (1 to 4097 keys, seed and key roots, a
+   negative seed, no fold, int and int32 tensor folds) and
+   captured in a CUDA graph replayed with new fold values;
 5. ``engines_agree``: ``run_trials`` with the ``xla``, ``pallas``,
    ``pallas_fused``, ``pallas_tiled`` and ``pallas_mega`` engines trial
    for trial at 5p/L16/d2 x 64, and the protocol counters of the four
@@ -106,11 +110,15 @@ Phases, each reported on its own line:
    warm-up, rounds/s (trials x n_rounds / s), kernel time per launch
    from CUDA events, set-up and draw times, success rate and peak
    memory.  The four engines must agree trial for trial, and with the
-   same batches run on the plain set-up (``setup_plain_agrees``);
-   ``setup_timing`` times the set-up kernel in both modes in turns
-   beside its plain version and its bound, ``wall_split`` stages a warm
-   ``auto`` batch (keys, set-up, glue, megakernel, ``mega_result``)
-   beside its fenced wall.  Then
+   same batches run on the plain set-up and keys
+   (``setup_plain_agrees``); ``setup_timing`` times the set-up kernel in
+   both modes in turns beside its plain version and its bound;
+   ``setup_phases`` is its phase
+   clock (the clocked instantiation, off the main path); ``keys_timing``
+   times the key entry (from the seed, and from a root key with a fold
+   in device memory) in both modes beside the eager split;
+   ``wall_split`` stages a warm ``auto`` batch (keys, set-up, glue,
+   megakernel, ``mega_result``) beside its fenced wall.  Then
    ``full_width_vs_plain``: the same batches replayed round by round
    with the fused, verdict, rebuild and dense-mailbox kernels held
    against their plain versions (bit-exact, with times and bounds), each
@@ -420,6 +428,10 @@ SOURCES = {
     # qba_tpu/adversary/model.py:63,74,227), not of a pallas_call site.
     "setup_trial": ("qba_tpu_torch/ops/csrc/setup_trial.cu",
                     "qba_tpu/rounds/engine.py:511"),
+    # The counterpart of jax.random.split(jax.random.fold_in(key(seed), d),
+    # n), the batch's trial keys, not of a pallas_call site.
+    "trial_keys": ("qba_tpu_torch/ops/csrc/setup_trial.cu",
+                   "qba_tpu/backends/jax_backend.py:33"),
 }
 # 32-bit operations of one threefry2x32 (csrc/draws.cuh): 20 rounds of an
 # add, a rotate and a xor, and the key injections.
@@ -1333,7 +1345,8 @@ COUNTED = ("fused_round", "tiled_verdict", "tiled_rebuild",
            "trial_megakernel_gen", "sharded_trial_megakernel", "ring_gather",
            "attack_draws", "trial_megakernel_keyed",
            "trial_megakernel_gen_keyed", "sharded_trial_megakernel_keyed",
-           "sweep_stop", "surface_pick", "surface_fold", "setup_trial")
+           "sweep_stop", "surface_pick", "surface_fold", "setup_trial",
+           "trial_keys")
 ROUND_KERNELS = COUNTED[:5]
 # The megakernel rows of the kernel table time the keyed entries, the ones
 # the engines launch.
@@ -1387,6 +1400,12 @@ SETUP_SIZES = [("11p/L64/d3", dict(n_parties=11, size_l=64, n_dishonest=3),
                ("33p/L64/d10", dict(n_parties=33, size_l=64, n_dishonest=10),
                 1000),
                ("65p/L64/d21", dict(n_parties=65, size_l=64, n_dishonest=21),
+                64),
+               # Few parties and long lists: the tile is sized by the
+               # shared memory's limit, not by its words.
+               ("5p/L1000/d2", dict(n_parties=5, size_l=1000, n_dishonest=2),
+                64),
+               ("3p/L2048/d1", dict(n_parties=3, size_l=2048, n_dishonest=1),
                 64)]
 SETUP_LAWS = [("reference", {}), ("split", dict(strategy="split")),
               ("collude", dict(strategy="collude")),
@@ -1470,10 +1489,11 @@ def setup_cost(cfg, n_trials, n_q):
     """``(bytes, operations)`` of the set-up's whole form over ``n_trials``
     trials whose positions hold ``n_q`` Q-correlated ones in all: per
     trial the keys' hashes, the permutation's ``n`` words, a Q bit a
-    position, ``r`` (two words) and ``n`` sort words a Q-correlated
-    position, two words a row of ``u`` at the others, four words a qubit
-    of every row and position with noise, and the ranks' ``n^2`` compares
-    (a compare and an add) a Q-correlated position; the keys read, the
+    position, ``r`` (one word: a power-of-two span needs only the low
+    word) and ``n`` sort words a Q-correlated position, one word a row of
+    ``u`` at the others (``n`` rows; row 0 is u[0]), four words a qubit of
+    every row and position with noise, and the ranks' ``n^2`` compares (a
+    compare and an add) a Q-correlated position; the keys read, the
     outputs written once."""
     from qba_tpu_torch.adversary.model import needs_target
     from qba_tpu_torch.ops.setup_kernel import perm_rounds
@@ -1481,17 +1501,138 @@ def setup_cost(cfg, n_trials, n_q):
     n, s, nq, n_lt = cfg.n_parties, cfg.size_l, cfg.n_qubits, cfg.n_lieutenants
     noise = cfg.p_depolarize > 0.0 or cfg.p_measure_flip > 0.0
     target = needs_target(cfg)
-    # The key chains: k_dis and its rounds; the lists' 4 keys and their
-    # halves; the orders' 3 keys, halves and words, k_rounds; the noise's
-    # and the target's.
-    keys = 1 + 2 * perm_rounds(n) + 9 + 17 + 7 * noise + 5 * target
+    # The keys the function needs: k_dis and its rounds; k_lists, its
+    # l0..l3 and the low halves of l1 and l3; k_comm, c0..c2, the low
+    # halves of c0 and c1 and both of c2, their four words; k_rounds; the
+    # noise's fold, three keys and the kind's halves; the target's fold,
+    # halves and words.
+    keys = 2 * perm_rounds(n) + 7 + 12 + 1 + 6 * noise + 5 * target
     hashes = (n_trials * (keys + perm_rounds(n) * n + s)
-              + n_q * (2 + n) + (n_trials * s - n_q) * 2 * (n + 1)
+              + n_q * (1 + n) + (n_trials * s - n_q) * n
               + noise * n_trials * 4 * nq * (n + 1) * s)
     ops = hashes * HASH_OPS + 2 * n_q * n * n
     out = ((n + 1) + n_lt * s * (4 + 1) + n_lt * 4 + 4 + 16
            + 4 * target)
     return n_trials * (16 + out), ops
+
+
+def keys_cases(dev):
+    """The key entry's eager cases: ``(label, root, num, fold)``."""
+    import torch
+
+    from qba_tpu_torch import random as jr
+
+    roots = [("seed -7", -7), ("seed 2026", 2026),
+             ("key", jr.key(123, dev))]
+    folds = [("none", None), ("int 5", 5), ("int -9", -9),
+             ("int32 -3", torch.tensor(-3, dtype=torch.int32, device=dev)),
+             ("int32 2**30", torch.tensor(2**30, dtype=torch.int32,
+                                          device=dev))]
+    return [(f"{r} {f} x{num}", root, num, fold)
+            for num in (1, 2, 7, 1000, 4097) for r, root in roots
+            for f, fold in folds]
+
+
+def keys_vs_plain(dev):
+    """The key entry (``keys_kernel``) against its plain version
+    (``split(fold_in(root, d), num)``), bit for bit, in both threefry
+    modes: eagerly on ``keys_cases`` (odd and even ``num``, the legacy
+    mode's pairing; a seed root, a negative one, a key root; no fold,
+    ints, int32 tensors), then captured in a CUDA graph and
+    replayed with new fold values in the tensor it reads.  Returns
+    ``(max_abs_err, facts)``."""
+    import torch
+
+    from qba_tpu_torch import random as jr
+    from qba_tpu_torch.ops import setup_kernel as sk
+
+    err, facts = 0, []
+    for p in (True, False):
+        mode = "partitionable" if p else "legacy"
+        cases = keys_cases(dev)
+        for label, root, num, fold in cases:
+            got = sk.keys_kernel(root, num, fold, device=dev, partitionable=p)
+            want = sk.keys_reference(root, num, fold, device=dev,
+                                     partitionable=p)
+            if got.dtype != want.dtype or got.shape != want.shape:
+                raise AssertionError(f"keys {label} {mode}: {got.dtype}"
+                                     f"{list(got.shape)} against "
+                                     f"{want.dtype}{list(want.shape)}")
+            e = max_err(got, want)
+            if e:
+                raise AssertionError(f"keys {label} {mode}: kernel != plain "
+                                     f"by {e}")
+            err = max(err, e)
+        root = jr.key(31, dev)
+        carry = torch.zeros(4, dtype=torch.int32, device=dev)
+        sk.keys_kernel(root, 1000, carry[0], partitionable=p)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = sk.keys_kernel(root, 1000, carry[0], partitionable=p)
+        replays = (0, 7, -1, 123456)
+        for d in replays:
+            carry[0].fill_(d)
+            graph.replay()
+            torch.cuda.synchronize()
+            e = max_err(out, sk.keys_reference(root, 1000, carry[0],
+                                               partitionable=p))
+            if e:
+                raise AssertionError(f"keys graph {mode} fold {d}: replay "
+                                     f"!= plain by {e}")
+            err = max(err, e)
+        del graph
+        facts.append(dict(mode=mode, eager_cases=len(cases),
+                          graph_replays=list(replays), num=1000))
+    return err, facts
+
+
+def keys_cost(num, fold=False):
+    """``(bytes, operations)`` of ``num`` trial keys: the root (and the
+    int32 fold) read, the keys written; ``num`` hashes for the split in
+    either mode (the legacy mode's hash ``i`` gives words ``i`` and ``i +
+    num``) and, with a fold, one more for the whole batch."""
+    hashes = num + int(fold)
+    return 16 + 4 * int(fold) + 16 * num, hashes * HASH_OPS
+
+
+def keys_timing(cfg, dev, reps=20):
+    """The key entry's ms a launch (CUDA events) making ``cfg``'s trial
+    keys (a seed root, no fold) and a chunk's (a root key, an int32 fold
+    in device memory), in both modes, beside the plain version's fenced
+    host ms (``random.py``'s eager split) and the bound."""
+    import statistics
+
+    import torch
+
+    from qba_tpu_torch import random as jr
+    from qba_tpu_torch.ops import setup_kernel as sk
+
+    root = jr.key(cfg.seed, dev)
+    fold = torch.tensor(3, dtype=torch.int32, device=dev)
+    out = {}
+    for p in (True, False):
+        mode = "partitionable" if p else "legacy"
+        for label, args in (("seed", (cfg.seed, cfg.trials)),
+                            ("fold", (root, cfg.trials, fold))):
+            sk.keys_kernel(*args, device=dev, partitionable=p)
+            sk.keys_kernel.events = []
+            for _ in range(reps):
+                sk.keys_kernel(*args, device=dev, partitionable=p)
+            torch.cuda.synchronize()
+            out[f"{mode}_{label}_ms"] = event_ms(sk.keys_kernel.events)
+            sk.keys_kernel.events = None
+    plain = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sk.keys_reference(root, cfg.trials, fold)
+        torch.cuda.synchronize()
+        plain.append((time.perf_counter() - t0) * 1e3)
+    b = bound(*keys_cost(cfg.trials))
+    return dict(ms=out["partitionable_seed_ms"], **out,
+                plain_ms=statistics.median(plain), bound_ms=b[0],
+                bound_by=b[1], library_ms=None)
 
 
 def setup_timing(cfg, keys, dev, turns=2, reps=10):
@@ -1533,6 +1674,27 @@ def setup_timing(cfg, keys, dev, turns=2, reps=10):
                 legacy_ms_turns=ms[False], plain_ms=statistics.median(plain),
                 bound_ms=b[0], bound_by=b[1], q_positions=n_q,
                 library_ms=None)
+
+
+def setup_phases(cfg, keys):
+    """The set-up kernel's phase clock (its clocked instantiation, the
+    whole form in the partitionable mode, off the main path) on ``keys``:
+    per phase of ``SETUP_PHASES``, warp 0's mean cycles per block and its
+    share, and the blocks' mean and largest sums; the clocked launch's
+    outputs equal the unclocked one's."""
+    import torch
+
+    from qba_tpu_torch.ops import setup_kernel as sk
+
+    clock = sk.setup_phase_clock(cfg.trials, keys.device)
+    got = sk.setup_kernel(cfg, keys, "whole", partitionable=True, clock=clock)
+    err = setup_err(got, sk.setup_kernel(cfg, keys, "whole",
+                                         partitionable=True), "clocked")
+    if err:
+        raise AssertionError(f"setup phases {cfg}: the clocked kernel != "
+                             f"the unclocked one by {err}")
+    torch.cuda.synchronize()
+    return sk.setup_phase_breakdown(clock)
 
 
 def wall_split(cfg, keys, reps=5):
@@ -1584,10 +1746,10 @@ def wall_split(cfg, keys, reps=5):
 
 
 def plain_setup_agrees(cfg, results):
-    """``results`` (engine -> a batch's trials, the set-up kernel's) held
-    trial for trial against the same batches with the plain set-up on the
-    card: the set-up wrapper's seam sends its calls to the plain version
-    for this phase alone."""
+    """``results`` (engine -> a batch's trials, the set-up kernel's and
+    the key entry's) held trial for trial against the same batches with
+    the plain set-up and keys on the card: the two wrappers' seams send
+    their calls to the plain versions for this phase alone."""
     import dataclasses
 
     import torch
@@ -1598,7 +1760,8 @@ def plain_setup_agrees(cfg, results):
     real = sk.dispatch
 
     def plain_setup(name, tensors):
-        return False if name == "setup_trial" else real(name, tensors)
+        return (False if name in ("setup_trial", "trial_keys")
+                else real(name, tensors))
 
     sk.dispatch = plain_setup
     try:
@@ -2876,14 +3039,15 @@ def sweep_path(configs):
             rounds = done * cfg.trials * cfg.n_rounds
             if dispatch == "host":
                 # A set-up launch a batch beside the megakernel's.
-                want = {mega: done, "setup_trial": done}
+                want = {mega: done, "setup_trial": done, "trial_keys": done}
                 rec = dict(readbacks=timers.count("readback"), wall_s=wall,
                            rounds_per_s=rounds / wall,
                            ms_per_chunk=wall / done * 1e3)
             else:
                 # Eager warm-up and capture: one launch of each kernel;
                 # the graph then runs them once a chunk.
-                want = {mega: 2, "sweep_stop": 2, "setup_trial": 2}
+                want = {mega: 2, "sweep_stop": 2, "setup_trial": 2,
+                        "trial_keys": 2}
                 (span,) = [sp for sp in timers.spans.spans
                            if sp.name == "device_loop"]
                 info = span.args
@@ -3227,7 +3391,7 @@ def surface_path(configs, dev):
             launches[k] += n
         spent = surface_alloc(host)["spent_chunks"]
         if counts != {k: (spent if k in ("trial_megakernel_keyed",
-                                         "setup_trial") else 0)
+                                         "setup_trial", "trial_keys") else 0)
                       for k in COUNTED}:
             raise AssertionError(f"host surface: launches {counts}, "
                                  f"expected {spent} megakernel launches")
@@ -3256,7 +3420,8 @@ def surface_path(configs, dev):
         # megakernel, one a cell); the graph then runs them once a pass.
         want = {k: 0 for k in COUNTED}
         want.update(trial_megakernel_keyed=2 * n_cells, surface_pick=2,
-                    surface_fold=2, setup_trial=2 * n_cells)
+                    surface_fold=2, setup_trial=2 * n_cells,
+                    trial_keys=2 * n_cells)
         if counts != want:
             raise AssertionError(f"surface {label}: launches {counts}, "
                                  f"expected {want}")
@@ -4584,7 +4749,8 @@ def run_path(configs, small, dev):
         with profile_trace(d):
             _out, counts, _ms = counted(
                 lambda: fence(qba_tpu_torch.run_trials(cfg)))
-        if counts != {"trial_megakernel_keyed": 1, "setup_trial": 1}:
+        if counts != {"trial_megakernel_keyed": 1, "setup_trial": 1,
+                      "trial_keys": 1}:
             raise AssertionError(f"profiled batch: launches {counts}")
         add(counts)
         warm = dict(trace_summary(trace_path(d)), launches=counts)
@@ -4888,10 +5054,11 @@ def dense_circuit_launches(cfg):
     return -(-cfg.trials * cfg.size_l // step) + 1
 
 
-def chunk_model(cfg, dev):
+def chunk_model(cfg, dev, own_keys=True):
     """Every counted kernel's launches in one chunk of ``cfg`` (the
-    launch model, plus the circuit kernel on ``dense_pallas``)."""
-    model = modelled(cfg, cfg.round_engine, dev)
+    launch model, plus the circuit kernel on ``dense_pallas``; with
+    ``own_keys`` the chunk makes its keys, one key entry launch)."""
+    model = modelled(cfg, cfg.round_engine, dev, own_keys=own_keys)
     if cfg.qsim_path == "dense_pallas":
         model["fused_circuit"] = dense_circuit_launches(cfg)
     return model
@@ -5014,7 +5181,9 @@ def graph_serve(configs, dev):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {k: fn.launches for k, fn in fns.items()}
-        model = chunk_model(dataclasses.replace(cfg, trials=chunk), dev)
+        # The request's key rows are given: no key entry.
+        model = chunk_model(dataclasses.replace(cfg, trials=chunk), dev,
+                            own_keys=False)
         want = {k: 2 * model.get(k, 0) for k in COUNTED}
         want["sweep_stop"] = 2
         if counts != want:
@@ -5265,17 +5434,18 @@ def bench_rates(cfg, reps, chunk, dev):
             for k in ("success", "overflow")}
 
 
-def bench_batch_model(cfg, dev):
+def bench_batch_model(cfg, dev, own_keys=True):
     """Every counted kernel's launches in one ``bench`` batch of
-    ``cfg``, those it launches at all."""
-    return {k: n for k, n in chunk_model(cfg, dev).items() if n}
+    ``cfg``, those it launches at all (``own_keys``: with its keys)."""
+    return {k: n for k, n in chunk_model(cfg, dev, own_keys).items() if n}
 
 
 def bench_gen_model(cfg):
-    """Kernel launches of one list generation of ``cfg`` on the card."""
+    """Kernel launches of one list generation of ``cfg`` on the card,
+    with its keys (the warm-up's ``trial_keys``, a rep's ``rep_keys``)."""
     if cfg.qsim_path == "dense_pallas":
-        return {"fused_circuit": dense_circuit_launches(cfg)}
-    return {"gf2_sweep": 1}
+        return {"fused_circuit": dense_circuit_launches(cfg), "trial_keys": 1}
+    return {"gf2_sweep": 1, "trial_keys": 1}
 
 
 def times_of(line, cfg):
@@ -5357,10 +5527,13 @@ def bench_path(configs, dev):
         if line["engine"] != engine:
             raise AssertionError(f"bench {label}: engine {line['engine']}, "
                                  f"expected {engine}")
-        model = bench_batch_model(dataclasses.replace(cfg, trials=chunk), dev)
-        # A warm-up chunk, then every rep's chunks.
+        model = bench_batch_model(dataclasses.replace(cfg, trials=chunk), dev,
+                                  own_keys=False)
+        # A warm-up chunk, then every rep's chunks; a key launch for the
+        # warm-up and one a rep (rep_keys, every chunk's keys at once).
         batches = 1 + reps * -(-cfg.trials // chunk)
-        if counts != {k: n * batches for k, n in model.items()}:
+        if counts != dict({k: n * batches for k, n in model.items()},
+                          trial_keys=1 + reps):
             raise AssertionError(f"bench {label}: launches {counts}, model "
                                  f"{model} x {batches} batches")
         check_manifest(label, line["manifest"])
@@ -5493,14 +5666,15 @@ def bench_path(configs, dev):
                 profiled=profiled, slope=slope), launches
 
 
-def modelled(cfg, engine, dev, tp=None):
+def modelled(cfg, engine, dev, tp=None, own_keys=True):
     """Every counted kernel's launches in one batch of ``cfg`` with
     ``round_engine=engine``, by the package's launch model
     (``analysis.launches.batch_launch_model``; ``tp``: the party-sharded
-    batch on one card)."""
+    batch on one card; ``own_keys``: a batch that makes its keys, as
+    ``run_trials(cfg)`` and a sweep's chunk do)."""
     from qba_tpu_torch.analysis.launches import batch_launch_model
 
-    model = batch_launch_model(cfg, engine, dev, tp)
+    model = batch_launch_model(cfg, engine, dev, tp, own_keys)
     if set(model) - set(COUNTED):
         raise AssertionError(f"launch model {model} names a kernel the "
                              "smoke does not count")
@@ -5698,6 +5872,9 @@ def main(argv):
                                     phase_s=time.perf_counter() - t0)
     log("setup_vs_plain", tolerance=0, max_abs_err=setup_err_max,
         seconds=report["setup_vs_plain"]["phase_s"], cases=setup_facts)
+    keys_err, keys_facts = keys_vs_plain(dev)
+    report["keys_vs_plain"] = dict(max_abs_err=keys_err, cases=keys_facts)
+    log("keys_vs_plain", tolerance=0, max_abs_err=keys_err, cases=keys_facts)
     pick_err, fold_err = surface_vs_plain(dev)
     report["surface_vs_plain"] = dict(pick_max_abs_err=pick_err,
                                       fold_max_abs_err=fold_err)
@@ -5790,6 +5967,11 @@ def main(argv):
         keys = trial_keys(cfg, dev)
         setup_row = setup_timing(cfg, keys, dev)
         log("setup_timing", config=name, trials=cfg.trials, **setup_row)
+        setup_row["phases"] = setup_phases(cfg, keys)
+        log("setup_phases", config=name, trials=cfg.trials,
+            unit="SM cycles of warp 0 per block", **setup_row["phases"])
+        keys_row = keys_timing(cfg, dev)
+        log("keys_timing", config=name, trials=cfg.trials, **keys_row)
         split = wall_split(cfg, keys)
         log("wall_split", config=name, trials=cfg.trials, **split)
         setup, *stats = replay(cfg, keys, chunk=32, reps=3)
@@ -5841,7 +6023,7 @@ def main(argv):
             stacked_bound_ms=stacked_bound[0], rehashes=rehashes(stats))
         run = dict(config=name, trials=cfg.trials, rounds=cfg.n_rounds,
                    vi=results["auto"].vi, attack_draws=draws,
-                   setup_trial=setup_row,
+                   setup_trial=setup_row, trial_keys=keys_row,
                    keyed_timing=laws,
                    engines=per_engine, full_width_vs_plain=kern,
                    pool_bytes_per_trial=pool_bytes(cfg, 1),
@@ -5865,7 +6047,7 @@ def main(argv):
     if counts != want:
         raise AssertionError(
             f"{name} counters: launches {counts}, expected {want}")
-    for k in ("fused_round", "attack_draws", "setup_trial"):
+    for k in ("fused_round", "attack_draws", "setup_trial", "trial_keys"):
         launches[k] += counts[k]
     c = out.trials.counters
     base = runs[0]["engines"]["pallas_fused"]
@@ -6391,8 +6573,32 @@ def main(argv):
         "per_config": {r["config"]: {k: r["setup_trial"][k] for k in (
             "ms", "legacy_ms", "plain_ms", "bound_ms", "bound_by")}
             for r in runs},
+        "phases": {r["config"]: r["setup_trial"]["phases"] for r in runs},
         "config": (f"{big['config']} x{big['trials']} trials, the whole "
                    "form"),
+    })
+    # The key entry: a batch's trial keys, once a batch that makes its own
+    # (run_trials(cfg), a sweep's chunk, a graph loop's body, a bench rep).
+    source, replaces = SOURCES["trial_keys"]
+    krow = big["trial_keys"]
+    kernels.append({
+        "name": "trial_keys", "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches["trial_keys"],
+        "max_abs_err": keys_err, "ms": krow["partitionable_seed_ms"],
+        **{k: krow[k] for k in ("plain_ms", "bound_ms", "bound_by",
+                                "library_ms")},
+        "library_note": "none: PyTorch's generators are Philox",
+        "fold_ms": krow["partitionable_fold_ms"],
+        "legacy": dict(ms=krow["legacy_seed_ms"],
+                       fold_ms=krow["legacy_fold_ms"]),
+        "fold_bound_ms": bound(*keys_cost(big["trials"], fold=True))[0],
+        "per_config": {r["config"]: {k: r["trial_keys"][k] for k in (
+            "partitionable_seed_ms", "partitionable_fold_ms",
+            "legacy_seed_ms", "legacy_fold_ms", "plain_ms", "bound_ms")}
+            for r in runs},
+        "config": (f"{big['trials']} keys of {big['config']}: from the seed "
+                   "(run_trials(cfg)); fold_ms from a root key and a carry "
+                   "in device memory (a sweep's chunk)"),
     })
     # The sweep loop's stop step: the graph loop's own kernel.
     source, replaces = SOURCES["sweep_stop"]

@@ -3,7 +3,7 @@
 compare two checkouts (a parent and a change) on one card.
 
     python3 examples/torch_kernel_ab.py ROOT [--config 33p|11p] [--reps N]
-        [--kernels all|mega|round|gen] [--phases]
+        [--kernels all|mega|round|gen|setup|batch] [--phases]
         [--circuit-cluster BYTES:MAX] [--circuit-pass-bits K]
 
 imports ``qba_tpu_torch`` from the checkout at ``ROOT`` (built there on
@@ -28,7 +28,20 @@ launch) and 132, the not-Q-correlated one at one run, and seeded
 circuits of 17 qubits (complex) and 19 and 20 (real); the sweep kernel
 over a 1000-trial batch of list positions at 11, 33 and 65 parties (as
 ``qsim_path="stabilizer"`` sweeps them); the keyed gen entry of the
-megakernel at 11 and 33 parties.  ``--circuit-cluster`` sets the
+megakernel at 11 and 33 parties.  ``--kernels setup`` times the trial
+set-up kernel (``setup_kernels``): its whole form over the 11p and 33p
+batches of 1000 trials in both threefry modes (the same keys for every
+checkout: ``random.py``'s eager split), with ``--phases`` its phase
+clock's breakdown where the checkout has one
+(``setup_kernel.setup_phase_clock``), and the key entry
+(``setup_kernel.keys_kernel``: the batch's keys from the seed, and a
+chunk's from a root key and a fold in device memory) where it has one.
+``--kernels batch`` times no kernel alone but the warm batch a user
+calls, ``run_trials(cfg)`` on the default engine with its keys made from
+the seed, at 11p and 33p x 1000 (``batch_walls``: host clock, fenced by
+``torch.cuda.synchronize()``, the median of ``--reps`` after two
+warm-ups, beside every rep).
+``--circuit-cluster`` sets the
 circuit kernel's cluster route (``fused_circuit.CLUSTER_BLOCK_BYTES``
 and ``CLUSTER_MAX``) and ``--circuit-pass-bits`` its passes' bits
 (``fused_circuit.PASS_BITS``) for the run, where the checkout has them:
@@ -68,7 +81,8 @@ def main(argv):
     ap.add_argument("--config", default="33p", choices=sorted(CONFIGS))
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--kernels", default="all",
-                    choices=("all", "mega", "round", "gen"))
+                    choices=("all", "mega", "round", "gen", "setup",
+                             "batch"))
     ap.add_argument("--phases", action="store_true")
     ap.add_argument("--circuit-cluster")
     ap.add_argument("--circuit-pass-bits", type=int)
@@ -120,6 +134,10 @@ def main(argv):
 
     if args.kernels == "gen":
         return report(args, None, gen_kernels(dev, ms))
+    if args.kernels == "setup":
+        return report(args, None, setup_kernels(dev, ms, args.phases))
+    if args.kernels == "batch":
+        return report(args, None, batch_walls(dev, args.reps))
 
     keys = trial_keys(cfg, dev)
     honest, li, p_rows, v_sent, _vc, k_rounds = setup_trial(cfg, keys)
@@ -286,6 +304,73 @@ def cluster_occupancy():
         rc = lib.qba_fused_circuit_clusters(blocks, kb * 1024,
                                             ctypes.byref(n))
         out[f"{blocks}x{kb}KB"] = n.value if rc == 0 else f"error {rc}"
+    return out
+
+
+def setup_kernels(dev, ms, phases):
+    """The set-up kernel's and the key entry's ms per launch (``--kernels
+    setup``), with the set-up kernel's phase clock under ``phases``."""
+    import torch
+
+    from qba_tpu_torch import QBAConfig
+    from qba_tpu_torch import random as jr
+    from qba_tpu_torch.ops import setup_kernel as sk
+
+    out, clocks = {}, {}
+    for name, kw in CONFIGS.items():
+        cfg = QBAConfig(trials=1000, **kw)
+        for p in (True, False):
+            mode = "partitionable" if p else "legacy"
+            keys = jr.split(jr.key(cfg.seed, dev), cfg.trials,
+                            partitionable=p)
+            out[f"setup_trial_{name}_{mode}"] = ms(
+                sk.setup_kernel, cfg, keys, "whole", partitionable=p)
+            if hasattr(sk, "keys_kernel"):
+                out[f"trial_keys_{name}_{mode}"] = ms(
+                    sk.keys_kernel, cfg.seed, cfg.trials, device=dev,
+                    partitionable=p)
+                out[f"trial_keys_fold_{name}_{mode}"] = ms(
+                    sk.keys_kernel, jr.key(cfg.seed, dev), cfg.trials,
+                    torch.tensor(3, dtype=torch.int32, device=dev),
+                    partitionable=p)
+            if phases and p and hasattr(sk, "setup_phase_clock"):
+                clock = sk.setup_phase_clock(cfg.trials, dev)
+                sk.setup_kernel(cfg, keys, "whole", partitionable=True,
+                                clock=clock)
+                torch.cuda.synchronize()
+                clocks[f"setup_trial_{name}"] = sk.setup_phase_breakdown(
+                    clock)
+    if phases:
+        out["phases"] = clocks
+    return out
+
+
+def batch_walls(dev, reps):
+    """A warm ``run_trials(cfg)``'s fenced wall in ms (``--kernels
+    batch``) at each config of ``CONFIGS``: the median of ``reps`` after
+    two warm-ups, and every rep."""
+    import statistics
+    import time
+
+    import torch
+
+    from qba_tpu_torch import QBAConfig
+    from qba_tpu_torch.backends.torch_backend import run_trials
+
+    out = {}
+    for name, kw in CONFIGS.items():
+        cfg = QBAConfig(trials=1000, **kw)
+        for _ in range(2):
+            run_trials(cfg, device=dev)
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_trials(cfg, device=dev)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out[f"run_trials_{name}_ms"] = statistics.median(walls)
+        out[f"run_trials_{name}_reps"] = walls
     return out
 
 

@@ -33,7 +33,10 @@ batch also sets its trials up with the ``setup_trial`` kernel
 factorized path (its ``"whole"`` form) and for the megakernel's gen
 entry (``"orders"``), two where another path makes the lists
 (``dense``, ``dense_pallas``, the stabilizer path's host generation:
-``"orders"`` for the lists key, ``"given"`` after the lists).
+``"orders"`` for the lists key, ``"given"`` after the lists).  A batch
+that derives its own keys (``run_trials(cfg)`` without keys, a sweep's
+chunk, a graph loop's body: ``own_keys=True``) also launches the same
+file's key entry, ``trial_keys``, once.
 
 The counts come from the seams (:data:`qba_tpu_torch.ops._launch.
 seam_observers`): on CUDA each seam call is a launch, and the wrappers'
@@ -94,6 +97,7 @@ PROFILER_KERNELS = (
     ("surface_pick_kernel", "surface_pick"),
     ("surface_fold_kernel", "surface_fold"),
     ("setup_trial_kernel", "setup_trial"),
+    ("trial_keys_kernel", "trial_keys"),
 )
 
 _MEGA = ("trial_megakernel_keyed", "trial_megakernel_gen_keyed",
@@ -117,11 +121,12 @@ def resolved_engine(cfg, engine: str, device, tp: int | None = None):
         return _resolve_spmd_engine(cfg, cfg.n_lieutenants // tp, device)
 
 
-def batch_launch_model(cfg, engine: str, device,
-                       tp: int | None = None) -> dict[str, int]:
+def batch_launch_model(cfg, engine: str, device, tp: int | None = None,
+                       own_keys: bool = False) -> dict[str, int]:
     """Kernel launches one batch of ``cfg`` dispatches with
     ``round_engine=engine`` on ``device`` (``tp``: the party-sharded
-    batch on one card), by wrapper name.  The wrappers count a launch
+    batch on one card; ``own_keys``: a batch that derives its keys, one
+    ``trial_keys`` launch), by wrapper name.  The wrappers count a launch
     where they call the kernel, eagerly or into a CUDA graph being
     captured: a graph loop's chunk counts twice (its warm-up and its
     capture), and the graph's replays count nothing."""
@@ -153,6 +158,8 @@ def batch_launch_model(cfg, engine: str, device,
     gen_entry = cfg.qsim_path == "stabilizer" and not host_gen
     out["setup_trial"] = (1 if cfg.qsim_path == "factorized" or gen_entry
                           else 2)
+    if own_keys:
+        out["trial_keys"] = 1
     return out
 
 

@@ -21,6 +21,7 @@ import torch
 
 from qba_tpu_torch import random as jr
 from qba_tpu_torch.config import QBAConfig
+from qba_tpu_torch.ops.setup_kernel import keys_kernel
 from qba_tpu_torch.rounds.engine import TrialResult, run_trial
 
 
@@ -51,9 +52,10 @@ def resolve_device(device=None) -> torch.device:
 def trial_keys(cfg: QBAConfig, device=None, *,
                partitionable: bool | None = None) -> torch.Tensor:
     """The batch's key tree root: one key ``[2]`` per trial from the
-    config seed (``split(key(seed), trials)``)."""
-    return jr.split(jr.key(cfg.seed, device=device), cfg.trials,
-                    partitionable=partitionable)
+    config seed (``split(key(seed), trials)``; on CUDA one launch of the
+    key entry, :func:`~qba_tpu_torch.ops.setup_kernel.keys_kernel`)."""
+    return keys_kernel(cfg.seed, cfg.trials, device=device,
+                       partitionable=partitionable)
 
 
 def batched_trials(cfg: QBAConfig, keys: torch.Tensor, *,

@@ -182,12 +182,13 @@ def qsim_description(cfg: QBAConfig) -> str:
 def rep_keys(seed: int, n: int, device, *,
              partitionable: bool | None = None) -> torch.Tensor:
     """The ``n`` keys of one rep, ``split(key(seed), n)``, made on
-    ``device`` and fenced, so the rep's clock starts after them."""
-    from qba_tpu_torch import random as jr
+    ``device`` (on CUDA one launch of the key entry) and fenced, so the
+    rep's clock starts after them."""
     from qba_tpu_torch.backends.torch_backend import fence
+    from qba_tpu_torch.ops.setup_kernel import keys_kernel
 
-    return fence(jr.split(jr.key(seed, device=device), n,
-                          partitionable=partitionable))
+    return fence(keys_kernel(seed, n, device=device,
+                             partitionable=partitionable))
 
 
 def measure_resource_gen(cfg: QBAConfig, reps: int, *, warmup: bool = True,

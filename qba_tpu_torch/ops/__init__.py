@@ -32,7 +32,8 @@ def kernel_wrappers() -> dict:
             "sweep_stop": sl.sweep_stop,
             "surface_pick": su.surface_pick,
             "surface_fold": su.surface_fold,
-            "setup_trial": sk.setup_kernel}
+            "setup_trial": sk.setup_kernel,
+            "trial_keys": sk.keys_kernel}
 
 
 def kernel_launches() -> dict[str, int]:

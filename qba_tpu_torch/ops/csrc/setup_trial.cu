@@ -1,18 +1,23 @@
 // A batch's trial set-up in one launch: the key split, the dishonest
 // parties, the factorized lists, the commander's orders, the P-sets and
-// the collude target of every trial.
+// the collude target of every trial; and, as a second entry, the batch's
+// trial keys themselves.
 //
 // Not a pallas_call site: the counterpart of the set-up XLA compiles for
 // the JAX package inside its jitted batch (qba_tpu/rounds/engine.py:511,
 // setup_trial, over qba_tpu/qsim/sampler.py:30 generate_lists and
 // qba_tpu/adversary/model.py:63,74,227 assign_dishonest, commander_orders
-// and the collude target).  The plain PyTorch version it is held against
-// is qba_tpu_torch/ops/setup_kernel.py :: setup_reference (the eager
-// setup_trial, generate_lists, assign_dishonest, commander_orders and
-// adversary_ctx); setup_at_reference there mirrors this file's own
-// algorithm trial by trial.  Every draw is draws.cuh's threefry2x32 on the
-// key tree of qba_tpu_torch/random.py, in both of JAX's threefry modes
-// (kLegacy), bit for bit.
+// and the collude target), and of the key split before it
+// (jax.random.split(jax.random.fold_in(key(seed), d), num):
+// qba_tpu/backends/jax_backend.py:33, qba_tpu/sweep.py:111, :349, :729,
+// qba_tpu/benchmark.py:267).  The plain PyTorch versions they are held
+// against are qba_tpu_torch/ops/setup_kernel.py :: setup_reference (the
+// eager setup_trial, generate_lists, assign_dishonest, commander_orders
+// and adversary_ctx) and keys_reference (random.py's split and fold_in);
+// setup_at_reference there mirrors this file's own algorithm trial by
+// trial.  Every draw is draws.cuh's threefry2x32 on the key tree of
+// qba_tpu_torch/random.py, in both of JAX's threefry modes (kLegacy), bit
+// for bit.
 //
 // For trial key k (form "lists": k is the lists key itself):
 //   k_dis, k_lists, k_comm, k_rounds = split(k, 4)
@@ -41,40 +46,64 @@
 // paths); kOrders the honesty, orders, target and k_lists (the megakernel's
 // gen entry); kLists the lists alone.
 //
-// The stable argsort is a rank: rank_i = #{j : x_j < x_i} + #{j < i : x_j
-// == x_i}, perm[rank_i] = i, O(n^2) over a position's n words in shared
-// memory, with argsort's order on ties.  Position s's word i goes to row 1
-// + rank_i: r ^ (i + 1) where Q-correlated, else u[rank_i][s], whose (row,
-// position) pairs the ranks visit once each.
+// What the function needs, and only that, is drawn (the phase clock put
+// the ranks and the noise words at 82-84% of a 33-party block when every
+// position drew both):
+// * the noise words of a position, and their ranks, only where it is
+//   Q-correlated (its row 1 + rank_i is r ^ (i + 1)); elsewhere row j + 1
+//   is u[j][s] whatever the ranks are, so thread (s, j) writes it;
+// * r only where Q-correlated;
+// * randint with a power-of-two span (w: u, r, v, v1) from the low word
+//   alone (randint_pow2: 2^32 mod span is 0, so JAX's high word is
+//   multiplied by zero); v2's span w - 1, the target's n + 1 and the
+//   noise kind's 3 keep draws.cuh's general form;
+// * a noise kind only where its qubit's Pauli draw fired, and no Pauli or
+//   flip draw where its probability is 0 (a uniform in [0, 1) is never
+//   below 0).
+// In the legacy mode each draw still pairs its index with the one h =
+// ceil(m / 2) away in its call's table of m words (draws.cuh :: bits_at
+// <true>): S * n for the noise and for u, S for qcorr and r, n for the
+// permutation, 1 for a scalar randint, (n + 1) * S * n_qubits for the
+// noise flips; only whether a word is drawn changes.  One hash an entry
+// in either mode.
 //
-// Design.  A block of kThreads a trial (a trial's work, a permutation and
-// S sorts of n words, shares each position's words in shared memory;
-// 1000 trials give every SM several blocks).  Lane 0 of warps 0-3 derives
-// the trial's keys, a chain a warp (the dishonesty chain; the lists keys;
-// the noise keys; the orders, rounds key and target), then the block ranks
-// the permutation's words, then walks the positions in tiles of `tile` (a
-// tile's tile * n words fit kTileWords, so shared memory stays bounded for
-// any size_l), a thread a (position, word).  The lieutenants' rows go
-// straight to device memory; rows 0 and 1 stay in shared memory for the
-// P-sets.  In the legacy mode each draw pairs its index with the one h =
-// ceil(m / 2) away in its own call's table of m words (draws.cuh ::
-// bits_at<true>): S * n for the noise, n * S for u, S for qcorr and r, n
-// for the permutation, 1 for a scalar randint, (n + 1) * S * n_qubits for
-// the noise flips.  One hash an entry in either mode.
+// The stable argsort is a rank: key_i = (x_i << 32) | i, rank_i = #{j :
+// key_j < key_i} (one 64-bit subtraction's borrow: argsort's order on
+// ties), perm[rank_i] = i, O(n^2) over a position's n words in shared
+// memory, read four at a time.
 //
-// Bound on this card: operations.  A trial hashes S * n noise words, 2 S *
-// (n + 1) words of u (two a value), 3 S for qcorr and r, the permutation's
-// n and some 40 keys, plus 4 per qubit of every (row, position) with noise:
-// about 6.6 M hashes (~530 M operations) at 33 parties x 1000 trials
-// against about 10 MB of outputs.  The rank adds S * n^2 compares.
+// Design.  A block of kThreads (128) threads a trial (64 and 256 ran no
+// faster on the H100: PERF.md).  Warp 0 derives the trial's
+// keys, a lane a key (kPaths: each lane walks its key's path from the
+// trial key, so the prologue is as deep as the longest path, 4 hashes, 8
+// in the legacy mode, where a split is two words).  Then warp 0 runs the
+// permutation (one round for every n <= kMaxParties: party i + 1 is
+// dishonest where rank_i < n_dishonest), the honesty and the orders under
+// warp barriers, while the other warps draw the first tile's Q bits and r
+// and start its words (named barriers 1 and 2; warp 0 joins the words
+// after).  The positions walk in tiles of `tile` (tile * n within
+// kTileWords, and the block's shared memory within kSmemBytes, the limit
+// a launch may take without opting in, for any n and size_l): a warp takes
+// 32 entries (s, i) at a time and hashes one word an entry (the noise word
+// where Q-correlated, else u[i][s] into row i + 1); a thread a (Q
+// position, word) ranks; with noise a thread a (row, position) XORs its
+// flips; then the tile's rows go to device memory row by row (16 bytes a
+// store where aligned) and the P-sets from rows 0 and 1 (4 a store).  A
+// flat index splits into (quotient, remainder) by a multiply (Div): no
+// division on an entry.
+//
+// Bound on this card: operations, the hashes (80 operations each) and the
+// ranks' compares (see chip_smoke.py :: setup_cost).  About 10 KB of
+// outputs a trial at 33 parties.
 //
 // Layouts: keys int64 [T, 2]; lists_in int32 [T, n + 1, S] (kGiven);
 // honest bool [T, n + 1]; lists int32 [T, n + 1 - row0, S] (rows row0..n;
 // row0 2 gives the lieutenants' lists); p_rows bool [T, n - 1, S]; v_sent
 // int32 [T, n - 1]; v_comm int32 [T]; k_rounds, k_lists int64 [T, 2];
 // target int32 [T] (null where the strategy has none); qcorr bool [T, S]
-// (kLists).  All arithmetic is uint32_t; the bernoulli compares are IEEE
-// float32: build without fast-math flags.
+// (kLists); clock int64 [T, kPhases] (the phase clock).  All arithmetic is
+// uint32_t; the bernoulli compares are IEEE float32: build without
+// fast-math flags.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -88,15 +117,58 @@ namespace {
 
 using namespace qba_draws;
 
-constexpr int kThreads = 128;
-constexpr int kWarp = 32;  // the key chains run on lane 0 of warps 0-3
-constexpr int kTileWords = 4096;  // a tile's sort words in shared memory
+constexpr int kThreads = 128;  // a block's threads
+constexpr int kWarp = 32;
+constexpr int kTileWords = 4096;  // bounds a tile's positions: tile * n
+// Bounds a launch's dynamic shared memory: 48 KB, the most a launch takes
+// without cudaFuncSetAttribute, less 1 KB for the static arrays.
+constexpr int kSmemBytes = 47 * 1024;
 constexpr int kMaxParties = 1024;
-constexpr int kMaxPermRounds = 4;
 constexpr uint32_t kNoiseTag = 0x401Eu;
 constexpr uint32_t kColludeTag = 0xC011u;
 
 enum Form { kWhole = 0, kGiven = 1, kOrders = 2, kLists = 3 };
+
+// The phase clock's phases, in the order of its int64 [T, kPhases] buffer
+// (SETUP_PHASES in setup_kernel.py).
+enum SetupPhase {
+  kSpKeys,   // warp 0's key paths
+  kSpPerm,   // warp 0: permutation, honesty, orders (the others: Q bits, r)
+  kSpWords,  // a hash an entry: noise words, u's rows
+  kSpRanks,  // the Q-correlated positions' ranks and rows
+  kSpFlips,  // the noise flips (0 without noise)
+  kSpOut,    // rows to device memory, P-sets
+  kPhases
+};
+
+// Warp 0's SM cycles between the block's barriers, a phase each (kOn: the
+// clocked instantiation; off, the calls compile to nothing).
+template <bool kOn>
+struct SetupClock {
+  __device__ void start() {}
+  __device__ void mark(int) {}
+  __device__ void store(long long*) const {}
+};
+
+template <>
+struct SetupClock<true> {
+  long long last, acc[kPhases];
+  __device__ void start() {
+    for (int i = 0; i < kPhases; ++i) acc[i] = 0;
+    last = clock64();
+  }
+  __device__ void mark(int phase) {
+    if (threadIdx.x == 0) {
+      const long long now = clock64();
+      acc[phase] += now - last;
+      last = now;
+    }
+  }
+  __device__ void store(long long* out) const {
+    if (threadIdx.x == 0)
+      for (int i = 0; i < kPhases; ++i) out[i] += acc[i];
+  }
+};
 
 struct Params {
   const int64_t* keys;
@@ -110,18 +182,88 @@ struct Params {
   int32_t* target;
   int64_t* k_lists;
   uint8_t* qcorr;
-  int n, n_dishonest, size_l, w, n_qubits, split, perm_rounds, row0, noise;
+  long long* clock;
+  int n, n_dishonest, size_l, w, n_qubits, split, row0, noise;
   float p_dep, p_mf;
   int tile;  // positions a tile
+  int np;    // a position's words in shared memory: n padded to 4
+  int ld;    // a row's stride in the tile's rows: odd, at least 3
 };
 
-// A trial's derived keys and scalar draws, shared by the block.
-struct TrialKeys {
-  Key perm[kMaxPermRounds];    // each permutation round's sub key
-  Key l0, l2, r_hi, r_lo, u_hi, u_lo;  // the lists' streams
-  Key pauli, kind_hi, kind_lo, mflip;  // the noise flips' streams
-  int v, v1, v2;
+// The trial's derived keys, a lane each (kPaths' order).  A scalar draw's
+// lane holds its word in k0.  The permutation has one round: JAX's
+// ceil(3 ln n / ln(2^32 - 1)) is 1 for every 2 <= n <= kMaxParties.
+enum KeyId {
+  kKPerm,                                // the permutation's sub key
+  kKL0, kKL2, kKRLo, kKULo,              // the lists' streams
+  kKPauli, kKMflip, kKKindHi, kKKindLo,  // the noise flips'
+  kKV, kKV1, kKV2Hi, kKV2Lo,             // the orders' words
+  kKRounds, kKTargetHi, kKTargetLo,      // k_rounds, the target's words
+  kKLists,                               // k_lists ("orders")
+  kKeyCount
 };
+
+// A key path's steps: split(key, j, num), fold_in(key, tag), or the word
+// bits(key, (), uint32) of a scalar draw; 0 ends a path.
+enum Op : uint32_t { kOpEnd = 0, kOpSplit = 1, kOpFold = 2, kOpBits = 3 };
+constexpr int kMaxSteps = 4;
+
+__host__ __device__ constexpr uint32_t sp(uint32_t j, uint32_t num) {
+  return kOpSplit | (num << 2) | (j << 16);
+}
+__host__ __device__ constexpr uint32_t fo(uint32_t tag) {
+  return kOpFold | (tag << 16);
+}
+constexpr uint32_t kBits = kOpBits;
+
+// Each key's path from the trial key.  The lists' lanes (kKL0..kKKindLo)
+// start with k_lists = split(k, 1, 4), which the form "lists" skips.
+__device__ const uint32_t kPaths[kKeyCount][kMaxSteps] = {
+    {sp(0, 4), sp(1, 2)},                            // the perm's sub
+    {sp(1, 4), sp(0, 4)},                            // l0: qcorr
+    {sp(1, 4), sp(2, 4)},                            // l2: noise words
+    {sp(1, 4), sp(1, 4), sp(1, 2)},                  // l1's low: r
+    {sp(1, 4), sp(3, 4), sp(1, 2)},                  // l3's low: u
+    {sp(1, 4), fo(kNoiseTag), sp(0, 3)},             // pauli
+    {sp(1, 4), fo(kNoiseTag), sp(2, 3)},             // mflip
+    {sp(1, 4), fo(kNoiseTag), sp(1, 3), sp(0, 2)},   // kind's high
+    {sp(1, 4), fo(kNoiseTag), sp(1, 3), sp(1, 2)},   // kind's low
+    {sp(2, 4), sp(0, 3), sp(1, 2), kBits},           // v's low word
+    {sp(2, 4), sp(1, 3), sp(1, 2), kBits},           // v1's low word
+    {sp(2, 4), sp(2, 3), sp(0, 2), kBits},           // v2's draw: high
+    {sp(2, 4), sp(2, 3), sp(1, 2), kBits},           // and low
+    {sp(3, 4)},                                      // k_rounds
+    {sp(3, 4), fo(kColludeTag), sp(0, 2), kBits},    // target: high
+    {sp(3, 4), fo(kColludeTag), sp(1, 2), kBits},    // and low
+    {sp(1, 4)},                                      // k_lists
+};
+
+// One step of a key path.  The partitionable mode hashes (0, j) for a
+// split or a fold (the same pair) and (0, 0) for a scalar word (y0 ^ y1).
+// The legacy mode's split is words 2j and 2j + 1 of bits over 2 num words
+// (h = num: word i < h is y0 of (i, i + h), else y1 of (i - h, i)); its
+// fold hashes (0, tag) and its scalar word is y0 of (0, 0).  Both hashes
+// run on every lane (no divergence among the ops).
+template <bool kLegacy>
+__device__ __forceinline__ Key key_step(Key k, uint32_t code) {
+  const uint32_t op = code & 3u, num = (code >> 2) & 7u, arg = code >> 16;
+  if constexpr (kLegacy) {
+    const uint32_t ia = 2u * arg, ib = ia + 1u;
+    const bool sa = ia >= num, sb = ib >= num;
+    const bool split = op == kOpSplit;
+    uint32_t a0 = split ? (sa ? ia - num : ia) : 0u;
+    uint32_t a1 = split ? (sa ? ia : ia + num) : (op == kOpFold ? arg : 0u);
+    uint32_t b0 = sb ? ib - num : ib, b1 = sb ? ib : ib + num;
+    threefry2x32(k, a0, a1);
+    threefry2x32(k, b0, b1);
+    if (split) return Key{sa ? a1 : a0, sb ? b1 : b0};
+    return Key{a0, op == kOpFold ? a1 : 0u};
+  } else {
+    uint32_t x0 = 0u, x1 = op == kOpBits ? 0u : arg;
+    threefry2x32(k, x0, x1);
+    return op == kOpBits ? Key{x0 ^ x1, 0u} : Key{x0, x1};
+  }
+}
 
 __device__ __forceinline__ Key key_of(const int64_t* k) {
   return Key{uint32_t(k[0]), uint32_t(k[1])};
@@ -132,27 +274,86 @@ __device__ __forceinline__ void store_key(int64_t* out, Key k) {
   out[1] = int64_t(k.k1);
 }
 
-// The rank of x[i] among x[0..n): argsort's stable position.
-__device__ __forceinline__ int rank_of(const uint32_t* x, int n, int i) {
-  const uint32_t xi = x[i];
-  int r = 0;
-  for (int j = 0; j < n; ++j) {
-    const uint32_t xj = x[j];
-    r += int(xj < xi || (xj == xi && j < i));
-  }
+// jax.random.randint(key, shape, 0, span) for a power-of-two span <=
+// 2^16, from the low word `lo` (bits of split(key, 2)[1]) alone.  JAX
+// scales the high word by (2^16 mod span)^2 mod span, which is 0 here, so
+// its offset is (lo mod span) mod span = lo & (span - 1).
+__device__ __forceinline__ uint32_t randint_pow2(uint32_t lo, uint32_t span) {
+  return lo & (span - 1u);
+}
+
+// jax.random.randint's offset from its two words, any span (as
+// draws.cuh :: randint_at, for words already hashed).
+__device__ __forceinline__ uint32_t randint_words(uint32_t hi, uint32_t lo,
+                                                  uint32_t span) {
+  const uint32_t m16 = 65536u % span;
+  const uint32_t mult = uint32_t(uint64_t(m16) * m16 % span);
+  return ((hi % span) * mult + lo % span) % span;
+}
+
+// r - 1 where (xj, jj) < (xi, ci) as 64-bit unsigned keys, else r: the
+// borrow of the 64-bit subtraction, taken by one more subtraction with
+// borrow (whatever the carry flag's convention, the chain's own), three
+// instructions with no compare.
+__device__ __forceinline__ uint32_t sub_lt(uint32_t r, uint32_t xj,
+                                          uint32_t jj, uint32_t xi,
+                                          uint32_t ci) {
+  uint32_t d;
+  asm("sub.cc.u32 %0, %2, %3;\n\t"
+      "subc.cc.u32 %0, %4, %5;\n\t"
+      "subc.u32 %1, %1, 0;"
+      : "=&r"(d), "+r"(r)
+      : "r"(jj), "r"(ci), "r"(xj), "r"(xi));
   return r;
 }
 
-// randint(key, (), 0, span) of a scalar draw (a table of one word).
-template <bool kLegacy>
-__device__ __forceinline__ int scalar_randint(Key k, uint32_t span) {
-  return int(randint_at<kLegacy>(split_at<kLegacy>(k, 0u, 2u),
-                                 split_at<kLegacy>(k, 1u, 2u), 0u, span, 1u));
+// The rank of word i among a position's words x[0 .. np) (np a multiple of
+// 4; the pads past n hold 0xFFFFFFFF, whose keys exceed every real one):
+// #{j : (x_j, j) < (x_i, i)}, argsort's stable position.  Word j = j0 + k
+// of a load of four compares as (x_j, j0 + 4) < (x_i, i + 4 - k), so that
+// no index is computed a word; the count runs down from 0.
+__device__ __forceinline__ int rank_of(const uint32_t* x, int np, int i) {
+  const uint32_t xi = x[i], ci = uint32_t(i) + 4u;
+  const uint4* x4 = reinterpret_cast<const uint4*>(x);
+  uint32_t r = 0u;
+  for (int j4 = 0; j4 < np / 4; ++j4) {
+    const uint4 q = x4[j4];
+    const uint32_t jj = 4u * uint32_t(j4) + 4u;
+    r = sub_lt(r, q.x, jj, xi, ci);
+    r = sub_lt(r, q.y, jj, xi, ci - 1u);
+    r = sub_lt(r, q.z, jj, xi, ci - 2u);
+    r = sub_lt(r, q.w, jj, xi, ci - 3u);
+  }
+  return int(0u - r);
+}
+
+// Division by d as a multiply: q(x) = umulhi(x, ceil(2^32 / d)) is x / d
+// for every x < 2^32 / d (its error x (ceil(2^32 / d) d - 2^32) / (d
+// 2^32) stays under 1 / d).  Every flat index here is below 2^13 (tile * n
+// <= kTileWords), every divisor at most 2048.
+struct Div {
+  uint32_t d, m;
+  __device__ explicit Div(int d_)
+      : d(uint32_t(d_)), m(d_ > 1 ? 0xFFFFFFFFu / uint32_t(d_) + 1u : 0u) {}
+  __device__ int q(int x) const {
+    return d > 1u ? int(__umulhi(uint32_t(x), m)) : x;
+  }
+};
+
+// Named barriers: the warps past warp 0 draw the first tile's Q bits and
+// start its words while warp 0 runs the permutation.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
 }
 
 // classical_flip_ints at (row, s): the row's qubits' flips, big-endian.
+// The noise kind is drawn only where the qubit's Pauli draw fired, and
+// neither stream where its probability is 0.
 template <bool kLegacy>
-__device__ __forceinline__ int flip_int(const TrialKeys& K, const Params& P,
+__device__ __forceinline__ int flip_int(const Key* ks, const Params& P,
                                         uint32_t row, uint32_t s) {
   const uint32_t nq = uint32_t(P.n_qubits);
   const uint32_t table = uint32_t(P.n + 1) * uint32_t(P.size_l) * nq;
@@ -160,180 +361,264 @@ __device__ __forceinline__ int flip_int(const TrialKeys& K, const Params& P,
   int out = 0;
   for (uint32_t q = 0; q < nq; ++q) {
     const uint32_t i = base + q;
-    const bool pauli = uniform_at<kLegacy>(K.pauli, i, table) < P.p_dep;
-    const uint32_t kind =
-        randint_at<kLegacy>(K.kind_hi, K.kind_lo, i, 3u, table);
-    const bool mflip = uniform_at<kLegacy>(K.mflip, i, table) < P.p_mf;
-    out |= int((pauli && kind != 2u) != mflip) << (nq - 1u - q);
+    bool flip = false;
+    if (P.p_dep > 0.0f &&
+        uniform_at<kLegacy>(ks[kKPauli], i, table) < P.p_dep)
+      flip = randint_at<kLegacy>(ks[kKKindHi], ks[kKKindLo], i, 3u,
+                                 table) != 2u;
+    if (P.p_mf > 0.0f)
+      flip ^= uniform_at<kLegacy>(ks[kKMflip], i, table) < P.p_mf;
+    out |= int(flip) << (nq - 1u - q);
   }
   return out;
 }
 
-template <bool kLegacy, int kForm>
+template <bool kLegacy, int kForm, bool kClock = false>
 __global__ void __launch_bounds__(kThreads) setup_trial_kernel(Params P) {
   constexpr bool kHasLists = kForm == kWhole || kForm == kLists;
   constexpr bool kHasOrders = kForm != kLists;
   constexpr bool kHasPsets = kForm == kWhole || kForm == kGiven;
-  __shared__ TrialKeys K;
-  extern __shared__ uint32_t smem[];
+  __shared__ Key ks[kKeyCount];
+  __shared__ int n_q;   // the tile's Q-correlated positions
+  __shared__ int next;  // the words' next chunk of entries
+  extern __shared__ __align__(16) uint32_t smem[];
   const int n = P.n, S = P.size_l, n_lt = P.n - 1, tile = P.tile;
+  const int np = P.np, ld = P.ld;
   const int tid = int(threadIdx.x);
+  constexpr int nt = kThreads;
+  const int lane = tid & (kWarp - 1);
+  const bool warp0 = tid < kWarp;
   const size_t t = blockIdx.x;
-  // Shared memory: the sort words, the permutation's two buffers, the
-  // lieutenants' orders, rows 0 and 1 and r of a tile (int32), then the
-  // honesty and a tile's Q bits (bytes).
+  // Shared memory: a tile's words (np a position), the permutation's
+  // words, the tile's rows ((n + 1) rows of stride ld), r and the Q list
+  // of a tile, the lieutenants' orders (int32), then the honesty and a
+  // tile's Q bits (bytes).
   uint32_t* words = smem;
-  int* perm_a = reinterpret_cast<int*>(words + size_t(tile) * n);
-  int* perm_b = perm_a + n;
-  int* vs = perm_b + n;
-  int* row0s = vs + n_lt;
-  int* row1s = row0s + tile;
-  int* rs = row1s + tile;
-  uint8_t* hon = reinterpret_cast<uint8_t*>(rs + tile);
+  uint32_t* perm_w = words + size_t(tile) * np;
+  int* rows = reinterpret_cast<int*>(perm_w + np);
+  int* rs = rows + size_t(n + 1) * ld;
+  int* qidx = rs + tile;
+  int* vs = qidx + tile;
+  uint8_t* hon = reinterpret_cast<uint8_t*>(vs + n_lt);
   uint8_t* qc = hon + n + 1;
+  SetupClock<kClock> clk;
+  clk.start();
 
   const Key trial = key_of(P.keys + 2 * t);
-  if (tid == 0 * kWarp && kHasOrders) {
-    Key kd = split_at<kLegacy>(trial, 0u, 4u);
-    for (int r = 0; r < P.perm_rounds; ++r) {
-      K.perm[r] = split_at<kLegacy>(kd, 1u, 2u);
-      kd = split_at<kLegacy>(kd, 0u, 2u);
+  if (warp0) {
+    // A lane a key: its path from the trial key.
+    const bool live =
+        lane < kKeyCount &&
+        (lane == kKPerm ? kHasOrders
+         : lane < kKPauli ? kHasLists
+         : lane < kKV ? kHasLists && P.noise
+         : lane < kKTargetHi ? kHasOrders
+         : lane < kKLists ? kHasOrders && P.target != nullptr
+                          : kForm == kOrders);
+    Key k = trial;
+    if (live) {
+      const int first = kForm == kLists && lane >= kKL0 && lane < kKV;
+      for (int st = first; st < kMaxSteps; ++st) {
+        const uint32_t code = kPaths[lane][st];
+        if (code == kOpEnd) break;
+        k = key_step<kLegacy>(k, code);
+      }
     }
-  } else if (tid == 1 * kWarp && (kHasLists || kForm == kOrders)) {
-    const Key kl =
-        kForm == kLists ? trial : split_at<kLegacy>(trial, 1u, 4u);
-    if constexpr (kForm == kOrders) {
-      store_key(P.k_lists + 2 * t, kl);
-    } else {
-      K.l0 = split_at<kLegacy>(kl, 0u, 4u);
-      const Key l1 = split_at<kLegacy>(kl, 1u, 4u);
-      K.l2 = split_at<kLegacy>(kl, 2u, 4u);
-      const Key l3 = split_at<kLegacy>(kl, 3u, 4u);
-      K.r_hi = split_at<kLegacy>(l1, 0u, 2u);
-      K.r_lo = split_at<kLegacy>(l1, 1u, 2u);
-      K.u_hi = split_at<kLegacy>(l3, 0u, 2u);
-      K.u_lo = split_at<kLegacy>(l3, 1u, 2u);
-    }
-  } else if (tid == 2 * kWarp && kHasLists && P.noise) {
-    const Key kl =
-        kForm == kLists ? trial : split_at<kLegacy>(trial, 1u, 4u);
-    const Key kn = fold_in(kl, kNoiseTag);
-    K.pauli = split_at<kLegacy>(kn, 0u, 3u);
-    const Key kind = split_at<kLegacy>(kn, 1u, 3u);
-    K.mflip = split_at<kLegacy>(kn, 2u, 3u);
-    K.kind_hi = split_at<kLegacy>(kind, 0u, 2u);
-    K.kind_lo = split_at<kLegacy>(kind, 1u, 2u);
-  } else if (tid == 3 * kWarp && kHasOrders) {
-    const Key kc = split_at<kLegacy>(trial, 2u, 4u);
-    const uint32_t w = uint32_t(P.w);
-    K.v = scalar_randint<kLegacy>(split_at<kLegacy>(kc, 0u, 3u), w);
-    K.v1 = scalar_randint<kLegacy>(split_at<kLegacy>(kc, 1u, 3u), w);
-    const int d = scalar_randint<kLegacy>(split_at<kLegacy>(kc, 2u, 3u),
-                                          w > 1u ? w - 1u : 1u);
-    K.v2 = (K.v1 + 1 + d) % P.w;
-    const Key kr = split_at<kLegacy>(trial, 3u, 4u);
-    store_key(P.k_rounds + 2 * t, kr);
-    P.v_comm[t] = K.v;
-    if (P.target)
-      P.target[t] = scalar_randint<kLegacy>(fold_in(kr, kColludeTag),
-                                            uint32_t(n + 1));
+    if (lane < kKeyCount) ks[lane] = k;
+    if (lane == kKRounds && live) store_key(P.k_rounds + 2 * t, k);
+    if (lane == kKLists && live) store_key(P.k_lists + 2 * t, k);
+    if (lane == 0) n_q = next = 0;
   }
   __syncthreads();
+  clk.mark(kSpKeys);
 
-  if constexpr (kHasOrders) {
-    // The permutation of ranks 1..n, then the honesty by rank.
-    int* cur = perm_a;
-    int* nxt = perm_b;
-    for (int i = tid; i < n; i += kThreads) cur[i] = i + 1;
-    for (int r = 0; r < P.perm_rounds; ++r) {
-      for (int i = tid; i < n; i += kThreads)
-        words[i] = bits_at<kLegacy>(K.perm[r], uint32_t(i), uint32_t(n));
-      __syncthreads();
-      for (int i = tid; i < n; i += kThreads)
-        nxt[rank_of(words, n, i)] = cur[i];
-      __syncthreads();
-      int* tmp = cur;
-      cur = nxt;
-      nxt = tmp;
+  // A thread a position of the tile from s0: the Q bit, r and the Q list
+  // where Q-correlated, the pads of the position's words.
+  auto q_bits = [&](int s0, int tp, int from) {
+    for (int sl = tid - from; sl < tp; sl += nt - from) {
+      const uint32_t s = uint32_t(s0 + sl);
+      const bool q = uniform_at<kLegacy>(ks[kKL0], s, uint32_t(S)) < 0.5f;
+      qc[sl] = q;
+      if (q) {
+        rs[sl] = int(randint_pow2(
+            bits_at<kLegacy>(ks[kKRLo], s, uint32_t(S)), uint32_t(P.w)));
+        qidx[atomicAdd(&n_q, 1)] = sl;
+      }
+      for (int i = n; i < np; ++i) words[size_t(sl) * np + i] = ~0u;
     }
-    for (int i = tid; i <= n; i += kThreads) hon[i] = 1;
-    __syncthreads();
-    for (int i = tid; i < P.n_dishonest; i += kThreads) hon[cur[i]] = 0;
-    __syncthreads();
+  };
+  if (kHasOrders && warp0) {
+    // The permutation of ranks 1..n (one round): word i's rank is its
+    // party's place, and the first n_dishonest places are dishonest; then
+    // the orders.  Warp 0 alone, warp barriers only.
+    for (int i = lane; i < np; i += kWarp)
+      perm_w[i] =
+          i < n ? bits_at<kLegacy>(ks[kKPerm], uint32_t(i), uint32_t(n))
+                : ~0u;
+    __syncwarp();
+    if (lane == 0) hon[0] = 1;
+    for (int i = lane; i < n; i += kWarp)
+      hon[i + 1] = rank_of(perm_w, np, i) >= P.n_dishonest;
+    __syncwarp();
     uint8_t* honest = P.honest + t * size_t(n + 1);
-    for (int i = tid; i <= n; i += kThreads) honest[i] = hon[i];
+    for (int i = lane; i <= n; i += kWarp) honest[i] = hon[i];
+    const uint32_t w = uint32_t(P.w);
+    const int v = int(randint_pow2(ks[kKV].k0, w));
+    const int v1 = int(randint_pow2(ks[kKV1].k0, w));
+    const int v2 = int((uint32_t(v1) + 1u +
+                        randint_words(ks[kKV2Hi].k0, ks[kKV2Lo].k0,
+                                      w > 1u ? w - 1u : 1u)) % w);
+    if (lane == 0) {
+      P.v_comm[t] = v;
+      if (P.target)
+        P.target[t] = int(randint_words(ks[kKTargetHi].k0,
+                                        ks[kKTargetLo].k0, uint32_t(n + 1)));
+    }
     const bool comm_honest = hon[1] != 0;
-    for (int l = tid; l < n_lt; l += kThreads) {
+    for (int l = lane; l < n_lt; l += kWarp) {
       const int rank = l + 2;
       const bool first = P.split ? rank % 2 == 0 : rank <= (n + 1) / 2;
-      const int v = comm_honest ? K.v : first ? K.v1 : K.v2;
-      vs[l] = v;
-      P.v_sent[t * size_t(n_lt) + l] = v;
+      const int vl = comm_honest ? v : first ? v1 : v2;
+      vs[l] = vl;
+      P.v_sent[t * size_t(n_lt) + l] = vl;
     }
+  } else if (kHasLists && !warp0) {
+    // The first tile's Q bits, then on to its words: warp 0 joins them
+    // after the permutation (barrier 1), the others go on together
+    // (barrier 2).
+    q_bits(0, min(tile, S), kWarp);
+    bar_arrive(1, nt);
+    bar_sync(2, nt - kWarp);
   }
   if constexpr (kForm == kOrders) return;
+  if constexpr (kHasLists) {
+    if (warp0) bar_sync(1, nt);
+  } else {
+    __syncthreads();
+  }
+  clk.mark(kSpPerm);
 
   const int n_out = n + 1 - P.row0;
   int32_t* lists = P.lists + t * size_t(n_out) * S;
-  // A row's value at position s (tile slot sl): rows 0 and 1 into shared
-  // memory for the P-sets, rows row0.. to device memory.
-  auto put = [&](int row, int sl, int s, int v) {
-    if (row == 0) row0s[sl] = v;
-    if (row == 1) row1s[sl] = v;
-    if (row >= P.row0) lists[size_t(row - P.row0) * S + s] = v;
-  };
-  const uint32_t w = uint32_t(P.w);
+  // Whole 16-byte rows and 4-byte P-set words where S and the tiles keep
+  // them aligned.
+  const bool vec = (S & 3) == 0 && (tile & 3) == 0;
+  const Div by_n(n);
   for (int s0 = 0; s0 < S; s0 += tile) {
     const int tp = min(tile, S - s0);
+    const Div by_tp(tp);
     if constexpr (kHasLists) {
-      const uint32_t noise_n = uint32_t(S) * uint32_t(n);
-      for (int idx = tid; idx < tp * n; idx += kThreads)
-        words[idx] = bits_at<kLegacy>(K.l2, uint32_t(s0 * n + idx), noise_n);
-      for (int sl = tid; sl < tp; sl += kThreads) {
-        const uint32_t s = uint32_t(s0 + sl);
-        qc[sl] = uniform_at<kLegacy>(K.l0, s, uint32_t(S)) < 0.5f;
-        rs[sl] = int(randint_at<kLegacy>(K.r_hi, K.r_lo, s, w, uint32_t(S)));
+      if (s0 > 0) {
+        q_bits(s0, tp, 0);
+        __syncthreads();
+      }
+      // A hash an entry (s, i), a warp a chunk of 32 entries: the noise
+      // word where Q-correlated, else u[i][s] into row i + 1 (and row 0
+      // from u[0][s]).
+      const uint32_t table = uint32_t(S) * uint32_t(n);
+      const int total = tp * n;
+      for (;;) {
+        int c = 0;
+        if (lane == 0) c = atomicAdd(&next, kWarp);
+        c = __shfl_sync(0xFFFFFFFFu, c, 0);
+        if (c >= total) break;
+        const int idx = c + lane;
+        if (idx < total) {
+          const int sl = by_n.q(idx), i = idx - sl * n;
+          const uint32_t s = uint32_t(s0 + sl);
+          const bool q = qc[sl] != 0;
+          const uint32_t h = bits_at<kLegacy>(
+              q ? ks[kKL2] : ks[kKULo],
+              q ? uint32_t(s0) * uint32_t(n) + uint32_t(idx)
+                : uint32_t(i) * uint32_t(S) + s,
+              table);
+          if (q) {
+            words[size_t(sl) * np + i] = h;
+            if (i == 0) rows[sl] = rs[sl];
+          } else {
+            const int v = int(randint_pow2(h, uint32_t(P.w)));
+            rows[(i + 1) * ld + sl] = v;
+            if (i == 0) rows[sl] = v;
+          }
+        }
       }
       __syncthreads();
-      for (int idx = tid; idx < tp * n; idx += kThreads) {
-        const int sl = idx / n, i = idx - sl * n, s = s0 + sl;
-        const int rank = rank_of(words + sl * n, n, i);
-        int v = qc[sl] ? rs[sl] ^ (i + 1)
-                       : int(randint_at<kLegacy>(
-                             K.u_hi, K.u_lo, uint32_t(rank * S + s), w,
-                             noise_n));
-        if (P.noise) v ^= flip_int<kLegacy>(K, P, uint32_t(rank + 1), s);
-        put(rank + 1, sl, s, v);
+      if (tid == 0) next = 0;
+      clk.mark(kSpWords);
+      // A thread a (Q-correlated position, word): its rank, row 1 + rank.
+      const int nq = n_q;
+      for (int idx = tid; idx < nq * n; idx += nt) {
+        const int k = by_n.q(idx), i = idx - k * n, sl = qidx[k];
+        const int rank = rank_of(words + size_t(sl) * np, np, i);
+        rows[(rank + 1) * ld + sl] = rs[sl] ^ (i + 1);
       }
-      for (int sl = tid; sl < tp; sl += kThreads) {
-        const int s = s0 + sl;
-        int v = qc[sl] ? rs[sl]
-                       : int(randint_at<kLegacy>(K.u_hi, K.u_lo, uint32_t(s),
-                                                 w, noise_n));
-        if (P.noise) v ^= flip_int<kLegacy>(K, P, 0u, uint32_t(s));
-        put(0, sl, s, v);
+      __syncthreads();
+      if (tid == 0) n_q = 0;
+      clk.mark(kSpRanks);
+      if (P.noise) {
+        for (int idx = tid; idx < (n + 1) * tp; idx += nt) {
+          const int row = by_tp.q(idx), sl = idx - row * tp;
+          rows[row * ld + sl] ^=
+              flip_int<kLegacy>(ks, P, uint32_t(row), uint32_t(s0 + sl));
+        }
+        __syncthreads();
       }
+      clk.mark(kSpFlips);
     } else {
       const int32_t* in = P.lists_in + t * size_t(n + 1) * S;
-      for (int idx = tid; idx < (n + 1) * tp; idx += kThreads) {
-        const int row = idx / tp, sl = idx - row * tp;
-        put(row, sl, s0 + sl, in[size_t(row) * S + s0 + sl]);
+      for (int idx = tid; idx < (n + 1) * tp; idx += nt) {
+        const int row = by_tp.q(idx), sl = idx - row * tp;
+        rows[row * ld + sl] = in[size_t(row) * S + s0 + sl];
       }
+      __syncthreads();
     }
-    __syncthreads();
-    if constexpr (kHasPsets) {
-      uint8_t* p_rows = P.p_rows + t * size_t(n_lt) * S;
-      for (int idx = tid; idx < n_lt * tp; idx += kThreads) {
-        const int l = idx / tp, sl = idx - l * tp;
-        p_rows[size_t(l) * S + s0 + sl] =
-            uint8_t(row0s[sl] != row1s[sl] && row1s[sl] == vs[l]);
+    // The tile's rows row0.. to device memory, row by row, and the
+    // P-sets from rows 0 and 1 (or the Q bits).
+    if (vec) {
+      const int q4 = tp / 4;
+      const Div by_q4(q4);
+      for (int idx = tid; idx < n_out * q4; idx += nt) {
+        const int r = by_q4.q(idx), sl = 4 * (idx - r * q4);
+        const int* src = rows + (r + P.row0) * ld + sl;
+        *reinterpret_cast<int4*>(lists + size_t(r) * S + s0 + sl) =
+            make_int4(src[0], src[1], src[2], src[3]);
       }
     } else {
-      for (int sl = tid; sl < tp; sl += kThreads)
+      for (int idx = tid; idx < n_out * tp; idx += nt) {
+        const int r = by_tp.q(idx), sl = idx - r * tp;
+        lists[size_t(r) * S + s0 + sl] = rows[(r + P.row0) * ld + sl];
+      }
+    }
+    if constexpr (kHasPsets) {
+      uint8_t* p_rows = P.p_rows + t * size_t(n_lt) * S;
+      if (vec) {
+        const int q4 = tp / 4;
+        const Div by_q4(q4);
+        for (int idx = tid; idx < n_lt * q4; idx += nt) {
+          const int l = by_q4.q(idx), sl = 4 * (idx - l * q4);
+          uint32_t bits = 0u;
+          for (int k = 0; k < 4; ++k) {
+            const int r0 = rows[sl + k], r1 = rows[ld + sl + k];
+            bits |= uint32_t(r0 != r1 && r1 == vs[l]) << (8 * k);
+          }
+          *reinterpret_cast<uint32_t*>(p_rows + size_t(l) * S + s0 + sl) =
+              bits;
+        }
+      } else {
+        for (int idx = tid; idx < n_lt * tp; idx += nt) {
+          const int l = by_tp.q(idx), sl = idx - l * tp;
+          const int r0 = rows[sl], r1 = rows[ld + sl];
+          p_rows[size_t(l) * S + s0 + sl] = uint8_t(r0 != r1 && r1 == vs[l]);
+        }
+      }
+    } else {
+      for (int sl = tid; sl < tp; sl += nt)
         P.qcorr[t * size_t(S) + s0 + sl] = qc[sl];
     }
     __syncthreads();
+    clk.mark(kSpOut);
   }
+  if constexpr (kClock) clk.store(P.clock + t * kPhases);
 }
 
 template <bool kLegacy>
@@ -346,37 +631,86 @@ void* kernel_of(int form) {
   }
 }
 
+// The trial keys split(root', num), root' = fold_in(root, d) or root, as
+// 2 num words (key t is words 2t and 2t + 1): thread t hashes once.  In
+// the partitionable mode its hash (0, t) is key t.  In the legacy mode
+// the split is bits over 2 num words with h = num, so hash (t, t + num)
+// gives word t (y0) and word t + num (y1): the thread writes both.  The
+// root comes from device memory or by value; d from device memory (an
+// int32, cast to uint32 as JAX casts it), so a CUDA graph replays the
+// launch with a new carry, or by value.  The fold is a hash a thread.
+constexpr int kKeyThreads = 256;
+enum FoldMode { kFoldNone, kFoldTensor, kFoldValue };
+
+template <bool kLegacy>
+__global__ void __launch_bounds__(kKeyThreads)
+    trial_keys_kernel(const int64_t* root, Key by_value, const int32_t* fold,
+                      int fold_mode, uint32_t fold_value, int64_t* out,
+                      uint32_t num) {
+  const uint32_t t = blockIdx.x * uint32_t(kKeyThreads) + threadIdx.x;
+  if (t >= num) return;
+  Key k = root ? key_of(root) : by_value;
+  if (fold_mode != kFoldNone)
+    k = fold_in(k, fold_mode == kFoldTensor ? uint32_t(*fold) : fold_value);
+  if constexpr (kLegacy) {
+    uint32_t y0 = t, y1 = t + num;
+    threefry2x32(k, y0, y1);
+    out[t] = int64_t(y0);
+    out[size_t(t) + num] = int64_t(y1);
+  } else {
+    store_key(out + 2 * size_t(t), split_at<false>(k, t, num));
+  }
+}
+
 }  // namespace
 
 // Shared memory of a launch in bytes (the Python mirror is
 // setup_kernel.py :: setup_smem_bytes).
 extern "C" int qba_setup_smem_bytes(int n, int tile) {
-  return 4 * (tile * n + 2 * n + (n - 1) + 3 * tile) + (n + 1) + tile;
+  const int np = (n + 3) & ~3, ld = tile | 1;
+  return 4 * (tile * np + np + (n + 1) * ld + 2 * tile + (n - 1)) +
+         (n + 1) + tile;
+}
+
+// List positions a tile (setup_kernel.py :: setup_tile): at most
+// kTileWords / n, and as many as keep qba_setup_smem_bytes within
+// kSmemBytes (the bytes a position adds, with ld <= tile + 1, over what
+// the rest takes), a multiple of 4 there; at least one.
+static int setup_tile(int n, int size_l) {
+  const int np = (n + 3) & ~3;
+  const int per = 4 * np + 4 * (n + 1) + 9;
+  const int fixed = 4 * (np + (n + 1) + (n - 1)) + (n + 1);
+  int tile = size_l < kTileWords / n ? size_l : kTileWords / n;
+  const int fit = ((kSmemBytes - fixed) / per) & ~3;
+  if (tile > fit) tile = fit;
+  return tile > 1 ? tile : 1;
 }
 
 // Returns a cudaError_t: 0 on a launch that was accepted.  p_dep_bits and
 // p_mf_bits are float32 p_depolarize's and p_measure_flip's bit patterns;
-// legacy selects JAX's non-partitionable threefry mode.
+// legacy selects JAX's non-partitionable threefry mode; a clock launches
+// the phase clock's instantiation (the whole form, partitionable).
 extern "C" int qba_setup_trial(
     const void* keys, const void* lists_in, void* honest, void* lists,
     void* p_rows, void* v_sent, void* v_comm, void* k_rounds, void* target,
-    void* k_lists, void* qcorr, int n_trials, int n_parties, int n_dishonest,
-    int size_l, int w, int n_qubits, int split, int perm_rounds, int row0,
-    int noise, int p_dep_bits, int p_mf_bits, int form, int legacy,
-    void* stream) {
+    void* k_lists, void* qcorr, void* clock, int n_trials, int n_parties,
+    int n_dishonest, int size_l, int w, int n_qubits, int split, int row0,
+    int noise, int p_dep_bits, int p_mf_bits,
+    int form, int legacy, void* stream) {
   if (n_trials <= 0) return 0;
   const long long n = n_parties, S = size_l;
   if (n < 2 || n > kMaxParties || S < 1 || n_dishonest < 0 ||
       n_dishonest > n || w <= n || w > 2 * kMaxParties || (w & (w - 1)) ||
-      n_qubits < 1 || (1 << n_qubits) != w || perm_rounds < 0 ||
-      perm_rounds > kMaxPermRounds || form < kWhole || form > kLists ||
+      n_qubits < 1 || (1 << n_qubits) != w || form < kWhole ||
+      form > kLists ||
       (row0 != 0 && row0 != 2) || !keys ||
       (form != kLists && (!honest || !v_sent || !v_comm || !k_rounds)) ||
       (form == kOrders && !k_lists) || (form == kGiven && !lists_in) ||
       (form != kOrders && !lists) ||
       ((form == kWhole || form == kGiven) && !p_rows) ||
       (form == kLists && (!qcorr || row0 != 0)) ||
-      (n + 1) * S * n_qubits >= 0xFFFFFFFFll || n_trials > INT_MAX)
+      (n + 1) * S * n_qubits >= 0xFFFFFFFFll || n_trials > INT_MAX ||
+      (clock && (legacy || form != kWhole)))
     return int(cudaErrorInvalidValue);
   Params P;
   P.keys = static_cast<const int64_t*>(keys);
@@ -390,24 +724,54 @@ extern "C" int qba_setup_trial(
   P.target = static_cast<int32_t*>(target);
   P.k_lists = static_cast<int64_t*>(k_lists);
   P.qcorr = static_cast<uint8_t*>(qcorr);
+  P.clock = static_cast<long long*>(clock);
   P.n = n_parties;
   P.n_dishonest = n_dishonest;
   P.size_l = size_l;
   P.w = w;
   P.n_qubits = n_qubits;
   P.split = split;
-  P.perm_rounds = perm_rounds;
   P.row0 = row0;
   P.noise = noise;
   std::memcpy(&P.p_dep, &p_dep_bits, sizeof(float));
   std::memcpy(&P.p_mf, &p_mf_bits, sizeof(float));
-  P.tile = int(S < kTileWords / n ? S : kTileWords / n);
+  P.tile = setup_tile(n_parties, size_l);
+  P.np = (n_parties + 3) & ~3;
+  P.ld = P.tile | 1;
   const int smem = qba_setup_smem_bytes(n_parties, P.tile);
-  void* kernel = legacy ? kernel_of<true>(form) : kernel_of<false>(form);
+  if (smem > kSmemBytes) return int(cudaErrorInvalidValue);
+  void* kernel = clock ? (void*)setup_trial_kernel<false, kWhole, true>
+                 : legacy ? kernel_of<true>(form) : kernel_of<false>(form);
   void* args[] = {&P};
   cudaError_t rc = cudaLaunchKernel(kernel, dim3(unsigned(n_trials)),
-                                    dim3(kThreads), args, size_t(smem),
+                                    dim3(unsigned(kThreads)), args,
+                                    size_t(smem),
                                     static_cast<cudaStream_t>(stream));
   if (rc != cudaSuccess) return int(rc);
+  return int(cudaGetLastError());
+}
+
+// The trial keys' split: out int64 [num, 2]; root int64 [2] on the device,
+// or null for the key (root0, root1) by value; fold_mode 0 (no fold_in), 1
+// (the int32 at `fold`) or 2 (fold_value).
+extern "C" int qba_trial_keys(const void* root, const void* fold, void* out,
+                              int num, int root0, int root1, int fold_mode,
+                              int fold_value, int legacy, void* stream) {
+  if (num <= 0) return 0;
+  if (!out || fold_mode < kFoldNone || fold_mode > kFoldValue ||
+      (fold_mode == kFoldTensor && !fold))
+    return int(cudaErrorInvalidValue);
+  const Key by_value{uint32_t(root0), uint32_t(root1)};
+  const int64_t* r = static_cast<const int64_t*>(root);
+  const int32_t* f = static_cast<const int32_t*>(fold);
+  int64_t* o = static_cast<int64_t*>(out);
+  const unsigned blocks = unsigned((num + kKeyThreads - 1) / kKeyThreads);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (legacy)
+    trial_keys_kernel<true><<<blocks, kKeyThreads, 0, st>>>(
+        r, by_value, f, fold_mode, uint32_t(fold_value), o, uint32_t(num));
+  else
+    trial_keys_kernel<false><<<blocks, kKeyThreads, 0, st>>>(
+        r, by_value, f, fold_mode, uint32_t(fold_value), o, uint32_t(num));
   return int(cudaGetLastError());
 }

@@ -60,6 +60,7 @@ import torch
 from qba_tpu_torch import random as jr
 from qba_tpu_torch.config import QBAConfig
 from qba_tpu_torch.ops._launch import check, dispatch, timed_launch
+from qba_tpu_torch.ops.setup_kernel import keys_kernel
 from qba_tpu_torch.ops.sweep_loop import (
     BODY_NODE_TYPES,
     NODE_TYPE_NAMES,
@@ -314,8 +315,7 @@ def branch_step(cfg: QBAConfig, chunk_trials: int, root, carry, slot, *,
     from qba_tpu_torch.rounds.engine import run_trial
 
     p = jr.resolve_mode(partitionable)
-    keys = jr.split(jr.fold_in(root, carry[I_CUR]), chunk_trials,
-                    partitionable=p)
+    keys = keys_kernel(root, chunk_trials, carry[I_CUR], partitionable=p)
     res = run_trial(cfg, keys, partitionable=p)
     slot[0].copy_(res.success)
     slot[1].copy_(res.overflow)

@@ -51,6 +51,7 @@ import torch
 from qba_tpu_torch import random as jr
 from qba_tpu_torch.config import QBAConfig
 from qba_tpu_torch.ops._launch import check, dispatch, timed_launch
+from qba_tpu_torch.ops.setup_kernel import keys_kernel
 
 # The carry's head: the chunk index, the running success count, the flag.
 HEAD = 3
@@ -198,8 +199,7 @@ def chunk_step(cfg: QBAConfig, chunk_trials: int, root, carry, lo, hi,
     from qba_tpu_torch.rounds.engine import run_trial
 
     p = jr.resolve_mode(partitionable)
-    keys = jr.split(jr.fold_in(root, carry[0]), chunk_trials,
-                    partitionable=p)
+    keys = keys_kernel(root, chunk_trials, carry[0], partitionable=p)
     res = run_trial(cfg, keys, partitionable=p)
     sweep_stop(res.success.contiguous(), res.overflow.contiguous(), lo, hi,
                carry, handle)

@@ -90,16 +90,17 @@ def threefry_partitionable(flag: bool = True):
 
 
 def key(seed: int, device=None) -> torch.Tensor:
-    """``jax.random.key(seed)``'s key data: ``[seed >> 32, seed & M32]``
-    for a seed in int32 range (JAX truncates Python ints to int32 in its
-    default 32-bit mode).  Filled on ``device``, with no copy from host
-    memory, so a CUDA graph may capture it."""
+    """``jax.random.key(seed)``'s key data for a seed in int32 range (JAX
+    truncates Python ints to int32 in its default 32-bit mode): ``[0,
+    seed & M32]``, the high word being JAX's logical shift of the int32
+    seed by 32 bits, which is 0 for a negative seed too.  Filled on
+    ``device``, with no copy from host memory, so a CUDA graph may
+    capture it."""
     s = int(seed)
     if not -(2**31) <= s < 2**31:
         raise ValueError(f"seed {s} outside int32 range")
-    hi = _M32 if s < 0 else 0
     k = torch.full((2,), s & _M32, dtype=torch.int64, device=device)
-    k[:1].fill_(hi)
+    k[:1].fill_(0)
     return k
 
 

@@ -52,6 +52,7 @@ from qba_tpu_torch.diagnostics import (
 from qba_tpu_torch.obs.events import EventLog
 from qba_tpu_torch.obs.manifest import collect_manifest
 from qba_tpu_torch.obs.timers import PhaseTimers
+from qba_tpu_torch.ops.setup_kernel import keys_kernel
 from qba_tpu_torch.stats.estimators import SweepEstimators
 from qba_tpu_torch.stats.estimators import success_rate as _success_rate
 from qba_tpu_torch.stats.sequential import StopDecision
@@ -128,9 +129,10 @@ def chunk_keys(cfg: QBAConfig, chunk: int, chunk_trials: int,
     """The chunk's trial keys int64 ``[chunk_trials, 2]`` on ``device``
     — a pure function of (seed, chunk) and the threefry mode, so a
     resumed sweep consumes randomness identical to an uninterrupted
-    one."""
-    root = jr.fold_in(jr.key(cfg.seed, device), chunk)
-    return jr.split(root, chunk_trials, partitionable=partitionable)
+    one.  On CUDA one launch of the key entry
+    (:func:`~qba_tpu_torch.ops.setup_kernel.keys_kernel`)."""
+    return keys_kernel(cfg.seed, chunk_trials, chunk, device=device,
+                       partitionable=partitionable)
 
 
 def _config_fingerprint(cfg: QBAConfig) -> dict[str, Any]:

@@ -1527,6 +1527,11 @@ SETUP_CASES = {
                         strategy="collude"),
     "65p-adaptive": dict(n_parties=65, size_l=70, n_dishonest=21,
                          strategy="adaptive"),
+    # Tiles sized by the shared memory's limit.
+    "5p-L1000-noise": dict(n_parties=5, size_l=1000, n_dishonest=2,
+                           p_depolarize=0.05, p_measure_flip=0.02),
+    "3p-L2048-split": dict(n_parties=3, size_l=2048, n_dishonest=1,
+                           strategy="split"),
 }
 
 
@@ -1601,3 +1606,49 @@ def test_setup_kernel_refuses_what_it_cannot_serve(cuda):
     with pytest.raises(TypeError, match="dtype"):
         sk.setup_kernel(small, torch.zeros(2, 2, dtype=torch.int32,
                                            device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("partitionable", [True, False])
+def test_keys_kernel_matches_plain(cuda, partitionable):
+    # The key entry equals split(fold_in(root, d), num) bit for bit: odd
+    # and even counts (the legacy pairing), seed and key roots, folds as
+    # ints and as int32 tensors; one launch a call.
+    from qba_tpu_torch.ops import setup_kernel as sk
+
+    p = partitionable
+    folds = (None, 9, -2, torch.tensor(-4, dtype=torch.int32, device=cuda))
+    for num in (1, 6, 77):
+        for root in (-3, 41, jr.key(5, device=cuda)):
+            for fold in folds:
+                before = sk.keys_kernel.launches
+                got = sk.keys_kernel(root, num, fold, device=cuda,
+                                     partitionable=p)
+                assert sk.keys_kernel.launches == before + 1
+                want = sk.keys_reference(root, num, fold, device=cuda,
+                                         partitionable=p)
+                assert got.dtype == want.dtype and torch.equal(got, want)
+    with pytest.raises(TypeError, match="int32"):
+        sk.keys_kernel(3, 4, torch.tensor(1, device=cuda), device=cuda)
+
+
+@pytest.mark.cuda
+def test_setup_phase_clock(cuda):
+    # The clocked instantiation fills every block's phases and equals the
+    # unclocked launch; the legacy mode and the plain version refuse it.
+    from qba_tpu_torch.ops import setup_kernel as sk
+
+    cfg = qba_tpu_torch.QBAConfig(n_parties=11, size_l=64, n_dishonest=3,
+                                  trials=32)
+    keys = trial_keys(cfg, cuda)
+    clock = sk.setup_phase_clock(cfg.trials, cuda)
+    got = sk.setup_kernel(cfg, keys, "whole", clock=clock)
+    want = sk.setup_kernel(cfg, keys, "whole")
+    for f in ("honest", "lieu_lists", "p_rows", "v_sent", "v_comm"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    phases = sk.setup_phase_breakdown(clock)
+    assert phases["block"]["mean"] > 0 and phases["words"]["cycles"] > 0
+    with pytest.raises(sk.KernelUnsupported, match="phase clock"):
+        sk.setup_kernel(cfg, keys, "whole", partitionable=False, clock=clock)
+    with pytest.raises(ValueError, match="phase clock"):
+        sk.setup_kernel(cfg, keys.cpu(), "whole", clock=clock.cpu())

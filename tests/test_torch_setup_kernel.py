@@ -139,13 +139,10 @@ def test_mirror_matches_the_plain_setup(case, mode):
 JAX_CASES = ("5p-collude-noise", "6p-split-L7")
 
 
-@pytest.mark.parametrize("mode", list(MODES))
-@pytest.mark.parametrize("case", JAX_CASES)
-def test_mirror_and_plain_match_jax(case, mode):
-    p = MODES[mode]
-    jcfg = JConfig(trials=3, seed=23, **CASES[case])
-    cfg = config_from_jax_fields(dataclasses.asdict(jcfg))
-
+def jax_setup(jcfg, keys, p):
+    """The JAX package's jitted set-up of ``keys`` (typed JAX keys) in
+    threefry mode ``p``: honesty, lieutenants' lists, P-sets, orders, every
+    party's lists, the Q bits and the target (``v_comm`` without one)."""
     def one(key):
         honest, lieu, p_rows, v_sent, v_comm, k_rounds = j_setup(jcfg, key)
         lists, qcorr = j_lists(jcfg, jax.random.split(key, 4)[1])
@@ -154,8 +151,18 @@ def test_mirror_and_plain_match_jax(case, mode):
         return (honest, lieu, p_rows, v_sent, v_comm, lists, qcorr, target)
 
     with jax.threefry_partitionable(p):
+        return jax.tree.map(np.asarray, jax.jit(jax.vmap(one))(keys))
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("case", JAX_CASES)
+def test_mirror_and_plain_match_jax(case, mode):
+    p = MODES[mode]
+    jcfg = JConfig(trials=3, seed=23, **CASES[case])
+    cfg = config_from_jax_fields(dataclasses.asdict(jcfg))
+    with jax.threefry_partitionable(p):
         keys = jax.random.split(jax.random.key(jcfg.seed), jcfg.trials)
-        want = jax.tree.map(np.asarray, jax.jit(jax.vmap(one))(keys))
+    want = jax_setup(jcfg, keys, p)
     kt = key_from_jax(jax.random.key_data(keys))
     got = mirror(cfg, kt, "whole", p=p)
     plain = sk.setup_reference(cfg, kt, "whole", full_lists=True,
@@ -170,6 +177,34 @@ def test_mirror_and_plain_match_jax(case, mode):
     lists_keys = jr.split(kt, 4, partitionable=p)[:, 1]
     np.testing.assert_array_equal(
         mirror(cfg, lists_keys, "lists", p=p).qcorr.numpy(), want[6])
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_mirror_at_the_q_extremes(mode):
+    # Four positions a trial: trials whose positions are all Q-correlated
+    # (every word ranked, r everywhere) and none (u alone, no rank), with
+    # noise and the split strategy, against the plain set-up and JAX.
+    p = MODES[mode]
+    jcfg = JConfig(n_parties=5, size_l=4, n_dishonest=2, strategy="split",
+                   p_depolarize=0.1, p_measure_flip=0.05, trials=64, seed=7)
+    cfg = config_from_jax_fields(dataclasses.asdict(jcfg))
+    keys = keys_of(cfg, p)
+    qcorr = sk.setup_reference(cfg, jr.split(keys, 4, partitionable=p)[:, 1],
+                               "lists", partitionable=p).qcorr
+    picks = [int(torch.nonzero(qcorr.all(-1))[0, 0]),
+             int(torch.nonzero((~qcorr).all(-1))[0, 0])]
+    kt = keys[picks]
+    got = mirror(cfg, kt, "whole", p=p)
+    plain = sk.setup_reference(cfg, kt, "whole", full_lists=True,
+                               partitionable=p)
+    assert_same(got, plain, ("honest", "lieu_lists", "p_rows", "v_sent",
+                             "v_comm", "k_rounds", "lists"))
+    want = jax_setup(jcfg, jax.random.wrap_key_data(
+        kt.numpy().astype(np.uint32)), p)
+    for a, b in zip((got.honest, got.lieu_lists, got.p_rows, got.v_sent,
+                     got.v_comm, got.lists), want):
+        np.testing.assert_array_equal(a.numpy(), b)
+    np.testing.assert_array_equal(want[6], qcorr[picks].numpy())
 
 
 def test_cpu_keys_take_the_plain_path():
@@ -200,11 +235,14 @@ def test_cpu_keys_take_the_plain_path():
 
 
 def test_tiles_bound_shared_memory():
+    # Few parties with long lists: the shared memory's limit sizes the
+    # tile (a multiple of 4), not its words.
     for n, size_l, tile in ((33, 64, 64), (65, 64, 63), (1024, 500, 4),
-                            (11, 1000, 372)):
+                            (11, 1000, 372), (5, 1000, 736),
+                            (3, 2048, 1172), (2, 4096, 1296)):
         cfg = QBAConfig(n_parties=n, size_l=size_l, n_dishonest=0)
         assert sk.setup_tile(cfg) == tile
-        assert sk.setup_smem_bytes(cfg) <= 48 * 1024
+        assert sk.setup_smem_bytes(cfg) <= sk.SMEM_BYTES < 48 * 1024
     # 3 ln n / ln(2**32 - 1) passes 1 at n = 1626.
     assert sk.perm_rounds(1625) == 1 and sk.perm_rounds(1626) == 2
 
